@@ -1,0 +1,487 @@
+"""Smoke test of the PyTorch/CUDA port (``tpu_llama_torch``) on one NVIDIA card.
+
+Run from the root of a checkout:  ``python3 chip_smoke.py``
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. the device: ``torch.cuda`` name and count, and ``nvidia-smi``'s name and
+   power limit;
+2. build every CUDA kernel from ``tpu_llama_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print the ``-Xptxas -v`` register/spill summary;
+3. each kernel (K1 W8A8 GEMM, K2 row quant, K6 INT8 prefill attention, K7
+   slot scatter) at the Llama-2 7B shapes of the serving path, against its
+   plain PyTorch version on the same inputs: K1, K2 and K7 exact, K6 within
+   its tolerance; kernel, plain-version and PyTorch-library times (CUDA
+   events) beside the bound (the larger of bytes / 3.35 TB/s and operations
+   / the card's peak for their type);
+4. the serving path at full 7B width and depth with random W8A8 weights:
+   ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)`` + ``ContinuousBatcher``
+   serving 10 requests (prompts in the 16..512 buckets, greedy and seeded
+   temperature sampling); every request must finish with in-vocab tokens,
+   every kernel's launch count must grow and no plain version may run;
+5. port parity: the same model cut to 2 layers serves one greedy request on
+   the card (kernels) and on the CPU (plain versions), with f32 activations
+   (tokens equal at all 8 steps, logits within LOGITS_TOL) and with bf16
+   activations (prefill logits within LOGITS_TOL);
+6. a JSON line of the kernels, then the result line.
+
+Exits non-zero without a CUDA card and when run outside a checkout of the
+repo (``tpu_llama_torch`` must be importable from beside this file).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+K6_TOL = 2.0 ** -7 + 1e-5  # of max |ref|: one bf16 rounding step + f32 noise
+# Port parity, card against CPU, on the 2-layer 7B-width model (phase 5).
+# With f32 activations K1 and K2 are exact and K6 is within 1e-5 of its
+# plain version, so the logits differ only where a reordered f32 sum moves
+# an activation across an int8 rounding boundary.  Greedy tokens must be
+# equal at all PARITY_STEPS steps, and every step's logits within
+# LOGITS_TOL of max |logit|.  With bf16 activations a one-ulp difference in
+# the residual stream moves about half of the affected int8 inputs, so the
+# tokens may part at a near-tie: only the prefill logits are held to
+# LOGITS_TOL there.  One moved int8 input of the classifier moves logits
+# by up to ~3% of max |logit|.  Readings on an H100: sound runs at most
+# 2.95e-2 (f32) and 2.35e-2 (bf16).  A K6 whose causal bound admits one
+# future key reads 0.21 in both, and its f32 tokens differ from step 0.
+PARITY_STEPS = 8
+LOGITS_TOL = 5e-2
+
+SRC = {
+    "K1": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/matmul.py:483"),
+    "K2": ("tpu_llama_torch/csrc/quantize_rows.cu", "tpu_llama/ops/quant.py:275"),
+    "K6": ("tpu_llama_torch/csrc/flash_prefill.cu", "tpu_llama/ops/attention.py:1654"),
+    "K7": ("tpu_llama_torch/csrc/kv_scatter.cu", "tpu_llama/ops/attention.py:1212"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def bound_ms(nbytes: float, ops: float, kind: str):
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn(i)`` over ``iters`` back-to-back calls,
+    timed with CUDA events after ``warmup`` calls."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(iters):
+        fn(i)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def n_copies(nbytes: float) -> int:
+    """Input copies to rotate through so that repeated calls find them cold
+    in the 50 MB L2, as the serving path does."""
+    return int(min(8, max(1, math.ceil(2 * 50e6 / nbytes))))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions at the 7B shapes
+# ---------------------------------------------------------------------------
+
+
+def check_k1(torch, tq, tm, results):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for m in (8, 4096):
+        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+            copies = n_copies(n * k)
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            sx = torch.rand(m, generator=gen, device="cuda") * 0.05
+            ws = [tq.ChannelQuantTensor(
+                q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                                dtype=torch.int8),
+                s=torch.full((n,), 2e-4, device="cuda")) for _ in range(copies)]
+            got = tm.w8a8_matmul_prequant(xq, sx, ws[0], out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            want = tm.w8a8_matmul_prequant_plain(xq, sx, ws[0], out_dtype=torch.bfloat16)
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.equal(got, want), f"K1 M={m} K={k} N={n}: max err {err}")
+            ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant(
+                xq, sx, ws[i % copies], out_dtype=torch.bfloat16), 20 if m > 8 else 50)
+            plain_ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant_plain(
+                xq, sx, ws[i % copies], out_dtype=torch.bfloat16), 3, warmup=1)
+            # torch._int_mm wants more than 16 rows: the library call gets
+            # the decode rows padded to 32
+            xl = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - m)))
+            sxl = torch.nn.functional.pad(sx, (0, max(0, 32 - m)))
+
+            def lib(i):
+                w = ws[i % copies]
+                acc = torch._int_mm(xl, w.q.t())
+                return (acc.float() * sxl[:, None] * w.s[None, :]).to(torch.bfloat16)
+
+            try:
+                library_ms = cuda_ms(torch, lib, 20 if m > 8 else 50)
+            except RuntimeError as e:  # an _int_mm shape this build refuses
+                print(f"K1 library call unavailable: {e}", file=sys.stderr)
+                library_ms = None
+            b_ms, by = bound_ms(m * k + 4 * m + n * k + 4 * n + 2 * m * n, 2 * m * k * n,
+                                "int8")
+            results.append(dict(kernel="K1", name=f"K1 w8a8_matmul M={m} K={k} N={n}",
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=by, library_ms=library_ms))
+            del ws, xq, got, want
+
+
+def check_k2(torch, tq, results):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    m = 4096
+    for n in (4096, 11008):
+        copies = n_copies(2 * m * n)
+        xs = [torch.randn(m, n, generator=gen, device="cuda").mul_(2).to(torch.bfloat16)
+              for _ in range(copies)]
+        q, s = tq.quantize_activations(xs[0])
+        torch.cuda.synchronize()
+        qp, sp = tq.quantize_activations_plain(xs[0])
+        err = max((q.int() - qp.int()).abs().max().item(), (s - sp).abs().max().item())
+        check(torch.equal(q, qp) and torch.equal(s, sp), f"K2 [{m}, {n}]: max err {err}")
+        ms = cuda_ms(torch, lambda i: tq.quantize_activations(xs[i % copies]), 50)
+        plain_ms = cuda_ms(torch, lambda i: tq.quantize_activations_plain(xs[i % copies]),
+                           10)
+        b_ms, by = bound_ms(2 * m * n + m * n + 4 * m, 4 * m * n, "f32")
+        results.append(dict(kernel="K2", name=f"K2 quantize_rows bf16 [{m}, {n}]",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=by, library_ms=None))
+        del xs
+
+
+def _k6_inputs(torch, gen, B, T, NH, KVH, S, hd):
+    q = torch.randn(B, T, NH, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randint(-127, 128, (B, KVH, S, hd), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, KVH, S, hd), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    ks = torch.rand(B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+    vs = torch.rand(B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+    return q, k, v, ks, vs
+
+
+def check_k6(torch, tatt, results):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    # (B, T, NH, KVH, S, hd, start): the 7B admission shape, then a chunk
+    # continuing at start > 0 in a 2048-row cache
+    for B, T, NH, KVH, S, hd, start in ((8, 512, 32, 32, 512, 128, [0] * 8),
+                                        (2, 128, 32, 32, 2048, 128, [600, 1900])):
+        st = torch.tensor(start, dtype=torch.int32, device="cuda")
+        in_bytes = B * T * NH * hd * 2 + 2 * B * KVH * S * (hd + 4)
+        copies = n_copies(in_bytes)
+        ins = [_k6_inputs(torch, gen, B, T, NH, KVH, S, hd) for _ in range(copies)]
+
+        def run(i, fn=tatt.flash_prefill_attention):
+            q, k, v, ks, vs = ins[i % copies]
+            return fn(q, k, v, st, ks, vs, out_dtype=torch.bfloat16)
+
+        got = run(0)
+        torch.cuda.synchronize()
+        want = run(0, tatt.flash_prefill_attention_plain)
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        check(err <= K6_TOL * peak, f"K6 B={B} T={T} start={start[:2]}: err {err} > "
+                                    f"{K6_TOL} * {peak}")
+        ms = cuda_ms(torch, run, 20)
+        plain_ms = cuda_ms(torch, lambda i: run(i, tatt.flash_prefill_attention_plain), 5)
+        # the library call: SDPA on the dequantized bf16 cache (NH == KVH
+        # here), causal when the chunk is the whole cache from position 0,
+        # else with the mask s <= start[b] + t
+        deq = [(q.transpose(1, 2), (k.float() * ks[..., None]).to(torch.bfloat16),
+                (v.float() * vs[..., None]).to(torch.bfloat16)) for q, k, v, ks, vs in ins]
+        if T == S and not any(start):
+            mask = None
+        else:
+            t_pos = st[:, None, None, None] + torch.arange(T, device="cuda")[None, None, :, None]
+            mask = torch.arange(S, device="cuda")[None, None, None, :] <= t_pos
+        library_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            *deq[i % copies], attn_mask=mask, is_causal=mask is None), 20)
+        del deq, mask
+        keys = sum(min(S, s + t + 1) for s in start for t in range(T))  # attended pairs / head
+        used = sum(min(S, s + T) for s in start)  # key rows read per kv head
+        nbytes = B * T * NH * hd * 2 * 2 + 2 * KVH * used * (hd + 4) + 4 * B
+        b_ms, by = bound_ms(nbytes, 4 * hd * NH * keys, "bf16")
+        results.append(dict(kernel="K6", name=f"K6 flash_prefill B={B} T={T} S={S} "
+                            f"start={'0' if not any(start) else '>0'}",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=by, library_ms=library_ms))
+        del ins, got, want
+
+
+def check_k7(torch, tatt, results):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    L, n, KVH, T, hd, B, S = 32, 8, 32, 512, 128, 8, 2048
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    small = (ri(L, n, KVH, T, hd), ri(L, n, KVH, T, hd),
+             torch.rand(L, n, KVH, T, generator=gen, device="cuda"),
+             torch.rand(L, n, KVH, T, generator=gen, device="cuda"))
+    cache = [torch.zeros(L, B, KVH, S, hd, dtype=torch.int8, device="cuda"),
+             torch.zeros(L, B, KVH, S, hd, dtype=torch.int8, device="cuda"),
+             torch.zeros(L, B, KVH, S, device="cuda"),
+             torch.zeros(L, B, KVH, S, device="cuda")]
+    slots = [5, 0, 7, 2, 1, 6, 3, 4]
+    sl = torch.tensor(slots, device="cuda")
+
+    def run(i):
+        tatt.kv_cache_scatter_slots(small[0], small[1], slots, cache[0], cache[1], small[2],
+                                    small[3], cache[2], cache[3])
+
+    run(0)
+    torch.cuda.synchronize()
+    ref = [torch.zeros_like(c) for c in cache]
+    tatt.kv_cache_scatter_slots_plain(small[0], small[1], slots, ref[0], ref[1], small[2],
+                                      small[3], ref[2], ref[3])
+    check(all(torch.equal(a, b) for a, b in zip(cache, ref)), "K7: cache differs")
+    del ref
+    ms = cuda_ms(torch, run, 20)
+    plain_ms = cuda_ms(torch, lambda i: tatt.kv_cache_scatter_slots_plain(
+        small[0], small[1], slots, cache[0], cache[1], small[2], small[3], cache[2],
+        cache[3]), 5)
+
+    def lib(i):
+        for c, s in zip(cache, small):
+            c[:, sl, :, :T] = s
+
+    library_ms = cuda_ms(torch, lib, 5)
+    b_ms, by = bound_ms(2 * (2 * L * n * KVH * T * hd + 2 * L * n * KVH * T * 4), 0, "int8")
+    results.append(dict(kernel="K7", name=f"K7 kv_scatter L={L} n={n} T={T} S={S}",
+                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=by, library_ms=library_ms))
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the serving path
+# ---------------------------------------------------------------------------
+
+
+def make_requests(Request, vocab: int):
+    rng = np.random.default_rng(0)
+    # first admission: 8 prompts (with BOS) spanning the 16..512 buckets, one
+    # group at T = 512; two more join when slots free (T = 256 bucket)
+    lens = [511, 300, 200, 127, 100, 60, 15, 8, 120, 250]
+    reqs = []
+    for i, n in enumerate(lens):
+        prompt = [int(t) for t in rng.integers(3, vocab, n)]
+        temp = 0.0 if i % 2 == 0 else 0.8
+        reqs.append(Request(prompt_tokens=prompt, steps=n + 1 + 64, temperature=temp,
+                            topp=0.9 if i % 4 == 3 else 1.0, seed=1000 + i))
+    return reqs
+
+
+def serve_7b(torch, smi_line):
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime.metrics import summarize
+
+    cfg = LLAMA2_7B
+    t0 = time.time()
+    params = random_quant_params(cfg, seed=0, norm_dtype=torch.bfloat16)
+    engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    reqs = make_requests(Request, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(engine)
+    _kernels.reset_counts()  # counts from here on belong to the main path
+    t0 = time.time()
+    for r in reqs:
+        batcher.submit(r)
+    batcher.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    check(all(r.done for r in reqs), "a request did not finish")
+    toks = [t for r in reqs for t in r.out_tokens]
+    check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
+          "served tokens missing or out of vocabulary")
+    check(all(launches[k] > 0 for k in launches), f"a kernel never launched: {launches}")
+    check(all(v == 0 for v in plain.values()), f"plain versions ran: {plain}")
+    rep = summarize(reqs)
+    line = dict(phase="serve_7b", n_requests=rep.n_requests, tokens=rep.total_tokens,
+                wall_s=wall, tok_per_s=rep.tokens_per_sec, ttft_p50_ms=rep.ttft_p50_s * 1e3,
+                ttft_p95_ms=rep.ttft_p95_s * 1e3, setup_s=setup_s,
+                decode_steps=batcher.timers["decode_steps"],
+                decode_ms_per_step=batcher.timers["decode"] * 1e3
+                / max(1, batcher.timers["decode_steps"]),
+                admit_s=batcher.timers["admit"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches, plain_calls=plain, card=smi_line)
+    print(json.dumps(line), flush=True)
+    del engine, params, batcher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _to(obj, device):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    return type(obj)(**{f.name: _to(getattr(obj, f.name), device)
+                        for f in dataclasses.fields(obj)})
+
+
+def _greedy(engine, seq, steps):
+    logits = [engine.prefill([seq], [0])[0]]
+    toks, pos = [], len(seq)
+    for _ in range(steps):
+        toks.append(int(np.argmax(logits[-1])))
+        logits.append(engine.decode(np.array([toks[-1]]), np.array([pos]))[0])
+        pos += 1
+    return toks, logits
+
+
+def _parity(torch, cfg, act_dtype, seq):
+    """One greedy request of PARITY_STEPS steps on the card and on the CPU,
+    from the same weights; returns the reading as a dict."""
+    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.runtime import Engine
+
+    gpu = random_quant_params(cfg, seed=1, norm_dtype=act_dtype)
+    cpu = _to(gpu, "cpu")
+    t0 = time.time()
+    g_toks, g_log = _greedy(Engine(gpu, cfg, max_batch=1, seq_len=64), seq, PARITY_STEPS)
+    t1 = time.time()
+    c_toks, c_log = _greedy(Engine(cpu, cfg, max_batch=1, seq_len=64, device="cpu"), seq,
+                            PARITY_STEPS)
+    t2 = time.time()
+    same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
+    # logits [0, same] came from the same tokens on both sides
+    errs = [float(np.abs(g_log[i] - c_log[i]).max()) for i in range(same + 1)]
+    return dict(activations=str(act_dtype).removeprefix("torch."), steps=PARITY_STEPS,
+                tokens_equal=same, card_tokens=g_toks, cpu_tokens=c_toks,
+                prefill_logit_max_err=errs[0], logit_max_err=max(errs),
+                logit_peak=float(np.abs(c_log[0]).max()),
+                finite=bool(all(np.isfinite(x).all() for x in g_log)),
+                card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def parity_2layer(torch):
+    from tpu_llama_torch.config import LLAMA2_7B
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
+    f32 = _parity(torch, cfg, torch.float32, seq)
+    bf16 = _parity(torch, cfg, torch.bfloat16, seq)
+    print(json.dumps(dict(phase="parity_2layer", f32=f32, bf16=bf16, tol=LOGITS_TOL)),
+          flush=True)
+    check(f32["finite"] and bf16["finite"], "card logits not finite")
+    check(f32["tokens_equal"] == PARITY_STEPS,
+          f"f32 greedy tokens differ at step {f32['tokens_equal']}: card "
+          f"{f32['card_tokens']}, cpu {f32['cpu_tokens']}")
+    check(f32["logit_max_err"] <= LOGITS_TOL * f32["logit_peak"],
+          f"f32 logits: max err {f32['logit_max_err']} > {LOGITS_TOL} * "
+          f"{f32['logit_peak']}")
+    check(bf16["prefill_logit_max_err"] <= LOGITS_TOL * bf16["logit_peak"],
+          f"bf16 prefill logits: max err {bf16['prefill_logit_max_err']} > {LOGITS_TOL} * "
+          f"{bf16['logit_peak']}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        from tpu_llama_torch.ops import _kernels
+        from tpu_llama_torch.ops import attention as tatt
+        from tpu_llama_torch.ops import matmul as tm
+        from tpu_llama_torch.ops import quant as tq
+    except ImportError as e:
+        print(f"chip_smoke: run from a checkout of the repo ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+
+    # 1. the device
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {kind} (count {count}), torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    print(smi, flush=True)
+
+    # 2. build
+    t0 = time.time()
+    logs = _kernels.build()
+    print(f"build: {len(logs)} sources ready in {time.time() - t0:.1f} s")
+    for name, log in logs.items():
+        for ln in log.splitlines():
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
+                print(f"  {name}: {ln.strip()}")
+    sys.stdout.flush()
+
+    # 3. kernels against their plain versions
+    results = []
+    check_k1(torch, tq, tm, results)
+    check_k2(torch, tq, results)
+    check_k6(torch, tatt, results)
+    check_k7(torch, tatt, results)
+    torch.cuda.empty_cache()
+    for r in results:  # launches follow in the kernels line, after the main path
+        print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
+                              plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                              max_err=r["max_abs_err"], card=smi)), flush=True)
+
+    # 4. the serving path at 7B
+    launches = serve_7b(torch, smi)
+
+    # 5. port parity, card against CPU
+    parity_2layer(torch)
+
+    # 6. result lines
+    kernels = []
+    for r in results:
+        src, replaces = SRC[r["kernel"]]
+        kernels.append(dict(name=r["name"], route="cuda", source=src, replaces=replaces,
+                            launches=launches[r["kernel"]], max_abs_err=r["max_abs_err"],
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    print(f"total {time.time() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

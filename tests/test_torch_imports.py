@@ -1,0 +1,77 @@
+"""The port stands alone: importing every ``tpu_llama_torch`` module pulls in
+neither ``jax`` nor ``tpu_llama``, and its entry points default to the card
+(and so raise where there is none)."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import tpu_llama_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(tpu_llama_torch.__path__,
+                                                        "tpu_llama_torch."))
+
+
+def test_port_imports_neither_jax_nor_reference():
+    mods = _modules()
+    assert "tpu_llama_torch.ops._kernels" in mods and "tpu_llama_torch.convert" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'tpu_llama' or m.startswith('tpu_llama.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card behaviour is not observable")
+
+
+def test_engine_without_device_raises_without_card():
+    _no_card()
+    from tpu_llama_torch.config import ModelConfig
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.runtime import Engine
+
+    cfg = ModelConfig(dim=32, hidden_dim=64, n_layers=1, n_heads=2, n_kv_heads=2,
+                      vocab_size=64, seq_len=16)
+    params = tl.random_quant_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tl.random_quant_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tl.make_kv_cache(cfg, 1)
+
+
+def test_build_returns_stored_logs_of_built_libraries(tmp_path, monkeypatch):
+    """A library built earlier is not rebuilt, and build() still returns the
+    compiler log of that build (registers, spills) for every source."""
+    from tpu_llama_torch.ops import _kernels
+
+    def no_nvcc():
+        raise AssertionError("nvcc must not run for built libraries")
+
+    monkeypatch.setattr(_kernels, "_BUILD", tmp_path)
+    monkeypatch.setattr(_kernels, "_nvcc", no_nvcc)
+    for n in _kernels.SOURCES:
+        _kernels._lib_path(n).write_bytes(b"")
+        _kernels._log_path(n).write_text(f"ptxas info: {n} Used 32 registers")
+    logs = _kernels.build()
+    assert logs == {n: f"ptxas info: {n} Used 32 registers" for n in _kernels.SOURCES}
+    _kernels._log_path("kv_scatter").unlink()  # a library without its log rebuilds
+    with pytest.raises(AssertionError, match="nvcc must not run"):
+        _kernels.build(["kv_scatter"])

@@ -1,0 +1,198 @@
+"""Port parity at model level: ``forward_prefill(assume_fresh=True)``,
+``forward_decode(attn="xla")`` and ``greedy_decode_loop`` against the JAX
+package on a tiny W8A8 / INT8-KV GQA config, plus the numpy conversion.
+
+Both packages get the same weights: the JAX package quantizes them and
+``convert.params_from_numpy`` hands its arrays to the port.  Tolerances:
+
+* f32 activations: logits within 1e-4 of max |logit|.  The int8 products
+  are exact in both; what differs is f32 summation order in rmsnorm, RoPE,
+  softmax and attention, which can at most flip a rare activation-quant
+  rounding by one step.
+* bf16 activations: logits within 3e-2 of max |logit|.  Every residual add
+  and norm output rounds to bf16 (8 significant bits) in both packages, but
+  XLA and PyTorch round at different places (XLA keeps some chains in f32),
+  so a bf16 ulp of difference feeds the next layer's int8 quantization.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_llama.config import ModelConfig as JaxModelConfig
+from tpu_llama.io.checkpoint import make_random_weights
+from tpu_llama.models import llama as jl
+from tpu_llama_torch import convert
+from tpu_llama_torch.config import ModelConfig
+from tpu_llama_torch.models import llama as tl
+from tpu_llama_torch.ops import _kernels
+
+torch.set_num_threads(1)
+
+TINY_GQA = dict(dim=48, hidden_dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                vocab_size=320, seq_len=64, shared_weights=False)
+F32_TOL, BF16_TOL = 1e-4, 3e-2
+
+
+def jax_tree(obj):
+    """A JAX params dataclass -> the nested numpy dict convert takes."""
+    if dataclasses.is_dataclass(obj):
+        out = {f.name: jax_tree(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        return {k: v for k, v in out.items() if k != "packed4"}
+    return obj if isinstance(obj, int) else np.asarray(obj)
+
+
+def build_pair(cfg_kwargs, dtype, seed=3):
+    """(jax config, jax params, port config, port params on the CPU)."""
+    jcfg = JaxModelConfig(**cfg_kwargs)
+    raw = make_random_weights(jcfg, seed=seed)
+    jp = jl.quantize_params(jl.params_from_raw(raw, dtype=dtype), mode="w8a8")
+    tp = convert.params_from_numpy(jax_tree(jp), device="cpu")
+    return jcfg, jp, ModelConfig(**cfg_kwargs), tp
+
+
+def _close(got, want, tol):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.fixture(scope="module", params=[jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def pair(request):
+    return build_pair(TINY_GQA, request.param) + (request.param,)
+
+
+def _prompts(B, T, vocab, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(3, vocab, (B, T)).astype(np.int32)
+    lengths = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lengths[0] = T
+    return toks, lengths
+
+
+@pytest.mark.parametrize("mode", ["all", "last"])
+def test_prefill_fresh_matches_jax(pair, mode):
+    jcfg, jp, tcfg, tp, dtype = pair
+    B, T = 3, 16
+    toks, lengths = _prompts(B, T, tcfg.vocab_size, 1)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=T)
+    want, jcache = jl.forward_prefill(
+        jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
+        jcfg, logits_mode=mode, assume_fresh=True)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    got, tcache2 = tl.forward_prefill(
+        tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
+        torch.tensor(lengths), tcfg, logits_mode=mode, assume_fresh=True)
+    assert tcache2 is tcache
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    _close(got.numpy(), want, tol)
+    # the cache block: dequantized K/V agree to the activation tolerance
+    for qn, sn in (("k", "ks"), ("v", "vs")):
+        jf = np.asarray(getattr(jcache, qn), np.float32) * np.asarray(getattr(jcache, sn))[..., None]
+        tf = getattr(tcache, qn).float() * getattr(tcache, sn)[..., None]
+        _close(tf.numpy(), jf, tol * 4)
+
+
+def test_decode_matches_jax(pair):
+    jcfg, jp, tcfg, tp, dtype = pair
+    B, T, S = 3, 8, 32
+    toks, lengths = _prompts(B, T, tcfg.vocab_size, 2)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    jlog, jcache = jl.forward_prefill(
+        jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
+        jcfg, logits_mode="last", assume_fresh=True)
+    tl.forward_prefill(tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
+                       torch.tensor(lengths), tcfg, logits_mode="last", assume_fresh=True)
+    nxt = np.asarray(jnp.argmax(jlog, -1), np.int32)
+    pos = lengths.copy()
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    for _ in range(3):
+        want, jcache = jl.forward_decode(jp, jcache, jnp.asarray(nxt), jnp.asarray(pos),
+                                         jcfg, attn="xla", fused=False)
+        got, _ = tl.forward_decode(tp, tcache, torch.tensor(nxt), torch.tensor(pos), tcfg,
+                                   attn="xla")
+        _close(got.numpy(), want, tol)
+        nxt = np.asarray(jnp.argmax(want, -1), np.int32)  # teacher-force JAX's tokens
+        pos = pos + 1
+
+
+def test_greedy_decode_loop_matches_jax():
+    jcfg, jp, tcfg, tp = build_pair(TINY_GQA, jnp.float32, seed=5)
+    B, S, steps = 2, 32, 6
+    toks = np.array([5, 77], np.int32)
+    pos = np.array([0, 3], np.int32)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
+    want, _ = jl.greedy_decode_loop(jp, jcache, jnp.asarray(toks), jnp.asarray(pos), steps,
+                                    jcfg, attn="xla", fused=False)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    got, _ = tl.greedy_decode_loop(tp, tcache, torch.tensor(toks), torch.tensor(pos), steps,
+                                   tcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_model_runs_on_plain_versions_only():
+    _, _, tcfg, tp = build_pair(TINY_GQA, jnp.float32)
+    _kernels.reset_counts()
+    cache = tl.make_kv_cache(tcfg, 1, seq_len=16, device="cpu")
+    tl.forward_prefill(tp, cache, torch.tensor([[1, 9, 4]]), torch.zeros(1),
+                       torch.tensor([3]), tcfg, assume_fresh=True)
+    assert all(v == 0 for v in _kernels.LAUNCHES.values())
+    assert _kernels.PLAIN_CALLS["K1"] > 0 and _kernels.PLAIN_CALLS["K6"] == 2
+
+
+def test_convert_round_trip():
+    """JAX params (padded to its TPU tiles) -> port -> numpy: the logical
+    weights come back unpadded and unchanged."""
+    _, jp, tcfg, tp = build_pair(TINY_GQA, jnp.bfloat16)
+    tree = jax_tree(jp)
+    back = convert.params_to_numpy(tp)
+    wq = tree["layers"]["wq"]
+    assert wq["q"].shape[-1] == 128 and tp.layers.wq.q.shape == (2, 48, 48)
+    assert tp.tok_emb.dtype == torch.bfloat16 and tp.layers.wq.q.dtype == torch.int8
+    for name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+        w, b = tree["layers"][name], back["layers"][name]
+        n_in, n_out = w["logical_in"], w["logical_out"]
+        np.testing.assert_array_equal(b["q"], w["q"][..., :n_in, :n_out])
+        np.testing.assert_array_equal(b["s"], w["s"][..., :n_out])
+        assert (b["logical_in"], b["logical_out"]) == (n_in, n_out)
+    for name in ("tok_emb", "rms_final", "rope_cos", "rope_sin"):
+        np.testing.assert_array_equal(back[name], np.asarray(tree[name], np.float32))
+    again = convert.params_from_numpy(back, device="cpu")
+    assert torch.equal(again.wcls.q, tp.wcls.q) and torch.equal(again.wcls.s, tp.wcls.s)
+
+
+def test_quantize_params_matches_jax():
+    cfg = JaxModelConfig(**TINY_GQA)
+    raw = make_random_weights(cfg, seed=8)
+    dense = jl.params_from_raw(raw)
+    jq = jl.quantize_params(dense, mode="w8a8")
+    tq = tl.quantize_params(convert.params_from_numpy(jax_tree(dense), device="cpu"))
+    for name in ("wq", "w2"):
+        w = getattr(jq.layers, name)
+        np.testing.assert_array_equal(
+            getattr(tq.layers, name).q.numpy(),
+            np.swapaxes(np.asarray(w.q)[..., :w.logical_in, :w.logical_out], -1, -2))
+
+
+def test_random_quant_params_shapes_and_seed():
+    cfg = ModelConfig(**TINY_GQA)
+    a = tl.random_quant_params(cfg, seed=4, device="cpu")
+    b = tl.random_quant_params(cfg, seed=4, device="cpu")
+    assert a.layers.w1.q.shape == (2, 128, 48) and a.layers.w2.q.shape == (2, 48, 128)
+    assert a.wcls.q.shape == (320, 48) and a.tok_emb.dtype == torch.bfloat16
+    assert torch.equal(a.layers.wq.q, b.layers.wq.q)
+    assert int(a.layers.wq.q.min()) >= -127
+    with pytest.raises(NotImplementedError):
+        tl.random_quant_params(cfg, fuse=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tl.make_kv_cache(cfg, 2, kv_dtype="bfloat16", device="cpu")
+    with pytest.raises(NotImplementedError):
+        tl.forward_prefill(a, tl.make_kv_cache(cfg, 1, device="cpu"),
+                           torch.ones(1, 4, dtype=torch.long), torch.ones(1),
+                           torch.tensor([4]), cfg)

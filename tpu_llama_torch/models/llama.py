@@ -1,0 +1,390 @@
+"""Llama-2 forward passes for the W8A8 + dense INT8-KV serving path.
+
+Port of the unfused parts of tpu_llama/models/llama.py that the engine's
+``quant="w8a8", kv_dtype="int8", kv_layout="dense", attn="xla"`` setting
+runs:
+
+* prefill: ``forward_prefill(assume_fresh=True)`` -> ``_forward_prefill_fresh``
+  (llama.py:1378), each layer through ``w8a8_matmul`` (K2 + K1) and the INT8
+  causal attention K6;
+* decode: ``forward_decode`` -> the ``decode_stack`` XLA branch
+  (llama.py:1328-1339): per-layer cache write, attention over the
+  dequantized cache in plain PyTorch, every matmul through K1 (+ K2).
+
+JAX's functional cache updates become IN-PLACE writes into the cache
+tensors: ``forward_prefill`` and ``forward_decode`` mutate the cache they
+are given and return it.  JAX's ``lax.scan`` over stacked layers becomes a
+Python loop over per-layer views.  Weights stay stacked ``[L, ...]`` and
+matmul weights are K-major ``ChannelQuantTensor``s (``q [L, out, in]``).
+
+Routes this slice does not carry raise ``NotImplementedError`` naming their
+ROADMAP item: fused layouts with the fused prefill, flash decode attention,
+start_pos > 0 and chunked prefill, fp caches and dense/q8_0 weights, paged
+caches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpu_llama_torch.config import ModelConfig
+from tpu_llama_torch.device import resolve_device
+from tpu_llama_torch.ops.attention import flash_prefill_attention, quantize_kv
+from tpu_llama_torch.ops.matmul import w8a8_matmul
+from tpu_llama_torch.ops.quant import ChannelQuantTensor, quantize_channel
+
+_NEG_INF = -1e30
+
+
+def _take(w, i: int):
+    return w.layer(i) if isinstance(w, ChannelQuantTensor) else w[i]
+
+
+@dataclasses.dataclass
+class LayerParams:
+    """Per-layer weights stacked on axis 0 over layers.  Matmul weights are
+    ``ChannelQuantTensor``s (q [L, out, in]) or, before ``quantize_params``,
+    dense [L, in, out] tensors in the JAX layout."""
+
+    rms_att: torch.Tensor  # [L, D]
+    wq: ChannelQuantTensor  # D -> D
+    wk: ChannelQuantTensor  # D -> KVD
+    wv: ChannelQuantTensor  # D -> KVD
+    wo: ChannelQuantTensor  # D -> D
+    rms_ffn: torch.Tensor  # [L, D]
+    w1: ChannelQuantTensor  # D -> H (gate)
+    w2: ChannelQuantTensor  # H -> D (down)
+    w3: ChannelQuantTensor  # D -> H (up)
+
+    def layer(self, i: int) -> "LayerParams":
+        """Layer ``i`` as views of the stacked weights."""
+        return LayerParams(**{f.name: _take(getattr(self, f.name), i)
+                              for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class LlamaParams:
+    tok_emb: torch.Tensor  # [V, D]
+    layers: LayerParams
+    rms_final: torch.Tensor  # [D]
+    wcls: ChannelQuantTensor  # D -> V
+    rope_cos: torch.Tensor  # [S, hd/2] f32
+    rope_sin: torch.Tensor  # [S, hd/2] f32
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """INT8 KV cache: values [L, B, KVH, S, hd] + per-(token, head) f32
+    scales [L, B, KVH, S] (symmetric absmax over hd).  Updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+    @classmethod
+    def create(cls, config: ModelConfig, batch: int, seq_len: int | None = None,
+               device=None) -> "QuantKVCache":
+        dev = resolve_device(device)
+        S = seq_len or config.seq_len
+        shape = (config.n_layers, batch, config.n_kv_heads, S, config.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            ks=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            vs=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+        )
+
+    @property
+    def seq_len(self) -> int:
+        return self.k.shape[3]
+
+    def zero_(self) -> None:
+        for t in (self.k, self.v, self.ks, self.vs):
+            t.zero_()
+
+
+def make_kv_cache(config: ModelConfig, batch: int, kv_dtype="int8",
+                  seq_len: int | None = None, paged: bool = False, device=None):
+    """Dense INT8 cache (llama.py:199); other layouts are later slices."""
+    if paged:
+        raise NotImplementedError("paged KV cache: ROADMAP queue 1 item 8")
+    if kv_dtype not in ("int8", torch.int8):
+        raise NotImplementedError("fp KV caches: ROADMAP queue 1 item 9")
+    return QuantKVCache.create(config, batch, seq_len=seq_len, device=device)
+
+
+def _rope_tables(config: ModelConfig, device):
+    hd2 = config.head_dim // 2
+    inv_freq = 1.0 / (10000.0 ** (np.arange(0, hd2, dtype=np.float64) * 2 / config.head_dim))
+    angles = np.arange(config.seq_len, dtype=np.float64)[:, None] * inv_freq[None, :]
+    return (torch.tensor(np.cos(angles), dtype=torch.float32, device=device),
+            torch.tensor(np.sin(angles), dtype=torch.float32, device=device))
+
+
+def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
+                        norm_dtype=torch.bfloat16, fuse: bool = False,
+                        device=None) -> LlamaParams:
+    """Random parameters generated directly in INT8 on the device
+    (llama.py:288), from one ``torch.Generator`` seeded with ``seed``.  The
+    draws differ from ``jax.random``'s; the shapes, scales (2e-4) and
+    dtypes are the same."""
+    if mode != "w8a8":
+        raise NotImplementedError(f"mode {mode!r}: only w8a8 is ported (ROADMAP queue 1 "
+                                  "item 9 has q8_0)")
+    if fuse:
+        raise NotImplementedError("fused wqkv/w13 layouts come with the fused prefill "
+                                  "(ROADMAP, next slice 2)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = config
+    L, D, H, KVD, V = c.n_layers, c.dim, c.hidden_dim, c.kv_dim, c.vocab_size
+
+    def qt(in_f, out_f, lead=()):
+        q = torch.randint(-127, 128, (*lead, out_f, in_f), generator=gen,
+                          dtype=torch.int8, device=dev)
+        return ChannelQuantTensor(
+            q=q, s=torch.full((*lead, out_f), 2e-4, dtype=torch.float32, device=dev))
+
+    cos, sin = _rope_tables(c, dev)
+    return LlamaParams(
+        tok_emb=torch.randn((V, D), generator=gen, dtype=norm_dtype, device=dev) * 0.02,
+        layers=LayerParams(
+            rms_att=torch.ones((L, D), dtype=norm_dtype, device=dev),
+            wq=qt(D, D, (L,)), wk=qt(D, KVD, (L,)), wv=qt(D, KVD, (L,)),
+            wo=qt(D, D, (L,)),
+            rms_ffn=torch.ones((L, D), dtype=norm_dtype, device=dev),
+            w1=qt(D, H, (L,)), w2=qt(H, D, (L,)), w3=qt(D, H, (L,)),
+        ),
+        rms_final=torch.ones((D,), dtype=norm_dtype, device=dev),
+        wcls=qt(D, V),
+        rope_cos=cos,
+        rope_sin=sin,
+    )
+
+
+def quantize_params(params: LlamaParams, mode: str = "w8a8") -> LlamaParams:
+    """W8A8 conversion of the seven matmul families and the classifier
+    (llama.py:383): dense [.., in, out] weights -> per-channel INT8.  Norm
+    weights, embeddings and RoPE tables stay floating point."""
+    if mode != "w8a8":
+        raise NotImplementedError(f"mode {mode!r}: only w8a8 is ported (ROADMAP queue 1 "
+                                  "item 9 has q8_0)")
+    lp = params.layers
+    q = quantize_channel
+    return LlamaParams(
+        tok_emb=params.tok_emb,
+        layers=LayerParams(rms_att=lp.rms_att, wq=q(lp.wq), wk=q(lp.wk), wv=q(lp.wv),
+                           wo=q(lp.wo), rms_ffn=lp.rms_ffn, w1=q(lp.w1), w2=q(lp.w2),
+                           w3=q(lp.w3)),
+        rms_final=params.rms_final,
+        wcls=q(params.wcls),
+        rope_cos=params.rope_cos,
+        rope_sin=params.rope_sin,
+    )
+
+
+def matmul_any(a: torch.Tensor, w) -> torch.Tensor:
+    """``a @ W`` dispatching on the weight type (llama.py:518); the port
+    carries per-channel W8A8 weights only."""
+    if isinstance(w, ChannelQuantTensor):
+        return w8a8_matmul(a, w, out_dtype=a.dtype)
+    raise NotImplementedError("dense and q8_0 weights: ROADMAP queue 1 item 9")
+
+
+def _out_features(w) -> int:
+    return w.out_features if isinstance(w, ChannelQuantTensor) else w.shape[-1]
+
+
+def _project_qkv(h, lp: LayerParams, config: ModelConfig):
+    """q/k/v projections, transparently handling a fused wqkv weight."""
+    D, KVD = config.dim, config.kv_dim
+    if _out_features(lp.wq) == D + 2 * KVD:
+        qkv = matmul_any(h, lp.wq)
+        return qkv[..., :D], qkv[..., D:D + KVD], qkv[..., D + KVD:]
+    return matmul_any(h, lp.wq), matmul_any(h, lp.wk), matmul_any(h, lp.wv)
+
+
+def _project_gate_up(h, lp: LayerParams, config: ModelConfig):
+    H = config.hidden_dim
+    if _out_features(lp.w1) == 2 * H:
+        gu = matmul_any(h, lp.w1)
+        return gu[..., :H], gu[..., H:]
+    return matmul_any(h, lp.w1), matmul_any(h, lp.w3)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """w * x / sqrt(1e-5 + mean(x^2)) with eps inside the rsqrt and the cast
+    to x's dtype before the weight multiply (llama.py:532)."""
+    x32 = x.float()
+    ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(1e-5 + ms)).to(x.dtype) * weight
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved (even, odd) pairs of every head in f32, then cast
+    back (llama.py:540).  x [..., n_heads, hd]; cos/sin broadcastable to
+    [..., hd/2]."""
+    shape, dtype = x.shape, x.dtype
+    xp = x.reshape(*shape[:-1], shape[-1] // 2, 2)
+    x0, x1 = xp[..., 0], xp[..., 1]
+    cos, sin = cos.unsqueeze(-2), sin.unsqueeze(-2)  # broadcast over heads
+    r0 = x0 * cos - x1 * sin  # promotes to f32 (the tables are f32)
+    r1 = x0 * sin + x1 * cos
+    return torch.stack([r0, r1], dim=-1).reshape(shape).to(dtype)
+
+
+def _attention_decode(q, k_cache, v_cache, pos, config: ModelConfig):
+    """q [B, NH, hd] over f32 k/v [B, KVH, S, hd]; key s attends iff
+    s <= pos[b] (llama.py:558)."""
+    B, S = k_cache.shape[0], k_cache.shape[2]
+    hd, kvh, g = config.head_dim, config.n_kv_heads, config.group_size
+    qg = q.reshape(B, kvh, g, hd).float()
+    scores = torch.einsum("bkgh,bksh->bkgs", qg, k_cache) / math.sqrt(hd)
+    mask = torch.arange(S, device=q.device)[None, None, None, :] <= pos[:, None, None, None]
+    att = torch.softmax(scores.masked_fill(~mask, _NEG_INF), dim=-1)
+    out = torch.einsum("bkgs,bksh->bkgh", att, v_cache)
+    return out.reshape(B, config.dim).to(q.dtype)
+
+
+def _write_decode(cache: QuantKVCache, layer: int, k, v, pos, config: ModelConfig) -> None:
+    """Quantize one decoded token's K/V [B, KVH, hd] and write it IN PLACE at
+    position pos[b] of layer ``layer`` (llama.py:611)."""
+    B = k.shape[0]
+    b_ix = torch.arange(B, device=k.device)[:, None]
+    h_ix = torch.arange(config.n_kv_heads, device=k.device)[None, :]
+    p_ix = pos[:, None]
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    cache.k[layer][b_ix, h_ix, p_ix] = kq
+    cache.v[layer][b_ix, h_ix, p_ix] = vq
+    cache.ks[layer][b_ix, h_ix, p_ix] = ks
+    cache.vs[layer][b_ix, h_ix, p_ix] = vs
+
+
+def _attend_decode(cache: QuantKVCache, layer: int, q, pos, config: ModelConfig):
+    """The xla branch of llama.py:636-646: dequantize the layer's cache,
+    then plain attention."""
+    kf = cache.k[layer].float() * cache.ks[layer][..., None]
+    vf = cache.v[layer].float() * cache.vs[layer][..., None]
+    return _attention_decode(q, kf, vf, pos, config)
+
+
+def _resolve_decode_attn(attn: str) -> str:
+    if attn in ("auto", "xla"):
+        return "xla"  # "auto" picks flash_dma on the card once K9/K10 land
+    raise NotImplementedError(f"decode attention {attn!r}: flash_dma (K9 + K10) is the "
+                              "next slice (ROADMAP)")
+
+
+def decode_stack(layers: LayerParams, cache: QuantKVCache, x, pos, cos, sin,
+                 config: ModelConfig, attn: str = "xla"):
+    """The unfused decode layer stack (llama.py:1206, xla branch): x [B, D]
+    in -> x out; writes every layer's new K/V row into ``cache`` in place."""
+    _resolve_decode_attn(attn)
+    B = x.shape[0]
+    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    for i in range(layers.rms_att.shape[0]):
+        lp = layers.layer(i)
+        h = rmsnorm(x, lp.rms_att)
+        q, k, v = _project_qkv(h, lp, config)
+        q = apply_rope(q.reshape(B, NH, hd), cos, sin)
+        k = apply_rope(k.reshape(B, KVH, hd), cos, sin)
+        _write_decode(cache, i, k, v.reshape(B, KVH, hd), pos, config)
+        att = _attend_decode(cache, i, q, pos, config)
+        x = x + matmul_any(att, lp.wo)
+        h = rmsnorm(x, lp.rms_ffn)
+        gate, up = _project_gate_up(h, lp, config)
+        x = x + matmul_any(F.silu(gate) * up, lp.w2)
+    return x
+
+
+def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
+                   pos: torch.Tensor, config: ModelConfig, attn: str = "auto"):
+    """One decode step for a batch (llama.py:1101, unfused): tokens/pos [B].
+    Returns (logits [B, V] f32, cache) -- the cache updated in place."""
+    _resolve_decode_attn(attn)
+    tokens, pos = tokens.long(), pos.long()
+    x = params.tok_emb[tokens]
+    x = decode_stack(params.layers, cache, x, pos, params.rope_cos[pos],
+                     params.rope_sin[pos], config)
+    x = rmsnorm(x, params.rms_final)
+    return matmul_any(x, params.wcls).float(), cache
+
+
+def _forward_prefill_fresh(params: LlamaParams, cache: QuantKVCache, tokens, lengths,
+                           config: ModelConfig, logits_mode: str):
+    """Prefill from position 0 (llama.py:1378, unfused body).  Attention runs
+    over each layer's compact fresh K/V (K6, start 0); the block is then
+    copied into rows [0, T) of ``cache`` in place."""
+    if logits_mode not in ("all", "last"):
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    B, T = tokens.shape
+    if T > cache.seq_len:
+        raise ValueError(f"{T} prompt rows do not fit a cache of {cache.seq_len}")
+    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    x = params.tok_emb[tokens.long()]  # [B, T, D]
+    cos, sin = params.rope_cos[:T], params.rope_sin[:T]  # broadcast over B
+    start0 = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    layers = params.layers
+    for i in range(layers.rms_att.shape[0]):
+        lp = layers.layer(i)
+        h = rmsnorm(x, lp.rms_att)
+        q, k, v = _project_qkv(h, lp, config)
+        q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
+        k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
+        # quantize before the head-major transpose (the hd reduce reads
+        # contiguous rows), then move int8
+        kq, ks = quantize_kv(k)  # [B, T, KVH, hd] / [B, T, KVH]
+        vq, vs = quantize_kv(v.reshape(B, T, KVH, hd))
+        kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+        att = flash_prefill_attention(q, kq, vq, start0, ks, vs, out_dtype=x.dtype)
+        cache.k[i, :, :, :T] = kq
+        cache.v[i, :, :, :T] = vq
+        cache.ks[i, :, :, :T] = ks
+        cache.vs[i, :, :, :T] = vs
+        x = x + matmul_any(att, lp.wo)
+        h = rmsnorm(x, lp.rms_ffn)
+        gate, up = _project_gate_up(h, lp, config)
+        x = x + matmul_any(F.silu(gate) * up, lp.w2)
+    if logits_mode == "last":
+        rows = (lengths.long() - 1).clamp(0, T - 1)
+        x = x[torch.arange(B, device=x.device), rows]
+    x = rmsnorm(x, params.rms_final)
+    return matmul_any(x, params.wcls).float(), cache
+
+
+def forward_prefill(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
+                    start_pos: torch.Tensor, lengths: torch.Tensor, config: ModelConfig,
+                    logits_mode: str = "all", assume_fresh: bool = False):
+    """Batched causal prefill (llama.py:2052).  Returns (logits, cache):
+    [B, T, V] for ``logits_mode="all"``, [B, V] at lengths-1 for "last";
+    the cache is written in place.  Only the fresh route is ported:
+    ``assume_fresh=True`` promises start_pos == 0 everywhere.  Attention is
+    always K6 (the JAX package's ``attn="flash"``; its plain version on the
+    CPU is the ``"xla"`` math)."""
+    if not assume_fresh:
+        raise NotImplementedError("prefill at start_pos > 0 and chunked prefill: "
+                                  "ROADMAP queue 1 item 9")
+    return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode)
+
+
+def greedy_decode_loop(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
+                       pos: torch.Tensor, steps: int, config: ModelConfig,
+                       attn: str = "auto"):
+    """``steps`` greedy decode steps (llama.py:2016) as a Python loop: the
+    argmax feeds back on the device.  Returns (tokens [B, steps], cache)."""
+    toks, p, out = tokens.long(), pos.long(), []
+    for _ in range(steps):
+        logits, cache = forward_decode(params, cache, toks, p, config, attn=attn)
+        toks = logits.argmax(dim=-1)
+        out.append(toks)
+        p = p + 1
+    return torch.stack(out, dim=1), cache

@@ -1,0 +1,169 @@
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` into its own shared library with a plain
+C interface -- no PyTorch headers, so a build takes seconds -- and loads
+through ``ctypes``.  The first launch builds every library at once (one
+``nvcc`` per source, all running together) into ``build/kernels/`` at the
+repo root.  A library's file name carries a hash of its source, the shared
+header and the flags, so an edited source rebuilds.  Nothing here is built
+or loaded at import time: the CPU tests import every module.
+
+Launch and plain-version counts: every wrapper in ``tpu_llama_torch.ops``
+adds one to ``LAUNCHES[kernel]`` right after it launched its kernel, and one
+to ``PLAIN_CALLS[kernel]`` when it ran the plain PyTorch version for a CPU
+tensor.  They are process-wide counters, read by ``chip_smoke.py`` to show
+that a run went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# No --use_fast_math: it would change 1/s, expf and rounding.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# source name -> (C entry point, its argument types)
+SOURCES = {
+    "quantize_rows": ("tl_quantize_rows", [_P, _I, _P, _P, _L, _L, _I, _P]),
+    "w8a8_matmul": ("tl_w8a8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "flash_prefill": ("tl_flash_prefill",
+                      [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]),
+    "kv_scatter": ("tl_kv_scatter_slots",
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _P]),
+}
+
+# kernel id -> source; the ids follow ROADMAP.md queue 2
+KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K6": "flash_prefill",
+           "K7": "kv_scatter"}
+LAUNCHES = {k: 0 for k in KERNELS}
+PLAIN_CALLS = {k: 0 for k in KERNELS}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh TlDtype
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    return _DTYPE_CODES[dtype]
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _log_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".log")
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named sources (all by default) that are not built yet,
+    one ``nvcc`` process per source, all started together.  Returns the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    for every named source: each log is kept beside its library, so a
+    source built earlier returns the log of that build.  Raises with the
+    log if any build failed."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not (_lib_path(n).exists() and _log_path(n).exists())]
+    procs = {}
+    if todo:
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for n, (proc, tmp, out) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode == 0:
+            _log_path(n).write_text(log)
+            os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {n: _log_path(n).read_text() for n in names}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn_name, argtypes = SOURCES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.tl_error_string.argtypes = [ctypes.c_int]
+        lib.tl_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def launch(kernel: str, *args) -> None:
+    """Launch ``kernel`` (an id of KERNELS) on the current stream; raise if
+    the launch was refused, count it otherwise."""
+    lib = _lib(KERNELS[kernel])
+    fn_name = SOURCES[KERNELS[kernel]][0]
+    code = getattr(lib, fn_name)(*args)
+    if code != 0:
+        msg = lib.tl_error_string(code).decode()
+        raise RuntimeError(f"{kernel} ({fn_name}) launch failed: {msg} ({code})")
+    LAUNCHES[kernel] += 1
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
+    """True when the wrapper must run the plain version (all tensors on the
+    CPU, counted); False for CUDA tensors; raises for anything else."""
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        PLAIN_CALLS[kernel] += 1
+        return True
+    if devs == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError(f"{kernel}: tensors on different cards")
+        return False
+    raise ValueError(f"{kernel}: tensors must all be on the CPU or all on one card, "
+                     f"got {sorted(devs)}")

@@ -1,0 +1,66 @@
+"""W8A8 matrix products: per-row INT8 activations x per-channel INT8 weights.
+
+Port of tpu_llama/ops/matmul.py:437-610 (``w8a8_matmul`` and
+``w8a8_matmul_prequant``; the residual epilogue, :388, waits for the
+fused-prefill slice).  No 32-row padding and no tile picking: the kernel
+masks its own ragged edges, and results exist only for real rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_llama_torch.ops import _kernels
+from tpu_llama_torch.ops.quant import ChannelQuantTensor, quantize_activations
+
+
+def _check(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor) -> None:
+    if xq.dtype != torch.int8 or w.q.dtype != torch.int8:
+        raise TypeError("w8a8 operands must be int8")
+    if sx.dtype != torch.float32 or w.s.dtype != torch.float32:
+        raise TypeError("w8a8 scales must be float32")
+    if xq.dim() != 2 or w.q.dim() != 2:
+        raise ValueError(f"want xq [M, IN] and w.q [OUT, IN], got {tuple(xq.shape)}, "
+                         f"{tuple(w.q.shape)}")
+    m, k = xq.shape
+    n = w.q.shape[0]
+    if w.q.shape[1] != k or sx.shape != (m,) or w.s.shape != (n,):
+        raise ValueError(f"shape mismatch: xq {tuple(xq.shape)}, sx {tuple(sx.shape)}, "
+                         f"w.q {tuple(w.q.shape)}, w.s {tuple(w.s.shape)}")
+
+
+def w8a8_matmul_prequant_plain(xq, sx, w: ChannelQuantTensor, out_dtype=torch.float32):
+    """Plain version of K1.  The int32 accumulation is exact in float64
+    (127^2 * IN < 2^53 for every IN this engine sees), then the epilogue of
+    matmul.py:383-385: ``(f32(acc) * sx[row]) * sw[col]``, one cast."""
+    acc = (xq.double() @ w.q.double().T).float()
+    return (acc * sx[:, None] * w.s[None, :]).to(out_dtype)
+
+
+def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """xq int8 [M, IN] (quantized rows), sx f32 [M], w [OUT, IN] -> [M, OUT]
+    in ``out_dtype``.  K1 on CUDA tensors, the plain version on CPU ones."""
+    _check(xq, sx, w)
+    if _kernels.on_cpu("K1", xq, sx, w.q, w.s):
+        return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype)
+    code = _kernels.dtype_code(out_dtype)
+    xq, sx = xq.contiguous(), sx.contiguous()
+    wq, ws = w.q.contiguous(), w.s.contiguous()
+    m, k = xq.shape
+    n = wq.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    if m and n:
+        vec = k % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+        _kernels.launch("K1", xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                        out.data_ptr(), code, m, n, k, int(vec), _kernels.stream(xq))
+    return out
+
+
+def w8a8_matmul(x: torch.Tensor, w: ChannelQuantTensor, out_dtype=torch.float32):
+    """``x @ dequant(w)`` with x quantized per row (K2) and the contraction in
+    int8 (K1).  x [..., IN] -> [..., OUT]."""
+    lead = x.shape[:-1]
+    xq, sx = quantize_activations(x.reshape(-1, x.shape[-1]))
+    out = w8a8_matmul_prequant(xq, sx, w, out_dtype=out_dtype)
+    return out.reshape(*lead, w.out_features)
