@@ -9,21 +9,28 @@ Phases (any failure exits non-zero and prints no result line):
 2. build every CUDA kernel from ``tpu_llama_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the ``-Xptxas -v`` register/spill summary;
 3. each kernel (K1 W8A8 GEMM, K2 row quant, K6 INT8 prefill attention, K7
-   slot scatter) at the Llama-2 7B shapes of the serving path, against its
-   plain PyTorch version on the same inputs: K1, K2 and K7 exact, K6 within
-   its tolerance; kernel, plain-version and PyTorch-library times (CUDA
-   events) beside the bound (the larger of bytes / 3.35 TB/s and operations
-   / the card's peak for their type);
+   slot scatter, K9 and K19 INT8 decode attention, K10 row flush) at the
+   Llama-2 7B shapes of the serving path, against its plain PyTorch version
+   on the same inputs: K1, K2, K7 and K10 exact, K6, K9 and K19 within
+   K6_TOL; kernel, plain-version and PyTorch-library times (CUDA events)
+   beside the bound (the larger of bytes / 3.35 TB/s and operations / the
+   card's peak for their type);
 4. the serving path at full 7B width and depth with random W8A8 weights:
-   ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)`` + ``ContinuousBatcher``
-   serving 10 requests (prompts in the 16..512 buckets, greedy and seeded
-   temperature sampling); every request must finish with in-vocab tokens,
-   every kernel's launch count must grow and no plain version may run;
+   ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)`` (decode attention
+   "auto": K9 on the card at batch 8) + ``ContinuousBatcher`` serving 10
+   requests (prompts in the 16..512 buckets, greedy and seeded temperature
+   sampling); every request must finish with in-vocab tokens, every kernel
+   of the path must launch (the decode attention once per layer and step,
+   K10 once per step), no other kernel and no plain version may run;
 5. port parity: the same model cut to 2 layers serves one greedy request on
-   the card (kernels) and on the CPU (plain versions), with f32 activations
-   (tokens equal at all 8 steps, logits within LOGITS_TOL) and with bf16
-   activations (prefill logits within LOGITS_TOL);
-6. a JSON line of the kernels, then the result line.
+   the card (kernels) and on the CPU (plain versions) with the same explicit
+   decode attention, once each "xla" (plain PyTorch on both sides), "flash"
+   (K19) and "flash_dma" (K9), with f32 activations (tokens equal at all 8
+   steps, logits within LOGITS_TOL) and with bf16 activations (prefill
+   logits within LOGITS_TOL);
+6. a JSON line of the kernels (launches counted on the path that runs
+   each: phase 4, and phase 5's f32 run for a decode attention that phase 4
+   does not run), then the result line.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
 repo (``tpu_llama_torch`` must be importable from beside this file).
@@ -63,7 +70,13 @@ SRC = {
     "K2": ("tpu_llama_torch/csrc/quantize_rows.cu", "tpu_llama/ops/quant.py:275"),
     "K6": ("tpu_llama_torch/csrc/flash_prefill.cu", "tpu_llama/ops/attention.py:1654"),
     "K7": ("tpu_llama_torch/csrc/kv_scatter.cu", "tpu_llama/ops/attention.py:1212"),
+    "K9": ("tpu_llama_torch/csrc/flash_decode_dma.cu", "tpu_llama/ops/attention.py:335"),
+    "K10": ("tpu_llama_torch/csrc/kv_flush_rows.cu", "tpu_llama/ops/attention.py:2470"),
+    "K19": ("tpu_llama_torch/csrc/flash_decode_fresh.cu", "tpu_llama/ops/attention.py:807"),
 }
+DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
+PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
+DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]  # one per slot at batch 8
 
 
 class SmokeFailure(RuntimeError):
@@ -280,6 +293,146 @@ def check_k7(torch, tatt, results):
                         bound_by=by, library_ms=library_ms))
 
 
+def _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pos, layers, copies):
+    """The library yardstick of K9 and K19: scaled_dot_product_attention on
+    the dequantized bf16 cache with the fresh row written in place at pos
+    and a boolean mask s <= pos."""
+    import torch.nn.functional as F
+
+    B, KVH, G, hd = q[0].shape
+    S = k.shape[3]
+    b_ix = torch.arange(B, device="cuda")
+    deq = []
+    for i in range(copies):
+        kd = k[layers[i]].float() * ks[layers[i]][..., None]
+        vd = v[layers[i]].float() * vs[layers[i]][..., None]
+        kd[b_ix, :, pos.long()] = nk[i].float() * nks[i][..., None]
+        vd[b_ix, :, pos.long()] = nv[i].float() * nvs[i][..., None]
+        deq.append((q[i].reshape(B, KVH * G, 1, hd), kd.to(torch.bfloat16),
+                    vd.to(torch.bfloat16)))
+        del kd, vd
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    kw = dict(enable_gqa=True) if G > 1 else {}
+    try:
+        return cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            *deq[i % copies], attn_mask=mask, **kw), 50)
+    except (TypeError, RuntimeError) as e:  # a GQA call this build refuses
+        print(f"decode attention library call unavailable: {e}", file=sys.stderr)
+        return None
+
+
+def check_decode_attention(torch, tatt, results):
+    """K9 and K19 on the same inputs: a 32-layer 2048-row cache, layer 17,
+    at batch 8 (one slot at each of DECODE_POS; MHA and a GQA group of 4)
+    and at batch 1.  Repeated calls rotate through other layers of the
+    cache and other queries, so they find the rows cold in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    L, S, hd, layer = 32, 2048, 128, 17
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rs(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda") * 0.03 + 0.01
+
+    for B, KVH, G, pos in ((8, 32, 1, DECODE_POS), (8, 8, 4, DECODE_POS), (1, 32, 1, [511]),
+                           (1, 32, 1, [2047])):
+        k, v, ks, vs = ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd), rs(L, B, KVH, S), \
+            rs(L, B, KVH, S)
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        rows = KVH * sum(pos)  # cache rows the function reads
+        copies = n_copies(rows * (2 * hd + 8))
+        layers = [(layer + i) % L for i in range(copies)]
+        q = [torch.randn(B, KVH, G, hd, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(copies)]
+        nk = [ri(B, KVH, hd) for _ in range(copies)]
+        nv = [ri(B, KVH, hd) for _ in range(copies)]
+        nks = [rs(B, KVH) for _ in range(copies)]
+        nvs = [rs(B, KVH) for _ in range(copies)]
+        library_ms = _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pt, layers, copies)
+        torch.cuda.empty_cache()
+        nbytes = (rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + B * KVH * (2 * hd + 8)
+                  + 4 * B)
+        ops = 4 * hd * G * (rows + B * KVH)  # the QK and PV dots, fresh column included
+        b_ms, by = bound_ms(nbytes, ops, "bf16")
+        for kernel, name in (("K9", "dma"), ("K19", "fresh")):
+            fn = getattr(tatt, f"flash_decode_attention_{name}")
+            plain = getattr(tatt, f"flash_decode_attention_{name}_plain")
+
+            def run(i, f=fn):
+                j = i % copies
+                return f(q[j], k, v, pt, nk[j], nv[j], ks, vs, nks[j], nvs[j], layer=layers[j])
+
+            got = run(0)
+            torch.cuda.synchronize()
+            want = run(0, plain)
+            err = (got - want).abs().max().item()
+            peak = want.abs().max().item()
+            label = f"{kernel} {name} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'}"
+            check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
+            ms = cuda_ms(torch, run, 50)
+            plain_ms = cuda_ms(torch, lambda i: run(i, plain), 5)
+            results.append(dict(kernel=kernel, name=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                library_ms=library_ms))
+        del k, v, ks, vs
+        torch.cuda.empty_cache()
+
+
+def check_k10(torch, tatt, results):
+    """K10 at the 7B step shape, bit-equal to its plain version; the slot at
+    pos S must come out untouched."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    L, B, KVH, S, hd = 32, 8, 32, 2048, 128
+    pos = [0, 1, 127, 128, 511, 1000, S, 2047]
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rf(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    cache = [ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd), rf(L, B, KVH, S), rf(L, B, KVH, S)]
+    copies = n_copies(L * B * KVH * (2 * hd + 8))
+    rows = [(ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
+            for _ in range(copies)]
+    pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    ref = [c.clone() for c in cache]
+    skipped = [c[:, 6].clone() for c in cache]
+
+    def run(i, arrays=cache, fn=tatt.kv_cache_flush_rows):
+        rk, rv, rks, rvs = rows[i % copies]
+        fn(rk, rv, pt, arrays[0], arrays[1], rks, rvs, arrays[2], arrays[3])
+
+    run(0)
+    torch.cuda.synchronize()
+    run(0, ref, tatt.kv_cache_flush_rows_plain)
+    check(all(torch.equal(a, b) for a, b in zip(cache, ref)), "K10: cache differs")
+    check(all(torch.equal(c[:, 6], s) for c, s in zip(cache, skipped)),
+          "K10: the slot at pos S was written")
+    del ref, skipped
+    ms = cuda_ms(torch, run, 50)
+    plain_ms = cuda_ms(torch, lambda i: run(i, cache, tatt.kv_cache_flush_rows_plain), 10)
+    ok = [b for b, p in enumerate(pos) if p < S]
+    ix = (torch.arange(L, device="cuda")[:, None, None],
+          torch.tensor(ok, device="cuda")[None, :, None],
+          torch.arange(KVH, device="cuda")[None, None, :],
+          torch.tensor([pos[b] for b in ok], device="cuda")[None, :, None])
+    okt = ix[1][0, :, 0]
+
+    def lib(i):
+        for c, r in zip(cache, rows[i % copies]):
+            c[ix] = r[:, okt]
+
+    library_ms = cuda_ms(torch, lib, 50)
+    b_ms, by = bound_ms(2 * L * len(ok) * KVH * (2 * hd + 8) + 4 * B, 0, "int8")
+    results.append(dict(kernel="K10", name=f"K10 kv_flush_rows L={L} B={B} S={S}",
+                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=by, library_ms=library_ms))
+    del cache, rows
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path
 # ---------------------------------------------------------------------------
@@ -328,10 +481,18 @@ def serve_7b(torch, smi_line):
     toks = [t for r in reqs for t in r.out_tokens]
     check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
           "served tokens missing or out of vocabulary")
-    check(all(launches[k] > 0 for k in launches), f"a kernel never launched: {launches}")
+    attn = engine.decode_attn
+    steps = batcher.timers["decode_steps"]
+    path = PREFILL_PATH | {"K10", DECODE_KERNEL[attn]}
+    check({k for k, n in launches.items() if n > 0} == path,
+          f"decode attention {attn}: want launches of exactly {sorted(path)}, got {launches}")
+    check(launches[DECODE_KERNEL[attn]] == cfg.n_layers * steps and launches["K10"] == steps,
+          f"{steps} decode steps: want {cfg.n_layers} {DECODE_KERNEL[attn]} launches and one "
+          f"K10 launch per step, got {launches}")
     check(all(v == 0 for v in plain.values()), f"plain versions ran: {plain}")
     rep = summarize(reqs)
-    line = dict(phase="serve_7b", n_requests=rep.n_requests, tokens=rep.total_tokens,
+    line = dict(phase="serve_7b", decode_attn=attn, n_requests=rep.n_requests,
+                tokens=rep.total_tokens,
                 wall_s=wall, tok_per_s=rep.tokens_per_sec, ttft_p50_ms=rep.ttft_p50_s * 1e3,
                 ttft_p95_ms=rep.ttft_p95_s * 1e3, setup_s=setup_s,
                 decode_steps=batcher.timers["decode_steps"],
@@ -365,20 +526,32 @@ def _greedy(engine, seq, steps):
     return toks, logits
 
 
-def _parity(torch, cfg, act_dtype, seq):
+def _parity(torch, cfg, act_dtype, seq, attn):
     """One greedy request of PARITY_STEPS steps on the card and on the CPU,
-    from the same weights; returns the reading as a dict."""
+    from the same weights, both with decode attention ``attn``; returns the
+    reading as a dict, with the card run's kernel launches."""
     from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
     gpu = random_quant_params(cfg, seed=1, norm_dtype=act_dtype)
     cpu = _to(gpu, "cpu")
     t0 = time.time()
-    g_toks, g_log = _greedy(Engine(gpu, cfg, max_batch=1, seq_len=64), seq, PARITY_STEPS)
-    t1 = time.time()
-    c_toks, c_log = _greedy(Engine(cpu, cfg, max_batch=1, seq_len=64, device="cpu"), seq,
+    _kernels.reset_counts()
+    g_toks, g_log = _greedy(Engine(gpu, cfg, max_batch=1, seq_len=64, attn=attn), seq,
                             PARITY_STEPS)
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    t1 = time.time()
+    c_toks, c_log = _greedy(Engine(cpu, cfg, max_batch=1, seq_len=64, attn=attn, device="cpu"),
+                            seq, PARITY_STEPS)
     t2 = time.time()
+    kernel = DECODE_KERNEL.get(attn)  # None: "xla" decodes in plain PyTorch
+    path = PREFILL_PATH | ({kernel, "K10"} if kernel else set())
+    check({k for k, n in launches.items() if n > 0} == path and not any(plain.values())
+          and (kernel is None or (launches[kernel] == cfg.n_layers * PARITY_STEPS
+                                  and launches["K10"] == PARITY_STEPS)),
+          f"parity {attn}: want launches of exactly {sorted(path)} (the decode attention "
+          f"once per layer and step, K10 once per step), got {launches}; plain calls {plain}")
     same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
     # logits [0, same] came from the same tokens on both sides
     errs = [float(np.abs(g_log[i] - c_log[i]).max()) for i in range(same + 1)]
@@ -387,28 +560,34 @@ def _parity(torch, cfg, act_dtype, seq):
                 prefill_logit_max_err=errs[0], logit_max_err=max(errs),
                 logit_peak=float(np.abs(c_log[0]).max()),
                 finite=bool(all(np.isfinite(x).all() for x in g_log)),
-                card_s=t1 - t0, cpu_s=t2 - t1)
+                card_s=t1 - t0, cpu_s=t2 - t1, card_launches=launches)
 
 
 def parity_2layer(torch):
+    """Phase 5 for each decode attention; returns the card launches of each
+    attention's f32 run."""
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
     seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
-    f32 = _parity(torch, cfg, torch.float32, seq)
-    bf16 = _parity(torch, cfg, torch.bfloat16, seq)
-    print(json.dumps(dict(phase="parity_2layer", f32=f32, bf16=bf16, tol=LOGITS_TOL)),
-          flush=True)
-    check(f32["finite"] and bf16["finite"], "card logits not finite")
-    check(f32["tokens_equal"] == PARITY_STEPS,
-          f"f32 greedy tokens differ at step {f32['tokens_equal']}: card "
-          f"{f32['card_tokens']}, cpu {f32['cpu_tokens']}")
-    check(f32["logit_max_err"] <= LOGITS_TOL * f32["logit_peak"],
-          f"f32 logits: max err {f32['logit_max_err']} > {LOGITS_TOL} * "
-          f"{f32['logit_peak']}")
-    check(bf16["prefill_logit_max_err"] <= LOGITS_TOL * bf16["logit_peak"],
-          f"bf16 prefill logits: max err {bf16['prefill_logit_max_err']} > {LOGITS_TOL} * "
-          f"{bf16['logit_peak']}")
+    launches = {}
+    for attn in ("xla", "flash", "flash_dma"):
+        f32 = _parity(torch, cfg, torch.float32, seq, attn)
+        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn)
+        launches[attn] = f32["card_launches"]
+        print(json.dumps(dict(phase="parity_2layer", attn=attn, f32=f32, bf16=bf16,
+                              tol=LOGITS_TOL)), flush=True)
+        check(f32["finite"] and bf16["finite"], f"{attn}: card logits not finite")
+        check(f32["tokens_equal"] == PARITY_STEPS,
+              f"{attn}: f32 greedy tokens differ at step {f32['tokens_equal']}: card "
+              f"{f32['card_tokens']}, cpu {f32['cpu_tokens']}")
+        check(f32["logit_max_err"] <= LOGITS_TOL * f32["logit_peak"],
+              f"{attn}: f32 logits: max err {f32['logit_max_err']} > {LOGITS_TOL} * "
+              f"{f32['logit_peak']}")
+        check(bf16["prefill_logit_max_err"] <= LOGITS_TOL * bf16["logit_peak"],
+              f"{attn}: bf16 prefill logits: max err {bf16['prefill_logit_max_err']} > "
+              f"{LOGITS_TOL} * {bf16['logit_peak']}")
+    return launches
 
 
 def main() -> int:
@@ -455,6 +634,8 @@ def main() -> int:
     check_k6(torch, tatt, results)
     check_k7(torch, tatt, results)
     torch.cuda.empty_cache()
+    check_decode_attention(torch, tatt, results)
+    check_k10(torch, tatt, results)
     for r in results:  # launches follow in the kernels line, after the main path
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
@@ -464,8 +645,12 @@ def main() -> int:
     # 4. the serving path at 7B
     launches = serve_7b(torch, smi)
 
-    # 5. port parity, card against CPU
-    parity_2layer(torch)
+    # 5. port parity, card against CPU; a decode attention that phase 4 did
+    # not run counts its launches on its phase-5 path
+    parity = parity_2layer(torch)
+    for attn, kernel in DECODE_KERNEL.items():
+        if launches[kernel] == 0:
+            launches[kernel] = parity[attn][kernel]
 
     # 6. result lines
     kernels = []

@@ -4,10 +4,13 @@ Marked ``cuda``; they skip (inside the ``card`` fixture, never at import)
 where there is no CUDA device.  Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 
-Required agreement: K1, K2 and K7 exact.  K6 computes in f32 like its plain
-version but sums in another order and uses CUDA's expf: f32 outputs within
-1e-5 of the largest output, bf16 outputs within one bf16 rounding step of
-it (2^-7 relative) plus that noise.
+Required agreement: K1, K2, K7 and K10 exact.  K6 computes in f32 like its
+plain version but sums in another order and uses CUDA's expf: f32 outputs
+within 1e-5 of the largest output, bf16 outputs within one bf16 rounding
+step of it (2^-7 relative) plus that noise.  K9 and K19 round q and p to
+bf16 at the same places as their plain versions; the f32 sums run in
+another order, which can flip a rare bf16 rounding of p: within one bf16
+step (2^-7) of the largest output plus f32 noise, as K6 in bf16.
 """
 
 import numpy as np
@@ -119,9 +122,84 @@ def test_k7_exact(card, T, S, hd, slots):
         assert torch.equal(a, b)
 
 
-def test_engine_card_matches_cpu(card):
-    """A tiny f32-activation engine: greedy tokens on the card (kernels) equal
-    the CPU's (plain versions)."""
+DECODE_TOL = 2 ** -7 + 1e-5  # of max |plain|
+
+
+def _decode_case(B, KVH, G, hd, S, pos, qdtype, L=3):
+    g = _gen(B * KVH + G + hd + S)
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+    def rs(*shape):
+        return torch.rand(shape, generator=g, device="cuda") * 0.02 + 0.005
+
+    q = torch.randn(B, KVH, G, hd, generator=g, device="cuda").to(qdtype)
+    return (q, ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"), ri(B, KVH, hd),
+            ri(B, KVH, hd), rs(L, B, KVH, S), rs(L, B, KVH, S), rs(B, KVH), rs(B, KVH))
+
+
+@pytest.mark.parametrize("G,hd", [(1, 64), (4, 64), (1, 128), (4, 128), (2, 12)])
+@pytest.mark.parametrize("kernel,name,kw", [("K9", "dma", {}), ("K9", "dma", {"block_s": 64}),
+                                            ("K19", "fresh", {})])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_close(card, G, hd, kernel, name, kw, qdtype):
+    S = 512
+    args = _decode_case(4, 3, G, hd, S, [0, 1, 300, S - 1], qdtype)
+    before = _kernels.LAUNCHES[kernel]
+    got = getattr(tatt, f"flash_decode_attention_{name}")(*args, layer=1, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[kernel] == before + 1
+    want = getattr(tatt, f"flash_decode_attention_{name}_plain")(*args, layer=1, **kw)
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    assert err <= DECODE_TOL * peak, (err, peak)
+
+
+@pytest.mark.parametrize("hd", [128, 64, 12])
+def test_k10_exact_and_skips_out_of_range(card, hd):
+    g = _gen(hd)
+    L, B, KVH, S = 3, 5, 4, 256
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=card, dtype=torch.int8)
+
+    def rf(*shape):
+        return torch.rand(shape, generator=g, device=card)
+
+    rows = (ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
+    cache = (ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd), rf(L, B, KVH, S), rf(L, B, KVH, S))
+    before = [c.clone() for c in cache]
+    ref = [c.clone() for c in cache]
+    pos = torch.tensor([0, S - 1, 8, S, -1], dtype=torch.int32, device=card)
+    tatt.kv_cache_flush_rows(rows[0], rows[1], pos, cache[0], cache[1], rows[2], rows[3],
+                             cache[2], cache[3])
+    torch.cuda.synchronize()
+    tatt.kv_cache_flush_rows_plain(rows[0], rows[1], pos, ref[0], ref[1], rows[2], rows[3],
+                                   ref[2], ref[3])
+    for a, b, c in zip(cache, ref, before):
+        assert torch.equal(a, b)
+        assert torch.equal(a[:, 3:], c[:, 3:])  # slots at pos S and -1 untouched
+
+
+# Where the CPU's top two next-token log-probabilities are closer than this,
+# the card may take the other token.  K9 and K19 round p * vs to bf16, so an
+# f32 ulp of difference (CUDA's expf against PyTorch's exp, another order of
+# sums) flips a rare bf16 rounding, and through the int8 activation quant
+# that moves this model's logits by about 1e-3: on an H100, requiring equal
+# tokens failed for K19 at a step where the CPU's top two were 1.1e-3 apart
+# (PERF.md).
+NEAR_TIE = 5e-3
+
+
+@pytest.mark.parametrize("attn", ["xla", "flash", "flash_dma"])
+def test_engine_card_matches_cpu(card, attn):
+    """A tiny f32-activation engine with the same explicit decode attention
+    on both sides: greedy tokens on the card (kernels) equal the CPU's
+    (plain versions) -- exactly for the f32 xla attention; for the
+    bf16-rounding K9 and K19 up to the first step where the CPU's top two
+    tokens are within NEAR_TIE, after which a stream is not compared."""
     from tpu_llama_torch import convert
     from tpu_llama_torch.config import ModelConfig
     from tpu_llama_torch.models import llama as tl
@@ -134,14 +212,24 @@ def test_engine_card_matches_cpu(card):
     out = []
     for params, dev in ((cpu, "cpu"), (gpu, card)):
         _kernels.reset_counts()
-        b = ContinuousBatcher(Engine(params, cfg, max_batch=4, device=dev))
-        reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0)
-                for n in (5, 130, 40)]
+        b = ContinuousBatcher(Engine(params, cfg, max_batch=4, attn=attn, device=dev))
+        reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0,
+                        logprobs=2) for n in (5, 130, 40)]
         for r in reqs:
             b.submit(r)
         b.run()
-        out.append([r.out_tokens for r in reqs])
-        if dev == card:
-            assert all(_kernels.LAUNCHES[k] > 0 for k in _kernels.KERNELS)
+        out.append(reqs)
+        if dev == card:  # every kernel of the path launched, and no other
+            path = {"K1", "K2", "K6", "K7"} | {
+                "flash": {"K19", "K10"}, "flash_dma": {"K9", "K10"}}.get(attn, set())
+            assert {k for k, n in _kernels.LAUNCHES.items() if n > 0} == path
             assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
-    assert out[0] == out[1]
+    for c, g in zip(*out):
+        assert len(c.out_tokens) == 12
+        part = next((i for i, (a, b) in enumerate(zip(c.out_tokens, g.out_tokens)) if a != b),
+                    None)
+        if attn == "xla" or part is None:
+            assert g.out_tokens == c.out_tokens
+        else:
+            (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
+            assert top1 - top2 < NEAR_TIE, (attn, part, c.out_tokens, g.out_tokens)

@@ -1,5 +1,7 @@
 """Port parity for serving: ``Engine`` + ``ContinuousBatcher`` produce the
-same token streams as the JAX package's on a tiny W8A8 / INT8-KV GQA config.
+same token streams as the JAX package's on a tiny W8A8 / INT8-KV GQA config,
+with the xla decode attention and with the deferred-flush ``flash_dma`` one
+(K9 + K10) on both sides.
 
 The first admission is a group of four prompts in the 128 bucket, so on the
 JAX side it runs the K7 slot scatter and (4 x 128 rows > 256) the K2 row
@@ -38,17 +40,19 @@ def _requests(cls):
     return out
 
 
-@pytest.fixture(scope="module")
-def streams():
+def _serve_both(attn):
+    """The same requests through the JAX engine and the port's, both with
+    ``attn``; returns (JAX requests, port requests, the port's plain-version
+    counts)."""
     jcfg, jp, tcfg, tp = build_pair(CFG, jnp.float32, seed=21)
-    jeng = JaxEngine(jp, jcfg, max_batch=4, kv_dtype="int8", seq_len=256, attn="xla")
+    jeng = JaxEngine(jp, jcfg, max_batch=4, kv_dtype="int8", seq_len=256, attn=attn)
     jb = JaxBatcher(jeng)
     jreqs = _requests(JaxRequest)
     for r in jreqs:
         jb.submit(r)
     jb.run()
     _kernels.reset_counts()
-    teng = Engine(tp, tcfg, max_batch=4, kv_dtype="int8", seq_len=256, attn="xla",
+    teng = Engine(tp, tcfg, max_batch=4, kv_dtype="int8", seq_len=256, attn=attn,
                   device="cpu")
     tb = ContinuousBatcher(teng)
     treqs = _requests(Request)
@@ -56,6 +60,17 @@ def streams():
         tb.submit(r)
     tb.run()
     return jreqs, treqs, dict(_kernels.PLAIN_CALLS)
+
+
+@pytest.fixture(scope="module")
+def streams():
+    return _serve_both("xla")
+
+
+@pytest.fixture(scope="module")
+def streams_flash_dma():
+    """The deferred-flush decode (K9 + K10) on both sides."""
+    return _serve_both("flash_dma")
 
 
 def test_engine_token_streams_equal_jax(streams):
@@ -72,6 +87,25 @@ def test_engine_ran_every_op_and_reports(streams):
     rep = summarize(treqs)
     assert rep.n_requests == len(treqs) and rep.total_tokens > 0
     assert rep.ttft_p50_s > 0
+
+
+def test_engine_flash_dma_token_streams_equal_jax(streams_flash_dma):
+    jreqs, treqs, plain = streams_flash_dma
+    assert all(r.done for r in treqs)
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.id, t.temperature)
+    assert sum(len(r.out_tokens) for r in treqs) > 40
+    assert plain["K9"] > 0 and plain["K10"] > 0
+    assert plain["K9"] == CFG["n_layers"] * plain["K10"] and plain["K19"] == 0
+
+
+def test_engine_decode_attn_and_rejects_unknown():
+    _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=25)
+    assert Engine(tp, tcfg, max_batch=2, seq_len=64, device="cpu").decode_attn == "xla"
+    eng = Engine(tp, tcfg, max_batch=2, seq_len=64, attn="flash", device="cpu")
+    assert eng.decode_attn == "flash"
+    with pytest.raises(ValueError):
+        Engine(tp, tcfg, max_batch=2, seq_len=64, attn="pallas", device="cpu")
 
 
 def test_engine_prefill_groups_and_decode():

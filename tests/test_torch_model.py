@@ -136,6 +136,70 @@ def test_greedy_decode_loop_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _dequant(cache):
+    return [np.asarray(getattr(cache, qn), np.float32)
+            * np.asarray(getattr(cache, sn))[..., None] for qn, sn in (("k", "ks"), ("v", "vs"))]
+
+
+@pytest.mark.parametrize("attn", ["flash", "flash_dma"])
+def test_decode_flash_matches_jax(pair, attn):
+    """The deferred-flush decode (K19 / K9 + the K10 flush) against the JAX
+    package's same ``attn``: both round q and p to bf16 at the same places,
+    so F32_TOL and BF16_TOL hold as for xla.  After three steps the
+    dequantized caches agree to the prefill test's limit."""
+    jcfg, jp, tcfg, tp, dtype = pair
+    B, T, S = 3, 8, 32
+    toks, lengths = _prompts(B, T, tcfg.vocab_size, 2)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    jlog, jcache = jl.forward_prefill(
+        jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
+        jcfg, logits_mode="last", assume_fresh=True)
+    tl.forward_prefill(tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
+                       torch.tensor(lengths), tcfg, logits_mode="last", assume_fresh=True)
+    nxt = np.asarray(jnp.argmax(jlog, -1), np.int32)
+    pos = lengths.copy()
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    _kernels.reset_counts()
+    for _ in range(3):
+        want, jcache = jl.forward_decode(jp, jcache, jnp.asarray(nxt), jnp.asarray(pos),
+                                         jcfg, attn=attn, fused=False)
+        got, _ = tl.forward_decode(tp, tcache, torch.tensor(nxt), torch.tensor(pos), tcfg,
+                                   attn=attn)
+        _close(got.numpy(), want, tol)
+        nxt = np.asarray(jnp.argmax(want, -1), np.int32)  # teacher-force JAX's tokens
+        pos = pos + 1
+    kernel = "K9" if attn == "flash_dma" else "K19"
+    assert _kernels.PLAIN_CALLS[kernel] == 3 * tcfg.n_layers and _kernels.PLAIN_CALLS["K10"] == 3
+    for tf, jf in zip(_dequant(tcache), _dequant(jcache)):
+        _close(tf, jf, tol * 4)
+
+
+@pytest.mark.parametrize("attn", ["flash", "flash_dma"])
+def test_greedy_decode_loop_flash_matches_jax(attn):
+    jcfg, jp, tcfg, tp = build_pair(TINY_GQA, jnp.float32, seed=5)
+    B, S, steps = 2, 32, 6
+    toks = np.array([5, 77], np.int32)
+    pos = np.array([0, 3], np.int32)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
+    want, _ = jl.greedy_decode_loop(jp, jcache, jnp.asarray(toks), jnp.asarray(pos), steps,
+                                    jcfg, attn=attn, fused=False)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    got, _ = tl.greedy_decode_loop(tp, tcache, torch.tensor(toks), torch.tensor(pos), steps,
+                                   tcfg, attn=attn)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_resolve_decode_attn():
+    cfg = ModelConfig(**TINY_GQA)
+    cache = tl.make_kv_cache(cfg, 2, seq_len=16, device="cpu")
+    assert tl._resolve_decode_attn("auto", cache) == "xla"  # the JAX package on the CPU
+    for attn in ("flash", "flash_dma", "xla"):
+        assert tl._resolve_decode_attn(attn, cache) == attn
+    with pytest.raises(ValueError):
+        tl._resolve_decode_attn("pallas", cache)
+
+
 def test_model_runs_on_plain_versions_only():
     _, _, tcfg, tp = build_pair(TINY_GQA, jnp.float32)
     _kernels.reset_counts()

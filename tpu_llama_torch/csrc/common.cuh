@@ -24,10 +24,166 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// x rounded to the nearest bf16 (ties to even), as a float: jnp's astype
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// cp.async (sm_80+): global -> shared copies that bypass the registers.
+// cp_async16 copies src_bytes (0 or 16) and zero-fills the rest of the 16.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// Deferred-flush INT8 decode attention (K9 flash_decode_dma.cu, K19
+// flash_decode_fresh.cu).  One block of kDecThreads threads per (kv head,
+// slot); its G query rows share every K/V byte it reads.  Cache rows are
+// staged in shared memory tiles of pitch P = hd rounded up to 16 bytes (the
+// pad columns are zero, and so are the queries' pad columns).
+// ---------------------------------------------------------------------------
+
+constexpr int kDecThreads = 128;
+constexpr int kDecMaxG = 8;  // query heads per kv head
+constexpr int kDecMaxHd = 128;
+constexpr int kDecMaxE = kDecMaxG * kDecMaxHd / kDecThreads;  // output elements a thread owns
+constexpr float kNegInf = -1e30f;  // the JAX package's _NEG_INF
+
+__device__ __forceinline__ int dec_pitch(int hd) { return (hd + 15) & ~15; }
+
+// The (slot, kv head)'s G query rows q [G, hd]: qf = f32(q) / sqrt_hd and
+// qb = bf16(qf), each [G, P] with zero pad columns.
+template <typename QT>
+__device__ void dec_load_q(const QT* __restrict__ q, float* qf, float* qb, int G, int hd, int P,
+                           float sqrt_hd) {
+    for (int e = threadIdx.x; e < G * P; e += kDecThreads) {
+        const int g = e / P, d = e % P;
+        const float x = d < hd ? to_f32(q[g * hd + d]) / sqrt_hd : 0.f;
+        qf[e] = x;
+        qb[e] = round_bf16(x);
+    }
+}
+
+// Zero the pad columns [hd, P) of `n` rows of pitch P.
+__device__ __forceinline__ void dec_zero_pad(int8_t* t, int n, int hd, int P) {
+    const int w = P - hd;
+    for (int e = threadIdx.x; e < n * w; e += kDecThreads) t[(e / w) * P + hd + e % w] = 0;
+}
+
+// Start copying `rows` cache rows of hd int8 values into a tile of pitch P
+// (CH-byte chunks: 16 when hd % 16 == 0, else 4), and `rows` f32 scales
+// from each non-null scale row; commits one cp.async group.
+template <int CH>
+__device__ void dec_issue_tile(int8_t* dst, const int8_t* __restrict__ src, int rows, int hd,
+                               int P, float* dst_s0, const float* __restrict__ src_s0,
+                               float* dst_s1, const float* __restrict__ src_s1) {
+    const int per_row = hd / CH;
+    for (int c = threadIdx.x; c < rows * per_row; c += kDecThreads) {
+        const int r = c / per_row, o = (c % per_row) * CH;
+        if (CH == 16)
+            cp_async16(dst + r * P + o, src + (long long)r * hd + o, 16);
+        else
+            cp_async4(dst + r * P + o, src + (long long)r * hd + o);
+    }
+    for (int r = threadIdx.x; r < rows; r += kDecThreads) {
+        if (src_s0) cp_async4(dst_s0 + r, src_s0 + r);
+        if (src_s1) cp_async4(dst_s1 + r, src_s1 + r);
+    }
+    cp_async_commit();
+}
+
+// store(g, r, dot) for rows r < rows of the tile kt and g < G, where
+// dot = sum_d qb[g, d] * k[r, d] in f32 (exact products of a bf16 and an
+// int8).  Eight lanes share a row, each on a 16-byte chunk; every thread of
+// the block must call it.
+template <class Store>
+__device__ void dec_qk_tile(const float* qb, const int8_t* kt, int rows, int G, int P,
+                            Store store) {
+    const int sub = threadIdx.x & 7;
+    for (int r0 = 0; r0 < rows; r0 += kDecThreads / 8) {
+        const int r = r0 + (threadIdx.x >> 3);
+        float part[kDecMaxG];
+#pragma unroll
+        for (int g = 0; g < kDecMaxG; ++g) part[g] = 0.f;
+        if (r < rows && sub * 16 < P) {
+            const int4 w = *reinterpret_cast<const int4*>(kt + r * P + sub * 16);
+            const int words[4] = {w.x, w.y, w.z, w.w};
+            float kf[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+                kf[i] = static_cast<float>(static_cast<int8_t>(words[i >> 2] >> (8 * (i & 3))));
+#pragma unroll
+            for (int g = 0; g < kDecMaxG; ++g) {
+                if (g >= G) break;
+                const float* qg = qb + g * P + sub * 16;
+#pragma unroll
+                for (int i = 0; i < 16; ++i) part[g] = fmaf(qg[i], kf[i], part[g]);
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < kDecMaxG; ++g) {
+            if (g >= G) break;
+#pragma unroll
+            for (int o = 1; o < 8; o <<= 1) part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+        }
+        if (sub == 0 && r < rows) {
+            for (int g = 0; g < G; ++g) store(g, r, part[g]);
+        }
+    }
+}
+
+// part[j] = sum_{r < rows} pv[g, r] * f32(v[r, d]) for the output element
+// e = threadIdx.x + kDecThreads * j = g * hd + d (0 where e >= G * hd).
+__device__ __forceinline__ void dec_pv_tile(const float* pv, int ldp, const int8_t* vt, int rows,
+                                            int G, int hd, int P, float (&part)[kDecMaxE]) {
+#pragma unroll
+    for (int j = 0; j < kDecMaxE; ++j) {
+        part[j] = 0.f;
+        const int e = threadIdx.x + kDecThreads * j;
+        if (e < G * hd) {
+            const int g = e / hd, d = e % hd;
+            const float* pg = pv + g * ldp;
+            for (int r = 0; r < rows; ++r)
+                part[j] = fmaf(pg[r], static_cast<float>(vt[r * P + d]), part[j]);
+        }
+    }
+}
+
+// s_new[g] = (sum_d qf[g, d] * f32(nk[d])) * nks: the fresh row's score from
+// the UNROUNDED f32 queries (attention.py:158-163, :319-323).  One warp per
+// query row.
+__device__ __forceinline__ void dec_fresh_scores(const float* qf, int P, const int8_t* nk,
+                                                 float nks, int G, int hd, float* s_new) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int g = warp; g < G; g += kDecThreads / 32) {
+        float s = 0.f;
+        for (int d = lane; d < hd; d += 32) s = fmaf(qf[g * P + d], static_cast<float>(nk[d]), s);
+        s = warp_sum(s);
+        if (lane == 0) s_new[g] = s * nks;
+    }
 }
 
 extern "C" const char* tl_error_string(int code) {

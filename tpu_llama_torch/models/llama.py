@@ -1,15 +1,19 @@
 """Llama-2 forward passes for the W8A8 + dense INT8-KV serving path.
 
 Port of the unfused parts of tpu_llama/models/llama.py that the engine's
-``quant="w8a8", kv_dtype="int8", kv_layout="dense", attn="xla"`` setting
-runs:
+``quant="w8a8", kv_dtype="int8", kv_layout="dense"`` setting runs:
 
 * prefill: ``forward_prefill(assume_fresh=True)`` -> ``_forward_prefill_fresh``
   (llama.py:1378), each layer through ``w8a8_matmul`` (K2 + K1) and the INT8
   causal attention K6;
-* decode: ``forward_decode`` -> the ``decode_stack`` XLA branch
-  (llama.py:1328-1339): per-layer cache write, attention over the
-  dequantized cache in plain PyTorch, every matmul through K1 (+ K2).
+* decode: ``forward_decode`` -> ``decode_stack``, every matmul through K1
+  (+ K2).  ``attn="flash_dma"`` / ``"flash"`` run the deferred-flush branch
+  (llama.py:1277-1327): the cache is read-only during the layer loop, each
+  layer attends over its rows < pos plus the fresh row (K9 / K19), and one
+  K10 call writes every layer's row after the loop.  ``attn="xla"`` runs the
+  XLA branch (llama.py:1328-1339): per-layer cache write, attention over the
+  dequantized cache in plain PyTorch.  ``"auto"`` is xla on a CPU cache and
+  flash_dma (K9) on a CUDA one (``_resolve_decode_attn``).
 
 JAX's functional cache updates become IN-PLACE writes into the cache
 tensors: ``forward_prefill`` and ``forward_decode`` mutate the cache they
@@ -17,10 +21,9 @@ are given and return it.  JAX's ``lax.scan`` over stacked layers becomes a
 Python loop over per-layer views.  Weights stay stacked ``[L, ...]`` and
 matmul weights are K-major ``ChannelQuantTensor``s (``q [L, out, in]``).
 
-Routes this slice does not carry raise ``NotImplementedError`` naming their
-ROADMAP item: fused layouts with the fused prefill, flash decode attention,
-start_pos > 0 and chunked prefill, fp caches and dense/q8_0 weights, paged
-caches.
+Routes the port does not carry yet raise ``NotImplementedError`` naming
+their ROADMAP item: fused layouts with the fused prefill, start_pos > 0 and
+chunked prefill, fp caches and dense/q8_0 weights, paged caches.
 """
 
 from __future__ import annotations
@@ -34,7 +37,13 @@ import torch.nn.functional as F
 
 from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device
-from tpu_llama_torch.ops.attention import flash_prefill_attention, quantize_kv
+from tpu_llama_torch.ops.attention import (
+    flash_decode_attention_dma,
+    flash_decode_attention_fresh,
+    flash_prefill_attention,
+    kv_cache_flush_rows,
+    quantize_kv,
+)
 from tpu_llama_torch.ops.matmul import w8a8_matmul
 from tpu_llama_torch.ops.quant import ChannelQuantTensor, quantize_channel
 
@@ -276,44 +285,78 @@ def _attend_decode(cache: QuantKVCache, layer: int, q, pos, config: ModelConfig)
     return _attention_decode(q, kf, vf, pos, config)
 
 
-def _resolve_decode_attn(attn: str) -> str:
-    if attn in ("auto", "xla"):
-        return "xla"  # "auto" picks flash_dma on the card once K9/K10 land
-    raise NotImplementedError(f"decode attention {attn!r}: flash_dma (K9 + K10) is the "
-                              "next slice (ROADMAP)")
+DECODE_ATTN = ("auto", "flash", "flash_dma", "xla")
+
+
+def _resolve_decode_attn(attn: str, cache: QuantKVCache) -> str:
+    """``forward_decode``'s attention policy (the structure of llama.py:
+    1115-1130).  ``"auto"`` is ``"xla"`` on a CPU cache, as the JAX package
+    on the CPU, and K9 (``"flash_dma"``) on a CUDA cache at every batch:
+    on an H100, K9 was never slower than K19 (``"flash"``) on the device at
+    batch 1 or 8 (the A/B in PERF.md), so the TPU's batch-1 exception is
+    not carried, nor its ``head_dim % 128`` gate (the CUDA kernels take any
+    head_dim up to 128 that is a multiple of 4)."""
+    if attn not in DECODE_ATTN:
+        raise ValueError(f"decode attention {attn!r}: want one of {DECODE_ATTN}")
+    if attn != "auto":
+        return attn
+    return "flash_dma" if cache.k.device.type == "cuda" else "xla"
 
 
 def decode_stack(layers: LayerParams, cache: QuantKVCache, x, pos, cos, sin,
                  config: ModelConfig, attn: str = "xla"):
-    """The unfused decode layer stack (llama.py:1206, xla branch): x [B, D]
-    in -> x out; writes every layer's new K/V row into ``cache`` in place."""
-    _resolve_decode_attn(attn)
+    """The unfused decode layer stack (llama.py:1206): x [B, D] in -> x out;
+    writes every layer's new K/V row into ``cache`` in place -- per layer
+    for ``attn="xla"``, in one K10 flush after the layer loop for the
+    deferred-flush ``"flash"`` (K19) and ``"flash_dma"`` (K9)."""
     B = x.shape[0]
-    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    for i in range(layers.rms_att.shape[0]):
+    attn = _resolve_decode_attn(attn, cache)
+    NH, KVH, G, hd = config.n_heads, config.n_kv_heads, config.group_size, config.head_dim
+    L = layers.rms_att.shape[0]
+    flash = attn != "xla"
+    if flash:
+        attend = flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
+        pos32 = pos.to(torch.int32)  # once per step, read on the device by K9/K19/K10
+        rows = []  # each layer's fresh (kq, vq, ks, vs), for the flush (the JAX scan's ys)
+    for i in range(L):
         lp = layers.layer(i)
         h = rmsnorm(x, lp.rms_att)
         q, k, v = _project_qkv(h, lp, config)
         q = apply_rope(q.reshape(B, NH, hd), cos, sin)
         k = apply_rope(k.reshape(B, KVH, hd), cos, sin)
-        _write_decode(cache, i, k, v.reshape(B, KVH, hd), pos, config)
-        att = _attend_decode(cache, i, q, pos, config)
+        v = v.reshape(B, KVH, hd)
+        if flash:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            rows.append((kq, vq, ks, vs))
+            att = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, pos32, kq, vq, cache.ks,
+                         cache.vs, ks, vs, layer=i)
+            att = att.reshape(B, config.dim).to(x.dtype)
+        else:
+            _write_decode(cache, i, k, v, pos, config)
+            att = _attend_decode(cache, i, q, pos, config)
         x = x + matmul_any(att, lp.wo)
         h = rmsnorm(x, lp.rms_ffn)
         gate, up = _project_gate_up(h, lp, config)
         x = x + matmul_any(F.silu(gate) * up, lp.w2)
+    if flash:
+        # one [L, ...] buffer per array for the step: 4 stack launches, then one K10
+        rows_k, rows_v, rows_ks, rows_vs = (torch.stack(r) for r in zip(*rows))
+        kv_cache_flush_rows(rows_k, rows_v, pos32, cache.k, cache.v, rows_ks, rows_vs,
+                            cache.ks, cache.vs)
     return x
 
 
 def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
                    pos: torch.Tensor, config: ModelConfig, attn: str = "auto"):
     """One decode step for a batch (llama.py:1101, unfused): tokens/pos [B].
+    ``attn``: one of ``DECODE_ATTN`` (see ``_resolve_decode_attn``).
     Returns (logits [B, V] f32, cache) -- the cache updated in place."""
-    _resolve_decode_attn(attn)
+    attn = _resolve_decode_attn(attn, cache)
     tokens, pos = tokens.long(), pos.long()
     x = params.tok_emb[tokens]
     x = decode_stack(params.layers, cache, x, pos, params.rope_cos[pos],
-                     params.rope_sin[pos], config)
+                     params.rope_sin[pos], config, attn=attn)
     x = rmsnorm(x, params.rms_final)
     return matmul_any(x, params.wcls).float(), cache
 

@@ -5,7 +5,10 @@ runs its plain PyTorch version for CPU tensors (see ``_kernels``).
 """
 
 from tpu_llama_torch.ops.attention import (  # noqa: F401
+    flash_decode_attention_dma,
+    flash_decode_attention_fresh,
     flash_prefill_attention,
+    kv_cache_flush_rows,
     kv_cache_scatter_slots,
     quantize_kv,
 )

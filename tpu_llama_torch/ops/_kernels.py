@@ -44,11 +44,19 @@ SOURCES = {
     "kv_scatter": ("tl_kv_scatter_slots",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P]),
+    "flash_decode_dma": ("tl_flash_decode_dma",
+                         [_P, _I, *[_P] * 10, _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.c_float, _I, _P]),
+    "flash_decode_fresh": ("tl_flash_decode_fresh",
+                           [_P, _I, *[_P] * 10, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _I, _P]),
+    "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 # kernel id -> source; the ids follow ROADMAP.md queue 2
 KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K6": "flash_prefill",
-           "K7": "kv_scatter"}
+           "K7": "kv_scatter", "K9": "flash_decode_dma", "K10": "kv_flush_rows",
+           "K19": "flash_decode_fresh"}
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 

@@ -1,9 +1,12 @@
-"""INT8 KV quantization, causal prefill attention (K6) and the slot scatter
-that admits a prefilled block into the cache (K7).
+"""INT8 KV quantization, causal prefill attention (K6), the slot scatter
+that admits a prefilled block into the cache (K7), and the deferred-flush
+decode attention (K9, K19) with its per-step row flush (K10).
 
 Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
-``flash_prefill_attention`` (:1654) and ``kv_cache_scatter_slots`` (:1212),
-for INT8 caches; the fp-cache variants come with their ROADMAP slice.
+``flash_prefill_attention`` (:1654), ``kv_cache_scatter_slots`` (:1212),
+``flash_decode_attention_dma`` (:335), ``flash_decode_attention_fresh``
+(:807) and ``kv_cache_flush_rows`` (:2470), for INT8 caches; the fp-cache
+variants come with their ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -150,4 +153,266 @@ def kv_cache_scatter_slots(small_k, small_v, slots, ck, cv, small_ks, small_vs, 
     _kernels.launch("K7", sk.data_ptr(), sv.data_ptr(), sks.data_ptr(), svs.data_ptr(),
                     sl.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
                     cvs.data_ptr(), L, n, KVH, T, hd, B, S, int(vec), _kernels.stream(ck))
+    return ck, cv, cks, cvs
+
+
+# ---------------------------------------------------------------------------
+# Deferred-flush decode attention (K9, K19) and the step's row flush (K10).
+# During a decode step the cache is read-only: each layer attends over its
+# cache rows s < pos[b] plus the step's fresh (already quantized) K/V row as
+# one extra softmax column, and one K10 call writes every layer's fresh row
+# at pos[b] after the layer loop (llama.py:1277-1327).
+# ---------------------------------------------------------------------------
+
+_FP_CACHE = "{}: fp caches come with the fp-cache slice (ROADMAP queue 1 item 9)"
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (ties to even) and back, as the TPU
+    kernels' ``astype(bfloat16)`` before their MXU dots."""
+    return x.to(torch.bfloat16).float()
+
+
+def _scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """qs = f32(q) / sqrt(f32(hd)) (attention.py:378, :848)."""
+    hd = q.shape[-1]
+    return q.float() / torch.tensor(hd, dtype=torch.float32, device=q.device).sqrt()
+
+
+def _dma_block(S: int, block_s: int | None) -> int:
+    """K9's key block: ``block_s`` (default 128 rows for int8), halved until
+    it divides S (attention.py:372-376)."""
+    ts = min(block_s or 128, S)
+    while S % ts:
+        ts //= 2
+    return ts
+
+
+def _check_decode(name, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
+                  new_vs, layer):
+    """Validate a decode-attention call; returns the layer index as a host
+    int."""
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise NotImplementedError(_FP_CACHE.format(name))
+    if any(t is None for t in (k_scale, v_scale, new_ks, new_vs)):
+        raise ValueError(f"{name}: INT8 caches need k_scale, v_scale, new_ks and new_vs")
+    if q.dim() != 4 or k_cache.dim() != 5:
+        raise ValueError(f"{name}: want q [B, KVH, G, hd] and k_cache [L, B, KVH, S, hd]")
+    B, KVH, G, hd = q.shape
+    L, S = k_cache.shape[0], k_cache.shape[3]
+    if (k_cache.shape != (L, B, KVH, S, hd) or v_cache.shape != k_cache.shape
+            or k_scale.shape != (L, B, KVH, S) or v_scale.shape != k_scale.shape
+            or new_k.shape != (B, KVH, hd) or new_v.shape != new_k.shape
+            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape
+            or pos.shape != (B,)):
+        raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
+                         f"ks {tuple(k_scale.shape)}, new_k {tuple(new_k.shape)}, "
+                         f"new_ks {tuple(new_ks.shape)}, pos {tuple(pos.shape)}")
+    if new_k.dtype != torch.int8 or new_v.dtype != torch.int8:
+        raise TypeError(f"{name}: the fresh rows of an INT8 cache must be int8")
+    if any(t.dtype != torch.float32 for t in (k_scale, v_scale, new_ks, new_vs)):
+        raise TypeError(f"{name}: K/V scales must be float32")
+    layer = 0 if layer is None else int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    return layer
+
+
+def _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs):
+    """Merge the fresh K/V column into K9's online-softmax state
+    (attention.py:307-332): acc [B, KVH, G, hd] unnormalized, m and l
+    [B, KVH, G] the running max and denominator."""
+    s_new = torch.einsum("bhgd,bhd->bhg", qs, new_k.float()) * new_ks[:, :, None]
+    m_fin = torch.maximum(m, s_new)
+    corr = torch.exp(m - m_fin)
+    e_new = torch.exp(s_new - m_fin)
+    l_fin = l * corr + e_new
+    nv = new_v.float() * new_vs[..., None]
+    return ((acc * corr[..., None] + e_new[..., None] * nv[:, :, None, :])
+            / torch.clamp_min(l_fin, 1e-30)[..., None])
+
+
+def flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale,
+                                     new_ks, new_vs, layer=0, block_s=None):
+    """Plain version of K9: the TPU kernel's online softmax
+    over blocks of ``block_s`` rows with the same bf16 roundings (q for the
+    score dot, the unnormalized p * vs for the PV dot), then the fresh-column
+    merge.  Every block is visited; one past a slot's pos is fully masked,
+    which leaves (m, l, acc) unchanged exactly as the kernel's skipped
+    block does."""
+    B, KVH, G, hd = q.shape
+    S = k_cache.shape[3]
+    ts = _dma_block(S, block_s)
+    kc, vc, ks, vs = k_cache[layer], v_cache[layer], k_scale[layer], v_scale[layer]
+    qs = _scaled_q(q)
+    qb = _bf16(qs)
+    p = pos.long()[:, None, None, None]
+    m = torch.full((B, KVH, G), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KVH, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    for base in range(0, S, ts):
+        rows = slice(base, base + ts)
+        s = torch.einsum("bkgd,bksd->bkgs", qb, kc[:, :, rows].float()) * ks[:, :, None, rows]
+        valid = torch.arange(base, base + ts, device=q.device)[None, None, None, :] < p
+        m_new = torch.maximum(m, torch.where(valid, s, _NEG_INF).amax(-1))
+        corr = torch.exp(m - m_new)
+        pr = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * corr + pr.sum(-1)
+        pr = _bf16(pr * vs[:, :, None, rows])
+        acc = acc * corr[..., None] + torch.einsum("bkgs,bksd->bkgd", pr, vc[:, :, rows].float())
+        m = m_new
+    return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
+
+
+def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale,
+                                       v_scale, new_ks, new_vs, layer=0):
+    """Plain version of K19: one pass over all S rows masked
+    to s < pos, the softmax normalized before p * vs is rounded to bf16
+    (attention.py:150-185)."""
+    S = k_cache.shape[3]
+    kc, vc, ks, vs = k_cache[layer], v_cache[layer], k_scale[layer], v_scale[layer]
+    qs = _scaled_q(q)
+    s = torch.einsum("bkgd,bksd->bkgs", _bf16(qs), kc.float()) * ks[:, :, None, :]
+    s_new = (qs * new_k.float()[:, :, None, :]).sum(-1) * new_ks[:, :, None]
+    valid = torch.arange(S, device=q.device)[None, None, None, :] < pos.long()[:, None, None, None]
+    s = torch.where(valid, s, _NEG_INF)
+    m = torch.maximum(s.amax(-1), s_new)
+    e = torch.exp(s - m[..., None])
+    e_new = torch.exp(s_new - m)
+    l = e.sum(-1) + e_new
+    pr = _bf16((e / l[..., None]) * vs[:, :, None, :])
+    p_new = (e_new / l) * new_vs[:, :, None]
+    return (torch.einsum("bkgs,bksd->bkgd", pr, vc.float())
+            + p_new[..., None] * new_v.float()[:, :, None, :])
+
+
+def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
+                   new_vs, layer, *block):
+    """Launch K9 (``block`` = its key block rows) or K19 on CUDA tensors."""
+    B, KVH, G, hd = q.shape
+    S = k_cache.shape[3]
+    if G > 8 or hd > 128:
+        raise NotImplementedError(f"{kernel} takes up to 8 query heads per kv head and "
+                                  f"head_dim <= 128, got G={G}, hd={hd}")
+    if not all(t.is_contiguous() for t in (k_cache, v_cache, k_scale, v_scale)):
+        raise ValueError(f"{kernel} reads the cache where it lies: it must be contiguous")
+    ptrs = (k_cache.data_ptr(), v_cache.data_ptr())
+    if hd % 16 == 0 and all(a % 16 == 0 for a in ptrs):
+        ch = 16
+    elif hd % 4 == 0 and all(a % 4 == 0 for a in ptrs):
+        ch = 4
+    else:
+        raise NotImplementedError(f"{kernel} copies cache rows in 4-byte chunks: head_dim "
+                                  f"{hd} must be a multiple of 4")
+    qc = q.contiguous()
+    nk, nv, nks, nvs = (t.contiguous() for t in (new_k, new_v, new_ks, new_vs))
+    p32 = pos.to(torch.int32).contiguous()  # no copy for the model's int32 positions
+    out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    sqrt_hd = float(torch.tensor(hd, dtype=torch.float32).sqrt())  # jnp.sqrt(f32(hd))
+    _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_cache.data_ptr(),
+                    v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), p32.data_ptr(),
+                    nk.data_ptr(), nv.data_ptr(), nks.data_ptr(), nvs.data_ptr(), out.data_ptr(),
+                    layer, B, KVH, G, S, hd, *block, sqrt_hd, ch, _kernels.stream(qc))
+    return out
+
+
+def flash_decode_attention_dma(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                               pos: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
+                               k_scale=None, v_scale=None, new_ks=None, new_vs=None, layer=None,
+                               block_s: int | None = None) -> torch.Tensor:
+    """Deferred-flush decode attention that reads only each slot's rows below
+    pos (K9).  q [B, KVH, G, hd] raw queries (f32 or bf16); INT8 caches
+    [L, B, KVH, S, hd] with f32 scales [L, B, KVH, S];
+    pos [B]; the step's quantized fresh rows new_k/new_v int8 [B, KVH, hd]
+    with scales new_ks/new_vs [B, KVH]; ``layer`` a host int (a tensor is
+    read back to the host).  Cache row s attends iff s < pos[b]; the fresh
+    row is one more column.  ``block_s`` is the online softmax's key block
+    (default 128).  Returns f32 [B, KVH, G, hd].  K9 on CUDA tensors, the
+    plain version on CPU ones."""
+    layer = _check_decode("flash_decode_attention_dma", q, k_cache, v_cache, pos, new_k, new_v,
+                          k_scale, v_scale, new_ks, new_vs, layer)
+    args = (q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks, new_vs)
+    if _kernels.on_cpu("K9", *args):
+        return flash_decode_attention_dma_plain(*args, layer=layer, block_s=block_s)
+    ts = _dma_block(k_cache.shape[3], block_s)
+    if ts > 256:
+        raise NotImplementedError(f"K9 takes key blocks of at most 256 rows, got {ts}")
+    return _launch_decode("K9", *args, layer, ts)
+
+
+def flash_decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, pos: torch.Tensor,
+                                 new_k: torch.Tensor, new_v: torch.Tensor, k_scale=None,
+                                 v_scale=None, new_ks=None, new_vs=None,
+                                 layer=None) -> torch.Tensor:
+    """Deferred-flush decode attention, single pass (K19): the contract of
+    :func:`flash_decode_attention_dma` with the softmax normalized before
+    the bf16 rounding of p.  Returns f32 [B, KVH, G, hd].  K19 on CUDA
+    tensors (every score of a slot's head group in shared memory, so G x S
+    is bounded), the plain version on CPU ones."""
+    layer = _check_decode("flash_decode_attention_fresh", q, k_cache, v_cache, pos, new_k,
+                          new_v, k_scale, v_scale, new_ks, new_vs, layer)
+    args = (q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks, new_vs)
+    if _kernels.on_cpu("K19", *args):
+        return flash_decode_attention_fresh_plain(*args, layer=layer)
+    return _launch_decode("K19", *args, layer)
+
+
+def _check_flush(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs):
+    if ck.dtype != torch.int8 or cv.dtype != torch.int8:
+        raise NotImplementedError(_FP_CACHE.format("kv_cache_flush_rows"))
+    if any(t is None for t in (rows_ks, rows_vs, cks, cvs)):
+        raise ValueError("kv_cache_flush_rows: INT8 caches need row and cache scales")
+    if rows_k.dim() != 4 or ck.dim() != 5:
+        raise ValueError("want rows_k [L, B, KVH, hd] and ck [L, B, KVH, S, hd]")
+    L, B, KVH, hd = rows_k.shape
+    S = ck.shape[3]
+    if (rows_v.shape != rows_k.shape or ck.shape != (L, B, KVH, S, hd) or cv.shape != ck.shape
+            or rows_ks.shape != (L, B, KVH) or rows_vs.shape != rows_ks.shape
+            or cks.shape != (L, B, KVH, S) or cvs.shape != cks.shape or pos.shape != (B,)):
+        raise ValueError("kv_cache_flush_rows: shape mismatch")
+    if rows_k.dtype != torch.int8 or rows_v.dtype != torch.int8 or any(
+            t.dtype != torch.float32 for t in (rows_ks, rows_vs, cks, cvs)):
+        raise TypeError("kv_cache_flush_rows takes int8 rows and float32 scales")
+
+
+def kv_cache_flush_rows_plain(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs):
+    """Plain version of K10: one indexed write per array, in place, of the
+    slots whose pos lies in [0, S); the others are skipped."""
+    L, B, KVH, _ = rows_k.shape
+    p = pos.long()
+    ok = ((p >= 0) & (p < ck.shape[3])).nonzero().flatten()
+    l_ix = torch.arange(L, device=ck.device)[:, None, None]
+    h_ix = torch.arange(KVH, device=ck.device)[None, None, :]
+    b_ix, p_ix = ok[None, :, None], p[ok][None, :, None]
+    ck[l_ix, b_ix, h_ix, p_ix] = rows_k[:, ok]
+    cv[l_ix, b_ix, h_ix, p_ix] = rows_v[:, ok]
+    cks[l_ix, b_ix, h_ix, p_ix] = rows_ks[:, ok]
+    cvs[l_ix, b_ix, h_ix, p_ix] = rows_vs[:, ok]
+    return ck, cv, cks, cvs
+
+
+def kv_cache_flush_rows(rows_k, rows_v, pos, ck, cv, rows_ks=None, rows_vs=None, cks=None,
+                        cvs=None):
+    """Write every layer's fresh row IN PLACE at its slot's position:
+    ``ck[l, b, :, pos[b]] = rows_k[l, b]`` for K, V and both scale arrays.
+    rows_k/rows_v int8 [L, B, KVH, hd], rows_ks/rows_vs f32 [L, B, KVH],
+    pos [B] (read on the device), ck/cv int8 [L, B, KVH, S, hd], cks/cvs
+    f32 [L, B, KVH, S].  A slot whose pos lies outside [0, S) is skipped.
+    Returns the (updated) cache arrays.  K10 on CUDA tensors, the plain
+    version on CPU ones."""
+    _check_flush(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs)
+    arrays = (rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs)
+    if _kernels.on_cpu("K10", *arrays):
+        return kv_cache_flush_rows_plain(*arrays)
+    if not all(t.is_contiguous() for t in (ck, cv, cks, cvs)):
+        raise ValueError("K10 writes the cache in place: it must be contiguous")
+    L, B, KVH, hd = rows_k.shape
+    S = ck.shape[3]
+    rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
+    p32 = pos.to(torch.int32).contiguous()
+    vec = hd % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (rk, rv, ck, cv))
+    _kernels.launch("K10", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
+                    p32.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
+                    cvs.data_ptr(), L, B, KVH, S, hd, int(vec), _kernels.stream(ck))
     return ck, cv, cks, cvs

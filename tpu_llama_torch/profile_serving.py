@@ -7,14 +7,17 @@ Run from the repo root on a machine with a CUDA card:
 Builds random W8A8 weights at Llama-2 7B width, an ``Engine(max_batch=8,
 INT8 dense KV, seq_len=2048)``, warms it up, then traces with
 ``torch.profiler`` (a) one admission of 8 prompts of 512 tokens and (b)
-8 decode steps of all 8 slots at position 512, each through the
-engine calls the scheduler makes.  Each phase runs warm, then once timed
-and once traced.  Prints one JSON line per phase: host wall time of the
-untraced and the traced run (closed by ``torch.cuda.synchronize``), device
-busy time (the union of kernel intervals in the trace), the device's idle
-share against the untraced wall, device time per port kernel (K1, K2, K6,
-K7) and for everything else, the top kernels by device time, and each port
-kernel's launch count in the untraced run.
+8 decode steps of all 8 slots at position 512 with each decode attention
+(``"flash_dma"`` K9, ``"flash"`` K19, ``"xla"``; the first line names what
+``"auto"`` resolves to), then (c) 8 decode steps of a one-slot engine at
+position 512 with K19 and with K9 -- the A/B behind ``"auto"``.  All go
+through the engine calls the scheduler makes.  Each phase runs warm, then
+once timed and once traced.  Prints one JSON line per phase: host wall
+time of the untraced and the traced run (closed by
+``torch.cuda.synchronize``), device busy time (the union of kernel
+intervals in the trace), the device's idle share against the untraced
+wall, device time per port kernel and for everything else, the top kernels
+by device time, and each port kernel's launch count in the untraced run.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import torch
 
 DECODE_STEPS = 8
 PORT_KERNELS = {"w8a8_kernel": "K1", "quantize_rows_kernel": "K2",
-                "flash_prefill_kernel": "K6", "kv_scatter_kernel": "K7"}
+                "flash_prefill_kernel": "K6", "kv_scatter_kernel": "K7",
+                "flash_decode_dma_kernel": "K9", "kv_flush_rows_kernel": "K10",
+                "flash_decode_fresh_kernel": "K19"}
 
 
 def _kernel_events(prof):
@@ -83,19 +88,23 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = LLAMA2_7B
-    engine = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, seq_len=2048)
+    params = random_quant_params(cfg, seed=0)
+    engine = Engine(params, cfg, max_batch=8, seq_len=2048)
     rng = np.random.default_rng(0)
     prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
                for _ in range(8)]
     toks = rng.integers(3, cfg.vocab_size, 8)
-    pos = np.full(8, 512)
 
     def prefill():
         engine.prefill(prompts, list(range(8)))
 
-    def decode():
-        for i in range(DECODE_STEPS):
-            engine.decode(toks, pos + i)
+    def decoder(eng):
+        b = eng.max_batch
+
+        def decode():
+            for i in range(DECODE_STEPS):
+                eng.decode(toks[:b], np.full(b, 512 + i))
+        return decode
 
     def timed(fn) -> float:
         t0 = time.perf_counter()
@@ -103,15 +112,25 @@ def main() -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for phase, fn in (("prefill_8x512", prefill), (f"decode_b8_x{DECODE_STEPS}", decode)):
+    def run(phase, fn, **extra):
         timed(fn)  # warm: builds the kernels, fills the allocator
         _kernels.reset_counts()
         wall = timed(fn)
-        launches = dict(_kernels.LAUNCHES)
+        launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced = timed(fn)
-        print(json.dumps(dict(summarize(phase, prof, wall, traced, smi),
+        print(json.dumps(dict(summarize(phase, prof, wall, traced, smi), **extra,
                               launches=launches)), flush=True)
+
+    run("prefill_8x512", prefill)
+    one = Engine(params, cfg, max_batch=1, seq_len=2048)
+    one.prefill([prompts[0]], [0])
+    for eng, attns in ((engine, ("flash_dma", "flash", "xla")), (one, ("flash", "flash_dma"))):
+        auto = eng.decode_attn  # the engines were built with attn="auto"
+        for attn in attns:
+            eng.decode_attn = attn
+            run(f"decode_b{eng.max_batch}_x{DECODE_STEPS}_{attn}", decoder(eng),
+                attn=attn, auto_resolves_to=auto)
     print(json.dumps(dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           layers=cfg.n_layers, card=smi)))
 

@@ -8,8 +8,13 @@ Port of tpu_llama/runtime/engine.py for the dense INT8 path:
   length bucketed to a power of two) into a T-row block, then the K7 slot
   scatter writes that block into the chosen slots in place;
 * decode runs the full slot batch in one step -- inactive slots compute
-  values nobody reads (their writes land at their parked position and the
-  next admission's prefill overwrites them).
+  values nobody reads (they decode at position 0; their row lands there and
+  the next admission's K7 scatter overwrites it).  With the deferred-flush
+  attention (``attn="flash_dma"`` K9, what ``"auto"`` picks on the card,
+  or ``"flash"`` K19) no layer writes the cache during the step: one K10
+  flush after the layer loop writes every layer's row.  ``"xla"`` (what
+  ``"auto"`` picks on the CPU) writes each layer's row in place before its
+  attention.
 
 JAX's donated functional cache becomes one cache object updated in place.
 Paged caches, prefix reuse, device sampling and the explicit-TP paths come
@@ -28,6 +33,7 @@ from tpu_llama_torch.device import resolve_device
 from tpu_llama_torch.models.llama import (
     LlamaParams,
     QuantKVCache,
+    _resolve_decode_attn,
     forward_decode,
     forward_prefill,
     make_kv_cache,
@@ -82,10 +88,11 @@ class Engine:
         self.params = params
         self.config = config
         self.max_batch = max_batch
-        self.attn = attn
         self.seq_len = seq_len or config.seq_len
         self.cache = make_kv_cache(config, max_batch, kv_dtype=kv_dtype,
                                    seq_len=self.seq_len, device=self.device)
+        # the decode attention every step runs ("auto" resolved on this cache)
+        self.decode_attn = _resolve_decode_attn(attn, self.cache)
 
     def can_admit(self, n_tokens: int) -> bool:
         """Backpressure probe; a dense cache always has room in a free slot."""
@@ -138,7 +145,7 @@ class Engine:
         (JAX's ``_decode_step``, engine.py:310, only exists to jit and donate
         the cache; here the step calls ``forward_decode`` directly.)"""
         logits, self.cache = forward_decode(self.params, self.cache, tokens, pos,
-                                            self.config, attn=self.attn)
+                                            self.config, attn=self.decode_attn)
         return logits
 
     def reset(self) -> None:
