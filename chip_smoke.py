@@ -8,26 +8,32 @@ Phases (any failure exits non-zero and prints no result line):
    power limit;
 2. build every CUDA kernel from ``tpu_llama_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the ``-Xptxas -v`` register/spill summary;
-3. each kernel (K1 W8A8 GEMM, K2 row quant, K6 INT8 prefill attention, K7
-   slot scatter, K9 and K19 INT8 decode attention, K10 row flush) at the
-   Llama-2 7B shapes of the serving path, against its plain PyTorch version
-   on the same inputs: K1, K2, K7 and K10 exact, K6, K9 and K19 within
-   K6_TOL; kernel, plain-version and PyTorch-library times (CUDA events)
-   beside the bound (the larger of bytes / 3.35 TB/s and operations / the
-   card's peak for their type);
-4. the serving path at full 7B width and depth with random W8A8 weights:
-   ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)`` (decode attention
-   "auto": K9 on the card at batch 8) + ``ContinuousBatcher`` serving 10
-   requests (prompts in the 16..512 buckets, greedy and seeded temperature
-   sampling); every request must finish with in-vocab tokens, every kernel
-   of the path must launch (the decode attention once per layer and step,
-   K10 once per step), no other kernel and no plain version may run;
+3. each kernel (K1 W8A8 GEMM, also with its residual epilogue, K2 row
+   quant, K3 rmsnorm+quant, K4 silu*up+quant, K5 rope+split+KV quant, K6
+   INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
+   attention, K10 row flush) at the Llama-2 7B shapes of the serving path,
+   against its plain PyTorch version on the same inputs: K1, K2, K7 and K10
+   exact, K3, K4 and K5 within QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and
+   K19 within K6_TOL; kernel, plain-version and PyTorch-library times (CUDA
+   events) beside the bound (the larger of bytes / 3.35 TB/s and operations
+   / the card's peak for their type);
+4. the serving path at full 7B width and depth with random W8A8 weights in
+   the fused wqkv / w13 layouts (``random_quant_params(fuse=True)``, as
+   bench.py serves): ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)``
+   (decode attention "auto": K9 on the card at batch 8) +
+   ``ContinuousBatcher`` serving 10 requests (prompts in the 16..512
+   buckets, greedy and seeded temperature sampling); every request must
+   finish with in-vocab tokens, every kernel of the path must launch as
+   often as the path requires (per admission group and layer: K3 twice,
+   K4, K5 and K6 once; the decode attention once per layer and step, K10
+   once per step), no other kernel and no plain version may run;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
-   decode attention, once each "xla" (plain PyTorch on both sides), "flash"
-   (K19) and "flash_dma" (K9), with f32 activations (tokens equal at all 8
-   steps, logits within LOGITS_TOL) and with bf16 activations (prefill
-   logits within LOGITS_TOL);
+   decode attention, on unfused weights once each "xla" (plain PyTorch on
+   both sides), "flash" (K19) and "flash_dma" (K9), and on fused weights
+   with "flash_dma" (the fused prefill, K3-K5): f32 activations (tokens
+   equal at all 8 steps, logits within LOGITS_TOL) and bf16 activations
+   (prefill logits within LOGITS_TOL);
 6. a JSON line of the kernels (launches counted on the path that runs
    each: phase 4, and phase 5's f32 run for a decode attention that phase 4
    does not run), then the result line.
@@ -64,10 +70,20 @@ K6_TOL = 2.0 ** -7 + 1e-5  # of max |ref|: one bf16 rounding step + f32 noise
 # future key reads 0.21 in both, and its f32 tokens differ from step 0.
 PARITY_STEPS = 8
 LOGITS_TOL = 5e-2
+# K3, K4 and K5 against their plain versions: the same f32 steps with
+# round-to-nearest intrinsics, so equal unless K3's f64 sum of squares lies
+# on an f32 rounding boundary or CUDA's expf and PyTorch's sigmoid part: at
+# most one int8 step on at most QUANT_FLIPS of the entries, scales within
+# QUANT_SCALE_RTOL (two f32 ulps).
+QUANT_FLIPS = 1e-4
+QUANT_SCALE_RTOL = 2.0 ** -22
 
 SRC = {
     "K1": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/matmul.py:483"),
     "K2": ("tpu_llama_torch/csrc/quantize_rows.cu", "tpu_llama/ops/quant.py:275"),
+    "K3": ("tpu_llama_torch/csrc/rmsnorm_quantize.cu", "tpu_llama/ops/quant.py:340"),
+    "K4": ("tpu_llama_torch/csrc/silu_mul_quantize.cu", "tpu_llama/ops/quant.py:396"),
+    "K5": ("tpu_llama_torch/csrc/rope_split_quantize.cu", "tpu_llama/ops/quant.py:476"),
     "K6": ("tpu_llama_torch/csrc/flash_prefill.cu", "tpu_llama/ops/attention.py:1654"),
     "K7": ("tpu_llama_torch/csrc/kv_scatter.cu", "tpu_llama/ops/attention.py:1212"),
     "K9": ("tpu_llama_torch/csrc/flash_decode_dma.cu", "tpu_llama/ops/attention.py:335"),
@@ -76,6 +92,7 @@ SRC = {
 }
 DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
+FUSED_PREFILL_PATH = PREFILL_PATH | {"K3", "K4", "K5"}  # ... on fused layouts
 DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]  # one per slot at batch 8
 
 
@@ -122,47 +139,172 @@ def n_copies(nbytes: float) -> int:
 
 
 def check_k1(torch, tq, tm, results):
+    """K1 at M 8 (decode) and 4096 (the 8 x 512 admission) on the unfused
+    and the fused (wqkv 4096 -> 12288, w13 4096 -> 22016) shapes, then its
+    residual epilogue on wo and w2 at M 4096; bf16 out, bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for m in (8, 4096):
-        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
-            copies = n_copies(n * k)
-            xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
-                               dtype=torch.int8)
-            sx = torch.rand(m, generator=gen, device="cuda") * 0.05
-            ws = [tq.ChannelQuantTensor(
-                q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
-                                dtype=torch.int8),
-                s=torch.full((n,), 2e-4, device="cuda")) for _ in range(copies)]
-            got = tm.w8a8_matmul_prequant(xq, sx, ws[0], out_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
-            want = tm.w8a8_matmul_prequant_plain(xq, sx, ws[0], out_dtype=torch.bfloat16)
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.equal(got, want), f"K1 M={m} K={k} N={n}: max err {err}")
-            ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant(
-                xq, sx, ws[i % copies], out_dtype=torch.bfloat16), 20 if m > 8 else 50)
-            plain_ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant_plain(
-                xq, sx, ws[i % copies], out_dtype=torch.bfloat16), 3, warmup=1)
-            # torch._int_mm wants more than 16 rows: the library call gets
-            # the decode rows padded to 32
-            xl = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - m)))
-            sxl = torch.nn.functional.pad(sx, (0, max(0, 32 - m)))
+    cases = [(m, k, n, False) for m in (8, 4096)
+             for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                          (4096, 12288), (4096, 22016))]
+    cases += [(4096, 4096, 4096, True), (4096, 11008, 4096, True)]
+    for m, k, n, with_res in cases:
+        copies = n_copies(n * k)
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        sx = torch.rand(m, generator=gen, device="cuda") * 0.05
+        ws = [tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                            dtype=torch.int8),
+            s=torch.full((n,), 2e-4, device="cuda")) for _ in range(copies)]
+        res = (torch.randn(m, n, generator=gen, device="cuda") * 4).to(torch.bfloat16) \
+            if with_res else None
+        got = tm.w8a8_matmul_prequant(xq, sx, ws[0], out_dtype=torch.bfloat16, residual=res)
+        torch.cuda.synchronize()
+        want = tm.w8a8_matmul_prequant_plain(xq, sx, ws[0], out_dtype=torch.bfloat16,
+                                             residual=res)
+        err = (got.float() - want.float()).abs().max().item()
+        label = f"K1 w8a8_matmul M={m} K={k} N={n}" + (" +residual" if with_res else "")
+        check(torch.equal(got, want), f"{label}: max err {err}")
+        ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant(
+            xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res), 20 if m > 8 else 50)
+        plain_ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant_plain(
+            xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res), 3, warmup=1)
+        # torch._int_mm wants more than 16 rows: the library call gets
+        # the decode rows padded to 32
+        xl = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - m)))
+        sxl = torch.nn.functional.pad(sx, (0, max(0, 32 - m)))
 
-            def lib(i):
-                w = ws[i % copies]
-                acc = torch._int_mm(xl, w.q.t())
-                return (acc.float() * sxl[:, None] * w.s[None, :]).to(torch.bfloat16)
+        def lib(i):
+            w = ws[i % copies]
+            acc = torch._int_mm(xl, w.q.t())
+            out = (acc.float() * sxl[:, None] * w.s[None, :]).to(torch.bfloat16)
+            return out if res is None else res + out
 
-            try:
-                library_ms = cuda_ms(torch, lib, 20 if m > 8 else 50)
-            except RuntimeError as e:  # an _int_mm shape this build refuses
-                print(f"K1 library call unavailable: {e}", file=sys.stderr)
-                library_ms = None
-            b_ms, by = bound_ms(m * k + 4 * m + n * k + 4 * n + 2 * m * n, 2 * m * k * n,
-                                "int8")
-            results.append(dict(kernel="K1", name=f"K1 w8a8_matmul M={m} K={k} N={n}",
-                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=by, library_ms=library_ms))
-            del ws, xq, got, want
+        try:
+            library_ms = cuda_ms(torch, lib, 20 if m > 8 else 50)
+        except RuntimeError as e:  # an _int_mm shape this build refuses
+            print(f"K1 library call unavailable: {e}", file=sys.stderr)
+            library_ms = None
+        nbytes = m * k + 4 * m + n * k + 4 * n + 2 * m * n * (2 if with_res else 1)
+        b_ms, by = bound_ms(nbytes, 2 * m * k * n, "int8")
+        results.append(dict(kernel="K1", name=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                            library_ms=library_ms))
+        del ws, xq, got, want, res
+    torch.cuda.empty_cache()
+
+
+def _quant_reading(torch, label, pairs):
+    """Holds kernel (q, s) pairs to their plain versions within QUANT_FLIPS
+    and QUANT_SCALE_RTOL; returns (max |difference| of int8 steps and
+    scales, share of int8 entries that differ, max relative scale error)."""
+    err, flips, n, s_rel = 0.0, 0, 0, 0.0
+    for (q, s), (qp, sp) in pairs:
+        d = (q.int() - qp.int()).abs()
+        rel = ((s - sp).abs() / sp.abs().clamp_min(1e-30)).max().item()
+        err = max(err, d.max().item(), (s - sp).abs().max().item())
+        flips += int((d != 0).sum().item())
+        n += d.numel()
+        s_rel = max(s_rel, rel)
+        check(d.max().item() <= 1, f"{label}: an int8 differs by {d.max().item()} steps")
+    check(flips <= QUANT_FLIPS * n and s_rel <= QUANT_SCALE_RTOL,
+          f"{label}: {flips} of {n} int8 differ, scales by up to {s_rel} (limits "
+          f"{QUANT_FLIPS}, {QUANT_SCALE_RTOL})")
+    return err, flips / n, s_rel
+
+
+def _quant_result(kernel, label, reading, ms, plain_ms, nbytes, ops):
+    b_ms, by = bound_ms(nbytes, ops, "f32")
+    err, share, s_rel = reading
+    return dict(kernel=kernel, name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=None, int8_flip_share=share,
+                scale_max_rel_err=s_rel)
+
+
+def check_k3(torch, tq, results):
+    """K3 on the 8 x 512 admission's rows: bf16 x [4096, 4096], bf16 w."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m, n = 4096, 4096
+    copies = n_copies(2 * m * n)
+    xs = [(torch.randn(m, n, generator=gen, device="cuda") * 2).to(torch.bfloat16)
+          for _ in range(copies)]
+    w = (1 + 0.2 * torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16)
+    label = f"K3 rmsnorm_quantize bf16 [{m}, {n}]"
+    got = tq.rmsnorm_quantize(xs[0], w)
+    torch.cuda.synchronize()
+    reading = _quant_reading(torch, label, [(got, tq.rmsnorm_quantize_plain(xs[0], w))])
+    ms = cuda_ms(torch, lambda i: tq.rmsnorm_quantize(xs[i % copies], w), 50)
+    plain_ms = cuda_ms(torch, lambda i: tq.rmsnorm_quantize_plain(xs[i % copies], w), 10)
+    # ~6 f32 operations per element: square-add, two products, abs-max, scale, round
+    results.append(_quant_result("K3", label, reading, ms, plain_ms,
+                                 2 * m * n + 2 * n + m * n + 4 * m, 6 * m * n))
+    del xs
+
+
+def check_k4(torch, tq, results):
+    """K4 on the column halves of the w13 product bf16 [4096, 22016]."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    m, h = 4096, 11008
+    gus = [(torch.randn(m, 2 * h, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+           for _ in range(n_copies(4 * m * h))]
+    copies = len(gus)
+    label = f"K4 silu_mul_quantize bf16 halves of [{m}, {2 * h}]"
+
+    def run(i, fn=tq.silu_mul_quantize):
+        gu = gus[i % copies]
+        return fn(gu[:, :h], gu[:, h:])
+
+    got = run(0)
+    torch.cuda.synchronize()
+    reading = _quant_reading(torch, label, [(got, run(0, tq.silu_mul_quantize_plain))])
+    ms = cuda_ms(torch, run, 50)
+    plain_ms = cuda_ms(torch, lambda i: run(i, tq.silu_mul_quantize_plain), 5)
+    # ~10 f32 operations per element: exp, add, reciprocal, two products,
+    # abs-max, scale, round
+    results.append(_quant_result("K4", label, reading, ms, plain_ms,
+                                 2 * 2 * m * h + m * h + 4 * m, 10 * m * h))
+    del gus
+
+
+def check_k5(torch, tq, results):
+    """K5 at the admission's shape: qkv bf16 [4096, 12288] (32 + 2 x 32
+    heads of 128), cos/sin [4096, 64], K/V written head-major into a layer's
+    block of the compact cache [8, 32, 512, 128], as the fused prefill does."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, T, NH, KVH, hd = 8, 512, 32, 32, 128
+    M, D, KVD = B * T, NH * hd, KVH * hd
+    copies = n_copies(2 * M * (D + 2 * KVD))
+    qkvs = [(torch.randn(M, D + 2 * KVD, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+            for _ in range(copies)]
+    ang = torch.arange(T, device="cuda", dtype=torch.float32)[:, None] * \
+        (10000.0 ** (-torch.arange(0, hd, 2, device="cuda", dtype=torch.float32) / hd))
+    cos, sin = ang.cos().repeat(B, 1), ang.sin().repeat(B, 1)
+
+    def cache():
+        return [torch.zeros(B, KVH, T, *d, dtype=t, device="cuda")
+                for t, d in [(torch.int8, (hd,)), (torch.float32, ())] * 2]  # k, ks, v, vs
+
+    blocks, blocks_p = cache(), cache()
+    outs, outs_p = ([b.transpose(1, 2) for b in bl] for bl in (blocks, blocks_p))
+
+    def run(i, fn=tq.rope_split_quantize, out=outs):
+        return fn(qkvs[i % copies], cos, sin, D, KVH, hd, out=out)
+
+    got = run(0)
+    torch.cuda.synchronize()
+    want = run(0, tq.rope_split_quantize_plain, outs_p)
+    label = f"K5 rope_split_quantize bf16 M={M} heads {NH}+{KVH}+{KVH} into the cache"
+    check(torch.equal(got[0], want[0]), f"{label}: roped q differs")
+    reading = _quant_reading(torch, label, [((got[1], got[2]), (want[1], want[2])),
+                                            ((got[3], got[4]), (want[3], want[4]))])
+    ms = cuda_ms(torch, run, 50)
+    plain_ms = cuda_ms(torch, lambda i: run(i, tq.rope_split_quantize_plain, outs_p), 5)
+    nbytes = 2 * M * (D + 2 * KVD) + 2 * 4 * M * hd // 2 + 2 * M * D + 2 * M * KVD + 2 * 4 * M * KVH
+    # ~8 f32 operations per element: the rotation's 4 products and 2 sums,
+    # abs-max, round (v: 3)
+    results.append(_quant_result("K5", label, reading, ms, plain_ms, nbytes,
+                                 8 * M * (D + KVD) + 3 * M * KVD))
+    del qkvs, blocks, blocks_p
 
 
 def check_k2(torch, tq, results):
@@ -461,7 +603,7 @@ def serve_7b(torch, smi_line):
 
     cfg = LLAMA2_7B
     t0 = time.time()
-    params = random_quant_params(cfg, seed=0, norm_dtype=torch.bfloat16)
+    params = random_quant_params(cfg, seed=0, norm_dtype=torch.bfloat16, fuse=True)
     engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -483,15 +625,26 @@ def serve_7b(torch, smi_line):
           "served tokens missing or out of vocabulary")
     attn = engine.decode_attn
     steps = batcher.timers["decode_steps"]
-    path = PREFILL_PATH | {"K10", DECODE_KERNEL[attn]}
+    L = cfg.n_layers
+    groups = launches["K7"]  # one K7 scatter per admission group
+    path = FUSED_PREFILL_PATH | {"K10", DECODE_KERNEL[attn]}
     check({k for k, n in launches.items() if n > 0} == path,
           f"decode attention {attn}: want launches of exactly {sorted(path)}, got {launches}")
-    check(launches[DECODE_KERNEL[attn]] == cfg.n_layers * steps and launches["K10"] == steps,
-          f"{steps} decode steps: want {cfg.n_layers} {DECODE_KERNEL[attn]} launches and one "
+    check(launches[DECODE_KERNEL[attn]] == L * steps and launches["K10"] == steps,
+          f"{steps} decode steps: want {L} {DECODE_KERNEL[attn]} launches and one "
           f"K10 launch per step, got {launches}")
+    # per admission group and layer the fused body runs K3 twice, K4, K5 and
+    # K6 once, and K1 four times (qkv, wo, w13, w2), K2 only for wo; the
+    # classifier adds one K2 + K1 per group, and each decode step one K2 +
+    # K1 per matmul (4 per layer on the fused layouts, and the classifier)
+    want = dict(K3=2 * L * groups, K4=L * groups, K5=L * groups, K6=L * groups,
+                K1=(4 * L + 1) * (groups + steps), K2=(L + 1) * groups + (4 * L + 1) * steps)
+    check(groups > 0 and all(launches[k] == n for k, n in want.items()),
+          f"{groups} admission groups, {steps} decode steps: want {want}, got {launches}")
     check(all(v == 0 for v in plain.values()), f"plain versions ran: {plain}")
     rep = summarize(reqs)
-    line = dict(phase="serve_7b", decode_attn=attn, n_requests=rep.n_requests,
+    line = dict(phase="serve_7b", layouts="fused", decode_attn=attn, admission_groups=groups,
+                k2_launches=launches["K2"], n_requests=rep.n_requests,
                 tokens=rep.total_tokens,
                 wall_s=wall, tok_per_s=rep.tokens_per_sec, ttft_p50_ms=rep.ttft_p50_s * 1e3,
                 ttft_p95_ms=rep.ttft_p95_s * 1e3, setup_s=setup_s,
@@ -526,15 +679,16 @@ def _greedy(engine, seq, steps):
     return toks, logits
 
 
-def _parity(torch, cfg, act_dtype, seq, attn):
+def _parity(torch, cfg, act_dtype, seq, attn, fuse):
     """One greedy request of PARITY_STEPS steps on the card and on the CPU,
-    from the same weights, both with decode attention ``attn``; returns the
-    reading as a dict, with the card run's kernel launches."""
+    from the same weights (fused layouts with ``fuse``), both with decode
+    attention ``attn``; returns the reading as a dict, with the card run's
+    kernel launches."""
     from tpu_llama_torch.models.llama import random_quant_params
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
-    gpu = random_quant_params(cfg, seed=1, norm_dtype=act_dtype)
+    gpu = random_quant_params(cfg, seed=1, norm_dtype=act_dtype, fuse=fuse)
     cpu = _to(gpu, "cpu")
     t0 = time.time()
     _kernels.reset_counts()
@@ -546,7 +700,7 @@ def _parity(torch, cfg, act_dtype, seq, attn):
                             seq, PARITY_STEPS)
     t2 = time.time()
     kernel = DECODE_KERNEL.get(attn)  # None: "xla" decodes in plain PyTorch
-    path = PREFILL_PATH | ({kernel, "K10"} if kernel else set())
+    path = (FUSED_PREFILL_PATH if fuse else PREFILL_PATH) | ({kernel, "K10"} if kernel else set())
     check({k for k, n in launches.items() if n > 0} == path and not any(plain.values())
           and (kernel is None or (launches[kernel] == cfg.n_layers * PARITY_STEPS
                                   and launches["K10"] == PARITY_STEPS)),
@@ -555,7 +709,7 @@ def _parity(torch, cfg, act_dtype, seq, attn):
     same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
     # logits [0, same] came from the same tokens on both sides
     errs = [float(np.abs(g_log[i] - c_log[i]).max()) for i in range(same + 1)]
-    return dict(activations=str(act_dtype).removeprefix("torch."), steps=PARITY_STEPS,
+    return dict(activations=str(act_dtype).removeprefix("torch."), fused=fuse, steps=PARITY_STEPS,
                 tokens_equal=same, card_tokens=g_toks, cpu_tokens=c_toks,
                 prefill_logit_max_err=errs[0], logit_max_err=max(errs),
                 logit_peak=float(np.abs(c_log[0]).max()),
@@ -564,17 +718,21 @@ def _parity(torch, cfg, act_dtype, seq, attn):
 
 
 def parity_2layer(torch):
-    """Phase 5 for each decode attention; returns the card launches of each
-    attention's f32 run."""
+    """Phase 5 for each decode attention on unfused weights, and for K9 on
+    fused ones; returns the card launches of each unfused attention's f32
+    run."""
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
     seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
     launches = {}
-    for attn in ("xla", "flash", "flash_dma"):
-        f32 = _parity(torch, cfg, torch.float32, seq, attn)
-        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn)
-        launches[attn] = f32["card_launches"]
+    for attn, fuse in (("xla", False), ("flash", False), ("flash_dma", False),
+                       ("flash_dma", True)):
+        f32 = _parity(torch, cfg, torch.float32, seq, attn, fuse)
+        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn, fuse)
+        if not fuse:
+            launches[attn] = f32["card_launches"]
+        attn = attn + (" fused" if fuse else "")
         print(json.dumps(dict(phase="parity_2layer", attn=attn, f32=f32, bf16=bf16,
                               tol=LOGITS_TOL)), flush=True)
         check(f32["finite"] and bf16["finite"], f"{attn}: card logits not finite")
@@ -631,16 +789,20 @@ def main() -> int:
     results = []
     check_k1(torch, tq, tm, results)
     check_k2(torch, tq, results)
+    check_k3(torch, tq, results)
+    check_k4(torch, tq, results)
+    check_k5(torch, tq, results)
     check_k6(torch, tatt, results)
     check_k7(torch, tatt, results)
     torch.cuda.empty_cache()
     check_decode_attention(torch, tatt, results)
     check_k10(torch, tatt, results)
     for r in results:  # launches follow in the kernels line, after the main path
+        extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                              max_err=r["max_abs_err"], card=smi)), flush=True)
+                              max_err=r["max_abs_err"], **extra, card=smi)), flush=True)
 
     # 4. the serving path at 7B
     launches = serve_7b(torch, smi)

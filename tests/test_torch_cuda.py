@@ -4,7 +4,13 @@ Marked ``cuda``; they skip (inside the ``card`` fixture, never at import)
 where there is no CUDA device.  Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 
-Required agreement: K1, K2, K7 and K10 exact.  K6 computes in f32 like its
+Required agreement: K1 (with and without a residual), K2, K7 and K10
+exact.  K3, K4 and K5 repeat their plain versions' f32 steps with
+round-to-nearest intrinsics; K3 sums its squares in f64 and K4 calls CUDA's
+expf as PyTorch's sigmoid does, so an exact sum on an f32 rounding boundary
+or another expf could move a scale by an ulp and an int8 by one step:
+int8 within one step on at most 1e-4 of entries, scales within 2^-21 (in
+practice they are equal).  K6 computes in f32 like its
 plain version but sums in another order and uses CUDA's expf: f32 outputs
 within 1e-5 of the largest output, bf16 outputs within one bf16 rounding
 step of it (2^-7 relative) plus that noise.  K9 and K19 round q and p to
@@ -64,6 +70,88 @@ def test_k1_exact(card, m, k, n, dtype):
     torch.cuda.synchronize()
     want = tm.w8a8_matmul_prequant_plain(xq, sx, w, out_dtype=dtype)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (200, 11008, 384), (300, 96, 136)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_residual_exact(card, m, k, n, dtype):
+    g = _gen(m * 3 + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=card) * 0.1
+    w = tq.ChannelQuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=card, dtype=torch.int8),
+        s=torch.rand(n, generator=g, device=card) * 1e-3)
+    r = (torch.randn(m, n, generator=g, device=card) * 4).to(dtype)
+    got = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=r)
+    torch.cuda.synchronize()
+    want = tm.w8a8_matmul_prequant_plain(xq, sx, w, out_dtype=dtype, residual=r)
+    assert torch.equal(got, want)
+
+
+def _quant_close(q, qp, s, sp):
+    d = (q.int() - qp.int()).abs()
+    assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-4
+    torch.testing.assert_close(s, sp, rtol=2.0 ** -21, atol=0)
+
+
+@pytest.mark.parametrize("m,n", [(1, 7), (5, 4096), (33, 11008), (3, 100), (64, 12000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_close(card, m, n, dtype):
+    g = _gen(m * n + 3)
+    x = (torch.randn(m, n, generator=g, device=card) * 3).to(dtype)
+    x[0] = 0
+    w = (1 + 0.2 * torch.randn(n, generator=g, device=card)).to(dtype)
+    before = _kernels.LAUNCHES["K3"]
+    q, s = tq.rmsnorm_quantize(x, w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K3"] == before + 1
+    qp, sp = tq.rmsnorm_quantize_plain(x, w)
+    _quant_close(q, qp, s, sp)
+
+
+@pytest.mark.parametrize("m,h", [(1, 7), (5, 11008), (33, 256), (3, 100), (8, 12000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_close_on_strided_halves(card, m, h, dtype):
+    g = _gen(m * h + 4)
+    gu = (torch.randn(m, 2 * h, generator=g, device=card) * 4).to(dtype)
+    gu[0] = 0
+    gate, up = gu[:, :h], gu[:, h:]
+    before = _kernels.LAUNCHES["K4"]
+    q, s = tq.silu_mul_quantize(gate, up)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K4"] == before + 1
+    qp, sp = tq.silu_mul_quantize_plain(gate, up)
+    _quant_close(q, qp, s, sp)
+
+
+@pytest.mark.parametrize("NH,KVH,hd", [(4, 4, 128), (8, 2, 128), (3, 1, 64), (2, 2, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("into_cache", [False, True])
+def test_k5_close(card, NH, KVH, hd, dtype, into_cache):
+    B, T, S = 3, 40, 48
+    M, D = B * T, NH * hd
+    g = _gen(NH * KVH + hd)
+    qkv = (torch.randn(M, D + 2 * KVH * hd, generator=g, device=card) * 3).to(dtype)
+    ang = torch.rand(M, hd // 2, generator=g, device=card) * 6.3
+    cos, sin = ang.cos(), ang.sin()
+    out = out_p = None
+    if into_cache:  # the layer's block of a head-major cache, in place
+        caches = [torch.zeros(B, KVH, S, *d, dtype=t, device=card)
+                  for t, d in [(torch.int8, (hd,)), (torch.float32, ())] * 2]  # k, ks, v, vs
+        caches_p = [c.clone() for c in caches]
+        out = [c[:, :, :T].transpose(1, 2) for c in caches]
+        out_p = [c[:, :, :T].transpose(1, 2) for c in caches_p]
+    before = _kernels.LAUNCHES["K5"]
+    got = tq.rope_split_quantize(qkv, cos, sin, D, KVH, hd, out=out)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K5"] == before + 1
+    want = tq.rope_split_quantize_plain(qkv, cos, sin, D, KVH, hd, out=out_p)
+    assert torch.equal(got[0], want[0])
+    _quant_close(got[1], want[1], got[2], want[2])
+    _quant_close(got[3], want[3], got[4], want[4])
+    if into_cache:
+        for c, cp in zip(caches, caches_p):
+            assert torch.equal(c, cp)
 
 
 def _k6_case(B, T, NH, KVH, S, hd, start, qdtype):
@@ -193,13 +281,15 @@ def test_k10_exact_and_skips_out_of_range(card, hd):
 NEAR_TIE = 5e-3
 
 
-@pytest.mark.parametrize("attn", ["xla", "flash", "flash_dma"])
-def test_engine_card_matches_cpu(card, attn):
+@pytest.mark.parametrize("attn,fuse", [("xla", False), ("flash", False), ("flash_dma", False),
+                                       ("flash_dma", True)])
+def test_engine_card_matches_cpu(card, attn, fuse):
     """A tiny f32-activation engine with the same explicit decode attention
     on both sides: greedy tokens on the card (kernels) equal the CPU's
     (plain versions) -- exactly for the f32 xla attention; for the
     bf16-rounding K9 and K19 up to the first step where the CPU's top two
-    tokens are within NEAR_TIE, after which a stream is not compared."""
+    tokens are within NEAR_TIE, after which a stream is not compared.
+    ``fuse``: the fused layouts, whose prefill runs K3, K4 and K5."""
     from tpu_llama_torch import convert
     from tpu_llama_torch.config import ModelConfig
     from tpu_llama_torch.models import llama as tl
@@ -207,7 +297,8 @@ def test_engine_card_matches_cpu(card, attn):
 
     cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
                       vocab_size=512, seq_len=256)
-    cpu = tl.random_quant_params(cfg, seed=1, norm_dtype=torch.float32, device="cpu")
+    cpu = tl.random_quant_params(cfg, seed=1, norm_dtype=torch.float32, fuse=fuse,
+                                 device="cpu")
     gpu = convert.params_from_numpy(convert.params_to_numpy(cpu), device=card)
     out = []
     for params, dev in ((cpu, "cpu"), (gpu, card)):
@@ -221,7 +312,8 @@ def test_engine_card_matches_cpu(card, attn):
         out.append(reqs)
         if dev == card:  # every kernel of the path launched, and no other
             path = {"K1", "K2", "K6", "K7"} | {
-                "flash": {"K19", "K10"}, "flash_dma": {"K9", "K10"}}.get(attn, set())
+                "flash": {"K19", "K10"}, "flash_dma": {"K9", "K10"}}.get(attn, set()) | (
+                {"K3", "K4", "K5"} if fuse else set())
             assert {k for k, n in _kernels.LAUNCHES.items() if n > 0} == path
             assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
     for c, g in zip(*out):

@@ -1,7 +1,9 @@
 """Port parity for serving: ``Engine`` + ``ContinuousBatcher`` produce the
 same token streams as the JAX package's on a tiny W8A8 / INT8-KV GQA config,
 with the xla decode attention and with the deferred-flush ``flash_dma`` one
-(K9 + K10) on both sides.
+(K9 + K10) on both sides, and on fused layouts (TINY128, fused prefill body
+K3/K4/K5 + the residual K1 in the port; the JAX engine's CPU prefill runs
+its fused body with the xla attention wherever B * T is a multiple of 32).
 
 The first admission is a group of four prompts in the 128 bucket, so on the
 JAX side it runs the K7 slot scatter and (4 x 128 rows > 256) the K2 row
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_model import TINY_GQA, build_pair
+from test_torch_model import TINY128, TINY_GQA, build_fused_pair, build_pair
 from tpu_llama.runtime import ContinuousBatcher as JaxBatcher
 from tpu_llama.runtime import Engine as JaxEngine
 from tpu_llama.runtime import Request as JaxRequest
@@ -40,11 +42,14 @@ def _requests(cls):
     return out
 
 
-def _serve_both(attn):
+def _serve_both(attn, fused=False):
     """The same requests through the JAX engine and the port's, both with
-    ``attn``; returns (JAX requests, port requests, the port's plain-version
-    counts)."""
-    jcfg, jp, tcfg, tp = build_pair(CFG, jnp.float32, seed=21)
+    ``attn`` (and fused layouts on TINY128 with ``fused``); returns (JAX
+    requests, port requests, the port's plain-version counts)."""
+    if fused:
+        jcfg, jp, tcfg, tp = build_fused_pair(dict(TINY128, seq_len=256), jnp.float32, seed=21)
+    else:
+        jcfg, jp, tcfg, tp = build_pair(CFG, jnp.float32, seed=21)
     jeng = JaxEngine(jp, jcfg, max_batch=4, kv_dtype="int8", seq_len=256, attn=attn)
     jb = JaxBatcher(jeng)
     jreqs = _requests(JaxRequest)
@@ -73,6 +78,12 @@ def streams_flash_dma():
     return _serve_both("flash_dma")
 
 
+@pytest.fixture(scope="module")
+def streams_fused():
+    """Fused layouts, the deferred-flush decode on both sides."""
+    return _serve_both("flash_dma", fused=True)
+
+
 def test_engine_token_streams_equal_jax(streams):
     jreqs, treqs, _ = streams
     assert all(r.done for r in treqs)
@@ -97,6 +108,19 @@ def test_engine_flash_dma_token_streams_equal_jax(streams_flash_dma):
     assert sum(len(r.out_tokens) for r in treqs) > 40
     assert plain["K9"] > 0 and plain["K10"] > 0
     assert plain["K9"] == CFG["n_layers"] * plain["K10"] and plain["K19"] == 0
+
+
+def test_engine_fused_token_streams_equal_jax(streams_fused):
+    jreqs, treqs, plain = streams_fused
+    assert all(r.done for r in treqs)
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.id, t.temperature)
+    assert sum(len(r.out_tokens) for r in treqs) > 40
+    L = TINY128["n_layers"]
+    # every admission group ran the fused prefill body: K7 once per group
+    assert plain["K7"] >= 2 and plain["K5"] == plain["K4"] == L * plain["K7"]
+    assert plain["K3"] == 2 * L * plain["K7"] and plain["K6"] == L * plain["K7"]
+    assert plain["K9"] == L * plain["K10"] and plain["K10"] > 0
 
 
 def test_engine_decode_attn_and_rejects_unknown():

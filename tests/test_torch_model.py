@@ -252,11 +252,178 @@ def test_random_quant_params_shapes_and_seed():
     assert a.wcls.q.shape == (320, 48) and a.tok_emb.dtype == torch.bfloat16
     assert torch.equal(a.layers.wq.q, b.layers.wq.q)
     assert int(a.layers.wq.q.min()) >= -127
-    with pytest.raises(NotImplementedError):
-        tl.random_quant_params(cfg, fuse=True, device="cpu")
+    f = tl.random_quant_params(cfg, fuse=True, device="cpu")  # the fused layouts
+    KVD = cfg.kv_dim
+    assert f.layers.wq.q.shape == (2, 48 + 2 * KVD, 48) and f.layers.w1.q.shape == (2, 256, 48)
+    assert f.layers.wo.q.shape == (2, 48, 48) and f.layers.w2.q.shape == (2, 48, 128)
+    for stub in (f.layers.wk, f.layers.wv, f.layers.w3):
+        assert isinstance(stub, torch.Tensor) and stub.shape == (2, 1, 1)
+    assert tl._fused_layouts(f.layers, cfg) and not tl._fused_layouts(a.layers, cfg)
     with pytest.raises(NotImplementedError):
         tl.make_kv_cache(cfg, 2, kv_dtype="bfloat16", device="cpu")
     with pytest.raises(NotImplementedError):
         tl.forward_prefill(a, tl.make_kv_cache(cfg, 1, device="cpu"),
                            torch.ones(1, 4, dtype=torch.long), torch.ones(1),
                            torch.tensor([4]), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Fused layouts (fuse_projections: wqkv, w13) and the fused W8A8 prefill body.
+# TINY128 has head_dim 128 and GQA, so with B * T a multiple of 32 the JAX
+# package runs its fused body too (_prefill_w8a8_fast_ok), with attn="xla":
+# K3, K4 and the residual K1, then RoPE + quantize_kv + f32 attention.  The
+# port runs K3, K4, the residual K1, K5 and K6's plain version (that same f32
+# attention).  f32: K5's RoPE and quant are apply_rope + quantize_kv's
+# arithmetic, so F32_TOL holds.  bf16: K5 quantizes the roped k before any
+# bf16 rounding where JAX's xla branch rounds it first, within BF16_TOL.
+# ---------------------------------------------------------------------------
+
+TINY128 = dict(dim=256, hidden_dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+               vocab_size=320, seq_len=64, shared_weights=False)
+
+
+def build_fused_pair(cfg_kwargs, dtype, seed=3):
+    """build_pair with the JAX package's fused layouts, quantized."""
+    jcfg = JaxModelConfig(**cfg_kwargs)
+    dense = jl.params_from_raw(make_random_weights(jcfg, seed=seed), dtype=dtype)
+    jp = jl.quantize_params(jl.fuse_projections(dense), mode="w8a8")
+    tp = convert.params_from_numpy(jax_tree(jp), device="cpu")
+    return jcfg, jp, ModelConfig(**cfg_kwargs), tp
+
+
+@pytest.fixture(scope="module", params=[jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def fused_pair(request):
+    return build_fused_pair(TINY128, request.param) + (request.param,)
+
+
+def _count_residual_k1(monkeypatch):
+    """Counts plain K1 calls that carry a residual."""
+    from tpu_llama_torch.ops import matmul as tm
+
+    calls = []
+    plain = tm.w8a8_matmul_prequant_plain
+
+    def counted(*args, **kwargs):
+        calls.append(args[4] if len(args) > 4 else kwargs.get("residual"))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tm, "w8a8_matmul_prequant_plain", counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["all", "last"])
+def test_fused_prefill_matches_jax(fused_pair, mode, monkeypatch):
+    jcfg, jp, tcfg, tp, dtype = fused_pair
+    B, T = 2, 16
+    assert jl._prefill_w8a8_fast_ok(jp, jcfg, B, T)  # JAX runs its fused body too
+    toks, lengths = _prompts(B, T, tcfg.vocab_size, 4)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=T)
+    want, jcache = jl.forward_prefill(
+        jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
+        jcfg, logits_mode=mode, attn="xla", assume_fresh=True)
+    calls = _count_residual_k1(monkeypatch)
+    _kernels.reset_counts()
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    got, _ = tl.forward_prefill(
+        tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
+        torch.tensor(lengths), tcfg, logits_mode=mode, assume_fresh=True)
+    L = tcfg.n_layers
+    plain = _kernels.PLAIN_CALLS
+    assert (plain["K3"], plain["K4"], plain["K5"], plain["K6"]) == (2 * L, L, L, L)
+    assert plain["K1"] == 4 * L + 1 and plain["K2"] == L + 1  # + the classifier
+    assert sum(r is not None for r in calls) == 2 * L  # wo and w2 take the residual
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    _close(got.numpy(), want, tol)
+    for tf, jf in zip(_dequant(tcache), _dequant(jcache)):
+        _close(tf, jf, tol * 4)
+
+
+@pytest.mark.parametrize("attn", ["xla", "flash_dma"])
+def test_fused_decode_matches_jax(fused_pair, attn):
+    """Prefill (fused on both sides: B * T = 32) into a larger cache, then
+    JAX's unfused decode math on the fused layouts (fused=False), which the
+    port keeps: the split q/k/v and gate/up, the residual adds in K1."""
+    jcfg, jp, tcfg, tp, dtype = fused_pair
+    B, T, S = 4, 8, 32
+    toks, lengths = _prompts(B, T, tcfg.vocab_size, 5)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    jlog, jcache = jl.forward_prefill(
+        jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
+        jcfg, logits_mode="last", attn="xla", assume_fresh=True)
+    tl.forward_prefill(tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
+                       torch.tensor(lengths), tcfg, logits_mode="last", assume_fresh=True)
+    assert not tcache.ks[:, :, :, T:].any()  # K5 wrote rows [0, T) only
+    nxt = np.asarray(jnp.argmax(jlog, -1), np.int32)
+    pos = lengths.copy()
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    for _ in range(3):
+        want, jcache = jl.forward_decode(jp, jcache, jnp.asarray(nxt), jnp.asarray(pos),
+                                         jcfg, attn=attn, fused=False)
+        got, _ = tl.forward_decode(tp, tcache, torch.tensor(nxt), torch.tensor(pos), tcfg,
+                                   attn=attn)
+        _close(got.numpy(), want, tol)
+        nxt = np.asarray(jnp.argmax(want, -1), np.int32)  # teacher-force JAX's tokens
+        pos = pos + 1
+    for tf, jf in zip(_dequant(tcache), _dequant(jcache)):
+        _close(tf, jf, tol * 4)
+
+
+@pytest.mark.parametrize("attn", ["xla", "flash_dma"])
+def test_fused_greedy_decode_loop_matches_jax(attn):
+    jcfg, jp, tcfg, tp = build_fused_pair(TINY128, jnp.float32, seed=5)
+    B, S, steps = 2, 32, 6
+    toks = np.array([5, 77], np.int32)
+    pos = np.array([0, 3], np.int32)
+    jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
+    want, _ = jl.greedy_decode_loop(jp, jcache, jnp.asarray(toks), jnp.asarray(pos), steps,
+                                    jcfg, attn=attn, fused=False)
+    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    got, _ = tl.greedy_decode_loop(tp, tcache, torch.tensor(toks), torch.tensor(pos), steps,
+                                   tcfg, attn=attn)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_fuse_projections_and_quantize_match_jax(dtype):
+    """The port's fuse_projections + quantize_params on the same dense
+    weights give the JAX package's bytes; the [L, 1, 1] stubs stay dense."""
+    cfg = JaxModelConfig(**TINY_GQA)
+    dense = jl.params_from_raw(make_random_weights(cfg, seed=9), dtype=dtype)
+    jq = jl.quantize_params(jl.fuse_projections(dense), mode="w8a8")
+    tdense = convert.params_from_numpy(jax_tree(dense), device="cpu")
+    fused = tl.fuse_projections(tdense)
+    tq = tl.quantize_params(fused)
+    KVD, H = cfg.kv_dim, cfg.hidden_dim
+    assert fused.layers.wq.shape == (2, 48, 48 + 2 * KVD)
+    assert fused.layers.w1.shape == (2, 48, 2 * H)
+    for name in ("wq", "wo", "w1", "w2"):
+        w, t = getattr(jq.layers, name), getattr(tq.layers, name)
+        np.testing.assert_array_equal(
+            t.q.numpy(), np.swapaxes(np.asarray(w.q)[..., :w.logical_in, :w.logical_out], -1, -2))
+        np.testing.assert_array_equal(t.s.numpy(), np.asarray(w.s)[..., :w.logical_out])
+    for name in ("wk", "wv", "w3"):
+        stub = getattr(tq.layers, name)
+        assert isinstance(stub, torch.Tensor) and stub.shape == (2, 1, 1)
+        assert np.asarray(getattr(jq.layers, name)).shape == (2, 1, 1)
+    assert tl._fused_layouts(tq.layers, ModelConfig(**TINY_GQA))
+    with pytest.raises(ValueError):
+        tl.fuse_projections(tq)
+    with pytest.raises(NotImplementedError):
+        tl.fuse_projections(tdense, tp=2)
+
+
+def test_convert_round_trip_fused():
+    """Fused, quantized JAX params -> port -> numpy -> port: the fused
+    weights come back unchanged and the stubs stay dense."""
+    _, jp, tcfg, tp = build_fused_pair(TINY128, jnp.bfloat16)
+    back = convert.params_to_numpy(tp)
+    assert back["layers"]["wk"].shape == (2, 1, 1)
+    again = convert.params_from_numpy(back, device="cpu")
+    for name in ("wq", "w1"):
+        a, b = getattr(again.layers, name), getattr(tp.layers, name)
+        assert torch.equal(a.q, b.q) and torch.equal(a.s, b.s)
+    assert again.layers.w3.shape == (2, 1, 1) and tl._fused_layouts(again.layers, tcfg)
+    w = jax_tree(jp)["layers"]["wq"]
+    np.testing.assert_array_equal(back["layers"]["wq"]["q"],
+                                  np.asarray(w["q"])[..., :w["logical_in"], :w["logical_out"]])

@@ -29,6 +29,32 @@ __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// x rounded as a store to T rounds it, as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) { return round_bf16(x); }
+
+// Two neighbouring elements (p must be aligned to two of them).
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a = v.x;
+    b = v.y;
+}
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    a = __low2float(v);
+    b = __high2float(v);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -39,6 +65,80 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// Block-wide reductions over the NT threads of a block (NT a multiple of
+// 32): every thread must call, and every thread gets the same result (an
+// xor butterfly adds the same two values in every lane).  `red` is NT / 32
+// values of shared memory; the trailing barrier frees it for the next call
+// and makes the block's earlier shared-memory writes visible to all.
+template <int NT>
+__device__ __forceinline__ float block_max(float v, float* red) {  // of values >= 0
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = warp_max(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = warp_max(lane < NT / 32 ? red[lane] : 0.f);
+    __syncthreads();
+    return v;
+}
+
+template <int NT>
+__device__ __forceinline__ double block_sum(double v, double* red) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = warp_sum(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = warp_sum(lane < NT / 32 ? red[lane] : 0.0);
+    __syncthreads();
+    return v;
+}
+
+// ---------------------------------------------------------------------------
+// Symmetric INT8 quantization of a row (or head) of f32 values: K2
+// quantize_rows.cu, K3 rmsnorm_quantize.cu, K4 silu_mul_quantize.cu, K5
+// rope_split_quantize.cu.  The formula of tpu_llama/ops/quant.py:255-263 as
+// XLA compiles it inside jit, where the JAX package quantizes activations
+// and KV rows (its Pallas kernels included):
+//   s = absmax * f32(1/127)    (XLA's rewrite of absmax / 127),
+//   inv = s > 0 ? 1 / s : 0,   q = clip(rint(x * inv), -127, 127)
+// -- a multiply by the reciprocal, rint rounding half to even, so the int8
+// bytes equal the JAX package's.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float quant_scale(float absmax) { return absmax * (1.0f / 127.0f); }
+__device__ __forceinline__ float quant_inv(float s) { return s > 0.f ? 1.0f / s : 0.f; }
+__device__ __forceinline__ int8_t quant_i8(float x, float inv) {
+    const float r = rintf(x * inv);
+    return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+template <typename T>
+struct Vec;  // 16-byte vector of T and its int8 image
+template <>
+struct Vec<float> {
+    static constexpr int n = 4;
+    using q_t = uint32_t;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+    static constexpr int n = 8;
+    using q_t = uint2;
+};
+
+// The Vec<T>::n values at p (16-byte aligned) as f32.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&f)[Vec<T>::n]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < Vec<T>::n; ++k) f[k] = to_f32(e[k]);
 }
 
 // cp.async (sm_80+): global -> shared copies that bypass the registers.

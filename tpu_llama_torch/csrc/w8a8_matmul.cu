@@ -8,6 +8,11 @@
 // JAX package's [IN, OUT]), sx f32 [M], sw f32 [N], out f32 or bf16 [M, N].
 // The epilogue multiplies in the order of matmul.py:383-385 and rounds once
 // to the output type, so the result is bit-equal to the plain version.
+// With a residual r [M, N] (of the output type) the epilogue is the residual
+// one, _w8a8_res_kernel (matmul.py:388-409): out = r + cast(mm), the matmul
+// term rounded to the output type first, then added in that type -- the
+// unfused x + mm -- with an explicit round-to-nearest add, so nvcc cannot
+// contract it into an FMA with the rescale.
 //
 // Bound on the H100: at decode (M = 8) bytes -- every weight byte is read
 // once per step and reused by only 8 rows; at prefill (M = 4096) int8
@@ -43,7 +48,8 @@ template <int BM, int BN, int BK, int WM, int WN, int STAGES, typename OutT>
 __global__ void __launch_bounds__(Tile<BM, BN, BK, WM, WN, STAGES>::kThreads)
 w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
             const int8_t* __restrict__ w, const float* __restrict__ sw,
-            OutT* __restrict__ out, int M, int N, int K, int vec) {
+            const OutT* __restrict__ res, OutT* __restrict__ out, int M, int N, int K,
+            int vec) {
     using C = Tile<BM, BN, BK, WM, WN, STAGES>;
     constexpr int NT = C::kThreads, LDS = C::kLds;
     constexpr int MT = WM / 16, NTL = WN / 8;  // mma tiles per warp
@@ -155,8 +161,9 @@ w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                 for (int e = 0; e < 2; ++e) {
                     const int col = n0 + wn * WN + j * 8 + 2 * t4 + e;
                     if (col >= N) continue;
+                    const long long o = (long long)row * N + col;
                     const float v = (static_cast<float>(acc[i][j][h * 2 + e]) * a) * sw[col];
-                    store_as(out + (long long)row * N + col, v);
+                    store_as(out + o, res ? __fadd_rn(to_f32(res[o]), round_to<OutT>(v)) : v);
                 }
             }
         }
@@ -164,37 +171,39 @@ w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
 }
 
 template <int BM, int BN, int BK, int WM, int WN, int STAGES, typename OutT>
-int launch(const int8_t* x, const float* sx, const int8_t* w, const float* sw, OutT* out,
-           int M, int N, int K, int vec, cudaStream_t st) {
+int launch(const int8_t* x, const float* sx, const int8_t* w, const float* sw, const OutT* res,
+           OutT* out, int M, int N, int K, int vec, cudaStream_t st) {
     using C = Tile<BM, BN, BK, WM, WN, STAGES>;
     auto kern = w8a8_kernel<BM, BN, BK, WM, WN, STAGES, OutT>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            C::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    kern<<<grid, C::kThreads, C::kSmem, st>>>(x, sx, w, sw, out, M, N, K, vec);
+    kern<<<grid, C::kThreads, C::kSmem, st>>>(x, sx, w, sw, res, out, M, N, K, vec);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
-int dispatch(const int8_t* x, const float* sx, const int8_t* w, const float* sw, OutT* out,
-             int M, int N, int K, int vec, cudaStream_t st) {
-    if (M <= 16) return launch<16, 32, 256, 16, 8, 4>(x, sx, w, sw, out, M, N, K, vec, st);
-    return launch<128, 128, 64, 64, 32, 3>(x, sx, w, sw, out, M, N, K, vec, st);
+int dispatch(const int8_t* x, const float* sx, const int8_t* w, const float* sw, const void* res,
+             void* out, int M, int N, int K, int vec, cudaStream_t st) {
+    const OutT* r = static_cast<const OutT*>(res);
+    OutT* o = static_cast<OutT*>(out);
+    if (M <= 16) return launch<16, 32, 256, 16, 8, 4>(x, sx, w, sw, r, o, M, N, K, vec, st);
+    return launch<128, 128, 64, 64, 32, 3>(x, sx, w, sw, r, o, M, N, K, vec, st);
 }
 
 }  // namespace
 
 // vec != 0 promises K % 16 == 0 and 16-byte aligned x and w (the wrapper
-// checks); otherwise the tiles load byte by byte.
+// checks); otherwise the tiles load byte by byte.  res is null, or a
+// contiguous [M, N] residual of the output type.
 extern "C" int tl_w8a8_matmul(const int8_t* x, const float* sx, const int8_t* w,
-                              const float* sw, void* out, int out_dtype, int M, int N,
-                              int K, int vec, void* stream) {
+                              const float* sw, const void* res, void* out, int out_dtype,
+                              int M, int N, int K, int vec, void* stream) {
     if (M <= 0 || N <= 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (out_dtype == TL_F32)
-        return dispatch(x, sx, w, sw, static_cast<float*>(out), M, N, K, vec, st);
+    if (out_dtype == TL_F32) return dispatch<float>(x, sx, w, sw, res, out, M, N, K, vec, st);
     if (out_dtype == TL_BF16)
-        return dispatch(x, sx, w, sw, static_cast<__nv_bfloat16*>(out), M, N, K, vec, st);
+        return dispatch<__nv_bfloat16>(x, sx, w, sw, res, out, M, N, K, vec, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

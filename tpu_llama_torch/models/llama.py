@@ -1,13 +1,19 @@
 """Llama-2 forward passes for the W8A8 + dense INT8-KV serving path.
 
-Port of the unfused parts of tpu_llama/models/llama.py that the engine's
-``quant="w8a8", kv_dtype="int8", kv_layout="dense"`` setting runs:
+Port of the parts of tpu_llama/models/llama.py that the engine's
+``quant="w8a8", kv_dtype="int8", kv_layout="dense"`` setting runs, with the
+fused wqkv / w13 layouts of ``fuse_projections`` (what bench.py serves) or
+without them:
 
 * prefill: ``forward_prefill(assume_fresh=True)`` -> ``_forward_prefill_fresh``
-  (llama.py:1378), each layer through ``w8a8_matmul`` (K2 + K1) and the INT8
-  causal attention K6;
-* decode: ``forward_decode`` -> ``decode_stack``, every matmul through K1
-  (+ K2).  ``attn="flash_dma"`` / ``"flash"`` run the deferred-flush branch
+  (llama.py:1378).  Fused layouts run the fused W8A8 body (llama.py:
+  1422-1469): K3 rmsnorm+quant, K1 (qkv), K5 rope+split+KV quant into the
+  cache, K6 attention, K2 + K1 with the residual (wo), K3, K1 (w13), K4
+  silu*up+quant, K1 with the residual (w2).  Unfused layouts run the
+  unfused body through ``w8a8_matmul`` (K2 + K1) and K6;
+* decode: ``forward_decode`` -> ``decode_stack``, JAX's unfused decode math
+  (``fused=False``) on either layout: every matmul through K2 + K1, the
+  residual adds in K1's epilogue.  ``attn="flash_dma"`` / ``"flash"`` run the deferred-flush branch
   (llama.py:1277-1327): the cache is read-only during the layer loop, each
   layer attends over its rows < pos plus the fresh row (K9 / K19), and one
   K10 call writes every layer's row after the loop.  ``attn="xla"`` runs the
@@ -22,7 +28,7 @@ Python loop over per-layer views.  Weights stay stacked ``[L, ...]`` and
 matmul weights are K-major ``ChannelQuantTensor``s (``q [L, out, in]``).
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: fused layouts with the fused prefill, start_pos > 0 and
+their ROADMAP item: the fused decode (K8, K11, K12), start_pos > 0 and
 chunked prefill, fp caches and dense/q8_0 weights, paged caches.
 """
 
@@ -44,8 +50,15 @@ from tpu_llama_torch.ops.attention import (
     kv_cache_flush_rows,
     quantize_kv,
 )
-from tpu_llama_torch.ops.matmul import w8a8_matmul
-from tpu_llama_torch.ops.quant import ChannelQuantTensor, quantize_channel
+from tpu_llama_torch.ops.matmul import w8a8_matmul, w8a8_matmul_prequant
+from tpu_llama_torch.ops.quant import (
+    ChannelQuantTensor,
+    quantize_channel,
+    rmsnorm_quantize,
+    rope_f32,
+    rope_split_quantize,
+    silu_mul_quantize,
+)
 
 _NEG_INF = -1e30
 
@@ -58,17 +71,19 @@ def _take(w, i: int):
 class LayerParams:
     """Per-layer weights stacked on axis 0 over layers.  Matmul weights are
     ``ChannelQuantTensor``s (q [L, out, in]) or, before ``quantize_params``,
-    dense [L, in, out] tensors in the JAX layout."""
+    dense [L, in, out] tensors in the JAX layout.  In the fused layouts of
+    ``fuse_projections`` wq is D -> D + 2 KVD ([q|k|v]), w1 is D -> 2H
+    ([gate|up]), and wk, wv and w3 are dense [L, 1, 1] stubs."""
 
     rms_att: torch.Tensor  # [L, D]
-    wq: ChannelQuantTensor  # D -> D
-    wk: ChannelQuantTensor  # D -> KVD
-    wv: ChannelQuantTensor  # D -> KVD
+    wq: ChannelQuantTensor  # D -> D (fused: D -> D + 2 KVD)
+    wk: ChannelQuantTensor  # D -> KVD (fused: stub)
+    wv: ChannelQuantTensor  # D -> KVD (fused: stub)
     wo: ChannelQuantTensor  # D -> D
     rms_ffn: torch.Tensor  # [L, D]
-    w1: ChannelQuantTensor  # D -> H (gate)
+    w1: ChannelQuantTensor  # D -> H (gate; fused: D -> 2H)
     w2: ChannelQuantTensor  # H -> D (down)
-    w3: ChannelQuantTensor  # D -> H (up)
+    w3: ChannelQuantTensor  # D -> H (up; fused: stub)
 
     def layer(self, i: int) -> "LayerParams":
         """Layer ``i`` as views of the stacked weights."""
@@ -142,13 +157,12 @@ def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
     """Random parameters generated directly in INT8 on the device
     (llama.py:288), from one ``torch.Generator`` seeded with ``seed``.  The
     draws differ from ``jax.random``'s; the shapes, scales (2e-4) and
-    dtypes are the same."""
+    dtypes are the same.  ``fuse=True`` draws the fused wqkv / w13 layouts
+    of ``fuse_projections`` with [L, 1, 1] stubs for wk, wv and w3
+    (llama.py:337-343)."""
     if mode != "w8a8":
         raise NotImplementedError(f"mode {mode!r}: only w8a8 is ported (ROADMAP queue 1 "
                                   "item 9 has q8_0)")
-    if fuse:
-        raise NotImplementedError("fused wqkv/w13 layouts come with the fused prefill "
-                                  "(ROADMAP, next slice 2)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -162,14 +176,21 @@ def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
             q=q, s=torch.full((*lead, out_f), 2e-4, dtype=torch.float32, device=dev))
 
     cos, sin = _rope_tables(c, dev)
+    tok_emb = torch.randn((V, D), generator=gen, dtype=norm_dtype, device=dev) * 0.02
+    if fuse:
+        stub = torch.zeros((L, 1, 1), dtype=norm_dtype, device=dev)
+        wq, wk, wv, wo = qt(D, D + 2 * KVD, (L,)), stub, stub, qt(D, D, (L,))
+        w1, w2, w3 = qt(D, 2 * H, (L,)), qt(H, D, (L,)), stub
+    else:
+        wq, wk, wv, wo = qt(D, D, (L,)), qt(D, KVD, (L,)), qt(D, KVD, (L,)), qt(D, D, (L,))
+        w1, w2, w3 = qt(D, H, (L,)), qt(H, D, (L,)), qt(D, H, (L,))
     return LlamaParams(
-        tok_emb=torch.randn((V, D), generator=gen, dtype=norm_dtype, device=dev) * 0.02,
+        tok_emb=tok_emb,
         layers=LayerParams(
             rms_att=torch.ones((L, D), dtype=norm_dtype, device=dev),
-            wq=qt(D, D, (L,)), wk=qt(D, KVD, (L,)), wv=qt(D, KVD, (L,)),
-            wo=qt(D, D, (L,)),
+            wq=wq, wk=wk, wv=wv, wo=wo,
             rms_ffn=torch.ones((L, D), dtype=norm_dtype, device=dev),
-            w1=qt(D, H, (L,)), w2=qt(H, D, (L,)), w3=qt(D, H, (L,)),
+            w1=w1, w2=w2, w3=w3,
         ),
         rms_final=torch.ones((D,), dtype=norm_dtype, device=dev),
         wcls=qt(D, V),
@@ -181,12 +202,17 @@ def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
 def quantize_params(params: LlamaParams, mode: str = "w8a8") -> LlamaParams:
     """W8A8 conversion of the seven matmul families and the classifier
     (llama.py:383): dense [.., in, out] weights -> per-channel INT8.  Norm
-    weights, embeddings and RoPE tables stay floating point."""
+    weights, embeddings, RoPE tables and the [L, 1, 1] stubs of
+    ``fuse_projections`` (never multiplied, llama.py:415-422) stay
+    floating point."""
     if mode != "w8a8":
         raise NotImplementedError(f"mode {mode!r}: only w8a8 is ported (ROADMAP queue 1 "
                                   "item 9 has q8_0)")
     lp = params.layers
-    q = quantize_channel
+
+    def q(w):
+        return w if w.dim() == 3 and w.shape[-2:] == (1, 1) else quantize_channel(w)
+
     return LlamaParams(
         tok_emb=params.tok_emb,
         layers=LayerParams(rms_att=lp.rms_att, wq=q(lp.wq), wk=q(lp.wk), wv=q(lp.wv),
@@ -199,11 +225,32 @@ def quantize_params(params: LlamaParams, mode: str = "w8a8") -> LlamaParams:
     )
 
 
-def matmul_any(a: torch.Tensor, w) -> torch.Tensor:
-    """``a @ W`` dispatching on the weight type (llama.py:518); the port
+def fuse_projections(params: LlamaParams, tp: int = 1) -> LlamaParams:
+    """Fuse each layer's [wq|wk|wv] into one wqkv and [w1|w3] into one w13
+    (llama.py:440), on dense [L, in, out] weights: apply before
+    ``quantize_params``.  wk, wv and w3 become [L, 1, 1] stubs; every
+    forward path finds the fused layouts by output width.  ``tp > 1``, the
+    shard-interleaved order of the explicit tensor-parallel path, waits for
+    ROADMAP queue 1 item 11."""
+    if tp != 1:
+        raise NotImplementedError("fuse_projections(tp > 1), the tensor-parallel column "
+                                  "order: ROADMAP queue 1 item 11")
+    lp = params.layers
+    if isinstance(lp.wq, ChannelQuantTensor):
+        raise ValueError("fuse_projections must run before quantization")
+    stub = torch.zeros((lp.rms_att.shape[0], 1, 1), dtype=lp.wq.dtype, device=lp.wq.device)
+    return dataclasses.replace(params, layers=dataclasses.replace(
+        lp, wq=torch.cat([lp.wq, lp.wk, lp.wv], dim=-1), wk=stub, wv=stub,
+        w1=torch.cat([lp.w1, lp.w3], dim=-1), w3=stub))
+
+
+def matmul_any(a: torch.Tensor, w, residual=None) -> torch.Tensor:
+    """``a @ W`` dispatching on the weight type (llama.py:518), plus
+    ``residual`` in K1's epilogue when given (the matmul term rounded to
+    a's dtype, then added: the numerics of ``residual + a @ W``).  The port
     carries per-channel W8A8 weights only."""
     if isinstance(w, ChannelQuantTensor):
-        return w8a8_matmul(a, w, out_dtype=a.dtype)
+        return w8a8_matmul(a, w, out_dtype=a.dtype, residual=residual)
     raise NotImplementedError("dense and q8_0 weights: ROADMAP queue 1 item 9")
 
 
@@ -218,6 +265,12 @@ def _project_qkv(h, lp: LayerParams, config: ModelConfig):
         qkv = matmul_any(h, lp.wq)
         return qkv[..., :D], qkv[..., D:D + KVD], qkv[..., D + KVD:]
     return matmul_any(h, lp.wq), matmul_any(h, lp.wk), matmul_any(h, lp.wv)
+
+
+def _fused_layouts(layers: LayerParams, config: ModelConfig) -> bool:
+    """Whether the weights are in ``fuse_projections``' layouts."""
+    return (_out_features(layers.wq) == config.dim + 2 * config.kv_dim
+            and _out_features(layers.w1) == 2 * config.hidden_dim)
 
 
 def _project_gate_up(h, lp: LayerParams, config: ModelConfig):
@@ -240,13 +293,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     """Rotate interleaved (even, odd) pairs of every head in f32, then cast
     back (llama.py:540).  x [..., n_heads, hd]; cos/sin broadcastable to
     [..., hd/2]."""
-    shape, dtype = x.shape, x.dtype
-    xp = x.reshape(*shape[:-1], shape[-1] // 2, 2)
-    x0, x1 = xp[..., 0], xp[..., 1]
-    cos, sin = cos.unsqueeze(-2), sin.unsqueeze(-2)  # broadcast over heads
-    r0 = x0 * cos - x1 * sin  # promotes to f32 (the tables are f32)
-    r1 = x0 * sin + x1 * cos
-    return torch.stack([r0, r1], dim=-1).reshape(shape).to(dtype)
+    return rope_f32(x, cos, sin).to(x.dtype)
 
 
 def _attention_decode(q, k_cache, v_cache, pos, config: ModelConfig):
@@ -335,10 +382,10 @@ def decode_stack(layers: LayerParams, cache: QuantKVCache, x, pos, cos, sin,
         else:
             _write_decode(cache, i, k, v, pos, config)
             att = _attend_decode(cache, i, q, pos, config)
-        x = x + matmul_any(att, lp.wo)
+        x = matmul_any(att, lp.wo, residual=x)
         h = rmsnorm(x, lp.rms_ffn)
         gate, up = _project_gate_up(h, lp, config)
-        x = x + matmul_any(F.silu(gate) * up, lp.w2)
+        x = matmul_any(F.silu(gate) * up, lp.w2, residual=x)
     if flash:
         # one [L, ...] buffer per array for the step: 4 stack launches, then one K10
         rows_k, rows_v, rows_ks, rows_vs = (torch.stack(r) for r in zip(*rows))
@@ -361,42 +408,87 @@ def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tenso
     return matmul_any(x, params.wcls).float(), cache
 
 
+def _prefill_layer(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start0,
+                   config: ModelConfig):
+    """Layer ``i`` of the unfused prefill body (llama.py:1510-1518): x
+    [B, T, D] in -> out.  Attention runs over the layer's compact fresh K/V
+    (K6, start 0); the block is then copied into rows [0, T) of ``cache``
+    in place.  cos/sin [T, hd/2] broadcast over B."""
+    B, T = x.shape[:2]
+    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    h = rmsnorm(x, lp.rms_att)
+    q, k, v = _project_qkv(h, lp, config)
+    q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
+    k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
+    # quantize before the head-major transpose (the hd reduce reads
+    # contiguous rows), then move int8
+    kq, ks = quantize_kv(k)  # [B, T, KVH, hd] / [B, T, KVH]
+    vq, vs = quantize_kv(v.reshape(B, T, KVH, hd))
+    kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
+    ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+    att = flash_prefill_attention(q, kq, vq, start0, ks, vs, out_dtype=x.dtype)
+    cache.k[i, :, :, :T] = kq
+    cache.v[i, :, :, :T] = vq
+    cache.ks[i, :, :, :T] = ks
+    cache.vs[i, :, :, :T] = vs
+    x = matmul_any(att, lp.wo, residual=x)
+    h = rmsnorm(x, lp.rms_ffn)
+    gate, up = _project_gate_up(h, lp, config)
+    return matmul_any(F.silu(gate) * up, lp.w2, residual=x)
+
+
+def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start0,
+                         config: ModelConfig):
+    """Layer ``i`` of the fused W8A8 prefill body, ``layer_step_w8a8`` with
+    ``attend_prequant`` (llama.py:1422-1469): x [B, T, D] in -> out, with
+    f32 rmsnorm, RoPE and SiLU that are never rounded to x's dtype before
+    their int8 quant (ops/quant.py).  K5 writes the layer's K/V straight
+    into rows [0, T) of ``cache`` (head-major, in place: no transpose, no
+    copy) and K6 attends over them there.  cos/sin [B * T, hd/2], row
+    b * T + t at position t."""
+    B, T, D = x.shape
+    NH, KVH, hd, H = config.n_heads, config.n_kv_heads, config.head_dim, config.hidden_dim
+    x2 = x.reshape(B * T, D)
+    xq, sx = rmsnorm_quantize(x2, lp.rms_att)
+    qkv = w8a8_matmul_prequant(xq, sx, lp.wq, out_dtype=x.dtype)
+    blocks = [a[i, :, :, :T] for a in (cache.k, cache.ks, cache.v, cache.vs)]  # [B, KVH, T..]
+    q, *_ = rope_split_quantize(qkv, cos, sin, D, KVH, hd,
+                                out=[blk.transpose(1, 2) for blk in blocks])
+    kb, ksb, vb, vsb = blocks
+    att = flash_prefill_attention(q.view(B, T, NH, hd), kb, vb, start0, ksb, vsb,
+                                  out_dtype=x.dtype)
+    x2 = matmul_any(att.view(B * T, D), lp.wo, residual=x2)
+    hq, hs = rmsnorm_quantize(x2, lp.rms_ffn)
+    gu = w8a8_matmul_prequant(hq, hs, lp.w1, out_dtype=x.dtype)
+    fq, fs = silu_mul_quantize(gu[:, :H], gu[:, H:])
+    x2 = w8a8_matmul_prequant(fq, fs, lp.w2, out_dtype=x.dtype, residual=x2)
+    return x2.view(B, T, D)
+
+
 def _forward_prefill_fresh(params: LlamaParams, cache: QuantKVCache, tokens, lengths,
                            config: ModelConfig, logits_mode: str):
-    """Prefill from position 0 (llama.py:1378, unfused body).  Attention runs
-    over each layer's compact fresh K/V (K6, start 0); the block is then
-    copied into rows [0, T) of ``cache`` in place."""
+    """Prefill from position 0 (llama.py:1378): each layer attends over its
+    fresh K/V (K6, start 0) and leaves it in rows [0, T) of ``cache``, in
+    place.  Fused layouts take the fused body (``_prefill_layer_fused``)
+    at every shape: the TPU gates of ``_prefill_w8a8_fast_ok``
+    (llama.py:1344-1375: B*T % 32, B*T <= 4096, no padding) and K5's
+    ``head_dim % 128`` (llama.py:1433) are Mosaic rules that the CUDA
+    kernels do not have.  Unfused layouts take ``_prefill_layer``."""
     if logits_mode not in ("all", "last"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
     if T > cache.seq_len:
         raise ValueError(f"{T} prompt rows do not fit a cache of {cache.seq_len}")
-    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     x = params.tok_emb[tokens.long()]  # [B, T, D]
     cos, sin = params.rope_cos[:T], params.rope_sin[:T]  # broadcast over B
     start0 = torch.zeros((B,), dtype=torch.int32, device=x.device)
     layers = params.layers
+    layer_step = _prefill_layer
+    if _fused_layouts(layers, config):
+        layer_step = _prefill_layer_fused
+        cos, sin = cos.repeat(B, 1), sin.repeat(B, 1)  # K5 takes one row per token
     for i in range(layers.rms_att.shape[0]):
-        lp = layers.layer(i)
-        h = rmsnorm(x, lp.rms_att)
-        q, k, v = _project_qkv(h, lp, config)
-        q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
-        k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
-        # quantize before the head-major transpose (the hd reduce reads
-        # contiguous rows), then move int8
-        kq, ks = quantize_kv(k)  # [B, T, KVH, hd] / [B, T, KVH]
-        vq, vs = quantize_kv(v.reshape(B, T, KVH, hd))
-        kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
-        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
-        att = flash_prefill_attention(q, kq, vq, start0, ks, vs, out_dtype=x.dtype)
-        cache.k[i, :, :, :T] = kq
-        cache.v[i, :, :, :T] = vq
-        cache.ks[i, :, :, :T] = ks
-        cache.vs[i, :, :, :T] = vs
-        x = x + matmul_any(att, lp.wo)
-        h = rmsnorm(x, lp.rms_ffn)
-        gate, up = _project_gate_up(h, lp, config)
-        x = x + matmul_any(F.silu(gate) * up, lp.w2)
+        x = layer_step(x, layers.layer(i), cache, i, cos, sin, start0, config)
     if logits_mode == "last":
         rows = (lengths.long() - 1).clamp(0, T - 1)
         x = x[torch.arange(B, device=x.device), rows]

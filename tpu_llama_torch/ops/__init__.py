@@ -18,4 +18,7 @@ from tpu_llama_torch.ops.quant import (  # noqa: F401
     dequantize_channel,
     quantize_activations,
     quantize_channel,
+    rmsnorm_quantize,
+    rope_split_quantize,
+    silu_mul_quantize,
 )

@@ -37,7 +37,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source name -> (C entry point, its argument types)
 SOURCES = {
     "quantize_rows": ("tl_quantize_rows", [_P, _I, _P, _P, _L, _L, _I, _P]),
-    "w8a8_matmul": ("tl_w8a8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "w8a8_matmul": ("tl_w8a8_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "rmsnorm_quantize": ("tl_rmsnorm_quantize", [_P, _I, _P, _I, _P, _P, _L, _L, _I, _P]),
+    "silu_mul_quantize": ("tl_silu_mul_quantize", [_P, _P, _I, _L, _P, _P, _L, _L, _I, _P]),
+    "rope_split_quantize": ("tl_rope_split_quantize",
+                            [_P, _I, *[_P] * 7, _L, _I, _I, _I, *[_L] * 7, _P]),
     "flash_prefill": ("tl_flash_prefill",
                       [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _P]),
@@ -54,7 +58,8 @@ SOURCES = {
 }
 
 # kernel id -> source; the ids follow ROADMAP.md queue 2
-KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K6": "flash_prefill",
+KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
+           "K4": "silu_mul_quantize", "K5": "rope_split_quantize", "K6": "flash_prefill",
            "K7": "kv_scatter", "K9": "flash_decode_dma", "K10": "kv_flush_rows",
            "K19": "flash_decode_fresh"}
 LAUNCHES = {k: 0 for k in KERNELS}

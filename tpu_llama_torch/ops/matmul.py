@@ -1,9 +1,9 @@
 """W8A8 matrix products: per-row INT8 activations x per-channel INT8 weights.
 
 Port of tpu_llama/ops/matmul.py:437-610 (``w8a8_matmul`` and
-``w8a8_matmul_prequant``; the residual epilogue, :388, waits for the
-fused-prefill slice).  No 32-row padding and no tile picking: the kernel
-masks its own ragged edges, and results exist only for real rows.
+``w8a8_matmul_prequant``, with the residual epilogue of
+``_w8a8_res_kernel``, :388).  No 32-row padding and no tile picking: the
+kernel masks its own ragged edges, and results exist only for real rows.
 """
 
 from __future__ import annotations
@@ -29,38 +29,53 @@ def _check(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor) -> None:
                          f"w.q {tuple(w.q.shape)}, w.s {tuple(w.s.shape)}")
 
 
-def w8a8_matmul_prequant_plain(xq, sx, w: ChannelQuantTensor, out_dtype=torch.float32):
+def w8a8_matmul_prequant_plain(xq, sx, w: ChannelQuantTensor, out_dtype=torch.float32,
+                               residual=None):
     """Plain version of K1.  The int32 accumulation is exact in float64
     (127^2 * IN < 2^53 for every IN this engine sees), then the epilogue of
-    matmul.py:383-385: ``(f32(acc) * sx[row]) * sw[col]``, one cast."""
+    matmul.py:383-385: ``(f32(acc) * sx[row]) * sw[col]``, one cast; with a
+    residual, ``residual + that`` in ``out_dtype`` (matmul.py:407-409)."""
     acc = (xq.double() @ w.q.double().T).float()
-    return (acc * sx[:, None] * w.s[None, :]).to(out_dtype)
+    out = (acc * sx[:, None] * w.s[None, :]).to(out_dtype)
+    return out if residual is None else residual.to(out_dtype) + out
 
 
 def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor,
-                         out_dtype=torch.float32) -> torch.Tensor:
+                         out_dtype=torch.float32, residual=None) -> torch.Tensor:
     """xq int8 [M, IN] (quantized rows), sx f32 [M], w [OUT, IN] -> [M, OUT]
-    in ``out_dtype``.  K1 on CUDA tensors, the plain version on CPU ones."""
+    in ``out_dtype``.  ``residual`` [M, OUT] (any float dtype) gives
+    ``residual + xq @ W``: the matmul term is rounded to ``out_dtype``
+    first, then added in that dtype, as the unfused ``x + mm``.  K1 on CUDA
+    tensors, the plain version on CPU ones."""
     _check(xq, sx, w)
-    if _kernels.on_cpu("K1", xq, sx, w.q, w.s):
-        return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype)
+    if residual is not None and residual.shape != (xq.shape[0], w.out_features):
+        raise ValueError(f"want residual [{xq.shape[0]}, {w.out_features}], got "
+                         f"{tuple(residual.shape)}")
+    tensors = (xq, sx, w.q, w.s) + (() if residual is None else (residual,))
+    if _kernels.on_cpu("K1", *tensors):
+        return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype, residual)
     code = _kernels.dtype_code(out_dtype)
     xq, sx = xq.contiguous(), sx.contiguous()
     wq, ws = w.q.contiguous(), w.s.contiguous()
+    res = None if residual is None else residual.to(out_dtype).contiguous()
     m, k = xq.shape
     n = wq.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
         vec = k % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
         _kernels.launch("K1", xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                        out.data_ptr(), code, m, n, k, int(vec), _kernels.stream(xq))
+                        None if res is None else res.data_ptr(), out.data_ptr(), code, m, n,
+                        k, int(vec), _kernels.stream(xq))
     return out
 
 
-def w8a8_matmul(x: torch.Tensor, w: ChannelQuantTensor, out_dtype=torch.float32):
+def w8a8_matmul(x: torch.Tensor, w: ChannelQuantTensor, out_dtype=torch.float32,
+                residual=None):
     """``x @ dequant(w)`` with x quantized per row (K2) and the contraction in
-    int8 (K1).  x [..., IN] -> [..., OUT]."""
+    int8 (K1).  x [..., IN] -> [..., OUT]; ``residual`` [..., OUT] is added
+    in K1's epilogue (see :func:`w8a8_matmul_prequant`)."""
     lead = x.shape[:-1]
     xq, sx = quantize_activations(x.reshape(-1, x.shape[-1]))
-    out = w8a8_matmul_prequant(xq, sx, w, out_dtype=out_dtype)
+    res = None if residual is None else residual.reshape(-1, w.out_features)
+    out = w8a8_matmul_prequant(xq, sx, w, out_dtype=out_dtype, residual=res)
     return out.reshape(*lead, w.out_features)

@@ -1,6 +1,7 @@
-"""Per-channel INT8 weights and per-row INT8 activations (W8A8).
+"""Per-channel INT8 weights and per-row INT8 activations (W8A8), and the
+fused prefill passes that end in a row quant (K3-K5).
 
-Port of tpu_llama/ops/quant.py:137-321.  Every quantizer here uses the
+Port of tpu_llama/ops/quant.py:137-541.  Every quantizer here uses the
 formula of the JAX package (quant.py:255-263): ``s = absmax / 127``, then
 ``inv = 1 / s`` (0 where s == 0), then ``q = clip(round(x * inv), -127,
 127)`` -- a multiply by the reciprocal, not a division -- with round half
@@ -51,7 +52,12 @@ class ChannelQuantTensor:
         return ChannelQuantTensor(q=self.q[i], s=self.s[i])
 
 
-_RECIP_127 = float(torch.tensor(1.0) / torch.tensor(127.0))  # f32(1/127)
+def _recip_f32(n: float) -> float:
+    """f32(1 / n), correctly rounded, as XLA folds a divide by a constant."""
+    return float(torch.tensor(1.0) / torch.tensor(float(n)))
+
+
+_RECIP_127 = _recip_f32(127)
 
 
 def _absmax_quant(xf: torch.Tensor, dim: int, jitted: bool = True):
@@ -79,6 +85,11 @@ def dequantize_channel(t: ChannelQuantTensor, dtype=torch.float32) -> torch.Tens
     return (t.q.float() * t.s.unsqueeze(-1)).transpose(-1, -2).to(dtype)
 
 
+def _vec16(n_elems: int, t: torch.Tensor) -> bool:
+    """Rows of n_elems elements of t load as 16-byte vectors."""
+    return (n_elems * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
+
+
 def quantize_activations_plain(x: torch.Tensor):
     """Per-token (last-axis) dynamic symmetric INT8 (quant.py:255): returns
     (q int8 [..., IN], s f32 [...]) with x ~= q * s[..., None]."""
@@ -98,9 +109,199 @@ def quantize_activations(x: torch.Tensor):
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
     s = torch.empty((m,), dtype=torch.float32, device=x.device)
     if m and n:
-        vec = (n * x2.element_size()) % 16 == 0 and x2.data_ptr() % 16 == 0
         _kernels.launch("K2", x2.data_ptr(), code, q.data_ptr(), s.data_ptr(), m, n,
-                        int(vec), _kernels.stream(x2))
+                        int(_vec16(n, x2)), _kernels.stream(x2))
     elif m:
         s.zero_()
     return q.reshape(*lead, n), s.reshape(lead)
+
+
+# ---------------------------------------------------------------------------
+# The fused prefill passes (K3, K4, K5).  Each quantizes f32 values that are
+# never rounded to the activation dtype, as the TPU kernels define them
+# (quant.py:324-329, :387, :443-447), so they differ from the unfused chain
+# (rmsnorm, silu * up, apply_rope, each cast back) by design.  Each plain
+# version does the CUDA kernel's arithmetic step for step: products and sums
+# rounded one at a time (the kernels use round-to-nearest intrinsics, so no
+# FMA contraction), the rmsnorm sum of squares in f64.
+# ---------------------------------------------------------------------------
+
+
+def _check_float(name: str, *tensors: torch.Tensor) -> None:
+    """float32 or bfloat16, one dtype for all of ``tensors``."""
+    for t in tensors:
+        _kernels.dtype_code(t.dtype)  # else TypeError
+    if len({t.dtype for t in tensors}) > 1:
+        raise TypeError(f"{name}: inputs must share one dtype, got "
+                        f"{sorted(str(t.dtype) for t in tensors)}")
+
+
+def rmsnorm_quantize_plain(x: torch.Tensor, w: torch.Tensor):
+    """Plain version of K3: ``ms = f32(sum x^2) * f32(1/IN)`` (the sum in
+    f64), ``xf = (x * (1 / sqrt(1e-5 + ms))) * w`` in f32, then the row
+    quant: (q int8 [M, IN], s f32 [M])."""
+    x32 = x.float()
+    ss = (x32.double() * x32.double()).sum(dim=-1, keepdim=True).float()
+    r = torch.sqrt(1e-5 + ss * _recip_f32(x.shape[-1])).reciprocal()
+    return _absmax_quant((x32 * r) * w.float(), dim=-1)
+
+
+def rmsnorm_quantize(x: torch.Tensor, w: torch.Tensor):
+    """Fused rmsnorm + per-row INT8 (quant.py:340): x [M, IN] (f32 or bf16),
+    w [IN] (f32 or bf16) -> (q int8 [M, IN], s f32 [M]).  K3 on CUDA
+    tensors, the plain version on CPU ones."""
+    if x.dim() != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"want x [M, IN] and w [IN], got {tuple(x.shape)}, {tuple(w.shape)}")
+    _check_float("rmsnorm_quantize", x)  # w's float dtype may differ
+    _check_float("rmsnorm_quantize", w)
+    if _kernels.on_cpu("K3", x, w):
+        return rmsnorm_quantize_plain(x, w)
+    xc, wc = x.contiguous(), w.contiguous()
+    m, n = xc.shape
+    q = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    s = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m and n:
+        _kernels.launch("K3", xc.data_ptr(), _kernels.dtype_code(xc.dtype), wc.data_ptr(),
+                        _kernels.dtype_code(wc.dtype), q.data_ptr(), s.data_ptr(), m, n,
+                        int(_vec16(n, xc)), _kernels.stream(xc))
+    elif m:
+        s.zero_()
+    return q, s
+
+
+def silu_mul_quantize_plain(gate: torch.Tensor, up: torch.Tensor):
+    """Plain version of K4: ``(g * sigmoid(g)) * u`` in f32 (``jax.nn.silu``
+    is x * sigmoid(x)), then the row quant: (q int8 [M, H], s f32 [M])."""
+    g = gate.float()
+    return _absmax_quant((g * torch.sigmoid(g)) * up.float(), dim=-1)
+
+
+def silu_mul_quantize(gate: torch.Tensor, up: torch.Tensor):
+    """Fused SwiGLU gate + per-row INT8 (quant.py:396): gate, up [M, H] ->
+    (q int8 [M, H], s f32 [M]).  gate and up may be the two column halves
+    of one [M, 2H] tensor: they must share a row stride and have unit
+    column strides, and are read where they lie (no copy).  K4 on CUDA
+    tensors, the plain version on CPU ones."""
+    if gate.dim() != 2 or up.shape != gate.shape:
+        raise ValueError(f"want gate and up [M, H], got {tuple(gate.shape)}, "
+                         f"{tuple(up.shape)}")
+    _check_float("silu_mul_quantize", gate, up)
+    m, h = gate.shape
+    if m and h and (gate.stride(1) != 1 or up.stride(1) != 1
+                    or (m > 1 and gate.stride(0) != up.stride(0))):
+        raise ValueError(f"gate and up need unit column strides and one row stride, got "
+                         f"{gate.stride()}, {up.stride()}")
+    if _kernels.on_cpu("K4", gate, up):
+        return silu_mul_quantize_plain(gate, up)
+    ld = gate.stride(0) if m > 1 else h
+    q = torch.empty((m, h), dtype=torch.int8, device=gate.device)
+    s = torch.empty((m,), dtype=torch.float32, device=gate.device)
+    if m and h:
+        vec = _vec16(h, gate) and _vec16(ld, gate) and _vec16(h, up)
+        _kernels.launch("K4", gate.data_ptr(), up.data_ptr(), _kernels.dtype_code(gate.dtype),
+                        ld, q.data_ptr(), s.data_ptr(), m, h, int(vec), _kernels.stream(gate))
+    elif m:
+        s.zero_()
+    return q, s
+
+
+def rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved (even, odd) pairs of every head in f32
+    (llama.py:540 before its cast): x [..., n_heads, hd], cos/sin f32
+    broadcastable to [..., hd/2].  ``r0 = x0 cos - x1 sin``,
+    ``r1 = x0 sin + x1 cos``, each product and sum rounded."""
+    shape = x.shape
+    xp = x.reshape(*shape[:-1], shape[-1] // 2, 2)
+    x0, x1 = xp[..., 0], xp[..., 1]
+    cos, sin = cos.unsqueeze(-2), sin.unsqueeze(-2)  # broadcast over heads
+    r0 = x0 * cos - x1 * sin  # promotes to f32 (the tables are f32)
+    r1 = x0 * sin + x1 * cos
+    return torch.stack([r0, r1], dim=-1).reshape(shape)
+
+
+def _check_rope_split(qkv, cos, sin, D, KVH, hd, out):
+    if hd <= 0 or hd % 2 or D % hd:
+        raise ValueError(f"want an even head_dim dividing D, got hd={hd}, D={D}")
+    if qkv.dim() != 2 or qkv.shape[1] != D + 2 * KVH * hd:
+        raise ValueError(f"want qkv [M, {D + 2 * KVH * hd}], got {tuple(qkv.shape)}")
+    _check_float("rope_split_quantize", qkv)
+    M = qkv.shape[0]
+    if cos.shape != (M, hd // 2) or sin.shape != cos.shape:
+        raise ValueError(f"want cos and sin [{M}, {hd // 2}], got {tuple(cos.shape)}, "
+                         f"{tuple(sin.shape)}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError("the rope tables must be float32")
+    if out is None:
+        return
+    kq, ks, vq, vs = out
+    if kq.dim() != 4 or kq.shape[2:] != (KVH, hd) or kq.shape[0] * kq.shape[1] != M:
+        raise ValueError(f"want out K/V [B, T, {KVH}, {hd}] with B * T = {M}, got "
+                         f"{tuple(kq.shape)}")
+    if vq.shape != kq.shape or ks.shape != kq.shape[:3] or vs.shape != ks.shape:
+        raise ValueError("out: K/V and their scales disagree in shape")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8 or ks.dtype != torch.float32 \
+            or vs.dtype != torch.float32:
+        raise TypeError("out: int8 K/V and float32 scales")
+    if kq.stride() != vq.stride() or ks.stride() != vs.stride() or kq.stride(3) != 1:
+        raise ValueError("out: K and V (and their scales) need one layout, hd contiguous")
+
+
+def rope_split_quantize_plain(qkv, cos, sin, D: int, KVH: int, hd: int, out=None):
+    """Plain version of K5 (its arguments and results are
+    :func:`rope_split_quantize`'s)."""
+    M, KVD = qkv.shape[0], KVH * hd
+    x = qkv.float()
+    q = rope_f32(x[:, :D].reshape(M, D // hd, hd), cos, sin).reshape(M, D).to(qkv.dtype)
+    kq, ks = _absmax_quant(rope_f32(x[:, D:D + KVD].reshape(M, KVH, hd), cos, sin), dim=-1)
+    vq, vs = _absmax_quant(x[:, D + KVD:].reshape(M, KVH, hd), dim=-1)
+    if out is None:
+        return q, kq.reshape(M, KVD), ks, vq.reshape(M, KVD), vs
+    for dst, src in zip(out, (kq, ks, vq, vs)):
+        dst.copy_(src.reshape(dst.shape))
+    return (q, *out)
+
+
+def rope_split_quantize(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, D: int,
+                        KVH: int, hd: int, out=None):
+    """Fused qkv epilogue of the prefill (quant.py:476): qkv [M, D + 2 KVD]
+    (f32 or bf16), cos/sin f32 [M, hd/2] (each row's position, gathered) ->
+    (q roped [M, D] in qkv's dtype, kq int8 [M, KVD], ks f32 [M, KVH],
+    vq int8 [M, KVD], vs f32 [M, KVH]): RoPE in f32 on q and k, then k and
+    v quantized per (row, head) from the unrounded f32 values.
+
+    ``out=(kq, ks, vq, vs)`` writes K/V into given tensors instead, in
+    place: views [B, T, KVH, hd] and [B, T, KVH] with B * T = M (row
+    m = b T + t), any strides with hd contiguous -- e.g. the layer's block
+    of a head-major cache ``cache.k[l, :, :, :T].transpose(1, 2)``, which spares the
+    transposes and copies; these views are returned in their places.  K5 on
+    CUDA tensors, the plain version on CPU ones."""
+    _check_rope_split(qkv, cos, sin, D, KVH, hd, out)
+    tensors = (qkv, cos, sin) + (tuple(out) if out is not None else ())
+    if _kernels.on_cpu("K5", *tensors):
+        return rope_split_quantize_plain(qkv, cos, sin, D, KVH, hd, out)
+    if hd > 128:
+        raise NotImplementedError(f"K5 takes head_dim <= 128, got {hd}")
+    M, KVD = qkv.shape[0], KVH * hd
+    x = qkv.contiguous()
+    if x.data_ptr() % (2 * x.element_size()):
+        raise ValueError("K5 reads qkv in aligned element pairs")
+    cs, sn = cos.contiguous(), sin.contiguous()
+    dev = qkv.device
+    q = torch.empty((M, D), dtype=qkv.dtype, device=dev)
+    if out is None:
+        kq = torch.empty((M, KVD), dtype=torch.int8, device=dev)
+        vq = torch.empty((M, KVD), dtype=torch.int8, device=dev)
+        ks = torch.empty((M, KVH), dtype=torch.float32, device=dev)
+        vs = torch.empty((M, KVH), dtype=torch.float32, device=dev)
+        res = (q, kq, ks, vq, vs)
+        T, kst, sst = M, (0, KVD, hd), (0, KVH, 1)  # (b, t, h) strides of the JAX layout
+    else:
+        kq, ks, vq, vs = out
+        res = (q, *out)
+        T, kst, sst = kq.shape[1], kq.stride()[:3], ks.stride()
+    if M:
+        _kernels.launch("K5", x.data_ptr(), _kernels.dtype_code(x.dtype), cs.data_ptr(),
+                        sn.data_ptr(), q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+                        vq.data_ptr(), vs.data_ptr(), M, D // hd, KVH, hd, T, *kst, *sst,
+                        _kernels.stream(x))
+    return res

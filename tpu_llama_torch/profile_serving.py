@@ -4,14 +4,17 @@ Run from the repo root on a machine with a CUDA card:
 
     python3 -m tpu_llama_torch.profile_serving
 
-Builds random W8A8 weights at Llama-2 7B width, an ``Engine(max_batch=8,
-INT8 dense KV, seq_len=2048)``, warms it up, then traces with
-``torch.profiler`` (a) one admission of 8 prompts of 512 tokens and (b)
-8 decode steps of all 8 slots at position 512 with each decode attention
-(``"flash_dma"`` K9, ``"flash"`` K19, ``"xla"``; the first line names what
-``"auto"`` resolves to), then (c) 8 decode steps of a one-slot engine at
-position 512 with K19 and with K9 -- the A/B behind ``"auto"``.  All go
-through the engine calls the scheduler makes.  Each phase runs warm, then
+Builds random W8A8 weights at Llama-2 7B width in the fused wqkv / w13
+layouts (``random_quant_params(fuse=True)``, the served path) and an
+``Engine(max_batch=8, INT8 dense KV, seq_len=2048)``, warms it up, then
+traces with ``torch.profiler`` (a) one admission of 8 prompts of 512 tokens
+(the fused prefill body: K3, K4, K5 and the residual K1) and the same
+admission on unfused weights of the same shapes, (b) 8 decode steps of all 8
+slots at position 512 with each decode attention (``"flash_dma"`` K9,
+``"flash"`` K19, ``"xla"``; the first line names what ``"auto"`` resolves
+to) and with K9 on the unfused weights, then (c) 8 decode steps of a
+one-slot engine at position 512 with K19 and with K9 -- the A/B behind
+``"auto"``.  All go through the engine calls the scheduler makes.  Each phase runs warm, then
 once timed and once traced.  Prints one JSON line per phase: host wall
 time of the untraced and the traced run (closed by
 ``torch.cuda.synchronize``), device busy time (the union of kernel
@@ -31,9 +34,10 @@ import torch
 
 DECODE_STEPS = 8
 PORT_KERNELS = {"w8a8_kernel": "K1", "quantize_rows_kernel": "K2",
-                "flash_prefill_kernel": "K6", "kv_scatter_kernel": "K7",
-                "flash_decode_dma_kernel": "K9", "kv_flush_rows_kernel": "K10",
-                "flash_decode_fresh_kernel": "K19"}
+                "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
+                "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
+                "kv_scatter_kernel": "K7", "flash_decode_dma_kernel": "K9",
+                "kv_flush_rows_kernel": "K10", "flash_decode_fresh_kernel": "K19"}
 
 
 def _kernel_events(prof):
@@ -88,15 +92,15 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = LLAMA2_7B
-    params = random_quant_params(cfg, seed=0)
+    params = random_quant_params(cfg, seed=0, fuse=True)
     engine = Engine(params, cfg, max_batch=8, seq_len=2048)
     rng = np.random.default_rng(0)
     prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
                for _ in range(8)]
     toks = rng.integers(3, cfg.vocab_size, 8)
 
-    def prefill():
-        engine.prefill(prompts, list(range(8)))
+    def prefiller(eng):
+        return lambda: eng.prefill(prompts, list(range(8)))
 
     def decoder(eng):
         b = eng.max_batch
@@ -122,7 +126,13 @@ def main() -> None:
         print(json.dumps(dict(summarize(phase, prof, wall, traced, smi), **extra,
                               launches=launches)), flush=True)
 
-    run("prefill_8x512", prefill)
+    run("prefill_8x512", prefiller(engine), layouts="fused")
+    unfused = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, seq_len=2048)
+    run("prefill_8x512_unfused", prefiller(unfused), layouts="unfused")
+    run(f"decode_b8_x{DECODE_STEPS}_flash_dma_unfused", decoder(unfused), attn="flash_dma",
+        layouts="unfused")
+    del unfused
+    torch.cuda.empty_cache()
     one = Engine(params, cfg, max_batch=1, seq_len=2048)
     one.prefill([prompts[0]], [0])
     for eng, attns in ((engine, ("flash_dma", "flash", "xla")), (one, ("flash", "flash_dma"))):

@@ -42,7 +42,7 @@ class Request:
     topp: float = 1.0
     seed: int = 1
     on_token: Callable[[int], None] | None = None
-    # True -> sample on the device: not ported yet (ROADMAP, next slice 4)
+    # True -> sample on the device: not ported yet (ROADMAP, next slice 2)
     device_sampling: bool = False
     # Extra stop token ids beyond the reference's BOS rule, e.g. (2,).  The
     # stop token itself is not emitted.
@@ -111,7 +111,7 @@ class ContinuousBatcher:
         if policy not in ("fifo", "priority"):
             raise ValueError(f"unknown scheduling policy {policy!r}")
         if prefix_cache_size > 0:
-            raise NotImplementedError("prefix reuse: ROADMAP, next slice 4")
+            raise NotImplementedError("prefix reuse: ROADMAP, next slice 2")
         # "fifo": arrival order.  "priority": lower Request.priority admits
         # first, with aging (effective priority drops by 1 per ``aging_s``
         # seconds waited) so low-priority work cannot starve.
@@ -130,7 +130,7 @@ class ContinuousBatcher:
     # ---- public API ----
     def submit(self, req: Request) -> int:
         if req.device_sampling:
-            raise NotImplementedError("device sampling: ROADMAP, next slice 4")
+            raise NotImplementedError("device sampling: ROADMAP, next slice 2")
         req.id = next(self._ids)
         req.submit_time = time.time()
         self.queue.append(req)
