@@ -11,32 +11,37 @@ Phases (any failure exits non-zero and prints no result line):
 3. each kernel (K1 W8A8 GEMM, also with its residual epilogue, K2 row
    quant, K3 rmsnorm+quant, K4 silu*up+quant, K5 rope+split+KV quant, K6
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
-   attention, K10 row flush) at the Llama-2 7B shapes of the serving path,
-   against its plain PyTorch version on the same inputs: K1, K2, K7 and K10
-   exact, K3, K4 and K5 within QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and
-   K19 within K6_TOL; kernel, plain-version and PyTorch-library times (CUDA
-   events) beside the bound (the larger of bytes / 3.35 TB/s and operations
-   / the card's peak for their type);
+   attention, K10 row flush; K8 stacked-weight product, K11 fused decode
+   layer, K12 mega2 layer with the next layer's attention) at the Llama-2
+   7B shapes of the serving path, against its plain PyTorch version on the
+   same inputs: K1, K2, K7, K8, K10 and K11 exact, K3, K4 and K5 within
+   QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and K19 within K6_TOL, K12's
+   residual exact and its int8 outputs, scales and attention output within
+   those limits; kernel, plain-version and PyTorch-library times (CUDA
+   events) beside the bound (the larger of bytes / 3.35 TB/s and
+   operations / the card's peak for their type);
 4. the serving path at full 7B width and depth with random W8A8 weights in
    the fused wqkv / w13 layouts (``random_quant_params(fuse=True)``, as
    bench.py serves): ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)``
-   (decode attention "auto": K9 on the card at batch 8) +
-   ``ContinuousBatcher`` serving 10 requests (prompts in the 16..512
-   buckets, greedy and seeded temperature sampling); every request must
-   finish with in-vocab tokens, every kernel of the path must launch as
-   often as the path requires (per admission group and layer: K3 twice,
-   K4, K5 and K6 once; the decode attention once per layer and step, K10
-   once per step), no other kernel and no plain version may run;
+   (decode attention "auto": K9 on the card; fused decode "auto": mega2,
+   one K12 launch per layer) + ``ContinuousBatcher`` serving 10 requests
+   (prompts in the 16..512 buckets, greedy and seeded temperature
+   sampling); every request must finish with in-vocab tokens, and every
+   kernel must launch exactly as often as the path requires (per admission
+   group and layer: K3 twice, K4, K5 and K6 once; per decode step what
+   ``decode_launches`` lists for the resolved mode), no plain version may
+   run;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
-   decode attention, on unfused weights once each "xla" (plain PyTorch on
-   both sides), "flash" (K19) and "flash_dma" (K9), and on fused weights
-   with "flash_dma" (the fused prefill, K3-K5): f32 activations (tokens
-   equal at all 8 steps, logits within LOGITS_TOL) and bf16 activations
-   (prefill logits within LOGITS_TOL);
+   decode attention and fused decode, on unfused weights once each "xla"
+   (plain PyTorch on both sides), "flash" (K19) and "flash_dma" (K9), and
+   on fused weights with "flash_dma" (the fused prefill, K3-K5) and each of
+   the unfused, the two-launch (K8, K11 + K9) and the mega2 (K8, K9, K12)
+   decode: f32 activations (tokens equal at all 8 steps, logits within
+   LOGITS_TOL) and bf16 activations (prefill logits within LOGITS_TOL);
 6. a JSON line of the kernels (launches counted on the path that runs
-   each: phase 4, and phase 5's f32 run for a decode attention that phase 4
-   does not run), then the result line.
+   each: phase 4, and phase 5's f32 run for a kernel that phase 4 does not
+   run: K19, K11), then the result line.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
 repo (``tpu_llama_torch`` must be importable from beside this file).
@@ -70,11 +75,13 @@ K6_TOL = 2.0 ** -7 + 1e-5  # of max |ref|: one bf16 rounding step + f32 noise
 # future key reads 0.21 in both, and its f32 tokens differ from step 0.
 PARITY_STEPS = 8
 LOGITS_TOL = 5e-2
-# K3, K4 and K5 against their plain versions: the same f32 steps with
-# round-to-nearest intrinsics, so equal unless K3's f64 sum of squares lies
-# on an f32 rounding boundary or CUDA's expf and PyTorch's sigmoid part: at
-# most one int8 step on at most QUANT_FLIPS of the entries, scales within
-# QUANT_SCALE_RTOL (two f32 ulps).
+# K3, K4, K5 and K12's fresh K/V rows against their plain versions: the
+# same f32 steps with round-to-nearest intrinsics, so equal unless K3's f64
+# sum of squares lies on an f32 rounding boundary or CUDA's expf and
+# PyTorch's sigmoid part: at most one int8 step on at most QUANT_FLIPS of
+# the entries, scales within QUANT_SCALE_RTOL (two f32 ulps).  K12's
+# attention output sums in another order (K9's), so its int8 is held to
+# QUANT_FLIPS and its scales and dequantized values to K6_TOL.
 QUANT_FLIPS = 1e-4
 QUANT_SCALE_RTOL = 2.0 ** -22
 
@@ -89,11 +96,28 @@ SRC = {
     "K9": ("tpu_llama_torch/csrc/flash_decode_dma.cu", "tpu_llama/ops/attention.py:335"),
     "K10": ("tpu_llama_torch/csrc/kv_flush_rows.cu", "tpu_llama/ops/attention.py:2470"),
     "K19": ("tpu_llama_torch/csrc/flash_decode_fresh.cu", "tpu_llama/ops/attention.py:807"),
+    "K8": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/fused_layer.py:541"),
+    "K11": ("tpu_llama_torch/csrc/fused_layer.cu", "tpu_llama/ops/fused_layer.py:204"),
+    "K12": ("tpu_llama_torch/csrc/fused_step2.cu", "tpu_llama/ops/fused_step2.py:537"),
 }
 DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
 FUSED_PREFILL_PATH = PREFILL_PATH | {"K3", "K4", "K5"}  # ... on fused layouts
 DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]  # one per slot at batch 8
+
+
+def decode_launches(fused, attn: str, L: int) -> dict:
+    """Kernel launches per decode step of ``forward_decode`` in each
+    resolved mode: the unfused stack (K2 + K1 per matmul, 4 per layer on
+    fused layouts), the two-launch stack (prologue K3 + K8, per layer the
+    attention, K2 and K11) and mega2 (prologue K3, K8, K9, K2, then one
+    K12 per layer); each with one K10 flush and the classifier's K2 + K1."""
+    att = DECODE_KERNEL[attn]
+    if fused == "mega2":
+        return {"K3": 1, "K8": 1, "K9": 1, "K2": 2, "K12": L, "K10": 1, "K1": 1}
+    if fused:
+        return {"K3": 1, "K8": 1, att: L, "K2": L + 1, "K11": L, "K10": 1, "K1": 1}
+    return {att: L, "K2": 4 * L + 1, "K1": 4 * L + 1, "K10": 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -575,6 +599,147 @@ def check_k10(torch, tatt, results):
     torch.cuda.empty_cache()
 
 
+def _layer_weights(torch, tq, gen, L, D, H, QO):
+    """Random stacked W8A8 weights of a fused 7B layer stack: wo, w13, w2,
+    wqkv (K-major) and bf16 rms rows."""
+    def qt(n_in, n_out):
+        return tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (L, n_out, n_in), generator=gen, device="cuda",
+                            dtype=torch.int8),
+            s=torch.rand(L, n_out, generator=gen, device="cuda") * 2e-4 + 1e-4)
+
+    rms = [(1 + 0.1 * torch.randn(L, D, generator=gen, device="cuda")).to(torch.bfloat16)
+           for _ in range(2)]
+    return (qt(D, D), qt(D, 2 * H), qt(H, D), qt(D, QO)), rms
+
+
+def check_fused(torch, tq, tfl, tfs, results):
+    """K8, K11 and K12 at 7B width against their plain versions on a
+    32-layer stack: K8 on layer 0's wqkv at batch 8; K11 at batch 8 on
+    layers 17 and 31 (the last: no phase D); K12 on layer 17 at batch 8
+    (one slot at each of DECODE_POS) and at batch 1 (pos 511, 2047), and on
+    the last layer.  K8 and K11 bit-equal, K12's x_next bit-equal, its
+    fresh K/V rows within QUANT_FLIPS and their scales within
+    QUANT_SCALE_RTOL (the plain version's steps); its attention output, whose
+    f32 sums run in another order (K9's), within QUANT_FLIPS as int8, its
+    scales and dequantized values within K6_TOL.  Timed calls rotate through
+    the layers, so the weights come cold from device memory."""
+    from tpu_llama_torch.config import LLAMA2_7B
+
+    cfg = LLAMA2_7B
+    L, D, H, KVH, hd, S = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.n_kv_heads, \
+        cfg.head_dim, cfg.seq_len
+    QO = D + 2 * KVH * hd
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    (wo, w13, w2, wqkv), (rf, ra) = _layer_weights(torch, tq, gen, L, D, H, QO)
+    wbytes = {n: w.q[0].numel() + 4 * w.s[0].numel()
+              for n, w in (("wo", wo), ("w13", w13), ("w2", w2), ("wqkv", wqkv))}
+    int8_ops = 2 * (D * D + D * 2 * H + H * D + D * QO)  # per row, all four products
+
+    def rows(B):
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        attq = torch.randint(-127, 128, (B, D), generator=gen, device="cuda", dtype=torch.int8)
+        return x, attq, torch.rand(B, generator=gen, device="cuda") * 0.02 + 0.005
+
+    # K8: layer 0's qkv product at batch 8
+    xq = torch.randint(-127, 128, (8, D), generator=gen, device="cuda", dtype=torch.int8)
+    sx = torch.rand(8, generator=gen, device="cuda") * 0.05
+    got = tfl.w8a8_matmul_stacked(xq, sx, wqkv, 0)
+    torch.cuda.synchronize()
+    want = tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, 0)
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want), f"K8 M=8 {D}x{QO}: max err {err}")
+    ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked(xq, sx, wqkv, i % L), 50)
+    plain_ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, i % L), 5)
+    b_ms, by = bound_ms(8 * D + 32 + wbytes["wqkv"] + 4 * 8 * QO, 8 * 2 * D * QO, "int8")
+    results.append(dict(kernel="K8", name=f"K8 w8a8_matmul_stacked M=8 {D}x{QO} layer 0",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                        library_ms=None))
+
+    # K11 at batch 8, layer 17 and the last layer
+    x, attq, satt = rows(8)
+    for layer in (17, L - 1):
+        last = layer == L - 1
+        args = (x, attq, satt, wo, w13, w2, wqkv, rf, ra)
+        got = tfl.fused_layer_linear(*args, layer, L)
+        torch.cuda.synchronize()
+        want = tfl.fused_layer_linear_plain(*args, layer, L)
+        pairs = [(got[0], want[0])] + ([] if last else [(got[1], want[1])])
+        err = max((a - b).abs().max().item() for a, b in pairs)
+        label = f"K11 fused_layer_linear B=8 layer {layer}" + (" (last)" if last else "")
+        check(all(torch.equal(a, b) for a, b in pairs), f"{label}: max err {err}")
+        layers = [layer] if last else [(layer + i) % (L - 1) for i in range(8)]
+        ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear(*args, layers[i % len(layers)], L),
+                     20)
+        plain_ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear_plain(
+            *args, layers[i % len(layers)], L), 3, warmup=1)
+        nbytes = (8 * D * (4 + 1 + 4) + 32 + wbytes["wo"] + wbytes["w13"] + wbytes["w2"]
+                  + 2 * D * 2 + (0 if last else wbytes["wqkv"] + 2 * D + 4 * 8 * QO))
+        b_ms, by = bound_ms(nbytes, 8 * (int8_ops - (2 * D * QO if last else 0)), "int8")
+        results.append(dict(kernel="K11", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=None))
+
+    # K12: layer 17 at batch 8 and 1, then the last layer at batch 8
+    for B, pos, layer in ((8, DECODE_POS, 17), (1, [511], 17), (1, [2047], 17),
+                          (8, DECODE_POS, L - 1)):
+        last = layer == L - 1
+        cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(L, B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+                  for _ in range(2)]
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        ang = torch.rand(B, hd // 2, generator=gen, device="cuda") * 6.3
+        x, attq, satt = rows(B)
+        args = (x, attq, satt, cache[0], cache[1], scales[0], scales[1], pt, ang.cos(),
+                ang.sin(), wo, w13, w2, wqkv, rf, ra)
+        got = tfs.fused_step2_layer(*args, layer, L, cfg.n_heads)
+        torch.cuda.synchronize()
+        want = tfs.fused_step2_layer_plain(*args, layer, L, cfg.n_heads)
+        label = (f"K12 fused_step2_layer B={B} pos={pos[0] if B == 1 else 'mix'} layer {layer}"
+                 + (" (last)" if last else ""))
+        err = (got[0] - want[0]).abs().max().item()
+        check(torch.equal(got[0], want[0]), f"{label}: x_next max err {err}")
+        extra = {}
+        if not last:
+            # the fresh K/V rows: the same steps as the plain version
+            reading = _quant_reading(torch, label, [((got[3], got[4]), (want[3], want[4])),
+                                                    ((got[5], got[6]), (want[5], want[6]))])
+            # the attention output: K9's sums in another order, so its row
+            # scales (absmax / 127) are held to K6_TOL as its values are
+            d = (got[1].int() - want[1].int()).abs()
+            att_flips = (d != 0).float().mean().item()
+            satt_rel = ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max().item()
+            att, att_p = (o[1].float() * o[2][:, None] for o in (got, want))
+            att_err = (att - att_p).abs().max().item()
+            peak = att_p.abs().max().item()
+            check(d.max().item() <= 1 and att_flips <= QUANT_FLIPS and satt_rel <= K6_TOL
+                  and att_err <= K6_TOL * peak,
+                  f"{label}: attention output: int8 up to {d.max().item()} steps on "
+                  f"{att_flips} of entries, scales {satt_rel} apart, dequantized err "
+                  f"{att_err} (limits {QUANT_FLIPS}, K6_TOL {K6_TOL} * {peak})")
+            err = max(err, att_err)
+            extra = dict(int8_flip_share=reading[1], scale_max_rel_err=reading[2],
+                         att_int8_flip_share=att_flips, att_scale_max_rel_err=satt_rel)
+        layers = [layer] if last else [(layer + i) % (L - 1) for i in range(8)]
+        ms = cuda_ms(torch, lambda i: tfs.fused_step2_layer(
+            *args, layers[i % len(layers)], L, cfg.n_heads), 20)
+        plain_ms = cuda_ms(torch, lambda i: tfs.fused_step2_layer_plain(
+            *args, layers[i % len(layers)], L, cfg.n_heads), 3, warmup=1)
+        rows_read = 0 if last else KVH * sum(pos)
+        nbytes = (B * D * (4 + 1 + 4) + 4 * B + wbytes["wo"] + wbytes["w13"] + wbytes["w2"]
+                  + 2 * D * 2 + (0 if last else wbytes["wqkv"] + 2 * D + rows_read * (2 * hd + 8)
+                                 + 4 * B + 4 * B * hd + B * D + 4 * B
+                                 + B * KVH * (2 * hd + 8)))
+        ops = B * (int8_ops - (2 * D * QO if last else 0))
+        b_ms, by = bound_ms(nbytes, ops, "int8")
+        results.append(dict(kernel="K12", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=None, **extra))
+        del cache, scales, args, got, want
+        torch.cuda.empty_cache()
+    del wo, w13, w2, wqkv
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path
 # ---------------------------------------------------------------------------
@@ -623,27 +788,26 @@ def serve_7b(torch, smi_line):
     toks = [t for r in reqs for t in r.out_tokens]
     check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
           "served tokens missing or out of vocabulary")
-    attn = engine.decode_attn
+    attn, fused = engine.decode_attn, engine.decode_fused
     steps = batcher.timers["decode_steps"]
     L = cfg.n_layers
     groups = launches["K7"]  # one K7 scatter per admission group
-    path = FUSED_PREFILL_PATH | {"K10", DECODE_KERNEL[attn]}
-    check({k for k, n in launches.items() if n > 0} == path,
-          f"decode attention {attn}: want launches of exactly {sorted(path)}, got {launches}")
-    check(launches[DECODE_KERNEL[attn]] == L * steps and launches["K10"] == steps,
-          f"{steps} decode steps: want {L} {DECODE_KERNEL[attn]} launches and one "
-          f"K10 launch per step, got {launches}")
     # per admission group and layer the fused body runs K3 twice, K4, K5 and
     # K6 once, and K1 four times (qkv, wo, w13, w2), K2 only for wo; the
-    # classifier adds one K2 + K1 per group, and each decode step one K2 +
-    # K1 per matmul (4 per layer on the fused layouts, and the classifier)
-    want = dict(K3=2 * L * groups, K4=L * groups, K5=L * groups, K6=L * groups,
-                K1=(4 * L + 1) * (groups + steps), K2=(L + 1) * groups + (4 * L + 1) * steps)
-    check(groups > 0 and all(launches[k] == n for k, n in want.items()),
-          f"{groups} admission groups, {steps} decode steps: want {want}, got {launches}")
+    # classifier adds one K2 + K1 per group; each decode step what its
+    # resolved mode launches
+    want = dict(K3=2 * L * groups, K4=L * groups, K5=L * groups, K6=L * groups, K7=groups,
+                K1=(4 * L + 1) * groups, K2=(L + 1) * groups)
+    for k, n in decode_launches(fused, attn, L).items():
+        want[k] = want.get(k, 0) + n * steps
+    got = {k: n for k, n in launches.items() if n > 0}
+    check(groups > 0 and got == want,
+          f"{groups} admission groups, {steps} decode steps (fused={fused!r}, {attn}): want "
+          f"exactly {want}, got {got}")
     check(all(v == 0 for v in plain.values()), f"plain versions ran: {plain}")
     rep = summarize(reqs)
-    line = dict(phase="serve_7b", layouts="fused", decode_attn=attn, admission_groups=groups,
+    line = dict(phase="serve_7b", layouts="fused", decode_attn=attn, decode_fused=fused,
+                admission_groups=groups,
                 k2_launches=launches["K2"], n_requests=rep.n_requests,
                 tokens=rep.total_tokens,
                 wall_s=wall, tok_per_s=rep.tokens_per_sec, ttft_p50_ms=rep.ttft_p50_s * 1e3,
@@ -651,7 +815,7 @@ def serve_7b(torch, smi_line):
                 decode_steps=batcher.timers["decode_steps"],
                 decode_ms_per_step=batcher.timers["decode"] * 1e3
                 / max(1, batcher.timers["decode_steps"]),
-                admit_s=batcher.timers["admit"],
+                admit_s=batcher.timers["admit"], emit_s=batcher.timers["emit"],
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=launches, plain_calls=plain, card=smi_line)
     print(json.dumps(line), flush=True)
@@ -679,11 +843,11 @@ def _greedy(engine, seq, steps):
     return toks, logits
 
 
-def _parity(torch, cfg, act_dtype, seq, attn, fuse):
+def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False):
     """One greedy request of PARITY_STEPS steps on the card and on the CPU,
     from the same weights (fused layouts with ``fuse``), both with decode
-    attention ``attn``; returns the reading as a dict, with the card run's
-    kernel launches."""
+    attention ``attn`` and fused decode ``fused``; returns the reading as a
+    dict, with the card run's kernel launches."""
     from tpu_llama_torch.models.llama import random_quant_params
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
@@ -692,24 +856,30 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse):
     cpu = _to(gpu, "cpu")
     t0 = time.time()
     _kernels.reset_counts()
-    g_toks, g_log = _greedy(Engine(gpu, cfg, max_batch=1, seq_len=64, attn=attn), seq,
-                            PARITY_STEPS)
+    g_toks, g_log = _greedy(Engine(gpu, cfg, max_batch=1, seq_len=64, attn=attn, fused=fused),
+                            seq, PARITY_STEPS)
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     t1 = time.time()
-    c_toks, c_log = _greedy(Engine(cpu, cfg, max_batch=1, seq_len=64, attn=attn, device="cpu"),
-                            seq, PARITY_STEPS)
+    c_toks, c_log = _greedy(Engine(cpu, cfg, max_batch=1, seq_len=64, attn=attn, fused=fused,
+                                   device="cpu"), seq, PARITY_STEPS)
     t2 = time.time()
-    kernel = DECODE_KERNEL.get(attn)  # None: "xla" decodes in plain PyTorch
-    path = (FUSED_PREFILL_PATH if fuse else PREFILL_PATH) | ({kernel, "K10"} if kernel else set())
-    check({k for k, n in launches.items() if n > 0} == path and not any(plain.values())
-          and (kernel is None or (launches[kernel] == cfg.n_layers * PARITY_STEPS
-                                  and launches["K10"] == PARITY_STEPS)),
-          f"parity {attn}: want launches of exactly {sorted(path)} (the decode attention "
-          f"once per layer and step, K10 once per step), got {launches}; plain calls {plain}")
+    path = FUSED_PREFILL_PATH if fuse else PREFILL_PATH
+    if attn == "xla":  # the plain PyTorch decode launches no kernel
+        decode = {}
+    else:
+        decode = {k: n * PARITY_STEPS for k, n in decode_launches(fused, attn, cfg.n_layers).items()}
+    got = {k: n for k, n in launches.items() if n > 0}
+    check(set(got) == path | set(decode) and not any(plain.values())
+          and all(launches[k] >= n for k, n in decode.items())
+          and all(launches[k] == n for k, n in decode.items() if k not in path),
+          f"parity {attn} fused={fused!r}: want launches of exactly {sorted(path | set(decode))} "
+          f"(per decode step {decode_launches(fused, attn, cfg.n_layers) if decode else {}}), "
+          f"got {launches}; plain calls {plain}")
     same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
     # logits [0, same] came from the same tokens on both sides
     errs = [float(np.abs(g_log[i] - c_log[i]).max()) for i in range(same + 1)]
-    return dict(activations=str(act_dtype).removeprefix("torch."), fused=fuse, steps=PARITY_STEPS,
+    return dict(activations=str(act_dtype).removeprefix("torch."), fused_layouts=fuse,
+                fused_decode=fused, steps=PARITY_STEPS,
                 tokens_equal=same, card_tokens=g_toks, cpu_tokens=c_toks,
                 prefill_logit_max_err=errs[0], logit_max_err=max(errs),
                 logit_peak=float(np.abs(c_log[0]).max()),
@@ -718,21 +888,22 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse):
 
 
 def parity_2layer(torch):
-    """Phase 5 for each decode attention on unfused weights, and for K9 on
-    fused ones; returns the card launches of each unfused attention's f32
-    run."""
+    """Phase 5 for each decode attention on unfused weights, and on fused
+    ones for K9 with the unfused decode, the two-launch decode (K11 + K9)
+    and mega2 (K12); returns the card launches of each f32 run, by its
+    (attn, fused decode)."""
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
     seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
     launches = {}
-    for attn, fuse in (("xla", False), ("flash", False), ("flash_dma", False),
-                       ("flash_dma", True)):
-        f32 = _parity(torch, cfg, torch.float32, seq, attn, fuse)
-        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn, fuse)
-        if not fuse:
-            launches[attn] = f32["card_launches"]
-        attn = attn + (" fused" if fuse else "")
+    for attn, fuse, fused in (("xla", False, False), ("flash", False, False),
+                              ("flash_dma", False, False), ("flash_dma", True, False),
+                              ("flash_dma", True, True), ("flash_dma", True, "mega2")):
+        f32 = _parity(torch, cfg, torch.float32, seq, attn, fuse, fused)
+        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn, fuse, fused)
+        launches[attn, fused] = f32["card_launches"]
+        attn = attn + (" fused layouts" if fuse else "") + (f", fused={fused!r}" if fused else "")
         print(json.dumps(dict(phase="parity_2layer", attn=attn, f32=f32, bf16=bf16,
                               tol=LOGITS_TOL)), flush=True)
         check(f32["finite"] and bf16["finite"], f"{attn}: card logits not finite")
@@ -757,6 +928,8 @@ def main() -> int:
     try:
         from tpu_llama_torch.ops import _kernels
         from tpu_llama_torch.ops import attention as tatt
+        from tpu_llama_torch.ops import fused_layer as tfl
+        from tpu_llama_torch.ops import fused_step2 as tfs
         from tpu_llama_torch.ops import matmul as tm
         from tpu_llama_torch.ops import quant as tq
     except ImportError as e:
@@ -797,8 +970,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_decode_attention(torch, tatt, results)
     check_k10(torch, tatt, results)
+    check_fused(torch, tq, tfl, tfs, results)
     for r in results:  # launches follow in the kernels line, after the main path
-        extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err") if k in r}
+        extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err", "att_int8_flip_share",
+                                   "att_scale_max_rel_err") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -807,12 +982,16 @@ def main() -> int:
     # 4. the serving path at 7B
     launches = serve_7b(torch, smi)
 
-    # 5. port parity, card against CPU; a decode attention that phase 4 did
-    # not run counts its launches on its phase-5 path
+    # 5. port parity, card against CPU; a kernel that phase 4 did not run
+    # counts its launches on its phase-5 path: K19 on the unfused decode with
+    # "flash", K11 on the two-launch decode (and the paths of whatever
+    # "auto" did not resolve to)
     parity = parity_2layer(torch)
-    for attn, kernel in DECODE_KERNEL.items():
+    for kernel, path in (("K19", ("flash", False)), ("K11", ("flash_dma", True)),
+                         ("K12", ("flash_dma", "mega2")), ("K8", ("flash_dma", "mega2")),
+                         ("K9", ("flash_dma", False))):
         if launches[kernel] == 0:
-            launches[kernel] = parity[attn][kernel]
+            launches[kernel] = parity[path][kernel]
 
     # 6. result lines
     kernels = []

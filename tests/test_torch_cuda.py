@@ -25,6 +25,8 @@ import torch
 
 from tpu_llama_torch.ops import _kernels
 from tpu_llama_torch.ops import attention as tatt
+from tpu_llama_torch.ops import fused_layer as tfl
+from tpu_llama_torch.ops import fused_step2 as tfs
 from tpu_llama_torch.ops import matmul as tm
 from tpu_llama_torch.ops import quant as tq
 
@@ -271,6 +273,101 @@ def test_k10_exact_and_skips_out_of_range(card, hd):
         assert torch.equal(a[:, 3:], c[:, 3:])  # slots at pos S and -1 untouched
 
 
+def _fused_case(B, KVH, G, hd, H, L=3, S=300, pos=None):
+    """Random stacked fused-layer weights, rows and a cache on the card."""
+    g = _gen(B * 7 + KVH + G + hd + H)
+    D = KVH * G * hd
+    QO = D + 2 * KVH * hd
+
+    def qt(n_in, n_out):
+        return tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (L, n_out, n_in), generator=g, device="cuda",
+                            dtype=torch.int8),
+            s=torch.rand(L, n_out, generator=g, device="cuda") * 2e-3 + 1e-3)
+
+    w = (qt(D, D), qt(D, 2 * H), qt(H, D), qt(D, QO))
+    rms = [(1 + 0.1 * torch.randn(L, D, generator=g, device="cuda")).to(torch.bfloat16)
+           for _ in range(2)]
+    x = torch.randn(B, D, generator=g, device="cuda")
+    attq = torch.randint(-127, 128, (B, D), generator=g, device="cuda", dtype=torch.int8)
+    satt = torch.rand(B, generator=g, device="cuda") * 0.02 + 0.005
+    cache = (torch.randint(-127, 128, (L, B, KVH, S, hd), generator=g, device="cuda",
+                           dtype=torch.int8),
+             torch.randint(-127, 128, (L, B, KVH, S, hd), generator=g, device="cuda",
+                           dtype=torch.int8),
+             torch.rand(L, B, KVH, S, generator=g, device="cuda") * 0.02 + 0.005,
+             torch.rand(L, B, KVH, S, generator=g, device="cuda") * 0.02 + 0.005)
+    pos = pos or [(37 * b) % S for b in range(B - 1)] + [S - 1]
+    ang = torch.rand(B, hd // 2, generator=g, device="cuda") * 6.3
+    return dict(w=w, rms=rms, x=x, attq=attq, satt=satt, cache=cache, L=L, NH=KVH * G,
+                pos=torch.tensor(pos, dtype=torch.int32, device="cuda"), cos=ang.cos(),
+                sin=ang.sin())
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_k8_exact(card, B):
+    c = _fused_case(B, 2, 2, 64, 192)
+    wqkv = c["w"][3]
+    xq = c["attq"]
+    before = _kernels.LAUNCHES["K8"]
+    for layer in range(c["L"]):
+        got = tfl.w8a8_matmul_stacked(xq, c["satt"], wqkv, layer)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tfl.w8a8_matmul_stacked_plain(xq, c["satt"], wqkv, layer))
+    assert _kernels.LAUNCHES["K8"] == before + c["L"]
+
+
+@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
+                                          (8, 4, 1, 64, 256), (20, 1, 2, 32, 96)])
+def test_k11_exact(card, B, KVH, G, hd, H):
+    """Bit-equal: the kernel repeats the plain version's f32 steps (CUDA's
+    expf is PyTorch's exp on the card); the last layer leaves qkv alone."""
+    c = _fused_case(B, KVH, G, hd, H)
+    for layer in range(c["L"]):
+        args = (c["x"], c["attq"], c["satt"], *c["w"], *c["rms"], layer, c["L"])
+        buf = torch.full((B, c["w"][3].out_features), 7.0, device=card)
+        before = _kernels.LAUNCHES["K11"]
+        x, qkv = tfl.fused_layer_linear(*args, qkv_out=buf)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["K11"] == before + 1 and qkv is buf
+        xp, qkvp = tfl.fused_layer_linear_plain(*args)
+        assert torch.equal(x, xp)
+        if layer + 1 < c["L"]:
+            assert torch.equal(qkv, qkvp)
+        else:
+            assert (qkv == 7.0).all()
+
+
+@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
+                                          (8, 4, 1, 64, 256), (3, 1, 2, 12, 96)])
+def test_k12_close(card, B, KVH, G, hd, H):
+    """x_next bit-equal; the fresh K/V rows bit-equal (the same RoPE and
+    quant steps); the attention output, whose f32 sums run in another order
+    (K9's tolerance, DECODE_TOL), within one int8 step on at most 1e-3 of
+    entries, its row scales (absmax / 127) within DECODE_TOL relative and its
+    dequantized values within DECODE_TOL of the largest.  The last layer
+    computes x_next only."""
+    c = _fused_case(B, KVH, G, hd, H)
+    for layer in range(c["L"]):
+        args = (c["x"], c["attq"], c["satt"], *c["cache"], c["pos"], c["cos"], c["sin"],
+                *c["w"], *c["rms"], layer, c["L"], c["NH"])
+        before = _kernels.LAUNCHES["K12"]
+        got = tfs.fused_step2_layer(*args)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["K12"] == before + 1
+        want = tfs.fused_step2_layer_plain(*args)
+        assert torch.equal(got[0], want[0])
+        if layer + 1 == c["L"]:
+            continue
+        for i in (3, 4, 5, 6):
+            assert torch.equal(got[i], want[i])
+        d = (got[1].int() - want[1].int()).abs()
+        assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+        torch.testing.assert_close(got[2], want[2], rtol=DECODE_TOL, atol=0)
+        att, att_p = (o[1].float() * o[2][:, None] for o in (got, want))
+        assert (att - att_p).abs().max().item() <= DECODE_TOL * att_p.abs().max().item()
+
+
 # Where the CPU's top two next-token log-probabilities are closer than this,
 # the card may take the other token.  K9 and K19 round p * vs to bf16, so an
 # f32 ulp of difference (CUDA's expf against PyTorch's exp, another order of
@@ -281,15 +378,18 @@ def test_k10_exact_and_skips_out_of_range(card, hd):
 NEAR_TIE = 5e-3
 
 
-@pytest.mark.parametrize("attn,fuse", [("xla", False), ("flash", False), ("flash_dma", False),
-                                       ("flash_dma", True)])
-def test_engine_card_matches_cpu(card, attn, fuse):
+@pytest.mark.parametrize("attn,fuse,fused", [("xla", False, False), ("flash", False, False),
+                                             ("flash_dma", False, False),
+                                             ("flash_dma", True, False), ("flash_dma", True, True),
+                                             ("flash_dma", True, "mega2")])
+def test_engine_card_matches_cpu(card, attn, fuse, fused):
     """A tiny f32-activation engine with the same explicit decode attention
-    on both sides: greedy tokens on the card (kernels) equal the CPU's
-    (plain versions) -- exactly for the f32 xla attention; for the
-    bf16-rounding K9 and K19 up to the first step where the CPU's top two
-    tokens are within NEAR_TIE, after which a stream is not compared.
-    ``fuse``: the fused layouts, whose prefill runs K3, K4 and K5."""
+    and fused decode on both sides: greedy tokens on the card (kernels)
+    equal the CPU's (plain versions) -- exactly for the f32 xla attention;
+    for the bf16-rounding K9, K19 and K12 up to the first step where the
+    CPU's top two tokens are within NEAR_TIE, after which a stream is not
+    compared.  ``fuse``: the fused layouts, whose prefill runs K3, K4 and
+    K5; ``fused``: the two-launch (K8, K11) or mega2 (K8, K12) decode."""
     from tpu_llama_torch import convert
     from tpu_llama_torch.config import ModelConfig
     from tpu_llama_torch.models import llama as tl
@@ -303,7 +403,8 @@ def test_engine_card_matches_cpu(card, attn, fuse):
     out = []
     for params, dev in ((cpu, "cpu"), (gpu, card)):
         _kernels.reset_counts()
-        b = ContinuousBatcher(Engine(params, cfg, max_batch=4, attn=attn, device=dev))
+        b = ContinuousBatcher(Engine(params, cfg, max_batch=4, attn=attn, fused=fused,
+                                     device=dev))
         reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0,
                         logprobs=2) for n in (5, 130, 40)]
         for r in reqs:
@@ -313,7 +414,8 @@ def test_engine_card_matches_cpu(card, attn, fuse):
         if dev == card:  # every kernel of the path launched, and no other
             path = {"K1", "K2", "K6", "K7"} | {
                 "flash": {"K19", "K10"}, "flash_dma": {"K9", "K10"}}.get(attn, set()) | (
-                {"K3", "K4", "K5"} if fuse else set())
+                {"K3", "K4", "K5"} if fuse else set()) | (
+                {"mega2": {"K8", "K12"}, True: {"K8", "K11"}}.get(fused, set()))
             assert {k for k, n in _kernels.LAUNCHES.items() if n > 0} == path
             assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
     for c, g in zip(*out):

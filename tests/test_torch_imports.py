@@ -57,6 +57,28 @@ def test_engine_without_device_raises_without_card():
         tl.make_kv_cache(cfg, 1)
 
 
+def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
+    """An edit to a header that a source includes, directly or through
+    another header, names a new library, so it rebuilds; other sources keep
+    theirs."""
+    from tpu_llama_torch.ops import _kernels
+
+    real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc/fused_step2.cu")]
+    assert real == ["common.cuh", "fused_decode.cuh"]
+    monkeypatch.setattr(_kernels, "_CSRC", tmp_path)
+    (tmp_path / "common.cuh").write_text("// common\n")
+    (tmp_path / "shared.cuh").write_text('#include "common.cuh"\n// v1\n')
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "b.cu").write_text('#include "common.cuh"\n')
+    assert _kernels._headers(tmp_path / "a.cu") == [tmp_path / "common.cuh",
+                                                    tmp_path / "shared.cuh"]
+    a, b = _kernels._lib_path("a"), _kernels._lib_path("b")
+    (tmp_path / "shared.cuh").write_text('#include "common.cuh"\n// v2\n')
+    assert _kernels._lib_path("a") != a and _kernels._lib_path("b") == b
+    (tmp_path / "common.cuh").write_text("// common, edited\n")
+    assert _kernels._lib_path("b") != b
+
+
 def test_build_returns_stored_logs_of_built_libraries(tmp_path, monkeypatch):
     """A library built earlier is not rebuilt, and build() still returns the
     compiler log of that build (registers, spills) for every source."""

@@ -119,6 +119,23 @@ __device__ __forceinline__ int8_t quant_i8(float x, float inv) {
     return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
 }
 
+// K3's rmsnorm factor r = 1 / sqrt(1e-5 + f32(ss) * f32(1/n)) from the f64
+// sum of squares ss of a row of n values: two correctly rounded operations
+// for 1 / sqrt, as PyTorch's sqrt and reciprocal compute it.
+__device__ __forceinline__ float rms_factor(double ss, long long n) {
+    const float ms = __fmul_rn(static_cast<float>(ss), __frcp_rn(static_cast<float>(n)));
+    return __frcp_rn(__fsqrt_rn(__fadd_rn(1e-5f, ms)));
+}
+
+// RoPE on an interleaved pair (x0, x1) = (x[2j], x[2j+1]) in f32, every
+// product and sum rounded (nvcc would contract them into FMAs):
+//   r0 = x0 cos - x1 sin,   r1 = x0 sin + x1 cos.
+__device__ __forceinline__ void rope_pair(float x0, float x1, float c, float s, float& r0,
+                                          float& r1) {
+    r0 = __fsub_rn(__fmul_rn(x0, c), __fmul_rn(x1, s));
+    r1 = __fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c));
+}
+
 template <typename T>
 struct Vec;  // 16-byte vector of T and its int8 image
 template <>
@@ -172,7 +189,7 @@ constexpr int kDecMaxHd = 128;
 constexpr int kDecMaxE = kDecMaxG * kDecMaxHd / kDecThreads;  // output elements a thread owns
 constexpr float kNegInf = -1e30f;  // the JAX package's _NEG_INF
 
-__device__ __forceinline__ int dec_pitch(int hd) { return (hd + 15) & ~15; }
+__host__ __device__ __forceinline__ int dec_pitch(int hd) { return (hd + 15) & ~15; }
 
 // The (slot, kv head)'s G query rows q [G, hd]: qf = f32(q) / sqrt_hd and
 // qb = bf16(qf), each [G, P] with zero pad columns.
@@ -283,6 +300,141 @@ __device__ __forceinline__ void dec_fresh_scores(const float* qf, int P, const i
         for (int d = lane; d < hd; d += 32) s = fmaf(qf[g * P + d], static_cast<float>(nk[d]), s);
         s = warp_sum(s);
         if (lane == 0) s_new[g] = s * nks;
+    }
+}
+
+// The shared-memory layout of one decode cell: two tiles of TS rows of
+// pitch P (K, then V), the K tile's two scale rows, the G query rows as f32
+// and as bf16, the block's scores, and the online-softmax state.
+struct DecSmem {
+    int8_t* kt;
+    int8_t* vt;
+    float *kst, *vst, *qf, *qb, *sc, *m_s, *l_s, *c_s, *n_s;
+    __device__ DecSmem(unsigned char* base, int TS, int P, int G) {
+        kt = reinterpret_cast<int8_t*>(base);  // stage 0: K tile [TS, P]
+        vt = kt + TS * P;                      // stage 1: V tile [TS, P]
+        kst = reinterpret_cast<float*>(vt + TS * P);  // stage 0's scales: ks [TS]
+        vst = kst + TS;                               //   and vs [TS]
+        qf = vst + TS;           // [G, P] f32 queries (fresh column)
+        qb = qf + G * P;         // [G, P] bf16 queries (cache rows)
+        sc = qb + G * P;         // [G, TS] scores, then bf16(p * vs)
+        m_s = sc + G * TS;       // [kDecMaxG] running max
+        l_s = m_s + kDecMaxG;    // running denominator
+        c_s = l_s + kDecMaxG;    // this block's correction exp(m_old - m_new)
+        n_s = c_s + kDecMaxG;    // fresh-column score
+    }
+    static __host__ __device__ int bytes(int TS, int P, int G) {
+        return 2 * TS * P + 4 * (2 * TS + 2 * G * P + G * TS + 4 * kDecMaxG);
+    }
+};
+
+// One decode cell (K9 flash_decode_dma.cu, K12 fused_step2.cu): the G query
+// rows of one (slot, kv head) attend over its cache rows s < p (k and v at
+// kc / vc, rows of hd int8, scales ks / vs, row 0 first) with an online
+// softmax over blocks of TS rows, then over the fresh row (nk, nks, nv,
+// nvs) as one more column; writes the G x hd outputs to out.  The caller has
+// filled sm.qf and sm.qb; this function's barriers publish them.  K and V
+// tiles stream through a two-stage cp.async ring: t = 2j is K block j (with
+// ks and vs) into stage 0, t = 2j + 1 is V block j into stage 1.
+// Rounding, kept from the TPU kernel: the cache score is dot(qb, k) in f32,
+// times ks; p = exp(s - m_block) is UNNORMALIZED when it is rounded, as
+// bf16(p * vs), before the PV dot; the fresh column's score uses qf (times
+// nks) and its value f32(nv) * nvs, merged after the last block
+// (_fresh_tail_merge, attention.py:307-332).
+template <int CH>
+__device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
+                           const int8_t* __restrict__ vc, const float* __restrict__ ks,
+                           const float* __restrict__ vs, int p, int TS, int G, int hd,
+                           const int8_t* nk, float nks, const int8_t* nv, float nvs, float* out) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int P = dec_pitch(hd);
+    const int nb = (p + TS - 1) / TS;
+    if (P != hd) dec_zero_pad(sm.kt, 2 * TS, hd, P);  // both stages
+    if (tid < G) {
+        sm.m_s[tid] = kNegInf;
+        sm.l_s[tid] = 0.f;
+    }
+    float acc[kDecMaxE];
+#pragma unroll
+    for (int j = 0; j < kDecMaxE; ++j) acc[j] = 0.f;
+
+    auto issue = [&](int t) {
+        const int j = t >> 1;
+        const int rows = min(TS, p - j * TS);
+        const long long r = (long long)j * TS;
+        if (t & 1)
+            dec_issue_tile<CH>(sm.vt, vc + r * hd, rows, hd, P, nullptr, nullptr, nullptr, nullptr);
+        else
+            dec_issue_tile<CH>(sm.kt, kc + r * hd, rows, hd, P, sm.kst, ks + r, sm.vst, vs + r);
+    };
+    const int nt = 2 * nb;
+    if (nt > 0) issue(0);
+    for (int t = 0; t < nt; ++t) {
+        if (t + 1 < nt) {
+            issue(t + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();  // tile t has landed for every thread
+        const int base = (t >> 1) * TS;
+        if ((t & 1) == 0) {
+            dec_qk_tile(sm.qb, sm.kt, TS, G, P, [&](int g, int r, float dot) {
+                const bool valid = base + r < p;
+                sm.sc[g * TS + r] = valid ? dot * sm.kst[r] : kNegInf;
+            });
+            __syncthreads();
+            // online softmax over the block, one warp per query row
+            for (int g = warp; g < G; g += kDecThreads / 32) {
+                float* s = sm.sc + g * TS;
+                const float m_old = sm.m_s[g];
+                float mx = kNegInf;
+                for (int r = lane; r < TS; r += 32) mx = fmaxf(mx, s[r]);
+                const float m_new = fmaxf(m_old, warp_max(mx));
+                float sum = 0.f;
+                for (int r = lane; r < TS; r += 32) {
+                    const bool valid = base + r < p;
+                    const float e = valid ? expf(s[r] - m_new) : 0.f;
+                    sum += e;
+                    s[r] = valid ? round_bf16(e * sm.vst[r]) : 0.f;
+                }
+                sum = warp_sum(sum);
+                if (lane == 0) {
+                    const float corr = expf(m_old - m_new);
+                    sm.c_s[g] = corr;
+                    sm.l_s[g] = sm.l_s[g] * corr + sum;
+                    sm.m_s[g] = m_new;
+                }
+            }
+        } else {
+            float part[kDecMaxE];
+            dec_pv_tile(sm.sc, TS, sm.vt, TS, G, hd, P, part);
+#pragma unroll
+            for (int j = 0; j < kDecMaxE; ++j) {
+                const int e = tid + kDecThreads * j;
+                if (e < G * hd) acc[j] = acc[j] * sm.c_s[e / hd] + part[j];
+            }
+        }
+        __syncthreads();  // the stage is free for tile t + 2
+    }
+
+    // the fresh column (_fresh_tail_merge, attention.py:307-332)
+    if (nt == 0) __syncthreads();  // the q rows (no tile made the loop sync)
+    dec_fresh_scores(sm.qf, P, nk, nks, G, hd, sm.n_s);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kDecMaxE; ++j) {
+        const int e = tid + kDecThreads * j;
+        if (e < G * hd) {
+            const int g = e / hd, d = e % hd;
+            const float m = sm.m_s[g], s_new = sm.n_s[g];
+            const float m_fin = fmaxf(m, s_new);
+            const float corr = expf(m - m_fin);
+            const float e_new = expf(s_new - m_fin);
+            const float l_fin = sm.l_s[g] * corr + e_new;
+            const float nvf = static_cast<float>(nv[d]) * nvs;
+            out[e] = (acc[j] * corr + e_new * nvf) / fmaxf(l_fin, 1e-30f);
+        }
     }
 }
 

@@ -31,7 +31,8 @@
 // cp.async ring in shared memory (16-byte chunks), the next tile in flight
 // while the current one is used.  Rows >= pos are never read.  The G query
 // heads of a GQA group share every K/V byte, and the fresh-column merge
-// runs in the same launch.  pos is read on the device: no host sync.
+// runs in the same launch.  pos is read on the device: no host sync.  The
+// cell's body is common.cuh's dec_attend, which K12's trailing cells run too.
 #include <math.h>
 
 #include "common.cuh"
@@ -48,117 +49,14 @@ flash_decode_dma_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
                         float* __restrict__ out, int layer, int B, int KVH, int G, int S, int hd,
                         int TS, float sqrt_hd) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int P = dec_pitch(hd);
-    int8_t* kt = reinterpret_cast<int8_t*>(smem);  // stage 0: K tile [TS, P]
-    int8_t* vt = kt + TS * P;                      // stage 1: V tile [TS, P]
-    float* kst = reinterpret_cast<float*>(vt + TS * P);  // stage 0's scales: ks [TS]
-    float* vst = kst + TS;                               //   and vs [TS]
-    float* qf = vst + TS;        // [G, P] f32 qs
-    float* qb = qf + G * P;      // [G, P] bf16(qs)
-    float* sc = qb + G * P;      // [G, TS] scores, then bf16(p * vs)
-    float* m_s = sc + G * TS;    // [kDecMaxG] running max
-    float* l_s = m_s + kDecMaxG;     // running denominator
-    float* c_s = l_s + kDecMaxG;     // this block's correction exp(m_old - m_new)
-    float* n_s = c_s + kDecMaxG;     // fresh-column score
-
+    const int h = blockIdx.x, b = blockIdx.y;
+    const DecSmem sm(smem, TS, dec_pitch(hd), G);
     const int p = min(max(pos[b], 0), S);
-    const int nb = (p + TS - 1) / TS;
     const long long row0 = (((long long)layer * B + b) * KVH + h) * S;  // cache row of s = 0
     const long long bh = (long long)b * KVH + h;
-
-    dec_load_q(q + bh * G * hd, qf, qb, G, hd, P, sqrt_hd);
-    if (P != hd) dec_zero_pad(kt, 2 * TS, hd, P);  // both stages
-    if (tid < G) {
-        m_s[tid] = kNegInf;
-        l_s[tid] = 0.f;
-    }
-    float acc[kDecMaxE];
-#pragma unroll
-    for (int j = 0; j < kDecMaxE; ++j) acc[j] = 0.f;
-
-    // Tile stream: t = 2j is K block j (with ks and vs) into stage 0,
-    // t = 2j + 1 is V block j into stage 1.
-    auto issue = [&](int t) {
-        const int j = t >> 1;
-        const int rows = min(TS, p - j * TS);
-        const long long r = row0 + (long long)j * TS;
-        if (t & 1)
-            dec_issue_tile<CH>(vt, vc + r * hd, rows, hd, P, nullptr, nullptr, nullptr, nullptr);
-        else
-            dec_issue_tile<CH>(kt, kc + r * hd, rows, hd, P, kst, ks + r, vst, vs + r);
-    };
-    const int nt = 2 * nb;
-    if (nt > 0) issue(0);
-    for (int t = 0; t < nt; ++t) {
-        if (t + 1 < nt) {
-            issue(t + 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();  // tile t has landed for every thread
-        const int base = (t >> 1) * TS;
-        if ((t & 1) == 0) {
-            dec_qk_tile(qb, kt, TS, G, P, [&](int g, int r, float dot) {
-                const bool valid = base + r < p;
-                sc[g * TS + r] = valid ? dot * kst[r] : kNegInf;
-            });
-            __syncthreads();
-            // online softmax over the block, one warp per query row
-            for (int g = warp; g < G; g += kDecThreads / 32) {
-                float* s = sc + g * TS;
-                const float m_old = m_s[g];
-                float mx = kNegInf;
-                for (int r = lane; r < TS; r += 32) mx = fmaxf(mx, s[r]);
-                const float m_new = fmaxf(m_old, warp_max(mx));
-                float sum = 0.f;
-                for (int r = lane; r < TS; r += 32) {
-                    const bool valid = base + r < p;
-                    const float e = valid ? expf(s[r] - m_new) : 0.f;
-                    sum += e;
-                    s[r] = valid ? round_bf16(e * vst[r]) : 0.f;
-                }
-                sum = warp_sum(sum);
-                if (lane == 0) {
-                    const float corr = expf(m_old - m_new);
-                    c_s[g] = corr;
-                    l_s[g] = l_s[g] * corr + sum;
-                    m_s[g] = m_new;
-                }
-            }
-        } else {
-            float part[kDecMaxE];
-            dec_pv_tile(sc, TS, vt, TS, G, hd, P, part);
-#pragma unroll
-            for (int j = 0; j < kDecMaxE; ++j) {
-                const int e = tid + kDecThreads * j;
-                if (e < G * hd) acc[j] = acc[j] * c_s[e / hd] + part[j];
-            }
-        }
-        __syncthreads();  // the stage is free for tile t + 2
-    }
-
-    // the fresh column (_fresh_tail_merge, attention.py:307-332)
-    if (nt == 0) __syncthreads();  // the q rows (no tile made the loop sync)
-    dec_fresh_scores(qf, P, nk + bh * hd, nks[bh], G, hd, n_s);
-    __syncthreads();
-    const float nvs_bh = nvs[bh];
-#pragma unroll
-    for (int j = 0; j < kDecMaxE; ++j) {
-        const int e = tid + kDecThreads * j;
-        if (e < G * hd) {
-            const int g = e / hd, d = e % hd;
-            const float m = m_s[g], s_new = n_s[g];
-            const float m_fin = fmaxf(m, s_new);
-            const float corr = expf(m - m_fin);
-            const float e_new = expf(s_new - m_fin);
-            const float l_fin = l_s[g] * corr + e_new;
-            const float nvf = static_cast<float>(nv[bh * hd + d]) * nvs_bh;
-            out[bh * G * hd + e] = (acc[j] * corr + e_new * nvf) / fmaxf(l_fin, 1e-30f);
-        }
-    }
+    dec_load_q(q + bh * G * hd, sm.qf, sm.qb, G, hd, dec_pitch(hd), sqrt_hd);
+    dec_attend<CH>(sm, kc + row0 * hd, vc + row0 * hd, ks + row0, vs + row0, p, TS, G, hd,
+                   nk + bh * hd, nks[bh], nv + bh * hd, nvs[bh], out + bh * G * hd);
 }
 
 template <typename QT, int CH>
@@ -167,8 +65,7 @@ int launch(const void* q, const int8_t* k, const int8_t* v, const float* ks, con
            const float* nvs, float* out, int layer, int B, int KVH, int G, int S, int hd, int TS,
            float sqrt_hd, cudaStream_t st) {
     auto kern = flash_decode_dma_kernel<QT, CH>;
-    const int P = (hd + 15) & ~15;
-    const int bytes = 2 * TS * P + 4 * (2 * TS + 2 * G * P + G * TS + 4 * kDecMaxG);
+    const int bytes = DecSmem::bytes(TS, dec_pitch(hd), G);
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<dim3(KVH, B), kDecThreads, bytes, st>>>(static_cast<const QT*>(q), k, v, ks, vs, pos, nk,

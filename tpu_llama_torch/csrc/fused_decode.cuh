@@ -1,0 +1,394 @@
+// Shared code of the fused decode kernels: K11 fused_layer.cu and K12
+// fused_step2.cu, one persistent cooperative launch per decode layer.
+//
+// The TPU kernels (tpu_llama/ops/fused_layer.py:77, fused_step2.py:113) are
+// one sequential grid whose phases carry x2, h2 and the int8 rows in VMEM
+// from step to step, with each boundary (rmsnorm, row quant) at the last
+// step of a phase.  CUDA blocks run in parallel and carry nothing, so here
+// every block of a cooperative launch (as many as fit on the card at once)
+// walks the output tiles of a phase, the phases are separated by a grid
+// barrier, and the carried state lives in global scratch that stays in L2
+// (< 1 MB at batch 8).  A boundary is done by one block per row, between
+// two barriers:
+//
+//   A  x2 = x + (f32(attq . wo) * satt) * wo_s              -> x_next
+//   |  rmsnorm(x2, rms_ffn) -> int8 xq, sx                     (block b: row b)
+//   B  g, u = w13 gate / up columns j and H + j, in one tile;
+//      h2 = (g * (1 / (1 + exp(-g)))) * u                    -> h2 (K12: bf16-rounded)
+//   |  row quant of h2 -> int8 xq3, sx3
+//   C  x_next = x2 + (f32(xq3 . w2) * sx3) * w2_s             (last layer: done)
+//   |  rmsnorm(x_next, rms_att[l + 1]) -> int8 xq, sx
+//   D  qkv = (f32(xq . wqkv[l + 1]) * sx) * qkv_s
+//
+// Bound on the H100: bytes.  At M = B <= 32 rows every phase is a product
+// that streams its weights once (202.4 MB per 7B layer: 60.4 us at 3.35
+// TB/s) and does ~3.2 G int8 operations.  Design: a tile is 32 weight rows
+// (output columns) over the whole K, K1's decode mainloop -- mma.sync
+// m16n8k32 s8 on K-contiguous operands, a four-stage cp.async ring of
+// 256-byte k-tiles -- with the activation rows read from L2 through
+// cp.async.cg.  Numerics: every f32 product and sum of the epilogues and
+// the SiLU is an explicit round-to-nearest intrinsic, so the plain versions
+// (ops/fused_layer.py, ops/fused_step2.py) repeat them bit for bit; the
+// rmsnorm is K3's (f64 sum of squares), the row quant K2's.
+//
+// Memory order: scratch that one block writes and another reads after a
+// barrier is read with ld.global.cg / cp.async.cg (L2, never a stale L1
+// line), and never through a const __restrict__ pointer, which nvcc may
+// turn into the non-coherent read-only path.
+#pragma once
+
+#include "common.cuh"
+
+namespace fd {
+
+constexpr int kThreads = 128;
+static_assert(kThreads == kDecThreads, "K12's trailing cells run in the same blocks");
+constexpr int kBN = 32;      // weight rows (output columns) per tile
+constexpr int kBK = 256;     // bytes of K per stage
+constexpr int kStages = 4;
+constexpr int kLds = kBK + 16;  // padded row stride: conflict-free fragments
+constexpr int kMaxRows = 32;    // batch rows a launch takes
+
+template <int BM>
+constexpr int gemm_smem() {
+    return kStages * (BM + kBN) * kLds;
+}
+
+// A barrier across the whole grid.  Valid only under a cooperative launch,
+// which makes every block resident at once.  bar[0] counts arrivals and is
+// back at 0 after every barrier; bar[1] is the generation.
+__device__ __forceinline__ void grid_sync(unsigned int* bar) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        volatile unsigned int* gen = bar + 1;
+        const unsigned int g = *gen;
+        __threadfence();
+        if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+            atomicExch(bar, 0u);
+            __threadfence();
+            atomicAdd(bar + 1, 1u);
+        } else {
+            while (*gen == g) __nanosleep(32);
+        }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One output tile: the exact int32 products of the M <= BM activation rows
+// A [M, K] (row stride K, in scratch) with the kBN weight rows wrow(r)
+// (K-contiguous; nullptr past the edge).  Calls epi(row, c, acc_c, acc_c1)
+// for every row < M and every even local column c (the pair c, c + 1).
+// Four warps, each on 8 weight rows; vec promises K % 16 == 0 and 16-byte
+// aligned rows.
+template <int BM, class WRow, class Epi>
+__device__ void gemm_tile(const int8_t* A, int M, int K, int vec, WRow wrow, Epi epi,
+                          int8_t* smem) {
+    constexpr int MT = BM / 16;
+    int8_t* As = smem;                          // [kStages][BM][kLds]
+    int8_t* Bs = smem + kStages * BM * kLds;    // [kStages][kBN][kLds]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int nk = (K + kBK - 1) / kBK;
+
+    auto load_tile = [&](int stage, int kt) {
+        const int k0 = kt * kBK;
+        int8_t* as = As + stage * BM * kLds;
+        int8_t* bs = Bs + stage * kBN * kLds;
+        if (vec) {
+            constexpr int CH = kBK / 16;
+            for (int c = tid; c < BM * CH; c += kThreads) {
+                const int r = c / CH, kc = (c % CH) * 16;
+                const bool ok = r < M && k0 + kc < K;
+                cp_async16(as + r * kLds + kc, ok ? A + (long long)r * K + k0 + kc : A, ok ? 16 : 0);
+            }
+            for (int c = tid; c < kBN * CH; c += kThreads) {
+                const int r = c / CH, kc = (c % CH) * 16;
+                const int8_t* row = wrow(r);
+                const bool ok = row != nullptr && k0 + kc < K;
+                cp_async16(bs + r * kLds + kc, ok ? row + k0 + kc : A, ok ? 16 : 0);
+            }
+        } else {
+            for (int c = tid; c < BM * kBK; c += kThreads) {
+                const int r = c / kBK, kk = c % kBK;
+                const bool ok = r < M && k0 + kk < K;
+                as[r * kLds + kk] = ok ? __ldcg(A + (long long)r * K + k0 + kk) : int8_t(0);
+            }
+            for (int c = tid; c < kBN * kBK; c += kThreads) {
+                const int r = c / kBK, kk = c % kBK;
+                const int8_t* row = wrow(r);
+                bs[r * kLds + kk] = row != nullptr && k0 + kk < K ? row[k0 + kk] : int8_t(0);
+            }
+        }
+    };
+
+    int acc[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0;
+
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nk) load_tile(s, s);
+        cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<kStages - 2>();  // k-tile kt has landed
+        __syncthreads();               // ...for every thread; stage kt-1 is free
+        const int nxt = kt + kStages - 1;
+        if (nxt < nk) load_tile(nxt % kStages, nxt);
+        cp_async_commit();
+
+        const int8_t* as = As + (kt % kStages) * BM * kLds + g * kLds + t4 * 4;
+        const int8_t* bs = Bs + (kt % kStages) * kBN * kLds + (warp * 8 + g) * kLds + t4 * 4;
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += 32) {
+            // fragments of mma.m16n8k32 .s8, as in w8a8_matmul.cu
+            unsigned af[MT][4], bf[2];
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                const int8_t* p = as + i * 16 * kLds + kk;
+                af[i][0] = *reinterpret_cast<const unsigned*>(p);
+                af[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * kLds);
+                af[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
+                af[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * kLds + 16);
+            }
+            bf[0] = *reinterpret_cast<const unsigned*>(bs + kk);
+            bf[1] = *reinterpret_cast<const unsigned*>(bs + kk + 16);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_s8(acc[i], af[i], bf);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the stages: the next tile may load
+
+    // accumulator c[h * 2 + e] sits at row g + 8h, column 2 * t4 + e of the warp's 8
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = i * 16 + g + 8 * h;
+            if (row < M) epi(row, warp * 8 + 2 * t4, acc[i][2 * h], acc[i][2 * h + 1]);
+        }
+}
+
+__device__ __forceinline__ float load_w(const void* w, int i, int bf16) {
+    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i])
+                : static_cast<const float*>(w)[i];
+}
+
+// K3's rmsnorm + row quant of one row x [n] (scratch) with weight w [n]
+// (f32, or bf16 when wbf16): q int8 [n], *s.  Every thread of the block calls.
+__device__ void rms_quant_row(const float* x, const void* w, int wbf16, int n, int8_t* q,
+                              float* s) {
+    __shared__ double dred[kThreads / 32];
+    __shared__ float fred[kThreads / 32];
+    double ss = 0.0;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+        const double v = __ldcg(x + i);
+        ss += v * v;
+    }
+    const float r = rms_factor(block_sum<kThreads>(ss, dred), n);
+    auto xf = [&](int i) { return __fmul_rn(__fmul_rn(__ldcg(x + i), r), load_w(w, i, wbf16)); };
+    float amax = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) amax = fmaxf(amax, fabsf(xf(i)));
+    const float sc = quant_scale(block_max<kThreads>(amax, fred));
+    const float inv = quant_inv(sc);
+    for (int i = threadIdx.x; i < n; i += kThreads) q[i] = quant_i8(xf(i), inv);
+    if (threadIdx.x == 0) *s = sc;
+}
+
+// K2's row quant of one row x [n] (scratch): q int8 [n], *s.
+__device__ void quant_row(const float* x, int n, int8_t* q, float* s) {
+    __shared__ float fred[kThreads / 32];
+    float amax = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) amax = fmaxf(amax, fabsf(__ldcg(x + i)));
+    const float sc = quant_scale(block_max<kThreads>(amax, fred));
+    const float inv = quant_inv(sc);
+    for (int i = threadIdx.x; i < n; i += kThreads) q[i] = quant_i8(__ldcg(x + i), inv);
+    if (threadIdx.x == 0) *s = sc;
+}
+
+// One layer's linear work.  Weights are the layer's views: wo [D, D], w13
+// [2H, D] (gate rows, then up rows), w2 [D, H], wqkv [QO, D] of layer
+// l + 1, all K-major, with their f32 column scales.
+struct Linear {
+    const float* x;        // [B, D] residual entering the layer
+    const int8_t* attq;    // [B, D] quantized attention output
+    const float* satt;     // [B]
+    const int8_t* wo;
+    const float* wos;
+    const int8_t* w13;
+    const float* w13s;
+    const int8_t* w2;
+    const float* w2s;
+    const int8_t* wqkv;
+    const float* wqkvs;
+    const void* rms_ffn;   // [D] of layer l
+    const void* rms_att;   // [D] of layer l + 1
+    int rms_bf16;
+    float* x_next;         // [B, D]: x2 after phase A, the layer's output after C
+    float* qkv;            // [B, QO]: phase D
+    int8_t* xq;            // [B, D] scratch: xq2, then xq4
+    float* sx;             // [B]
+    float* h2;             // [B, H]
+    int8_t* xq3;           // [B, H]
+    float* sx3;            // [B]
+    unsigned int* bar;     // [2] grid barrier, zero between launches
+    int B, D, H, QO, last, vec;
+};
+
+template <int BM, bool kBf16H2>
+__device__ void linear_phases(const Linear& a, int8_t* smem) {
+    const int B = a.B, D = a.D, H = a.H, QO = a.QO, b = blockIdx.x;
+
+    // A: x2 = x + (f32(attq . wo) * satt) * wo_s
+    for (int t = blockIdx.x; t * kBN < D; t += gridDim.x) {
+        const int n0 = t * kBN;
+        gemm_tile<BM>(
+            a.attq, B, D, a.vec,
+            [&](int r) -> const int8_t* {
+                return n0 + r < D ? a.wo + (long long)(n0 + r) * D : nullptr;
+            },
+            [&](int row, int c, int acc0, int acc1) {
+                const int acc[2] = {acc0, acc1};
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = n0 + c + e;
+                    if (n >= D) continue;
+                    const long long o = (long long)row * D + n;
+                    const float v = __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), a.satt[row]),
+                                              a.wos[n]);
+                    a.x_next[o] = __fadd_rn(a.x[o], v);
+                }
+            },
+            smem);
+    }
+    grid_sync(a.bar);
+    if (b < B) rms_quant_row(a.x_next + (long long)b * D, a.rms_ffn, a.rms_bf16, D,
+                             a.xq + (long long)b * D, a.sx + b);
+    grid_sync(a.bar);
+
+    // B: gate column j and up column H + j in one tile (weight rows
+    // interleaved gate, up, gate, up, ...), so one thread holds both
+    for (int t = blockIdx.x; t * (kBN / 2) < H; t += gridDim.x) {
+        const int j0 = t * (kBN / 2);
+        gemm_tile<BM>(
+            a.xq, B, D, a.vec,
+            [&](int r) -> const int8_t* {
+                const int j = j0 + (r >> 1);
+                return j < H ? a.w13 + ((long long)(r & 1) * H + j) * D : nullptr;
+            },
+            [&](int row, int c, int ga, int ua) {
+                const int j = j0 + (c >> 1);
+                if (j >= H) return;
+                const float s = __ldcg(a.sx + row);
+                const float gv = __fmul_rn(__fmul_rn(static_cast<float>(ga), s), a.w13s[j]);
+                const float uv = __fmul_rn(__fmul_rn(static_cast<float>(ua), s), a.w13s[H + j]);
+                float h = __fmul_rn(__fmul_rn(gv, __frcp_rn(__fadd_rn(1.f, expf(-gv)))), uv);
+                if (kBf16H2) h = round_bf16(h);
+                a.h2[(long long)row * H + j] = h;
+            },
+            smem);
+    }
+    grid_sync(a.bar);
+    if (b < B) quant_row(a.h2 + (long long)b * H, H, a.xq3 + (long long)b * H, a.sx3 + b);
+    grid_sync(a.bar);
+
+    // C: x_next = x2 + (f32(xq3 . w2) * sx3) * w2_s
+    for (int t = blockIdx.x; t * kBN < D; t += gridDim.x) {
+        const int n0 = t * kBN;
+        gemm_tile<BM>(
+            a.xq3, B, H, a.vec,
+            [&](int r) -> const int8_t* {
+                return n0 + r < D ? a.w2 + (long long)(n0 + r) * H : nullptr;
+            },
+            [&](int row, int c, int acc0, int acc1) {
+                const int acc[2] = {acc0, acc1};
+                const float s = __ldcg(a.sx3 + row);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = n0 + c + e;
+                    if (n >= D) continue;
+                    const long long o = (long long)row * D + n;
+                    const float v = __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), s), a.w2s[n]);
+                    a.x_next[o] = __fadd_rn(__ldcg(a.x_next + o), v);
+                }
+            },
+            smem);
+    }
+    if (a.last) return;  // the last layer has no next qkv
+    grid_sync(a.bar);
+    if (b < B) rms_quant_row(a.x_next + (long long)b * D, a.rms_att, a.rms_bf16, D,
+                             a.xq + (long long)b * D, a.sx + b);
+    grid_sync(a.bar);
+
+    // D: qkv = (f32(xq . wqkv) * sx) * qkv_s, layer l + 1
+    for (int t = blockIdx.x; t * kBN < QO; t += gridDim.x) {
+        const int n0 = t * kBN;
+        gemm_tile<BM>(
+            a.xq, B, D, a.vec,
+            [&](int r) -> const int8_t* {
+                return n0 + r < QO ? a.wqkv + (long long)(n0 + r) * D : nullptr;
+            },
+            [&](int row, int c, int acc0, int acc1) {
+                const int acc[2] = {acc0, acc1};
+                const float s = __ldcg(a.sx + row);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = n0 + c + e;
+                    if (n < QO)
+                        a.qkv[(long long)row * QO + n] =
+                            __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), s), a.wqkvs[n]);
+                }
+            },
+            smem);
+    }
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Checks the shapes a launch takes and fills a.vec.
+inline int prepare(Linear& a) {
+    if (a.B < 1 || a.B > kMaxRows || a.D < 1 || a.H < 1 || a.QO < 1 ||
+        (a.rms_bf16 != 0 && a.rms_bf16 != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    a.vec = a.D % 16 == 0 && a.H % 16 == 0 && aligned16(a.attq) && aligned16(a.xq) &&
+            aligned16(a.xq3) && aligned16(a.wo) && aligned16(a.w13) && aligned16(a.w2) &&
+            aligned16(a.wqkv);
+    return 0;
+}
+
+// Launches kern(args) cooperatively with as many blocks as fit on the card
+// at once.  A refused launch (e.g. cudaErrorCooperativeLaunchTooLarge) is
+// returned, never retried.
+template <class Args>
+int coop_launch(void (*kern)(Args), const Args& args, int smem, cudaStream_t st) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm * sms < kMaxRows)  // the boundaries take one block per row
+        return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    void* params[] = {const_cast<Args*>(&args)};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(per_sm * sms),
+                                      dim3(kThreads), params, smem, st);
+    return static_cast<int>(err);
+}
+
+}  // namespace fd

@@ -70,8 +70,7 @@ rmsnorm_quantize_kernel(const T* __restrict__ x, const W* __restrict__ w,
     }
     ss = block_sum<kThreads>(ss, dred);  // its barrier also publishes xs
 
-    const float ms = __fmul_rn(static_cast<float>(ss), __frcp_rn(static_cast<float>(N)));
-    const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(1e-5f, ms)));
+    const float r = rms_factor(ss, N);
     auto xf = [&](long long i) {
         const float xi = i < cap ? xs[i] : to_f32(xr[i]);
         return __fmul_rn(__fmul_rn(xi, r), to_f32(w[i]));

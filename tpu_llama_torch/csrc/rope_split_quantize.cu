@@ -77,8 +77,9 @@ rope_split_quantize_kernel(const T* __restrict__ qkv, const float* __restrict__ 
             const int p = lane + 32 * i;
             float x0 = 0.f, x1 = 0.f;
             if (p < hp) load_pair(xh + 2 * p, x0, x1);
-            r0[i] = roped ? __fsub_rn(__fmul_rn(x0, c[i]), __fmul_rn(x1, sn[i])) : x0;
-            r1[i] = roped ? __fadd_rn(__fmul_rn(x0, sn[i]), __fmul_rn(x1, c[i])) : x1;
+            r0[i] = x0;
+            r1[i] = x1;
+            if (roped) rope_pair(x0, x1, c[i], sn[i], r0[i], r1[i]);
         }
         if (j < NH) {
             T* qh = qo + m * NH * hd + static_cast<long long>(j) * hd;

@@ -11,15 +11,24 @@ without them:
   cache, K6 attention, K2 + K1 with the residual (wo), K3, K1 (w13), K4
   silu*up+quant, K1 with the residual (w2).  Unfused layouts run the
   unfused body through ``w8a8_matmul`` (K2 + K1) and K6;
-* decode: ``forward_decode`` -> ``decode_stack``, JAX's unfused decode math
-  (``fused=False``) on either layout: every matmul through K2 + K1, the
-  residual adds in K1's epilogue.  ``attn="flash_dma"`` / ``"flash"`` run the deferred-flush branch
-  (llama.py:1277-1327): the cache is read-only during the layer loop, each
-  layer attends over its rows < pos plus the fresh row (K9 / K19), and one
-  K10 call writes every layer's row after the loop.  ``attn="xla"`` runs the
-  XLA branch (llama.py:1328-1339): per-layer cache write, attention over the
-  dequantized cache in plain PyTorch.  ``"auto"`` is xla on a CPU cache and
-  flash_dma (K9) on a CUDA one (``_resolve_decode_attn``).
+* decode: ``forward_decode(fused=...)`` (llama.py:1101-1203).
+  ``fused=False`` -> ``decode_stack``, JAX's unfused decode math on either
+  layout: every matmul through K2 + K1, the residual adds in K1's
+  epilogue.  ``attn="flash_dma"`` / ``"flash"`` run the deferred-flush
+  branch (llama.py:1277-1327): the cache is read-only during the layer
+  loop, each layer attends over its rows < pos plus the fresh row (K9 /
+  K19), and one K10 call writes every layer's row after the loop.
+  ``attn="xla"`` runs the XLA branch (llama.py:1328-1339): per-layer cache
+  write, attention over the dequantized cache in plain PyTorch.  ``"auto"``
+  is xla on a CPU cache and flash_dma (K9) on a CUDA one
+  (``_resolve_decode_attn``).  On fused W8A8 layouts ``fused=True`` ->
+  ``fused_decode_stack`` (llama.py:978-1096): per layer the flash
+  attention, K2, then K11 (the layer's linear work and the next layer's
+  qkv), layer 0's qkv from K3 + K8; ``fused="mega2"`` ->
+  ``mega2_decode_stack`` (llama.py:712-805): a prologue (K3, K8, K9, K2),
+  then one K12 launch per layer (its linear work and the next layer's
+  attention).  Both keep the deferred K10 flush.  ``fused="auto"`` is
+  False on a CPU cache, a fused mode on a CUDA one (``_resolve_fused``).
 
 JAX's functional cache updates become IN-PLACE writes into the cache
 tensors: ``forward_prefill`` and ``forward_decode`` mutate the cache they
@@ -28,8 +37,8 @@ Python loop over per-layer views.  Weights stay stacked ``[L, ...]`` and
 matmul weights are K-major ``ChannelQuantTensor``s (``q [L, out, in]``).
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: the fused decode (K8, K11, K12), start_pos > 0 and
-chunked prefill, fp caches and dense/q8_0 weights, paged caches.
+their ROADMAP item: the mega and mega3 decodes (K27, K26), start_pos > 0
+and chunked prefill, fp caches and dense/q8_0 weights, paged caches.
 """
 
 from __future__ import annotations
@@ -50,9 +59,12 @@ from tpu_llama_torch.ops.attention import (
     kv_cache_flush_rows,
     quantize_kv,
 )
+from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
+from tpu_llama_torch.ops.fused_step2 import fused_step2_layer
 from tpu_llama_torch.ops.matmul import w8a8_matmul, w8a8_matmul_prequant
 from tpu_llama_torch.ops.quant import (
     ChannelQuantTensor,
+    quantize_activations,
     quantize_channel,
     rmsnorm_quantize,
     rope_f32,
@@ -394,16 +406,168 @@ def decode_stack(layers: LayerParams, cache: QuantKVCache, x, pos, cos, sin,
     return x
 
 
+def _fused_path_ok(params: LlamaParams, config: ModelConfig) -> bool:
+    """The fused decode's weights (llama.py:657): W8A8 in the fused wqkv /
+    w13 layouts.  The TPU's 128-alignment and VMEM gates are Mosaic rules
+    that K11 and K12 do not have."""
+    lp = params.layers
+    return (all(isinstance(w, ChannelQuantTensor) for w in (lp.wq, lp.wo, lp.w1, lp.w2))
+            and _fused_layouts(lp, config))
+
+
+def _mega2_path_ok(params: LlamaParams, config: ModelConfig, cache, B: int) -> bool:
+    """What K12 takes (llama.py:683): a dense INT8 cache, any even head_dim
+    <= 128 that is a multiple of 4 and up to 8 query heads per kv head (K9's
+    cell), and up to ``MAX_ROWS`` slots.  Not the TPU's head_dim % 128."""
+    hd = config.head_dim
+    return (isinstance(cache, QuantKVCache) and cache.k.dtype == torch.int8
+            and hd <= 128 and hd % 4 == 0 and config.group_size <= 8 and B <= MAX_ROWS)
+
+
+FUSED_MODES = (False, True, "mega2", "auto")
+
+
+def _resolve_fused(fused, attn: str, params: LlamaParams, config: ModelConfig, cache, B: int):
+    """``forward_decode``'s fused-decode policy, the structure of llama.py:
+    1131-1194.  ``"auto"`` is False on a CPU cache, as the JAX package on
+    the CPU.  On a CUDA cache with a flash attention, weights that
+    ``_fused_path_ok`` takes and at most MAX_ROWS slots, it is ``"mega2"``
+    where ``_mega2_path_ok`` holds, else True: on an H100 mega2 (K12) took
+    fewer device-ms and host-ms per step than the two-launch decode (K11 +
+    K9) and the unfused one at batch 8 and batch 1, position 512
+    (``profile_serving.py``, the A/B in PERF.md).  An explicit mode that its
+    gate refuses raises ValueError; ``"mega"`` and ``"mega3"`` are not
+    ported."""
+    if fused in ("mega", "mega3"):
+        raise NotImplementedError(f"fused={fused!r} (K27 / K26): ROADMAP queue 1 item 9")
+    if fused not in FUSED_MODES:
+        raise ValueError(f"fused decode {fused!r}: want one of {FUSED_MODES}")
+    if not isinstance(fused, str):
+        fused = bool(fused)
+    if fused == "auto":
+        if (cache.k.device.type != "cuda" or attn not in ("flash", "flash_dma")
+                or not _fused_path_ok(params, config) or B > MAX_ROWS):
+            return False
+        return "mega2" if _mega2_path_ok(params, config, cache, B) else True
+    if fused == "mega2" and not (_fused_path_ok(params, config)
+                                 and _mega2_path_ok(params, config, cache, B)):
+        raise ValueError("mega2 decode requires fused W8A8 layouts, a dense INT8 cache, an "
+                         f"even head_dim <= 128 (a multiple of 4), at most 8 query heads per "
+                         f"kv head and at most {MAX_ROWS} slots")
+    if fused is True:
+        if attn not in ("flash", "flash_dma"):
+            raise ValueError("fused decode requires a flash attention impl")
+        if not _fused_path_ok(params, config) or B > MAX_ROWS:
+            raise ValueError(f"fused decode requires fused W8A8 layouts and at most "
+                             f"{MAX_ROWS} slots")
+    return fused
+
+
+def _decode_prologue(layers: LayerParams, x0, config: ModelConfig):
+    """Layer 0's qkv for the fused decode (llama.py:996-1004): the f32
+    embedding rows through K3 (rmsnorm + quant: on an f32 input the math of
+    JAX's rmsnorm then quantize_activations) and K8."""
+    xq0, sx0 = rmsnorm_quantize(x0, layers.rms_att[0])
+    return w8a8_matmul_stacked(xq0, sx0, layers.wq, 0)
+
+
+def _split_qkv(qkv, cos, sin, config: ModelConfig):
+    """f32 [B, QO] -> roped q [B, KVH, G, hd], and k, v quantized per head
+    ((kq, ks), (vq, vs)), as the JAX scan body does in XLA."""
+    B = qkv.shape[0]
+    D, KVD, NH, KVH, hd = (config.dim, config.kv_dim, config.n_heads, config.n_kv_heads,
+                           config.head_dim)
+    q = apply_rope(qkv[:, :D].reshape(B, NH, hd), cos, sin)
+    k = apply_rope(qkv[:, D:D + KVD].reshape(B, KVH, hd), cos, sin)
+    v = qkv[:, D + KVD:].reshape(B, KVH, hd)
+    return q.reshape(B, KVH, config.group_size, hd), quantize_kv(k), quantize_kv(v)
+
+
+def fused_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
+                       config: ModelConfig, attn: str):
+    """The two-launch fused decode layer stack, dense INT8 branch
+    (llama.py:978-1096): x0 [B, D] in -> x f32 [B, D].  Per layer the
+    attention (K9 for ``"flash_dma"``, K19 for ``"flash"``) on the qkv the
+    previous K11 launch left, K2 on its output, then K11 (the layer's linear
+    work and the next layer's qkv); layer 0's qkv from the prologue (K3,
+    K8).  The residual stream stays f32 across layers, as JAX's scan carry.
+    One K10 flush writes every layer's row after the loop."""
+    B, D = x0.shape
+    L = layers.rms_att.shape[0]
+    attend = flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
+    pos32 = pos.to(torch.int32)
+    x = x0.float()
+    qkv = _decode_prologue(layers, x, config)
+    rows = []
+    for i in range(L):
+        q, (kq, ks), (vq, vs) = _split_qkv(qkv, cos, sin, config)
+        rows.append((kq, vq, ks, vs))
+        att = attend(q, cache.k, cache.v, pos32, kq, vq, cache.ks, cache.vs, ks, vs, layer=i)
+        attq, satt = quantize_activations(att.reshape(B, D))
+        x, qkv = fused_layer_linear(x, attq, satt, layers.wo, layers.w1, layers.w2, layers.wq,
+                                    layers.rms_ffn, layers.rms_att, i, L)
+    rows_k, rows_v, rows_ks, rows_vs = (torch.stack(r) for r in zip(*rows))
+    kv_cache_flush_rows(rows_k, rows_v, pos32, cache.k, cache.v, rows_ks, rows_vs, cache.ks,
+                        cache.vs)
+    return x
+
+
+def mega2_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
+                       config: ModelConfig):
+    """The mega2 layer stack (llama.py:712-805): x0 [B, D] in -> x f32
+    [B, D].  Prologue: K3 and K8 (layer 0's qkv), RoPE and quantize_kv,
+    K9 (layer 0's attention), K2; then one K12 launch per layer (layer l's
+    linear work and layer l + 1's attention), each writing layer l + 1's
+    fresh rows straight into the step's flush buffers; one K10 flush."""
+    B, D = x0.shape
+    L = layers.rms_att.shape[0]
+    KVH, hd = config.n_kv_heads, config.head_dim
+    pos32 = pos.to(torch.int32)
+    x = x0.float()
+    q, (kq, ks), (vq, vs) = _split_qkv(_decode_prologue(layers, x, config), cos, sin, config)
+    att = flash_decode_attention_dma(q, cache.k, cache.v, pos32, kq, vq, cache.ks, cache.vs,
+                                     ks, vs, layer=0)
+    attq, satt = quantize_activations(att.reshape(B, D))
+    dev = x.device
+    rows_k = torch.empty((L, B, KVH, hd), dtype=torch.int8, device=dev)
+    rows_v = torch.empty_like(rows_k)
+    rows_ks = torch.empty((L, B, KVH), dtype=torch.float32, device=dev)
+    rows_vs = torch.empty_like(rows_ks)
+    for dst, src in zip((rows_k[0], rows_ks[0], rows_v[0], rows_vs[0]), (kq, ks, vq, vs)):
+        dst.copy_(src)
+    for i in range(L):
+        nxt = min(i + 1, L - 1)  # the last launch computes no rows: its buffers go unread
+        x, attq, satt, *_ = fused_step2_layer(
+            x, attq, satt, cache.k, cache.v, cache.ks, cache.vs, pos32, cos, sin, layers.wo,
+            layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att, i, L,
+            config.n_heads, out=(rows_k[nxt], rows_ks[nxt], rows_v[nxt], rows_vs[nxt]))
+    kv_cache_flush_rows(rows_k, rows_v, pos32, cache.k, cache.v, rows_ks, rows_vs, cache.ks,
+                        cache.vs)
+    return x
+
+
 def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
-                   pos: torch.Tensor, config: ModelConfig, attn: str = "auto"):
-    """One decode step for a batch (llama.py:1101, unfused): tokens/pos [B].
+                   pos: torch.Tensor, config: ModelConfig, attn: str = "auto",
+                   fused="auto"):
+    """One decode step for a batch (llama.py:1101): tokens/pos [B].
     ``attn``: one of ``DECODE_ATTN`` (see ``_resolve_decode_attn``).
-    Returns (logits [B, V] f32, cache) -- the cache updated in place."""
+    ``fused`` (see ``_resolve_fused``): False runs the unfused
+    ``decode_stack``; True the two-launch ``fused_decode_stack`` (K11 + the
+    flash attention per layer); ``"mega2"`` ``mega2_decode_stack`` (K12);
+    ``"auto"`` picks from the device, the weights and the cache.  The fused
+    paths carry the residual stream in f32 (llama.py:996).  Returns
+    (logits [B, V] f32, cache) -- the cache updated in place."""
     attn = _resolve_decode_attn(attn, cache)
+    fused = _resolve_fused(fused, attn, params, config, cache, tokens.shape[0])
     tokens, pos = tokens.long(), pos.long()
     x = params.tok_emb[tokens]
-    x = decode_stack(params.layers, cache, x, pos, params.rope_cos[pos],
-                     params.rope_sin[pos], config, attn=attn)
+    cos, sin = params.rope_cos[pos], params.rope_sin[pos]
+    if fused == "mega2":
+        x = mega2_decode_stack(params.layers, cache, x, pos, cos, sin, config)
+    elif fused:
+        x = fused_decode_stack(params.layers, cache, x, pos, cos, sin, config, attn)
+    else:
+        x = decode_stack(params.layers, cache, x, pos, cos, sin, config, attn=attn)
     x = rmsnorm(x, params.rms_final)
     return matmul_any(x, params.wcls).float(), cache
 
@@ -513,12 +677,12 @@ def forward_prefill(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tens
 
 def greedy_decode_loop(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
                        pos: torch.Tensor, steps: int, config: ModelConfig,
-                       attn: str = "auto"):
+                       attn: str = "auto", fused="auto"):
     """``steps`` greedy decode steps (llama.py:2016) as a Python loop: the
     argmax feeds back on the device.  Returns (tokens [B, steps], cache)."""
     toks, p, out = tokens.long(), pos.long(), []
     for _ in range(steps):
-        logits, cache = forward_decode(params, cache, toks, p, config, attn=attn)
+        logits, cache = forward_decode(params, cache, toks, p, config, attn=attn, fused=fused)
         toks = logits.argmax(dim=-1)
         out.append(toks)
         p = p + 1

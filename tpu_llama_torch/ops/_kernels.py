@@ -4,8 +4,8 @@ Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface -- no PyTorch headers, so a build takes seconds -- and loads
 through ``ctypes``.  The first launch builds every library at once (one
 ``nvcc`` per source, all running together) into ``build/kernels/`` at the
-repo root.  A library's file name carries a hash of its source, the shared
-header and the flags, so an edited source rebuilds.  Nothing here is built
+repo root.  A library's file name carries a hash of its source, every
+header it includes and the flags, so an edited source or header rebuilds.  Nothing here is built
 or loaded at import time: the CPU tests import every module.
 
 Launch and plain-version counts: every wrapper in ``tpu_llama_torch.ops``
@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -55,12 +56,23 @@ SOURCES = {
                            [_P, _I, *[_P] * 10, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P]),
     "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, _I, _I, _I, _I, _I, _P]),
+    # x, attq, satt, 4 x (weights, scales), rms_ffn, rms_att, rms dtype, x_next, qkv,
+    # xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
+    "fused_layer": ("tl_fused_layer_linear",
+                    [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I, _P]),
+    # the above, then k, v, ks, vs, pos, cos, sin, att, attq_next, satt_next, kq, ks_new,
+    # vq, vs_new, KVH, G, hd, S, layer_next, TS, 1/sqrt(hd), copy chunk, stream
+    "fused_step2": ("tl_fused_step2_layer",
+                    [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
+                     *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]),
 }
 
-# kernel id -> source; the ids follow ROADMAP.md queue 2
+# kernel id -> source; the ids follow ROADMAP.md queue 2.  K8 is K1's kernel
+# launched on one layer of stacked weights (a pointer offset on the card).
 KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K4": "silu_mul_quantize", "K5": "rope_split_quantize", "K6": "flash_prefill",
-           "K7": "kv_scatter", "K9": "flash_decode_dma", "K10": "kv_flush_rows",
+           "K7": "kv_scatter", "K8": "w8a8_matmul", "K9": "flash_decode_dma",
+           "K10": "kv_flush_rows", "K11": "fused_layer", "K12": "fused_step2",
            "K19": "flash_decode_fresh"}
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
@@ -92,9 +104,23 @@ def _nvcc() -> str:
     return found
 
 
+def _headers(src: Path) -> list[Path]:
+    """The csrc headers ``src`` includes, directly or through another."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        for name in re.findall(r'^#include "([^"]+)"', todo.pop().read_text(), re.M):
+            p = _CSRC / name
+            if p not in found:
+                found.append(p)
+                todo.append(p)
+    return sorted(found)
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for p in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+    src = _CSRC / f"{name}.cu"
+    for p in (src, *_headers(src)):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"

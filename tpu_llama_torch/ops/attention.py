@@ -188,29 +188,41 @@ def _dma_block(S: int, block_s: int | None) -> int:
     return ts
 
 
+def check_cache(name, k_cache, v_cache, k_scale, v_scale, pos):
+    """Validate a decode step's INT8 cache [L, B, KVH, S, hd], its f32
+    scales [L, B, KVH, S] and pos [B]; returns the cache's shape."""
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise NotImplementedError(_FP_CACHE.format(name))
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"{name}: INT8 caches need k_scale and v_scale")
+    if k_cache.dim() != 5:
+        raise ValueError(f"{name}: want k_cache [L, B, KVH, S, hd]")
+    L, B, KVH, S, hd = k_cache.shape
+    if (v_cache.shape != k_cache.shape or k_scale.shape != (L, B, KVH, S)
+            or v_scale.shape != k_scale.shape or pos.shape != (B,)):
+        raise ValueError(f"{name}: shape mismatch: k {tuple(k_cache.shape)}, v "
+                         f"{tuple(v_cache.shape)}, ks {tuple(k_scale.shape)}, vs "
+                         f"{tuple(v_scale.shape)}, pos {tuple(pos.shape)}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: K/V scales must be float32")
+    return L, B, KVH, S, hd
+
+
 def _check_decode(name, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
                   new_vs, layer):
     """Validate a decode-attention call; returns the layer index as a host
     int."""
-    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
-        raise NotImplementedError(_FP_CACHE.format(name))
-    if any(t is None for t in (k_scale, v_scale, new_ks, new_vs)):
-        raise ValueError(f"{name}: INT8 caches need k_scale, v_scale, new_ks and new_vs")
-    if q.dim() != 4 or k_cache.dim() != 5:
-        raise ValueError(f"{name}: want q [B, KVH, G, hd] and k_cache [L, B, KVH, S, hd]")
-    B, KVH, G, hd = q.shape
-    L, S = k_cache.shape[0], k_cache.shape[3]
-    if (k_cache.shape != (L, B, KVH, S, hd) or v_cache.shape != k_cache.shape
-            or k_scale.shape != (L, B, KVH, S) or v_scale.shape != k_scale.shape
+    L, B, KVH, S, hd = check_cache(name, k_cache, v_cache, k_scale, v_scale, pos)
+    if new_ks is None or new_vs is None:
+        raise ValueError(f"{name}: INT8 caches need new_ks and new_vs")
+    if (q.dim() != 4 or q.shape[:2] != (B, KVH) or q.shape[3] != hd
             or new_k.shape != (B, KVH, hd) or new_v.shape != new_k.shape
-            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape
-            or pos.shape != (B,)):
+            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape):
         raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
-                         f"ks {tuple(k_scale.shape)}, new_k {tuple(new_k.shape)}, "
-                         f"new_ks {tuple(new_ks.shape)}, pos {tuple(pos.shape)}")
+                         f"new_k {tuple(new_k.shape)}, new_ks {tuple(new_ks.shape)}")
     if new_k.dtype != torch.int8 or new_v.dtype != torch.int8:
         raise TypeError(f"{name}: the fresh rows of an INT8 cache must be int8")
-    if any(t.dtype != torch.float32 for t in (k_scale, v_scale, new_ks, new_vs)):
+    if new_ks.dtype != torch.float32 or new_vs.dtype != torch.float32:
         raise TypeError(f"{name}: K/V scales must be float32")
     layer = 0 if layer is None else int(layer)
     if not 0 <= layer < L:
@@ -237,23 +249,31 @@ def flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_s
     """Plain version of K9: the TPU kernel's online softmax
     over blocks of ``block_s`` rows with the same bf16 roundings (q for the
     score dot, the unnormalized p * vs for the PV dot), then the fresh-column
-    merge.  Every block is visited; one past a slot's pos is fully masked,
-    which leaves (m, l, acc) unchanged exactly as the kernel's skipped
-    block does."""
-    B, KVH, G, hd = q.shape
-    S = k_cache.shape[3]
-    ts = _dma_block(S, block_s)
-    kc, vc, ks, vs = k_cache[layer], v_cache[layer], k_scale[layer], v_scale[layer]
+    merge with the unrounded q."""
     qs = _scaled_q(q)
-    qb = _bf16(qs)
+    acc, m, l = decode_online_softmax(_bf16(qs), k_cache, v_cache, k_scale, v_scale, pos, layer,
+                                      _dma_block(k_cache.shape[3], block_s))
+    return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
+
+
+def decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: int, ts: int):
+    """K9's online softmax over blocks of ``ts`` cache rows of ``layer``,
+    rows s < pos[b]: qb [B, KVH, G, hd] the queries as the score dot takes
+    them (bf16 values).  Returns (acc [B, KVH, G, hd] unnormalized, m, l
+    [B, KVH, G]), the state ``_fresh_tail_merge`` finishes.  Every block is
+    visited; one past a slot's pos is fully masked, which leaves the state
+    unchanged exactly as the kernel's skipped block does."""
+    B, KVH, G, hd = qb.shape
+    S = k_cache.shape[3]
+    kc, vc, ks, vs = k_cache[layer], v_cache[layer], k_scale[layer], v_scale[layer]
     p = pos.long()[:, None, None, None]
-    m = torch.full((B, KVH, G), _NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KVH, G), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, KVH, G), _NEG_INF, dtype=torch.float32, device=qb.device)
+    l = torch.zeros((B, KVH, G), dtype=torch.float32, device=qb.device)
+    acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=qb.device)
     for base in range(0, S, ts):
         rows = slice(base, base + ts)
         s = torch.einsum("bkgd,bksd->bkgs", qb, kc[:, :, rows].float()) * ks[:, :, None, rows]
-        valid = torch.arange(base, base + ts, device=q.device)[None, None, None, :] < p
+        valid = torch.arange(base, base + ts, device=qb.device)[None, None, None, :] < p
         m_new = torch.maximum(m, torch.where(valid, s, _NEG_INF).amax(-1))
         corr = torch.exp(m - m_new)
         pr = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
@@ -261,7 +281,7 @@ def flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_s
         pr = _bf16(pr * vs[:, :, None, rows])
         acc = acc * corr[..., None] + torch.einsum("bkgs,bksd->bkgd", pr, vc[:, :, rows].float())
         m = m_new
-    return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
+    return acc, m, l
 
 
 def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale,
@@ -286,6 +306,21 @@ def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k
             + p_new[..., None] * new_v.float()[:, :, None, :])
 
 
+def launch_chunk(kernel, k_cache, v_cache, hd, *scales) -> int:
+    """The bytes a decode cell copies per cp.async (common.cuh
+    dec_issue_tile): 16 when head_dim and the cache allow, else 4; raises
+    for a cache the kernels cannot read in place."""
+    if not all(t.is_contiguous() for t in (k_cache, v_cache, *scales)):
+        raise ValueError(f"{kernel} reads the cache where it lies: it must be contiguous")
+    ptrs = (k_cache.data_ptr(), v_cache.data_ptr())
+    if hd % 16 == 0 and all(a % 16 == 0 for a in ptrs):
+        return 16
+    if hd % 4 == 0 and all(a % 4 == 0 for a in ptrs):
+        return 4
+    raise NotImplementedError(f"{kernel} copies cache rows in 4-byte chunks: head_dim "
+                              f"{hd} must be a multiple of 4")
+
+
 def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
                    new_vs, layer, *block):
     """Launch K9 (``block`` = its key block rows) or K19 on CUDA tensors."""
@@ -294,16 +329,7 @@ def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_sc
     if G > 8 or hd > 128:
         raise NotImplementedError(f"{kernel} takes up to 8 query heads per kv head and "
                                   f"head_dim <= 128, got G={G}, hd={hd}")
-    if not all(t.is_contiguous() for t in (k_cache, v_cache, k_scale, v_scale)):
-        raise ValueError(f"{kernel} reads the cache where it lies: it must be contiguous")
-    ptrs = (k_cache.data_ptr(), v_cache.data_ptr())
-    if hd % 16 == 0 and all(a % 16 == 0 for a in ptrs):
-        ch = 16
-    elif hd % 4 == 0 and all(a % 4 == 0 for a in ptrs):
-        ch = 4
-    else:
-        raise NotImplementedError(f"{kernel} copies cache rows in 4-byte chunks: head_dim "
-                                  f"{hd} must be a multiple of 4")
+    ch = launch_chunk(kernel, k_cache, v_cache, hd, k_scale, v_scale)
     qc = q.contiguous()
     nk, nv, nks, nvs = (t.contiguous() for t in (new_k, new_v, new_ks, new_vs))
     p32 = pos.to(torch.int32).contiguous()  # no copy for the model's int32 positions

@@ -1,0 +1,205 @@
+"""The fused W8A8 decode layer: one launch for all of a layer's linear work
+(K11), and one layer's product from stacked weights (K8).
+
+Port of tpu_llama/ops/fused_layer.py: ``fused_layer_linear`` (:204) and
+``w8a8_matmul_stacked`` (:541).  Weights are the port's stacked K-major
+``ChannelQuantTensor``s (``q [L, out, in]``) and the layer is a host int:
+on the card a layer of a stacked tensor is a pointer offset, so K8 is K1's
+kernel launched on the layer's view, counted under its own id.  No 32-row
+padding: rows are independent and only real rows exist.  The TPU's VMEM
+block planner (``_pick_fused_blocks``, :165-201) is a Mosaic rule and is not
+carried.
+
+Each plain version does its kernel's arithmetic step for step: the int8
+products exact, every f32 product and sum rounded once (the kernels use
+round-to-nearest intrinsics), K3's rmsnorm with its f64 sum of squares, K2's
+row quant, and the SiLU spelled as the TPU kernel spells it,
+``g * (1 / (1 + exp(-g))) * u`` (:126) -- not K4's ``silu(g) * u``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_llama_torch.ops import _kernels
+from tpu_llama_torch.ops.matmul import _check, launch_w8a8, w8a8_matmul_prequant_plain
+from tpu_llama_torch.ops.quant import (
+    ChannelQuantTensor,
+    _check_float,
+    quantize_activations_plain,
+    rmsnorm_quantize_plain,
+)
+
+MAX_ROWS = 32  # batch rows K11 and K12 take (csrc/fused_decode.cuh kMaxRows)
+
+
+def w8a8_matmul_stacked_plain(xq, sx, w: ChannelQuantTensor, layer: int) -> torch.Tensor:
+    """Plain version of K8: K1's plain version on layer ``layer``'s view."""
+    return w8a8_matmul_prequant_plain(xq, sx, w.layer(layer))
+
+
+def w8a8_matmul_stacked(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor,
+                        layer: int) -> torch.Tensor:
+    """xq int8 [M, IN], sx f32 [M], stacked w (q [L, OUT, IN]) -> f32
+    [M, OUT]: ``(f32(xq . w[layer]) * sx) * w.s[layer]``.  K8 (K1's kernel on
+    the layer's view) on CUDA tensors, the plain version on CPU ones."""
+    wl = w.layer(int(layer))
+    _check(xq, sx, wl)
+    if _kernels.on_cpu("K8", xq, sx, wl.q, wl.s):
+        return w8a8_matmul_stacked_plain(xq, sx, w, int(layer))
+    return launch_w8a8("K8", xq, sx, wl, torch.float32)
+
+
+def silu_mul_f32(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``g * (1 / (1 + exp(-g))) * u`` in f32, each step rounded."""
+    return g * (1.0 / (1.0 + torch.exp(-g))) * u
+
+
+def linear_phases_plain(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, last: bool,
+                        bf16_h2: bool = False):
+    """Phases A-D of one layer on the layer's views (wqkv and rms_att of
+    layer l + 1): (x_next f32 [B, D], qkv f32 [B, QO], or None when
+    ``last``).  ``bf16_h2`` rounds h2 to bf16 before its quant (K12)."""
+    H = w2.in_features
+    x2 = w8a8_matmul_prequant_plain(attq, satt, wo, residual=x)
+    hq, hs = rmsnorm_quantize_plain(x2, rms_ffn)
+    gu = w8a8_matmul_prequant_plain(hq, hs, w13)
+    h2 = silu_mul_f32(gu[:, :H], gu[:, H:])
+    if bf16_h2:
+        h2 = h2.to(torch.bfloat16).float()
+    q3, s3 = quantize_activations_plain(h2)
+    x_next = w8a8_matmul_prequant_plain(q3, s3, w2, residual=x2)
+    if last:
+        return x_next, None
+    q4, s4 = rmsnorm_quantize_plain(x_next, rms_att)
+    return x_next, w8a8_matmul_prequant_plain(q4, s4, wqkv)
+
+
+def check_layer(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, layer, n_layers):
+    """Validate a fused-layer call; returns (B, D, H, QO)."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"want x f32 [B, D], got {x.dtype} {tuple(x.shape)}")
+    B, D = x.shape
+    if attq.shape != (B, D) or attq.dtype != torch.int8:
+        raise ValueError(f"want attq int8 [{B}, {D}], got {attq.dtype} {tuple(attq.shape)}")
+    if satt.shape != (B,) or satt.dtype != torch.float32:
+        raise ValueError(f"want satt f32 [{B}], got {satt.dtype} {tuple(satt.shape)}")
+    ws = (wo, w13, w2, wqkv)
+    if not all(isinstance(w, ChannelQuantTensor) and w.q.dim() == 3 for w in ws):
+        raise TypeError("wo, w13, w2 and wqkv must be stacked ChannelQuantTensors (q [L, out, in])")
+    L = wo.q.shape[0]
+    H = w2.in_features
+    QO = wqkv.out_features
+    if (wo.q.shape != (L, D, D) or w13.q.shape != (L, 2 * H, D) or w2.q.shape != (L, D, H)
+            or wqkv.q.shape != (L, QO, D) or n_layers != L):
+        raise ValueError(f"stacked weights disagree: wo {tuple(wo.q.shape)}, w13 "
+                         f"{tuple(w13.q.shape)}, w2 {tuple(w2.q.shape)}, wqkv "
+                         f"{tuple(wqkv.q.shape)}, n_layers {n_layers}")
+    if rms_ffn.shape != (L, D) or rms_att.shape != (L, D):
+        raise ValueError(f"want rms_ffn and rms_att [{L}, {D}]")
+    _check_float("fused layer rms weights", rms_ffn, rms_att)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside [0, {L})")
+    return B, D, H, QO
+
+
+def layer_views(wo, w13, w2, wqkv, rms_ffn, rms_att, layer: int, n_layers: int):
+    """Layer ``layer``'s wo, w13, w2 and rms_ffn with layer l + 1's wqkv and
+    rms_att (layer ``layer``'s at the last layer, where they go unused)."""
+    nxt = min(layer + 1, n_layers - 1)
+    return (wo.layer(layer), w13.layer(layer), w2.layer(layer), wqkv.layer(nxt),
+            rms_ffn[layer], rms_att[nxt])
+
+
+def launch_args(x, attq, satt, views, x_next, qkv, B, D, H, QO, last):
+    """The leading arguments of tl_fused_layer_linear / tl_fused_step2_layer
+    (see _kernels.SOURCES), with their scratch allocated in one tensor."""
+    wo, w13, w2, wqkv, rf, ra = views
+    if not all(t.is_contiguous() for w in (wo, w13, w2, wqkv) for t in (w.q, w.s)):
+        raise ValueError("the fused decode reads the weights where they lie: each layer's "
+                         "q and s must be contiguous")
+    dev = x.device
+    # xq [B, D] i8 | xq3 [B, H] i8 | sx [B] | sx3 [B] | h2 [B, H] f32, 16-byte aligned
+    sizes = [B * D, B * H, 4 * B, 4 * B, 4 * B * H]
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 16) * 16
+    ws = torch.empty(total, dtype=torch.uint8, device=dev)
+    base = ws.data_ptr()
+    xq, xq3, sx, sx3, h2 = (base + o for o in offs)
+    if rf.dtype != ra.dtype:
+        ra = ra.to(rf.dtype)
+    args = [x.data_ptr(), attq.data_ptr(), satt.data_ptr()]
+    for w in (wo, w13, w2, wqkv):
+        args += [w.q.data_ptr(), w.s.data_ptr()]
+    args += [rf.data_ptr(), ra.data_ptr(), _kernels.dtype_code(rf.dtype), x_next.data_ptr(),
+             qkv.data_ptr(), xq, sx, h2, xq3, sx3, barrier(dev).data_ptr(), B, D, H, QO,
+             int(last)]
+    return args, (ws, ra)  # keep the scratch alive until the launch is queued
+
+
+_BARRIERS: dict[torch.device, torch.Tensor] = {}
+
+
+def barrier(device: torch.device) -> torch.Tensor:
+    """The grid barrier of the cooperative launches on ``device``: two zeroed
+    uint32 words, made once; every barrier leaves the count at zero."""
+    if device not in _BARRIERS:
+        _BARRIERS[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIERS[device]
+
+
+def fused_layer_linear_plain(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, layer: int,
+                             n_layers: int, qkv_out=None):
+    """Plain version of K11 (its arguments and results are
+    :func:`fused_layer_linear`'s)."""
+    views = layer_views(wo, w13, w2, wqkv, rms_ffn, rms_att, layer, n_layers)
+    last = layer + 1 >= n_layers
+    x_next, qkv = linear_phases_plain(x, attq, satt, *views, last=last)
+    if qkv_out is None:
+        qkv_out = torch.empty((x.shape[0], wqkv.out_features), dtype=torch.float32,
+                              device=x.device)
+    if qkv is not None:
+        qkv_out.copy_(qkv)
+    return x_next, qkv_out
+
+
+def fused_layer_linear(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
+                       wo: ChannelQuantTensor, w13: ChannelQuantTensor, w2: ChannelQuantTensor,
+                       wqkv: ChannelQuantTensor, rms_ffn: torch.Tensor, rms_att: torch.Tensor,
+                       layer: int, n_layers: int, qkv_out: torch.Tensor | None = None):
+    """All of decode layer ``layer``'s linear work: x f32 [B, D] (the
+    residual entering the layer), attq int8 [B, D] and satt f32 [B] (its
+    quantized attention output), the stacked wo, w13 ([gate|up]), w2 and
+    wqkv ([q|k|v]), rms_ffn and rms_att [L, D], ``layer`` a host int.
+    Returns (x_next f32 [B, D], qkv_next f32 [B, D + 2 KVD]): the layer's
+    output and layer ``layer + 1``'s qkv projection of it.  At the last
+    layer qkv_next is not computed: the buffer (``qkv_out``, or a new
+    uninitialized one) comes back untouched.  B <= 32 on the card.  K11 on
+    CUDA tensors (one cooperative launch), the plain version on CPU ones."""
+    layer = int(layer)
+    B, D, H, QO = check_layer(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, layer,
+                              n_layers)
+    if qkv_out is not None and (qkv_out.shape != (B, QO) or qkv_out.dtype != torch.float32):
+        raise ValueError(f"want qkv_out f32 [{B}, {QO}]")
+    tensors = (x, attq, satt, wo.q, w13.q, w2.q, wqkv.q, rms_ffn, rms_att) + (
+        () if qkv_out is None else (qkv_out,))
+    if _kernels.on_cpu("K11", *tensors):
+        return fused_layer_linear_plain(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att,
+                                        layer, n_layers, qkv_out)
+    if B > MAX_ROWS:
+        raise NotImplementedError(f"K11 takes up to {MAX_ROWS} rows, got {B}")
+    views = layer_views(wo, w13, w2, wqkv, rms_ffn, rms_att, layer, n_layers)
+    x, attq, satt = x.contiguous(), attq.contiguous(), satt.contiguous()
+    x_next = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    qkv = qkv_out if qkv_out is not None else torch.empty((B, QO), dtype=torch.float32,
+                                                          device=x.device)
+    if not qkv.is_contiguous():
+        raise ValueError("qkv_out must be contiguous")
+    args, keep = launch_args(x, attq, satt, views, x_next, qkv, B, D, H, QO,
+                             layer + 1 >= n_layers)
+    if B:
+        _kernels.launch("K11", *args, _kernels.stream(x))
+    del keep
+    return x_next, qkv

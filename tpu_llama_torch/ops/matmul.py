@@ -54,6 +54,12 @@ def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTens
     tensors = (xq, sx, w.q, w.s) + (() if residual is None else (residual,))
     if _kernels.on_cpu("K1", *tensors):
         return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype, residual)
+    return launch_w8a8("K1", xq, sx, w, out_dtype, residual)
+
+
+def launch_w8a8(kernel: str, xq, sx, w: ChannelQuantTensor, out_dtype, residual=None):
+    """Launch K1's CUDA kernel on checked CUDA operands, counted as
+    ``kernel`` (K1, or K8 for a layer view of stacked weights)."""
     code = _kernels.dtype_code(out_dtype)
     xq, sx = xq.contiguous(), sx.contiguous()
     wq, ws = w.q.contiguous(), w.s.contiguous()
@@ -63,7 +69,7 @@ def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTens
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
         vec = k % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
-        _kernels.launch("K1", xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+        _kernels.launch(kernel, xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                         None if res is None else res.data_ptr(), out.data_ptr(), code, m, n,
                         k, int(vec), _kernels.stream(xq))
     return out

@@ -9,23 +9,28 @@ layouts (``random_quant_params(fuse=True)``, the served path) and an
 ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)``, warms it up, then
 traces with ``torch.profiler`` (a) one admission of 8 prompts of 512 tokens
 (the fused prefill body: K3, K4, K5 and the residual K1) and the same
-admission on unfused weights of the same shapes, (b) 8 decode steps of all 8
-slots at position 512 with each decode attention (``"flash_dma"`` K9,
-``"flash"`` K19, ``"xla"``; the first line names what ``"auto"`` resolves
-to) and with K9 on the unfused weights, then (c) 8 decode steps of a
-one-slot engine at position 512 with K19 and with K9 -- the A/B behind
-``"auto"``.  All go through the engine calls the scheduler makes.  Each phase runs warm, then
-once timed and once traced.  Prints one JSON line per phase: host wall
-time of the untraced and the traced run (closed by
-``torch.cuda.synchronize``), device busy time (the union of kernel
-intervals in the trace), the device's idle share against the untraced
-wall, device time per port kernel and for everything else, the top kernels
-by device time, and each port kernel's launch count in the untraced run.
+admission on unfused weights of the same shapes, each run warm, then once
+timed and once traced; (b) the decode A/B behind ``forward_decode``'s
+``fused="auto"``: 8 decode steps of all 8 slots at position 512, and of a
+one-slot engine at position 512, with each of the unfused decode (K9 per
+layer, ``fused=False``), the two-launch decode (K11 + K9, ``True``) and
+mega2 (K12, ``"mega2"``), decode attention K9 throughout.  The host wall
+per step of the three modes is taken over three interleaved repetitions
+(mode 1, 2, 3, 1, 2, 3, ...), then each mode is traced once.  All go
+through the engine calls the scheduler makes.  Prints one JSON line per
+phase: host wall time of the untraced runs and of the traced run (closed by
+``torch.cuda.synchronize``), device busy time (the union of kernel intervals
+in the trace), the device's idle share against the untraced wall, device
+time per port kernel and for everything else, the top kernels by device
+time, and each port kernel's launch count in an untraced run.  K1 and K8
+run one CUDA kernel (K8 is K1's kernel on a layer view), so the trace
+reports their device time together, as "K1+K8".
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 
@@ -33,11 +38,14 @@ import numpy as np
 import torch
 
 DECODE_STEPS = 8
-PORT_KERNELS = {"w8a8_kernel": "K1", "quantize_rows_kernel": "K2",
+REPS = 3
+AB_MODES = (False, True, "mega2")
+PORT_KERNELS = {"w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
                 "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
                 "kv_scatter_kernel": "K7", "flash_decode_dma_kernel": "K9",
-                "kv_flush_rows_kernel": "K10", "flash_decode_fresh_kernel": "K19"}
+                "kv_flush_rows_kernel": "K10", "fused_layer_kernel": "K11",
+                "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19"}
 
 
 def _kernel_events(prof):
@@ -116,31 +124,59 @@ def main() -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def counted(fn) -> dict:
+        _kernels.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        return {k: n for k, n in _kernels.LAUNCHES.items() if n}
+
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = timed(fn)
+        return prof, wall
+
     def run(phase, fn, **extra):
         timed(fn)  # warm: builds the kernels, fills the allocator
-        _kernels.reset_counts()
+        launches = counted(fn)
         wall = timed(fn)
-        launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            traced = timed(fn)
-        print(json.dumps(dict(summarize(phase, prof, wall, traced, smi), **extra,
+        prof, traced_wall = traced(fn)
+        print(json.dumps(dict(summarize(phase, prof, wall, traced_wall, smi), **extra,
                               launches=launches)), flush=True)
 
     run("prefill_8x512", prefiller(engine), layouts="fused")
     unfused = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, seq_len=2048)
     run("prefill_8x512_unfused", prefiller(unfused), layouts="unfused")
-    run(f"decode_b8_x{DECODE_STEPS}_flash_dma_unfused", decoder(unfused), attn="flash_dma",
-        layouts="unfused")
     del unfused
     torch.cuda.empty_cache()
     one = Engine(params, cfg, max_batch=1, seq_len=2048)
     one.prefill([prompts[0]], [0])
-    for eng, attns in ((engine, ("flash_dma", "flash", "xla")), (one, ("flash", "flash_dma"))):
-        auto = eng.decode_attn  # the engines were built with attn="auto"
-        for attn in attns:
-            eng.decode_attn = attn
-            run(f"decode_b{eng.max_batch}_x{DECODE_STEPS}_{attn}", decoder(eng),
-                attn=attn, auto_resolves_to=auto)
+    for eng in (engine, one):
+        auto = eng.decode_fused  # the engines were built with fused="auto"
+        fn = decoder(eng)
+        walls = {m: [] for m in AB_MODES}
+        for mode in AB_MODES:  # warm every mode first
+            eng.decode_fused = mode
+            timed(fn)
+        for _ in range(REPS):
+            for mode in AB_MODES:
+                eng.decode_fused = mode
+                walls[mode].append(timed(fn) * 1e3 / DECODE_STEPS)
+        for mode in AB_MODES:
+            eng.decode_fused = mode
+            launches = counted(fn)
+            prof, traced_wall = traced(fn)
+            line = summarize(f"decode_b{eng.max_batch}_x{DECODE_STEPS}_fused_{mode}", prof,
+                             statistics.median(walls[mode]) * DECODE_STEPS / 1e3, traced_wall,
+                             smi)
+            line.update(
+                fused=mode, auto_resolves_to=auto, attn=eng.decode_attn,
+                wall_ms_per_step_reps=walls[mode],
+                wall_ms_per_step_median=statistics.median(walls[mode]),
+                device_ms_per_step=line["device_busy_ms"] / DECODE_STEPS,
+                launches_per_step=line["n_kernels"] / DECODE_STEPS,
+                port_launches_per_step={k: n / DECODE_STEPS for k, n in launches.items()})
+            print(json.dumps(line), flush=True)
+        eng.decode_fused = auto
     print(json.dumps(dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           layers=cfg.n_layers, card=smi)))
 

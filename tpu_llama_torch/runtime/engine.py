@@ -14,7 +14,10 @@ Port of tpu_llama/runtime/engine.py for the dense INT8 path:
   or ``"flash"`` K19) no layer writes the cache during the step: one K10
   flush after the layer loop writes every layer's row.  ``"xla"`` (what
   ``"auto"`` picks on the CPU) writes each layer's row in place before its
-  attention.
+  attention.  On fused W8A8 layouts the card decodes through the fused
+  decode (``fused="auto"``: mega2, one K12 launch per layer; ``True`` the
+  two-launch K11 path; ``False`` the unfused one), ``Engine.decode_fused``
+  shows the resolved mode.
 
 JAX's donated functional cache becomes one cache object updated in place.
 Paged caches, prefix reuse, device sampling and the explicit-TP paths come
@@ -34,6 +37,7 @@ from tpu_llama_torch.models.llama import (
     LlamaParams,
     QuantKVCache,
     _resolve_decode_attn,
+    _resolve_fused,
     forward_decode,
     forward_prefill,
     make_kv_cache,
@@ -78,7 +82,7 @@ class Engine:
 
     def __init__(self, params: LlamaParams, config: ModelConfig, max_batch: int = 8,
                  kv_dtype="int8", seq_len: int | None = None, kv_layout: str = "dense",
-                 attn: str = "auto", device=None):
+                 attn: str = "auto", fused="auto", device=None):
         if kv_layout != "dense":
             raise NotImplementedError("paged KV layout: ROADMAP queue 1 item 8")
         self.device = resolve_device(device)
@@ -91,8 +95,12 @@ class Engine:
         self.seq_len = seq_len or config.seq_len
         self.cache = make_kv_cache(config, max_batch, kv_dtype=kv_dtype,
                                    seq_len=self.seq_len, device=self.device)
-        # the decode attention every step runs ("auto" resolved on this cache)
+        # the decode attention and fused decode every step runs ("auto"
+        # resolved on these weights and this cache, as JAX's _decode_step
+        # calls forward_decode with fused="auto", engine.py:308-320)
         self.decode_attn = _resolve_decode_attn(attn, self.cache)
+        self.decode_fused = _resolve_fused(fused, self.decode_attn, params, config, self.cache,
+                                           max_batch)
 
     def can_admit(self, n_tokens: int) -> bool:
         """Backpressure probe; a dense cache always has room in a free slot."""
@@ -145,7 +153,8 @@ class Engine:
         (JAX's ``_decode_step``, engine.py:310, only exists to jit and donate
         the cache; here the step calls ``forward_decode`` directly.)"""
         logits, self.cache = forward_decode(self.params, self.cache, tokens, pos,
-                                            self.config, attn=self.decode_attn)
+                                            self.config, attn=self.decode_attn,
+                                            fused=self.decode_fused)
         return logits
 
     def reset(self) -> None:
