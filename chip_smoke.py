@@ -11,10 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
 3. each kernel (K1 W8A8 GEMM, also with its residual epilogue, K2 row
    quant, K3 rmsnorm+quant, K4 silu*up+quant, K5 rope+split+KV quant, K6
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
-   attention, K10 row flush; K8 stacked-weight product, K11 fused decode
-   layer, K12 mega2 layer with the next layer's attention) at the Llama-2
-   7B shapes of the serving path, against its plain PyTorch version on the
-   same inputs: K1, K2, K7, K8, K10 and K11 exact, K3, K4 and K5 within
+   attention, K10 row flush, K18 chunk write; K8 stacked-weight product,
+   K11 fused decode layer, K12 mega2 layer with the next layer's attention)
+   at the Llama-2 7B shapes of the serving path, against its plain PyTorch
+   version on the same inputs: K1, K2, K7, K8, K10, K11 and K18 exact, K3, K4 and K5 within
    QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and K19 within K6_TOL, K12's
    residual exact and its int8 outputs, scales and attention output within
    those limits; kernel, plain-version and PyTorch-library times (CUDA
@@ -31,6 +31,16 @@ Phases (any failure exits non-zero and prints no result line):
    group and layer: K3 twice, K4, K5 and K6 once; per decode step what
    ``decode_launches`` lists for the resolved mode), no plain version may
    run;
+4b. ``serve_7b_long``, the long-prompt path on phase 4's weights:
+   ``ContinuousBatcher(max_chunk=16, prefix_cache_size=8)``; wave A, 8
+   device-sampled requests of 1100-1950 prompt tokens, is one admission of
+   8 x 2048 rows, prefilled in 8 chunks of 256 (K18 landing each fused
+   chunk), then decode + sample chunks of up to 16 steps; wave B, after
+   it, 4 prefix hits continued at start_pos > 0 in one ``prefill_continue``
+   and 1 whole-prompt hit; every request must finish with in-vocab tokens,
+   ``prefix_hits`` must be 5, every kernel must launch exactly as the path
+   requires (``serve_7b_long`` writes the formula), no plain version may
+   run;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
    decode attention and fused decode, on unfused weights once each "xla"
@@ -39,9 +49,12 @@ Phases (any failure exits non-zero and prints no result line):
    the unfused, the two-launch (K8, K11 + K9) and the mega2 (K8, K9, K12)
    decode: f32 activations (tokens equal at all 8 steps, logits within
    LOGITS_TOL) and bf16 activations (prefill logits within LOGITS_TOL);
+   then, f32 and fused layouts, this slice's paths (``parity_long_paths``):
+   the chunked prefill against the one-shot one, prefix reuse against a
+   cold prefill, and the device sampler;
 6. a JSON line of the kernels (launches counted on the path that runs
-   each: phase 4, and phase 5's f32 run for a kernel that phase 4 does not
-   run: K19, K11), then the result line.
+   each: phase 4, phase 4b for K18, and phase 5's f32 run for a kernel
+   that phase 4 does not run: K19, K11), then the result line.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
 repo (``tpu_llama_torch`` must be importable from beside this file).
@@ -95,6 +108,7 @@ SRC = {
     "K7": ("tpu_llama_torch/csrc/kv_scatter.cu", "tpu_llama/ops/attention.py:1212"),
     "K9": ("tpu_llama_torch/csrc/flash_decode_dma.cu", "tpu_llama/ops/attention.py:335"),
     "K10": ("tpu_llama_torch/csrc/kv_flush_rows.cu", "tpu_llama/ops/attention.py:2470"),
+    "K18": ("tpu_llama_torch/csrc/kv_write_chunk.cu", "tpu_llama/ops/attention.py:2102"),
     "K19": ("tpu_llama_torch/csrc/flash_decode_fresh.cu", "tpu_llama/ops/attention.py:807"),
     "K8": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/fused_layer.py:541"),
     "K11": ("tpu_llama_torch/csrc/fused_layer.cu", "tpu_llama/ops/fused_layer.py:204"),
@@ -104,6 +118,7 @@ DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its k
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
 FUSED_PREFILL_PATH = PREFILL_PATH | {"K3", "K4", "K5"}  # ... on fused layouts
 DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]  # one per slot at batch 8
+CARD = "cuda"  # the card side of the parity phases
 
 
 def decode_launches(fused, attn: str, L: int) -> dict:
@@ -599,6 +614,56 @@ def check_k10(torch, tatt, results):
     torch.cuda.empty_cache()
 
 
+def check_k18(torch, tatt, results):
+    """K18 at the chunked admission's shape: one chunk of the compact 8 x
+    2048 block (B 8, KVH 32, Tc 256, hd 128) into layer 17 of a
+    [32, 8, 32, 2048, 128] cache at start 1024, bit-equal to its plain
+    version; repeated calls rotate through other chunk rows, layers and
+    starts.  The library call is one sliced ``copy_`` per array."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    L, B, KVH, S, hd, Tc, layer, start = 32, 8, 32, 2048, 128, 256, 17, 1024
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rf(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    cache = [ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd), rf(L, B, KVH, S), rf(L, B, KVH, S)]
+    nbytes = 2 * (2 * B * KVH * Tc * hd + 2 * 4 * B * KVH * Tc)  # each byte in once, out once
+    copies = n_copies(nbytes / 2)
+    rows = [(ri(B, KVH, Tc, hd), ri(B, KVH, Tc, hd), rf(B, KVH, Tc), rf(B, KVH, Tc))
+            for _ in range(copies)]
+    where = [((start + Tc * i) % S, (layer + i) % L) for i in range(copies)]
+    ref = [c.clone() for c in cache]
+    tatt.kv_cache_write_chunk(*rows[0], start, layer, *cache)
+    torch.cuda.synchronize()
+    tatt.kv_cache_write_chunk_plain(*rows[0], start, layer, *ref)
+    check(all(torch.equal(a, b) for a, b in zip(cache, ref)), "K18: cache differs")
+    del ref
+
+    def run(i, fn=tatt.kv_cache_write_chunk):
+        st, ly = where[i % copies]
+        fn(*rows[i % copies], st, ly, *cache)
+
+    ms = cuda_ms(torch, run, 50)
+    plain_ms = cuda_ms(torch, lambda i: run(i, tatt.kv_cache_write_chunk_plain), 20)
+
+    def lib(i):
+        st, ly = where[i % copies]
+        for c, r in zip(cache, rows[i % copies]):
+            c[ly, :, :, st:st + Tc].copy_(r)
+
+    library_ms = cuda_ms(torch, lib, 50)
+    b_ms, by = bound_ms(nbytes, 0, "int8")
+    results.append(dict(kernel="K18", name=f"K18 kv_write_chunk B={B} KVH={KVH} Tc={Tc} "
+                        f"into [{L}, {B}, {KVH}, {S}, {hd}] layer {layer} start {start}",
+                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                        library_ms=library_ms))
+    del cache, rows
+    torch.cuda.empty_cache()
+
+
 def _layer_weights(torch, tq, gen, L, D, H, QO):
     """Random stacked W8A8 weights of a fused 7B layer stack: wo, w13, w2,
     wqkv (K-major) and bf16 rms rows."""
@@ -651,10 +716,24 @@ def check_fused(torch, tq, tfl, tfs, results):
     check(torch.equal(got, want), f"K8 M=8 {D}x{QO}: max err {err}")
     ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked(xq, sx, wqkv, i % L), 50)
     plain_ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, i % L), 5)
+    # the library call: torch._int_mm on the layer's view plus the scales,
+    # rows padded to 32 as for K1
+    xl = torch.nn.functional.pad(xq, (0, 0, 0, 24))
+    sxl = torch.nn.functional.pad(sx, (0, 24))
+
+    def lib(i):
+        w = wqkv.layer(i % L)
+        return torch._int_mm(xl, w.q.t()).float() * sxl[:, None] * w.s[None, :]
+
+    try:
+        library_ms = cuda_ms(torch, lib, 50)
+    except RuntimeError as e:  # an _int_mm shape this build refuses
+        print(f"K8 library call unavailable: {e}", file=sys.stderr)
+        library_ms = None
     b_ms, by = bound_ms(8 * D + 32 + wbytes["wqkv"] + 4 * 8 * QO, 8 * 2 * D * QO, "int8")
     results.append(dict(kernel="K8", name=f"K8 w8a8_matmul_stacked M=8 {D}x{QO} layer 0",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                        library_ms=None))
+                        library_ms=library_ms))
 
     # K11 at batch 8, layer 17 and the last layer
     x, attq, satt = rows(8)
@@ -759,19 +838,17 @@ def make_requests(Request, vocab: int):
     return reqs
 
 
-def serve_7b(torch, smi_line):
+def serve_7b(torch, smi_line, params, params_s):
     from tpu_llama_torch.config import LLAMA2_7B
-    from tpu_llama_torch.models.llama import random_quant_params
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
     from tpu_llama_torch.runtime.metrics import summarize
 
     cfg = LLAMA2_7B
     t0 = time.time()
-    params = random_quant_params(cfg, seed=0, norm_dtype=torch.bfloat16, fuse=True)
     engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
     torch.cuda.synchronize()
-    setup_s = time.time() - t0
+    setup_s = params_s + time.time() - t0
     reqs = make_requests(Request, cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(engine)
@@ -819,7 +896,145 @@ def serve_7b(torch, smi_line):
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=launches, plain_calls=plain, card=smi_line)
     print(json.dumps(line), flush=True)
-    del engine, params, batcher
+    del engine, batcher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_requests(Request, vocab: int):
+    """Wave A: 8 device-sampled prompts of 1100-1950 tokens after BOS (four
+    of them at most 1600), 48 new tokens each, temperatures 0, 0.8 with
+    top-p 0.9 and 0.8 with top-k 40.  Wave B, for after wave A: four of
+    the shorter prompts plus a 64-300-token suffix (prefix hits, one batched
+    continuation) and one wave-A prompt unchanged (a whole-prompt hit)."""
+    rng = np.random.default_rng(44)
+    lens = [int(n) for n in rng.integers(1100, 1601, 4)] + \
+        [int(n) for n in rng.integers(1601, 1951, 4)]
+    modes = [dict(temperature=0.0), dict(temperature=0.8, topp=0.9),
+             dict(temperature=0.8, topk=40)]
+    prompts = [[int(t) for t in rng.integers(3, vocab, n)] for n in lens]
+    wave_a = [Request(prompt_tokens=p, steps=len(p) + LONG_NEW, seed=2000 + i,
+                      device_sampling=True, **modes[i % 3]) for i, p in enumerate(prompts)]
+    wave_b = []
+    for i in range(4):
+        suffix = [int(t) for t in rng.integers(3, vocab, int(rng.integers(64, 301)))]
+        p = prompts[i] + suffix
+        wave_b.append(Request(prompt_tokens=p, steps=len(p) + LONG_NEW, seed=3000 + i,
+                              device_sampling=True, **modes[i % 3]))
+    wave_b.append(Request(prompt_tokens=prompts[5], steps=len(prompts[5]) + LONG_NEW,
+                          seed=3004, device_sampling=True, **modes[2]))
+    return wave_a, wave_b
+
+
+LONG_NEW = 48  # new tokens per phase-4b request
+LONG_CHUNK = 16  # the batcher's max_chunk in phase 4b
+
+
+def serve_7b_long(torch, smi_line, params):
+    """Phase 4b: the long-prompt path at 7B on phase 4's weights.
+    ``Engine(max_batch=8, INT8 dense KV, seq_len=2048)`` +
+    ``ContinuousBatcher(max_chunk=16, prefix_cache_size=8)``: wave A is one
+    admission group of 8 x 2048 rows (> 8192: chunked prefill, 8 chunks of
+    256, K18 landing each fused chunk), device sampling with decode chunks
+    of up to 16 steps; wave B restores 5 prefixes (4 continuations at
+    start_pos > 0 in one ``prefill_continue``, 1 whole-prompt hit).  Every
+    kernel must launch exactly as the path requires, no plain version may
+    run.  Returns the kernel launches."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime.metrics import summarize
+
+    cfg = LLAMA2_7B
+    L = cfg.n_layers
+    engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+    batcher = ContinuousBatcher(engine, max_chunk=LONG_CHUNK, prefix_cache_size=8)
+    wave_a, wave_b = long_requests(Request, cfg.vocab_size)
+    walls = {"prefill": [], "prefill_continue": [], "snapshot_slot": [], "restore_slot": []}
+
+    def timed(name):  # host wall of the call, closed by a sync
+        fn = getattr(engine, name)
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            walls[name].append((time.time() - t0) * 1e3)
+            return out
+        return call
+
+    for name in walls:
+        setattr(engine, name, timed(name))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()  # counts from here on belong to this path
+    t0 = time.time()
+    for wave in (wave_a, wave_b):
+        for r in wave:
+            batcher.submit(r)
+        batcher.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    reqs = wave_a + wave_b
+    check(all(r.done for r in reqs), "a long request did not finish")
+    toks = [t for r in reqs for t in r.out_tokens]
+    check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
+          "served tokens missing or out of vocabulary")
+    check(batcher.prefix_hits == 5, f"prefix hits {batcher.prefix_hits}, want 5")
+    check(all(v == 0 for v in plain.values()), f"plain versions ran: {plain}")
+    check(len(walls["prefill"]) == 1 and len(walls["prefill_continue"]) == 1,
+          f"admissions: {len(walls['prefill'])} prefills, {len(walls['prefill_continue'])} "
+          "continuations, want one each")
+    steps = batcher.timers["decode_steps"]
+    attn, fused = engine.decode_attn, engine.decode_fused
+    chunks = 2048 // 256
+    # one chunked group: per chunk and layer K3 twice, K1 four times (qkv, wo,
+    # w13, w2), K2 once (wo), K4, K5, K6 and K18 once; per chunk the
+    # classifier's K2 + K1; one K7.  One continuation group: per layer the
+    # start_pos > 0 body's K3 twice, K1 four times, K2, K4, K5 and K6 once,
+    # the cache write a plain indexed copy; its classifier's K2 + K1.  Each
+    # decode step what its resolved mode launches.
+    groups = chunks + 1
+    want = dict(K3=2 * L * groups, K1=(4 * L + 1) * groups, K2=(L + 1) * groups,
+                K4=L * groups, K5=L * groups, K6=L * groups, K18=L * chunks, K7=1)
+    for k, n in decode_launches(fused, attn, L).items():
+        want[k] = want.get(k, 0) + n * steps
+    got = {k: n for k, n in launches.items() if n > 0}
+    check(got == want, f"{steps} decode steps (fused={fused!r}, {attn}): want exactly {want}, "
+                       f"got {got}")
+    # the continuation's gather and write-back alone, on its 4 slots
+    idx = torch.arange(4, device=engine.cache.k.device)
+
+    def gather(_):
+        for n in ("k", "v", "ks", "vs"):
+            c = getattr(engine.cache, n)
+            c.index_copy_(1, idx, c.index_select(1, idx))
+
+    gather_ms = cuda_ms(torch, gather, 5)
+    t = batcher.timers
+    rep_a, rep_b, rep = summarize(wave_a), summarize(wave_b), summarize(reqs)
+    line = dict(phase="serve_7b_long", layouts="fused", decode_attn=attn, decode_fused=fused,
+                n_requests=rep.n_requests, tokens=rep.total_tokens, wall_s=wall,
+                tok_per_s=rep.tokens_per_sec,
+                ttft_p50_ms_a=rep_a.ttft_p50_s * 1e3, ttft_p95_ms_a=rep_a.ttft_p95_s * 1e3,
+                ttft_p50_ms_b=rep_b.ttft_p50_s * 1e3, ttft_p95_ms_b=rep_b.ttft_p95_s * 1e3,
+                chunked_admission_ms=walls["prefill"][0],
+                continuation_ms=walls["prefill_continue"][0],
+                continuation_gather_writeback_ms=gather_ms, snapshot_ms=walls["snapshot_slot"],
+                restore_ms=walls["restore_slot"], prefix_hits=batcher.prefix_hits,
+                decode_steps=steps, chunks=t["chunks"], chunk_steps=t["chunk_steps"],
+                decode_ms_per_step=t["decode"] * 1e3 / max(1, steps),
+                decode_ms_per_chunk=(t["decode_dispatch"] + t["decode_read"]) * 1e3
+                / max(1, t["chunks"]),
+                admit_s=t["admit"], decode_dispatch_s=t["decode_dispatch"],
+                decode_read_s=t["decode_read"], emit_s=t["emit"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches, plain_calls=plain, card=smi_line)
+    print(json.dumps(line), flush=True)
+    del engine, batcher
     torch.cuda.empty_cache()
     return launches
 
@@ -833,14 +1048,24 @@ def _to(obj, device):
                         for f in dataclasses.fields(obj)})
 
 
-def _greedy(engine, seq, steps):
-    logits = [engine.prefill([seq], [0])[0]]
-    toks, pos = [], len(seq)
+def _greedy(engine, logits, slot: int, pos: int, steps: int):
+    """``steps`` greedy decode steps of one slot from its next-token logits,
+    fed at ``pos`` on; the engine's other slots feed token 0 at position 0.
+    Returns (tokens, the logits of every step, the first included)."""
+    toks, out = [], [logits]
+    B = engine.max_batch
     for _ in range(steps):
-        toks.append(int(np.argmax(logits[-1])))
-        logits.append(engine.decode(np.array([toks[-1]]), np.array([pos]))[0])
+        toks.append(int(np.argmax(out[-1])))
+        tok, p = np.zeros(B, np.int64), np.zeros(B, np.int64)
+        tok[slot], p[slot] = toks[-1], pos
+        out.append(engine.decode(tok, p)[slot])
         pos += 1
-    return toks, logits
+    return toks, out
+
+
+def _greedy_prompt(engine, seq, steps):
+    """Prefill ``seq`` into slot 0, then ``_greedy``."""
+    return _greedy(engine, engine.prefill([seq], [0])[0], 0, len(seq), steps)
 
 
 def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False):
@@ -856,12 +1081,12 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False):
     cpu = _to(gpu, "cpu")
     t0 = time.time()
     _kernels.reset_counts()
-    g_toks, g_log = _greedy(Engine(gpu, cfg, max_batch=1, seq_len=64, attn=attn, fused=fused),
-                            seq, PARITY_STEPS)
+    g_toks, g_log = _greedy_prompt(
+        Engine(gpu, cfg, max_batch=1, seq_len=64, attn=attn, fused=fused), seq, PARITY_STEPS)
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     t1 = time.time()
-    c_toks, c_log = _greedy(Engine(cpu, cfg, max_batch=1, seq_len=64, attn=attn, fused=fused,
-                                   device="cpu"), seq, PARITY_STEPS)
+    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, max_batch=1, seq_len=64, attn=attn,
+                                          fused=fused, device="cpu"), seq, PARITY_STEPS)
     t2 = time.time()
     path = FUSED_PREFILL_PATH if fuse else PREFILL_PATH
     if attn == "xla":  # the plain PyTorch decode launches no kernel
@@ -919,6 +1144,116 @@ def parity_2layer(torch):
     return launches
 
 
+def parity_long_paths(torch):
+    """Phase 5 for this slice's paths on the 2-layer 7B-width model with f32
+    activations in the fused layouts, card (kernels) against CPU (plain
+    versions), decode attention "flash_dma" and mega2 on both sides:
+    (i) ``forward_prefill_chunked`` (B 2, T 1024, chunk 256, lengths 1024
+    and 700) against the one-shot fresh prefill on each side, then card
+    against CPU, last-token logits within LOGITS_TOL of max |logit|, and
+    the share of int8 K/V entries that differ in the prompts' rows; (ii)
+    prefix reuse: a 300-token prefill into slot 0, snapshot, restore into
+    slot 1, ``prefill_continue`` of 40 more tokens and 8 greedy steps, whose
+    tokens must equal a cold 340-token prefill's on the same side and the
+    card's the CPU's; (iii) the device sampler on one [8, 32000] logits
+    tensor with per-row keys, temperatures, top-p and top-k: equal random
+    bits and equal tokens on both devices."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.ops import sampling as ts
+    from tpu_llama_torch.runtime import Engine
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    gpu = tl.random_quant_params(cfg, seed=3, norm_dtype=torch.float32, fuse=True,
+                                 device=CARD)
+    cpu = _to(gpu, "cpu")
+    rng = np.random.default_rng(55)
+
+    # (i) chunked against one-shot
+    B, T, chunk = 2, 1024, 256
+    toks = rng.integers(3, cfg.vocab_size, (B, T))
+    lengths = np.array([1024, 700])
+    side = {}
+    for params, dev in ((gpu, CARD), (cpu, "cpu")):
+        _kernels.reset_counts()
+        t0 = time.time()
+        tk, ln = torch.tensor(toks, device=dev), torch.tensor(lengths, device=dev)
+        cc = tl.make_kv_cache(cfg, B, seq_len=T, device=dev)
+        chunked, _ = tl.forward_prefill_chunked(params, cc, tk, ln, cfg, chunk=chunk)
+        co = tl.make_kv_cache(cfg, B, seq_len=T, device=dev)
+        one, _ = tl.forward_prefill(params, co, tk, torch.zeros(B, device=dev), ln, cfg,
+                                    logits_mode="last", assume_fresh=True)
+        side[dev] = dict(chunked=chunked.cpu().numpy(), one=one.cpu().numpy(),
+                         kv=[c.cpu() for c in (cc.k, cc.v)], kv_one=[c.cpu() for c in (co.k, co.v)],
+                         launches=dict(_kernels.LAUNCHES), s=time.time() - t0)
+        del cc, co
+
+    def flip_share(a, b):
+        rows = [(x[:, i, :, :n] != y[:, i, :, :n]).float().mean().item()
+                for x, y in zip(a, b) for i, n in enumerate(lengths)]
+        return float(np.mean(rows))
+
+    peak = float(np.abs(side["cpu"]["one"]).max())
+    errs = dict(card_chunked_vs_one_shot=float(np.abs(side[CARD]["chunked"]
+                                                      - side[CARD]["one"]).max()),
+                cpu_chunked_vs_one_shot=float(np.abs(side["cpu"]["chunked"]
+                                                     - side["cpu"]["one"]).max()),
+                card_vs_cpu_chunked=float(np.abs(side[CARD]["chunked"]
+                                                 - side["cpu"]["chunked"]).max()))
+    flips = dict(card_chunked_vs_one_shot=flip_share(side[CARD]["kv"], side[CARD]["kv_one"]),
+                 card_vs_cpu_chunked=flip_share(side[CARD]["kv"], side["cpu"]["kv"]))
+    k18 = side[CARD]["launches"]["K18"]
+    print(json.dumps(dict(phase="parity_chunked", B=B, T=T, chunk=chunk,
+                          lengths=lengths.tolist(), logit_max_err=errs, logit_peak=peak,
+                          int8_kv_flip_share=flips, card_k18_launches=k18,
+                          card_s=side[CARD]["s"], cpu_s=side["cpu"]["s"], tol=LOGITS_TOL)),
+          flush=True)
+    check(k18 == cfg.n_layers * T // chunk, f"chunked parity: K18 launched {k18} times")
+    check(all(np.isfinite(side[d][k]).all() for d in side for k in ("chunked", "one")),
+          "chunked parity: logits not finite")
+    check(all(e <= LOGITS_TOL * peak for e in errs.values()),
+          f"chunked parity: logits differ by {errs} > {LOGITS_TOL} * {peak}")
+    del side
+
+    # (ii) prefix reuse against a cold prefill
+    seq = [1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 339)]
+    streams = {}
+    for params, dev in ((gpu, CARD), (cpu, "cpu")):
+        kw = dict(seq_len=512, attn="flash_dma", fused="mega2", device=dev)
+        eng = Engine(params, cfg, max_batch=2, **kw)
+        eng.prefill([seq[:300]], [0])
+        eng.restore_slot(1, eng.snapshot_slot(0, 300))
+        first = eng.prefill_continue([seq[300:]], [1], [300])[0]
+        cont, _ = _greedy(eng, first, 1, len(seq), PARITY_STEPS)
+        cold, _ = _greedy_prompt(Engine(params, cfg, max_batch=1, **kw), seq, PARITY_STEPS)
+        streams[dev] = dict(continued=cont, cold=cold)
+        del eng
+    print(json.dumps(dict(phase="parity_prefix", prefix=300, suffix=len(seq) - 300,
+                          steps=PARITY_STEPS, tokens=streams)), flush=True)
+    check(all(v["continued"] == v["cold"] for v in streams.values()),
+          f"prefix parity: continued and cold streams differ: {streams}")
+    check(streams[CARD] == streams["cpu"], f"prefix parity: card and CPU differ: {streams}")
+
+    # (iii) the sampler
+    x = (rng.standard_normal((8, cfg.vocab_size)) * 3).astype(np.float32)
+    keys = ts.fold_in(torch.tensor(ts.keys_numpy(range(100, 108))), torch.arange(8) * 250)
+    params = (torch.tensor([0.0, 0.8, 1.3, 0.8, 1.3, 0.8, 0.0, 1.0]),
+              torch.tensor([1.0, 0.9, 1.0, 1.0, 0.9, 0.9, 1.0, 0.95]),
+              torch.tensor([0, 0, 40, 40, 0, 40, 0, 0]))
+    u = [ts.uniform(keys.to(d), (cfg.vocab_size,), 1e-20, 1.0).cpu() for d in (CARD, "cpu")]
+    toks = {}
+    for name in ("sample", "sample_nosort"):
+        fn = getattr(ts, name)
+        toks[name] = [fn(torch.tensor(x).to(d), keys.to(d), *(p.to(d) for p in params)).tolist()
+                      for d in (CARD, "cpu")]
+    bits_equal = torch.equal(u[0].view(torch.int32), u[1].view(torch.int32))
+    print(json.dumps(dict(phase="parity_sampler", bits_equal=bits_equal, tokens=toks)),
+          flush=True)
+    check(bits_equal, "sampler parity: the uniform bits differ")
+    check(all(a == b for a, b in toks.values()), f"sampler parity: tokens differ: {toks}")
+
+
 def main() -> int:
     import torch
 
@@ -970,6 +1305,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_decode_attention(torch, tatt, results)
     check_k10(torch, tatt, results)
+    check_k18(torch, tatt, results)
     check_fused(torch, tq, tfl, tfs, results)
     for r in results:  # launches follow in the kernels line, after the main path
         extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err", "att_int8_flip_share",
@@ -979,8 +1315,17 @@ def main() -> int:
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                               max_err=r["max_abs_err"], **extra, card=smi)), flush=True)
 
-    # 4. the serving path at 7B
-    launches = serve_7b(torch, smi)
+    # 4. the serving path at 7B; 4b. the long-prompt path on the same weights
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models.llama import random_quant_params
+
+    t0 = time.time()
+    params = random_quant_params(LLAMA2_7B, seed=0, norm_dtype=torch.bfloat16, fuse=True)
+    torch.cuda.synchronize()
+    launches = serve_7b(torch, smi, params, time.time() - t0)
+    launches["K18"] = serve_7b_long(torch, smi, params)["K18"]
+    del params
+    torch.cuda.empty_cache()
 
     # 5. port parity, card against CPU; a kernel that phase 4 did not run
     # counts its launches on its phase-5 path: K19 on the unfused decode with
@@ -992,6 +1337,7 @@ def main() -> int:
                          ("K9", ("flash_dma", False))):
         if launches[kernel] == 0:
             launches[kernel] = parity[path][kernel]
+    parity_long_paths(torch)
 
     # 6. result lines
     kernels = []

@@ -4,8 +4,8 @@ Marked ``cuda``; they skip (inside the ``card`` fixture, never at import)
 where there is no CUDA device.  Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 
-Required agreement: K1 (with and without a residual), K2, K7 and K10
-exact.  K3, K4 and K5 repeat their plain versions' f32 steps with
+Required agreement: K1 (with and without a residual), K2, K7, K10 and K18
+exact; the device sampler's random bits and tokens equal the CPU's.  K3, K4 and K5 repeat their plain versions' f32 steps with
 round-to-nearest intrinsics; K3 sums its squares in f64 and K4 calls CUDA's
 expf as PyTorch's sigmoid does, so an exact sum on an f32 rounding boundary
 or another expf could move a scale by an ulp and an int8 by one step:
@@ -271,6 +271,58 @@ def test_k10_exact_and_skips_out_of_range(card, hd):
     for a, b, c in zip(cache, ref, before):
         assert torch.equal(a, b)
         assert torch.equal(a[:, 3:], c[:, 3:])  # slots at pos S and -1 untouched
+
+
+@pytest.mark.parametrize("B,KVH,Tc,hd,S,start,stacked", [
+    (2, 3, 256, 128, 1024, 512, True), (1, 2, 100, 64, 300, 199, True),
+    (3, 1, 7, 12, 40, 33, False), (2, 2, 64, 128, 64, 0, False)])
+def test_k18_exact(card, B, KVH, Tc, hd, S, start, stacked):
+    """Bit-equal (a copy); rows outside [start, start + Tc) untouched."""
+    g = _gen(B + KVH + Tc + hd + S)
+    lead = (3,) if stacked else ()
+    layer = 2 if stacked else 0
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=card, dtype=torch.int8)
+
+    def rf(*shape):
+        return torch.rand(shape, generator=g, device=card)
+
+    rows = (ri(B, KVH, Tc, hd), ri(B, KVH, Tc, hd), rf(B, KVH, Tc), rf(B, KVH, Tc))
+    cache = (ri(*lead, B, KVH, S, hd), ri(*lead, B, KVH, S, hd), rf(*lead, B, KVH, S),
+             rf(*lead, B, KVH, S))
+    ref = [c.clone() for c in cache]
+    before = _kernels.LAUNCHES["K18"]
+    tatt.kv_cache_write_chunk(*rows, start, layer, *cache)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K18"] == before + 1
+    tatt.kv_cache_write_chunk_plain(*rows, start, layer,
+                                    *[r if stacked else r[None] for r in ref])
+    for a, b in zip(cache, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("V", [32000, 517])
+def test_sampler_card_equals_cpu(card, V):
+    """The threefry bits are integer arithmetic: equal on both devices.  The
+    sampled tokens too, on these seeds (softmax and masked sums in another
+    order could part them only at a cutoff tie)."""
+    from tpu_llama_torch.ops import sampling as ts
+
+    rng = np.random.default_rng(V)
+    x = (rng.standard_normal((8, V)) * 3).astype(np.float32)
+    keys = ts.fold_in(torch.tensor(ts.keys_numpy(range(8))), torch.arange(8) * 100)
+    temps = torch.tensor([0.0, 0.8, 1.3, 0.8, 1.3, 0.8, 0.0, 1.0])
+    topps = torch.tensor([1.0, 0.9, 1.0, 1.0, 0.9, 0.9, 1.0, 0.95])
+    topks = torch.tensor([0, 0, 40, 40, 0, 40, 0, 0])
+    u_cpu = ts.uniform(keys, (V,), 1e-20, 1.0)
+    u_card = ts.uniform(keys.to(card), (V,), 1e-20, 1.0)
+    assert torch.equal(u_card.cpu().view(torch.int32), u_cpu.view(torch.int32))
+    for fn in (ts.sample, ts.sample_nosort):
+        cpu = fn(torch.tensor(x), keys, temps, topps, topks)
+        got = fn(torch.tensor(x).to(card), keys.to(card), temps.to(card), topps.to(card),
+                 topks.to(card))
+        assert torch.equal(got.cpu(), cpu)
 
 
 def _fused_case(B, KVH, G, hd, H, L=3, S=300, pos=None):

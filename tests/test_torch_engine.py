@@ -4,6 +4,9 @@ with the xla decode attention and with the deferred-flush ``flash_dma`` one
 (K9 + K10) on both sides, and on fused layouts (TINY128, fused prefill body
 K3/K4/K5 + the residual K1 in the port; the JAX engine's CPU prefill runs
 its fused body with the xla attention wherever B * T is a multiple of 32).
+Then the paths of the fifth slice: prefix reuse (restore + a continuation
+at start_pos > 0), device sampling with multi-step chunks (JAX's threefry
+keys, so sampled streams are equal too) and the chunked long admission.
 
 The first admission is a group of four prompts in the 128 bucket, so on the
 JAX side it runs the K7 slot scatter and (4 x 128 rows > 256) the K2 row
@@ -177,13 +180,246 @@ def test_scheduler_stop_tokens_logprobs_and_priority():
 
 def test_scheduler_rejects_unported_paths():
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=23)
-    eng = Engine(tp, tcfg, max_batch=2, seq_len=64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(eng, prefix_cache_size=2)
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(eng).submit(Request(prompt_tokens=[5], device_sampling=True))
     with pytest.raises(NotImplementedError):
         Engine(tp, tcfg, kv_layout="paged", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(tp, tcfg, max_batch=8, seq_len=2048, device="cpu").prefill(
-            [[1] * 1500] * 8, list(range(8)))
+
+
+# ---------------------------------------------------------------------------
+# Prefix reuse (the contracts of tests/test_prefix_cache.py on the port)
+# ---------------------------------------------------------------------------
+
+
+def _prefix_engine(seed=30, **kw):
+    _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=seed)
+    return Engine(tp, tcfg, max_batch=4, seq_len=64, device="cpu", **kw)
+
+
+def _run_one(batcher, prompt, steps=20, seed=1, **kw):
+    req = Request(prompt_tokens=list(prompt), steps=steps, temperature=0.0, seed=seed, **kw)
+    batcher.submit(req)
+    batcher.run()
+    return req.out_tokens
+
+
+ONCE = [40, 41, 42, 43]
+ONCE_UPON = ONCE + [50, 51, 52, 53, 54, 55, 56]
+
+
+def test_identical_prompt_skips_prefill():
+    eng = _prefix_engine()
+    b = ContinuousBatcher(eng, prefix_cache_size=4)
+    calls = {"prefill": 0, "continue": 0}
+    prefill, cont = eng.prefill, eng.prefill_continue
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    eng.prefill, eng.prefill_continue = counted("prefill", prefill), counted("continue", cont)
+    first = _run_one(b, ONCE_UPON)
+    assert calls == {"prefill": 1, "continue": 0}
+    second = _run_one(b, ONCE_UPON)
+    assert calls == {"prefill": 1, "continue": 0}  # whole-prompt hit: no prefill at all
+    assert b.prefix_hits == 1 and second == first and first
+
+
+def test_shared_prefix_continues_with_start_pos():
+    b0 = ContinuousBatcher(_prefix_engine())
+    _run_one(b0, ONCE)
+    want = _run_one(b0, ONCE_UPON)
+    _kernels.reset_counts()
+    b = ContinuousBatcher(_prefix_engine(), prefix_cache_size=4)
+    _run_one(b, ONCE)  # seeds the cache with the prefix
+    got = _run_one(b, ONCE_UPON)
+    assert b.prefix_hits == 1 and got == want and want
+    assert _kernels.PLAIN_CALLS["K7"] == 1  # the continuation wrote no block through K7
+
+
+def test_prefix_cache_eviction():
+    b = ContinuousBatcher(_prefix_engine(), prefix_cache_size=2)
+    for p in ([40, 41], [42, 43], ONCE, [40, 41]):
+        _run_one(b, p, steps=8)
+    assert len(b._prefix) <= 2
+
+
+def test_mixed_hit_miss_batch():
+    eng = _prefix_engine()
+    b = ContinuousBatcher(eng, prefix_cache_size=4)
+    base = _run_one(b, ONCE)
+    want_other = _run_one(ContinuousBatcher(_prefix_engine()), [60, 60, 61])
+    r_hit = Request(prompt_tokens=ONCE, steps=20, temperature=0.0, seed=1)
+    r_miss = Request(prompt_tokens=[60, 60, 61], steps=20, temperature=0.0, seed=1)
+    b.submit(r_hit)
+    b.submit(r_miss)
+    b.run()
+    assert r_hit.out_tokens == base and r_miss.out_tokens == want_other
+    assert b.prefix_hits == 1
+
+
+def test_snapshot_restore_round_trip():
+    eng = _prefix_engine()
+    eng.prefill([[1] + ONCE_UPON], [2])
+    snap = eng.snapshot_slot(2, 8)
+    eng.restore_slot(0, snap)
+    for n in ("k", "v", "ks", "vs"):
+        c = getattr(eng.cache, n)
+        assert torch.equal(c[:, 0, :, :8], c[:, 2, :, :8]) and not c[:, 0, :, 8:].any()
+    eng.release_snapshot(snap)
+
+
+def _prefix_requests(cls, **kw):
+    """Prompts sharing prefixes, submitted in two waves."""
+    rng = np.random.default_rng(31)
+    base = [[int(t) for t in rng.integers(3, CFG["vocab_size"], n)] for n in (20, 45)]
+    first = [cls(prompt_tokens=p, steps=len(p) + 9, temperature=0.0, seed=5, **kw) for p in base]
+    second = [cls(prompt_tokens=base[0] + [7, 8, 9], steps=40, temperature=0.8, seed=6, **kw),
+              cls(prompt_tokens=base[1], steps=60, temperature=0.0, seed=7, **kw),
+              cls(prompt_tokens=base[1] + list(range(20, 40)), steps=80, temperature=0.0,
+                  seed=8, **kw)]
+    return first, second
+
+
+@pytest.mark.parametrize("device_sampling", [False, True], ids=["host", "device"])
+def test_prefix_streams_equal_jax(device_sampling):
+    """The JAX ContinuousBatcher and the port's, both with a prefix cache:
+    the same hits, the same tokens."""
+    jcfg, jp, tcfg, tp = build_pair(CFG, jnp.float32, seed=32)
+    out = []
+    for eng, cls, B in ((JaxEngine(jp, jcfg, max_batch=4, kv_dtype="int8", seq_len=128),
+                         JaxRequest, JaxBatcher),
+                        (Engine(tp, tcfg, max_batch=4, seq_len=128, device="cpu"), Request,
+                         ContinuousBatcher)):
+        b = B(eng, prefix_cache_size=4, max_chunk=4)
+        first, second = _prefix_requests(cls, device_sampling=device_sampling)
+        for wave in (first, second):
+            for r in wave:
+                b.submit(r)
+            b.run()
+        out.append(([r.out_tokens for r in first + second], b.prefix_hits))
+    assert out[0] == out[1] and out[1][1] == 3
+
+
+# ---------------------------------------------------------------------------
+# Device sampling: JAX's threefry streams through the engine's chunks
+# ---------------------------------------------------------------------------
+
+
+def _device_requests(cls):
+    out = _requests(cls)
+    for i, r in enumerate(out):
+        r.device_sampling = True
+        r.topk = 40 if i % 3 == 2 else 0
+    return out
+
+
+@pytest.mark.parametrize("max_chunk", [1, 4])
+def test_device_sampling_streams_equal_jax(max_chunk):
+    jcfg, jp, tcfg, tp = build_pair(CFG, jnp.float32, seed=21)
+    jb = JaxBatcher(JaxEngine(jp, jcfg, max_batch=4, kv_dtype="int8", seq_len=256),
+                    max_chunk=max_chunk)
+    jreqs = _device_requests(JaxRequest)
+    for r in jreqs:
+        jb.submit(r)
+    jb.run()
+    tb = ContinuousBatcher(Engine(tp, tcfg, max_batch=4, seq_len=256, device="cpu"),
+                           max_chunk=max_chunk)
+    treqs = _device_requests(Request)
+    for r in treqs:
+        tb.submit(r)
+    tb.run()
+    assert all(r.done for r in treqs)
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.id, t.temperature, t.topk)
+    assert sum(len(r.out_tokens) for r in treqs) > 40
+    if max_chunk > 1:
+        assert tb.timers["chunks"] > 0 and tb.timers["chunk_steps"] > tb.timers["chunks"]
+        assert tb.timers["decode_steps"] >= tb.timers["chunk_steps"]
+
+
+def test_mixed_host_and_device_sampling_batch():
+    """Host- and device-sampled requests in one batch: each stream equals
+    the one it gets alone."""
+    _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=26)
+
+    def serve(reqs):
+        b = ContinuousBatcher(Engine(tp, tcfg, max_batch=4, seq_len=64, device="cpu"),
+                              max_chunk=4)
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        return [r.out_tokens for r in reqs]
+
+    def reqs():
+        return [Request(prompt_tokens=[5, 6, 7], steps=20, temperature=0.9, seed=3,
+                        device_sampling=True),
+                Request(prompt_tokens=[8, 9], steps=20, temperature=0.9, seed=4)]
+
+    both = serve(reqs())
+    assert both == [serve([r])[0] for r in reqs()]
+
+
+def test_engine_device_sampling_calls():
+    """decode_sample_chunk equals step-at-a-time decode_sample with keys
+    fold_in(key(seed), position); the async form returns a tensor."""
+    from tpu_llama_torch.ops import sampling as ts
+
+    _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=27)
+    B, k = 2, 3
+    args = (np.ones(B, np.float32) * 0.9, np.ones(B, np.float32), ts.keys_numpy([1, 2]))
+    chunks = []
+    for step_wise in (False, True):
+        eng = Engine(tp, tcfg, max_batch=B, seq_len=64, device="cpu")
+        eng.prefill([[1, 5, 6], [1, 7]], [0, 1])
+        toks, pos = np.array([9, 10]), np.array([3, 2])
+        if not step_wise:
+            out = eng.decode_sample_chunk_async(toks, pos, *args, k)
+            assert isinstance(out, torch.Tensor) and out.shape == (B, k)
+            chunks.append(out.numpy())
+            continue
+        got = []
+        for _ in range(k):
+            keys = ts.fold_in(torch.tensor(args[2]), torch.tensor(pos))
+            toks = eng.decode_sample(toks, pos, args[0], args[1], keys)
+            got.append(toks)
+            pos = pos + 1
+        chunks.append(np.stack(got, axis=1))
+    np.testing.assert_array_equal(chunks[0], chunks[1])
+
+
+# ---------------------------------------------------------------------------
+# Long admission: above 8192 prompt rows the block is prefilled in chunks
+# ---------------------------------------------------------------------------
+
+
+def test_long_admission_chunked_streams_equal_jax():
+    """8 prompts of 1100-2000 tokens bucket to one group of 8 x 2048 rows
+    (> 8192): both engines run their chunked prefill (chunks of 256), on
+    unfused layouts, where both sides run the same f32 math; greedy
+    streams must be equal."""
+    cfg = dict(TINY_GQA, seq_len=2048)
+    jcfg, jp, tcfg, tp = build_pair(cfg, jnp.float32, seed=28)
+    lens = [1100, 2000, 1500, 1999, 1234, 1800, 1650, 1420]
+
+    def reqs(cls):
+        rng = np.random.default_rng(29)
+        return [cls(prompt_tokens=[int(t) for t in rng.integers(3, cfg["vocab_size"], n - 1)],
+                    steps=n + 4, temperature=0.0) for n in lens]
+
+    jb = JaxBatcher(JaxEngine(jp, jcfg, max_batch=8, kv_dtype="int8", seq_len=2048))
+    jreqs = reqs(JaxRequest)
+    for r in jreqs:
+        jb.submit(r)
+    jb.run()
+    _kernels.reset_counts()
+    tb = ContinuousBatcher(Engine(tp, tcfg, max_batch=8, seq_len=2048, device="cpu"))
+    treqs = reqs(Request)
+    for r in treqs:
+        tb.submit(r)
+    tb.run()
+    plain = dict(_kernels.PLAIN_CALLS)
+    assert plain["K7"] == 1 and plain["K6"] == (2048 // 256) * cfg["n_layers"]
+    assert tb.timers["admits"] == 1
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens and len(t.out_tokens) == 5

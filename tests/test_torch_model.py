@@ -261,10 +261,12 @@ def test_random_quant_params_shapes_and_seed():
     assert tl._fused_layouts(f.layers, cfg) and not tl._fused_layouts(a.layers, cfg)
     with pytest.raises(NotImplementedError):
         tl.make_kv_cache(cfg, 2, kv_dtype="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tl.forward_prefill(a, tl.make_kv_cache(cfg, 1, device="cpu"),
-                           torch.ones(1, 4, dtype=torch.long), torch.ones(1),
-                           torch.tensor([4]), cfg)
+    # start_pos > 0 is ported: the logits of every position, the rows written
+    cache = tl.make_kv_cache(cfg, 1, device="cpu")
+    logits, _ = tl.forward_prefill(a, cache, torch.ones(1, 4, dtype=torch.long), torch.ones(1),
+                                   torch.tensor([4]), cfg)
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert (cache.ks[:, 0, :, 1:5] > 0).all() and not cache.ks[:, 0, :, 0].any()
 
 
 # ---------------------------------------------------------------------------

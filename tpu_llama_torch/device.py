@@ -1,7 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and host-to-device uploads."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the plain PyTorch versions on the CPU")
     return dev
+
+
+def upload(a, device, dtype=None) -> torch.Tensor:
+    """A copy of host data ``a`` (array-like) on ``device``, in ``dtype``.
+    On a CUDA device the copy goes through pinned memory and does not wait:
+    PyTorch's copy from pageable memory synchronizes the stream, which would
+    stall the host behind every kernel already queued (a decode chunk in
+    flight, say).  The pinned block stays reserved until the copy is done."""
+    t = torch.tensor(np.asarray(a), dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -10,7 +10,12 @@ without them:
   1422-1469): K3 rmsnorm+quant, K1 (qkv), K5 rope+split+KV quant into the
   cache, K6 attention, K2 + K1 with the residual (wo), K3, K1 (w13), K4
   silu*up+quant, K1 with the residual (w2).  Unfused layouts run the
-  unfused body through ``w8a8_matmul`` (K2 + K1) and K6;
+  unfused body through ``w8a8_matmul`` (K2 + K1) and K6.
+  ``forward_prefill`` at start_pos > 0 (llama.py:2078-2215, ``attn="flash"``)
+  runs the same bodies with the K/V written at each row's positions and K6
+  over the layer's whole cache; ``forward_prefill_chunked`` (llama.py:
+  1562-1748) prefills long prompts in chunks, landing each fused chunk's
+  K/V with K18;
 * decode: ``forward_decode(fused=...)`` (llama.py:1101-1203).
   ``fused=False`` -> ``decode_stack``, JAX's unfused decode math on either
   layout: every matmul through K2 + K1, the residual adds in K1's
@@ -37,8 +42,8 @@ Python loop over per-layer views.  Weights stay stacked ``[L, ...]`` and
 matmul weights are K-major ``ChannelQuantTensor``s (``q [L, out, in]``).
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: the mega and mega3 decodes (K27, K26), start_pos > 0
-and chunked prefill, fp caches and dense/q8_0 weights, paged caches.
+their ROADMAP item: the mega and mega3 decodes (K27, K26), fp caches and
+dense/q8_0 weights, paged caches.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from tpu_llama_torch.ops.attention import (
     flash_decode_attention_fresh,
     flash_prefill_attention,
     kv_cache_flush_rows,
+    kv_cache_write_chunk,
     quantize_kv,
 )
 from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
@@ -572,33 +578,22 @@ def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tenso
     return matmul_any(x, params.wcls).float(), cache
 
 
-def _prefill_layer(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start0,
-                   config: ModelConfig):
-    """Layer ``i`` of the unfused prefill body (llama.py:1510-1518): x
-    [B, T, D] in -> out.  Attention runs over the layer's compact fresh K/V
-    (K6, start 0); the block is then copied into rows [0, T) of ``cache``
-    in place.  cos/sin [T, hd/2] broadcast over B."""
-    B, T = x.shape[:2]
-    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    h = rmsnorm(x, lp.rms_att)
-    q, k, v = _project_qkv(h, lp, config)
-    q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
-    k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
-    # quantize before the head-major transpose (the hd reduce reads
-    # contiguous rows), then move int8
-    kq, ks = quantize_kv(k)  # [B, T, KVH, hd] / [B, T, KVH]
-    vq, vs = quantize_kv(v.reshape(B, T, KVH, hd))
-    kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
-    ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
-    att = flash_prefill_attention(q, kq, vq, start0, ks, vs, out_dtype=x.dtype)
-    cache.k[i, :, :, :T] = kq
-    cache.v[i, :, :, :T] = vq
-    cache.ks[i, :, :, :T] = ks
-    cache.vs[i, :, :, :T] = vs
-    x = matmul_any(att, lp.wo, residual=x)
-    h = rmsnorm(x, lp.rms_ffn)
-    gate, up = _project_gate_up(h, lp, config)
-    return matmul_any(F.silu(gate) * up, lp.w2, residual=x)
+def _fused_qkv(x2, lp: LayerParams):
+    """The fused body's qkv: K3 (rmsnorm + quant), then K1 on wqkv."""
+    xq, sx = rmsnorm_quantize(x2, lp.rms_att)
+    return w8a8_matmul_prequant(xq, sx, lp.wq, out_dtype=x2.dtype)
+
+
+def _fused_tail(x2, att, lp: LayerParams, config: ModelConfig):
+    """The fused body after attention (llama.py:1458-1469): K2 + K1 on wo
+    with the residual, K3, K1 on w13, K4, K1 on w2 with the residual.
+    x2 and att [M, D] -> x2 [M, D]."""
+    H = config.hidden_dim
+    x2 = matmul_any(att, lp.wo, residual=x2)
+    hq, hs = rmsnorm_quantize(x2, lp.rms_ffn)
+    gu = w8a8_matmul_prequant(hq, hs, lp.w1, out_dtype=x2.dtype)
+    fq, fs = silu_mul_quantize(gu[:, :H], gu[:, H:])
+    return w8a8_matmul_prequant(fq, fs, lp.w2, out_dtype=x2.dtype, residual=x2)
 
 
 def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start0,
@@ -611,33 +606,28 @@ def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, s
     copy) and K6 attends over them there.  cos/sin [B * T, hd/2], row
     b * T + t at position t."""
     B, T, D = x.shape
-    NH, KVH, hd, H = config.n_heads, config.n_kv_heads, config.head_dim, config.hidden_dim
+    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     x2 = x.reshape(B * T, D)
-    xq, sx = rmsnorm_quantize(x2, lp.rms_att)
-    qkv = w8a8_matmul_prequant(xq, sx, lp.wq, out_dtype=x.dtype)
+    qkv = _fused_qkv(x2, lp)
     blocks = [a[i, :, :, :T] for a in (cache.k, cache.ks, cache.v, cache.vs)]  # [B, KVH, T..]
     q, *_ = rope_split_quantize(qkv, cos, sin, D, KVH, hd,
                                 out=[blk.transpose(1, 2) for blk in blocks])
     kb, ksb, vb, vsb = blocks
     att = flash_prefill_attention(q.view(B, T, NH, hd), kb, vb, start0, ksb, vsb,
                                   out_dtype=x.dtype)
-    x2 = matmul_any(att.view(B * T, D), lp.wo, residual=x2)
-    hq, hs = rmsnorm_quantize(x2, lp.rms_ffn)
-    gu = w8a8_matmul_prequant(hq, hs, lp.w1, out_dtype=x.dtype)
-    fq, fs = silu_mul_quantize(gu[:, :H], gu[:, H:])
-    x2 = w8a8_matmul_prequant(fq, fs, lp.w2, out_dtype=x.dtype, residual=x2)
-    return x2.view(B, T, D)
+    return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
 def _forward_prefill_fresh(params: LlamaParams, cache: QuantKVCache, tokens, lengths,
                            config: ModelConfig, logits_mode: str):
-    """Prefill from position 0 (llama.py:1378): each layer attends over its
-    fresh K/V (K6, start 0) and leaves it in rows [0, T) of ``cache``, in
-    place.  Fused layouts take the fused body (``_prefill_layer_fused``)
-    at every shape: the TPU gates of ``_prefill_w8a8_fast_ok``
-    (llama.py:1344-1375: B*T % 32, B*T <= 4096, no padding) and K5's
-    ``head_dim % 128`` (llama.py:1433) are Mosaic rules that the CUDA
-    kernels do not have.  Unfused layouts take ``_prefill_layer``."""
+    """Prefill from position 0 (llama.py:1378): each layer leaves its K/V in
+    rows [0, T) of ``cache``, in place, and attends over them (K6, start 0).
+    Fused layouts take the fused body (``_prefill_layer_fused``) at every
+    shape: the TPU gates of ``_prefill_w8a8_fast_ok`` (llama.py:1344-1375:
+    B*T % 32, B*T <= 4096, no padding) and K5's ``head_dim % 128``
+    (llama.py:1433) are Mosaic rules that the CUDA kernels do not have.
+    Unfused layouts take the unfused body at start 0
+    (``_prefill_layer_at``)."""
     if logits_mode not in ("all", "last"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
@@ -647,17 +637,89 @@ def _forward_prefill_fresh(params: LlamaParams, cache: QuantKVCache, tokens, len
     cos, sin = params.rope_cos[:T], params.rope_sin[:T]  # broadcast over B
     start0 = torch.zeros((B,), dtype=torch.int32, device=x.device)
     layers = params.layers
-    layer_step = _prefill_layer
-    if _fused_layouts(layers, config):
-        layer_step = _prefill_layer_fused
+    fused = _fused_layouts(layers, config)
+    if fused:
         cos, sin = cos.repeat(B, 1), sin.repeat(B, 1)  # K5 takes one row per token
+    else:
+        rows = torch.arange(T, device=x.device).expand(B, T)
     for i in range(layers.rms_att.shape[0]):
-        x = layer_step(x, layers.layer(i), cache, i, cos, sin, start0, config)
+        lp = layers.layer(i)
+        if fused:
+            x = _prefill_layer_fused(x, lp, cache, i, cos, sin, start0, config)
+        else:
+            x = _prefill_layer_at(x, lp, cache, i, cos, sin, start0, rows, config)
     if logits_mode == "last":
-        rows = (lengths.long() - 1).clamp(0, T - 1)
-        x = x[torch.arange(B, device=x.device), rows]
-    x = rmsnorm(x, params.rms_final)
-    return matmul_any(x, params.wcls).float(), cache
+        x = _last_rows(x, lengths, T)
+    return _logits(params, x), cache
+
+
+def _write_rows(cache: QuantKVCache, i: int, kq, ks, vq, vs, write_pos) -> None:
+    """Write a prefill's quantized K/V [B, T, KVH, hd] and scales [B, T, KVH]
+    IN PLACE at rows write_pos [B, T] of layer ``i`` (llama.py:2133-2141:
+    ``.at[b, h, p].set``, a plain indexed copy)."""
+    B, T, KVH = ks.shape
+    b_ix = torch.arange(B, device=ks.device)[:, None, None]
+    h_ix = torch.arange(KVH, device=ks.device)[None, :, None]
+    p_ix = write_pos[:, None, :]
+    cache.k[i][b_ix, h_ix, p_ix] = kq.transpose(1, 2)
+    cache.v[i][b_ix, h_ix, p_ix] = vq.transpose(1, 2)
+    cache.ks[i][b_ix, h_ix, p_ix] = ks.transpose(1, 2)
+    cache.vs[i][b_ix, h_ix, p_ix] = vs.transpose(1, 2)
+
+
+def _attend_layer(q, cache: QuantKVCache, i: int, start, out_dtype):
+    """K6 over all of layer ``i``'s cache rows, queries at start[b] + t."""
+    return flash_prefill_attention(q, cache.k[i], cache.v[i], start, cache.ks[i], cache.vs[i],
+                                   out_dtype=out_dtype)
+
+
+def _prefill_layer_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start,
+                      write_pos, config: ModelConfig):
+    """Layer ``i`` of the unfused prefill body at any start (``layer_step``,
+    llama.py:2153-2204, ``attn="flash"``): K2 + K1 projections, RoPE at each
+    row's own positions, ``quantize_kv``, the write at write_pos, K6 over
+    the layer's cache.  cos/sin [B, T, hd/2]."""
+    B, T = x.shape[:2]
+    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    h = rmsnorm(x, lp.rms_att)
+    q, k, v = _project_qkv(h, lp, config)
+    q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
+    kq, ks = quantize_kv(apply_rope(k.reshape(B, T, KVH, hd), cos, sin))
+    vq, vs = quantize_kv(v.reshape(B, T, KVH, hd))
+    _write_rows(cache, i, kq, ks, vq, vs, write_pos)
+    att = _attend_layer(q, cache, i, start, x.dtype)
+    x = matmul_any(att, lp.wo, residual=x)
+    h = rmsnorm(x, lp.rms_ffn)
+    gate, up = _project_gate_up(h, lp, config)
+    return matmul_any(F.silu(gate) * up, lp.w2, residual=x)
+
+
+def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start,
+                            write_pos, config: ModelConfig):
+    """Layer ``i`` of the fused W8A8 body at any start (``layer_step_w8a8``,
+    llama.py:2112-2151): K3, K1 (qkv), K5 into compact q/k/v with RoPE at
+    each row's own positions, the write at write_pos, K6 over the layer's
+    cache, then the fused tail.  cos/sin [B * T, hd/2], row b * T + t at
+    position write_pos[b, t]."""
+    B, T, D = x.shape
+    NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    x2 = x.reshape(B * T, D)
+    q, kq, ks, vq, vs = rope_split_quantize(_fused_qkv(x2, lp), cos, sin, D, KVH, hd)
+    _write_rows(cache, i, kq.view(B, T, KVH, hd), ks.view(B, T, KVH), vq.view(B, T, KVH, hd),
+                vs.view(B, T, KVH), write_pos)
+    att = _attend_layer(q.view(B, T, NH, hd), cache, i, start, x.dtype)
+    return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
+
+
+def _logits(params: LlamaParams, x):
+    """Final rmsnorm, then the classifier (K2 + K1), in f32."""
+    return matmul_any(rmsnorm(x, params.rms_final), params.wcls).float()
+
+
+def _last_rows(x, lengths, T: int):
+    """x [B, T, D] at each row's final valid position, clamped to [0, T)."""
+    rows = (lengths.long() - 1).clamp(0, T - 1)
+    return x[torch.arange(x.shape[0], device=x.device), rows]
 
 
 def forward_prefill(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
@@ -665,14 +727,93 @@ def forward_prefill(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tens
                     logits_mode: str = "all", assume_fresh: bool = False):
     """Batched causal prefill (llama.py:2052).  Returns (logits, cache):
     [B, T, V] for ``logits_mode="all"``, [B, V] at lengths-1 for "last";
-    the cache is written in place.  Only the fresh route is ported:
-    ``assume_fresh=True`` promises start_pos == 0 everywhere.  Attention is
-    always K6 (the JAX package's ``attn="flash"``; its plain version on the
-    CPU is the ``"xla"`` math)."""
-    if not assume_fresh:
-        raise NotImplementedError("prefill at start_pos > 0 and chunked prefill: "
-                                  "ROADMAP queue 1 item 9")
-    return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode)
+    the cache is written in place.  ``assume_fresh=True`` promises
+    start_pos == 0 and takes ``_forward_prefill_fresh``.  Otherwise row b's
+    tokens sit at positions start_pos[b] + t: each layer writes its K/V at
+    those positions (clamped to the cache, llama.py:2087-2093) and K6
+    attends over the layer's whole cache, which already holds rows
+    [0, start_pos[b]).  Attention is always K6 (the JAX package's
+    ``attn="flash"``; its plain version on the CPU is the ``"xla"`` math).
+    Fused layouts take the fused body at every shape (the TPU's gates of
+    llama.py:2108-2110 are Mosaic rules), unfused ones the unfused body."""
+    if assume_fresh:
+        return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode)
+    if logits_mode not in ("all", "last"):
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    B, T = tokens.shape
+    S = cache.seq_len
+    start = start_pos.to(device=tokens.device, dtype=torch.int32)
+    write_pos = (start.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
+                 ).clamp(0, S - 1)
+    cos, sin = params.rope_cos[write_pos], params.rope_sin[write_pos]  # [B, T, hd/2]
+    x = params.tok_emb[tokens.long()]
+    layers = params.layers
+    layer_step = _prefill_layer_at
+    if _fused_layouts(layers, config):
+        layer_step = _prefill_layer_fused_at
+        cos, sin = cos.reshape(B * T, -1), sin.reshape(B * T, -1)
+    for i in range(layers.rms_att.shape[0]):
+        x = layer_step(x, layers.layer(i), cache, i, cos, sin, start, write_pos, config)
+    if logits_mode == "last":
+        x = _last_rows(x, lengths, T)
+    return _logits(params, x), cache
+
+
+def forward_prefill_chunked(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
+                            lengths: torch.Tensor, config: ModelConfig, chunk: int = 256):
+    """Prefill from position 0 in chunks of ``chunk`` positions, each
+    attending over every row written before it (llama.py:1562-1748; the
+    JAX package's scan, unrolled and carry forms exist for TPU compile
+    limits and are one function here).  Returns (next-token logits [B, V],
+    cache); T must be a multiple of ``chunk`` and fit the cache.
+
+    Fused layouts run the carry form (llama.py:1693-1746): per chunk i and
+    layer l, K3, K1, K5 into a compact [B, KVH, chunk, hd] block, K18 lands
+    it at rows [i * chunk, (i + 1) * chunk) of layer l in place, K6 (start
+    i * chunk) over that layer, then the fused tail.  Unfused layouts run
+    ``forward_prefill(start_pos=i * chunk)`` per chunk (llama.py:1580-1596).
+    Each chunk computes its last-token logits (rmsnorm, K2 + K1); each row
+    keeps those of the chunk that holds its final token."""
+    B, T = tokens.shape
+    if chunk <= 0 or T % chunk:
+        raise ValueError(f"{T} prompt rows are not a multiple of the chunk {chunk}")
+    if T > cache.seq_len:
+        raise ValueError(f"{T} prompt rows do not fit a cache of {cache.seq_len}")
+    n = T // chunk
+    dev = tokens.device
+    lengths = lengths.to(device=dev, dtype=torch.long)
+    layers = params.layers
+    fused = _fused_layouts(layers, config)
+    if fused:
+        D, NH, KVH, hd = config.dim, config.n_heads, config.n_kv_heads, config.head_dim
+        blk = [torch.empty((B, KVH, chunk, *d), dtype=t, device=dev)
+               for t, d in [(torch.int8, (hd,)), (torch.float32, ())] * 2]  # k, ks, v, vs
+        outs = [b.transpose(1, 2) for b in blk]  # K5 writes them head-major
+    per_chunk = []
+    for i in range(n):
+        c0 = i * chunk
+        tok_c = tokens[:, c0:c0 + chunk]
+        len_c = (lengths - c0).clamp(1, chunk)
+        start = torch.full((B,), c0, dtype=torch.int32, device=dev)
+        if not fused:
+            logits_c, cache = forward_prefill(params, cache, tok_c, start, len_c, config,
+                                              logits_mode="last")
+            per_chunk.append(logits_c)
+            continue
+        cos = params.rope_cos[c0:c0 + chunk].repeat(B, 1)  # [B * chunk, hd/2], row b * chunk + t
+        sin = params.rope_sin[c0:c0 + chunk].repeat(B, 1)
+        x = params.tok_emb[tok_c.long()]
+        for l in range(layers.rms_att.shape[0]):
+            lp = layers.layer(l)
+            x2 = x.reshape(B * chunk, D)
+            q, *_ = rope_split_quantize(_fused_qkv(x2, lp), cos, sin, D, KVH, hd, out=outs)
+            kv_cache_write_chunk(blk[0], blk[2], blk[1], blk[3], c0, l, cache.k, cache.v,
+                                 cache.ks, cache.vs)
+            att = _attend_layer(q.view(B, chunk, NH, hd), cache, l, start, x.dtype)
+            x = _fused_tail(x2, att.view(B * chunk, D), lp, config).view(B, chunk, D)
+        per_chunk.append(_logits(params, _last_rows(x, len_c, chunk)))
+    owner = ((lengths - 1) // chunk).clamp(0, n - 1)
+    return torch.stack(per_chunk)[owner, torch.arange(B, device=dev)], cache
 
 
 def greedy_decode_loop(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,

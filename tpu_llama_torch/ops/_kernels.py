@@ -56,6 +56,8 @@ SOURCES = {
                            [_P, _I, *[_P] * 10, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P]),
     "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, _I, _I, _I, _I, _I, _P]),
+    # rk, rv, rks, rvs, ck, cv, cks, cvs, B, KVH, Tc, S, hd, start, layer, vec, stream
+    "kv_write_chunk": ("tl_kv_write_chunk", [*[_P] * 8, *[_I] * 8, _P]),
     # x, attq, satt, 4 x (weights, scales), rms_ffn, rms_att, rms dtype, x_next, qkv,
     # xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
     "fused_layer": ("tl_fused_layer_linear",
@@ -73,7 +75,7 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K4": "silu_mul_quantize", "K5": "rope_split_quantize", "K6": "flash_prefill",
            "K7": "kv_scatter", "K8": "w8a8_matmul", "K9": "flash_decode_dma",
            "K10": "kv_flush_rows", "K11": "fused_layer", "K12": "fused_step2",
-           "K19": "flash_decode_fresh"}
+           "K18": "kv_write_chunk", "K19": "flash_decode_fresh"}
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 

@@ -1,12 +1,14 @@
 """INT8 KV quantization, causal prefill attention (K6), the slot scatter
-that admits a prefilled block into the cache (K7), and the deferred-flush
-decode attention (K9, K19) with its per-step row flush (K10).
+that admits a prefilled block into the cache (K7), the chunk write of
+chunked prefill (K18), and the deferred-flush decode attention (K9, K19)
+with its per-step row flush (K10).
 
 Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
 ``flash_prefill_attention`` (:1654), ``kv_cache_scatter_slots`` (:1212),
-``flash_decode_attention_dma`` (:335), ``flash_decode_attention_fresh``
-(:807) and ``kv_cache_flush_rows`` (:2470), for INT8 caches; the fp-cache
-variants come with their ROADMAP slice.
+``kv_cache_write_chunk`` (:2102), ``flash_decode_attention_dma`` (:335),
+``flash_decode_attention_fresh`` (:807) and ``kv_cache_flush_rows``
+(:2470), for INT8 caches; the fp-cache variants come with their ROADMAP
+slice.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 
 import torch
 
+from tpu_llama_torch.device import upload
 from tpu_llama_torch.ops import _kernels
 from tpu_llama_torch.ops.quant import _absmax_quant
 
@@ -148,11 +151,74 @@ def kv_cache_scatter_slots(small_k, small_v, slots, ck, cv, small_ks, small_vs, 
     B, S = ck.shape[1], ck.shape[3]
     sk, sv = small_k.contiguous(), small_v.contiguous()
     sks, svs = small_ks.contiguous(), small_vs.contiguous()
-    sl = torch.tensor(idx, dtype=torch.int32, device=ck.device)
+    sl = upload(idx, ck.device, torch.int32)
     vec = hd % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (sk, sv, ck, cv))
     _kernels.launch("K7", sk.data_ptr(), sv.data_ptr(), sks.data_ptr(), svs.data_ptr(),
                     sl.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
                     cvs.data_ptr(), L, n, KVH, T, hd, B, S, int(vec), _kernels.stream(ck))
+    return ck, cv, cks, cvs
+
+
+def _check_write_chunk(rows_k, rows_v, rows_ks, rows_vs, start, layer, ck, cv, cks, cvs):
+    """Validate a chunk write on a 5-D cache; returns (start, layer) as host
+    ints."""
+    if rows_k.dim() != 4 or ck.dim() != 5:
+        raise ValueError("want rows_k [B, KVH, Tc, hd] and ck [[L,] B, KVH, S, hd]")
+    B, KVH, Tc, hd = rows_k.shape
+    L, S = ck.shape[0], ck.shape[3]
+    if (rows_v.shape != rows_k.shape or rows_ks.shape != (B, KVH, Tc)
+            or rows_vs.shape != rows_ks.shape or ck.shape != (L, B, KVH, S, hd)
+            or cv.shape != ck.shape or cks.shape != (L, B, KVH, S) or cvs.shape != cks.shape):
+        raise ValueError(f"kv_cache_write_chunk: shape mismatch: rows {tuple(rows_k.shape)}, "
+                         f"scales {tuple(rows_ks.shape)}, cache {tuple(ck.shape)}, "
+                         f"cache scales {tuple(cks.shape)}")
+    if any(t.dtype != torch.int8 for t in (rows_k, rows_v, ck, cv)) or any(
+            t.dtype != torch.float32 for t in (rows_ks, rows_vs, cks, cvs)):
+        raise TypeError("kv_cache_write_chunk takes int8 K/V and float32 scales")
+    start, layer = int(start), int(layer)
+    if start < 0 or start + Tc > S:
+        raise ValueError(f"rows [{start}, {start + Tc}) do not fit a cache of {S}")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside [0, {L})")
+    return start, layer
+
+
+def kv_cache_write_chunk_plain(rows_k, rows_v, rows_ks, rows_vs, start: int, layer: int, ck,
+                               cv, cks, cvs):
+    """Plain version of K18: four sliced copies, in place (5-D cache)."""
+    Tc = rows_k.shape[2]
+    ck[layer, :, :, start:start + Tc].copy_(rows_k)
+    cv[layer, :, :, start:start + Tc].copy_(rows_v)
+    cks[layer, :, :, start:start + Tc].copy_(rows_ks)
+    cvs[layer, :, :, start:start + Tc].copy_(rows_vs)
+
+
+def kv_cache_write_chunk(rows_k, rows_v, rows_ks, rows_vs, start, layer, ck, cv, cks, cvs):
+    """Write one prefill chunk's rows IN PLACE at rows [start, start + Tc)
+    of layer ``layer``: ``ck[layer, :, :, start:start + Tc] = rows_k`` for K,
+    V and both scale arrays.  rows_k/rows_v int8 [B, KVH, Tc, hd],
+    rows_ks/rows_vs f32 [B, KVH, Tc]; ck/cv int8 [L, B, KVH, S, hd] and
+    cks/cvs f32 [L, B, KVH, S], or a 4-D cache without the layer axis
+    (``layer`` then ignored); ``start`` and ``layer`` host ints.  Raises
+    where the rows do not fit.  Returns the (updated) cache arrays.  K18 on
+    CUDA tensors, the plain version on CPU ones."""
+    four = ck.dim() == 4
+    if four:
+        layer = 0
+    arrays = [a[None] if four else a for a in (ck, cv, cks, cvs)]
+    start, layer = _check_write_chunk(rows_k, rows_v, rows_ks, rows_vs, start, layer, *arrays)
+    if _kernels.on_cpu("K18", rows_k, rows_v, rows_ks, rows_vs, *arrays):
+        kv_cache_write_chunk_plain(rows_k, rows_v, rows_ks, rows_vs, start, layer, *arrays)
+        return ck, cv, cks, cvs
+    if not all(t.is_contiguous() for t in arrays):
+        raise ValueError("K18 writes the cache in place: it must be contiguous")
+    B, KVH, Tc, hd = rows_k.shape
+    S = ck.shape[-2]
+    rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
+    vec = hd % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (rk, rv, ck, cv))
+    _kernels.launch("K18", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
+                    ck.data_ptr(), cv.data_ptr(), cks.data_ptr(), cvs.data_ptr(), B, KVH, Tc,
+                    S, hd, start, layer, int(vec), _kernels.stream(ck))
     return ck, cv, cks, cvs
 
 

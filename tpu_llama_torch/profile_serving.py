@@ -21,10 +21,15 @@ through the engine calls the scheduler makes.  Prints one JSON line per
 phase: host wall time of the untraced runs and of the traced run (closed by
 ``torch.cuda.synchronize``), device busy time (the union of kernel intervals
 in the trace), the device's idle share against the untraced wall, device
-time per port kernel and for everything else, the top kernels by device
-time, and each port kernel's launch count in an untraced run.  K1 and K8
-run one CUDA kernel (K8 is K1's kernel on a layer view), so the trace
-reports their device time together, as "K1+K8".
+time per port kernel and for everything else (``device_ms["other"]``: the
+plain PyTorch operations), the top kernels by device time, and each port
+kernel's launch count in an untraced run.  K1 and K8 run one CUDA kernel
+(K8 is K1's kernel on a layer view), so the trace reports their device time
+together, as "K1+K8".  Then (c) the long-prompt path: one admission of 8
+prompts of 2048 tokens (16 384 rows: the chunked prefill, 8 chunks of 256,
+K18 landing each chunk) and one device-sampled decode chunk of 16 steps of
+all 8 slots at position 1024 (``decode_sample_chunk``: mega2 decode plus
+the threefry sampler, the scheduler's ``max_chunk=16`` path).
 """
 
 from __future__ import annotations
@@ -38,12 +43,14 @@ import numpy as np
 import torch
 
 DECODE_STEPS = 8
+CHUNK_STEPS = 16
 REPS = 3
 AB_MODES = (False, True, "mega2")
 PORT_KERNELS = {"w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
                 "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
-                "kv_scatter_kernel": "K7", "flash_decode_dma_kernel": "K9",
+                "kv_scatter_kernel": "K7", "kv_write_chunk_kernel": "K18",
+                "flash_decode_dma_kernel": "K9",
                 "kv_flush_rows_kernel": "K10", "fused_layer_kernel": "K11",
                 "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19"}
 
@@ -177,6 +184,36 @@ def main() -> None:
                 port_launches_per_step={k: n / DECODE_STEPS for k, n in launches.items()})
             print(json.dumps(line), flush=True)
         eng.decode_fused = auto
+    del one
+    torch.cuda.empty_cache()
+
+    # (c) the long-prompt path: chunked admission and a sampled decode chunk
+    from tpu_llama_torch.ops.sampling import keys_numpy
+
+    long_prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 2047)]
+                    for _ in range(8)]
+    run("prefill_8x2048_chunked", lambda: engine.prefill(long_prompts, list(range(8))),
+        layouts="fused", chunk=256)
+    temps = np.array([0.0, 0.8] * 4, np.float32)
+    topps = np.array([1.0, 0.9, 1.0, 1.0] * 2, np.float32)
+    topks = np.array([0, 0, 40, 0] * 2, np.int64)
+    keys = keys_numpy(range(8))
+
+    def sampled_chunk():
+        engine.decode_sample_chunk(toks, np.full(8, 1024), temps, topps, keys, CHUNK_STEPS,
+                                   topks=topks)
+
+    timed(sampled_chunk)
+    launches = counted(sampled_chunk)
+    wall = timed(sampled_chunk)
+    prof, traced_wall = traced(sampled_chunk)
+    line = summarize(f"decode_chunk_b8_k{CHUNK_STEPS}_sampled", prof, wall, traced_wall, smi)
+    line.update(fused=engine.decode_fused, attn=engine.decode_attn,
+                wall_ms_per_step=wall * 1e3 / CHUNK_STEPS,
+                device_ms_per_step=line["device_busy_ms"] / CHUNK_STEPS,
+                launches_per_step=line["n_kernels"] / CHUNK_STEPS,
+                port_launches_per_step={k: n / CHUNK_STEPS for k, n in launches.items()})
+    print(json.dumps(line), flush=True)
     print(json.dumps(dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           layers=cfg.n_layers, card=smi)))
 

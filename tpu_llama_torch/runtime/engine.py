@@ -6,7 +6,12 @@ Port of tpu_llama/runtime/engine.py for the dense INT8 path:
   at its own position;
 * admission runs a compact batched prefill of the new prompts only (prompt
   length bucketed to a power of two) into a T-row block, then the K7 slot
-  scatter writes that block into the chosen slots in place;
+  scatter writes that block into the chosen slots in place; above 8192
+  prompt rows the block is prefilled in chunks of 256 positions
+  (``forward_prefill_chunked``, K18 landing each fused chunk);
+* prefix reuse: ``snapshot_slot`` / ``restore_slot`` copy a slot's prefix
+  rows to the host and back, and ``prefill_continue`` prefills a suffix at
+  start_pos > 0 against the restored rows;
 * decode runs the full slot batch in one step -- inactive slots compute
   values nobody reads (they decode at position 0; their row lands there and
   the next admission's K7 scatter overwrites it).  With the deferred-flush
@@ -17,11 +22,18 @@ Port of tpu_llama/runtime/engine.py for the dense INT8 path:
   attention.  On fused W8A8 layouts the card decodes through the fused
   decode (``fused="auto"``: mega2, one K12 launch per layer; ``True`` the
   two-launch K11 path; ``False`` the unfused one), ``Engine.decode_fused``
-  shows the resolved mode.
+  shows the resolved mode;
+* device sampling: ``decode_sample``, ``sample_logits`` and the multi-step
+  ``decode_sample_chunk[_async]`` sample on the logits' device with JAX's
+  threefry keys (``ops/sampling.py``), so only token ids leave the card.
 
-JAX's donated functional cache becomes one cache object updated in place.
-Paged caches, prefix reuse, device sampling and the explicit-TP paths come
-with later slices (ROADMAP).
+JAX's donated functional cache becomes one cache object updated in place,
+every write on the current stream, so work queued after a decode chunk
+(an admission's K7, a restore, a continuation's write-back) lands after the
+chunk's own writes.  Host data reaches the card through pinned memory
+without waiting (``device.upload``): a blocking upload would stall the host
+behind a chunk in flight.  Paged caches and the explicit-TP paths come with
+later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import numpy as np
 import torch
 
 from tpu_llama_torch.config import ModelConfig
-from tpu_llama_torch.device import resolve_device
+from tpu_llama_torch.device import resolve_device, upload
 from tpu_llama_torch.models.llama import (
     LlamaParams,
     QuantKVCache,
@@ -40,13 +52,17 @@ from tpu_llama_torch.models.llama import (
     _resolve_fused,
     forward_decode,
     forward_prefill,
+    forward_prefill_chunked,
     make_kv_cache,
 )
 from tpu_llama_torch.ops.attention import kv_cache_scatter_slots
+from tpu_llama_torch.ops.sampling import fold_in, sample_nosort
 
-# Above this many prompt rows (Bp * T) the JAX engine switches to chunked
-# prefill (engine.py:132-138), which the port does not carry yet.
+# Above this many prompt rows (Bp * T, T a multiple of _CHUNK) the compact
+# block is prefilled in chunks (engine.py:132-138).
 _CHUNKED_ROWS = 8192
+_CHUNK = 256
+_CACHE_ARRAYS = ("k", "v", "ks", "vs")
 
 
 def _prefill_into_slots(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
@@ -55,15 +71,16 @@ def _prefill_into_slots(params: LlamaParams, cache: QuantKVCache, tokens: torch.
     (next-token logits [Bp, V], cache) with the cache updated in place.  The
     scatter is K7 for every bucket: the TPU's ``T % 128`` gate was a Mosaic
     alignment rule that the CUDA kernel does not have.  ``slots`` stays on
-    the host: K7's wrapper checks it there and copies it to the card once."""
+    the host: K7's wrapper checks it there and uploads it."""
     Bp, T = tokens.shape
-    if T % 256 == 0 and Bp * T > _CHUNKED_ROWS:
-        raise NotImplementedError("chunked prefill above 8192 prompt rows: ROADMAP "
-                                  "queue 1 item 9")
     small = make_kv_cache(config, Bp, seq_len=T, device=tokens.device)
-    last, small = forward_prefill(
-        params, small, tokens, start_pos=torch.zeros_like(lengths), lengths=lengths,
-        config=config, logits_mode="last", assume_fresh=True)
+    if T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
+        last, small = forward_prefill_chunked(params, small, tokens, lengths, config,
+                                              chunk=_CHUNK)
+    else:
+        last, small = forward_prefill(
+            params, small, tokens, start_pos=torch.zeros_like(lengths), lengths=lengths,
+            config=config, logits_mode="last", assume_fresh=True)
     kv_cache_scatter_slots(small.k, small.v, slots, cache.k, cache.v, small.ks,
                            small.vs, cache.ks, cache.vs)
     return last, cache
@@ -110,7 +127,16 @@ class Engine:
         """Return a retired slot (nothing to free on a dense cache)."""
 
     def _ints(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=torch.long).to(self.device)
+        return upload(a, self.device, torch.long)
+
+    def _floats(self, a) -> torch.Tensor:
+        return upload(a, self.device, torch.float32)
+
+    def _keys(self, keys) -> torch.Tensor:
+        """Key data [n, 2] (``ops.sampling.key``s) on the device."""
+        if isinstance(keys, torch.Tensor) and keys.device == self.device:
+            return keys
+        return self._ints(keys)
 
     def prefill(self, prompts: Sequence[Sequence[int]], slots: Sequence[int],
                 reserve_tokens: Sequence[int] | None = None, return_device: bool = False):
@@ -144,9 +170,42 @@ class Engine:
         last = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return last if return_device else last.cpu().numpy()
 
-    def decode(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
-        """One decode step over ALL slots. tokens/pos: [max_batch]."""
-        return self.decode_device(self._ints(tokens), self._ints(pos)).cpu().numpy()
+    def prefill_continue(self, suffixes: Sequence[Sequence[int]], slots: Sequence[int],
+                         starts: Sequence[int], return_device: bool = False):
+        """Prefill prompt suffixes into slots whose caches already hold the
+        prefix rows [0, starts[i]) (prefix-reuse admission, engine.py:
+        581-613, dense branch).  The suffix queries attend to the restored
+        rows, so the slots' whole caches are gathered, prefilled at
+        start_pos = starts (``forward_prefill``, logits_mode "last") and
+        written back (``_prefill_continue_slots``, engine.py:200-223): at 7B
+        and S = 2048 that is ~0.55 GB copied each way per slot.  Suffixes pad
+        to one power-of-two bucket.  Returns next-token logits [n, V]."""
+        if not suffixes or not len(suffixes) == len(slots) == len(starts):
+            raise ValueError("need one slot and one start per suffix, and at least one suffix")
+        lengths = np.array([len(s) for s in suffixes], np.int64)
+        if lengths.min() < 1:
+            raise ValueError("suffixes must be non-empty")
+        if int(np.max(np.asarray(starts) + lengths)) > self.seq_len:
+            raise ValueError("prefix + suffix exceeds cache")
+        T = min(_bucket(int(lengths.max())), self.seq_len)
+        toks = np.zeros((len(suffixes), T), np.int64)
+        for i, s in enumerate(suffixes):
+            toks[i, :len(s)] = s
+        idx = self._ints(slots)
+        sub = QuantKVCache(**{n: getattr(self.cache, n).index_select(1, idx)
+                              for n in _CACHE_ARRAYS})
+        logits, sub = forward_prefill(self.params, sub, self._ints(toks), self._ints(starts),
+                                      self._ints(lengths), self.config, logits_mode="last")
+        for n in _CACHE_ARRAYS:
+            getattr(self.cache, n).index_copy_(1, idx, getattr(sub, n))
+        return logits if return_device else logits.cpu().numpy()
+
+    def decode(self, tokens: np.ndarray, pos: np.ndarray, return_device: bool = False):
+        """One decode step over ALL slots. tokens/pos: [max_batch].  Returns
+        the logits [max_batch, V] (numpy, or the device tensor with
+        ``return_device=True``)."""
+        logits = self.decode_device(self._ints(tokens), self._ints(pos))
+        return logits if return_device else logits.cpu().numpy()
 
     def decode_device(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Device-resident decode step (no host transfer) for tight loops.
@@ -157,5 +216,92 @@ class Engine:
                                             fused=self.decode_fused)
         return logits
 
+    def decode_sample(self, tokens, pos, temps, topps, keys, topks=None) -> np.ndarray:
+        """Decode + per-slot sampling on the device (engine.py:644-666):
+        ``keys`` are the step's keys [max_batch, 2] (already folded with the
+        position).  Only the [max_batch] token ids come back."""
+        B = len(tokens)
+        topks = np.zeros(B, np.int64) if topks is None else topks
+        logits = self.decode_device(self._ints(tokens), self._ints(pos))
+        return sample_nosort(logits, self._keys(keys), self._floats(temps), self._floats(topps),
+                             self._ints(topks)).cpu().numpy()
+
+    def sample_logits(self, logits, temps, topps, topks, base_keys, pos) -> np.ndarray:
+        """One token per logits row, sampled on the device with keys
+        fold_in(base_key, pos) (engine.py:668-690): the admission's token
+        folds in the last prompt position, so it never meets a decode step's
+        key.  Rows pad to a power-of-two count, as the JAX engine pads its
+        jit shapes.  Returns [n] token ids."""
+        rows = [torch.as_tensor(lg).to(self.device) for lg in logits]
+        n = len(rows)
+        pad = _bucket(n, minimum=1) - n
+
+        def padded(a, fill):
+            a = np.asarray(a)
+            return np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+        keys = np.asarray(base_keys, np.int64)
+        keys = np.concatenate([keys, np.repeat(keys[:1], pad, axis=0)])
+        out = sample_nosort(torch.stack(rows + rows[:1] * pad).float(),
+                            fold_in(self._ints(keys), self._ints(padded(pos, 0))),
+                            self._floats(padded(temps, 0.0)), self._floats(padded(topps, 1.0)),
+                            self._ints(padded(topks, 0)))
+        return out[:n].cpu().numpy()
+
+    def decode_sample_chunk_async(self, tokens, pos, temps, topps, base_keys, steps: int,
+                                  topks=None) -> torch.Tensor:
+        """``steps`` decode + sample steps, each sampled token fed back on the
+        device, with keys fold_in(base_key, fed position) (engine.py:
+        348-382), so a chunk samples as step-at-a-time sampling does.
+        Returns the device tensor [max_batch, steps] with no host sync: the
+        caller reads it after queueing more work (the overlapped
+        admission).  Nothing in the loop waits for the card: the inputs go
+        up through pinned memory, the sampler's bisection is a fixed loop."""
+        B = len(tokens)
+        topks = np.zeros(B, np.int64) if topks is None else topks
+        toks, p = self._ints(tokens), self._ints(pos)
+        temps, topps, topks = self._floats(temps), self._floats(topps), self._ints(topks)
+        base = self._keys(base_keys)
+        out = []
+        for _ in range(steps):
+            logits = self.decode_device(toks, p)
+            toks = sample_nosort(logits, fold_in(base, p), temps, topps, topks)
+            out.append(toks)
+            p = p + 1
+        return torch.stack(out, dim=1)
+
+    def decode_sample_chunk(self, tokens, pos, temps, topps, base_keys, steps: int,
+                            topks=None) -> np.ndarray:
+        """``decode_sample_chunk_async``, read back: [max_batch, steps]."""
+        return self.decode_sample_chunk_async(tokens, pos, temps, topps, base_keys, steps,
+                                              topks).cpu().numpy()
+
     def reset(self) -> None:
         self.cache.zero_()
+
+    # ---- KV snapshot / prefix reuse (engine.py:776-853, dense branch) ----
+    def snapshot_slot(self, slot: int, length: int) -> dict:
+        """Copy rows [0, length) of one slot's K, V and scales to the host.
+        On the card the copies go into pinned memory without waiting; they
+        are complete once the stream has passed them, which ``restore_slot``
+        (queued on the same stream) needs no more than."""
+        snap = {"length": int(length)}
+        for n in _CACHE_ARRAYS:
+            src = getattr(self.cache, n)[:, slot, :, :length]
+            if src.is_cuda:
+                snap[n] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                snap[n].copy_(src, non_blocking=True)
+            else:
+                snap[n] = src.clone()
+        return snap
+
+    def release_snapshot(self, snap: dict | None) -> None:
+        """Drop a snapshot (nothing to release for host copies)."""
+
+    def restore_slot(self, slot: int, snap: dict, reserve_tokens: int | None = None) -> None:
+        """Write a snapshot back into rows [0, length) of a slot, on the
+        stream; the caller then continues from pos == snap["length"].
+        ``reserve_tokens`` is for paged caches and is ignored here."""
+        length = snap["length"]
+        for n in _CACHE_ARRAYS:
+            getattr(self.cache, n)[:, slot, :, :length].copy_(snap[n], non_blocking=True)
