@@ -12,13 +12,18 @@ Phases (any failure exits non-zero and prints no result line):
    quant, K3 rmsnorm+quant, K4 silu*up+quant, K5 rope+split+KV quant, K6
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
    attention, K10 row flush, K18 chunk write; K8 stacked-weight product,
-   K11 fused decode layer, K12 mega2 layer with the next layer's attention)
-   at the Llama-2 7B shapes of the serving path, against its plain PyTorch
+   K11 fused decode layer, K12 mega2 layer with the next layer's attention;
+   K25 Q8_0 product; the f32 and bf16 forms of K6, K7, K9, K19 and K10)
+   at the Llama-2 7B shapes of the serving paths, against its plain PyTorch
    version on the same inputs: K1, K2, K7, K8, K10, K11 and K18 exact, K3, K4 and K5 within
    QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and K19 within K6_TOL, K12's
    residual exact and its int8 outputs, scales and attention output within
-   those limits; kernel, plain-version and PyTorch-library times (CUDA
-   events) beside the bound (the larger of bytes / 3.35 TB/s and
+   those limits, K25 within K25_TOL, the fp forms of K6, K9 and K19 within
+   FP_TOL with f32 queries (K6_TOL for K6's bf16 outputs beside them),
+   K7's and K10's exact; the decode attention
+   kernels (K9, K19, K12, INT8 and fp) on caches whose rows at and past each
+   slot's pos are poisoned; kernel, plain-version and PyTorch-library times
+   (CUDA events) beside the bound (the larger of bytes / 3.35 TB/s and
    operations / the card's peak for their type);
 4. the serving path at full 7B width and depth with random W8A8 weights in
    the fused wqkv / w13 layouts (``random_quant_params(fuse=True)``, as
@@ -41,6 +46,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``prefix_hits`` must be 5, every kernel must launch exactly as the path
    requires (``serve_7b_long`` writes the formula), no plain version may
    run;
+4c. ``serve_7b_dense``, the JAX server's default model: random dense f32
+   weights (``random_params``) fused as ``serve()`` fuses them,
+   ``Engine(max_batch=8, seq_len=2048)`` with the default float32 cache,
+   phase 4's 10 requests; 4d. ``serve_7b_q8``: those weights in Q8_0
+   (``quantize_params``' default; the f32 ones freed first) with a bfloat16
+   cache.  Every request must finish with in-vocab tokens, every kernel
+   must launch exactly as the path requires (``serve_7b_fp`` writes the
+   formula), no plain version may run;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
    decode attention and fused decode, on unfused weights once each "xla"
@@ -49,12 +62,16 @@ Phases (any failure exits non-zero and prints no result line):
    the unfused, the two-launch (K8, K11 + K9) and the mega2 (K8, K9, K12)
    decode: f32 activations (tokens equal at all 8 steps, logits within
    LOGITS_TOL) and bf16 activations (prefill logits within LOGITS_TOL);
-   then, f32 and fused layouts, this slice's paths (``parity_long_paths``):
+   then, f32 and fused layouts, the long-prompt paths (``parity_long_paths``):
    the chunked prefill against the one-shot one, prefix reuse against a
-   cold prefill, and the device sampler;
+   cold prefill, and the device sampler; then the same shape written as a
+   llama2.c checkpoint and read back (``parity_checkpoint``): dense f32
+   weights over f32 and bf16 caches and Q8_0 weights over a bf16 cache,
+   card against CPU at ``precision="highest"``;
 6. a JSON line of the kernels (launches counted on the path that runs
-   each: phase 4, phase 4b for K18, and phase 5's f32 run for a kernel
-   that phase 4 does not run: K19, K11), then the result line.
+   each: phase 4, phase 4b for K18, phases 4c and 4d for K25 and the fp
+   forms, and phase 5 for a kernel that those do not run: K19, K11, the fp
+   forms of K19), then the result line.  Each phase prints its seconds.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
 repo (``tpu_llama_torch`` must be importable from beside this file).
@@ -63,6 +80,7 @@ repo (``tpu_llama_torch`` must be importable from beside this file).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -97,6 +115,15 @@ LOGITS_TOL = 5e-2
 # QUANT_FLIPS and its scales and dequantized values to K6_TOL.
 QUANT_FLIPS = 1e-4
 QUANT_SCALE_RTOL = 2.0 ** -22
+# K25 against its plain version: the same bf16 products, exact in f32,
+# summed in another order (f32 outputs): 1e-4 of max |ref|.
+K25_TOL = 1e-4
+# The fp forms of K6, K9 and K19 against their plain versions with f32
+# queries and outputs, as the dense and Q8_0 paths run them: f32
+# throughout, nothing rounded, sums in another order and CUDA's expf: 1e-5
+# of max |ref|.  A kernel that rounded p or q to bf16 (the INT8 forms'
+# arithmetic) misses by ~1e-3.  K6 with bf16 outputs is held to K6_TOL.
+FP_TOL = 1e-5
 
 SRC = {
     "K1": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/matmul.py:483"),
@@ -113,7 +140,10 @@ SRC = {
     "K8": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/fused_layer.py:541"),
     "K11": ("tpu_llama_torch/csrc/fused_layer.cu", "tpu_llama/ops/fused_layer.py:204"),
     "K12": ("tpu_llama_torch/csrc/fused_step2.cu", "tpu_llama/ops/fused_step2.py:537"),
+    "K25": ("tpu_llama_torch/csrc/q8_matmul.cu", "tpu_llama/ops/matmul.py:142"),
 }
+SRC.update({f"{k}:{sfx}": SRC[k] for k in ("K6", "K7", "K9", "K10", "K19")
+            for sfx in ("f32", "bf16")})  # one templated kernel per INT8 and fp form
 DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
 FUSED_PREFILL_PATH = PREFILL_PATH | {"K3", "K4", "K5"}  # ... on fused layouts
@@ -164,6 +194,23 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def host_launch_us(torch, n: int = 2000) -> float:
+    """Host microseconds to launch one tiny kernel (an add on 8 floats),
+    over ``n`` launches after a warm-up: the host speed that a decode step
+    bound by its launches follows.  Hosts of one-card machines differ and
+    are shared, so each serving phase reads it beside its step time."""
+    x = torch.zeros(8, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def n_copies(nbytes: float) -> int:
@@ -502,11 +549,21 @@ def _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pos, layers, copies):
         return None
 
 
+def _poison(k, v, ks, vs, pos):
+    """Every INT8 cache row at and past each slot's pos set to 127 with
+    scale 1e4 (all layers): a kernel that read one stale row would miss its
+    plain version by orders of magnitude, not by a fraction of a limit."""
+    for b, p in enumerate(pos):
+        for a, val in ((k, 127), (v, 127), (ks, 1e4), (vs, 1e4)):
+            a[:, b, :, p:] = val
+
+
 def check_decode_attention(torch, tatt, results):
     """K9 and K19 on the same inputs: a 32-layer 2048-row cache, layer 17,
     at batch 8 (one slot at each of DECODE_POS; MHA and a GQA group of 4)
-    and at batch 1.  Repeated calls rotate through other layers of the
-    cache and other queries, so they find the rows cold in L2."""
+    and at batch 1, the rows at and past each pos poisoned (``_poison``).
+    Repeated calls rotate through other layers of the cache and other
+    queries, so they find the rows cold in L2."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     L, S, hd, layer = 32, 2048, 128, 17
 
@@ -520,6 +577,7 @@ def check_decode_attention(torch, tatt, results):
                            (1, 32, 1, [2047])):
         k, v, ks, vs = ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd), rs(L, B, KVH, S), \
             rs(L, B, KVH, S)
+        _poison(k, v, ks, vs, pos)
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
         rows = KVH * sum(pos)  # cache rows the function reads
         copies = n_copies(rows * (2 * hd + 8))
@@ -664,6 +722,269 @@ def check_k18(torch, tatt, results):
     torch.cuda.empty_cache()
 
 
+def check_k25(torch, tq, tm, results):
+    """K25 at the 7B shapes of the Q8_0 path: M 8 (a decode step) on wqkv,
+    w13, w2 and the classifier, M 4096 (the 8 x 512 admission) on wqkv, wo,
+    w13 and w2; f32 activations, as the served model's; random int8 weights
+    with Q8_0's groups (g 64 for in 4096, 32 for in 11008).  Against the
+    plain version within K25_TOL; the library call is ``torch.matmul`` on the
+    weight dequantized once to bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cases = [(8, 4096, 12288), (8, 4096, 22016), (8, 11008, 4096), (8, 4096, 32000),
+             (4096, 4096, 12288), (4096, 4096, 4096), (4096, 4096, 22016), (4096, 11008, 4096)]
+    for m, k, n in cases:
+        g = tq.pick_group_size(k)
+        wbytes = n * k + 4 * n * (k // g)
+        copies = n_copies(wbytes)
+        ws = [tq.QuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8),
+            s=torch.rand(n, k // g, generator=gen, device="cuda") * 1e-3 + 1e-4,
+            logical_in=k, logical_out=n) for _ in range(copies)]
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        got = tm.q8_matmul(x, ws[0], out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        want = tm.q8_matmul_plain(x, ws[0], out_dtype=torch.float32)
+        err = (got - want).abs().max().item()
+        peak = want.abs().max().item()
+        label = f"K25 q8_matmul M={m} K={k} N={n} g={g}"
+        check(err <= K25_TOL * peak, f"{label}: err {err} > {K25_TOL} * {peak}")
+        iters = 50 if m == 8 else 10
+        ms = cuda_ms(torch, lambda i: tm.q8_matmul(x, ws[i % copies]), iters)
+        plain_ms = cuda_ms(torch, lambda i: tm.q8_matmul_plain(x, ws[i % copies]), 3, warmup=1)
+        wb = [tm.q8_weight_bf16(w) for w in ws]
+        xb = x.to(torch.bfloat16)
+        library_ms = cuda_ms(torch, lambda i: torch.matmul(xb, wb[i % copies].t()), iters)
+        del wb
+        b_ms, by = bound_ms(wbytes + 4 * m * k + 4 * m * n, 2 * m * k * n, "bf16")
+        results.append(dict(kernel="K25", name=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                            library_ms=library_ms))
+        del ws, x, got, want
+    torch.cuda.empty_cache()
+
+
+FP_NAMES = {"K6": "flash_prefill_attention", "K7": "kv_cache_scatter_slots",
+            "K9": "flash_decode_attention_dma", "K19": "flash_decode_attention_fresh",
+            "K10": "kv_cache_flush_rows"}
+
+
+def _sfx(dtype) -> str:
+    return "f32" if str(dtype) == "torch.float32" else "bf16"
+
+
+def _fp_label(kernel: str, dtype) -> tuple[str, str]:
+    """(the launch-count id, the name prefix) of an fp form: ("K6:f32",
+    "K6:f32 flash_prefill_attention[f32]")."""
+    sfx = _sfx(dtype)
+    return f"{kernel}:{sfx}", f"{kernel}:{sfx} {FP_NAMES[kernel]}[{sfx}]"
+
+
+def check_fp_forms(torch, tatt, results):
+    """The fp forms of K6, K7, K9, K19 and K10 on f32 and bf16 caches at the
+    shapes their INT8 forms are checked at: K6 at the 8 x 512 admission and
+    a continuation at start > 0 in a 2048-row cache, K7 into a
+    [32, 8, 32, 2048, 128] cache, K9 and K19 on layer 17 of a 32-layer
+    2048-row cache at batch 8 (one slot at each of DECODE_POS) and batch 1
+    at position 2047, with every row at and past a slot's pos poisoned with
+    1e4, K10 at the step's shape.  K6, K9 and K19 take f32 queries (and K6
+    writes f32 outputs), as the dense and Q8_0 paths pass them, within
+    FP_TOL of their plain versions; bf16 queries beside them (K6 writing
+    bf16, within K6_TOL); K7 and K10 exact.  Library calls: SDPA on the fp
+    cache, as for the INT8 forms, and the indexed copies."""
+    import torch.nn.functional as F
+
+    for dt in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dt).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(60 + es)
+        # K6: f32 queries and outputs, as the dense and Q8_0 paths pass them,
+        # within FP_TOL; bf16 ones beside them, within K6_TOL (bf16 outputs)
+        kid, prefix = _fp_label("K6", dt)
+        for (B, T, NH, KVH, S, hd, start), (qdt, tol) in itertools.product(
+                ((8, 512, 32, 32, 512, 128, [0] * 8), (2, 128, 32, 32, 2048, 128, [600, 1900])),
+                ((torch.float32, FP_TOL), (torch.bfloat16, K6_TOL))):
+            qb = torch.tensor([], dtype=qdt).element_size()
+            st = torch.tensor(start, dtype=torch.int32, device="cuda")
+            copies = n_copies(B * T * NH * hd * qb + 2 * B * KVH * S * hd * es)
+            ins = [(torch.randn(B, T, NH, hd, generator=gen, device="cuda").to(qdt),
+                    torch.randn(B, KVH, S, hd, generator=gen, device="cuda").to(dt),
+                    torch.randn(B, KVH, S, hd, generator=gen, device="cuda").to(dt))
+                   for _ in range(copies)]
+
+            def run(i, fn=tatt.flash_prefill_attention):
+                q, k, v = ins[i % copies]
+                return fn(q, k, v, st, out_dtype=qdt)
+
+            got = run(0)
+            torch.cuda.synchronize()
+            want = run(0, tatt.flash_prefill_attention_plain)
+            err = (got.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            label = (f"{prefix} B={B} T={T} S={S} start={'0' if not any(start) else '>0'} "
+                     f"q={_sfx(qdt)}")
+            check(err <= tol * peak, f"{label}: err {err} > {tol} * {peak}")
+            ms = cuda_ms(torch, run, 20)
+            plain_ms = cuda_ms(torch, lambda i: run(i, tatt.flash_prefill_attention_plain), 3,
+                               warmup=1)
+            sd = [(q.transpose(1, 2).to(dt), k, v) for q, k, v in ins]
+            if T == S and not any(start):
+                mask = None
+            else:
+                t_pos = (st[:, None, None, None]
+                         + torch.arange(T, device="cuda")[None, None, :, None])
+                mask = torch.arange(S, device="cuda")[None, None, None, :] <= t_pos
+            library_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+                *sd[i % copies], attn_mask=mask, is_causal=mask is None), 20)
+            keys = sum(min(S, s + t + 1) for s in start for t in range(T))
+            used = sum(min(S, s + T) for s in start)
+            nbytes = B * T * NH * hd * qb * 2 + 2 * KVH * used * hd * es + 4 * B
+            b_ms, by = bound_ms(nbytes, 4 * hd * NH * keys, "f32")
+            results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                library_ms=library_ms))
+            del ins, sd, got, want, mask
+            torch.cuda.empty_cache()
+
+        # K7
+        kid, prefix = _fp_label("K7", dt)
+        L, n, KVH, T, hd, B, S = 32, 8, 32, 512, 128, 8, 2048
+        small = [torch.randn(L, n, KVH, T, hd, generator=gen, device="cuda").to(dt)
+                 for _ in range(2)]
+        cache = [torch.zeros(L, B, KVH, S, hd, dtype=dt, device="cuda") for _ in range(2)]
+        slots = [5, 0, 7, 2, 1, 6, 3, 4]
+        tatt.kv_cache_scatter_slots(*small, slots, *cache)
+        torch.cuda.synchronize()
+        ref = [torch.zeros_like(c) for c in cache]
+        tatt.kv_cache_scatter_slots_plain(*small, slots, *ref)
+        check(all(torch.equal(a, b) for a, b in zip(cache, ref)), f"{prefix}: cache differs")
+        del ref
+        ms = cuda_ms(torch, lambda i: tatt.kv_cache_scatter_slots(*small, slots, *cache), 20)
+        plain_ms = cuda_ms(torch, lambda i: tatt.kv_cache_scatter_slots_plain(
+            *small, slots, *cache), 5)
+        sl = torch.tensor(slots, device="cuda")
+
+        def lib(i):
+            for c, sm in zip(cache, small):
+                c[:, sl, :, :T] = sm
+
+        library_ms = cuda_ms(torch, lib, 5)
+        b_ms, by = bound_ms(2 * 2 * L * n * KVH * T * hd * es, 0, "f32")
+        results.append(dict(kernel=kid, name=f"{prefix} L={L} n={n} T={T} S={S}",
+                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=by, library_ms=library_ms))
+        del small, cache
+        torch.cuda.empty_cache()
+
+        # K9 and K19, then K10, on one 32-layer cache
+        L, S, hd, layer = 32, 2048, 128, 17
+        for B, KVH, G, pos in ((8, 32, 1, DECODE_POS), (1, 32, 1, [2047])):
+            k = torch.randn(L, B, KVH, S, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(L, B, KVH, S, hd, generator=gen, device="cuda").to(dt)
+            for b, p in enumerate(pos):  # rows at and past pos: stale, never read
+                k[:, b, :, p:] = 1e4
+                v[:, b, :, p:] = 1e4
+            pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            rows = KVH * sum(pos)
+            copies = n_copies(rows * 2 * hd * es)
+            layers = [(layer + i) % L for i in range(copies)]
+            qf = [torch.randn(B, KVH, G, hd, generator=gen, device="cuda")
+                  for _ in range(copies)]
+            nk = [torch.randn(B, KVH, hd, generator=gen, device="cuda").to(dt)
+                  for _ in range(copies)]
+            nv = [torch.randn(B, KVH, hd, generator=gen, device="cuda").to(dt)
+                  for _ in range(copies)]
+            library_ms = _sdpa_fp_ms(torch, qf, k, v, nk, nv, pt, layers, copies)
+            torch.cuda.empty_cache()
+            # f32 queries, as the dense and Q8_0 paths pass them; bf16 beside
+            for (kernel, name), qdt in itertools.product((("K9", "dma"), ("K19", "fresh")),
+                                                         (torch.float32, torch.bfloat16)):
+                kid, prefix = _fp_label(kernel, dt)
+                fn = getattr(tatt, f"flash_decode_attention_{name}")
+                plain = getattr(tatt, f"flash_decode_attention_{name}_plain")
+                q = [t.to(qdt) for t in qf]
+                qb = torch.tensor([], dtype=qdt).element_size()
+                nbytes = (rows * 2 * hd * es + B * KVH * G * hd * (qb + 4)
+                          + B * KVH * 2 * hd * es + 4 * B)
+                b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "f32")
+
+                def run(i, f=fn):
+                    j = i % copies
+                    return f(q[j], k, v, pt, nk[j], nv[j], layer=layers[j])
+
+                got = run(0)
+                torch.cuda.synchronize()
+                want = run(0, plain)
+                err = (got - want).abs().max().item()
+                peak = want.abs().max().item()
+                label = (f"{prefix} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'} "
+                         f"q={_sfx(qdt)}")
+                check(err <= FP_TOL * peak, f"{label}: err {err} > {FP_TOL} * {peak}")
+                ms = cuda_ms(torch, run, 50)
+                plain_ms = cuda_ms(torch, lambda i: run(i, plain), 3, warmup=1)
+                results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                    library_ms=library_ms))
+            if B == 8:  # K10 at the step's shape on this cache
+                kid, prefix = _fp_label("K10", dt)
+                fpos = [0, 1, 127, 128, 511, 1000, S, 2047]
+                pf = torch.tensor(fpos, dtype=torch.int32, device="cuda")
+                fr = [(torch.randn(L, B, KVH, hd, generator=gen, device="cuda").to(dt),
+                       torch.randn(L, B, KVH, hd, generator=gen, device="cuda").to(dt))
+                      for _ in range(copies)]
+                ref = [k.clone(), v.clone()]
+                tatt.kv_cache_flush_rows(*fr[0], pf, k, v)
+                torch.cuda.synchronize()
+                tatt.kv_cache_flush_rows_plain(*fr[0], pf, *ref)
+                check(torch.equal(k, ref[0]) and torch.equal(v, ref[1]),
+                      f"{prefix}: cache differs")
+                del ref
+                ms = cuda_ms(torch, lambda i: tatt.kv_cache_flush_rows(*fr[i % copies], pf, k,
+                                                                        v), 50)
+                plain_ms = cuda_ms(torch, lambda i: tatt.kv_cache_flush_rows_plain(
+                    *fr[i % copies], pf, k, v), 10)
+                ok = [b for b, p in enumerate(fpos) if p < S]
+                ix = (torch.arange(L, device="cuda")[:, None, None],
+                      torch.tensor(ok, device="cuda")[None, :, None],
+                      torch.arange(KVH, device="cuda")[None, None, :],
+                      torch.tensor([fpos[b] for b in ok], device="cuda")[None, :, None])
+
+                def lib(i):
+                    for c, r in zip((k, v), fr[i % copies]):
+                        c[ix] = r[:, ix[1][0, :, 0]]
+
+                library_ms = cuda_ms(torch, lib, 50)
+                b_ms10, by10 = bound_ms(2 * L * len(ok) * KVH * 2 * hd * es + 4 * B, 0, "f32")
+                results.append(dict(kernel=kid, name=f"{prefix} L={L} B={B} S={S}",
+                                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms10,
+                                    bound_by=by10, library_ms=library_ms))
+                del fr
+            del k, v, q, qf, nk, nv
+            torch.cuda.empty_cache()
+
+
+def _sdpa_fp_ms(torch, q, k, v, nk, nv, pos, layers, copies):
+    """The library yardstick of the fp forms of K9 and K19: SDPA on the fp
+    cache's layer with the fresh row written at pos and the mask s <= pos."""
+    import torch.nn.functional as F
+
+    B, KVH, G, hd = q[0].shape
+    S = k.shape[3]
+    b_ix = torch.arange(B, device="cuda")
+    sd = []
+    for i in range(copies):
+        kd, vd = k[layers[i]].clone(), v[layers[i]].clone()
+        kd[b_ix, :, pos.long()] = nk[i]
+        vd[b_ix, :, pos.long()] = nv[i]
+        sd.append((q[i].reshape(B, KVH * G, 1, hd).to(k.dtype), kd, vd))
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    kw = dict(enable_gqa=True) if G > 1 else {}
+    try:
+        return cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            *sd[i % copies], attn_mask=mask, **kw), 50)
+    except (TypeError, RuntimeError) as e:  # a call this build refuses
+        print(f"fp decode attention library call unavailable: {e}", file=sys.stderr)
+        return None
+
+
 def _layer_weights(torch, tq, gen, L, D, H, QO):
     """Random stacked W8A8 weights of a fused 7B layer stack: wo, w13, w2,
     wqkv (K-major) and bf16 rms rows."""
@@ -688,7 +1009,8 @@ def check_fused(torch, tq, tfl, tfs, results):
     QUANT_SCALE_RTOL (the plain version's steps); its attention output, whose
     f32 sums run in another order (K9's), within QUANT_FLIPS as int8, its
     scales and dequantized values within K6_TOL.  Timed calls rotate through
-    the layers, so the weights come cold from device memory."""
+    the layers, so the weights come cold from device memory.  K12's cache
+    rows at and past each pos are poisoned (``_poison``)."""
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = LLAMA2_7B
@@ -766,6 +1088,7 @@ def check_fused(torch, tq, tfl, tfs, results):
                                dtype=torch.int8) for _ in range(2)]
         scales = [torch.rand(L, B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
                   for _ in range(2)]
+        _poison(*cache, *scales, pos)
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
         ang = torch.rand(B, hd // 2, generator=gen, device="cuda") * 6.3
         x, attq, satt = rows(B)
@@ -894,6 +1217,7 @@ def serve_7b(torch, smi_line, params, params_s):
                 / max(1, batcher.timers["decode_steps"]),
                 admit_s=batcher.timers["admit"], emit_s=batcher.timers["emit"],
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                host_launch_us=host_launch_us(torch),
                 launches=launches, plain_calls=plain, card=smi_line)
     print(json.dumps(line), flush=True)
     del engine, batcher
@@ -1032,7 +1356,97 @@ def serve_7b_long(torch, smi_line, params):
                 admit_s=t["admit"], decode_dispatch_s=t["decode_dispatch"],
                 decode_read_s=t["decode_read"], emit_s=t["emit"],
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                host_launch_us=host_launch_us(torch),
                 launches=launches, plain_calls=plain, card=smi_line)
+    print(json.dumps(line), flush=True)
+    del engine, batcher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_7b_fp(torch, smi_line, params, phase: str, kv_dtype: str, setup_s: float):
+    """Phases 4c and 4d: the JAX server's model path at full 7B width and
+    depth, ``Engine(max_batch=8, seq_len=2048)`` + ``ContinuousBatcher``
+    serving phase 4's 10 requests on dense f32 weights in the fused layouts
+    with the default (float32) cache ("serve_7b_dense"), or on their Q8_0
+    form with a bfloat16 cache ("serve_7b_q8").  Every request must finish
+    with in-vocab tokens, no plain version may run, and every kernel must
+    launch exactly as the path requires: per admission group K6's fp form
+    once per layer and K7's fp form once (every bucket); per decode step K9's
+    fp form once per layer and one fp K10 flush (decode attention "auto":
+    K9; fused decode "auto": False on these weights); on Q8_0 weights K25
+    four times per layer and once for the classifier in each admission
+    group and each decode step (4 x 32 + 1 = 129).  Returns the launches."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.ops.quant import QuantTensor
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime import engine as engine_mod
+    from tpu_llama_torch.runtime.metrics import summarize
+
+    cfg = LLAMA2_7B
+    L = cfg.n_layers
+    t0 = time.time()
+    kw = {} if kv_dtype == "float32" else dict(kv_dtype=kv_dtype)  # 4c: the default cache
+    engine = Engine(params, cfg, max_batch=8, seq_len=2048, **kw)
+    torch.cuda.synchronize()
+    setup_s += time.time() - t0
+    check(str(engine.cache.k.dtype) == f"torch.{kv_dtype}",
+          f"{phase}: cache {engine.cache.k.dtype}, want {kv_dtype}")
+    buckets = []  # each admission group's T
+    inner = engine_mod._prefill_into_slots
+
+    def counted(p, cache, tokens, *a, **k):
+        buckets.append(tokens.shape[1])
+        return inner(p, cache, tokens, *a, **k)
+
+    engine_mod._prefill_into_slots = counted
+    reqs = make_requests(Request, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(engine)
+    _kernels.reset_counts()  # counts from here on belong to this path
+    t0 = time.time()
+    try:
+        for r in reqs:
+            batcher.submit(r)
+        batcher.run()
+        torch.cuda.synchronize()
+    finally:
+        engine_mod._prefill_into_slots = inner
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    check(all(r.done for r in reqs), f"{phase}: a request did not finish")
+    toks = [t for r in reqs for t in r.out_tokens]
+    check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
+          f"{phase}: served tokens missing or out of vocabulary")
+    check(all(v == 0 for v in plain.values()), f"{phase}: plain versions ran: {plain}")
+    attn, fused = engine.decode_attn, engine.decode_fused
+    check(attn == "flash_dma" and fused is False,
+          f"{phase}: decode resolved to {attn}, fused={fused!r}")
+    steps = batcher.timers["decode_steps"]
+    groups = len(buckets)
+    sfx = "f32" if kv_dtype == "float32" else "bf16"
+    want = {f"K6:{sfx}": L * groups, f"K7:{sfx}": groups, f"K9:{sfx}": L * steps,
+            f"K10:{sfx}": steps}
+    if isinstance(params.layers.wq, QuantTensor):
+        want["K25"] = (4 * L + 1) * (groups + steps)
+    got = {k: n for k, n in launches.items() if n > 0}
+    check(groups > 0 and steps > 0 and got == want,
+          f"{phase}: {groups} admission groups (buckets {buckets}), {steps} decode steps: want "
+          f"exactly {want}, got {got}")
+    rep = summarize(reqs)
+    line = dict(phase=phase, layouts="fused", weights=type(params.layers.wq).__name__,
+                kv_dtype=kv_dtype, precision=engine.precision, decode_attn=attn,
+                decode_fused=fused, admission_groups=groups, buckets=buckets,
+                n_requests=rep.n_requests, tokens=rep.total_tokens, wall_s=wall,
+                tok_per_s=rep.tokens_per_sec, ttft_p50_ms=rep.ttft_p50_s * 1e3,
+                ttft_p95_ms=rep.ttft_p95_s * 1e3, setup_s=setup_s, decode_steps=steps,
+                decode_ms_per_step=batcher.timers["decode"] * 1e3 / max(1, steps),
+                admit_s=batcher.timers["admit"], emit_s=batcher.timers["emit"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                host_launch_us=host_launch_us(torch),
+                launches=got, plain_calls=plain, card=smi_line)
     print(json.dumps(line), flush=True)
     del engine, batcher
     torch.cuda.empty_cache()
@@ -1044,6 +1458,8 @@ def _to(obj, device):
 
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if not dataclasses.is_dataclass(obj):
+        return obj  # a QuantTensor's logical sizes
     return type(obj)(**{f.name: _to(getattr(obj, f.name), device)
                         for f in dataclasses.fields(obj)})
 
@@ -1082,11 +1498,12 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False):
     t0 = time.time()
     _kernels.reset_counts()
     g_toks, g_log = _greedy_prompt(
-        Engine(gpu, cfg, max_batch=1, seq_len=64, attn=attn, fused=fused), seq, PARITY_STEPS)
+        Engine(gpu, cfg, max_batch=1, kv_dtype="int8", seq_len=64, attn=attn, fused=fused), seq,
+        PARITY_STEPS)
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     t1 = time.time()
-    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, max_batch=1, seq_len=64, attn=attn,
-                                          fused=fused, device="cpu"), seq, PARITY_STEPS)
+    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, max_batch=1, kv_dtype="int8", seq_len=64,
+                                          attn=attn, fused=fused, device="cpu"), seq, PARITY_STEPS)
     t2 = time.time()
     path = FUSED_PREFILL_PATH if fuse else PREFILL_PATH
     if attn == "xla":  # the plain PyTorch decode launches no kernel
@@ -1144,6 +1561,92 @@ def parity_2layer(torch):
     return launches
 
 
+# phase 5's checkpoint runs: (weights, cache, decode attention) on both
+# sides, and the limit of every step's logits as a share of max |logit|.
+# Readings on an H100: dense f32 weights over an f32 cache 8.2e-6 (f32 sum
+# order only), over a bf16 cache 4.8e-4 (a K/V value rounded to bf16 on
+# either side of a boundary), Q8_0 over bf16 8.0e-3 (K25 rounds x to
+# bf16).  The limits are ~10x those, LOGITS_TOL for Q8_0: an fp form that
+# rounded q or p to bf16 moves its attention output by ~1e-3 of itself.
+CKPT_RUNS = (("dense", "float32", "flash_dma", 1e-4), ("dense", "float32", "flash", 1e-4),
+             ("q8_0", "bfloat16", "flash_dma", LOGITS_TOL), ("dense", "bfloat16", "flash", 5e-3))
+
+
+def parity_checkpoint(torch):
+    """Phase 5 for this slice's paths: the 2-layer 7B-width model written as
+    a llama2.c checkpoint (``make_random_weights`` -> ``write_checkpoint``
+    into an ignored directory of the checkout) and read back
+    (``load_checkpoint`` -> ``params_from_raw``, f32), one greedy request
+    of PARITY_STEPS steps on the card (kernels) and on the CPU (plain
+    versions) with ``precision="highest"`` and the same explicit decode
+    attention and ``fused=False`` on both sides, for each of CKPT_RUNS:
+    dense f32 weights over a float32 cache (K9's and K19's fp forms) and a
+    bfloat16 one (K19's), Q8_0 weights (quantized once, on the card, and
+    copied) over a bfloat16 cache.  f32 activations: greedy tokens equal at
+    every step, every step's logits within the run's limit of max |logit|.
+    Returns the card launches of each run, by its (weights, cache,
+    attention)."""
+    from pathlib import Path
+
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.io import load_checkpoint, make_random_weights, write_checkpoint
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import Engine
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    path = Path(__file__).resolve().parent / "build" / "parity" / "model.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    write_checkpoint(path, make_random_weights(cfg, seed=7))
+    raw = load_checkpoint(path)
+    check(raw.config == cfg, f"checkpoint header {raw.config} != {cfg}")
+    dense = {CARD: tl.params_from_raw(raw, device=CARD), "cpu": tl.params_from_raw(raw,
+                                                                                  device="cpu")}
+    q8 = tl.quantize_params(dense[CARD])
+    weights = {"dense": dense, "q8_0": {CARD: q8, "cpu": _to(q8, "cpu")}}
+    del raw
+    path.unlink()
+    ckpt_s = time.time() - t0
+    seq = [1] + [int(t) for t in np.random.default_rng(6).integers(3, cfg.vocab_size, 15)]
+    launches = {}
+    for w, kv, attn, tol in CKPT_RUNS:
+        side = {}
+        for dev in (CARD, "cpu"):
+            _kernels.reset_counts()
+            t0 = time.time()
+            eng = Engine(weights[w][dev], cfg, max_batch=1, kv_dtype=kv, precision="highest",
+                         seq_len=64, attn=attn, fused=False, device=dev)
+            toks, logits = _greedy_prompt(eng, seq, PARITY_STEPS)
+            side[dev] = dict(toks=toks, logits=logits, s=time.time() - t0,
+                             launches={k: n for k, n in _kernels.LAUNCHES.items() if n},
+                             plain={k: n for k, n in _kernels.PLAIN_CALLS.items() if n})
+            del eng
+        card, cpu = side[CARD], side["cpu"]
+        launches[w, kv, attn] = card["launches"]
+        same = next((i for i, (a, b) in enumerate(zip(card["toks"], cpu["toks"])) if a != b),
+                    PARITY_STEPS)
+        errs = [float(np.abs(card["logits"][i] - cpu["logits"][i]).max())
+                for i in range(same + 1)]
+        peak = float(np.abs(cpu["logits"][0]).max())
+        print(json.dumps(dict(phase="parity_checkpoint", weights=w, kv_dtype=kv, attn=attn,
+                              steps=PARITY_STEPS, tokens_equal=same, card_tokens=card["toks"],
+                              cpu_tokens=cpu["toks"], prefill_logit_max_err=errs[0],
+                              logit_max_err=max(errs), logit_peak=peak, tol=tol,
+                              card_launches=card["launches"], card_plain_calls=card["plain"],
+                              card_s=card["s"], cpu_s=cpu["s"], checkpoint_s=ckpt_s)),
+              flush=True)
+        label = f"checkpoint parity {w} weights, {kv} cache, {attn}"
+        check(not card["plain"], f"{label}: plain versions ran on the card: {card['plain']}")
+        check(all(np.isfinite(x).all() for x in card["logits"]), f"{label}: logits not finite")
+        check(same == PARITY_STEPS, f"{label}: greedy tokens differ at step {same}: card "
+                                    f"{card['toks']}, cpu {cpu['toks']}")
+        check(max(errs) <= tol * peak, f"{label}: logits differ by {max(errs)} > {tol} * {peak}")
+    del weights, dense, q8
+    torch.cuda.empty_cache()
+    return launches
+
+
 def parity_long_paths(torch):
     """Phase 5 for this slice's paths on the 2-layer 7B-width model with f32
     activations in the fused layouts, card (kernels) against CPU (plain
@@ -1179,9 +1682,9 @@ def parity_long_paths(torch):
         _kernels.reset_counts()
         t0 = time.time()
         tk, ln = torch.tensor(toks, device=dev), torch.tensor(lengths, device=dev)
-        cc = tl.make_kv_cache(cfg, B, seq_len=T, device=dev)
+        cc = tl.make_kv_cache(cfg, B, kv_dtype="int8", seq_len=T, device=dev)
         chunked, _ = tl.forward_prefill_chunked(params, cc, tk, ln, cfg, chunk=chunk)
-        co = tl.make_kv_cache(cfg, B, seq_len=T, device=dev)
+        co = tl.make_kv_cache(cfg, B, kv_dtype="int8", seq_len=T, device=dev)
         one, _ = tl.forward_prefill(params, co, tk, torch.zeros(B, device=dev), ln, cfg,
                                     logits_mode="last", assume_fresh=True)
         side[dev] = dict(chunked=chunked.cpu().numpy(), one=one.cpu().numpy(),
@@ -1220,7 +1723,7 @@ def parity_long_paths(torch):
     seq = [1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 339)]
     streams = {}
     for params, dev in ((gpu, CARD), (cpu, "cpu")):
-        kw = dict(seq_len=512, attn="flash_dma", fused="mega2", device=dev)
+        kw = dict(kv_dtype="int8", seq_len=512, attn="flash_dma", fused="mega2", device=dev)
         eng = Engine(params, cfg, max_batch=2, **kw)
         eng.prefill([seq[:300]], [0])
         eng.restore_slot(1, eng.snapshot_slot(0, 300))
@@ -1307,6 +1810,9 @@ def main() -> int:
     check_k10(torch, tatt, results)
     check_k18(torch, tatt, results)
     check_fused(torch, tq, tfl, tfs, results)
+    check_k25(torch, tq, tm, results)
+    check_fp_forms(torch, tatt, results)
+    print(f"phase 3: {time.time() - t_start:.1f} s", flush=True)
     for r in results:  # launches follow in the kernels line, after the main path
         extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err", "att_int8_flip_share",
                                    "att_scale_max_rel_err") if k in r}
@@ -1323,14 +1829,40 @@ def main() -> int:
     params = random_quant_params(LLAMA2_7B, seed=0, norm_dtype=torch.bfloat16, fuse=True)
     torch.cuda.synchronize()
     launches = serve_7b(torch, smi, params, time.time() - t0)
+    print(f"phase 4: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
     launches["K18"] = serve_7b_long(torch, smi, params)["K18"]
     del params
     torch.cuda.empty_cache()
+    print(f"phase 4b: {time.time() - t0:.1f} s", flush=True)
+
+    # 4c. the server's default model: dense f32 weights, fused as serve()
+    # fuses them, the default f32 cache; 4d. those weights in Q8_0 (the f32
+    # ones freed first) with a bf16 cache.  Each path's kernels count there.
+    from tpu_llama_torch.models.llama import fuse_projections, quantize_params, random_params
+
+    t0 = time.time()
+    params = fuse_projections(random_params(LLAMA2_7B, dtype=torch.float32, seed=0))
+    torch.cuda.synchronize()
+    got = serve_7b_fp(torch, smi, params, "serve_7b_dense", "float32", time.time() - t0)
+    launches.update({k: n for k, n in got.items() if ":f32" in k})
+    print(f"phase 4c: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    q8 = quantize_params(params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    got = serve_7b_fp(torch, smi, q8, "serve_7b_q8", "bfloat16", time.time() - t0)
+    launches.update({k: n for k, n in got.items() if ":bf16" in k or k == "K25"})
+    del q8
+    torch.cuda.empty_cache()
+    print(f"phase 4d: {time.time() - t0:.1f} s", flush=True)
 
     # 5. port parity, card against CPU; a kernel that phase 4 did not run
     # counts its launches on its phase-5 path: K19 on the unfused decode with
     # "flash", K11 on the two-launch decode (and the paths of whatever
     # "auto" did not resolve to)
+    t0 = time.time()
     parity = parity_2layer(torch)
     for kernel, path in (("K19", ("flash", False)), ("K11", ("flash_dma", True)),
                          ("K12", ("flash_dma", "mega2")), ("K8", ("flash_dma", "mega2")),
@@ -1338,8 +1870,17 @@ def main() -> int:
         if launches[kernel] == 0:
             launches[kernel] = parity[path][kernel]
     parity_long_paths(torch)
+    # the checkpoint-loaded model; K19's fp forms count their launches here
+    # (4c and 4d decode with K9's)
+    ckpt = parity_checkpoint(torch)
+    for kernel, run in (("K19:f32", ("dense", "float32", "flash")),
+                        ("K19:bf16", ("dense", "bfloat16", "flash"))):
+        launches[kernel] = ckpt[run].get(kernel, 0)
+    print(f"phase 5: {time.time() - t0:.1f} s", flush=True)
 
     # 6. result lines
+    missing = sorted({r["kernel"] for r in results if launches.get(r["kernel"], 0) == 0})
+    check(not missing, f"kernels no main path launched: {missing}")
     kernels = []
     for r in results:
         src, replaces = SRC[r["kernel"]]

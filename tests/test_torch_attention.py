@@ -79,7 +79,7 @@ def test_k6_wrapper_checks_and_out_dtype():
     out = tatt.flash_prefill_attention(*arrs, out_dtype=torch.bfloat16)
     assert out.dtype == torch.bfloat16 and _kernels.PLAIN_CALLS["K6"] == before + 1
     q, k, v, st, ks, vs = arrs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # an fp cache has no scales
         tatt.flash_prefill_attention(q, k.float(), v.float(), st, ks, vs)
     with pytest.raises(ValueError):
         tatt.flash_prefill_attention(q, k, v, st, ks[:, :, :4], vs)

@@ -455,7 +455,7 @@ def test_engine_card_matches_cpu(card, attn, fuse, fused):
     out = []
     for params, dev in ((cpu, "cpu"), (gpu, card)):
         _kernels.reset_counts()
-        b = ContinuousBatcher(Engine(params, cfg, max_batch=4, attn=attn, fused=fused,
+        b = ContinuousBatcher(Engine(params, cfg, kv_dtype="int8", max_batch=4, attn=attn, fused=fused,
                                      device=dev))
         reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0,
                         logprobs=2) for n in (5, 130, 40)]
@@ -479,3 +479,116 @@ def test_engine_card_matches_cpu(card, attn, fuse, fused):
         else:
             (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
             assert top1 - top2 < NEAR_TIE, (attn, part, c.out_tokens, g.out_tokens)
+
+
+# ---------------------------------------------------------------- K25 (Q8_0)
+# K25 against its plain version: both multiply bf16(x) by the bf16 weights
+# bf16(bf16(q) * bf16(s)), products exact in f32, sums in f32 in another
+# order (the tensor cores' against the plain version's matmul): f32 outputs
+# within 1e-4 of the largest output, bf16 outputs within one bf16 rounding
+# step (2^-7) of it.
+
+
+@pytest.mark.parametrize("m,k,n,g,stacked", [
+    (8, 4096, 22016, None, False),    # the decode's w13 (g 64)
+    (4096, 4096, 12288, None, False),  # the admission's wqkv
+    (5, 200, 130, None, False),       # padded in (256) and out (256)
+    (40, 11008, 4096, None, True),    # w2 (g 32) as a layer view of stacked weights
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k25_close(card, m, k, n, g, stacked, dtype):
+    gen = _gen(m + k + n)
+    w = torch.randn(2 if stacked else 1, k, n, generator=gen, device=card) * 0.05
+    qt = tq.quantize_q8(w if stacked else w[0], g)
+    wt = qt.layer(1) if stacked else qt
+    x = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    before = _kernels.LAUNCHES["K25"]
+    got = tm.q8_matmul(x, wt, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K25"] == before + 1 and got.shape == (m, n)
+    want = tm.q8_matmul_plain(x, wt, out_dtype=dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+# ------------------------------------------------- the fp forms of K6-K19
+# f32 throughout on both sides, nothing rounded: K6, K9 and K19 within 1e-5
+# of the largest output (sum order and expf); K7 and K10 exact.  Queries in
+# f32, as the dense and Q8_0 paths pass them, and in bf16 beside it.  The
+# decode cases poison the rows at and past each slot's pos with 1e4: a
+# kernel that read one would miss by orders of magnitude.
+
+FP = [torch.float32, torch.bfloat16]
+
+
+def _fp_decode_case(B, KVH, G, hd, S, pos, cdtype, qdtype, L=3):
+    g = _gen(B * 100 + hd + G)
+    q = torch.randn(B, KVH, G, hd, generator=g, device="cuda").to(qdtype)
+    k, v = (torch.randn(L, B, KVH, S, hd, generator=g, device="cuda").to(cdtype)
+            for _ in range(2))
+    nk, nv = (torch.randn(B, KVH, hd, generator=g, device="cuda").to(cdtype) for _ in range(2))
+    for b, p in enumerate(pos):
+        k[:, b, :, p:] = 1e4
+        v[:, b, :, p:] = 1e4
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda"), nk, nv
+
+
+@pytest.mark.parametrize("G,hd", [(1, 128), (4, 64), (2, 12)])
+@pytest.mark.parametrize("name", ["dma", "fresh"])
+@pytest.mark.parametrize("cdtype", FP)
+@pytest.mark.parametrize("qdtype", FP)
+def test_fp_decode_attention_close(card, G, hd, name, cdtype, qdtype):
+    args = _fp_decode_case(3, 2, G, hd, 256, [0, 77, 255], cdtype, qdtype)
+    fn = getattr(tatt, f"flash_decode_attention_{name}")
+    form = _kernels.form("K9" if name == "dma" else "K19", cdtype)
+    before = _kernels.LAUNCHES[form]
+    got = fn(*args, layer=1)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[form] == before + 1
+    want = getattr(tatt, f"flash_decode_attention_{name}_plain")(*args, layer=1)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("B,T,NH,KVH,S,hd,start", [(2, 128, 4, 4, 128, 128, [0, 0]),
+                                                   (2, 40, 8, 2, 256, 64, [0, 200]),
+                                                   (1, 16, 4, 2, 64, 12, [30])])
+@pytest.mark.parametrize("cdtype", FP)
+@pytest.mark.parametrize("qdtype", FP)
+def test_fp_k6_close(card, B, T, NH, KVH, S, hd, start, cdtype, qdtype):
+    g = _gen(T + S + hd)
+    q = torch.randn(B, T, NH, hd, generator=g, device=card).to(qdtype)
+    k, v = (torch.randn(B, KVH, S, hd, generator=g, device=card).to(cdtype) for _ in range(2))
+    st = torch.tensor(start, dtype=torch.int32, device=card)
+    form = _kernels.form("K6", cdtype)
+    before = _kernels.LAUNCHES[form]
+    got = tatt.flash_prefill_attention(q, k, v, st)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[form] == before + 1
+    want = tatt.flash_prefill_attention_plain(q, k, v, st)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("hd", [128, 12])
+@pytest.mark.parametrize("cdtype", FP)
+def test_fp_k7_k10_exact(card, hd, cdtype):
+    g = _gen(hd)
+    L, n, KVH, T, B, S = 2, 2, 2, 64, 4, 128
+    small = [torch.randn(L, n, KVH, T, hd, generator=g, device=card).to(cdtype)
+             for _ in range(2)]
+    cache = [torch.randn(L, B, KVH, S, hd, generator=g, device=card).to(cdtype)
+             for _ in range(2)]
+    ref = [c.clone() for c in cache]
+    tatt.kv_cache_scatter_slots(*small, [3, 1], *cache)
+    torch.cuda.synchronize()
+    tatt.kv_cache_scatter_slots_plain(*small, [3, 1], *ref)
+    assert all(torch.equal(a, b) for a, b in zip(cache, ref))
+    rows = [torch.randn(L, B, KVH, hd, generator=g, device=card).to(cdtype) for _ in range(2)]
+    pos = torch.tensor([0, 5, S, 127], dtype=torch.int32, device=card)
+    tatt.kv_cache_flush_rows(*rows, pos, *cache)
+    torch.cuda.synchronize()
+    tatt.kv_cache_flush_rows_plain(*rows, pos, *ref)
+    assert all(torch.equal(a, b) for a, b in zip(cache, ref))
+    assert _kernels.LAUNCHES[_kernels.form("K7", cdtype)] > 0
+    assert _kernels.LAUNCHES[_kernels.form("K10", cdtype)] > 0

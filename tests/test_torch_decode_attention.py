@@ -148,8 +148,8 @@ def test_decode_wrappers_check_inputs_and_count():
     tatt.kv_cache_flush_rows(rows, rows, pos, k, v, rows_s, rows_s, ks, vs)
     assert all(_kernels.PLAIN_CALLS[n] == before[n] + 1 for n in before)
     for fn in (tatt.flash_decode_attention_dma, tatt.flash_decode_attention_fresh):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(q, k.float(), v.float(), pos, nk.float(), nv.float())
+        with pytest.raises(ValueError, match="no scales"):  # an fp cache has none
+            fn(q, k.float(), v.float(), pos, nk.float(), nv.float(), ks, vs, nks, nvs)
         with pytest.raises(ValueError):
             fn(q, k, v, pos, nk, nv, ks[..., :8], vs, nks, nvs)
         with pytest.raises(ValueError):
@@ -160,8 +160,8 @@ def test_decode_wrappers_check_inputs_and_count():
             fn(q, k[0], v[0], pos, nk, nv, ks[0], vs[0], nks, nvs)
         with pytest.raises(TypeError):
             fn(q, k, v, pos, nk.float(), nv, ks, vs, nks, nvs)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tatt.kv_cache_flush_rows(rows.float(), rows.float(), pos, k.float(), v.float())
+    with pytest.raises(TypeError):  # int8 rows into an fp cache
+        tatt.kv_cache_flush_rows(rows, rows, pos, k.float(), v.float())
     with pytest.raises(ValueError):
         tatt.kv_cache_flush_rows(rows[:, :2], rows[:, :2], pos, k, v, rows_s, rows_s, ks, vs)
     with pytest.raises(TypeError):

@@ -128,23 +128,23 @@ def test_engine_fused_token_streams_equal_jax(streams_fused):
 
 def test_engine_decode_attn_and_rejects_unknown():
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=25)
-    assert Engine(tp, tcfg, max_batch=2, seq_len=64, device="cpu").decode_attn == "xla"
-    eng = Engine(tp, tcfg, max_batch=2, seq_len=64, attn="flash", device="cpu")
+    assert Engine(tp, tcfg, kv_dtype="int8", max_batch=2, seq_len=64, device="cpu").decode_attn == "xla"
+    eng = Engine(tp, tcfg, kv_dtype="int8", max_batch=2, seq_len=64, attn="flash", device="cpu")
     assert eng.decode_attn == "flash"
     with pytest.raises(ValueError):
-        Engine(tp, tcfg, max_batch=2, seq_len=64, attn="pallas", device="cpu")
+        Engine(tp, tcfg, kv_dtype="int8", max_batch=2, seq_len=64, attn="pallas", device="cpu")
 
 
 def test_engine_prefill_groups_and_decode():
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=22)
-    eng = Engine(tp, tcfg, max_batch=4, seq_len=64, device="cpu")
+    eng = Engine(tp, tcfg, kv_dtype="int8", max_batch=4, seq_len=64, device="cpu")
     prompts = [[1, 5, 6], [1] + list(range(3, 30)), [1, 7]]  # groups of 2 and 1
     last = eng.prefill(prompts, [2, 0, 3])
     assert last.shape == (3, tcfg.vocab_size) and last.dtype == np.float32
     # each slot's cache rows hold its prompt's K; slot 1 was never written
     assert eng.cache.ks[:, 1].abs().sum() == 0
     assert (eng.cache.ks[:, 0, :, :28] > 0).all() and (eng.cache.ks[:, 2, :, :3] > 0).all()
-    one = Engine(tp, tcfg, max_batch=1, seq_len=64, device="cpu")
+    one = Engine(tp, tcfg, kv_dtype="int8", max_batch=1, seq_len=64, device="cpu")
     alone = one.prefill([prompts[1]], [0])
     np.testing.assert_allclose(last[1], alone[0], rtol=0, atol=1e-5)
     tokens = np.array([4, 5, 0, 6])
@@ -157,7 +157,7 @@ def test_engine_prefill_groups_and_decode():
 
 def test_scheduler_stop_tokens_logprobs_and_priority():
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=24)
-    eng = Engine(tp, tcfg, max_batch=1, seq_len=64, device="cpu")
+    eng = Engine(tp, tcfg, kv_dtype="int8", max_batch=1, seq_len=64, device="cpu")
     base = Request(prompt_tokens=[7, 8, 9], steps=12, temperature=0.0)
     b = ContinuousBatcher(eng)
     b.submit(base)
@@ -181,7 +181,7 @@ def test_scheduler_stop_tokens_logprobs_and_priority():
 def test_scheduler_rejects_unported_paths():
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=23)
     with pytest.raises(NotImplementedError):
-        Engine(tp, tcfg, kv_layout="paged", device="cpu")
+        Engine(tp, tcfg, kv_dtype="int8", kv_layout="paged", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +191,7 @@ def test_scheduler_rejects_unported_paths():
 
 def _prefix_engine(seed=30, **kw):
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=seed)
-    return Engine(tp, tcfg, max_batch=4, seq_len=64, device="cpu", **kw)
+    return Engine(tp, tcfg, kv_dtype="int8", max_batch=4, seq_len=64, device="cpu", **kw)
 
 
 def _run_one(batcher, prompt, steps=20, seed=1, **kw):
@@ -289,7 +289,7 @@ def test_prefix_streams_equal_jax(device_sampling):
     out = []
     for eng, cls, B in ((JaxEngine(jp, jcfg, max_batch=4, kv_dtype="int8", seq_len=128),
                          JaxRequest, JaxBatcher),
-                        (Engine(tp, tcfg, max_batch=4, seq_len=128, device="cpu"), Request,
+                        (Engine(tp, tcfg, kv_dtype="int8", max_batch=4, seq_len=128, device="cpu"), Request,
                          ContinuousBatcher)):
         b = B(eng, prefix_cache_size=4, max_chunk=4)
         first, second = _prefix_requests(cls, device_sampling=device_sampling)
@@ -323,7 +323,7 @@ def test_device_sampling_streams_equal_jax(max_chunk):
     for r in jreqs:
         jb.submit(r)
     jb.run()
-    tb = ContinuousBatcher(Engine(tp, tcfg, max_batch=4, seq_len=256, device="cpu"),
+    tb = ContinuousBatcher(Engine(tp, tcfg, kv_dtype="int8", max_batch=4, seq_len=256, device="cpu"),
                            max_chunk=max_chunk)
     treqs = _device_requests(Request)
     for r in treqs:
@@ -344,7 +344,7 @@ def test_mixed_host_and_device_sampling_batch():
     _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=26)
 
     def serve(reqs):
-        b = ContinuousBatcher(Engine(tp, tcfg, max_batch=4, seq_len=64, device="cpu"),
+        b = ContinuousBatcher(Engine(tp, tcfg, kv_dtype="int8", max_batch=4, seq_len=64, device="cpu"),
                               max_chunk=4)
         for r in reqs:
             b.submit(r)
@@ -370,7 +370,7 @@ def test_engine_device_sampling_calls():
     args = (np.ones(B, np.float32) * 0.9, np.ones(B, np.float32), ts.keys_numpy([1, 2]))
     chunks = []
     for step_wise in (False, True):
-        eng = Engine(tp, tcfg, max_batch=B, seq_len=64, device="cpu")
+        eng = Engine(tp, tcfg, kv_dtype="int8", max_batch=B, seq_len=64, device="cpu")
         eng.prefill([[1, 5, 6], [1, 7]], [0, 1])
         toks, pos = np.array([9, 10]), np.array([3, 2])
         if not step_wise:
@@ -413,7 +413,7 @@ def test_long_admission_chunked_streams_equal_jax():
         jb.submit(r)
     jb.run()
     _kernels.reset_counts()
-    tb = ContinuousBatcher(Engine(tp, tcfg, max_batch=8, seq_len=2048, device="cpu"))
+    tb = ContinuousBatcher(Engine(tp, tcfg, kv_dtype="int8", max_batch=8, seq_len=2048, device="cpu"))
     treqs = reqs(Request)
     for r in treqs:
         tb.submit(r)

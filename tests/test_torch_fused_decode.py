@@ -278,7 +278,7 @@ def _first_rows(jp, jcfg, tp, tcfg, B, T, S, seed):
     toks, lengths = _prompts(B, T, tcfg.vocab_size, seed)
     assert jl._prefill_w8a8_fast_ok(jp, jcfg, B, T)
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     jlog, jcache = jl.forward_prefill(
         jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths), jcfg,
         logits_mode="last", attn="xla", assume_fresh=True)
@@ -350,7 +350,7 @@ def test_prologue_k3_is_rmsnorm_then_quantize_activations():
 
 def test_fused_gates():
     _, _, tcfg, tp = build_fused_pair(TINY128, jnp.float32, seed=5)
-    cache = tl.make_kv_cache(tcfg, 2, seq_len=16, device="cpu")
+    cache = tl.make_kv_cache(tcfg, 2, kv_dtype="int8", seq_len=16, device="cpu")
     auto = tl._resolve_fused("auto", "flash_dma", tp, tcfg, cache, 2)
     assert auto is False  # the JAX package on the CPU
     assert tl._resolve_fused(True, "flash_dma", tp, tcfg, cache, 2) is True
@@ -373,4 +373,4 @@ def test_fused_gates():
                               attn="flash_dma", fused=mode)
     odd = ModelConfig(dim=4 * 6, hidden_dim=32, n_layers=1, n_heads=4, n_kv_heads=4,
                       vocab_size=16, seq_len=16)  # head_dim 6: not a multiple of 4
-    assert not tl._mega2_path_ok(tp, odd, tl.make_kv_cache(odd, 2, device="cpu"), 2)
+    assert not tl._mega2_path_ok(tp, odd, tl.make_kv_cache(odd, 2, kv_dtype="int8", device="cpu"), 2)

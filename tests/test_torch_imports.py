@@ -24,6 +24,7 @@ def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
     assert "tpu_llama_torch.ops._kernels" in mods and "tpu_llama_torch.convert" in mods
     assert "tpu_llama_torch.ops.sampling" in mods and "tpu_llama_torch.device" in mods
+    assert "tpu_llama_torch.io.checkpoint" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -84,7 +84,7 @@ def test_prefill_fresh_matches_jax(pair, mode):
     want, jcache = jl.forward_prefill(
         jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
         jcfg, logits_mode=mode, assume_fresh=True)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     got, tcache2 = tl.forward_prefill(
         tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
         torch.tensor(lengths), tcfg, logits_mode=mode, assume_fresh=True)
@@ -103,7 +103,7 @@ def test_decode_matches_jax(pair):
     B, T, S = 3, 8, 32
     toks, lengths = _prompts(B, T, tcfg.vocab_size, 2)
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     jlog, jcache = jl.forward_prefill(
         jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
         jcfg, logits_mode="last", assume_fresh=True)
@@ -130,7 +130,7 @@ def test_greedy_decode_loop_matches_jax():
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
     want, _ = jl.greedy_decode_loop(jp, jcache, jnp.asarray(toks), jnp.asarray(pos), steps,
                                     jcfg, attn="xla", fused=False)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     got, _ = tl.greedy_decode_loop(tp, tcache, torch.tensor(toks), torch.tensor(pos), steps,
                                    tcfg)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -151,7 +151,7 @@ def test_decode_flash_matches_jax(pair, attn):
     B, T, S = 3, 8, 32
     toks, lengths = _prompts(B, T, tcfg.vocab_size, 2)
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     jlog, jcache = jl.forward_prefill(
         jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
         jcfg, logits_mode="last", assume_fresh=True)
@@ -184,7 +184,7 @@ def test_greedy_decode_loop_flash_matches_jax(attn):
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
     want, _ = jl.greedy_decode_loop(jp, jcache, jnp.asarray(toks), jnp.asarray(pos), steps,
                                     jcfg, attn=attn, fused=False)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     got, _ = tl.greedy_decode_loop(tp, tcache, torch.tensor(toks), torch.tensor(pos), steps,
                                    tcfg, attn=attn)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -192,7 +192,7 @@ def test_greedy_decode_loop_flash_matches_jax(attn):
 
 def test_resolve_decode_attn():
     cfg = ModelConfig(**TINY_GQA)
-    cache = tl.make_kv_cache(cfg, 2, seq_len=16, device="cpu")
+    cache = tl.make_kv_cache(cfg, 2, kv_dtype="int8", seq_len=16, device="cpu")
     assert tl._resolve_decode_attn("auto", cache) == "xla"  # the JAX package on the CPU
     for attn in ("flash", "flash_dma", "xla"):
         assert tl._resolve_decode_attn(attn, cache) == attn
@@ -203,7 +203,7 @@ def test_resolve_decode_attn():
 def test_model_runs_on_plain_versions_only():
     _, _, tcfg, tp = build_pair(TINY_GQA, jnp.float32)
     _kernels.reset_counts()
-    cache = tl.make_kv_cache(tcfg, 1, seq_len=16, device="cpu")
+    cache = tl.make_kv_cache(tcfg, 1, kv_dtype="int8", seq_len=16, device="cpu")
     tl.forward_prefill(tp, cache, torch.tensor([[1, 9, 4]]), torch.zeros(1),
                        torch.tensor([3]), tcfg, assume_fresh=True)
     assert all(v == 0 for v in _kernels.LAUNCHES.values())
@@ -236,7 +236,8 @@ def test_quantize_params_matches_jax():
     raw = make_random_weights(cfg, seed=8)
     dense = jl.params_from_raw(raw)
     jq = jl.quantize_params(dense, mode="w8a8")
-    tq = tl.quantize_params(convert.params_from_numpy(jax_tree(dense), device="cpu"))
+    tq = tl.quantize_params(convert.params_from_numpy(jax_tree(dense), device="cpu"),
+                            mode="w8a8")
     for name in ("wq", "w2"):
         w = getattr(jq.layers, name)
         np.testing.assert_array_equal(
@@ -260,9 +261,9 @@ def test_random_quant_params_shapes_and_seed():
         assert isinstance(stub, torch.Tensor) and stub.shape == (2, 1, 1)
     assert tl._fused_layouts(f.layers, cfg) and not tl._fused_layouts(a.layers, cfg)
     with pytest.raises(NotImplementedError):
-        tl.make_kv_cache(cfg, 2, kv_dtype="bfloat16", device="cpu")
+        tl.make_kv_cache(cfg, 2, kv_dtype="int8", paged=True, device="cpu")
     # start_pos > 0 is ported: the logits of every position, the rows written
-    cache = tl.make_kv_cache(cfg, 1, device="cpu")
+    cache = tl.make_kv_cache(cfg, 1, kv_dtype="int8", device="cpu")
     logits, _ = tl.forward_prefill(a, cache, torch.ones(1, 4, dtype=torch.long), torch.ones(1),
                                    torch.tensor([4]), cfg)
     assert logits.shape == (1, 4, cfg.vocab_size)
@@ -325,7 +326,7 @@ def test_fused_prefill_matches_jax(fused_pair, mode, monkeypatch):
         jcfg, logits_mode=mode, attn="xla", assume_fresh=True)
     calls = _count_residual_k1(monkeypatch)
     _kernels.reset_counts()
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     got, _ = tl.forward_prefill(
         tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
         torch.tensor(lengths), tcfg, logits_mode=mode, assume_fresh=True)
@@ -349,7 +350,7 @@ def test_fused_decode_matches_jax(fused_pair, attn):
     B, T, S = 4, 8, 32
     toks, lengths = _prompts(B, T, tcfg.vocab_size, 5)
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     jlog, jcache = jl.forward_prefill(
         jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
         jcfg, logits_mode="last", attn="xla", assume_fresh=True)
@@ -380,7 +381,7 @@ def test_fused_greedy_decode_loop_matches_jax(attn):
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=S)
     want, _ = jl.greedy_decode_loop(jp, jcache, jnp.asarray(toks), jnp.asarray(pos), steps,
                                     jcfg, attn=attn, fused=False)
-    tcache = tl.make_kv_cache(tcfg, B, seq_len=S, device="cpu")
+    tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=S, device="cpu")
     got, _ = tl.greedy_decode_loop(tp, tcache, torch.tensor(toks), torch.tensor(pos), steps,
                                    tcfg, attn=attn)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -395,7 +396,7 @@ def test_fuse_projections_and_quantize_match_jax(dtype):
     jq = jl.quantize_params(jl.fuse_projections(dense), mode="w8a8")
     tdense = convert.params_from_numpy(jax_tree(dense), device="cpu")
     fused = tl.fuse_projections(tdense)
-    tq = tl.quantize_params(fused)
+    tq = tl.quantize_params(fused, mode="w8a8")
     KVD, H = cfg.kv_dim, cfg.hidden_dim
     assert fused.layers.wq.shape == (2, 48, 48 + 2 * KVD)
     assert fused.layers.w1.shape == (2, 48, 2 * H)

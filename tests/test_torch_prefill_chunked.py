@@ -163,10 +163,10 @@ def test_prefill_at_start_zero_equals_fresh(fuse):
     B, T = 2, 16
     toks = torch.tensor(np.random.default_rng(4).integers(3, 320, (B, T)))
     lengths = torch.tensor([16, 11])
-    fresh = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    fresh = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     want, _ = tl.forward_prefill(tp, fresh, toks, torch.zeros(B), lengths, tcfg,
                                  logits_mode="all", assume_fresh=True)
-    cache = tl.make_kv_cache(tcfg, B, seq_len=64, device="cpu")
+    cache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=64, device="cpu")
     got, _ = tl.forward_prefill(tp, cache, toks, torch.zeros(B), lengths, tcfg, logits_mode="all")
     _close(got.numpy(), want.numpy(), 1e-5)
     for n in ("k", "v", "ks", "vs"):
@@ -180,13 +180,13 @@ def _chunked_case(pair, B=2, T=256, chunk=128):
     jcfg, jp, tcfg, tp = pair
     toks = np.random.default_rng(2).integers(3, tcfg.vocab_size, (B, T)).astype(np.int32)
     lengths = np.array([256, 131], np.int32)
-    tc = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    tc = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     _kernels.reset_counts()
     got, tc = tl.forward_prefill_chunked(tp, tc, torch.tensor(toks), torch.tensor(lengths),
                                          tcfg, chunk=chunk)
     counts = dict(_kernels.PLAIN_CALLS)
     # the port's per-chunk forward_prefill calls and its one-shot fresh prefill
-    per = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    per = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     logits = []
     for i in range(T // chunk):
         li, _ = tl.forward_prefill(
@@ -196,7 +196,7 @@ def _chunked_case(pair, B=2, T=256, chunk=128):
         logits.append(li)
     owner = torch.tensor(np.clip((lengths - 1) // chunk, 0, T // chunk - 1))
     _close(got.numpy(), torch.stack(logits)[owner, torch.arange(B)].numpy(), 1e-5)
-    one = tl.make_kv_cache(tcfg, B, seq_len=T, device="cpu")
+    one = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     one_logits, _ = tl.forward_prefill(tp, one, torch.tensor(toks), torch.zeros(B),
                                        torch.tensor(lengths), tcfg, logits_mode="last",
                                        assume_fresh=True)
@@ -243,7 +243,7 @@ def test_chunked_unfused_matches_jax():
 
 def test_chunked_rejects_ragged_prompts():
     _, _, tcfg, tp = build_pair(TINY_GQA, jnp.float32, seed=10)
-    cache = tl.make_kv_cache(tcfg, 1, seq_len=64, device="cpu")
+    cache = tl.make_kv_cache(tcfg, 1, kv_dtype="int8", seq_len=64, device="cpu")
     with pytest.raises(ValueError):
         tl.forward_prefill_chunked(tp, cache, torch.ones(1, 48, dtype=torch.long),
                                    torch.tensor([48]), tcfg, chunk=32)

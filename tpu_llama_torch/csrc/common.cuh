@@ -16,9 +16,10 @@
 #include <stdint.h>
 
 // dtype codes, kept in step with _DTYPE_CODES in ops/_kernels.py
-enum TlDtype : int { TL_F32 = 0, TL_BF16 = 1 };
+enum TlDtype : int { TL_F32 = 0, TL_BF16 = 1, TL_I8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
@@ -176,11 +177,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// Deferred-flush INT8 decode attention (K9 flash_decode_dma.cu, K19
-// flash_decode_fresh.cu).  One block of kDecThreads threads per (kv head,
-// slot); its G query rows share every K/V byte it reads.  Cache rows are
-// staged in shared memory tiles of pitch P = hd rounded up to 16 bytes (the
-// pad columns are zero, and so are the queries' pad columns).
+// Deferred-flush decode attention (K9 flash_decode_dma.cu, K19
+// flash_decode_fresh.cu, K12's trailing cells), templated on the cache
+// element type CT: int8_t (values with f32 per-row scales), float or
+// __nv_bfloat16 (the fp caches, no scales).  One block of kDecThreads
+// threads per (kv head, slot); its G query rows share every K/V byte it
+// reads.  Cache rows are staged in shared memory tiles of pitch P elements,
+// hd rounded up to 16 bytes (the pad columns are zero, and so are the
+// queries' pad columns).
 // ---------------------------------------------------------------------------
 
 constexpr int kDecThreads = 128;
@@ -189,7 +193,11 @@ constexpr int kDecMaxHd = 128;
 constexpr int kDecMaxE = kDecMaxG * kDecMaxHd / kDecThreads;  // output elements a thread owns
 constexpr float kNegInf = -1e30f;  // the JAX package's _NEG_INF
 
-__host__ __device__ __forceinline__ int dec_pitch(int hd) { return (hd + 15) & ~15; }
+template <typename CT>
+__host__ __device__ __forceinline__ int dec_pitch(int hd) {
+    constexpr int v = 16 / static_cast<int>(sizeof(CT));  // elements per 16 bytes
+    return (hd + v - 1) / v * v;
+}
 
 // The (slot, kv head)'s G query rows q [G, hd]: qf = f32(q) / sqrt_hd and
 // qb = bf16(qf), each [G, P] with zero pad columns.
@@ -204,26 +212,34 @@ __device__ void dec_load_q(const QT* __restrict__ q, float* qf, float* qb, int G
     }
 }
 
-// Zero the pad columns [hd, P) of `n` rows of pitch P.
-__device__ __forceinline__ void dec_zero_pad(int8_t* t, int n, int hd, int P) {
-    const int w = P - hd;
-    for (int e = threadIdx.x; e < n * w; e += kDecThreads) t[(e / w) * P + hd + e % w] = 0;
+// Zero the pad columns [hd, P) of `n` rows of pitch P (every element type
+// is zero as all-zero bytes).
+template <typename CT>
+__device__ __forceinline__ void dec_zero_pad(CT* t, int n, int hd, int P) {
+    constexpr int sz = static_cast<int>(sizeof(CT));
+    const int w = (P - hd) * sz;
+    unsigned char* b = reinterpret_cast<unsigned char*>(t);
+    for (int e = threadIdx.x; e < n * w; e += kDecThreads) b[(e / w) * P * sz + hd * sz + e % w] = 0;
 }
 
-// Start copying `rows` cache rows of hd int8 values into a tile of pitch P
-// (CH-byte chunks: 16 when hd % 16 == 0, else 4), and `rows` f32 scales
-// from each non-null scale row; commits one cp.async group.
-template <int CH>
-__device__ void dec_issue_tile(int8_t* dst, const int8_t* __restrict__ src, int rows, int hd,
-                               int P, float* dst_s0, const float* __restrict__ src_s0,
-                               float* dst_s1, const float* __restrict__ src_s1) {
-    const int per_row = hd / CH;
+// Start copying `rows` cache rows of hd elements into a tile of pitch P
+// (CH-byte chunks: 16 when a row is a multiple of 16 bytes, else 4), and
+// `rows` f32 scales from each non-null scale row; commits one cp.async
+// group.
+template <int CH, typename CT>
+__device__ void dec_issue_tile(CT* dst, const CT* __restrict__ src, int rows, int hd, int P,
+                               float* dst_s0, const float* __restrict__ src_s0, float* dst_s1,
+                               const float* __restrict__ src_s1) {
+    const int row_b = hd * static_cast<int>(sizeof(CT)), pitch_b = P * static_cast<int>(sizeof(CT));
+    const int per_row = row_b / CH;
+    unsigned char* d = reinterpret_cast<unsigned char*>(dst);
+    const unsigned char* sp = reinterpret_cast<const unsigned char*>(src);
     for (int c = threadIdx.x; c < rows * per_row; c += kDecThreads) {
         const int r = c / per_row, o = (c % per_row) * CH;
         if (CH == 16)
-            cp_async16(dst + r * P + o, src + (long long)r * hd + o, 16);
+            cp_async16(d + r * pitch_b + o, sp + (long long)r * row_b + o, 16);
         else
-            cp_async4(dst + r * P + o, src + (long long)r * hd + o);
+            cp_async4(d + r * pitch_b + o, sp + (long long)r * row_b + o);
     }
     for (int r = threadIdx.x; r < rows; r += kDecThreads) {
         if (src_s0) cp_async4(dst_s0 + r, src_s0 + r);
@@ -232,32 +248,63 @@ __device__ void dec_issue_tile(int8_t* dst, const int8_t* __restrict__ src, int 
     cp_async_commit();
 }
 
+// The 16 bytes at p as f32 values (16 / sizeof(CT) of them).
+template <typename CT>
+struct Chunk;
+template <>
+struct Chunk<int8_t> {
+    static constexpr int n = 16;
+    __device__ static void load(const int8_t* p, float (&f)[16]) {
+        const int4 w = *reinterpret_cast<const int4*>(p);
+        const int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+            f[i] = static_cast<float>(static_cast<int8_t>(words[i >> 2] >> (8 * (i & 3))));
+    }
+};
+template <>
+struct Chunk<float> {
+    static constexpr int n = 4;
+    __device__ static void load(const float* p, float (&f)[4]) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        f[0] = v.x;
+        f[1] = v.y;
+        f[2] = v.z;
+        f[3] = v.w;
+    }
+};
+template <>
+struct Chunk<__nv_bfloat16> {
+    static constexpr int n = 8;
+    __device__ static void load(const __nv_bfloat16* p, float (&f)[8]) {
+        load_vec(p, f);
+    }
+};
+
 // store(g, r, dot) for rows r < rows of the tile kt and g < G, where
-// dot = sum_d qb[g, d] * k[r, d] in f32 (exact products of a bf16 and an
-// int8).  Eight lanes share a row, each on a 16-byte chunk; every thread of
-// the block must call it.
-template <class Store>
-__device__ void dec_qk_tile(const float* qb, const int8_t* kt, int rows, int G, int P,
-                            Store store) {
-    const int sub = threadIdx.x & 7;
+// dot = sum_d qs[g, d] * f32(k[r, d]) in f32.  Eight lanes share a row,
+// each on every eighth 16-byte chunk; every thread of the block must call
+// it.
+template <typename CT, class Store>
+__device__ void dec_qk_tile(const float* qs, const CT* kt, int rows, int G, int P, Store store) {
+    constexpr int V = Chunk<CT>::n;
+    const int sub = threadIdx.x & 7, nch = P / V;
     for (int r0 = 0; r0 < rows; r0 += kDecThreads / 8) {
         const int r = r0 + (threadIdx.x >> 3);
         float part[kDecMaxG];
 #pragma unroll
         for (int g = 0; g < kDecMaxG; ++g) part[g] = 0.f;
-        if (r < rows && sub * 16 < P) {
-            const int4 w = *reinterpret_cast<const int4*>(kt + r * P + sub * 16);
-            const int words[4] = {w.x, w.y, w.z, w.w};
-            float kf[16];
+        if (r < rows) {
+            for (int c = sub; c < nch; c += 8) {
+                float kf[V];
+                Chunk<CT>::load(kt + r * P + c * V, kf);
 #pragma unroll
-            for (int i = 0; i < 16; ++i)
-                kf[i] = static_cast<float>(static_cast<int8_t>(words[i >> 2] >> (8 * (i & 3))));
+                for (int g = 0; g < kDecMaxG; ++g) {
+                    if (g >= G) break;
+                    const float* qg = qs + g * P + c * V;
 #pragma unroll
-            for (int g = 0; g < kDecMaxG; ++g) {
-                if (g >= G) break;
-                const float* qg = qb + g * P + sub * 16;
-#pragma unroll
-                for (int i = 0; i < 16; ++i) part[g] = fmaf(qg[i], kf[i], part[g]);
+                    for (int i = 0; i < V; ++i) part[g] = fmaf(qg[i], kf[i], part[g]);
+                }
             }
         }
 #pragma unroll
@@ -274,7 +321,10 @@ __device__ void dec_qk_tile(const float* qb, const int8_t* kt, int rows, int G, 
 
 // part[j] = sum_{r < rows} pv[g, r] * f32(v[r, d]) for the output element
 // e = threadIdx.x + kDecThreads * j = g * hd + d (0 where e >= G * hd).
-__device__ __forceinline__ void dec_pv_tile(const float* pv, int ldp, const int8_t* vt, int rows,
+// `rows` must not reach past the rows the tile holds: a tile's tail keeps
+// stale shared memory, which in an fp tile may be a NaN (0 * NaN is NaN).
+template <typename CT>
+__device__ __forceinline__ void dec_pv_tile(const float* pv, int ldp, const CT* vt, int rows,
                                             int G, int hd, int P, float (&part)[kDecMaxE]) {
 #pragma unroll
     for (int j = 0; j < kDecMaxE; ++j) {
@@ -283,21 +333,21 @@ __device__ __forceinline__ void dec_pv_tile(const float* pv, int ldp, const int8
         if (e < G * hd) {
             const int g = e / hd, d = e % hd;
             const float* pg = pv + g * ldp;
-            for (int r = 0; r < rows; ++r)
-                part[j] = fmaf(pg[r], static_cast<float>(vt[r * P + d]), part[j]);
+            for (int r = 0; r < rows; ++r) part[j] = fmaf(pg[r], to_f32(vt[r * P + d]), part[j]);
         }
     }
 }
 
 // s_new[g] = (sum_d qf[g, d] * f32(nk[d])) * nks: the fresh row's score from
-// the UNROUNDED f32 queries (attention.py:158-163, :319-323).  One warp per
-// query row.
-__device__ __forceinline__ void dec_fresh_scores(const float* qf, int P, const int8_t* nk,
-                                                 float nks, int G, int hd, float* s_new) {
+// the UNROUNDED f32 queries (attention.py:158-163, :319-323); nks is 1 for
+// an fp cache.  One warp per query row.
+template <typename CT>
+__device__ __forceinline__ void dec_fresh_scores(const float* qf, int P, const CT* nk, float nks,
+                                                 int G, int hd, float* s_new) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int g = warp; g < G; g += kDecThreads / 32) {
         float s = 0.f;
-        for (int d = lane; d < hd; d += 32) s = fmaf(qf[g * P + d], static_cast<float>(nk[d]), s);
+        for (int d = lane; d < hd; d += 32) s = fmaf(qf[g * P + d], to_f32(nk[d]), s);
         s = warp_sum(s);
         if (lane == 0) s_new[g] = s * nks;
     }
@@ -306,48 +356,54 @@ __device__ __forceinline__ void dec_fresh_scores(const float* qf, int P, const i
 // The shared-memory layout of one decode cell: two tiles of TS rows of
 // pitch P (K, then V), the K tile's two scale rows, the G query rows as f32
 // and as bf16, the block's scores, and the online-softmax state.
+template <typename CT>
 struct DecSmem {
-    int8_t* kt;
-    int8_t* vt;
+    CT* kt;
+    CT* vt;
     float *kst, *vst, *qf, *qb, *sc, *m_s, *l_s, *c_s, *n_s;
     __device__ DecSmem(unsigned char* base, int TS, int P, int G) {
-        kt = reinterpret_cast<int8_t*>(base);  // stage 0: K tile [TS, P]
-        vt = kt + TS * P;                      // stage 1: V tile [TS, P]
+        kt = reinterpret_cast<CT*>(base);  // stage 0: K tile [TS, P]
+        vt = kt + TS * P;                  // stage 1: V tile [TS, P]
         kst = reinterpret_cast<float*>(vt + TS * P);  // stage 0's scales: ks [TS]
         vst = kst + TS;                               //   and vs [TS]
-        qf = vst + TS;           // [G, P] f32 queries (fresh column)
-        qb = qf + G * P;         // [G, P] bf16 queries (cache rows)
-        sc = qb + G * P;         // [G, TS] scores, then bf16(p * vs)
+        qf = vst + TS;           // [G, P] f32 queries (fresh column; an fp cache's rows)
+        qb = qf + G * P;         // [G, P] bf16 queries (an INT8 cache's rows)
+        sc = qb + G * P;         // [G, TS] scores, then p (bf16(p * vs) for INT8)
         m_s = sc + G * TS;       // [kDecMaxG] running max
         l_s = m_s + kDecMaxG;    // running denominator
         c_s = l_s + kDecMaxG;    // this block's correction exp(m_old - m_new)
         n_s = c_s + kDecMaxG;    // fresh-column score
     }
     static __host__ __device__ int bytes(int TS, int P, int G) {
-        return 2 * TS * P + 4 * (2 * TS + 2 * G * P + G * TS + 4 * kDecMaxG);
+        return 2 * TS * P * static_cast<int>(sizeof(CT)) +
+               4 * (2 * TS + 2 * G * P + G * TS + 4 * kDecMaxG);
     }
 };
 
 // One decode cell (K9 flash_decode_dma.cu, K12 fused_step2.cu): the G query
 // rows of one (slot, kv head) attend over its cache rows s < p (k and v at
-// kc / vc, rows of hd int8, scales ks / vs, row 0 first) with an online
-// softmax over blocks of TS rows, then over the fresh row (nk, nks, nv,
-// nvs) as one more column; writes the G x hd outputs to out.  The caller has
-// filled sm.qf and sm.qb; this function's barriers publish them.  K and V
-// tiles stream through a two-stage cp.async ring: t = 2j is K block j (with
-// ks and vs) into stage 0, t = 2j + 1 is V block j into stage 1.
-// Rounding, kept from the TPU kernel: the cache score is dot(qb, k) in f32,
-// times ks; p = exp(s - m_block) is UNNORMALIZED when it is rounded, as
-// bf16(p * vs), before the PV dot; the fresh column's score uses qf (times
-// nks) and its value f32(nv) * nvs, merged after the last block
-// (_fresh_tail_merge, attention.py:307-332).
-template <int CH>
-__device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
-                           const int8_t* __restrict__ vc, const float* __restrict__ ks,
+// kc / vc, rows of hd elements, for an INT8 cache scales ks / vs, row 0
+// first) with an online softmax over blocks of TS rows, then over the fresh
+// row (nk, nks, nv, nvs) as one more column; writes the G x hd outputs to
+// out.  The caller has filled sm.qf and sm.qb; this function's barriers
+// publish them.  K and V tiles stream through a two-stage cp.async ring:
+// t = 2j is K block j (with ks and vs) into stage 0, t = 2j + 1 is V block j
+// into stage 1.
+// Rounding, kept from the TPU kernel: for an INT8 cache the score is
+// dot(qb, k) in f32, times ks, and p = exp(s - m_block) is UNNORMALIZED when
+// it is rounded, as bf16(p * vs), before the PV dot; for an fp cache
+// (attention.py:274-295, dt = f32) the score is dot(qf, f32(k)) and p stays
+// f32, with no scales.  The fresh column's score uses qf (times nks) and its
+// value f32(nv) * nvs, merged after the last block (_fresh_tail_merge,
+// attention.py:307-332); nks and nvs are 1 for an fp cache.
+template <typename CT, int CH>
+__device__ void dec_attend(const DecSmem<CT>& sm, const CT* __restrict__ kc,
+                           const CT* __restrict__ vc, const float* __restrict__ ks,
                            const float* __restrict__ vs, int p, int TS, int G, int hd,
-                           const int8_t* nk, float nks, const int8_t* nv, float nvs, float* out) {
+                           const CT* nk, float nks, const CT* nv, float nvs, float* out) {
+    constexpr bool kInt8 = sizeof(CT) == 1;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int P = dec_pitch(hd);
+    const int P = dec_pitch<CT>(hd);
     const int nb = (p + TS - 1) / TS;
     if (P != hd) dec_zero_pad(sm.kt, 2 * TS, hd, P);  // both stages
     if (tid < G) {
@@ -364,8 +420,10 @@ __device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
         const long long r = (long long)j * TS;
         if (t & 1)
             dec_issue_tile<CH>(sm.vt, vc + r * hd, rows, hd, P, nullptr, nullptr, nullptr, nullptr);
-        else
+        else if (kInt8)
             dec_issue_tile<CH>(sm.kt, kc + r * hd, rows, hd, P, sm.kst, ks + r, sm.vst, vs + r);
+        else
+            dec_issue_tile<CH>(sm.kt, kc + r * hd, rows, hd, P, nullptr, nullptr, nullptr, nullptr);
     };
     const int nt = 2 * nb;
     if (nt > 0) issue(0);
@@ -379,9 +437,9 @@ __device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
         __syncthreads();  // tile t has landed for every thread
         const int base = (t >> 1) * TS;
         if ((t & 1) == 0) {
-            dec_qk_tile(sm.qb, sm.kt, TS, G, P, [&](int g, int r, float dot) {
+            dec_qk_tile(kInt8 ? sm.qb : sm.qf, sm.kt, TS, G, P, [&](int g, int r, float dot) {
                 const bool valid = base + r < p;
-                sm.sc[g * TS + r] = valid ? dot * sm.kst[r] : kNegInf;
+                sm.sc[g * TS + r] = valid ? (kInt8 ? dot * sm.kst[r] : dot) : kNegInf;
             });
             __syncthreads();
             // online softmax over the block, one warp per query row
@@ -396,7 +454,7 @@ __device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
                     const bool valid = base + r < p;
                     const float e = valid ? expf(s[r] - m_new) : 0.f;
                     sum += e;
-                    s[r] = valid ? round_bf16(e * sm.vst[r]) : 0.f;
+                    s[r] = kInt8 ? (valid ? round_bf16(e * sm.vst[r]) : 0.f) : e;
                 }
                 sum = warp_sum(sum);
                 if (lane == 0) {
@@ -408,7 +466,7 @@ __device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
             }
         } else {
             float part[kDecMaxE];
-            dec_pv_tile(sm.sc, TS, sm.vt, TS, G, hd, P, part);
+            dec_pv_tile(sm.sc, TS, sm.vt, min(TS, p - base), G, hd, P, part);
 #pragma unroll
             for (int j = 0; j < kDecMaxE; ++j) {
                 const int e = tid + kDecThreads * j;
@@ -432,7 +490,7 @@ __device__ void dec_attend(const DecSmem& sm, const int8_t* __restrict__ kc,
             const float corr = expf(m - m_fin);
             const float e_new = expf(s_new - m_fin);
             const float l_fin = sm.l_s[g] * corr + e_new;
-            const float nvf = static_cast<float>(nv[d]) * nvs;
+            const float nvf = kInt8 ? to_f32(nv[d]) * nvs : to_f32(nv[d]);
             out[e] = (acc[j] * corr + e_new * nvf) / fmaxf(l_fin, 1e-30f);
         }
     }

@@ -1,5 +1,6 @@
-// K9: deferred-flush decode attention over an INT8 cache that reads only the
-// rows below each slot's position, online softmax over key blocks.
+// K9: deferred-flush decode attention over an INT8, f32 or bf16 cache that
+// reads only the rows below each slot's position, online softmax over key
+// blocks.
 //
 // Replaces tpu_llama/ops/attention.py:335 flash_decode_attention_dma (its
 // Pallas kernel _dma_decode_kernel :188 and the XLA epilogue
@@ -19,7 +20,11 @@
 // fresh column's score uses the unrounded f32 qs (times nks) and its value
 // f32(nv) * nvs, merged after the last block as _fresh_tail_merge does.
 // TS is the JAX function's block_s (128 rows for int8): the rounding points
-// depend on it.
+// depend on it.  For an fp cache (attention.py:274-295, dt = f32) nothing is
+// rounded: the score is dot(qs, f32(k)), p stays f32 and there are no
+// scales; the default block is 64 rows (attention.py:372-373).  The cell is
+// templated on the cache type (common.cuh dec_attend), one kernel for all
+// three.
 //
 // Bound on the H100: bytes.  Each (slot, kv head) must read pos[b] rows of
 // K and V (hd bytes each) and their two f32 scales: at Llama-2 7B, batch 8
@@ -39,62 +44,94 @@
 
 namespace {
 
-template <typename QT, int CH>
+template <typename QT, typename CT, int CH>
 __global__ void __launch_bounds__(kDecThreads)
-flash_decode_dma_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
-                        const int8_t* __restrict__ vc, const float* __restrict__ ks,
+flash_decode_dma_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
+                        const CT* __restrict__ vc, const float* __restrict__ ks,
                         const float* __restrict__ vs, const int* __restrict__ pos,
-                        const int8_t* __restrict__ nk, const int8_t* __restrict__ nv,
+                        const CT* __restrict__ nk, const CT* __restrict__ nv,
                         const float* __restrict__ nks, const float* __restrict__ nvs,
                         float* __restrict__ out, int layer, int B, int KVH, int G, int S, int hd,
                         int TS, float sqrt_hd) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int h = blockIdx.x, b = blockIdx.y;
-    const DecSmem sm(smem, TS, dec_pitch(hd), G);
+    const DecSmem<CT> sm(smem, TS, dec_pitch<CT>(hd), G);
     const int p = min(max(pos[b], 0), S);
     const long long row0 = (((long long)layer * B + b) * KVH + h) * S;  // cache row of s = 0
     const long long bh = (long long)b * KVH + h;
-    dec_load_q(q + bh * G * hd, sm.qf, sm.qb, G, hd, dec_pitch(hd), sqrt_hd);
-    dec_attend<CH>(sm, kc + row0 * hd, vc + row0 * hd, ks + row0, vs + row0, p, TS, G, hd,
-                   nk + bh * hd, nks[bh], nv + bh * hd, nvs[bh], out + bh * G * hd);
+    const bool scaled = ks != nullptr;  // an INT8 cache
+    dec_load_q(q + bh * G * hd, sm.qf, sm.qb, G, hd, dec_pitch<CT>(hd), sqrt_hd);
+    dec_attend<CT, CH>(sm, kc + row0 * hd, vc + row0 * hd, scaled ? ks + row0 : nullptr,
+                       scaled ? vs + row0 : nullptr, p, TS, G, hd, nk + bh * hd,
+                       scaled ? nks[bh] : 1.f, nv + bh * hd, scaled ? nvs[bh] : 1.f,
+                       out + bh * G * hd);
 }
 
-template <typename QT, int CH>
-int launch(const void* q, const int8_t* k, const int8_t* v, const float* ks, const float* vs,
-           const int* pos, const int8_t* nk, const int8_t* nv, const float* nks,
-           const float* nvs, float* out, int layer, int B, int KVH, int G, int S, int hd, int TS,
-           float sqrt_hd, cudaStream_t st) {
-    auto kern = flash_decode_dma_kernel<QT, CH>;
-    const int bytes = DecSmem::bytes(TS, dec_pitch(hd), G);
+template <typename QT, typename CT, int CH>
+int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+           const int* pos, const void* nk, const void* nv, const float* nks, const float* nvs,
+           float* out, int layer, int B, int KVH, int G, int S, int hd, int TS, float sqrt_hd,
+           cudaStream_t st) {
+    auto kern = flash_decode_dma_kernel<QT, CT, CH>;
+    const int bytes = DecSmem<CT>::bytes(TS, dec_pitch<CT>(hd), G);
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<dim3(KVH, B), kDecThreads, bytes, st>>>(static_cast<const QT*>(q), k, v, ks, vs, pos, nk,
-                                                   nv, nks, nvs, out, layer, B, KVH, G, S, hd, TS,
-                                                   sqrt_hd);
+    kern<<<dim3(KVH, B), kDecThreads, bytes, st>>>(
+        static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v), ks, vs,
+        pos, static_cast<const CT*>(nk), static_cast<const CT*>(nv), nks, nvs, out, layer, B, KVH,
+        G, S, hd, TS, sqrt_hd);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename CT>
+int dispatch_chunk(int ch, const void* q, const void* k, const void* v, const float* ks,
+                   const float* vs, const int* pos, const void* nk, const void* nv,
+                   const float* nks, const float* nvs, float* out, int layer, int B, int KVH,
+                   int G, int S, int hd, int TS, float sqrt_hd, cudaStream_t st) {
+#define TL_K9_ARGS q, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, S, hd, TS, sqrt_hd, st
+    if (ch == 16) return launch<QT, CT, 16>(TL_K9_ARGS);
+    if (ch == 4) return launch<QT, CT, 4>(TL_K9_ARGS);
+#undef TL_K9_ARGS
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename QT>
+int dispatch_cache(int kv_dtype, int ch, const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, const int* pos, const void* nk,
+                   const void* nv, const float* nks, const float* nvs, float* out, int layer,
+                   int B, int KVH, int G, int S, int hd, int TS, float sqrt_hd, cudaStream_t st) {
+#define TL_K9_ARGS ch, q, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, S, hd, TS, sqrt_hd, st
+    if (kv_dtype == TL_I8) return dispatch_chunk<QT, int8_t>(TL_K9_ARGS);
+    if (kv_dtype == TL_F32) return dispatch_chunk<QT, float>(TL_K9_ARGS);
+    if (kv_dtype == TL_BF16) return dispatch_chunk<QT, __nv_bfloat16>(TL_K9_ARGS);
+#undef TL_K9_ARGS
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q [B, KVH, G, hd] (f32 or bf16), k/v int8 [L, B, KVH, S, hd], ks/vs f32
-// [L, B, KVH, S], pos int32 [B] (device), nk/nv int8 [B, KVH, hd], nks/nvs
-// f32 [B, KVH], out f32 [B, KVH, G, hd]; all contiguous.  The wrapper
-// checks G <= 8, hd <= 128, TS | S, TS <= 256, and ch: 16 promises
-// hd % 16 == 0 and 16-byte aligned k/v, 4 promises hd % 4 == 0.
-extern "C" int tl_flash_decode_dma(const void* q, int q_dtype, const int8_t* k, const int8_t* v,
-                                   const float* ks, const float* vs, const int* pos,
-                                   const int8_t* nk, const int8_t* nv, const float* nks,
-                                   const float* nvs, float* out, int layer, int B, int KVH, int G,
-                                   int S, int hd, int TS, float sqrt_hd, int ch, void* stream) {
+// q [B, KVH, G, hd] (f32 or bf16); the cache k/v [L, B, KVH, S, hd] of
+// kv_dtype (int8, f32 or bf16) with, for int8 only, f32 scales ks/vs
+// [L, B, KVH, S] (null for an fp cache); pos int32 [B] (device); the fresh
+// rows nk/nv [B, KVH, hd] of the cache's type with, for int8 only, scales
+// nks/nvs f32 [B, KVH]; out f32 [B, KVH, G, hd]; all contiguous.  The
+// wrapper checks G <= 8, hd <= 128, TS | S, TS <= 256, and ch: 16 promises
+// rows of a multiple of 16 bytes and 16-byte aligned k/v, 4 rows of a
+// multiple of 4 bytes.
+extern "C" int tl_flash_decode_dma(const void* q, int q_dtype, int kv_dtype, const void* k,
+                                   const void* v, const float* ks, const float* vs,
+                                   const int* pos, const void* nk, const void* nv,
+                                   const float* nks, const float* nvs, float* out, int layer,
+                                   int B, int KVH, int G, int S, int hd, int TS, float sqrt_hd,
+                                   int ch, void* stream) {
     if (B <= 0 || KVH <= 0) return 0;
-    if (G < 1 || G > kDecMaxG || hd < 1 || hd > kDecMaxHd || TS < 1 || TS > 256)
+    if (G < 1 || G > kDecMaxG || hd < 1 || hd > kDecMaxHd || TS < 1 || TS > 256 ||
+        (kv_dtype == TL_I8) != (ks != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TL_K9_ARGS q, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, S, hd, TS, sqrt_hd, st
-    if (q_dtype == TL_F32 && ch == 16) return launch<float, 16>(TL_K9_ARGS);
-    if (q_dtype == TL_F32 && ch == 4) return launch<float, 4>(TL_K9_ARGS);
-    if (q_dtype == TL_BF16 && ch == 16) return launch<__nv_bfloat16, 16>(TL_K9_ARGS);
-    if (q_dtype == TL_BF16 && ch == 4) return launch<__nv_bfloat16, 4>(TL_K9_ARGS);
+#define TL_K9_ARGS kv_dtype, ch, q, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, S, hd, TS, sqrt_hd, st
+    if (q_dtype == TL_F32) return dispatch_cache<float>(TL_K9_ARGS);
+    if (q_dtype == TL_BF16) return dispatch_cache<__nv_bfloat16>(TL_K9_ARGS);
 #undef TL_K9_ARGS
     return static_cast<int>(cudaErrorInvalidValue);
 }

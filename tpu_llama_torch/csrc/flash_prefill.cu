@@ -1,12 +1,15 @@
-// K6: causal prefill attention over an INT8 K/V cache, GQA-native.
+// K6: causal prefill attention over an INT8, f32 or bf16 K/V cache,
+// GQA-native.
 //
 // Replaces tpu_llama/ops/attention.py:1654 flash_prefill_attention (its
 // Pallas kernels _flash_prefill_kernel :1583, _flash_prefill_fresh_kernel
 // :1499 and _flash_prefill_hb_kernel :1421).  Contract (attention.py
 // :1675-1768): q [B, T, NH, hd] is pre-scaled by 1/sqrt(hd) (a division,
 // :1699); the G = NH / KVH query heads of kv head h fold into rows
-// r = t * G + g; key s attends iff s <= start[b] + t; K scales multiply the
-// score columns and V scales the probability columns; the output
+// r = t * G + g; key s attends iff s <= start[b] + t; for an INT8 cache K
+// scales multiply the score columns and V scales the probability columns
+// (an fp cache has none: its f32 dots and f32 p, attention.py:1613-1640,
+// are this kernel's arithmetic with scales of 1); the output
 // [B, T, NH * hd] is acc / max(l, 1e-30), cast once to the output type.
 //
 // Rounding: this kernel stays in f32 throughout (SIMT FMAs).  The TPU kernel
@@ -19,7 +22,8 @@
 // operations bound it.  Design: one block per (q tile of 64 folded rows,
 // kv head, batch row), an online softmax over 64-key tiles that stops at
 // the tile holding the block's last attended key (causal tile skip), K/V
-// converted from int8 to f32 once per tile into shared memory, and each
+// converted from the cache type (KT: int8, f32 or bf16) to f32 once per
+// tile into shared memory, and each
 // thread holding a 4 x 8 score tile and a 4 x hd/8 output tile in
 // registers.  The f32 SIMT rate is ~1/15 of the bf16 tensor-core rate the
 // bound assumes; moving the dots onto bf16 mma is a later change.
@@ -40,10 +44,10 @@ struct Smem {
     static constexpr int kFloats = kBR * kLdq + kBC * kLdq + kBR * kLdp + 2 * kBC;
 };
 
-template <int HDP, typename QT, typename OT>
+template <int HDP, typename QT, typename KT, typename OT>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
-                     const int8_t* __restrict__ vc, const float* __restrict__ ks,
+flash_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
+                     const KT* __restrict__ vc, const float* __restrict__ ks,
                      const float* __restrict__ vs, const int* __restrict__ start,
                      OT* __restrict__ out, int T, int NH, int KVH, int S, int hd,
                      float sqrt_hd) {
@@ -95,13 +99,13 @@ flash_prefill_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
         for (int e = tid; e < kBC * HDP; e += kThreads) {
             const int c = e / HDP, d = e % HDP;
             KV[c * LDQ + d] = (c0 + c < S && d < hd)
-                                  ? static_cast<float>(kc[(kv_base + c0 + c) * hd + d])
+                                  ? to_f32(kc[(kv_base + c0 + c) * hd + d])
                                   : 0.f;
         }
         if (tid < kBC) {
             const bool ok = c0 + tid < S;
-            ksc[tid] = ok ? ks[kv_base + c0 + tid] : 0.f;
-            vsc[tid] = ok ? vs[kv_base + c0 + tid] : 0.f;
+            ksc[tid] = ok ? (ks ? ks[kv_base + c0 + tid] : 1.f) : 0.f;  // fp: no scales
+            vsc[tid] = ok ? (vs ? vs[kv_base + c0 + tid] : 1.f) : 0.f;
         }
         __syncthreads();
 
@@ -157,7 +161,7 @@ flash_prefill_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
         for (int e = tid; e < kBC * HDP; e += kThreads) {
             const int c = e / HDP, d = e % HDP;
             KV[c * LDQ + d] = (c0 + c < S && d < hd)
-                                  ? static_cast<float>(vc[(kv_base + c0 + c) * hd + d])
+                                  ? to_f32(vc[(kv_base + c0 + c) * hd + d])
                                   : 0.f;
         }
         __syncthreads();
@@ -190,56 +194,82 @@ flash_prefill_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
     }
 }
 
-template <int HDP, typename QT, typename OT>
-int launch(const void* q, const int8_t* k, const int8_t* v, const float* ks, const float* vs,
+template <int HDP, typename QT, typename KT, typename OT>
+int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* start, void* out, int B, int T, int NH, int KVH, int S, int hd,
            float sqrt_hd, cudaStream_t st) {
-    auto kern = flash_prefill_kernel<HDP, QT, OT>;
+    auto kern = flash_prefill_kernel<HDP, QT, KT, OT>;
     const int bytes = Smem<HDP>::kFloats * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int rows = T * (NH / KVH);
     dim3 grid((rows + kBR - 1) / kBR, KVH, B);
-    kern<<<grid, kThreads, bytes, st>>>(static_cast<const QT*>(q), k, v, ks, vs, start,
+    kern<<<grid, kThreads, bytes, st>>>(static_cast<const QT*>(q), static_cast<const KT*>(k),
+                                        static_cast<const KT*>(v), ks, vs, start,
                                         static_cast<OT*>(out), T, NH, KVH, S, hd, sqrt_hd);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int HDP>
-int dispatch_types(const void* q, int q_dtype, const int8_t* k, const int8_t* v,
-                   const float* ks, const float* vs, const int* start, void* out,
-                   int out_dtype, int B, int T, int NH, int KVH, int S, int hd,
-                   float sqrt_hd, cudaStream_t st) {
-    if (q_dtype == TL_F32 && out_dtype == TL_F32)
-        return launch<HDP, float, float>(q, k, v, ks, vs, start, out, B, T, NH, KVH, S, hd,
-                                         sqrt_hd, st);
-    if (q_dtype == TL_F32 && out_dtype == TL_BF16)
-        return launch<HDP, float, __nv_bfloat16>(q, k, v, ks, vs, start, out, B, T, NH, KVH,
-                                                 S, hd, sqrt_hd, st);
-    if (q_dtype == TL_BF16 && out_dtype == TL_F32)
-        return launch<HDP, __nv_bfloat16, float>(q, k, v, ks, vs, start, out, B, T, NH, KVH,
-                                                 S, hd, sqrt_hd, st);
-    if (q_dtype == TL_BF16 && out_dtype == TL_BF16)
-        return launch<HDP, __nv_bfloat16, __nv_bfloat16>(q, k, v, ks, vs, start, out, B, T, NH,
-                                                         KVH, S, hd, sqrt_hd, st);
+#define TL_K6_ARGS q, k, v, ks, vs, start, out, B, T, NH, KVH, S, hd, sqrt_hd, st
+
+template <int HDP, typename QT, typename KT>
+int dispatch_out(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+                 const int* start, void* out, int out_dtype, int B, int T, int NH, int KVH,
+                 int S, int hd, float sqrt_hd, cudaStream_t st) {
+    if (out_dtype == TL_F32) return launch<HDP, QT, KT, float>(TL_K6_ARGS);
+    if (out_dtype == TL_BF16) return launch<HDP, QT, KT, __nv_bfloat16>(TL_K6_ARGS);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int HDP, typename QT>
+int dispatch_cache(const void* q, int kv_dtype, const void* k, const void* v, const float* ks,
+                   const float* vs, const int* start, void* out, int out_dtype, int B, int T,
+                   int NH, int KVH, int S, int hd, float sqrt_hd, cudaStream_t st) {
+    if (kv_dtype == TL_I8) return dispatch_out<HDP, QT, int8_t>(q, k, v, ks, vs, start, out,
+                                                               out_dtype, B, T, NH, KVH, S, hd,
+                                                               sqrt_hd, st);
+    if (kv_dtype == TL_F32) return dispatch_out<HDP, QT, float>(q, k, v, ks, vs, start, out,
+                                                               out_dtype, B, T, NH, KVH, S, hd,
+                                                               sqrt_hd, st);
+    if (kv_dtype == TL_BF16)
+        return dispatch_out<HDP, QT, __nv_bfloat16>(q, k, v, ks, vs, start, out, out_dtype, B, T,
+                                                    NH, KVH, S, hd, sqrt_hd, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HDP>
+int dispatch_types(const void* q, int q_dtype, int kv_dtype, const void* k, const void* v,
+                   const float* ks, const float* vs, const int* start, void* out, int out_dtype,
+                   int B, int T, int NH, int KVH, int S, int hd, float sqrt_hd, cudaStream_t st) {
+    if (q_dtype == TL_F32)
+        return dispatch_cache<HDP, float>(q, kv_dtype, k, v, ks, vs, start, out, out_dtype, B, T,
+                                          NH, KVH, S, hd, sqrt_hd, st);
+    if (q_dtype == TL_BF16)
+        return dispatch_cache<HDP, __nv_bfloat16>(q, kv_dtype, k, v, ks, vs, start, out,
+                                                  out_dtype, B, T, NH, KVH, S, hd, sqrt_hd, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#undef TL_K6_ARGS
+
 }  // namespace
 
-// q [B, T, NH, hd], k/v int8 [B, KVH, S, hd], ks/vs f32 [B, KVH, S],
+// q [B, T, NH, hd]; k/v [B, KVH, S, hd] of kv_dtype (int8, f32 or bf16)
+// with, for int8 only, f32 scales ks/vs [B, KVH, S] (null for an fp cache);
 // start int32 [B] (device), out [B, T, NH * hd]; all contiguous; hd <= 128.
-extern "C" int tl_flash_prefill(const void* q, int q_dtype, const int8_t* k, const int8_t* v,
-                                const float* ks, const float* vs, const int* start, void* out,
-                                int out_dtype, int B, int T, int NH, int KVH, int S, int hd,
-                                float sqrt_hd, void* stream) {
+extern "C" int tl_flash_prefill(const void* q, int q_dtype, int kv_dtype, const void* k,
+                                const void* v, const float* ks, const float* vs, const int* start,
+                                void* out, int out_dtype, int B, int T, int NH, int KVH, int S,
+                                int hd, float sqrt_hd, void* stream) {
     if (B <= 0 || T <= 0) return 0;
+    if ((kv_dtype == TL_I8) != (ks != nullptr) || (ks == nullptr) != (vs == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (hd <= 64)
-        return dispatch_types<64>(q, q_dtype, k, v, ks, vs, start, out, out_dtype, B, T, NH, KVH,
-                                  S, hd, sqrt_hd, st);
+        return dispatch_types<64>(q, q_dtype, kv_dtype, k, v, ks, vs, start, out, out_dtype, B, T,
+                                  NH, KVH, S, hd, sqrt_hd, st);
     if (hd <= 128)
-        return dispatch_types<128>(q, q_dtype, k, v, ks, vs, start, out, out_dtype, B, T, NH,
-                                   KVH, S, hd, sqrt_hd, st);
+        return dispatch_types<128>(q, q_dtype, kv_dtype, k, v, ks, vs, start, out, out_dtype, B,
+                                   T, NH, KVH, S, hd, sqrt_hd, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

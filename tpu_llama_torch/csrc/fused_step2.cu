@@ -62,8 +62,8 @@ __global__ void __launch_bounds__(fd::kThreads) fused_step2_kernel(const Step2 a
     fd::grid_sync(lin.bar);  // layer l + 1's qkv is complete
 
     const int B = lin.B, D = lin.D, QO = lin.QO, KVH = a.KVH, G = a.G, hd = a.hd;
-    const int P = dec_pitch(hd), hp = hd / 2, tid = threadIdx.x;
-    const DecSmem sm(smem, a.TS, P, G);
+    const int P = dec_pitch<int8_t>(hd), hp = hd / 2, tid = threadIdx.x;
+    const DecSmem<int8_t> sm(smem, a.TS, P, G);
     for (int cell = blockIdx.x; cell < B * KVH; cell += gridDim.x) {
         const int b = cell / KVH, h = cell % KVH;
         const long long bh = (long long)b * KVH + h;
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(fd::kThreads) fused_step2_kernel(const Step2 a
         __syncthreads();  // the fresh rows are written for the whole block
         const int p = min(max(a.pos[b], 0), a.S);
         const long long row0 = (((long long)a.layer * B + b) * KVH + h) * a.S;
-        dec_attend<CH>(sm, a.kc + row0 * hd, a.vc + row0 * hd, a.kcs + row0, a.vcs + row0, p,
+        dec_attend<int8_t, CH>(sm, a.kc + row0 * hd, a.vc + row0 * hd, a.kcs + row0, a.vcs + row0, p,
                        a.TS, G, hd, kqr, ksc, vqr, vsc, a.att + bh * G * hd);
         __syncthreads();  // shared memory is free for the next cell
     }
@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(fd::kThreads) fused_step2_kernel(const Step2 a
 
 template <int BM, int CH>
 int launch(const Step2& a, cudaStream_t st) {
-    const int cell = DecSmem::bytes(a.TS, dec_pitch(a.hd), a.G);
+    const int cell = DecSmem<int8_t>::bytes(a.TS, dec_pitch<int8_t>(a.hd), a.G);
     const int smem = fd::gemm_smem<BM>() > cell ? fd::gemm_smem<BM>() : cell;
     return fd::coop_launch(fused_step2_kernel<BM, CH>, a, smem, st);
 }

@@ -1,9 +1,11 @@
-"""Llama-2 forward passes for the W8A8 + dense INT8-KV serving path.
+"""Llama-2 forward passes over dense KV caches.
 
-Port of the parts of tpu_llama/models/llama.py that the engine's
-``quant="w8a8", kv_dtype="int8", kv_layout="dense"`` setting runs, with the
-fused wqkv / w13 layouts of ``fuse_projections`` (what bench.py serves) or
-without them:
+Port of the parts of tpu_llama/models/llama.py that the engine's dense
+layouts run: weights dense (``params_from_raw``, ``random_params``), Q8_0
+(``quantize_params`` mode "q8_0", K25) or W8A8 (mode "w8a8"); a KV cache
+INT8 (``QuantKVCache``) or float32 / bfloat16 (``KVCache``); with the fused
+wqkv / w13 layouts of ``fuse_projections`` (what bench.py and the server
+run) or without them.  The W8A8 + INT8 paths:
 
 * prefill: ``forward_prefill(assume_fresh=True)`` -> ``_forward_prefill_fresh``
   (llama.py:1378).  Fused layouts run the fused W8A8 body (llama.py:
@@ -35,19 +37,46 @@ without them:
   attention).  Both keep the deferred K10 flush.  ``fused="auto"`` is
   False on a CPU cache, a fused mode on a CUDA one (``_resolve_fused``).
 
+Dense and Q8_0 weights, and fp caches, take JAX's other branches:
+
+* every matmul is ``matmul_any`` (llama.py:518): dense weights through
+  ``torch.matmul`` at the caller's ``precision`` (the JAX package leaves
+  them to XLA), Q8_0 through K25, W8A8 through K2 + K1;
+* prefill at start 0 and at start > 0 runs the unfused body (``layer_step``,
+  llama.py:1510-1518, :2153-2204) -- so do W8A8 fused layouts over an fp
+  cache at start > 0 -- with the fp K/V cast to the cache's dtype before
+  both the write and K6's fp form (llama.py:1498-1508); at start 0 fused
+  W8A8 layouts over an fp cache run the fused body's K3 / K1 / K4 with the
+  fp attention instead of K5 (llama.py:1433-1440);
+* chunked prefill over an fp cache, or of dense / Q8_0 weights, runs
+  ``forward_prefill`` per chunk (llama.py:1562-1596): K18 is INT8-only;
+* decode: ``decode_stack``'s fp branch (llama.py:1308-1327: the fresh rows
+  cast to the cache's dtype, the fp forms of K9 / K19, one fp K10 flush)
+  and its xla branch; on W8A8 fused layouts ``fused=True`` runs
+  ``fused_decode_stack``'s fp branch (llama.py:1062-1066, :1091-1094).
+  mega2 (K12) takes a dense INT8 cache only; ``"auto"`` resolves to False
+  on dense and Q8_0 weights (``_fused_path_ok``).
+
+``precision`` ("default", "high", "highest"; llama.py:1113) is each entry
+point's argument, as in JAX, and reaches only dense float32 products: on
+the card "highest" runs them in full f32, "default" and "high" in TF32
+(what XLA does with them on a GPU); the CPU has full f32 only.  No
+process-wide setting is left changed.
+
 JAX's functional cache updates become IN-PLACE writes into the cache
 tensors: ``forward_prefill`` and ``forward_decode`` mutate the cache they
 are given and return it.  JAX's ``lax.scan`` over stacked layers becomes a
-Python loop over per-layer views.  Weights stay stacked ``[L, ...]`` and
-matmul weights are K-major ``ChannelQuantTensor``s (``q [L, out, in]``).
+Python loop over per-layer views.  Weights stay stacked ``[L, ...]``;
+quantized matmul weights are K-major (``q [L, out, in]``).
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: the mega and mega3 decodes (K27, K26), fp caches and
-dense/q8_0 weights, paged caches.
+their ROADMAP item: the mega and mega3 decodes (K27, K26), W4A8 weights,
+paged caches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -56,7 +85,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_llama_torch.config import ModelConfig
-from tpu_llama_torch.device import resolve_device
+from tpu_llama_torch.device import resolve_device, upload
+from tpu_llama_torch.io.checkpoint import RawWeights
 from tpu_llama_torch.ops.attention import (
     flash_decode_attention_dma,
     flash_decode_attention_fresh,
@@ -67,11 +97,15 @@ from tpu_llama_torch.ops.attention import (
 )
 from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
 from tpu_llama_torch.ops.fused_step2 import fused_step2_layer
-from tpu_llama_torch.ops.matmul import w8a8_matmul, w8a8_matmul_prequant
+from tpu_llama_torch.ops.matmul import q8_matmul, w8a8_matmul, w8a8_matmul_prequant
 from tpu_llama_torch.ops.quant import (
     ChannelQuantTensor,
+    QuantTensor,
+    kernel_alignment,
+    pick_group_size,
     quantize_activations,
     quantize_channel,
+    quantize_q8,
     rmsnorm_quantize,
     rope_f32,
     rope_split_quantize,
@@ -81,15 +115,19 @@ from tpu_llama_torch.ops.quant import (
 _NEG_INF = -1e30
 
 
+_QUANTIZED = (ChannelQuantTensor, QuantTensor)
+
+
 def _take(w, i: int):
-    return w.layer(i) if isinstance(w, ChannelQuantTensor) else w[i]
+    return w.layer(i) if isinstance(w, _QUANTIZED) else w[i]
 
 
 @dataclasses.dataclass
 class LayerParams:
     """Per-layer weights stacked on axis 0 over layers.  Matmul weights are
-    ``ChannelQuantTensor``s (q [L, out, in]) or, before ``quantize_params``,
-    dense [L, in, out] tensors in the JAX layout.  In the fused layouts of
+    dense [L, in, out] tensors in the JAX layout, or after
+    ``quantize_params`` ``QuantTensor``s (Q8_0) or ``ChannelQuantTensor``s
+    (W8A8), both K-major (q [L, out, in]).  In the fused layouts of
     ``fuse_projections`` wq is D -> D + 2 KVD ([q|k|v]), w1 is D -> 2H
     ([gate|up]), and wk, wv and w3 are dense [L, 1, 1] stubs."""
 
@@ -146,19 +184,73 @@ class QuantKVCache:
     def seq_len(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def arrays(self) -> tuple[str, ...]:
+        """The names of the cache's tensors."""
+        return ("k", "v", "ks", "vs")
+
     def zero_(self) -> None:
         for t in (self.k, self.v, self.ks, self.vs):
             t.zero_()
 
 
-def make_kv_cache(config: ModelConfig, batch: int, kv_dtype="int8",
+@dataclasses.dataclass
+class KVCache:
+    """Dense fp KV cache (llama.py:82): values [L, B, KVH, S, hd] in float32
+    or bfloat16, head-major, no scales.  Updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def create(cls, config: ModelConfig, batch: int, dtype=torch.float32,
+               seq_len: int | None = None, device=None) -> "KVCache":
+        dev = resolve_device(device)
+        S = seq_len or config.seq_len
+        shape = (config.n_layers, batch, config.n_kv_heads, S, config.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev))
+
+    @property
+    def seq_len(self) -> int:
+        return self.k.shape[3]
+
+    # an fp cache has no scale arrays: the kernels' wrappers take None
+    ks = None
+    vs = None
+
+    @property
+    def arrays(self) -> tuple[str, ...]:
+        """The names of the cache's tensors."""
+        return ("k", "v")
+
+    def zero_(self) -> None:
+        self.k.zero_()
+        self.v.zero_()
+
+
+_KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def kv_torch_dtype(kv_dtype) -> torch.dtype:
+    """'float32' | 'bfloat16' | 'int8' (or the torch dtype) -> the dtype."""
+    dt = _KV_DTYPES.get(kv_dtype, kv_dtype)
+    if dt not in _KV_DTYPES.values():
+        raise ValueError(f"kv_dtype {kv_dtype!r}: want one of {sorted(_KV_DTYPES)}")
+    return dt
+
+
+def make_kv_cache(config: ModelConfig, batch: int, kv_dtype="float32",
                   seq_len: int | None = None, paged: bool = False, device=None):
-    """Dense INT8 cache (llama.py:199); other layouts are later slices."""
+    """kv_dtype 'float32' (the default, as in JAX), 'bfloat16' or 'int8'
+    (llama.py:199): a ``KVCache`` or a ``QuantKVCache``.  Paged caches are a
+    later slice."""
     if paged:
         raise NotImplementedError("paged KV cache: ROADMAP queue 1 item 8")
-    if kv_dtype not in ("int8", torch.int8):
-        raise NotImplementedError("fp KV caches: ROADMAP queue 1 item 9")
-    return QuantKVCache.create(config, batch, seq_len=seq_len, device=device)
+    dt = kv_torch_dtype(kv_dtype)
+    if dt == torch.int8:
+        return QuantKVCache.create(config, batch, seq_len=seq_len, device=device)
+    return KVCache.create(config, batch, dtype=dt, seq_len=seq_len, device=device)
 
 
 def _rope_tables(config: ModelConfig, device):
@@ -169,18 +261,99 @@ def _rope_tables(config: ModelConfig, device):
             torch.tensor(np.sin(angles), dtype=torch.float32, device=device))
 
 
+def params_from_raw(raw: RawWeights, dtype=torch.float32, device=None) -> LlamaParams:
+    """A checkpoint's (out, in) f32 tensors -> the stacked (in, out) layout
+    on ``device`` (None = the card) in ``dtype`` (llama.py:215); the RoPE
+    tables stay f32.  One host copy per tensor (the transpose), then one
+    upload, so a memory-mapped checkpoint is read once."""
+    dev = resolve_device(device)
+
+    def t(x, axes=None):
+        a = np.asarray(x)
+        a = np.require(a if axes is None else a.transpose(axes), requirements=["C", "W"])
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    def tr(x):
+        return t(x, (0, 2, 1))
+
+    layers = LayerParams(rms_att=t(raw.rms_att), wq=tr(raw.wq), wk=tr(raw.wk), wv=tr(raw.wv),
+                         wo=tr(raw.wo), rms_ffn=t(raw.rms_ffn), w1=tr(raw.w1), w2=tr(raw.w2),
+                         w3=tr(raw.w3))
+
+    def rope(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return LlamaParams(tok_emb=t(raw.token_embedding), layers=layers, rms_final=t(raw.rms_final),
+                       wcls=t(raw.wcls, (1, 0)), rope_cos=rope(raw.freq_cis_real),
+                       rope_sin=rope(raw.freq_cis_imag))
+
+
+def random_params(config: ModelConfig, dtype=torch.bfloat16, seed: int = 0,
+                  scale: float = 0.02, device=None) -> LlamaParams:
+    """Random dense parameters generated on the device in ``dtype``
+    (llama.py:248) from one ``torch.Generator`` seeded with ``seed``: normal
+    * ``scale`` matmul weights and embeddings, unit norms, llama2.c's RoPE
+    tables.  The draws differ from ``jax.random``'s; the shapes and dtypes
+    are the same.  A 7B model in f32 is 27 GB: it is made layer by layer
+    into its stacks, so no temporary is larger than one layer."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = config
+    L, D, H, KVD, V = c.n_layers, c.dim, c.hidden_dim, c.kv_dim, c.vocab_size
+
+    def t(*shape):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for part in (out if len(shape) == 3 else (out,)):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev) * scale)
+        return out
+
+    cos, sin = _rope_tables(c, dev)
+    return LlamaParams(
+        tok_emb=t(V, D),
+        layers=LayerParams(rms_att=torch.ones((L, D), dtype=dtype, device=dev),
+                           wq=t(L, D, D), wk=t(L, D, KVD), wv=t(L, D, KVD), wo=t(L, D, D),
+                           rms_ffn=torch.ones((L, D), dtype=dtype, device=dev),
+                           w1=t(L, D, H), w2=t(L, H, D), w3=t(L, D, H)),
+        rms_final=torch.ones((D,), dtype=dtype, device=dev),
+        wcls=t(D, V),
+        rope_cos=cos,
+        rope_sin=sin,
+    )
+
+
+def extend_rope(params: LlamaParams, new_len: int) -> LlamaParams:
+    """RoPE tables extended past the checkpoint's seq_len with llama2.c's
+    formula, theta = 10000^(-2i/hd) (llama.py:361); the checkpoint's rows
+    stay as they are."""
+    cur, hd2 = params.rope_cos.shape
+    if new_len <= cur:
+        return params
+    inv_freq = 1.0 / (10000.0 ** (np.arange(0, hd2, dtype=np.float64) / hd2))
+    angles = np.arange(cur, new_len, dtype=np.float64)[:, None] * inv_freq[None, :]
+    dev = params.rope_cos.device
+    return dataclasses.replace(
+        params,
+        rope_cos=torch.cat([params.rope_cos,
+                            torch.tensor(np.cos(angles), dtype=torch.float32, device=dev)]),
+        rope_sin=torch.cat([params.rope_sin,
+                            torch.tensor(np.sin(angles), dtype=torch.float32, device=dev)]))
+
+
 def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
                         norm_dtype=torch.bfloat16, fuse: bool = False,
                         device=None) -> LlamaParams:
     """Random parameters generated directly in INT8 on the device
-    (llama.py:288), from one ``torch.Generator`` seeded with ``seed``.  The
-    draws differ from ``jax.random``'s; the shapes, scales (2e-4) and
-    dtypes are the same.  ``fuse=True`` draws the fused wqkv / w13 layouts
-    of ``fuse_projections`` with [L, 1, 1] stubs for wk, wv and w3
-    (llama.py:337-343)."""
-    if mode != "w8a8":
-        raise NotImplementedError(f"mode {mode!r}: only w8a8 is ported (ROADMAP queue 1 "
-                                  "item 9 has q8_0)")
+    (llama.py:288), from one ``torch.Generator`` seeded with ``seed``: mode
+    "w8a8" (per-channel, scales 2e-4) or "q8_0" (group-wise with
+    ``pick_group_size``'s group, both dims padded as ``quantize_q8`` pads
+    them, scales 2e-4).  The draws differ from ``jax.random``'s; the shapes,
+    scales and dtypes are the same.  ``fuse=True`` draws the fused wqkv /
+    w13 layouts of ``fuse_projections`` with [L, 1, 1] stubs for wk, wv and
+    w3 (llama.py:337-343)."""
+    if mode not in ("w8a8", "q8_0"):
+        raise NotImplementedError(f"mode {mode!r}: w8a8 and q8_0 are ported (W4A8 is ROADMAP "
+                                  "queue 1 item 9)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -188,6 +361,15 @@ def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
     L, D, H, KVD, V = c.n_layers, c.dim, c.hidden_dim, c.kv_dim, c.vocab_size
 
     def qt(in_f, out_f, lead=()):
+        if mode == "q8_0":  # llama.py:323-331
+            g = pick_group_size(in_f)
+            align = kernel_alignment(g)
+            pin, pout = -(-in_f // align) * align, -(-out_f // 128) * 128
+            q = torch.randint(-127, 128, (*lead, pout, pin), generator=gen, dtype=torch.int8,
+                              device=dev)
+            return QuantTensor(q=q, s=torch.full((*lead, pout, pin // g), 2e-4,
+                                                 dtype=torch.float32, device=dev),
+                               logical_in=in_f, logical_out=out_f)
         q = torch.randint(-127, 128, (*lead, out_f, in_f), generator=gen,
                           dtype=torch.int8, device=dev)
         return ChannelQuantTensor(
@@ -217,19 +399,28 @@ def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
     )
 
 
-def quantize_params(params: LlamaParams, mode: str = "w8a8") -> LlamaParams:
-    """W8A8 conversion of the seven matmul families and the classifier
-    (llama.py:383): dense [.., in, out] weights -> per-channel INT8.  Norm
-    weights, embeddings, RoPE tables and the [L, 1, 1] stubs of
-    ``fuse_projections`` (never multiplied, llama.py:415-422) stay
-    floating point."""
-    if mode != "w8a8":
-        raise NotImplementedError(f"mode {mode!r}: only w8a8 is ported (ROADMAP queue 1 "
-                                  "item 9 has q8_0)")
+def quantize_params(params: LlamaParams, group_size: int | None = None,
+                    quantize_wcls: bool = True, mode: str = "q8_0") -> LlamaParams:
+    """INT8 conversion of the seven matmul families and (with
+    ``quantize_wcls``) the classifier (llama.py:383): dense [.., in, out]
+    weights -> mode "q8_0" (the default, as in JAX: group-wise weight-only,
+    ``group_size`` or ``pick_group_size``'s, K25) or "w8a8" (per-channel
+    weights with per-row activation quant, K1).  Norm weights, embeddings,
+    RoPE tables and the [L, 1, 1] stubs of ``fuse_projections`` (never
+    multiplied, llama.py:415-422) stay floating point."""
+    if mode == "w8a8":
+        qz = quantize_channel
+    elif mode == "q8_0":
+        def qz(w):
+            return quantize_q8(w, group_size)
+    elif mode == "w4a8":
+        raise NotImplementedError("mode 'w4a8': ROADMAP queue 1 item 9")
+    else:
+        raise ValueError(f"unknown quant mode {mode!r}")
     lp = params.layers
 
     def q(w):
-        return w if w.dim() == 3 and w.shape[-2:] == (1, 1) else quantize_channel(w)
+        return w if w.dim() == 3 and w.shape[-2:] == (1, 1) else qz(w)
 
     return LlamaParams(
         tok_emb=params.tok_emb,
@@ -237,7 +428,7 @@ def quantize_params(params: LlamaParams, mode: str = "w8a8") -> LlamaParams:
                            wo=q(lp.wo), rms_ffn=lp.rms_ffn, w1=q(lp.w1), w2=q(lp.w2),
                            w3=q(lp.w3)),
         rms_final=params.rms_final,
-        wcls=q(params.wcls),
+        wcls=q(params.wcls) if quantize_wcls else params.wcls,
         rope_cos=params.rope_cos,
         rope_sin=params.rope_sin,
     )
@@ -254,7 +445,7 @@ def fuse_projections(params: LlamaParams, tp: int = 1) -> LlamaParams:
         raise NotImplementedError("fuse_projections(tp > 1), the tensor-parallel column "
                                   "order: ROADMAP queue 1 item 11")
     lp = params.layers
-    if isinstance(lp.wq, ChannelQuantTensor):
+    if isinstance(lp.wq, _QUANTIZED):
         raise ValueError("fuse_projections must run before quantization")
     stub = torch.zeros((lp.rms_att.shape[0], 1, 1), dtype=lp.wq.dtype, device=lp.wq.device)
     return dataclasses.replace(params, layers=dataclasses.replace(
@@ -262,27 +453,62 @@ def fuse_projections(params: LlamaParams, tp: int = 1) -> LlamaParams:
         w1=torch.cat([lp.w1, lp.w3], dim=-1), w3=stub))
 
 
-def matmul_any(a: torch.Tensor, w, residual=None) -> torch.Tensor:
-    """``a @ W`` dispatching on the weight type (llama.py:518), plus
-    ``residual`` in K1's epilogue when given (the matmul term rounded to
-    a's dtype, then added: the numerics of ``residual + a @ W``).  The port
-    carries per-channel W8A8 weights only."""
+PRECISIONS = ("default", "high", "highest")
+
+
+@contextlib.contextmanager
+def _f32_products(precision: str):
+    """Dense float32 products on the card at ``precision`` for the calls
+    inside: TF32 for "default" and "high", full f32 for "highest"; the
+    caller's setting is restored on the way out."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r}: want one of {PRECISIONS}")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def dense_matmul(a: torch.Tensor, w: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """``a @ w`` for a dense weight in the dtype both promote to, as
+    ``jnp.dot(a, w, precision=...)``: ``precision`` matters only to float32
+    products on the card (see ``_f32_products``)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    a, w = a.to(dt), w.to(dt)
+    if dt != torch.float32 or a.device.type != "cuda":
+        return a @ w
+    with _f32_products(precision):
+        return a @ w
+
+
+def matmul_any(a: torch.Tensor, w, residual=None, precision: str = "highest") -> torch.Tensor:
+    """``a @ W`` dispatching on the weight type (llama.py:518): Q8_0
+    through K25 and dense weights through ``dense_matmul`` (both in a's
+    dtype, then ``residual +``), per-channel W8A8 through K2 + K1 with
+    ``residual`` in K1's epilogue (the matmul term rounded to a's dtype,
+    then added: the numerics of ``residual + a @ W``)."""
     if isinstance(w, ChannelQuantTensor):
         return w8a8_matmul(a, w, out_dtype=a.dtype, residual=residual)
-    raise NotImplementedError("dense and q8_0 weights: ROADMAP queue 1 item 9")
+    if isinstance(w, QuantTensor):
+        out = q8_matmul(a, w, out_dtype=a.dtype)
+    else:
+        out = dense_matmul(a, w, precision)
+    return out if residual is None else residual + out
 
 
 def _out_features(w) -> int:
-    return w.out_features if isinstance(w, ChannelQuantTensor) else w.shape[-1]
+    return w.out_features if isinstance(w, _QUANTIZED) else w.shape[-1]
 
 
-def _project_qkv(h, lp: LayerParams, config: ModelConfig):
+def _project_qkv(h, lp: LayerParams, config: ModelConfig, precision: str = "highest"):
     """q/k/v projections, transparently handling a fused wqkv weight."""
     D, KVD = config.dim, config.kv_dim
     if _out_features(lp.wq) == D + 2 * KVD:
-        qkv = matmul_any(h, lp.wq)
+        qkv = matmul_any(h, lp.wq, precision=precision)
         return qkv[..., :D], qkv[..., D:D + KVD], qkv[..., D + KVD:]
-    return matmul_any(h, lp.wq), matmul_any(h, lp.wk), matmul_any(h, lp.wv)
+    return tuple(matmul_any(h, w, precision=precision) for w in (lp.wq, lp.wk, lp.wv))
 
 
 def _fused_layouts(layers: LayerParams, config: ModelConfig) -> bool:
@@ -291,12 +517,20 @@ def _fused_layouts(layers: LayerParams, config: ModelConfig) -> bool:
             and _out_features(layers.w1) == 2 * config.hidden_dim)
 
 
-def _project_gate_up(h, lp: LayerParams, config: ModelConfig):
+def _fused_w8a8(layers: LayerParams, config: ModelConfig) -> bool:
+    """W8A8 weights in the fused layouts: what the fused prefill body takes
+    (``_prefill_w8a8_fast_ok``, llama.py:1344, without its TPU gates)."""
+    return (_fused_layouts(layers, config)
+            and all(isinstance(w, ChannelQuantTensor)
+                    for w in (layers.wq, layers.wo, layers.w1, layers.w2)))
+
+
+def _project_gate_up(h, lp: LayerParams, config: ModelConfig, precision: str = "highest"):
     H = config.hidden_dim
     if _out_features(lp.w1) == 2 * H:
-        gu = matmul_any(h, lp.w1)
+        gu = matmul_any(h, lp.w1, precision=precision)
         return gu[..., :H], gu[..., H:]
-    return matmul_any(h, lp.w1), matmul_any(h, lp.w3)
+    return matmul_any(h, lp.w1, precision=precision), matmul_any(h, lp.w3, precision=precision)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -327,40 +561,49 @@ def _attention_decode(q, k_cache, v_cache, pos, config: ModelConfig):
     return out.reshape(B, config.dim).to(q.dtype)
 
 
-def _write_decode(cache: QuantKVCache, layer: int, k, v, pos, config: ModelConfig) -> None:
-    """Quantize one decoded token's K/V [B, KVH, hd] and write it IN PLACE at
-    position pos[b] of layer ``layer`` (llama.py:611)."""
+def _cache_rows(cache, k, v) -> dict:
+    """A step's (or a block's) K/V as the cache stores them, by array name:
+    quantized with their scales for an INT8 cache, cast to the cache's
+    dtype for an fp one (llama.py:1301-1313)."""
+    if isinstance(cache, QuantKVCache):
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    return {"k": k.to(cache.k.dtype), "v": v.to(cache.v.dtype)}
+
+
+def _write_decode(cache, layer: int, k, v, pos, config: ModelConfig) -> None:
+    """Write one decoded token's K/V [B, KVH, hd] (quantized, or cast to an
+    fp cache's dtype) IN PLACE at position pos[b] of layer ``layer``
+    (llama.py:611)."""
     B = k.shape[0]
     b_ix = torch.arange(B, device=k.device)[:, None]
     h_ix = torch.arange(config.n_kv_heads, device=k.device)[None, :]
     p_ix = pos[:, None]
-    kq, ks = quantize_kv(k)
-    vq, vs = quantize_kv(v)
-    cache.k[layer][b_ix, h_ix, p_ix] = kq
-    cache.v[layer][b_ix, h_ix, p_ix] = vq
-    cache.ks[layer][b_ix, h_ix, p_ix] = ks
-    cache.vs[layer][b_ix, h_ix, p_ix] = vs
+    for n, rows in _cache_rows(cache, k, v).items():
+        getattr(cache, n)[layer][b_ix, h_ix, p_ix] = rows
 
 
-def _attend_decode(cache: QuantKVCache, layer: int, q, pos, config: ModelConfig):
-    """The xla branch of llama.py:636-646: dequantize the layer's cache,
-    then plain attention."""
-    kf = cache.k[layer].float() * cache.ks[layer][..., None]
-    vf = cache.v[layer].float() * cache.vs[layer][..., None]
+def _attend_decode(cache, layer: int, q, pos, config: ModelConfig):
+    """The xla branch of llama.py:636-654: the layer's cache dequantized
+    (INT8) or upcast (fp), then plain attention."""
+    kf, vf = cache.k[layer].float(), cache.v[layer].float()
+    if isinstance(cache, QuantKVCache):
+        kf, vf = kf * cache.ks[layer][..., None], vf * cache.vs[layer][..., None]
     return _attention_decode(q, kf, vf, pos, config)
 
 
 DECODE_ATTN = ("auto", "flash", "flash_dma", "xla")
 
 
-def _resolve_decode_attn(attn: str, cache: QuantKVCache) -> str:
+def _resolve_decode_attn(attn: str, cache) -> str:
     """``forward_decode``'s attention policy (the structure of llama.py:
     1115-1130).  ``"auto"`` is ``"xla"`` on a CPU cache, as the JAX package
     on the CPU, and K9 (``"flash_dma"``) on a CUDA cache at every batch:
     on an H100, K9 was never slower than K19 (``"flash"``) on the device at
     batch 1 or 8 (the A/B in PERF.md), so the TPU's batch-1 exception is
     not carried, nor its ``head_dim % 128`` gate (the CUDA kernels take any
-    head_dim up to 128 that is a multiple of 4)."""
+    head_dim up to 128 whose cache rows are a multiple of 4 bytes).  The
+    same on INT8 and fp caches."""
     if attn not in DECODE_ATTN:
         raise ValueError(f"decode attention {attn!r}: want one of {DECODE_ATTN}")
     if attn != "auto":
@@ -368,12 +611,30 @@ def _resolve_decode_attn(attn: str, cache: QuantKVCache) -> str:
     return "flash_dma" if cache.k.device.type == "cuda" else "xla"
 
 
-def decode_stack(layers: LayerParams, cache: QuantKVCache, x, pos, cos, sin,
-                 config: ModelConfig, attn: str = "xla"):
+def _attend_fresh(attend, q, cache, pos32, fresh: dict, layer: int):
+    """One deferred-flush attention call (K9 or K19, INT8 or fp form) of
+    ``layer`` over the cache's rows < pos plus the step's ``fresh`` rows
+    (``_cache_rows``)."""
+    return attend(q, cache.k, cache.v, pos32, fresh["k"], fresh["v"], cache.ks, cache.vs,
+                  fresh.get("ks"), fresh.get("vs"), layer=layer)
+
+
+def _flush(cache, rows: list, pos32) -> None:
+    """One K10 flush of every layer's fresh rows (each layer's
+    ``_cache_rows``) at pos: one [L, ...] stack per array, then K10."""
+    st = {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+    kv_cache_flush_rows(st["k"], st["v"], pos32, cache.k, cache.v, st.get("ks"), st.get("vs"),
+                        cache.ks, cache.vs)
+
+
+def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConfig,
+                 attn: str = "xla", precision: str = "highest"):
     """The unfused decode layer stack (llama.py:1206): x [B, D] in -> x out;
     writes every layer's new K/V row into ``cache`` in place -- per layer
     for ``attn="xla"``, in one K10 flush after the layer loop for the
-    deferred-flush ``"flash"`` (K19) and ``"flash_dma"`` (K9)."""
+    deferred-flush ``"flash"`` (K19) and ``"flash_dma"`` (K9).  On an fp
+    cache the fresh rows are cast to its dtype and the kernels' fp forms
+    run (llama.py:1308-1327)."""
     B = x.shape[0]
     attn = _resolve_decode_attn(attn, cache)
     NH, KVH, G, hd = config.n_heads, config.n_kv_heads, config.group_size, config.head_dim
@@ -382,33 +643,27 @@ def decode_stack(layers: LayerParams, cache: QuantKVCache, x, pos, cos, sin,
     if flash:
         attend = flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
         pos32 = pos.to(torch.int32)  # once per step, read on the device by K9/K19/K10
-        rows = []  # each layer's fresh (kq, vq, ks, vs), for the flush (the JAX scan's ys)
+        rows = []  # each layer's fresh rows, for the flush (the JAX scan's ys)
     for i in range(L):
         lp = layers.layer(i)
         h = rmsnorm(x, lp.rms_att)
-        q, k, v = _project_qkv(h, lp, config)
+        q, k, v = _project_qkv(h, lp, config, precision)
         q = apply_rope(q.reshape(B, NH, hd), cos, sin)
         k = apply_rope(k.reshape(B, KVH, hd), cos, sin)
         v = v.reshape(B, KVH, hd)
         if flash:
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
-            rows.append((kq, vq, ks, vs))
-            att = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, pos32, kq, vq, cache.ks,
-                         cache.vs, ks, vs, layer=i)
+            rows.append(_cache_rows(cache, k, v))
+            att = _attend_fresh(attend, q.reshape(B, KVH, G, hd), cache, pos32, rows[-1], i)
             att = att.reshape(B, config.dim).to(x.dtype)
         else:
             _write_decode(cache, i, k, v, pos, config)
             att = _attend_decode(cache, i, q, pos, config)
-        x = matmul_any(att, lp.wo, residual=x)
+        x = matmul_any(att, lp.wo, residual=x, precision=precision)
         h = rmsnorm(x, lp.rms_ffn)
-        gate, up = _project_gate_up(h, lp, config)
-        x = matmul_any(F.silu(gate) * up, lp.w2, residual=x)
+        gate, up = _project_gate_up(h, lp, config, precision)
+        x = matmul_any(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
     if flash:
-        # one [L, ...] buffer per array for the step: 4 stack launches, then one K10
-        rows_k, rows_v, rows_ks, rows_vs = (torch.stack(r) for r in zip(*rows))
-        kv_cache_flush_rows(rows_k, rows_v, pos32, cache.k, cache.v, rows_ks, rows_vs,
-                            cache.ks, cache.vs)
+        _flush(cache, rows, pos32)
     return x
 
 
@@ -480,20 +735,27 @@ def _decode_prologue(layers: LayerParams, x0, config: ModelConfig):
 def _split_qkv(qkv, cos, sin, config: ModelConfig):
     """f32 [B, QO] -> roped q [B, KVH, G, hd], and k, v quantized per head
     ((kq, ks), (vq, vs)), as the JAX scan body does in XLA."""
+    q, k, v = _split_rope(qkv, cos, sin, config)
+    return q, quantize_kv(k), quantize_kv(v)
+
+
+def _split_rope(qkv, cos, sin, config: ModelConfig):
+    """f32 [B, QO] -> roped q [B, KVH, G, hd], roped k and v [B, KVH, hd]."""
     B = qkv.shape[0]
     D, KVD, NH, KVH, hd = (config.dim, config.kv_dim, config.n_heads, config.n_kv_heads,
                            config.head_dim)
     q = apply_rope(qkv[:, :D].reshape(B, NH, hd), cos, sin)
     k = apply_rope(qkv[:, D:D + KVD].reshape(B, KVH, hd), cos, sin)
     v = qkv[:, D + KVD:].reshape(B, KVH, hd)
-    return q.reshape(B, KVH, config.group_size, hd), quantize_kv(k), quantize_kv(v)
+    return q.reshape(B, KVH, config.group_size, hd), k, v
 
 
-def fused_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
-                       config: ModelConfig, attn: str):
-    """The two-launch fused decode layer stack, dense INT8 branch
+def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: ModelConfig,
+                       attn: str):
+    """The two-launch fused decode layer stack, dense-cache branches
     (llama.py:978-1096): x0 [B, D] in -> x f32 [B, D].  Per layer the
-    attention (K9 for ``"flash_dma"``, K19 for ``"flash"``) on the qkv the
+    attention (K9 for ``"flash_dma"``, K19 for ``"flash"``; their fp forms
+    on an fp cache, the fresh rows cast to its dtype) on the qkv the
     previous K11 launch left, K2 on its output, then K11 (the layer's linear
     work and the next layer's qkv); layer 0's qkv from the prologue (K3,
     K8).  The residual stream stays f32 across layers, as JAX's scan carry.
@@ -506,15 +768,13 @@ def fused_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, s
     qkv = _decode_prologue(layers, x, config)
     rows = []
     for i in range(L):
-        q, (kq, ks), (vq, vs) = _split_qkv(qkv, cos, sin, config)
-        rows.append((kq, vq, ks, vs))
-        att = attend(q, cache.k, cache.v, pos32, kq, vq, cache.ks, cache.vs, ks, vs, layer=i)
+        q, k, v = _split_rope(qkv, cos, sin, config)
+        rows.append(_cache_rows(cache, k, v))
+        att = _attend_fresh(attend, q, cache, pos32, rows[-1], i)
         attq, satt = quantize_activations(att.reshape(B, D))
         x, qkv = fused_layer_linear(x, attq, satt, layers.wo, layers.w1, layers.w2, layers.wq,
                                     layers.rms_ffn, layers.rms_att, i, L)
-    rows_k, rows_v, rows_ks, rows_vs = (torch.stack(r) for r in zip(*rows))
-    kv_cache_flush_rows(rows_k, rows_v, pos32, cache.k, cache.v, rows_ks, rows_vs, cache.ks,
-                        cache.vs)
+    _flush(cache, rows, pos32)
     return x
 
 
@@ -552,16 +812,18 @@ def mega2_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, s
     return x
 
 
-def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
-                   pos: torch.Tensor, config: ModelConfig, attn: str = "auto",
-                   fused="auto"):
+def forward_decode(params: LlamaParams, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                   config: ModelConfig, attn: str = "auto", fused="auto",
+                   precision: str = "highest"):
     """One decode step for a batch (llama.py:1101): tokens/pos [B].
     ``attn``: one of ``DECODE_ATTN`` (see ``_resolve_decode_attn``).
     ``fused`` (see ``_resolve_fused``): False runs the unfused
     ``decode_stack``; True the two-launch ``fused_decode_stack`` (K11 + the
     flash attention per layer); ``"mega2"`` ``mega2_decode_stack`` (K12);
     ``"auto"`` picks from the device, the weights and the cache.  The fused
-    paths carry the residual stream in f32 (llama.py:996).  Returns
+    paths carry the residual stream in f32 (llama.py:996) and run the
+    classifier at "default" precision (llama.py:974).  ``precision``
+    reaches dense float32 products (see ``dense_matmul``).  Returns
     (logits [B, V] f32, cache) -- the cache updated in place."""
     attn = _resolve_decode_attn(attn, cache)
     fused = _resolve_fused(fused, attn, params, config, cache, tokens.shape[0])
@@ -573,9 +835,11 @@ def forward_decode(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tenso
     elif fused:
         x = fused_decode_stack(params.layers, cache, x, pos, cos, sin, config, attn)
     else:
-        x = decode_stack(params.layers, cache, x, pos, cos, sin, config, attn=attn)
+        x = decode_stack(params.layers, cache, x, pos, cos, sin, config, attn=attn,
+                         precision=precision)
     x = rmsnorm(x, params.rms_final)
-    return matmul_any(x, params.wcls).float(), cache
+    prec = "default" if fused else precision
+    return matmul_any(x, params.wcls, precision=prec).float(), cache
 
 
 def _fused_qkv(x2, lp: LayerParams):
@@ -602,9 +866,9 @@ def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, s
     ``attend_prequant`` (llama.py:1422-1469): x [B, T, D] in -> out, with
     f32 rmsnorm, RoPE and SiLU that are never rounded to x's dtype before
     their int8 quant (ops/quant.py).  K5 writes the layer's K/V straight
-    into rows [0, T) of ``cache`` (head-major, in place: no transpose, no
-    copy) and K6 attends over them there.  cos/sin [B * T, hd/2], row
-    b * T + t at position t."""
+    into rows [0, T) of the INT8 ``cache`` (head-major, in place: no
+    transpose, no copy) and K6 attends over them there.  cos/sin
+    [B * T, hd/2], row b * T + t at position t."""
     B, T, D = x.shape
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     x2 = x.reshape(B * T, D)
@@ -618,16 +882,40 @@ def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, s
     return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
-def _forward_prefill_fresh(params: LlamaParams, cache: QuantKVCache, tokens, lengths,
-                           config: ModelConfig, logits_mode: str):
+def _prefill_layer_fused_fp(x, lp: LayerParams, cache: KVCache, i: int, cos, sin, start0,
+                            config: ModelConfig):
+    """Layer ``i`` of the fused W8A8 prefill body over an fp cache,
+    ``layer_step_w8a8`` with ``attend()``'s fp branch (llama.py:1431-1448,
+    :1471-1508): K3 and K1 (qkv), RoPE on q and k in f32 cast back to x's
+    dtype, k and v cast to the cache's dtype and written into rows [0, T)
+    of ``cache``, K6's fp form over them, then the fused tail (K2 + K1, K3,
+    K1, K4, K1).  No K5: it quantizes K/V for an INT8 cache.  cos/sin
+    [T, hd/2]."""
+    B, T, D = x.shape
+    NH, KVH, hd, KVD = config.n_heads, config.n_kv_heads, config.head_dim, config.kv_dim
+    x2 = x.reshape(B * T, D)
+    qkv = _fused_qkv(x2, lp).view(B, T, -1)
+    q = apply_rope(qkv[..., :D].reshape(B, T, NH, hd), cos, sin)
+    k = apply_rope(qkv[..., D:D + KVD].reshape(B, T, KVH, hd), cos, sin)
+    v = qkv[..., D + KVD:].reshape(B, T, KVH, hd)
+    kb, vb = cache.k[i, :, :, :T], cache.v[i, :, :, :T]
+    kb.copy_(k.transpose(1, 2))  # cast to the cache's dtype
+    vb.copy_(v.transpose(1, 2))
+    att = flash_prefill_attention(q, kb, vb, start0, out_dtype=x.dtype)
+    return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
+
+
+def _forward_prefill_fresh(params: LlamaParams, cache, tokens, lengths, config: ModelConfig,
+                           logits_mode: str, precision: str = "highest"):
     """Prefill from position 0 (llama.py:1378): each layer leaves its K/V in
     rows [0, T) of ``cache``, in place, and attends over them (K6, start 0).
-    Fused layouts take the fused body (``_prefill_layer_fused``) at every
-    shape: the TPU gates of ``_prefill_w8a8_fast_ok`` (llama.py:1344-1375:
-    B*T % 32, B*T <= 4096, no padding) and K5's ``head_dim % 128``
-    (llama.py:1433) are Mosaic rules that the CUDA kernels do not have.
-    Unfused layouts take the unfused body at start 0
-    (``_prefill_layer_at``)."""
+    Fused W8A8 layouts take the fused body at every shape -- with K5 on an
+    INT8 cache (``_prefill_layer_fused``), with the fp attention on an fp
+    one (``_prefill_layer_fused_fp``): the TPU gates of
+    ``_prefill_w8a8_fast_ok`` (llama.py:1344-1375: B*T % 32, B*T <= 4096,
+    no padding) and K5's ``head_dim % 128`` (llama.py:1433) are Mosaic
+    rules that the CUDA kernels do not have.  Other weights (unfused W8A8,
+    dense, Q8_0) take the unfused body (``_prefill_layer_at``)."""
     if logits_mode not in ("all", "last"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
@@ -637,83 +925,106 @@ def _forward_prefill_fresh(params: LlamaParams, cache: QuantKVCache, tokens, len
     cos, sin = params.rope_cos[:T], params.rope_sin[:T]  # broadcast over B
     start0 = torch.zeros((B,), dtype=torch.int32, device=x.device)
     layers = params.layers
-    fused = _fused_layouts(layers, config)
-    if fused:
+    int8 = isinstance(cache, QuantKVCache)
+    fused = _fused_w8a8(layers, config)
+    if fused and int8:
         cos, sin = cos.repeat(B, 1), sin.repeat(B, 1)  # K5 takes one row per token
-    else:
-        rows = torch.arange(T, device=x.device).expand(B, T)
     for i in range(layers.rms_att.shape[0]):
         lp = layers.layer(i)
         if fused:
-            x = _prefill_layer_fused(x, lp, cache, i, cos, sin, start0, config)
+            step = _prefill_layer_fused if int8 else _prefill_layer_fused_fp
+            x = step(x, lp, cache, i, cos, sin, start0, config)
         else:
-            x = _prefill_layer_at(x, lp, cache, i, cos, sin, start0, rows, config)
+            x = _prefill_layer_at(x, lp, cache, i, cos, sin, start0, config, precision)
     if logits_mode == "last":
         x = _last_rows(x, lengths, T)
-    return _logits(params, x), cache
+    return _logits(params, x, precision), cache
 
 
-def _write_rows(cache: QuantKVCache, i: int, kq, ks, vq, vs, write_pos) -> None:
-    """Write a prefill's quantized K/V [B, T, KVH, hd] and scales [B, T, KVH]
-    IN PLACE at rows write_pos [B, T] of layer ``i`` (llama.py:2133-2141:
-    ``.at[b, h, p].set``, a plain indexed copy)."""
-    B, T, KVH = ks.shape
-    b_ix = torch.arange(B, device=ks.device)[:, None, None]
-    h_ix = torch.arange(KVH, device=ks.device)[None, :, None]
-    p_ix = write_pos[:, None, :]
-    cache.k[i][b_ix, h_ix, p_ix] = kq.transpose(1, 2)
-    cache.v[i][b_ix, h_ix, p_ix] = vq.transpose(1, 2)
-    cache.ks[i][b_ix, h_ix, p_ix] = ks.transpose(1, 2)
-    cache.vs[i][b_ix, h_ix, p_ix] = vs.transpose(1, 2)
+def _write_rows(cache, i: int, fresh: dict, start, config: ModelConfig, fits: bool) -> None:
+    """Write a prefill's K/V IN PLACE into layer ``i`` at positions
+    start[b] + t: ``fresh`` holds the cache's arrays by name
+    (``_cache_rows``), values [B, T, KVH, hd] and scales [B, T, KVH]
+    (llama.py:2133-2141, :2168-2191: ``.at[b, h, p].set``, a plain indexed
+    copy).  ``fits`` says the caller knows on the host that every position
+    lies inside the cache (max(start) + T <= S): then each row is written
+    straight.  Otherwise positions can run past the cache, which the JAX
+    package clips to S - 1, where a padding row (t >= lengths[b])
+    overwrites the last row of a prompt that ends there; here such a row is
+    not written.  It writes back the value already at (start + t) mod S
+    instead -- positions distinct for T <= S and never one this call writes
+    -- which needs no host sync but reads the destination rows first.
+    Padding rows inside the cache are written, as in JAX: no real query
+    attends them, and decode overwrites each before it is read."""
+    B, T = fresh["k"].shape[:2]
+    S = cache.seq_len
+    dev = fresh["k"].device
+    pos = start.long()[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
+    b_ix = torch.arange(B, device=dev)[:, None, None]
+    h_ix = torch.arange(config.n_kv_heads, device=dev)[None, :, None]
+    p_ix = (pos % S)[:, None, :]
+    inside = (pos < S)[:, None, :]  # [B, 1, T]
+    for n, rows in fresh.items():
+        dst = getattr(cache, n)[i]  # [B, KVH, S(, hd)]
+        new = rows.transpose(1, 2)  # [B, KVH, T(, hd)]
+        if not fits:
+            keep = inside if new.dim() == 3 else inside[..., None]
+            new = torch.where(keep, new, dst[b_ix, h_ix, p_ix])
+        dst[b_ix, h_ix, p_ix] = new
 
 
-def _attend_layer(q, cache: QuantKVCache, i: int, start, out_dtype):
-    """K6 over all of layer ``i``'s cache rows, queries at start[b] + t."""
-    return flash_prefill_attention(q, cache.k[i], cache.v[i], start, cache.ks[i], cache.vs[i],
+def _attend_layer(q, cache, i: int, start, out_dtype):
+    """K6 (its INT8 or fp form) over all of layer ``i``'s cache rows,
+    queries at start[b] + t."""
+    scales = (cache.ks[i], cache.vs[i]) if isinstance(cache, QuantKVCache) else ()
+    return flash_prefill_attention(q, cache.k[i], cache.v[i], start, *scales,
                                    out_dtype=out_dtype)
 
 
-def _prefill_layer_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start,
-                      write_pos, config: ModelConfig):
+def _prefill_layer_at(x, lp: LayerParams, cache, i: int, cos, sin, start, config: ModelConfig,
+                      precision: str = "highest", fits: bool = True):
     """Layer ``i`` of the unfused prefill body at any start (``layer_step``,
-    llama.py:2153-2204, ``attn="flash"``): K2 + K1 projections, RoPE at each
-    row's own positions, ``quantize_kv``, the write at write_pos, K6 over
-    the layer's cache.  cos/sin [B, T, hd/2]."""
+    llama.py:1510-1518, :2153-2204, ``attn="flash"``): the projections
+    through ``matmul_any``, RoPE at each row's own positions, the K/V
+    quantized (INT8 cache) or cast to the cache's dtype (fp), written at
+    start + t (``_write_rows``; ``fits`` as there), K6 over the layer's
+    cache.  cos/sin [B, T, hd/2] or [T, hd/2]."""
     B, T = x.shape[:2]
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     h = rmsnorm(x, lp.rms_att)
-    q, k, v = _project_qkv(h, lp, config)
+    q, k, v = _project_qkv(h, lp, config, precision)
     q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
-    kq, ks = quantize_kv(apply_rope(k.reshape(B, T, KVH, hd), cos, sin))
-    vq, vs = quantize_kv(v.reshape(B, T, KVH, hd))
-    _write_rows(cache, i, kq, ks, vq, vs, write_pos)
+    k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
+    _write_rows(cache, i, _cache_rows(cache, k, v.reshape(B, T, KVH, hd)), start, config, fits)
     att = _attend_layer(q, cache, i, start, x.dtype)
-    x = matmul_any(att, lp.wo, residual=x)
+    x = matmul_any(att, lp.wo, residual=x, precision=precision)
     h = rmsnorm(x, lp.rms_ffn)
-    gate, up = _project_gate_up(h, lp, config)
-    return matmul_any(F.silu(gate) * up, lp.w2, residual=x)
+    gate, up = _project_gate_up(h, lp, config, precision)
+    return matmul_any(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
 
 
 def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start,
-                            write_pos, config: ModelConfig):
-    """Layer ``i`` of the fused W8A8 body at any start (``layer_step_w8a8``,
-    llama.py:2112-2151): K3, K1 (qkv), K5 into compact q/k/v with RoPE at
-    each row's own positions, the write at write_pos, K6 over the layer's
-    cache, then the fused tail.  cos/sin [B * T, hd/2], row b * T + t at
-    position write_pos[b, t]."""
+                            config: ModelConfig, fits: bool):
+    """Layer ``i`` of the fused W8A8 body at any start over an INT8 cache
+    (``layer_step_w8a8``, llama.py:2112-2151): K3, K1 (qkv), K5 into compact
+    q/k/v with RoPE at each row's own positions, the write at start + t
+    (``_write_rows``; ``fits`` as there), K6 over the layer's cache, then
+    the fused tail.
+    cos/sin [B * T, hd/2], row b * T + t at position start[b] + t."""
     B, T, D = x.shape
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     x2 = x.reshape(B * T, D)
     q, kq, ks, vq, vs = rope_split_quantize(_fused_qkv(x2, lp), cos, sin, D, KVH, hd)
-    _write_rows(cache, i, kq.view(B, T, KVH, hd), ks.view(B, T, KVH), vq.view(B, T, KVH, hd),
-                vs.view(B, T, KVH), write_pos)
+    fresh = {"k": kq.view(B, T, KVH, hd), "v": vq.view(B, T, KVH, hd),
+             "ks": ks.view(B, T, KVH), "vs": vs.view(B, T, KVH)}
+    _write_rows(cache, i, fresh, start, config, fits)
     att = _attend_layer(q.view(B, T, NH, hd), cache, i, start, x.dtype)
     return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
-def _logits(params: LlamaParams, x):
-    """Final rmsnorm, then the classifier (K2 + K1), in f32."""
-    return matmul_any(rmsnorm(x, params.rms_final), params.wcls).float()
+def _logits(params: LlamaParams, x, precision: str = "highest"):
+    """Final rmsnorm, then the classifier (``matmul_any``), in f32."""
+    return matmul_any(rmsnorm(x, params.rms_final), params.wcls, precision=precision).float()
 
 
 def _last_rows(x, lengths, T: int):
@@ -722,58 +1033,74 @@ def _last_rows(x, lengths, T: int):
     return x[torch.arange(x.shape[0], device=x.device), rows]
 
 
-def forward_prefill(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
-                    start_pos: torch.Tensor, lengths: torch.Tensor, config: ModelConfig,
-                    logits_mode: str = "all", assume_fresh: bool = False):
+def forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor, start_pos: torch.Tensor,
+                    lengths: torch.Tensor, config: ModelConfig, logits_mode: str = "all",
+                    assume_fresh: bool = False, precision: str = "highest"):
     """Batched causal prefill (llama.py:2052).  Returns (logits, cache):
     [B, T, V] for ``logits_mode="all"``, [B, V] at lengths-1 for "last";
-    the cache is written in place.  ``assume_fresh=True`` promises
-    start_pos == 0 and takes ``_forward_prefill_fresh``.  Otherwise row b's
-    tokens sit at positions start_pos[b] + t: each layer writes its K/V at
-    those positions (clamped to the cache, llama.py:2087-2093) and K6
-    attends over the layer's whole cache, which already holds rows
-    [0, start_pos[b]).  Attention is always K6 (the JAX package's
-    ``attn="flash"``; its plain version on the CPU is the ``"xla"`` math).
-    Fused layouts take the fused body at every shape (the TPU's gates of
-    llama.py:2108-2110 are Mosaic rules), unfused ones the unfused body."""
+    the cache (INT8 or fp) is written in place.  ``assume_fresh=True``
+    promises start_pos == 0 and takes ``_forward_prefill_fresh``.  Otherwise
+    row b's tokens sit at positions start_pos[b] + t: each layer writes its
+    K/V at those positions that lie inside the cache (``_write_rows``) and
+    K6 attends over the layer's whole cache, which already holds rows
+    [0, start_pos[b]).  Give ``start_pos`` on the host (a CPU tensor) where
+    it is known there: it is uploaded without waiting, and where every row
+    fits the cache the writes skip the guard for rows past it.  Attention
+    is always K6 (the JAX package's ``attn="flash"``; its plain version on
+    the CPU is the ``"xla"`` math).
+    Fused W8A8 layouts over an INT8 cache take the fused body at every shape
+    (the TPU's gates of llama.py:2108-2110 are Mosaic rules); everything
+    else takes the unfused body.  ``precision`` reaches dense float32
+    products (``dense_matmul``)."""
     if assume_fresh:
-        return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode)
+        return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode,
+                                      precision)
     if logits_mode not in ("all", "last"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
     S = cache.seq_len
-    start = start_pos.to(device=tokens.device, dtype=torch.int32)
-    write_pos = (start.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
-                 ).clamp(0, S - 1)
-    cos, sin = params.rope_cos[write_pos], params.rope_sin[write_pos]  # [B, T, hd/2]
+    dev = tokens.device
+    host = start_pos.device.type == "cpu"
+    fits = host and int(start_pos.max()) + T <= S
+    start = (upload(start_pos, dev, torch.int32) if host
+             else start_pos.to(device=dev, dtype=torch.int32))
+    lengths = lengths.to(device=dev, dtype=torch.long)
+    pos = (start.long()[:, None] + torch.arange(T, device=dev)[None, :]).clamp(0, S - 1)
+    cos, sin = params.rope_cos[pos], params.rope_sin[pos]  # [B, T, hd/2]
     x = params.tok_emb[tokens.long()]
     layers = params.layers
-    layer_step = _prefill_layer_at
-    if _fused_layouts(layers, config):
-        layer_step = _prefill_layer_fused_at
+    if _fused_w8a8(layers, config) and isinstance(cache, QuantKVCache):
         cos, sin = cos.reshape(B * T, -1), sin.reshape(B * T, -1)
-    for i in range(layers.rms_att.shape[0]):
-        x = layer_step(x, layers.layer(i), cache, i, cos, sin, start, write_pos, config)
+        for i in range(layers.rms_att.shape[0]):
+            x = _prefill_layer_fused_at(x, layers.layer(i), cache, i, cos, sin, start, config,
+                                        fits)
+    else:
+        for i in range(layers.rms_att.shape[0]):
+            x = _prefill_layer_at(x, layers.layer(i), cache, i, cos, sin, start, config,
+                                  precision, fits)
     if logits_mode == "last":
         x = _last_rows(x, lengths, T)
-    return _logits(params, x), cache
+    return _logits(params, x, precision), cache
 
 
-def forward_prefill_chunked(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
-                            lengths: torch.Tensor, config: ModelConfig, chunk: int = 256):
+def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
+                            lengths: torch.Tensor, config: ModelConfig, chunk: int = 256,
+                            precision: str = "highest"):
     """Prefill from position 0 in chunks of ``chunk`` positions, each
     attending over every row written before it (llama.py:1562-1748; the
     JAX package's scan, unrolled and carry forms exist for TPU compile
     limits and are one function here).  Returns (next-token logits [B, V],
     cache); T must be a multiple of ``chunk`` and fit the cache.
 
-    Fused layouts run the carry form (llama.py:1693-1746): per chunk i and
-    layer l, K3, K1, K5 into a compact [B, KVH, chunk, hd] block, K18 lands
-    it at rows [i * chunk, (i + 1) * chunk) of layer l in place, K6 (start
-    i * chunk) over that layer, then the fused tail.  Unfused layouts run
+    Fused W8A8 layouts over an INT8 cache run the carry form (llama.py:
+    1693-1746, gated by ``_prefill_chunked_carry_ok`` :1751): per chunk i
+    and layer l, K3, K1, K5 into a compact [B, KVH, chunk, hd] block, K18
+    lands it at rows [i * chunk, (i + 1) * chunk) of layer l in place, K6
+    (start i * chunk) over that layer, then the fused tail.  Everything else
+    -- fp caches (K18 is INT8-only), dense, Q8_0 or unfused weights -- runs
     ``forward_prefill(start_pos=i * chunk)`` per chunk (llama.py:1580-1596).
-    Each chunk computes its last-token logits (rmsnorm, K2 + K1); each row
-    keeps those of the chunk that holds its final token."""
+    Each chunk computes its last-token logits; each row keeps those of the
+    chunk that holds its final token."""
     B, T = tokens.shape
     if chunk <= 0 or T % chunk:
         raise ValueError(f"{T} prompt rows are not a multiple of the chunk {chunk}")
@@ -783,8 +1110,8 @@ def forward_prefill_chunked(params: LlamaParams, cache: QuantKVCache, tokens: to
     dev = tokens.device
     lengths = lengths.to(device=dev, dtype=torch.long)
     layers = params.layers
-    fused = _fused_layouts(layers, config)
-    if fused:
+    carry = _fused_w8a8(layers, config) and isinstance(cache, QuantKVCache)
+    if carry:
         D, NH, KVH, hd = config.dim, config.n_heads, config.n_kv_heads, config.head_dim
         blk = [torch.empty((B, KVH, chunk, *d), dtype=t, device=dev)
                for t, d in [(torch.int8, (hd,)), (torch.float32, ())] * 2]  # k, ks, v, vs
@@ -794,12 +1121,13 @@ def forward_prefill_chunked(params: LlamaParams, cache: QuantKVCache, tokens: to
         c0 = i * chunk
         tok_c = tokens[:, c0:c0 + chunk]
         len_c = (lengths - c0).clamp(1, chunk)
-        start = torch.full((B,), c0, dtype=torch.int32, device=dev)
-        if not fused:
-            logits_c, cache = forward_prefill(params, cache, tok_c, start, len_c, config,
-                                              logits_mode="last")
+        if not carry:  # the start on the host: every chunk's rows fit
+            logits_c, cache = forward_prefill(params, cache, tok_c,
+                                              torch.full((B,), c0, dtype=torch.int32), len_c,
+                                              config, logits_mode="last", precision=precision)
             per_chunk.append(logits_c)
             continue
+        start = torch.full((B,), c0, dtype=torch.int32, device=dev)
         cos = params.rope_cos[c0:c0 + chunk].repeat(B, 1)  # [B * chunk, hd/2], row b * chunk + t
         sin = params.rope_sin[c0:c0 + chunk].repeat(B, 1)
         x = params.tok_emb[tok_c.long()]
@@ -811,19 +1139,20 @@ def forward_prefill_chunked(params: LlamaParams, cache: QuantKVCache, tokens: to
                                  cache.ks, cache.vs)
             att = _attend_layer(q.view(B, chunk, NH, hd), cache, l, start, x.dtype)
             x = _fused_tail(x2, att.view(B * chunk, D), lp, config).view(B, chunk, D)
-        per_chunk.append(_logits(params, _last_rows(x, len_c, chunk)))
+        per_chunk.append(_logits(params, _last_rows(x, len_c, chunk), precision))
     owner = ((lengths - 1) // chunk).clamp(0, n - 1)
     return torch.stack(per_chunk)[owner, torch.arange(B, device=dev)], cache
 
 
-def greedy_decode_loop(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
-                       pos: torch.Tensor, steps: int, config: ModelConfig,
-                       attn: str = "auto", fused="auto"):
+def greedy_decode_loop(params: LlamaParams, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                       steps: int, config: ModelConfig, attn: str = "auto", fused="auto",
+                       precision: str = "highest"):
     """``steps`` greedy decode steps (llama.py:2016) as a Python loop: the
     argmax feeds back on the device.  Returns (tokens [B, steps], cache)."""
     toks, p, out = tokens.long(), pos.long(), []
     for _ in range(steps):
-        logits, cache = forward_decode(params, cache, toks, p, config, attn=attn, fused=fused)
+        logits, cache = forward_decode(params, cache, toks, p, config, attn=attn, fused=fused,
+                                       precision=precision)
         toks = logits.argmax(dim=-1)
         out.append(toks)
         p = p + 1

@@ -12,7 +12,9 @@ Launch and plain-version counts: every wrapper in ``tpu_llama_torch.ops``
 adds one to ``LAUNCHES[kernel]`` right after it launched its kernel, and one
 to ``PLAIN_CALLS[kernel]`` when it ran the plain PyTorch version for a CPU
 tensor.  They are process-wide counters, read by ``chip_smoke.py`` to show
-that a run went through the kernels.
+that a run went through the kernels.  The fp-cache forms of K6, K7, K9, K10
+and K19 count under their own ids (``form``: ``"K6:f32"``, ``"K6:bf16"``),
+one templated kernel each with its INT8 form.
 """
 
 from __future__ import annotations
@@ -43,19 +45,23 @@ SOURCES = {
     "silu_mul_quantize": ("tl_silu_mul_quantize", [_P, _P, _I, _L, _P, _P, _L, _L, _I, _P]),
     "rope_split_quantize": ("tl_rope_split_quantize",
                             [_P, _I, *[_P] * 7, _L, _I, _I, _I, *[_L] * 7, _P]),
+    # q, q dtype, cache dtype, k, v, ks, vs, start, out, out dtype, B, T, NH, KVH, S, hd,
+    # sqrt(hd), stream
     "flash_prefill": ("tl_flash_prefill",
-                      [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _P]),
-    "kv_scatter": ("tl_kv_scatter_slots",
-                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _P]),
+                      [_P, _I, _I, *[_P] * 6, _I, *[_I] * 6, ctypes.c_float, _P]),
+    # sk, sv, sks, svs, slots, ck, cv, cks, cvs, cache dtype, L, n, KVH, T, hd, B, S, vec,
+    # stream
+    "kv_scatter": ("tl_kv_scatter_slots", [*[_P] * 9, _I, *[_I] * 8, _P]),
+    # q, q dtype, cache dtype, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G,
+    # S, hd, [TS,] sqrt(hd), copy chunk, stream
     "flash_decode_dma": ("tl_flash_decode_dma",
-                         [_P, _I, *[_P] * 10, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _I, _P]),
+                         [_P, _I, _I, *[_P] * 10, *[_I] * 7, ctypes.c_float, _I, _P]),
     "flash_decode_fresh": ("tl_flash_decode_fresh",
-                           [_P, _I, *[_P] * 10, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _I, _P]),
-    "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, _I, _I, _I, _I, _I, _P]),
+                           [_P, _I, _I, *[_P] * 10, *[_I] * 6, ctypes.c_float, _I, _P]),
+    # rk, rv, rks, rvs, pos, ck, cv, cks, cvs, cache dtype, L, B, KVH, S, hd, vec, stream
+    "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, *[_I] * 6, _P]),
+    # x, x dtype, q, s, out, out dtype, M, N, Np, K, g, stream
+    "q8_matmul": ("tl_q8_matmul", [_P, _I, _P, _P, _P, _I, *[_I] * 5, _P]),
     # rk, rv, rks, rvs, ck, cv, cks, cvs, B, KVH, Tc, S, hd, start, layer, vec, stream
     "kv_write_chunk": ("tl_kv_write_chunk", [*[_P] * 8, *[_I] * 8, _P]),
     # x, attq, satt, 4 x (weights, scales), rms_ffn, rms_att, rms dtype, x_next, qkv,
@@ -75,11 +81,15 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K4": "silu_mul_quantize", "K5": "rope_split_quantize", "K6": "flash_prefill",
            "K7": "kv_scatter", "K8": "w8a8_matmul", "K9": "flash_decode_dma",
            "K10": "kv_flush_rows", "K11": "fused_layer", "K12": "fused_step2",
-           "K18": "kv_write_chunk", "K19": "flash_decode_fresh"}
+           "K18": "kv_write_chunk", "K19": "flash_decode_fresh", "K25": "q8_matmul"}
+FP_FORMS = ("K6", "K7", "K9", "K10", "K19")  # kernels with an fp-cache form
+_FORM_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+KERNELS.update({f"{k}:{sfx}": KERNELS[k] for k in FP_FORMS for sfx in _FORM_SUFFIX.values()})
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh TlDtype
+_CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -94,6 +104,19 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
     return _DTYPE_CODES[dtype]
+
+
+def cache_code(dtype: torch.dtype) -> int:
+    """The TlDtype of a KV cache's elements: int8, float32 or bfloat16."""
+    if dtype not in _CACHE_CODES:
+        raise TypeError(f"KV caches are int8, float32 or bfloat16, not {dtype}")
+    return _CACHE_CODES[dtype]
+
+
+def form(kernel: str, cache_dtype: torch.dtype) -> str:
+    """The id a kernel of FP_FORMS counts under for a cache of
+    ``cache_dtype``: its own for int8, ``"<id>:f32"`` or ``"<id>:bf16"``."""
+    return kernel if cache_dtype == torch.int8 else f"{kernel}:{_FORM_SUFFIX[cache_dtype]}"
 
 
 def _nvcc() -> str:

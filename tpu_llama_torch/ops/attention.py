@@ -7,8 +7,11 @@ Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
 ``flash_prefill_attention`` (:1654), ``kv_cache_scatter_slots`` (:1212),
 ``kv_cache_write_chunk`` (:2102), ``flash_decode_attention_dma`` (:335),
 ``flash_decode_attention_fresh`` (:807) and ``kv_cache_flush_rows``
-(:2470), for INT8 caches; the fp-cache variants come with their ROADMAP
-slice.
+(:2470).  K6, K7, K9, K19 and K10 take an INT8 cache (int8 values with f32
+per-row scales) or an fp one (float32 or bfloat16, no scales), as the JAX
+functions do; each CUDA kernel is templated on the cache type, and the fp
+forms count their launches under their own ids (``K6:f32``, ``K6:bf16``,
+... in ``_kernels``).  K18 takes INT8 caches only, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,10 +33,33 @@ def quantize_kv(x: torch.Tensor):
     return _absmax_quant(x.float(), dim=-1)
 
 
+CACHE_DTYPES = (torch.int8, torch.float32, torch.bfloat16)
+
+
+def check_scales(name, cache, *scales) -> bool:
+    """Whether ``cache`` is INT8; raises unless it is INT8 with every one of
+    ``scales`` given or fp (float32, bfloat16) with none of them."""
+    if cache.dtype not in CACHE_DTYPES:
+        raise TypeError(f"{name}: caches are int8, float32 or bfloat16, not {cache.dtype}")
+    int8 = cache.dtype == torch.int8
+    if int8 and any(s is None for s in scales):
+        raise ValueError(f"{name}: INT8 caches need their scales")
+    if not int8 and any(s is not None for s in scales):
+        raise ValueError(f"{name}: an fp cache has no scales")
+    return int8
+
+
 def _check_prefill(q, k_cache, v_cache, start_pos, k_scale, v_scale):
-    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
-        raise NotImplementedError("flash_prefill_attention: fp caches come with the "
-                                  "fp-cache slice (ROADMAP queue 1 item 9)")
+    if v_cache.dtype != k_cache.dtype:
+        raise TypeError("flash_prefill_attention: K and V caches of one dtype")
+    if not check_scales("flash_prefill_attention", k_cache, k_scale, v_scale):
+        if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+            raise ValueError("want q [B, T, NH, hd] and k_cache, v_cache [B, KVH, S, hd]")
+        if (k_cache.shape[0] != q.shape[0] or k_cache.shape[3] != q.shape[3]
+                or start_pos.shape != (q.shape[0],) or q.shape[2] % k_cache.shape[1]):
+            raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
+                             f"start {tuple(start_pos.shape)}")
+        return
     if q.dim() != 4 or k_cache.dim() != 4:
         raise ValueError("want q [B, T, NH, hd] and k_cache [B, KVH, S, hd]")
     B, T, NH, hd = q.shape
@@ -48,15 +74,17 @@ def _check_prefill(q, k_cache, v_cache, start_pos, k_scale, v_scale):
         raise TypeError("K/V scales must be float32")
 
 
-def flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale, v_scale,
+def flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale=None, v_scale=None,
                                   out_dtype=None):
-    """Plain version of K6: f32 attention on the dequantized cache, as
-    ``_attention_prefill`` computes it (llama.py:582-603)."""
+    """Plain version of K6: f32 attention on the dequantized (INT8) or
+    upcast (fp) cache, as ``_attention_prefill`` computes it (llama.py:
+    582-603)."""
     B, T, NH, hd = q.shape
     KVH, S = k_cache.shape[1], k_cache.shape[2]
     G = NH // KVH
-    kf = k_cache.float() * k_scale[..., None]
-    vf = v_cache.float() * v_scale[..., None]
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale[..., None], vf * v_scale[..., None]
     qg = q.reshape(B, T, KVH, G, hd).float()
     scores = torch.einsum("btkgh,bksh->bkgts", qg, kf) / math.sqrt(hd)
     q_pos = start_pos.long()[:, None] + torch.arange(T, device=q.device)[None, :]
@@ -68,15 +96,19 @@ def flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale, v_sca
 
 
 def flash_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                            start_pos: torch.Tensor, k_scale: torch.Tensor,
-                            v_scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """Causal prefill attention: q [B, T, NH, hd] (raw queries), INT8 K/V
-    [B, KVH, S, hd] already holding this chunk, f32 scales [B, KVH, S],
-    start_pos [B] (absolute position of q[:, 0]).  Key s attends iff
-    s <= start_pos[b] + t.  Returns [B, T, NH * hd] in ``out_dtype``
-    (default f32).  K6 on CUDA tensors, the plain version on CPU ones."""
+                            start_pos: torch.Tensor, k_scale: torch.Tensor | None = None,
+                            v_scale: torch.Tensor | None = None, out_dtype=None) -> torch.Tensor:
+    """Causal prefill attention: q [B, T, NH, hd] (raw queries), K/V
+    [B, KVH, S, hd] already holding this chunk -- INT8 with f32 scales
+    [B, KVH, S], or float32 / bfloat16 without -- start_pos [B] (absolute
+    position of q[:, 0]).  Key s attends iff s <= start_pos[b] + t.
+    Returns [B, T, NH * hd] in ``out_dtype`` (default f32).  K6 on CUDA
+    tensors (``K6:f32`` / ``K6:bf16`` for an fp cache), the plain version on
+    CPU ones."""
     _check_prefill(q, k_cache, v_cache, start_pos, k_scale, v_scale)
-    if _kernels.on_cpu("K6", q, k_cache, v_cache, start_pos, k_scale, v_scale):
+    kernel = _kernels.form("K6", k_cache.dtype)
+    scales = () if k_scale is None else (k_scale, v_scale)
+    if _kernels.on_cpu(kernel, q, k_cache, v_cache, start_pos, *scales):
         return flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale,
                                              v_scale, out_dtype)
     out_dtype = out_dtype or torch.float32
@@ -86,30 +118,39 @@ def flash_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
         raise NotImplementedError(f"K6 takes head_dim <= 128, got {hd}")
     qc = q.contiguous()
     kc, vc = k_cache.contiguous(), v_cache.contiguous()
-    ks, vs = k_scale.contiguous(), v_scale.contiguous()
+    ks, vs = (None, None) if k_scale is None else (k_scale.contiguous(), v_scale.contiguous())
     st = start_pos.to(torch.int32).contiguous()
     out = torch.empty((B, T, NH * hd), dtype=out_dtype, device=q.device)
     sqrt_hd = float(torch.tensor(hd, dtype=torch.float32).sqrt())  # jnp.sqrt(f32(hd))
-    _kernels.launch("K6", qc.data_ptr(), _kernels.dtype_code(qc.dtype), kc.data_ptr(),
-                    vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), st.data_ptr(),
-                    out.data_ptr(), _kernels.dtype_code(out_dtype), B, T, NH, KVH, S, hd,
-                    sqrt_hd, _kernels.stream(qc))
+    _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
+                    _kernels.cache_code(kc.dtype), kc.data_ptr(), vc.data_ptr(), _ptr(ks),
+                    _ptr(vs), st.data_ptr(), out.data_ptr(), _kernels.dtype_code(out_dtype), B, T,
+                    NH, KVH, S, hd, sqrt_hd, _kernels.stream(qc))
     return out
 
 
+def _ptr(t):
+    """A tensor's device pointer, or None (NULL) for an absent one."""
+    return None if t is None else t.data_ptr()
+
+
 def _check_scatter(small_k, small_v, slots, ck, cv, small_ks, small_vs, cks, cvs):
+    int8 = check_scales("kv_cache_scatter_slots", ck, small_ks, small_vs, cks, cvs)
     if small_k.dim() != 5 or ck.dim() != 5:
         raise ValueError("want small_k [L, n, KVH, T, hd] and ck [L, B, KVH, S, hd]")
     L, n, KVH, T, hd = small_k.shape
     B, S = ck.shape[1], ck.shape[3]
     if (small_v.shape != small_k.shape or ck.shape != (L, B, KVH, S, hd)
-            or cv.shape != ck.shape or small_ks.shape != (L, n, KVH, T)
-            or small_vs.shape != small_ks.shape or cks.shape != (L, B, KVH, S)
-            or cvs.shape != cks.shape):
+            or cv.shape != ck.shape):
         raise ValueError("kv_cache_scatter_slots: shape mismatch")
-    if any(t.dtype != torch.int8 for t in (small_k, small_v, ck, cv)) or any(
-            t.dtype != torch.float32 for t in (small_ks, small_vs, cks, cvs)):
+    if int8 and (small_ks.shape != (L, n, KVH, T) or small_vs.shape != small_ks.shape
+                 or cks.shape != (L, B, KVH, S) or cvs.shape != cks.shape):
+        raise ValueError("kv_cache_scatter_slots: scale shape mismatch")
+    if int8 and (any(t.dtype != torch.int8 for t in (small_k, small_v, cv)) or any(
+            t.dtype != torch.float32 for t in (small_ks, small_vs, cks, cvs))):
         raise TypeError("kv_cache_scatter_slots takes int8 K/V and float32 scales")
+    if not int8 and cv.dtype != ck.dtype:
+        raise TypeError("kv_cache_scatter_slots: K and V caches of one dtype")
     if T > S:
         raise ValueError(f"block of {T} rows does not fit a cache of {S}")
     idx = [int(s) for s in (slots.tolist() if isinstance(slots, torch.Tensor) else slots)]
@@ -120,43 +161,60 @@ def _check_scatter(small_k, small_v, slots, ck, cv, small_ks, small_vs, cks, cvs
     return idx
 
 
-def kv_cache_scatter_slots_plain(small_k, small_v, slots, ck, cv, small_ks, small_vs,
-                                 cks, cvs):
+def kv_cache_scatter_slots_plain(small_k, small_v, slots, ck, cv, small_ks=None,
+                                 small_vs=None, cks=None, cvs=None):
     """Plain version of K7: one slot at a time, in place."""
     T = small_k.shape[3]
+    pairs = [(ck, small_k), (cv, small_v)]
+    if small_ks is not None:
+        pairs += [(cks, small_ks), (cvs, small_vs)]
     for i, s in enumerate(slots):
-        ck[:, s, :, :T].copy_(small_k[:, i])
-        cv[:, s, :, :T].copy_(small_v[:, i])
-        cks[:, s, :, :T].copy_(small_ks[:, i])
-        cvs[:, s, :, :T].copy_(small_vs[:, i])
-    return ck, cv, cks, cvs
+        for dst, src in pairs:
+            dst[:, s, :, :T].copy_(src[:, i])
+    return tuple(dst for dst, _ in pairs)
 
 
-def kv_cache_scatter_slots(small_k, small_v, slots, ck, cv, small_ks, small_vs, cks, cvs):
-    """Write rows [0, T) of each chosen slot of the INT8 cache IN PLACE:
-    ``ck[:, slots[i], :, :T] = small_k[:, i]`` for K, V and both scale
-    arrays.  small_k [L, n, KVH, T, hd], slots: n host ints (distinct,
-    < B; a tensor is read back to the host for the check, which waits for
-    its stream), ck [L, B, KVH, S, hd], scales [L, ., KVH, .].  Returns the
-    (updated) cache arrays.  K7 on CUDA tensors, the plain version on CPU
-    ones."""
+def _vec16(row_elems: int, *tensors) -> bool:
+    """Rows of ``row_elems`` elements of these tensors copy as 16-byte
+    vectors."""
+    return (row_elems * tensors[0].element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def kv_cache_scatter_slots(small_k, small_v, slots, ck, cv, small_ks=None, small_vs=None,
+                           cks=None, cvs=None):
+    """Write rows [0, T) of each chosen slot of the cache IN PLACE:
+    ``ck[:, slots[i], :, :T] = small_k[:, i]`` for K and V, and for an INT8
+    cache both scale arrays.  small_k [L, n, KVH, T, hd], slots: n host ints
+    (distinct, < B; a tensor is read back to the host for the check, which
+    waits for its stream), ck [L, B, KVH, S, hd] (int8 with scales
+    [L, ., KVH, .], or float32 / bfloat16 without: the block is cast to the
+    cache's dtype, as the JAX fp kernel's input is).  Returns the (updated)
+    cache arrays: (ck, cv, cks, cvs), or (ck, cv) for an fp cache.  K7 on
+    CUDA tensors (``K7:f32`` / ``K7:bf16`` for an fp cache), the plain
+    version on CPU ones."""
     idx = _check_scatter(small_k, small_v, slots, ck, cv, small_ks, small_vs, cks, cvs)
-    arrays = (small_k, small_v, small_ks, small_vs, ck, cv, cks, cvs)
-    if _kernels.on_cpu("K7", *arrays):
+    int8 = ck.dtype == torch.int8
+    if not int8:
+        small_k, small_v = small_k.to(ck.dtype), small_v.to(ck.dtype)
+    scales = (small_ks, small_vs, cks, cvs) if int8 else ()
+    kernel = _kernels.form("K7", ck.dtype)
+    if _kernels.on_cpu(kernel, small_k, small_v, ck, cv, *scales):
         return kv_cache_scatter_slots_plain(small_k, small_v, idx, ck, cv, small_ks,
                                             small_vs, cks, cvs)
-    if not all(t.is_contiguous() for t in (ck, cv, cks, cvs)):
+    if not all(t.is_contiguous() for t in (ck, cv, *scales[2:])):
         raise ValueError("K7 writes the cache in place: it must be contiguous")
     L, n, KVH, T, hd = small_k.shape
     B, S = ck.shape[1], ck.shape[3]
     sk, sv = small_k.contiguous(), small_v.contiguous()
-    sks, svs = small_ks.contiguous(), small_vs.contiguous()
+    sks, svs = (small_ks.contiguous(), small_vs.contiguous()) if int8 else (None, None)
     sl = upload(idx, ck.device, torch.int32)
-    vec = hd % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (sk, sv, ck, cv))
-    _kernels.launch("K7", sk.data_ptr(), sv.data_ptr(), sks.data_ptr(), svs.data_ptr(),
-                    sl.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
-                    cvs.data_ptr(), L, n, KVH, T, hd, B, S, int(vec), _kernels.stream(ck))
-    return ck, cv, cks, cvs
+    vec = _vec16(hd, sk, sv, ck, cv)
+    _kernels.launch(kernel, sk.data_ptr(), sv.data_ptr(), _ptr(sks), _ptr(svs), sl.data_ptr(),
+                    ck.data_ptr(), cv.data_ptr(), _ptr(cks), _ptr(cvs),
+                    _kernels.cache_code(ck.dtype), L, n, KVH, T, hd, B, S, int(vec),
+                    _kernels.stream(ck))
+    return (ck, cv, cks, cvs) if int8 else (ck, cv)
 
 
 def _check_write_chunk(rows_k, rows_v, rows_ks, rows_vs, start, layer, ck, cv, cks, cvs):
@@ -215,7 +273,7 @@ def kv_cache_write_chunk(rows_k, rows_v, rows_ks, rows_vs, start, layer, ck, cv,
     B, KVH, Tc, hd = rows_k.shape
     S = ck.shape[-2]
     rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
-    vec = hd % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (rk, rv, ck, cv))
+    vec = _vec16(hd, rk, rv, ck, cv)
     _kernels.launch("K18", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
                     ck.data_ptr(), cv.data_ptr(), cks.data_ptr(), cvs.data_ptr(), B, KVH, Tc,
                     S, hd, start, layer, int(vec), _kernels.stream(ck))
@@ -225,12 +283,11 @@ def kv_cache_write_chunk(rows_k, rows_v, rows_ks, rows_vs, start, layer, ck, cv,
 # ---------------------------------------------------------------------------
 # Deferred-flush decode attention (K9, K19) and the step's row flush (K10).
 # During a decode step the cache is read-only: each layer attends over its
-# cache rows s < pos[b] plus the step's fresh (already quantized) K/V row as
-# one extra softmax column, and one K10 call writes every layer's fresh row
-# at pos[b] after the layer loop (llama.py:1277-1327).
+# cache rows s < pos[b] plus the step's fresh K/V row (already quantized for
+# an INT8 cache, already cast to the cache's dtype for an fp one) as one
+# extra softmax column, and one K10 call writes every layer's fresh row at
+# pos[b] after the layer loop (llama.py:1277-1327).
 # ---------------------------------------------------------------------------
-
-_FP_CACHE = "{}: fp caches come with the fp-cache slice (ROADMAP queue 1 item 9)"
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -245,31 +302,33 @@ def _scaled_q(q: torch.Tensor) -> torch.Tensor:
     return q.float() / torch.tensor(hd, dtype=torch.float32, device=q.device).sqrt()
 
 
-def _dma_block(S: int, block_s: int | None) -> int:
-    """K9's key block: ``block_s`` (default 128 rows for int8), halved until
-    it divides S (attention.py:372-376)."""
-    ts = min(block_s or 128, S)
+def _dma_block(S: int, block_s: int | None, itemsize: int = 1) -> int:
+    """K9's key block: ``block_s`` (default 128 rows for int8, 64 for f32
+    and bf16), halved until it divides S (attention.py:372-376)."""
+    ts = min(block_s or max(64, 128 // itemsize), S)
     while S % ts:
         ts //= 2
     return ts
 
 
-def check_cache(name, k_cache, v_cache, k_scale, v_scale, pos):
-    """Validate a decode step's INT8 cache [L, B, KVH, S, hd], its f32
-    scales [L, B, KVH, S] and pos [B]; returns the cache's shape."""
-    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
-        raise NotImplementedError(_FP_CACHE.format(name))
-    if k_scale is None or v_scale is None:
-        raise ValueError(f"{name}: INT8 caches need k_scale and v_scale")
+def check_cache(name, k_cache, v_cache, k_scale, v_scale, pos, fp_ok: bool = False):
+    """Validate a decode step's cache [L, B, KVH, S, hd] -- INT8 with f32
+    scales [L, B, KVH, S], or with ``fp_ok`` float32 / bfloat16 without --
+    and pos [B]; returns the cache's shape."""
+    if v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{name}: K and V caches of one dtype")
+    if k_cache.dtype != torch.int8 and not fp_ok:
+        raise NotImplementedError(f"{name} takes INT8 caches only, as in the JAX package")
+    int8 = check_scales(name, k_cache, k_scale, v_scale)
     if k_cache.dim() != 5:
         raise ValueError(f"{name}: want k_cache [L, B, KVH, S, hd]")
     L, B, KVH, S, hd = k_cache.shape
-    if (v_cache.shape != k_cache.shape or k_scale.shape != (L, B, KVH, S)
-            or v_scale.shape != k_scale.shape or pos.shape != (B,)):
+    if v_cache.shape != k_cache.shape or pos.shape != (B,) or (int8 and (
+            k_scale.shape != (L, B, KVH, S) or v_scale.shape != k_scale.shape)):
         raise ValueError(f"{name}: shape mismatch: k {tuple(k_cache.shape)}, v "
-                         f"{tuple(v_cache.shape)}, ks {tuple(k_scale.shape)}, vs "
-                         f"{tuple(v_scale.shape)}, pos {tuple(pos.shape)}")
-    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+                         f"{tuple(v_cache.shape)}, ks {None if k_scale is None else tuple(k_scale.shape)}, "
+                         f"pos {tuple(pos.shape)}")
+    if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise TypeError(f"{name}: K/V scales must be float32")
     return L, B, KVH, S, hd
 
@@ -278,17 +337,20 @@ def _check_decode(name, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale
                   new_vs, layer):
     """Validate a decode-attention call; returns the layer index as a host
     int."""
-    L, B, KVH, S, hd = check_cache(name, k_cache, v_cache, k_scale, v_scale, pos)
-    if new_ks is None or new_vs is None:
+    L, B, KVH, S, hd = check_cache(name, k_cache, v_cache, k_scale, v_scale, pos, fp_ok=True)
+    int8 = k_cache.dtype == torch.int8
+    if int8 and (new_ks is None or new_vs is None):
         raise ValueError(f"{name}: INT8 caches need new_ks and new_vs")
+    if not int8 and (new_ks is not None or new_vs is not None):
+        raise ValueError(f"{name}: the fresh rows of an fp cache have no scales")
     if (q.dim() != 4 or q.shape[:2] != (B, KVH) or q.shape[3] != hd
             or new_k.shape != (B, KVH, hd) or new_v.shape != new_k.shape
-            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape):
+            or (int8 and (new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape))):
         raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
-                         f"new_k {tuple(new_k.shape)}, new_ks {tuple(new_ks.shape)}")
-    if new_k.dtype != torch.int8 or new_v.dtype != torch.int8:
-        raise TypeError(f"{name}: the fresh rows of an INT8 cache must be int8")
-    if new_ks.dtype != torch.float32 or new_vs.dtype != torch.float32:
+                         f"new_k {tuple(new_k.shape)}")
+    if new_k.dtype != k_cache.dtype or new_v.dtype != k_cache.dtype:
+        raise TypeError(f"{name}: the fresh rows must be of the cache's dtype {k_cache.dtype}")
+    if int8 and (new_ks.dtype != torch.float32 or new_vs.dtype != torch.float32):
         raise TypeError(f"{name}: K/V scales must be float32")
     layer = 0 if layer is None else int(layer)
     if not 0 <= layer < L:
@@ -299,97 +361,123 @@ def _check_decode(name, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale
 def _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs):
     """Merge the fresh K/V column into K9's online-softmax state
     (attention.py:307-332): acc [B, KVH, G, hd] unnormalized, m and l
-    [B, KVH, G] the running max and denominator."""
-    s_new = torch.einsum("bhgd,bhd->bhg", qs, new_k.float()) * new_ks[:, :, None]
+    [B, KVH, G] the running max and denominator; new_ks / new_vs None for
+    an fp cache."""
+    s_new = torch.einsum("bhgd,bhd->bhg", qs, new_k.float())
+    nv = new_v.float()
+    if new_ks is not None:
+        s_new = s_new * new_ks[:, :, None]
+        nv = nv * new_vs[..., None]
     m_fin = torch.maximum(m, s_new)
     corr = torch.exp(m - m_fin)
     e_new = torch.exp(s_new - m_fin)
     l_fin = l * corr + e_new
-    nv = new_v.float() * new_vs[..., None]
     return ((acc * corr[..., None] + e_new[..., None] * nv[:, :, None, :])
             / torch.clamp_min(l_fin, 1e-30)[..., None])
 
 
-def flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale,
-                                     new_ks, new_vs, layer=0, block_s=None):
-    """Plain version of K9: the TPU kernel's online softmax
-    over blocks of ``block_s`` rows with the same bf16 roundings (q for the
-    score dot, the unnormalized p * vs for the PV dot), then the fresh-column
-    merge with the unrounded q."""
+def flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale=None,
+                                     v_scale=None, new_ks=None, new_vs=None, layer=0,
+                                     block_s=None):
+    """Plain version of K9: the TPU kernel's online softmax over blocks of
+    ``block_s`` rows with, for an INT8 cache, the same bf16 roundings (q for
+    the score dot, the unnormalized p * vs for the PV dot) -- an fp cache's
+    kernel rounds nothing -- then the fresh-column merge with the unrounded
+    q."""
     qs = _scaled_q(q)
-    acc, m, l = decode_online_softmax(_bf16(qs), k_cache, v_cache, k_scale, v_scale, pos, layer,
-                                      _dma_block(k_cache.shape[3], block_s))
+    int8 = k_cache.dtype == torch.int8
+    ts = _dma_block(k_cache.shape[3], block_s, k_cache.element_size())
+    acc, m, l = decode_online_softmax(_bf16(qs) if int8 else qs, k_cache, v_cache, k_scale,
+                                      v_scale, pos, layer, ts)
     return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
 
 
 def decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: int, ts: int):
     """K9's online softmax over blocks of ``ts`` cache rows of ``layer``,
     rows s < pos[b]: qb [B, KVH, G, hd] the queries as the score dot takes
-    them (bf16 values).  Returns (acc [B, KVH, G, hd] unnormalized, m, l
-    [B, KVH, G]), the state ``_fresh_tail_merge`` finishes.  Every block is
-    visited; one past a slot's pos is fully masked, which leaves the state
-    unchanged exactly as the kernel's skipped block does."""
+    them (bf16 values for an INT8 cache, f32 for an fp one, whose scales are
+    None and whose p is not rounded).  Returns (acc [B, KVH, G, hd]
+    unnormalized, m, l [B, KVH, G]), the state ``_fresh_tail_merge``
+    finishes.  Every block is visited; one past a slot's pos is fully
+    masked, which leaves the state unchanged exactly as the kernel's skipped
+    block does."""
     B, KVH, G, hd = qb.shape
     S = k_cache.shape[3]
-    kc, vc, ks, vs = k_cache[layer], v_cache[layer], k_scale[layer], v_scale[layer]
+    kc, vc = k_cache[layer], v_cache[layer]
+    int8 = k_scale is not None
+    if int8:
+        ks, vs = k_scale[layer], v_scale[layer]
     p = pos.long()[:, None, None, None]
     m = torch.full((B, KVH, G), _NEG_INF, dtype=torch.float32, device=qb.device)
     l = torch.zeros((B, KVH, G), dtype=torch.float32, device=qb.device)
     acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=qb.device)
     for base in range(0, S, ts):
         rows = slice(base, base + ts)
-        s = torch.einsum("bkgd,bksd->bkgs", qb, kc[:, :, rows].float()) * ks[:, :, None, rows]
+        s = torch.einsum("bkgd,bksd->bkgs", qb, kc[:, :, rows].float())
+        if int8:
+            s = s * ks[:, :, None, rows]
         valid = torch.arange(base, base + ts, device=qb.device)[None, None, None, :] < p
         m_new = torch.maximum(m, torch.where(valid, s, _NEG_INF).amax(-1))
         corr = torch.exp(m - m_new)
         pr = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
         l = l * corr + pr.sum(-1)
-        pr = _bf16(pr * vs[:, :, None, rows])
+        if int8:
+            pr = _bf16(pr * vs[:, :, None, rows])
         acc = acc * corr[..., None] + torch.einsum("bkgs,bksd->bkgd", pr, vc[:, :, rows].float())
         m = m_new
     return acc, m, l
 
 
-def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale,
-                                       v_scale, new_ks, new_vs, layer=0):
-    """Plain version of K19: one pass over all S rows masked
-    to s < pos, the softmax normalized before p * vs is rounded to bf16
-    (attention.py:150-185)."""
+def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale=None,
+                                       v_scale=None, new_ks=None, new_vs=None, layer=0):
+    """Plain version of K19: one pass over all S rows masked to s < pos, the
+    softmax normalized before (INT8 cache) p * vs is rounded to bf16
+    (attention.py:150-185); an fp cache's kernel rounds nothing and has no
+    scales."""
     S = k_cache.shape[3]
-    kc, vc, ks, vs = k_cache[layer], v_cache[layer], k_scale[layer], v_scale[layer]
+    kc, vc = k_cache[layer], v_cache[layer]
+    int8 = k_scale is not None
     qs = _scaled_q(q)
-    s = torch.einsum("bkgd,bksd->bkgs", _bf16(qs), kc.float()) * ks[:, :, None, :]
-    s_new = (qs * new_k.float()[:, :, None, :]).sum(-1) * new_ks[:, :, None]
+    s = torch.einsum("bkgd,bksd->bkgs", _bf16(qs) if int8 else qs, kc.float())
+    s_new = (qs * new_k.float()[:, :, None, :]).sum(-1)
+    if int8:
+        s = s * k_scale[layer][:, :, None, :]
+        s_new = s_new * new_ks[:, :, None]
     valid = torch.arange(S, device=q.device)[None, None, None, :] < pos.long()[:, None, None, None]
     s = torch.where(valid, s, _NEG_INF)
     m = torch.maximum(s.amax(-1), s_new)
     e = torch.exp(s - m[..., None])
     e_new = torch.exp(s_new - m)
     l = e.sum(-1) + e_new
-    pr = _bf16((e / l[..., None]) * vs[:, :, None, :])
-    p_new = (e_new / l) * new_vs[:, :, None]
+    pr = e / l[..., None]
+    p_new = e_new / l
+    if int8:
+        pr = _bf16(pr * v_scale[layer][:, :, None, :])
+        p_new = p_new * new_vs[:, :, None]
     return (torch.einsum("bkgs,bksd->bkgd", pr, vc.float())
             + p_new[..., None] * new_v.float()[:, :, None, :])
 
 
 def launch_chunk(kernel, k_cache, v_cache, hd, *scales) -> int:
     """The bytes a decode cell copies per cp.async (common.cuh
-    dec_issue_tile): 16 when head_dim and the cache allow, else 4; raises
-    for a cache the kernels cannot read in place."""
-    if not all(t.is_contiguous() for t in (k_cache, v_cache, *scales)):
+    dec_issue_tile): 16 when a cache row's bytes and the cache allow, else
+    4; raises for a cache the kernels cannot read in place."""
+    if not all(t.is_contiguous() for t in (k_cache, v_cache, *scales) if t is not None):
         raise ValueError(f"{kernel} reads the cache where it lies: it must be contiguous")
+    row = hd * k_cache.element_size()
     ptrs = (k_cache.data_ptr(), v_cache.data_ptr())
-    if hd % 16 == 0 and all(a % 16 == 0 for a in ptrs):
+    if row % 16 == 0 and all(a % 16 == 0 for a in ptrs):
         return 16
-    if hd % 4 == 0 and all(a % 4 == 0 for a in ptrs):
+    if row % 4 == 0 and all(a % 4 == 0 for a in ptrs):
         return 4
-    raise NotImplementedError(f"{kernel} copies cache rows in 4-byte chunks: head_dim "
-                              f"{hd} must be a multiple of 4")
+    raise NotImplementedError(f"{kernel} copies cache rows in 4-byte chunks: a row of "
+                              f"{hd} {k_cache.dtype} must be a multiple of 4 bytes")
 
 
 def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
                    new_vs, layer, *block):
-    """Launch K9 (``block`` = its key block rows) or K19 on CUDA tensors."""
+    """Launch K9 (``block`` = its key block rows) or K19, or an fp form of
+    either, on CUDA tensors."""
     B, KVH, G, hd = q.shape
     S = k_cache.shape[3]
     if G > 8 or hd > 128:
@@ -397,15 +485,21 @@ def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_sc
                                   f"head_dim <= 128, got G={G}, hd={hd}")
     ch = launch_chunk(kernel, k_cache, v_cache, hd, k_scale, v_scale)
     qc = q.contiguous()
-    nk, nv, nks, nvs = (t.contiguous() for t in (new_k, new_v, new_ks, new_vs))
+    nk, nv = new_k.contiguous(), new_v.contiguous()
+    nks, nvs = (None, None) if new_ks is None else (new_ks.contiguous(), new_vs.contiguous())
     p32 = pos.to(torch.int32).contiguous()  # no copy for the model's int32 positions
     out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
     sqrt_hd = float(torch.tensor(hd, dtype=torch.float32).sqrt())  # jnp.sqrt(f32(hd))
-    _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_cache.data_ptr(),
-                    v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), p32.data_ptr(),
-                    nk.data_ptr(), nv.data_ptr(), nks.data_ptr(), nvs.data_ptr(), out.data_ptr(),
-                    layer, B, KVH, G, S, hd, *block, sqrt_hd, ch, _kernels.stream(qc))
+    _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
+                    _kernels.cache_code(k_cache.dtype), k_cache.data_ptr(), v_cache.data_ptr(),
+                    _ptr(k_scale), _ptr(v_scale), p32.data_ptr(), nk.data_ptr(), nv.data_ptr(),
+                    _ptr(nks), _ptr(nvs), out.data_ptr(), layer, B, KVH, G, S, hd, *block,
+                    sqrt_hd, ch, _kernels.stream(qc))
     return out
+
+
+def _decode_tensors(*arrays):
+    return tuple(t for t in arrays if t is not None)
 
 
 def flash_decode_attention_dma(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -413,23 +507,25 @@ def flash_decode_attention_dma(q: torch.Tensor, k_cache: torch.Tensor, v_cache: 
                                k_scale=None, v_scale=None, new_ks=None, new_vs=None, layer=None,
                                block_s: int | None = None) -> torch.Tensor:
     """Deferred-flush decode attention that reads only each slot's rows below
-    pos (K9).  q [B, KVH, G, hd] raw queries (f32 or bf16); INT8 caches
-    [L, B, KVH, S, hd] with f32 scales [L, B, KVH, S];
-    pos [B]; the step's quantized fresh rows new_k/new_v int8 [B, KVH, hd]
-    with scales new_ks/new_vs [B, KVH]; ``layer`` a host int (a tensor is
-    read back to the host).  Cache row s attends iff s < pos[b]; the fresh
-    row is one more column.  ``block_s`` is the online softmax's key block
-    (default 128).  Returns f32 [B, KVH, G, hd].  K9 on CUDA tensors, the
-    plain version on CPU ones."""
+    pos (K9).  q [B, KVH, G, hd] raw queries (f32 or bf16); caches
+    [L, B, KVH, S, hd], INT8 with f32 scales [L, B, KVH, S] or float32 /
+    bfloat16 without; pos [B]; the step's fresh rows new_k/new_v [B, KVH, hd]
+    of the cache's dtype (int8 with scales new_ks/new_vs [B, KVH]);
+    ``layer`` a host int (a tensor is read back to the host).  Cache row s
+    attends iff s < pos[b]; the fresh row is one more column.  ``block_s``
+    is the online softmax's key block (default 128 rows for int8, 64 for
+    fp).  Returns f32 [B, KVH, G, hd].  K9 on CUDA tensors (``K9:f32`` /
+    ``K9:bf16`` for an fp cache), the plain version on CPU ones."""
     layer = _check_decode("flash_decode_attention_dma", q, k_cache, v_cache, pos, new_k, new_v,
                           k_scale, v_scale, new_ks, new_vs, layer)
     args = (q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks, new_vs)
-    if _kernels.on_cpu("K9", *args):
+    kernel = _kernels.form("K9", k_cache.dtype)
+    if _kernels.on_cpu(kernel, *_decode_tensors(*args)):
         return flash_decode_attention_dma_plain(*args, layer=layer, block_s=block_s)
-    ts = _dma_block(k_cache.shape[3], block_s)
+    ts = _dma_block(k_cache.shape[3], block_s, k_cache.element_size())
     if ts > 256:
         raise NotImplementedError(f"K9 takes key blocks of at most 256 rows, got {ts}")
-    return _launch_decode("K9", *args, layer, ts)
+    return _launch_decode(kernel, *args, layer, ts)
 
 
 def flash_decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
@@ -438,37 +534,38 @@ def flash_decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_scale=None, new_ks=None, new_vs=None,
                                  layer=None) -> torch.Tensor:
     """Deferred-flush decode attention, single pass (K19): the contract of
-    :func:`flash_decode_attention_dma` with the softmax normalized before
-    the bf16 rounding of p.  Returns f32 [B, KVH, G, hd].  K19 on CUDA
-    tensors (every score of a slot's head group in shared memory, so G x S
-    is bounded), the plain version on CPU ones."""
+    :func:`flash_decode_attention_dma` with, for an INT8 cache, the softmax
+    normalized before the bf16 rounding of p.  Returns f32 [B, KVH, G, hd].
+    K19 on CUDA tensors (every score of a slot's head group in shared
+    memory, so G x S is bounded; ``K19:f32`` / ``K19:bf16`` for an fp
+    cache), the plain version on CPU ones."""
     layer = _check_decode("flash_decode_attention_fresh", q, k_cache, v_cache, pos, new_k,
                           new_v, k_scale, v_scale, new_ks, new_vs, layer)
     args = (q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks, new_vs)
-    if _kernels.on_cpu("K19", *args):
+    kernel = _kernels.form("K19", k_cache.dtype)
+    if _kernels.on_cpu(kernel, *_decode_tensors(*args)):
         return flash_decode_attention_fresh_plain(*args, layer=layer)
-    return _launch_decode("K19", *args, layer)
+    return _launch_decode(kernel, *args, layer)
 
 
 def _check_flush(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs):
-    if ck.dtype != torch.int8 or cv.dtype != torch.int8:
-        raise NotImplementedError(_FP_CACHE.format("kv_cache_flush_rows"))
-    if any(t is None for t in (rows_ks, rows_vs, cks, cvs)):
-        raise ValueError("kv_cache_flush_rows: INT8 caches need row and cache scales")
+    int8 = check_scales("kv_cache_flush_rows", ck, rows_ks, rows_vs, cks, cvs)
     if rows_k.dim() != 4 or ck.dim() != 5:
         raise ValueError("want rows_k [L, B, KVH, hd] and ck [L, B, KVH, S, hd]")
     L, B, KVH, hd = rows_k.shape
     S = ck.shape[3]
     if (rows_v.shape != rows_k.shape or ck.shape != (L, B, KVH, S, hd) or cv.shape != ck.shape
-            or rows_ks.shape != (L, B, KVH) or rows_vs.shape != rows_ks.shape
-            or cks.shape != (L, B, KVH, S) or cvs.shape != cks.shape or pos.shape != (B,)):
+            or pos.shape != (B,) or (int8 and (
+                rows_ks.shape != (L, B, KVH) or rows_vs.shape != rows_ks.shape
+                or cks.shape != (L, B, KVH, S) or cvs.shape != cks.shape))):
         raise ValueError("kv_cache_flush_rows: shape mismatch")
-    if rows_k.dtype != torch.int8 or rows_v.dtype != torch.int8 or any(
-            t.dtype != torch.float32 for t in (rows_ks, rows_vs, cks, cvs)):
-        raise TypeError("kv_cache_flush_rows takes int8 rows and float32 scales")
+    if any(t.dtype != ck.dtype for t in (rows_k, rows_v, cv)) or (int8 and any(
+            t.dtype != torch.float32 for t in (rows_ks, rows_vs, cks, cvs))):
+        raise TypeError("kv_cache_flush_rows takes rows of the cache's dtype and float32 scales")
 
 
-def kv_cache_flush_rows_plain(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs):
+def kv_cache_flush_rows_plain(rows_k, rows_v, pos, ck, cv, rows_ks=None, rows_vs=None,
+                              cks=None, cvs=None):
     """Plain version of K10: one indexed write per array, in place, of the
     slots whose pos lies in [0, S); the others are skipped."""
     L, B, KVH, _ = rows_k.shape
@@ -477,34 +574,41 @@ def kv_cache_flush_rows_plain(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks
     l_ix = torch.arange(L, device=ck.device)[:, None, None]
     h_ix = torch.arange(KVH, device=ck.device)[None, None, :]
     b_ix, p_ix = ok[None, :, None], p[ok][None, :, None]
-    ck[l_ix, b_ix, h_ix, p_ix] = rows_k[:, ok]
-    cv[l_ix, b_ix, h_ix, p_ix] = rows_v[:, ok]
-    cks[l_ix, b_ix, h_ix, p_ix] = rows_ks[:, ok]
-    cvs[l_ix, b_ix, h_ix, p_ix] = rows_vs[:, ok]
-    return ck, cv, cks, cvs
+    pairs = [(ck, rows_k), (cv, rows_v)]
+    if rows_ks is not None:
+        pairs += [(cks, rows_ks), (cvs, rows_vs)]
+    for dst, src in pairs:
+        dst[l_ix, b_ix, h_ix, p_ix] = src[:, ok]
+    return tuple(dst for dst, _ in pairs)
 
 
 def kv_cache_flush_rows(rows_k, rows_v, pos, ck, cv, rows_ks=None, rows_vs=None, cks=None,
                         cvs=None):
     """Write every layer's fresh row IN PLACE at its slot's position:
-    ``ck[l, b, :, pos[b]] = rows_k[l, b]`` for K, V and both scale arrays.
-    rows_k/rows_v int8 [L, B, KVH, hd], rows_ks/rows_vs f32 [L, B, KVH],
-    pos [B] (read on the device), ck/cv int8 [L, B, KVH, S, hd], cks/cvs
-    f32 [L, B, KVH, S].  A slot whose pos lies outside [0, S) is skipped.
-    Returns the (updated) cache arrays.  K10 on CUDA tensors, the plain
-    version on CPU ones."""
+    ``ck[l, b, :, pos[b]] = rows_k[l, b]`` for K and V, and for an INT8
+    cache both scale arrays.  rows_k/rows_v [L, B, KVH, hd] of the cache's
+    dtype, pos [B] (read on the device), ck/cv [L, B, KVH, S, hd]; for an
+    INT8 cache rows_ks/rows_vs f32 [L, B, KVH] and cks/cvs f32
+    [L, B, KVH, S].  A slot whose pos lies outside [0, S) is skipped.
+    Returns the (updated) cache arrays: (ck, cv, cks, cvs), or (ck, cv) for
+    an fp cache.  K10 on CUDA tensors (``K10:f32`` / ``K10:bf16`` for an fp
+    cache), the plain version on CPU ones."""
     _check_flush(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs)
+    int8 = ck.dtype == torch.int8
     arrays = (rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs)
-    if _kernels.on_cpu("K10", *arrays):
+    kernel = _kernels.form("K10", ck.dtype)
+    if _kernels.on_cpu(kernel, *_decode_tensors(*arrays)):
         return kv_cache_flush_rows_plain(*arrays)
-    if not all(t.is_contiguous() for t in (ck, cv, cks, cvs)):
+    if not all(t.is_contiguous() for t in _decode_tensors(ck, cv, cks, cvs)):
         raise ValueError("K10 writes the cache in place: it must be contiguous")
     L, B, KVH, hd = rows_k.shape
     S = ck.shape[3]
-    rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
+    rk, rv = rows_k.contiguous(), rows_v.contiguous()
+    rks, rvs = (rows_ks.contiguous(), rows_vs.contiguous()) if int8 else (None, None)
     p32 = pos.to(torch.int32).contiguous()
-    vec = hd % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (rk, rv, ck, cv))
-    _kernels.launch("K10", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
-                    p32.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
-                    cvs.data_ptr(), L, B, KVH, S, hd, int(vec), _kernels.stream(ck))
-    return ck, cv, cks, cvs
+    vec = _vec16(hd, rk, rv, ck, cv)
+    _kernels.launch(kernel, rk.data_ptr(), rv.data_ptr(), _ptr(rks), _ptr(rvs), p32.data_ptr(),
+                    ck.data_ptr(), cv.data_ptr(), _ptr(cks), _ptr(cvs),
+                    _kernels.cache_code(ck.dtype), L, B, KVH, S, hd, int(vec),
+                    _kernels.stream(ck))
+    return (ck, cv, cks, cvs) if int8 else (ck, cv)

@@ -1,9 +1,12 @@
-"""W8A8 matrix products: per-row INT8 activations x per-channel INT8 weights.
+"""Quantized matrix products: W8A8 (per-row INT8 activations x
+per-channel INT8 weights, K1) and Q8_0 (fp activations x group-wise INT8
+weights dequantized in the kernel, K25).
 
 Port of tpu_llama/ops/matmul.py:437-610 (``w8a8_matmul`` and
 ``w8a8_matmul_prequant``, with the residual epilogue of
-``_w8a8_res_kernel``, :388).  No 32-row padding and no tile picking: the
-kernel masks its own ragged edges, and results exist only for real rows.
+``_w8a8_res_kernel``, :388) and :142 (``q8_matmul``).  No row padding and
+no tile picking: the kernels mask their own ragged edges, and results
+exist only for real rows.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from tpu_llama_torch.ops import _kernels
-from tpu_llama_torch.ops.quant import ChannelQuantTensor, quantize_activations
+from tpu_llama_torch.ops.quant import ChannelQuantTensor, QuantTensor, quantize_activations
 
 
 def _check(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor) -> None:
@@ -85,3 +88,73 @@ def w8a8_matmul(x: torch.Tensor, w: ChannelQuantTensor, out_dtype=torch.float32,
     res = None if residual is None else residual.reshape(-1, w.out_features)
     out = w8a8_matmul_prequant(xq, sx, w, out_dtype=out_dtype, residual=res)
     return out.reshape(*lead, w.out_features)
+
+
+# ---------------------------------------------------------------------------
+# Q8_0: x @ W with W group-wise INT8, dequantized with the TPU kernel's bf16
+# rounding points (K25).
+# ---------------------------------------------------------------------------
+
+
+def _check_q8(x: torch.Tensor, w: QuantTensor) -> None:
+    if w.q.dim() != 2:
+        raise ValueError(f"want one [out_p, in_p] matrix (a layer view of stacked weights), "
+                         f"got q {tuple(w.q.shape)}")
+    if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
+        raise TypeError("Q8_0 weights are int8 values and float32 scales")
+    _kernels.dtype_code(x.dtype)  # float32 or bfloat16, else TypeError
+    pout, pin = w.q.shape
+    if w.s.shape != (pout, pin // w.group_size) or pin % w.group_size:
+        raise ValueError(f"scales {tuple(w.s.shape)} do not group q {tuple(w.q.shape)}")
+    if x.shape[-1] not in (w.logical_in, pin):
+        raise ValueError(f"x has {x.shape[-1]} inputs, the weights {w.logical_in}")
+
+
+def _pad_in(x2: torch.Tensor, pin: int) -> torch.Tensor:
+    """x rows zero-padded to the weights' padded in-dim (matmul.py:159-160)."""
+    return x2 if x2.shape[-1] == pin else torch.nn.functional.pad(x2, (0, pin - x2.shape[-1]))
+
+
+def q8_weight_bf16(w: QuantTensor) -> torch.Tensor:
+    """The weights as K25 multiplies them: bf16(bf16(q) * bf16(s)), K-major
+    [out_p, in_p] bf16 (matmul.py:130-131)."""
+    g = w.group_size
+    pout, pin = w.q.shape
+    qb = w.q.to(torch.bfloat16).reshape(pout, pin // g, g)
+    return (qb * w.s.to(torch.bfloat16)[..., None]).reshape(pout, pin)
+
+
+def q8_matmul_plain(x: torch.Tensor, w: QuantTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K25: bf16(x) times the bf16 weights of
+    ``q8_weight_bf16``, each product exact in f32 and summed in f32 (a
+    float32 matmul of bf16 values, exact products in TF32 too), then one
+    cast to ``out_dtype``."""
+    lead = x.shape[:-1]
+    xb = _pad_in(x.reshape(-1, x.shape[-1]), w.padded_in).to(torch.bfloat16).float()
+    out = xb @ q8_weight_bf16(w).float().t()
+    return out[:, :w.logical_out].to(out_dtype).reshape(*lead, w.logical_out)
+
+
+def q8_matmul(x: torch.Tensor, w: QuantTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """``x @ dequantize(w)`` with the dequant inside the kernel
+    (matmul.py:142): x [..., in] (f32 or bf16; in logical or padded) and one
+    Q8_0 matrix (``w.layer(i)`` of stacked weights) -> [..., out] in
+    ``out_dtype``.  The weights are dequantized as bf16(bf16(q) *
+    bf16(s)), x is rounded to bf16, products are summed in f32.  K25 on
+    CUDA tensors, the plain version on CPU ones."""
+    _check_q8(x, w)
+    if _kernels.on_cpu("K25", x, w.q, w.s):
+        return q8_matmul_plain(x, w, out_dtype)
+    lead = x.shape[:-1]
+    pout, pin = w.q.shape
+    x2 = _pad_in(x.reshape(-1, x.shape[-1]), pin).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    q, sc = w.q.contiguous(), w.s.contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, w.logical_out), dtype=out_dtype, device=x.device)
+    if m:
+        _kernels.launch("K25", x2.data_ptr(), _kernels.dtype_code(x2.dtype), q.data_ptr(),
+                        sc.data_ptr(), out.data_ptr(), _kernels.dtype_code(out_dtype), m,
+                        w.logical_out, pout, pin, w.group_size, _kernels.stream(x2))
+    return out.reshape(*lead, w.logical_out)

@@ -1,11 +1,12 @@
-"""Per-channel INT8 weights and per-row INT8 activations (W8A8), and the
-fused prefill passes that end in a row quant (K3-K5).
+"""Per-channel INT8 weights and per-row INT8 activations (W8A8), the
+group-wise INT8 weight format Q8_0, and the fused prefill passes that end
+in a row quant (K3-K5).
 
-Port of tpu_llama/ops/quant.py:137-541.  Every quantizer here uses the
-formula of the JAX package (quant.py:255-263): ``s = absmax / 127``, then
-``inv = 1 / s`` (0 where s == 0), then ``q = clip(round(x * inv), -127,
-127)`` -- a multiply by the reciprocal, not a division -- with round half
-to even (``torch.round``).
+Port of tpu_llama/ops/quant.py:30-541.  Every quantizer here uses the
+formula of the JAX package (quant.py:115-118, :255-263): ``s = absmax /
+127``, then ``inv = 1 / s`` (0 where s == 0), then ``q = clip(round(x *
+inv), -127, 127)`` -- a multiply by the reciprocal, not a division -- with
+round half to even (``torch.round``).
 
 One detail decides the bytes: the JAX package quantizes activations and KV
 rows inside ``jit`` (and in its Pallas kernel), where XLA's algebraic
@@ -14,7 +15,9 @@ differ in the last bit; it quantizes weights eagerly, as a true division.
 The port does the same in each place, so its int8 bytes and f32 scales
 equal the JAX package's as it runs.
 
-No TPU padding: tensors keep their logical shapes.
+W8A8 tensors keep their logical shapes (no TPU padding).  Q8_0 tensors keep
+the JAX package's padding (in-dim to ``kernel_alignment(g)``, out-dim to
+128), which K25 relies on too.
 """
 
 from __future__ import annotations
@@ -50,6 +53,122 @@ class ChannelQuantTensor:
     def layer(self, i: int) -> "ChannelQuantTensor":
         """Layer ``i`` of a stacked tensor, as views (no copy)."""
         return ChannelQuantTensor(q=self.q[i], s=self.s[i])
+
+
+@dataclasses.dataclass
+class QuantTensor:
+    """Group-wise symmetric INT8 weights, Q8_0 (quant.py:30): one f32 scale
+    per group of ``g`` consecutive weights along the contraction (in) axis.
+
+    ``q``: int8 [..., out_p, in_p] and ``s``: f32 [..., out_p, in_p / g] --
+    both stored K-major, the transposes of the JAX package's [..., in_p,
+    out_p] and [..., in_p / g, out_p]: K25 reads a weight column's bytes and
+    its scales contiguous along the contraction (16-byte copies of one
+    column's k-run, and mma's column-major B fragments without a
+    transpose), as K1 reads ``ChannelQuantTensor``.  in_p and out_p carry
+    the JAX package's zero padding (in to ``kernel_alignment(g)``, out to
+    128); padding groups have scale 0.  ``logical_in`` / ``logical_out``
+    are the unpadded sizes.  Leading dims (layers) stack.
+    """
+
+    q: torch.Tensor
+    s: torch.Tensor
+    logical_in: int
+    logical_out: int
+
+    @property
+    def group_size(self) -> int:
+        return self.q.shape[-1] // self.s.shape[-1]
+
+    @property
+    def in_features(self) -> int:
+        return self.logical_in
+
+    @property
+    def out_features(self) -> int:
+        return self.logical_out
+
+    @property
+    def padded_in(self) -> int:
+        return self.q.shape[-1]
+
+    @property
+    def padded_out(self) -> int:
+        return self.q.shape[-2]
+
+    def layer(self, i: int) -> "QuantTensor":
+        """Layer ``i`` of a stacked tensor, as views (no copy)."""
+        return QuantTensor(q=self.q[i], s=self.s[i], logical_in=self.logical_in,
+                           logical_out=self.logical_out)
+
+
+def kernel_alignment(g: int) -> int:
+    """The in-dim of a Q8_0 tensor pads to a multiple of max(8 g, 128)
+    (quant.py:74: the TPU kernel's tiling; K25 takes any multiple of 128)."""
+    return max(8 * g, 128)
+
+
+def pick_group_size(in_features: int, preferred: int = 64) -> int:
+    """Largest group <= preferred whose kernel alignment divides in_features
+    (no padding); otherwise the group minimizing padding (ties -> larger g)
+    (quant.py:80)."""
+    candidates = [g for g in (64, 32, 16) if g <= max(preferred, 16)]
+    for g in candidates:
+        if in_features % kernel_alignment(g) == 0:
+            return g
+
+    def padding(g):
+        a = kernel_alignment(g)
+        return -(-in_features // a) * a - in_features
+
+    return min(candidates, key=padding)
+
+
+def _quantize_q8_2d(w: torch.Tensor, g: int, pin: int, pout: int):
+    """One [in, out] matrix -> K-major (q [pout, pin], s [pout, pin / g])."""
+    n_in, n_out = w.shape
+    wp = torch.zeros((pin, pout), dtype=torch.float32, device=w.device)
+    wp[:n_in, :n_out] = w
+    wg = wp.reshape(pin // g, g, pout)
+    absmax = wg.abs().amax(dim=1)  # [pin / g, pout]
+    s = absmax / 127.0
+    pos = s > 0
+    inv = torch.where(pos, torch.ones_like(s) / torch.where(pos, s, torch.ones_like(s)),
+                      torch.zeros_like(s))
+    q = torch.round(wg * inv[:, None, :]).clamp_(-127, 127).to(torch.int8)
+    return q.reshape(pin, pout).t().contiguous(), s.t().contiguous()
+
+
+def quantize_q8(w: torch.Tensor, group_size: int | None = None) -> QuantTensor:
+    """[..., in, out] fp weights (the JAX layout) -> Q8_0 (quant.py:95):
+    scale = absmax / 127 per group of g along in, q = round(w * (1 / s))
+    clipped to +-127 (the JAX function's reciprocal multiply, round half to
+    even), zero-scale groups q = 0, s = 0; in zero-padded to
+    ``kernel_alignment(g)`` and out to 128.  The bytes equal the JAX
+    package's.  Stacked leading dims are quantized one matrix at a time, so
+    the f32 temporaries are one layer's, not the stack's."""
+    n_in, n_out = w.shape[-2:]
+    g = group_size or pick_group_size(n_in)
+    align = kernel_alignment(g)
+    pin = -(-n_in // align) * align
+    pout = -(-n_out // 128) * 128
+    lead = w.shape[:-2]
+    flat = w.reshape(-1, n_in, n_out)
+    q = torch.empty((flat.shape[0], pout, pin), dtype=torch.int8, device=w.device)
+    s = torch.empty((flat.shape[0], pout, pin // g), dtype=torch.float32, device=w.device)
+    for i in range(flat.shape[0]):
+        q[i], s[i] = _quantize_q8_2d(flat[i].float(), g, pin, pout)
+    return QuantTensor(q=q.reshape(*lead, pout, pin), s=s.reshape(*lead, pout, pin // g),
+                       logical_in=n_in, logical_out=n_out)
+
+
+def dequantize(t: QuantTensor, dtype=torch.float32) -> torch.Tensor:
+    """-> [..., in, out], the JAX layout without padding (quant.py:125):
+    q * s in f32, then one cast."""
+    g = t.group_size
+    lead, (pout, pin) = t.q.shape[:-2], t.q.shape[-2:]
+    w = (t.q.float().reshape(*lead, pout, pin // g, g) * t.s[..., None]).reshape(*lead, pout, pin)
+    return w.transpose(-1, -2)[..., :t.logical_in, :t.logical_out].to(dtype)
 
 
 def _recip_f32(n: float) -> float:

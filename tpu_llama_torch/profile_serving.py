@@ -29,7 +29,15 @@ together, as "K1+K8".  Then (c) the long-prompt path: one admission of 8
 prompts of 2048 tokens (16 384 rows: the chunked prefill, 8 chunks of 256,
 K18 landing each chunk) and one device-sampled decode chunk of 16 steps of
 all 8 slots at position 1024 (``decode_sample_chunk``: mega2 decode plus
-the threefry sampler, the scheduler's ``max_chunk=16`` path).
+the threefry sampler, the scheduler's ``max_chunk=16`` path).  (d) the JAX
+server's default model path: random dense f32 weights in the fused layouts
+(``random_params`` + ``fuse_projections``) with the default float32 cache,
+then the same weights in Q8_0 (``quantize_params``, K25) with a bfloat16
+cache, ``Engine(max_batch=8, seq_len=2048)`` at its default precision: one
+admission of 8 prompts of 512 tokens and one decode step of all 8 slots at
+position 512 on each, traced as above.  The fp forms of K6, K7, K9 and K10
+report under their kernels' ids (their CUDA kernels are the INT8 forms'
+templates).
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ PORT_KERNELS = {"w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "kv_scatter_kernel": "K7", "kv_write_chunk_kernel": "K18",
                 "flash_decode_dma_kernel": "K9",
                 "kv_flush_rows_kernel": "K10", "fused_layer_kernel": "K11",
-                "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19"}
+                "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19",
+                "q8_matmul_kernel": "K25", "q8_matmul_tc_kernel": "K25"}
 
 
 def _kernel_events(prof):
@@ -97,7 +106,12 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_llama_torch.config import LLAMA2_7B
-    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.models.llama import (
+        fuse_projections,
+        quantize_params,
+        random_params,
+        random_quant_params,
+    )
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
@@ -108,7 +122,7 @@ def main() -> None:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = LLAMA2_7B
     params = random_quant_params(cfg, seed=0, fuse=True)
-    engine = Engine(params, cfg, max_batch=8, seq_len=2048)
+    engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
     rng = np.random.default_rng(0)
     prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
                for _ in range(8)]
@@ -151,11 +165,12 @@ def main() -> None:
                               launches=launches)), flush=True)
 
     run("prefill_8x512", prefiller(engine), layouts="fused")
-    unfused = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, seq_len=2048)
+    unfused = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, kv_dtype="int8",
+                     seq_len=2048)
     run("prefill_8x512_unfused", prefiller(unfused), layouts="unfused")
     del unfused
     torch.cuda.empty_cache()
-    one = Engine(params, cfg, max_batch=1, seq_len=2048)
+    one = Engine(params, cfg, max_batch=1, kv_dtype="int8", seq_len=2048)
     one.prefill([prompts[0]], [0])
     for eng in (engine, one):
         auto = eng.decode_fused  # the engines were built with fused="auto"
@@ -184,7 +199,7 @@ def main() -> None:
                 port_launches_per_step={k: n / DECODE_STEPS for k, n in launches.items()})
             print(json.dumps(line), flush=True)
         eng.decode_fused = auto
-    del one
+    del one, eng, fn  # eng and fn hold the last engine of the loop
     torch.cuda.empty_cache()
 
     # (c) the long-prompt path: chunked admission and a sampled decode chunk
@@ -214,6 +229,27 @@ def main() -> None:
                 launches_per_step=line["n_kernels"] / CHUNK_STEPS,
                 port_launches_per_step={k: n / CHUNK_STEPS for k, n in launches.items()})
     print(json.dumps(line), flush=True)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # (d) the server's default model: dense f32 weights, f32 cache; Q8_0, bf16 cache
+    dense = fuse_projections(random_params(cfg, dtype=torch.float32, seed=0))
+    for weights, kv in (("dense_f32", "float32"), ("q8_0", "bfloat16")):
+        if weights == "q8_0":
+            dense = quantize_params(dense)  # the f32 weights are freed here
+            torch.cuda.empty_cache()
+        engine = Engine(dense, cfg, max_batch=8, kv_dtype=kv, seq_len=2048)
+        extra = dict(weights=weights, kv_dtype=kv, precision=engine.precision)
+        run(f"prefill_8x512_{weights}", prefiller(engine), **extra)
+        engine.prefill(prompts, list(range(8)))
+
+        def step(eng=engine):
+            eng.decode(toks, np.full(8, 512))
+
+        run(f"decode_b8_{weights}", step, attn=engine.decode_attn,
+            fused=engine.decode_fused, **extra)
+        del engine
+        torch.cuda.empty_cache()
     print(json.dumps(dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           layers=cfg.n_layers, card=smi)))
 

@@ -1,17 +1,21 @@
-"""Inference engine over a slot-based dense INT8 KV cache.
+"""Inference engine over a slot-based dense KV cache.
 
-Port of tpu_llama/runtime/engine.py for the dense INT8 path:
+Port of tpu_llama/runtime/engine.py for the dense layouts: a float32 cache
+(the default, as in JAX), a bfloat16 one or an INT8 one (``kv_dtype``),
+over dense, Q8_0 or W8A8 weights:
 
 * the cache has ``max_batch`` slots; requests hold slots independently, each
   at its own position;
 * admission runs a compact batched prefill of the new prompts only (prompt
   length bucketed to a power of two) into a T-row block, then the K7 slot
-  scatter writes that block into the chosen slots in place; above 8192
-  prompt rows the block is prefilled in chunks of 256 positions
-  (``forward_prefill_chunked``, K18 landing each fused chunk);
+  scatter writes that block into the chosen slots in place, on every cache
+  and at every bucket; above 8192 prompt rows the block is prefilled in chunks of 256 positions
+  (``forward_prefill_chunked``, K18 landing each fused chunk of an INT8
+  cache);
 * prefix reuse: ``snapshot_slot`` / ``restore_slot`` copy a slot's prefix
-  rows to the host and back, and ``prefill_continue`` prefills a suffix at
-  start_pos > 0 against the restored rows;
+  rows (and an INT8 cache's scales) to the host and back, and
+  ``prefill_continue`` prefills a suffix at start_pos > 0 against the
+  restored rows;
 * decode runs the full slot batch in one step -- inactive slots compute
   values nobody reads (they decode at position 0; their row lands there and
   the next admission's K7 scatter overwrites it).  With the deferred-flush
@@ -23,6 +27,8 @@ Port of tpu_llama/runtime/engine.py for the dense INT8 path:
   decode (``fused="auto"``: mega2, one K12 launch per layer; ``True`` the
   two-launch K11 path; ``False`` the unfused one), ``Engine.decode_fused``
   shows the resolved mode;
+* ``precision`` (JAX's default "default") reaches dense float32 products:
+  TF32 on the card for "default" and "high", full f32 for "highest";
 * device sampling: ``decode_sample``, ``sample_logits`` and the multi-step
   ``decode_sample_chunk[_async]`` sample on the logits' device with JAX's
   threefry keys (``ops/sampling.py``), so only token ids leave the card.
@@ -47,11 +53,11 @@ from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device, upload
 from tpu_llama_torch.models.llama import (
     LlamaParams,
-    QuantKVCache,
     _resolve_decode_attn,
     _resolve_fused,
     forward_decode,
     forward_prefill,
+    PRECISIONS,
     forward_prefill_chunked,
     make_kv_cache,
 )
@@ -62,27 +68,28 @@ from tpu_llama_torch.ops.sampling import fold_in, sample_nosort
 # block is prefilled in chunks (engine.py:132-138).
 _CHUNKED_ROWS = 8192
 _CHUNK = 256
-_CACHE_ARRAYS = ("k", "v", "ks", "vs")
 
 
-def _prefill_into_slots(params: LlamaParams, cache: QuantKVCache, tokens: torch.Tensor,
-                        lengths: torch.Tensor, slots: Sequence[int], config: ModelConfig):
+def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, lengths: torch.Tensor,
+                        slots: Sequence[int], config: ModelConfig, precision: str = "default"):
     """Compact prefill + scatter into the slot cache (engine.py:96).  Returns
     (next-token logits [Bp, V], cache) with the cache updated in place.  The
-    scatter is K7 for every bucket: the TPU's ``T % 128`` gate was a Mosaic
-    alignment rule that the CUDA kernel does not have.  ``slots`` stays on
-    the host: K7's wrapper checks it there and uploads it."""
+    scatter is K7 (its fp form on an fp cache) for every bucket: the TPU's
+    ``T % 128`` gate and the indexed copy JAX's engine takes below it
+    (engine.py:204-214) were a Mosaic alignment rule that the CUDA kernel
+    does not have.  ``slots`` stays on the host: K7's wrapper checks it
+    there and uploads it."""
     Bp, T = tokens.shape
-    small = make_kv_cache(config, Bp, seq_len=T, device=tokens.device)
+    small = make_kv_cache(config, Bp, kv_dtype=cache.k.dtype, seq_len=T, device=tokens.device)
     if T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
         last, small = forward_prefill_chunked(params, small, tokens, lengths, config,
-                                              chunk=_CHUNK)
+                                              chunk=_CHUNK, precision=precision)
     else:
         last, small = forward_prefill(
             params, small, tokens, start_pos=torch.zeros_like(lengths), lengths=lengths,
-            config=config, logits_mode="last", assume_fresh=True)
-    kv_cache_scatter_slots(small.k, small.v, slots, cache.k, cache.v, small.ks,
-                           small.vs, cache.ks, cache.vs)
+            config=config, logits_mode="last", assume_fresh=True, precision=precision)
+    kv_cache_scatter_slots(small.k, small.v, slots, cache.k, cache.v, small.ks, small.vs,
+                           cache.ks, cache.vs)
     return last, cache
 
 
@@ -98,16 +105,19 @@ class Engine:
     out at the host boundary."""
 
     def __init__(self, params: LlamaParams, config: ModelConfig, max_batch: int = 8,
-                 kv_dtype="int8", seq_len: int | None = None, kv_layout: str = "dense",
-                 attn: str = "auto", fused="auto", device=None):
+                 kv_dtype=torch.float32, precision: str = "default", seq_len: int | None = None,
+                 kv_layout: str = "dense", attn: str = "auto", fused="auto", device=None):
         if kv_layout != "dense":
             raise NotImplementedError("paged KV layout: ROADMAP queue 1 item 8")
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision {precision!r}: want one of {PRECISIONS}")
         self.device = resolve_device(device)
         if params.tok_emb.device.type != self.device.type:
             raise ValueError(f"params live on {params.tok_emb.device}, the engine on "
                              f"{self.device}")
         self.params = params
         self.config = config
+        self.precision = precision
         self.max_batch = max_batch
         self.seq_len = seq_len or config.seq_len
         self.cache = make_kv_cache(config, max_batch, kv_dtype=kv_dtype,
@@ -164,7 +174,7 @@ class Engine:
             last, self.cache = _prefill_into_slots(
                 self.params, self.cache, self._ints(toks),
                 self._ints(lengths[start:start + g]),
-                [int(s) for s in slots[start:start + g]], self.config)
+                [int(s) for s in slots[start:start + g]], self.config, self.precision)
             outs.append(last)
             start += g
         last = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
@@ -192,11 +202,13 @@ class Engine:
         for i, s in enumerate(suffixes):
             toks[i, :len(s)] = s
         idx = self._ints(slots)
-        sub = QuantKVCache(**{n: getattr(self.cache, n).index_select(1, idx)
-                              for n in _CACHE_ARRAYS})
-        logits, sub = forward_prefill(self.params, sub, self._ints(toks), self._ints(starts),
-                                      self._ints(lengths), self.config, logits_mode="last")
-        for n in _CACHE_ARRAYS:
+        sub = type(self.cache)(**{n: getattr(self.cache, n).index_select(1, idx)
+                                  for n in self.cache.arrays})
+        logits, sub = forward_prefill(self.params, sub, self._ints(toks),
+                                      torch.as_tensor(np.asarray(starts, np.int64)),
+                                      self._ints(lengths), self.config, logits_mode="last",
+                                      precision=self.precision)
+        for n in self.cache.arrays:
             getattr(self.cache, n).index_copy_(1, idx, getattr(sub, n))
         return logits if return_device else logits.cpu().numpy()
 
@@ -213,7 +225,7 @@ class Engine:
         the cache; here the step calls ``forward_decode`` directly.)"""
         logits, self.cache = forward_decode(self.params, self.cache, tokens, pos,
                                             self.config, attn=self.decode_attn,
-                                            fused=self.decode_fused)
+                                            fused=self.decode_fused, precision=self.precision)
         return logits
 
     def decode_sample(self, tokens, pos, temps, topps, keys, topks=None) -> np.ndarray:
@@ -281,12 +293,13 @@ class Engine:
 
     # ---- KV snapshot / prefix reuse (engine.py:776-853, dense branch) ----
     def snapshot_slot(self, slot: int, length: int) -> dict:
-        """Copy rows [0, length) of one slot's K, V and scales to the host.
+        """Copy rows [0, length) of one slot's K, V (and an INT8 cache's
+        scales) to the host.
         On the card the copies go into pinned memory without waiting; they
         are complete once the stream has passed them, which ``restore_slot``
         (queued on the same stream) needs no more than."""
         snap = {"length": int(length)}
-        for n in _CACHE_ARRAYS:
+        for n in self.cache.arrays:
             src = getattr(self.cache, n)[:, slot, :, :length]
             if src.is_cuda:
                 snap[n] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
@@ -303,5 +316,5 @@ class Engine:
         stream; the caller then continues from pos == snap["length"].
         ``reserve_tokens`` is for paged caches and is ignored here."""
         length = snap["length"]
-        for n in _CACHE_ARRAYS:
+        for n in self.cache.arrays:
             getattr(self.cache, n)[:, slot, :, :length].copy_(snap[n], non_blocking=True)
