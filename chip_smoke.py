@@ -13,16 +13,22 @@ Phases (any failure exits non-zero and prints no result line):
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
    attention, K10 row flush, K18 chunk write; K8 stacked-weight product,
    K11 fused decode layer, K12 mega2 layer with the next layer's attention;
-   K25 Q8_0 product; the f32 and bf16 forms of K6, K7, K9, K19 and K10)
+   K25 Q8_0 product; the f32 and bf16 forms of K6, K7, K9, K19 and K10;
+   the paged kernels K15 page scatter, K14 row flush, K13 and K20 decode
+   attention, on a 33-page pool whose pages a ``PagePool`` handed out of
+   order)
    at the Llama-2 7B shapes of the serving paths, against its plain PyTorch
-   version on the same inputs: K1, K2, K7, K8, K10, K11 and K18 exact, K3, K4 and K5 within
+   version on the same inputs: K1, K2, K7, K8, K10, K11, K18, and K14 and
+   K15 outside the trash page 0, exact; K3, K4 and K5 within
    QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and K19 within K6_TOL, K12's
    residual exact and its int8 outputs, scales and attention output within
-   those limits, K25 within K25_TOL, the fp forms of K6, K9 and K19 within
-   FP_TOL with f32 queries (K6_TOL for K6's bf16 outputs beside them),
-   K7's and K10's exact; the decode attention
-   kernels (K9, K19, K12, INT8 and fp) on caches whose rows at and past each
-   slot's pos are poisoned; kernel, plain-version and PyTorch-library times
+   those limits, K13 and K20 within K6_TOL (K13 also bit-equal to K9 at
+   block_s 256 on a paged copy of its cache), K25 within K25_TOL, the fp
+   forms of K6, K9 and K19 within FP_TOL with f32 queries (K6_TOL for K6's
+   bf16 outputs beside them), K7's and K10's exact; the decode attention
+   kernels (K9, K19, K12, K13, K20, INT8 and fp) on caches whose rows at and
+   past each slot's pos (for a pool, every row no slot attends) are
+   poisoned; kernel, plain-version and PyTorch-library times
    (CUDA events) beside the bound (the larger of bytes / 3.35 TB/s and
    operations / the card's peak for their type);
 4. the serving path at full 7B width and depth with random W8A8 weights in
@@ -54,6 +60,14 @@ Phases (any failure exits non-zero and prints no result line):
    cache.  Every request must finish with in-vocab tokens, every kernel
    must launch exactly as the path requires (``serve_7b_fp`` writes the
    formula), no plain version may run;
+4e. ``serve_7b_paged`` (run after 4b, on phase 4's weights), the paged
+   INT8 path: ``Engine(max_batch=8, kv_layout="paged",
+   page_size=512)`` (K13 and the two-launch K11 decode): phase 4's 10
+   requests, whose streams must equal a dense-INT8 engine's with K9 at K13's
+   block; 6 prefix hits on shared pages (boundary-page copies and a
+   page-aligned prefix) with device sampling; a 7-page pool serving 8
+   requests under backpressure; exact launch counts, no plain version, the
+   pools back to every page free;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
    decode attention and fused decode, on unfused weights once each "xla"
@@ -64,14 +78,18 @@ Phases (any failure exits non-zero and prints no result line):
    LOGITS_TOL) and bf16 activations (prefill logits within LOGITS_TOL);
    then, f32 and fused layouts, the long-prompt paths (``parity_long_paths``):
    the chunked prefill against the one-shot one, prefix reuse against a
-   cold prefill, and the device sampler; then the same shape written as a
-   llama2.c checkpoint and read back (``parity_checkpoint``): dense f32
+   cold prefill, and the device sampler; the paged path (``parity_paged``:
+   K13 and K20, unfused and two-launch decodes, pages of 16 rows, and a
+   paged prefix continuation against a cold paged prefill); then the same
+   shape written as a llama2.c checkpoint and read back
+   (``parity_checkpoint``): dense f32
    weights over f32 and bf16 caches and Q8_0 weights over a bf16 cache,
    card against CPU at ``precision="highest"``;
 6. a JSON line of the kernels (launches counted on the path that runs
-   each: phase 4, phase 4b for K18, phases 4c and 4d for K25 and the fp
-   forms, and phase 5 for a kernel that those do not run: K19, K11, the fp
-   forms of K19), then the result line.  Each phase prints its seconds.
+   each: phase 4, phase 4b for K18, phase 4e for K13, K14 and K15, phases
+   4c and 4d for K25 and the fp forms, and phase 5 for a kernel that those
+   do not run: K19, K11, K20, the fp forms of K19), then the result line.
+   Each phase prints its seconds.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
 repo (``tpu_llama_torch`` must be importable from beside this file).
@@ -141,28 +159,36 @@ SRC = {
     "K11": ("tpu_llama_torch/csrc/fused_layer.cu", "tpu_llama/ops/fused_layer.py:204"),
     "K12": ("tpu_llama_torch/csrc/fused_step2.cu", "tpu_llama/ops/fused_step2.py:537"),
     "K25": ("tpu_llama_torch/csrc/q8_matmul.cu", "tpu_llama/ops/matmul.py:142"),
+    "K13": ("tpu_llama_torch/csrc/paged_flash_decode_dma.cu", "tpu_llama/ops/attention.py:466"),
+    "K14": ("tpu_llama_torch/csrc/kv_pool_flush_rows.cu", "tpu_llama/ops/attention.py:1301"),
+    "K15": ("tpu_llama_torch/csrc/kv_pool_scatter.cu", "tpu_llama/ops/attention.py:1095"),
+    "K20": ("tpu_llama_torch/csrc/paged_flash_decode_fresh.cu",
+            "tpu_llama/ops/attention.py:1012"),
 }
 SRC.update({f"{k}:{sfx}": SRC[k] for k in ("K6", "K7", "K9", "K10", "K19")
             for sfx in ("f32", "bf16")})  # one templated kernel per INT8 and fp form
 DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
+PAGED_KERNEL = {"flash_dma": "K13", "flash": "K20"}  # ... on a paged cache
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
 FUSED_PREFILL_PATH = PREFILL_PATH | {"K3", "K4", "K5"}  # ... on fused layouts
 DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]  # one per slot at batch 8
 CARD = "cuda"  # the card side of the parity phases
 
 
-def decode_launches(fused, attn: str, L: int) -> dict:
+def decode_launches(fused, attn: str, L: int, paged: bool = False) -> dict:
     """Kernel launches per decode step of ``forward_decode`` in each
     resolved mode: the unfused stack (K2 + K1 per matmul, 4 per layer on
     fused layouts), the two-launch stack (prologue K3 + K8, per layer the
     attention, K2 and K11) and mega2 (prologue K3, K8, K9, K2, then one
-    K12 per layer); each with one K10 flush and the classifier's K2 + K1."""
-    att = DECODE_KERNEL[attn]
+    K12 per layer); each with one K10 flush and the classifier's K2 + K1.
+    On a paged cache the attention is K13 (K20 for "flash") and the flush
+    K14; mega2 never runs there."""
+    att, flush = (PAGED_KERNEL[attn], "K14") if paged else (DECODE_KERNEL[attn], "K10")
     if fused == "mega2":
         return {"K3": 1, "K8": 1, "K9": 1, "K2": 2, "K12": L, "K10": 1, "K1": 1}
     if fused:
-        return {"K3": 1, "K8": 1, att: L, "K2": L + 1, "K11": L, "K10": 1, "K1": 1}
-    return {att: L, "K2": 4 * L + 1, "K1": 4 * L + 1, "K10": 1}
+        return {"K3": 1, "K8": 1, att: L, "K2": L + 1, "K11": L, flush: 1, "K1": 1}
+    return {att: L, "K2": 4 * L + 1, "K1": 4 * L + 1, flush: 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -720,6 +746,217 @@ def check_k18(torch, tatt, results):
                         library_ms=library_ms))
     del cache, rows
     torch.cuda.empty_cache()
+
+
+# the paged kernels: K15 page scatter, K14 row flush, K13 / K20 decode attention
+PAGED_PS = 512  # the served page size (Engine's default)
+
+
+def scattered_pool(PagePool, B: int, MP: int, ps: int, seed: int = 0):
+    """A ``PagePool`` of B * MP + 1 pages whose B slots each hold MP pages
+    (the whole context), handed out after rounds of random reserves and
+    releases, until no slot's pages are contiguous."""
+    rng = np.random.default_rng(seed)
+    pool = PagePool(B * MP + 1, ps, B, MP)
+    for _ in range(20):
+        for _ in range(64):
+            s = int(rng.integers(B))
+            if pool.held(s):
+                pool.release(s)
+            else:
+                pool.reserve(s, int(rng.integers(1, MP * ps + 1)))
+        for s in rng.permutation(B):
+            pool.release(int(s))
+        for s in rng.permutation(B):
+            check(pool.reserve(int(s), MP * ps) is not None, "scattered pool: a reserve failed")
+        if not any(np.all(np.diff(np.sort(pool.table[b])) == 1) for b in range(B)):
+            return pool
+    raise SmokeFailure(f"scattered pool: contiguous pages left: {pool.table.tolist()}")
+
+
+def _live_rows(table, pos, P: int, ps: int):
+    """For each pool page, how many of its first rows some slot attends
+    (rows < pos); every other row is stale."""
+    live = np.zeros(P, np.int64)
+    for b, p in enumerate(pos):
+        for j in range(-(-min(p, table.shape[1] * ps) // ps)):
+            live[table[b, j]] = max(live[table[b, j]], min(ps, p - j * ps))
+    return live
+
+
+def check_paged_writes(torch, tatt, PagePool, results):
+    """K15 and K14 at the 7B shapes (L32, KVH32, hd128, ps 512, a 33-page
+    pool of 8 slots x 4 pages from ``scattered_pool``): K15 lands the 8 x
+    512 compact admission block (and, checked only, a 700-row block whose
+    last page is zero-padded, one slot's second page its trash page 0), K14
+    one step's rows at mixed positions, one past the table and one of a
+    parked slot; both bit-equal to their plain versions outside page 0."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    L, KVH, hd, ps, B = 32, 32, 128, PAGED_PS, 8
+    MP = 2048 // ps
+    pool = scattered_pool(PagePool, B, MP, ps)
+    P = pool.num_pages
+    pt = torch.tensor(pool.table, device="cuda")
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rf(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    pools = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rf(L, P, KVH, ps), rf(L, P, KVH, ps)]
+    slots = [5, 0, 7, 2, 1, 6, 3, 4]
+    for T, table in ((700, pt.clone()), (512, pt)):
+        if T == 700:
+            table[2, 1:] = 0  # slot 2 reserved one page: its second lands on the trash page
+        small = [ri(L, B, KVH, T, hd), ri(L, B, KVH, T, hd), rf(L, B, KVH, T), rf(L, B, KVH, T)]
+        ref = [a.clone() for a in pools]
+        tatt.kv_pool_scatter_pages(*small, slots, table, *pools)
+        torch.cuda.synchronize()
+        tatt.kv_pool_scatter_pages_plain(*small, slots, table, *ref)
+        check(all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pools, ref)),
+              f"K15 T={T}: pool differs outside page 0")
+        del ref
+    pages = table[torch.tensor(slots, device="cuda")][:, :1].long()  # [n, 1]
+    blk = [a.view(L, B, KVH, 1, ps, *a.shape[4:]).transpose(2, 3) for a in small]
+
+    def run(i, fn=tatt.kv_pool_scatter_pages):
+        fn(*small, slots, pt, *pools)
+
+    ms = cuda_ms(torch, run, 20)
+    plain_ms = cuda_ms(torch, lambda i: run(i, tatt.kv_pool_scatter_pages_plain), 5)
+
+    def lib(i):
+        for a, b in zip(pools, blk):
+            a[:, pages] = b
+
+    library_ms = cuda_ms(torch, lib, 5)
+    b_ms, by = bound_ms(2 * (2 * L * B * KVH * 512 * hd + 2 * L * B * KVH * 512 * 4)
+                        + 4 * B * (MP + 1), 0, "int8")
+    results.append(dict(kernel="K15", name=f"K15 kv_pool_scatter L={L} n={B} T=512 ps={ps} "
+                        f"P={P}", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=by, library_ms=library_ms))
+    del small, blk
+
+    pos = [0, 1, 127, 128, 511, 1000, MP * ps, 2047]  # slot 6 past the table: trash page
+    table = pt.clone()
+    table[1] = 0  # slot 1 parked: its row lands on page 0
+    copies = n_copies(L * B * KVH * (2 * hd + 8))
+    rows = [(ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
+            for _ in range(copies)]
+    p32 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    ref = [a.clone() for a in pools]
+    tatt.kv_pool_flush_rows(*rows[0], p32, table, *pools)
+    torch.cuda.synchronize()
+    tatt.kv_pool_flush_rows_plain(*rows[0], p32, table, *ref)
+    check(all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pools, ref)),
+          "K14: pool differs outside page 0")
+    del ref
+
+    def run14(i, fn=tatt.kv_pool_flush_rows):
+        fn(*rows[i % copies], p32, table, *pools)
+
+    ms = cuda_ms(torch, run14, 50)
+    plain_ms = cuda_ms(torch, lambda i: run14(i, tatt.kv_pool_flush_rows_plain), 10)
+    ok, page, row = tatt._flush_targets(p32, table, P, ps)
+    ix = (torch.arange(L, device="cuda")[:, None, None], page[None, :, None],
+          torch.arange(KVH, device="cuda")[None, None, :], row[None, :, None])
+
+    def lib14(i):
+        for a, r in zip(pools, rows[i % copies]):
+            a[ix] = r[:, ok]
+
+    library_ms = cuda_ms(torch, lib14, 50)
+    b_ms, by = bound_ms(2 * L * B * KVH * (2 * hd + 8) + 4 * B * (MP + 1), 0, "int8")
+    results.append(dict(kernel="K14", name=f"K14 kv_pool_flush_rows L={L} B={B} ps={ps} P={P}",
+                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                        library_ms=library_ms))
+    del pools, rows
+    torch.cuda.empty_cache()
+
+
+def check_paged_attention(torch, tatt, PagePool, results):
+    """K13 and K20 on the same inputs at the 7B shapes: 32-layer pools of
+    ps 512 in ``scattered_pool``'s out-of-order pages, layer 17, at batch 8
+    (one slot at each of DECODE_POS; MHA and a GQA group of 4) and at
+    batch 1 at pos 511 and 2047; every pool row that no slot attends (rows
+    at and past each pos, unused pages, page 0) poisoned with int8 127 and
+    scale 1e4.  Each within K6_TOL of its plain version.  K13 is then held
+    to K9 on a paged copy of the same cache (``paged_view``): bit-equal at
+    K9's block_s = 256 (K13's block: the same dec_attend cell over the same
+    blocks in the same order); the difference at K9's default block of 128
+    rows is recorded.  Repeated calls rotate through other layers and
+    queries."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    L, hd, ps, layer = 32, 128, PAGED_PS, 17
+    MP = 2048 // ps
+    pool = scattered_pool(PagePool, 8, MP, ps, seed=1)
+    P = pool.num_pages
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rs(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda") * 0.03 + 0.01
+
+    for B, KVH, G, pos in ((8, 32, 1, DECODE_POS), (8, 8, 4, DECODE_POS), (1, 32, 1, [511]),
+                           (1, 32, 1, [2047])):
+        table = pool.table[:B] if B == 8 else pool.table[7:8]
+        arrs = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rs(L, P, KVH, ps),
+                rs(L, P, KVH, ps)]
+        for pg, n in enumerate(_live_rows(table, pos, P, ps)):
+            for a, val in zip(arrs, (127, 127, 1e4, 1e4)):
+                a[:, pg, :, n:] = val
+        pt = torch.tensor(table, device="cuda")
+        p32 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        rows = KVH * sum(pos)
+        copies = n_copies(rows * (2 * hd + 8))
+        layers = [(layer + i) % L for i in range(copies)]
+        q = [torch.randn(B, KVH, G, hd, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(copies)]
+        nk = [ri(B, KVH, hd) for _ in range(copies)]
+        nv = [ri(B, KVH, hd) for _ in range(copies)]
+        nks = [rs(B, KVH) for _ in range(copies)]
+        nvs = [rs(B, KVH) for _ in range(copies)]
+        dense = [tatt.paged_view(a, pt, layer) for a in arrs]  # [1, B, KVH, S(, hd)]
+        library_ms = _sdpa_ms(torch, q, *dense, nk, nv, nks, nvs, p32, [0] * copies, copies)
+        torch.cuda.empty_cache()
+        nbytes = (rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + B * KVH * (2 * hd + 8)
+                  + 4 * B * (MP + 1))
+        b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "bf16")
+        for kernel, name in (("K13", "dma"), ("K20", "fresh")):
+            fn = getattr(tatt, f"paged_flash_decode_attention_{name}")
+            plain = getattr(tatt, f"paged_flash_decode_attention_{name}_plain")
+
+            def run(i, f=fn):
+                j = i % copies
+                return f(q[j], *arrs, pt, p32, nk[j], nv[j], nks[j], nvs[j], layer=layers[j])
+
+            got = run(0)
+            torch.cuda.synchronize()
+            want = run(0, plain)
+            err = (got - want).abs().max().item()
+            peak = want.abs().max().item()
+            label = f"{kernel} paged_{name} B={B} KVH={KVH} G={G} ps={ps} pos=" \
+                    f"{pos[0] if B == 1 else 'mix'}"
+            check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
+            extra = {}
+            if kernel == "K13":  # against K9 on the paged copy of layer 17
+                k9 = [tatt.flash_decode_attention_dma(q[0], dense[0], dense[1], p32, nk[0], nv[0],
+                                                      dense[2], dense[3], nks[0], nvs[0],
+                                                      layer=0, block_s=bs) for bs in (256, 128)]
+                torch.cuda.synchronize()
+                extra = dict(k9_block256_max_diff=(got - k9[0]).abs().max().item(),
+                             k9_block128_max_diff=(got - k9[1]).abs().max().item())
+                check(torch.equal(got, k9[0]), f"{label}: K13 != K9 (block_s 256) on the paged "
+                                               f"copy: {extra}")
+            ms = cuda_ms(torch, run, 50)
+            plain_ms = cuda_ms(torch, lambda i: run(i, plain), 3)
+            results.append(dict(kernel=kernel, name=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                library_ms=library_ms, **extra))
+        del arrs, dense
+        torch.cuda.empty_cache()
 
 
 def check_k25(torch, tq, tm, results):
@@ -1453,6 +1690,273 @@ def serve_7b_fp(torch, smi_line, params, phase: str, kv_dtype: str, setup_s: flo
     return launches
 
 
+def paged_prefix_requests(Request, vocab: int):
+    """Phase 4e's wave 2, all device-sampled: two seeds (a 300-token fed
+    prefix, which ends inside a page, and a 512-token one, a page exactly),
+    then 4 requests extending the first, 1 extending the second and the
+    first again whole: 6 prefix hits."""
+    rng = np.random.default_rng(77)
+    p300 = [int(t) for t in rng.integers(3, vocab, 299)]  # fed: BOS + 299 = 300
+    p512 = [int(t) for t in rng.integers(3, vocab, 511)]
+    modes = [dict(temperature=0.0), dict(temperature=0.8, topp=0.9),
+             dict(temperature=0.8, topk=40)]
+
+    def req(prompt, i):
+        return Request(prompt_tokens=prompt, steps=len(prompt) + 1 + PAGED_NEW, seed=4000 + i,
+                       device_sampling=True, **modes[i % 3])
+
+    seeds = [req(p300, 0), req(p512, 1)]
+    hits = [req(p300 + [int(t) for t in rng.integers(3, vocab, int(rng.integers(40, 201)))], i)
+            for i in range(2, 6)]
+    hits += [req(p512 + [int(t) for t in rng.integers(3, vocab, 100)], 6), req(p300, 7)]
+    return seeds, hits
+
+
+PAGED_NEW = 32  # new tokens per phase-4e wave-2 and wave-3 request
+PAGED_CHUNK = 16  # the batcher's max_chunk in phase 4e wave 2
+PAGED_W3_PAGES = 1 + 3 * 2  # wave 3's pool: three requests of two pages each
+
+
+def serve_7b_paged(torch, smi_line, params):
+    """Phase 4e: the paged INT8 serving path at full 7B width and depth on
+    phase 4's fused W8A8 weights: ``Engine(max_batch=8, kv_layout="paged",
+    page_size=512, seq_len=2048)``, a 33-page pool (decode attention
+    "auto": K13; fused decode "auto": the two-launch K11 decode).
+
+    Wave 1: phase 4's 10 requests, host sampling; the streams must equal a
+    dense-INT8 ``Engine(fused=True)``'s on the same weights and prompts,
+    whose K9 runs with block_s = 256 (K13's block: the two kernels are then
+    bit-equal, phase 3); the first decode step's logits against K9 at its
+    default block of 128 rows are recorded (rounding points apart).  Wave 2:
+    ``ContinuousBatcher(prefix_cache_size=8, max_chunk=16)``,
+    ``paged_prefix_requests``: 6 prefix hits (4 continuations past a
+    boundary page, 1 past a page-aligned prefix, 1 whole-prompt hit), the
+    snapshots and restores timed.  Wave 3: a second engine on the same
+    weights with a 7-page pool serves 8 requests of two pages each, so at
+    most 3 run at once: it must refuse admissions (``can_admit``) and serve
+    all.  Every request must finish with in-vocab tokens, every kernel must
+    launch exactly as the path requires (per compact admission group the
+    fused prefill body and one K15, per continuation the body without it,
+    per decode step what ``decode_launches`` lists for the paged two-launch
+    decode; no K7, K9, K10 or K12), no plain version may run, and each pool
+    must be back to num_pages - 1 free pages with every refcount zero after
+    its retirements and evictions.  Returns the launches of waves 1-2."""
+    import functools
+
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.profile_serving import summarize as trace_summary
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime import engine as engine_mod
+    from tpu_llama_torch.runtime.metrics import summarize
+
+    cfg = LLAMA2_7B
+    L, V = cfg.n_layers, cfg.vocab_size
+    t0 = time.time()
+    engine = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=PAGED_PS,
+                    seq_len=2048)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    pool_class = type(engine.pool).__name__
+    attn, fused = engine.decode_attn, engine.decode_fused
+    check(attn == "flash_dma" and fused is True, f"4e: decode resolved to {attn}, {fused!r}")
+    groups, walls = [], {"snapshot_slot": [], "restore_slot": [], "prefill_continue": []}
+    inner = engine_mod._prefill_into_slots
+
+    def counted(p, cache, tokens, *a, **k):
+        groups.append(tokens.shape[1])
+        return inner(p, cache, tokens, *a, **k)
+
+    def timed(eng, name):  # host wall of the call, closed by a sync
+        fn = getattr(eng, name)
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            walls[name].append((time.time() - t) * 1e3)
+            return out
+        return call
+
+    for name in walls:
+        setattr(engine, name, timed(engine, name))
+
+    def want_launches(n_groups, n_cont, steps):
+        body = n_groups + n_cont  # prefill bodies: compact groups and continuations
+        want = dict(K3=2 * L * body, K4=L * body, K5=L * body, K6=L * body,
+                    K1=(4 * L + 1) * body, K2=(L + 1) * body, K15=n_groups)
+        for k, n in decode_launches(fused, attn, L, paged=True).items():
+            want[k] = want.get(k, 0) + n * steps
+        return {k: n for k, n in want.items() if n}
+
+    def serve(batcher, reqs):
+        for r in reqs:
+            batcher.submit(r)
+        batcher.run()
+        torch.cuda.synchronize()
+
+    def pool_clean(eng, label):
+        pool = eng.pool
+        check(pool.free_pages == pool.num_pages - 1 and not any(
+            pool.refcount(p) for p in range(pool.num_pages)),
+            f"{label}: {pool.free_pages} of {pool.num_pages - 1} pages free after retirement")
+
+    engine_mod._prefill_into_slots = counted
+    try:
+        # wave 1: phase 4's requests
+        reqs1 = make_requests(Request, V)
+        torch.cuda.reset_peak_memory_stats()
+        b1 = ContinuousBatcher(engine)
+        _kernels.reset_counts()
+        t0 = time.time()
+        serve(b1, reqs1)
+        wall1 = time.time() - t0
+        got1 = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+        plain = {k: n for k, n in _kernels.PLAIN_CALLS.items() if n}
+        steps1 = b1.timers["decode_steps"]
+        want1 = want_launches(len(groups), 0, steps1)
+        check(got1 == want1, f"4e wave 1: {len(groups)} groups {groups}, {steps1} steps: want "
+                             f"exactly {want1}, got {got1}")
+        check(not plain, f"4e wave 1: plain versions ran: {plain}")
+        pool_clean(engine, "4e wave 1")
+        groups1 = list(groups)
+        # wave 2: prefix reuse, device sampling, decode chunks
+        seeds, hits = paged_prefix_requests(Request, V)
+        b2 = ContinuousBatcher(engine, prefix_cache_size=8, max_chunk=PAGED_CHUNK)
+        groups.clear()
+        _kernels.reset_counts()
+        t0 = time.time()
+        serve(b2, seeds)
+        serve(b2, hits)
+        wall2 = time.time() - t0
+        got2 = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+        plain = {k: n for k, n in _kernels.PLAIN_CALLS.items() if n}
+        steps2 = b2.timers["decode_steps"]
+        n_cont = len(walls["prefill_continue"])
+        want2 = want_launches(len(groups), n_cont, steps2)
+        check(b2.prefix_hits == 6, f"4e wave 2: prefix hits {b2.prefix_hits}, want 6")
+        check(n_cont == 1 and len(walls["restore_slot"]) == 6,
+              f"4e wave 2: {n_cont} continuations, {len(walls['restore_slot'])} restores")
+        check(got2 == want2, f"4e wave 2: {len(groups)} groups, {n_cont} continuations, "
+                             f"{steps2} steps: want exactly {want2}, got {got2}")
+        check(not plain, f"4e wave 2: plain versions ran: {plain}")
+        for e in b2._prefix.values():  # evict every entry
+            engine.release_snapshot(e["snap"])
+        b2._prefix.clear()
+        pool_clean(engine, "4e wave 2")
+    finally:
+        engine_mod._prefill_into_slots = inner
+        for name in walls:
+            delattr(engine, name)
+    reqs = reqs1 + seeds + hits
+    check(all(r.done for r in reqs), "4e: a request did not finish")
+    check(len(walls["snapshot_slot"]) == 2, f"4e wave 2: {len(walls['snapshot_slot'])} "
+                                            "snapshots, want 2 (the seeds)")
+    toks = [t for r in reqs for t in r.out_tokens]
+    check(len(toks) > 0 and all(0 <= t < V for t in toks), "4e: tokens missing or out of vocab")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: got1.get(k, 0) + got2.get(k, 0) for k in set(got1) | set(got2)}
+
+    # the same requests on a dense INT8 engine: K9 at K13's block gives the same streams
+    dense = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048, fused=True)
+    k9 = tl.flash_decode_attention_dma
+    tl.flash_decode_attention_dma = functools.partial(k9, block_s=256)
+    try:
+        ref = make_requests(Request, V)
+        serve(ContinuousBatcher(dense), ref)
+    finally:
+        tl.flash_decode_attention_dma = k9
+    same = [r.out_tokens == d.out_tokens for r, d in zip(reqs1, ref)]
+    check(all(same), f"4e: paged streams differ from dense K9 (block 256) ones: {same}")
+    # the first decode step's logits against K9 at its default block (128 rows)
+    prompts = [[1] + r.prompt_tokens for r in reqs1[:8]]
+    last = [engine.prefill(prompts, list(range(8)), reserve_tokens=[len(p) + 9 for p in prompts]),
+            dense.prefill(prompts, list(range(8)))]
+    tok = np.array([int(np.argmax(x)) for x in last[0]])
+    at = np.array([len(p) for p in prompts])
+    step = [e.decode(tok, at) for e in (engine, dense)]
+    first_err = float(np.abs(step[0] - step[1]).max())
+    first_peak = float(np.abs(step[1]).max())
+    # device time of the paged decode step: 4 traced steps of all 8 slots
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    for i in range(4):
+        engine.decode(tok, at + 1 + i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(4):
+            engine.decode(tok, at + 5 + i)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    trace = trace_summary("serve_7b_paged_decode_b8", prof, wall, traced, smi_line)
+    del dense, ref
+    engine.reset()
+    torch.cuda.empty_cache()
+
+    # wave 3: backpressure on a pool for three requests at a time
+    small = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=PAGED_PS,
+                   seq_len=2048, num_pages=PAGED_W3_PAGES)
+    refused, live = [], []
+    can, dec = small.can_admit, small.decode_device
+
+    def probe(*a):
+        ok = can(*a)
+        refused.append(not ok)
+        return ok
+
+    def decode(*a):
+        live.append(int(np.count_nonzero(small.pool.table[:, 0])))
+        return dec(*a)
+
+    small.can_admit, small.decode_device = probe, decode
+    rng = np.random.default_rng(78)
+    reqs3 = [Request(prompt_tokens=[int(t) for t in rng.integers(3, V, 600)],
+                     steps=601 + PAGED_NEW, temperature=0.0, seed=5000 + i) for i in range(8)]
+    t0 = time.time()
+    serve(ContinuousBatcher(small), reqs3)
+    wall3 = time.time() - t0
+    check(all(r.done for r in reqs3), "4e wave 3: a request did not finish")
+    check(any(refused) and max(live) == 3, f"4e wave 3: refused {sum(refused)} admissions, "
+                                           f"at most {max(live)} requests at once (want 3)")
+    pool_clean(small, "4e wave 3")
+    del small
+
+    rep1, rep2, rep3 = summarize(reqs1), summarize(hits), summarize(reqs3)
+    t1, t2 = b1.timers, b2.timers
+    line = dict(phase="serve_7b_paged", layouts="fused", decode_attn=attn, decode_fused=fused,
+                page_size=PAGED_PS, num_pages=engine.pool.num_pages, pool_class=pool_class,
+                admission_groups=groups1, n_requests=rep1.n_requests, tokens=rep1.total_tokens,
+                wall_s=wall1, tok_per_s=rep1.tokens_per_sec, ttft_p50_ms=rep1.ttft_p50_s * 1e3,
+                ttft_p95_ms=rep1.ttft_p95_s * 1e3, setup_s=setup_s, decode_steps=steps1,
+                decode_ms_per_step=t1["decode"] * 1e3 / max(1, steps1),
+                decode_device_ms_per_step=trace["device_busy_ms"] / 4,
+                decode_host_ms_per_step=wall * 1e3 / 4, decode_idle_share=trace["idle_share"],
+                decode_launches_per_step=trace["n_kernels"] / 4,
+                decode_device_ms=trace["device_ms"],
+                streams_equal_dense_k9_block256=all(same),
+                first_step_logit_max_err_vs_k9_block128=first_err, first_step_logit_peak=first_peak,
+                admit_s=t1["admit"], emit_s=t1["emit"],
+                wave2=dict(prefix_hits=b2.prefix_hits, wall_s=wall2, tokens=rep2.total_tokens,
+                           ttft_p50_ms=rep2.ttft_p50_s * 1e3, ttft_p95_ms=rep2.ttft_p95_s * 1e3,
+                           snapshot_ms=walls["snapshot_slot"], restore_ms=walls["restore_slot"],
+                           continuation_ms=walls["prefill_continue"], decode_steps=steps2,
+                           chunks=t2["chunks"], chunk_steps=t2["chunk_steps"]),
+                wave3=dict(num_pages=PAGED_W3_PAGES, refused=sum(refused), max_live=max(live),
+                           wall_s=wall3, tok_per_s=rep3.tokens_per_sec,
+                           ttft_p50_ms=rep3.ttft_p50_s * 1e3, ttft_p95_ms=rep3.ttft_p95_s * 1e3),
+                peak_mem_gb=peak_gb, host_launch_us=host_launch_us(torch),
+                launches=launches, card=smi_line)
+    print(json.dumps(line), flush=True)
+    del engine, b1, b2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _to(obj, device):
     import torch
 
@@ -1480,42 +1984,49 @@ def _greedy(engine, logits, slot: int, pos: int, steps: int):
 
 
 def _greedy_prompt(engine, seq, steps):
-    """Prefill ``seq`` into slot 0, then ``_greedy``."""
-    return _greedy(engine, engine.prefill([seq], [0])[0], 0, len(seq), steps)
+    """Prefill ``seq`` into slot 0 (a paged engine reserves the pages of
+    the whole run), then ``_greedy``."""
+    first = engine.prefill([seq], [0], reserve_tokens=[len(seq) + steps + 1])[0]
+    return _greedy(engine, first, 0, len(seq), steps)
 
 
-def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False):
+def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None):
     """One greedy request of PARITY_STEPS steps on the card and on the CPU,
     from the same weights (fused layouts with ``fuse``), both with decode
-    attention ``attn`` and fused decode ``fused``; returns the reading as a
-    dict, with the card run's kernel launches."""
+    attention ``attn`` and fused decode ``fused``, on a dense INT8 cache or,
+    with ``page_size``, a paged one; returns the reading as a dict, with the
+    card run's kernel launches."""
     from tpu_llama_torch.models.llama import random_quant_params
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
     gpu = random_quant_params(cfg, seed=1, norm_dtype=act_dtype, fuse=fuse)
     cpu = _to(gpu, "cpu")
+    paged = page_size is not None
+    kw = dict(max_batch=1, kv_dtype="int8", seq_len=64, attn=attn, fused=fused)
+    if paged:
+        kw.update(kv_layout="paged", page_size=page_size)
     t0 = time.time()
     _kernels.reset_counts()
-    g_toks, g_log = _greedy_prompt(
-        Engine(gpu, cfg, max_batch=1, kv_dtype="int8", seq_len=64, attn=attn, fused=fused), seq,
-        PARITY_STEPS)
+    g_toks, g_log = _greedy_prompt(Engine(gpu, cfg, **kw), seq, PARITY_STEPS)
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     t1 = time.time()
-    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, max_batch=1, kv_dtype="int8", seq_len=64,
-                                          attn=attn, fused=fused, device="cpu"), seq, PARITY_STEPS)
+    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, device="cpu", **kw), seq, PARITY_STEPS)
     t2 = time.time()
     path = FUSED_PREFILL_PATH if fuse else PREFILL_PATH
+    if paged:
+        path = path - {"K7"} | {"K15"}
     if attn == "xla":  # the plain PyTorch decode launches no kernel
         decode = {}
     else:
-        decode = {k: n * PARITY_STEPS for k, n in decode_launches(fused, attn, cfg.n_layers).items()}
+        decode = {k: n * PARITY_STEPS
+                  for k, n in decode_launches(fused, attn, cfg.n_layers, paged).items()}
     got = {k: n for k, n in launches.items() if n > 0}
     check(set(got) == path | set(decode) and not any(plain.values())
           and all(launches[k] >= n for k, n in decode.items())
           and all(launches[k] == n for k, n in decode.items() if k not in path),
           f"parity {attn} fused={fused!r}: want launches of exactly {sorted(path | set(decode))} "
-          f"(per decode step {decode_launches(fused, attn, cfg.n_layers) if decode else {}}), "
+          f"(per decode step {decode_launches(fused, attn, cfg.n_layers, paged) if decode else {}}), "
           f"got {launches}; plain calls {plain}")
     same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
     # logits [0, same] came from the same tokens on both sides
@@ -1558,6 +2069,82 @@ def parity_2layer(torch):
         check(bf16["prefill_logit_max_err"] <= LOGITS_TOL * bf16["logit_peak"],
               f"{attn}: bf16 prefill logits: max err {bf16['prefill_logit_max_err']} > "
               f"{LOGITS_TOL} * {bf16['logit_peak']}")
+    return launches
+
+
+PARITY_PS = 16  # phase 5's page size: the 16-token prompt ends on a page boundary
+
+
+def parity_paged(torch):
+    """Phase 5 for the paged path on the 2-layer 7B-width model in the fused
+    layouts with f32 activations, card (kernels) against CPU (plain
+    versions), pages of PARITY_PS rows: one greedy request per decode
+    attention (K13 "flash_dma", K20 "flash") and fused decode (False, the
+    two-launch True), tokens equal at all PARITY_STEPS steps and logits
+    within LOGITS_TOL of max |logit|; then a paged prefix continuation on a
+    pool of 128-row pages (300-token prefill, snapshot: a boundary page
+    copied, restore into another slot, ``prefill_continue`` of 40 more
+    tokens through the mp_cap-bounded gather, 8 greedy steps), whose tokens
+    must equal a cold 340-token paged prefill's on the same side, and the
+    card's the CPU's.  Returns the card launches of each greedy run, by its
+    (attn, fused decode)."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import Engine
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
+    launches = {}
+    for attn, fused in (("flash_dma", False), ("flash", False), ("flash_dma", True),
+                        ("flash", True)):
+        r = _parity(torch, cfg, torch.float32, seq, attn, True, fused, page_size=PARITY_PS)
+        launches[attn, fused] = r["card_launches"]
+        label = f"paged {attn}, fused={fused!r}"
+        print(json.dumps(dict(phase="parity_paged", attn=attn, fused_decode=fused,
+                              page_size=PARITY_PS, f32=r, tol=LOGITS_TOL)), flush=True)
+        check(r["finite"], f"{label}: card logits not finite")
+        check(r["tokens_equal"] == PARITY_STEPS,
+              f"{label}: greedy tokens differ at step {r['tokens_equal']}: card "
+              f"{r['card_tokens']}, cpu {r['cpu_tokens']}")
+        check(r["logit_max_err"] <= LOGITS_TOL * r["logit_peak"],
+              f"{label}: logits: max err {r['logit_max_err']} > {LOGITS_TOL} * {r['logit_peak']}")
+
+    gpu = tl.random_quant_params(cfg, seed=3, norm_dtype=torch.float32, fuse=True, device=CARD)
+    cpu = _to(gpu, "cpu")
+    seq = [1] + [int(t) for t in np.random.default_rng(56).integers(3, cfg.vocab_size, 339)]
+    streams = {}
+    for params, dev in ((gpu, CARD), (cpu, "cpu")):
+        _kernels.reset_counts()
+        kw = dict(seq_len=512, kv_layout="paged", page_size=128, attn="flash_dma", fused=True,
+                  device=dev)
+        eng = Engine(params, cfg, max_batch=2, **kw)
+        budget = len(seq) + PARITY_STEPS + 1
+        eng.prefill([seq[:300]], [0], reserve_tokens=[budget])
+        snap = eng.snapshot_slot(0, 300)
+        check(snap is not None and len(snap["pages"]) == 3, f"paged prefix: snapshot {snap}")
+        eng.release_slot(0)  # parked: its decode rows go to the trash page, not the shared ones
+        eng.restore_slot(1, snap, reserve_tokens=budget)
+        first = eng.prefill_continue([seq[300:]], [1], [300])[0]
+        cont, _ = _greedy(eng, first, 1, len(seq), PARITY_STEPS)
+        eng.release_snapshot(snap)
+        eng.release_slot(1)
+        cold, _ = _greedy(eng, eng.prefill([seq], [0], reserve_tokens=[budget])[0], 0, len(seq),
+                          PARITY_STEPS)
+        streams[dev] = dict(continued=cont, cold=cold)
+        if dev == CARD:
+            got = {k for k, n in _kernels.LAUNCHES.items() if n}
+            plain = {k: n for k, n in _kernels.PLAIN_CALLS.items() if n}
+            check(not plain and got == FUSED_PREFILL_PATH - {"K7"} | {
+                "K15", "K8", "K11", "K13", "K14"}, f"paged prefix: launches {got}, plain {plain}")
+        del eng
+    print(json.dumps(dict(phase="parity_paged_prefix", prefix=300, suffix=len(seq) - 300,
+                          page_size=128, steps=PARITY_STEPS, tokens=streams)), flush=True)
+    check(all(v["continued"] == v["cold"] for v in streams.values()),
+          f"paged prefix parity: continued and cold streams differ: {streams}")
+    check(streams[CARD] == streams["cpu"], f"paged prefix parity: card and CPU differ: {streams}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1809,13 +2396,18 @@ def main() -> int:
     check_decode_attention(torch, tatt, results)
     check_k10(torch, tatt, results)
     check_k18(torch, tatt, results)
+    from tpu_llama_torch.runtime import PagePool
+
+    check_paged_writes(torch, tatt, PagePool, results)
+    check_paged_attention(torch, tatt, PagePool, results)
     check_fused(torch, tq, tfl, tfs, results)
     check_k25(torch, tq, tm, results)
     check_fp_forms(torch, tatt, results)
     print(f"phase 3: {time.time() - t_start:.1f} s", flush=True)
     for r in results:  # launches follow in the kernels line, after the main path
         extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err", "att_int8_flip_share",
-                                   "att_scale_max_rel_err") if k in r}
+                                   "att_scale_max_rel_err", "k9_block256_max_diff",
+                                   "k9_block128_max_diff") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1832,9 +2424,15 @@ def main() -> int:
     print(f"phase 4: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     launches["K18"] = serve_7b_long(torch, smi, params)["K18"]
-    del params
     torch.cuda.empty_cache()
     print(f"phase 4b: {time.time() - t0:.1f} s", flush=True)
+    # 4e. the paged INT8 path on the same weights: K15, K13, K14 count there
+    t0 = time.time()
+    got = serve_7b_paged(torch, smi, params)
+    launches.update({k: got.get(k, 0) for k in ("K13", "K14", "K15")})
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 4e: {time.time() - t0:.1f} s", flush=True)
 
     # 4c. the server's default model: dense f32 weights, fused as serve()
     # fuses them, the default f32 cache; 4d. those weights in Q8_0 (the f32
@@ -1870,6 +2468,8 @@ def main() -> int:
         if launches[kernel] == 0:
             launches[kernel] = parity[path][kernel]
     parity_long_paths(torch)
+    # the paged path; K20 ("flash") counts its launches here (4e decodes with K13)
+    launches["K20"] = parity_paged(torch)["flash", False].get("K20", 0)
     # the checkpoint-loaded model; K19's fp forms count their launches here
     # (4c and 4d decode with K9's)
     ckpt = parity_checkpoint(torch)

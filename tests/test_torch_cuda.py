@@ -592,3 +592,181 @@ def test_fp_k7_k10_exact(card, hd, cdtype):
     assert all(torch.equal(a, b) for a, b in zip(cache, ref))
     assert _kernels.LAUNCHES[_kernels.form("K7", cdtype)] > 0
     assert _kernels.LAUNCHES[_kernels.form("K10", cdtype)] > 0
+
+
+# ------------------------------------------------- the paged kernels (K13, K14, K15, K20)
+# K14 and K15 are copies: bit-equal to their plain versions outside the trash
+# page 0 (several slots may write it at once).  K13 and K20 round as K9 (their
+# plain versions' steps, f32 sums in another order): DECODE_TOL, on pools whose
+# rows outside every slot's live range are poisoned.  K13 equals K9 bit for bit
+# on a paged copy of a dense cache at K9's block_s = K13's block.
+
+
+def _paged_pool(card, g, L, P, KVH, ps, hd):
+    ri = lambda *s: torch.randint(-127, 128, s, generator=g, device=card, dtype=torch.int8)
+    rs = lambda *s: torch.rand(s, generator=g, device=card) * 0.02 + 0.005
+    return [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rs(L, P, KVH, ps), rs(L, P, KVH, ps)]
+
+
+def _scattered_table(B, MP, P, seed):
+    """A page table of distinct pages 1..P-1 in no order, some slots with
+    fewer pages (0 past them)."""
+    rng = np.random.default_rng(seed)
+    pages = rng.permutation(np.arange(1, P))[:B * MP].reshape(B, MP).astype(np.int32)
+    pages[0, 2:] = 0
+    return pages
+
+
+@pytest.mark.parametrize("T,ps,hd", [(512, 512, 128), (40, 16, 16), (100, 64, 12)])
+def test_k15_exact(card, T, ps, hd):
+    g = _gen(T + ps + hd)
+    L, KVH, B, n = 3, 4, 5, 3
+    MP = -(-max(T, 2 * ps) // ps)
+    P = B * MP + 2
+    pool = _paged_pool(card, g, L, P, KVH, ps, hd)
+    ref = [a.clone() for a in pool]
+    small = _paged_pool(card, g, L, n, KVH, T, hd)
+    pt = torch.tensor(_scattered_table(B, MP, P, T), device=card)
+    slots = [4, 0, 2]
+    before = _kernels.LAUNCHES["K15"]
+    tatt.kv_pool_scatter_pages(*small, slots, pt, *pool)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K15"] == before + 1
+    tatt.kv_pool_scatter_pages_plain(*small, slots, pt, *ref)
+    for a, b in zip(pool, ref):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+
+
+@pytest.mark.parametrize("ps,hd", [(512, 128), (16, 16), (64, 12)])
+def test_k14_exact(card, ps, hd):
+    g = _gen(ps + hd)
+    L, KVH, B, MP = 3, 4, 6, 4
+    P = B * MP + 2
+    pool = _paged_pool(card, g, L, P, KVH, ps, hd)
+    ref = [a.clone() for a in pool]
+    rows = [r[:, :, :, 0] for r in _paged_pool(card, g, L, B, KVH, 1, hd)]  # [L, B, KVH(, hd)]
+    pt = torch.tensor(_scattered_table(B, MP, P, ps), device=card)
+    pt[5] = 0  # a parked slot
+    pos = torch.tensor([1, 0, ps, 2 * ps + 3, MP * ps + 7, 5], dtype=torch.int32, device=card)
+    tatt.kv_pool_flush_rows(*rows, pos, pt, *pool)
+    torch.cuda.synchronize()
+    tatt.kv_pool_flush_rows_plain(*rows, pos, pt, *ref)
+    for a, b in zip(pool, ref):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    neg = [a.clone() for a in pool]
+    pt[1, 0], pt[2, 0] = P, -2  # bad page ids and a negative pos: nothing written
+    tatt.kv_pool_flush_rows(*rows, torch.tensor([-1, 0, 1, -5, -1, -1], dtype=torch.int32,
+                                                device=card), pt, *pool)
+    torch.cuda.synchronize()
+    for a, b in zip(pool, neg):
+        assert torch.equal(a, b)
+
+
+def _paged_decode_case(card, B, KVH, G, hd, ps, MP, pos, qdtype, L=3):
+    g = _gen(B * KVH + G + hd + ps)
+    P = B * MP + 2
+    pool = _paged_pool(card, g, L, P, KVH, ps, hd)
+    ptn = _scattered_table(B, MP, P, hd)  # slot 0 holds two pages
+    pt = torch.tensor(ptn, device=card)
+    fresh = _paged_pool(card, g, 1, B, KVH, 1, hd)
+    nk, nv = fresh[0][0, :, :, 0], fresh[1][0, :, :, 0]
+    nks, nvs = fresh[2][0, :, :, 0], fresh[3][0, :, :, 0]
+    q = torch.randn(B, KVH, G, hd, generator=g, device=card).to(qdtype)
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    live = np.zeros((P, KVH, ps), bool)  # poison every other row of layer 1
+    for b, n in enumerate(pos):
+        n = min(n, MP * ps)
+        for j in range(-(-n // ps)):
+            live[ptn[b, j], :, :min(ps, n - j * ps)] = True
+    dead = torch.tensor(~live, device=card)
+    for a, val in zip(pool, (127, 127, 1e4, 1e4)):
+        a[1][dead] = val
+    return (q, *pool, pt, p, nk, nv, nks, nvs)
+
+
+@pytest.mark.parametrize("G,hd,ps", [(1, 128, 512), (4, 128, 256), (2, 12, 16), (1, 64, 64)])
+@pytest.mark.parametrize("kernel,name", [("K13", "dma"), ("K20", "fresh")])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_close(card, G, hd, ps, kernel, name, qdtype):
+    MP = 4
+    pos = [0, ps, ps + 3, MP * ps - 1, 2 * ps - 1]  # slot 0 (two pages) parked at 0
+    args = _paged_decode_case(card, 5, 3, G, hd, ps, MP, pos, qdtype)
+    before = _kernels.LAUNCHES[kernel]
+    got = getattr(tatt, f"paged_flash_decode_attention_{name}")(*args, layer=1)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[kernel] == before + 1
+    want = getattr(tatt, f"paged_flash_decode_attention_{name}_plain")(*args, layer=1)
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    assert err <= DECODE_TOL * peak, (err, peak)
+
+
+@pytest.mark.parametrize("ps", [512, 64])
+def test_k13_equals_k9_on_a_paged_copy(card, ps):
+    g = _gen(ps)
+    L, B, KVH, G, hd, MP = 2, 4, 3, 2, 128, 4
+    S, P = MP * ps, B * MP + 1
+    dense = _paged_pool(card, g, L, B, KVH, S, hd)
+    pt = torch.tensor(_scattered_table(B, MP, P, ps + 1), device=card)  # slot 0: pos 1
+    pool = [torch.zeros((L, P, KVH, ps) + a.shape[4:], dtype=a.dtype, device=card)
+            for a in dense]
+    for a, d in zip(pool, dense):
+        for b in range(B):
+            for j in range(MP):
+                a[:, pt[b, j]] = d[:, b, :, j * ps:(j + 1) * ps]
+    q = torch.randn(B, KVH, G, hd, generator=g, device=card)
+    fresh = _paged_pool(card, g, 1, B, KVH, 1, hd)
+    nk, nv, nks, nvs = (a[0, :, :, 0] for a in fresh)
+    pos = torch.tensor([1, ps, 3 * ps - 5, S], dtype=torch.int32, device=card)
+    paged = tatt.paged_flash_decode_attention_dma(q, *pool, pt, pos, nk, nv, nks, nvs, layer=1)
+    k9 = tatt.flash_decode_attention_dma(q, dense[0], dense[1], pos, nk, nv, dense[2], dense[3],
+                                         nks, nvs, layer=1, block_s=min(256, ps))
+    torch.cuda.synchronize()
+    assert torch.equal(paged, k9)
+
+
+@pytest.mark.parametrize("fuse,fused,attn", [(False, False, "flash"),
+                                             (False, False, "flash_dma"),
+                                             (True, True, "flash_dma")])
+def test_paged_engine_card_matches_cpu(card, fuse, fused, attn):
+    """The paged engine (page size 32) on the card (K15, K13 or K20, K14;
+    the two-launch decode with K11) against the CPU (plain versions), as
+    test_engine_card_matches_cpu: tokens equal up to a near-tie; every page
+    free again after serving."""
+    from tpu_llama_torch import convert
+    from tpu_llama_torch.config import ModelConfig
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=512, seq_len=256)
+    cpu = tl.random_quant_params(cfg, seed=1, norm_dtype=torch.float32, fuse=fuse,
+                                 device="cpu")
+    gpu = convert.params_from_numpy(convert.params_to_numpy(cpu), device=card)
+    out = []
+    for params, dev in ((cpu, "cpu"), (gpu, card)):
+        _kernels.reset_counts()
+        eng = Engine(params, cfg, max_batch=4, kv_layout="paged", page_size=32, attn=attn,
+                     fused=fused, device=dev)
+        b = ContinuousBatcher(eng, prefix_cache_size=2)
+        reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0,
+                        logprobs=2) for n in (5, 130, 40, 130)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        out.append(reqs)
+        if dev == card:
+            path = {"K1", "K2", "K6", "K14", "K15", {"flash": "K20"}.get(attn, "K13")} | (
+                {"K3", "K4", "K5", "K8", "K11"} if fuse else set())
+            assert {k for k, n in _kernels.LAUNCHES.items() if n > 0} == path
+            assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
+            for e in b._prefix.values():
+                eng.release_snapshot(e["snap"])
+            assert eng.pool.free_pages == eng.pool.num_pages - 1
+    for c, g in zip(*out):
+        assert len(c.out_tokens) == 12
+        part = next((i for i, (a, b) in enumerate(zip(c.out_tokens, g.out_tokens)) if a != b),
+                    None)
+        if part is not None:
+            (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
+            assert top1 - top2 < NEAR_TIE, (attn, part, c.out_tokens, g.out_tokens)

@@ -105,6 +105,18 @@ def test_k3_plain_matches_pallas(m, n, dt):
     np.testing.assert_array_equal(s.numpy(), sn)
 
 
+def test_k3_plain_rms_factor_is_correctly_rounded():
+    """K3's plain factor r = 1 / sqrt(1e-5 + ms) equals numpy's correctly
+    rounded f32 steps on every row (the CUDA kernel's ``__fsqrt_rn``):
+    PyTorch's vectorised f32 sqrt is 1 ulp off on some rows on AVX-512
+    hosts, which broke the exact comparison of test_k3_plain_matches_pallas."""
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal((400, 384)) * rng.uniform(0.01, 30, (400, 1))).astype(np.float32)
+    ss = (x.astype(np.float64) ** 2).sum(-1, keepdims=True).astype(np.float32)
+    want = np.float32(1) / np.sqrt(np.float32(1e-5) + ss * (np.float32(1) / np.float32(384)))
+    np.testing.assert_array_equal(tq.rms_factor(torch.tensor(x)).numpy(), want)
+
+
 def test_k3_takes_weights_of_another_dtype():
     rng = np.random.default_rng(3)
     x = _rows(rng, 16, 128)

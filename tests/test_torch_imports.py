@@ -25,6 +25,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert "tpu_llama_torch.ops._kernels" in mods and "tpu_llama_torch.convert" in mods
     assert "tpu_llama_torch.ops.sampling" in mods and "tpu_llama_torch.device" in mods
     assert "tpu_llama_torch.io.checkpoint" in mods
+    assert "tpu_llama_torch.runtime.paged" in mods and "tpu_llama_torch.runtime.native_pool" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

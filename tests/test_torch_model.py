@@ -260,8 +260,10 @@ def test_random_quant_params_shapes_and_seed():
     for stub in (f.layers.wk, f.layers.wv, f.layers.w3):
         assert isinstance(stub, torch.Tensor) and stub.shape == (2, 1, 1)
     assert tl._fused_layouts(f.layers, cfg) and not tl._fused_layouts(a.layers, cfg)
-    with pytest.raises(NotImplementedError):
-        tl.make_kv_cache(cfg, 2, kv_dtype="int8", paged=True, device="cpu")
+    with pytest.raises(ValueError):  # paged caches are INT8 only, as in JAX
+        tl.make_kv_cache(cfg, 2, kv_dtype="bfloat16", paged=True, device="cpu")
+    assert isinstance(tl.make_kv_cache(cfg, 2, kv_dtype="int8", paged=True, page_size=16,
+                                       device="cpu"), tl.PagedKVCache)
     # start_pos > 0 is ported: the logits of every position, the rows written
     cache = tl.make_kv_cache(cfg, 1, kv_dtype="int8", device="cpu")
     logits, _ = tl.forward_prefill(a, cache, torch.ones(1, 4, dtype=torch.long), torch.ones(1),

@@ -24,7 +24,8 @@ import torch
 from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device
 from tpu_llama_torch.io.checkpoint import RawWeights
-from tpu_llama_torch.models.llama import KVCache, LayerParams, LlamaParams, QuantKVCache
+from tpu_llama_torch.models.llama import (KVCache, LayerParams, LlamaParams, PagedKVCache,
+                                          QuantKVCache)
 from tpu_llama_torch.ops.quant import ChannelQuantTensor, QuantTensor
 
 _LAYER_FIELDS = [f.name for f in dataclasses.fields(LayerParams)]
@@ -89,17 +90,25 @@ def params_to_numpy(params: LlamaParams) -> dict:
 def cache_from_numpy(tree: dict, device=None):
     """``{"k", "v"}`` (an fp cache) or ``{"k", "v", "ks", "vs"}`` (INT8) of
     [L, B, KVH, S, hd] (scales [L, B, KVH, S]) numpy arrays -> a ``KVCache``
-    or ``QuantKVCache`` on ``device`` (None = the card)."""
+    or ``QuantKVCache`` on ``device`` (None = the card); with a
+    ``"page_table"`` [B, MP] beside INT8 pools [L, P, KVH, ps, hd] (scales
+    [L, P, KVH, ps]), a ``PagedKVCache``."""
     dev = resolve_device(device)
     arrays = {n: _tensor(tree[n], dev).contiguous() for n in ("k", "v", "ks", "vs")
               if tree.get(n) is not None}
+    if tree.get("page_table") is not None:
+        pt = torch.from_numpy(np.asarray(tree["page_table"], np.int32)).to(dev)
+        return PagedKVCache(page_table=pt.contiguous(), **arrays)
     return QuantKVCache(**arrays) if "ks" in arrays else KVCache(**arrays)
 
 
 def cache_to_numpy(cache) -> dict:
     """The inverse of ``cache_from_numpy`` (bf16 values come out as float32
-    arrays)."""
-    return {n: _weight_to_numpy(getattr(cache, n)) for n in cache.arrays}
+    arrays; a paged cache's page table as int32)."""
+    out = {n: _weight_to_numpy(getattr(cache, n)) for n in cache.arrays}
+    if isinstance(cache, PagedKVCache):
+        out["page_table"] = cache.page_table.cpu().numpy()
+    return out
 
 
 def raw_weights_from(raw) -> RawWeights:

@@ -122,7 +122,9 @@ __device__ __forceinline__ int8_t quant_i8(float x, float inv) {
 
 // K3's rmsnorm factor r = 1 / sqrt(1e-5 + f32(ss) * f32(1/n)) from the f64
 // sum of squares ss of a row of n values: two correctly rounded operations
-// for 1 / sqrt, as PyTorch's sqrt and reciprocal compute it.
+// for 1 / sqrt.  The plain version (ops/quant.py) takes the sqrt in f64 and
+// rounds it once to f32, because PyTorch's vectorised f32 sqrt is not
+// correctly rounded on AVX-512 hosts (1 ulp off on some rows).
 __device__ __forceinline__ float rms_factor(double ss, long long n) {
     const float ms = __fmul_rn(static_cast<float>(ss), __frcp_rn(static_cast<float>(n)));
     return __frcp_rn(__fsqrt_rn(__fadd_rn(1e-5f, ms)));
@@ -380,12 +382,24 @@ struct DecSmem {
     }
 };
 
-// One decode cell (K9 flash_decode_dma.cu, K12 fused_step2.cu): the G query
-// rows of one (slot, kv head) attend over its cache rows s < p (k and v at
-// kc / vc, rows of hd elements, for an INT8 cache scales ks / vs, row 0
-// first) with an online softmax over blocks of TS rows, then over the fresh
-// row (nk, nks, nv, nvs) as one more column; writes the G x hd outputs to
-// out.  The caller has filled sm.qf and sm.qb; this function's barriers
+// Where a decode cell's key block j starts: its row offset (in rows of hd
+// elements, and in scales) from the cell's kc / vc / ks / vs pointers.  A
+// dense cache's rows are contiguous, so block j starts at row j * TS (K9,
+// K12); K13 (paged_flash_decode_dma.cu) passes a functor that looks the
+// block's page up in the page table.  A block never straddles two pages:
+// TS divides the page size.
+struct DecDenseRows {
+    int TS;
+    __device__ __forceinline__ long long operator()(int j) const { return (long long)j * TS; }
+};
+
+// One decode cell (K9 flash_decode_dma.cu, K12 fused_step2.cu, K13
+// paged_flash_decode_dma.cu): the G query rows of one (slot, kv head)
+// attend over its cache rows s < p (k and v at kc / vc + rows_of(j) rows of
+// hd elements for key block j, for an INT8 cache scales ks / vs at the same
+// row offset) with an online softmax over blocks of TS rows, then over the
+// fresh row (nk, nks, nv, nvs) as one more column; writes the G x hd
+// outputs to out.  The caller has filled sm.qf and sm.qb; this function's barriers
 // publish them.  K and V tiles stream through a two-stage cp.async ring:
 // t = 2j is K block j (with ks and vs) into stage 0, t = 2j + 1 is V block j
 // into stage 1.
@@ -396,11 +410,12 @@ struct DecSmem {
 // f32, with no scales.  The fresh column's score uses qf (times nks) and its
 // value f32(nv) * nvs, merged after the last block (_fresh_tail_merge,
 // attention.py:307-332); nks and nvs are 1 for an fp cache.
-template <typename CT, int CH>
-__device__ void dec_attend(const DecSmem<CT>& sm, const CT* __restrict__ kc,
-                           const CT* __restrict__ vc, const float* __restrict__ ks,
-                           const float* __restrict__ vs, int p, int TS, int G, int hd,
-                           const CT* nk, float nks, const CT* nv, float nvs, float* out) {
+template <typename CT, int CH, class Rows>
+__device__ void dec_attend_rows(const DecSmem<CT>& sm, const CT* __restrict__ kc,
+                                const CT* __restrict__ vc, const float* __restrict__ ks,
+                                const float* __restrict__ vs, int p, int TS, int G, int hd,
+                                const CT* nk, float nks, const CT* nv, float nvs, float* out,
+                                Rows rows_of) {
     constexpr bool kInt8 = sizeof(CT) == 1;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int P = dec_pitch<CT>(hd);
@@ -417,7 +432,7 @@ __device__ void dec_attend(const DecSmem<CT>& sm, const CT* __restrict__ kc,
     auto issue = [&](int t) {
         const int j = t >> 1;
         const int rows = min(TS, p - j * TS);
-        const long long r = (long long)j * TS;
+        const long long r = rows_of(j);
         if (t & 1)
             dec_issue_tile<CH>(sm.vt, vc + r * hd, rows, hd, P, nullptr, nullptr, nullptr, nullptr);
         else if (kInt8)
@@ -494,6 +509,18 @@ __device__ void dec_attend(const DecSmem<CT>& sm, const CT* __restrict__ kc,
             out[e] = (acc[j] * corr + e_new * nvf) / fmaxf(l_fin, 1e-30f);
         }
     }
+}
+
+// dec_attend_rows over a dense cache's contiguous rows (K9, K12).
+template <typename CT, int CH>
+__device__ __forceinline__ void dec_attend(const DecSmem<CT>& sm, const CT* __restrict__ kc,
+                                           const CT* __restrict__ vc,
+                                           const float* __restrict__ ks,
+                                           const float* __restrict__ vs, int p, int TS, int G,
+                                           int hd, const CT* nk, float nks, const CT* nv,
+                                           float nvs, float* out) {
+    dec_attend_rows<CT, CH>(sm, kc, vc, ks, vs, p, TS, G, hd, nk, nks, nv, nvs, out,
+                            DecDenseRows{TS});
 }
 
 extern "C" const char* tl_error_string(int code) {

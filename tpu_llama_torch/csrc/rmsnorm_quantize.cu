@@ -21,8 +21,9 @@
 //   agree bit for bit unless the exact sum lies within ~1e-13 of an f32
 //   rounding boundary.  Every f32 product and sum is an explicit
 //   round-to-nearest intrinsic (nvcc would contract a*b + c into an FMA),
-//   and 1 / sqrt is two correctly rounded operations, as PyTorch's sqrt and
-//   reciprocal compute it.
+//   and 1 / sqrt is two correctly rounded operations.  The plain version
+//   takes that sqrt in f64 and rounds it once to f32 (the same value):
+//   PyTorch's vectorised f32 sqrt is not correctly rounded on AVX-512 hosts.
 //
 // Bound on the H100: bytes.  At the 7B prefill shape, bf16 [4096, 4096],
 // the pass must read 33.6 MB and write 16.8 MB of int8 + 16 KB of scales:

@@ -1,4 +1,4 @@
-"""Llama-2 forward passes over dense KV caches.
+"""Llama-2 forward passes over dense and paged KV caches.
 
 Port of the parts of tpu_llama/models/llama.py that the engine's dense
 layouts run: weights dense (``params_from_raw``, ``random_params``), Q8_0
@@ -69,9 +69,15 @@ are given and return it.  JAX's ``lax.scan`` over stacked layers becomes a
 Python loop over per-layer views.  Weights stay stacked ``[L, ...]``;
 quantized matmul weights are K-major (``q [L, out, in]``).
 
+A paged INT8 cache (``PagedKVCache``: shared page pools and a per-slot
+page table, llama.py:147-209) is decoded by ``decode_stack`` and
+``fused_decode_stack`` through K13 (K20 for ``attn="flash"``) and one K14
+flush per step (llama.py:1237-1276, :1009-1085); mega2 never takes it.  It
+is filled by the engine: a compact prefill, then K15.
+
 Routes the port does not carry yet raise ``NotImplementedError`` naming
 their ROADMAP item: the mega and mega3 decodes (K27, K26), W4A8 weights,
-paged caches.
+the pool-direct paged prefill (``forward_prefill_paged_chunked``, K16, K17).
 """
 
 from __future__ import annotations
@@ -93,6 +99,9 @@ from tpu_llama_torch.ops.attention import (
     flash_prefill_attention,
     kv_cache_flush_rows,
     kv_cache_write_chunk,
+    kv_pool_flush_rows,
+    paged_flash_decode_attention_dma,
+    paged_flash_decode_attention_fresh,
     quantize_kv,
 )
 from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
@@ -229,6 +238,62 @@ class KVCache:
         self.v.zero_()
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """INT8 KV in a shared page pool plus a per-slot page table (llama.py:
+    147-195): values k, v int8 [L, P, KVH, ps, hd], scales ks, vs f32
+    [L, P, KVH, ps], and ``page_table`` int32 [B, MP] mapping each slot's
+    context block j (positions [j * ps, (j + 1) * ps)) to a pool page.
+    Pages are handed out by the host's ``runtime.paged.PagePool``; page 0 is
+    the trash page that parked slots and positions past a reservation land
+    in.  Memory scales with the pages in use, and decode reads scale with
+    each slot's context.  Not a ``QuantKVCache``: the dense kernels (K7, K9,
+    K10, K12, K18, K19) take [L, B, KVH, S, hd] and must never see a pool.
+    Updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+    page_table: torch.Tensor
+
+    @classmethod
+    def create(cls, config: ModelConfig, batch: int, num_pages: int, page_size: int = 512,
+               seq_len: int | None = None, device=None) -> "PagedKVCache":
+        dev = resolve_device(device)
+        S = seq_len or config.seq_len
+        mp = -(-S // page_size)
+        shape = (config.n_layers, num_pages, config.n_kv_heads, page_size, config.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            ks=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            vs=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            page_table=torch.zeros((batch, mp), dtype=torch.int32, device=dev),
+        )
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def seq_len(self) -> int:
+        return self.page_table.shape[1] * self.page_size
+
+    @property
+    def arrays(self) -> tuple[str, ...]:
+        """The names of the pool tensors (the page table is not one)."""
+        return ("k", "v", "ks", "vs")
+
+    def zero_(self) -> None:
+        for t in (self.k, self.v, self.ks, self.vs, self.page_table):
+            t.zero_()
+
+
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
@@ -241,13 +306,21 @@ def kv_torch_dtype(kv_dtype) -> torch.dtype:
 
 
 def make_kv_cache(config: ModelConfig, batch: int, kv_dtype="float32",
-                  seq_len: int | None = None, paged: bool = False, device=None):
+                  seq_len: int | None = None, paged: bool = False, num_pages: int | None = None,
+                  page_size: int = 512, device=None):
     """kv_dtype 'float32' (the default, as in JAX), 'bfloat16' or 'int8'
-    (llama.py:199): a ``KVCache`` or a ``QuantKVCache``.  Paged caches are a
-    later slice."""
-    if paged:
-        raise NotImplementedError("paged KV cache: ROADMAP queue 1 item 8")
+    (llama.py:199): a ``KVCache`` or a ``QuantKVCache``; with ``paged`` a
+    ``PagedKVCache`` of ``num_pages`` pages (default: the dense equivalent,
+    batch * ceil(S / page_size)) of ``page_size`` rows, which requires
+    int8."""
     dt = kv_torch_dtype(kv_dtype)
+    if paged:
+        if dt != torch.int8:
+            raise ValueError("paged KV cache requires kv_dtype='int8'")
+        S = seq_len or config.seq_len
+        n = num_pages or batch * (-(-S // page_size))
+        return PagedKVCache.create(config, batch, n, page_size=page_size, seq_len=S,
+                                   device=device)
     if dt == torch.int8:
         return QuantKVCache.create(config, batch, seq_len=seq_len, device=device)
     return KVCache.create(config, batch, dtype=dt, seq_len=seq_len, device=device)
@@ -565,7 +638,7 @@ def _cache_rows(cache, k, v) -> dict:
     """A step's (or a block's) K/V as the cache stores them, by array name:
     quantized with their scales for an INT8 cache, cast to the cache's
     dtype for an fp one (llama.py:1301-1313)."""
-    if isinstance(cache, QuantKVCache):
+    if isinstance(cache, (QuantKVCache, PagedKVCache)):
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
         return {"k": kq, "v": vq, "ks": ks, "vs": vs}
     return {"k": k.to(cache.k.dtype), "v": v.to(cache.v.dtype)}
@@ -603,26 +676,54 @@ def _resolve_decode_attn(attn: str, cache) -> str:
     batch 1 or 8 (the A/B in PERF.md), so the TPU's batch-1 exception is
     not carried, nor its ``head_dim % 128`` gate (the CUDA kernels take any
     head_dim up to 128 whose cache rows are a multiple of 4 bytes).  The
-    same on INT8 and fp caches."""
+    same on INT8 and fp caches.  On a paged cache ``"auto"`` is K13
+    (``"flash_dma"``) on the card and, on the CPU, JAX's rule (llama.py:
+    1125-1126): ``"flash_dma"`` where head_dim % 128 == 0, else ``"flash"``
+    (K20), so that CPU streams equal the JAX engine's at small head dims.
+    A paged cache has no ``"xla"`` path: it decodes through K13 there, as
+    in JAX (``_decode_attend``)."""
     if attn not in DECODE_ATTN:
         raise ValueError(f"decode attention {attn!r}: want one of {DECODE_ATTN}")
     if attn != "auto":
         return attn
+    if isinstance(cache, PagedKVCache):
+        if cache.k.device.type == "cuda" or cache.k.shape[-1] % 128 == 0:
+            return "flash_dma"
+        return "flash"
     return "flash_dma" if cache.k.device.type == "cuda" else "xla"
 
 
+def _decode_attend(attn: str, cache):
+    """The deferred-flush decode attention that ``attn`` runs on ``cache``:
+    K9 for ``"flash_dma"`` and K19 for ``"flash"`` on a dense cache; on a
+    paged one K20 for ``"flash"`` and K13 for anything else (llama.py:
+    1241-1247)."""
+    if isinstance(cache, PagedKVCache):
+        return paged_flash_decode_attention_fresh if attn == "flash" else \
+            paged_flash_decode_attention_dma
+    return flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
+
+
 def _attend_fresh(attend, q, cache, pos32, fresh: dict, layer: int):
-    """One deferred-flush attention call (K9 or K19, INT8 or fp form) of
-    ``layer`` over the cache's rows < pos plus the step's ``fresh`` rows
-    (``_cache_rows``)."""
+    """One deferred-flush attention call (K9 or K19, INT8 or fp form; K13
+    or K20 on a paged cache) of ``layer`` over the cache's rows < pos plus
+    the step's ``fresh`` rows (``_cache_rows``)."""
+    if isinstance(cache, PagedKVCache):
+        return attend(q, cache.k, cache.v, cache.ks, cache.vs, cache.page_table, pos32,
+                      fresh["k"], fresh["v"], fresh["ks"], fresh["vs"], layer=layer)
     return attend(q, cache.k, cache.v, pos32, fresh["k"], fresh["v"], cache.ks, cache.vs,
                   fresh.get("ks"), fresh.get("vs"), layer=layer)
 
 
 def _flush(cache, rows: list, pos32) -> None:
-    """One K10 flush of every layer's fresh rows (each layer's
-    ``_cache_rows``) at pos: one [L, ...] stack per array, then K10."""
+    """One flush of every layer's fresh rows (each layer's ``_cache_rows``)
+    at pos: one [L, ...] stack per array, then K10 (K14 on a paged
+    cache)."""
     st = {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+    if isinstance(cache, PagedKVCache):
+        kv_pool_flush_rows(st["k"], st["v"], st["ks"], st["vs"], pos32, cache.page_table,
+                           cache.k, cache.v, cache.ks, cache.vs)
+        return
     kv_cache_flush_rows(st["k"], st["v"], pos32, cache.k, cache.v, st.get("ks"), st.get("vs"),
                         cache.ks, cache.vs)
 
@@ -634,15 +735,18 @@ def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConf
     for ``attn="xla"``, in one K10 flush after the layer loop for the
     deferred-flush ``"flash"`` (K19) and ``"flash_dma"`` (K9).  On an fp
     cache the fresh rows are cast to its dtype and the kernels' fp forms
-    run (llama.py:1308-1327)."""
+    run (llama.py:1308-1327).  On a paged cache (llama.py:1237-1276) every
+    mode is deferred-flush: the pool is read-only during the layer loop,
+    each layer attends through K13 (K20 for ``"flash"``), and one K14 flush
+    writes every layer's row after it."""
     B = x.shape[0]
     attn = _resolve_decode_attn(attn, cache)
     NH, KVH, G, hd = config.n_heads, config.n_kv_heads, config.group_size, config.head_dim
     L = layers.rms_att.shape[0]
-    flash = attn != "xla"
+    flash = attn != "xla" or isinstance(cache, PagedKVCache)
     if flash:
-        attend = flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
-        pos32 = pos.to(torch.int32)  # once per step, read on the device by K9/K19/K10
+        attend = _decode_attend(attn, cache)
+        pos32 = pos.to(torch.int32)  # once per step, read on the device by the kernels
         rows = []  # each layer's fresh rows, for the flush (the JAX scan's ys)
     for i in range(L):
         lp = layers.layer(i)
@@ -752,8 +856,10 @@ def _split_rope(qkv, cos, sin, config: ModelConfig):
 
 def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: ModelConfig,
                        attn: str):
-    """The two-launch fused decode layer stack, dense-cache branches
-    (llama.py:978-1096): x0 [B, D] in -> x f32 [B, D].  Per layer the
+    """The two-launch fused decode layer stack (llama.py:978-1096): x0
+    [B, D] in -> x f32 [B, D].  On a paged cache the attention is K13 (K20
+    for ``"flash"``) and the flush K14 (llama.py:1009-1018, 1049-1054,
+    1079-1085).  Per layer the
     attention (K9 for ``"flash_dma"``, K19 for ``"flash"``; their fp forms
     on an fp cache, the fresh rows cast to its dtype) on the qkv the
     previous K11 launch left, K2 on its output, then K11 (the layer's linear
@@ -762,7 +868,7 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
     One K10 flush writes every layer's row after the loop."""
     B, D = x0.shape
     L = layers.rms_att.shape[0]
-    attend = flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
+    attend = _decode_attend(attn, cache)
     pos32 = pos.to(torch.int32)
     x = x0.float()
     qkv = _decode_prologue(layers, x, config)
@@ -1022,6 +1128,23 @@ def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos
     return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
+def _dense_only(cache, name: str) -> None:
+    """The prefills write a dense cache; a paged one is filled through a
+    compact block and K15 (``Engine``), or pool-direct."""
+    if isinstance(cache, PagedKVCache):
+        raise NotImplementedError(
+            f"{name} on a paged cache: prefill a compact cache and land it with "
+            "kv_pool_scatter_pages (Engine does), or the pool-direct forward_prefill_paged_"
+            "chunked (K16, K17): ROADMAP queue 1 item 8")
+
+
+def forward_prefill_paged_chunked(*args, **kwargs):
+    """The pool-direct chunked prefill (llama.py:1772-2011, K16 and K17):
+    not ported yet."""
+    raise NotImplementedError("forward_prefill_paged_chunked (pool-direct admission, K16, "
+                              "K17): ROADMAP queue 1 item 8")
+
+
 def _logits(params: LlamaParams, x, precision: str = "highest"):
     """Final rmsnorm, then the classifier (``matmul_any``), in f32."""
     return matmul_any(rmsnorm(x, params.rms_final), params.wcls, precision=precision).float()
@@ -1052,6 +1175,7 @@ def forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor, start_pos:
     (the TPU's gates of llama.py:2108-2110 are Mosaic rules); everything
     else takes the unfused body.  ``precision`` reaches dense float32
     products (``dense_matmul``)."""
+    _dense_only(cache, "forward_prefill")
     if assume_fresh:
         return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode,
                                       precision)
@@ -1101,6 +1225,7 @@ def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
     ``forward_prefill(start_pos=i * chunk)`` per chunk (llama.py:1580-1596).
     Each chunk computes its last-token logits; each row keeps those of the
     chunk that holds its final token."""
+    _dense_only(cache, "forward_prefill_chunked")
     B, T = tokens.shape
     if chunk <= 0 or T % chunk:
         raise ValueError(f"{T} prompt rows are not a multiple of the chunk {chunk}")

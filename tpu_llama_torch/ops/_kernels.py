@@ -70,6 +70,17 @@ SOURCES = {
                     [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I, _P]),
     # the above, then k, v, ks, vs, pos, cos, sin, att, attq_next, satt_next, kq, ks_new,
     # vq, vs_new, KVH, G, hd, S, layer_next, TS, 1/sqrt(hd), copy chunk, stream
+    # q, q dtype, k, v, ks, vs, page_table, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, P,
+    # ps, MP, hd, [TS,] sqrt(hd), copy chunk, stream
+    "paged_flash_decode_dma": ("tl_paged_flash_decode_dma",
+                               [_P, _I, *[_P] * 11, *[_I] * 9, ctypes.c_float, _I, _P]),
+    "paged_flash_decode_fresh": ("tl_paged_flash_decode_fresh",
+                                 [_P, _I, *[_P] * 11, *[_I] * 8, ctypes.c_float, _I, _P]),
+    # rk, rv, rks, rvs, pos, page_table, ck, cv, cks, cvs, L, B, KVH, P, ps, MP, hd, vec, stream
+    "kv_pool_flush_rows": ("tl_kv_pool_flush_rows", [*[_P] * 10, *[_I] * 8, _P]),
+    # sk, sv, sks, svs, slots, page_table, ck, cv, cks, cvs, L, n, KVH, T, hd, P, ps, MP, vec,
+    # stream
+    "kv_pool_scatter": ("tl_kv_pool_scatter", [*[_P] * 10, *[_I] * 9, _P]),
     "fused_step2": ("tl_fused_step2_layer",
                     [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
                      *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]),
@@ -81,7 +92,9 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K4": "silu_mul_quantize", "K5": "rope_split_quantize", "K6": "flash_prefill",
            "K7": "kv_scatter", "K8": "w8a8_matmul", "K9": "flash_decode_dma",
            "K10": "kv_flush_rows", "K11": "fused_layer", "K12": "fused_step2",
-           "K18": "kv_write_chunk", "K19": "flash_decode_fresh", "K25": "q8_matmul"}
+           "K13": "paged_flash_decode_dma", "K14": "kv_pool_flush_rows", "K15": "kv_pool_scatter",
+           "K18": "kv_write_chunk", "K19": "flash_decode_fresh", "K20": "paged_flash_decode_fresh",
+           "K25": "q8_matmul"}
 FP_FORMS = ("K6", "K7", "K9", "K10", "K19")  # kernels with an fp-cache form
 _FORM_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNELS.update({f"{k}:{sfx}": KERNELS[k] for k in FP_FORMS for sfx in _FORM_SUFFIX.values()})

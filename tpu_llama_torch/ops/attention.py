@@ -1,13 +1,17 @@
 """INT8 KV quantization, causal prefill attention (K6), the slot scatter
 that admits a prefilled block into the cache (K7), the chunk write of
-chunked prefill (K18), and the deferred-flush decode attention (K9, K19)
-with its per-step row flush (K10).
+chunked prefill (K18), the deferred-flush decode attention (K9, K19) with
+its per-step row flush (K10), and their paged counterparts over a page pool
+(K15 page scatter, K13 and K20 decode attention, K14 row flush).
 
 Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
 ``flash_prefill_attention`` (:1654), ``kv_cache_scatter_slots`` (:1212),
 ``kv_cache_write_chunk`` (:2102), ``flash_decode_attention_dma`` (:335),
 ``flash_decode_attention_fresh`` (:807) and ``kv_cache_flush_rows``
-(:2470).  K6, K7, K9, K19 and K10 take an INT8 cache (int8 values with f32
+(:2470); ``kv_pool_scatter_pages`` (:1095), ``paged_flash_decode_attention_dma``
+(:466), ``paged_flash_decode_attention_fresh`` (:1012) and
+``kv_pool_flush_rows`` (:1301), INT8 only, as in JAX.  K6, K7, K9, K19 and
+K10 take an INT8 cache (int8 values with f32
 per-row scales) or an fp one (float32 or bfloat16, no scales), as the JAX
 functions do; each CUDA kernel is templated on the cache type, and the fp
 forms count their launches under their own ids (``K6:f32``, ``K6:bf16``,
@@ -22,7 +26,7 @@ import torch
 
 from tpu_llama_torch.device import upload
 from tpu_llama_torch.ops import _kernels
-from tpu_llama_torch.ops.quant import _absmax_quant
+from tpu_llama_torch.ops.quant import _absmax_quant, sqrt_f32
 
 _NEG_INF = -1e30
 
@@ -121,7 +125,7 @@ def flash_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
     ks, vs = (None, None) if k_scale is None else (k_scale.contiguous(), v_scale.contiguous())
     st = start_pos.to(torch.int32).contiguous()
     out = torch.empty((B, T, NH * hd), dtype=out_dtype, device=q.device)
-    sqrt_hd = float(torch.tensor(hd, dtype=torch.float32).sqrt())  # jnp.sqrt(f32(hd))
+    sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
                     _kernels.cache_code(kc.dtype), kc.data_ptr(), vc.data_ptr(), _ptr(ks),
                     _ptr(vs), st.data_ptr(), out.data_ptr(), _kernels.dtype_code(out_dtype), B, T,
@@ -299,7 +303,7 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 def _scaled_q(q: torch.Tensor) -> torch.Tensor:
     """qs = f32(q) / sqrt(f32(hd)) (attention.py:378, :848)."""
     hd = q.shape[-1]
-    return q.float() / torch.tensor(hd, dtype=torch.float32, device=q.device).sqrt()
+    return q.float() / sqrt_f32(hd).to(q.device)
 
 
 def _dma_block(S: int, block_s: int | None, itemsize: int = 1) -> int:
@@ -489,7 +493,7 @@ def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_sc
     nks, nvs = (None, None) if new_ks is None else (new_ks.contiguous(), new_vs.contiguous())
     p32 = pos.to(torch.int32).contiguous()  # no copy for the model's int32 positions
     out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
-    sqrt_hd = float(torch.tensor(hd, dtype=torch.float32).sqrt())  # jnp.sqrt(f32(hd))
+    sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
                     _kernels.cache_code(k_cache.dtype), k_cache.data_ptr(), v_cache.data_ptr(),
                     _ptr(k_scale), _ptr(v_scale), p32.data_ptr(), nk.data_ptr(), nv.data_ptr(),
@@ -612,3 +616,298 @@ def kv_cache_flush_rows(rows_k, rows_v, pos, ck, cv, rows_ks=None, rows_vs=None,
                     _kernels.cache_code(ck.dtype), L, B, KVH, S, hd, int(vec),
                     _kernels.stream(ck))
     return (ck, cv, cks, cvs) if int8 else (ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# The paged INT8 cache (models.llama.PagedKVCache): pools k, v int8
+# [L, P, KVH, ps, hd] and scales ks, vs f32 [L, P, KVH, ps]; slot b's
+# position s lives in page page_table[b, s // ps], row s % ps; page 0 is the
+# trash page.  K15 lands a compact prefilled block in the pool, K13 / K20
+# attend over the pages below each slot's pos plus the step's fresh row, and
+# K14 writes the step's rows (attention.py:466, :1012, :1095, :1301).
+# ---------------------------------------------------------------------------
+
+
+def _check_pool(name, ck, cv, cks, cvs, page_table):
+    """Validate a pool [L, P, KVH, ps, hd] with scales [L, P, KVH, ps] and
+    a page table int32 [B, MP]; returns (L, P, KVH, ps, hd, B, MP)."""
+    if ck.dim() != 5 or page_table.dim() != 2:
+        raise ValueError(f"{name}: want pools [L, P, KVH, ps, hd] and page_table [B, MP]")
+    L, P, KVH, ps, hd = ck.shape
+    if cv.shape != ck.shape or cks.shape != (L, P, KVH, ps) or cvs.shape != cks.shape:
+        raise ValueError(f"{name}: pool shape mismatch: k {tuple(ck.shape)}, v {tuple(cv.shape)}, "
+                         f"ks {tuple(cks.shape)}, vs {tuple(cvs.shape)}")
+    if ck.dtype != torch.int8 or cv.dtype != torch.int8 or any(
+            t.dtype != torch.float32 for t in (cks, cvs)):
+        raise TypeError(f"{name}: a paged cache is int8 with float32 scales")
+    if page_table.dtype != torch.int32:
+        raise TypeError(f"{name}: the page table is int32")
+    return (L, P, KVH, ps, hd, *page_table.shape)
+
+
+def _pool_in_place(name, *pools) -> None:
+    if not all(t.is_contiguous() for t in pools):
+        raise ValueError(f"{name} writes the pool in place: it must be contiguous")
+
+
+def kv_pool_scatter_pages_plain(small_k, small_v, small_ks, small_vs, slots, page_table, ck, cv,
+                                cks, cvs):
+    """Plain version of K15: T padded with zeros to whole pages, then one
+    indexed copy of whole pages per array, in place (several slots' pages
+    past their reservation all land on page 0, in no set order)."""
+    L, n, KVH, T, hd = small_k.shape
+    ps = ck.shape[3]
+    npg = -(-T // ps)
+    sl = torch.as_tensor(slots, dtype=torch.long, device=page_table.device)
+    pages = page_table[sl][:, :npg].long().to(ck.device)  # [n, npg]
+    pairs = ((ck, small_k), (cv, small_v), (cks, small_ks), (cvs, small_vs))
+    for dst, src in pairs:
+        pad = (0, 0, 0, npg * ps - T) if src.dim() == 5 else (0, npg * ps - T)
+        blk = torch.nn.functional.pad(src, pad)  # [L, n, KVH, npg * ps(, hd)]
+        blk = blk.reshape(L, n, KVH, npg, ps, *src.shape[4:]).transpose(2, 3)
+        dst[:, pages] = blk.to(dst.dtype)
+    return ck, cv, cks, cvs
+
+
+def kv_pool_scatter_pages(small_k, small_v, small_ks, small_vs, slots, page_table, ck, cv, cks,
+                          cvs):
+    """Land a compact prefilled INT8 block in the page pool, whole pages at a
+    time, IN PLACE: page j of block slot i (rows [j * ps, (j + 1) * ps) of
+    small_k[:, i], zero past T) over pool page ``page_table[slots[i], j]``,
+    for K, V and both scale arrays.  small_k/small_v int8 [L, n, KVH, T, hd],
+    small_ks/small_vs f32 [L, n, KVH, T]; slots n host ints (distinct, < B;
+    a tensor is read back to the host for the check); page_table int32
+    [B, MP] on the pool's device; pools as ``PagedKVCache``.  A page past a
+    slot's reservation is 0 in the table: those rows land on the trash
+    page.  Returns the (updated) pools.  K15 on CUDA tensors, the plain
+    version on CPU ones."""
+    L, P, KVH, ps, hd, B, MP = _check_pool("kv_pool_scatter_pages", ck, cv, cks, cvs, page_table)
+    if small_k.dim() != 5:
+        raise ValueError("kv_pool_scatter_pages: want small_k [L, n, KVH, T, hd]")
+    n, T = small_k.shape[1], small_k.shape[3]
+    if (small_k.shape != (L, n, KVH, T, hd) or small_v.shape != small_k.shape
+            or small_ks.shape != (L, n, KVH, T) or small_vs.shape != small_ks.shape):
+        raise ValueError(f"kv_pool_scatter_pages: block {tuple(small_k.shape)}, scales "
+                         f"{tuple(small_ks.shape)}, pool {tuple(ck.shape)}")
+    if any(t.dtype != torch.int8 for t in (small_k, small_v)) or any(
+            t.dtype != torch.float32 for t in (small_ks, small_vs)):
+        raise TypeError("kv_pool_scatter_pages takes int8 K/V and float32 scales")
+    if T > MP * ps:
+        raise ValueError(f"a block of {T} rows does not fit {MP} pages of {ps}")
+    idx = [int(s) for s in (slots.tolist() if isinstance(slots, torch.Tensor) else slots)]
+    if len(idx) != n or any(not 0 <= s < B for s in idx) or len(set(idx)) != n:
+        raise ValueError(f"slots {idx}: want {n} distinct slots in [0, {B})")
+    if _kernels.on_cpu("K15", small_k, small_v, small_ks, small_vs, page_table, ck, cv, cks, cvs):
+        return kv_pool_scatter_pages_plain(small_k, small_v, small_ks, small_vs, idx, page_table,
+                                           ck, cv, cks, cvs)
+    _pool_in_place("K15", ck, cv, cks, cvs)
+    sk, sv, sks, svs = (t.contiguous() for t in (small_k, small_v, small_ks, small_vs))
+    pt = page_table.contiguous()
+    sl = upload(idx, ck.device, torch.int32)
+    vec = _vec16(hd, sk, sv, ck, cv)
+    _kernels.launch("K15", sk.data_ptr(), sv.data_ptr(), sks.data_ptr(), svs.data_ptr(),
+                    sl.data_ptr(), pt.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
+                    cvs.data_ptr(), L, n, KVH, T, hd, P, ps, MP, int(vec), _kernels.stream(ck))
+    return ck, cv, cks, cvs
+
+
+def _flush_targets(pos, page_table, P: int, ps: int):
+    """The slots K14 writes and where: (slots, pages, rows).  A negative pos
+    or a page id outside [0, P) is skipped; a position past the table goes
+    to page 0."""
+    MP = page_table.shape[1]
+    p = pos.long()
+    col = torch.div(p, ps, rounding_mode="floor")
+    page = torch.where(col < MP, page_table.long().gather(1, col.clamp(0, MP - 1)[:, None])[:, 0],
+                       0)
+    ok = ((p >= 0) & (page >= 0) & (page < P)).nonzero().flatten()
+    return ok, page[ok], p[ok] % ps
+
+
+def kv_pool_flush_rows_plain(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv, cks,
+                             cvs):
+    """Plain version of K14: one indexed write per array, in place."""
+    L, B, KVH, _ = rows_k.shape
+    ok, page, row = _flush_targets(pos, page_table, ck.shape[1], ck.shape[3])
+    l_ix = torch.arange(L, device=ck.device)[:, None, None]
+    h_ix = torch.arange(KVH, device=ck.device)[None, None, :]
+    pg, r = page[None, :, None], row[None, :, None]
+    for dst, src in ((ck, rows_k), (cv, rows_v), (cks, rows_ks), (cvs, rows_vs)):
+        dst[l_ix, pg, h_ix, r] = src[:, ok]
+    return ck, cv, cks, cvs
+
+
+def kv_pool_flush_rows(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv, cks, cvs):
+    """Write every layer's fresh INT8 row IN PLACE at each slot's position:
+    ``ck[l, page, :, pos[b] % ps] = rows_k[l, b]`` with ``page =
+    page_table[b, pos[b] // ps]`` for K, V and both scale arrays.  rows_k /
+    rows_v int8 [L, B, KVH, hd], rows_ks / rows_vs f32 [L, B, KVH], pos [B]
+    and page_table int32 [B, MP] (read on the device); pools as
+    ``PagedKVCache``.  A position past the table goes to the trash page 0
+    (attention.py:1324-1330), so does a parked slot (its table row is 0); a
+    negative pos, or a page id outside [0, P), is skipped (the JAX package
+    leaves both undefined).  Returns the (updated) pools.  K14 on CUDA
+    tensors, the plain version on CPU ones."""
+    L, P, KVH, ps, hd, B, MP = _check_pool("kv_pool_flush_rows", ck, cv, cks, cvs, page_table)
+    if (rows_k.shape != (L, B, KVH, hd) or rows_v.shape != rows_k.shape
+            or rows_ks.shape != (L, B, KVH) or rows_vs.shape != rows_ks.shape
+            or pos.shape != (B,)):
+        raise ValueError(f"kv_pool_flush_rows: rows {tuple(rows_k.shape)}, scales "
+                         f"{tuple(rows_ks.shape)}, pos {tuple(pos.shape)}, pool {tuple(ck.shape)}")
+    if any(t.dtype != torch.int8 for t in (rows_k, rows_v)) or any(
+            t.dtype != torch.float32 for t in (rows_ks, rows_vs)):
+        raise TypeError("kv_pool_flush_rows takes int8 rows and float32 scales")
+    arrays = (rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv, cks, cvs)
+    if _kernels.on_cpu("K14", *arrays):
+        return kv_pool_flush_rows_plain(*arrays)
+    _pool_in_place("K14", ck, cv, cks, cvs)
+    rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
+    p32 = pos.to(torch.int32).contiguous()
+    pt = page_table.contiguous()
+    vec = _vec16(hd, rk, rv, ck, cv)
+    _kernels.launch("K14", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
+                    p32.data_ptr(), pt.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
+                    cvs.data_ptr(), L, B, KVH, P, ps, MP, hd, int(vec), _kernels.stream(ck))
+    return ck, cv, cks, cvs
+
+
+def _paged_block(ps: int) -> int:
+    """K13's key block: min(256, ps), halved until it divides ps
+    (attention.py:487-489)."""
+    ts = min(256, ps)
+    while ps % ts:
+        ts //= 2
+    return ts
+
+
+def paged_view(pool, page_table, layer: int):
+    """Layer ``layer`` of a pool [L, P, KVH, ps(, hd)] as each slot's dense
+    rows [1, B, KVH, MP * ps(, hd)] through the page table (a page id
+    outside [0, P) reads page 0, as the kernels do): the cache the plain
+    decode attention walks."""
+    P, ps = pool.shape[1], pool.shape[3]
+    pt = page_table.long().to(pool.device)
+    pt = torch.where((pt >= 0) & (pt < P), pt, 0)
+    B, MP = pt.shape
+    v = pool[layer][pt]  # [B, MP, KVH, ps(, hd)]
+    return v.transpose(1, 2).reshape(B, v.shape[2], MP * ps, *v.shape[4:])[None]
+
+
+def _check_paged_decode(name, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v,
+                        new_ks, new_vs, layer):
+    """Validate a paged decode-attention call; returns the layer as a host
+    int."""
+    L, P, KVH, ps, hd, B, MP = _check_pool(name, k_pool, v_pool, k_scale, v_scale, page_table)
+    if (q.dim() != 4 or q.shape[:2] != (B, KVH) or q.shape[3] != hd or pos.shape != (B,)
+            or new_k.shape != (B, KVH, hd) or new_v.shape != new_k.shape
+            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape):
+        raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, "
+                         f"page_table {tuple(page_table.shape)}, new_k {tuple(new_k.shape)}")
+    if any(t.dtype != torch.int8 for t in (new_k, new_v)) or any(
+            t.dtype != torch.float32 for t in (new_ks, new_vs)):
+        raise TypeError(f"{name}: the fresh rows are int8 with float32 scales")
+    layer = 0 if layer is None else int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    return layer
+
+
+def _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer: int, ts: int):
+    """K9's online softmax (``decode_online_softmax``) over the slots' pages
+    of ``layer`` as dense rows, key blocks of ``ts`` rows; returns
+    (qs, acc, m, l)."""
+    qs = _scaled_q(q)
+    views = [paged_view(a, page_table, layer) for a in (k_pool, v_pool, k_scale, v_scale)]
+    return (qs, *decode_online_softmax(_bf16(qs), *views, pos, 0, ts))
+
+
+def paged_flash_decode_attention_dma_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
+                                           new_k, new_v, new_ks, new_vs, layer=0):
+    """Plain version of K13: K9's plain version over the pages, key blocks
+    of min(256, ps) rows."""
+    qs, acc, m, l = _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer,
+                                  _paged_block(k_pool.shape[3]))
+    return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
+
+
+def paged_flash_decode_attention_fresh_plain(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                             pos, new_k, new_v, new_ks, new_vs, layer=0):
+    """Plain version of K20: the online softmax with whole pages as key
+    blocks, then the fresh column merged in the TPU kernel's order
+    (attention.py:104-120): e_new scaled by nvs before the product with nv."""
+    qs, acc, m, l = _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer,
+                                  k_pool.shape[3])
+    s_new = (qs * new_k.float()[:, :, None, :]).sum(-1) * new_ks[:, :, None]
+    m_fin = torch.maximum(m, s_new)
+    corr = torch.exp(m - m_fin)
+    e_new = torch.exp(s_new - m_fin)
+    l_fin = l * corr + e_new
+    e_new = e_new * new_vs[:, :, None]
+    return ((acc * corr[..., None] + e_new[..., None] * new_v.float()[:, :, None, :])
+            / torch.clamp_min(l_fin, 1e-30)[..., None])
+
+
+def _launch_paged_decode(kernel, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k,
+                         new_v, new_ks, new_vs, layer, *block):
+    """Launch K13 (``block`` = its key block rows) or K20 on CUDA tensors."""
+    B, KVH, G, hd = q.shape
+    L, P, _, ps, _ = k_pool.shape
+    MP = page_table.shape[1]
+    if G > 8 or hd > 128:
+        raise NotImplementedError(f"{kernel} takes up to 8 query heads per kv head and "
+                                  f"head_dim <= 128, got G={G}, hd={hd}")
+    ch = launch_chunk(kernel, k_pool, v_pool, hd, k_scale, v_scale)
+    qc = q.contiguous()
+    nk, nv, nks, nvs = (t.contiguous() for t in (new_k, new_v, new_ks, new_vs))
+    p32 = pos.to(torch.int32).contiguous()
+    pt = page_table.contiguous()
+    out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
+    _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_pool.data_ptr(),
+                    v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), pt.data_ptr(),
+                    p32.data_ptr(), nk.data_ptr(), nv.data_ptr(), nks.data_ptr(), nvs.data_ptr(),
+                    out.data_ptr(), layer, B, KVH, G, P, ps, MP, hd, *block, sqrt_hd, ch,
+                    _kernels.stream(qc))
+    return out
+
+
+def paged_flash_decode_attention_dma(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k,
+                                     new_v, new_ks, new_vs, layer=None) -> torch.Tensor:
+    """Deferred-flush decode attention over a page pool that reads only the
+    pages below each slot's pos (K13; the JAX function's argument order).
+    q [B, KVH, G, hd] raw queries (f32 or bf16); pools and page_table as
+    ``PagedKVCache``; pos [B]; the step's fresh rows new_k/new_v int8
+    [B, KVH, hd] with scales [B, KVH]; ``layer`` a host int.  Cache row s
+    attends iff s < pos[b]; the fresh row is one more column.  K9's
+    arithmetic over key blocks of min(256, ps) rows.  Returns f32
+    [B, KVH, G, hd].  K13 on CUDA tensors, the plain version on CPU ones."""
+    args = (q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v, new_ks, new_vs)
+    layer = _check_paged_decode("paged_flash_decode_attention_dma", *args, layer)
+    if _kernels.on_cpu("K13", *args):
+        return paged_flash_decode_attention_dma_plain(*args, layer=layer)
+    return _launch_paged_decode("K13", *args, layer, _paged_block(k_pool.shape[3]))
+
+
+def paged_flash_decode_attention_fresh(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
+                                       new_k, new_v, new_ks, new_vs, layer=None) -> torch.Tensor:
+    """The contract of :func:`paged_flash_decode_attention_dma` (K20), with
+    the TPU kernel's whole-page key blocks: an online softmax over the
+    slot's pages below pos, the fresh column merged after the last one.
+    Returns f32 [B, KVH, G, hd].  K20 on CUDA tensors (a page's G x ps
+    scores in shared memory, so G x ps is bounded), the plain version on CPU
+    ones."""
+    args = (q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v, new_ks, new_vs)
+    layer = _check_paged_decode("paged_flash_decode_attention_fresh", *args, layer)
+    if _kernels.on_cpu("K20", *args):
+        return paged_flash_decode_attention_fresh_plain(*args, layer=layer)
+    ps = k_pool.shape[3]
+    if ps > 128 and ps % 128:
+        raise NotImplementedError(f"K20 takes pages of at most 128 rows or a multiple of 128, "
+                                  f"got {ps}")
+    return _launch_paged_decode("K20", *args, layer)
+
+
+def paged_flash_decode_attention(*args, **kwargs):
+    """K22 (attention.py:933), the paged write-then-attend decode attention
+    that no path of the JAX package calls: not ported yet."""
+    raise NotImplementedError("paged_flash_decode_attention (K22): ROADMAP queue 1 item 8")

@@ -34,12 +34,13 @@ from tpu_llama_torch.ops.fused_layer import (
     layer_views,
     linear_phases_plain,
 )
-from tpu_llama_torch.ops.quant import ChannelQuantTensor, quantize_activations_plain, rope_f32
+from tpu_llama_torch.ops.quant import (ChannelQuantTensor, quantize_activations_plain, rope_f32,
+                                       sqrt_f32)
 
 
 def inv_sqrt_hd(hd: int) -> float:
     """f32(1 / sqrt(f32(hd))), as ``1.0 / jnp.sqrt(jnp.float32(hd))`` (:152)."""
-    return float(torch.tensor(1.0) / torch.tensor(float(hd)).sqrt())
+    return float(torch.tensor(1.0) / sqrt_f32(hd))
 
 
 def _outputs(B, D, KVH, hd, dev, out):

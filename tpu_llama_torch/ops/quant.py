@@ -179,6 +179,17 @@ def _recip_f32(n: float) -> float:
 _RECIP_127 = _recip_f32(127)
 
 
+def sqrt_f32(a) -> torch.Tensor:
+    """The correctly rounded f32 square root of f32 values ``a``, as CUDA's
+    ``__fsqrt_rn`` and numpy's ``np.sqrt`` give it: taken in f64 and
+    rounded once to f32 (double rounding is innocuous for sqrt: f64 has more
+    than 2 * 24 + 2 bits).  PyTorch's vectorised f32 ``torch.sqrt`` is not
+    correctly rounded on every CPU (1 ulp off on some rows on AVX-512
+    hosts), so a plain version that must equal a kernel bit for bit does
+    not use it."""
+    return torch.sqrt(torch.as_tensor(a, dtype=torch.float32).double()).float()
+
+
 def _absmax_quant(xf: torch.Tensor, dim: int, jitted: bool = True):
     """Symmetric absmax INT8 over ``dim`` of an f32 tensor -> (q, s).
     ``jitted`` picks the scale as the JAX package computes it inside jit
@@ -260,9 +271,16 @@ def rmsnorm_quantize_plain(x: torch.Tensor, w: torch.Tensor):
     f64), ``xf = (x * (1 / sqrt(1e-5 + ms))) * w`` in f32, then the row
     quant: (q int8 [M, IN], s f32 [M])."""
     x32 = x.float()
+    return _absmax_quant((x32 * rms_factor(x32)) * w.float(), dim=-1)
+
+
+def rms_factor(x32: torch.Tensor) -> torch.Tensor:
+    """K3's rmsnorm factor of each f32 row, [..., 1]: r = 1 / sqrt(1e-5 +
+    f32(ss) * f32(1/IN)) with the sum of squares ss in f64, the sqrt
+    correctly rounded (``sqrt_f32``), the reciprocal in f32 (common.cuh
+    ``rms_factor``)."""
     ss = (x32.double() * x32.double()).sum(dim=-1, keepdim=True).float()
-    r = torch.sqrt(1e-5 + ss * _recip_f32(x.shape[-1])).reciprocal()
-    return _absmax_quant((x32 * r) * w.float(), dim=-1)
+    return sqrt_f32(1e-5 + ss * _recip_f32(x32.shape[-1])).reciprocal()
 
 
 def rmsnorm_quantize(x: torch.Tensor, w: torch.Tensor):

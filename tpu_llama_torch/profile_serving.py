@@ -29,7 +29,15 @@ together, as "K1+K8".  Then (c) the long-prompt path: one admission of 8
 prompts of 2048 tokens (16 384 rows: the chunked prefill, 8 chunks of 256,
 K18 landing each chunk) and one device-sampled decode chunk of 16 steps of
 all 8 slots at position 1024 (``decode_sample_chunk``: mega2 decode plus
-the threefry sampler, the scheduler's ``max_chunk=16`` path).  (d) the JAX
+the threefry sampler, the scheduler's ``max_chunk=16`` path).  (e) the
+paged INT8 path on the same weights (``Engine(kv_layout="paged",
+page_size=512)``): one compact admission of 8 prompts of 512 tokens (the
+fused prefill body, then K15 landing the block in the pool) and one decode
+step of all 8 slots at position 512 with ``fused="auto"`` (the two-launch
+K11 decode with K13) and with ``fused=False`` (the unfused stack with K13),
+each timed three times, then traced; one K14 flush per step; then a paged
+prefix hit: a 300-row snapshot restored into 5 slots and one continuation of
+5 suffixes of 200 tokens.  (d) the JAX
 server's default model path: random dense f32 weights in the fused layouts
 (``random_params`` + ``fuse_projections``) with the default float32 cache,
 then the same weights in Q8_0 (``quantize_params``, K25) with a bfloat16
@@ -54,7 +62,11 @@ DECODE_STEPS = 8
 CHUNK_STEPS = 16
 REPS = 3
 AB_MODES = (False, True, "mega2")
-PORT_KERNELS = {"w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
+# kernel name substrings -> port ids; the paged kernels first, as their names
+# contain the dense ones'
+PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fresh_kernel": "K20",
+                "kv_pool_flush_rows_kernel": "K14", "kv_pool_scatter_kernel": "K15",
+                "w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
                 "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
                 "kv_scatter_kernel": "K7", "kv_write_chunk_kernel": "K18",
@@ -229,7 +241,51 @@ def main() -> None:
                 launches_per_step=line["n_kernels"] / CHUNK_STEPS,
                 port_launches_per_step={k: n / CHUNK_STEPS for k, n in launches.items()})
     print(json.dumps(line), flush=True)
-    del engine, params
+    del engine
+    torch.cuda.empty_cache()
+
+    # (e) the paged INT8 path: an 8 x 512 compact admission landed by K15,
+    # then the b8 decode step at position 512 with fused="auto" (the
+    # two-launch K11 + K13 decode) and fused=False (unfused, K13), each
+    # warm, timed, then traced
+    paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
+
+    def paged_prefill():  # each call releases the slots' pages and reserves them anew
+        paged.prefill(prompts, list(range(8)), reserve_tokens=[1024] * 8)
+
+    run("prefill_8x512_paged", paged_prefill, layouts="fused", page_size=512,
+        pool=type(paged.pool).__name__)
+    auto = paged.decode_fused
+    for mode in (auto, False):
+        paged.decode_fused = mode
+
+        def paged_step():
+            paged.decode(toks, np.full(8, 512))
+
+        timed(paged_step)
+        launches = counted(paged_step)
+        walls = [timed(paged_step) * 1e3 for _ in range(REPS)]
+        prof, traced_wall = traced(paged_step)
+        line = summarize(f"decode_b8_paged_fused_{mode}", prof, statistics.median(walls) / 1e3,
+                         traced_wall, smi)
+        line.update(fused=mode, auto_resolves_to=auto, attn=paged.decode_attn,
+                    wall_ms_per_step_reps=walls, device_ms_per_step=line["device_busy_ms"],
+                    launches_per_step=line["n_kernels"], port_launches_per_step=launches)
+        print(json.dumps(line), flush=True)
+    paged.decode_fused = auto
+    # a paged prefix hit: slot 0's first 300 rows pinned (its boundary page
+    # copied), restored into slots 3-7, then one continuation of 5 suffixes
+    # of 200 tokens through the mp_cap-bounded page gather
+    snap = paged.snapshot_slot(0, 300)
+    suffixes = [[int(t) for t in rng.integers(3, cfg.vocab_size, 200)] for _ in range(5)]
+
+    def paged_continue():
+        for s in range(3, 8):
+            paged.restore_slot(s, snap, reserve_tokens=600)
+        paged.prefill_continue(suffixes, list(range(3, 8)), [300] * 5)
+
+    run("continue_5x200_paged", paged_continue, layouts="fused", page_size=512, start=300)
+    del paged, params
     torch.cuda.empty_cache()
 
     # (d) the server's default model: dense f32 weights, f32 cache; Q8_0, bf16 cache

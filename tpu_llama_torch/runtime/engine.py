@@ -38,8 +38,19 @@ every write on the current stream, so work queued after a decode chunk
 (an admission's K7, a restore, a continuation's write-back) lands after the
 chunk's own writes.  Host data reaches the card through pinned memory
 without waiting (``device.upload``): a blocking upload would stall the host
-behind a chunk in flight.  Paged caches and the explicit-TP paths come with
-later slices (ROADMAP).
+behind a chunk in flight.
+
+``kv_layout="paged"`` (engine.py:433-463) keeps an INT8 ``PagedKVCache``
+whose pages a host ``PagePool`` hands out (the native C++ one where ``g++``
+exists): every admission reserves the pages of its whole step budget
+(``can_admit`` is the scheduler's backpressure probe), the compact block
+lands in them through K15, decode runs K13 (or K20) and one K14 per step,
+and a prefix snapshot pins its full pages by refcount and copies only its
+boundary page on the device.  The page table's host mirror reaches the
+card through ``device.upload`` after every change.  An admission group
+above the JAX engine's pool-direct gate (more than 8192 rows, T and the
+page size multiples of 256) and the explicit-TP paths come with later
+slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device, upload
 from tpu_llama_torch.models.llama import (
     LlamaParams,
+    PagedKVCache,
+    QuantKVCache,
     _resolve_decode_attn,
     _resolve_fused,
     forward_decode,
@@ -61,13 +74,41 @@ from tpu_llama_torch.models.llama import (
     forward_prefill_chunked,
     make_kv_cache,
 )
-from tpu_llama_torch.ops.attention import kv_cache_scatter_slots
+from tpu_llama_torch.ops.attention import kv_cache_scatter_slots, kv_pool_scatter_pages
 from tpu_llama_torch.ops.sampling import fold_in, sample_nosort
+from tpu_llama_torch.runtime.paged import PagePool
 
 # Above this many prompt rows (Bp * T, T a multiple of _CHUNK) the compact
-# block is prefilled in chunks (engine.py:132-138).
+# block is prefilled in chunks (engine.py:132-138); on a paged cache whose
+# page size is a multiple of _CHUNK the JAX engine prefills such a group
+# straight into the pool instead (_pool_direct_ok, engine.py:49-52).
 _CHUNKED_ROWS = 8192
 _CHUNK = 256
+
+
+def _pool_direct_ok(cache, Bp: int, T: int) -> bool:
+    """The JAX engine's pool-direct gate (engine.py:49-52, logits "last"):
+    a paged admission group above _CHUNKED_ROWS rows with T and the page
+    size multiples of _CHUNK."""
+    return (isinstance(cache, PagedKVCache) and Bp * T > _CHUNKED_ROWS and T % _CHUNK == 0
+            and cache.page_size % _CHUNK == 0)
+
+
+def _make_page_pool(num_pages: int, page_size: int, slots: int, max_pages_per_slot: int):
+    """The native C++ allocator (``native/pagepool.cpp`` through
+    ``runtime.native_pool``, the same semantics), or the Python ``PagePool``
+    where no compiler exists or ``TPU_LLAMA_TORCH_NO_NATIVE`` is set
+    (engine.py:394-410)."""
+    import os
+
+    if not os.environ.get("TPU_LLAMA_TORCH_NO_NATIVE"):
+        try:
+            from tpu_llama_torch.runtime.native_pool import NativePagePool
+
+            return NativePagePool(num_pages, page_size, slots, max_pages_per_slot)
+        except ImportError:
+            pass
+    return PagePool(num_pages, page_size, slots, max_pages_per_slot)
 
 
 def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -77,8 +118,9 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
     scatter is K7 (its fp form on an fp cache) for every bucket: the TPU's
     ``T % 128`` gate and the indexed copy JAX's engine takes below it
     (engine.py:204-214) were a Mosaic alignment rule that the CUDA kernel
-    does not have.  ``slots`` stays on the host: K7's wrapper checks it
-    there and uploads it."""
+    does not have.  On a paged cache K15 lands the block in the slots' pages
+    instead (engine.py:148-161).  ``slots`` stays on the host: the
+    wrappers check it there and upload it."""
     Bp, T = tokens.shape
     small = make_kv_cache(config, Bp, kv_dtype=cache.k.dtype, seq_len=T, device=tokens.device)
     if T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
@@ -88,9 +130,55 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
         last, small = forward_prefill(
             params, small, tokens, start_pos=torch.zeros_like(lengths), lengths=lengths,
             config=config, logits_mode="last", assume_fresh=True, precision=precision)
-    kv_cache_scatter_slots(small.k, small.v, slots, cache.k, cache.v, small.ks, small.vs,
-                           cache.ks, cache.vs)
+    if isinstance(cache, PagedKVCache):
+        kv_pool_scatter_pages(small.k, small.v, small.ks, small.vs, slots, cache.page_table,
+                              cache.k, cache.v, cache.ks, cache.vs)
+    else:
+        kv_cache_scatter_slots(small.k, small.v, slots, cache.k, cache.v, small.ks, small.vs,
+                               cache.ks, cache.vs)
     return last, cache
+
+
+def _prefill_continue_paged(params: LlamaParams, cache: PagedKVCache, tokens, starts, lengths,
+                            slots, config: ModelConfig, precision: str, mp_cap: int):
+    """Suffix prefill against paged slots (engine.py:226-293): each slot's
+    first ``mp_cap`` pages gathered into a dense INT8 view (the caller
+    promises start + T <= mp_cap * ps for every row that matters), the
+    start > 0 prefill there, then the rows at positions [start, start + T)
+    written back into their pages.  Shared prefix pages are read, never
+    written: suffix positions lie in the slot's private boundary and fresh
+    pages, or past its reservation on the trash page.  ``starts`` on the
+    host.  Plain PyTorch, as the JAX function is plain XLA.  Returns the
+    next-token logits [n, V]."""
+    n, T = tokens.shape
+    L, _, KVH, ps, hd = cache.k.shape
+    S = mp_cap * ps
+    idx = upload(slots, cache.k.device, torch.long)
+    pt = cache.page_table.index_select(0, idx)[:, :mp_cap].long()  # [n, mp_cap]
+
+    def gather(pool):  # [L, n, mp_cap, KVH, ps(, hd)] -> [L, n, KVH, S(, hd)]
+        sub = pool[:, pt].transpose(2, 3)
+        return sub.reshape(L, n, KVH, S, *pool.shape[4:])
+
+    sub = QuantKVCache(**{a: gather(getattr(cache, a)) for a in cache.arrays})
+    logits, sub = forward_prefill(params, sub, tokens, starts, lengths, config,
+                                  logits_mode="last", precision=precision)
+    # positions [start, start + T) back into the pages; a position past the
+    # view writes back the view's last row (what it holds), as JAX clamps
+    t_abs = (upload(starts, cache.k.device, torch.long)[:, None]
+             + torch.arange(T, device=cache.k.device)[None, :]).clamp(max=S - 1)  # [n, T]
+    p_ix = pt.gather(1, t_abs // ps)[:, None, :]  # [n, 1, T]
+    h_ix = torch.arange(KVH, device=cache.k.device)[None, :, None]
+    r_ix = (t_abs % ps)[:, None, :]
+    for a in cache.arrays:
+        rows = getattr(sub, a)  # [L, n, KVH, S(, hd)]
+        ix = t_abs[None, :, None, :]
+        if rows.dim() == 5:
+            ix = ix[..., None].expand(L, n, KVH, T, hd)
+        else:
+            ix = ix.expand(L, n, KVH, T)
+        getattr(cache, a)[:, p_ix, h_ix, r_ix] = rows.gather(3, ix)
+    return logits
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -106,9 +194,10 @@ class Engine:
 
     def __init__(self, params: LlamaParams, config: ModelConfig, max_batch: int = 8,
                  kv_dtype=torch.float32, precision: str = "default", seq_len: int | None = None,
-                 kv_layout: str = "dense", attn: str = "auto", fused="auto", device=None):
-        if kv_layout != "dense":
-            raise NotImplementedError("paged KV layout: ROADMAP queue 1 item 8")
+                 kv_layout: str = "dense", page_size: int = 512, num_pages: int | None = None,
+                 attn: str = "auto", fused="auto", device=None):
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout {kv_layout!r}: want 'dense' or 'paged'")
         if precision not in PRECISIONS:
             raise ValueError(f"precision {precision!r}: want one of {PRECISIONS}")
         self.device = resolve_device(device)
@@ -120,8 +209,17 @@ class Engine:
         self.precision = precision
         self.max_batch = max_batch
         self.seq_len = seq_len or config.seq_len
-        self.cache = make_kv_cache(config, max_batch, kv_dtype=kv_dtype,
-                                   seq_len=self.seq_len, device=self.device)
+        self.pool = None
+        if kv_layout == "paged":  # INT8 whatever kv_dtype says, as in JAX (engine.py:452-458)
+            mp = -(-self.seq_len // page_size)
+            n_pages = num_pages or max_batch * mp + 1
+            self.pool = _make_page_pool(n_pages, page_size, max_batch, mp)
+            self.cache = make_kv_cache(config, max_batch, kv_dtype="int8", seq_len=self.seq_len,
+                                       paged=True, num_pages=n_pages, page_size=page_size,
+                                       device=self.device)
+        else:
+            self.cache = make_kv_cache(config, max_batch, kv_dtype=kv_dtype,
+                                       seq_len=self.seq_len, device=self.device)
         # the decode attention and fused decode every step runs ("auto"
         # resolved on these weights and this cache, as JAX's _decode_step
         # calls forward_decode with fused="auto", engine.py:308-320)
@@ -129,12 +227,33 @@ class Engine:
         self.decode_fused = _resolve_fused(fused, self.decode_attn, params, config, self.cache,
                                            max_batch)
 
-    def can_admit(self, n_tokens: int) -> bool:
-        """Backpressure probe; a dense cache always has room in a free slot."""
-        return True
+    def _sync_page_table(self) -> None:
+        """Upload the host page-table mirror into a new device tensor,
+        through pinned memory and in stream order (``device.upload``): work
+        already queued (a decode chunk in flight) keeps reading the table it
+        was given, and ``upload`` copies the mirror, which the native pool
+        rewrites in place."""
+        self.cache.page_table = upload(self.pool.table, self.device, torch.int32)
+
+    def can_admit(self, n_tokens: int, claimed: Sequence[int] = ()) -> bool:
+        """Backpressure probe: can a request needing ``n_tokens`` positions
+        be admitted now, beside requests of ``claimed`` positions already
+        taken into the same admission?  Always on a dense cache (a free slot
+        has room).  (JAX's probe, engine.py:466-471, sees one request at a
+        time: a batch whose requests fit the pool alone but not together
+        then fails at its reservation.)"""
+        if self.pool is None:
+            return True
+        pool = self.pool
+        need = sum(pool.pages_needed(n) for n in (*claimed, n_tokens))
+        return pool.can_reserve(n_tokens) and need <= pool.free_pages
 
     def release_slot(self, slot: int) -> None:
-        """Return a retired slot (nothing to free on a dense cache)."""
+        """Return a retired slot's pages to the pool (nothing on a dense
+        cache)."""
+        if self.pool is not None:
+            self.pool.release(slot)
+            self._sync_page_table()
 
     def _ints(self, a) -> torch.Tensor:
         return upload(a, self.device, torch.long)
@@ -155,8 +274,13 @@ class Engine:
 
         The admission batch splits into power-of-two groups, largest first,
         each bucketing its own T (engine.py:533-561): a short-prompt group
-        does not pay a long-prompt group's rows.  ``reserve_tokens`` is for
-        paged caches and is ignored here."""
+        does not pay a long-prompt group's rows.  ``reserve_tokens`` (paged
+        caches): the positions each request may ever occupy (prompt and
+        generation budget); that many pages are reserved up front, so decode
+        never fails mid-flight (engine.py:475-517).  A paged group that
+        passes the JAX engine's pool-direct gate raises NotImplementedError
+        before any page is reserved: the JAX engine never prefills it
+        compact."""
         if not prompts or len(prompts) != len(slots):
             raise ValueError("need one slot per prompt, and at least one prompt")
         lengths = np.array([len(p) for p in prompts], np.int64)
@@ -164,10 +288,27 @@ class Engine:
             raise ValueError("prompts must be non-empty (include BOS)")
         if int(lengths.max()) > self.seq_len:
             raise ValueError("prompt exceeds cache")
-        outs, start, n = [], 0, len(prompts)
+        groups, start, n = [], 0, len(prompts)
         while start < n:
             g = 1 << ((n - start).bit_length() - 1)  # largest pow2 <= rest
-            T = min(_bucket(int(lengths[start:start + g].max())), self.seq_len)
+            groups.append((start, g, min(_bucket(int(lengths[start:start + g].max())),
+                                         self.seq_len)))
+            start += g
+        if self.pool is not None:
+            if any(_pool_direct_ok(self.cache, g, T) for _, g, T in groups):
+                raise NotImplementedError(
+                    "pool-direct paged admission (K16, K17): ROADMAP queue 1 item 8")
+            reserve = list(reserve_tokens) if reserve_tokens is not None else lengths.tolist()
+            for slot, p, r in zip(slots, prompts, reserve):
+                self.pool.release(slot)  # reclaim any stale holding
+                if self.pool.reserve(slot, max(int(r), len(p))) is None:
+                    raise RuntimeError(
+                        f"page pool exhausted (slot {slot}: need "
+                        f"{self.pool.pages_needed(max(int(r), len(p)))} pages, "
+                        f"{self.pool.free_pages} free): gate admissions with Engine.can_admit")
+            self._sync_page_table()
+        outs = []
+        for start, g, T in groups:
             toks = np.zeros((g, T), np.int64)
             for i, p in enumerate(prompts[start:start + g]):
                 toks[i, :len(p)] = p
@@ -176,7 +317,6 @@ class Engine:
                 self._ints(lengths[start:start + g]),
                 [int(s) for s in slots[start:start + g]], self.config, self.precision)
             outs.append(last)
-            start += g
         last = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return last if return_device else last.cpu().numpy()
 
@@ -188,8 +328,11 @@ class Engine:
         rows, so the slots' whole caches are gathered, prefilled at
         start_pos = starts (``forward_prefill``, logits_mode "last") and
         written back (``_prefill_continue_slots``, engine.py:200-223): at 7B
-        and S = 2048 that is ~0.55 GB copied each way per slot.  Suffixes pad
-        to one power-of-two bucket.  Returns next-token logits [n, V]."""
+        and S = 2048 that is ~0.55 GB copied each way per slot.  On a paged
+        cache only the pages that can hold attended keys are gathered:
+        ``mp_cap`` = ceil(bucket(max start + T) / ps) pages
+        (``_prefill_continue_paged``, engine.py:591-604).  Suffixes pad to one
+        power-of-two bucket.  Returns next-token logits [n, V]."""
         if not suffixes or not len(suffixes) == len(slots) == len(starts):
             raise ValueError("need one slot and one start per suffix, and at least one suffix")
         lengths = np.array([len(s) for s in suffixes], np.int64)
@@ -201,11 +344,19 @@ class Engine:
         toks = np.zeros((len(suffixes), T), np.int64)
         for i, s in enumerate(suffixes):
             toks[i, :len(s)] = s
+        host_starts = torch.as_tensor(np.asarray(starts, np.int64))
+        if self.pool is not None:
+            ps = self.cache.page_size
+            mp_cap = min(-(-_bucket(int(max(starts)) + T) // ps), self.cache.page_table.shape[1])
+            logits = _prefill_continue_paged(self.params, self.cache, self._ints(toks),
+                                             host_starts, self._ints(lengths),
+                                             [int(s) for s in slots], self.config,
+                                             self.precision, mp_cap)
+            return logits if return_device else logits.cpu().numpy()
         idx = self._ints(slots)
         sub = type(self.cache)(**{n: getattr(self.cache, n).index_select(1, idx)
                                   for n in self.cache.arrays})
-        logits, sub = forward_prefill(self.params, sub, self._ints(toks),
-                                      torch.as_tensor(np.asarray(starts, np.int64)),
+        logits, sub = forward_prefill(self.params, sub, self._ints(toks), host_starts,
                                       self._ints(lengths), self.config, logits_mode="last",
                                       precision=self.precision)
         for n in self.cache.arrays:
@@ -289,15 +440,51 @@ class Engine:
                                               topks).cpu().numpy()
 
     def reset(self) -> None:
+        """Zero the cache; a paged engine also gets a fresh pool (every page
+        free, page table zero)."""
         self.cache.zero_()
+        if self.pool is not None:
+            self.pool = _make_page_pool(self.pool.num_pages, self.pool.page_size, self.max_batch,
+                                        self.pool.max_pages_per_slot)
 
-    # ---- KV snapshot / prefix reuse (engine.py:776-853, dense branch) ----
-    def snapshot_slot(self, slot: int, length: int) -> dict:
-        """Copy rows [0, length) of one slot's K, V (and an INT8 cache's
-        scales) to the host.
-        On the card the copies go into pinned memory without waiting; they
-        are complete once the stream has passed them, which ``restore_slot``
-        (queued on the same stream) needs no more than."""
+    def _copy_pool_pages(self, src: Sequence[int], dst: Sequence[int]) -> None:
+        """Device copy of whole pool pages src[i] -> dst[i] in every layer
+        and array, in stream order (the prefix boundary pages, engine.py:
+        296-305)."""
+        s, d = (upload(list(x), self.device, torch.long) for x in (src, dst))
+        for a in self.cache.arrays:
+            arr = getattr(self.cache, a)
+            arr.index_copy_(1, d, arr.index_select(1, s))
+
+    # ---- KV snapshot / prefix reuse (engine.py:776-853) ----
+    def snapshot_slot(self, slot: int, length: int) -> dict | None:
+        """Keep one slot's KV prefix (positions [0, length)) for requests that
+        share it.
+
+        Dense: copy rows [0, length) of K, V (and an INT8 cache's scales) to
+        the host; on the card the copies go into pinned memory without
+        waiting, complete once the stream has passed them, which
+        ``restore_slot`` (queued on the same stream) needs no more than.
+        Paged: no copy of the prefix -- its full pages are pinned by
+        refcount and only the partial boundary page is copied on the
+        device, into a page of its own (the slot goes on appending into its
+        copy).  Returns None when the pool cannot spare that page now (the
+        caller simply does not cache)."""
+        if self.pool is not None:
+            pool = self.pool
+            row = [int(p) for p in pool.table[slot, :pool.pages_needed(length)]]
+            n_shared = length // pool.page_size
+            pin = row[:n_shared]
+            if length % pool.page_size:
+                bp = pool.alloc_page()
+                if bp is None:
+                    return None
+                pool.retain(pin)
+                self._copy_pool_pages([row[n_shared]], [bp])
+                pin = pin + [bp]
+            else:
+                pool.retain(pin)
+            return {"paged": True, "length": int(length), "pages": pin}
         snap = {"length": int(length)}
         for n in self.cache.arrays:
             src = getattr(self.cache, n)[:, slot, :, :length]
@@ -309,12 +496,31 @@ class Engine:
         return snap
 
     def release_snapshot(self, snap: dict | None) -> None:
-        """Drop a snapshot (nothing to release for host copies)."""
+        """Drop a snapshot's page pins (nothing to release for host copies).
+        Call it when a prefix-cache entry is evicted, or its pages stay
+        pinned until ``reset``."""
+        if snap and snap.get("paged") and self.pool is not None:
+            self.pool.release_pages(snap["pages"])
 
     def restore_slot(self, slot: int, snap: dict, reserve_tokens: int | None = None) -> None:
-        """Write a snapshot back into rows [0, length) of a slot, on the
-        stream; the caller then continues from pos == snap["length"].
-        ``reserve_tokens`` is for paged caches and is ignored here."""
+        """Give a slot a snapshot's prefix; the caller then continues from
+        pos == snap["length"].  Dense: write the rows back, on the stream.
+        Paged: map the pinned full pages straight into the slot's page-table
+        row (shared: decode only appends) and copy the boundary page into a
+        private fresh page; ``reserve_tokens`` sizes the slot's whole
+        reservation (prompt and generation budget)."""
         length = snap["length"]
+        if snap.get("paged"):
+            self.pool.release(slot)  # reclaim any stale holding
+            need = max(reserve_tokens or length, length)
+            res = self.pool.reserve_with_prefix(slot, need, snap["pages"], length)
+            if res is None:
+                raise RuntimeError("page pool exhausted on prefix restore: gate admissions "
+                                   "with Engine.can_admit")
+            copies = res[1]
+            if copies:
+                self._copy_pool_pages([c[0] for c in copies], [c[1] for c in copies])
+            self._sync_page_table()
+            return
         for n in self.cache.arrays:
             getattr(self.cache, n)[:, slot, :, :length].copy_(snap[n], non_blocking=True)

@@ -1,15 +1,18 @@
 """Continuous-batching scheduler.
 
-Port of tpu_llama/runtime/scheduler.py on the dense layout.  The reference
-runs one request at a time (llama2.ts:460-511); this scheduler multiplexes
-many requests over the engine's KV-cache slots with in-flight join and
-leave:
+Port of tpu_llama/runtime/scheduler.py, on the dense and the paged
+layouts.  The reference runs one request at a time (llama2.ts:460-511);
+this scheduler multiplexes many requests over the engine's KV-cache slots
+with in-flight join and leave:
 
 * requests queue, then admit into free slots through one batched compact
-  prefill; with ``prefix_cache_size > 0`` a request whose fed sequence
-  starts with a cached prefix restores that prefix's rows and prefills only
-  its suffix (one batched ``prefill_continue``), or no prefill at all when
-  the whole sequence was cached;
+  prefill; on a paged engine a request waits while the pool cannot hold its
+  whole step budget beside the requests admitted with it (``can_admit``);
+  with ``prefix_cache_size > 0`` a request whose fed sequence starts with a
+  cached prefix restores that prefix (rows, or pinned pages) and prefills
+  only its suffix (one batched ``prefill_continue``), or no prefill at all
+  when the whole sequence was cached; a paged pool that cannot spare a
+  snapshot's boundary page caches nothing;
 * every tick decodes ALL active slots in one engine call;
 * host sampling (the default) is per request with the request's own
   xorshift64* stream and the reference's exact sampler semantics;
@@ -229,10 +232,16 @@ class ContinuousBatcher:
             return
         t0 = time.time()
         batch: list[tuple[int, Request]] = []
+        claimed: list[int] = []  # the positions the batch reserves so far
         while free and self.queue:
             idx = self._next_request_index()
-            if not self.engine.can_admit(self._steps(self.queue[idx])):
+            steps = self._steps(self.queue[idx])
+            # backpressure (paged KV): a request reserves pages for its whole
+            # step budget; if the pool cannot hold it beside the batch so
+            # far, it waits
+            if not self.engine.can_admit(steps, claimed):
                 break
+            claimed.append(steps)
             req = self.queue[idx]
             del self.queue[idx]
             batch.append((free.pop(0), req))
@@ -345,8 +354,10 @@ class ContinuousBatcher:
     def _store_prefix(self, seq: tuple, slot: int, logits) -> None:
         if seq in self._prefix:
             return
-        self._prefix[seq] = {"snap": self.engine.snapshot_slot(slot, len(seq)),
-                             "logits": logits.clone()}
+        snap = self.engine.snapshot_slot(slot, len(seq))
+        if snap is None:  # a paged pool that cannot spare the boundary page
+            return
+        self._prefix[seq] = {"snap": snap, "logits": logits.clone()}
         while len(self._prefix) > self.prefix_cache_size:
             evicted = self._prefix.pop(next(iter(self._prefix)))  # least recently used
             self.engine.release_snapshot(evicted["snap"])
