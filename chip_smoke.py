@@ -16,19 +16,24 @@ Phases (any failure exits non-zero and prints no result line):
    K25 Q8_0 product; the f32 and bf16 forms of K6, K7, K9, K19 and K10;
    the paged kernels K15 page scatter, K14 row flush, K13 and K20 decode
    attention, on a 33-page pool whose pages a ``PagePool`` handed out of
-   order)
+   order; the pool-direct admission's K17 chunk write and K16 chunk
+   attention at a 16-slot admission wave's shapes, and K22 write-then-attend
+   decode attention at K13's; the classifier's K1, K8, K11, K13 and K14
+   also at batch 32, phase 4f's decode)
    at the Llama-2 7B shapes of the serving paths, against its plain PyTorch
    version on the same inputs: K1, K2, K7, K8, K10, K11, K18, and K14 and
    K15 outside the trash page 0, exact; K3, K4 and K5 within
    QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and K19 within K6_TOL, K12's
    residual exact and its int8 outputs, scales and attention output within
    those limits, K13 and K20 within K6_TOL (K13 also bit-equal to K9 at
-   block_s 256 on a paged copy of its cache), K25 within K25_TOL, the fp
+   block_s 256 on a paged copy of its cache), K17 exact outside page 0 (one
+   slot's start past its table), K16 within K6_TOL and bit-equal to K6 on a
+   dense copy of its keys, K22 within K6_TOL, K25 within K25_TOL, the fp
    forms of K6, K9 and K19 within FP_TOL with f32 queries (K6_TOL for K6's
    bf16 outputs beside them), K7's and K10's exact; the decode attention
-   kernels (K9, K19, K12, K13, K20, INT8 and fp) on caches whose rows at and
-   past each slot's pos (for a pool, every row no slot attends) are
-   poisoned; kernel, plain-version and PyTorch-library times
+   kernels (K9, K19, K12, K13, K20, K22, INT8 and fp) and K16 on caches
+   whose rows at and past each slot's pos (for a pool, every row no slot or
+   query attends) are poisoned; kernel, plain-version and PyTorch-library times
    (CUDA events) beside the bound (the larger of bytes / 3.35 TB/s and
    operations / the card's peak for their type);
 4. the serving path at full 7B width and depth with random W8A8 weights in
@@ -68,6 +73,16 @@ Phases (any failure exits non-zero and prints no result line):
    page-aligned prefix) with device sampling; a 7-page pool serving 8
    requests under backpressure; exact launch counts, no plain version, the
    pools back to every page free;
+4f. ``serve_7b_paged_direct`` (after 4e, on phase 4's weights), the
+   pool-direct paged admission: ``Engine(max_batch=32, kv_layout="paged",
+   page_size=512, num_pages=97)``, 32 prompts of 600-1000 tokens arriving
+   together (one 32 x 1024 admission, two waves of 16 slots), then 8
+   device-sampled prompts of 1100-2000 tokens (8 x 2048, one wave): per
+   admission 256 launches each of K16 and K17 and none of K15, a memory rise
+   under a quarter of the compact block it avoids, exact launch counts, no
+   plain version, every page free after retirement; both admissions again,
+   bit-equal to the dense chunked prefill (K18 + K6) of the same prompts in
+   their logits and every row of each slot's pages;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
    decode attention and fused decode, on unfused weights once each "xla"
@@ -80,15 +95,19 @@ Phases (any failure exits non-zero and prints no result line):
    the chunked prefill against the one-shot one, prefix reuse against a
    cold prefill, and the device sampler; the paged path (``parity_paged``:
    K13 and K20, unfused and two-launch decodes, pages of 16 rows, and a
-   paged prefix continuation against a cold paged prefill); then the same
-   shape written as a llama2.c checkpoint and read back
+   paged prefix continuation against a cold paged prefill); the pool-direct
+   prefill (``parity_pool_direct``: B 2, T 1024, chunk 256, then 8 greedy
+   decode steps, and ``start0`` waves against the one-shot call on each
+   side); then the same shape written as a llama2.c checkpoint and read back
    (``parity_checkpoint``): dense f32
    weights over f32 and bf16 caches and Q8_0 weights over a bf16 cache,
    card against CPU at ``precision="highest"``;
 6. a JSON line of the kernels (launches counted on the path that runs
-   each: phase 4, phase 4b for K18, phase 4e for K13, K14 and K15, phases
-   4c and 4d for K25 and the fp forms, and phase 5 for a kernel that those
-   do not run: K19, K11, K20, the fp forms of K19), then the result line.
+   each: phase 4, phase 4b for K18, phase 4e for K13, K14 and K15, phase 4f
+   for K16 and K17, phases 4c and 4d for K25 and the fp forms, and phase 5
+   for a kernel that those do not run: K19, K11, K20, the fp forms of K19;
+   K22, which no path calls, its count summed over phases 4-4f, which must
+   be 0), then the result line.
    Each phase prints its seconds.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
@@ -164,7 +183,14 @@ SRC = {
     "K15": ("tpu_llama_torch/csrc/kv_pool_scatter.cu", "tpu_llama/ops/attention.py:1095"),
     "K20": ("tpu_llama_torch/csrc/paged_flash_decode_fresh.cu",
             "tpu_llama/ops/attention.py:1012"),
+    "K16": ("tpu_llama_torch/csrc/paged_flash_prefill.cu", "tpu_llama/ops/attention.py:1990"),
+    "K17": ("tpu_llama_torch/csrc/kv_pool_write_chunk.cu", "tpu_llama/ops/attention.py:2189"),
+    "K22": ("tpu_llama_torch/csrc/paged_flash_decode.cu", "tpu_llama/ops/attention.py:933"),
 }
+# K22 is on no path: neither the JAX package nor the port calls it (phase 3
+# and the card tests run it).  Its launches in the kernels line are those
+# that phases 4-4f counted, and the run fails unless they are 0.
+NO_PATH = {"K22"}
 SRC.update({f"{k}:{sfx}": SRC[k] for k in ("K6", "K7", "K9", "K10", "K19")
             for sfx in ("f32", "bf16")})  # one templated kernel per INT8 and fp form
 DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
@@ -172,6 +198,8 @@ PAGED_KERNEL = {"flash_dma": "K13", "flash": "K20"}  # ... on a paged cache
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
 FUSED_PREFILL_PATH = PREFILL_PATH | {"K3", "K4", "K5"}  # ... on fused layouts
 DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]  # one per slot at batch 8
+# ... at batch 32, phase 4f's decode: DECODE_POS, then 24 drawn from a seed
+DECODE_POS32 = DECODE_POS + [int(p) for p in np.random.default_rng(32).integers(0, 2048, 24)]
 CARD = "cuda"  # the card side of the parity phases
 
 
@@ -253,12 +281,16 @@ def n_copies(nbytes: float) -> int:
 def check_k1(torch, tq, tm, results):
     """K1 at M 8 (decode) and 4096 (the 8 x 512 admission) on the unfused
     and the fused (wqkv 4096 -> 12288, w13 4096 -> 22016) shapes, then its
-    residual epilogue on wo and w2 at M 4096; bf16 out, bit-equal."""
+    residual epilogue on wo and w2 at M 4096, then the classifier at M 16
+    and 32 (phase 4f's admission waves and decode); bf16 out, bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(m, k, n, False) for m in (8, 4096)
              for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
                           (4096, 12288), (4096, 22016))]
     cases += [(4096, 4096, 4096, True), (4096, 11008, 4096, True)]
+    # the classifier of phase 4f: a 16-slot admission wave's rows, and the
+    # 32-slot decode (M 32: the 128-row tile, partly filled)
+    cases += [(16, 4096, 32000, False), (32, 4096, 32000, False)]
     for m, k, n, with_res in cases:
         copies = n_copies(n * k)
         xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
@@ -790,7 +822,9 @@ def check_paged_writes(torch, tatt, PagePool, results):
     512 compact admission block (and, checked only, a 700-row block whose
     last page is zero-padded, one slot's second page its trash page 0), K14
     one step's rows at mixed positions, one past the table and one of a
-    parked slot; both bit-equal to their plain versions outside page 0."""
+    parked slot, at batch 8 and at batch 32 (phase 4f's decode, on a
+    129-page pool of 32 slots); both bit-equal to their plain versions
+    outside page 0."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     L, KVH, hd, ps, B = 32, 32, 128, PAGED_PS, 8
     MP = 2048 // ps
@@ -838,40 +872,52 @@ def check_paged_writes(torch, tatt, PagePool, results):
                         bound_by=by, library_ms=library_ms))
     del small, blk
 
-    pos = [0, 1, 127, 128, 511, 1000, MP * ps, 2047]  # slot 6 past the table: trash page
-    table = pt.clone()
-    table[1] = 0  # slot 1 parked: its row lands on page 0
-    copies = n_copies(L * B * KVH * (2 * hd + 8))
-    rows = [(ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
-            for _ in range(copies)]
-    p32 = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    ref = [a.clone() for a in pools]
-    tatt.kv_pool_flush_rows(*rows[0], p32, table, *pools)
-    torch.cuda.synchronize()
-    tatt.kv_pool_flush_rows_plain(*rows[0], p32, table, *ref)
-    check(all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pools, ref)),
-          "K14: pool differs outside page 0")
-    del ref
+    # K14 at batch 8 on that pool, then at batch 32 (phase 4f's decode) on a
+    # 129-page pool of 32 slots; slot 6 past the table (trash page), slot 1
+    # parked (its row lands on page 0)
+    for B, sp in ((8, pool), (32, scattered_pool(PagePool, 32, MP, ps, seed=5))):
+        if B == 32:
+            del pools
+            torch.cuda.empty_cache()
+            P = sp.num_pages
+            pools = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rf(L, P, KVH, ps),
+                     rf(L, P, KVH, ps)]
+        pos = list(DECODE_POS32[:B])
+        pos[6] = MP * ps
+        table = torch.tensor(sp.table, device="cuda")
+        table[1] = 0
+        copies = n_copies(L * B * KVH * (2 * hd + 8))
+        rows = [(ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
+                for _ in range(copies)]
+        p32 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        ref = [a.clone() for a in pools]
+        tatt.kv_pool_flush_rows(*rows[0], p32, table, *pools)
+        torch.cuda.synchronize()
+        tatt.kv_pool_flush_rows_plain(*rows[0], p32, table, *ref)
+        check(all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pools, ref)),
+              f"K14 B={B}: pool differs outside page 0")
+        del ref
 
-    def run14(i, fn=tatt.kv_pool_flush_rows):
-        fn(*rows[i % copies], p32, table, *pools)
+        def run14(i, fn=tatt.kv_pool_flush_rows):
+            fn(*rows[i % copies], p32, table, *pools)
 
-    ms = cuda_ms(torch, run14, 50)
-    plain_ms = cuda_ms(torch, lambda i: run14(i, tatt.kv_pool_flush_rows_plain), 10)
-    ok, page, row = tatt._flush_targets(p32, table, P, ps)
-    ix = (torch.arange(L, device="cuda")[:, None, None], page[None, :, None],
-          torch.arange(KVH, device="cuda")[None, None, :], row[None, :, None])
+        ms = cuda_ms(torch, run14, 50)
+        plain_ms = cuda_ms(torch, lambda i: run14(i, tatt.kv_pool_flush_rows_plain), 10)
+        ok, page, row = tatt._flush_targets(p32, table, P, ps)
+        ix = (torch.arange(L, device="cuda")[:, None, None], page[None, :, None],
+              torch.arange(KVH, device="cuda")[None, None, :], row[None, :, None])
 
-    def lib14(i):
-        for a, r in zip(pools, rows[i % copies]):
-            a[ix] = r[:, ok]
+        def lib14(i):
+            for a, r in zip(pools, rows[i % copies]):
+                a[ix] = r[:, ok]
 
-    library_ms = cuda_ms(torch, lib14, 50)
-    b_ms, by = bound_ms(2 * L * B * KVH * (2 * hd + 8) + 4 * B * (MP + 1), 0, "int8")
-    results.append(dict(kernel="K14", name=f"K14 kv_pool_flush_rows L={L} B={B} ps={ps} P={P}",
-                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                        library_ms=library_ms))
-    del pools, rows
+        library_ms = cuda_ms(torch, lib14, 50)
+        b_ms, by = bound_ms(2 * L * B * KVH * (2 * hd + 8) + 4 * B * (MP + 1), 0, "int8")
+        results.append(dict(kernel="K14", name=f"K14 kv_pool_flush_rows L={L} B={B} ps={ps} "
+                            f"P={P}", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=by, library_ms=library_ms))
+        del rows
+    del pools
     torch.cuda.empty_cache()
 
 
@@ -879,7 +925,8 @@ def check_paged_attention(torch, tatt, PagePool, results):
     """K13 and K20 on the same inputs at the 7B shapes: 32-layer pools of
     ps 512 in ``scattered_pool``'s out-of-order pages, layer 17, at batch 8
     (one slot at each of DECODE_POS; MHA and a GQA group of 4) and at
-    batch 1 at pos 511 and 2047; every pool row that no slot attends (rows
+    batch 1 at pos 511 and 2047; K13 also at batch 32 (DECODE_POS32, a
+    32-slot pool: phase 4f's decode); every pool row that no slot attends (rows
     at and past each pos, unused pages, page 0) poisoned with int8 127 and
     scale 1e4.  Each within K6_TOL of its plain version.  K13 is then held
     to K9 on a paged copy of the same cache (``paged_view``): bit-equal at
@@ -891,7 +938,6 @@ def check_paged_attention(torch, tatt, PagePool, results):
     L, hd, ps, layer = 32, 128, PAGED_PS, 17
     MP = 2048 // ps
     pool = scattered_pool(PagePool, 8, MP, ps, seed=1)
-    P = pool.num_pages
 
     def ri(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
@@ -900,8 +946,11 @@ def check_paged_attention(torch, tatt, PagePool, results):
         return torch.rand(*shape, generator=gen, device="cuda") * 0.03 + 0.01
 
     for B, KVH, G, pos in ((8, 32, 1, DECODE_POS), (8, 8, 4, DECODE_POS), (1, 32, 1, [511]),
-                           (1, 32, 1, [2047])):
-        table = pool.table[:B] if B == 8 else pool.table[7:8]
+                           (1, 32, 1, [2047]), (32, 32, 1, DECODE_POS32)):
+        if B == 32:  # phase 4f's decode, K13 only: a 129-page pool of 32 slots
+            pool = scattered_pool(PagePool, 32, MP, ps, seed=4)
+        P = pool.num_pages
+        table = pool.table[:B] if B > 1 else pool.table[7:8]
         arrs = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rs(L, P, KVH, ps),
                 rs(L, P, KVH, ps)]
         for pg, n in enumerate(_live_rows(table, pos, P, ps)):
@@ -924,7 +973,7 @@ def check_paged_attention(torch, tatt, PagePool, results):
         nbytes = (rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + B * KVH * (2 * hd + 8)
                   + 4 * B * (MP + 1))
         b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "bf16")
-        for kernel, name in (("K13", "dma"), ("K20", "fresh")):
+        for kernel, name in (("K13", "dma"), ("K20", "fresh"))[:1 if B == 32 else 2]:
             fn = getattr(tatt, f"paged_flash_decode_attention_{name}")
             plain = getattr(tatt, f"paged_flash_decode_attention_{name}_plain")
 
@@ -956,6 +1005,209 @@ def check_paged_attention(torch, tatt, PagePool, results):
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                                 library_ms=library_ms, **extra))
         del arrs, dense
+        torch.cuda.empty_cache()
+
+
+# the pool-direct admission's kernels (K17 chunk write, K16 chunk attention)
+# and the paged write-then-attend decode attention (K22)
+WAVE = dict(B=16, KVH=32, G=1, Tc=256, hd=128, start=768)  # one 7B admission wave
+WAVE_GQA = dict(B=8, KVH=8, G=4, Tc=256, hd=128, start=1792)
+
+
+def check_pool_direct(torch, tatt, PagePool, results):
+    """K17 and K16 at a 7B admission wave's shapes (B 16, KVH 32, Tc 256, hd
+    128, chunk start 768, layer 17 of 32-layer pools of 512-row pages that
+    ``scattered_pool`` handed out of order; K16 also at a GQA shape, B 8,
+    KVH 8, G 4, start 1792).  K17 bit-equal to its plain version outside
+    page 0, one slot's start past the table (its rows land on page 0).  K16
+    within K6_TOL of its plain version on pools whose rows no query attends
+    are poisoned (int8 127, scale 1e4), and bit-equal to K6 on a dense copy
+    of the same keys: the slots' pages as dense rows, the fresh rows at
+    [start, start + Tc).  Repeated calls rotate through layers."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    L, ps, layer = 32, PAGED_PS, 17
+    MP = 2048 // ps
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rs(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda") * 0.03 + 0.01
+
+    for shape in (WAVE, WAVE_GQA):
+        B, KVH, G, Tc, hd, start = (shape[k] for k in ("B", "KVH", "G", "Tc", "hd", "start"))
+        NH = KVH * G
+        pool = scattered_pool(PagePool, B, MP, ps, seed=B + G)
+        P = pool.num_pages
+        table = pool.table.copy()
+        pt = torch.tensor(table, device="cuda")
+        arrs = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rs(L, P, KVH, ps),
+                rs(L, P, KVH, ps)]
+        rows = [ri(B, KVH, Tc, hd), ri(B, KVH, Tc, hd), rs(B, KVH, Tc), rs(B, KVH, Tc)]
+        starts = [start] * B
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        if G == 1:  # K17, its starts on the card as the model passes them
+            past = starts[:-1] + [MP * ps]  # the last slot past its table: page 0
+            ref = [a.clone() for a in arrs]
+            tatt.kv_pool_write_chunk(*rows, pt, torch.tensor(past, dtype=torch.int32,
+                                                             device="cuda"), layer, *arrs)
+            torch.cuda.synchronize()
+            tatt.kv_pool_write_chunk_plain(*rows, pt, past, layer, *ref)
+            check(all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(arrs, ref)),
+                  "K17: pool differs outside page 0")
+            del ref
+            pages = pt[:, start // ps].long()
+            off = start % ps
+
+            def run17(i, fn=tatt.kv_pool_write_chunk, s=st):
+                fn(*rows, pt, s, (layer + i) % L, *arrs)
+
+            ms = cuda_ms(torch, run17, 50)
+            plain_ms = cuda_ms(torch, lambda i: run17(i, tatt.kv_pool_write_chunk_plain, starts),
+                               10)
+
+            def lib17(i):
+                for a, r in zip(arrs, rows):
+                    a[(layer + i) % L][pages, :, off:off + Tc] = r
+
+            library_ms = cuda_ms(torch, lib17, 50)
+            nbytes = 2 * (2 * B * KVH * Tc * hd + 2 * 4 * B * KVH * Tc) + 4 * B * (MP + 1)
+            b_ms, by = bound_ms(nbytes, 0, "int8")
+            results.append(dict(kernel="K17", name=f"K17 kv_pool_write_chunk B={B} KVH={KVH} "
+                                f"Tc={Tc} ps={ps} P={P} layer {layer} start {start}",
+                                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=by, library_ms=library_ms))
+        # K16: the rows no query attends poisoned (past rows at and past start)
+        for pg, n in enumerate(_live_rows(table, starts, P, ps)):
+            for a, val in zip(arrs, (127, 127, 1e4, 1e4)):
+                a[:, pg, :, n:] = val
+        q = torch.randn(B, Tc, NH, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        W = -(-start // ps)
+
+        def run16(i, fn=tatt.paged_flash_prefill_attention):
+            return fn(q, *arrs, pt, st, *rows, layer=(layer + i) % L, past_pages=W,
+                      out_dtype=torch.bfloat16)
+
+        got = run16(0)
+        torch.cuda.synchronize()
+        want = run16(0, tatt.paged_flash_prefill_attention_plain)
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        label = f"K16 paged_flash_prefill B={B} KVH={KVH} G={G} Tc={Tc} ps={ps} start {start}"
+        check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
+        dense = [tatt.paged_view(a, pt, layer)[0].clone() for a in arrs]  # [B, KVH, 2048..]
+        for d, f in zip(dense, rows):
+            d[:, :, start:start + Tc] = f
+        k6 = tatt.flash_prefill_attention(q, dense[0], dense[1], st, dense[2], dense[3],
+                                          out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        k6_diff = (got.float() - k6.float()).abs().max().item()
+        check(torch.equal(got, k6), f"{label}: K16 != K6 on the dense copy (max diff {k6_diff})")
+        ms = cuda_ms(torch, run16, 20)
+        # K6 on the dense copy, the same work: what K16's paged, one-run-tile
+        # addressing costs over K6's dense one (one layer's copy, 134 MB of
+        # K and V at the wave shape, so mostly cold in the 50 MB L2 as well)
+        k6_ms = cuda_ms(torch, lambda i: tatt.flash_prefill_attention(
+            q, dense[0], dense[1], st, dense[2], dense[3], out_dtype=torch.bfloat16), 20)
+        plain_ms = cuda_ms(torch, lambda i: run16(i, tatt.paged_flash_prefill_attention_plain), 3)
+        # the library call: SDPA on the gathered, dequantized past rows and
+        # the fresh rows (bf16, the query heads' K/V expanded), mask s <= start + t
+        kd = (dense[0][:, :, :start + Tc].float() * dense[2][:, :, :start + Tc, None])
+        vd = (dense[1][:, :, :start + Tc].float() * dense[3][:, :, :start + Tc, None])
+        kd = kd.to(torch.bfloat16).repeat_interleave(G, dim=1)
+        vd = vd.to(torch.bfloat16).repeat_interleave(G, dim=1)
+        qt = q.transpose(1, 2)
+        mask = (torch.arange(start + Tc, device="cuda")[None, :]
+                <= start + torch.arange(Tc, device="cuda")[:, None])
+        library_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask), 20)
+        del kd, vd, dense, k6
+        pairs = B * sum(start + t + 1 for t in range(Tc))  # attended (query, key) per head
+        nbytes = (2 * B * Tc * NH * hd * 2 + B * KVH * (start + Tc) * (2 * hd + 8)
+                  + 4 * B * (MP + 1))
+        b_ms, by = bound_ms(nbytes, 4 * hd * NH * pairs, "bf16")
+        results.append(dict(kernel="K16", name=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                            library_ms=library_ms, k6_dense_copy_max_diff=k6_diff,
+                            k6_dense_copy_ms=k6_ms))
+        del arrs, rows, got, want
+        torch.cuda.empty_cache()
+
+
+def check_k22(torch, tatt, PagePool, results):
+    """K22 at K13's four shapes (check_paged_attention): 32-layer pools of
+    ps 512 in ``scattered_pool``'s pages, layer 17, batch 8 at DECODE_POS
+    (MHA and a GQA group of 4) and batch 1 at pos 511 and 2047; every pool
+    row that no slot attends (past each pos: K22 attends rows <= pos)
+    poisoned.  Within K6_TOL of its plain version.  The library call is
+    SDPA on the gathered, dequantized rows with the mask s <= pos."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    L, hd, ps, layer = 32, 128, PAGED_PS, 17
+    MP = 2048 // ps
+    S = MP * ps
+    pool = scattered_pool(PagePool, 8, MP, ps, seed=2)
+    P = pool.num_pages
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rs(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda") * 0.03 + 0.01
+
+    for B, KVH, G, pos in ((8, 32, 1, DECODE_POS), (8, 8, 4, DECODE_POS), (1, 32, 1, [511]),
+                           (1, 32, 1, [2047])):
+        table = pool.table[:B] if B == 8 else pool.table[7:8]
+        arrs = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rs(L, P, KVH, ps),
+                rs(L, P, KVH, ps)]
+        for pg, n in enumerate(_live_rows(table, [p + 1 for p in pos], P, ps)):
+            for a, val in zip(arrs, (127, 127, 1e4, 1e4)):
+                a[:, pg, :, n:] = val
+        pt = torch.tensor(table, device="cuda")
+        p32 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        rows = KVH * sum(p + 1 for p in pos)
+        copies = n_copies(rows * (2 * hd + 8))
+        layers = [(layer + i) % L for i in range(copies)]
+        q = [torch.randn(B, KVH, G, hd, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(copies)]
+
+        def run(i, f=tatt.paged_flash_decode_attention):
+            j = i % copies
+            return f(q[j], *arrs, pt, p32, layer=layers[j])
+
+        got = run(0)
+        torch.cuda.synchronize()
+        want = run(0, tatt.paged_flash_decode_attention_plain)
+        err = (got - want).abs().max().item()
+        peak = want.abs().max().item()
+        label = f"K22 paged_flash_decode B={B} KVH={KVH} G={G} ps={ps} pos=" \
+                f"{pos[0] if B == 1 else 'mix'}"
+        check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
+        ms = cuda_ms(torch, run, 50)
+        plain_ms = cuda_ms(torch, lambda i: run(i, tatt.paged_flash_decode_attention_plain), 3)
+        deq = []
+        for j in range(copies):
+            d = [tatt.paged_view(a, pt, layers[j])[0] for a in arrs]
+            deq.append((q[j].reshape(B, KVH * G, 1, hd),
+                        (d[0].float() * d[2][..., None]).to(torch.bfloat16),
+                        (d[1].float() * d[3][..., None]).to(torch.bfloat16)))
+        mask = (torch.arange(S, device="cuda")[None, :] <= p32[:, None])[:, None, None, :]
+        kw = dict(enable_gqa=True) if G > 1 else {}
+        try:
+            library_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+                *deq[i % copies], attn_mask=mask, **kw), 50)
+        except (TypeError, RuntimeError) as e:  # a GQA call this build refuses
+            print(f"K22 library call unavailable: {e}", file=sys.stderr)
+            library_ms = None
+        del deq
+        nbytes = rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + 4 * B * (MP + 1)
+        b_ms, by = bound_ms(nbytes, 4 * hd * G * rows, "bf16")
+        results.append(dict(kernel="K22", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=library_ms))
+        del arrs
         torch.cuda.empty_cache()
 
 
@@ -1238,8 +1490,9 @@ def _layer_weights(torch, tq, gen, L, D, H, QO):
 
 def check_fused(torch, tq, tfl, tfs, results):
     """K8, K11 and K12 at 7B width against their plain versions on a
-    32-layer stack: K8 on layer 0's wqkv at batch 8; K11 at batch 8 on
-    layers 17 and 31 (the last: no phase D); K12 on layer 17 at batch 8
+    32-layer stack: K8 on layer 0's wqkv at batch 8 and 32; K11 at batch 8
+    and 32 (phase 4f's decode) on layers 17 and 31 (the last: no phase D);
+    K12 on layer 17 at batch 8
     (one slot at each of DECODE_POS) and at batch 1 (pos 511, 2047), and on
     the last layer.  K8 and K11 bit-equal, K12's x_next bit-equal, its
     fresh K/V rows within QUANT_FLIPS and their scales within
@@ -1265,57 +1518,61 @@ def check_fused(torch, tq, tfl, tfs, results):
         attq = torch.randint(-127, 128, (B, D), generator=gen, device="cuda", dtype=torch.int8)
         return x, attq, torch.rand(B, generator=gen, device="cuda") * 0.02 + 0.005
 
-    # K8: layer 0's qkv product at batch 8
-    xq = torch.randint(-127, 128, (8, D), generator=gen, device="cuda", dtype=torch.int8)
-    sx = torch.rand(8, generator=gen, device="cuda") * 0.05
-    got = tfl.w8a8_matmul_stacked(xq, sx, wqkv, 0)
-    torch.cuda.synchronize()
-    want = tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, 0)
-    err = (got - want).abs().max().item()
-    check(torch.equal(got, want), f"K8 M=8 {D}x{QO}: max err {err}")
-    ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked(xq, sx, wqkv, i % L), 50)
-    plain_ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, i % L), 5)
-    # the library call: torch._int_mm on the layer's view plus the scales,
-    # rows padded to 32 as for K1
-    xl = torch.nn.functional.pad(xq, (0, 0, 0, 24))
-    sxl = torch.nn.functional.pad(sx, (0, 24))
-
-    def lib(i):
-        w = wqkv.layer(i % L)
-        return torch._int_mm(xl, w.q.t()).float() * sxl[:, None] * w.s[None, :]
-
-    try:
-        library_ms = cuda_ms(torch, lib, 50)
-    except RuntimeError as e:  # an _int_mm shape this build refuses
-        print(f"K8 library call unavailable: {e}", file=sys.stderr)
-        library_ms = None
-    b_ms, by = bound_ms(8 * D + 32 + wbytes["wqkv"] + 4 * 8 * QO, 8 * 2 * D * QO, "int8")
-    results.append(dict(kernel="K8", name=f"K8 w8a8_matmul_stacked M=8 {D}x{QO} layer 0",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                        library_ms=library_ms))
-
-    # K11 at batch 8, layer 17 and the last layer
-    x, attq, satt = rows(8)
-    for layer in (17, L - 1):
-        last = layer == L - 1
-        args = (x, attq, satt, wo, w13, w2, wqkv, rf, ra)
-        got = tfl.fused_layer_linear(*args, layer, L)
+    # K8: layer 0's qkv product at batch 8 and 32 (phase 4f's decode)
+    for M in (8, 32):
+        xq = torch.randint(-127, 128, (M, D), generator=gen, device="cuda", dtype=torch.int8)
+        sx = torch.rand(M, generator=gen, device="cuda") * 0.05
+        got = tfl.w8a8_matmul_stacked(xq, sx, wqkv, 0)
         torch.cuda.synchronize()
-        want = tfl.fused_layer_linear_plain(*args, layer, L)
-        pairs = [(got[0], want[0])] + ([] if last else [(got[1], want[1])])
-        err = max((a - b).abs().max().item() for a, b in pairs)
-        label = f"K11 fused_layer_linear B=8 layer {layer}" + (" (last)" if last else "")
-        check(all(torch.equal(a, b) for a, b in pairs), f"{label}: max err {err}")
-        layers = [layer] if last else [(layer + i) % (L - 1) for i in range(8)]
-        ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear(*args, layers[i % len(layers)], L),
-                     20)
-        plain_ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear_plain(
-            *args, layers[i % len(layers)], L), 3, warmup=1)
-        nbytes = (8 * D * (4 + 1 + 4) + 32 + wbytes["wo"] + wbytes["w13"] + wbytes["w2"]
-                  + 2 * D * 2 + (0 if last else wbytes["wqkv"] + 2 * D + 4 * 8 * QO))
-        b_ms, by = bound_ms(nbytes, 8 * (int8_ops - (2 * D * QO if last else 0)), "int8")
-        results.append(dict(kernel="K11", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=by, library_ms=None))
+        want = tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, 0)
+        err = (got - want).abs().max().item()
+        check(torch.equal(got, want), f"K8 M={M} {D}x{QO}: max err {err}")
+        ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked(xq, sx, wqkv, i % L), 50)
+        plain_ms = cuda_ms(torch, lambda i: tfl.w8a8_matmul_stacked_plain(xq, sx, wqkv, i % L),
+                           5)
+        # the library call: torch._int_mm on the layer's view plus the
+        # scales, rows padded to 32 as for K1
+        xl = torch.nn.functional.pad(xq, (0, 0, 0, 32 - M))
+        sxl = torch.nn.functional.pad(sx, (0, 32 - M))
+
+        def lib(i):
+            w = wqkv.layer(i % L)
+            return torch._int_mm(xl, w.q.t()).float() * sxl[:, None] * w.s[None, :]
+
+        try:
+            library_ms = cuda_ms(torch, lib, 50)
+        except RuntimeError as e:  # an _int_mm shape this build refuses
+            print(f"K8 library call unavailable: {e}", file=sys.stderr)
+            library_ms = None
+        b_ms, by = bound_ms(M * D + 4 * M + wbytes["wqkv"] + 4 * M * QO, M * 2 * D * QO, "int8")
+        results.append(dict(kernel="K8", name=f"K8 w8a8_matmul_stacked M={M} {D}x{QO} layer 0",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=by, library_ms=library_ms))
+
+    # K11 at batch 8 (its 16-row instantiation) and 32 (the 32-row one,
+    # phase 4f's decode), layer 17 and the last layer
+    for B in (8, 32):
+        x, attq, satt = rows(B)
+        for layer in (17, L - 1):
+            last = layer == L - 1
+            args = (x, attq, satt, wo, w13, w2, wqkv, rf, ra)
+            got = tfl.fused_layer_linear(*args, layer, L)
+            torch.cuda.synchronize()
+            want = tfl.fused_layer_linear_plain(*args, layer, L)
+            pairs = [(got[0], want[0])] + ([] if last else [(got[1], want[1])])
+            err = max((a - b).abs().max().item() for a, b in pairs)
+            label = f"K11 fused_layer_linear B={B} layer {layer}" + (" (last)" if last else "")
+            check(all(torch.equal(a, b) for a, b in pairs), f"{label}: max err {err}")
+            layers = [layer] if last else [(layer + i) % (L - 1) for i in range(8)]
+            ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear(
+                *args, layers[i % len(layers)], L), 20)
+            plain_ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear_plain(
+                *args, layers[i % len(layers)], L), 3, warmup=1)
+            nbytes = (B * D * (4 + 1 + 4) + 4 * B + wbytes["wo"] + wbytes["w13"] + wbytes["w2"]
+                      + 2 * D * 2 + (0 if last else wbytes["wqkv"] + 2 * D + 4 * B * QO))
+            b_ms, by = bound_ms(nbytes, B * (int8_ops - (2 * D * QO if last else 0)), "int8")
+            results.append(dict(kernel="K11", name=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None))
 
     # K12: layer 17 at batch 8 and 1, then the last layer at batch 8
     for B, pos, layer in ((8, DECODE_POS, 17), (1, [511], 17), (1, [2047], 17),
@@ -1957,6 +2214,222 @@ def serve_7b_paged(torch, smi_line, params):
     return launches
 
 
+DIRECT_NEW = 32  # new tokens per phase-4f request
+DIRECT_SLOTS = 32
+DIRECT_PAGES = 1 + DIRECT_SLOTS * 3  # 32 slots of up to 3 pages, and the trash page
+
+
+def direct_requests(Request, vocab: int):
+    """Phase 4f's traffic, batch document jobs whose long prompts arrive
+    together: wave 1, 32 prompts of 600-1000 tokens (greedy and seeded
+    temperature sampling on the host), one admission group of 32 x 1024
+    rows; wave 2, after it, 8 device-sampled prompts of 1100-2000 tokens,
+    one group of 8 x 2048 rows; 32 new tokens each."""
+    rng = np.random.default_rng(77)
+    wave1 = []
+    for i, n in enumerate(rng.integers(600, 1001, DIRECT_SLOTS)):
+        prompt = [int(t) for t in rng.integers(3, vocab, int(n))]
+        wave1.append(Request(prompt_tokens=prompt, steps=int(n) + 1 + DIRECT_NEW,
+                             temperature=0.0 if i % 2 == 0 else 0.8,
+                             topp=0.9 if i % 4 == 3 else 1.0, seed=3000 + i))
+    wave2 = []
+    for i, n in enumerate(rng.integers(1100, 2001, 8)):
+        prompt = [int(t) for t in rng.integers(3, vocab, int(n))]
+        wave2.append(Request(prompt_tokens=prompt, steps=int(n) + 1 + DIRECT_NEW,
+                             temperature=(0.0, 0.8, 0.8)[i % 3], topp=0.9 if i % 3 == 1 else 1.0,
+                             topk=40 if i % 3 == 2 else 0, seed=4000 + i,
+                             device_sampling=True))
+    return wave1, wave2
+
+
+def serve_7b_paged_direct(torch, smi_line, params):
+    """Phase 4f: the pool-direct paged admission at full 7B width and depth
+    on phase 4's fused W8A8 weights: ``Engine(max_batch=32,
+    kv_layout="paged", page_size=512, seq_len=2048, num_pages=97)`` (32
+    slots x 3 pages and the trash page, ~13 GB of pool) +
+    ``ContinuousBatcher``, ``direct_requests``' two waves (wave 2 with
+    ``max_chunk=16``).  Each admission group passes the pool-direct gate and
+    is prefilled straight into its pages in waves of 16 slots: 32 x 1024
+    in two waves of 4 chunks, 8 x 2048 in one wave of 8 chunks, so each
+    launches K16 and K17 256 times (32 layers x 8 chunk steps) and K15 0
+    times, and must raise ``max_memory_allocated`` by less than a quarter
+    of the compact [L, n, KVH, T, hd] block it avoids.  Every request must
+    finish with in-vocab tokens, every kernel must launch exactly as the
+    path requires, no plain version may run, and the pool must be back to
+    every page free.  Then each wave's prompts are admitted once more (the
+    same engine calls, untimed) and held to the dense chunked prefill of
+    the same prompts (``forward_prefill_chunked``: K5, K18, K6) bit for
+    bit: the last logits and every row of each slot's pages.  Returns the
+    served run's launches."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime import engine as engine_mod
+    from tpu_llama_torch.runtime.metrics import summarize
+
+    cfg = LLAMA2_7B
+    L, V, KVH, hd = cfg.n_layers, cfg.vocab_size, cfg.n_kv_heads, cfg.head_dim
+    chunk, wave_slots = engine_mod._POOL_CHUNK, engine_mod._WAVE_ROWS // engine_mod._POOL_CHUNK
+    t0 = time.time()
+    engine = Engine(params, cfg, max_batch=DIRECT_SLOTS, kv_layout="paged", page_size=PAGED_PS,
+                    seq_len=2048, num_pages=DIRECT_PAGES)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    attn, fused = engine.decode_attn, engine.decode_fused
+    check(attn == "flash_dma" and fused is True, f"4f: decode resolved to {attn}, {fused!r}")
+    pool_gb = sum(getattr(engine.cache, a).numel() * getattr(engine.cache, a).element_size()
+                  for a in engine.cache.arrays) / 1e9
+    admissions, waves, peak = [], [], [0]
+    inner, inner_wave = engine.prefill, engine_mod.forward_prefill_paged_chunked
+
+    def prefill(prompts, slots, *a, **k):  # wall, launches and memory rise of one admission
+        torch.cuda.synchronize()
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        before = dict(_kernels.LAUNCHES)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        waves.clear()
+        t = time.time()
+        out = inner(prompts, slots, *a, **k)
+        torch.cuda.synchronize()
+        wall = (time.time() - t) * 1e3
+        rise = torch.cuda.max_memory_allocated() - base
+        T = min(engine_mod._bucket(max(len(p) for p in prompts)), engine.seq_len)
+        n = len(prompts)
+        block = L * n * KVH * T * (2 * hd + 8)  # the compact block pool-direct avoids
+        admissions.append(dict(n=n, T=T, wall_ms=wall, pool_direct_waves=list(waves),
+                               launches={x: _kernels.LAUNCHES[x] - before[x]
+                                         for x in ("K15", "K16", "K17")},
+                               want=L * (T // chunk) * -(-n // wave_slots),
+                               mem_rise_gb=rise / 1e9, compact_block_gb=block / 1e9))
+        return out
+
+    def counted(p, cache, tokens, *a, **k):  # one pool-direct wave
+        waves.append(tokens.shape[0])
+        return inner_wave(p, cache, tokens, *a, **k)
+
+    def pool_clean(label):
+        pool = engine.pool
+        check(pool.free_pages == pool.num_pages - 1 and not any(
+            pool.refcount(p) for p in range(pool.num_pages)),
+            f"{label}: {pool.free_pages} of {pool.num_pages - 1} pages free after retirement")
+
+    wave1, wave2 = direct_requests(Request, V)
+    engine.prefill = prefill
+    engine_mod.forward_prefill_paged_chunked = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_counts()  # counts from here on belong to this path
+        b1 = ContinuousBatcher(engine)
+        t0 = time.time()
+        for r in wave1:
+            b1.submit(r)
+        b1.run()
+        torch.cuda.synchronize()
+        wall1 = time.time() - t0
+        pool_clean("4f wave 1")
+        b2 = ContinuousBatcher(engine, max_chunk=LONG_CHUNK)
+        t0 = time.time()
+        for r in wave2:
+            b2.submit(r)
+        b2.run()
+        torch.cuda.synchronize()
+        wall2 = time.time() - t0
+        pool_clean("4f wave 2")
+    finally:
+        engine_mod.forward_prefill_paged_chunked = inner_wave
+        del engine.prefill
+    peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+    launches = dict(_kernels.LAUNCHES)
+    plain = {k: n for k, n in _kernels.PLAIN_CALLS.items() if n}
+    reqs = wave1 + wave2
+    check(all(r.done for r in reqs), "4f: a request did not finish")
+    toks = [t for r in reqs for t in r.out_tokens]
+    check(len(toks) > 0 and all(0 <= t < V for t in toks), "4f: tokens missing or out of vocab")
+    check(not plain, f"4f: plain versions ran: {plain}")
+    shapes = [(a["n"], a["T"]) for a in admissions]
+    check(shapes == [(DIRECT_SLOTS, 1024), (8, 2048)],
+          f"4f: admission groups {shapes}, want [(32, 1024), (8, 2048)]")
+    for a in admissions:
+        want = dict(K15=0, K16=a["want"], K17=a["want"])
+        check(a["launches"] == want and a["pool_direct_waves"] == [
+            min(wave_slots, a["n"] - w) for w in range(0, a["n"], wave_slots)],
+            f"4f admission {a['n']} x {a['T']}: launches {a['launches']}, want {want}; waves "
+            f"{a['pool_direct_waves']}")
+        check(a["mem_rise_gb"] < a["compact_block_gb"] / 4,
+              f"4f admission {a['n']} x {a['T']}: memory rose {a['mem_rise_gb']} GB, the compact "
+              f"block it avoids is {a['compact_block_gb']} GB")
+    steps = b1.timers["decode_steps"] + b2.timers["decode_steps"]
+    body = sum(a["want"] // L for a in admissions)  # chunk steps of all waves
+    want = dict(K3=2 * L * body, K4=L * body, K5=L * body, K16=L * body, K17=L * body,
+                K1=(4 * L + 1) * body, K2=(L + 1) * body)
+    for k, n in decode_launches(fused, attn, L, paged=True).items():
+        want[k] = want.get(k, 0) + n * steps
+    got = {k: n for k, n in launches.items() if n}
+    check(got == want, f"4f: {shapes} admissions, {steps} decode steps: want exactly {want}, "
+                       f"got {got}")
+
+    # each wave's prompts again, held to the dense chunked prefill bit for bit
+    equal = []
+    for reqs_w in (wave2, wave1):
+        prompts = [[1] + r.prompt_tokens for r in reqs_w]
+        n = len(prompts)
+        T = min(engine_mod._bucket(max(len(p) for p in prompts)), engine.seq_len)
+        last = engine.prefill(prompts, list(range(n)), reserve_tokens=[len(p) for p in prompts],
+                              return_device=True)
+        tk = np.zeros((n, T), np.int64)
+        for i, p in enumerate(prompts):
+            tk[i, :len(p)] = p
+        dense = tl.make_kv_cache(cfg, n, kv_dtype="int8", seq_len=T)
+        ref, _ = tl.forward_prefill_chunked(params, dense, torch.tensor(tk, device="cuda"),
+                                            torch.tensor([len(p) for p in prompts],
+                                                         device="cuda"),
+                                            cfg, chunk=chunk, precision=engine.precision)
+        torch.cuda.synchronize()
+        diff = []
+        for i, p in enumerate(prompts):
+            pages = [int(x) for x in engine.pool.table[i, :engine.pool.pages_needed(len(p))]]
+            for a in engine.cache.arrays:
+                rows = torch.cat([getattr(engine.cache, a)[:, pg] for pg in pages], dim=2)
+                d = rows != getattr(dense, a)[:, i, :, :rows.shape[2]]
+                if d.any():
+                    diff.append(dict(slot=i, array=a,
+                                     first_layer=int(d.flatten(1).any(1).nonzero()[0]),
+                                     share=d.float().mean().item()))
+        equal.append(dict(n=n, T=T, logits_equal=torch.equal(last, ref),
+                          logit_max_diff=(last - ref).abs().max().item(), pool_rows_differ=diff))
+        for s in range(n):
+            engine.release_slot(s)
+        del dense, ref, last
+        torch.cuda.empty_cache()
+    pool_clean("4f after the comparisons")
+    rep1, rep2 = summarize(wave1), summarize(wave2)
+    t1, t2 = b1.timers, b2.timers
+    line = dict(phase="serve_7b_paged_direct", layouts="fused", decode_attn=attn,
+                decode_fused=fused, page_size=PAGED_PS, num_pages=DIRECT_PAGES,
+                pool_gb=pool_gb, setup_s=setup_s, admissions=admissions,
+                wave1=dict(n_requests=rep1.n_requests, tokens=rep1.total_tokens, wall_s=wall1,
+                           tok_per_s=rep1.tokens_per_sec, ttft_p50_ms=rep1.ttft_p50_s * 1e3,
+                           ttft_p95_ms=rep1.ttft_p95_s * 1e3, decode_steps=t1["decode_steps"],
+                           decode_ms_per_step=t1["decode"] * 1e3 / max(1, t1["decode_steps"]),
+                           admit_s=t1["admit"], emit_s=t1["emit"]),
+                wave2=dict(n_requests=rep2.n_requests, tokens=rep2.total_tokens, wall_s=wall2,
+                           tok_per_s=rep2.tokens_per_sec, ttft_p50_ms=rep2.ttft_p50_s * 1e3,
+                           ttft_p95_ms=rep2.ttft_p95_s * 1e3, decode_steps=t2["decode_steps"],
+                           decode_ms_per_step=t2["decode"] * 1e3 / max(1, t2["decode_steps"]),
+                           chunks=t2["chunks"], admit_s=t2["admit"]),
+                free_pages_after=engine.pool.free_pages, peak_mem_gb=peak[0] / 1e9,
+                equal_to_dense_chunked=equal, host_launch_us=host_launch_us(torch),
+                launches=launches, card=smi_line)
+    print(json.dumps(line), flush=True)
+    check(all(e["logits_equal"] and not e["pool_rows_differ"] for e in equal),
+          f"4f: pool-direct admissions differ from the dense chunked prefill: {equal}")
+    del engine, b1, b2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _to(obj, device):
     import torch
 
@@ -2146,6 +2619,95 @@ def parity_paged(torch):
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
+
+
+def parity_pool_direct(torch):
+    """Phase 5 for the pool-direct prefill on the 2-layer 7B-width model in
+    the fused layouts with f32 activations, card (kernels) against CPU
+    (plain versions): ``forward_prefill_paged_chunked`` of B 2, T 1024
+    (lengths 1024 and 700), chunk 256, into a paged engine's reserved pages
+    (ps 512), then PARITY_STEPS greedy decode steps of both slots (the
+    two-launch decode with K13, what "auto" picks on the card, asked for on
+    the CPU): tokens equal at every step and every step's logits within
+    LOGITS_TOL of max |logit|.  On each side the same prompts prefilled in
+    two waves through ``start0`` (0 and 512, max_pos 1024) must leave the
+    pool the one-shot call leaves and give its logits (both rows end in the
+    second wave), bit for bit."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import Engine
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    gpu = tl.random_quant_params(cfg, seed=4, norm_dtype=torch.float32, fuse=True, device=CARD)
+    cpu = _to(gpu, "cpu")
+    rng = np.random.default_rng(57)
+    B, T, chunk, W = 2, 1024, 256, 512
+    toks = rng.integers(3, cfg.vocab_size, (B, T))
+    lengths = np.array([1024, 700])
+    side = {}
+    for params, dev in ((gpu, CARD), (cpu, "cpu")):
+        t0 = time.time()
+        tk, ln = torch.tensor(toks, device=dev), torch.tensor(lengths, device=dev)
+        engines = []
+        for _ in range(2):
+            eng = Engine(params, cfg, max_batch=B, kv_layout="paged", page_size=PAGED_PS,
+                         seq_len=2048, attn="flash_dma", fused=True, device=dev)
+            for s, n in enumerate(lengths):
+                eng.pool.reserve(s, int(n) + PARITY_STEPS + 1)
+            eng._sync_page_table()
+            engines.append(eng)
+        _kernels.reset_counts()
+        last, _ = tl.forward_prefill_paged_chunked(params, engines[0].cache, tk, ln, [0, 1], cfg,
+                                                   chunk=chunk, precision=engines[0].precision)
+        launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+        plain = {k: n for k, n in _kernels.PLAIN_CALLS.items() if n}
+        waves = [tl.forward_prefill_paged_chunked(params, engines[1].cache, tk[:, w:w + W], ln,
+                                                  [0, 1], cfg, chunk=chunk, start0=w,
+                                                  max_pos=T)[0] for w in range(0, T, W)]
+        waves_equal = torch.equal(waves[-1], last) and all(
+            torch.equal(getattr(engines[0].cache, a)[:, 1:], getattr(engines[1].cache, a)[:, 1:])
+            for a in engines[0].cache.arrays)
+        del engines[1], waves
+        eng = engines[0]
+        logits = [last.cpu().numpy()]
+        out, pos = [], lengths.copy()
+        for _ in range(PARITY_STEPS):
+            out.append(np.argmax(logits[-1], axis=-1))
+            logits.append(eng.decode(out[-1], pos))
+            pos = pos + 1
+        side[dev] = dict(tokens=np.stack(out, 1).tolist(), logits=logits, waves_equal=waves_equal,
+                         launches=launches, plain=plain, s=time.time() - t0)
+        del eng, engines
+    card, cpu_s = side[CARD], side["cpu"]
+    same = next((i for i in range(PARITY_STEPS)
+                 if [t[i] for t in card["tokens"]] != [t[i] for t in cpu_s["tokens"]]),
+                PARITY_STEPS)
+    errs = [float(np.abs(card["logits"][i] - cpu_s["logits"][i]).max()) for i in range(same + 1)]
+    peak = float(np.abs(cpu_s["logits"][0]).max())
+    L = cfg.n_layers
+    print(json.dumps(dict(phase="parity_pool_direct", B=B, T=T, chunk=chunk,
+                          lengths=lengths.tolist(), page_size=PAGED_PS, steps=PARITY_STEPS,
+                          tokens_equal=same, card_tokens=card["tokens"],
+                          cpu_tokens=cpu_s["tokens"], prefill_logit_max_err=errs[0],
+                          logit_max_err=max(errs), logit_peak=peak, tol=LOGITS_TOL,
+                          waves_equal_one_shot=dict(card=card["waves_equal"],
+                                                    cpu=cpu_s["waves_equal"]),
+                          card_prefill_launches=card["launches"], card_s=card["s"],
+                          cpu_s=cpu_s["s"])), flush=True)
+    n = L * T // chunk
+    check(not card["plain"] and card["launches"].get("K16") == n
+          and card["launches"].get("K17") == n and "K15" not in card["launches"],
+          f"pool-direct parity: card launches {card['launches']}, plain {card['plain']}")
+    check(all(np.isfinite(x).all() for x in card["logits"]), "pool-direct parity: not finite")
+    check(same == PARITY_STEPS, f"pool-direct parity: tokens differ at step {same}: card "
+                                f"{card['tokens']}, cpu {cpu_s['tokens']}")
+    check(max(errs) <= LOGITS_TOL * peak,
+          f"pool-direct parity: logits differ by {max(errs)} > {LOGITS_TOL} * {peak}")
+    check(card["waves_equal"] and cpu_s["waves_equal"],
+          "pool-direct parity: start0 waves differ from the one-shot prefill")
+    del gpu, cpu
+    torch.cuda.empty_cache()
 
 
 # phase 5's checkpoint runs: (weights, cache, decode attention) on both
@@ -2400,6 +2962,8 @@ def main() -> int:
 
     check_paged_writes(torch, tatt, PagePool, results)
     check_paged_attention(torch, tatt, PagePool, results)
+    check_pool_direct(torch, tatt, PagePool, results)
+    check_k22(torch, tatt, PagePool, results)
     check_fused(torch, tq, tfl, tfs, results)
     check_k25(torch, tq, tm, results)
     check_fp_forms(torch, tatt, results)
@@ -2407,7 +2971,8 @@ def main() -> int:
     for r in results:  # launches follow in the kernels line, after the main path
         extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err", "att_int8_flip_share",
                                    "att_scale_max_rel_err", "k9_block256_max_diff",
-                                   "k9_block128_max_diff") if k in r}
+                                   "k9_block128_max_diff", "k6_dense_copy_max_diff",
+                                   "k6_dense_copy_ms") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -2421,18 +2986,36 @@ def main() -> int:
     params = random_quant_params(LLAMA2_7B, seed=0, norm_dtype=torch.bfloat16, fuse=True)
     torch.cuda.synchronize()
     launches = serve_7b(torch, smi, params, time.time() - t0)
+    # a kernel on no path: its launches summed over every phase-4 path's own
+    # counts (each reset just before that path runs), and held to 0
+    on_no_path = {k: launches.get(k, 0) for k in NO_PATH}
+
+    def no_path(got):
+        for k in NO_PATH:
+            on_no_path[k] += got.get(k, 0)
+
     print(f"phase 4: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
-    launches["K18"] = serve_7b_long(torch, smi, params)["K18"]
+    got = serve_7b_long(torch, smi, params)
+    launches["K18"] = got["K18"]
+    no_path(got)
     torch.cuda.empty_cache()
     print(f"phase 4b: {time.time() - t0:.1f} s", flush=True)
     # 4e. the paged INT8 path on the same weights: K15, K13, K14 count there
     t0 = time.time()
     got = serve_7b_paged(torch, smi, params)
     launches.update({k: got.get(k, 0) for k in ("K13", "K14", "K15")})
-    del params
+    no_path(got)
     torch.cuda.empty_cache()
     print(f"phase 4e: {time.time() - t0:.1f} s", flush=True)
+    # 4f. the pool-direct paged admission on the same weights: K16, K17 count there
+    t0 = time.time()
+    got = serve_7b_paged_direct(torch, smi, params)
+    launches.update({k: got.get(k, 0) for k in ("K16", "K17")})
+    no_path(got)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 4f: {time.time() - t0:.1f} s", flush=True)
 
     # 4c. the server's default model: dense f32 weights, fused as serve()
     # fuses them, the default f32 cache; 4d. those weights in Q8_0 (the f32
@@ -2444,6 +3027,7 @@ def main() -> int:
     torch.cuda.synchronize()
     got = serve_7b_fp(torch, smi, params, "serve_7b_dense", "float32", time.time() - t0)
     launches.update({k: n for k, n in got.items() if ":f32" in k})
+    no_path(got)
     print(f"phase 4c: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     q8 = quantize_params(params)
@@ -2452,6 +3036,7 @@ def main() -> int:
     torch.cuda.synchronize()
     got = serve_7b_fp(torch, smi, q8, "serve_7b_q8", "bfloat16", time.time() - t0)
     launches.update({k: n for k, n in got.items() if ":bf16" in k or k == "K25"})
+    no_path(got)
     del q8
     torch.cuda.empty_cache()
     print(f"phase 4d: {time.time() - t0:.1f} s", flush=True)
@@ -2470,6 +3055,7 @@ def main() -> int:
     parity_long_paths(torch)
     # the paged path; K20 ("flash") counts its launches here (4e decodes with K13)
     launches["K20"] = parity_paged(torch)["flash", False].get("K20", 0)
+    parity_pool_direct(torch)
     # the checkpoint-loaded model; K19's fp forms count their launches here
     # (4c and 4d decode with K9's)
     ckpt = parity_checkpoint(torch)
@@ -2479,7 +3065,11 @@ def main() -> int:
     print(f"phase 5: {time.time() - t0:.1f} s", flush=True)
 
     # 6. result lines
-    missing = sorted({r["kernel"] for r in results if launches.get(r["kernel"], 0) == 0})
+    check(not any(on_no_path.values()), f"a main path launched a kernel on no path: "
+                                        f"{on_no_path}")
+    launches.update(on_no_path)
+    missing = sorted({r["kernel"] for r in results
+                      if r["kernel"] not in NO_PATH and launches.get(r["kernel"], 0) == 0})
     check(not missing, f"kernels no main path launched: {missing}")
     kernels = []
     for r in results:

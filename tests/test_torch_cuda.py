@@ -770,3 +770,198 @@ def test_paged_engine_card_matches_cpu(card, fuse, fused, attn):
         if part is not None:
             (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
             assert top1 - top2 < NEAR_TIE, (attn, part, c.out_tokens, g.out_tokens)
+
+
+# -------------------------------------------- pool-direct admission (K16, K17, K22)
+# K17 is a copy: bit-exact outside the trash page 0 (several slots may write
+# it at once).  K16 computes K6's f32 steps: within K6's limits of its plain
+# version (1e-5 of the largest f32 output, one bf16 step for bf16 outputs),
+# on pools whose rows no query attends are poisoned, and bit-equal to K6 on a
+# dense copy of its keys.  K22 rounds q and p to bf16 at its plain version's
+# places: DECODE_TOL, as K13.
+
+
+@pytest.mark.parametrize("ps,hd,Tc", [(512, 128, 256), (16, 16, 8), (64, 12, 32)])
+def test_k17_exact(card, ps, hd, Tc):
+    g = _gen(ps + hd + Tc)
+    L, KVH, B, MP = 3, 4, 6, 4
+    P = B * MP + 2
+    pool = _paged_pool(card, g, L, P, KVH, ps, hd)
+    rows = [r[0] for r in _paged_pool(card, g, 1, B, KVH, Tc, hd)]  # [B, KVH, Tc(, hd)]
+    pt = torch.tensor(_scattered_table(B, MP, P, ps), device=card)
+    pt[5] = 0  # a parked slot: the trash page
+    start = [0, Tc, ps, 2 * ps + Tc, MP * ps, ps - Tc]  # slot 4 past the table: page 0
+    ref = [a.clone() for a in pool]
+    before = _kernels.LAUNCHES["K17"]
+    # the model's form: the start tensor on the card, not read back
+    tatt.kv_pool_write_chunk(*rows, pt, torch.tensor(start, device=card, dtype=torch.int32), 1,
+                             *pool)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K17"] == before + 1
+    tatt.kv_pool_write_chunk_plain(*rows, pt, start, 1, *ref)
+    for a, b in zip(pool, ref):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    keep = [a.clone() for a in pool]
+    pt[1, 0], pt[2, 1] = P, -3  # bad page ids and a negative start: nothing written
+    tatt.kv_pool_write_chunk(*rows, pt, [-Tc, 0, ps, -ps, -Tc, -Tc], 2, *pool)
+    # a device start whose chunk would cross its page: nothing written
+    tatt.kv_pool_write_chunk(*rows, pt, torch.tensor([ps - Tc // 2] + [-Tc] * 5, device=card,
+                                                     dtype=torch.int32), 2, *pool)
+    torch.cuda.synchronize()
+    for a, b in zip(pool, keep):
+        assert torch.equal(a, b)
+
+
+def _k16_case(card, B, G, hd, ps, MP, Tc, start, qdtype, KVH=3, L=3, poison=True):
+    g = _gen(B * G + hd + ps + Tc)
+    P = B * MP + 2
+    pool = _paged_pool(card, g, L, P, KVH, ps, hd)
+    ptn = _scattered_table(B, MP, P, hd + 1)
+    fresh = [a[0] for a in _paged_pool(card, g, 1, B, KVH, Tc, hd)]
+    q = torch.randn(B, Tc, KVH * G, hd, generator=g, device=card).to(qdtype)
+    if poison:  # every pool row of layer 1 that no query attends
+        live = np.zeros((P, KVH, ps), bool)
+        for b, n in enumerate(start):
+            for j in range(-(-n // ps)):
+                live[ptn[b, j], :, :min(ps, n - j * ps)] = True
+        dead = torch.tensor(~live, device=card)
+        for a, val in zip(pool, (127, 127, 1e4, 1e4)):
+            a[1][dead] = val
+    return (q, *pool, torch.tensor(ptn, device=card),
+            torch.tensor(start, dtype=torch.int32, device=card), *fresh)
+
+
+@pytest.mark.parametrize("G,hd,ps,Tc", [(1, 128, 512, 256), (4, 128, 256, 64), (2, 12, 16, 16),
+                                        (1, 64, 64, 40)])
+@pytest.mark.parametrize("qdtype,odtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+def test_k16_close(card, G, hd, ps, Tc, qdtype, odtype):
+    MP = 4
+    start = [0, ps, ps + 3, 2 * ps, 3 * ps - Tc - 1]  # slot 0 (two pages) at 0
+    args = _k16_case(card, 5, G, hd, ps, MP, Tc, start, qdtype)
+    before = _kernels.LAUNCHES["K16"]
+    got = tatt.paged_flash_prefill_attention(*args, layer=1, past_pages=3, out_dtype=odtype)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K16"] == before + 1
+    want = tatt.paged_flash_prefill_attention_plain(*args, layer=1, past_pages=3,
+                                                    out_dtype=odtype)
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    tol = 1e-5 * peak if odtype == torch.float32 else (2 ** -7 + 1e-5) * peak
+    assert err <= tol, (err, peak)
+
+
+@pytest.mark.parametrize("ps,Tc,start", [(512, 256, [0, 256, 768, 1280]),
+                                         (64, 64, [0, 64, 128, 192]), (16, 16, [5, 0, 33, 48])])
+def test_k16_equals_k6_on_a_dense_copy(card, ps, Tc, start):
+    """K16 over the pool and the fresh rows against K6 over a dense cache
+    holding the same past rows at [0, start) and the fresh rows at [start,
+    start + Tc): the same cell over the same keys in the same order."""
+    B, G, hd, MP, KVH = len(start), 2, 128, 4, 3
+    q, kp, vp, ksp, vsp, pt, st, fk, fv, fks, fvs = _k16_case(card, B, G, hd, ps, MP, Tc, start,
+                                                              torch.bfloat16, KVH, poison=False)
+    S = MP * ps
+    dense = [tatt.paged_view(a, pt, 1)[0].clone() for a in (kp, vp, ksp, vsp)]  # [B, KVH, S..]
+    for d, f in zip(dense, (fk, fv, fks, fvs)):
+        for b, s0 in enumerate(start):
+            d[b, :, s0:s0 + Tc] = f[b]
+    got = tatt.paged_flash_prefill_attention(q, kp, vp, ksp, vsp, pt, st, fk, fv, fks, fvs,
+                                             layer=1, out_dtype=torch.bfloat16)
+    k6 = tatt.flash_prefill_attention(q, dense[0], dense[1], st, dense[2], dense[3],
+                                      out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert S >= max(start) + Tc and torch.equal(got, k6)
+
+
+@pytest.mark.parametrize("G,hd,ps", [(1, 128, 512), (4, 128, 256), (2, 12, 16), (1, 64, 64)])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_k22_close(card, G, hd, ps, qdtype):
+    MP = 4
+    pos = [0, ps, ps + 3, MP * ps - 1, 2 * ps - 1]
+    # poison every row past pos (the case poisons rows at and past its pos)
+    args = list(_paged_decode_case(card, 5, 3, G, hd, ps, MP, [p + 1 for p in pos], qdtype))[:7]
+    args[6] = args[6] - 1
+    before = _kernels.LAUNCHES["K22"]
+    got = tatt.paged_flash_decode_attention(*args, layer=1)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K22"] == before + 1
+    want = tatt.paged_flash_decode_attention_plain(*args, layer=1)
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    assert err <= DECODE_TOL * peak, (err, peak)
+
+
+def test_pool_direct_equals_dense_chunked_prefill(card):
+    """The pool-direct prefill (K5, K16, K17) against the dense chunked one
+    (K5, K18, K6) on fused W8A8 weights with bf16 activations: logits and
+    every row of each slot's pages bit-equal."""
+    from tpu_llama_torch.config import ModelConfig
+    from tpu_llama_torch.models import llama as tl
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=512, seq_len=512)
+    params = tl.random_quant_params(cfg, seed=4, norm_dtype=torch.bfloat16, fuse=True,
+                                    device=card)
+    B, T, ps, chunk = 3, 512, 128, 64
+    toks = torch.randint(3, 512, (B, T), generator=_gen(5), device=card)
+    lengths = torch.tensor([512, 300, 77], device=card)
+    MP = T // ps
+    pool = tl.make_kv_cache(cfg, B, kv_dtype="int8", paged=True, num_pages=B * MP + 1,
+                            page_size=ps, device=card)
+    table = np.random.default_rng(9).permutation(np.arange(1, B * MP + 1)).reshape(B, MP)
+    pool.page_table = torch.tensor(table.astype(np.int32), device=card)
+    slots = [2, 0, 1]
+    _kernels.reset_counts()
+    got, _ = tl.forward_prefill_paged_chunked(params, pool, toks, lengths, slots, cfg,
+                                              chunk=chunk)
+    assert _kernels.LAUNCHES["K16"] == _kernels.LAUNCHES["K17"] == (T // chunk) * cfg.n_layers
+    dense = tl.make_kv_cache(cfg, B, kv_dtype="int8", seq_len=T, device=card)
+    want, _ = tl.forward_prefill_chunked(params, dense, toks, lengths, cfg, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for i, slot in enumerate(slots):
+        for a in ("k", "v", "ks", "vs"):
+            rows = torch.cat([getattr(pool, a)[:, int(pg)] for pg in table[slot]], dim=2)
+            assert torch.equal(rows, getattr(dense, a)[:, i]), (slot, a)
+
+
+def test_pool_direct_engine_card_matches_compact(card, monkeypatch):
+    """A paged engine whose admissions pass a lowered pool-direct gate
+    (waves of 2 slots, chunks of 32) against the same engine on the compact
+    path (K15): greedy tokens equal up to a near-tie (the compact prefill
+    attends in one pass, the pool-direct one per chunk: f32 sums in another
+    order), every page free again."""
+    from tpu_llama_torch.config import ModelConfig
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime import engine as engine_mod
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=512, seq_len=256)
+    params = tl.random_quant_params(cfg, seed=2, norm_dtype=torch.float32, fuse=True,
+                                    device=card)
+    out = []
+    for rows in (1 << 30, 64):
+        monkeypatch.setattr(engine_mod, "_POOL_DIRECT_ROWS", rows)
+        monkeypatch.setattr(engine_mod, "_POOL_CHUNK", 32)
+        monkeypatch.setattr(engine_mod, "_WAVE_ROWS", 64)
+        _kernels.reset_counts()
+        eng = Engine(params, cfg, max_batch=4, kv_layout="paged", page_size=64, device=card)
+        b = ContinuousBatcher(eng)
+        reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0,
+                        logprobs=2) for n in (5, 130, 40, 100)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        out.append(reqs)
+        direct = _kernels.LAUNCHES["K16"] > 0
+        assert direct == (rows == 64) and (_kernels.LAUNCHES["K15"] == 0) == direct
+        assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
+        assert eng.pool.free_pages == eng.pool.num_pages - 1
+    for c, g in zip(*out):
+        assert len(c.out_tokens) == 12
+        part = next((i for i, (a, b) in enumerate(zip(c.out_tokens, g.out_tokens)) if a != b),
+                    None)
+        if part is not None:
+            (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
+            assert top1 - top2 < NEAR_TIE, (part, c.out_tokens, g.out_tokens)

@@ -179,14 +179,14 @@ def test_scheduler_stop_tokens_logprobs_and_priority():
 
 
 def test_scheduler_rejects_unported_paths():
-    """The paged layout is ported; its pool-direct admission (a group above
-    8192 rows with T and the page size multiples of 256, K16 and K17) is
-    not, and an unknown layout is refused."""
-    _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=23)
-    eng = Engine(tp, tcfg, kv_layout="paged", max_batch=8, seq_len=2048, page_size=256,
-                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.prefill([[1] * 1100] * 8, list(range(8)))
+    """The paged layout is ported with its pool-direct admission (a group
+    above 8192 rows with T and the page size multiples of 256: K16 and K17,
+    no compact block); an unknown layout is refused."""
+    _, _, tcfg, tp = build_pair(dict(CFG, seq_len=2048), jnp.float32, seed=23)
+    eng = Engine(tp, tcfg, kv_layout="paged", max_batch=8, page_size=256, device="cpu")
+    before = _kernels.PLAIN_CALLS["K16"]
+    last = eng.prefill([[1] * 1100] * 8, list(range(8)))
+    assert last.shape == (8, tcfg.vocab_size) and _kernels.PLAIN_CALLS["K16"] > before
     with pytest.raises(ValueError):
         Engine(tp, tcfg, kv_dtype="int8", kv_layout="ragged", device="cpu")
 

@@ -18,7 +18,8 @@
   engine's; slot reuse returns every page, a one-slot pool admits under
   backpressure, concurrent equals solo, prefix pins are released on
   eviction, a pool that cannot spare a boundary page caches nothing, and an
-  admission group above the pool-direct gate raises.
+  admission group above the pool-direct gate is prefilled straight into
+  the pool (tests/test_torch_paged_prefill.py holds that path to JAX).
 """
 
 import jax.numpy as jnp
@@ -297,8 +298,18 @@ def test_paged_dma_equals_k9_on_a_paged_copy():
 
 
 def test_k22_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tatt.paged_flash_decode_attention()
+    """K22 (write-then-attend) on a pool whose row at pos holds the step's
+    row equals K13 (deferred flush) with that row as its fresh column,
+    within TOL: the same keys, the fresh column merged unrounded by K13 and
+    as a bf16(p * vs) block row by K22."""
+    q, k, v, ks, vs, pt, pos, nk, nv, nks, nvs = _decode_case(8, 2)
+    for b, p in enumerate(pos):
+        pg, r = pt[b, p // 16], p % 16
+        k[1, pg, :, r], v[1, pg, :, r] = nk[b], nv[b]
+        ks[1, pg, :, r], vs[1, pg, :, r] = nks[b], nvs[b]
+    t = [torch.tensor(a) for a in (q, k, v, ks, vs, pt, pos, nk, nv, nks, nvs)]
+    _close(tatt.paged_flash_decode_attention(*t[:7], layer=1).numpy(),
+           tatt.paged_flash_decode_attention_dma(*t, layer=1).numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -389,11 +400,14 @@ def test_paged_cache_make_resolve_and_numpy():
     assert tl._resolve_decode_attn("auto", c) == "flash"
     assert tl._resolve_decode_attn("xla", c) == "xla"  # decodes through K13, as in JAX
     assert tl._resolve_fused("auto", "flash", tp, tcfg, c, 2) is False
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(TypeError, match="forward_prefill_paged_chunked"):
         tl.forward_prefill(tp, c, torch.ones(1, 4, dtype=torch.long), torch.zeros(1),
                            torch.tensor([4]), tcfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tl.forward_prefill_paged_chunked(tp, c)
+    # no page reserved: every row goes through table entries 0, the trash page
+    last, back = tl.forward_prefill_paged_chunked(tp, c, torch.ones(2, 32, dtype=torch.long),
+                                                  torch.tensor([32, 20]), [0, 1], tcfg, chunk=32)
+    assert back is c and last.shape == (2, tcfg.vocab_size) and torch.isfinite(last).all()
+    assert c.k[:, 0].any() and not c.k[:, 1:].any()
     c.k.random_(-127, 127)
     c.page_table[1] = torch.tensor([3, 4, 5, 6])
     back = convert.cache_from_numpy(convert.cache_to_numpy(c), device="cpu")
@@ -581,11 +595,16 @@ def test_full_pool_caches_no_prefix():
 
 def test_pool_direct_gate_raises():
     """An admission group above 8192 rows with T and the page size multiples
-    of 256 is pool-direct in the JAX engine (K16, K17): not ported, and no
-    page is reserved for it."""
-    eng = _tiny_engine(max_batch=8, seq_len=2048, page_size=256)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        eng.prefill([[1] * 2000] * 8, list(range(8)))
-    assert eng.pool.free_pages == eng.pool.num_pages - 1
+    of 256 is pool-direct, as in the JAX engine: one wave of 8 slots, 8
+    chunks of 256 per layer through K16 and K17, no compact block (K15),
+    and each request's pages reserved."""
+    _, _, tcfg, tp = build_pair(dict(CFG, seq_len=2048), jnp.float32, seed=30)
+    eng = Engine(tp, tcfg, max_batch=8, kv_layout="paged", page_size=256, device="cpu")
+    _kernels.reset_counts()
+    last = eng.prefill([[1] * 2000] * 8, list(range(8)))
+    assert last.shape == (8, CFG["vocab_size"]) and np.isfinite(last).all()
+    plain = _kernels.PLAIN_CALLS
+    assert plain["K16"] == plain["K17"] == 8 * CFG["n_layers"] and plain["K15"] == 0
+    assert eng.pool.free_pages == eng.pool.num_pages - 1 - 8 * 8
     small = _tiny_engine(max_batch=5, seq_len=2048, page_size=8)  # no: compact + chunked
     assert not engine_mod._pool_direct_ok(small.cache, 5, 2048)

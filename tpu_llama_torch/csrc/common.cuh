@@ -393,16 +393,35 @@ struct DecDenseRows {
     __device__ __forceinline__ long long operator()(int j) const { return (long long)j * TS; }
 };
 
+// K13's and K22's row functor (paged_flash_decode_dma.cu,
+// paged_flash_decode.cu): the start row of key block j of (layer, slot b,
+// kv head h) in the pool [L, P, KVH, ps, hd] (rows of hd elements; the
+// scales [L, P, KVH, ps] share the row index).
+struct PagedRows {
+    const int* pt;  // page_table[b, :]
+    long long layer_page0;  // layer * P
+    int P, KVH, h, ps, TS;
+    __device__ __forceinline__ long long operator()(int j) const {
+        const int r0 = j * TS;
+        int pg = __ldg(pt + r0 / ps);
+        if (pg < 0 || pg >= P) pg = 0;  // the trash page
+        return ((layer_page0 + pg) * KVH + h) * ps + r0 % ps;
+    }
+};
+
 // One decode cell (K9 flash_decode_dma.cu, K12 fused_step2.cu, K13
-// paged_flash_decode_dma.cu): the G query rows of one (slot, kv head)
-// attend over its cache rows s < p (k and v at kc / vc + rows_of(j) rows of
-// hd elements for key block j, for an INT8 cache scales ks / vs at the same
-// row offset) with an online softmax over blocks of TS rows, then over the
-// fresh row (nk, nks, nv, nvs) as one more column; writes the G x hd
-// outputs to out.  The caller has filled sm.qf and sm.qb; this function's barriers
-// publish them.  K and V tiles stream through a two-stage cp.async ring:
-// t = 2j is K block j (with ks and vs) into stage 0, t = 2j + 1 is V block j
-// into stage 1.
+// paged_flash_decode_dma.cu, K22 paged_flash_decode.cu): the G query rows
+// of one (slot, kv head) attend over its cache rows s < p (k and v at
+// kc / vc + rows_of(j) rows of hd elements for key block j, for an INT8
+// cache scales ks / vs at the same row offset) with an online softmax over
+// blocks of TS rows, then (kFresh, the deferred-flush form of K9, K12 and
+// K13) over the fresh row (nk, nks, nv, nvs) as one more column; writes the
+// G x hd outputs to out.  Without kFresh (K22's write-then-attend form: the
+// caller passes p = pos + 1, and the fresh arguments go unread) the output
+// is acc / max(l, 1e-30) after the last block.  The caller has filled sm.qf
+// and sm.qb; this function's barriers publish them.  K and V tiles stream
+// through a two-stage cp.async ring: t = 2j is K block j (with ks and vs)
+// into stage 0, t = 2j + 1 is V block j into stage 1.
 // Rounding, kept from the TPU kernel: for an INT8 cache the score is
 // dot(qb, k) in f32, times ks, and p = exp(s - m_block) is UNNORMALIZED when
 // it is rounded, as bf16(p * vs), before the PV dot; for an fp cache
@@ -410,7 +429,7 @@ struct DecDenseRows {
 // f32, with no scales.  The fresh column's score uses qf (times nks) and its
 // value f32(nv) * nvs, merged after the last block (_fresh_tail_merge,
 // attention.py:307-332); nks and nvs are 1 for an fp cache.
-template <typename CT, int CH, class Rows>
+template <typename CT, int CH, class Rows, bool kFresh = true>
 __device__ void dec_attend_rows(const DecSmem<CT>& sm, const CT* __restrict__ kc,
                                 const CT* __restrict__ vc, const float* __restrict__ ks,
                                 const float* __restrict__ vs, int p, int TS, int G, int hd,
@@ -491,8 +510,16 @@ __device__ void dec_attend_rows(const DecSmem<CT>& sm, const CT* __restrict__ kc
         __syncthreads();  // the stage is free for tile t + 2
     }
 
+    if (nt == 0) __syncthreads();  // the q rows and m, l (no tile made the loop sync)
+    if constexpr (!kFresh) {  // write-then-attend: no fresh column
+#pragma unroll
+        for (int j = 0; j < kDecMaxE; ++j) {
+            const int e = tid + kDecThreads * j;
+            if (e < G * hd) out[e] = acc[j] / fmaxf(sm.l_s[e / hd], 1e-30f);
+        }
+        return;
+    }
     // the fresh column (_fresh_tail_merge, attention.py:307-332)
-    if (nt == 0) __syncthreads();  // the q rows (no tile made the loop sync)
     dec_fresh_scores(sm.qf, P, nk, nks, G, hd, sm.n_s);
     __syncthreads();
 #pragma unroll

@@ -12,36 +12,47 @@
 // are this kernel's arithmetic with scales of 1); the output
 // [B, T, NH * hd] is acc / max(l, 1e-30), cast once to the output type.
 //
-// Rounding: this kernel stays in f32 throughout (SIMT FMAs).  The TPU kernel
-// rounds q and p * vs to bf16 before its MXU dots (attention.py:1534-1548);
-// here neither is rounded, so the result agrees with the plain f32 version
-// to f32 summation-order noise.
-//
 // Bound on the H100: at the 7B prefill shape (T = 512, hd = 128) the causal
 // work is ~0.5 GFLOP per (b, kv head) pair against 0.2 MB of int8 K/V, so
-// operations bound it.  Design: one block per (q tile of 64 folded rows,
-// kv head, batch row), an online softmax over 64-key tiles that stops at
-// the tile holding the block's last attended key (causal tile skip), K/V
-// converted from the cache type (KT: int8, f32 or bf16) to f32 once per
-// tile into shared memory, and each
-// thread holding a 4 x 8 score tile and a 4 x hd/8 output tile in
-// registers.  The f32 SIMT rate is ~1/15 of the bf16 tensor-core rate the
-// bound assumes; moving the dots onto bf16 mma is a later change.
-#include <math.h>
-
-#include "common.cuh"
+// operations bound it.  Design: prefill_cell.cuh's f32 SIMT cell (shared
+// with K16), its key source the slot's run of S cache rows: every 64-key
+// tile is read from that run, K/V converted from the cache type (KT: int8,
+// f32 or bf16) to f32 once per tile.  Rounding: f32 throughout; the TPU
+// kernel's bf16 rounding of q and p * vs (attention.py:1534-1548) is left
+// out, so the result agrees with the plain f32 version to f32
+// summation-order noise.
+#include "prefill_cell.cuh"
 
 namespace {
 
-constexpr int kBR = 64;       // folded query rows per block
-constexpr int kBC = 64;       // keys per tile
-constexpr int kThreads = 128;  // 16 row groups (ty) x 8 column lanes (tx)
+using prefill::kBC;
+using prefill::kThreads;
 
-template <int HDP>
-struct Smem {
-    static constexpr int kLdq = HDP + 1;  // +1: conflict-free column reads
-    static constexpr int kLdp = kBC + 1;
-    static constexpr int kFloats = kBR * kLdq + kBC * kLdq + kBR * kLdp + 2 * kBC;
+// K6's keys: rows [0, S) of one (slot, kv head) of a dense cache; an fp
+// cache has no scales (1).
+template <int HDP, typename KT>
+struct DenseKeys {
+    const KT* kc;
+    const KT* vc;
+    const float* ks;
+    const float* vs;
+    long long base;  // row index of key 0
+    int S, hd;
+
+    __device__ __forceinline__ int kend(int e) const { return min(S, e); }
+    __device__ __forceinline__ bool ok(int c) const { return c < S; }
+    __device__ __forceinline__ void load_k(int c0, float* KV, float* ksc, float* vsc) const {
+        prefill::load_run<HDP>(kc, base + c0, S - c0, hd, KV);
+        const int tid = threadIdx.x;
+        if (tid < kBC) {
+            const bool ok = c0 + tid < S;
+            ksc[tid] = ok ? (ks ? __ldg(ks + base + c0 + tid) : 1.f) : 0.f;  // fp: no scales
+            vsc[tid] = ok ? (vs ? __ldg(vs + base + c0 + tid) : 1.f) : 0.f;
+        }
+    }
+    __device__ __forceinline__ void load_v(int c0, float* KV) const {
+        prefill::load_run<HDP>(vc, base + c0, S - c0, hd, KV);
+    }
 };
 
 template <int HDP, typename QT, typename KT, typename OT>
@@ -51,147 +62,9 @@ flash_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
                      const float* __restrict__ vs, const int* __restrict__ start,
                      OT* __restrict__ out, int T, int NH, int KVH, int S, int hd,
                      float sqrt_hd) {
-    using SM = Smem<HDP>;
-    constexpr int LDQ = SM::kLdq, LDP = SM::kLdp, DJ = HDP / 8;
-    extern __shared__ float smem[];
-    float* Qs = smem;                // [BR][LDQ] pre-scaled queries
-    float* KV = Qs + kBR * LDQ;      // [BC][LDQ] int8 K, then V, as f32
-    float* Ps = KV + kBC * LDQ;      // [BR][LDP] p * v_scale
-    float* ksc = Ps + kBR * LDP;     // [BC]
-    float* vsc = ksc + kBC;          // [BC]
-
-    const int G = NH / KVH;
-    const int rows = T * G;
-    const int r0 = blockIdx.x * kBR, h = blockIdx.y, b = blockIdx.z;
-    const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-    const int st = start[b];
-    const long long kv_base = ((long long)b * KVH + h) * S;  // row index of key 0
-
-    for (int e = tid; e < kBR * HDP; e += kThreads) {
-        const int r = e / HDP, d = e % HDP, row = r0 + r;
-        float v = 0.f;
-        if (row < rows && d < hd) {
-            const int t = row / G, gg = row % G;
-            v = to_f32(q[(((long long)b * T + t) * NH + h * G + gg) * hd + d]) / sqrt_hd;
-        }
-        Qs[r * LDQ + d] = v;
-    }
-
-    // causal tile skip: the block's last real row attends keys < kend
-    const int last_t = (min(r0 + kBR, rows) - 1) / G;
-    const int kend = min(S, st + last_t + 1);
-    const int n_tiles = (kend + kBC - 1) / kBC;
-
-    float m[4], l[4], acc[4][DJ];
-    int qpos[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.f;
-        qpos[i] = st + (r0 + ty + 16 * i) / G;
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-    }
-
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const int c0 = tile * kBC;
-        __syncthreads();  // previous tile's V and P reads are done
-        for (int e = tid; e < kBC * HDP; e += kThreads) {
-            const int c = e / HDP, d = e % HDP;
-            KV[c * LDQ + d] = (c0 + c < S && d < hd)
-                                  ? to_f32(kc[(kv_base + c0 + c) * hd + d])
-                                  : 0.f;
-        }
-        if (tid < kBC) {
-            const bool ok = c0 + tid < S;
-            ksc[tid] = ok ? (ks ? ks[kv_base + c0 + tid] : 1.f) : 0.f;  // fp: no scales
-            vsc[tid] = ok ? (vs ? vs[kv_base + c0 + tid] : 1.f) : 0.f;
-        }
-        __syncthreads();
-
-        float sc[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-        for (int d = 0; d < HDP; ++d) {
-            float qv[4], kv[8];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LDQ + d];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) kv[j] = KV[(tx + 8 * j) * LDQ + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-        }
-
-        // online softmax; the 8 lanes of a row group (tx) share each row
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float mx = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const int c = c0 + tx + 8 * j;
-                const bool ok = c <= qpos[i] && c < S;
-                sc[i][j] = ok ? sc[i][j] * ksc[tx + 8 * j] : -INFINITY;
-                mx = fmaxf(mx, sc[i][j]);
-            }
-#pragma unroll
-            for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-            const float m_new = fmaxf(m[i], mx);
-            // key 0 is in tile 0 and every row attends it, so m_new is finite
-            const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const float p = sc[i][j] == -INFINITY ? 0.f : expf(sc[i][j] - m_new);
-                sum += p;
-                Ps[(ty + 16 * i) * LDP + tx + 8 * j] = p * vsc[tx + 8 * j];
-            }
-#pragma unroll
-            for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-            l[i] = l[i] * corr + sum;
-            m[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-        }
-        __syncthreads();  // K reads and P writes done
-
-        for (int e = tid; e < kBC * HDP; e += kThreads) {
-            const int c = e / HDP, d = e % HDP;
-            KV[c * LDQ + d] = (c0 + c < S && d < hd)
-                                  ? to_f32(vc[(kv_base + c0 + c) * hd + d])
-                                  : 0.f;
-        }
-        __syncthreads();
-
-        for (int c = 0; c < kBC; ++c) {
-            float pv[4], vv[DJ];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + c];
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) vv[j] = KV[c * LDQ + tx + 8 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = r0 + ty + 16 * i;
-        if (row >= rows) continue;
-        const int t = row / G, gg = row % G;
-        OT* o = out + (((long long)b * T + t) * NH + h * G + gg) * hd;
-        const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-            const int d = tx + 8 * j;
-            if (d < hd) store_as(o + d, acc[i][j] / den);
-        }
-    }
+    const int h = blockIdx.y, b = blockIdx.z;
+    DenseKeys<HDP, KT> keys{kc, vc, ks, vs, ((long long)b * KVH + h) * S, S, hd};
+    prefill::attend<HDP>(q, out, keys, start[b], T, NH, KVH, hd, sqrt_hd);
 }
 
 template <int HDP, typename QT, typename KT, typename OT>
@@ -199,11 +72,11 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
            const int* start, void* out, int B, int T, int NH, int KVH, int S, int hd,
            float sqrt_hd, cudaStream_t st) {
     auto kern = flash_prefill_kernel<HDP, QT, KT, OT>;
-    const int bytes = Smem<HDP>::kFloats * static_cast<int>(sizeof(float));
+    const int bytes = prefill::kCellFloats<HDP> * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int rows = T * (NH / KVH);
-    dim3 grid((rows + kBR - 1) / kBR, KVH, B);
+    dim3 grid((rows + prefill::kBR - 1) / prefill::kBR, KVH, B);
     kern<<<grid, kThreads, bytes, st>>>(static_cast<const QT*>(q), static_cast<const KT*>(k),
                                         static_cast<const KT*>(v), ks, vs, start,
                                         static_cast<OT*>(out), T, NH, KVH, S, hd, sqrt_hd);

@@ -39,21 +39,6 @@
 
 namespace {
 
-// Start row of key block j of (layer, slot b, kv head h) in the pool
-// [L, P, KVH, ps, hd] (rows of hd elements; the scales [L, P, KVH, ps] share
-// the row index).
-struct PagedRows {
-    const int* pt;  // page_table[b, :]
-    long long layer_page0;  // layer * P
-    int P, KVH, h, ps, TS;
-    __device__ __forceinline__ long long operator()(int j) const {
-        const int r0 = j * TS;
-        int pg = __ldg(pt + r0 / ps);
-        if (pg < 0 || pg >= P) pg = 0;  // the trash page
-        return ((layer_page0 + pg) * KVH + h) * ps + r0 % ps;
-    }
-};
-
 template <typename QT, int CH>
 __global__ void __launch_bounds__(kDecThreads)
 paged_flash_decode_dma_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kp,

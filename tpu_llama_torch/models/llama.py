@@ -73,11 +73,13 @@ A paged INT8 cache (``PagedKVCache``: shared page pools and a per-slot
 page table, llama.py:147-209) is decoded by ``decode_stack`` and
 ``fused_decode_stack`` through K13 (K20 for ``attn="flash"``) and one K14
 flush per step (llama.py:1237-1276, :1009-1085); mega2 never takes it.  It
-is filled by the engine: a compact prefill, then K15.
+is filled by the engine: a compact prefill, then K15, or for a large
+admission ``forward_prefill_paged_chunked`` (llama.py:1772-2011): chunks
+prefilled straight into the pool, K16 attending over the past pages plus
+the chunk's fresh rows and K17 landing them.
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: the mega and mega3 decodes (K27, K26), W4A8 weights,
-the pool-direct paged prefill (``forward_prefill_paged_chunked``, K16, K17).
+their ROADMAP item: the mega and mega3 decodes (K27, K26), W4A8 weights.
 """
 
 from __future__ import annotations
@@ -100,8 +102,10 @@ from tpu_llama_torch.ops.attention import (
     kv_cache_flush_rows,
     kv_cache_write_chunk,
     kv_pool_flush_rows,
+    kv_pool_write_chunk,
     paged_flash_decode_attention_dma,
     paged_flash_decode_attention_fresh,
+    paged_flash_prefill_attention,
     quantize_kv,
 )
 from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
@@ -1130,19 +1134,122 @@ def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos
 
 def _dense_only(cache, name: str) -> None:
     """The prefills write a dense cache; a paged one is filled through a
-    compact block and K15 (``Engine``), or pool-direct."""
+    compact block and K15 (``Engine``), or straight from the chunks by
+    ``forward_prefill_paged_chunked`` (K16, K17)."""
     if isinstance(cache, PagedKVCache):
-        raise NotImplementedError(
-            f"{name} on a paged cache: prefill a compact cache and land it with "
-            "kv_pool_scatter_pages (Engine does), or the pool-direct forward_prefill_paged_"
-            "chunked (K16, K17): ROADMAP queue 1 item 8")
+        raise TypeError(
+            f"{name} takes a dense cache: prefill a compact cache and land it with "
+            "kv_pool_scatter_pages (Engine does), or prefill straight into the pool with "
+            "forward_prefill_paged_chunked")
 
 
-def forward_prefill_paged_chunked(*args, **kwargs):
-    """The pool-direct chunked prefill (llama.py:1772-2011, K16 and K17):
-    not ported yet."""
-    raise NotImplementedError("forward_prefill_paged_chunked (pool-direct admission, K16, "
-                              "K17): ROADMAP queue 1 item 8")
+def forward_prefill_paged_chunked(params: LlamaParams, cache: PagedKVCache, tokens: torch.Tensor,
+                                  lengths: torch.Tensor, slots, config: ModelConfig,
+                                  precision: str = "default", chunk: int = 256, start0: int = 0,
+                                  max_pos: int | None = None):
+    """Chunked prefill straight into the page pool (llama.py:1772-2011): no
+    compact [L, B, KVH, T, hd] block, no dense gather -- the pool is both
+    the attention operand and the write target, and the temporaries are
+    O(B x chunk).  Returns (next-token logits [B, V], cache), the pool
+    written in place.
+
+    ``tokens`` [B, T] are this wave's prompt slice at absolute positions
+    [start0, start0 + T) of slots ``slots`` (host ints, or a tensor: rows of
+    the page table, whose pages the caller reserved); ``lengths`` [B] are
+    the ABSOLUTE prompt lengths; ``max_pos`` (default start0 + T) bounds
+    start0 + T across the waves of one prompt and sizes the past-page walk.
+    Raises ValueError unless T and the page size are multiples of
+    ``chunk``, ``start0`` is a non-negative multiple of ``chunk`` (K17's
+    contract: a chunk never crosses a page), start0 + T <= max_pos, and
+    ceil(max_pos / ps) fits the page table (the JAX package asserts only
+    the last).  Each chunk's positions past a slot's reservation go through
+    table entries 0, the trash page: those rows are written there, read only
+    by padding queries, and discarded.
+
+    Per chunk (one Python loop: JAX's scan and unroll forms are TPU compile
+    workarounds) and layer: on fused W8A8 layouts the stages of
+    ``layer_step_w8a8`` -- K3, K1 (qkv), K5 into a head-major chunk block,
+    K16 over the slots' past pages plus the block, K17 landing the block,
+    then K2 + K1 (wo) with the residual, K3, K1 (w13), K4, K1 (w2) with the
+    residual -- at every shape (JAX's ``ffn_split`` rows and its fused gate
+    were TPU HBM and compile-helper rules); on other weights the unfused
+    ``layer_step``: rmsnorm, the projections (``matmul_any``), RoPE,
+    ``quantize_kv`` before the head-major transpose, K16, K17, then wo and
+    the FFN.  Each chunk runs the classifier at each row's last valid
+    position inside it; each row keeps the logits of the chunk that holds
+    its final token.  A row whose final token lies outside this wave gets
+    the logits of the wave's first or last chunk (clipped): well formed,
+    and to be discarded by the caller, as in JAX."""
+    if not isinstance(cache, PagedKVCache):
+        raise TypeError("forward_prefill_paged_chunked prefills a PagedKVCache")
+    B, T = tokens.shape
+    ps = cache.page_size
+    start0 = int(start0)
+    mpos = start0 + T if max_pos is None else int(max_pos)
+    if chunk <= 0 or T % chunk or ps % chunk:
+        raise ValueError(f"{T} prompt rows and pages of {ps} must be multiples of the chunk "
+                         f"{chunk}")
+    if start0 < 0 or start0 % chunk:
+        raise ValueError(f"start0 {start0} must be a non-negative multiple of the chunk {chunk}")
+    if start0 + T > mpos:
+        raise ValueError(f"the wave's positions [{start0}, {start0 + T}) pass max_pos {mpos}")
+    MP = cache.page_table.shape[1]
+    if -(-mpos // ps) > MP:
+        raise ValueError(f"max_pos {mpos} needs {-(-mpos // ps)} pages a slot, but the page "
+                         f"table holds {MP}: raise seq_len or reject the request at admission")
+    dev = cache.k.device
+    idx = (slots.to(dev).long() if isinstance(slots, torch.Tensor)
+           else upload([int(s) for s in slots], dev, torch.long))
+    if idx.shape != (B,):
+        raise ValueError(f"{idx.shape[0]} slots for {B} prompts")
+    # the pages that can hold past keys (a start is at most mpos - chunk)
+    past_pages = -(-(mpos - chunk) // ps)
+    pt = cache.page_table.index_select(0, idx)[:, :max(1, -(-mpos // ps))].contiguous()
+    lengths = lengths.to(device=dev, dtype=torch.long)
+    layers = params.layers
+    L = layers.rms_att.shape[0]
+    D, NH, KVH, hd = config.dim, config.n_heads, config.n_kv_heads, config.head_dim
+    fused = _fused_w8a8(layers, config)
+    if fused:
+        blk, outs = _chunk_block(B, KVH, chunk, hd, dev)
+    n = T // chunk
+    per_chunk = []
+    for i in range(n):
+        c0 = i * chunk  # wave-relative: indexes this wave's tokens
+        a0 = start0 + c0  # absolute: RoPE phases, pool rows, the past-key walk
+        start = torch.full((B,), a0, dtype=torch.int32, device=dev)
+        cos, sin = params.rope_cos[a0:a0 + chunk], params.rope_sin[a0:a0 + chunk]
+        x = params.tok_emb[tokens[:, c0:c0 + chunk].long()]
+        if fused:
+            cos, sin = cos.repeat(B, 1), sin.repeat(B, 1)  # K5 takes one row per token
+        for l in range(L):
+            lp = layers.layer(l)
+            if fused:
+                x2 = x.reshape(B * chunk, D)
+                q, *_ = rope_split_quantize(_fused_qkv(x2, lp), cos, sin, D, KVH, hd, out=outs)
+                rows = blk[0], blk[2], blk[1], blk[3]
+            else:
+                h = rmsnorm(x, lp.rms_att)
+                q, k, v = _project_qkv(h, lp, config, precision)
+                q = apply_rope(q.reshape(B, chunk, NH, hd), cos, sin)
+                k = apply_rope(k.reshape(B, chunk, KVH, hd), cos, sin)
+                # quantized before the head-major transpose (llama.py:1946-1953)
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v.reshape(B, chunk, KVH, hd))
+                rows = tuple(a.transpose(1, 2).contiguous() for a in (kq, vq, ks, vs))
+            att = paged_flash_prefill_attention(
+                q.view(B, chunk, NH, hd), cache.k, cache.v, cache.ks, cache.vs, pt, start, *rows,
+                layer=l, past_pages=past_pages, out_dtype=x.dtype)
+            kv_pool_write_chunk(*rows, pt, start, l, cache.k, cache.v, cache.ks, cache.vs)
+            if fused:
+                x = _fused_tail(x2, att.view(B * chunk, D), lp, config).view(B, chunk, D)
+            else:
+                x = matmul_any(att, lp.wo, residual=x, precision=precision)
+                h = rmsnorm(x, lp.rms_ffn)
+                gate, up = _project_gate_up(h, lp, config, precision)
+                x = matmul_any(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
+        per_chunk.append(_logits(params, _last_rows(x, lengths - a0, chunk), precision))
+    owner = torch.div(lengths - 1 - start0, chunk, rounding_mode="floor").clamp(0, n - 1)
+    return torch.stack(per_chunk)[owner, torch.arange(B, device=dev)], cache
 
 
 def _logits(params: LlamaParams, x, precision: str = "highest"):
@@ -1207,6 +1314,15 @@ def forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor, start_pos:
     return _logits(params, x, precision), cache
 
 
+def _chunk_block(B: int, KVH: int, chunk: int, hd: int, dev):
+    """A chunk's head-major K/V block for K5 to write: the arrays k, ks, v,
+    vs ([B, KVH, chunk(, hd)] int8 / f32) and their [B, chunk, KVH(, hd)]
+    views, which K5's ``out`` takes."""
+    blk = [torch.empty((B, KVH, chunk, *d), dtype=t, device=dev)
+           for t, d in [(torch.int8, (hd,)), (torch.float32, ())] * 2]
+    return blk, [b.transpose(1, 2) for b in blk]
+
+
 def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
                             lengths: torch.Tensor, config: ModelConfig, chunk: int = 256,
                             precision: str = "highest"):
@@ -1238,9 +1354,7 @@ def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
     carry = _fused_w8a8(layers, config) and isinstance(cache, QuantKVCache)
     if carry:
         D, NH, KVH, hd = config.dim, config.n_heads, config.n_kv_heads, config.head_dim
-        blk = [torch.empty((B, KVH, chunk, *d), dtype=t, device=dev)
-               for t, d in [(torch.int8, (hd,)), (torch.float32, ())] * 2]  # k, ks, v, vs
-        outs = [b.transpose(1, 2) for b in blk]  # K5 writes them head-major
+        blk, outs = _chunk_block(B, KVH, chunk, hd, dev)
     per_chunk = []
     for i in range(n):
         c0 = i * chunk

@@ -81,6 +81,17 @@ SOURCES = {
     # sk, sv, sks, svs, slots, page_table, ck, cv, cks, cvs, L, n, KVH, T, hd, P, ps, MP, vec,
     # stream
     "kv_pool_scatter": ("tl_kv_pool_scatter", [*[_P] * 10, *[_I] * 9, _P]),
+    # q, q dtype, k, v, ks, vs, page_table, pos, out, layer, B, KVH, G, P, ps, MP, hd, TS,
+    # sqrt(hd), copy chunk, stream
+    "paged_flash_decode": ("tl_paged_flash_decode",
+                           [_P, _I, *[_P] * 7, *[_I] * 9, ctypes.c_float, _I, _P]),
+    # rk, rv, rks, rvs, start, page_table, ck, cv, cks, cvs, B, KVH, Tc, hd, P, ps, MP, layer,
+    # vec, stream
+    "kv_pool_write_chunk": ("tl_kv_pool_write_chunk", [*[_P] * 10, *[_I] * 9, _P]),
+    # q, q dtype, k, v, ks, vs, page_table, start, fk, fv, fks, fvs, out, out dtype, layer, B,
+    # Tc, NH, KVH, P, ps, MP, past pages, hd, sqrt(hd), stream
+    "paged_flash_prefill": ("tl_paged_flash_prefill",
+                            [_P, _I, *[_P] * 11, *[_I] * 11, ctypes.c_float, _P]),
     "fused_step2": ("tl_fused_step2_layer",
                     [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
                      *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]),
@@ -93,8 +104,9 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K7": "kv_scatter", "K8": "w8a8_matmul", "K9": "flash_decode_dma",
            "K10": "kv_flush_rows", "K11": "fused_layer", "K12": "fused_step2",
            "K13": "paged_flash_decode_dma", "K14": "kv_pool_flush_rows", "K15": "kv_pool_scatter",
-           "K18": "kv_write_chunk", "K19": "flash_decode_fresh", "K20": "paged_flash_decode_fresh",
-           "K25": "q8_matmul"}
+           "K16": "paged_flash_prefill", "K17": "kv_pool_write_chunk", "K18": "kv_write_chunk",
+           "K19": "flash_decode_fresh", "K20": "paged_flash_decode_fresh",
+           "K22": "paged_flash_decode", "K25": "q8_matmul"}
 FP_FORMS = ("K6", "K7", "K9", "K10", "K19")  # kernels with an fp-cache form
 _FORM_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNELS.update({f"{k}:{sfx}": KERNELS[k] for k in FP_FORMS for sfx in _FORM_SUFFIX.values()})

@@ -2,15 +2,19 @@
 that admits a prefilled block into the cache (K7), the chunk write of
 chunked prefill (K18), the deferred-flush decode attention (K9, K19) with
 its per-step row flush (K10), and their paged counterparts over a page pool
-(K15 page scatter, K13 and K20 decode attention, K14 row flush).
+(K15 page scatter, K13 and K20 decode attention, K14 row flush, K16 chunk
+attention and K17 chunk write of the pool-direct prefill, K22
+write-then-attend decode attention).
 
 Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
 ``flash_prefill_attention`` (:1654), ``kv_cache_scatter_slots`` (:1212),
 ``kv_cache_write_chunk`` (:2102), ``flash_decode_attention_dma`` (:335),
 ``flash_decode_attention_fresh`` (:807) and ``kv_cache_flush_rows``
 (:2470); ``kv_pool_scatter_pages`` (:1095), ``paged_flash_decode_attention_dma``
-(:466), ``paged_flash_decode_attention_fresh`` (:1012) and
-``kv_pool_flush_rows`` (:1301), INT8 only, as in JAX.  K6, K7, K9, K19 and
+(:466), ``paged_flash_decode_attention_fresh`` (:1012),
+``kv_pool_flush_rows`` (:1301), ``paged_flash_prefill_attention`` (:1990),
+``kv_pool_write_chunk`` (:2189) and ``paged_flash_decode_attention``
+(:933), INT8 only, as in JAX.  K6, K7, K9, K19 and
 K10 take an INT8 cache (int8 values with f32
 per-row scales) or an fp one (float32 or bfloat16, no scales), as the JAX
 functions do; each CUDA kernel is templated on the cache type, and the fp
@@ -793,22 +797,32 @@ def paged_view(pool, page_table, layer: int):
     return v.transpose(1, 2).reshape(B, v.shape[2], MP * ps, *v.shape[4:])[None]
 
 
-def _check_paged_decode(name, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v,
-                        new_ks, new_vs, layer):
-    """Validate a paged decode-attention call; returns the layer as a host
-    int."""
+def _check_paged_q(name, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer):
+    """Validate a paged decode-attention call's queries, pools, table and
+    positions; returns the layer as a host int."""
     L, P, KVH, ps, hd, B, MP = _check_pool(name, k_pool, v_pool, k_scale, v_scale, page_table)
-    if (q.dim() != 4 or q.shape[:2] != (B, KVH) or q.shape[3] != hd or pos.shape != (B,)
-            or new_k.shape != (B, KVH, hd) or new_v.shape != new_k.shape
-            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape):
+    if q.dim() != 4 or q.shape[:2] != (B, KVH) or q.shape[3] != hd or pos.shape != (B,):
         raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, "
-                         f"page_table {tuple(page_table.shape)}, new_k {tuple(new_k.shape)}")
-    if any(t.dtype != torch.int8 for t in (new_k, new_v)) or any(
-            t.dtype != torch.float32 for t in (new_ks, new_vs)):
-        raise TypeError(f"{name}: the fresh rows are int8 with float32 scales")
+                         f"page_table {tuple(page_table.shape)}, pos {tuple(pos.shape)}")
     layer = 0 if layer is None else int(layer)
     if not 0 <= layer < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    return layer
+
+
+def _check_paged_decode(name, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v,
+                        new_ks, new_vs, layer):
+    """``_check_paged_q`` and the step's fresh rows; returns the layer as a
+    host int."""
+    layer = _check_paged_q(name, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer)
+    B, KVH, _, hd = q.shape
+    if (new_k.shape != (B, KVH, hd) or new_v.shape != new_k.shape
+            or new_ks.shape != (B, KVH) or new_vs.shape != new_ks.shape):
+        raise ValueError(f"{name}: shape mismatch: q {tuple(q.shape)}, new_k {tuple(new_k.shape)}, "
+                         f"new_ks {tuple(new_ks.shape)}")
+    if any(t.dtype != torch.int8 for t in (new_k, new_v)) or any(
+            t.dtype != torch.float32 for t in (new_ks, new_vs)):
+        raise TypeError(f"{name}: the fresh rows are int8 with float32 scales")
     return layer
 
 
@@ -907,7 +921,234 @@ def paged_flash_decode_attention_fresh(q, k_pool, v_pool, k_scale, v_scale, page
     return _launch_paged_decode("K20", *args, layer)
 
 
-def paged_flash_decode_attention(*args, **kwargs):
-    """K22 (attention.py:933), the paged write-then-attend decode attention
-    that no path of the JAX package calls: not ported yet."""
-    raise NotImplementedError("paged_flash_decode_attention (K22): ROADMAP queue 1 item 8")
+def paged_flash_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
+                                       layer=0):
+    """Plain version of K22: K9's online softmax (``decode_online_softmax``)
+    over the slots' pages, key blocks of min(256, ps) rows, rows t <= pos
+    (pos clamped to [-1, MP * ps - 1], as the kernel), then acc / max(l,
+    1e-30)."""
+    MP, ps = page_table.shape[1], k_pool.shape[3]
+    bound = pos.long().clamp(-1, MP * ps - 1) + 1  # rows t < pos + 1
+    _, acc, _, l = _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, bound, layer,
+                                 _paged_block(ps))
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def paged_flash_decode_attention(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
+                                 layer=None) -> torch.Tensor:
+    """Write-then-attend decode attention over a page pool (K22; the JAX
+    function's argument order): each slot's query attends its rows
+    t <= pos[b] through the page table, the step's row already written.
+    q [B, KVH, G, hd] raw queries (f32 or bf16); pools and page_table as
+    ``PagedKVCache``; pos [B]; ``layer`` a host int.  K13's arithmetic (K9's
+    dec_attend cell: bf16 q in the scores, bf16(p * vs)) over key blocks of
+    min(256, ps) rows, where JAX's blocks are whole pages: the rounding
+    points are the same for ps <= 256.  Returns f32 [B, KVH, G, hd].  No
+    path of the port calls it, as none of the JAX package does.  K22 on
+    CUDA tensors, the plain version on CPU ones."""
+    args = (q, k_pool, v_pool, k_scale, v_scale, page_table, pos)
+    layer = _check_paged_q("paged_flash_decode_attention", *args, layer)
+    if _kernels.on_cpu("K22", *args):
+        return paged_flash_decode_attention_plain(*args, layer=layer)
+    B, KVH, G, hd = q.shape
+    L, P, _, ps, _ = k_pool.shape
+    MP = page_table.shape[1]
+    if G > 8 or hd > 128:
+        raise NotImplementedError(f"K22 takes up to 8 query heads per kv head and head_dim <= "
+                                  f"128, got G={G}, hd={hd}")
+    ch = launch_chunk("K22", k_pool, v_pool, hd, k_scale, v_scale)
+    qc = q.contiguous()
+    p32 = pos.to(torch.int32).contiguous()
+    pt = page_table.contiguous()
+    out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
+    _kernels.launch("K22", qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_pool.data_ptr(),
+                    v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), pt.data_ptr(),
+                    p32.data_ptr(), out.data_ptr(), layer, B, KVH, G, P, ps, MP, hd,
+                    _paged_block(ps), sqrt_hd, ch, _kernels.stream(qc))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pool-direct chunked prefill (forward_prefill_paged_chunked): per chunk and
+# layer K16 attends the chunk's queries to the slots' past pool pages plus
+# the chunk's fresh rows, and K17 writes the fresh rows into their pages in
+# place (attention.py:1990, :2189).  No compact block, no dense gather.
+# ---------------------------------------------------------------------------
+
+
+def _check_chunk_rows(name, rows_k, rows_v, rows_ks, rows_vs, B: int, KVH: int, hd: int):
+    """Validate a chunk's fresh rows [B, KVH, Tc, hd] int8 with f32 scales
+    [B, KVH, Tc]; returns Tc."""
+    if rows_k.dim() != 4:
+        raise ValueError(f"{name}: want chunk rows [B, KVH, Tc, hd]")
+    Tc = rows_k.shape[2]
+    if (rows_k.shape != (B, KVH, Tc, hd) or rows_v.shape != rows_k.shape
+            or rows_ks.shape != (B, KVH, Tc) or rows_vs.shape != rows_ks.shape):
+        raise ValueError(f"{name}: chunk rows {tuple(rows_k.shape)}, scales "
+                         f"{tuple(rows_ks.shape)}: want [{B}, {KVH}, Tc, {hd}] and "
+                         f"[{B}, {KVH}, Tc]")
+    if any(t.dtype != torch.int8 for t in (rows_k, rows_v)) or any(
+            t.dtype != torch.float32 for t in (rows_ks, rows_vs)):
+        raise TypeError(f"{name}: the chunk rows are int8 with float32 scales")
+    return Tc
+
+
+def kv_pool_write_chunk_plain(rows_k, rows_v, rows_ks, rows_vs, page_table, start, layer: int,
+                              ck, cv, cks, cvs):
+    """Plain version of K17: one sliced copy per slot and array, in place;
+    ``start`` host ints.  A start whose page column lies past the table goes
+    to page 0; a negative start, or a page id outside [0, P), writes
+    nothing."""
+    Tc = rows_k.shape[2]
+    P, ps = ck.shape[1], ck.shape[3]
+    MP = page_table.shape[1]
+    for b, st in enumerate(start):
+        if st < 0:
+            continue
+        col = st // ps
+        page = int(page_table[b, col]) if col < MP else 0
+        if not 0 <= page < P:
+            continue
+        off = st % ps
+        for dst, src in ((ck, rows_k), (cv, rows_v), (cks, rows_ks), (cvs, rows_vs)):
+            dst[layer, page, :, off:off + Tc] = src[b]
+    return ck, cv, cks, cvs
+
+
+def kv_pool_write_chunk(rows_k, rows_v, rows_ks, rows_vs, page_table, start, layer, ck, cv, cks,
+                        cvs):
+    """Write one layer's prefill chunk IN PLACE into each slot's page (K17;
+    the JAX function's argument order): slot b's rows land in page
+    ``page_table[b, start[b] // ps]``, rows [start % ps, start % ps + Tc),
+    for K, V and both scale arrays.  rows_k/rows_v int8 [B, KVH, Tc, hd],
+    rows_ks/rows_vs f32 [B, KVH, Tc]; page_table int32 [B, MP], the chunk's
+    slots' rows, on the pool's device; ``start`` [B] host ints, a CPU
+    tensor, or a tensor on the pool's device (not read back: K16 takes the
+    same one); ``layer`` a host int; pools as ``PagedKVCache``.  Raises
+    ValueError unless ps % Tc == 0 and every host start % Tc == 0 (a chunk
+    never crosses a page), the contract the JAX kernel assumes; a device
+    start's alignment is its caller's to check on the host
+    (``forward_prefill_paged_chunked`` checks start0 once a wave), and the
+    kernel writes nothing for a chunk that would cross its page.  A start
+    whose page column lies past the table writes to the trash page 0, as in
+    JAX; a parked slot's (table row 0) too; a negative start, or a page id
+    outside [0, P), writes nothing.  Returns the (updated) pools.  K17 on
+    CUDA tensors, the plain version on CPU ones."""
+    L, P, KVH, ps, hd, B, MP = _check_pool("kv_pool_write_chunk", ck, cv, cks, cvs, page_table)
+    Tc = _check_chunk_rows("kv_pool_write_chunk", rows_k, rows_v, rows_ks, rows_vs, B, KVH, hd)
+    on_card = isinstance(start, torch.Tensor) and start.device.type != "cpu"
+    st = None if on_card else [int(s) for s in (
+        start.tolist() if isinstance(start, torch.Tensor) else start)]
+    layer = int(layer)
+    n = start.shape[0] if on_card else len(st)
+    if n != B or (on_card and start.dim() != 1):
+        raise ValueError(f"kv_pool_write_chunk: {n} starts for {B} slots")
+    if ps % Tc or (st is not None and any(s % Tc for s in st)):
+        raise ValueError(f"kv_pool_write_chunk: chunks of {Tc} rows must tile the {ps}-row "
+                         f"pages: ps % Tc and every start % Tc must be 0, starts {st}")
+    if not 0 <= layer < L:
+        raise ValueError(f"kv_pool_write_chunk: layer {layer} outside [0, {L})")
+    arrays = (rows_k, rows_v, rows_ks, rows_vs, page_table, ck, cv, cks, cvs)
+    if _kernels.on_cpu("K17", *arrays):
+        return kv_pool_write_chunk_plain(rows_k, rows_v, rows_ks, rows_vs, page_table,
+                                         start.tolist() if on_card else st, layer,
+                                         ck, cv, cks, cvs)
+    _pool_in_place("K17", ck, cv, cks, cvs)
+    rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
+    s32 = (start.to(device=ck.device, dtype=torch.int32).contiguous() if on_card
+           else upload(st, ck.device, torch.int32))
+    pt = page_table.contiguous()
+    vec = _vec16(hd, rk, rv, ck, cv)
+    _kernels.launch("K17", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
+                    s32.data_ptr(), pt.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
+                    cvs.data_ptr(), B, KVH, Tc, hd, P, ps, MP, layer, int(vec),
+                    _kernels.stream(ck))
+    return ck, cv, cks, cvs
+
+
+def paged_flash_prefill_attention_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, start,
+                                        fresh_k, fresh_v, fresh_ks, fresh_vs, layer=0,
+                                        past_pages=None, out_dtype=None):
+    """Plain version of K16: f32 attention over the slot's first past_pages
+    pages (``paged_view``: a page id outside [0, P) reads page 0), keys
+    below max(start, 0), then the dequantized fresh rows, causal within the
+    chunk; the math of K6's plain version."""
+    B, Tc, NH, hd = q.shape
+    KVH, ps = k_pool.shape[2], k_pool.shape[3]
+    G = NH // KVH
+    W = page_table.shape[1] if past_pages is None else past_pages
+    pt = page_table[:, :W]
+    past = [paged_view(a, pt, layer)[0] for a in (k_pool, v_pool, k_scale, v_scale)]
+    kf = torch.cat([past[0].float() * past[2][..., None], fresh_k.float() * fresh_ks[..., None]],
+                   dim=2)  # [B, KVH, W * ps + Tc, hd]
+    vf = torch.cat([past[1].float() * past[3][..., None], fresh_v.float() * fresh_vs[..., None]],
+                   dim=2)
+    dev = q.device
+    st = start.to(dev).long().clamp(min=0)
+    t = torch.arange(Tc, device=dev)
+    mask = torch.cat([
+        (torch.arange(W * ps, device=dev)[None, None, :] < st[:, None, None]).expand(B, Tc, -1),
+        (t[None, :] <= t[:, None])[None].expand(B, Tc, Tc)], dim=-1)  # [B, Tc, W * ps + Tc]
+    qg = q.reshape(B, Tc, KVH, G, hd).float()
+    scores = torch.einsum("btkgh,bksh->bkgts", qg, kf) / math.sqrt(hd)
+    att = torch.softmax(scores.masked_fill(~mask[:, None, None], _NEG_INF), dim=-1)
+    out = torch.einsum("bkgts,bksh->btkgh", att, vf)
+    return out.reshape(B, Tc, NH * hd).to(out_dtype or torch.float32)
+
+
+def paged_flash_prefill_attention(q, k_pool, v_pool, k_scale, v_scale, page_table, start,
+                                  fresh_k, fresh_v, fresh_ks, fresh_vs, layer=None,
+                                  past_pages=None, out_dtype=None) -> torch.Tensor:
+    """Chunked prefill attention straight against the page pool (K16; the
+    JAX function's argument order): the chunk's queries q [B, Tc, NH, hd]
+    (raw, roped; f32 or bf16) attend the slot's past keys s < start[b] of
+    layer ``layer`` (a host int), read through page_table int32 [B, MP]
+    (the chunk's slots' rows) in the first ``past_pages`` pages (default
+    MP; JAX's static bound: every start <= past_pages * ps), plus the
+    chunk's fresh rows fresh_k/fresh_v int8 [B, KVH, Tc, hd] with scales
+    [B, KVH, Tc] at positions start + t', causally (t' <= t).  start [B]
+    int32 on the pool's device.  A page id outside [0, P) reads the trash
+    page 0.  Returns [B, Tc, NH * hd] in ``out_dtype`` (default f32).  K6's
+    arithmetic (f32 throughout, cast once), where the JAX kernel rounds q
+    and p * vs to bf16 and returns bf16.  K16 on CUDA tensors, the plain
+    version on CPU ones."""
+    L, P, KVH, ps, hd, B, MP = _check_pool("paged_flash_prefill_attention", k_pool, v_pool,
+                                           k_scale, v_scale, page_table)
+    if q.dim() != 4 or q.shape[0] != B or q.shape[3] != hd or q.shape[2] % KVH:
+        raise ValueError(f"paged_flash_prefill_attention: q {tuple(q.shape)}: want "
+                         f"[{B}, Tc, NH, {hd}] with NH a multiple of {KVH}")
+    Tc = _check_chunk_rows("paged_flash_prefill_attention", fresh_k, fresh_v, fresh_ks, fresh_vs,
+                           B, KVH, hd)
+    if q.shape[1] != Tc or start.shape != (B,):
+        raise ValueError(f"paged_flash_prefill_attention: q {tuple(q.shape)}, start "
+                         f"{tuple(start.shape)}, chunk rows {tuple(fresh_k.shape)}")
+    W = MP if past_pages is None else int(past_pages)
+    if not 0 <= W <= MP:
+        raise ValueError(f"paged_flash_prefill_attention: past_pages {W} outside [0, {MP}]")
+    layer = 0 if layer is None else int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"paged_flash_prefill_attention: layer {layer} outside [0, {L})")
+    arrays = (q, k_pool, v_pool, k_scale, v_scale, page_table, start, fresh_k, fresh_v, fresh_ks,
+              fresh_vs)
+    if _kernels.on_cpu("K16", *arrays):
+        return paged_flash_prefill_attention_plain(*arrays, layer=layer, past_pages=W,
+                                                   out_dtype=out_dtype)
+    NH = q.shape[2]
+    if hd > 128:
+        raise NotImplementedError(f"K16 takes head_dim <= 128, got {hd}")
+    if not all(t.is_contiguous() for t in (k_pool, v_pool, k_scale, v_scale)):
+        raise ValueError("K16 reads the pool where it lies: it must be contiguous")
+    out_dtype = out_dtype or torch.float32
+    qc = q.contiguous()
+    fk, fv, fks, fvs = (t.contiguous() for t in (fresh_k, fresh_v, fresh_ks, fresh_vs))
+    st = start.to(torch.int32).contiguous()
+    pt = page_table.contiguous()
+    out = torch.empty((B, Tc, NH * hd), dtype=out_dtype, device=q.device)
+    sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
+    _kernels.launch("K16", qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_pool.data_ptr(),
+                    v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), pt.data_ptr(),
+                    st.data_ptr(), fk.data_ptr(), fv.data_ptr(), fks.data_ptr(), fvs.data_ptr(),
+                    out.data_ptr(), _kernels.dtype_code(out_dtype), layer, B, Tc, NH, KVH, P, ps,
+                    MP, W, hd, sqrt_hd, _kernels.stream(qc))
+    return out

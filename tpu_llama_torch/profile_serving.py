@@ -37,7 +37,11 @@ step of all 8 slots at position 512 with ``fused="auto"`` (the two-launch
 K11 decode with K13) and with ``fused=False`` (the unfused stack with K13),
 each timed three times, then traced; one K14 flush per step; then a paged
 prefix hit: a 300-row snapshot restored into 5 slots and one continuation of
-5 suffixes of 200 tokens.  (d) the JAX
+5 suffixes of 200 tokens.  (f) the pool-direct paged admission (K16 + K17,
+``Engine(max_batch=32, kv_layout="paged", page_size=512, num_pages=97)``):
+one admission of 8 prompts of 2048 tokens (one wave, 8 chunks of 256) and
+one of 32 prompts of 1024 tokens (two waves of 16 slots, 4 chunks each),
+with device ms per launch of K16, K17, K1, K3, K4 and K5.  (d) the JAX
 server's default model path: random dense f32 weights in the fused layouts
 (``random_params`` + ``fuse_projections``) with the default float32 cache,
 then the same weights in Q8_0 (``quantize_params``, K25) with a bfloat16
@@ -66,6 +70,8 @@ AB_MODES = (False, True, "mega2")
 # contain the dense ones'
 PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fresh_kernel": "K20",
                 "kv_pool_flush_rows_kernel": "K14", "kv_pool_scatter_kernel": "K15",
+                "paged_flash_prefill_kernel": "K16", "kv_pool_write_chunk_kernel": "K17",
+                "paged_flash_decode_kernel": "K22",
                 "w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
                 "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
@@ -285,7 +291,34 @@ def main() -> None:
         paged.prefill_continue(suffixes, list(range(3, 8)), [300] * 5)
 
     run("continue_5x200_paged", paged_continue, layouts="fused", page_size=512, start=300)
-    del paged, params
+    del paged
+    torch.cuda.empty_cache()
+
+    # (f) the pool-direct paged admission (K16 + K17, no compact block): one
+    # 8 x 2048 admission (one wave of 8 slots, 8 chunks of 256) and one
+    # 32 x 1024 admission (two waves of 16 slots, 4 chunks each), on a
+    # 32-slot engine with 97 pages of 512 rows
+    direct = Engine(params, cfg, max_batch=32, kv_layout="paged", page_size=512, seq_len=2048,
+                    num_pages=97)
+    docs = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 1023)] for _ in range(32)]
+    for name, group in (("prefill_8x2048_pool_direct", long_prompts),
+                        ("prefill_32x1024_pool_direct", docs)):
+        n = len(group)
+
+        def admit(group=group, n=n):  # each call releases the slots' pages and reserves anew
+            direct.prefill(group, list(range(n)))
+
+        timed(admit)
+        launches = counted(admit)
+        wall = timed(admit)
+        prof, traced_wall = traced(admit)
+        line = summarize(name, prof, wall, traced_wall, smi)
+        line.update(layouts="fused", page_size=512, chunk=256, launches=launches,
+                    ms_per_launch={k: line["device_ms"].get(k, 0.0) / launches[k]
+                                   for k in ("K16", "K17", "K3", "K4", "K5") if launches.get(k)})
+        line["ms_per_launch"]["K1+K8"] = line["device_ms"].get("K1+K8", 0.0) / launches["K1"]
+        print(json.dumps(line), flush=True)
+    del direct, params
     torch.cuda.empty_cache()
 
     # (d) the server's default model: dense f32 weights, f32 cache; Q8_0, bf16 cache

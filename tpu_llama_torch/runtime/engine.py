@@ -44,13 +44,16 @@ behind a chunk in flight.
 whose pages a host ``PagePool`` hands out (the native C++ one where ``g++``
 exists): every admission reserves the pages of its whole step budget
 (``can_admit`` is the scheduler's backpressure probe), the compact block
-lands in them through K15, decode runs K13 (or K20) and one K14 per step,
-and a prefix snapshot pins its full pages by refcount and copies only its
-boundary page on the device.  The page table's host mirror reaches the
-card through ``device.upload`` after every change.  An admission group
-above the JAX engine's pool-direct gate (more than 8192 rows, T and the
-page size multiples of 256) and the explicit-TP paths come with later
-slices (ROADMAP).
+lands in them through K15 -- or, for an admission group above the JAX
+engine's pool-direct gate (more than 8192 rows, T and the page size
+multiples of 256), waves of at most 16 slots are prefilled straight into
+their pages (``prefill_into_slots_waved``: K16 and K17, no compact block)
+-- decode runs K13 (or K20) and one K14 per step, and a prefix snapshot
+pins its full pages by refcount and copies only its boundary page on the
+device.  The page table's host mirror reaches the card through
+``device.upload`` after every change, so a wave's K16 and K17 read the
+table uploaded after its admission's reservations.  The explicit-TP paths
+come with a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from tpu_llama_torch.models.llama import (
     forward_prefill,
     PRECISIONS,
     forward_prefill_chunked,
+    forward_prefill_paged_chunked,
     make_kv_cache,
 )
 from tpu_llama_torch.ops.attention import kv_cache_scatter_slots, kv_pool_scatter_pages
@@ -79,19 +83,52 @@ from tpu_llama_torch.ops.sampling import fold_in, sample_nosort
 from tpu_llama_torch.runtime.paged import PagePool
 
 # Above this many prompt rows (Bp * T, T a multiple of _CHUNK) the compact
-# block is prefilled in chunks (engine.py:132-138); on a paged cache whose
-# page size is a multiple of _CHUNK the JAX engine prefills such a group
-# straight into the pool instead (_pool_direct_ok, engine.py:49-52).
+# block is prefilled in chunks (engine.py:132-138).
 _CHUNKED_ROWS = 8192
 _CHUNK = 256
+# The JAX engine's pool-direct admission (engine.py:39-45): a paged group
+# above _POOL_DIRECT_ROWS prompt rows is prefilled straight into the pool in
+# host-dispatched waves of at most _WAVE_ROWS chunk rows (slots x
+# _POOL_CHUNK), _POOL_CHUNK positions at a time.
+_POOL_DIRECT_ROWS = 8192
+_POOL_CHUNK = 256
+_WAVE_ROWS = 4096
 
 
 def _pool_direct_ok(cache, Bp: int, T: int) -> bool:
-    """The JAX engine's pool-direct gate (engine.py:49-52, logits "last"):
-    a paged admission group above _CHUNKED_ROWS rows with T and the page
-    size multiples of _CHUNK."""
-    return (isinstance(cache, PagedKVCache) and Bp * T > _CHUNKED_ROWS and T % _CHUNK == 0
-            and cache.page_size % _CHUNK == 0)
+    """The JAX engine's pool-direct gate (engine.py:48-52): a paged
+    admission group above _POOL_DIRECT_ROWS rows, with T and the page size
+    multiples of _POOL_CHUNK.  Admissions take last-token logits only, so
+    JAX's ``logits_mode == "last"`` term always holds here."""
+    return (isinstance(cache, PagedKVCache) and Bp * T > _POOL_DIRECT_ROWS
+            and T % _POOL_CHUNK == 0 and cache.page_size % _POOL_CHUNK == 0)
+
+
+def prefill_into_slots_waved(params: LlamaParams, cache, tokens: torch.Tensor,
+                             lengths: torch.Tensor, slots: Sequence[int], config: ModelConfig,
+                             precision: str = "default"):
+    """The admission front door (engine.py:55-93): a group that passes
+    ``_pool_direct_ok`` is prefilled straight into the page pool
+    (``forward_prefill_paged_chunked``, K16 and K17: no compact duplicate,
+    which at 7B is 8.6 GB for 32 x 1024 prompts) in waves of
+    bw = max(1, min(Bp, _WAVE_ROWS // _POOL_CHUNK)) slots, so the activation
+    working set follows the wave, not the group; the last wave may be
+    smaller.  Every other group takes ``_prefill_into_slots``' compact path.
+    Returns (next-token logits [Bp, V], cache), the cache updated in
+    place."""
+    Bp, T = tokens.shape
+    if not _pool_direct_ok(cache, Bp, T):
+        return _prefill_into_slots(params, cache, tokens, lengths, slots, config, precision)
+    bw = max(1, min(Bp, _WAVE_ROWS // _POOL_CHUNK))
+    outs = []
+    for w in range(0, Bp, bw):
+        # every wave pool-direct: a wave is under the rows gate, but the
+        # compact block is what this path exists to avoid
+        last, cache = forward_prefill_paged_chunked(
+            params, cache, tokens[w:w + bw], lengths[w:w + bw], slots[w:w + bw], config,
+            precision=precision, chunk=_POOL_CHUNK)
+        outs.append(last)
+    return torch.cat(outs, dim=0), cache
 
 
 def _make_page_pool(num_pages: int, page_size: int, slots: int, max_pages_per_slot: int):
@@ -119,8 +156,9 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
     ``T % 128`` gate and the indexed copy JAX's engine takes below it
     (engine.py:204-214) were a Mosaic alignment rule that the CUDA kernel
     does not have.  On a paged cache K15 lands the block in the slots' pages
-    instead (engine.py:148-161).  ``slots`` stays on the host: the
-    wrappers check it there and upload it."""
+    instead (engine.py:148-161); ``prefill_into_slots_waved`` takes the
+    groups that skip the block.  ``slots`` stays on the host: the wrappers check it there and upload
+    it."""
     Bp, T = tokens.shape
     small = make_kv_cache(config, Bp, kv_dtype=cache.k.dtype, seq_len=T, device=tokens.device)
     if T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
@@ -277,10 +315,10 @@ class Engine:
         does not pay a long-prompt group's rows.  ``reserve_tokens`` (paged
         caches): the positions each request may ever occupy (prompt and
         generation budget); that many pages are reserved up front, so decode
-        never fails mid-flight (engine.py:475-517).  A paged group that
-        passes the JAX engine's pool-direct gate raises NotImplementedError
-        before any page is reserved: the JAX engine never prefills it
-        compact."""
+        never fails mid-flight (engine.py:475-517).  Every group goes
+        through ``prefill_into_slots_waved``: a paged group above the
+        pool-direct gate is prefilled straight into its pages in waves, any
+        other compact."""
         if not prompts or len(prompts) != len(slots):
             raise ValueError("need one slot per prompt, and at least one prompt")
         lengths = np.array([len(p) for p in prompts], np.int64)
@@ -295,9 +333,6 @@ class Engine:
                                          self.seq_len)))
             start += g
         if self.pool is not None:
-            if any(_pool_direct_ok(self.cache, g, T) for _, g, T in groups):
-                raise NotImplementedError(
-                    "pool-direct paged admission (K16, K17): ROADMAP queue 1 item 8")
             reserve = list(reserve_tokens) if reserve_tokens is not None else lengths.tolist()
             for slot, p, r in zip(slots, prompts, reserve):
                 self.pool.release(slot)  # reclaim any stale holding
@@ -312,7 +347,7 @@ class Engine:
             toks = np.zeros((g, T), np.int64)
             for i, p in enumerate(prompts[start:start + g]):
                 toks[i, :len(p)] = p
-            last, self.cache = _prefill_into_slots(
+            last, self.cache = prefill_into_slots_waved(
                 self.params, self.cache, self._ints(toks),
                 self._ints(lengths[start:start + g]),
                 [int(s) for s in slots[start:start + g]], self.config, self.precision)
