@@ -19,7 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
    order; the pool-direct admission's K17 chunk write and K16 chunk
    attention at a 16-slot admission wave's shapes, and K22 write-then-attend
    decode attention at K13's; the classifier's K1, K8, K11, K13 and K14
-   also at batch 32, phase 4f's decode)
+   also at batch 32, phase 4f's decode; the opt-in decodes' K26 mega3 pair
+   and K27 mega layer, K28 decode row write on INT8, f32 and bf16 caches,
+   and K29 resident-x W8A8 rows kernel at the admission's M 4096)
    at the Llama-2 7B shapes of the serving paths, against its plain PyTorch
    version on the same inputs: K1, K2, K7, K8, K10, K11, K18, and K14 and
    K15 outside the trash page 0, exact; K3, K4 and K5 within
@@ -33,7 +35,16 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 outputs beside them), K7's and K10's exact; the decode attention
    kernels (K9, K19, K12, K13, K20, K22, INT8 and fp) and K16 on caches
    whose rows at and past each slot's pos (for a pool, every row no slot or
-   query attends) are poisoned; kernel, plain-version and PyTorch-library times
+   query attends) are poisoned; K26 also bit-equal to two chained K12
+   launches and, layer by layer, within K12's limits of its plain version
+   (each layer's plain version fed what the kernel's layer before left);
+   K27's attention
+   output within K12's limits of its plain version (one flipped int8 allowed,
+   ``_att_reading``), its linear outputs
+   bit-equal to K11's phases on that output, and all of it bit-equal to
+   K9, K2 and K11 launched in turn; K28 (a slot at pos S, one parked at 0)
+   and K29 (also bit-equal to K1) exact; kernel, plain-version and
+   PyTorch-library times
    (CUDA events) beside the bound (the larger of bytes / 3.35 TB/s and
    operations / the card's peak for their type);
 4. the serving path at full 7B width and depth with random W8A8 weights in
@@ -83,14 +94,25 @@ Phases (any failure exits non-zero and prints no result line):
    plain version, every page free after retirement; both admissions again,
    bit-equal to the dense chunked prefill (K18 + K6) of the same prompts in
    their logits and every row of each slot's pages;
+4g. ``serve_7b_mega`` (after 4f, on phase 4's weights), the opt-in fused
+   decodes: ``Engine(fused="mega3")`` (K26, one launch per pair of layers),
+   then ``Engine(fused="mega")`` (K27, the attention leading each layer's
+   launch) and its reference, the two-launch decode (``fused=True``), each
+   serving phase 4's 10 requests (with top-2 logprobs): mega3's greedy
+   streams equal phase 4's mega2 streams token for token, mega's equal the
+   two-launch decode's (K27 is K9, K2 and K11 bit for bit); exact launch
+   counts, no plain version; 4h. ``admission_k29``: one 8 x 512 admission with
+   ``TPU_LLAMA_ROWS_RESIDENT=1`` (K29 for every product of 4096 rows), then
+   the same with the switch restored (K1): logits and cache bit-equal;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
    decode attention and fused decode, on unfused weights once each "xla"
    (plain PyTorch on both sides), "flash" (K19) and "flash_dma" (K9), and
    on fused weights with "flash_dma" (the fused prefill, K3-K5) and each of
-   the unfused, the two-launch (K8, K11 + K9) and the mega2 (K8, K9, K12)
-   decode: f32 activations (tokens equal at all 8 steps, logits within
-   LOGITS_TOL) and bf16 activations (prefill logits within LOGITS_TOL);
+   the unfused, the two-launch (K8, K11 + K9), the mega2 (K8, K9, K12), the
+   mega3 (K8, K9, K26) and the mega (K8, K27) decode: f32 activations
+   (tokens equal at all 8 steps, logits within LOGITS_TOL) and bf16
+   activations (prefill logits within LOGITS_TOL);
    then, f32 and fused layouts, the long-prompt paths (``parity_long_paths``):
    the chunked prefill against the one-shot one, prefix reuse against a
    cold prefill, and the device sampler; the paged path (``parity_paged``:
@@ -104,10 +126,11 @@ Phases (any failure exits non-zero and prints no result line):
    card against CPU at ``precision="highest"``;
 6. a JSON line of the kernels (launches counted on the path that runs
    each: phase 4, phase 4b for K18, phase 4e for K13, K14 and K15, phase 4f
-   for K16 and K17, phases 4c and 4d for K25 and the fp forms, and phase 5
-   for a kernel that those do not run: K19, K11, K20, the fp forms of K19;
-   K22, which no path calls, its count summed over phases 4-4f, which must
-   be 0), then the result line.
+   for K16 and K17, phases 4c and 4d for K25 and the fp forms, phase 4g for
+   K26 and K27, phase 4h for K29, and phase 5 for a kernel that those do
+   not run: K19, K11, K20, the fp forms of K19; K22 and K28, which no path
+   calls, their counts summed over phases 4-4h, which must be 0), then the
+   result line.
    Each phase prints its seconds.
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
@@ -186,13 +209,18 @@ SRC = {
     "K16": ("tpu_llama_torch/csrc/paged_flash_prefill.cu", "tpu_llama/ops/attention.py:1990"),
     "K17": ("tpu_llama_torch/csrc/kv_pool_write_chunk.cu", "tpu_llama/ops/attention.py:2189"),
     "K22": ("tpu_llama_torch/csrc/paged_flash_decode.cu", "tpu_llama/ops/attention.py:933"),
+    "K26": ("tpu_llama_torch/csrc/fused_step3.cu", "tpu_llama/ops/fused_step3.py:475"),
+    "K27": ("tpu_llama_torch/csrc/fused_step.cu", "tpu_llama/ops/fused_step.py:313"),
+    "K28": ("tpu_llama_torch/csrc/kv_write_decode.cu", "tpu_llama/ops/attention.py:2345"),
+    "K29": ("tpu_llama_torch/csrc/w8a8_rows_resident.cu", "tpu_llama/ops/matmul.py:314"),
 }
-# K22 is on no path: neither the JAX package nor the port calls it (phase 3
-# and the card tests run it).  Its launches in the kernels line are those
-# that phases 4-4f counted, and the run fails unless they are 0.
-NO_PATH = {"K22"}
-SRC.update({f"{k}:{sfx}": SRC[k] for k in ("K6", "K7", "K9", "K10", "K19")
+SRC.update({f"{k}:{sfx}": SRC[k] for k in ("K6", "K7", "K9", "K10", "K19", "K28")
             for sfx in ("f32", "bf16")})  # one templated kernel per INT8 and fp form
+# K22 and K28 are on no path: the port calls neither, and the JAX package
+# only from a benchmark tool (phase 3 and the card tests run them).  Their
+# launches in the kernels line are those that phases 4-4h counted, and the
+# run fails unless they are 0.
+NO_PATH = {"K22", "K28", "K28:f32", "K28:bf16"}
 DECODE_KERNEL = {"flash_dma": "K9", "flash": "K19"}  # decode attention -> its kernel
 PAGED_KERNEL = {"flash_dma": "K13", "flash": "K20"}  # ... on a paged cache
 PREFILL_PATH = {"K1", "K2", "K6", "K7"}  # what an admission launches; "xla" decode adds none
@@ -208,12 +236,18 @@ def decode_launches(fused, attn: str, L: int, paged: bool = False) -> dict:
     resolved mode: the unfused stack (K2 + K1 per matmul, 4 per layer on
     fused layouts), the two-launch stack (prologue K3 + K8, per layer the
     attention, K2 and K11) and mega2 (prologue K3, K8, K9, K2, then one
-    K12 per layer); each with one K10 flush and the classifier's K2 + K1.
-    On a paged cache the attention is K13 (K20 for "flash") and the flush
-    K14; mega2 never runs there."""
+    K12 per layer), mega3 (mega2's prologue, then one K26 per pair of
+    layers) and mega (prologue K3 + K8, then one K27 per layer); each with
+    one K10 flush and the classifier's K2 + K1.  On a paged cache the
+    attention is K13 (K20 for "flash") and the flush K14; mega2, mega3 and
+    mega never run there."""
     att, flush = (PAGED_KERNEL[attn], "K14") if paged else (DECODE_KERNEL[attn], "K10")
     if fused == "mega2":
         return {"K3": 1, "K8": 1, "K9": 1, "K2": 2, "K12": L, "K10": 1, "K1": 1}
+    if fused == "mega3":
+        return {"K3": 1, "K8": 1, "K9": 1, "K2": 2, "K26": L // 2, "K10": 1, "K1": 1}
+    if fused == "mega":
+        return {"K3": 1, "K8": 1, "K27": L, "K2": 1, "K10": 1, "K1": 1}
     if fused:
         return {"K3": 1, "K8": 1, att: L, "K2": L + 1, "K11": L, flush: 1, "K1": 1}
     return {att: L, "K2": 4 * L + 1, "K1": 4 * L + 1, flush: 1}
@@ -1636,12 +1670,310 @@ def check_fused(torch, tq, tfl, tfs, results):
     torch.cuda.empty_cache()
 
 
+def _att_reading(torch, label, got, want):
+    """Holds a quantized attention output (int8 [B, D], f32 scales [B]) to
+    its plain version at K12's limits, with room for one flipped entry: its
+    f32 sums run in another order (K9's), which can move a value across an
+    int8 rounding boundary -- one step on at most QUANT_FLIPS of entries, or
+    on one entry where that share is less than one (batch 1's 4096 entries;
+    seen on an H100 at B1 pos 2047), each flipped entry within one step of
+    its row's scale plus K6_TOL of max |value|, the others within K6_TOL of
+    it, the scales within K6_TOL.  Returns (max dequantized error, flip
+    share, max relative scale error)."""
+    (q, sc), (qp, scp) = got, want
+    d = (q.int() - qp.int()).abs()
+    n_flips = int((d != 0).sum().item())
+    s_rel = ((sc - scp).abs() / scp.abs().clamp_min(1e-30)).max().item()
+    diff = (q.float() * sc[:, None] - qp.float() * scp[:, None]).abs()
+    peak = (qp.float() * scp[:, None]).abs().max().item()
+    beyond = torch.where(d != 0, (diff - sc[:, None]).clamp_min(0), diff).max().item()
+    err = diff.max().item()
+    check(d.max().item() <= 1 and n_flips <= max(1.0, QUANT_FLIPS * d.numel())
+          and s_rel <= K6_TOL and beyond <= K6_TOL * peak,
+          f"{label}: attention output: int8 up to {d.max().item()} steps on {n_flips} of "
+          f"{d.numel()} entries, scales {s_rel} apart, dequantized err {err} ({beyond} past "
+          f"a flipped entry's step; limits {QUANT_FLIPS}, K6_TOL {K6_TOL} * {peak})")
+    return err, n_flips / d.numel(), s_rel
+
+
+def check_mega_kernels(torch, tq, tfl, tfs, tfs3, tfst, tatt, results):
+    """K26 and K27 at 7B width on a 32-layer stack, the K12 shapes: batch 8
+    (one slot at each of DECODE_POS) and batch 1 (pos 511, 2047), and the
+    last layer (pair) at batch 8; cache rows at and past each pos poisoned.
+    K26 on the pair (16, 17) and the last pair (30, 31): bit-equal to two
+    chained K12 launches (every output); against its plain version layer by
+    layer, as check_fused holds K12 -- K12's plain version of layer l0, then
+    of layer l0 + 1 on the seam the first half left (a seam int8 that K9's
+    sum order flipped would otherwise move the whole next layer) -- x_next
+    bit-equal, the fresh K/V rows within
+    QUANT_FLIPS / QUANT_SCALE_RTOL, the seam's and the last attention
+    output at K12's limits with room for one flipped entry
+    (``_att_reading``).  K27 on layer 17 and the
+    last layer: its quantized attention
+    output (``att_out``) at K12's limits of the plain version's, its linear
+    outputs bit-equal to K11's phases (``linear_phases_plain``) run on that
+    output, and every output bit-equal to K9, K2 and K11 launched in turn.
+    Timed calls rotate through the layers, so the weights come cold."""
+    from tpu_llama_torch.config import LLAMA2_7B
+
+    cfg = LLAMA2_7B
+    L, D, H, KVH, hd, S = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.n_kv_heads, \
+        cfg.head_dim, cfg.seq_len
+    NH, QO = cfg.n_heads, D + 2 * KVH * hd
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    (wo, w13, w2, wqkv), (rf, ra) = _layer_weights(torch, tq, gen, L, D, H, QO)
+    ws = (wo, w13, w2, wqkv)
+    wbytes = {n: w.q[0].numel() + 4 * w.s[0].numel()
+              for n, w in (("wo", wo), ("w13", w13), ("w2", w2), ("wqkv", wqkv))}
+    int8_ops = 2 * (D * D + D * 2 * H + H * D + D * QO)  # per row, all four products
+
+    def layer_bytes(B, with_qkv, rows_read):
+        """One layer's weights and rms rows, and with the next qkv its
+        weights, the cache rows read and the fresh rows written."""
+        n = wbytes["wo"] + wbytes["w13"] + wbytes["w2"] + 2 * D * 2
+        if with_qkv:
+            n += wbytes["wqkv"] + 2 * D + rows_read * (2 * hd + 8) + B * KVH * (2 * hd + 8)
+        return n
+
+    for B, pos, l0 in ((8, DECODE_POS, 16), (1, [511], 16), (1, [2047], 16),
+                       (8, DECODE_POS, L - 2)):
+        last = l0 + 2 == L
+        cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(L, B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+                  for _ in range(2)]
+        _poison(*cache, *scales, pos)
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        ang = torch.rand(B, hd // 2, generator=gen, device="cuda") * 6.3
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        attq = torch.randint(-127, 128, (B, D), generator=gen, device="cuda", dtype=torch.int8)
+        satt = torch.rand(B, generator=gen, device="cuda") * 0.02 + 0.005
+        rest = (cache[0], cache[1], scales[0], scales[1], pt, ang.cos(), ang.sin(), *ws, rf, ra)
+        label = (f"K26 fused_step3_pair B={B} pos={pos[0] if B == 1 else 'mix'} layers "
+                 f"{l0}, {l0 + 1}" + (" (last pair)" if last else ""))
+        got = tfs3.fused_step3_pair(x, attq, satt, *rest, l0, L, NH)
+        torch.cuda.synchronize()
+        one = tfs.fused_step2_layer(x, attq, satt, *rest, l0, L, NH)
+        two = tfs.fused_step2_layer(*one[:3], *rest, l0 + 1, L, NH)
+        torch.cuda.synchronize()
+        chained = (two[0], two[1], two[2], one[3:], two[3:])
+        same = [torch.equal(got[0], chained[0])] + [
+            torch.equal(a, b) for a, b in zip(got[3], chained[3])]
+        if not last:
+            same += [torch.equal(got[1], chained[1]), torch.equal(got[2], chained[2])] + [
+                torch.equal(a, b) for a, b in zip(got[4], chained[4])]
+        check(all(same), f"{label}: differs from two chained K12 launches ({same})")
+        # against the plain version, one layer at a time: K12's plain version
+        # of layer l0, then of layer l0 + 1 on the seam (K26's first half,
+        # which the chained launches expose), each held to K12's limits
+        want1 = tfs.fused_step2_layer_plain(x, attq, satt, *rest, l0, L, NH)
+        want2 = tfs.fused_step2_layer_plain(*one[:3], *rest, l0 + 1, L, NH)
+        err = (got[0] - want2[0]).abs().max().item()
+        check(torch.equal(one[0], want1[0]) and torch.equal(got[0], want2[0]),
+              f"{label}: x_next max err {err} against the plain version")
+        row_pairs = [((got[3][0], got[3][1]), (want1[3], want1[4])),
+                     ((got[3][2], got[3][3]), (want1[5], want1[6]))]
+        a_err, a_flips, a_rel = _att_reading(torch, label + " (seam)", one[1:3], want1[1:3])
+        err = max(err, a_err)
+        extra = dict(att_int8_flip_share=a_flips, att_scale_max_rel_err=a_rel)
+        if not last:
+            row_pairs += [((got[4][0], got[4][1]), (want2[3], want2[4])),
+                          ((got[4][2], got[4][3]), (want2[5], want2[6]))]
+            a_err, a_flips, a_rel = _att_reading(torch, label, got[1:3], want2[1:3])
+            err = max(err, a_err)
+            extra = dict(att_int8_flip_share=max(a_flips, extra["att_int8_flip_share"]),
+                         att_scale_max_rel_err=max(a_rel, extra["att_scale_max_rel_err"]))
+        reading = _quant_reading(torch, label, row_pairs)
+        extra.update(int8_flip_share=reading[1], scale_max_rel_err=reading[2])
+        pairs = [l0] if last else [2 * ((l0 // 2 + i) % (L // 2 - 1)) for i in range(8)]
+        ms = cuda_ms(torch, lambda i: tfs3.fused_step3_pair(
+            x, attq, satt, *rest, pairs[i % len(pairs)], L, NH), 20)
+        plain_ms = cuda_ms(torch, lambda i: tfs3.fused_step3_pair_plain(
+            x, attq, satt, *rest, pairs[i % len(pairs)], L, NH), 3, warmup=1)
+        io = B * D * (4 + 1 + 4) + 4 * B + 4 * B + 4 * B * hd  # x, attq, x_next, satt, pos, rope
+        nbytes = (io + layer_bytes(B, True, KVH * sum(pos))
+                  + layer_bytes(B, not last, KVH * sum(pos)) + (0 if last else B * D + 4 * B))
+        ops = B * (2 * int8_ops - (2 * D * QO if last else 0))
+        b_ms, by = bound_ms(nbytes, ops, "int8")
+        results.append(dict(kernel="K26", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=None, **extra))
+
+        # K27 on layer l0 + 1 (17, or the last layer) of the same cache
+        layer = l0 + 1
+        lastl = layer == L - 1
+        label = (f"K27 fused_step_layer B={B} pos={pos[0] if B == 1 else 'mix'} layer {layer}"
+                 + (" (last)" if lastl else ""))
+        q = torch.randn(B, KVH, 1, hd, generator=gen, device="cuda")
+        nk, nv = (torch.randint(-127, 128, (B, KVH, hd), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        nks, nvs = (torch.rand(B, KVH, generator=gen, device="cuda") * 0.03 + 0.01
+                    for _ in range(2))
+        args = (x, q, nk, nv, nks, nvs, *cache, *scales, pt, *ws, rf, ra)
+        att_k = (torch.empty(B, D, dtype=torch.int8, device="cuda"),
+                 torch.empty(B, device="cuda"))
+        got = tfst.fused_step_layer(*args, layer, L, att_out=att_k)
+        torch.cuda.synchronize()
+        att_p = (torch.empty_like(att_k[0]), torch.empty_like(att_k[1]))
+        tfst.fused_step_layer_plain(*args, layer, L, att_out=att_p)
+        err, a_flips, a_rel = _att_reading(torch, label, att_k, att_p)
+        views = tfl.layer_views(*ws, rf, ra, layer, L)
+        lin = tfl.linear_phases_plain(x, att_k[0], att_k[1], *views, last=lastl)
+        same = [torch.equal(got[0], lin[0])] + ([] if lastl else [torch.equal(got[1], lin[1])])
+        check(all(same), f"{label}: the linear outputs differ from K11's phases on the "
+                         f"kernel's attention output ({same})")
+        att9 = tatt.flash_decode_attention_dma(q, cache[0], cache[1], pt, nk, nv, scales[0],
+                                               scales[1], nks, nvs, layer=layer)
+        q2, s2 = tq.quantize_activations(att9.reshape(B, D))
+        comp = tfl.fused_layer_linear(x, q2, s2, *ws, rf, ra, layer, L)
+        torch.cuda.synchronize()
+        same = [torch.equal(att_k[0], q2), torch.equal(att_k[1], s2),
+                torch.equal(got[0], comp[0])] + ([] if lastl else [torch.equal(got[1], comp[1])])
+        check(all(same), f"{label}: differs from K9, K2 and K11 launched in turn ({same})")
+        layers = [layer] if lastl else [(layer + i) % (L - 1) for i in range(8)]
+        ms = cuda_ms(torch, lambda i: tfst.fused_step_layer(
+            *args, layers[i % len(layers)], L), 20)
+        plain_ms = cuda_ms(torch, lambda i: tfst.fused_step_layer_plain(
+            *args, layers[i % len(layers)], L), 3, warmup=1)
+        nbytes = (B * D * (4 + 4) + 4 * B * D + B * KVH * (2 * hd + 8) + 4 * B
+                  + KVH * sum(pos) * (2 * hd + 8) + wbytes["wo"] + wbytes["w13"]
+                  + wbytes["w2"] + 2 * D * 2 + (0 if lastl else wbytes["wqkv"] + 4 * B * QO))
+        ops = B * (int8_ops - (2 * D * QO if lastl else 0))
+        b_ms, by = bound_ms(nbytes, ops, "int8")
+        results.append(dict(kernel="K27", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=None,
+                            att_int8_flip_share=a_flips, att_scale_max_rel_err=a_rel))
+        del cache, scales, rest, args, got, want1, want2, one, two, chained
+        torch.cuda.empty_cache()
+    del wo, w13, w2, wqkv, ws
+    torch.cuda.empty_cache()
+
+
+def check_k28(torch, tatt, results):
+    """K28 on INT8, f32 and bf16 caches [8, 8, 32, 2048, 128], layer 5, at
+    batch 8: slot 0 parked at position 0, slot 6 at pos S (skipped), the
+    others at DECODE_POS; bit-equal to its plain version, the skipped slot
+    untouched.  Repeated calls rotate through the layers and other rows.
+    The library call, for the fp forms, is one indexed write per array of
+    the rows already cast (none for INT8, whose quant no one call does)."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    L, B, KVH, S, hd, layer = 8, 8, 32, 2048, 128, 5
+    pos = [0, 1, 127, 128, 511, 1000, S, 2047]
+    pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    ok = [b for b, p in enumerate(pos) if 0 <= p < S]
+    for dtype in (torch.int8, torch.float32, torch.bfloat16):
+        int8 = dtype == torch.int8
+        kernel = "K28" if int8 else f"K28:{_sfx(dtype)}"
+        if int8:
+            cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
+                                   dtype=torch.int8) for _ in range(2)]
+            cache += [torch.rand(L, B, KVH, S, generator=gen, device="cuda") for _ in range(2)]
+        else:
+            cache = [torch.randn(L, B, KVH, S, hd, generator=gen, device="cuda").to(dtype)
+                     for _ in range(2)]
+        copies = 8
+        rows = [(torch.randn(B, KVH, hd, generator=gen, device="cuda") * 3,
+                 torch.randn(B, KVH, hd, generator=gen, device="cuda") * 3)
+                for _ in range(copies)]
+        rows[0][0][1, 2] = 0.0  # a zero row: scale 0
+        ref = [c.clone() for c in cache]
+        skipped = [c[:, 6].clone() for c in cache]
+        tatt.kv_cache_write_decode(*rows[0], pt, layer, *cache)
+        torch.cuda.synchronize()
+        tatt.kv_cache_write_decode_plain(*rows[0], pt, layer, *ref)
+        label = (f"K28 kv_cache_write_decode {'int8' if int8 else _sfx(dtype)} cache L={L} "
+                 f"B={B} S={S}")
+        check(all(torch.equal(a, b) for a, b in zip(cache, ref)), f"{label}: cache differs")
+        check(all(torch.equal(c[:, 6], s_) for c, s_ in zip(cache, skipped)),
+              f"{label}: the slot at pos S was written")
+        del ref, skipped
+
+        def run(i, fn=tatt.kv_cache_write_decode):
+            fn(*rows[i % copies], pt, (layer + i) % L, *cache)
+
+        ms = cuda_ms(torch, run, 50)
+        plain_ms = cuda_ms(torch, lambda i: run(i, tatt.kv_cache_write_decode_plain), 10)
+        library_ms = None
+        if not int8:
+            cast = [(k.to(dtype), v.to(dtype)) for k, v in rows]
+            okt = torch.tensor(ok, device="cuda")
+            ix = (okt[:, None], torch.arange(KVH, device="cuda")[None, :],
+                  torch.tensor([pos[b] for b in ok], device="cuda")[:, None])
+
+            def lib(i):
+                lay = (layer + i) % L
+                for c, r in zip(cache, cast[i % copies]):
+                    c[lay][ix] = r[okt]
+
+            library_ms = cuda_ms(torch, lib, 50)
+        el = cache[0].element_size()
+        nbytes = 2 * B * KVH * hd * 4 + 4 * B + 2 * len(ok) * KVH * (hd * el + 4 * int8)
+        b_ms, by = bound_ms(nbytes, 0, "f32")
+        results.append(dict(kernel=kernel, name=label, max_abs_err=0.0, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                            library_ms=library_ms))
+        del cache, rows
+        torch.cuda.empty_cache()
+
+
+def check_k29(torch, tq, tm, results):
+    """K29 at the 8 x 512 admission's M = 4096 on K1's four 7B shapes (bf16
+    out) and the two residual shapes (wo, w2): bit-equal to K1's kernel
+    and to its plain version (K1's).  Timed calls rotate through weight
+    copies past L2; the library call is ``torch._int_mm`` plus the scales."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    m = 4096
+    cases = [(k, n, False) for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                                        (4096, 32000))]
+    cases += [(4096, 4096, True), (11008, 4096, True)]
+    for k, n, with_res in cases:
+        copies = n_copies(n * k)
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        sx = torch.rand(m, generator=gen, device="cuda") * 0.05
+        ws = [tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8),
+            s=torch.full((n,), 2e-4, device="cuda")) for _ in range(copies)]
+        res = (torch.randn(m, n, generator=gen, device="cuda") * 4).to(torch.bfloat16) \
+            if with_res else None
+        label = f"K29 w8a8_rows_resident M={m} K={k} N={n}" + (" +residual" if with_res else "")
+        got = tm.w8a8_rows_resident(xq, sx, ws[0], out_dtype=torch.bfloat16, residual=res)
+        k1 = tm.launch_w8a8("K1", xq, sx, ws[0], torch.bfloat16, res)
+        torch.cuda.synchronize()
+        want = tm.w8a8_matmul_prequant_plain(xq, sx, ws[0], out_dtype=torch.bfloat16,
+                                             residual=res)
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want) and torch.equal(got, k1),
+              f"{label}: max err {err} against its plain version, equal to K1: "
+              f"{torch.equal(got, k1)}")
+        ms = cuda_ms(torch, lambda i: tm.w8a8_rows_resident(
+            xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res), 20)
+        plain_ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant_plain(
+            xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res), 3, warmup=1)
+
+        def lib(i):
+            w = ws[i % copies]
+            out = (torch._int_mm(xq, w.q.t()).float() * sx[:, None] * w.s[None, :]).to(
+                torch.bfloat16)
+            return out if res is None else res + out
+
+        try:
+            library_ms = cuda_ms(torch, lib, 20)
+        except RuntimeError as e:  # an _int_mm shape this build refuses
+            print(f"K29 library call unavailable: {e}", file=sys.stderr)
+            library_ms = None
+        nbytes = m * k + 4 * m + n * k + 4 * n + 2 * m * n * (2 if with_res else 1)
+        b_ms, by = bound_ms(nbytes, 2 * m * k * n, "int8")
+        results.append(dict(kernel="K29", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=library_ms))
+        del ws, xq, got, want, k1, res
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path
 # ---------------------------------------------------------------------------
 
 
-def make_requests(Request, vocab: int):
+def make_requests(Request, vocab: int, logprobs: int = 0):
     rng = np.random.default_rng(0)
     # first admission: 8 prompts (with BOS) spanning the 16..512 buckets, one
     # group at T = 512; two more join when slots free (T = 256 bucket)
@@ -1651,7 +1983,7 @@ def make_requests(Request, vocab: int):
         prompt = [int(t) for t in rng.integers(3, vocab, n)]
         temp = 0.0 if i % 2 == 0 else 0.8
         reqs.append(Request(prompt_tokens=prompt, steps=n + 1 + 64, temperature=temp,
-                            topp=0.9 if i % 4 == 3 else 1.0, seed=1000 + i))
+                            topp=0.9 if i % 4 == 3 else 1.0, seed=1000 + i, logprobs=logprobs))
     return reqs
 
 
@@ -1716,7 +2048,7 @@ def serve_7b(torch, smi_line, params, params_s):
     print(json.dumps(line), flush=True)
     del engine, batcher
     torch.cuda.empty_cache()
-    return launches
+    return launches, [r.out_tokens for r in reqs]
 
 
 def long_requests(Request, vocab: int):
@@ -2430,6 +2762,151 @@ def serve_7b_paged_direct(torch, smi_line, params):
     return launches
 
 
+def serve_7b_mega(torch, smi_line, params, mega2_streams):
+    """Phase 4g: the opt-in fused decodes at 7B on phase 4's weights,
+    ``Engine(max_batch=8, int8 dense KV, seq_len=2048, fused=mode)`` serving
+    phase 4's 10 requests (with top-2 logprobs) through ``ContinuousBatcher``
+    for mode "mega3" (K26), "mega" (K27) and, as mega's reference, the
+    two-launch decode (``True``: K9, K2 and K11, which K27 equals bit for
+    bit): every request finishes with in-vocab tokens, every kernel launches
+    exactly as the path requires and no plain version runs; mega3's greedy
+    streams equal phase 4's mega2 streams token for token, mega's equal the
+    two-launch decode's.  mega is not held to mega2: K12 rounds q and h2 to
+    bf16 where K27 keeps f32 (by design, as in JAX), and at 7B with random
+    weights that moves the logits far past a near tie (on an H100 every
+    greedy stream parted from mega2's within 5 steps, at top-2 gaps of
+    4.4e-3 to 0.13); where each parts is printed.  Prints each mode's ms a
+    step, tok/s and launches a step; returns the launches of each mode's
+    run."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime.metrics import summarize
+
+    cfg = LLAMA2_7B
+    L = cfg.n_layers
+    greedy = [i for i, r in enumerate(make_requests(Request, cfg.vocab_size))
+              if r.temperature == 0.0]
+    runs, out = {}, {}
+    for mode in ("mega3", "mega", True):
+        engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048, fused=mode)
+        check(engine.decode_fused == mode, f"4g: fused={mode!r} resolved to "
+                                           f"{engine.decode_fused!r}")
+        reqs = make_requests(Request, cfg.vocab_size, logprobs=2)
+        batcher = ContinuousBatcher(engine)
+        _kernels.reset_counts()  # counts from here on belong to this path
+        t0 = time.time()
+        for r in reqs:
+            batcher.submit(r)
+        batcher.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        check(all(r.done for r in reqs), f"4g {mode}: a request did not finish")
+        toks = [t for r in reqs for t in r.out_tokens]
+        check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
+              f"4g {mode}: served tokens missing or out of vocabulary")
+        check(all(v == 0 for v in plain.values()), f"4g {mode}: plain versions ran: {plain}")
+        steps = batcher.timers["decode_steps"]
+        groups = launches["K7"]
+        want = dict(K3=2 * L * groups, K4=L * groups, K5=L * groups, K6=L * groups, K7=groups,
+                    K1=(4 * L + 1) * groups, K2=(L + 1) * groups)
+        per_step = decode_launches(mode, engine.decode_attn, L)
+        for k, n in per_step.items():
+            want[k] = want.get(k, 0) + n * steps
+        got = {k: n for k, n in launches.items() if n > 0}
+        check(groups > 0 and got == want,
+              f"4g {mode}: {groups} admission groups, {steps} decode steps: want exactly "
+              f"{want}, got {got}")
+        rep = summarize(reqs)
+        out[str(mode)] = dict(tok_per_s=rep.tokens_per_sec, tokens=rep.total_tokens,
+                              wall_s=wall, ttft_p50_ms=rep.ttft_p50_s * 1e3, decode_steps=steps,
+                              decode_ms_per_step=batcher.timers["decode"] * 1e3 / max(1, steps),
+                              port_launches_per_step=sum(per_step.values()),
+                              admission_groups=groups, emit_s=batcher.timers["emit"],
+                              launches=launches)
+        runs[mode] = (reqs, launches)
+        del engine, batcher
+        torch.cuda.empty_cache()
+    m3, mg, two = (runs[m][0] for m in ("mega3", "mega", True))
+    same3 = {i: m3[i].out_tokens == mega2_streams[i] for i in greedy}
+    same_two = {i: mg[i].out_tokens == two[i].out_tokens for i in greedy}
+    all_two = all(a.out_tokens == b.out_tokens for a, b in zip(mg, two))
+    parts = {}
+    for i in greedy:  # where mega parts from mega3 (= mega2), and mega3's top-2 gap there
+        a, b = m3[i], mg[i]
+        part = next((j for j, (x, y) in enumerate(zip(a.out_tokens, b.out_tokens)) if x != y),
+                    None)
+        if part is not None:
+            (_, top1), (_, top2) = a.out_top_logprobs[part][:2]
+            parts[i] = dict(step=part, mega2_top2_gap=top1 - top2)
+    print(json.dumps(dict(phase="serve_7b_mega", layouts="fused", **out,
+                          mega3_greedy_equal_mega2=same3, mega_greedy_equal_two_launch=same_two,
+                          mega_all_streams_equal_two_launch=all_two,
+                          mega_parts_from_mega2=parts, host_launch_us=host_launch_us(torch),
+                          card=smi_line)), flush=True)
+    check(all(same3.values()), f"4g: mega3's greedy streams differ from mega2's: {same3}")
+    check(all(same_two.values()),
+          f"4g: mega's greedy streams differ from the two-launch decode's: {same_two}")
+    return {mode: launches for mode, (_, launches) in runs.items()}
+
+
+def admission_k29(torch, smi_line, params):
+    """Phase 4h: one 8 x 512 admission (phase 4's first eight prompts, each
+    padded into the 512 bucket) with ``TPU_LLAMA_ROWS_RESIDENT=1`` -- every
+    product of its 4096 rows on K29 -- and then with the switch restored
+    (K1): the last-token logits and every cache row bit-equal.  Returns the
+    switched admission's launches."""
+    import os
+
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import Engine, Request
+
+    cfg = LLAMA2_7B
+    L = cfg.n_layers
+    prompts = [[1] + r.prompt_tokens for r in make_requests(Request, cfg.vocab_size)[:8]]
+    before = os.environ.get("TPU_LLAMA_ROWS_RESIDENT")
+    side = {}
+    try:
+        for switch in ("1", before):
+            if switch is None:
+                os.environ.pop("TPU_LLAMA_ROWS_RESIDENT", None)
+            else:
+                os.environ["TPU_LLAMA_ROWS_RESIDENT"] = switch
+            engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+            torch.cuda.synchronize()
+            _kernels.reset_counts()
+            t0 = time.time()
+            logits = engine.prefill(prompts, list(range(8)))
+            torch.cuda.synchronize()
+            side[switch == "1"] = dict(logits=np.asarray(logits), cache=engine.cache,
+                                       launches=dict(_kernels.LAUNCHES),
+                                       ms=(time.time() - t0) * 1e3)
+            del engine
+    finally:
+        if before is None:
+            os.environ.pop("TPU_LLAMA_ROWS_RESIDENT", None)
+        else:
+            os.environ["TPU_LLAMA_ROWS_RESIDENT"] = before
+    on, off = side[True], side[False]
+    equal = bool(np.array_equal(on["logits"], off["logits"])) and all(
+        torch.equal(getattr(on["cache"], n), getattr(off["cache"], n))
+        for n in ("k", "v", "ks", "vs"))
+    launches = on["launches"]
+    k29, k1 = launches.get("K29", 0), launches.get("K1", 0)
+    print(json.dumps(dict(phase="admission_k29", B=8, T=512, equal_to_default=equal,
+                          k29_launches=k29, k1_launches=k1, wall_ms_switched=on["ms"],
+                          wall_ms_default=off["ms"], card=smi_line)), flush=True)
+    check(equal, "4h: the admission through K29 differs from the default one")
+    # per layer qkv, wo, w13 and w2 on 4096 rows; the classifier's 8 rows stay on K1
+    check(k29 == 4 * L and k1 == 1 and off["launches"].get("K29", 0) == 0,
+          f"4h: K29 launched {k29} times, K1 {k1}: want {4 * L} and 1")
+    del side, on, off
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _to(obj, device):
     import torch
 
@@ -2515,9 +2992,9 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None)
 
 def parity_2layer(torch):
     """Phase 5 for each decode attention on unfused weights, and on fused
-    ones for K9 with the unfused decode, the two-launch decode (K11 + K9)
-    and mega2 (K12); returns the card launches of each f32 run, by its
-    (attn, fused decode)."""
+    ones for K9 with the unfused decode, the two-launch decode (K11 + K9),
+    mega2 (K12), mega3 (K26) and mega (K27); returns the card launches of
+    each f32 run, by its (attn, fused decode)."""
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
@@ -2525,7 +3002,8 @@ def parity_2layer(torch):
     launches = {}
     for attn, fuse, fused in (("xla", False, False), ("flash", False, False),
                               ("flash_dma", False, False), ("flash_dma", True, False),
-                              ("flash_dma", True, True), ("flash_dma", True, "mega2")):
+                              ("flash_dma", True, True), ("flash_dma", True, "mega2"),
+                              ("flash_dma", True, "mega3"), ("flash_dma", True, "mega")):
         f32 = _parity(torch, cfg, torch.float32, seq, attn, fuse, fused)
         bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn, fuse, fused)
         launches[attn, fused] = f32["card_launches"]
@@ -2916,7 +3394,9 @@ def main() -> int:
         from tpu_llama_torch.ops import _kernels
         from tpu_llama_torch.ops import attention as tatt
         from tpu_llama_torch.ops import fused_layer as tfl
+        from tpu_llama_torch.ops import fused_step as tfst
         from tpu_llama_torch.ops import fused_step2 as tfs
+        from tpu_llama_torch.ops import fused_step3 as tfs3
         from tpu_llama_torch.ops import matmul as tm
         from tpu_llama_torch.ops import quant as tq
     except ImportError as e:
@@ -2938,7 +3418,9 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     logs = _kernels.build()
-    print(f"build: {len(logs)} sources ready in {time.time() - t0:.1f} s")
+    slowest = sorted(_kernels.BUILD_SECONDS.items(), key=lambda kv: -kv[1])[:4]
+    print(f"build: {len(logs)} sources ready in {time.time() - t0:.1f} s (slowest: "
+          + ", ".join(f"{n} {sec:.1f} s" for n, sec in slowest) + ")")
     for name, log in logs.items():
         for ln in log.splitlines():
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
@@ -2965,6 +3447,9 @@ def main() -> int:
     check_pool_direct(torch, tatt, PagePool, results)
     check_k22(torch, tatt, PagePool, results)
     check_fused(torch, tq, tfl, tfs, results)
+    check_mega_kernels(torch, tq, tfl, tfs, tfs3, tfst, tatt, results)
+    check_k28(torch, tatt, results)
+    check_k29(torch, tq, tm, results)
     check_k25(torch, tq, tm, results)
     check_fp_forms(torch, tatt, results)
     print(f"phase 3: {time.time() - t_start:.1f} s", flush=True)
@@ -2985,7 +3470,7 @@ def main() -> int:
     t0 = time.time()
     params = random_quant_params(LLAMA2_7B, seed=0, norm_dtype=torch.bfloat16, fuse=True)
     torch.cuda.synchronize()
-    launches = serve_7b(torch, smi, params, time.time() - t0)
+    launches, mega2_streams = serve_7b(torch, smi, params, time.time() - t0)
     # a kernel on no path: its launches summed over every phase-4 path's own
     # counts (each reset just before that path runs), and held to 0
     on_no_path = {k: launches.get(k, 0) for k in NO_PATH}
@@ -3013,9 +3498,23 @@ def main() -> int:
     got = serve_7b_paged_direct(torch, smi, params)
     launches.update({k: got.get(k, 0) for k in ("K16", "K17")})
     no_path(got)
-    del params
     torch.cuda.empty_cache()
     print(f"phase 4f: {time.time() - t0:.1f} s", flush=True)
+    # 4g. the opt-in fused decodes on the same weights: K26 (mega3) and K27
+    # (mega) count there; 4h. an admission through K29, which counts there
+    t0 = time.time()
+    got = serve_7b_mega(torch, smi, params, mega2_streams)
+    launches["K26"], launches["K27"] = got["mega3"]["K26"], got["mega"]["K27"]
+    for g in got.values():
+        no_path(g)
+    print(f"phase 4g: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    got = admission_k29(torch, smi, params)
+    launches["K29"] = got["K29"]
+    no_path(got)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 4h: {time.time() - t0:.1f} s", flush=True)
 
     # 4c. the server's default model: dense f32 weights, fused as serve()
     # fuses them, the default f32 cache; 4d. those weights in Q8_0 (the f32

@@ -965,3 +965,169 @@ def test_pool_direct_engine_card_matches_compact(card, monkeypatch):
         if part is not None:
             (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
             assert top1 - top2 < NEAR_TIE, (part, c.out_tokens, g.out_tokens)
+
+
+# ------------------------------------------- the opt-in decodes, K28 and K29
+
+
+@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
+                                          (8, 4, 1, 64, 256), (3, 1, 2, 12, 96)])
+def test_k26_equals_two_chained_k12(card, B, KVH, G, hd, H):
+    """One K26 launch per pair of layers equals K12 for l0 and then for
+    l0 + 1 on its outputs, bit for bit: every output, the rows landed in the
+    given buffers, the last pair's second rows untouched."""
+    from tpu_llama_torch.ops import fused_step3 as tfs3
+
+    c = _fused_case(B, KVH, G, hd, H, L=4)  # a first pair and the last pair
+    L = c["L"]
+    rest = (*c["cache"], c["pos"], c["cos"], c["sin"], *c["w"], *c["rms"])
+    for l0 in range(0, L, 2):
+        one = tfs.fused_step2_layer(c["x"], c["attq"], c["satt"], *rest, l0, L, c["NH"])
+        two = tfs.fused_step2_layer(*one[:3], *rest, l0 + 1, L, c["NH"])
+        bufs = [torch.full_like(t, 3) for _ in range(2) for t in one[3:]]
+        before = _kernels.LAUNCHES["K26"]
+        x, attq, satt, r1, r2 = tfs3.fused_step3_pair(c["x"], c["attq"], c["satt"], *rest, l0, L,
+                                                      c["NH"], out=(bufs[:4], bufs[4:]))
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["K26"] == before + 1
+        assert torch.equal(x, two[0])
+        assert all(torch.equal(a, b) for a, b in zip(r1, one[3:]))
+        if l0 + 2 == L:
+            assert all(bool((t == 3).all()) for t in r2)
+        else:
+            assert torch.equal(attq, two[1]) and torch.equal(satt, two[2])
+            assert all(torch.equal(a, b) for a, b in zip(r2, two[3:]))
+
+
+@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
+                                          (8, 4, 1, 64, 256), (3, 1, 2, 12, 96)])
+def test_k27_equals_k9_k2_k11(card, B, KVH, G, hd, H):
+    """K27 equals K9, K2 and K11 launched in turn, bit for bit (its cell is
+    K9's, its quant K2's, its phases K11's); its quantized attention output
+    is within K12's limits of the plain version's, and its linear outputs
+    equal K11's plain phases on that output."""
+    from tpu_llama_torch.ops import fused_step as tfst
+
+    c = _fused_case(B, KVH, G, hd, H)
+    g = _gen(B + hd)
+    D, L = KVH * G * hd, c["L"]
+    for layer in range(L):
+        q = torch.randn(B, KVH, G, hd, generator=g, device=card)
+        nk, nv = (torch.randint(-127, 128, (B, KVH, hd), generator=g, device=card,
+                                dtype=torch.int8) for _ in range(2))
+        nks, nvs = (torch.rand(B, KVH, generator=g, device=card) * 0.02 + 0.005
+                    for _ in range(2))
+        args = (c["x"], q, nk, nv, nks, nvs, *c["cache"], c["pos"], *c["w"], *c["rms"])
+        att = (torch.empty(B, D, dtype=torch.int8, device=card), torch.empty(B, device=card))
+        before = _kernels.LAUNCHES["K27"]
+        x, qkv = tfst.fused_step_layer(*args, layer, L, att_out=att)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["K27"] == before + 1
+        a9 = tatt.flash_decode_attention_dma(q, c["cache"][0], c["cache"][1], c["pos"], nk, nv,
+                                             c["cache"][2], c["cache"][3], nks, nvs, layer=layer)
+        q2, s2 = tq.quantize_activations(a9.reshape(B, D))
+        x2, qkv2 = tfl.fused_layer_linear(c["x"], q2, s2, *c["w"], *c["rms"], layer, L)
+        assert torch.equal(att[0], q2) and torch.equal(att[1], s2) and torch.equal(x, x2)
+        if layer + 1 < L:
+            assert torch.equal(qkv, qkv2)
+        att_p = (torch.empty_like(att[0]), torch.empty_like(att[1]))
+        tfst.fused_step_layer_plain(*args, layer, L, att_out=att_p)
+        d = (att[0].int() - att_p[0].int()).abs()
+        assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+        deq, deq_p = att[0].float() * att[1][:, None], att_p[0].float() * att_p[1][:, None]
+        assert (deq - deq_p).abs().max().item() <= DECODE_TOL * deq_p.abs().max().item()
+        views = tfl.layer_views(*c["w"], *c["rms"], layer, L)
+        xl, qkvl = tfl.linear_phases_plain(c["x"], att[0], att[1], *views,
+                                           last=layer + 1 == L)
+        assert torch.equal(x, xl) and (qkvl is None or torch.equal(qkv, qkvl))
+
+
+@pytest.mark.parametrize("hd", [128, 64, 12])
+@pytest.mark.parametrize("cdtype", [torch.int8, torch.float32, torch.bfloat16])
+def test_k28_exact(card, hd, cdtype):
+    """K28 bit-equal to its plain version; a slot at pos S and one below 0
+    are skipped."""
+    g = _gen(hd + 28)
+    L, B, KVH, S = 3, 5, 4, 64
+    pos = torch.tensor([0, S, 17, -1, S - 1], dtype=torch.int32, device=card)
+    if cdtype == torch.int8:
+        cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=g, device=card,
+                               dtype=torch.int8) for _ in range(2)]
+        cache += [torch.rand(L, B, KVH, S, generator=g, device=card) for _ in range(2)]
+    else:
+        cache = [torch.randn(L, B, KVH, S, hd, generator=g, device=card).to(cdtype)
+                 for _ in range(2)]
+    k, v = (torch.randn(B, KVH, hd, generator=g, device=card) * 3 for _ in range(2))
+    k[2, 1] = 0.0
+    ref = [t.clone() for t in cache]
+    before = _kernels.LAUNCHES[_kernels.form("K28", cdtype)]
+    tatt.kv_cache_write_decode(k, v, pos, 1, *cache)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[_kernels.form("K28", cdtype)] == before + 1
+    tatt.kv_cache_write_decode_plain(k, v, pos, 1, *ref)
+    assert all(torch.equal(a, b) for a, b in zip(cache, ref))
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 4096, 384), (512, 11008, 256), (4096, 256, 136),
+                                   (260, 48, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_k29_equals_k1(card, monkeypatch, m, k, n, dtype, with_res):
+    """K29, taken with the switch above 256 rows, equals K1 bit for bit."""
+    g = _gen(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=card) * 0.1
+    w = tq.ChannelQuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=card, dtype=torch.int8),
+        s=torch.rand(n, generator=g, device=card) * 1e-3)
+    res = (torch.randn(m, n, generator=g, device=card) * 4).to(dtype) if with_res else None
+    monkeypatch.setenv("TPU_LLAMA_ROWS_RESIDENT", "1")
+    before = _kernels.LAUNCHES["K29"]
+    got = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=res)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K29"] == before + 1
+    monkeypatch.delenv("TPU_LLAMA_ROWS_RESIDENT")
+    want = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=res)
+    assert torch.equal(got, want)
+    assert torch.equal(got, tm.w8a8_matmul_prequant_plain(xq, sx, w, out_dtype=dtype,
+                                                          residual=res))
+
+
+@pytest.mark.parametrize("fused", ["mega3", "mega"])
+def test_engine_mega_card_matches_cpu(card, fused):
+    """The opt-in decodes on a tiny f32-activation engine, card against CPU
+    with the same explicit mode: greedy tokens equal up to a near tie (the
+    card's K9 cell sums in another order), every kernel of the path
+    launched and no other."""
+    from tpu_llama_torch import convert
+    from tpu_llama_torch.config import ModelConfig
+    from tpu_llama_torch.models import llama as tl
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=512, seq_len=256)
+    cpu = tl.random_quant_params(cfg, seed=1, norm_dtype=torch.float32, fuse=True, device="cpu")
+    gpu = convert.params_from_numpy(convert.params_to_numpy(cpu), device=card)
+    out = []
+    for params, dev in ((cpu, "cpu"), (gpu, card)):
+        _kernels.reset_counts()
+        b = ContinuousBatcher(Engine(params, cfg, kv_dtype="int8", max_batch=4, fused=fused,
+                                     device=dev))
+        reqs = [Request(prompt_tokens=list(range(3, 3 + n)), steps=n + 12, temperature=0.0,
+                        logprobs=2) for n in (5, 130, 40)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        out.append(reqs)
+        if dev == card:
+            path = {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10"} | (
+                {"K9", "K26"} if fused == "mega3" else {"K27"})
+            assert {k for k, n in _kernels.LAUNCHES.items() if n > 0} == path
+            assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
+    for c, g in zip(*out):
+        assert len(c.out_tokens) == 12
+        part = next((i for i, (a, b) in enumerate(zip(c.out_tokens, g.out_tokens)) if a != b),
+                    None)
+        if part is not None:
+            (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
+            assert top1 - top2 < NEAR_TIE, (fused, part, c.out_tokens, g.out_tokens)

@@ -1,5 +1,6 @@
-// Shared code of the fused decode kernels: K11 fused_layer.cu and K12
-// fused_step2.cu, one persistent cooperative launch per decode layer.
+// Shared code of the fused decode kernels: K11 fused_layer.cu, K12
+// fused_step2.cu and K27 fused_step.cu, one persistent cooperative launch
+// per decode layer, and K26 fused_step3.cu, one per pair of layers.
 //
 // The TPU kernels (tpu_llama/ops/fused_layer.py:77, fused_step2.py:113) are
 // one sequential grid whose phases carry x2, h2 and the int8 rows in VMEM
@@ -223,8 +224,8 @@ __device__ void quant_row(const float* x, int n, int8_t* q, float* s) {
 // [2H, D] (gate rows, then up rows), w2 [D, H], wqkv [QO, D] of layer
 // l + 1, all K-major, with their f32 column scales.
 struct Linear {
-    const float* x;        // [B, D] residual entering the layer
-    const int8_t* attq;    // [B, D] quantized attention output
+    const float* x;        // [B, D] residual entering the layer (K26's second layer: scratch)
+    const int8_t* attq;    // [B, D] quantized attention output (K26, K27: scratch)
     const float* satt;     // [B]
     const int8_t* wo;
     const float* wos;
@@ -267,9 +268,9 @@ __device__ void linear_phases(const Linear& a, int8_t* smem) {
                     const int n = n0 + c + e;
                     if (n >= D) continue;
                     const long long o = (long long)row * D + n;
-                    const float v = __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), a.satt[row]),
-                                              a.wos[n]);
-                    a.x_next[o] = __fadd_rn(a.x[o], v);
+                    const float v = __fmul_rn(
+                        __fmul_rn(static_cast<float>(acc[e]), __ldcg(a.satt + row)), a.wos[n]);
+                    a.x_next[o] = __fadd_rn(__ldcg(a.x + o), v);
                 }
             },
             smem);
@@ -369,26 +370,165 @@ inline int prepare(Linear& a) {
     return 0;
 }
 
-// Launches kern(args) cooperatively with as many blocks as fit on the card
-// at once.  A refused launch (e.g. cudaErrorCooperativeLaunchTooLarge) is
-// returned, never retried.
+// Blocks of kern that fit on one SM at once with smem bytes of dynamic
+// shared memory, into *per_sm.
 template <class Args>
-int coop_launch(void (*kern)(Args), const Args& args, int smem, cudaStream_t st) {
+cudaError_t resident_blocks(void (*kern)(Args), int smem, int* per_sm) {
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, smem);
+}
+
+// Launches kern(args) cooperatively with as many blocks as fit on the card
+// at once -- or, with per_sm_want > 0, with exactly per_sm_want blocks per
+// SM (K26 runs on K12's grid), refused if fewer fit.  A refused launch
+// (cudaErrorCooperativeLaunchTooLarge) is returned, never retried.
+template <class Args>
+int coop_launch(void (*kern)(Args), const Args& args, int smem, cudaStream_t st,
+                int per_sm_want = 0) {
     int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = resident_blocks(kern, smem, &per_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm_want > 0) {
+        if (per_sm < per_sm_want) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+        per_sm = per_sm_want;
+    }
     if (per_sm * sms < kMaxRows)  // the boundaries take one block per row
         return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     void* params[] = {const_cast<Args*>(&args)};
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(per_sm * sms),
                                       dim3(kThreads), params, smem, st);
     return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// K12's layer (fused_step2.cu): layer l's linear work and layer l + 1's
+// attention, one cell per (slot, kv head) after a barrier:
+//   q heads: RoPE, times 1/sqrt(hd) (a reciprocal, fused_step2.py:152),
+//            rounded to bf16 (:256-257) -- the cells' queries for the cache
+//            rows AND the fresh column (s_raw, :290-296);
+//   k head:  RoPE, then the per-head INT8 quant of quantize_kv -> kq, ks;
+//   v head:  the per-head INT8 quant -> vq, vs;
+//   then common.cuh's dec_attend (K9's cell): cache rows s < pos[b] in
+//   blocks of TS, the fresh row as one more column.
+// A last barrier, then one block per row quantizes the attention output
+// (quantize_activations, :736) -> attq_next, satt_next.  The last layer
+// stops after phase C: no qkv, no cells, the attention outputs untouched
+// (:556-561).  K26 (fused_step3.cu) runs this body twice in one launch.
+// ---------------------------------------------------------------------------
+
+struct Step2 {
+    Linear lin;          // lin.qkv is scratch [B, QO]: layer l + 1's raw q/k/v
+    const int8_t* kc;    // [L, B, KVH, S, hd] int8 cache
+    const int8_t* vc;
+    const float* kcs;    // [L, B, KVH, S] scales
+    const float* vcs;
+    const int* pos;      // [B]
+    const float* cosr;   // [B, hd/2] at each slot's position
+    const float* sinr;
+    float* att;          // [B, D] scratch: the cells' outputs
+    int8_t* attq_next;   // [B, D]
+    float* satt_next;    // [B]
+    int8_t* kq;          // [B, KVH, hd] the fresh rows of layer l + 1
+    float* ks;           // [B, KVH]
+    int8_t* vq;
+    float* vs;
+    int KVH, G, hd, S, layer, TS;  // layer: l + 1
+    float isqrt;         // f32(1 / sqrt(f32(hd)))
+};
+
+template <int BM, int CH>
+__device__ void step2_layer(const Step2& a, unsigned char* smem) {
+    __shared__ float red[kThreads / 32];
+    const Linear& lin = a.lin;
+    linear_phases<BM, true>(lin, reinterpret_cast<int8_t*>(smem));
+    if (lin.last) return;
+    grid_sync(lin.bar);  // layer l + 1's qkv is complete
+
+    const int B = lin.B, D = lin.D, QO = lin.QO, KVH = a.KVH, G = a.G, hd = a.hd;
+    const int P = dec_pitch<int8_t>(hd), hp = hd / 2, tid = threadIdx.x;
+    const DecSmem<int8_t> sm(smem, a.TS, P, G);
+    for (int cell = blockIdx.x; cell < B * KVH; cell += gridDim.x) {
+        const int b = cell / KVH, h = cell % KVH;
+        const long long bh = (long long)b * KVH + h;
+        const float* row = lin.qkv + (long long)b * QO;
+        const float* cs = a.cosr + (long long)b * hp;
+        const float* sn = a.sinr + (long long)b * hp;
+        // the G query rows of kv head h: roped, scaled, rounded to bf16
+        for (int e = tid; e < G * P; e += kThreads) {
+            const int g = e / P, d = e % P;
+            float v = 0.f;
+            if (d < hd) {
+                const float* xh = row + (long long)(h * G + g) * hd;
+                float r0, r1;
+                rope_pair(__ldcg(xh + (d & ~1)), __ldcg(xh + (d | 1)), cs[d >> 1], sn[d >> 1],
+                          r0, r1);
+                v = round_bf16(__fmul_rn(d & 1 ? r1 : r0, a.isqrt));
+            }
+            sm.qf[e] = v;
+            sm.qb[e] = v;
+        }
+        // the fresh K (roped) and V rows of head h, one element per thread
+        float rk = 0.f, rv = 0.f;
+        if (tid < hd) {
+            const float* kh = row + D + (long long)h * hd;
+            float r0, r1;
+            rope_pair(__ldcg(kh + (tid & ~1)), __ldcg(kh + (tid | 1)), cs[tid >> 1],
+                      sn[tid >> 1], r0, r1);
+            rk = tid & 1 ? r1 : r0;
+            rv = __ldcg(row + D + KVH * hd + (long long)h * hd + tid);
+        }
+        const float ksc = quant_scale(block_max<kThreads>(fabsf(rk), red));
+        const float vsc = quant_scale(block_max<kThreads>(fabsf(rv), red));
+        int8_t* kqr = a.kq + bh * hd;
+        int8_t* vqr = a.vq + bh * hd;
+        if (tid < hd) {
+            kqr[tid] = quant_i8(rk, quant_inv(ksc));
+            vqr[tid] = quant_i8(rv, quant_inv(vsc));
+        }
+        if (tid == 0) {
+            a.ks[bh] = ksc;
+            a.vs[bh] = vsc;
+        }
+        __syncthreads();  // the fresh rows are written for the whole block
+        const int p = min(max(a.pos[b], 0), a.S);
+        const long long row0 = (((long long)a.layer * B + b) * KVH + h) * a.S;
+        dec_attend<int8_t, CH>(sm, a.kc + row0 * hd, a.vc + row0 * hd, a.kcs + row0,
+                               a.vcs + row0, p, a.TS, G, hd, kqr, ksc, vqr, vsc,
+                               a.att + bh * G * hd);
+        __syncthreads();  // shared memory is free for the next cell
+    }
+    grid_sync(lin.bar);  // every cell's output is in att
+    if (blockIdx.x < B)
+        quant_row(a.att + (long long)blockIdx.x * D, D, a.attq_next + (long long)blockIdx.x * D,
+                  a.satt_next + blockIdx.x);
+}
+
+template <int BM, int CH>
+__global__ void __launch_bounds__(kThreads) fused_step2_kernel(const Step2 a) {
+    extern __shared__ __align__(16) unsigned char fd_smem[];
+    step2_layer<BM, CH>(a, fd_smem);
+}
+
+// The dynamic shared memory of K12's launch (and K26's): the larger of a
+// GEMM tile ring and one decode cell.
+template <int BM>
+int step2_smem(const Step2& a) {
+    const int cell = DecSmem<int8_t>::bytes(a.TS, dec_pitch<int8_t>(a.hd), a.G);
+    return gemm_smem<BM>() > cell ? gemm_smem<BM>() : cell;
+}
+
+// Fills a Step2 from tl_fused_step2_layer's arguments and checks them.
+inline int make_step2(Step2& a) {
+    if (a.G < 1 || a.G > kDecMaxG || a.hd < 2 || a.hd % 2 || a.hd > kDecMaxHd || a.TS < 1 ||
+        a.TS > 256 || a.KVH < 1 || a.lin.D != a.KVH * a.G * a.hd ||
+        a.lin.QO != a.lin.D + 2 * a.KVH * a.hd)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return prepare(a.lin);
 }
 
 }  // namespace fd

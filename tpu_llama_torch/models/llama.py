@@ -34,8 +34,13 @@ run) or without them.  The W8A8 + INT8 paths:
   qkv), layer 0's qkv from K3 + K8; ``fused="mega2"`` ->
   ``mega2_decode_stack`` (llama.py:712-805): a prologue (K3, K8, K9, K2),
   then one K12 launch per layer (its linear work and the next layer's
-  attention).  Both keep the deferred K10 flush.  ``fused="auto"`` is
-  False on a CPU cache, a fused mode on a CUDA one (``_resolve_fused``).
+  attention).  Opt-in only, as in JAX: ``fused="mega3"`` ->
+  ``mega3_decode_stack`` (llama.py:826-905): mega2's prologue, then one K26
+  launch per pair of layers; ``fused="mega"`` -> ``fused_decode_stack(
+  mega=True)``: per layer RoPE and quantize_kv, then one K27 launch (the
+  layer's attention, its quant, then K11's phases).  All keep the deferred
+  K10 flush.  ``fused="auto"`` is False on a CPU cache, mega2 or the
+  two-launch decode on a CUDA one (``_resolve_fused``).
 
 Dense and Q8_0 weights, and fp caches, take JAX's other branches:
 
@@ -79,7 +84,7 @@ prefilled straight into the pool, K16 attending over the past pages plus
 the chunk's fresh rows and K17 landing them.
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: the mega and mega3 decodes (K27, K26), W4A8 weights.
+their ROADMAP item: W4A8 weights, ``fuse_projections(tp > 1)``.
 """
 
 from __future__ import annotations
@@ -109,7 +114,9 @@ from tpu_llama_torch.ops.attention import (
     quantize_kv,
 )
 from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
+from tpu_llama_torch.ops.fused_step import fused_step_layer
 from tpu_llama_torch.ops.fused_step2 import fused_step2_layer
+from tpu_llama_torch.ops.fused_step3 import fused_step3_pair
 from tpu_llama_torch.ops.matmul import q8_matmul, w8a8_matmul, w8a8_matmul_prequant
 from tpu_llama_torch.ops.quant import (
     ChannelQuantTensor,
@@ -793,7 +800,22 @@ def _mega2_path_ok(params: LlamaParams, config: ModelConfig, cache, B: int) -> b
             and hd <= 128 and hd % 4 == 0 and config.group_size <= 8 and B <= MAX_ROWS)
 
 
-FUSED_MODES = (False, True, "mega2", "auto")
+def _mega3_path_ok(params: LlamaParams, config: ModelConfig, cache, B: int) -> bool:
+    """What K26 takes (llama.py:808): mega2's cache, widths and slots, and
+    an even layer count (it pairs layers).  Not the TPU's head_dim % 128 or
+    its ``step3_plan`` VMEM rule."""
+    return _mega2_path_ok(params, config, cache, B) and config.n_layers % 2 == 0
+
+
+def _mega_path_ok(params: LlamaParams, config: ModelConfig, cache, B: int) -> bool:
+    """What K27 takes (llama.py:920): a dense INT8 cache, up to
+    ``MAX_ROWS`` slots, up to 8 query heads per kv head and head_dim <= 128
+    (K9's cell, whose cache rows are copied in 4-byte chunks: a multiple
+    of 4).  Not the TPU's head_dim % 128, its VMEM plan or its TPU block."""
+    return _mega2_path_ok(params, config, cache, B)
+
+
+FUSED_MODES = (False, True, "mega2", "mega3", "mega", "auto")
 
 
 def _resolve_fused(fused, attn: str, params: LlamaParams, config: ModelConfig, cache, B: int):
@@ -804,11 +826,12 @@ def _resolve_fused(fused, attn: str, params: LlamaParams, config: ModelConfig, c
     where ``_mega2_path_ok`` holds, else True: on an H100 mega2 (K12) took
     fewer device-ms and host-ms per step than the two-launch decode (K11 +
     K9) and the unfused one at batch 8 and batch 1, position 512
-    (``profile_serving.py``, the A/B in PERF.md).  An explicit mode that its
-    gate refuses raises ValueError; ``"mega"`` and ``"mega3"`` are not
-    ported."""
-    if fused in ("mega", "mega3"):
-        raise NotImplementedError(f"fused={fused!r} (K27 / K26): ROADMAP queue 1 item 9")
+    (``profile_serving.py``, the A/B in PERF.md).  ``"mega3"`` (K26, two
+    layers a launch) and ``"mega"`` (K27, the attention leading each
+    layer's launch) are taken only when asked for: JAX's ``"auto"`` never
+    picks either (off the TPU its fused decode is off, llama.py:1132-1134;
+    on the TPU ``_mega_path_ok`` refuses, :938), and neither does the
+    port's.  An explicit mode that its gate refuses raises ValueError."""
     if fused not in FUSED_MODES:
         raise ValueError(f"fused decode {fused!r}: want one of {FUSED_MODES}")
     if not isinstance(fused, str):
@@ -823,6 +846,18 @@ def _resolve_fused(fused, attn: str, params: LlamaParams, config: ModelConfig, c
         raise ValueError("mega2 decode requires fused W8A8 layouts, a dense INT8 cache, an "
                          f"even head_dim <= 128 (a multiple of 4), at most 8 query heads per "
                          f"kv head and at most {MAX_ROWS} slots")
+    if fused == "mega3" and not (_fused_path_ok(params, config)
+                                 and _mega3_path_ok(params, config, cache, B)):
+        raise ValueError("mega3 decode requires fused W8A8 layouts, a dense INT8 cache, "
+                         "128-aligned head_dim, and an even layer count (the port: a head_dim "
+                         "<= 128 that is a multiple of 4, at most 8 query heads per kv head "
+                         f"and at most {MAX_ROWS} slots)")
+    if fused == "mega" and not (_fused_path_ok(params, config)
+                                and _mega_path_ok(params, config, cache, B)):
+        raise ValueError("mega decode requires fused W8A8 layouts, a dense INT8 cache, and "
+                         "128-aligned head_dim (the port: a head_dim <= 128 that is a multiple "
+                         f"of 4, at most 8 query heads per kv head and at most {MAX_ROWS} "
+                         "slots)")
     if fused is True:
         if attn not in ("flash", "flash_dma"):
             raise ValueError("fused decode requires a flash attention impl")
@@ -859,7 +894,7 @@ def _split_rope(qkv, cos, sin, config: ModelConfig):
 
 
 def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: ModelConfig,
-                       attn: str):
+                       attn: str, mega: bool = False):
     """The two-launch fused decode layer stack (llama.py:978-1096): x0
     [B, D] in -> x f32 [B, D].  On a paged cache the attention is K13 (K20
     for ``"flash"``) and the flush K14 (llama.py:1009-1018, 1049-1054,
@@ -868,11 +903,14 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
     on an fp cache, the fresh rows cast to its dtype) on the qkv the
     previous K11 launch left, K2 on its output, then K11 (the layer's linear
     work and the next layer's qkv); layer 0's qkv from the prologue (K3,
-    K8).  The residual stream stays f32 across layers, as JAX's scan carry.
-    One K10 flush writes every layer's row after the loop."""
+    K8).  ``mega=True`` (a dense INT8 cache; llama.py:1040-1047): per layer
+    RoPE and quantize_kv, then one K27 launch -- the attention, its quant
+    and K11's phases -- in place of the attention, K2 and K11; ``attn`` goes
+    unread.  The residual stream stays f32 across layers, as JAX's scan
+    carry.  One K10 flush writes every layer's row after the loop."""
     B, D = x0.shape
     L = layers.rms_att.shape[0]
-    attend = _decode_attend(attn, cache)
+    attend = None if mega else _decode_attend(attn, cache)
     pos32 = pos.to(torch.int32)
     x = x0.float()
     qkv = _decode_prologue(layers, x, config)
@@ -880,12 +918,40 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
     for i in range(L):
         q, k, v = _split_rope(qkv, cos, sin, config)
         rows.append(_cache_rows(cache, k, v))
+        if mega:
+            r = rows[-1]
+            x, qkv = fused_step_layer(x, q, r["k"], r["v"], r["ks"], r["vs"], cache.k, cache.v,
+                                      cache.ks, cache.vs, pos32, layers.wo, layers.w1, layers.w2,
+                                      layers.wq, layers.rms_ffn, layers.rms_att, i, L)
+            continue
         att = _attend_fresh(attend, q, cache, pos32, rows[-1], i)
         attq, satt = quantize_activations(att.reshape(B, D))
         x, qkv = fused_layer_linear(x, attq, satt, layers.wo, layers.w1, layers.w2, layers.wq,
                                     layers.rms_ffn, layers.rms_att, i, L)
     _flush(cache, rows, pos32)
     return x
+
+
+def _mega_prologue(layers: LayerParams, cache: QuantKVCache, x, pos32, cos, sin,
+                   config: ModelConfig):
+    """mega2's and mega3's prologue (llama.py:743-769): layer 0's qkv (K3,
+    K8), RoPE and quantize_kv, layer 0's attention (K9) and its quant (K2).
+    Returns (attq, satt, rows): rows are the step's flush buffers (k, ks,
+    v, vs) [L, B, ...], layer 0's rows in place."""
+    B, D = x.shape
+    L = layers.rms_att.shape[0]
+    KVH, hd = config.n_kv_heads, config.head_dim
+    q, (kq, ks), (vq, vs) = _split_qkv(_decode_prologue(layers, x, config), cos, sin, config)
+    att = flash_decode_attention_dma(q, cache.k, cache.v, pos32, kq, vq, cache.ks, cache.vs,
+                                     ks, vs, layer=0)
+    attq, satt = quantize_activations(att.reshape(B, D))
+    rows = (torch.empty((L, B, KVH, hd), dtype=torch.int8, device=x.device),
+            torch.empty((L, B, KVH), dtype=torch.float32, device=x.device),
+            torch.empty((L, B, KVH, hd), dtype=torch.int8, device=x.device),
+            torch.empty((L, B, KVH), dtype=torch.float32, device=x.device))
+    for dst, src in zip(rows, (kq, ks, vq, vs)):
+        dst[0].copy_(src)
+    return attq, satt, rows
 
 
 def mega2_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
@@ -895,29 +961,40 @@ def mega2_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, s
     K9 (layer 0's attention), K2; then one K12 launch per layer (layer l's
     linear work and layer l + 1's attention), each writing layer l + 1's
     fresh rows straight into the step's flush buffers; one K10 flush."""
-    B, D = x0.shape
     L = layers.rms_att.shape[0]
-    KVH, hd = config.n_kv_heads, config.head_dim
     pos32 = pos.to(torch.int32)
     x = x0.float()
-    q, (kq, ks), (vq, vs) = _split_qkv(_decode_prologue(layers, x, config), cos, sin, config)
-    att = flash_decode_attention_dma(q, cache.k, cache.v, pos32, kq, vq, cache.ks, cache.vs,
-                                     ks, vs, layer=0)
-    attq, satt = quantize_activations(att.reshape(B, D))
-    dev = x.device
-    rows_k = torch.empty((L, B, KVH, hd), dtype=torch.int8, device=dev)
-    rows_v = torch.empty_like(rows_k)
-    rows_ks = torch.empty((L, B, KVH), dtype=torch.float32, device=dev)
-    rows_vs = torch.empty_like(rows_ks)
-    for dst, src in zip((rows_k[0], rows_ks[0], rows_v[0], rows_vs[0]), (kq, ks, vq, vs)):
-        dst.copy_(src)
+    attq, satt, rows = _mega_prologue(layers, cache, x, pos32, cos, sin, config)
     for i in range(L):
         nxt = min(i + 1, L - 1)  # the last launch computes no rows: its buffers go unread
         x, attq, satt, *_ = fused_step2_layer(
             x, attq, satt, cache.k, cache.v, cache.ks, cache.vs, pos32, cos, sin, layers.wo,
             layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att, i, L,
-            config.n_heads, out=(rows_k[nxt], rows_ks[nxt], rows_v[nxt], rows_vs[nxt]))
-    kv_cache_flush_rows(rows_k, rows_v, pos32, cache.k, cache.v, rows_ks, rows_vs, cache.ks,
+            config.n_heads, out=tuple(r[nxt] for r in rows))
+    kv_cache_flush_rows(rows[0], rows[2], pos32, cache.k, cache.v, rows[1], rows[3], cache.ks,
+                        cache.vs)
+    return x
+
+
+def mega3_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
+                       config: ModelConfig):
+    """The mega3 layer stack (llama.py:826-905): x0 [B, D] in -> x f32
+    [B, D].  mega2's prologue, then one K26 launch per pair of layers
+    (l0, l0 + 1): their linear work and the attentions of layers l0 + 1 and
+    l0 + 2, writing both layers' fresh rows straight into the step's flush
+    buffers (the last pair's second set goes to ``rows[L - 1]``, unwritten,
+    as mega2's last launch); one K10 flush."""
+    L = layers.rms_att.shape[0]
+    pos32 = pos.to(torch.int32)
+    x = x0.float()
+    attq, satt, rows = _mega_prologue(layers, cache, x, pos32, cos, sin, config)
+    for l0 in range(0, L, 2):
+        x, attq, satt, *_ = fused_step3_pair(
+            x, attq, satt, cache.k, cache.v, cache.ks, cache.vs, pos32, cos, sin, layers.wo,
+            layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att, l0, L,
+            config.n_heads, out=tuple(tuple(r[i] for r in rows)
+                                      for i in (l0 + 1, min(l0 + 2, L - 1))))
+    kv_cache_flush_rows(rows[0], rows[2], pos32, cache.k, cache.v, rows[1], rows[3], cache.ks,
                         cache.vs)
     return x
 
@@ -930,7 +1007,9 @@ def forward_decode(params: LlamaParams, cache, tokens: torch.Tensor, pos: torch.
     ``fused`` (see ``_resolve_fused``): False runs the unfused
     ``decode_stack``; True the two-launch ``fused_decode_stack`` (K11 + the
     flash attention per layer); ``"mega2"`` ``mega2_decode_stack`` (K12);
-    ``"auto"`` picks from the device, the weights and the cache.  The fused
+    ``"mega3"`` ``mega3_decode_stack`` (K26); ``"mega"``
+    ``fused_decode_stack(mega=True)`` (K27); ``"auto"`` picks from the
+    device, the weights and the cache (never mega or mega3).  The fused
     paths carry the residual stream in f32 (llama.py:996) and run the
     classifier at "default" precision (llama.py:974).  ``precision``
     reaches dense float32 products (see ``dense_matmul``).  Returns
@@ -942,8 +1021,11 @@ def forward_decode(params: LlamaParams, cache, tokens: torch.Tensor, pos: torch.
     cos, sin = params.rope_cos[pos], params.rope_sin[pos]
     if fused == "mega2":
         x = mega2_decode_stack(params.layers, cache, x, pos, cos, sin, config)
+    elif fused == "mega3":
+        x = mega3_decode_stack(params.layers, cache, x, pos, cos, sin, config)
     elif fused:
-        x = fused_decode_stack(params.layers, cache, x, pos, cos, sin, config, attn)
+        x = fused_decode_stack(params.layers, cache, x, pos, cos, sin, config, attn,
+                               mega=fused == "mega")
     else:
         x = decode_stack(params.layers, cache, x, pos, cos, sin, config, attn=attn,
                          precision=precision)

@@ -12,8 +12,8 @@ Launch and plain-version counts: every wrapper in ``tpu_llama_torch.ops``
 adds one to ``LAUNCHES[kernel]`` right after it launched its kernel, and one
 to ``PLAIN_CALLS[kernel]`` when it ran the plain PyTorch version for a CPU
 tensor.  They are process-wide counters, read by ``chip_smoke.py`` to show
-that a run went through the kernels.  The fp-cache forms of K6, K7, K9, K10
-and K19 count under their own ids (``form``: ``"K6:f32"``, ``"K6:bf16"``),
+that a run went through the kernels.  The fp-cache forms of K6, K7, K9, K10,
+K19 and K28 count under their own ids (``form``: ``"K6:f32"``, ``"K6:bf16"``),
 one templated kernel each with its INT8 form.
 """
 
@@ -25,6 +25,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -95,6 +96,23 @@ SOURCES = {
     "fused_step2": ("tl_fused_step2_layer",
                     [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
                      *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]),
+    # fused_step2's arguments for layer l0 (without the stream), then layer l0 + 1's wo,
+    # wo_s, w13, w13_s, w2, w2_s, layer l0 + 2's wqkv, wqkv_s, rms_ffn2, rms_att2, x_out,
+    # attq_out, satt_out, kq2, ks2, vq2, vs2, last2, layer2, K12's blocks per SM, stream
+    "fused_step3": ("tl_fused_step3_pair",
+                    [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
+                     *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                     *[_P] * 17, _I, _I, _I, _P]),
+    # q, nk, nv, nks, nvs, k, v, ks, vs, pos, att, attq, satt, KVH, G, hd, S, layer, TS,
+    # sqrt(hd), copy chunk, then x, 4 x (weights, scales), rms_ffn, rms_att, rms dtype,
+    # x_next, qkv, xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
+    "fused_step": ("tl_fused_step_layer",
+                   [*[_P] * 13, *[_I] * 6, ctypes.c_float, _I, *[_P] * 11, _I, *[_P] * 8,
+                    *[_I] * 5, _P]),
+    # k, v, pos, ck, cv, cks, cvs, cache dtype, layer, B, KVH, S, hd, stream
+    "kv_write_decode": ("tl_kv_write_decode", [*[_P] * 7, *[_I] * 6, _P]),
+    # x, sx, w, sw, residual, out, out dtype, M, N, K, rows per block, stream
+    "w8a8_rows_resident": ("tl_w8a8_rows_resident", [*[_P] * 6, *[_I] * 5, _P]),
 }
 
 # kernel id -> source; the ids follow ROADMAP.md queue 2.  K8 is K1's kernel
@@ -106,8 +124,9 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K13": "paged_flash_decode_dma", "K14": "kv_pool_flush_rows", "K15": "kv_pool_scatter",
            "K16": "paged_flash_prefill", "K17": "kv_pool_write_chunk", "K18": "kv_write_chunk",
            "K19": "flash_decode_fresh", "K20": "paged_flash_decode_fresh",
-           "K22": "paged_flash_decode", "K25": "q8_matmul"}
-FP_FORMS = ("K6", "K7", "K9", "K10", "K19")  # kernels with an fp-cache form
+           "K22": "paged_flash_decode", "K25": "q8_matmul", "K26": "fused_step3",
+           "K27": "fused_step", "K28": "kv_write_decode", "K29": "w8a8_rows_resident"}
+FP_FORMS = ("K6", "K7", "K9", "K10", "K19", "K28")  # kernels with an fp-cache form
 _FORM_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNELS.update({f"{k}:{sfx}": KERNELS[k] for k in FP_FORMS for sfx in _FORM_SUFFIX.values()})
 LAUNCHES = {k: 0 for k in KERNELS}
@@ -180,34 +199,48 @@ def _log_path(name: str) -> Path:
     return _lib_path(name).with_suffix(".log")
 
 
+# seconds each source's nvcc took in this process's last build, by source
+BUILD_SECONDS: dict[str, float] = {}
+
+
 def build(names=None) -> dict[str, str]:
     """Compile the named sources (all by default) that are not built yet,
-    one ``nvcc`` process per source, all started together.  Returns the
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    for every named source: each log is kept beside its library, so a
-    source built earlier returns the log of that build.  Raises with the
-    log if any build failed."""
+    one ``nvcc`` process per source, all started together; each one's
+    seconds go to ``BUILD_SECONDS``.  Returns the compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) for every named
+    source: each log is kept beside its library, so a source built earlier
+    returns the log of that build.  Raises with the log if any build
+    failed."""
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if not (_lib_path(n).exists() and _log_path(n).exists())]
     procs = {}
     if todo:
         _BUILD.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
+    t0 = time.monotonic()
     for n in todo:
         out = _lib_path(n)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp, out)
+        with open(log, "w") as f:  # a file, not a pipe: no process blocks on a full pipe
+            procs[n] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT), tmp, log,
+                        out)
+    pending = set(procs)
+    while pending:
+        for n in [n for n in pending if procs[n][0].poll() is not None]:
+            BUILD_SECONDS[n] = time.monotonic() - t0
+            pending.discard(n)
+        time.sleep(0.05)
     failed = []
-    for n, (proc, tmp, out) in procs.items():
-        log = proc.communicate()[0]
+    for n, (proc, tmp, log, out) in procs.items():
         if proc.returncode == 0:
-            _log_path(n).write_text(log)
+            os.replace(log, _log_path(n))
             os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
         else:
             tmp.unlink(missing_ok=True)
-            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n{log.read_text()}")
+            log.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {n: _log_path(n).read_text() for n in names}
@@ -237,6 +270,26 @@ def launch(kernel: str, *args) -> None:
         msg = lib.tl_error_string(code).decode()
         raise RuntimeError(f"{kernel} ({fn_name}) launch failed: {msg} ({code})")
     LAUNCHES[kernel] += 1
+
+
+_K12_RESIDENCY: dict[tuple, int] = {}
+
+
+def k12_residency(B: int, G: int, hd: int, ts: int, ch: int) -> int:
+    """The blocks of K12 that one SM keeps resident for a launch of these
+    shapes (``tl_fused_step2_residency``): K26 runs on K12's grid."""
+    key = (B <= 16, G, hd, ts, ch)
+    if key not in _K12_RESIDENCY:
+        fn = _lib(KERNELS["K12"]).tl_fused_step2_residency
+        fn.argtypes = [_I] * 5 + [_P]
+        fn.restype = _I
+        n = ctypes.c_int(0)
+        code = fn(B, G, hd, ts, ch, ctypes.byref(n))
+        if code != 0:
+            raise RuntimeError(f"K12 residency query failed: "
+                               f"{_lib('fused_step2').tl_error_string(code).decode()} ({code})")
+        _K12_RESIDENCY[key] = n.value
+    return _K12_RESIDENCY[key]
 
 
 def stream(t: torch.Tensor) -> int:

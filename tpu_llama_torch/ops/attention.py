@@ -14,7 +14,8 @@ Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
 (:466), ``paged_flash_decode_attention_fresh`` (:1012),
 ``kv_pool_flush_rows`` (:1301), ``paged_flash_prefill_attention`` (:1990),
 ``kv_pool_write_chunk`` (:2189) and ``paged_flash_decode_attention``
-(:933), INT8 only, as in JAX.  K6, K7, K9, K19 and
+(:933), INT8 only, as in JAX; and ``kv_cache_write_decode`` (:2345, K28),
+the per-layer decode row write that no decode path calls.  K6, K7, K9, K19 and
 K10 take an INT8 cache (int8 values with f32
 per-row scales) or an fp one (float32 or bfloat16, no scales), as the JAX
 functions do; each CUDA kernel is templated on the cache type, and the fp
@@ -620,6 +621,80 @@ def kv_cache_flush_rows(rows_k, rows_v, pos, ck, cv, rows_ks=None, rows_vs=None,
                     _kernels.cache_code(ck.dtype), L, B, KVH, S, hd, int(vec),
                     _kernels.stream(ck))
     return (ck, cv, cks, cvs) if int8 else (ck, cv)
+
+
+def _check_write_decode(k, v, pos, layer, ck, cv, cks, cvs) -> int:
+    """Validate a K28 call; returns the layer as a host int."""
+    check_scales("kv_cache_write_decode", ck, cks, cvs)
+    if ck.dim() != 5 or k.dim() != 3:
+        raise ValueError("want k [B, KVH, hd] and ck [L, B, KVH, S, hd]")
+    L, B, KVH, S, hd = ck.shape
+    if (k.shape != (B, KVH, hd) or v.shape != k.shape or cv.shape != ck.shape
+            or pos.shape != (B,) or (cks is not None and (
+                cks.shape != (L, B, KVH, S) or cvs.shape != cks.shape))):
+        raise ValueError(f"kv_cache_write_decode: shape mismatch: k {tuple(k.shape)}, ck "
+                         f"{tuple(ck.shape)}, pos {tuple(pos.shape)}")
+    if cv.dtype != ck.dtype or (cks is not None and (
+            cks.dtype != torch.float32 or cvs.dtype != torch.float32)):
+        raise TypeError("kv_cache_write_decode: K and V caches of one dtype, f32 scales")
+    if not k.dtype.is_floating_point or not v.dtype.is_floating_point:
+        raise TypeError("kv_cache_write_decode: k and v are floating point")
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"kv_cache_write_decode: layer {layer} outside [0, {L})")
+    return layer
+
+
+def kv_cache_write_decode_plain(k, v, pos, layer: int, ck, cv, cks=None, cvs=None):
+    """Plain version of K28: f32 rows, quantized per (slot, head) for an
+    INT8 cache (``quantize_kv``'s jitted formula) or cast to the cache's
+    dtype, written by one indexed write per array at (layer, b, pos[b]) of
+    the slots whose pos lies in [0, S)."""
+    B, KVH, hd = k.shape
+    p = pos.long()
+    ok = ((p >= 0) & (p < ck.shape[3])).nonzero().flatten()
+    h_ix = torch.arange(KVH, device=ck.device)[None, :]
+    b_ix, p_ix = ok[:, None], p[ok][:, None]
+    pairs = []
+    for x, dst, dst_s in ((k, ck, cks), (v, cv, cvs)):
+        xf = x.float()
+        if dst_s is None:
+            pairs.append((dst, xf.to(dst.dtype)))
+        else:
+            q, s = quantize_kv(xf)
+            pairs += [(dst, q), (dst_s, s)]
+    for dst, src in pairs:
+        dst[layer, b_ix, h_ix, p_ix] = src[ok]
+    return (ck, cv) if cks is None else (ck, cv, cks, cvs)
+
+
+def kv_cache_write_decode(k, v, pos, layer, ck, cv, cks=None, cvs=None):
+    """Write one layer's decode rows IN PLACE: ``ck[layer, b, :, pos[b]]``
+    and ``cv``'s from k, v [B, KVH, hd] (any float dtype, taken as f32, as
+    the JAX function casts them); an INT8 cache quantizes each row in the
+    kernel (absmax over hd, s = absmax * f32(1/127), rint, clip to +-127, a
+    zero row gives scale 0) and writes its scale into cks / cvs f32
+    [L, B, KVH, S]; an fp cache (float32, bfloat16; no scales) takes the
+    values cast to its dtype.  pos [B] is read on the device; a slot whose
+    pos lies outside [0, S) is skipped (the JAX kernel leaves it
+    undefined).  ``layer`` a host int.  Returns the updated cache arrays
+    ((ck, cv, cks, cvs), or (ck, cv) for an fp cache).  No decode path
+    calls it: the JAX package's only caller is a benchmark tool.  K28 on
+    CUDA tensors (``K28:f32`` / ``K28:bf16`` for an fp cache), the plain
+    version on CPU ones."""
+    layer = _check_write_decode(k, v, pos, layer, ck, cv, cks, cvs)
+    kernel = _kernels.form("K28", ck.dtype)
+    if _kernels.on_cpu(kernel, *_decode_tensors(k, v, pos, ck, cv, cks, cvs)):
+        return kv_cache_write_decode_plain(k, v, pos, layer, ck, cv, cks, cvs)
+    if not all(t.is_contiguous() for t in _decode_tensors(ck, cv, cks, cvs)):
+        raise ValueError("K28 writes the cache in place: it must be contiguous")
+    _, B, KVH, S, hd = ck.shape
+    kf, vf = k.float().contiguous(), v.float().contiguous()
+    p32 = pos.to(torch.int32).contiguous()
+    _kernels.launch(kernel, kf.data_ptr(), vf.data_ptr(), p32.data_ptr(), ck.data_ptr(),
+                    cv.data_ptr(), _ptr(cks), _ptr(cvs), _kernels.cache_code(ck.dtype), layer,
+                    B, KVH, S, hd, _kernels.stream(ck))
+    return (ck, cv) if cks is None else (ck, cv, cks, cvs)
 
 
 # ---------------------------------------------------------------------------

@@ -77,13 +77,20 @@ def linear_phases_plain(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, last
 
 def check_layer(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, layer, n_layers):
     """Validate a fused-layer call; returns (B, D, H, QO)."""
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"want x f32 [B, D], got {x.dtype} {tuple(x.shape)}")
-    B, D = x.shape
+    B, D, H, QO = check_stack(x, wo, w13, w2, wqkv, rms_ffn, rms_att, layer, n_layers)
     if attq.shape != (B, D) or attq.dtype != torch.int8:
         raise ValueError(f"want attq int8 [{B}, {D}], got {attq.dtype} {tuple(attq.shape)}")
     if satt.shape != (B,) or satt.dtype != torch.float32:
         raise ValueError(f"want satt f32 [{B}], got {satt.dtype} {tuple(satt.shape)}")
+    return B, D, H, QO
+
+
+def check_stack(x, wo, w13, w2, wqkv, rms_ffn, rms_att, layer, n_layers):
+    """Validate the residual x f32 [B, D], the stacked weights and rms rows
+    and the layer of a fused-layer call; returns (B, D, H, QO)."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"want x f32 [B, D], got {x.dtype} {tuple(x.shape)}")
+    B, D = x.shape
     ws = (wo, w13, w2, wqkv)
     if not all(isinstance(w, ChannelQuantTensor) and w.q.dim() == 3 for w in ws):
         raise TypeError("wo, w13, w2 and wqkv must be stacked ChannelQuantTensors (q [L, out, in])")

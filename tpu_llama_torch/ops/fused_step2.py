@@ -62,6 +62,18 @@ def _outputs(B, D, KVH, hd, dev, out):
             torch.empty((B,), dtype=torch.float32, device=dev), kq, ks, vq, vs)
 
 
+def step2_inputs(B, D, QO, L, Bc, KVH, hd, n_heads, n_layers, cos, sin) -> None:
+    """Check that a cache [L, Bc, KVH, S, hd] and the rope rows cos, sin
+    fit a K12 (or K26) call of B rows, width D and qkv width QO."""
+    if (KVH * hd != (QO - D) // 2 or n_heads * hd != D or n_heads % KVH or Bc != B
+            or L != n_layers):
+        raise ValueError(f"cache of {L} layers, {Bc} slots, {KVH} kv heads of {hd} does not "
+                         f"fit n_heads {n_heads}, D {D}, QO {QO}, batch {B}, {n_layers} layers")
+    if cos.shape != (B, hd // 2) or sin.shape != cos.shape or cos.dtype != torch.float32 \
+            or sin.dtype != torch.float32:
+        raise ValueError(f"want cos and sin f32 [{B}, {hd // 2}]")
+
+
 def fused_step2_layer_plain(x, attq, satt, k_cache, v_cache, k_scale, v_scale, pos, cos, sin,
                             wo, w13, w2, wqkv, rms_ffn, rms_att, layer: int, n_layers: int,
                             n_heads: int, out=None):
@@ -114,13 +126,7 @@ def fused_step2_layer(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
                               n_layers)
     L, Bc, KVH, S, hd = check_cache("fused_step2_layer", k_cache, v_cache, k_scale, v_scale,
                                     pos)
-    if (KVH * hd != (QO - D) // 2 or n_heads * hd != D or n_heads % KVH or Bc != B
-            or L != n_layers):
-        raise ValueError(f"cache {tuple(k_cache.shape)} does not fit n_heads {n_heads}, "
-                         f"D {D}, QO {QO}, batch {B}, {n_layers} layers")
-    if cos.shape != (B, hd // 2) or sin.shape != cos.shape or cos.dtype != torch.float32 \
-            or sin.dtype != torch.float32:
-        raise ValueError(f"want cos and sin f32 [{B}, {hd // 2}]")
+    step2_inputs(B, D, QO, L, Bc, KVH, hd, n_heads, n_layers, cos, sin)
     G = n_heads // KVH
     tensors = (x, attq, satt, k_cache, v_cache, k_scale, v_scale, pos, cos, sin, wo.q, w13.q,
                w2.q, wqkv.q, rms_ffn, rms_att) + (tuple(out) if out is not None else ())

@@ -1,15 +1,19 @@
 """Quantized matrix products: W8A8 (per-row INT8 activations x
-per-channel INT8 weights, K1) and Q8_0 (fp activations x group-wise INT8
-weights dequantized in the kernel, K25).
+per-channel INT8 weights, K1, and its resident-x form K29) and Q8_0 (fp
+activations x group-wise INT8 weights dequantized in the kernel, K25).
 
 Port of tpu_llama/ops/matmul.py:437-610 (``w8a8_matmul`` and
 ``w8a8_matmul_prequant``, with the residual epilogue of
-``_w8a8_res_kernel``, :388) and :142 (``q8_matmul``).  No row padding and
-no tile picking: the kernels mask their own ragged edges, and results
-exist only for real rows.
+``_w8a8_res_kernel``, :388), :314 (``_w8a8_rows_resident_call``, taken
+above 256 rows under the JAX package's own switch
+``TPU_LLAMA_ROWS_RESIDENT=1``, matmul.py:224-234, 513-519) and :142
+(``q8_matmul``).  No row padding and no tile picking: the kernels mask
+their own ragged edges, and results exist only for real rows.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -49,15 +53,82 @@ def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTens
     in ``out_dtype``.  ``residual`` [M, OUT] (any float dtype) gives
     ``residual + xq @ W``: the matmul term is rounded to ``out_dtype``
     first, then added in that dtype, as the unfused ``x + mm``.  K1 on CUDA
-    tensors, the plain version on CPU ones."""
+    tensors, the plain version on CPU ones; K29 (the same numbers) where
+    ``rows_resident_route`` holds."""
+    _check(xq, sx, w)
+    if residual is not None and residual.shape != (xq.shape[0], w.out_features):
+        raise ValueError(f"want residual [{xq.shape[0]}, {w.out_features}], got "
+                         f"{tuple(residual.shape)}")
+    if rows_resident_route(xq.shape[0], xq.shape[1]):
+        return w8a8_rows_resident(xq, sx, w, out_dtype, residual)
+    tensors = (xq, sx, w.q, w.s) + (() if residual is None else (residual,))
+    if _kernels.on_cpu("K1", *tensors):
+        return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype, residual)
+    return launch_w8a8("K1", xq, sx, w, out_dtype, residual)
+
+
+# K29's shared memory: the x slice BM x x_pitch(IN) plus a ring of four
+# 128-row weight stages of 80 bytes (csrc/w8a8_rows_resident.cu), within
+# the 232448 bytes a block may use.
+_RESIDENT_RING = 4 * 128 * 80
+_RESIDENT_SMEM = 232448
+
+
+def rows_resident_bm(n_in: int) -> int:
+    """The rows of x a K29 block holds for an inner size ``n_in``: 32 or 16
+    where the slice and the weight ring fit in a block's shared memory, 0
+    where K29 does not take ``n_in`` (not a multiple of 16, or too wide).
+    The rule of csrc/w8a8_rows_resident.cu rows_bm."""
+    if n_in < 16 or n_in % 16:
+        return 0
+    pitch = -(-n_in // 64) * 64 + 16
+    for bm in (32, 16):
+        if bm * pitch + _RESIDENT_RING <= _RESIDENT_SMEM:
+            return bm
+    return 0
+
+
+def rows_resident_route(m: int, n_in: int) -> bool:
+    """Whether ``w8a8_matmul_prequant`` takes K29: above 256 rows with the
+    JAX package's switch ``TPU_LLAMA_ROWS_RESIDENT=1`` set (read at each
+    call), for an inner size K29 takes -- as the JAX function takes its
+    rows-resident kernel where its plan exists (matmul.py:513-519)."""
+    return (m > 256 and os.environ.get("TPU_LLAMA_ROWS_RESIDENT") == "1"
+            and rows_resident_bm(n_in) > 0)
+
+
+def w8a8_rows_resident(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor,
+                       out_dtype=torch.float32, residual=None) -> torch.Tensor:
+    """K1's function (see :func:`w8a8_matmul_prequant`) with each block's x
+    rows held resident in shared memory while the weights stream past
+    them (K29): equal to K1 bit for bit.  The inner size must be a multiple
+    of 16 that ``rows_resident_bm`` takes.  K29 on CUDA tensors, K1's plain
+    version on CPU ones."""
     _check(xq, sx, w)
     if residual is not None and residual.shape != (xq.shape[0], w.out_features):
         raise ValueError(f"want residual [{xq.shape[0]}, {w.out_features}], got "
                          f"{tuple(residual.shape)}")
     tensors = (xq, sx, w.q, w.s) + (() if residual is None else (residual,))
-    if _kernels.on_cpu("K1", *tensors):
+    if _kernels.on_cpu("K29", *tensors):
         return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype, residual)
-    return launch_w8a8("K1", xq, sx, w, out_dtype, residual)
+    m, k = xq.shape
+    bm = rows_resident_bm(k)
+    if not bm:
+        raise NotImplementedError(f"K29 holds x rows of a multiple of 16 bytes, up to 11904, "
+                                  f"in shared memory: got {k}")
+    code = _kernels.dtype_code(out_dtype)
+    xq, sx = xq.contiguous(), sx.contiguous()
+    wq, ws = w.q.contiguous(), w.s.contiguous()
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("K29 copies x and w in 16-byte chunks: both must be 16-byte aligned")
+    res = None if residual is None else residual.to(out_dtype).contiguous()
+    n = wq.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    if m and n:
+        _kernels.launch("K29", xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                        None if res is None else res.data_ptr(), out.data_ptr(), code, m, n, k,
+                        bm, _kernels.stream(xq))
+    return out
 
 
 def launch_w8a8(kernel: str, xq, sx, w: ChannelQuantTensor, out_dtype, residual=None):

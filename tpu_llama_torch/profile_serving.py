@@ -13,10 +13,11 @@ admission on unfused weights of the same shapes, each run warm, then once
 timed and once traced; (b) the decode A/B behind ``forward_decode``'s
 ``fused="auto"``: 8 decode steps of all 8 slots at position 512, and of a
 one-slot engine at position 512, with each of the unfused decode (K9 per
-layer, ``fused=False``), the two-launch decode (K11 + K9, ``True``) and
-mega2 (K12, ``"mega2"``), decode attention K9 throughout.  The host wall
-per step of the three modes is taken over three interleaved repetitions
-(mode 1, 2, 3, 1, 2, 3, ...), then each mode is traced once.  All go
+layer, ``fused=False``), the two-launch decode (K11 + K9, ``True``), mega2
+(K12, ``"mega2"``) and the opt-in mega3 (K26, ``"mega3"``) and mega (K27,
+``"mega"``), decode attention K9 throughout.  The host wall per step of the
+five modes is taken over three interleaved repetitions (mode 1, 2, ..., 5,
+1, 2, ...), then each mode is traced once.  All go
 through the engine calls the scheduler makes.  Prints one JSON line per
 phase: host wall time of the untraced runs and of the traced run (closed by
 ``torch.cuda.synchronize``), device busy time (the union of kernel intervals
@@ -65,7 +66,7 @@ import torch
 DECODE_STEPS = 8
 CHUNK_STEPS = 16
 REPS = 3
-AB_MODES = (False, True, "mega2")
+AB_MODES = (False, True, "mega2", "mega3", "mega")
 # kernel name substrings -> port ids; the paged kernels first, as their names
 # contain the dense ones'
 PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fresh_kernel": "K20",
@@ -79,7 +80,9 @@ PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fres
                 "flash_decode_dma_kernel": "K9",
                 "kv_flush_rows_kernel": "K10", "fused_layer_kernel": "K11",
                 "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19",
-                "q8_matmul_kernel": "K25", "q8_matmul_tc_kernel": "K25"}
+                "q8_matmul_kernel": "K25", "q8_matmul_tc_kernel": "K25",
+                "fused_step3_kernel": "K26", "fused_step_kernel": "K27",
+                "kv_write_decode_kernel": "K28", "rows_resident_kernel": "K29"}
 
 
 def _kernel_events(prof):

@@ -25,8 +25,9 @@ over dense, Q8_0 or W8A8 weights:
   ``"auto"`` picks on the CPU) writes each layer's row in place before its
   attention.  On fused W8A8 layouts the card decodes through the fused
   decode (``fused="auto"``: mega2, one K12 launch per layer; ``True`` the
-  two-launch K11 path; ``False`` the unfused one), ``Engine.decode_fused``
-  shows the resolved mode;
+  two-launch K11 path; ``False`` the unfused one; ``"mega3"``, one K26
+  launch per pair of layers, and ``"mega"``, one K27 launch per layer, only
+  when asked for), ``Engine.decode_fused`` shows the resolved mode;
 * ``precision`` (JAX's default "default") reaches dense float32 products:
   TF32 on the card for "default" and "high", full f32 for "highest";
 * device sampling: ``decode_sample``, ``sample_logits`` and the multi-step
