@@ -1131,3 +1131,73 @@ def test_engine_mega_card_matches_cpu(card, fused):
         if part is not None:
             (_, top1), (_, top2) = c.out_top_logprobs[part][:2]
             assert top1 - top2 < NEAR_TIE, (fused, part, c.out_tokens, g.out_tokens)
+
+
+# -------------------------------------- the TP decode's kernels (K21, K23, K24)
+# K21 rounds q and p to bf16 at its plain version's places (INT8 caches):
+# DECODE_TOL, as K9 and K19; on f32 and bf16 caches nothing is rounded and
+# only the f32 sums' order and expf differ: 1e-5 of the largest output with
+# f32 queries.  K23 and K24 are K11's arithmetic: exact.
+
+
+@pytest.mark.parametrize("block_s", [None, 64])
+@pytest.mark.parametrize("cdtype", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd", [(1, 128), (4, 64)])
+def test_k21_close(card, G, hd, cdtype, block_s):
+    g = _gen(21 * hd + G)
+    L, B, KVH, S = 2, 5, 3, 256
+    pos = [0, 37, 128, 255, 200]
+    shape = (L, B, KVH, S, hd)
+    int8 = cdtype == torch.int8
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device=card, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=g, device=card) * 0.03 + 0.01
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g, device=card).to(cdtype) for _ in range(2))
+        ks = vs = None
+    for b, p in enumerate(pos):  # rows past pos poisoned: K21 attends s <= pos
+        for a, val in ((k, 127 if int8 else 1e4), (v, 127 if int8 else 1e4), (ks, 1e4),
+                       (vs, 1e4)):
+            if a is not None:
+                a[:, b, :, p + 1:] = val
+    q = torch.randn(B, KVH, G, hd, generator=g, device=card).to(
+        torch.bfloat16 if int8 else torch.float32)
+    pt = torch.tensor(pos, dtype=torch.int32, device=card)
+    kernel = _kernels.form("K21", cdtype)
+    before = _kernels.LAUNCHES[kernel]
+    got = tatt.flash_decode_attention(q, k, v, pt, ks, vs, block_s=block_s, layer=1)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[kernel] == before + 1
+    want = tatt.flash_decode_attention_plain(q, k, v, pt, ks, vs, block_s=block_s, layer=1)
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    assert err <= (DECODE_TOL if int8 else 1e-5) * peak, (err, peak)
+
+
+@pytest.mark.parametrize("B", [5, 37])
+def test_k23_k24_exact(card, B):
+    """K23 and K24 bit-equal to their plain versions at 5 rows (one block of
+    16) and 37 (blocks of 32, the last partial), layers 0 and L - 1."""
+    g = _gen(23 + B)
+    L, D, H, QO = 3, 256, 384, 512
+
+    def w(n_in, n_out):
+        return tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (L, n_out, n_in), generator=g, device=card,
+                            dtype=torch.int8),
+            s=torch.rand(L, n_out, generator=g, device=card) * 2e-3 + 1e-4)
+
+    w13, w2, wqkv = w(D, 2 * H), w(H, D), w(D, QO)
+    rms = (1 + 0.1 * torch.randn(L, D, generator=g, device=card)).to(torch.bfloat16)
+    x = torch.randn(B, D, generator=g, device=card)
+    for layer in (0, L - 1):
+        before = (_kernels.LAUNCHES["K23"], _kernels.LAUNCHES["K24"])
+        got = (tfl.fused_ffn_stacked(x, w13, w2, rms, layer),
+               tfl.fused_rms_qkv_stacked(x, wqkv, rms, layer))
+        torch.cuda.synchronize()
+        assert (_kernels.LAUNCHES["K23"], _kernels.LAUNCHES["K24"]) == (before[0] + 1,
+                                                                         before[1] + 1)
+        assert torch.equal(got[0], tfl.fused_ffn_stacked_plain(x, w13, w2, rms, layer))
+        assert torch.equal(got[1], tfl.fused_rms_qkv_stacked_plain(x, wqkv, rms, layer))

@@ -1,8 +1,10 @@
-"""The port stands alone: importing every ``tpu_llama_torch`` module pulls in
-neither ``jax`` nor ``tpu_llama``, and its entry points default to the card
-(and so raise where there is none)."""
+"""The port stands alone: importing every ``tpu_llama_torch`` module (the
+``parallel`` package included) and ``chip_smoke.py`` pulls in neither
+``jax`` nor ``tpu_llama``, and its entry points default to the card (and so
+raise where there is none)."""
 
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -26,9 +28,12 @@ def test_port_imports_neither_jax_nor_reference():
     assert "tpu_llama_torch.ops.sampling" in mods and "tpu_llama_torch.device" in mods
     assert "tpu_llama_torch.io.checkpoint" in mods
     assert "tpu_llama_torch.runtime.paged" in mods and "tpu_llama_torch.runtime.native_pool" in mods
+    assert {f"tpu_llama_torch.parallel.{m}" for m in ("mesh", "sharding", "tp", "overlap",
+                                                     "launch")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'tpu_llama' or m.startswith('tpu_llama.'))\n"
         "print(bad)\n"
@@ -36,6 +41,11 @@ def test_port_imports_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    # imports inside functions too: no statement of the port or of
+    # chip_smoke.py names jax or the JAX package
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|tpu_llama)(\.|\s|$)", re.M)
+    files = [ROOT / "chip_smoke.py", *(ROOT / "tpu_llama_torch").rglob("*.py")]
+    assert [str(f) for f in files if pattern.search(f.read_text())] == []
 
 
 def _no_card():

@@ -392,7 +392,8 @@ def test_fused_greedy_decode_loop_matches_jax(attn):
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
 def test_fuse_projections_and_quantize_match_jax(dtype):
     """The port's fuse_projections + quantize_params on the same dense
-    weights give the JAX package's bytes; the [L, 1, 1] stubs stay dense."""
+    weights give the JAX package's bytes; the [L, 1, 1] stubs stay dense;
+    fuse_projections(tp=2) gives JAX's shard-interleaved order."""
     cfg = JaxModelConfig(**TINY_GQA)
     dense = jl.params_from_raw(make_random_weights(cfg, seed=9), dtype=dtype)
     jq = jl.quantize_params(jl.fuse_projections(dense), mode="w8a8")
@@ -414,8 +415,14 @@ def test_fuse_projections_and_quantize_match_jax(dtype):
     assert tl._fused_layouts(tq.layers, ModelConfig(**TINY_GQA))
     with pytest.raises(ValueError):
         tl.fuse_projections(tq)
-    with pytest.raises(NotImplementedError):
-        tl.fuse_projections(tdense, tp=2)
+    # tp=2: the shard-interleaved [q_i | k_i | v_i] and [w1_i | w3_i] column
+    # order of the explicit tensor-parallel path, byte-equal to JAX's
+    jt = jl.fuse_projections(dense, tp=2)
+    tt = tl.fuse_projections(tdense, tp=2)
+    for name in ("wq", "w1"):
+        np.testing.assert_array_equal(getattr(tt.layers, name).float().numpy(),
+                                      np.asarray(getattr(jt.layers, name), np.float32))
+    assert not torch.equal(tt.layers.wq, fused.layers.wq)
 
 
 def test_convert_round_trip_fused():

@@ -1,7 +1,16 @@
 """Port parity of K29, the resident-x W8A8 rows kernel: its plain version
 against the JAX package's ``_w8a8_rows_resident_call`` run in interpret
-mode, reached as the JAX package reaches it -- ``w8a8_matmul_prequant``
-above 256 rows with ``TPU_LLAMA_ROWS_RESIDENT=1`` -- and the route itself.
+mode, with the block sizes ``w8a8_matmul_prequant`` picks for it above 256
+rows with ``TPU_LLAMA_ROWS_RESIDENT=1`` -- and the route itself.
+
+The JAX side calls the kernel, not the jitted ``w8a8_matmul_prequant``:
+that function reads the switch when it traces, and a trace of the same
+case made earlier in the process with the switch off survives its
+``_clear_cache()``.  tests/test_quant.py::test_w8a8_rows_resident_matches_
+default makes exactly that trace (bf16 output with a residual), so where
+pytest-xdist ran it first in the same worker the switched call returned the
+default K1 path's [2048, 384] padded rows and the bf16-with-residual case
+failed on its shape.
 
 Limits.  K29 computes K1's function (exact int32 sums, the epilogue
 ``(f32(acc) * sx) * sw``, one cast, the residual added after it), so its
@@ -49,15 +58,18 @@ def _case(M=512, IN=256, OUT=384, seed=41):
 def test_k29_plain_equals_jax_rows_resident(monkeypatch, dt, residual):
     w, xq, sx, r = _case()
     M, IN = xq.shape
-    assert jm._pick_rows_resident(M, IN, w.shape[1], 2) is not None
+    wq = jq.quantize_channel(jnp.asarray(w))
+    # the pick w8a8_matmul_prequant makes above 256 rows with the switch
+    # set (matmul.py:516-523), then the kernel call it makes: not the jitted
+    # function, whose trace of this case can outlive _clear_cache (see the
+    # module docstring)
+    pick = jm._pick_rows_resident(M, IN, wq.padded_out, jnp.dtype(dt[0]).itemsize,
+                                  jnp.dtype(dt[0]).itemsize if residual else 0)
+    assert pick is not None
+    want = jm._w8a8_rows_resident_call(
+        jnp.asarray(xq), jnp.asarray(sx), wq, dt[0], *pick,
+        residual=jnp.asarray(r).astype(dt[0]) if residual else None)
     monkeypatch.setenv(SWITCH, "1")
-    jm.w8a8_matmul_prequant._clear_cache()  # JAX reads the switch at trace time
-    try:
-        want = jm.w8a8_matmul_prequant(
-            jnp.asarray(xq), jnp.asarray(sx), jq.quantize_channel(jnp.asarray(w)),
-            out_dtype=dt[0], residual=jnp.asarray(r).astype(dt[0]) if residual else None)
-    finally:
-        jm.w8a8_matmul_prequant._clear_cache()
     _kernels.reset_counts()
     got = tm.w8a8_matmul_prequant(torch.tensor(xq), torch.tensor(sx),
                                   tq.quantize_channel(torch.tensor(w)), out_dtype=dt[1],

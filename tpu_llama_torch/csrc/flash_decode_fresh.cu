@@ -25,20 +25,13 @@
 // Bound on the H100: bytes, as K9: each (slot, kv head) reads pos[b] rows of
 // K and V and their scales -- at B = 1 and position 2047, 32 kv heads x
 // 2047 x (2 * 128 + 8) B = 17.3 MB per layer, 5.2 us at 3.35 TB/s.
-// Design: the same block per (kv head, slot) and two-stage cp.async ring as
-// K9, but a two-pass softmax: pass 1 streams the K tiles (rows < pos only)
-// and keeps every score in shared memory (G x S f32, 8 KB per query row at
-// S = 2048); then the max and the denominator; pass 2 streams the V tiles
-// and accumulates bf16(p * vs) x v.  The first V tile is in flight while
-// the statistics are taken.  At B = 1 only KVH blocks run (32 of 132 SMs
-// at 7B): a split-S variant is later work.
-#include <math.h>
-
-#include "common.cuh"
+// Design: decode_simple.cuh's cell (K21's default form is the same cell
+// without the fresh column): the same block per (kv head, slot) and
+// two-stage cp.async ring as K9, but a two-pass softmax over every score of
+// the slot's rows in shared memory.
+#include "decode_simple.cuh"
 
 namespace {
-
-constexpr int kTile = 128;  // cache rows per shared-memory tile
 
 template <typename QT, typename CT, int CH>
 __global__ void __launch_bounds__(kDecThreads)
@@ -50,143 +43,21 @@ flash_decode_fresh_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
                           float* __restrict__ out, int layer, int B, int KVH, int G, int S, int hd,
                           float sqrt_hd) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    constexpr bool kInt8 = sizeof(CT) == 1;
-    const int P = dec_pitch<CT>(hd);
-    CT* tile[2] = {reinterpret_cast<CT*>(smem), reinterpret_cast<CT*>(smem) + kTile * P};
-    float* tsc[2];  // each stage's scales [kTile]
-    tsc[0] = reinterpret_cast<float*>(tile[1] + kTile * P);
-    tsc[1] = tsc[0] + kTile;
-    float* qf = tsc[1] + kTile;  // [G, P] f32 qs
-    float* qb = qf + G * P;      // [G, P] bf16(qs)
-    float* sc = qb + G * P;      // [G, S] scores of rows < pos
-    float* pv = sc + G * S;      // [G, kTile] p (INT8: bf16(p * vs)) of the current V tile
-    float* m_s = pv + G * kTile;     // [kDecMaxG] max over the row and the fresh column
-    float* l_s = m_s + kDecMaxG;     // denominator
-    float* e_s = l_s + kDecMaxG;     // exp(s_new - m)
-    float* n_s = e_s + kDecMaxG;     // fresh-column score s_new
-
-    const int p = min(max(pos[b], 0), S);
-    const int nb = (p + kTile - 1) / kTile;
-    const long long row0 = (((long long)layer * B + b) * KVH + h) * S;  // cache row of s = 0
-    const long long bh = (long long)b * KVH + h;
-
-    dec_load_q(q + bh * G * hd, qf, qb, G, hd, P, sqrt_hd);
-    if (P != hd) dec_zero_pad(tile[0], 2 * kTile, hd, P);  // both stages
-    __syncthreads();
-    dec_fresh_scores(qf, P, nk + bh * hd, kInt8 ? nks[bh] : 1.f, G, hd, n_s);
-
-    // m, l and exp(s_new - m) of every query row, from the scores of pass 1
-    auto stats = [&]() {
-        for (int g = warp; g < G; g += kDecThreads / 32) {
-            const float* s = sc + g * S;
-            float mx = kNegInf;
-            for (int r = lane; r < p; r += 32) mx = fmaxf(mx, s[r]);
-            const float m = fmaxf(warp_max(mx), n_s[g]);
-            float sum = 0.f;
-            for (int r = lane; r < p; r += 32) sum += expf(s[r] - m);
-            sum = warp_sum(sum);
-            if (lane == 0) {
-                const float e_new = expf(n_s[g] - m);
-                m_s[g] = m;
-                e_s[g] = e_new;
-                l_s[g] = sum + e_new;
-            }
-        }
-    };
-
-    float acc[kDecMaxE];
-#pragma unroll
-    for (int j = 0; j < kDecMaxE; ++j) acc[j] = 0.f;
-
-    // Tile stream: t < nb is K block t (with ks), t >= nb is V block t - nb
-    // (with vs); tile t goes to stage t & 1.
-    auto issue = [&](int t) {
-        const bool is_k = t < nb;
-        const int j = is_k ? t : t - nb;
-        const int rows = min(kTile, p - j * kTile);
-        const long long r = row0 + (long long)j * kTile;
-        dec_issue_tile<CH>(tile[t & 1], (is_k ? kc : vc) + r * hd, rows, hd, P,
-                           kInt8 ? tsc[t & 1] : nullptr, kInt8 ? (is_k ? ks : vs) + r : nullptr,
-                           nullptr, nullptr);
-    };
-    const int nt = 2 * nb;
-    if (nt > 0) issue(0);
-    for (int t = 0; t < nt; ++t) {
-        if (t + 1 < nt) {
-            issue(t + 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();  // tile t has landed for every thread
-        const CT* td = tile[t & 1];
-        const float* ts = tsc[t & 1];
-        if (t < nb) {  // pass 1: scores
-            const int base = t * kTile;
-            dec_qk_tile(kInt8 ? qb : qf, td, kTile, G, P, [&](int g, int r, float dot) {
-                if (base + r < p) sc[g * S + base + r] = kInt8 ? dot * ts[r] : dot;
-            });
-            if (t == nb - 1) {
-                __syncthreads();
-                stats();
-            }
-        } else {  // pass 2: p x v (INT8: bf16(p * vs) x v)
-            const int base = (t - nb) * kTile;
-            for (int e = tid; e < G * kTile; e += kDecThreads) {
-                const int g = e / kTile, r = e % kTile;
-                float pn = 0.f;  // rows >= p: their stage slots hold stale scales
-                if (base + r < p) {
-                    pn = expf(sc[g * S + base + r] - m_s[g]) / l_s[g];
-                    if (kInt8) pn = round_bf16(pn * ts[r]);
-                }
-                pv[e] = pn;
-            }
-            __syncthreads();
-            float part[kDecMaxE];
-            dec_pv_tile(pv, kTile, td, min(kTile, p - base), G, hd, P, part);
-#pragma unroll
-            for (int j = 0; j < kDecMaxE; ++j) acc[j] += part[j];
-        }
-        __syncthreads();  // the stage is free for tile t + 2
-    }
-    if (nb == 0) {
-        __syncthreads();
-        stats();
-    }
-    __syncthreads();
-
-    const float nvs_bh = kInt8 ? nvs[bh] : 1.f;
-#pragma unroll
-    for (int j = 0; j < kDecMaxE; ++j) {
-        const int e = tid + kDecThreads * j;
-        if (e < G * hd) {
-            const int g = e / hd, d = e % hd;
-            const float p_new = kInt8 ? (e_s[g] / l_s[g]) * nvs_bh : e_s[g] / l_s[g];
-            out[bh * G * hd + e] = acc[j] + p_new * to_f32(nv[bh * hd + d]);
-        }
-    }
+    dec_simple::cell<QT, CT, CH, true>(smem, q, kc, vc, ks, vs, pos, nk, nv, nks, nvs, out, layer,
+                                       B, KVH, G, S, hd, sqrt_hd);
 }
 
 template <typename QT, typename CT, int CH>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-           const int* pos, const void* nk, const void* nv, const float* nks,
-           const float* nvs, float* out, int layer, int B, int KVH, int G, int S, int hd,
-           float sqrt_hd, cudaStream_t st) {
-    auto kern = flash_decode_fresh_kernel<QT, CT, CH>;
-    const int P = dec_pitch<CT>(hd);
-    const long long bytes = 2LL * kTile * P * sizeof(CT) +
-                            4LL * (2 * kTile + 2 * G * P + (long long)G * S + G * kTile + 4 * kDecMaxG);
-    if (bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);  // G x S scores too many
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<dim3(KVH, B), kDecThreads, static_cast<int>(bytes), st>>>(
-        static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v), ks, vs, pos,
-        static_cast<const CT*>(nk), static_cast<const CT*>(nv), nks, nvs, out, layer, B, KVH, G, S,
-        hd, sqrt_hd);
-    return static_cast<int>(cudaGetLastError());
+           const int* pos, const void* nk, const void* nv, const float* nks, const float* nvs,
+           float* out, int layer, int B, int KVH, int G, int S, int hd, float sqrt_hd,
+           cudaStream_t st) {
+    return dec_simple::launch(flash_decode_fresh_kernel<QT, CT, CH>,
+                              dec_simple::smem_bytes<CT>(G, S, hd), KVH, B, st,
+                              static_cast<const QT*>(q), static_cast<const CT*>(k),
+                              static_cast<const CT*>(v), ks, vs, pos, static_cast<const CT*>(nk),
+                              static_cast<const CT*>(nv), nks, nvs, out, layer, B, KVH, G, S, hd,
+                              sqrt_hd);
 }
 
 template <typename QT, typename CT>

@@ -84,7 +84,8 @@ prefilled straight into the pool, K16 attending over the past pages plus
 the chunk's fresh rows and K17 landing them.
 
 Routes the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item: W4A8 weights, ``fuse_projections(tp > 1)``.
+their ROADMAP item: W4A8 weights.  ``fuse_projections(tp > 1)`` gives the
+tensor-parallel column order that ``parallel.tp`` takes.
 """
 
 from __future__ import annotations
@@ -101,6 +102,7 @@ from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device, upload
 from tpu_llama_torch.io.checkpoint import RawWeights
 from tpu_llama_torch.ops.attention import (
+    flash_decode_attention,
     flash_decode_attention_dma,
     flash_decode_attention_fresh,
     flash_prefill_attention,
@@ -522,19 +524,58 @@ def fuse_projections(params: LlamaParams, tp: int = 1) -> LlamaParams:
     """Fuse each layer's [wq|wk|wv] into one wqkv and [w1|w3] into one w13
     (llama.py:440), on dense [L, in, out] weights: apply before
     ``quantize_params``.  wk, wv and w3 become [L, 1, 1] stubs; every
-    forward path finds the fused layouts by output width.  ``tp > 1``, the
-    shard-interleaved order of the explicit tensor-parallel path, waits for
-    ROADMAP queue 1 item 11."""
-    if tp != 1:
-        raise NotImplementedError("fuse_projections(tp > 1), the tensor-parallel column "
-                                  "order: ROADMAP queue 1 item 11")
+    forward path finds the fused layouts by output width.  ``tp > 1`` puts
+    the fused columns in ``tp_interleave``'s order (llama.py:464-472).
+    Such weights are valid only for ``parallel.tp``'s paths: a
+    single-device [:D] split would mix shards."""
     lp = params.layers
     if isinstance(lp.wq, _QUANTIZED):
         raise ValueError("fuse_projections must run before quantization")
     stub = torch.zeros((lp.rms_att.shape[0], 1, 1), dtype=lp.wq.dtype, device=lp.wq.device)
-    return dataclasses.replace(params, layers=dataclasses.replace(
+    fused = dataclasses.replace(params, layers=dataclasses.replace(
         lp, wq=torch.cat([lp.wq, lp.wk, lp.wv], dim=-1), wk=stub, wv=stub,
         w1=torch.cat([lp.w1, lp.w3], dim=-1), w3=stub))
+    return _interleave_columns(fused, (lp.wq.shape[-1], lp.wk.shape[-1], lp.wv.shape[-1]),
+                               (lp.w1.shape[-1], lp.w3.shape[-1]), tp)
+
+
+def tp_interleave(params: LlamaParams, config: ModelConfig, tp: int) -> LlamaParams:
+    """Fused tp = 1 layouts ([q|k|v], [w1|w3]; dense, or W8A8 as
+    ``random_quant_params(fuse=True)`` draws them) in the shard-interleaved
+    column order of the explicit tensor-parallel path: columns grouped per
+    model shard as [q_i | k_i | v_i] and [w1_i | w3_i], so that splitting
+    the fused axis over ``tp`` ranks hands each its own local fused layout.
+    A per-channel quant sees each column alone, so interleaving W8A8
+    weights equals quantizing interleaved ones."""
+    D, KVD, H = config.dim, config.kv_dim, config.hidden_dim
+    return _interleave_columns(params, (D, KVD, KVD), (H, H), tp)
+
+
+def _interleave_columns(params: LlamaParams, qkv_widths, ffn_widths, tp: int) -> LlamaParams:
+    """``tp_interleave`` on the fused wqkv and w13 made of parts of these
+    widths."""
+    if tp == 1:
+        return params
+    for w in qkv_widths + ffn_widths:
+        if w % tp:
+            raise ValueError(f"a width of {w} does not split over tp={tp}")
+
+    def order(widths):
+        starts = [sum(widths[:j]) for j in range(len(widths))]
+        return torch.cat([torch.arange(s + i * (w // tp), s + (i + 1) * (w // tp))
+                          for i in range(tp) for s, w in zip(starts, widths)])
+
+    def permute(w, idx):
+        if isinstance(w, ChannelQuantTensor):
+            idx = idx.to(w.q.device)
+            return ChannelQuantTensor(q=w.q.index_select(-2, idx), s=w.s.index_select(-1, idx))
+        if isinstance(w, QuantTensor):
+            raise TypeError("tp_interleave takes dense or per-channel W8A8 weights")
+        return w.index_select(-1, idx.to(w.device))
+
+    lp = params.layers
+    return dataclasses.replace(params, layers=dataclasses.replace(
+        lp, wq=permute(lp.wq, order(qkv_widths)), w1=permute(lp.w1, order(ffn_widths))))
 
 
 PRECISIONS = ("default", "high", "highest")
@@ -667,11 +708,20 @@ def _write_decode(cache, layer: int, k, v, pos, config: ModelConfig) -> None:
         getattr(cache, n)[layer][b_ix, h_ix, p_ix] = rows
 
 
-def _attend_decode(cache, layer: int, q, pos, config: ModelConfig):
-    """The xla branch of llama.py:636-654: the layer's cache dequantized
-    (INT8) or upcast (fp), then plain attention."""
+def _attend_decode(cache, layer: int, q, pos, config: ModelConfig, attn: str = "xla"):
+    """Write-then-attend decode attention of layer ``layer`` (llama.py:
+    636-654), the step's row already written: an INT8 cache with ``attn``
+    other than ``"xla"``, or an fp cache with ``"flash"``, goes through K21
+    (its fp form for an fp cache); otherwise the xla branch: the layer's
+    cache dequantized (INT8) or upcast (fp), then plain attention."""
+    B = q.shape[0]
+    int8 = isinstance(cache, QuantKVCache)
+    if (int8 and attn != "xla") or attn == "flash":
+        qg = q.reshape(B, config.n_kv_heads, config.group_size, config.head_dim)
+        out = flash_decode_attention(qg, cache.k, cache.v, pos, cache.ks, cache.vs, layer=layer)
+        return out.reshape(B, config.dim).to(q.dtype)
     kf, vf = cache.k[layer].float(), cache.v[layer].float()
-    if isinstance(cache, QuantKVCache):
+    if int8:
         kf, vf = kf * cache.ks[layer][..., None], vf * cache.vs[layer][..., None]
     return _attention_decode(q, kf, vf, pos, config)
 

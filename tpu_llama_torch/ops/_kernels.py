@@ -13,7 +13,7 @@ adds one to ``LAUNCHES[kernel]`` right after it launched its kernel, and one
 to ``PLAIN_CALLS[kernel]`` when it ran the plain PyTorch version for a CPU
 tensor.  They are process-wide counters, read by ``chip_smoke.py`` to show
 that a run went through the kernels.  The fp-cache forms of K6, K7, K9, K10,
-K19 and K28 count under their own ids (``form``: ``"K6:f32"``, ``"K6:bf16"``),
+K19, K21 and K28 count under their own ids (``form``: ``"K6:f32"``, ``"K6:bf16"``),
 one templated kernel each with its INT8 form.
 """
 
@@ -113,6 +113,15 @@ SOURCES = {
     "kv_write_decode": ("tl_kv_write_decode", [*[_P] * 7, *[_I] * 6, _P]),
     # x, sx, w, sw, residual, out, out dtype, M, N, K, rows per block, stream
     "w8a8_rows_resident": ("tl_w8a8_rows_resident", [*[_P] * 6, *[_I] * 5, _P]),
+    # q, q dtype, cache dtype, k, v, ks, vs, pos, out, layer, B, KVH, G, S, hd, TS, sqrt(hd),
+    # copy chunk, stream
+    "flash_decode": ("tl_flash_decode", [_P, _I, _I, *[_P] * 6, *[_I] * 7, ctypes.c_float, _I,
+                                         _P]),
+    # x, w13, w13 scales, w2, w2 scales, rms, rms dtype, out, xq, sx, h2, xq3, sx3, barrier,
+    # B, D, H, stream
+    "fused_ffn": ("tl_fused_ffn", [*[_P] * 6, _I, *[_P] * 7, *[_I] * 3, _P]),
+    # x, wqkv, wqkv scales, rms, rms dtype, out, xq, sx, barrier, B, D, QO, stream
+    "fused_rms_qkv": ("tl_fused_rms_qkv", [*[_P] * 4, _I, *[_P] * 4, *[_I] * 3, _P]),
 }
 
 # kernel id -> source; the ids follow ROADMAP.md queue 2.  K8 is K1's kernel
@@ -124,9 +133,10 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K13": "paged_flash_decode_dma", "K14": "kv_pool_flush_rows", "K15": "kv_pool_scatter",
            "K16": "paged_flash_prefill", "K17": "kv_pool_write_chunk", "K18": "kv_write_chunk",
            "K19": "flash_decode_fresh", "K20": "paged_flash_decode_fresh",
-           "K22": "paged_flash_decode", "K25": "q8_matmul", "K26": "fused_step3",
+           "K21": "flash_decode", "K22": "paged_flash_decode", "K23": "fused_ffn",
+           "K24": "fused_rms_qkv", "K25": "q8_matmul", "K26": "fused_step3",
            "K27": "fused_step", "K28": "kv_write_decode", "K29": "w8a8_rows_resident"}
-FP_FORMS = ("K6", "K7", "K9", "K10", "K19", "K28")  # kernels with an fp-cache form
+FP_FORMS = ("K6", "K7", "K9", "K10", "K19", "K21", "K28")  # kernels with an fp-cache form
 _FORM_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNELS.update({f"{k}:{sfx}": KERNELS[k] for k in FP_FORMS for sfx in _FORM_SUFFIX.values()})
 LAUNCHES = {k: 0 for k in KERNELS}

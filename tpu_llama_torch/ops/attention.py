@@ -14,9 +14,11 @@ Port of tpu_llama/ops/attention.py: ``quantize_kv`` (:2551),
 (:466), ``paged_flash_decode_attention_fresh`` (:1012),
 ``kv_pool_flush_rows`` (:1301), ``paged_flash_prefill_attention`` (:1990),
 ``kv_pool_write_chunk`` (:2189) and ``paged_flash_decode_attention``
-(:933), INT8 only, as in JAX; and ``kv_cache_write_decode`` (:2345, K28),
+(:933), INT8 only, as in JAX; ``flash_decode_attention`` (:616, K21), the
+write-then-attend decode attention of the tensor-parallel decode, in both
+its forms; and ``kv_cache_write_decode`` (:2345, K28),
 the per-layer decode row write that no decode path calls.  K6, K7, K9, K19 and
-K10 take an INT8 cache (int8 values with f32
+K10 (and K21, K28) take an INT8 cache (int8 values with f32
 per-row scales) or an fp one (float32 or bfloat16, no scales), as the JAX
 functions do; each CUDA kernel is templated on the cache type, and the fp
 forms count their launches under their own ids (``K6:f32``, ``K6:bf16``,
@@ -555,6 +557,108 @@ def flash_decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
     if _kernels.on_cpu(kernel, *_decode_tensors(*args)):
         return flash_decode_attention_fresh_plain(*args, layer=layer)
     return _launch_decode(kernel, *args, layer)
+
+
+# ---------------------------------------------------------------------------
+# K21: write-then-attend decode attention, the unfused tensor-parallel
+# decode's (llama.py:636-654 through parallel/tp.py:149-150): the step's row
+# is in the cache before the call, and rows s <= pos attend.
+# ---------------------------------------------------------------------------
+
+
+def _k21_block(S: int, block_s: int | None) -> int:
+    """K21's key block (attention.py:658-661): ``block_s`` (default S, one
+    block: the single-pass form), halved until it divides S."""
+    ts = min(block_s or S, S)
+    while S % ts:
+        ts //= 2
+    return ts
+
+
+def _check_k21(q, k_cache, v_cache, pos, k_scale, v_scale, layer) -> int:
+    """Validate a K21 call; returns the layer as a host int."""
+    L, B, KVH, S, hd = check_cache("flash_decode_attention", k_cache, v_cache, k_scale, v_scale,
+                                   pos, fp_ok=True)
+    if q.dim() != 4 or q.shape[:2] != (B, KVH) or q.shape[3] != hd:
+        raise ValueError(f"flash_decode_attention: q {tuple(q.shape)} against a cache "
+                         f"{tuple(k_cache.shape)}")
+    layer = 0 if layer is None else int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"flash_decode_attention: layer {layer} outside [0, {L})")
+    return layer
+
+
+def flash_decode_attention_plain(q, k_cache, v_cache, pos, k_scale=None, v_scale=None,
+                                 block_s=None, layer=0):
+    """Plain version of K21.  One key block (the default): the single-pass
+    softmax over rows s <= pos, normalized before, for an INT8 cache, p * vs
+    is rounded to bf16 (attention.py:569-603).  Smaller blocks: K9's
+    online softmax (unnormalized p rounded per block) over rows s <= pos,
+    then acc / max(l, 1e-30) (:38-124 without the fresh refs).  The scores
+    take bf16(qs) for an INT8 cache and f32 qs for an fp one, which rounds
+    nothing.  A negative pos attends nothing (zeros)."""
+    qs = _scaled_q(q)
+    int8 = k_cache.dtype == torch.int8
+    qb = _bf16(qs) if int8 else qs
+    S = k_cache.shape[3]
+    ts = _k21_block(S, block_s)
+    if ts < S:
+        acc, _, l = decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos.long() + 1,
+                                          layer, ts)
+        return acc / torch.clamp_min(l, 1e-30)[..., None]
+    kc, vc = k_cache[layer], v_cache[layer]
+    s = torch.einsum("bkgd,bksd->bkgs", qb, kc.float())
+    if int8:
+        s = s * k_scale[layer][:, :, None, :]
+    valid = torch.arange(S, device=q.device)[None, None, None, :] <= pos.long()[:, None, None, None]
+    s = torch.where(valid, s, _NEG_INF)
+    e = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    pr = e / torch.clamp_min(e.sum(-1, keepdim=True), 1e-30)
+    if int8:
+        pr = _bf16(pr * v_scale[layer][:, :, None, :])
+    return torch.einsum("bkgs,bksd->bkgd", pr, vc.float())
+
+
+def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: torch.Tensor, k_scale=None, v_scale=None,
+                           block_s: int | None = None, layer=None) -> torch.Tensor:
+    """Write-then-attend decode attention (K21): q [B, KVH, G, hd] raw
+    queries (f32 or bf16) over the cache [L, B, KVH, S, hd] (or one layer
+    [B, KVH, S, hd]), INT8 with f32 scales [L, B, KVH, S] or float32 /
+    bfloat16 without; pos [B]; ``layer`` a host int (a tensor is read back).
+    Cache row s attends iff s <= pos[b]: the step's row must already be
+    written.  ``block_s`` None (the default) reads each slot's rows in one
+    block, the single-pass form; a smaller block runs the blocked online
+    softmax, which rounds at other points (see :func:`flash_decode_attention_
+    plain`).  Returns f32 [B, KVH, G, hd].  K21 on CUDA tensors
+    (``K21:f32`` / ``K21:bf16`` for an fp cache), the plain version on CPU
+    ones."""
+    if k_cache.dim() == 4:  # one layer (attention.py:642-646)
+        k_cache, v_cache = k_cache[None], v_cache[None]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+        layer = 0
+    layer = _check_k21(q, k_cache, v_cache, pos, k_scale, v_scale, layer)
+    kernel = _kernels.form("K21", k_cache.dtype)
+    if _kernels.on_cpu(kernel, *_decode_tensors(q, k_cache, v_cache, pos, k_scale, v_scale)):
+        return flash_decode_attention_plain(q, k_cache, v_cache, pos, k_scale, v_scale, block_s,
+                                            layer)
+    B, KVH, G, hd = q.shape
+    S = k_cache.shape[3]
+    ts = _k21_block(S, block_s)
+    if G > 8 or hd > 128 or (ts < S and ts > 256):
+        raise NotImplementedError(f"K21 takes up to 8 query heads per kv head, head_dim <= 128 "
+                                  f"and key blocks of S or of at most 256 rows, got G={G}, "
+                                  f"hd={hd}, block {ts}")
+    ch = launch_chunk(kernel, k_cache, v_cache, hd, k_scale, v_scale)
+    qc = q.contiguous()
+    p32 = pos.to(torch.int32).contiguous()
+    out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
+    _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
+                    _kernels.cache_code(k_cache.dtype), k_cache.data_ptr(), v_cache.data_ptr(),
+                    _ptr(k_scale), _ptr(v_scale), p32.data_ptr(), out.data_ptr(), layer, B, KVH,
+                    G, S, hd, ts, float(sqrt_f32(hd)), ch, _kernels.stream(qc))
+    return out
 
 
 def _check_flush(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs):

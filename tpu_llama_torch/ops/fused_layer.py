@@ -1,8 +1,11 @@
 """The fused W8A8 decode layer: one launch for all of a layer's linear work
-(K11), and one layer's product from stacked weights (K8).
+(K11), one layer's product from stacked weights (K8), and the tensor-parallel
+decode's two collective-free spans of a layer on the local shard: the FFN
+(K23) and the next layer's qkv (K24).
 
-Port of tpu_llama/ops/fused_layer.py: ``fused_layer_linear`` (:204) and
-``w8a8_matmul_stacked`` (:541).  Weights are the port's stacked K-major
+Port of tpu_llama/ops/fused_layer.py: ``fused_layer_linear`` (:204),
+``w8a8_matmul_stacked`` (:541), ``fused_ffn_stacked`` (:376) and
+``fused_rms_qkv_stacked`` (:488).  Weights are the port's stacked K-major
 ``ChannelQuantTensor``s (``q [L, out, in]``) and the layer is a host int:
 on the card a layer of a stacked tensor is a pointer offset, so K8 is K1's
 kernel launched on the layer's view, counted under its own id.  No 32-row
@@ -210,3 +213,116 @@ def fused_layer_linear(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
         _kernels.launch("K11", *args, _kernels.stream(x))
     del keep
     return x_next, qkv
+
+
+# ---------------------------------------------------------------------------
+# The TP sub-span kernels (fused_layer.py:319-538).  Megatron TP needs an
+# all-reduce after wo and after w2, so K11's whole-layer fusion cannot run
+# under tensor parallelism; its collective-free spans can, each one launch
+# on the local shard: K23 (rms, quant, w13, SiLU x up, quant, the w2
+# partial) and K24 (rms, quant, the local qkv).  Any row count: unlike K11,
+# they loop over blocks of rows, as JAX's TP path has no fallback.
+# ---------------------------------------------------------------------------
+
+
+def _check_tp_span(name, x, ws, rms, layer):
+    """Validate x f32 [B, D], stacked ChannelQuantTensors ``ws`` and
+    rms [L, D]; returns (B, D, L)."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"{name}: want x f32 [B, D], got {x.dtype} {tuple(x.shape)}")
+    B, D = x.shape
+    if not all(isinstance(w, ChannelQuantTensor) and w.q.dim() == 3 for w in ws):
+        raise TypeError(f"{name}: the weights must be stacked ChannelQuantTensors "
+                        "(q [L, out, in])")
+    L = ws[0].q.shape[0]
+    if rms.shape != (L, D):
+        raise ValueError(f"{name}: want rms [{L}, {D}], got {tuple(rms.shape)}")
+    _check_float(f"{name} rms weights", rms)
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    return B, D, L
+
+
+def fused_ffn_stacked_plain(x, w13: ChannelQuantTensor, w2: ChannelQuantTensor, rms_ffn,
+                            layer: int) -> torch.Tensor:
+    """Plain version of K23: K11's phases B and C on layer ``layer`` without
+    the residual."""
+    H = w2.in_features
+    hq, hs = rmsnorm_quantize_plain(x, rms_ffn[layer])
+    gu = w8a8_matmul_prequant_plain(hq, hs, w13.layer(layer))
+    q3, s3 = quantize_activations_plain(silu_mul_f32(gu[:, :H], gu[:, H:]))
+    return w8a8_matmul_prequant_plain(q3, s3, w2.layer(layer))
+
+
+def fused_ffn_stacked(x: torch.Tensor, w13: ChannelQuantTensor, w2: ChannelQuantTensor,
+                      rms_ffn: torch.Tensor, layer) -> torch.Tensor:
+    """rms -> quant -> w13 -> SiLU x up -> quant -> w2 in one launch on the
+    local shard: x f32 [B, D] (the full residual stream, replicated), the
+    stacked local w13 ([gate_i | up_i], q [L, 2 Hl, D]) and w2 (q [L, D,
+    Hl]), rms_ffn [L, D], ``layer`` a host int.  Returns the w2 PARTIAL
+    f32 [B, D]: the caller all-reduces it and adds the residual.  K23 on
+    CUDA tensors, the plain version on CPU ones."""
+    layer = int(layer)
+    B, D, L = _check_tp_span("fused_ffn_stacked", x, (w13, w2), rms_ffn, layer)
+    H = w2.in_features
+    if w13.q.shape != (L, 2 * H, D) or w2.q.shape != (L, D, H):
+        raise ValueError(f"fused_ffn_stacked: w13 {tuple(w13.q.shape)} and w2 "
+                         f"{tuple(w2.q.shape)} disagree with x [{B}, {D}]")
+    if _kernels.on_cpu("K23", x, w13.q, w2.q, rms_ffn):
+        return fused_ffn_stacked_plain(x, w13, w2, rms_ffn, layer)
+    w13l, w2l = w13.layer(layer), w2.layer(layer)
+    if not all(t.is_contiguous() for w in (w13l, w2l) for t in (w.q, w.s)):
+        raise ValueError("K23 reads the weights where they lie: each layer's q and s must be "
+                         "contiguous")
+    x = x.contiguous()
+    rf = rms_ffn[layer]
+    dev = x.device
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    xq = torch.empty((B, D), dtype=torch.int8, device=dev)
+    xq3 = torch.empty((B, H), dtype=torch.int8, device=dev)
+    h2 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    sx = torch.empty((2, B), dtype=torch.float32, device=dev)
+    if B:
+        _kernels.launch("K23", x.data_ptr(), w13l.q.data_ptr(), w13l.s.data_ptr(),
+                        w2l.q.data_ptr(), w2l.s.data_ptr(), rf.data_ptr(),
+                        _kernels.dtype_code(rf.dtype), out.data_ptr(), xq.data_ptr(),
+                        sx[0].data_ptr(), h2.data_ptr(), xq3.data_ptr(), sx[1].data_ptr(),
+                        barrier(dev).data_ptr(), B, D, H, _kernels.stream(x))
+    return out
+
+
+def fused_rms_qkv_stacked_plain(x, wqkv: ChannelQuantTensor, rms_att, layer: int):
+    """Plain version of K24: K11's phase D on layer ``layer``."""
+    q, s = rmsnorm_quantize_plain(x, rms_att[layer])
+    return w8a8_matmul_prequant_plain(q, s, wqkv.layer(layer))
+
+
+def fused_rms_qkv_stacked(x: torch.Tensor, wqkv: ChannelQuantTensor, rms_att: torch.Tensor,
+                          layer) -> torch.Tensor:
+    """rms -> quant -> qkv in one launch on the local shard: x f32 [B, D],
+    the stacked local wqkv ([q_i | k_i | v_i], q [L, QOl, D]), rms_att
+    [L, D], ``layer`` a host int.  Returns f32 [B, QOl].  K24 on CUDA
+    tensors, the plain version on CPU ones."""
+    layer = int(layer)
+    B, D, L = _check_tp_span("fused_rms_qkv_stacked", x, (wqkv,), rms_att, layer)
+    QO = wqkv.out_features
+    if wqkv.q.shape != (L, QO, D):
+        raise ValueError(f"fused_rms_qkv_stacked: wqkv {tuple(wqkv.q.shape)} disagrees with x "
+                         f"[{B}, {D}]")
+    if _kernels.on_cpu("K24", x, wqkv.q, rms_att):
+        return fused_rms_qkv_stacked_plain(x, wqkv, rms_att, layer)
+    wl = wqkv.layer(layer)
+    if not (wl.q.is_contiguous() and wl.s.is_contiguous()):
+        raise ValueError("K24 reads the weights where they lie: each layer's q and s must be "
+                         "contiguous")
+    x = x.contiguous()
+    ra = rms_att[layer]
+    dev = x.device
+    out = torch.empty((B, QO), dtype=torch.float32, device=dev)
+    xq = torch.empty((B, D), dtype=torch.int8, device=dev)
+    sx = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B:
+        _kernels.launch("K24", x.data_ptr(), wl.q.data_ptr(), wl.s.data_ptr(), ra.data_ptr(),
+                        _kernels.dtype_code(ra.dtype), out.data_ptr(), xq.data_ptr(),
+                        sx.data_ptr(), barrier(dev).data_ptr(), B, D, QO, _kernels.stream(x))
+    return out

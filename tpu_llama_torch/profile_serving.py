@@ -82,7 +82,9 @@ PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fres
                 "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19",
                 "q8_matmul_kernel": "K25", "q8_matmul_tc_kernel": "K25",
                 "fused_step3_kernel": "K26", "fused_step_kernel": "K27",
-                "kv_write_decode_kernel": "K28", "rows_resident_kernel": "K29"}
+                "kv_write_decode_kernel": "K28", "rows_resident_kernel": "K29",
+                "flash_decode_simple_kernel": "K21", "flash_decode_blocked_kernel": "K21",
+                "fused_ffn_kernel": "K23", "fused_rms_qkv_kernel": "K24"}
 
 
 def _kernel_events(prof):

@@ -53,8 +53,25 @@ their pages (``prefill_into_slots_waved``: K16 and K17, no compact block)
 pins its full pages by refcount and copies only its boundary page on the
 device.  The page table's host mirror reaches the card through
 ``device.upload`` after every change, so a wave's K16 and K17 read the
-table uploaded after its admission's reservations.  The explicit-TP paths
-come with a later slice (ROADMAP).
+table uploaded after its admission's reservations.
+
+``Engine(params, config, mesh=mesh, tp_fused=True)`` (engine.py:432-467,
+518-531, 615-740) serves tensor-parallel: ``params`` are this rank's shard
+(``parallel.shard_params`` of ``fuse_projections(tp=...)`` W8A8 weights),
+the cache is this rank's kv-head shard, admissions run
+``tp_prefill_into_slots`` (one power-of-two bucket capped at seq_len, K6
+and K7 on the local cache), a decode step ``tp_forward_decode_fused``
+(K8, K9, K2, K23, K24 and K10, two all-reduces per layer); the sampled
+decode steps are the stepwise ones above, keys fold_in(base_key, pos).
+Paged KV and dp > 1 are refused, as in JAX; so is prefix reuse
+(``prefill_continue``), which JAX runs through its GSPMD program.  JAX
+drives the mesh from one controller; the port runs SPMD: every rank builds
+the same Engine and the same ``ContinuousBatcher`` and feeds them the same
+requests.  Each rank's
+logits are all-gathered to [B, V], so greedy picks, host sampling and the
+device sampler give every rank the same tokens and the batchers stay in
+step; rank 0 alone emits (``parallel.launch``).  That is the port's
+counterpart of JAX's single controller.
 """
 
 from __future__ import annotations
@@ -81,6 +98,12 @@ from tpu_llama_torch.models.llama import (
 )
 from tpu_llama_torch.ops.attention import kv_cache_scatter_slots, kv_pool_scatter_pages
 from tpu_llama_torch.ops.sampling import fold_in, sample_nosort
+from tpu_llama_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from tpu_llama_torch.parallel.tp import (
+    _local_config,
+    tp_forward_decode_fused,
+    tp_prefill_into_slots,
+)
 from tpu_llama_torch.runtime.paged import PagePool
 
 # Above this many prompt rows (Bp * T, T a multiple of _CHUNK) the compact
@@ -234,12 +257,23 @@ class Engine:
     def __init__(self, params: LlamaParams, config: ModelConfig, max_batch: int = 8,
                  kv_dtype=torch.float32, precision: str = "default", seq_len: int | None = None,
                  kv_layout: str = "dense", page_size: int = 512, num_pages: int | None = None,
-                 attn: str = "auto", fused="auto", device=None):
+                 attn: str = "auto", fused="auto", device=None, mesh=None,
+                 tp_fused: bool = False):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout {kv_layout!r}: want 'dense' or 'paged'")
         if precision not in PRECISIONS:
             raise ValueError(f"precision {precision!r}: want one of {PRECISIONS}")
-        self.device = resolve_device(device)
+        if mesh is not None and not tp_fused:
+            raise NotImplementedError("a mesh without tp_fused is JAX's GSPMD-sharded single "
+                                      "program: ROADMAP queue 1 item 11")
+        if tp_fused:
+            if mesh is None:
+                raise ValueError("tp_fused requires a mesh")
+            if kv_layout == "paged":
+                raise ValueError("tp_fused + paged KV not supported yet")
+            if mesh.size(DATA_AXIS) != 1:
+                raise ValueError("tp_fused admits through tp_prefill_into_slots, dp=1-only")
+        self.device = mesh.device if tp_fused else resolve_device(device)
         if params.tok_emb.device.type != self.device.type:
             raise ValueError(f"params live on {params.tok_emb.device}, the engine on "
                              f"{self.device}")
@@ -248,7 +282,15 @@ class Engine:
         self.precision = precision
         self.max_batch = max_batch
         self.seq_len = seq_len or config.seq_len
+        self.mesh = mesh
+        self.tp_fused = tp_fused
         self.pool = None
+        if tp_fused:  # this rank's shard of the cache (engine.py:464-467)
+            self.cache = make_kv_cache(_local_config(config, mesh.size(MODEL_AXIS)), max_batch,
+                                       kv_dtype=kv_dtype, seq_len=self.seq_len,
+                                       device=self.device)
+            self.decode_attn, self.decode_fused = "flash", "tp"
+            return
         if kv_layout == "paged":  # INT8 whatever kv_dtype says, as in JAX (engine.py:452-458)
             mp = -(-self.seq_len // page_size)
             n_pages = num_pages or max_batch * mp + 1
@@ -343,6 +385,15 @@ class Engine:
                         f"{self.pool.pages_needed(max(int(r), len(p)))} pages, "
                         f"{self.pool.free_pages} free): gate admissions with Engine.can_admit")
             self._sync_page_table()
+        if self.tp_fused:  # one group, T capped at the cache length (engine.py:518-531)
+            T = min(_bucket(int(lengths.max())), self.seq_len)
+            toks = np.zeros((n, T), np.int64)
+            for i, p in enumerate(prompts):
+                toks[i, :len(p)] = p
+            last, self.cache = tp_prefill_into_slots(
+                self.params, self.cache, self._ints(toks), self._ints(lengths),
+                [int(s) for s in slots], self.config, self.mesh, self.precision)
+            return last if return_device else last.cpu().numpy()
         outs = []
         for start, g, T in groups:
             toks = np.zeros((g, T), np.int64)
@@ -369,6 +420,9 @@ class Engine:
         ``mp_cap`` = ceil(bucket(max start + T) / ps) pages
         (``_prefill_continue_paged``, engine.py:591-604).  Suffixes pad to one
         power-of-two bucket.  Returns next-token logits [n, V]."""
+        if self.tp_fused:
+            raise NotImplementedError("prefix reuse on the TP engine (a TP continuation "
+                                      "prefill): ROADMAP queue 1 item 11")
         if not suffixes or not len(suffixes) == len(slots) == len(starts):
             raise ValueError("need one slot and one start per suffix, and at least one suffix")
         lengths = np.array([len(s) for s in suffixes], np.int64)
@@ -410,6 +464,10 @@ class Engine:
         """Device-resident decode step (no host transfer) for tight loops.
         (JAX's ``_decode_step``, engine.py:310, only exists to jit and donate
         the cache; here the step calls ``forward_decode`` directly.)"""
+        if self.tp_fused:
+            logits, self.cache = tp_forward_decode_fused(self.params, self.cache, tokens, pos,
+                                                         self.config, self.mesh)
+            return logits
         logits, self.cache = forward_decode(self.params, self.cache, tokens, pos,
                                             self.config, attn=self.decode_attn,
                                             fused=self.decode_fused, precision=self.precision)
