@@ -28,7 +28,8 @@ Phases (any failure exits non-zero and prints no result line):
    at the Llama-2 7B shapes of the serving paths, against its plain PyTorch
    version on the same inputs: K1, K2, K7, K8, K10, K11, K18, and K14 and
    K15 outside the trash page 0, exact; K3, K4 and K5 within
-   QUANT_FLIPS / QUANT_SCALE_RTOL, K6, K9 and K19 within K6_TOL, K12's
+   QUANT_FLIPS / QUANT_SCALE_RTOL, K6 (on caches whose rows no query
+   attends are poisoned), K9 and K19 within K6_TOL, K12's
    residual exact and its int8 outputs, scales and attention output within
    those limits, K13 and K20 within K6_TOL (K13 also bit-equal to K9 at
    block_s 256 on a paged copy of its cache), K17 exact outside page 0 (one
@@ -119,21 +120,23 @@ Phases (any failure exits non-zero and prints no result line):
    tp = 1 (tp = 2), both ranks equal, exact launches per step;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
-   decode attention and fused decode, on unfused weights once each "xla"
+   decode attention and fused decode, and the prefill attention "flash" on
+   both sides (K6 and its plain version), on unfused weights once each "xla"
    (plain PyTorch on both sides), "flash" (K19) and "flash_dma" (K9), and
    on fused weights with "flash_dma" (the fused prefill, K3-K5) and each of
    the unfused, the two-launch (K8, K11 + K9), the mega2 (K8, K9, K12), the
-   mega3 (K8, K9, K26) and the mega (K8, K27) decode: f32 activations
-   (tokens equal at all 8 steps, logits within LOGITS_TOL) and bf16
-   activations (prefill logits within LOGITS_TOL);
+   mega3 (K8, K9, K26) and the mega (K8, K27) decode, the card fed the
+   CPU's picks: f32 activations (logits within LOGITS_TOL at all 8 steps,
+   picks equal, on the fused layouts but at near ties, PARITY_NEAR_TIE)
+   and bf16 activations (prefill logits within LOGITS_TOL);
    then, f32 and fused layouts, the long-prompt paths (``parity_long_paths``):
    the chunked prefill against the one-shot one, prefix reuse against a
    cold prefill, and the device sampler; the paged path (``parity_paged``:
    K13 and K20, unfused and two-launch decodes, pages of 16 rows, and a
    paged prefix continuation against a cold paged prefill); the pool-direct
    prefill (``parity_pool_direct``: B 2, T 1024, chunk 256, then 8 greedy
-   decode steps, and ``start0`` waves against the one-shot call on each
-   side); then the same shape written as a llama2.c checkpoint and read back
+   decode steps, picks equal but at near ties, POOL_NEAR_TIE, and
+   ``start0`` waves against the one-shot call on each side); then the same shape written as a llama2.c checkpoint and read back
    (``parity_checkpoint``): dense f32
    weights over f32 and bf16 caches and Q8_0 weights over a bf16 cache,
    card against CPU at ``precision="highest"``;
@@ -149,6 +152,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 Exits non-zero without a CUDA card and when run outside a checkout of the
 repo (``tpu_llama_torch`` must be importable from beside this file).
+
+``python3 chip_smoke.py --parity-seeds 1 2 3`` builds the kernels and runs
+only phase 5's f32 greedy runs over those weight seeds (the readings behind
+PARITY_NEAR_TIE and POOL_NEAR_TIE), and prints no result line.
 """
 
 from __future__ import annotations
@@ -166,20 +173,51 @@ import numpy as np
 HBM_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 K6_TOL = 2.0 ** -7 + 1e-5  # of max |ref|: one bf16 rounding step + f32 noise
-# Port parity, card against CPU, on the 2-layer 7B-width model (phase 5).
-# With f32 activations K1 and K2 are exact and K6 is within 1e-5 of its
-# plain version, so the logits differ only where a reordered f32 sum moves
-# an activation across an int8 rounding boundary.  Greedy tokens must be
-# equal at all PARITY_STEPS steps, and every step's logits within
-# LOGITS_TOL of max |logit|.  With bf16 activations a one-ulp difference in
-# the residual stream moves about half of the affected int8 inputs, so the
-# tokens may part at a near-tie: only the prefill logits are held to
+# Port parity, card against CPU, on the 2-layer 7B-width model (phase 5),
+# both sides with the prefill attention "flash" (the CPU runs K6's plain
+# version, the card's function; "auto" there would be JAX's f32 "xla"
+# attention).  With f32 activations K1 and K2 are exact and K6 (and K16)
+# round q and p * vs to bf16 where their plain versions do, over the same
+# key tiles, so the logits differ only where a reordered f32 sum moves an
+# activation across an int8 (or a rare bf16) rounding boundary.  Every
+# step's logits must lie within LOGITS_TOL of max |logit| and the greedy
+# picks agree as PARITY_NEAR_TIE below says.  With bf16
+# activations a one-ulp difference in the residual stream moves about half
+# of the affected int8 inputs: only the prefill logits are held to
 # LOGITS_TOL there.  One moved int8 input of the classifier moves logits
-# by up to ~3% of max |logit|.  Readings on an H100: sound runs at most
-# 2.95e-2 (f32) and 2.35e-2 (bf16).  A K6 whose causal bound admits one
-# future key reads 0.21 in both, and its f32 tokens differ from step 0.
+# by up to ~3% of max |logit|.  Readings on an H100 with K6 in f32 (before
+# its tensor-core cell): sound runs at most 2.95e-2 (f32) and 2.35e-2
+# (bf16); a K6 whose causal bound admits one future key read 0.21 in both,
+# and its f32 tokens differed from step 0.
 PARITY_STEPS = 8
 LOGITS_TOL = 5e-2
+# Phase 5 runs the card fed the CPU's picks, so every step compares the
+# same inputs.  The picks must be equal where they held in every reading:
+# the unfused layouts (xla, K19, K9: the logits agree to ~1e-6 of max
+# |logit|) and the paged path.  On the fused layouts and the pool-direct
+# prefill, where a flipped int8 of K3-K5 or K16 moves logits by up to ~3% of
+# max |logit|, a pick may part from the CPU's at a near tie only: the CPU's
+# gap between the two logits that swap at most PARITY_NEAR_TIE (the fused
+# layouts' 16-token request) or POOL_NEAR_TIE (the pool-direct prefill's
+# 1024-token prompts) of that row's max |logit|.  Before K6's tensor-core
+# cell those picks too were held equal; its rounding changed the streams,
+# which then met ties at step 4.  Readings over weight seeds 1-7 (``python3
+# chip_smoke.py --parity-seeds 1 2 3 4 5 6 7``; H100 80GB HBM3, 700 W;
+# PERF.md §6): the fused layouts parted in 10 of 35 runs, 16 partings at
+# gaps of 1.8e-4 to 5.64e-3 of max |logit|; the pool-direct prefill in 4
+# of 7, 6 partings at 2.3e-3 to 1.54e-2; the paged path in none of 14, the
+# unfused layouts at seed 1 in none (logits ~1e-6 apart).  Each limit is
+# 1.5x its group's largest reading.
+PARITY_NEAR_TIE = 8.5e-3
+POOL_NEAR_TIE = 2.3e-2
+# Phase 4i's 2-layer TP parity: where the two sides' picks differ, the
+# CPU's gap between the two logits that swapped may be at most
+# TIE_ERR_RATIO of the rows' largest card-CPU logit error (a swap needs the
+# gap within twice it).  Readings (H100 80GB HBM3, 700 W) over weight seeds
+# 1-6 at tp 1 and 2 (tpu_llama_torch/tp_parity_seeds.py): 10 partings of
+# 24 decodes at 0.12-0.63 of the error; the rule takes 1.6x the largest
+# (its earlier rule allowed 2).
+TIE_ERR_RATIO = 1.0
 # K3, K4, K5 and K12's fresh K/V rows against their plain versions: the
 # same f32 steps with round-to-nearest intrinsics, so equal unless K3's f64
 # sum of squares lies on an f32 rounding boundary or CUDA's expf and
@@ -547,6 +585,10 @@ def check_k6(torch, tatt, results):
         in_bytes = B * T * NH * hd * 2 + 2 * B * KVH * S * (hd + 4)
         copies = n_copies(in_bytes)
         ins = [_k6_inputs(torch, gen, B, T, NH, KVH, S, hd) for _ in range(copies)]
+        for arrs in ins:  # poison the cache rows no query attends
+            for b, s0 in enumerate(start):
+                for a, val in zip(arrs[1:], (127, 127, 1e4, 1e4)):
+                    a[b, :, s0 + T:] = val
 
         def run(i, fn=tatt.flash_prefill_attention):
             q, k, v, ks, vs = ins[i % copies]
@@ -3181,15 +3223,6 @@ def tp_reference(torch, params):
     return out
 
 
-def _logits_err(got, want) -> float:
-    """max |got - want| over max |want| (inf where got is not finite or not
-    want's shape)."""
-    got, want = np.asarray(got), np.asarray(want)
-    if got.shape != want.shape or not np.isfinite(got).all():
-        return math.inf
-    return float(np.abs(got - want).max() / np.abs(want).max())
-
-
 def _streams_parted(got, ref, ref_top):
     """For each stream, None where it equals the reference's, else (step,
     the reference's top-1 minus top-2 logprob at that step)."""
@@ -3211,40 +3244,6 @@ def tp_step_launches(L: int) -> dict:
     return {"K3": 1, "K8": 1 + L, "K9": L, "K2": L + 1, "K23": L, "K24": L, "K10": 1, "K1": 1}
 
 
-def _run_gap(got, want, forced=False) -> dict:
-    """Two rolls of ``launch.tp_parity`` on the same prompts: the step whose
-    greedy picks first part (None: never) and each step's logits error
-    (``_logits_err``) while both saw the same inputs: every step where
-    ``got`` was fed ``want``'s picks (``forced``), else up to that step."""
-    part = next((i for i, (a, b) in enumerate(zip(got["picks"], want["picks"]))
-                 if not np.array_equal(a, b)), None)
-    last = len(want["logits"]) if forced or part is None else part + 1
-    return dict(parted_at=part, logits_err=[_logits_err(g, w) for g, w in
-                                            zip(got["logits"][:last], want["logits"][:last])])
-
-
-def _parity_reading(card, cpu) -> dict:
-    """Card against CPU on the 2-layer model, for each TP decode: the step
-    the greedy picks first part (None: never), the logits' largest error
-    over max |logit| up to that step (the same inputs on both sides), and
-    at the parting step the CPU's gap between the two logits that swapped
-    places and the largest |card - CPU| logit error of those rows."""
-    out = {}
-    for mode in ("fused", "unfused"):
-        g, c = card[mode], cpu[mode]
-        gap = _run_gap(g, c)
-        part = gap["parted_at"]
-        rd = dict(parted_at=part, steps=len(c["picks"]), logits_err=max(gap["logits_err"]))
-        if part is not None:
-            rows = np.nonzero(g["picks"][part] != c["picks"][part])[0]
-            cl, gl = c["logits"][part][rows], g["logits"][part][rows]
-            rd["gap"] = float(np.max(cl[np.arange(len(rows)), c["picks"][part][rows]]
-                                     - cl[np.arange(len(rows)), g["picks"][part][rows]]))
-            rd["row_err"] = float(np.abs(gl - cl).max())
-        out[mode] = rd
-    return out
-
-
 def serve_7b_tp(torch, smi_line, ref):
     """Phase 4i: the TP serving path at 7B full width and depth on phase
     4's weights (each rank draws them again from the seed, puts them in the
@@ -3260,8 +3259,8 @@ def serve_7b_tp(torch, smi_line, ref):
     layers (``launch.tp_parity``, f32 activations) to the same tp on the
     CPU (plain versions; gloo ranks for tp = 2): logits within LOGITS_TOL,
     greedy picks equal up to the first step where the two logits that swap
-    lie within twice the measured card-CPU error of those rows (a flip the
-    logits' own noise explains: at 7B width one moved int8 moves logits by
+    lie within TIE_ERR_RATIO of the measured card-CPU error of those rows (a
+    flip the logits' own noise explains: at 7B width one moved int8 moves logits by
     ~3% of max |logit|, far above the tiny card tests' NEAR_TIE); the ring
     collective matmul (``overlap=True``; at tp = 2 on the card its hops
     staged through host memory, each counted) within OVERLAP_TOL of the
@@ -3308,10 +3307,10 @@ def serve_7b_tp(torch, smi_line, ref):
         want = ref if tp == 1 else {"probe": runs[1]["probe"], "streams": runs[1]["streams"],
                                     "top": runs[1]["top"],
                                     "unfused": {"decode": runs[1]["unfused_int8"]}}
-        probe_errs = [_logits_err(g, w) for g, w in zip(
+        probe_errs = [launch.logits_err(g, w) for g, w in zip(
             [r0["probe"]["prefill"]] + r0["probe"]["decode"],
             [want["probe"]["prefill"]] + want["probe"]["decode"])]
-        k21_errs = [_logits_err(g, w) for g, w in zip(r0["unfused_int8"],
+        k21_errs = [launch.logits_err(g, w) for g, w in zip(r0["unfused_int8"],
                                                       want["unfused"]["decode"])]
         parted = _streams_parted(r0["streams"], want["streams"], want["top"])
         host = sorted(r0["step_host_ms"])[len(r0["step_host_ms"]) // 2]
@@ -3327,8 +3326,9 @@ def serve_7b_tp(torch, smi_line, ref):
             reference="single-device engine" if tp == 1 else "tp=1",
             serve_launches=r0["serve_launches"], unfused_launches=r0["unfused_launches"],
             parity_cpu_s=cpu_s, card=smi_line)), flush=True)
-        reading = _parity_reading(r0["parity"], cpu)
-        overlap = {side: _run_gap(par["overlap"]["ring"], par["overlap"]["allreduce"], forced=True)
+        reading = launch.parity_reading(r0["parity"], cpu)
+        overlap = {side: launch.run_gap(par["overlap"]["ring"], par["overlap"]["allreduce"],
+                                        forced=True)
                    for side, par in (("card", r0["parity"]), ("cpu", cpu))}
         hops = 2 * small.n_layers * TP_PARITY_STEPS * (tp - 1) if backend == "gloo" else 0
         print(json.dumps(dict(phase="serve_7b_tp_parity", tp=tp, layers=2, **reading,
@@ -3347,11 +3347,11 @@ def serve_7b_tp(torch, smi_line, ref):
         pars[tp] = (r0["parity"], cpu)
         errs_7b[tp] = dict(probe=probe_errs, k21=k21_errs)
         for mode, rd in reading.items():
-            check(rd["logits_err"] <= LOGITS_TOL and ("gap" not in rd
-                                                      or rd["gap"] <= 2 * rd["row_err"]),
+            tie = "gap" not in rd or rd["gap"] <= TIE_ERR_RATIO * rd["row_err"]
+            check(rd["logits_err"] <= LOGITS_TOL and tie,
                   f"{label} 2-layer parity {mode}: {rd} (logits limit {LOGITS_TOL}; greedy picks "
-                  f"may part only where the two logits that swap lie within twice the rows' "
-                  f"measured error of each other)")
+                  f"may part only where the two logits that swap lie within {TIE_ERR_RATIO} of "
+                  f"the rows' measured error of each other)")
         for r in ranks:
             check(not r["serve_plain"] and not r["parity"]["plain"],
                   f"{label} rank {r['rank']}: plain versions ran: {r['serve_plain']}, "
@@ -3379,8 +3379,10 @@ def serve_7b_tp(torch, smi_line, ref):
     # the witness (no kernel on the CPU side): the 7B readings' comparisons on
     # the 2-layer model, the card's beside the CPU's
     witness = {side: dict(
-        tp2_vs_tp1={m: _run_gap(pars[2][i][m], pars[1][i][m]) for m in ("fused", "unfused")},
-        unfused_vs_single=_run_gap(pars[1][i]["unfused"], pars[1][i]["single"], forced=True))
+        tp2_vs_tp1={m: launch.run_gap(pars[2][i][m], pars[1][i][m])
+                    for m in ("fused", "unfused")},
+        unfused_vs_single=launch.run_gap(pars[1][i]["unfused"], pars[1][i]["single"],
+                                         forced=True))
         for side, i in (("card", 0), ("cpu", 1))}
     print(json.dumps(dict(phase="serve_7b_tp_witness", layers=2, sides=witness,
                           at_7b=dict(tp2_vs_tp1_probe=errs_7b[2]["probe"],
@@ -3403,31 +3405,33 @@ def _to(obj, device):
                         for f in dataclasses.fields(obj)})
 
 
-def _greedy(engine, logits, slot: int, pos: int, steps: int):
+def _greedy(engine, logits, slot: int, pos: int, steps: int, teacher=None):
     """``steps`` greedy decode steps of one slot from its next-token logits,
-    fed at ``pos`` on; the engine's other slots feed token 0 at position 0.
-    Returns (tokens, the logits of every step, the first included)."""
+    fed at ``pos`` on (each step's pick, or ``teacher``'s tokens where
+    given); the engine's other slots feed token 0 at position 0.  Returns
+    (the picks, the logits of every step, the first included)."""
     toks, out = [], [logits]
     B = engine.max_batch
-    for _ in range(steps):
+    for i in range(steps):
         toks.append(int(np.argmax(out[-1])))
         tok, p = np.zeros(B, np.int64), np.zeros(B, np.int64)
-        tok[slot], p[slot] = toks[-1], pos
+        tok[slot], p[slot] = toks[-1] if teacher is None else teacher[i], pos
         out.append(engine.decode(tok, p)[slot])
         pos += 1
     return toks, out
 
 
-def _greedy_prompt(engine, seq, steps):
+def _greedy_prompt(engine, seq, steps, teacher=None):
     """Prefill ``seq`` into slot 0 (a paged engine reserves the pages of
     the whole run), then ``_greedy``."""
     first = engine.prefill([seq], [0], reserve_tokens=[len(seq) + steps + 1])[0]
-    return _greedy(engine, first, 0, len(seq), steps)
+    return _greedy(engine, first, 0, len(seq), steps, teacher)
 
 
-def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None):
+def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None, seed=1):
     """One greedy request of PARITY_STEPS steps on the card and on the CPU,
-    from the same weights (fused layouts with ``fuse``), both with decode
+    from the same weights (drawn from ``seed``; fused layouts with
+    ``fuse``), both with decode
     attention ``attn`` and fused decode ``fused``, on a dense INT8 cache or,
     with ``page_size``, a paged one; returns the reading as a dict, with the
     card run's kernel launches."""
@@ -3435,18 +3439,19 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None)
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
-    gpu = random_quant_params(cfg, seed=1, norm_dtype=act_dtype, fuse=fuse)
+    gpu = random_quant_params(cfg, seed=seed, norm_dtype=act_dtype, fuse=fuse)
     cpu = _to(gpu, "cpu")
     paged = page_size is not None
-    kw = dict(max_batch=1, kv_dtype="int8", seq_len=64, attn=attn, fused=fused)
+    kw = dict(max_batch=1, kv_dtype="int8", seq_len=64, attn=attn, fused=fused,
+              prefill_attn="flash")
     if paged:
         kw.update(kv_layout="paged", page_size=page_size)
     t0 = time.time()
-    _kernels.reset_counts()
-    g_toks, g_log = _greedy_prompt(Engine(gpu, cfg, **kw), seq, PARITY_STEPS)
-    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
-    t1 = time.time()
     c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, device="cpu", **kw), seq, PARITY_STEPS)
+    t1 = time.time()
+    _kernels.reset_counts()  # the card, fed the CPU's picks: every step sees the same inputs
+    g_toks, g_log = _greedy_prompt(Engine(gpu, cfg, **kw), seq, PARITY_STEPS, teacher=c_toks)
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     t2 = time.time()
     path = FUSED_PREFILL_PATH if fuse else PREFILL_PATH
     if paged:
@@ -3461,18 +3466,45 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None)
           and all(launches[k] >= n for k, n in decode.items())
           and all(launches[k] == n for k, n in decode.items() if k not in path),
           f"parity {attn} fused={fused!r}: want launches of exactly {sorted(path | set(decode))} "
-          f"(per decode step {decode_launches(fused, attn, cfg.n_layers, paged) if decode else {}}), "
+          f"(per decode step "
+          f"{decode_launches(fused, attn, cfg.n_layers, paged) if decode else {}}), "
           f"got {launches}; plain calls {plain}")
     same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
-    # logits [0, same] came from the same tokens on both sides
-    errs = [float(np.abs(g_log[i] - c_log[i]).max()) for i in range(same + 1)]
+    errs = [float(np.abs(g - c).max()) for g, c in zip(g_log, c_log)]
+    parts = [_parting(g, c, step=i) for i, (g, c) in enumerate(zip(g_log, c_log))
+             if np.argmax(g) != np.argmax(c)]
     return dict(activations=str(act_dtype).removeprefix("torch."), fused_layouts=fuse,
                 fused_decode=fused, steps=PARITY_STEPS,
-                tokens_equal=same, card_tokens=g_toks, cpu_tokens=c_toks,
+                tokens_equal=same, card_tokens=g_toks, cpu_tokens=c_toks, partings=parts,
                 prefill_logit_max_err=errs[0], logit_max_err=max(errs),
                 logit_peak=float(np.abs(c_log[0]).max()),
                 finite=bool(all(np.isfinite(x).all() for x in g_log)),
-                card_s=t1 - t0, cpu_s=t2 - t1, card_launches=launches)
+                card_s=t2 - t1, cpu_s=t1 - t0, card_launches=launches)
+
+
+def _parting(g, c, **where) -> dict:
+    """A step (and slot) whose card logits ``g`` pick another token than
+    the CPU's ``c``: the CPU's gap between the two picks, as a share of the
+    row's max |logit| too, and the row's largest card-CPU error."""
+    cp, gp = int(np.argmax(c)), int(np.argmax(g))
+    gap, peak = float(c[cp] - c[gp]), float(np.abs(c).max())
+    return dict(**where, gap=gap, gap_share=gap / peak, err=float(np.abs(g - c).max()))
+
+
+def _parity_prompt(cfg) -> list:
+    """Phase 5's 16-token prompt."""
+    return [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
+
+
+def _check_picks(label: str, r: dict, near_tie: float | None) -> None:
+    """The card's picks equal the CPU's, fed the same tokens; with a
+    ``near_tie`` limit but where the CPU's gap between the two is at most
+    that share of the row's max |logit|."""
+    ok = all(near_tie is not None and p["gap_share"] <= near_tie for p in r["partings"])
+    rule = (f"may part only at a CPU gap within {near_tie} of max |logit|"
+            if near_tie is not None else "may not part")
+    check(ok, f"{label}: greedy picks part ({rule}): {r['partings']}; "
+              f"card {r['card_tokens']}, cpu {r['cpu_tokens']}")
 
 
 def parity_2layer(torch):
@@ -3483,7 +3515,7 @@ def parity_2layer(torch):
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
-    seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
+    seq = _parity_prompt(cfg)
     launches = {}
     for attn, fuse, fused in (("xla", False, False), ("flash", False, False),
                               ("flash_dma", False, False), ("flash_dma", True, False),
@@ -3496,9 +3528,7 @@ def parity_2layer(torch):
         print(json.dumps(dict(phase="parity_2layer", attn=attn, f32=f32, bf16=bf16,
                               tol=LOGITS_TOL)), flush=True)
         check(f32["finite"] and bf16["finite"], f"{attn}: card logits not finite")
-        check(f32["tokens_equal"] == PARITY_STEPS,
-              f"{attn}: f32 greedy tokens differ at step {f32['tokens_equal']}: card "
-              f"{f32['card_tokens']}, cpu {f32['cpu_tokens']}")
+        _check_picks(f"{attn} f32", f32, near_tie=PARITY_NEAR_TIE if fuse else None)
         check(f32["logit_max_err"] <= LOGITS_TOL * f32["logit_peak"],
               f"{attn}: f32 logits: max err {f32['logit_max_err']} > {LOGITS_TOL} * "
               f"{f32['logit_peak']}")
@@ -3516,8 +3546,9 @@ def parity_paged(torch):
     layouts with f32 activations, card (kernels) against CPU (plain
     versions), pages of PARITY_PS rows: one greedy request per decode
     attention (K13 "flash_dma", K20 "flash") and fused decode (False, the
-    two-launch True), tokens equal at all PARITY_STEPS steps and logits
-    within LOGITS_TOL of max |logit|; then a paged prefix continuation on a
+    two-launch True), the card fed the CPU's picks: logits within
+    LOGITS_TOL of max |logit| at all PARITY_STEPS steps and picks equal;
+    then a paged prefix continuation on a
     pool of 128-row pages (300-token prefill, snapshot: a boundary page
     copied, restore into another slot, ``prefill_continue`` of 40 more
     tokens through the mp_cap-bounded gather, 8 greedy steps), whose tokens
@@ -3530,7 +3561,7 @@ def parity_paged(torch):
     from tpu_llama_torch.runtime import Engine
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
-    seq = [1] + [int(t) for t in np.random.default_rng(5).integers(3, cfg.vocab_size, 15)]
+    seq = _parity_prompt(cfg)
     launches = {}
     for attn, fused in (("flash_dma", False), ("flash", False), ("flash_dma", True),
                         ("flash", True)):
@@ -3540,9 +3571,7 @@ def parity_paged(torch):
         print(json.dumps(dict(phase="parity_paged", attn=attn, fused_decode=fused,
                               page_size=PARITY_PS, f32=r, tol=LOGITS_TOL)), flush=True)
         check(r["finite"], f"{label}: card logits not finite")
-        check(r["tokens_equal"] == PARITY_STEPS,
-              f"{label}: greedy tokens differ at step {r['tokens_equal']}: card "
-              f"{r['card_tokens']}, cpu {r['cpu_tokens']}")
+        _check_picks(label, r, near_tie=None)
         check(r["logit_max_err"] <= LOGITS_TOL * r["logit_peak"],
               f"{label}: logits: max err {r['logit_max_err']} > {LOGITS_TOL} * {r['logit_peak']}")
 
@@ -3553,7 +3582,7 @@ def parity_paged(torch):
     for params, dev in ((gpu, CARD), (cpu, "cpu")):
         _kernels.reset_counts()
         kw = dict(seq_len=512, kv_layout="paged", page_size=128, attn="flash_dma", fused=True,
-                  device=dev)
+                  prefill_attn="flash", device=dev)
         eng = Engine(params, cfg, max_batch=2, **kw)
         budget = len(seq) + PARITY_STEPS + 1
         eng.prefill([seq[:300]], [0], reserve_tokens=[budget])
@@ -3584,32 +3613,36 @@ def parity_paged(torch):
     return launches
 
 
-def parity_pool_direct(torch):
+def parity_pool_direct(torch, seed=4, hold_picks=True):
     """Phase 5 for the pool-direct prefill on the 2-layer 7B-width model in
-    the fused layouts with f32 activations, card (kernels) against CPU
-    (plain versions): ``forward_prefill_paged_chunked`` of B 2, T 1024
+    the fused layouts with f32 activations (weights drawn from ``seed``),
+    card (kernels) against CPU (plain versions):
+    ``forward_prefill_paged_chunked`` of B 2, T 1024
     (lengths 1024 and 700), chunk 256, into a paged engine's reserved pages
     (ps 512), then PARITY_STEPS greedy decode steps of both slots (the
     two-launch decode with K13, what "auto" picks on the card, asked for on
-    the CPU): tokens equal at every step and every step's logits within
-    LOGITS_TOL of max |logit|.  On each side the same prompts prefilled in
-    two waves through ``start0`` (0 and 512, max_pos 1024) must leave the
-    pool the one-shot call leaves and give its logits (both rows end in the
-    second wave), bit for bit."""
+    the CPU), the card fed the CPU's picks: every step's logits within
+    LOGITS_TOL of max |logit| and picks equal but at near ties
+    (POOL_NEAR_TIE; the seed sweep that sets it passes ``hold_picks``
+    False).  On each side the same prompts prefilled in two
+    waves through ``start0`` (0 and 512, max_pos 1024) must leave the pool
+    the one-shot call leaves and give its logits (both rows end in the
+    second wave), bit for bit.  Returns the reading."""
     from tpu_llama_torch.config import LLAMA2_7B
     from tpu_llama_torch.models import llama as tl
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
     cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
-    gpu = tl.random_quant_params(cfg, seed=4, norm_dtype=torch.float32, fuse=True, device=CARD)
+    gpu = tl.random_quant_params(cfg, seed=seed, norm_dtype=torch.float32, fuse=True,
+                                 device=CARD)
     cpu = _to(gpu, "cpu")
     rng = np.random.default_rng(57)
     B, T, chunk, W = 2, 1024, 256, 512
     toks = rng.integers(3, cfg.vocab_size, (B, T))
     lengths = np.array([1024, 700])
     side = {}
-    for params, dev in ((gpu, CARD), (cpu, "cpu")):
+    for params, dev in ((cpu, "cpu"), (gpu, CARD)):  # the card is fed the CPU's picks
         t0 = time.time()
         tk, ln = torch.tensor(toks, device=dev), torch.tensor(lengths, device=dev)
         engines = []
@@ -3635,9 +3668,10 @@ def parity_pool_direct(torch):
         eng = engines[0]
         logits = [last.cpu().numpy()]
         out, pos = [], lengths.copy()
-        for _ in range(PARITY_STEPS):
+        for i in range(PARITY_STEPS):
             out.append(np.argmax(logits[-1], axis=-1))
-            logits.append(eng.decode(out[-1], pos))
+            feed = out[-1] if dev == "cpu" else np.asarray(side["cpu"]["tokens"])[:, i]
+            logits.append(eng.decode(feed, pos))
             pos = pos + 1
         side[dev] = dict(tokens=np.stack(out, 1).tolist(), logits=logits, waves_equal=waves_equal,
                          launches=launches, plain=plain, s=time.time() - t0)
@@ -3646,31 +3680,69 @@ def parity_pool_direct(torch):
     same = next((i for i in range(PARITY_STEPS)
                  if [t[i] for t in card["tokens"]] != [t[i] for t in cpu_s["tokens"]]),
                 PARITY_STEPS)
-    errs = [float(np.abs(card["logits"][i] - cpu_s["logits"][i]).max()) for i in range(same + 1)]
+    errs = [float(np.abs(g - c).max()) for g, c in zip(card["logits"], cpu_s["logits"])]
+    parts = [_parting(g[b], c[b], step=i, slot=b)
+             for i, (g, c) in enumerate(zip(card["logits"], cpu_s["logits"])) for b in range(B)
+             if g[b].argmax() != c[b].argmax()]
     peak = float(np.abs(cpu_s["logits"][0]).max())
     L = cfg.n_layers
-    print(json.dumps(dict(phase="parity_pool_direct", B=B, T=T, chunk=chunk,
-                          lengths=lengths.tolist(), page_size=PAGED_PS, steps=PARITY_STEPS,
-                          tokens_equal=same, card_tokens=card["tokens"],
-                          cpu_tokens=cpu_s["tokens"], prefill_logit_max_err=errs[0],
-                          logit_max_err=max(errs), logit_peak=peak, tol=LOGITS_TOL,
-                          waves_equal_one_shot=dict(card=card["waves_equal"],
-                                                    cpu=cpu_s["waves_equal"]),
-                          card_prefill_launches=card["launches"], card_s=card["s"],
-                          cpu_s=cpu_s["s"])), flush=True)
+    reading = dict(phase="parity_pool_direct", seed=seed, B=B, T=T, chunk=chunk,
+                   lengths=lengths.tolist(), page_size=PAGED_PS, steps=PARITY_STEPS,
+                   tokens_equal=same, card_tokens=card["tokens"], cpu_tokens=cpu_s["tokens"],
+                   partings=parts, prefill_logit_max_err=errs[0], logit_max_err=max(errs),
+                   logit_peak=peak, tol=LOGITS_TOL,
+                   waves_equal_one_shot=dict(card=card["waves_equal"], cpu=cpu_s["waves_equal"]),
+                   card_prefill_launches=card["launches"], card_s=card["s"], cpu_s=cpu_s["s"])
+    print(json.dumps(reading), flush=True)
     n = L * T // chunk
     check(not card["plain"] and card["launches"].get("K16") == n
           and card["launches"].get("K17") == n and "K15" not in card["launches"],
           f"pool-direct parity: card launches {card['launches']}, plain {card['plain']}")
     check(all(np.isfinite(x).all() for x in card["logits"]), "pool-direct parity: not finite")
-    check(same == PARITY_STEPS, f"pool-direct parity: tokens differ at step {same}: card "
-                                f"{card['tokens']}, cpu {cpu_s['tokens']}")
+    if hold_picks:
+        _check_picks("pool-direct parity", reading, near_tie=POOL_NEAR_TIE)
     check(max(errs) <= LOGITS_TOL * peak,
           f"pool-direct parity: logits differ by {max(errs)} > {LOGITS_TOL} * {peak}")
     check(card["waves_equal"] and cpu_s["waves_equal"],
           "pool-direct parity: start0 waves differ from the one-shot prefill")
     del gpu, cpu
     torch.cuda.empty_cache()
+    return reading
+
+
+def parity_seed_sweep(torch, seeds, smi) -> None:
+    """``--parity-seeds``: phase 5's f32 greedy runs over weight ``seeds``,
+    the card fed the CPU's picks as there: the fused layouts with each
+    fused decode, the paged path (K13, K20) and the pool-direct prefill.
+    Prints each run's partings (the CPU's gap over the row's max |logit|)
+    and logits error, then the largest gap share by group: the readings
+    that set PARITY_NEAR_TIE and POOL_NEAR_TIE."""
+    from tpu_llama_torch.config import LLAMA2_7B
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    seq = _parity_prompt(cfg)
+    groups = {"fused layouts": [], "paged": [], "pool-direct": []}
+    for seed in seeds:
+        runs = [("fused layouts", f"fused={f!r}", dict(attn="flash_dma", fused=f))
+                for f in (False, True, "mega2", "mega3", "mega")]
+        runs += [("paged", f"paged {a}", dict(attn=a, fused=False, page_size=PARITY_PS))
+                 for a in ("flash_dma", "flash")]
+        for group, name, kw in runs:
+            r = _parity(torch, cfg, torch.float32, seq, fuse=True, seed=seed, **kw)
+            groups[group].append(r)
+            print(json.dumps(dict(phase="parity_seed", seed=seed, run=name,
+                                  partings=r["partings"],
+                                  logit_err_share=r["logit_max_err"] / r["logit_peak"],
+                                  card=smi)), flush=True)
+        groups["pool-direct"].append(parity_pool_direct(torch, seed=seed, hold_picks=False))
+    summary = {g: dict(runs=len(rs), parted=sum(bool(r["partings"]) for r in rs),
+                       partings=sum(len(r["partings"]) for r in rs),
+                       max_gap_share=max((p["gap_share"] for r in rs for p in r["partings"]),
+                                         default=None),
+                       max_logit_err_share=max(r["logit_max_err"] / r["logit_peak"] for r in rs))
+               for g, rs in groups.items()}
+    print(json.dumps(dict(phase="parity_seed_summary", seeds=seeds, groups=summary, card=smi)),
+          flush=True)
 
 
 # phase 5's checkpoint runs: (weights, cache, decode attention) on both
@@ -3728,7 +3800,7 @@ def parity_checkpoint(torch):
             _kernels.reset_counts()
             t0 = time.time()
             eng = Engine(weights[w][dev], cfg, max_batch=1, kv_dtype=kv, precision="highest",
-                         seq_len=64, attn=attn, fused=False, device=dev)
+                         seq_len=64, attn=attn, fused=False, prefill_attn="flash", device=dev)
             toks, logits = _greedy_prompt(eng, seq, PARITY_STEPS)
             side[dev] = dict(toks=toks, logits=logits, s=time.time() - t0,
                              launches={k: n for k, n in _kernels.LAUNCHES.items() if n},
@@ -3795,10 +3867,11 @@ def parity_long_paths(torch):
         t0 = time.time()
         tk, ln = torch.tensor(toks, device=dev), torch.tensor(lengths, device=dev)
         cc = tl.make_kv_cache(cfg, B, kv_dtype="int8", seq_len=T, device=dev)
-        chunked, _ = tl.forward_prefill_chunked(params, cc, tk, ln, cfg, chunk=chunk)
+        chunked, _ = tl.forward_prefill_chunked(params, cc, tk, ln, cfg, chunk=chunk,
+                                                attn="flash")
         co = tl.make_kv_cache(cfg, B, kv_dtype="int8", seq_len=T, device=dev)
         one, _ = tl.forward_prefill(params, co, tk, torch.zeros(B, device=dev), ln, cfg,
-                                    logits_mode="last", assume_fresh=True)
+                                    logits_mode="last", assume_fresh=True, attn="flash")
         side[dev] = dict(chunked=chunked.cpu().numpy(), one=one.cpu().numpy(),
                          kv=[c.cpu() for c in (cc.k, cc.v)], kv_one=[c.cpu() for c in (co.k, co.v)],
                          launches=dict(_kernels.LAUNCHES), s=time.time() - t0)
@@ -3835,7 +3908,8 @@ def parity_long_paths(torch):
     seq = [1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 339)]
     streams = {}
     for params, dev in ((gpu, CARD), (cpu, "cpu")):
-        kw = dict(kv_dtype="int8", seq_len=512, attn="flash_dma", fused="mega2", device=dev)
+        kw = dict(kv_dtype="int8", seq_len=512, attn="flash_dma", fused="mega2",
+                  prefill_attn="flash", device=dev)
         eng = Engine(params, cfg, max_batch=2, **kw)
         eng.prefill([seq[:300]], [0])
         eng.restore_slot(1, eng.snapshot_slot(0, 300))
@@ -3869,9 +3943,17 @@ def parity_long_paths(torch):
     check(all(a == b for a, b in toks.values()), f"sampler parity: tokens differ: {toks}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Build and drive the port on one CUDA card.")
+    ap.add_argument("--parity-seeds", type=int, nargs="+", metavar="SEED",
+                    help="only build and run phase 5's greedy runs over these weight seeds "
+                         "(the readings behind PARITY_NEAR_TIE, POOL_NEAR_TIE); prints no "
+                         "result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3911,6 +3993,11 @@ def main() -> int:
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
     sys.stdout.flush()
+
+    if args.parity_seeds:
+        parity_seed_sweep(torch, args.parity_seeds, smi)
+        print(f"total {time.time() - t_start:.1f} s")
+        return 0
 
     # 3. kernels against their plain versions
     results = []

@@ -1,14 +1,20 @@
 """Port parity: K6's plain version against the JAX package's prefill
-attention, and K7's plain version against its slot scatter.
+attention, the port's ``attention_prefill`` against its ``attn="xla"``
+math, and K7's plain version against its slot scatter.
 
-K6 tolerance: the JAX Pallas kernel (run here in interpret mode) rounds the
-pre-scaled queries and the probabilities times the V scales to bf16 before
-its dots (attention.py:1534-1548), 8 significant bits each, while the
-port's plain version stays in f32.  The outputs are probability-weighted
-averages of V, so they agree to a few bf16 ulps of the largest output:
-max |port - jax| <= 2e-2 * max |jax|.  Against the JAX package's f32 path
-(``_attention_prefill`` on the dequantized cache, the one its CPU engine
-runs) the agreement is f32 summation noise: <= 1e-5 * max |jax|.
+K6 tolerances (of max |jax|), read over seeds 1-5 of these cases:
+
+* K6's plain version is the TPU kernels' function, q and p * vs rounded
+  to bf16 before the dots (csrc/prefill_mma.cuh), in the CUDA cell's order:
+  an online softmax over 64-key tiles.  Where the JAX kernel's walk sees
+  one key block (block_s 32 here) and the cell one tile, both are one pass
+  with the full row max (``_flash_prefill_fresh_kernel``'s arithmetic):
+  f32 summation noise, K6_ONE_BLOCK_TOL = 1e-6 (readings up to 4.0e-7).
+  Over several blocks each rounds p * vs at its own running max, a bf16
+  rounding at another scale: K6_TOL = 4e-3 (readings up to 1.5e-3).
+* ``attention_prefill`` against ``_attention_prefill`` (f32 on the
+  dequantized cache, the math the JAX package's CPU engine runs): f32
+  summation noise, 1e-5.
 """
 
 import jax.numpy as jnp
@@ -19,10 +25,14 @@ import torch
 from tpu_llama.config import ModelConfig
 from tpu_llama.models.llama import _attention_prefill
 from tpu_llama.ops import attention as jatt
+from tpu_llama_torch.models import llama as tl
 from tpu_llama_torch.ops import _kernels
 from tpu_llama_torch.ops import attention as tatt
 
 torch.set_num_threads(1)
+
+K6_ONE_BLOCK_TOL = 1e-6
+K6_TOL = 4e-3
 
 
 def _case(seed, B, T, NH, KVH, S, hd, start):
@@ -54,7 +64,9 @@ def test_k6_plain_matches_jax_kernel(case):
         jnp.asarray(ks), jnp.asarray(vs), block_q=32, block_s=32, assume_fresh=fresh))
     got = tatt.flash_prefill_attention(*(torch.tensor(a) for a in arrs)).numpy()
     assert got.shape == want.shape == (case[0], case[1], case[2] * case[5])
-    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+    one_block = max(st) + case[1] <= 32  # every attended key in the JAX kernel's first block
+    tol = K6_ONE_BLOCK_TOL if one_block else K6_TOL
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"B{c[0]}T{c[1]}G{c[2] // c[3]}")
@@ -67,8 +79,7 @@ def test_k6_plain_matches_jax_f32_path(case):
     vf = jnp.asarray(v).astype(jnp.float32) * jnp.asarray(vs)[..., None]
     q_pos = jnp.asarray(st)[:, None] + jnp.arange(T)[None, :]
     want = np.asarray(_attention_prefill(jnp.asarray(q), kf, vf, q_pos, cfg, "highest"))
-    got = tatt.flash_prefill_attention_plain(
-        *(torch.tensor(a) for a in (q, k, v, st, ks, vs))).numpy()
+    got = tl.attention_prefill(*(torch.tensor(a) for a in (q, k, v, st, ks, vs))).numpy()
     np.testing.assert_allclose(got, want.reshape(got.shape), rtol=0,
                                atol=1e-5 * np.abs(want).max())
 

@@ -173,6 +173,12 @@ def test_prefill_at_start_and_chunked_match_jax(model, kv):
                                          tcfg, chunk=chunk)
     _close(got.numpy(), want, tol)
     form = _kernels.form("K6", tl.kv_torch_dtype(kv))
+    assert _kernels.PLAIN_CALLS[form] == 0 and _kernels.PLAIN_CALLS["K18"] == 0  # "xla"
+    # "flash" on the CPU: K6's fp plain version, which computes the "xla" math
+    _, tc = _caches(jcfg, tcfg, B, T2, kv)
+    got, tc = tl.forward_prefill_chunked(tp, tc, torch.tensor(toks), torch.tensor(lengths),
+                                         tcfg, chunk=chunk, attn="flash")
+    _close(got.numpy(), want, tol)
     assert _kernels.PLAIN_CALLS[form] == 2 * tcfg.n_layers and _kernels.PLAIN_CALLS["K18"] == 0
 
 
@@ -190,14 +196,18 @@ def test_w8a8_fused_layouts_over_fp_cache(kv):
     want, jc = jl.forward_prefill(jp, jc, jnp.asarray(toks), jnp.zeros(B, jnp.int32),
                                   jnp.asarray(lengths), jcfg, logits_mode="last",
                                   assume_fresh=True)
-    got, _ = tl.forward_prefill(tp, tc, torch.tensor(toks), torch.zeros(B),
-                                torch.tensor(lengths), tcfg, logits_mode="last",
-                                assume_fresh=True)
     L = tcfg.n_layers
     plain = _kernels.PLAIN_CALLS
-    assert plain["K5"] == 0 and plain["K3"] == 2 * L and plain["K4"] == L
-    assert plain[_kernels.form("K6", tl.kv_torch_dtype(kv))] == L
-    _close(got.numpy(), want, 1e-4 if kv == "float32" else TOL[kv])
+    form = _kernels.form("K6", tl.kv_torch_dtype(kv))
+    for attn, k6 in (("auto", 0), ("flash", L)):  # "auto" is "xla" on the CPU, as in JAX
+        _, tc = _caches(jcfg, tcfg, B, S, kv)
+        _kernels.reset_counts()
+        got, _ = tl.forward_prefill(tp, tc, torch.tensor(toks), torch.zeros(B),
+                                    torch.tensor(lengths), tcfg, logits_mode="last",
+                                    assume_fresh=True, attn=attn)
+        assert plain["K5"] == 0 and plain["K3"] == 2 * L and plain["K4"] == L
+        assert plain[form] == k6
+        _close(got.numpy(), want, 1e-4 if kv == "float32" else TOL[kv])
     nxt, pos = np.asarray(jnp.argmax(want, -1), np.int32), lengths.copy()
     _kernels.reset_counts()
     for _ in range(2):

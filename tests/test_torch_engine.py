@@ -97,7 +97,8 @@ def test_engine_token_streams_equal_jax(streams):
 
 def test_engine_ran_every_op_and_reports(streams):
     _, treqs, plain = streams
-    assert plain["K1"] > 0 and plain["K2"] > 0 and plain["K6"] > 0 and plain["K7"] >= 2
+    # the CPU engine's prefill attention is JAX's CPU one, "xla" (attention_prefill): no K6
+    assert plain["K1"] > 0 and plain["K2"] > 0 and plain["K6"] == 0 and plain["K7"] >= 2
     rep = summarize(treqs)
     assert rep.n_requests == len(treqs) and rep.total_tokens > 0
     assert rep.ttft_p50_s > 0
@@ -122,7 +123,7 @@ def test_engine_fused_token_streams_equal_jax(streams_fused):
     L = TINY128["n_layers"]
     # every admission group ran the fused prefill body: K7 once per group
     assert plain["K7"] >= 2 and plain["K5"] == plain["K4"] == L * plain["K7"]
-    assert plain["K3"] == 2 * L * plain["K7"] and plain["K6"] == L * plain["K7"]
+    assert plain["K3"] == 2 * L * plain["K7"] and plain["K6"] == 0  # "xla" attention
     assert plain["K9"] == L * plain["K10"] and plain["K10"] > 0
 
 
@@ -426,7 +427,23 @@ def test_long_admission_chunked_streams_equal_jax():
         tb.submit(r)
     tb.run()
     plain = dict(_kernels.PLAIN_CALLS)
-    assert plain["K7"] == 1 and plain["K6"] == (2048 // 256) * cfg["n_layers"]
+    assert plain["K7"] == 1 and plain["K6"] == 0  # "xla" attention, as JAX's on the CPU
     assert tb.timers["admits"] == 1
     for j, t in zip(jreqs, treqs):
         assert t.out_tokens == j.out_tokens and len(t.out_tokens) == 5
+
+
+def test_engine_prefill_attn():
+    """``Engine(prefill_attn=...)``: "auto" resolves to "xla" on the CPU
+    (the JAX engine's CPU prefill, no K6); an explicit "flash" admits
+    through K6's plain version, the card's function, on every layer."""
+    _, _, tcfg, tp = build_pair(CFG, jnp.float32, seed=25)
+    prompts = [[1, 5, 9, 2], [1, 7]]
+    for attn, want in (("auto", "xla"), ("xla", "xla"), ("flash", "flash")):
+        eng = Engine(tp, tcfg, max_batch=2, kv_dtype="int8", device="cpu", prefill_attn=attn)
+        assert eng.prefill_attn == want
+        _kernels.reset_counts()
+        eng.prefill(prompts, [0, 1])
+        assert _kernels.PLAIN_CALLS["K6"] == (tcfg.n_layers if want == "flash" else 0)
+    with pytest.raises(ValueError):
+        Engine(tp, tcfg, device="cpu", prefill_attn="flash_dma")

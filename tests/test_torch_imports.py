@@ -78,9 +78,11 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
 
     real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc/fused_step2.cu")]
     assert real == ["common.cuh", "fused_decode.cuh"]
-    for src in ("flash_prefill.cu", "paged_flash_prefill.cu"):  # K6 and K16 share one cell
+    # K6's INT8 form and K16 share the tensor-core cell; K6's fp forms keep the f32 one
+    for src, want in (("flash_prefill.cu", ["common.cuh", "prefill_cell.cuh", "prefill_mma.cuh"]),
+                      ("paged_flash_prefill.cu", ["common.cuh", "prefill_mma.cuh"])):
         real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc" / src)]
-        assert real == ["common.cuh", "prefill_cell.cuh"], (src, real)
+        assert real == want, (src, real)
     monkeypatch.setattr(_kernels, "_CSRC", tmp_path)
     (tmp_path / "common.cuh").write_text("// common\n")
     (tmp_path / "shared.cuh").write_text('#include "common.cuh"\n// v1\n')

@@ -205,9 +205,37 @@ def test_model_runs_on_plain_versions_only():
     _kernels.reset_counts()
     cache = tl.make_kv_cache(tcfg, 1, kv_dtype="int8", seq_len=16, device="cpu")
     tl.forward_prefill(tp, cache, torch.tensor([[1, 9, 4]]), torch.zeros(1),
-                       torch.tensor([3]), tcfg, assume_fresh=True)
+                       torch.tensor([3]), tcfg, assume_fresh=True, attn="flash")
     assert all(v == 0 for v in _kernels.LAUNCHES.values())
     assert _kernels.PLAIN_CALLS["K1"] > 0 and _kernels.PLAIN_CALLS["K6"] == 2
+
+
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "at-start"])
+def test_resolve_prefill_attn(fresh):
+    """The prefill's ``attn`` resolves as JAX's (llama.py:1396-1397,
+    :2079-2083): "auto" is "xla" on a CPU cache, attention_prefill's f32
+    math, bit for bit; an explicit "flash" runs K6's plain version (the
+    card's function) there; anything else raises."""
+    cfg = ModelConfig(**TINY_GQA)
+    cache = tl.make_kv_cache(cfg, 2, kv_dtype="int8", seq_len=16, device="cpu")
+    assert tl._resolve_prefill_attn("auto", cache) == "xla"
+    for attn in ("flash", "xla"):
+        assert tl._resolve_prefill_attn(attn, cache) == attn
+    with pytest.raises(ValueError):
+        tl._resolve_prefill_attn("flash_dma", cache)
+    _, _, tcfg, tp = build_pair(TINY_GQA, jnp.float32)
+    toks, lengths = torch.tensor([[1, 9, 4, 7], [5, 2, 8, 3]]), torch.tensor([4, 3])
+    out, k6 = {}, {}
+    for attn in ("auto", "xla", "flash"):
+        _kernels.reset_counts()
+        c = tl.make_kv_cache(tcfg, 2, kv_dtype="int8", seq_len=16, device="cpu")
+        out[attn], _ = tl.forward_prefill(tp, c, toks, torch.zeros(2), lengths, tcfg,
+                                          assume_fresh=fresh, attn=attn)
+        k6[attn] = _kernels.PLAIN_CALLS["K6"]
+    assert torch.equal(out["auto"], out["xla"]) and k6["auto"] == k6["xla"] == 0
+    assert k6["flash"] == tcfg.n_layers and not torch.equal(out["flash"], out["xla"])
+    with pytest.raises(ValueError):
+        tl.forward_prefill(tp, c, toks, torch.zeros(2), lengths, tcfg, attn="pallas")
 
 
 def test_convert_round_trip():
@@ -275,12 +303,15 @@ def test_random_quant_params_shapes_and_seed():
 # ---------------------------------------------------------------------------
 # Fused layouts (fuse_projections: wqkv, w13) and the fused W8A8 prefill body.
 # TINY128 has head_dim 128 and GQA, so with B * T a multiple of 32 the JAX
-# package runs its fused body too (_prefill_w8a8_fast_ok), with attn="xla":
-# K3, K4 and the residual K1, then RoPE + quantize_kv + f32 attention.  The
-# port runs K3, K4, the residual K1, K5 and K6's plain version (that same f32
+# package runs its fused body too (_prefill_w8a8_fast_ok).  With attn="xla":
+# K3, K4 and the residual K1, then RoPE + quantize_kv + f32 attention; the
+# port runs K3, K4, the residual K1, K5 and attention_prefill (that same f32
 # attention).  f32: K5's RoPE and quant are apply_rope + quantize_kv's
 # arithmetic, so F32_TOL holds.  bf16: K5 quantizes the roped k before any
 # bf16 rounding where JAX's xla branch rounds it first, within BF16_TOL.
+# With attn="flash" both run K5 and K6 (JAX's single-block fresh kernel in
+# interpret mode, the port's plain version: the same bf16 roundings in one
+# pass, 16 keys being one block and one tile), at the same limits.
 # ---------------------------------------------------------------------------
 
 TINY128 = dict(dim=256, hidden_dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
@@ -316,8 +347,9 @@ def _count_residual_k1(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("attn", ["xla", "flash"])
 @pytest.mark.parametrize("mode", ["all", "last"])
-def test_fused_prefill_matches_jax(fused_pair, mode, monkeypatch):
+def test_fused_prefill_matches_jax(fused_pair, mode, attn, monkeypatch):
     jcfg, jp, tcfg, tp, dtype = fused_pair
     B, T = 2, 16
     assert jl._prefill_w8a8_fast_ok(jp, jcfg, B, T)  # JAX runs its fused body too
@@ -325,16 +357,17 @@ def test_fused_prefill_matches_jax(fused_pair, mode, monkeypatch):
     jcache = jl.make_kv_cache(jcfg, B, kv_dtype="int8", seq_len=T)
     want, jcache = jl.forward_prefill(
         jp, jcache, jnp.asarray(toks), jnp.zeros((B,), jnp.int32), jnp.asarray(lengths),
-        jcfg, logits_mode=mode, attn="xla", assume_fresh=True)
+        jcfg, logits_mode=mode, attn=attn, assume_fresh=True)
     calls = _count_residual_k1(monkeypatch)
     _kernels.reset_counts()
     tcache = tl.make_kv_cache(tcfg, B, kv_dtype="int8", seq_len=T, device="cpu")
     got, _ = tl.forward_prefill(
         tp, tcache, torch.tensor(toks), torch.zeros(B, dtype=torch.int32),
-        torch.tensor(lengths), tcfg, logits_mode=mode, assume_fresh=True)
+        torch.tensor(lengths), tcfg, logits_mode=mode, assume_fresh=True, attn=attn)
     L = tcfg.n_layers
     plain = _kernels.PLAIN_CALLS
-    assert (plain["K3"], plain["K4"], plain["K5"], plain["K6"]) == (2 * L, L, L, L)
+    k6 = L if attn == "flash" else 0
+    assert (plain["K3"], plain["K4"], plain["K5"], plain["K6"]) == (2 * L, L, L, k6)
     assert plain["K1"] == 4 * L + 1 and plain["K2"] == L + 1  # + the classifier
     assert sum(r is not None for r in calls) == 2 * L  # wo and w2 take the residual
     tol = F32_TOL if dtype == jnp.float32 else BF16_TOL

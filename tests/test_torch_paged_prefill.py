@@ -10,28 +10,42 @@ Limits, and why:
 
 * K17: byte-equal (a copy), the trash page included where one slot writes
   it.
-* K16 against the JAX kernel: 2e-2 of max |jax|, K6's limit in
-  test_torch_attention.py and for its reason: the JAX kernel rounds the
-  scaled queries and p * vs to bf16 before its dots (and its output to
-  bf16), the port's plain version stays in f32.  Against K6's plain version
-  on a dense copy of the same keys: f32 summation noise, 1e-5.
+* K16 against the JAX kernel: both round the scaled queries and p * vs to
+  bf16 before the dots and the output to bf16 (csrc/prefill_mma.cuh).  At
+  start 0 the JAX kernel's walk is its one fresh block, the plain version's
+  one tile: K16_ONE_BLOCK_TOL = 1e-6 of max |jax| (readings 0 over seeds
+  0-4 of these cases).  Past pages add the JAX kernel's online-softmax
+  steps, per 8-row page, where the plain version follows the CUDA cell's
+  64-key tiles: each rounds p * vs at its own running max, which can move
+  an output by one bf16 step:
+  K16_TOL = 2^-7 of max |jax|, one step of the largest output (readings up
+  to 3.7e-3).  Against K6's plain version on a dense copy of the same keys,
+  its output rounded to bf16: bit-equal (the same keys in the same order).
 * K22 against the JAX kernel: 2^-8 of max |jax|, K13's limit in
   test_torch_paged.py (the same rounding points at ps <= 256, f32 sums in
   another order).
 * ``forward_prefill_paged_chunked`` against JAX's: logits within FLASH_TOL
   (5e-2 of max |logit|), test_torch_prefill_chunked.py's limit for JAX's
-  Pallas attention, through the same bf16 roundings; pool rows (pages >= 1,
-  the trash page 0 being written by several slots in no set order) of layer
-  0, which no attention feeds, int8-equal with scales within 8 f32 ulps
-  (XLA's FMA contraction, test_torch_fused_quant.py).  JAX's bf16 attention
-  moves every later layer's rows (as far from its own compact path as from
-  the port), so the later rows are held to the JAX engine's compact path
-  (f32 attention, the port's arithmetic): one int8 step apart on at most
-  LATER_FLIPS (1e-3) of the entries, logits within 1e-4.
-* The port against itself: pool-direct against the compact path plus K15,
-  logits within 1e-5 of max |logit| and the layer-0 rows bit-equal (the
-  attention sums run in another order over other key layouts: f32 noise);
-  waves through ``start0`` against the one-shot call, bit for bit.
+  Pallas attention; pool rows (pages >= 1, the trash page 0 being written
+  by several slots in no set order) of layer 0, which no attention feeds,
+  int8-equal with scales within 8 f32 ulps (XLA's FMA contraction,
+  test_torch_fused_quant.py).  Both K16s round q, p * vs and the output to
+  bf16, but JAX's walks the pages with an online softmax and the plain
+  version the CUDA cell's 64-key tiles, so an attention output moves by a
+  bf16 step now and then, and every later layer's rows with it.  JAX's own
+  compact path (``_prefill_into_slots``, f32 attention) parts from its
+  pool-direct rows on more entries: the port's later rows may differ from
+  JAX's pool-direct ones on at most LATER_SHARE = 0.6 of the share JAX's
+  compact path does, by no more int8 steps.  Readings over token seeds 7
+  and 8: 0.26-0.41 of it (dense 0.8% / 1 step against 2.9% / 1, GQA 1.5%
+  / 1 against 3.8% / 1, fused 21% / 5 against 63% / 6); a K16 without its
+  output rounding reads 0.73-0.99 and an f32 K16 1.0.  The JAX compact
+  path's logits: FLASH_TOL too (readings up to 2.6e-2 of max |logit|, as
+  far as JAX's own pool-direct path is from it).
+* The port against itself: pool-direct (K16) against the compact path plus
+  K15 with ``attn="flash"`` (K6), K6's output rounded to bf16 as K16's is:
+  logits and pool rows bit-equal (K16 is K6 over the same keys in the same
+  tiles); waves through ``start0`` against the one-shot call, bit for bit.
 """
 
 import dataclasses
@@ -59,10 +73,11 @@ from tpu_llama_torch.runtime import engine as teng
 
 torch.set_num_threads(1)
 
-K16_TOL = 2e-2
+K16_ONE_BLOCK_TOL = 1e-6
+K16_TOL = 2.0 ** -7
 K22_TOL = 2.0 ** -8
 FLASH_TOL = 5e-2
-LATER_FLIPS = 1e-3
+LATER_SHARE = 0.6
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +179,16 @@ def test_k16_plain_matches_jax(G, start):
                                              past_pages=2)
     assert _kernels.PLAIN_CALLS["K16"] == before + 1
     assert got.dtype == torch.float32 and got.shape == want.shape == (2, 8, 2 * G * 16)
-    assert np.abs(got.numpy() - want).max() <= K16_TOL * np.abs(want).max()
+    tol = K16_TOL if any(start) else K16_ONE_BLOCK_TOL
+    assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
 
 
 @pytest.mark.parametrize("G,start", K16_CASES, ids=["start0", "partial-full", "G2", "G4"])
 def test_k16_plain_equals_k6_plain_on_a_dense_copy(G, start):
     """K16 over the pool and the fresh rows is K6 over a dense cache that
     holds the past rows at [0, start) and the fresh rows at [start,
-    start + Tc): f32 attention over the same keys, summed in another
-    order."""
+    start + Tc), its output rounded to bf16 as K16's is: the same keys in
+    the same order, bit for bit."""
     q, kp, vp, ksp, vsp, pt, st, fk, fv, fks, fvs = _prefill_case(3 + G, G, start)
     B, Tc, KVH = 2, 8, 2
     S = 16 + Tc
@@ -187,7 +203,7 @@ def test_k16_plain_equals_k6_plain_on_a_dense_copy(G, start):
     d = [torch.tensor(a) for a in dense]
     want = tatt.flash_prefill_attention(torch.tensor(q), d[0], d[1], torch.tensor(st), d[2],
                                         d[3])
-    assert torch.allclose(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, want.to(torch.bfloat16).float())
 
 
 def test_k16_keys_it_must_not_read_change_nothing():
@@ -355,15 +371,11 @@ MODEL_CASES = [("tiny_weights", 2, 16, 16, 8, [16, 9]),
 @pytest.mark.parametrize("name,B,T,ps,chunk,lengths", MODEL_CASES,
                          ids=[c[0] for c in MODEL_CASES])
 def test_pool_direct_matches_jax(name, B, T, ps, chunk, lengths, request):
-    """Against JAX's ``forward_prefill_paged_chunked`` (its K16 rounds q and
-    p * vs to bf16): logits within FLASH_TOL, layer-0 rows equal.  Its later
-    layers' rows drift from JAX's own compact path by as much as from the
-    port's (one int8 step on ~3% of the entries on the dense weights, up to
-    6 steps on ~60% on the fused ones: the bf16 attention feeds every later
-    layer), so those are held to the JAX engine's compact path
-    (``_prefill_into_slots``: f32 attention, the port's arithmetic): logits
-    within 1e-4 of max |logit|, rows one int8 step apart on at most
-    LATER_FLIPS of the entries."""
+    """Against JAX's ``forward_prefill_paged_chunked`` (its K16 rounds q,
+    p * vs and its output to bf16, as the port's does): logits within
+    FLASH_TOL, layer-0 rows equal, later layers' rows no farther from its
+    rows than the JAX engine's compact path (``_prefill_into_slots``: f32
+    attention) is; that path's logits within FLASH_TOL too."""
     jcfg, jp, tcfg, tp = _model(name, request)
     rng = np.random.default_rng(7)
     toks = rng.integers(3, jcfg.vocab_size, (B, T)).astype(np.int32)
@@ -382,19 +394,30 @@ def test_pool_direct_matches_jax(name, B, T, ps, chunk, lengths, request):
     assert plain["K16"] == plain["K17"] == n * L and plain["K15"] == plain["K6"] == 0
     assert plain["K5"] == (n * L if name == "fused" else 0)
     got = got.numpy()
-    for want, tol in ((direct, FLASH_TOL), (compact, 1e-4)):
+    for want in (direct, compact):
         want = np.asarray(want, np.float32)
-        assert np.abs(got - want).max() <= tol * np.abs(want).max()
-    rows = _pool_rows(tc)
-    _layer0_equal(rows, _pool_rows(jc))
-    layer0, later, steps = _int8_readings(rows, _pool_rows(jcc))
-    assert layer0 <= LATER_FLIPS and later <= LATER_FLIPS and steps <= 1, (layer0, later, steps)
+        assert np.abs(got - want).max() <= FLASH_TOL * np.abs(want).max()
+    _rows_near_jax(_pool_rows(tc), _pool_rows(jc), _pool_rows(jcc))
+
+
+def _rows_near_jax(rows, direct, compact):
+    """The port's pool rows against JAX's pool-direct ones: layer 0 equal,
+    later layers' int8 entries differing on at most LATER_SHARE of the share
+    on which JAX's compact path differs from them, by no more steps."""
+    _layer0_equal(rows, direct)
+    _, later, steps = _int8_readings(rows, direct)
+    _, jax_later, jax_steps = _int8_readings(compact, direct)
+    assert later <= LATER_SHARE * jax_later and steps <= jax_steps, \
+        (later, steps, jax_later, jax_steps)
 
 
 @pytest.mark.parametrize("fuse", [False, True], ids=["dense", "fused"])
-def test_pool_direct_equals_compact(fuse, tiny_gqa_weights):
-    """JAX's parity anchor on the port: the pool-direct prefill against the
-    compact path plus K15 (``_prefill_into_slots``) on the same pool."""
+def test_pool_direct_equals_compact(fuse, tiny_gqa_weights, monkeypatch):
+    """JAX's parity anchor on the port: the pool-direct prefill (K16)
+    against the compact path plus K15 (``_prefill_into_slots`` with
+    ``attn="flash"``: K6) on the same pool, K6's output rounded to bf16 as
+    K16's is.  K16 is K6 over the same keys in the same tiles, so logits and
+    pool rows are equal bit for bit."""
     if fuse:
         _, _, tcfg, tp = build_fused_pair(dict(TINY128, seq_len=64), jnp.float32, seed=9)
         B, T, ps, chunk = 2, 64, 32, 16
@@ -411,14 +434,17 @@ def test_pool_direct_equals_compact(fuse, tiny_gqa_weights):
                              device="cpu")
         c.page_table = torch.tensor(table)
         caches.append(c)
-    want, _ = teng._prefill_into_slots(tp, caches[0], toks, lengths, [0, 1], tcfg)
+    k6 = tl.flash_prefill_attention
+    monkeypatch.setattr(tl, "flash_prefill_attention", lambda *a, out_dtype=None: k6(
+        *a, out_dtype=torch.bfloat16).to(out_dtype or torch.float32))
+    _kernels.reset_counts()
+    want, _ = teng._prefill_into_slots(tp, caches[0], toks, lengths, [0, 1], tcfg, attn="flash")
     got, _ = tl.forward_prefill_paged_chunked(tp, caches[1], toks, lengths, [0, 1], tcfg,
                                               chunk=chunk)
-    assert torch.allclose(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
-    a, b = _pool_rows(caches[1]), _pool_rows(caches[0])
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x[0], y[0])
-    assert _int8_readings(a, b)[2] <= 1
+    assert _kernels.PLAIN_CALLS["K6"] == tcfg.n_layers
+    assert torch.equal(got, want)
+    for x, y in zip(_pool_rows(caches[1]), _pool_rows(caches[0])):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_waves_through_start0_equal_the_one_shot_prefill(tiny_weights):
@@ -504,13 +530,10 @@ def test_wave_admission_matches_jax(tiny_weights, small_gate):
     assert calls == [2, 2]  # two pool-direct waves of two slots
     L = tcfg.n_layers
     assert _kernels.PLAIN_CALLS["K16"] == 2 * 2 * L and _kernels.PLAIN_CALLS["K15"] == 0
-    for w, tol in ((want, FLASH_TOL), (compact, 1e-4)):
+    for w in (want, compact):
         w = np.asarray(w, np.float32)
-        assert np.abs(got.numpy() - w).max() <= tol * np.abs(w).max()
-    rows = _pool_rows(tc)
-    _layer0_equal(rows, _pool_rows(jc))
-    layer0, later, steps = _int8_readings(rows, _pool_rows(jcc))
-    assert layer0 <= LATER_FLIPS and later <= LATER_FLIPS and steps <= 1, (layer0, later, steps)
+        assert np.abs(got.numpy() - w).max() <= FLASH_TOL * np.abs(w).max()
+    _rows_near_jax(_pool_rows(tc), _pool_rows(jc), _pool_rows(jcc))
     # below the gate: the compact path
     assert not teng._pool_direct_ok(tc, 1, 16) and teng._pool_direct_ok(tc, 2, 16)
     assert not teng._pool_direct_ok(tc, 4, 12)  # T not a multiple of the chunk

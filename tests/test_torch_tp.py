@@ -414,6 +414,28 @@ def test_tp_engine_streams_equal_jax(mesh12):
     assert mesh12[1]["serve"]["emitted"] == []
 
 
+def test_tp_engine_prefix_cache_turns_off():
+    """The TP engine under a prefix cache (C256 W8A8, prefix_cache_size 4):
+    a prompt, then one that extends it.  snapshot_slot refuses (there is no
+    TP continuation prefill), the batcher turns its cache off as JAX's does,
+    and every request completes without a partial hit."""
+    from tpu_llama_torch.runtime import ContinuousBatcher, Request
+
+    mesh = single_device_mesh("cpu")
+    params = launch.tp_params(mesh, C256, 31, fuse=True, quant="w8a8")
+    eng = Engine(params, C256, max_batch=2, kv_dtype="int8", mesh=mesh, tp_fused=True)
+    with pytest.raises(NotImplementedError, match="prefix reuse"):
+        eng.snapshot_slot(0, 3)
+    batcher = ContinuousBatcher(eng, prefix_cache_size=4)
+    reqs = []
+    for prompt in ([5, 9, 13, 7], [5, 9, 13, 7, 11, 3]):
+        reqs.append(Request(prompt_tokens=prompt, steps=len(prompt) + 5, temperature=0.0))
+        batcher.submit(reqs[-1])
+        batcher.run()
+    assert all(r.done and len(r.out_tokens) == 5 for r in reqs)
+    assert batcher.prefix_cache_size == 0 and not batcher._prefix
+
+
 def test_tp_engine_refusals():
     cfg = C256
     params = tl.params_from_raw(make_random_weights(cfg, seed=1), device="cpu")

@@ -7,35 +7,40 @@
 // :1675-1768): q [B, T, NH, hd] is pre-scaled by 1/sqrt(hd) (a division,
 // :1699); the G = NH / KVH query heads of kv head h fold into rows
 // r = t * G + g; key s attends iff s <= start[b] + t; for an INT8 cache K
-// scales multiply the score columns and V scales the probability columns
-// (an fp cache has none: its f32 dots and f32 p, attention.py:1613-1640,
-// are this kernel's arithmetic with scales of 1); the output
-// [B, T, NH * hd] is acc / max(l, 1e-30), cast once to the output type.
+// scales multiply the score columns and V scales the probability columns;
+// the output [B, T, NH * hd] is acc / max(l, 1e-30), cast once to the
+// output type.
 //
 // Bound on the H100: at the 7B prefill shape (T = 512, hd = 128) the causal
 // work is ~0.5 GFLOP per (b, kv head) pair against 0.2 MB of int8 K/V, so
-// operations bound it.  Design: prefill_cell.cuh's f32 SIMT cell (shared
-// with K16), its key source the slot's run of S cache rows: every 64-key
-// tile is read from that run, K/V converted from the cache type (KT: int8,
-// f32 or bf16) to f32 once per tile.  Rounding: f32 throughout; the TPU
-// kernel's bf16 rounding of q and p * vs (attention.py:1534-1548) is left
-// out, so the result agrees with the plain f32 version to f32
+// bf16 tensor-core operations bound it.
+//
+// The INT8 form runs prefill_mma.cuh's bf16 tensor-core cell (shared with
+// K16) at the TPU kernels' own rounding points: q and p * vs rounded to
+// bf16 before mma.sync dots with f32 accumulation (the contract is in that
+// header).  Its key source is the slot's run of S cache rows.  (It replaced
+// the f32 SIMT cell's INT8 form, 1.51 and 0.98 ms at the two phase-3 shapes
+// on an H100: 25x and 12x SDPA on the dequantized cache.)
+//
+// The fp forms (f32 and bf16 caches) run prefill_cell.cuh's f32 SIMT cell:
+// JAX's fp branch is f32 dots and f32 p (attention.py:1613-1640), which a
+// bf16 dot is not; K/V are converted from the cache type to f32 once per
+// tile, and the result agrees with the plain version to f32
 // summation-order noise.
 #include "prefill_cell.cuh"
+#include "prefill_mma.cuh"
 
 namespace {
 
 using prefill::kBC;
 using prefill::kThreads;
 
-// K6's keys: rows [0, S) of one (slot, kv head) of a dense cache; an fp
-// cache has no scales (1).
+// K6's fp keys for the f32 cell: rows [0, S) of one (slot, kv head) of a
+// dense f32 or bf16 cache, which has no scales (1).
 template <int HDP, typename KT>
 struct DenseKeys {
     const KT* kc;
     const KT* vc;
-    const float* ks;
-    const float* vs;
     long long base;  // row index of key 0
     int S, hd;
 
@@ -44,26 +49,74 @@ struct DenseKeys {
     __device__ __forceinline__ void load_k(int c0, float* KV, float* ksc, float* vsc) const {
         prefill::load_run<HDP>(kc, base + c0, S - c0, hd, KV);
         const int tid = threadIdx.x;
-        if (tid < kBC) {
-            const bool ok = c0 + tid < S;
-            ksc[tid] = ok ? (ks ? __ldg(ks + base + c0 + tid) : 1.f) : 0.f;  // fp: no scales
-            vsc[tid] = ok ? (vs ? __ldg(vs + base + c0 + tid) : 1.f) : 0.f;
-        }
+        if (tid < kBC) ksc[tid] = vsc[tid] = c0 + tid < S ? 1.f : 0.f;
     }
     __device__ __forceinline__ void load_v(int c0, float* KV) const {
         prefill::load_run<HDP>(vc, base + c0, S - c0, hd, KV);
     }
 };
 
+// K6's INT8 keys for the tensor-core cell: rows [0, S) of one (slot, kv
+// head) of a dense cache.
+struct DenseKeys8 {
+    const int8_t* kc;
+    const int8_t* vc;
+    const float* ks;
+    const float* vs;
+    long long base;  // row index of key 0
+    int S, hd;
+
+    __device__ __forceinline__ int kend(int e) const { return min(S, e); }
+    __device__ __forceinline__ bool ok(int c) const { return c < S; }
+    __device__ __forceinline__ bool all_ok(int c0) const { return c0 + prefill_mma::kBC <= S; }
+    __device__ __forceinline__ prefill_mma::KeyRow locate(int c) const {
+        const bool have = c < S;
+        const long long r = base + (have ? c : 0);
+        return {kc + r * hd, vc + r * hd, ks + r, vs + r, have};
+    }
+};
+
+template <int HDP, typename QT, typename OT>
+__global__ void __launch_bounds__(32 * prefill_mma::kNW)
+flash_prefill_i8_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
+                        const int8_t* __restrict__ vc, const float* __restrict__ ks,
+                        const float* __restrict__ vs, const int* __restrict__ start,
+                        OT* __restrict__ out, int T, int NH, int KVH, int S, int hd,
+                        float sqrt_hd, int vec) {
+    const int h = blockIdx.x, b = blockIdx.y;
+    const DenseKeys8 keys{kc, vc, ks, vs, ((long long)b * KVH + h) * S, S, hd};
+    prefill_mma::attend<HDP, prefill_mma::kNW, false>(q, out, keys, start[b], T, NH, KVH, hd,
+                                                      sqrt_hd, vec != 0);
+}
+
+template <int HDP, typename QT, typename OT>
+int launch_i8(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+              const int* start, void* out, int B, int T, int NH, int KVH, int S, int hd,
+              float sqrt_hd, cudaStream_t st) {
+    auto kern = flash_prefill_i8_kernel<HDP, QT, OT>;
+    constexpr int bytes = prefill_mma::kSmemBytes<HDP>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // 16-byte copies where every row starts on 16 bytes
+    const int vec = hd % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
+    const int rows = T * (NH / KVH);
+    constexpr int kBR = 16 * prefill_mma::kNW;
+    dim3 grid(KVH, B, (rows + kBR - 1) / kBR);
+    kern<<<grid, 32 * prefill_mma::kNW, bytes, st>>>(
+        static_cast<const QT*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+        ks, vs, start, static_cast<OT*>(out), T, NH, KVH, S, hd, sqrt_hd, vec);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <int HDP, typename QT, typename KT, typename OT>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
-                     const KT* __restrict__ vc, const float* __restrict__ ks,
-                     const float* __restrict__ vs, const int* __restrict__ start,
+                     const KT* __restrict__ vc, const int* __restrict__ start,
                      OT* __restrict__ out, int T, int NH, int KVH, int S, int hd,
                      float sqrt_hd) {
     const int h = blockIdx.y, b = blockIdx.z;
-    DenseKeys<HDP, KT> keys{kc, vc, ks, vs, ((long long)b * KVH + h) * S, S, hd};
+    DenseKeys<HDP, KT> keys{kc, vc, ((long long)b * KVH + h) * S, S, hd};
     prefill::attend<HDP>(q, out, keys, start[b], T, NH, KVH, hd, sqrt_hd);
 }
 
@@ -78,7 +131,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     const int rows = T * (NH / KVH);
     dim3 grid((rows + prefill::kBR - 1) / prefill::kBR, KVH, B);
     kern<<<grid, kThreads, bytes, st>>>(static_cast<const QT*>(q), static_cast<const KT*>(k),
-                                        static_cast<const KT*>(v), ks, vs, start,
+                                        static_cast<const KT*>(v), start,
                                         static_cast<OT*>(out), T, NH, KVH, S, hd, sqrt_hd);
     return static_cast<int>(cudaGetLastError());
 }
@@ -95,12 +148,21 @@ int dispatch_out(const void* q, const void* k, const void* v, const float* ks, c
 }
 
 template <int HDP, typename QT>
+int dispatch_out_i8(const void* q, const void* k, const void* v, const float* ks,
+                    const float* vs, const int* start, void* out, int out_dtype, int B, int T,
+                    int NH, int KVH, int S, int hd, float sqrt_hd, cudaStream_t st) {
+    if (out_dtype == TL_F32) return launch_i8<HDP, QT, float>(TL_K6_ARGS);
+    if (out_dtype == TL_BF16) return launch_i8<HDP, QT, __nv_bfloat16>(TL_K6_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HDP, typename QT>
 int dispatch_cache(const void* q, int kv_dtype, const void* k, const void* v, const float* ks,
                    const float* vs, const int* start, void* out, int out_dtype, int B, int T,
                    int NH, int KVH, int S, int hd, float sqrt_hd, cudaStream_t st) {
-    if (kv_dtype == TL_I8) return dispatch_out<HDP, QT, int8_t>(q, k, v, ks, vs, start, out,
-                                                               out_dtype, B, T, NH, KVH, S, hd,
-                                                               sqrt_hd, st);
+    if (kv_dtype == TL_I8) return dispatch_out_i8<HDP, QT>(q, k, v, ks, vs, start, out,
+                                                          out_dtype, B, T, NH, KVH, S, hd,
+                                                          sqrt_hd, st);
     if (kv_dtype == TL_F32) return dispatch_out<HDP, QT, float>(q, k, v, ks, vs, start, out,
                                                                out_dtype, B, T, NH, KVH, S, hd,
                                                                sqrt_hd, st);

@@ -13,45 +13,41 @@
 // [B, KVH, Tc, hd] with scales fks/fvs f32 [B, KVH, Tc] sit at positions
 // start[b] + t'; query t attends past keys s < start[b] and fresh keys
 // t' <= t; K scales multiply the scores, V scales the probabilities; out
-// [B, Tc, NH * hd] = acc / max(l, 1e-30), cast once to the output type.  A
-// page id outside [0, P) reads page 0 (the trash page), never outside the
-// pool; a negative start is read as 0 (no past keys, as JAX's mask s <
-// start gives).
+// [B, Tc, NH * hd] = acc / max(l, 1e-30), rounded to bf16 (the JAX
+// kernel's output type) and cast to the output type.  A page id outside
+// [0, P) reads page 0 (the trash page), never outside the pool; a negative
+// start is read as 0 (no past keys, as JAX's mask s < start gives).
 //
-// Rounding: K6's, f32 throughout, through the same cell (prefill_cell.cuh):
-// the TPU kernel rounds the scaled q to bf16 at its boundary
-// (attention.py:2030-2034) and p * vs to bf16 before its MXU dots, and
-// emits bf16; here neither is rounded and the output is cast once.  So K16
-// agrees with its f32 plain version to summation-order noise, and equals K6
-// bit for bit on a dense cache that holds the same past rows at [0, start)
-// and the fresh rows at [start, start + Tc): the keys are indexed s = 0 ..
-// start + Tc - 1, past then fresh, "s attends iff s <= start + t" is exactly
-// K16's mask, and both kernels run the one cell over the same 64-key tiles.
+// Rounding: the TPU kernel's own, through prefill_mma.cuh's bf16
+// tensor-core cell (its header states the contract): q rounded to bf16
+// after the pre-scale (attention.py:2030-2034), p * vs rounded to bf16
+// before the PV dot, f32 accumulation and softmax.  K16 equals K6's INT8
+// form bit for bit (with bf16 outputs) on a dense cache that holds the
+// same past rows at [0, start) and the fresh rows at [start, start + Tc):
+// the keys are indexed s = 0 .. start + Tc - 1, past then fresh, "s attends
+// iff s <= start + t" is exactly K16's mask, and both kernels run the one
+// cell over the same 64-key tiles.
 //
 // Bound on the H100: operations at a 7B admission wave (B 16, KVH 32, Tc
 // 256, hd 128, start 768: ~6.0e10 bf16-rate operations against ~0.2 GB).
-// Design: the cell with a paged key source.  A 64-key tile that is one run
-// of rows -- all past keys in one page (one page-table lookup, 64-bit
-// offsets: one 7B pool array of 97 pages is 6.5 GB) or all fresh keys, as
-// every tile of the served path is -- is read from that run's base as K6
-// reads its cache; any other tile (a start or page size that is not a
-// multiple of 64) first has 64 threads resolve each key's row -- pool,
-// fresh, or none -- into shared memory, and its loads read those rows.
-// (A first shared cell that resolved every key that way made K6 1.8-2.3x
-// slower on an H100; with run tiles K6 keeps its time within 1%.)
-#include "prefill_cell.cuh"
+// Design: the cell with a paged key source.  64 threads of a block resolve
+// a tile's keys to their rows -- a pool page's (one page-table lookup,
+// 64-bit offsets: one 7B pool array of 97 pages is 6.5 GB), a fresh row, or
+// none -- into a table in shared memory, and the block's cp.async copies
+// read whole rows from it, so a tile that spans pages (a page size below
+// 64) or the past and the fresh rows loads as a one-run tile does.  (The
+// f32 SIMT cell that this replaces took 4.05 and 3.98 ms at the two phase-3
+// shapes on an H100, 15-16x SDPA on the dequantized cache.)
+#include "prefill_mma.cuh"
 
 namespace {
 
-using prefill::kBC;
-using prefill::kThreads;
-constexpr int kNone = 0, kPool = 1, kFresh = 2;  // where a tile's key lives
+using prefill_mma::kBC;
+using prefill_mma::KeyRow;
 
 // K16's keys for one (slot, kv head): past keys s < past_end in the pool
 // pages pt[s / ps] (a page id outside [0, P) reads the trash page 0), then
-// the fresh keys s in [st, st + Tc) in the chunk's rows.  krow / ksrc are
-// shared memory [kBC] each, for tiles resolved key by key.
-template <int HDP>
+// the fresh keys s in [st, st + Tc) in the chunk's rows.
 struct PagedKeys {
     const int8_t* kp;
     const int8_t* vp;
@@ -64,79 +60,27 @@ struct PagedKeys {
     const int* pt;
     long long layer_page0, fresh0;  // the layer's first page; fresh row of t' = 0
     int P, ps, KVH, h, st, past_end, Tc, hd;
-    long long* krow;
-    int* ksrc;
-    int run_src;    // this tile's run: kPool, kFresh, or kNone (key by key)
-    long long run;  // ... its first row
 
     __device__ __forceinline__ int kend(int e) const { return e; }
     __device__ __forceinline__ bool ok(int c) const { return c < past_end || c >= st; }
-    __device__ __forceinline__ long long pool_row(int s) const {
-        int pg = __ldg(pt + s / ps);
-        if (pg < 0 || pg >= P) pg = 0;  // the trash page
-        return ((layer_page0 + pg) * KVH + h) * ps + s % ps;
+    __device__ __forceinline__ bool all_ok(int c0) const {
+        return c0 + kBC <= past_end || c0 >= st;
     }
-    __device__ __forceinline__ void load_k(int c0, float* KV, float* ksc, float* vsc) {
-        // one run holds the whole tile when its keys are all past keys of
-        // one page or all fresh keys (block-uniform)
-        run_src = kNone;
-        if (c0 + kBC <= past_end && c0 / ps == (c0 + kBC - 1) / ps) {
-            run_src = kPool;
-            run = pool_row(c0);
-        } else if (c0 >= st && c0 + kBC <= st + Tc) {
-            run_src = kFresh;
-            run = fresh0 + (c0 - st);
+    __device__ __forceinline__ KeyRow locate(int c) const {
+        if (c < past_end) {
+            int pg = __ldg(pt + c / ps);
+            if (pg < 0 || pg >= P) pg = 0;  // the trash page
+            const long long r = ((layer_page0 + pg) * KVH + h) * ps + c % ps;
+            return {kp + r * hd, vp + r * hd, ks + r, vs + r, true};
         }
-        const int tid = threadIdx.x;
-        if (run_src != kNone) {
-            prefill::load_run<HDP>(run_src == kPool ? kp : fk, run, kBC, hd, KV);
-            if (tid < kBC) {
-                ksc[tid] = __ldg((run_src == kPool ? ks : fks) + run + tid);
-                vsc[tid] = __ldg((run_src == kPool ? vs : fvs) + run + tid);
-            }
-            return;
-        }
-        if (tid < kBC) {  // resolve key c0 + tid: a pool row, a fresh row, or none
-            const int s = c0 + tid;
-            int src = kNone;
-            long long r = 0;
-            if (s < past_end) {
-                src = kPool;
-                r = pool_row(s);
-            } else if (s >= st && s < st + Tc) {
-                src = kFresh;
-                r = fresh0 + (s - st);
-            }
-            krow[tid] = r;
-            ksrc[tid] = src;
-            ksc[tid] = src == kPool ? ks[r] : src == kFresh ? fks[r] : 0.f;
-            vsc[tid] = src == kPool ? vs[r] : src == kFresh ? fvs[r] : 0.f;
-        }
-        __syncthreads();
-        load_rows(kp, fk, KV);
-    }
-    __device__ __forceinline__ void load_v(int c0, float* KV) const {
-        if (run_src != kNone)
-            prefill::load_run<HDP>(run_src == kPool ? vp : fv, run, kBC, hd, KV);
-        else
-            load_rows(vp, fv, KV);
-    }
-    // a resolved tile's rows from the pool or the fresh block
-    __device__ __forceinline__ void load_rows(const int8_t* pool, const int8_t* fresh,
-                                              float* KV) const {
-        for (int e = threadIdx.x; e < kBC * HDP; e += kThreads) {
-            const int c = e / HDP, d = e % HDP;
-            const int src = ksrc[c];
-            const long long o = krow[c] * hd + d;
-            float x = 0.f;
-            if (d < hd && src != kNone) x = to_f32(src == kPool ? __ldg(pool + o) : __ldg(fresh + o));
-            KV[c * (HDP + 1) + d] = x;
-        }
+        const bool fresh = c >= st && c < st + Tc;
+        const long long r = fresh0 + (fresh ? c - st : 0);
+        return {fk + r * hd, fv + r * hd, fks + r, fvs + r, fresh};
     }
 };
 
 template <int HDP, typename QT, typename OT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * prefill_mma::kNW)
 paged_flash_prefill_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kp,
                            const int8_t* __restrict__ vp, const float* __restrict__ ks,
                            const float* __restrict__ vs, const int* __restrict__ page_table,
@@ -144,21 +88,15 @@ paged_flash_prefill_kernel(const QT* __restrict__ q, const int8_t* __restrict__ 
                            const int8_t* __restrict__ fv, const float* __restrict__ fks,
                            const float* __restrict__ fvs, OT* __restrict__ out, int layer,
                            int Tc, int NH, int KVH, int P, int ps, int MP, int W, int hd,
-                           float sqrt_hd) {
-    extern __shared__ float smem[];
-    const int h = blockIdx.y, b = blockIdx.z;
+                           float sqrt_hd, int vec) {
+    const int h = blockIdx.x, b = blockIdx.y;
     const int st = max(start[b], 0);
-    long long* krow = reinterpret_cast<long long*>(smem + prefill::kCellFloats<HDP>);
-    PagedKeys<HDP> keys{kp, vp, ks, vs, fk, fv, fks, fvs, page_table + (long long)b * MP,
-                        (long long)layer * P, ((long long)b * KVH + h) * Tc, P, ps, KVH, h, st,
-                        (int)min((long long)st, (long long)W * ps), Tc, hd, krow,
-                        reinterpret_cast<int*>(krow + kBC), kNone, 0};
-    prefill::attend<HDP>(q, out, keys, st, Tc, NH, KVH, hd, sqrt_hd);
+    const PagedKeys keys{kp, vp, ks, vs, fk, fv, fks, fvs, page_table + (long long)b * MP,
+                         (long long)layer * P, ((long long)b * KVH + h) * Tc, P, ps, KVH, h, st,
+                         (int)min((long long)st, (long long)W * ps), Tc, hd};
+    prefill_mma::attend<HDP, prefill_mma::kNW, true>(q, out, keys, st, Tc, NH, KVH, hd, sqrt_hd,
+                                                     vec != 0);
 }
-
-// the cell's shared memory, then krow (8 bytes) and ksrc (4 bytes) per key
-template <int HDP>
-constexpr int kSmemFloats = prefill::kCellFloats<HDP> + 3 * kBC;
 
 #define TL_K16_PARAMS                                                                          \
     const void *q, const int8_t *kp, const int8_t *vp, const float *ks, const float *vs,      \
@@ -171,14 +109,21 @@ constexpr int kSmemFloats = prefill::kCellFloats<HDP> + 3 * kBC;
 template <int HDP, typename QT, typename OT>
 int launch(TL_K16_PARAMS) {
     auto kern = paged_flash_prefill_kernel<HDP, QT, OT>;
-    const int bytes = kSmemFloats<HDP> * static_cast<int>(sizeof(float));
+    constexpr int bytes = prefill_mma::kSmemBytes<HDP>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    // 16-byte copies where every row starts on 16 bytes
+    const int vec = hd % 16 == 0 && reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(vp) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(fk) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(fv) % 16 == 0;
     const int rows = Tc * (NH / KVH);
-    dim3 grid((rows + prefill::kBR - 1) / prefill::kBR, KVH, B);
-    kern<<<grid, kThreads, bytes, st>>>(static_cast<const QT*>(q), kp, vp, ks, vs, pt, start, fk,
-                                        fv, fks, fvs, static_cast<OT*>(out), layer, Tc, NH, KVH,
-                                        P, ps, MP, W, hd, sqrt_hd);
+    constexpr int kBR = 16 * prefill_mma::kNW;
+    dim3 grid(KVH, B, (rows + kBR - 1) / kBR);
+    kern<<<grid, 32 * prefill_mma::kNW, bytes, st>>>(static_cast<const QT*>(q), kp, vp, ks, vs,
+                                                     pt, start, fk, fv, fks, fvs,
+                                                     static_cast<OT*>(out), layer, Tc, NH, KVH,
+                                                     P, ps, MP, W, hd, sqrt_hd, vec);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,40 +1,35 @@
-// The f32 SIMT cell of causal prefill attention, shared by K6
-// (flash_prefill.cu: a dense cache) and K16 (paged_flash_prefill.cu: past
-// pool pages through a page table, then a chunk's fresh rows).
+// The f32 SIMT cell of causal prefill attention for the fp forms of K6
+// (flash_prefill.cu: a dense float32 or bfloat16 cache).  K6's INT8 form
+// and K16 run the bf16 tensor-core cell of prefill_mma.cuh: the TPU
+// kernels' INT8 branch rounds q and p * vs to bf16 for its MXU dots, while
+// their fp branch (attention.py:1613-1640) is f32 dots and f32 p, which a
+// bf16 dot is not.
 //
 // One block per (q tile of 64 folded rows, kv head, slot): the G = NH / KVH
 // query heads of kv head h fold into rows r = t * G + g; q [B, T, NH, hd] is
 // pre-scaled by 1/sqrt(hd) (a division); an online softmax runs over 64-key
 // tiles and stops at the tile holding the block's last attended key (causal
 // tile skip); K and V are converted to f32 once per tile into shared memory,
-// K scales multiply the score columns and V scales the probability columns;
-// each thread holds a 4 x 8 score tile and a 4 x hd/8 output tile in
-// registers; the output [B, T, NH * hd] is acc / max(l, 1e-30), cast once.
-// Key s attends query t iff s <= start + t and the key source allows s.
+// the per-key scales (1 for a key that exists, 0 past the cache) multiply
+// the score and probability columns; each thread holds a 4 x 8 score tile
+// and a 4 x hd/8 output tile in registers; the output [B, T, NH * hd] is
+// acc / max(l, 1e-30), cast once.  Key s attends query t iff s <= start + t
+// and the key source allows s.
 //
-// The key source (`Keys`) is all that differs between the kernels: where
-// key c of a tile lives, and which keys exist.  It provides
+// The key source (`Keys`) says where key c of a tile lives and which keys
+// exist.  It provides
 //   int kend(int e)        the end of the keys to walk, given e = start +
 //                          the block's last row + 1;
 //   bool ok(int c)         key c exists (besides the causal rule);
 //   void load_k(c0, KV, ksc, vsc)  the tile's K rows as f32 into KV
 //                          [kBC][HDP + 1] and its K / V scales (0 for a key
-//                          that does not exist); it may synchronise the
-//                          block, on a block-uniform branch;
+//                          that does not exist);
 //   void load_v(c0, KV)    the tile's V rows as f32.
-// K6's source reads every tile from its run of rows in the cache; K16's
-// reads a tile that is one run of rows (a page's or the fresh block's: every
-// tile of the served path) the same way and resolves other tiles key by key.
-// So both run one instruction stream on the served shapes, and K16 equals
-// K6 bit for bit on a dense copy of its keys: the keys are indexed past then
-// fresh, its mask is K6's, its tiles fall on the same boundaries.
 //
-// Rounding: f32 throughout.  The TPU kernels round q and p * vs to bf16
-// before their MXU dots (attention.py:1534-1548, :2030-2034); here neither
-// is rounded, so the result agrees with the plain f32 versions to f32
-// summation-order noise.  The f32 SIMT rate is ~1/15 of the bf16
-// tensor-core rate the bound assumes; bf16 mma/wgmma dots are later work,
-// and land here once for both kernels.
+// Rounding: f32 throughout, so the result agrees with the plain version to
+// f32 summation-order noise.  The f32 SIMT rate is ~1/15 of the bf16
+// tensor-core rate: at the bf16-cache shape this cell takes ~27x SDPA on
+// the card (PERF.md; ROADMAP queue 2 names a split-bf16 product for it).
 #pragma once
 
 #include <math.h>

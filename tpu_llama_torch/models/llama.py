@@ -13,11 +13,13 @@ run) or without them.  The W8A8 + INT8 paths:
   cache, K6 attention, K2 + K1 with the residual (wo), K3, K1 (w13), K4
   silu*up+quant, K1 with the residual (w2).  Unfused layouts run the
   unfused body through ``w8a8_matmul`` (K2 + K1) and K6.
-  ``forward_prefill`` at start_pos > 0 (llama.py:2078-2215, ``attn="flash"``)
-  runs the same bodies with the K/V written at each row's positions and K6
-  over the layer's whole cache; ``forward_prefill_chunked`` (llama.py:
-  1562-1748) prefills long prompts in chunks, landing each fused chunk's
-  K/V with K18;
+  ``forward_prefill`` at start_pos > 0 (llama.py:2078-2215) runs the same
+  bodies with the K/V written at each row's positions and K6 over the
+  layer's whole cache; ``forward_prefill_chunked`` (llama.py:1562-1748)
+  prefills long prompts in chunks, landing each fused chunk's K/V with K18.
+  The attention follows JAX's ``attn`` (``PREFILL_ATTN``): "flash" is K6,
+  "xla" ``attention_prefill`` (f32 on the dequantized cache), "auto" the
+  one or the other on a CUDA or a CPU cache, as JAX on the TPU or the CPU;
 * decode: ``forward_decode(fused=...)`` (llama.py:1101-1203).
   ``fused=False`` -> ``decode_stack``, JAX's unfused decode math on either
   layout: every matmul through K2 + K1, the residual adds in K1's
@@ -102,6 +104,7 @@ from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device, upload
 from tpu_llama_torch.io.checkpoint import RawWeights
 from tpu_llama_torch.ops.attention import (
+    attention_prefill,
     flash_decode_attention,
     flash_decode_attention_dma,
     flash_decode_attention_fresh,
@@ -439,7 +442,7 @@ def random_quant_params(config: ModelConfig, mode: str = "w8a8", seed: int = 0,
     w3 (llama.py:337-343)."""
     if mode not in ("w8a8", "q8_0"):
         raise NotImplementedError(f"mode {mode!r}: w8a8 and q8_0 are ported (W4A8 is ROADMAP "
-                                  "queue 1 item 9)")
+                                  "queue 1 item 10)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -500,7 +503,7 @@ def quantize_params(params: LlamaParams, group_size: int | None = None,
         def qz(w):
             return quantize_q8(w, group_size)
     elif mode == "w4a8":
-        raise NotImplementedError("mode 'w4a8': ROADMAP queue 1 item 9")
+        raise NotImplementedError("mode 'w4a8': ROADMAP queue 1 item 10")
     else:
         raise ValueError(f"unknown quant mode {mode!r}")
     lp = params.layers
@@ -684,6 +687,30 @@ def _attention_decode(q, k_cache, v_cache, pos, config: ModelConfig):
     att = torch.softmax(scores.masked_fill(~mask, _NEG_INF), dim=-1)
     out = torch.einsum("bkgs,bksh->bkgh", att, v_cache)
     return out.reshape(B, config.dim).to(q.dtype)
+
+
+PREFILL_ATTN = ("auto", "flash", "xla")
+
+
+def _resolve_prefill_attn(attn: str, cache) -> str:
+    """The prefill's attention, resolved as the JAX package resolves it
+    (llama.py:1396-1397, :2079-2083) and ``parallel.tp`` does: ``"auto"`` is
+    ``"flash"`` (K6) on a CUDA cache, as on the TPU, and ``"xla"``
+    (``attention_prefill``) on a CPU one.  An explicit ``"flash"`` on the
+    CPU runs K6's plain version, the card's function."""
+    if attn not in PREFILL_ATTN:
+        raise ValueError(f"prefill attention {attn!r}: want one of {PREFILL_ATTN}")
+    if attn == "auto":
+        return "flash" if cache.k.device.type == "cuda" else "xla"
+    return attn
+
+
+def prefill_attention(attn: str):
+    """The prefill attention a resolved ``attn`` runs: K6
+    (``flash_prefill_attention``) for ``"flash"``, ``attention_prefill``
+    for ``"xla"``; both take (q, k, v, start, k_scale, v_scale,
+    out_dtype=)."""
+    return flash_prefill_attention if attn == "flash" else attention_prefill
 
 
 def _cache_rows(cache, k, v) -> dict:
@@ -1103,14 +1130,17 @@ def _fused_tail(x2, att, lp: LayerParams, config: ModelConfig):
 
 
 def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start0,
-                         config: ModelConfig):
+                         config: ModelConfig, attn: str):
     """Layer ``i`` of the fused W8A8 prefill body, ``layer_step_w8a8`` with
     ``attend_prequant`` (llama.py:1422-1469): x [B, T, D] in -> out, with
     f32 rmsnorm, RoPE and SiLU that are never rounded to x's dtype before
     their int8 quant (ops/quant.py).  K5 writes the layer's K/V straight
     into rows [0, T) of the INT8 ``cache`` (head-major, in place: no
-    transpose, no copy) and K6 attends over them there.  cos/sin
-    [B * T, hd/2], row b * T + t at position t."""
+    transpose, no copy) and K6 attends over them there -- for ``attn=
+    "xla"``, JAX's ``attend()`` branch (llama.py:1485-1497), the f32
+    ``attention_prefill`` on them instead (K5 keeps computing the rows: its
+    f32 RoPE and quant are apply_rope + quantize_kv's arithmetic).
+    cos/sin [B * T, hd/2], row b * T + t at position t."""
     B, T, D = x.shape
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     x2 = x.reshape(B * T, D)
@@ -1119,20 +1149,20 @@ def _prefill_layer_fused(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, s
     q, *_ = rope_split_quantize(qkv, cos, sin, D, KVH, hd,
                                 out=[blk.transpose(1, 2) for blk in blocks])
     kb, ksb, vb, vsb = blocks
-    att = flash_prefill_attention(q.view(B, T, NH, hd), kb, vb, start0, ksb, vsb,
+    att = prefill_attention(attn)(q.view(B, T, NH, hd), kb, vb, start0, ksb, vsb,
                                   out_dtype=x.dtype)
     return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
 def _prefill_layer_fused_fp(x, lp: LayerParams, cache: KVCache, i: int, cos, sin, start0,
-                            config: ModelConfig):
+                            config: ModelConfig, attn: str):
     """Layer ``i`` of the fused W8A8 prefill body over an fp cache,
     ``layer_step_w8a8`` with ``attend()``'s fp branch (llama.py:1431-1448,
     :1471-1508): K3 and K1 (qkv), RoPE on q and k in f32 cast back to x's
     dtype, k and v cast to the cache's dtype and written into rows [0, T)
-    of ``cache``, K6's fp form over them, then the fused tail (K2 + K1, K3,
-    K1, K4, K1).  No K5: it quantizes K/V for an INT8 cache.  cos/sin
-    [T, hd/2]."""
+    of ``cache``, K6's fp form over them (``attention_prefill`` for
+    ``attn="xla"``), then the fused tail (K2 + K1, K3, K1, K4, K1).  No K5:
+    it quantizes K/V for an INT8 cache.  cos/sin [T, hd/2]."""
     B, T, D = x.shape
     NH, KVH, hd, KVD = config.n_heads, config.n_kv_heads, config.head_dim, config.kv_dim
     x2 = x.reshape(B * T, D)
@@ -1143,14 +1173,15 @@ def _prefill_layer_fused_fp(x, lp: LayerParams, cache: KVCache, i: int, cos, sin
     kb, vb = cache.k[i, :, :, :T], cache.v[i, :, :, :T]
     kb.copy_(k.transpose(1, 2))  # cast to the cache's dtype
     vb.copy_(v.transpose(1, 2))
-    att = flash_prefill_attention(q, kb, vb, start0, out_dtype=x.dtype)
+    att = prefill_attention(attn)(q, kb, vb, start0, out_dtype=x.dtype)
     return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
 def _forward_prefill_fresh(params: LlamaParams, cache, tokens, lengths, config: ModelConfig,
-                           logits_mode: str, precision: str = "highest"):
+                           logits_mode: str, precision: str = "highest", attn: str = "flash"):
     """Prefill from position 0 (llama.py:1378): each layer leaves its K/V in
-    rows [0, T) of ``cache``, in place, and attends over them (K6, start 0).
+    rows [0, T) of ``cache``, in place, and attends over them (K6, start 0,
+    or ``attention_prefill`` for ``attn="xla"``).
     Fused W8A8 layouts take the fused body at every shape -- with K5 on an
     INT8 cache (``_prefill_layer_fused``), with the fp attention on an fp
     one (``_prefill_layer_fused_fp``): the TPU gates of
@@ -1175,9 +1206,10 @@ def _forward_prefill_fresh(params: LlamaParams, cache, tokens, lengths, config: 
         lp = layers.layer(i)
         if fused:
             step = _prefill_layer_fused if int8 else _prefill_layer_fused_fp
-            x = step(x, lp, cache, i, cos, sin, start0, config)
+            x = step(x, lp, cache, i, cos, sin, start0, config, attn)
         else:
-            x = _prefill_layer_at(x, lp, cache, i, cos, sin, start0, config, precision)
+            x = _prefill_layer_at(x, lp, cache, i, cos, sin, start0, config, precision,
+                                  attn=attn)
     if logits_mode == "last":
         x = _last_rows(x, lengths, T)
     return _logits(params, x, precision), cache
@@ -1215,22 +1247,23 @@ def _write_rows(cache, i: int, fresh: dict, start, config: ModelConfig, fits: bo
         dst[b_ix, h_ix, p_ix] = new
 
 
-def _attend_layer(q, cache, i: int, start, out_dtype):
-    """K6 (its INT8 or fp form) over all of layer ``i``'s cache rows,
-    queries at start[b] + t."""
+def _attend_layer(q, cache, i: int, start, out_dtype, attn: str):
+    """K6 (its INT8 or fp form; ``attention_prefill`` for ``attn="xla"``)
+    over all of layer ``i``'s cache rows, queries at start[b] + t."""
     scales = (cache.ks[i], cache.vs[i]) if isinstance(cache, QuantKVCache) else ()
-    return flash_prefill_attention(q, cache.k[i], cache.v[i], start, *scales,
+    return prefill_attention(attn)(q, cache.k[i], cache.v[i], start, *scales,
                                    out_dtype=out_dtype)
 
 
 def _prefill_layer_at(x, lp: LayerParams, cache, i: int, cos, sin, start, config: ModelConfig,
-                      precision: str = "highest", fits: bool = True):
+                      precision: str = "highest", fits: bool = True, attn: str = "flash"):
     """Layer ``i`` of the unfused prefill body at any start (``layer_step``,
-    llama.py:1510-1518, :2153-2204, ``attn="flash"``): the projections
-    through ``matmul_any``, RoPE at each row's own positions, the K/V
-    quantized (INT8 cache) or cast to the cache's dtype (fp), written at
-    start + t (``_write_rows``; ``fits`` as there), K6 over the layer's
-    cache.  cos/sin [B, T, hd/2] or [T, hd/2]."""
+    llama.py:1510-1518, :2153-2204): the projections through
+    ``matmul_any``, RoPE at each row's own positions, the K/V quantized
+    (INT8 cache) or cast to the cache's dtype (fp), written at start + t
+    (``_write_rows``; ``fits`` as there), then ``_attend_layer`` over the
+    layer's cache (K6, or ``attention_prefill`` for ``attn="xla"``).
+    cos/sin [B, T, hd/2] or [T, hd/2]."""
     B, T = x.shape[:2]
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     h = rmsnorm(x, lp.rms_att)
@@ -1238,7 +1271,7 @@ def _prefill_layer_at(x, lp: LayerParams, cache, i: int, cos, sin, start, config
     q = apply_rope(q.reshape(B, T, NH, hd), cos, sin)
     k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
     _write_rows(cache, i, _cache_rows(cache, k, v.reshape(B, T, KVH, hd)), start, config, fits)
-    att = _attend_layer(q, cache, i, start, x.dtype)
+    att = _attend_layer(q, cache, i, start, x.dtype, attn)
     x = matmul_any(att, lp.wo, residual=x, precision=precision)
     h = rmsnorm(x, lp.rms_ffn)
     gate, up = _project_gate_up(h, lp, config, precision)
@@ -1246,12 +1279,12 @@ def _prefill_layer_at(x, lp: LayerParams, cache, i: int, cos, sin, start, config
 
 
 def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start,
-                            config: ModelConfig, fits: bool):
+                            config: ModelConfig, fits: bool, attn: str):
     """Layer ``i`` of the fused W8A8 body at any start over an INT8 cache
     (``layer_step_w8a8``, llama.py:2112-2151): K3, K1 (qkv), K5 into compact
     q/k/v with RoPE at each row's own positions, the write at start + t
-    (``_write_rows``; ``fits`` as there), K6 over the layer's cache, then
-    the fused tail.
+    (``_write_rows``; ``fits`` as there), ``_attend_layer`` over the
+    layer's cache, then the fused tail.
     cos/sin [B * T, hd/2], row b * T + t at position start[b] + t."""
     B, T, D = x.shape
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
@@ -1260,7 +1293,7 @@ def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos
     fresh = {"k": kq.view(B, T, KVH, hd), "v": vq.view(B, T, KVH, hd),
              "ks": ks.view(B, T, KVH), "vs": vs.view(B, T, KVH)}
     _write_rows(cache, i, fresh, start, config, fits)
-    att = _attend_layer(q.view(B, T, NH, hd), cache, i, start, x.dtype)
+    att = _attend_layer(q.view(B, T, NH, hd), cache, i, start, x.dtype, attn)
     return _fused_tail(x2, att.view(B * T, D), lp, config).view(B, T, D)
 
 
@@ -1397,7 +1430,7 @@ def _last_rows(x, lengths, T: int):
 
 def forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor, start_pos: torch.Tensor,
                     lengths: torch.Tensor, config: ModelConfig, logits_mode: str = "all",
-                    assume_fresh: bool = False, precision: str = "highest"):
+                    assume_fresh: bool = False, precision: str = "highest", attn: str = "auto"):
     """Batched causal prefill (llama.py:2052).  Returns (logits, cache):
     [B, T, V] for ``logits_mode="all"``, [B, V] at lengths-1 for "last";
     the cache (INT8 or fp) is written in place.  ``assume_fresh=True``
@@ -1407,17 +1440,22 @@ def forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor, start_pos:
     K6 attends over the layer's whole cache, which already holds rows
     [0, start_pos[b]).  Give ``start_pos`` on the host (a CPU tensor) where
     it is known there: it is uploaded without waiting, and where every row
-    fits the cache the writes skip the guard for rows past it.  Attention
-    is always K6 (the JAX package's ``attn="flash"``; its plain version on
-    the CPU is the ``"xla"`` math).
+    fits the cache the writes skip the guard for rows past it.
+    ``attn`` (``PREFILL_ATTN``) is the JAX package's: ``"flash"`` attends
+    through K6, ``"xla"`` through ``attention_prefill``, and ``"auto"`` is
+    ``"flash"`` on a CUDA cache and ``"xla"`` on a CPU one
+    (``_resolve_prefill_attn``).
     Fused W8A8 layouts over an INT8 cache take the fused body at every shape
-    (the TPU's gates of llama.py:2108-2110 are Mosaic rules); everything
-    else takes the unfused body.  ``precision`` reaches dense float32
-    products (``dense_matmul``)."""
+    and with either attention (the gates of llama.py:2108-2110 -- B * T,
+    head_dim % 128, ``attn == "flash"`` -- pick JAX's XLA body on the TPU;
+    the attention is the only arithmetic that differs, and it follows
+    ``attn``); everything else takes the unfused body.  ``precision``
+    reaches dense float32 products (``dense_matmul``)."""
     _dense_only(cache, "forward_prefill")
+    attn = _resolve_prefill_attn(attn, cache)
     if assume_fresh:
         return _forward_prefill_fresh(params, cache, tokens, lengths, config, logits_mode,
-                                      precision)
+                                      precision, attn)
     if logits_mode not in ("all", "last"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
@@ -1436,11 +1474,11 @@ def forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor, start_pos:
         cos, sin = cos.reshape(B * T, -1), sin.reshape(B * T, -1)
         for i in range(layers.rms_att.shape[0]):
             x = _prefill_layer_fused_at(x, layers.layer(i), cache, i, cos, sin, start, config,
-                                        fits)
+                                        fits, attn)
     else:
         for i in range(layers.rms_att.shape[0]):
             x = _prefill_layer_at(x, layers.layer(i), cache, i, cos, sin, start, config,
-                                  precision, fits)
+                                  precision, fits, attn)
     if logits_mode == "last":
         x = _last_rows(x, lengths, T)
     return _logits(params, x, precision), cache
@@ -1457,7 +1495,7 @@ def _chunk_block(B: int, KVH: int, chunk: int, hd: int, dev):
 
 def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
                             lengths: torch.Tensor, config: ModelConfig, chunk: int = 256,
-                            precision: str = "highest"):
+                            precision: str = "highest", attn: str = "auto"):
     """Prefill from position 0 in chunks of ``chunk`` positions, each
     attending over every row written before it (llama.py:1562-1748; the
     JAX package's scan, unrolled and carry forms exist for TPU compile
@@ -1471,9 +1509,14 @@ def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
     (start i * chunk) over that layer, then the fused tail.  Everything else
     -- fp caches (K18 is INT8-only), dense, Q8_0 or unfused weights -- runs
     ``forward_prefill(start_pos=i * chunk)`` per chunk (llama.py:1580-1596).
-    Each chunk computes its last-token logits; each row keeps those of the
-    chunk that holds its final token."""
+    ``attn`` is ``forward_prefill``'s, which the JAX package's chunked
+    prefill leaves at ``"auto"``: on a CPU cache its ``"xla"`` attention
+    (``attention_prefill``) takes K6's place in the carry form too; an
+    explicit ``"flash"`` there computes ``forward_prefill_chunked_carry``'s
+    function, K6's plain version.  Each chunk computes its last-token
+    logits; each row keeps those of the chunk that holds its final token."""
     _dense_only(cache, "forward_prefill_chunked")
+    attn = _resolve_prefill_attn(attn, cache)
     B, T = tokens.shape
     if chunk <= 0 or T % chunk:
         raise ValueError(f"{T} prompt rows are not a multiple of the chunk {chunk}")
@@ -1495,7 +1538,8 @@ def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
         if not carry:  # the start on the host: every chunk's rows fit
             logits_c, cache = forward_prefill(params, cache, tok_c,
                                               torch.full((B,), c0, dtype=torch.int32), len_c,
-                                              config, logits_mode="last", precision=precision)
+                                              config, logits_mode="last", precision=precision,
+                                              attn=attn)
             per_chunk.append(logits_c)
             continue
         start = torch.full((B,), c0, dtype=torch.int32, device=dev)
@@ -1508,7 +1552,7 @@ def forward_prefill_chunked(params: LlamaParams, cache, tokens: torch.Tensor,
             q, *_ = rope_split_quantize(_fused_qkv(x2, lp), cos, sin, D, KVH, hd, out=outs)
             kv_cache_write_chunk(blk[0], blk[2], blk[1], blk[3], c0, l, cache.k, cache.v,
                                  cache.ks, cache.vs)
-            att = _attend_layer(q.view(B, chunk, NH, hd), cache, l, start, x.dtype)
+            att = _attend_layer(q.view(B, chunk, NH, hd), cache, l, start, x.dtype, attn)
             x = _fused_tail(x2, att.view(B * chunk, D), lp, config).view(B, chunk, D)
         per_chunk.append(_logits(params, _last_rows(x, len_c, chunk), precision))
     owner = ((lengths - 1) // chunk).clamp(0, n - 1)

@@ -1,6 +1,7 @@
 """INT8 KV quantization, causal prefill attention (K6), the slot scatter
 that admits a prefilled block into the cache (K7), the chunk write of
-chunked prefill (K18), the deferred-flush decode attention (K9, K19) with
+chunked prefill (K18), the JAX package's f32 ``attn="xla"`` prefill attention
+(``attention_prefill``), the deferred-flush decode attention (K9, K19) with
 its per-step row flush (K10), and their paged counterparts over a page pool
 (K15 page scatter, K13 and K20 decode attention, K14 row flush, K16 chunk
 attention and K17 chunk write of the pool-direct prefill, K22
@@ -85,11 +86,19 @@ def _check_prefill(q, k_cache, v_cache, start_pos, k_scale, v_scale):
         raise TypeError("K/V scales must be float32")
 
 
-def flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale=None, v_scale=None,
-                                  out_dtype=None):
-    """Plain version of K6: f32 attention on the dequantized (INT8) or
-    upcast (fp) cache, as ``_attention_prefill`` computes it (llama.py:
-    582-603)."""
+PREFILL_TILE = 64  # keys per tile of the prefill cells (csrc/prefill_mma.cuh, prefill_cell.cuh)
+
+
+def attention_prefill(q, k_cache, v_cache, start_pos, k_scale=None, v_scale=None,
+                      out_dtype=None):
+    """Port of ``_attention_prefill`` (tpu_llama/models/llama.py:582-603),
+    the JAX package's ``attn="xla"`` prefill attention: f32 scores on the
+    dequantized (INT8, values times their scales) or upcast (fp) cache
+    [B, KVH, S, hd], divided by sqrt(hd), key s attending query t iff
+    s <= start_pos[b] + t, softmax, f32 values; [B, T, NH * hd] in
+    ``out_dtype`` (default f32; JAX: q's dtype).  Nothing is rounded to
+    bf16: K6 and K16 are the ``"flash"`` function.  It is also K6's plain
+    version for an fp cache."""
     B, T, NH, hd = q.shape
     KVH, S = k_cache.shape[1], k_cache.shape[2]
     G = NH // KVH
@@ -106,6 +115,64 @@ def flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale=None, 
     return out.reshape(B, T, NH * hd).to(out_dtype or torch.float32)
 
 
+
+def _prefill_plain(q, k, v, ks, vs, mask, out_dtype, round_out=False):
+    """The INT8 prefill kernels' function in their own order
+    (csrc/prefill_mma.cuh's contract, the TPU kernels' own): q [B, T, NH,
+    hd] raw, int8 K/V [B, KVH, S, hd] with f32 scales ks/vs [B, KVH, S],
+    mask [B, T, S] (key s attends query t).  q pre-scaled in f32 and
+    rounded to bf16, QK^T in f32 times the K scale, the mask; then an online
+    softmax over tiles of PREFILL_TILE keys from key 0, as the cell walks
+    them: m_new = max(m, the tile's max), corr = exp(m - m_new),
+    p = exp(s - m_new), l = l * corr + sum(p), and bf16(p * vs) @ V added to
+    acc * corr, all in f32; out = acc / max(l, 1e-30).  Where every key lies
+    in one tile that is one pass with the full row max,
+    ``_flash_prefill_fresh_kernel``'s arithmetic; over more tiles it rounds
+    p * vs at the running max, as the card does, so card and CPU agree to
+    f32 noise.  ``round_out`` rounds the output to bf16 before the cast to
+    ``out_dtype``."""
+    B, T, NH, hd = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    G = NH // KVH
+    qg = _bf16(_scaled_q(q)).reshape(B, T, KVH, G, hd)
+    s = torch.einsum("btkgh,bksh->bkgts", qg, k.float()) * ks[:, :, None, None, :]
+    s = s.masked_fill(~mask[:, None, None], -math.inf)
+    m = torch.full(s.shape[:-1], -math.inf, device=s.device)  # [B, KVH, G, T]
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KVH, G, T, hd), device=s.device)
+    for c0 in range(0, S, PREFILL_TILE):
+        st = s[..., c0:c0 + PREFILL_TILE]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        base = torch.where(m_new == -math.inf, 0.0, m_new)  # no key yet: corr = p = 0
+        corr = torch.exp(m - base)
+        p = torch.exp(st - base[..., None])
+        l = l * corr + p.sum(dim=-1)
+        p = _bf16(p * vs[:, :, None, None, c0:c0 + PREFILL_TILE])
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgts,bksh->bkgth", p, v[:, :, c0:c0 + PREFILL_TILE].float())
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]  # [B, KVH, G, T, hd]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, NH * hd)
+    if round_out:
+        out = _bf16(out)
+    return out.to(out_dtype or torch.float32)
+
+
+def flash_prefill_attention_plain(q, k_cache, v_cache, start_pos, k_scale=None, v_scale=None,
+                                  out_dtype=None):
+    """Plain version of K6: for an INT8 cache its function in the kernel's
+    order of key tiles (``_prefill_plain``: the TPU kernels' bf16 roundings
+    of q and p * vs); for an fp cache f32 throughout, which is
+    ``attention_prefill`` (attention.py:1613-1640 runs f32 dots)."""
+    if k_scale is None:
+        return attention_prefill(q, k_cache, v_cache, start_pos, out_dtype=out_dtype)
+    T, S = q.shape[1], k_cache.shape[2]
+    dev = q.device
+    q_pos = start_pos.to(dev).long()[:, None] + torch.arange(T, device=dev)[None, :]
+    mask = torch.arange(S, device=dev)[None, None, :] <= q_pos[:, :, None]  # [B, T, S]
+    return _prefill_plain(q, k_cache, v_cache, k_scale, v_scale, mask, out_dtype)
+
+
 def flash_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                             start_pos: torch.Tensor, k_scale: torch.Tensor | None = None,
                             v_scale: torch.Tensor | None = None, out_dtype=None) -> torch.Tensor:
@@ -113,9 +180,11 @@ def flash_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
     [B, KVH, S, hd] already holding this chunk -- INT8 with f32 scales
     [B, KVH, S], or float32 / bfloat16 without -- start_pos [B] (absolute
     position of q[:, 0]).  Key s attends iff s <= start_pos[b] + t.
-    Returns [B, T, NH * hd] in ``out_dtype`` (default f32).  K6 on CUDA
-    tensors (``K6:f32`` / ``K6:bf16`` for an fp cache), the plain version on
-    CPU ones."""
+    Returns [B, T, NH * hd] in ``out_dtype`` (default f32).  An INT8 cache
+    takes the TPU kernels' rounding (q and p * vs to bf16 before the dots;
+    csrc/prefill_mma.cuh), an fp cache f32 throughout.  K6 on CUDA tensors
+    (``K6:f32`` / ``K6:bf16`` for an fp cache), the plain version on CPU
+    ones."""
     _check_prefill(q, k_cache, v_cache, start_pos, k_scale, v_scale)
     kernel = _kernels.form("K6", k_cache.dtype)
     scales = () if k_scale is None else (k_scale, v_scale)
@@ -1249,31 +1318,29 @@ def kv_pool_write_chunk(rows_k, rows_v, rows_ks, rows_vs, page_table, start, lay
 def paged_flash_prefill_attention_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, start,
                                         fresh_k, fresh_v, fresh_ks, fresh_vs, layer=0,
                                         past_pages=None, out_dtype=None):
-    """Plain version of K16: f32 attention over the slot's first past_pages
-    pages (``paged_view``: a page id outside [0, P) reads page 0), keys
-    below max(start, 0), then the dequantized fresh rows, causal within the
-    chunk; the math of K6's plain version."""
-    B, Tc, NH, hd = q.shape
-    KVH, ps = k_pool.shape[2], k_pool.shape[3]
-    G = NH // KVH
+    """Plain version of K16: K6's INT8 function (``_prefill_plain``) over a
+    dense copy of the slot's keys, as the kernel indexes them -- the past
+    keys s < e = min(max(start, 0), past_pages * ps) read through the first
+    past_pages pages (``paged_view``: a page id outside [0, P) reads page
+    0), then the fresh rows at [e, e + Tc), key s attending query t iff
+    s <= e + t -- with the output rounded to bf16 (the JAX kernel emits
+    bf16), then cast to ``out_dtype``."""
+    B, Tc = q.shape[:2]
+    KVH, ps, hd = k_pool.shape[2], k_pool.shape[3], k_pool.shape[4]
     W = page_table.shape[1] if past_pages is None else past_pages
     pt = page_table[:, :W]
     past = [paged_view(a, pt, layer)[0] for a in (k_pool, v_pool, k_scale, v_scale)]
-    kf = torch.cat([past[0].float() * past[2][..., None], fresh_k.float() * fresh_ks[..., None]],
-                   dim=2)  # [B, KVH, W * ps + Tc, hd]
-    vf = torch.cat([past[1].float() * past[3][..., None], fresh_v.float() * fresh_vs[..., None]],
-                   dim=2)
+    both = [torch.cat([p, f], dim=2)  # [B, KVH, W * ps + Tc(, hd)]
+            for p, f in zip(past, (fresh_k, fresh_v, fresh_ks, fresh_vs))]
     dev = q.device
-    st = start.to(dev).long().clamp(min=0)
-    t = torch.arange(Tc, device=dev)
-    mask = torch.cat([
-        (torch.arange(W * ps, device=dev)[None, None, :] < st[:, None, None]).expand(B, Tc, -1),
-        (t[None, :] <= t[:, None])[None].expand(B, Tc, Tc)], dim=-1)  # [B, Tc, W * ps + Tc]
-    qg = q.reshape(B, Tc, KVH, G, hd).float()
-    scores = torch.einsum("btkgh,bksh->bkgts", qg, kf) / math.sqrt(hd)
-    att = torch.softmax(scores.masked_fill(~mask[:, None, None], _NEG_INF), dim=-1)
-    out = torch.einsum("bkgts,bksh->btkgh", att, vf)
-    return out.reshape(B, Tc, NH * hd).to(out_dtype or torch.float32)
+    Sd = W * ps + Tc
+    e = start.to(dev).long().clamp(min=0, max=W * ps)[:, None]  # [B, 1]
+    s = torch.arange(Sd, device=dev)[None, :]
+    src = torch.where(s < e, s, torch.where(s < e + Tc, W * ps + s - e, 0))  # [B, Sd]
+    k, v = (a.gather(2, src[:, None, :, None].expand(B, KVH, Sd, hd)) for a in both[:2])
+    ks, vs = (a.gather(2, src[:, None, :].expand(B, KVH, Sd)) for a in both[2:])
+    mask = s[:, None, :] <= e[:, :, None] + torch.arange(Tc, device=dev)[None, :, None]
+    return _prefill_plain(q, k, v, ks, vs, mask, out_dtype, round_out=True)
 
 
 def paged_flash_prefill_attention(q, k_pool, v_pool, k_scale, v_scale, page_table, start,
@@ -1288,9 +1355,9 @@ def paged_flash_prefill_attention(q, k_pool, v_pool, k_scale, v_scale, page_tabl
     chunk's fresh rows fresh_k/fresh_v int8 [B, KVH, Tc, hd] with scales
     [B, KVH, Tc] at positions start + t', causally (t' <= t).  start [B]
     int32 on the pool's device.  A page id outside [0, P) reads the trash
-    page 0.  Returns [B, Tc, NH * hd] in ``out_dtype`` (default f32).  K6's
-    arithmetic (f32 throughout, cast once), where the JAX kernel rounds q
-    and p * vs to bf16 and returns bf16.  K16 on CUDA tensors, the plain
+    page 0.  Returns [B, Tc, NH * hd] rounded to bf16, in ``out_dtype``
+    (default f32).  K6's INT8 arithmetic, the JAX kernel's: q and p * vs
+    rounded to bf16 before the dots.  K16 on CUDA tensors, the plain
     version on CPU ones."""
     L, P, KVH, ps, hd, B, MP = _check_pool("paged_flash_prefill_attention", k_pool, v_pool,
                                            k_scale, v_scale, page_table)

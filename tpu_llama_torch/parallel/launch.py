@@ -306,6 +306,50 @@ def _dequantized(params):
         lp, **{f.name: dense(getattr(lp, f.name)) for f in dataclasses.fields(lp)}))
 
 
+def logits_err(got, want) -> float:
+    """max |got - want| over max |want| (inf where got is not finite or not
+    want's shape)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf")
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def run_gap(got, want, forced=False) -> dict:
+    """Two rolls of ``tp_parity`` on the same prompts: the step whose greedy
+    picks first part (None: never) and each step's logits error
+    (``logits_err``) while both saw the same inputs: every step where
+    ``got`` was fed ``want``'s picks (``forced``), else up to that step."""
+    part = next((i for i, (a, b) in enumerate(zip(got["picks"], want["picks"]))
+                 if not np.array_equal(a, b)), None)
+    last = len(want["logits"]) if forced or part is None else part + 1
+    return dict(parted_at=part, logits_err=[logits_err(g, w) for g, w in
+                                            zip(got["logits"][:last], want["logits"][:last])])
+
+
+def parity_reading(card, cpu) -> dict:
+    """Card against CPU (``tp_parity`` on each), for each TP decode: the
+    step the greedy picks first part (None: never), the logits' largest
+    error over max |logit| up to that step (the same inputs on both sides),
+    and at the parting step the CPU's gap between the two logits that
+    swapped places and the largest |card - CPU| logit error of those
+    rows."""
+    out = {}
+    for mode in ("fused", "unfused"):
+        g, c = card[mode], cpu[mode]
+        gap = run_gap(g, c)
+        part = gap["parted_at"]
+        rd = dict(parted_at=part, steps=len(c["picks"]), logits_err=max(gap["logits_err"]))
+        if part is not None:
+            rows = np.nonzero(g["picks"][part] != c["picks"][part])[0]
+            cl, gl = c["logits"][part][rows], g["logits"][part][rows]
+            rd["gap"] = float(np.max(cl[np.arange(len(rows)), c["picks"][part][rows]]
+                                     - cl[np.arange(len(rows)), g["picks"][part][rows]]))
+            rd["row_err"] = float(np.abs(gl - cl).max())
+        out[mode] = rd
+    return out
+
+
 def tp_parity(mesh, config: ModelConfig, seed: int, prompts, steps: int) -> dict:
     """The TP paths on a small model, the same function on the card and on
     the CPU: ``random_quant_params(config, seed, fuse=True, norm_dtype=

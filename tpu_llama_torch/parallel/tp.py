@@ -43,13 +43,10 @@ from tpu_llama_torch.models.llama import (
     apply_rope,
     make_kv_cache,
     matmul_any,
+    prefill_attention,
     rmsnorm,
 )
-from tpu_llama_torch.ops.attention import (
-    flash_prefill_attention,
-    flash_prefill_attention_plain,
-    kv_cache_scatter_slots,
-)
+from tpu_llama_torch.ops.attention import kv_cache_scatter_slots
 from tpu_llama_torch.ops.fused_layer import (
     fused_ffn_stacked,
     fused_rms_qkv_stacked,
@@ -213,7 +210,7 @@ def _tp_prefill_body(params: LlamaParams, cache, tokens, start_pos, lengths, *,
     place at those positions (``_write_rows``: quantized for an INT8 cache,
     cast for an fp one; a position past the cache is not written), the
     attention over the local heads of the layer's cache (K6 for
-    ``attn="flash"``, its plain f32 math for ``"xla"``), the Megatron
+    ``attn="flash"``, ``attention_prefill`` for ``"xla"``), the Megatron
     all-reduces.  Returns (this rank's vocab-sharded logits, cache)."""
     B, T = tokens.shape
     S = cache.k.shape[3]
@@ -223,7 +220,7 @@ def _tp_prefill_body(params: LlamaParams, cache, tokens, start_pos, lengths, *,
     x = _embed(params, tokens, vocab_local, mesh)  # [B, T, D]
     write_pos = (start.long()[:, None] + torch.arange(T, device=tokens.device)).clamp(0, S - 1)
     cos, sin = params.rope_cos[write_pos], params.rope_sin[write_pos]
-    attend = flash_prefill_attention if attn == "flash" else flash_prefill_attention_plain
+    attend = prefill_attention(attn)
     for i in range(params.layers.rms_att.shape[0]):
         lp = params.layers.layer(i)
         q, k, v = _qkv(rmsnorm(x, lp.rms_att), lp, local, precision)

@@ -76,6 +76,7 @@ PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fres
                 "w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
                 "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
+                "flash_prefill_i8_kernel": "K6",
                 "kv_scatter_kernel": "K7", "kv_write_chunk_kernel": "K18",
                 "flash_decode_dma_kernel": "K9",
                 "kv_flush_rows_kernel": "K10", "fused_layer_kernel": "K11",

@@ -28,6 +28,12 @@ over dense, Q8_0 or W8A8 weights:
   two-launch K11 path; ``False`` the unfused one; ``"mega3"``, one K26
   launch per pair of layers, and ``"mega"``, one K27 launch per layer, only
   when asked for), ``Engine.decode_fused`` shows the resolved mode;
+* the prefill attention: ``prefill_attn="auto"`` (JAX's engine leaves
+  ``forward_prefill``'s ``attn`` at "auto" too) is K6 on the card and
+  JAX's CPU math, "xla" (``attention_prefill``), on the CPU; an explicit
+  ``"flash"`` makes a CPU engine compute the card's function (K6's plain
+  version), ``Engine.prefill_attn`` shows the resolved one.  Pool-direct
+  waves run K16 either way, as in JAX;
 * ``precision`` (JAX's default "default") reaches dense float32 products:
   TF32 on the card for "default" and "high", full f32 for "highest";
 * device sampling: ``decode_sample``, ``sample_logits`` and the multi-step
@@ -64,7 +70,8 @@ and K7 on the local cache), a decode step ``tp_forward_decode_fused``
 (K8, K9, K2, K23, K24 and K10, two all-reduces per layer); the sampled
 decode steps are the stepwise ones above, keys fold_in(base_key, pos).
 Paged KV and dp > 1 are refused, as in JAX; so is prefix reuse
-(``prefill_continue``), which JAX runs through its GSPMD program.  JAX
+(``prefill_continue``, ``snapshot_slot``: a ``ContinuousBatcher`` with a
+prefix cache turns it off), which JAX runs through its GSPMD program.  JAX
 drives the mesh from one controller; the port runs SPMD: every rank builds
 the same Engine and the same ``ContinuousBatcher`` and feeds them the same
 requests.  Each rank's
@@ -88,6 +95,7 @@ from tpu_llama_torch.models.llama import (
     PagedKVCache,
     QuantKVCache,
     _resolve_decode_attn,
+    _resolve_prefill_attn,
     _resolve_fused,
     forward_decode,
     forward_prefill,
@@ -130,19 +138,21 @@ def _pool_direct_ok(cache, Bp: int, T: int) -> bool:
 
 def prefill_into_slots_waved(params: LlamaParams, cache, tokens: torch.Tensor,
                              lengths: torch.Tensor, slots: Sequence[int], config: ModelConfig,
-                             precision: str = "default"):
+                             precision: str = "default", attn: str = "auto"):
     """The admission front door (engine.py:55-93): a group that passes
     ``_pool_direct_ok`` is prefilled straight into the page pool
     (``forward_prefill_paged_chunked``, K16 and K17: no compact duplicate,
     which at 7B is 8.6 GB for 32 x 1024 prompts) in waves of
     bw = max(1, min(Bp, _WAVE_ROWS // _POOL_CHUNK)) slots, so the activation
     working set follows the wave, not the group; the last wave may be
-    smaller.  Every other group takes ``_prefill_into_slots``' compact path.
-    Returns (next-token logits [Bp, V], cache), the cache updated in
-    place."""
+    smaller.  Every other group takes ``_prefill_into_slots``' compact path,
+    whose prefill attention is ``attn`` (``forward_prefill``'s; the
+    pool-direct path always runs K16, as JAX's does).  Returns (next-token
+    logits [Bp, V], cache), the cache updated in place."""
     Bp, T = tokens.shape
     if not _pool_direct_ok(cache, Bp, T):
-        return _prefill_into_slots(params, cache, tokens, lengths, slots, config, precision)
+        return _prefill_into_slots(params, cache, tokens, lengths, slots, config, precision,
+                                   attn)
     bw = max(1, min(Bp, _WAVE_ROWS // _POOL_CHUNK))
     outs = []
     for w in range(0, Bp, bw):
@@ -173,7 +183,8 @@ def _make_page_pool(num_pages: int, page_size: int, slots: int, max_pages_per_sl
 
 
 def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, lengths: torch.Tensor,
-                        slots: Sequence[int], config: ModelConfig, precision: str = "default"):
+                        slots: Sequence[int], config: ModelConfig, precision: str = "default",
+                        attn: str = "auto"):
     """Compact prefill + scatter into the slot cache (engine.py:96).  Returns
     (next-token logits [Bp, V], cache) with the cache updated in place.  The
     scatter is K7 (its fp form on an fp cache) for every bucket: the TPU's
@@ -187,11 +198,12 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
     small = make_kv_cache(config, Bp, kv_dtype=cache.k.dtype, seq_len=T, device=tokens.device)
     if T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
         last, small = forward_prefill_chunked(params, small, tokens, lengths, config,
-                                              chunk=_CHUNK, precision=precision)
+                                              chunk=_CHUNK, precision=precision, attn=attn)
     else:
         last, small = forward_prefill(
             params, small, tokens, start_pos=torch.zeros_like(lengths), lengths=lengths,
-            config=config, logits_mode="last", assume_fresh=True, precision=precision)
+            config=config, logits_mode="last", assume_fresh=True, precision=precision,
+            attn=attn)
     if isinstance(cache, PagedKVCache):
         kv_pool_scatter_pages(small.k, small.v, small.ks, small.vs, slots, cache.page_table,
                               cache.k, cache.v, cache.ks, cache.vs)
@@ -202,7 +214,8 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
 
 
 def _prefill_continue_paged(params: LlamaParams, cache: PagedKVCache, tokens, starts, lengths,
-                            slots, config: ModelConfig, precision: str, mp_cap: int):
+                            slots, config: ModelConfig, precision: str, mp_cap: int,
+                            attn: str = "auto"):
     """Suffix prefill against paged slots (engine.py:226-293): each slot's
     first ``mp_cap`` pages gathered into a dense INT8 view (the caller
     promises start + T <= mp_cap * ps for every row that matters), the
@@ -224,7 +237,7 @@ def _prefill_continue_paged(params: LlamaParams, cache: PagedKVCache, tokens, st
 
     sub = QuantKVCache(**{a: gather(getattr(cache, a)) for a in cache.arrays})
     logits, sub = forward_prefill(params, sub, tokens, starts, lengths, config,
-                                  logits_mode="last", precision=precision)
+                                  logits_mode="last", precision=precision, attn=attn)
     # positions [start, start + T) back into the pages; a position past the
     # view writes back the view's last row (what it holds), as JAX clamps
     t_abs = (upload(starts, cache.k.device, torch.long)[:, None]
@@ -258,7 +271,7 @@ class Engine:
                  kv_dtype=torch.float32, precision: str = "default", seq_len: int | None = None,
                  kv_layout: str = "dense", page_size: int = 512, num_pages: int | None = None,
                  attn: str = "auto", fused="auto", device=None, mesh=None,
-                 tp_fused: bool = False):
+                 tp_fused: bool = False, prefill_attn: str = "auto"):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout {kv_layout!r}: want 'dense' or 'paged'")
         if precision not in PRECISIONS:
@@ -290,6 +303,7 @@ class Engine:
                                        kv_dtype=kv_dtype, seq_len=self.seq_len,
                                        device=self.device)
             self.decode_attn, self.decode_fused = "flash", "tp"
+            self.prefill_attn = _resolve_prefill_attn(prefill_attn, self.cache)
             return
         if kv_layout == "paged":  # INT8 whatever kv_dtype says, as in JAX (engine.py:452-458)
             mp = -(-self.seq_len // page_size)
@@ -307,6 +321,8 @@ class Engine:
         self.decode_attn = _resolve_decode_attn(attn, self.cache)
         self.decode_fused = _resolve_fused(fused, self.decode_attn, params, config, self.cache,
                                            max_batch)
+        # the prefill attention of the admissions and continuations
+        self.prefill_attn = _resolve_prefill_attn(prefill_attn, self.cache)
 
     def _sync_page_table(self) -> None:
         """Upload the host page-table mirror into a new device tensor,
@@ -392,7 +408,8 @@ class Engine:
                 toks[i, :len(p)] = p
             last, self.cache = tp_prefill_into_slots(
                 self.params, self.cache, self._ints(toks), self._ints(lengths),
-                [int(s) for s in slots], self.config, self.mesh, self.precision)
+                [int(s) for s in slots], self.config, self.mesh, self.precision,
+                self.prefill_attn)
             return last if return_device else last.cpu().numpy()
         outs = []
         for start, g, T in groups:
@@ -402,7 +419,8 @@ class Engine:
             last, self.cache = prefill_into_slots_waved(
                 self.params, self.cache, self._ints(toks),
                 self._ints(lengths[start:start + g]),
-                [int(s) for s in slots[start:start + g]], self.config, self.precision)
+                [int(s) for s in slots[start:start + g]], self.config, self.precision,
+                self.prefill_attn)
             outs.append(last)
         last = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return last if return_device else last.cpu().numpy()
@@ -441,14 +459,14 @@ class Engine:
             logits = _prefill_continue_paged(self.params, self.cache, self._ints(toks),
                                              host_starts, self._ints(lengths),
                                              [int(s) for s in slots], self.config,
-                                             self.precision, mp_cap)
+                                             self.precision, mp_cap, self.prefill_attn)
             return logits if return_device else logits.cpu().numpy()
         idx = self._ints(slots)
         sub = type(self.cache)(**{n: getattr(self.cache, n).index_select(1, idx)
                                   for n in self.cache.arrays})
         logits, sub = forward_prefill(self.params, sub, self._ints(toks), host_starts,
                                       self._ints(lengths), self.config, logits_mode="last",
-                                      precision=self.precision)
+                                      precision=self.precision, attn=self.prefill_attn)
         for n in self.cache.arrays:
             getattr(self.cache, n).index_copy_(1, idx, getattr(sub, n))
         return logits if return_device else logits.cpu().numpy()
@@ -563,7 +581,13 @@ class Engine:
         refcount and only the partial boundary page is copied on the
         device, into a page of its own (the slot goes on appending into its
         copy).  Returns None when the pool cannot spare that page now (the
-        caller simply does not cache)."""
+        caller simply does not cache).  The TP engine raises
+        NotImplementedError: it has no continuation prefill to resume a
+        snapshot from, and ``ContinuousBatcher`` then turns its prefix
+        cache off, as JAX's does (scheduler.py:368-374)."""
+        if self.tp_fused:
+            raise NotImplementedError("prefix reuse on the TP engine (a TP continuation "
+                                      "prefill): ROADMAP queue 1 item 11")
         if self.pool is not None:
             pool = self.pool
             row = [int(p) for p in pool.table[slot, :pool.pages_needed(length)]]
