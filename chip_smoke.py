@@ -13,7 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
    attention, K10 row flush, K18 chunk write; K8 stacked-weight product,
    K11 fused decode layer, K12 mega2 layer with the next layer's attention;
-   K25 Q8_0 product; the f32 and bf16 forms of K6, K7, K9, K19 and K10;
+   K25 Q8_0 product, its wgmma kernel at the admission's M 4096 and its
+   decode kernel at M 8 (device time from a trace beside the event time),
+   then its ragged edges; the f32 and bf16 forms of K6 (on the split
+   tensor-core cells: bound by their passes' TF32 or bf16 operations, the
+   f32 SIMT bound beside it), K7, K9, K19 and K10;
    the paged kernels K15 page scatter, K14 row flush, K13 and K20 decode
    attention, on a 33-page pool whose pages a ``PagePool`` handed out of
    order; the pool-direct admission's K17 chunk write and K16 chunk
@@ -171,7 +175,7 @@ import time
 import numpy as np
 
 HBM_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 K6_TOL = 2.0 ** -7 + 1e-5  # of max |ref|: one bf16 rounding step + f32 noise
 # Port parity, card against CPU, on the 2-layer 7B-width model (phase 5),
 # both sides with the prefill attention "flash" (the CPU runs K6's plain
@@ -231,10 +235,12 @@ QUANT_SCALE_RTOL = 2.0 ** -22
 # summed in another order (f32 outputs): 1e-4 of max |ref|.
 K25_TOL = 1e-4
 # The fp forms of K6, K9 and K19 against their plain versions with f32
-# queries and outputs, as the dense and Q8_0 paths run them: f32
-# throughout, nothing rounded, sums in another order and CUDA's expf: 1e-5
-# of max |ref|.  A kernel that rounded p or q to bf16 (the INT8 forms'
-# arithmetic) misses by ~1e-3.  K6 with bf16 outputs is held to K6_TOL.
+# queries and outputs, as the dense and Q8_0 paths run them: f32 dots
+# (K6's as sums of exact products of split operands on the tensor cores,
+# csrc/prefill_split.cuh), nothing rounded to bf16, sums in another order
+# and exp as exp2: 1e-5 of max |ref|.  A kernel that rounded p or q to
+# bf16 (the INT8 forms' arithmetic) misses by ~1e-3.  K6 with bf16 outputs
+# is held to K6_TOL.
 FP_TOL = 1e-5
 
 SRC = {
@@ -1304,24 +1310,62 @@ def check_k22(torch, tatt, PagePool, results):
         torch.cuda.empty_cache()
 
 
+def device_ms(torch, fn, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn(i)``: the kernels' own time in a
+    ``torch.profiler`` trace of ``n`` calls (no launch gaps), summed and
+    divided by ``n``.  Few-us launches timed back to back with events read
+    the host's launch rate instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / n
+
+
+def _q8_weights(torch, tq, gen, n, k, copies=1, pad_out=None, layers=1):
+    """Random Q8_0 weights [n, k] (rows padded to ``pad_out``), Q8_0's group
+    for k; ``layers`` > 1 stacks them and returns the last layer's view."""
+    g = tq.pick_group_size(k)
+    rows = pad_out or n
+    out = []
+    for _ in range(copies):
+        q = torch.randint(-127, 128, (layers, rows, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(layers, rows, k // g, generator=gen, device="cuda") * 1e-3 + 1e-4
+        w = tq.QuantTensor(q=q, s=s, logical_in=k, logical_out=n)
+        out.append(w.layer(layers - 1) if layers > 1 else tq.QuantTensor(
+            q=q[0], s=s[0], logical_in=k, logical_out=n))
+    return out
+
+
 def check_k25(torch, tq, tm, results):
     """K25 at the 7B shapes of the Q8_0 path: M 8 (a decode step) on wqkv,
-    w13, w2 and the classifier, M 4096 (the 8 x 512 admission) on wqkv, wo,
-    w13 and w2; f32 activations, as the served model's; random int8 weights
-    with Q8_0's groups (g 64 for in 4096, 32 for in 11008).  Against the
-    plain version within K25_TOL; the library call is ``torch.matmul`` on the
-    weight dequantized once to bf16."""
+    wo, w13, w2 and the classifier (q8_gemv_kernel), M 4096 (the 8 x 512
+    admission) on wqkv, wo, w13 and w2 (q8_matmul_wgmma_kernel, x cast to
+    bf16 by the wrapper); f32 activations, as the served model's; random
+    int8 weights with Q8_0's groups (g 64 for in 4096, 32 for in 11008).
+    Against the plain version within K25_TOL; the library call is
+    ``torch.matmul`` on the weight dequantized once to bf16.  The M 8 rows
+    also read both sides' device time from a trace (``device_ms``).  Then
+    the ragged edges, checked only: M 17, 1000 (in 11008, g 32, a layer
+    view of stacked weights), 4095 with out 4000 of 4096 padded rows, and
+    the decode kernel at M 1 and 16, f32 and bf16 x; one bf16-output case
+    within one bf16 step (2^-7) of the peak."""
     gen = torch.Generator(device="cuda").manual_seed(25)
-    cases = [(8, 4096, 12288), (8, 4096, 22016), (8, 11008, 4096), (8, 4096, 32000),
-             (4096, 4096, 12288), (4096, 4096, 4096), (4096, 4096, 22016), (4096, 11008, 4096)]
+    cases = [(8, 4096, 12288), (8, 4096, 4096), (8, 4096, 22016), (8, 11008, 4096),
+             (8, 4096, 32000), (4096, 4096, 12288), (4096, 4096, 4096), (4096, 4096, 22016),
+             (4096, 11008, 4096)]
     for m, k, n in cases:
         g = tq.pick_group_size(k)
         wbytes = n * k + 4 * n * (k // g)
         copies = n_copies(wbytes)
-        ws = [tq.QuantTensor(
-            q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8),
-            s=torch.rand(n, k // g, generator=gen, device="cuda") * 1e-3 + 1e-4,
-            logical_in=k, logical_out=n) for _ in range(copies)]
+        ws = _q8_weights(torch, tq, gen, n, k, copies)
         x = torch.randn(m, k, generator=gen, device="cuda")
         got = tm.q8_matmul(x, ws[0], out_dtype=torch.float32)
         torch.cuda.synchronize()
@@ -1336,12 +1380,39 @@ def check_k25(torch, tq, tm, results):
         wb = [tm.q8_weight_bf16(w) for w in ws]
         xb = x.to(torch.bfloat16)
         library_ms = cuda_ms(torch, lambda i: torch.matmul(xb, wb[i % copies].t()), iters)
+        extra = {}
+        if m <= tm.Q8_GEMV_ROWS:
+            extra = dict(device_ms=device_ms(torch, lambda i: tm.q8_matmul(x, ws[i % copies])),
+                         library_device_ms=device_ms(
+                             torch, lambda i: torch.matmul(xb, wb[i % copies].t())))
         del wb
         b_ms, by = bound_ms(wbytes + 4 * m * k + 4 * m * n, 2 * m * k * n, "bf16")
         results.append(dict(kernel="K25", name=label, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                            library_ms=library_ms))
+                            library_ms=library_ms, **extra))
         del ws, x, got, want
+    torch.cuda.empty_cache()
+    # the ragged edges: (M, K, N, padded out rows, stacked layers, x dtype)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for m, k, n, pad, layers, xdt, odt in (
+            (17, 4096, 4096, None, 1, f32, f32), (1000, 11008, 4096, None, 3, bf16, f32),
+            (4095, 4096, 4000, 4096, 1, f32, f32), (1, 4096, 12288, None, 1, f32, f32),
+            (16, 11008, 4096, None, 3, bf16, f32), (16, 4096, 1000, 1024, 1, f32, f32),
+            (1000, 4096, 4000, 4096, 1, f32, bf16)):
+        w = _q8_weights(torch, tq, gen, n, k, 1, pad, layers)[0]
+        x = torch.randn(m, k, generator=gen, device="cuda").to(xdt)
+        got = tm.q8_matmul(x, w, out_dtype=odt)
+        torch.cuda.synchronize()
+        want = tm.q8_matmul_plain(x, w, out_dtype=odt)
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        tol = K25_TOL if odt == f32 else 2.0 ** -7
+        label = (f"K25 q8_matmul M={m} K={k} N={n} of {pad or n} layers={layers} "
+                 f"x={_sfx(xdt)} out={_sfx(odt)}")
+        check(got.shape == (m, n) and err <= tol * peak, f"{label}: err {err} > {tol} * {peak}")
+        print(json.dumps(dict(kernel="K25", name=label, max_err=err, peak=peak, tol=tol)),
+              flush=True)
+        del w, x, got, want
     torch.cuda.empty_cache()
 
 
@@ -1371,8 +1442,10 @@ def check_fp_forms(torch, tatt, results):
     1e4, K10 at the step's shape.  K6, K9 and K19 take f32 queries (and K6
     writes f32 outputs), as the dense and Q8_0 paths pass them, within
     FP_TOL of their plain versions; bf16 queries beside them (K6 writing
-    bf16, within K6_TOL); K7 and K10 exact.  Library calls: SDPA on the fp
-    cache, as for the INT8 forms, and the indexed copies."""
+    bf16, within K6_TOL); K7 and K10 exact.  K6's bound is its split cell's
+    own (csrc/prefill_split.cuh: the TF32 or bf16 passes' operations),
+    with the f32 SIMT bound beside it (``simt_bound_ms``).  Library calls:
+    SDPA on the fp cache, as for the INT8 forms, and the indexed copies."""
     import torch.nn.functional as F
 
     for dt in (torch.float32, torch.bfloat16):
@@ -1419,10 +1492,19 @@ def check_fp_forms(torch, tatt, results):
             keys = sum(min(S, s + t + 1) for s in start for t in range(T))
             used = sum(min(S, s + T) for s in start)
             nbytes = B * T * NH * hd * qb * 2 + 2 * KVH * used * hd * es + 4 * B
-            b_ms, by = bound_ms(nbytes, 4 * hd * NH * keys, "f32")
+            # the split cells' passes (csrc/prefill_split.cuh): a bf16 cache
+            # runs bf16 ones, QK^T one per bf16 term of q (3 for f32 q) and
+            # PV 3; an f32 cache TF32 ones, QK^T 2 (3 for f32 q) and PV 3;
+            # beside it the bound of the f32 dots on the SIMT cores
+            if dt == torch.bfloat16:
+                passes, kind = (3 if qdt == torch.float32 else 1) + 3, "bf16"
+            else:
+                passes, kind = (3 if qdt == torch.float32 else 2) + 3, "tf32"
+            b_ms, by = bound_ms(nbytes, 2 * hd * NH * keys * passes, kind)
+            simt_ms, _ = bound_ms(nbytes, 4 * hd * NH * keys, "f32")
             results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                                library_ms=library_ms))
+                                library_ms=library_ms, simt_bound_ms=simt_ms))
             del ins, sd, got, want, mask
             torch.cuda.empty_cache()
 
@@ -4030,7 +4112,8 @@ def main(argv=None) -> int:
         extra = {k: r[k] for k in ("int8_flip_share", "scale_max_rel_err", "att_int8_flip_share",
                                    "att_scale_max_rel_err", "k9_block256_max_diff",
                                    "k9_block128_max_diff", "k6_dense_copy_max_diff",
-                                   "k6_dense_copy_ms") if k in r}
+                                   "k6_dense_copy_ms", "device_ms", "library_device_ms",
+                                   "simt_bound_ms") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -16,9 +16,11 @@ points and over the same 64-key tiles, but sum in another order and take
 exp as the hardware's exp2, so a p * vs on a bf16 rounding boundary may
 round the other way: within one bf16 step of the largest output (2^-7
 relative) plus f32 noise, for f32 and bf16 outputs alike (K6_TOL,
-chip_smoke.py's limit).  K6's fp forms compute in f32 like
-their plain versions but sum in another order and use CUDA's expf: f32
-outputs within 1e-5 of the largest output.  K9 and K19 round q and p to
+chip_smoke.py's limit).  K6's fp forms compute the f32 dots of their plain
+versions as sums of exact split products on the tensor cores (bf16 terms
+for a bf16 cache, TF32 terms for an f32 one; csrc/prefill_split.cuh), sum
+in another order and take exp as exp2: f32 outputs within 1e-5 of the
+largest output.  K9 and K19 round q and p to
 bf16 at the same places as their plain versions; the f32 sums run in
 another order, which can flip a rare bf16 rounding of p: within one bf16
 step (2^-7) of the largest output plus f32 noise, as K6 in bf16.
@@ -527,6 +529,43 @@ def test_k25_close(card, m, k, n, g, stacked, dtype):
     assert err <= tol * want.float().abs().max().item(), err
 
 
+# K25's two kernels at their edges: the wgmma kernel (M > 16) at ragged M
+# (17, 1000, 4095), an out-dim short of its padded 128-row tiles, in 11008
+# (g 32) through a layer view of stacked weights, bf16 x and outputs; the
+# decode kernel (M <= 16) at M 1 and 16.  Limits as above.
+
+
+@pytest.mark.parametrize("m,k,n,pad,layers", [
+    (17, 4096, 4096, None, 1),     # one m-tile, 17 of its 256 rows
+    (1000, 11008, 4096, None, 3),  # g 32, the last layer of three
+    (4095, 4096, 4000, 4096, 1),   # 4000 of 4096 padded out rows
+    (300, 4096, 1000, 1024, 2),    # a layer view, 1000 of 1024
+    (1, 4096, 12288, None, 1),     # decode kernel, one x row
+    (16, 11008, 4096, None, 2),    # decode kernel, two x row tiles, g 32
+    (9, 4096, 1000, 1024, 1),      # decode kernel, ragged rows and out
+])
+@pytest.mark.parametrize("xdtype,odtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.bfloat16)])
+def test_k25_edges_close(card, m, k, n, pad, layers, xdtype, odtype):
+    gen = _gen(m * 7 + k + n)
+    g = tq.pick_group_size(k)
+    rows = pad or n
+    q = torch.randint(-127, 128, (layers, rows, k), generator=gen, device=card,
+                      dtype=torch.int8)
+    sc = torch.rand(layers, rows, k // g, generator=gen, device=card) * 1e-3 + 1e-4
+    wt = tq.QuantTensor(q=q, s=sc, logical_in=k, logical_out=n).layer(layers - 1)
+    x = torch.randn(m, k, generator=gen, device=card).to(xdtype)
+    before = _kernels.LAUNCHES["K25"]
+    got = tm.q8_matmul(x, wt, out_dtype=odtype)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K25"] == before + 1 and got.shape == (m, n)
+    want = tm.q8_matmul_plain(x, wt, out_dtype=odtype)
+    tol = 1e-4 if odtype == torch.float32 else 2.0 ** -7
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
 # ------------------------------------------------- the fp forms of K6-K19
 # f32 throughout on both sides, nothing rounded: K6, K9 and K19 within 1e-5
 # of the largest output (sum order and expf); K7 and K10 exact.  Queries in
@@ -583,6 +622,38 @@ def test_fp_k6_close(card, B, T, NH, KVH, S, hd, start, cdtype, qdtype):
     assert _kernels.LAUNCHES[form] == before + 1
     want = tatt.flash_prefill_attention_plain(q, k, v, st)
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# K6's fp forms on the split cells (csrc/prefill_split.cuh) at GQA G 4 (KVH
+# 8), hd 64 and 128, starts past several 64-key tiles, both block widths
+# (B 2 x KVH 8 x T 96 launches fewer blocks than the card has SMs: 4 warps a
+# block; B 8 x T 256 more: 8 warps), f32 and bf16 queries; f32 outputs
+# within 1e-5 of the peak, bf16 outputs within one bf16 step (K6_TOL).
+
+
+@pytest.mark.parametrize("B,T,S,hd,start", [(2, 96, 512, 128, [0, 300]),
+                                            (2, 96, 512, 64, [130, 333]),
+                                            (8, 256, 1024, 128, [0, 64, 128, 200, 500, 700,
+                                                                 768, 700])])
+@pytest.mark.parametrize("cdtype", FP)
+@pytest.mark.parametrize("qdtype,odtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.bfloat16)])
+def test_fp_k6_gqa_close(card, B, T, S, hd, start, cdtype, qdtype, odtype):
+    NH, KVH = 32, 8
+    g = _gen(B * T + S + hd)
+    q = torch.randn(B, T, NH, hd, generator=g, device=card).to(qdtype)
+    k, v = (torch.randn(B, KVH, S, hd, generator=g, device=card).to(cdtype) for _ in range(2))
+    st = torch.tensor(start, dtype=torch.int32, device=card)
+    form = _kernels.form("K6", cdtype)
+    before = _kernels.LAUNCHES[form]
+    got = tatt.flash_prefill_attention(q, k, v, st, out_dtype=odtype)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[form] == before + 1
+    want = tatt.flash_prefill_attention_plain(q, k, v, st, out_dtype=odtype)
+    tol = 1e-5 if odtype == torch.float32 else K6_TOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("hd", [128, 12])

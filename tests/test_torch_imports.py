@@ -78,8 +78,10 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
 
     real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc/fused_step2.cu")]
     assert real == ["common.cuh", "fused_decode.cuh"]
-    # K6's INT8 form and K16 share the tensor-core cell; K6's fp forms keep the f32 one
-    for src, want in (("flash_prefill.cu", ["common.cuh", "prefill_cell.cuh", "prefill_mma.cuh"]),
+    # K6's INT8 form and K16 share the bf16 tensor-core cell; K6's fp forms run the
+    # split-TF32 cell, which takes the bf16 cell's helpers
+    for src, want in (("flash_prefill.cu", ["common.cuh", "prefill_mma.cuh",
+                                            "prefill_split.cuh"]),
                       ("paged_flash_prefill.cu", ["common.cuh", "prefill_mma.cuh"])):
         real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc" / src)]
         assert real == want, (src, real)

@@ -22,23 +22,24 @@
 // the f32 SIMT cell's INT8 form, 1.51 and 0.98 ms at the two phase-3 shapes
 // on an H100: 25x and 12x SDPA on the dequantized cache.)
 //
-// The fp forms (f32 and bf16 caches) run prefill_cell.cuh's f32 SIMT cell:
-// JAX's fp branch is f32 dots and f32 p (attention.py:1613-1640), which a
-// bf16 dot is not; K/V are converted from the cache type to f32 once per
-// tile, and the result agrees with the plain version to f32
-// summation-order noise.
-#include "prefill_cell.cuh"
+// The fp forms (f32 and bf16 caches) run prefill_split.cuh's split
+// tensor-core cells: JAX's fp branch is f32 dots and f32 p (attention.py
+// :1613-1640), which a bf16 dot is not, so each f32 operand goes in as a
+// sum of terms the tensor cores take exactly (three bf16 terms on a bf16
+// cache, two TF32 terms on an f32 one) and every dot as a sum of exact
+// products, which agree with the plain version to f32 noise; they scale
+// q . k by 1 / sqrt(hd), as the plain version attention_prefill does, where
+// the INT8 form pre-scales q.  K/V rows come straight from the cache in its
+// own type.
 #include "prefill_mma.cuh"
+#include "prefill_split.cuh"
 
 namespace {
 
-using prefill::kBC;
-using prefill::kThreads;
-
-// K6's fp keys for the f32 cell: rows [0, S) of one (slot, kv head) of a
-// dense f32 or bf16 cache, which has no scales (1).
-template <int HDP, typename KT>
-struct DenseKeys {
+// K6's fp keys for the split cell: rows [0, S) of one (slot, kv head) of a
+// dense f32 or bf16 cache.
+template <typename KT>
+struct DenseKeysFp {
     const KT* kc;
     const KT* vc;
     long long base;  // row index of key 0
@@ -46,14 +47,9 @@ struct DenseKeys {
 
     __device__ __forceinline__ int kend(int e) const { return min(S, e); }
     __device__ __forceinline__ bool ok(int c) const { return c < S; }
-    __device__ __forceinline__ void load_k(int c0, float* KV, float* ksc, float* vsc) const {
-        prefill::load_run<HDP>(kc, base + c0, S - c0, hd, KV);
-        const int tid = threadIdx.x;
-        if (tid < kBC) ksc[tid] = vsc[tid] = c0 + tid < S ? 1.f : 0.f;
-    }
-    __device__ __forceinline__ void load_v(int c0, float* KV) const {
-        prefill::load_run<HDP>(vc, base + c0, S - c0, hd, KV);
-    }
+    __device__ __forceinline__ bool all_ok(int c0) const { return c0 + prefill_split::kBC <= S; }
+    __device__ __forceinline__ const KT* k_row(int c) const { return kc + (base + c) * hd; }
+    __device__ __forceinline__ const KT* v_row(int c) const { return vc + (base + c) * hd; }
 };
 
 // K6's INT8 keys for the tensor-core cell: rows [0, S) of one (slot, kv
@@ -109,31 +105,61 @@ int launch_i8(const void* q, const void* k, const void* v, const float* ks, cons
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int HDP, typename QT, typename KT, typename OT>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
-                     const KT* __restrict__ vc, const int* __restrict__ start,
-                     OT* __restrict__ out, int T, int NH, int KVH, int S, int hd,
-                     float sqrt_hd) {
-    const int h = blockIdx.y, b = blockIdx.z;
-    DenseKeys<HDP, KT> keys{kc, vc, ((long long)b * KVH + h) * S, S, hd};
-    prefill::attend<HDP>(q, out, keys, start[b], T, NH, KVH, hd, sqrt_hd);
+template <int HDP, int NW, typename QT, typename KT, typename OT>
+__global__ void __launch_bounds__(32 * NW)
+flash_prefill_fp_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
+                        const KT* __restrict__ vc, const int* __restrict__ start,
+                        OT* __restrict__ out, int T, int NH, int KVH, int S, int hd,
+                        float sqrt_hd, int vec) {
+    const int h = blockIdx.x, b = blockIdx.y;
+    const DenseKeysFp<KT> keys{kc, vc, ((long long)b * KVH + h) * S, S, hd};
+    const bool qvec = hd % (16 / static_cast<int>(sizeof(QT))) == 0 &&
+                      reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    if constexpr (sizeof(KT) == 2)
+        prefill_split::attend_bf16<HDP, NW, QT, OT>(q, out, keys, start[b], T, NH, KVH, hd,
+                                                    sqrt_hd, vec != 0, qvec);
+    else
+        prefill_split::attend_tf32<HDP, NW, QT, OT>(q, out, keys, start[b], T, NH, KVH, hd,
+                                                    sqrt_hd, vec != 0, qvec);
 }
 
+template <int HDP, int NW, typename QT, typename KT, typename OT>
+int launch_fp(const void* q, const void* k, const void* v, const int* start, void* out, int B,
+              int T, int NH, int KVH, int S, int hd, float sqrt_hd, int vec, cudaStream_t st) {
+    auto kern = flash_prefill_fp_kernel<HDP, NW, QT, KT, OT>;
+    constexpr int bytes = prefill_split::kSmemBytes<HDP, NW, QT, KT>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rows = T * (NH / KVH);
+    dim3 grid(KVH, B, (rows + 16 * NW - 1) / (16 * NW));
+    kern<<<grid, 32 * NW, bytes, st>>>(static_cast<const QT*>(q), static_cast<const KT*>(k),
+                                       static_cast<const KT*>(v), start, static_cast<OT*>(out),
+                                       T, NH, KVH, S, hd, sqrt_hd, vec);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The fp forms' blocks of 8 warps (128 folded rows) where that still gives
+// every SM a block, else of 4.
 template <int HDP, typename QT, typename KT, typename OT>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* start, void* out, int B, int T, int NH, int KVH, int S, int hd,
            float sqrt_hd, cudaStream_t st) {
-    auto kern = flash_prefill_kernel<HDP, QT, KT, OT>;
-    const int bytes = prefill::kCellFloats<HDP> * static_cast<int>(sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int rows = T * (NH / KVH);
-    dim3 grid((rows + prefill::kBR - 1) / prefill::kBR, KVH, B);
-    kern<<<grid, kThreads, bytes, st>>>(static_cast<const QT*>(q), static_cast<const KT*>(k),
-                                        static_cast<const KT*>(v), start,
-                                        static_cast<OT*>(out), T, NH, KVH, S, hd, sqrt_hd);
-    return static_cast<int>(cudaGetLastError());
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    // 16-byte copies where every row starts on 16 bytes
+    const int vec = hd % (16 / static_cast<int>(sizeof(KT))) == 0 &&
+                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
+    const long long blocks8 = (long long)KVH * B * ((T * (NH / KVH) + 127) / 128);
+    if (blocks8 >= sms)
+        return launch_fp<HDP, 8, QT, KT, OT>(q, k, v, start, out, B, T, NH, KVH, S, hd, sqrt_hd,
+                                             vec, st);
+    return launch_fp<HDP, 4, QT, KT, OT>(q, k, v, start, out, B, T, NH, KVH, S, hd, sqrt_hd, vec,
+                                         st);
 }
 
 #define TL_K6_ARGS q, k, v, ks, vs, start, out, B, T, NH, KVH, S, hd, sqrt_hd, st

@@ -1,8 +1,9 @@
 // The bf16 tensor-core cell of causal prefill attention over an INT8 K/V
 // cache, shared by K6's INT8 form (flash_prefill.cu: a dense cache) and K16
 // (paged_flash_prefill.cu: past pool pages through a page table, then a
-// chunk's fresh rows).  The fp forms of K6 keep the f32 SIMT cell
-// (prefill_cell.cuh): JAX's fp branch is f32 dots, which a bf16 dot is not.
+// chunk's fresh rows).  The fp forms of K6 run the split-TF32 cell
+// (prefill_split.cuh, which takes this header's helpers): JAX's fp branch is
+// f32 dots, which a bf16 dot is not.
 //
 // Rounding contract: the TPU kernels' own (tpu_llama/ops/attention.py
 // _flash_prefill_fresh_kernel :1499-1560, _flash_prefill_kernel

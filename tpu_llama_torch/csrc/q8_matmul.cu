@@ -15,35 +15,55 @@
 // [M, K] f32 or bf16, zero past its logical in-dim; out [M, N] f32 or bf16
 // with N <= Np the logical out-dim.
 //
-// Bound on the H100: at decode (M = 8) bytes -- every weight byte and its
-// share 4 / g of a scale is read once per step (w13 4096 x 22016 at g 64:
-// 95.8 MB, 28.6 us at 3.35 TB/s); at prefill (M = 4096) bf16 tensor-core
-// operations (w13: 739 GFLOP, 0.75 ms at 989 TFLOP/s).  Design: mma.sync
-// m16n8k16 (bf16 x bf16 -> f32) -- exactly the TPU kernel's arithmetic --
-// on K-contiguous operands staged raw (int8 weights, their scales, x in its
-// own type) through a cp.async ring of STAGES k-tiles, so no bf16 copy of W
-// exists in device memory.  Two kernels, by M:
-// * M <= 16 (decode), q8_matmul_kernel: a 16 x 32 block with 256-element
-//   k-tiles (many blocks, deep loads in flight, for bandwidth), each
-//   fragment dequantized (weights) or rounded (x) to bf16 in registers as
-//   it is read -- one warp per 8 columns, so nothing is converted twice;
-// * M > 16 (prefill), q8_matmul_tc_kernel: 128 x 128 blocks of eight warps
-//   (operand reuse, for the tensor cores); each k-tile is converted once
-//   per block, all threads together, into bf16 tiles in shared memory, which
-//   the warps read with ldmatrix -- converting per fragment there costs
-//   two to four times over, each weight for every warp row of the block.
-// wgmma and TMA are left to a later change.
+// Two kernels, by M:
+// * M <= 16 (decode), q8_gemv_kernel.  Bound on the H100: bytes -- every
+//   weight byte and its share 4 / g of a scale, read once (w13 4096 x 22016
+//   at g 64: 95.8 MB, 28.6 us at 3.35 TB/s).  Design: a bandwidth kernel.
+//   A block owns 32 weight rows and its sixteen warps split K between them
+//   (warp w takes every sixteenth 64-wide chunk, so the block reads each
+//   row in whole 1 KB runs): the 4096-deep products take one round of
+//   loads a warp, and the small out-dims (wo, w2: N = 4096) still launch
+//   128 blocks.  The weights are the m16n8k16 mma's A (two 16-row tiles a
+//   warp, which share every x fragment: x, re-read by every block from L2,
+//   is read once per 32 weight rows) and x its B (8 columns: M <= 8 wastes
+//   no column): each lane loads 16 contiguous int8 of each of its four rows
+//   with one 16-byte streaming load (no shared memory, four chunks in flight
+//   a warp) and dequantizes them in registers; the k order inside each chunk is
+//   permuted, the same for both operands (lane tg's bytes 16 tg + 4 u + e
+//   are step u's k = 2 tg, 2 tg + 1, 2 tg + 8, 2 tg + 9), so that x's B
+//   fragment is four neighbouring elements of one row.  The warps' partial
+//   sums meet in shared memory and are added in warp order.
+// * M > 16 (prefill), q8_matmul_wgmma_kernel.  Bound on the H100: bf16
+//   tensor-core operations (w13 at M 4096: 739 GFLOP, 0.75 ms at 989
+//   TFLOP/s).  Design: a wgmma + TMA mixed-input GEMM computing out^T =
+//   W x^T, so that the quantized operand is wgmma's A, which may come from
+//   registers.  The wrapper casts x to bf16 once (the rounding the contract
+//   applies, and half of an f32 x's traffic) and in the same copy permutes
+//   its k order within each 16 (logical k 8 h + 2 t + e holds element 4 t +
+//   2 h + e), which a dot does not see and which makes each lane's weight
+//   fragment of a k16 step four neighbouring bytes.  A block of three
+//   warpgroups owns a 128 (n) x 256 (m) output tile: one producer thread
+//   (its warpgroup's registers given to the others, setmaxnreg) starts TMA
+//   loads of the int8 weight tile (128 x 64, 64-byte swizzle) and the bf16
+//   x tile (256 x 64, 128-byte swizzle, rows past M zero-filled) into a
+//   ring of kStages stages, each completing on an mbarrier; two consumer
+//   warpgroups own 64 weight rows each, dequantize their rows of a k-tile
+//   from shared memory straight into wgmma A fragments (with the group
+//   scale, the contract's two roundings) while the previous k-tile's four
+//   wgmma m64n256k16 run, and free the stage on an "empty" mbarrier once
+//   its wgmma has read it.  No bf16 copy of W exists anywhere.  Blocks are
+//   ordered along M within groups of kGroupN column blocks, so a weight
+//   tile is reused from L2 by the m-blocks running beside it instead of
+//   streaming from HBM once per m-block.  The epilogue masks rows past M and
+//   columns past N.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -51,420 +71,539 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// Two neighbouring elements of x as a bf16 pair (lower k in the low half).
-__device__ __forceinline__ unsigned x_pair(const float* p) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    return pack_bf16(v.x, v.y);
-}
-__device__ __forceinline__ unsigned x_pair(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const unsigned*>(p);
+// Int8 byte i of w (w already xor 0x80808080) as an exact float: the byte
+// is the low byte of 2^23 + 128 + q, from which one subtraction leaves q.
+__device__ __forceinline__ float i8_at(unsigned wx, int i) {
+    return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7540 + i)) - 8388736.f;
 }
 
-// Two neighbouring int8 weights dequantized with the bf16 scale sb: each
-// bf16(q) * sb is exact in f32 (8 x 8 significant bits), then rounded once.
-__device__ __forceinline__ unsigned w_pair(const int8_t* p, float sb) {
-    return pack_bf16(static_cast<float>(p[0]) * sb, static_cast<float>(p[1]) * sb);
-}
-
-// BM x BN block tile, BK elements of K per stage, warps of WM x WN.
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, typename XT>
-struct Tile {
-    static constexpr int kWarpsN = BN / WN;
-    static constexpr int kThreads = (BM / WM) * kWarpsN * 32;
-    static constexpr int kLdx = BK + 8;    // x row pitch (elements): conflict-free pairs
-    static constexpr int kLdw = BK + 16;   // weight row pitch (bytes)
-    static constexpr int kSg = BK / 16;    // scale slots per weight row and stage (g >= 16)
-    static constexpr int kStageBytes =
-        BM * kLdx * static_cast<int>(sizeof(XT)) + BN * kLdw + BN * kSg * 4;
-    static constexpr int kSmem = STAGES * kStageBytes;
-};
-
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, typename XT, typename OT>
-__global__ void __launch_bounds__(Tile<BM, BN, BK, WM, WN, STAGES, XT>::kThreads)
-q8_matmul_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
-                 const float* __restrict__ s, OT* __restrict__ out, int M, int N, int Np,
-                 int K, int g) {
-    using C = Tile<BM, BN, BK, WM, WN, STAGES, XT>;
-    constexpr int NT = C::kThreads, LDX = C::kLdx, LDW = C::kLdw, SG = C::kSg;
-    constexpr int MT = WM / 16, NTL = WN / 8;  // mma tiles per warp
-    constexpr int XV = 16 / static_cast<int>(sizeof(XT));  // x elements per 16-byte chunk
-    extern __shared__ __align__(16) unsigned char smem[];
-    auto xs_of = [&](int st) {
-        return reinterpret_cast<XT*>(smem + st * C::kStageBytes);
-    };
-    auto ws_of = [&](int st) {
-        return reinterpret_cast<int8_t*>(smem + st * C::kStageBytes + BM * LDX * sizeof(XT));
-    };
-    auto ss_of = [&](int st) {
-        return reinterpret_cast<float*>(smem + st * C::kStageBytes + BM * LDX * sizeof(XT) +
-                                        BN * LDW);
-    };
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
-    const int gq = lane >> 2, t4 = lane & 3;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int nk = (K + BK - 1) / BK;
-    const int KG = K / g;          // scales per weight row
-    const int sg = BK / g;         // scales of one row in a k-tile (BK is a multiple of g)
-
-    // One k-tile of x rows [m0, m0+BM), weight rows [n0, n0+BN) and their
-    // scales into a stage; out-of-range rows and k are zero-filled.
-    auto load_tile = [&](int stage, int kt) {
-        const int k0 = kt * BK;
-        XT* xs = xs_of(stage);
-        int8_t* ws = ws_of(stage);
-        float* ss = ss_of(stage);
-        constexpr int XC = BK / XV;
-        for (int c = tid; c < BM * XC; c += NT) {
-            const int r = c / XC, kc = (c % XC) * XV;
-            const bool ok = m0 + r < M && k0 + kc < K;
-            const XT* src = ok ? x + (long long)(m0 + r) * K + k0 + kc : x;
-            cp_async16(xs + r * LDX + kc, src, ok ? 16 : 0);
-        }
-        constexpr int WC = BK / 16;
-        for (int c = tid; c < BN * WC; c += NT) {
-            const int r = c / WC, kc = (c % WC) * 16;
-            const bool ok = n0 + r < Np && k0 + kc < K;
-            const int8_t* src = ok ? q + (long long)(n0 + r) * K + k0 + kc : q;
-            cp_async16(ws + r * LDW + kc, src, ok ? 16 : 0);
-        }
-        for (int c = tid; c < BN * sg; c += NT) {
-            const int r = c / sg, j = c % sg;
-            const int kg = k0 / g + j;
-            if (n0 + r < Np && kg < KG)
-                cp_async4(ss + r * SG + j, s + (long long)(n0 + r) * KG + kg);
-            else
-                ss[r * SG + j] = 0.f;
-        }
-    };
-
-    float acc[MT][NTL][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NTL; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-        if (st < nk) load_tile(st, st);
-        cp_async_commit();
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<STAGES - 2>();  // k-tile kt has landed
-        __syncthreads();              // ...for every thread; stage kt-1 is free
-        const int nxt = kt + STAGES - 1;
-        if (nxt < nk) load_tile(nxt % STAGES, nxt);
-        cp_async_commit();
-
-        const int st = kt % STAGES;
-        const XT* xs = xs_of(st) + (wm * WM + gq) * LDX + 2 * t4;
-        const int8_t* ws = ws_of(st) + (wn * WN + gq) * LDW + 2 * t4;
-        const float* ss = ss_of(st) + (wn * WN + gq) * SG;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            // fragment layouts of mma.m16n8k16 .bf16 (PTX ISA): a thread holds
-            // rows gq and gq+8 at k = 2*t4, 2*t4+1 and 8 more of A, and
-            // column gq at the same k of B
-            unsigned af[MT][4], bf[NTL][2];
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-                const XT* p = xs + i * 16 * LDX + kk;
-                af[i][0] = x_pair(p);
-                af[i][1] = x_pair(p + 8 * LDX);
-                af[i][2] = x_pair(p + 8);
-                af[i][3] = x_pair(p + 8 * LDX + 8);
-            }
-            const int slot = kk / g;  // this 16-wide step lies in one group
-#pragma unroll
-            for (int j = 0; j < NTL; ++j) {
-                const int8_t* p = ws + j * 8 * LDW + kk;
-                const float sb = round_bf16(ss[j * 8 * SG + slot]);
-                bf[j][0] = w_pair(p, sb);
-                bf[j][1] = w_pair(p + 8, sb);
-            }
-#pragma unroll
-            for (int i = 0; i < MT; ++i)
-#pragma unroll
-                for (int j = 0; j < NTL; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-        }
-    }
-    cp_async_wait<0>();
-
-    // epilogue: accumulator c[h*2+e] sits at row gq + 8h, column 2*t4 + e
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = m0 + wm * WM + i * 16 + gq + 8 * h;
-            if (row >= M) continue;
-#pragma unroll
-            for (int j = 0; j < NTL; ++j) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = n0 + wn * WN + j * 8 + 2 * t4 + e;
-                    if (col < N) store_as(out + (long long)row * N + col, acc[i][j][h * 2 + e]);
-                }
-            }
-        }
-    }
+// Four int8 weights (one word, bytes in k order) dequantized with the bf16
+// scale sb as two bf16 pairs: each bf16(q) * sb is exact in f32 (8 x 8
+// significant bits), then rounded once.
+__device__ __forceinline__ uint2 deq4(unsigned w, float sb) {
+    const unsigned wx = w ^ 0x80808080u;
+    return make_uint2(pack_bf16(i8_at(wx, 0) * sb, i8_at(wx, 1) * sb),
+                      pack_bf16(i8_at(wx, 2) * sb, i8_at(wx, 3) * sb));
 }
 
 // ---------------------------------------------------------------------------
-// The prefill kernel (M > 16): k-tiles converted once per block into bf16
-// shared memory, fragments by ldmatrix.
+// The decode kernel (M <= 16)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
+__device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// 16 consecutive elements of x (16-byte aligned) as 8 bf16 pairs.
-__device__ __forceinline__ void x_bf16x16(const float* p, uint4 (&o)[2]) {
-    unsigned w[8];
+// 16 bytes of weights, read once: no L1 allocation
+__device__ __forceinline__ uint4 ld_stream(const int8_t* p) {
+    uint4 r;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+        : "l"(p));
+    return r;
+}
+
+// 16 consecutive elements of an x row (16-byte aligned) as 8 bf16 pairs
+__device__ __forceinline__ void x16(const float* p, unsigned (&o)[8]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const float4 v = reinterpret_cast<const float4*>(p)[i];
-        w[2 * i] = pack_bf16(v.x, v.y);
-        w[2 * i + 1] = pack_bf16(v.z, v.w);
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+        o[2 * i] = pack_bf16(v.x, v.y);
+        o[2 * i + 1] = pack_bf16(v.z, v.w);
     }
-    o[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    o[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
-__device__ __forceinline__ void x_bf16x16(const __nv_bfloat16* p, uint4 (&o)[2]) {
-    o[0] = reinterpret_cast<const uint4*>(p)[0];
-    o[1] = reinterpret_cast<const uint4*>(p)[1];
-}
-
-// 16 int8 weights (16-byte aligned) dequantized with the bf16 scale sb.
-__device__ __forceinline__ void w_bf16x16(const int8_t* p, float sb, uint4 (&o)[2]) {
-    const int4 raw = *reinterpret_cast<const int4*>(p);
-    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-    unsigned w[8];
+__device__ __forceinline__ void x16(const __nv_bfloat16* p, unsigned (&o)[8]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int word = words[i >> 1], sh = 16 * (i & 1);
-        const float lo = static_cast<float>(static_cast<int8_t>(word >> sh)) * sb;
-        const float hi = static_cast<float>(static_cast<int8_t>(word >> (sh + 8))) * sb;
-        w[i] = pack_bf16(lo, hi);
+    for (int i = 0; i < 2; ++i) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+        o[4 * i] = v.x;
+        o[4 * i + 1] = v.y;
+        o[4 * i + 2] = v.z;
+        o[4 * i + 3] = v.w;
     }
-    o[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    o[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-template <typename XT>
-struct TcTile {
-    static constexpr int BM = 128, BN = 128, BK = 32, WM = 64, WN = 32, STAGES = 3;
-    static constexpr int kWarpsN = BN / WN;
-    static constexpr int kThreads = (BM / WM) * kWarpsN * 32;  // 256
-    static constexpr int kLdx = BK + 16 / static_cast<int>(sizeof(XT));  // raw x pitch
-    static constexpr int kLdw = BK + 16;                                 // raw weight pitch
-    static constexpr int kLdb = BK + 8;  // bf16 tile pitch: 80 bytes, conflict-free ldmatrix
-    static constexpr int kSg = BK / 16;
-    static constexpr int kStageBytes =
-        BM * kLdx * static_cast<int>(sizeof(XT)) + BN * kLdw + BN * kSg * 4;
-    static constexpr int kSmem = STAGES * kStageBytes + (BM + BN) * kLdb * 2;
-};
+namespace gemv {
+constexpr int kRows = 32;    // weight rows a block owns: two mma A tiles a warp
+constexpr int kWarps = 16;   // each over every sixteenth 64-wide chunk of k
+constexpr int kThreads = 32 * kWarps;
+constexpr int kUnroll = 4;  // chunks a warp has in flight
+}  // namespace gemv
 
-template <typename XT, typename OT>
-__global__ void __launch_bounds__(TcTile<XT>::kThreads)
-q8_matmul_tc_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
-                    const float* __restrict__ s, OT* __restrict__ out, int M, int N, int Np,
-                    int K, int g) {
-    using C = TcTile<XT>;
-    constexpr int BM = C::BM, BN = C::BN, BK = C::BK, WM = C::WM, WN = C::WN;
-    constexpr int NT = C::kThreads, LDX = C::kLdx, LDW = C::kLdw, LDB = C::kLdb, SG = C::kSg;
-    constexpr int STAGES = C::STAGES;
-    constexpr int MT = WM / 16, NTL = WN / 8;
-    constexpr int XV = 16 / static_cast<int>(sizeof(XT));
-    extern __shared__ __align__(16) unsigned char smem[];
-    auto xs_of = [&](int st) { return reinterpret_cast<XT*>(smem + st * C::kStageBytes); };
-    auto ws_of = [&](int st) {
-        return reinterpret_cast<int8_t*>(smem + st * C::kStageBytes + BM * LDX * sizeof(XT));
-    };
-    auto ss_of = [&](int st) {
-        return reinterpret_cast<float*>(smem + st * C::kStageBytes + BM * LDX * sizeof(XT) +
-                                        BN * LDW);
-    };
-    __nv_bfloat16* ab = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * C::kStageBytes);
-    __nv_bfloat16* bb = ab + BM * LDB;
-
+// MT = x row tiles of 8 (1: M <= 8, 2: M <= 16)
+template <typename XT, typename OT, int MT>
+__global__ void __launch_bounds__(gemv::kThreads, 1)
+q8_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
+               const float* __restrict__ s, OT* __restrict__ out, int M, int N, int K, int g) {
+    using namespace gemv;
+    __shared__ float red[kWarps][MT][2][32][4];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
-    const int gq = lane >> 2, t4 = lane & 3;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int nk = (K + BK - 1) / BK;
-    const int KG = K / g;
-    const int sg = BK >= g ? BK / g : 1;  // scales of one row in a k-tile
-
-    auto load_tile = [&](int stage, int kt) {
-        const int k0 = kt * BK;
-        XT* xs = xs_of(stage);
-        int8_t* ws = ws_of(stage);
-        float* ss = ss_of(stage);
-        constexpr int XC = BK / XV;
-        for (int c = tid; c < BM * XC; c += NT) {
-            const int r = c / XC, kc = (c % XC) * XV;
-            const bool ok = m0 + r < M && k0 + kc < K;
-            const XT* src = ok ? x + (long long)(m0 + r) * K + k0 + kc : x;
-            cp_async16(xs + r * LDX + kc, src, ok ? 16 : 0);
-        }
-        constexpr int WC = BK / 16;
-        for (int c = tid; c < BN * WC; c += NT) {
-            const int r = c / WC, kc = (c % WC) * 16;
-            const bool ok = n0 + r < Np && k0 + kc < K;
-            const int8_t* src = ok ? q + (long long)(n0 + r) * K + k0 + kc : q;
-            cp_async16(ws + r * LDW + kc, src, ok ? 16 : 0);
-        }
-        for (int c = tid; c < BN * sg; c += NT) {
-            const int r = c / sg, j = c % sg;
-            const int kg = k0 / g + j;
-            if (n0 + r < Np && kg < KG)
-                cp_async4(ss + r * SG + j, s + (long long)(n0 + r) * KG + kg);
-            else
-                ss[r * SG + j] = 0.f;
-        }
-    };
-
-    // one k-tile, raw -> bf16: each thread converts 16 consecutive k of one
-    // x row and 16 of one weight row (BK = 32: two threads per row)
-    auto convert = [&](int stage, int kt) {
-        const int r = tid >> 1, h = (tid & 1) * 16;
-        uint4 o[2];
-        x_bf16x16(xs_of(stage) + r * LDX + h, o);
-        *reinterpret_cast<uint4*>(ab + r * LDB + h) = o[0];
-        *reinterpret_cast<uint4*>(ab + r * LDB + h + 8) = o[1];
-        const int slot = ((kt * BK + h) / g) - (kt * BK) / g;  // this 16-run lies in one group
-        w_bf16x16(ws_of(stage) + r * LDW + h, round_bf16(ss_of(stage)[r * SG + slot]), o);
-        *reinterpret_cast<uint4*>(bb + r * LDB + h) = o[0];
-        *reinterpret_cast<uint4*>(bb + r * LDB + h + 8) = o[1];
-    };
-
-    float acc[MT][NTL][4];
+    const int gr = lane >> 2, tg = lane & 3;
+    const int n0 = blockIdx.x * kRows;
+    const int KG = K / g, nch = K / 64;
+    // row gr + 8 r (r = 0..3): A tile r / 2, half r % 2
+    const int8_t* w = q + (long long)(n0 + gr) * K + 16 * tg;
+    const float* sr = s + (long long)(n0 + gr) * KG;
+    const XT* xr[MT];
+    bool xin[MT];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NTL; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-        if (st < nk) load_tile(st, st);
-        cp_async_commit();
+    for (int mt = 0; mt < MT; ++mt) {
+        const int m = mt * 8 + gr;
+        xin[mt] = m < M;
+        xr[mt] = x + (long long)(xin[mt] ? m : 0) * K + 16 * tg;
     }
-    // ldmatrix row addresses: A rows lane % 16, k halves lane / 16; B (n-major
-    // rows of k) n = lane % 8 + 8 * (lane / 16), k halves (lane / 8) % 2
-    const __nv_bfloat16* a_ld = ab + (wm * WM + (lane & 15)) * LDB + (lane >> 4) * 8;
-    const __nv_bfloat16* b_ld = bb + (wn * WN + (lane & 7) + ((lane >> 4) << 3)) * LDB +
-                                ((lane >> 3) & 1) * 8;
-    for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<STAGES - 2>();  // k-tile kt has landed
-        __syncthreads();              // ...for every thread; the bf16 tiles are free
-        convert(kt % STAGES, kt);
-        const int nxt = kt + STAGES - 1;
-        if (nxt < nk) load_tile(nxt % STAGES, nxt);
-        cp_async_commit();
-        __syncthreads();  // the bf16 tiles are complete
+    float acc[MT][2][4];
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            unsigned af[MT][4], bf[NTL][2];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int i = 0; i < MT; ++i) ldsm_x4(af[i], a_ld + i * 16 * LDB + kk);
+        for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
-            for (int j = 0; j < NTL; j += 2) {
-                unsigned r[4];
-                ldsm_x4(r, b_ld + j * 8 * LDB + kk);
-                bf[j][0] = r[0];
-                bf[j][1] = r[1];
-                bf[j + 1][0] = r[2];
-                bf[j + 1][1] = r[3];
+            for (int e = 0; e < 4; ++e) acc[mt][rt][e] = 0.f;
+
+    for (int c = warp; c < nch; c += kWarps * kUnroll) {
+        uint4 wv[kUnroll][4];
+        float sv[kUnroll][4];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {  // the weights' loads of the kUnroll chunks first
+            const int cc = c + kWarps * u;
+            if (cc < nch) {
+                const int k = cc * 64, kg = (k + 16 * tg) / g;  // the lane's 16 k: one group
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    wv[u][r] = ld_stream(w + 8LL * r * K + k);
+                    sv[u][r] = __ldg(sr + 8LL * r * KG + kg);
+                }
             }
-#pragma unroll
-            for (int i = 0; i < MT; ++i)
-#pragma unroll
-                for (int j = 0; j < NTL; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
         }
-    }
-    cp_async_wait<0>();
-
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
+        for (int u = 0; u < kUnroll; ++u) {
+            const int cc = c + kWarps * u;
+            if (cc < nch) {
+                unsigned xf[MT][8];  // x (L1 / L2), shared by the two A tiles
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = m0 + wm * WM + i * 16 + gq + 8 * h;
-            if (row >= M) continue;
+                for (int mt = 0; mt < MT; ++mt) {
+                    if (xin[mt]) {
+                        x16(xr[mt] + cc * 64, xf[mt]);
+                    } else {
 #pragma unroll
-            for (int j = 0; j < NTL; ++j) {
+                        for (int i = 0; i < 8; ++i) xf[mt][i] = 0u;
+                    }
+                }
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = n0 + wn * WN + j * 8 + 2 * t4 + e;
-                    if (col < N) store_as(out + (long long)row * N + col, acc[i][j][h * 2 + e]);
+                for (int rt = 0; rt < 2; ++rt) {
+                    const float ra = round_bf16(sv[u][2 * rt]), rb = round_bf16(sv[u][2 * rt + 1]);
+                    const uint4 a4 = wv[u][2 * rt], b4 = wv[u][2 * rt + 1];
+                    const unsigned wav[4] = {a4.x, a4.y, a4.z, a4.w};
+                    const unsigned wbv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+                    for (int t = 0; t < 4; ++t) {
+                        // A: rows gr (a0, a2) and gr + 8 (a1, a3) of tile rt at
+                        // the step's k pairs (bytes 4 t, 4 t + 1 and 4 t + 2, 4 t + 3)
+                        const uint2 da = deq4(wav[t], ra), db = deq4(wbv[t], rb);
+#pragma unroll
+                        for (int mt = 0; mt < MT; ++mt)
+                            mma_bf16(acc[mt][rt], da.x, db.x, da.y, db.y, xf[mt][2 * t],
+                                     xf[mt][2 * t + 1]);
+                    }
                 }
             }
         }
     }
+
+    // the warps' partial sums, added in warp order; c[e] of tile rt sits at
+    // weight row 16 rt + gr + 8 (e / 2) and x row 8 mt + 2 tg + e % 2
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) red[warp][mt][rt][lane][e] = acc[mt][rt][e];
+    __syncthreads();
+    for (int i = tid; i < MT * 256; i += kThreads) {
+        const int mt = i / 256, rt = (i / 128) % 2, ln = (i / 4) % 32, e = i % 4;
+        float v = 0.f;
+#pragma unroll
+        for (int wi = 0; wi < kWarps; ++wi) v += red[wi][mt][rt][ln][e];
+        const int n = n0 + 16 * rt + (ln >> 2) + 8 * (e >> 1), m = mt * 8 + 2 * (ln & 3) + (e & 1);
+        if (n < N && m < M) store_as(out + (long long)m * N + n, v);
+    }
 }
 
-template <typename XT, typename OT>
-int launch_tc(const void* x, const int8_t* q, const float* s, void* out, int M, int N, int Np,
-              int K, int g, cudaStream_t st) {
-    using C = TcTile<XT>;
-    auto kern = q8_matmul_tc_kernel<XT, OT>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           C::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
-    kern<<<grid, C::kThreads, C::kSmem, st>>>(static_cast<const XT*>(x), q, s,
-                                              static_cast<OT*>(out), M, N, Np, K, g);
+template <typename XT, typename OT, int MT>
+int launch_gemv(const void* x, const int8_t* q, const float* s, void* out, int M, int N, int K,
+                int g, cudaStream_t st) {
+    const int blocks = (N + gemv::kRows - 1) / gemv::kRows;
+    q8_gemv_kernel<XT, OT, MT><<<blocks, gemv::kThreads, 0, st>>>(
+        static_cast<const XT*>(x), q, s, static_cast<OT*>(out), M, N, K, g);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, typename XT, typename OT>
-int launch(const void* x, const int8_t* q, const float* s, void* out, int M, int N, int Np,
-           int K, int g, cudaStream_t st) {
-    using C = Tile<BM, BN, BK, WM, WN, STAGES, XT>;
-    auto kern = q8_matmul_kernel<BM, BN, BK, WM, WN, STAGES, XT, OT>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           C::kSmem);
+// ---------------------------------------------------------------------------
+// The prefill kernel (M > 16): wgmma + TMA
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int BN = 128;  // weight rows (output columns) a block owns: two warpgroups of 64
+constexpr int BM = 256;  // x rows (output rows) a block owns: wgmma's N
+constexpr int BK = 64;   // k a stage holds (x rows of 128 bytes: one 128-byte swizzle span)
+constexpr int kStages = 5;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 * 40 + 256 * 232 <= 64K
+constexpr int kThreads = 3 * 128;  // the producer warpgroup, two consumers
+constexpr int kXTile = BM * BK * 2;
+constexpr int kWTile = BN * BK;
+constexpr int kStageBytes = kXTile + kWTile;
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;  // + alignment slack
+constexpr int kGroupN = 16;  // column blocks of a raster group
+}  // namespace wg
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    unsigned done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_addr(bar)), "r"(parity)
+            : "memory");
+    }
+}
+
+// a 2D TMA tile load (inner coordinate c0, outer c1) completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// (TMA's SWIZZLE_128B): 8-row atoms of 128-byte rows, 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+    return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x 256 f32) += a (64 x 16 bf16, registers) * b (16 x 256 bf16, K-major
+// in shared memory)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], const unsigned (&a)[4],
+                                                 uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Compiler barriers around an asynchronous wgmma's registers: the
+// accumulators' reads stay after the wait_group before them, and the A
+// fragments stay live (their registers not reused) until the wait_group
+// after the wgmma that reads them -- the compiler sees the wgmma consume
+// them when it is launched, the hardware reads them later.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_frag(unsigned (&a)[4][4]) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[t][i])::"memory");
+}
+
+// Byte offset of (row r, byte b) of a 64-byte-row tile in TMA's 64-byte
+// swizzle: the 16-byte chunk index is xored with bits 7-8 of the offset
+__device__ __forceinline__ int sw64(int r, int b) {
+    return r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
+}
+
+// A consumer thread's A fragments of one k-tile: rows r and r + 8 of the
+// stage's weight tile (r = the warp's 16 rows' gr), for the four k16 steps
+// t (the mma.m16n8k16 A layout, warp w of the warpgroup owning rows
+// 16 w .. 16 w + 15): a0 / a1 rows r / r + 8 at logical k 2 tg, + 1; a2 /
+// a3 at logical k 2 tg + 8, + 9.  x's k order is permuted within each 16
+// (by the wrapper), so those four logical k are the weights' bytes 4 tg ..
+// 4 tg + 3 of the step: one 32-bit load a row.  sc[h][j]: the bf16-rounded
+// scales of row r + 8 h for the tile's j-th group.
+template <int SPT>
+__device__ __forceinline__ void dequant_tile(const int8_t* wt, int r, int tg,
+                                             const float (&sc)[2][SPT], unsigned (&a)[4][4]) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+        const int j = t * SPT / 4;  // the 16-run's group (g = 64 / SPT >= 16)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // row r + 8 i
+            const uint2 d = deq4(*reinterpret_cast<const unsigned*>(wt + sw64(r + 8 * i, 16 * t + 4 * tg)),
+                                 sc[i][j]);
+            a[t][i] = d.x;
+            a[t][2 + i] = d.y;
+        }
+    }
+}
+
+// SPT = scales per row and k-tile (64 / g)
+template <typename OT, int SPT>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+q8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, const float* __restrict__ s,
+                       OT* __restrict__ out, int M, int N, int K) {
+    using namespace wg;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+    unsigned char* xs = base;                      // [kStages][BM][BK] bf16, 128-byte swizzle
+    int8_t* ws = reinterpret_cast<int8_t*>(base + kStages * kXTile);  // [kStages][BN][BK]
+    uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
+    uint64_t* empty = full + kStages;
+
+    // raster: groups of kGroupN column blocks, m slower within a group
+    const int num_n = (N + BN - 1) / BN, num_m = (M + BM - 1) / BM;
+    const int per_group = kGroupN * num_m;
+    const int grp = blockIdx.x / per_group, first_n = grp * kGroupN;
+    const int gsz = min(num_n - first_n, kGroupN);
+    const int in_grp = blockIdx.x % per_group;
+    const int nb = first_n + in_grp % gsz, mb = in_grp / gsz;
+    const int n0 = nb * BN, m0 = mb * BM;
+    const int nk = K / BK;
+
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        for (int i = 0; i < kStages; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], 8);  // one arrival per consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int wg_id = tid / 128;
+    if (wg_id == 0) {
+        // the producer: one thread keeps the ring full
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+        if (tid == 0) {
+            for (int kt = 0; kt < nk; ++kt) {
+                const int st = kt % kStages;
+                if (kt >= kStages) mbar_wait(&empty[st], ((kt / kStages) - 1) & 1);
+                mbar_expect_tx(&full[st], kStageBytes);
+                tma_load(xs + st * kXTile, &xmap, kt * BK, m0, &full[st]);
+                tma_load(ws + st * kWTile, &wmap, kt * BK, n0, &full[st]);
+            }
+        }
+        return;
+    }
+
+    // a consumer: weight rows c * 64 + 16 w + gr (+ 8) of the block's 128
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg_id - 1, lane = tid & 31, w = (tid >> 5) & 3;
+    const int gr = lane >> 2, tg = lane & 3;
+    const int r = c * 64 + w * 16 + gr;
+    const int KG = K / (BK / SPT);
+    const float* srow = s + (long long)(n0 + r) * KG;  // row r's scales; row r + 8's 8 KG on
+
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    float sc[2][SPT];
+    auto load_scales = [&](int kt) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < SPT; ++j)
+                sc[i][j] = round_bf16(__ldg(srow + 8LL * i * KG + kt * SPT + j));
+    };
+    unsigned a_cur[4][4], a_nxt[4][4];
+    load_scales(0);
+    mbar_wait(&full[0], 0);
+    dequant_tile<SPT>(ws, r, tg, sc, a_cur);
+    if (nk > 1) load_scales(1);
+    for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kStages;
+        fence_acc(acc);
+        fence_frag(a_cur);
+        wgmma_fence();
+        const uint64_t db = desc_sw128(xs + st * kXTile);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) wgmma_m64n256k16(acc, a_cur[t], db + 2 * t);  // + 32 bytes
+        wgmma_commit();
+        if (kt + 1 < nk) {  // the next tile's fragments while the wgmma runs
+            const int sn = (kt + 1) % kStages;
+            mbar_wait(&full[sn], ((kt + 1) / kStages) & 1);
+            dequant_tile<SPT>(ws + sn * kWTile, r, tg, sc, a_nxt);
+            if (kt + 2 < nk) load_scales(kt + 2);
+        }
+        wgmma_wait0();
+        fence_acc(acc);
+        fence_frag(a_cur);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a_cur[t][i] = a_nxt[t][i];
+    }
+
+    // acc[4 j + e] = D(row r + 8 (e / 2), column 8 j + 2 tg + e % 2): out[m, n]
+    // with n the weight row and m the x row
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int n = n0 + r + 8 * (e >> 1), m = m0 + 8 * j + 2 * tg + (e & 1);
+            if (n < N && m < M) store_as(out + (long long)m * N + n, acc[4 * j + e]);
+        }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &res);
+#else
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+        if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// A 2D row-major [rows, cols] tensor's map with a box of box_cols x
+// box_rows elements; rows past the end load as zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType dt, int elem, const void* ptr, int rows,
+              int cols, int box_rows, int box_cols, CUtensorMapSwizzle swz) {
+    EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                               static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t estr[2] = {1, 1};
+    return fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename OT, int SPT>
+int launch_wgmma(const CUtensorMap& xm, const CUtensorMap& wm, const float* s, void* out, int M,
+                 int N, int K, cudaStream_t st) {
+    auto kern = q8_matmul_wgmma_kernel<OT, SPT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    kern<<<grid, C::kThreads, C::kSmem, st>>>(static_cast<const XT*>(x), q, s,
-                                              static_cast<OT*>(out), M, N, Np, K, g);
+    const int blocks = ((N + wg::BN - 1) / wg::BN) * ((M + wg::BM - 1) / wg::BM);
+    kern<<<blocks, wg::kThreads, wg::kSmem, st>>>(xm, wm, s, static_cast<OT*>(out), M, N, K);
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename OT>
+int dispatch_wgmma(const void* x, const int8_t* q, const float* s, void* out, int M, int N,
+                   int Np, int K, int g, cudaStream_t st) {
+    CUtensorMap xm, wm;
+    if (!make_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, wg::BM, wg::BK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !make_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, Np, K, wg::BN, wg::BK,
+                  CU_TENSOR_MAP_SWIZZLE_64B))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (g == 64) return launch_wgmma<OT, 1>(xm, wm, s, out, M, N, K, st);
+    if (g == 32) return launch_wgmma<OT, 2>(xm, wm, s, out, M, N, K, st);
+    return launch_wgmma<OT, 4>(xm, wm, s, out, M, N, K, st);
+}
+
 template <typename XT, typename OT>
-int dispatch(const void* x, const int8_t* q, const float* s, void* out, int M, int N, int Np,
-             int K, int g, cudaStream_t st) {
-    if (M <= 16) return launch<16, 32, 256, 16, 8, 4, XT, OT>(x, q, s, out, M, N, Np, K, g, st);
-    return launch_tc<XT, OT>(x, q, s, out, M, N, Np, K, g, st);
+int dispatch_gemv(const void* x, const int8_t* q, const float* s, void* out, int M, int N,
+                  int K, int g, cudaStream_t st) {
+    if (M <= 8) return launch_gemv<XT, OT, 1>(x, q, s, out, M, N, K, g, st);
+    return launch_gemv<XT, OT, 2>(x, q, s, out, M, N, K, g, st);
 }
 
 }  // namespace
 
-// x [M, K] (f32 or bf16, contiguous, 16-byte aligned), q int8 [Np, K], s
-// f32 [Np, K / g], out [M, N] (f32 or bf16); the wrapper checks g in {16,
-// 32, 64}, K % 128 == 0, K % g == 0 and N <= Np.
+// x [M, K] (contiguous, 16-byte aligned; f32 or bf16 for M <= 16, bf16 for
+// M > 16), q int8 [Np, K] (16-byte aligned), s f32 [Np, K / g], out [M, N]
+// (f32 or bf16); the wrapper checks g in {16, 32, 64}, K % 128 == 0,
+// K % g == 0 and N <= Np.
 extern "C" int tl_q8_matmul(const void* x, int x_dtype, const int8_t* q, const float* s,
                             void* out, int out_dtype, int M, int N, int Np, int K, int g,
                             void* stream) {
     if (M <= 0 || N <= 0) return 0;
-    if (K <= 0 || K % 128 || (g != 16 && g != 32 && g != 64) || N > Np)
+    if (K <= 0 || K % 128 || (g != 16 && g != 32 && g != 64) || N > Np || Np % 128)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (M > 16) {
+        if (x_dtype != TL_BF16) return static_cast<int>(cudaErrorInvalidValue);
+        if (out_dtype == TL_F32) return dispatch_wgmma<float>(x, q, s, out, M, N, Np, K, g, st);
+        if (out_dtype == TL_BF16)
+            return dispatch_wgmma<__nv_bfloat16>(x, q, s, out, M, N, Np, K, g, st);
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (x_dtype == TL_F32 && out_dtype == TL_F32)
-        return dispatch<float, float>(x, q, s, out, M, N, Np, K, g, st);
+        return dispatch_gemv<float, float>(x, q, s, out, M, N, K, g, st);
     if (x_dtype == TL_F32 && out_dtype == TL_BF16)
-        return dispatch<float, __nv_bfloat16>(x, q, s, out, M, N, Np, K, g, st);
+        return dispatch_gemv<float, __nv_bfloat16>(x, q, s, out, M, N, K, g, st);
     if (x_dtype == TL_BF16 && out_dtype == TL_F32)
-        return dispatch<__nv_bfloat16, float>(x, q, s, out, M, N, Np, K, g, st);
+        return dispatch_gemv<__nv_bfloat16, float>(x, q, s, out, M, N, K, g, st);
     if (x_dtype == TL_BF16 && out_dtype == TL_BF16)
-        return dispatch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, M, N, Np, K, g, st);
+        return dispatch_gemv<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, M, N, K, g, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -86,7 +86,7 @@ def _check_prefill(q, k_cache, v_cache, start_pos, k_scale, v_scale):
         raise TypeError("K/V scales must be float32")
 
 
-PREFILL_TILE = 64  # keys per tile of the prefill cells (csrc/prefill_mma.cuh, prefill_cell.cuh)
+PREFILL_TILE = 64  # keys per tile of the prefill cells (csrc/prefill_mma.cuh, prefill_split.cuh)
 
 
 def attention_prefill(q, k_cache, v_cache, start_pos, k_scale=None, v_scale=None,

@@ -206,6 +206,11 @@ def q8_matmul_plain(x: torch.Tensor, w: QuantTensor, out_dtype=torch.float32) ->
     return out[:, :w.logical_out].to(out_dtype).reshape(*lead, w.logical_out)
 
 
+# K25's rows limit for its decode kernel (csrc/q8_matmul.cu q8_gemv_kernel);
+# above it the wgmma kernel runs on x cast to bf16 and permuted
+Q8_GEMV_ROWS = 16
+
+
 def q8_matmul(x: torch.Tensor, w: QuantTensor, out_dtype=torch.float32) -> torch.Tensor:
     """``x @ dequantize(w)`` with the dequant inside the kernel
     (matmul.py:142): x [..., in] (f32 or bf16; in logical or padded) and one
@@ -218,11 +223,26 @@ def q8_matmul(x: torch.Tensor, w: QuantTensor, out_dtype=torch.float32) -> torch
         return q8_matmul_plain(x, w, out_dtype)
     lead = x.shape[:-1]
     pout, pin = w.q.shape
-    x2 = _pad_in(x.reshape(-1, x.shape[-1]), pin).contiguous()
+    if pout % 128:
+        raise ValueError(f"K25 takes weights padded to 128 output rows, got {pout}")
+    x2 = _pad_in(x.reshape(-1, x.shape[-1]), pin)
+    m = x2.shape[0]
+    if m > Q8_GEMV_ROWS:
+        # the wgmma kernel reads x as bf16 (the contract's own rounding,
+        # applied once here rather than by every block) with its k order
+        # permuted within each 16: logical k 8 h + 2 t + e holds element
+        # 4 t + 2 h + e, so that a lane's weight fragment is 4 neighbouring
+        # bytes (csrc/q8_matmul.cu dequant_tile).  One copy.
+        xp = torch.empty((m, pin), dtype=torch.bfloat16, device=x.device)
+        xp.view(m, pin // 16, 2, 4, 2).copy_(
+            x2.reshape(m, pin // 16, 4, 2, 2).permute(0, 1, 3, 2, 4))
+        x2 = xp
+    x2 = x2.contiguous()
     if x2.data_ptr() % 16:
         x2 = x2.clone()
     q, sc = w.q.contiguous(), w.s.contiguous()
-    m = x2.shape[0]
+    if q.data_ptr() % 16:
+        raise ValueError("K25 takes weights on 16-byte boundaries (TMA)")
     out = torch.empty((m, w.logical_out), dtype=out_dtype, device=x.device)
     if m:
         _kernels.launch("K25", x2.data_ptr(), _kernels.dtype_code(x2.dtype), q.data_ptr(),

@@ -48,9 +48,10 @@ server's default model path: random dense f32 weights in the fused layouts
 then the same weights in Q8_0 (``quantize_params``, K25) with a bfloat16
 cache, ``Engine(max_batch=8, seq_len=2048)`` at its default precision: one
 admission of 8 prompts of 512 tokens and one decode step of all 8 slots at
-position 512 on each, traced as above.  The fp forms of K6, K7, K9 and K10
-report under their kernels' ids (their CUDA kernels are the INT8 forms'
-templates).
+position 512 on each, traced as above, with each port kernel's device ms per
+launch (``ms_per_launch``).  The fp forms of K6, K7, K9 and K10 report under
+their kernels' ids (their CUDA kernels are the INT8 forms' templates).
+``--fp-only`` runs (d) alone.
 """
 
 from __future__ import annotations
@@ -75,13 +76,13 @@ PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fres
                 "paged_flash_decode_kernel": "K22",
                 "w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
-                "rope_split_quantize_kernel": "K5", "flash_prefill_kernel": "K6",
+                "rope_split_quantize_kernel": "K5", "flash_prefill_fp_kernel": "K6",
                 "flash_prefill_i8_kernel": "K6",
                 "kv_scatter_kernel": "K7", "kv_write_chunk_kernel": "K18",
                 "flash_decode_dma_kernel": "K9",
                 "kv_flush_rows_kernel": "K10", "fused_layer_kernel": "K11",
                 "fused_step2_kernel": "K12", "flash_decode_fresh_kernel": "K19",
-                "q8_matmul_kernel": "K25", "q8_matmul_tc_kernel": "K25",
+                "q8_gemv_kernel": "K25", "q8_matmul_wgmma_kernel": "K25",
                 "fused_step3_kernel": "K26", "fused_step_kernel": "K27",
                 "kv_write_decode_kernel": "K28", "rows_resident_kernel": "K29",
                 "flash_decode_simple_kernel": "K21", "flash_decode_blocked_kernel": "K21",
@@ -126,7 +127,9 @@ def summarize(name: str, prof, wall_s: float, traced_wall_s: float, smi: str) ->
                 top=[(n[:90], ms) for n, ms in top], card=smi)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_llama_torch.config import LLAMA2_7B
@@ -139,14 +142,16 @@ def main() -> None:
     from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--fp-only", action="store_true",
+                    help="run section (d) alone: the dense f32 and Q8_0 paths")
+    fp_only = ap.parse_args(argv).fp_only
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = LLAMA2_7B
-    params = random_quant_params(cfg, seed=0, fuse=True)
-    engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
     rng = np.random.default_rng(0)
     prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
                for _ in range(8)]
@@ -180,152 +185,159 @@ def main() -> None:
             wall = timed(fn)
         return prof, wall
 
-    def run(phase, fn, **extra):
+    def run(phase, fn, per_launch=False, **extra):
         timed(fn)  # warm: builds the kernels, fills the allocator
         launches = counted(fn)
         wall = timed(fn)
         prof, traced_wall = traced(fn)
-        print(json.dumps(dict(summarize(phase, prof, wall, traced_wall, smi), **extra,
-                              launches=launches)), flush=True)
+        line = dict(summarize(phase, prof, wall, traced_wall, smi), **extra, launches=launches)
+        if per_launch:  # each port kernel's device ms per launch (an fp form under its id)
+            line["ms_per_launch"] = {k: line["device_ms"][k.split(":")[0]] / n
+                                     for k, n in launches.items()
+                                     if k.split(":")[0] in line["device_ms"]}
+        print(json.dumps(line), flush=True)
 
-    run("prefill_8x512", prefiller(engine), layouts="fused")
-    unfused = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, kv_dtype="int8",
-                     seq_len=2048)
-    run("prefill_8x512_unfused", prefiller(unfused), layouts="unfused")
-    del unfused
-    torch.cuda.empty_cache()
-    one = Engine(params, cfg, max_batch=1, kv_dtype="int8", seq_len=2048)
-    one.prefill([prompts[0]], [0])
-    for eng in (engine, one):
-        auto = eng.decode_fused  # the engines were built with fused="auto"
-        fn = decoder(eng)
-        walls = {m: [] for m in AB_MODES}
-        for mode in AB_MODES:  # warm every mode first
-            eng.decode_fused = mode
-            timed(fn)
-        for _ in range(REPS):
+    if not fp_only:  # the W8A8 engine's sections
+        params = random_quant_params(cfg, seed=0, fuse=True)
+        engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+        run("prefill_8x512", prefiller(engine), layouts="fused")
+        unfused = Engine(random_quant_params(cfg, seed=0), cfg, max_batch=8, kv_dtype="int8",
+                         seq_len=2048)
+        run("prefill_8x512_unfused", prefiller(unfused), layouts="unfused")
+        del unfused
+        torch.cuda.empty_cache()
+        one = Engine(params, cfg, max_batch=1, kv_dtype="int8", seq_len=2048)
+        one.prefill([prompts[0]], [0])
+        for eng in (engine, one):
+            auto = eng.decode_fused  # the engines were built with fused="auto"
+            fn = decoder(eng)
+            walls = {m: [] for m in AB_MODES}
+            for mode in AB_MODES:  # warm every mode first
+                eng.decode_fused = mode
+                timed(fn)
+            for _ in range(REPS):
+                for mode in AB_MODES:
+                    eng.decode_fused = mode
+                    walls[mode].append(timed(fn) * 1e3 / DECODE_STEPS)
             for mode in AB_MODES:
                 eng.decode_fused = mode
-                walls[mode].append(timed(fn) * 1e3 / DECODE_STEPS)
-        for mode in AB_MODES:
-            eng.decode_fused = mode
-            launches = counted(fn)
-            prof, traced_wall = traced(fn)
-            line = summarize(f"decode_b{eng.max_batch}_x{DECODE_STEPS}_fused_{mode}", prof,
-                             statistics.median(walls[mode]) * DECODE_STEPS / 1e3, traced_wall,
-                             smi)
-            line.update(
-                fused=mode, auto_resolves_to=auto, attn=eng.decode_attn,
-                wall_ms_per_step_reps=walls[mode],
-                wall_ms_per_step_median=statistics.median(walls[mode]),
-                device_ms_per_step=line["device_busy_ms"] / DECODE_STEPS,
-                launches_per_step=line["n_kernels"] / DECODE_STEPS,
-                port_launches_per_step={k: n / DECODE_STEPS for k, n in launches.items()})
+                launches = counted(fn)
+                prof, traced_wall = traced(fn)
+                line = summarize(f"decode_b{eng.max_batch}_x{DECODE_STEPS}_fused_{mode}", prof,
+                                 statistics.median(walls[mode]) * DECODE_STEPS / 1e3, traced_wall,
+                                 smi)
+                line.update(
+                    fused=mode, auto_resolves_to=auto, attn=eng.decode_attn,
+                    wall_ms_per_step_reps=walls[mode],
+                    wall_ms_per_step_median=statistics.median(walls[mode]),
+                    device_ms_per_step=line["device_busy_ms"] / DECODE_STEPS,
+                    launches_per_step=line["n_kernels"] / DECODE_STEPS,
+                    port_launches_per_step={k: n / DECODE_STEPS for k, n in launches.items()})
+                print(json.dumps(line), flush=True)
+            eng.decode_fused = auto
+        del one, eng, fn  # eng and fn hold the last engine of the loop
+        torch.cuda.empty_cache()
+
+        # (c) the long-prompt path: chunked admission and a sampled decode chunk
+        from tpu_llama_torch.ops.sampling import keys_numpy
+
+        long_prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 2047)]
+                        for _ in range(8)]
+        run("prefill_8x2048_chunked", lambda: engine.prefill(long_prompts, list(range(8))),
+            layouts="fused", chunk=256)
+        temps = np.array([0.0, 0.8] * 4, np.float32)
+        topps = np.array([1.0, 0.9, 1.0, 1.0] * 2, np.float32)
+        topks = np.array([0, 0, 40, 0] * 2, np.int64)
+        keys = keys_numpy(range(8))
+
+        def sampled_chunk():
+            engine.decode_sample_chunk(toks, np.full(8, 1024), temps, topps, keys, CHUNK_STEPS,
+                                       topks=topks)
+
+        timed(sampled_chunk)
+        launches = counted(sampled_chunk)
+        wall = timed(sampled_chunk)
+        prof, traced_wall = traced(sampled_chunk)
+        line = summarize(f"decode_chunk_b8_k{CHUNK_STEPS}_sampled", prof, wall, traced_wall, smi)
+        line.update(fused=engine.decode_fused, attn=engine.decode_attn,
+                    wall_ms_per_step=wall * 1e3 / CHUNK_STEPS,
+                    device_ms_per_step=line["device_busy_ms"] / CHUNK_STEPS,
+                    launches_per_step=line["n_kernels"] / CHUNK_STEPS,
+                    port_launches_per_step={k: n / CHUNK_STEPS for k, n in launches.items()})
+        print(json.dumps(line), flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+        # (e) the paged INT8 path: an 8 x 512 compact admission landed by K15,
+        # then the b8 decode step at position 512 with fused="auto" (the
+        # two-launch K11 + K13 decode) and fused=False (unfused, K13), each
+        # warm, timed, then traced
+        paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
+
+        def paged_prefill():  # each call releases the slots' pages and reserves them anew
+            paged.prefill(prompts, list(range(8)), reserve_tokens=[1024] * 8)
+
+        run("prefill_8x512_paged", paged_prefill, layouts="fused", page_size=512,
+            pool=type(paged.pool).__name__)
+        auto = paged.decode_fused
+        for mode in (auto, False):
+            paged.decode_fused = mode
+
+            def paged_step():
+                paged.decode(toks, np.full(8, 512))
+
+            timed(paged_step)
+            launches = counted(paged_step)
+            walls = [timed(paged_step) * 1e3 for _ in range(REPS)]
+            prof, traced_wall = traced(paged_step)
+            line = summarize(f"decode_b8_paged_fused_{mode}", prof, statistics.median(walls) / 1e3,
+                             traced_wall, smi)
+            line.update(fused=mode, auto_resolves_to=auto, attn=paged.decode_attn,
+                        wall_ms_per_step_reps=walls, device_ms_per_step=line["device_busy_ms"],
+                        launches_per_step=line["n_kernels"], port_launches_per_step=launches)
             print(json.dumps(line), flush=True)
-        eng.decode_fused = auto
-    del one, eng, fn  # eng and fn hold the last engine of the loop
-    torch.cuda.empty_cache()
+        paged.decode_fused = auto
+        # a paged prefix hit: slot 0's first 300 rows pinned (its boundary page
+        # copied), restored into slots 3-7, then one continuation of 5 suffixes
+        # of 200 tokens through the mp_cap-bounded page gather
+        snap = paged.snapshot_slot(0, 300)
+        suffixes = [[int(t) for t in rng.integers(3, cfg.vocab_size, 200)] for _ in range(5)]
 
-    # (c) the long-prompt path: chunked admission and a sampled decode chunk
-    from tpu_llama_torch.ops.sampling import keys_numpy
+        def paged_continue():
+            for s in range(3, 8):
+                paged.restore_slot(s, snap, reserve_tokens=600)
+            paged.prefill_continue(suffixes, list(range(3, 8)), [300] * 5)
 
-    long_prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 2047)]
-                    for _ in range(8)]
-    run("prefill_8x2048_chunked", lambda: engine.prefill(long_prompts, list(range(8))),
-        layouts="fused", chunk=256)
-    temps = np.array([0.0, 0.8] * 4, np.float32)
-    topps = np.array([1.0, 0.9, 1.0, 1.0] * 2, np.float32)
-    topks = np.array([0, 0, 40, 0] * 2, np.int64)
-    keys = keys_numpy(range(8))
+        run("continue_5x200_paged", paged_continue, layouts="fused", page_size=512, start=300)
+        del paged
+        torch.cuda.empty_cache()
 
-    def sampled_chunk():
-        engine.decode_sample_chunk(toks, np.full(8, 1024), temps, topps, keys, CHUNK_STEPS,
-                                   topks=topks)
+        # (f) the pool-direct paged admission (K16 + K17, no compact block): one
+        # 8 x 2048 admission (one wave of 8 slots, 8 chunks of 256) and one
+        # 32 x 1024 admission (two waves of 16 slots, 4 chunks each), on a
+        # 32-slot engine with 97 pages of 512 rows
+        direct = Engine(params, cfg, max_batch=32, kv_layout="paged", page_size=512, seq_len=2048,
+                        num_pages=97)
+        docs = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 1023)] for _ in range(32)]
+        for name, group in (("prefill_8x2048_pool_direct", long_prompts),
+                            ("prefill_32x1024_pool_direct", docs)):
+            n = len(group)
 
-    timed(sampled_chunk)
-    launches = counted(sampled_chunk)
-    wall = timed(sampled_chunk)
-    prof, traced_wall = traced(sampled_chunk)
-    line = summarize(f"decode_chunk_b8_k{CHUNK_STEPS}_sampled", prof, wall, traced_wall, smi)
-    line.update(fused=engine.decode_fused, attn=engine.decode_attn,
-                wall_ms_per_step=wall * 1e3 / CHUNK_STEPS,
-                device_ms_per_step=line["device_busy_ms"] / CHUNK_STEPS,
-                launches_per_step=line["n_kernels"] / CHUNK_STEPS,
-                port_launches_per_step={k: n / CHUNK_STEPS for k, n in launches.items()})
-    print(json.dumps(line), flush=True)
-    del engine
-    torch.cuda.empty_cache()
+            def admit(group=group, n=n):  # each call releases the slots' pages and reserves anew
+                direct.prefill(group, list(range(n)))
 
-    # (e) the paged INT8 path: an 8 x 512 compact admission landed by K15,
-    # then the b8 decode step at position 512 with fused="auto" (the
-    # two-launch K11 + K13 decode) and fused=False (unfused, K13), each
-    # warm, timed, then traced
-    paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
-
-    def paged_prefill():  # each call releases the slots' pages and reserves them anew
-        paged.prefill(prompts, list(range(8)), reserve_tokens=[1024] * 8)
-
-    run("prefill_8x512_paged", paged_prefill, layouts="fused", page_size=512,
-        pool=type(paged.pool).__name__)
-    auto = paged.decode_fused
-    for mode in (auto, False):
-        paged.decode_fused = mode
-
-        def paged_step():
-            paged.decode(toks, np.full(8, 512))
-
-        timed(paged_step)
-        launches = counted(paged_step)
-        walls = [timed(paged_step) * 1e3 for _ in range(REPS)]
-        prof, traced_wall = traced(paged_step)
-        line = summarize(f"decode_b8_paged_fused_{mode}", prof, statistics.median(walls) / 1e3,
-                         traced_wall, smi)
-        line.update(fused=mode, auto_resolves_to=auto, attn=paged.decode_attn,
-                    wall_ms_per_step_reps=walls, device_ms_per_step=line["device_busy_ms"],
-                    launches_per_step=line["n_kernels"], port_launches_per_step=launches)
-        print(json.dumps(line), flush=True)
-    paged.decode_fused = auto
-    # a paged prefix hit: slot 0's first 300 rows pinned (its boundary page
-    # copied), restored into slots 3-7, then one continuation of 5 suffixes
-    # of 200 tokens through the mp_cap-bounded page gather
-    snap = paged.snapshot_slot(0, 300)
-    suffixes = [[int(t) for t in rng.integers(3, cfg.vocab_size, 200)] for _ in range(5)]
-
-    def paged_continue():
-        for s in range(3, 8):
-            paged.restore_slot(s, snap, reserve_tokens=600)
-        paged.prefill_continue(suffixes, list(range(3, 8)), [300] * 5)
-
-    run("continue_5x200_paged", paged_continue, layouts="fused", page_size=512, start=300)
-    del paged
-    torch.cuda.empty_cache()
-
-    # (f) the pool-direct paged admission (K16 + K17, no compact block): one
-    # 8 x 2048 admission (one wave of 8 slots, 8 chunks of 256) and one
-    # 32 x 1024 admission (two waves of 16 slots, 4 chunks each), on a
-    # 32-slot engine with 97 pages of 512 rows
-    direct = Engine(params, cfg, max_batch=32, kv_layout="paged", page_size=512, seq_len=2048,
-                    num_pages=97)
-    docs = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 1023)] for _ in range(32)]
-    for name, group in (("prefill_8x2048_pool_direct", long_prompts),
-                        ("prefill_32x1024_pool_direct", docs)):
-        n = len(group)
-
-        def admit(group=group, n=n):  # each call releases the slots' pages and reserves anew
-            direct.prefill(group, list(range(n)))
-
-        timed(admit)
-        launches = counted(admit)
-        wall = timed(admit)
-        prof, traced_wall = traced(admit)
-        line = summarize(name, prof, wall, traced_wall, smi)
-        line.update(layouts="fused", page_size=512, chunk=256, launches=launches,
-                    ms_per_launch={k: line["device_ms"].get(k, 0.0) / launches[k]
-                                   for k in ("K16", "K17", "K3", "K4", "K5") if launches.get(k)})
-        line["ms_per_launch"]["K1+K8"] = line["device_ms"].get("K1+K8", 0.0) / launches["K1"]
-        print(json.dumps(line), flush=True)
-    del direct, params
-    torch.cuda.empty_cache()
+            timed(admit)
+            launches = counted(admit)
+            wall = timed(admit)
+            prof, traced_wall = traced(admit)
+            line = summarize(name, prof, wall, traced_wall, smi)
+            line.update(layouts="fused", page_size=512, chunk=256, launches=launches,
+                        ms_per_launch={k: line["device_ms"].get(k, 0.0) / launches[k]
+                                       for k in ("K16", "K17", "K3", "K4", "K5") if launches.get(k)})
+            line["ms_per_launch"]["K1+K8"] = line["device_ms"].get("K1+K8", 0.0) / launches["K1"]
+            print(json.dumps(line), flush=True)
+        del direct, params
+        torch.cuda.empty_cache()
 
     # (d) the server's default model: dense f32 weights, f32 cache; Q8_0, bf16 cache
     dense = fuse_projections(random_params(cfg, dtype=torch.float32, seed=0))
@@ -335,13 +347,13 @@ def main() -> None:
             torch.cuda.empty_cache()
         engine = Engine(dense, cfg, max_batch=8, kv_dtype=kv, seq_len=2048)
         extra = dict(weights=weights, kv_dtype=kv, precision=engine.precision)
-        run(f"prefill_8x512_{weights}", prefiller(engine), **extra)
+        run(f"prefill_8x512_{weights}", prefiller(engine), per_launch=True, **extra)
         engine.prefill(prompts, list(range(8)))
 
         def step(eng=engine):
             eng.decode(toks, np.full(8, 512))
 
-        run(f"decode_b8_{weights}", step, attn=engine.decode_attn,
+        run(f"decode_b8_{weights}", step, per_launch=True, attn=engine.decode_attn,
             fused=engine.decode_fused, **extra)
         del engine
         torch.cuda.empty_cache()
