@@ -8,7 +8,10 @@ Phases (any failure exits non-zero and prints no result line):
    power limit;
 2. build every CUDA kernel from ``tpu_llama_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the ``-Xptxas -v`` register/spill summary;
-3. each kernel (K1 W8A8 GEMM, also with its residual epilogue, K2 row
+3. each kernel (K1 W8A8 GEMM, its decode tile at M 8 and its wgmma kernel
+   from M 16 up to the admission's 4096, also with its residual epilogue, and
+   at M 1000 and 2048 on the fused layer's products, each row with its share
+   of the int8 peak; K2 row
    quant, K3 rmsnorm+quant, K4 silu*up+quant, K5 rope+split+KV quant, K6
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
    attention, K10 row flush, K18 chunk write; K8 stacked-weight product,
@@ -25,7 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
    decode attention at K13's; the classifier's K1, K8, K11, K13 and K14
    also at batch 32, phase 4f's decode; the opt-in decodes' K26 mega3 pair
    and K27 mega layer, K28 decode row write on INT8, f32 and bf16 caches,
-   and K29 resident-x W8A8 rows kernel at the admission's M 4096; the
+   and K29 resident-x W8A8 rows kernel at the admission's M 4096 and at M
+   1000 and 2048, at every cluster size (1, 2, 4, 8), each with the bytes
+   that leave L2 and their rate; the
    tensor-parallel decode's K21 write-then-attend decode attention, both
    forms on INT8, f32 and bf16 caches, K23 FFN span and K24 rmsnorm + quant
    + qkv span at the local shapes of tp 1, 2, 4 and 8)
@@ -53,7 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``_att_reading``), its linear outputs
    bit-equal to K11's phases on that output, and all of it bit-equal to
    K9, K2 and K11 launched in turn; K28 (a slot at pos S, one parked at 0)
-   and K29 (also bit-equal to K1) exact; kernel, plain-version and
+   and K29 (also bit-equal to K1, at every cluster size) exact; kernel,
+   plain-version and
    PyTorch-library times
    (CUDA events) beside the bound (the larger of bytes / 3.35 TB/s and
    operations / the card's peak for their type);
@@ -373,19 +379,31 @@ def n_copies(nbytes: float) -> int:
 # ---------------------------------------------------------------------------
 
 
+def int8_peak_share(m: int, k: int, n: int, ms: float) -> float:
+    """The share of the card's int8 tensor-core peak that an M x K x N
+    product run in ``ms`` reaches."""
+    return 2 * m * k * n / PEAK_OPS_S["int8"] / (ms * 1e-3)
+
+
 def check_k1(torch, tq, tm, results):
     """K1 at M 8 (decode) and 4096 (the 8 x 512 admission) on the unfused
     and the fused (wqkv 4096 -> 12288, w13 4096 -> 22016) shapes, then its
     residual epilogue on wo and w2 at M 4096, then the classifier at M 16
-    and 32 (phase 4f's admission waves and decode); bf16 out, bit-equal."""
+    and 32 (phase 4f's admission waves and decode), then the fused layer's
+    products at M 1000 (a prefix continuation) and 2048 (a 256-row chunk of
+    8 slots); bf16 out, bit-equal.  Every row above 16 rows reads its share
+    of the int8 peak."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(m, k, n, False) for m in (8, 4096)
              for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
                           (4096, 12288), (4096, 22016))]
     cases += [(4096, 4096, 4096, True), (4096, 11008, 4096, True)]
     # the classifier of phase 4f: a 16-slot admission wave's rows, and the
-    # 32-slot decode (M 32: the 128-row tile, partly filled)
+    # 32-slot decode (M 32: the wgmma kernel's 128-row tile, partly filled)
     cases += [(16, 4096, 32000, False), (32, 4096, 32000, False)]
+    cases += [(m, k, n, res) for m in (1000, 2048)
+              for k, n, res in ((4096, 12288, False), (4096, 4096, True), (4096, 22016, False),
+                                (11008, 4096, True))]
     for m, k, n, with_res in cases:
         copies = n_copies(n * k)
         xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
@@ -428,7 +446,8 @@ def check_k1(torch, tq, tm, results):
         b_ms, by = bound_ms(nbytes, 2 * m * k * n, "int8")
         results.append(dict(kernel="K1", name=label, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                            library_ms=library_ms))
+                            library_ms=library_ms, int8_peak_share=int8_peak_share(m, k, n, ms),
+                            form=tm.w8a8_plan(m, k, n).form))
         del ws, xq, got, want, res
     torch.cuda.empty_cache()
 
@@ -2057,16 +2076,25 @@ def check_k28(torch, tatt, results):
 
 
 def check_k29(torch, tq, tm, results):
-    """K29 at the 8 x 512 admission's M = 4096 on K1's four 7B shapes (bf16
-    out) and the two residual shapes (wo, w2): bit-equal to K1's kernel
-    and to its plain version (K1's).  Timed calls rotate through weight
-    copies past L2; the library call is ``torch._int_mm`` plus the scales."""
+    """K29 at the 8 x 512 admission's M = 4096 on K1's four 7B shapes and
+    the fused wqkv and w13 (bf16 out), the two residual shapes (wo, w2),
+    and the fused layer's wqkv and w2 at M 1000 and 2048: bit-equal to K1's
+    kernel and to its plain version (K1's), at the cluster size the wrapper
+    picks and at every other (1, 2, 4, 8).  Each row times every cluster
+    size and reads, for each, the bytes that leave L2 (the weights once per
+    cluster of m-blocks, x once), their rate and the clusters the card keeps
+    resident at once; the row's ``ms`` is the picked size's.  Timed calls
+    rotate through weight copies past L2; the library call is
+    ``torch._int_mm`` plus the scales."""
+    from tpu_llama_torch.ops import _kernels
+
     gen = torch.Generator(device="cuda").manual_seed(29)
-    m = 4096
-    cases = [(k, n, False) for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
-                                        (4096, 32000))]
-    cases += [(4096, 4096, True), (11008, 4096, True)]
-    for k, n, with_res in cases:
+    cases = [(4096, k, n, False) for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                                              (4096, 32000), (4096, 12288), (4096, 22016))]
+    cases += [(4096, 4096, 4096, True), (4096, 11008, 4096, True)]
+    cases += [(m, k, n, res) for m in (1000, 2048)
+              for k, n, res in ((4096, 12288, False), (11008, 4096, True))]
+    for m, k, n, with_res in cases:
         copies = n_copies(n * k)
         xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
         sx = torch.rand(m, generator=gen, device="cuda") * 0.05
@@ -2076,17 +2104,29 @@ def check_k29(torch, tq, tm, results):
         res = (torch.randn(m, n, generator=gen, device="cuda") * 4).to(torch.bfloat16) \
             if with_res else None
         label = f"K29 w8a8_rows_resident M={m} K={k} N={n}" + (" +residual" if with_res else "")
-        got = tm.w8a8_rows_resident(xq, sx, ws[0], out_dtype=torch.bfloat16, residual=res)
+        plan = tm.rows_resident_plan(k)
+        picked = tm.rows_resident_cluster(m, plan.bm)
         k1 = tm.launch_w8a8("K1", xq, sx, ws[0], torch.bfloat16, res)
-        torch.cuda.synchronize()
         want = tm.w8a8_matmul_prequant_plain(xq, sx, ws[0], out_dtype=torch.bfloat16,
                                              residual=res)
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.equal(got, want) and torch.equal(got, k1),
-              f"{label}: max err {err} against its plain version, equal to K1: "
-              f"{torch.equal(got, k1)}")
-        ms = cuda_ms(torch, lambda i: tm.w8a8_rows_resident(
-            xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res), 20)
+        err, cluster_ms, l2_gb, l2_rate = 0.0, {}, {}, {}
+        resident = {c: _kernels.k29_max_clusters(k, c) for c in tm.RESIDENT_CLUSTERS}
+        for c in tm.RESIDENT_CLUSTERS:
+            got = tm.w8a8_rows_resident(xq, sx, ws[0], out_dtype=torch.bfloat16, residual=res,
+                                        cluster=c)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            check(torch.equal(got, want) and torch.equal(got, k1),
+                  f"{label} cluster {c}: max err {e} against its plain version, equal to K1: "
+                  f"{torch.equal(got, k1)}")
+            err = max(err, e)
+            cluster_ms[c] = cuda_ms(torch, lambda i, c=c: tm.w8a8_rows_resident(
+                xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res, cluster=c), 20)
+            nm, _ = tm.rows_resident_grid(m, n, plan, c)
+            l2_gb[c] = (nm // c * n * k + m * k) / 1e9
+            l2_rate[c] = l2_gb[c] / (cluster_ms[c] * 1e-3)
+            del got
+        ms = cluster_ms[picked]
         plain_ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_prequant_plain(
             xq, sx, ws[i % copies], out_dtype=torch.bfloat16, residual=res), 3, warmup=1)
 
@@ -2104,8 +2144,11 @@ def check_k29(torch, tq, tm, results):
         nbytes = m * k + 4 * m + n * k + 4 * n + 2 * m * n * (2 if with_res else 1)
         b_ms, by = bound_ms(nbytes, 2 * m * k * n, "int8")
         results.append(dict(kernel="K29", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=by, library_ms=library_ms))
-        del ws, xq, got, want, k1, res
+                            bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                            int8_peak_share=int8_peak_share(m, k, n, ms), cluster=picked,
+                            rows=plan.bm, consumers=plan.consumers, cluster_ms=cluster_ms,
+                            l2_gb=l2_gb, l2_gb_s=l2_rate, resident_clusters=resident))
+        del ws, xq, want, k1, res
     torch.cuda.empty_cache()
 
 
@@ -4113,7 +4156,9 @@ def main(argv=None) -> int:
                                    "att_scale_max_rel_err", "k9_block256_max_diff",
                                    "k9_block128_max_diff", "k6_dense_copy_max_diff",
                                    "k6_dense_copy_ms", "device_ms", "library_device_ms",
-                                   "simt_bound_ms") if k in r}
+                                   "simt_bound_ms", "int8_peak_share", "form", "cluster", "rows",
+                                   "consumers", "cluster_ms", "l2_gb", "l2_gb_s",
+                                   "resident_clusters") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -65,8 +65,21 @@ def test_k2_exact(card, m, n, dtype):
     assert torch.equal(q, qp) and torch.equal(s, sp)
 
 
+# K1's tile edges: the decode tile up to 16 rows; above, the wgmma tile's
+# 64-row consumer halves (63, 65), its 128-row blocks (129), the prefix
+# continuation (1000), a chunk (2048) and the admission (4096); columns
+# ragged against 256 (136, 4000); K a multiple of 16 but not of 128 (4112),
+# K padded to 16 by the wrapper (40), K inside one 128-byte stage (96); and
+# the Llama-2 7B products at M 4096.
+K1_7B = [(4096, 4096, 4096), (4096, 4096, 11008), (4096, 11008, 4096), (4096, 4096, 32000),
+         (4096, 4096, 12288), (4096, 4096, 22016)]
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 64, 128), (8, 4096, 4096), (8, 4096, 11008),
-                                   (17, 40, 50), (200, 11008, 384), (300, 4096, 136)])
+                                   (17, 40, 50), (200, 11008, 384), (300, 4096, 136),
+                                   (17, 4096, 4000), (63, 96, 136), (65, 4112, 256),
+                                   (129, 4112, 4000), (33, 40, 136), (1000, 4096, 12288),
+                                   (2048, 11008, 4096), (4096, 96, 4000)] + K1_7B)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_exact(card, m, k, n, dtype):
     g = _gen(m + k + n)
@@ -75,13 +88,18 @@ def test_k1_exact(card, m, k, n, dtype):
     w = tq.ChannelQuantTensor(
         q=torch.randint(-127, 128, (n, k), generator=g, device=card, dtype=torch.int8),
         s=torch.rand(n, generator=g, device=card) * 1e-3)
+    before = _kernels.LAUNCHES["K1"]
     got = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K1"] == before + 1
     want = tm.w8a8_matmul_prequant_plain(xq, sx, w, out_dtype=dtype)
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (200, 11008, 384), (300, 96, 136)])
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (200, 11008, 384), (300, 96, 136),
+                                   (17, 40, 50), (63, 4112, 4000), (65, 96, 136),
+                                   (129, 40, 4000), (1000, 4096, 4096), (2048, 11008, 4096),
+                                   (4096, 4096, 4096), (4096, 11008, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_residual_exact(card, m, k, n, dtype):
     g = _gen(m * 3 + n)
@@ -91,8 +109,10 @@ def test_k1_residual_exact(card, m, k, n, dtype):
         q=torch.randint(-127, 128, (n, k), generator=g, device=card, dtype=torch.int8),
         s=torch.rand(n, generator=g, device=card) * 1e-3)
     r = (torch.randn(m, n, generator=g, device=card) * 4).to(dtype)
+    before = _kernels.LAUNCHES["K1"]
     got = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=r)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K1"] == before + 1
     want = tm.w8a8_matmul_prequant_plain(xq, sx, w, out_dtype=dtype, residual=r)
     assert torch.equal(got, want)
 
@@ -1153,11 +1173,17 @@ def test_k28_exact(card, hd, cdtype):
 
 
 @pytest.mark.parametrize("m,k,n", [(300, 4096, 384), (512, 11008, 256), (4096, 256, 136),
-                                   (260, 48, 40)])
+                                   (260, 48, 40), (4096, 11008, 4096), (1000, 4096, 1000),
+                                   (4100, 6160, 520), (300, 5952, 136)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_res", [False, True])
-def test_k29_equals_k1(card, monkeypatch, m, k, n, dtype, with_res):
-    """K29, taken with the switch above 256 rows, equals K1 bit for bit."""
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+def test_k29_equals_k1(card, monkeypatch, m, k, n, dtype, with_res, cluster):
+    """K29, taken with the switch above 256 rows (at the cluster size
+    ``rows_resident_cluster`` picks) or called at each cluster size the
+    kernel takes, equals K1 bit for bit: K 11008 (16 rows, two consumers),
+    6160 (16 rows, four), 5952 (32 rows, two), the rest 32 rows and four; M
+    1000 and 4100 not multiples of any cluster's rows."""
     g = _gen(m + k + n)
     xq = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
     sx = torch.rand(m, generator=g, device=card) * 0.1
@@ -1167,7 +1193,10 @@ def test_k29_equals_k1(card, monkeypatch, m, k, n, dtype, with_res):
     res = (torch.randn(m, n, generator=g, device=card) * 4).to(dtype) if with_res else None
     monkeypatch.setenv("TPU_LLAMA_ROWS_RESIDENT", "1")
     before = _kernels.LAUNCHES["K29"]
-    got = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=res)
+    if cluster is None:
+        got = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=res)
+    else:
+        got = tm.w8a8_rows_resident(xq, sx, w, out_dtype=dtype, residual=res, cluster=cluster)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["K29"] == before + 1
     monkeypatch.delenv("TPU_LLAMA_ROWS_RESIDENT")

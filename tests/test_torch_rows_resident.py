@@ -84,10 +84,11 @@ def test_k29_plain_equals_jax_rows_resident(monkeypatch, dt, residual):
 
 def test_k29_route(monkeypatch):
     """K29 is taken above 256 rows with the switch set, read at each call,
-    for an inner size it holds (a multiple of 16 up to 11904: 32 rows a
-    block up to 5952, else 16); K1 otherwise."""
-    assert [tm.rows_resident_bm(n) for n in (4096, 11008, 5952, 5968, 11904, 11920, 200)] == \
-        [32, 16, 32, 16, 16, 0, 0]
+    for an inner size it holds (a multiple of 16 up to 12288: 32 rows a
+    block up to 6144, where two 16 KB weight stages still fit beside the
+    slice, else 16); K1 otherwise."""
+    sizes = (4096, 11008, 5952, 5968, 11904, 11920, 200, 6144, 6160, 12288, 12304)
+    assert [tm.rows_resident_bm(n) for n in sizes] == [32, 16, 32, 32, 16, 16, 0, 32, 16, 16, 0]
     w = tq.ChannelQuantTensor(q=torch.ones(8, 256, dtype=torch.int8), s=torch.ones(8))
 
     def run(m, n_in=256):

@@ -56,15 +56,9 @@
 //   tile is reused from L2 by the m-blocks running beside it instead of
 //   streaming from HBM once per m-block.  The epilogue masks rows past M and
 //   columns past N.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -261,57 +255,6 @@ constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;  // + alig
 constexpr int kGroupN = 16;  // column blocks of a raster group
 }  // namespace wg
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-    unsigned done = 0;
-    while (!done) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_addr(bar)), "r"(parity)
-            : "memory");
-    }
-}
-
-// a 2D TMA tile load (inner coordinate c0, outer c1) completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-        : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
-// (TMA's SWIZZLE_128B): 8-row atoms of 128-byte rows, 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-    return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-           (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 // d (64 x 256 f32) += a (64 x 16 bf16, registers) * b (16 x 256 bf16, K-major
 // in shared memory)
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], const unsigned (&a)[4],
@@ -483,7 +426,7 @@ q8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
             dequant_tile<SPT>(ws + sn * kWTile, r, tg, sc, a_nxt);
             if (kt + 2 < nk) load_scales(kt + 2);
         }
-        wgmma_wait0();
+        wgmma_wait<0>();
         fence_acc(acc);
         fence_frag(a_cur);
         __syncwarp();
@@ -503,45 +446,6 @@ q8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
             const int n = n0 + r + 8 * (e >> 1), m = m0 + 8 * j + 2 * tg + (e & 1);
             if (n < N && m < M) store_as(out + (long long)m * N + n, acc[4 * j + e]);
         }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &res);
-#else
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-        if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
-
-// A 2D row-major [rows, cols] tensor's map with a box of box_cols x
-// box_rows elements; rows past the end load as zeros.
-bool make_map(CUtensorMap* map, CUtensorMapDataType dt, int elem, const void* ptr, int rows,
-              int cols, int box_rows, int box_cols, CUtensorMapSwizzle swz) {
-    EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return false;
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                               static_cast<cuuint32_t>(box_rows)};
-    const cuuint32_t estr[2] = {1, 1};
-    return fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename OT, int SPT>

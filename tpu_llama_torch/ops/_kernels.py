@@ -111,8 +111,8 @@ SOURCES = {
                     *[_I] * 5, _P]),
     # k, v, pos, ck, cv, cks, cvs, cache dtype, layer, B, KVH, S, hd, stream
     "kv_write_decode": ("tl_kv_write_decode", [*[_P] * 7, *[_I] * 6, _P]),
-    # x, sx, w, sw, residual, out, out dtype, M, N, K, rows per block, stream
-    "w8a8_rows_resident": ("tl_w8a8_rows_resident", [*[_P] * 6, *[_I] * 5, _P]),
+    # x, sx, w, sw, residual, out, out dtype, M, N, K, rows per block, cluster blocks, stream
+    "w8a8_rows_resident": ("tl_w8a8_rows_resident", [*[_P] * 6, *[_I] * 6, _P]),
     # q, q dtype, cache dtype, k, v, ks, vs, pos, out, layer, B, KVH, G, S, hd, TS, sqrt(hd),
     # copy chunk, stream
     "flash_decode": ("tl_flash_decode", [_P, _I, _I, *[_P] * 6, *[_I] * 7, ctypes.c_float, _I,
@@ -300,6 +300,21 @@ def k12_residency(B: int, G: int, hd: int, ts: int, ch: int) -> int:
                                f"{_lib('fused_step2').tl_error_string(code).decode()} ({code})")
         _K12_RESIDENCY[key] = n.value
     return _K12_RESIDENCY[key]
+
+
+def k29_max_clusters(K: int, csize: int) -> int:
+    """The clusters of ``csize`` K29 blocks the card keeps resident at once
+    for an inner size ``K`` (``tl_w8a8_rows_resident_clusters``: CUDA's
+    occupancy query at the launch's shape)."""
+    fn = _lib(KERNELS["K29"]).tl_w8a8_rows_resident_clusters
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = _I
+    n = ctypes.c_int(0)
+    code = fn(K, csize, ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"K29 cluster query failed: "
+                           f"{_lib(KERNELS['K29']).tl_error_string(code).decode()} ({code})")
+    return n.value
 
 
 def stream(t: torch.Tensor) -> int:

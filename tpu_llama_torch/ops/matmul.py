@@ -7,13 +7,17 @@ Port of tpu_llama/ops/matmul.py:437-610 (``w8a8_matmul`` and
 ``_w8a8_res_kernel``, :388), :314 (``_w8a8_rows_resident_call``, taken
 above 256 rows under the JAX package's own switch
 ``TPU_LLAMA_ROWS_RESIDENT=1``, matmul.py:224-234, 513-519) and :142
-(``q8_matmul``).  No row padding and no tile picking: the kernels mask
-their own ragged edges, and results exist only for real rows.
+(``q8_matmul``).  No row padding: the kernels mask their own ragged edges,
+and results exist only for real rows.  The kernels' host-side rules (K1's
+form, tile, raster and K padding; K29's rows, ring and cluster) have pure
+Python mirrors here (``w8a8_plan``, ``w8a8_raster``, ``rows_resident_plan``,
+``rows_resident_cluster``, ``rows_resident_grid``), which the CPU tests hold.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -67,25 +71,89 @@ def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTens
     return launch_w8a8("K1", xq, sx, w, out_dtype, residual)
 
 
-# K29's shared memory: the x slice BM x x_pitch(IN) plus a ring of four
-# 128-row weight stages of 80 bytes (csrc/w8a8_rows_resident.cu), within
-# the 232448 bytes a block may use.
-_RESIDENT_RING = 4 * 128 * 80
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# K29 (csrc/w8a8_rows_resident.cu): a resident x slice of BM rows and K
+# rounded up to 128-byte TMA boxes (no row pad: the 128-byte swizzle keeps
+# the wgmma reads free of bank conflicts), beside a ring of 2-8 stages of 64
+# weight rows x 128 k-bytes for each consumer warpgroup, the ring's barriers
+# and 1 KB of alignment slack, within the 232448 bytes a block may use.
+RESIDENT_BK = 128  # k bytes of a stage and of an x box
+_RESIDENT_STAGES = (2, 8)  # the least and the most stages of the ring
+_RESIDENT_FIXED = 1024 + (2 * _RESIDENT_STAGES[1] + 1) * 8
 _RESIDENT_SMEM = 232448
+# (x rows, consumer warpgroups), in the kernel's order of preference
+_RESIDENT_ORDER = ((32, 4), (32, 2), (16, 4), (16, 2))
+# the blocks of a cluster along M that share each weight stage by multicast
+ROWS_RESIDENT_CLUSTER = 2
+RESIDENT_CLUSTERS = (1, 2, 4, 8)
+
+
+@dataclass(frozen=True)
+class RowsPlan:
+    """How K29 runs an inner size: ``bm`` x rows a block holds (0: not
+    taken), ``consumers`` warpgroups of 64 weight rows each (a stage and a
+    weight tile are ``rows`` = 64 x consumers rows) and ``stages`` in the
+    ring."""
+    bm: int
+    consumers: int
+    stages: int
+
+    @property
+    def rows(self) -> int:
+        return 64 * self.consumers
+
+
+def rows_resident_smem(bm: int, n_in: int, consumers: int, stages: int) -> int:
+    """Shared memory of a K29 block: the slice, the ring, barriers and slack."""
+    return _RESIDENT_FIXED + bm * _cdiv(n_in, RESIDENT_BK) * RESIDENT_BK + \
+        stages * 64 * consumers * RESIDENT_BK
+
+
+def rows_resident_plan(n_in: int) -> RowsPlan:
+    """K29's rows, consumers and ring for an inner size ``n_in``: the first
+    of 32 rows and 4 consumers, 32 and 2, 16 and 4, 16 and 2 beside which two
+    or more stages fit (more consumers issue more of the narrow wgmma at
+    once; more rows halve the blocks that stream W); bm 0 where K29 does not
+    take ``n_in`` (not a multiple of 16, which TMA's strides need, or too
+    wide).  The rule of csrc/w8a8_rows_resident.cu plan_for."""
+    if n_in >= 16 and n_in % 16 == 0:
+        lo, hi = _RESIDENT_STAGES
+        for bm, consumers in _RESIDENT_ORDER:
+            left = _RESIDENT_SMEM - rows_resident_smem(bm, n_in, consumers, 0)
+            stages = min(hi, max(0, left) // (64 * consumers * RESIDENT_BK))
+            if stages >= lo:
+                return RowsPlan(bm, consumers, stages)
+    return RowsPlan(0, 0, 0)
 
 
 def rows_resident_bm(n_in: int) -> int:
-    """The rows of x a K29 block holds for an inner size ``n_in``: 32 or 16
-    where the slice and the weight ring fit in a block's shared memory, 0
-    where K29 does not take ``n_in`` (not a multiple of 16, or too wide).
-    The rule of csrc/w8a8_rows_resident.cu rows_bm."""
-    if n_in < 16 or n_in % 16:
-        return 0
-    pitch = -(-n_in // 64) * 64 + 16
-    for bm in (32, 16):
-        if bm * pitch + _RESIDENT_RING <= _RESIDENT_SMEM:
-            return bm
-    return 0
+    """The rows of x a K29 block holds for an inner size ``n_in`` (32 or
+    16), 0 where K29 does not take ``n_in`` (``rows_resident_plan``)."""
+    return rows_resident_plan(n_in).bm
+
+
+def rows_resident_cluster(m: int, bm: int) -> int:
+    """The blocks along M of a K29 cluster (each fetches 1/C of every weight
+    stage and multicasts it to all C): ROWS_RESIDENT_CLUSTER, halved while
+    it exceeds the m-blocks."""
+    c, blocks = ROWS_RESIDENT_CLUSTER, _cdiv(m, bm)
+    while c > 1 and c > blocks:
+        c //= 2
+    return c
+
+
+def rows_resident_grid(m: int, n: int, plan: RowsPlan, cluster: int,
+                       sms: int = 132) -> tuple[int, int]:
+    """K29's grid (m-blocks, splits of the weight tiles): ceil(M / BM)
+    m-blocks rounded up to a multiple of the cluster, and where fewer
+    m-blocks than SMs run, floor(SMs / m-blocks) blocks along y, each
+    walking the weight tiles of ``plan.rows`` rows t = y, y + splits, ...
+    The rule of csrc/w8a8_rows_resident.cu launch."""
+    nm = _cdiv(_cdiv(m, plan.bm), cluster) * cluster
+    return nm, max(1, min(_cdiv(n, plan.rows), sms // nm))
 
 
 def rows_resident_route(m: int, n_in: int) -> bool:
@@ -98,54 +166,120 @@ def rows_resident_route(m: int, n_in: int) -> bool:
 
 
 def w8a8_rows_resident(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor,
-                       out_dtype=torch.float32, residual=None) -> torch.Tensor:
+                       out_dtype=torch.float32, residual=None, cluster=None) -> torch.Tensor:
     """K1's function (see :func:`w8a8_matmul_prequant`) with each block's x
     rows held resident in shared memory while the weights stream past
     them (K29): equal to K1 bit for bit.  The inner size must be a multiple
-    of 16 that ``rows_resident_bm`` takes.  K29 on CUDA tensors, K1's plain
-    version on CPU ones."""
+    of 16 that ``rows_resident_bm`` takes.  ``cluster`` (1, 2, 4 or 8)
+    overrides ``rows_resident_cluster``'s pick.  K29 on CUDA tensors, K1's
+    plain version on CPU ones."""
     _check(xq, sx, w)
     if residual is not None and residual.shape != (xq.shape[0], w.out_features):
         raise ValueError(f"want residual [{xq.shape[0]}, {w.out_features}], got "
                          f"{tuple(residual.shape)}")
+    if cluster is not None and cluster not in RESIDENT_CLUSTERS:
+        raise ValueError(f"K29 clusters hold {RESIDENT_CLUSTERS} blocks, not {cluster}")
     tensors = (xq, sx, w.q, w.s) + (() if residual is None else (residual,))
     if _kernels.on_cpu("K29", *tensors):
         return w8a8_matmul_prequant_plain(xq, sx, w, out_dtype, residual)
     m, k = xq.shape
     bm = rows_resident_bm(k)
     if not bm:
-        raise NotImplementedError(f"K29 holds x rows of a multiple of 16 bytes, up to 11904, "
+        raise NotImplementedError(f"K29 holds x rows of a multiple of 16 bytes, up to 12288, "
                                   f"in shared memory: got {k}")
     code = _kernels.dtype_code(out_dtype)
     xq, sx = xq.contiguous(), sx.contiguous()
     wq, ws = w.q.contiguous(), w.s.contiguous()
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
-        raise ValueError("K29 copies x and w in 16-byte chunks: both must be 16-byte aligned")
+        raise ValueError("K29 loads x and w by TMA: both must be 16-byte aligned")
     res = None if residual is None else residual.to(out_dtype).contiguous()
     n = wq.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
         _kernels.launch("K29", xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                         None if res is None else res.data_ptr(), out.data_ptr(), code, m, n, k,
-                        bm, _kernels.stream(xq))
+                        bm, cluster or rows_resident_cluster(m, bm), _kernels.stream(xq))
     return out
+
+
+# K1 (csrc/w8a8_matmul.cu): up to W8A8_DECODE_ROWS rows the mma.sync decode
+# tile (16 x 32, 256-byte k-tiles, any K); above them the wgmma + TMA
+# kernel's 128 x 256 tiles (x rows x weight rows, 128 k-bytes a stage) in
+# raster groups of W8A8_GROUP_N column blocks.  TMA reads rows of a multiple
+# of 16 bytes from 16-byte aligned bases.
+W8A8_DECODE_ROWS = 16
+W8A8_DECODE_TILE = (16, 32, 256)
+W8A8_TILE = (128, 256, 128)
+W8A8_GROUP_N = 16
+_TMA_BYTES = 16
+
+
+@dataclass(frozen=True)
+class W8A8Plan:
+    """How K1 runs a product of M x K by K x N: ``form`` "decode" or
+    "wgmma", its ``tile`` (rows, columns, k bytes a stage), the ``k`` it is
+    launched with (K zero-padded to a multiple of 16 on the wgmma form: the
+    padded columns add 0 to every int32 sum) and its ``blocks``."""
+    form: str
+    tile: tuple[int, int, int]
+    k: int
+    blocks: int
+
+
+def w8a8_plan(m: int, k: int, n: int) -> W8A8Plan:
+    """K1's form, tile and K padding for M x K by K x N (the rule of
+    csrc/w8a8_matmul.cu dispatch)."""
+    if m <= W8A8_DECODE_ROWS:
+        bm, bn, _ = W8A8_DECODE_TILE
+        return W8A8Plan("decode", W8A8_DECODE_TILE, k, _cdiv(m, bm) * _cdiv(n, bn))
+    bm, bn, _ = W8A8_TILE
+    return W8A8Plan("wgmma", W8A8_TILE, _cdiv(k, _TMA_BYTES) * _TMA_BYTES,
+                    _cdiv(m, bm) * _cdiv(n, bn))
+
+
+def w8a8_raster(m: int, n: int) -> list[tuple[int, int]]:
+    """(m-block, n-block) of each block of K1's wgmma kernel, by block index:
+    groups of W8A8_GROUP_N column blocks (the last group what is left), the
+    column blocks of a group side by side and its m-blocks one after
+    another (csrc/w8a8_matmul.cu w8a8_wgmma_kernel's raster)."""
+    bm, bn, _ = W8A8_TILE
+    num_n, num_m = _cdiv(n, bn), _cdiv(m, bm)
+    per_group = W8A8_GROUP_N * num_m
+    order = []
+    for b in range(num_n * num_m):
+        grp, in_grp = divmod(b, per_group)
+        first_n = grp * W8A8_GROUP_N
+        gsz = min(num_n - first_n, W8A8_GROUP_N)
+        order.append((in_grp // gsz, first_n + in_grp % gsz))
+    return order
 
 
 def launch_w8a8(kernel: str, xq, sx, w: ChannelQuantTensor, out_dtype, residual=None):
     """Launch K1's CUDA kernel on checked CUDA operands, counted as
-    ``kernel`` (K1, or K8 for a layer view of stacked weights)."""
+    ``kernel`` (K1, or K8 for a layer view of stacked weights); above
+    W8A8_DECODE_ROWS rows K is zero-padded as ``w8a8_plan`` says and
+    operands off 16-byte boundaries are copied, for TMA."""
     code = _kernels.dtype_code(out_dtype)
     xq, sx = xq.contiguous(), sx.contiguous()
     wq, ws = w.q.contiguous(), w.s.contiguous()
     res = None if residual is None else residual.to(out_dtype).contiguous()
     m, k = xq.shape
     n = wq.shape[0]
+    plan = w8a8_plan(m, k, n)
+    if plan.form == "wgmma":
+        if plan.k != k:
+            xq = torch.nn.functional.pad(xq, (0, plan.k - k))
+            wq = torch.nn.functional.pad(wq, (0, plan.k - k))
+        xq = xq.clone() if xq.data_ptr() % _TMA_BYTES else xq
+        wq = wq.clone() if wq.data_ptr() % _TMA_BYTES else wq
+        vec = True
+    else:
+        vec = k % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
-        vec = k % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
         _kernels.launch(kernel, xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                         None if res is None else res.data_ptr(), out.data_ptr(), code, m, n,
-                        k, int(vec), _kernels.stream(xq))
+                        plan.k, int(vec), _kernels.stream(xq))
     return out
 
 

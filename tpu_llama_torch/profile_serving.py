@@ -24,9 +24,10 @@ phase: host wall time of the untraced runs and of the traced run (closed by
 in the trace), the device's idle share against the untraced wall, device
 time per port kernel and for everything else (``device_ms["other"]``: the
 plain PyTorch operations), the top kernels by device time, and each port
-kernel's launch count in an untraced run.  K1 and K8 run one CUDA kernel
-(K8 is K1's kernel on a layer view), so the trace reports their device time
-together, as "K1+K8".  Then (c) the long-prompt path: one admission of 8
+kernel's launch count in an untraced run.  K1 and K8 run the same CUDA
+kernels (K8 is K1's on a layer view: its decode tile up to 16 rows, its
+wgmma kernel above), so the trace reports their device time together, as
+"K1+K8".  Then (c) the long-prompt path: one admission of 8
 prompts of 2048 tokens (16 384 rows: the chunked prefill, 8 chunks of 256,
 K18 landing each chunk) and one device-sampled decode chunk of 16 steps of
 all 8 slots at position 1024 (``decode_sample_chunk``: mega2 decode plus
@@ -74,7 +75,7 @@ PORT_KERNELS = {"paged_flash_decode_dma_kernel": "K13", "paged_flash_decode_fres
                 "kv_pool_flush_rows_kernel": "K14", "kv_pool_scatter_kernel": "K15",
                 "paged_flash_prefill_kernel": "K16", "kv_pool_write_chunk_kernel": "K17",
                 "paged_flash_decode_kernel": "K22",
-                "w8a8_kernel": "K1+K8", "quantize_rows_kernel": "K2",
+                "w8a8_kernel": "K1+K8", "w8a8_wgmma_kernel": "K1+K8", "quantize_rows_kernel": "K2",
                 "rmsnorm_quantize_kernel": "K3", "silu_mul_quantize_kernel": "K4",
                 "rope_split_quantize_kernel": "K5", "flash_prefill_fp_kernel": "K6",
                 "flash_prefill_i8_kernel": "K6",
