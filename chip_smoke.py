@@ -38,10 +38,13 @@ Phases (any failure exits non-zero and prints no result line):
    version on the same inputs: K1, K2, K7, K8, K10, K11, K18, and K14 and
    K15 outside the trash page 0, exact; K3, K4 and K5 within
    QUANT_FLIPS / QUANT_SCALE_RTOL, K6 (on caches whose rows no query
-   attends are poisoned), K9 and K19 within K6_TOL, K12's
+   attends are poisoned), K9 and K19 within K6_TOL (K9, and K13 below,
+   under the split rule's count and at one split, each against its plain
+   version at that count, with the split cell's residency and the trace's
+   device ms beside), K12's
    residual exact and its int8 outputs, scales and attention output within
    those limits, K13 and K20 within K6_TOL (K13 also bit-equal to K9 at
-   block_s 256 on a paged copy of its cache), K17 exact outside page 0 (one
+   block_s 256 and the same splits on a paged copy of its cache), K17 exact outside page 0 (one
    slot's start past its table), K16 within K6_TOL and bit-equal to K6 on a
    dense copy of its keys, K22 within K6_TOL, K25 within K25_TOL, the fp
    forms of K6, K9 and K19 within FP_TOL with f32 queries (K6_TOL for K6's
@@ -697,10 +700,11 @@ def check_k7(torch, tatt, results):
                         bound_by=by, library_ms=library_ms))
 
 
-def _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pos, layers, copies):
+def _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pos, layers, copies, device=False):
     """The library yardstick of K9 and K19: scaled_dot_product_attention on
     the dequantized bf16 cache with the fresh row written in place at pos
-    and a boolean mask s <= pos."""
+    and a boolean mask s <= pos; with ``device``, (event ms, device ms from
+    a trace)."""
     import torch.nn.functional as F
 
     B, KVH, G, hd = q[0].shape
@@ -717,12 +721,16 @@ def _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pos, layers, copies):
         del kd, vd
     mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
     kw = dict(enable_gqa=True) if G > 1 else {}
+
+    def lib(i):
+        return F.scaled_dot_product_attention(*deq[i % copies], attn_mask=mask, **kw)
+
     try:
-        return cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            *deq[i % copies], attn_mask=mask, **kw), 50)
+        ms = cuda_ms(torch, lib, 50)
+        return (ms, device_ms(torch, lib, 20)) if device else ms
     except (TypeError, RuntimeError) as e:  # a GQA call this build refuses
         print(f"decode attention library call unavailable: {e}", file=sys.stderr)
-        return None
+        return (None, None) if device else None
 
 
 def _poison(k, v, ks, vs, pos):
@@ -734,12 +742,30 @@ def _poison(k, v, ks, vs, pos):
             a[:, b, :, p:] = val
 
 
+def split_variants(tatt, B: int, KVH: int, ts: int, rows_max: int) -> list[int]:
+    """The splits K9 and K13 are held and timed at: the rule's, and one
+    (the sequential walk) where the rule splits."""
+    n = tatt.decode_splits(B, KVH, ts, rows_max)
+    return [n, 1] if n > 1 else [1]
+
+
+def split_residency(_kernels, kv_dtype, G: int, hd: int, ts: int) -> dict:
+    """The split cell's blocks per SM, ring tiles and shared memory bytes
+    at a launch's shapes (CUDA's occupancy query)."""
+    blocks, tiles, nbytes = _kernels.decode_split_residency(kv_dtype, G, hd, ts)
+    return dict(resident_blocks=blocks, ring_tiles=tiles, smem_bytes=nbytes)
+
+
 def check_decode_attention(torch, tatt, results):
     """K9 and K19 on the same inputs: a 32-layer 2048-row cache, layer 17,
     at batch 8 (one slot at each of DECODE_POS; MHA and a GQA group of 4)
-    and at batch 1, the rows at and past each pos poisoned (``_poison``).
+    and at batch 1, the rows at and past each pos poisoned (``_poison``);
+    K9 under the split rule's count and, where that is more than one, at
+    one split, each against its plain version at the same splits.
     Repeated calls rotate through other layers of the cache and other
     queries, so they find the rows cold in L2."""
+    from tpu_llama_torch.ops import _kernels
+
     gen = torch.Generator(device="cuda").manual_seed(9)
     L, S, hd, layer = 32, 2048, 128, 17
 
@@ -764,32 +790,42 @@ def check_decode_attention(torch, tatt, results):
         nv = [ri(B, KVH, hd) for _ in range(copies)]
         nks = [rs(B, KVH) for _ in range(copies)]
         nvs = [rs(B, KVH) for _ in range(copies)]
-        library_ms = _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pt, layers, copies)
+        library_ms, library_dev = _sdpa_ms(torch, q, k, v, ks, vs, nk, nv, nks, nvs, pt, layers,
+                                           copies, device=True)
         torch.cuda.empty_cache()
         nbytes = (rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + B * KVH * (2 * hd + 8)
                   + 4 * B)
         ops = 4 * hd * G * (rows + B * KVH)  # the QK and PV dots, fresh column included
         b_ms, by = bound_ms(nbytes, ops, "bf16")
-        for kernel, name in (("K9", "dma"), ("K19", "fresh")):
+        res = split_residency(_kernels, torch.int8, G, hd, 128)
+        for kernel, name, n in [("K9", "dma", n) for n in split_variants(tatt, B, KVH, 128, S)] \
+                + [("K19", "fresh", None)]:
             fn = getattr(tatt, f"flash_decode_attention_{name}")
             plain = getattr(tatt, f"flash_decode_attention_{name}_plain")
+            kw = {} if n is None else dict(splits=n)
 
             def run(i, f=fn):
                 j = i % copies
-                return f(q[j], k, v, pt, nk[j], nv[j], ks, vs, nks[j], nvs[j], layer=layers[j])
+                return f(q[j], k, v, pt, nk[j], nv[j], ks, vs, nks[j], nvs[j], layer=layers[j],
+                         **kw)
 
             got = run(0)
             torch.cuda.synchronize()
             want = run(0, plain)
             err = (got - want).abs().max().item()
             peak = want.abs().max().item()
-            label = f"{kernel} {name} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'}"
+            label = f"{kernel} {name} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'}" \
+                + ("" if n is None else f" splits={n}")
             check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
             ms = cuda_ms(torch, run, 50)
             plain_ms = cuda_ms(torch, lambda i: run(i, plain), 5)
+            extra = {} if n is None else dict(splits=n, **res, device_ms=device_ms(torch, run),
+                                              library_device_ms=library_dev)
+            print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
+                  flush=True)
             results.append(dict(kernel=kernel, name=label, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                                library_ms=library_ms))
+                                library_ms=library_ms, **extra))
         del k, v, ks, vs
         torch.cuda.empty_cache()
 
@@ -1048,10 +1084,14 @@ def check_paged_attention(torch, tatt, PagePool, results):
     at and past each pos, unused pages, page 0) poisoned with int8 127 and
     scale 1e4.  Each within K6_TOL of its plain version.  K13 is then held
     to K9 on a paged copy of the same cache (``paged_view``): bit-equal at
-    K9's block_s = 256 (K13's block: the same dec_attend cell over the same
-    blocks in the same order); the difference at K9's default block of 128
-    rows is recorded.  Repeated calls rotate through other layers and
-    queries."""
+    K9's block_s = 256 (K13's block: the same split cell over the same
+    blocks and spans in the same order); the difference at K9's default
+    block of 128 rows is recorded.  K13 runs under the split rule's count
+    and, where that is more than one, at one split, each against its plain
+    version and K9 at the same splits.  Repeated calls rotate through other
+    layers and queries."""
+    from tpu_llama_torch.ops import _kernels
+
     gen = torch.Generator(device="cuda").manual_seed(13)
     L, hd, ps, layer = 32, 128, PAGED_PS, 17
     MP = 2048 // ps
@@ -1086,18 +1126,23 @@ def check_paged_attention(torch, tatt, PagePool, results):
         nks = [rs(B, KVH) for _ in range(copies)]
         nvs = [rs(B, KVH) for _ in range(copies)]
         dense = [tatt.paged_view(a, pt, layer) for a in arrs]  # [1, B, KVH, S(, hd)]
-        library_ms = _sdpa_ms(torch, q, *dense, nk, nv, nks, nvs, p32, [0] * copies, copies)
+        library_ms, library_dev = _sdpa_ms(torch, q, *dense, nk, nv, nks, nvs, p32,
+                                           [0] * copies, copies, device=True)
         torch.cuda.empty_cache()
         nbytes = (rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + B * KVH * (2 * hd + 8)
                   + 4 * B * (MP + 1))
         b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "bf16")
-        for kernel, name in (("K13", "dma"), ("K20", "fresh"))[:1 if B == 32 else 2]:
+        ts = tatt._paged_block(ps)
+        variants = [("K13", "dma", n) for n in split_variants(tatt, B, KVH, ts, MP * ps)]
+        for kernel, name, n in variants + ([] if B == 32 else [("K20", "fresh", None)]):
             fn = getattr(tatt, f"paged_flash_decode_attention_{name}")
             plain = getattr(tatt, f"paged_flash_decode_attention_{name}_plain")
+            kw = {} if n is None else dict(splits=n)
 
             def run(i, f=fn):
                 j = i % copies
-                return f(q[j], *arrs, pt, p32, nk[j], nv[j], nks[j], nvs[j], layer=layers[j])
+                return f(q[j], *arrs, pt, p32, nk[j], nv[j], nks[j], nvs[j], layer=layers[j],
+                         **kw)
 
             got = run(0)
             torch.cuda.synchronize()
@@ -1105,20 +1150,25 @@ def check_paged_attention(torch, tatt, PagePool, results):
             err = (got - want).abs().max().item()
             peak = want.abs().max().item()
             label = f"{kernel} paged_{name} B={B} KVH={KVH} G={G} ps={ps} pos=" \
-                    f"{pos[0] if B == 1 else 'mix'}"
+                    f"{pos[0] if B == 1 else 'mix'}" + ("" if n is None else f" splits={n}")
             check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
             extra = {}
-            if kernel == "K13":  # against K9 on the paged copy of layer 17
+            if kernel == "K13":  # against K9 on the paged copy of layer 17, same splits
                 k9 = [tatt.flash_decode_attention_dma(q[0], dense[0], dense[1], p32, nk[0], nv[0],
                                                       dense[2], dense[3], nks[0], nvs[0],
-                                                      layer=0, block_s=bs) for bs in (256, 128)]
+                                                      layer=0, block_s=bs, splits=n)
+                      for bs in (256, 128)]
                 torch.cuda.synchronize()
                 extra = dict(k9_block256_max_diff=(got - k9[0]).abs().max().item(),
                              k9_block128_max_diff=(got - k9[1]).abs().max().item())
                 check(torch.equal(got, k9[0]), f"{label}: K13 != K9 (block_s 256) on the paged "
                                                f"copy: {extra}")
+                extra.update(splits=n, **split_residency(_kernels, torch.int8, G, hd, ts),
+                             device_ms=device_ms(torch, run), library_device_ms=library_dev)
             ms = cuda_ms(torch, run, 50)
             plain_ms = cuda_ms(torch, lambda i: run(i, plain), 3)
+            print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
+                  flush=True)
             results.append(dict(kernel=kernel, name=label, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                                 library_ms=library_ms, **extra))
@@ -1464,8 +1514,12 @@ def check_fp_forms(torch, tatt, results):
     bf16, within K6_TOL); K7 and K10 exact.  K6's bound is its split cell's
     own (csrc/prefill_split.cuh: the TF32 or bf16 passes' operations),
     with the f32 SIMT bound beside it (``simt_bound_ms``).  Library calls:
-    SDPA on the fp cache, as for the INT8 forms, and the indexed copies."""
+    SDPA on the fp cache, as for the INT8 forms, and the indexed copies.
+    K9 runs under the split rule's count and, where that is more than one,
+    at one split."""
     import torch.nn.functional as F
+
+    from tpu_llama_torch.ops import _kernels
 
     for dt in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dt).element_size()
@@ -1575,11 +1629,15 @@ def check_fp_forms(torch, tatt, results):
                   for _ in range(copies)]
             nv = [torch.randn(B, KVH, hd, generator=gen, device="cuda").to(dt)
                   for _ in range(copies)]
-            library_ms = _sdpa_fp_ms(torch, qf, k, v, nk, nv, pt, layers, copies)
+            library_ms, library_dev = _sdpa_fp_ms(torch, qf, k, v, nk, nv, pt, layers, copies,
+                                                  device=True)
             torch.cuda.empty_cache()
-            # f32 queries, as the dense and Q8_0 paths pass them; bf16 beside
-            for (kernel, name), qdt in itertools.product((("K9", "dma"), ("K19", "fresh")),
-                                                         (torch.float32, torch.bfloat16)):
+            # f32 queries, as the dense and Q8_0 paths pass them; bf16 beside;
+            # K9 under the split rule's count and at one split
+            res = split_residency(_kernels, dt, G, hd, 64)
+            k9 = [("K9", "dma", n) for n in split_variants(tatt, B, KVH, 64, S)]
+            for (kernel, name, n), qdt in itertools.product(k9 + [("K19", "fresh", None)],
+                                                            (torch.float32, torch.bfloat16)):
                 kid, prefix = _fp_label(kernel, dt)
                 fn = getattr(tatt, f"flash_decode_attention_{name}")
                 plain = getattr(tatt, f"flash_decode_attention_{name}_plain")
@@ -1588,10 +1646,11 @@ def check_fp_forms(torch, tatt, results):
                 nbytes = (rows * 2 * hd * es + B * KVH * G * hd * (qb + 4)
                           + B * KVH * 2 * hd * es + 4 * B)
                 b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "f32")
+                kw = {} if n is None else dict(splits=n)
 
                 def run(i, f=fn):
                     j = i % copies
-                    return f(q[j], k, v, pt, nk[j], nv[j], layer=layers[j])
+                    return f(q[j], k, v, pt, nk[j], nv[j], layer=layers[j], **kw)
 
                 got = run(0)
                 torch.cuda.synchronize()
@@ -1599,13 +1658,17 @@ def check_fp_forms(torch, tatt, results):
                 err = (got - want).abs().max().item()
                 peak = want.abs().max().item()
                 label = (f"{prefix} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'} "
-                         f"q={_sfx(qdt)}")
+                         f"q={_sfx(qdt)}" + ("" if n is None else f" splits={n}"))
                 check(err <= FP_TOL * peak, f"{label}: err {err} > {FP_TOL} * {peak}")
                 ms = cuda_ms(torch, run, 50)
                 plain_ms = cuda_ms(torch, lambda i: run(i, plain), 3, warmup=1)
+                extra = {} if n is None else dict(splits=n, **res, device_ms=device_ms(torch, run),
+                                                  library_device_ms=library_dev)
+                print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
+                      flush=True)
                 results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                                    library_ms=library_ms))
+                                    library_ms=library_ms, **extra))
             if B == 8:  # K10 at the step's shape on this cache
                 kid, prefix = _fp_label("K10", dt)
                 fpos = [0, 1, 127, 128, 511, 1000, S, 2047]
@@ -1644,9 +1707,10 @@ def check_fp_forms(torch, tatt, results):
             torch.cuda.empty_cache()
 
 
-def _sdpa_fp_ms(torch, q, k, v, nk, nv, pos, layers, copies):
+def _sdpa_fp_ms(torch, q, k, v, nk, nv, pos, layers, copies, device=False):
     """The library yardstick of the fp forms of K9 and K19: SDPA on the fp
-    cache's layer with the fresh row written at pos and the mask s <= pos."""
+    cache's layer with the fresh row written at pos and the mask s <= pos;
+    with ``device``, (event ms, device ms from a trace)."""
     import torch.nn.functional as F
 
     B, KVH, G, hd = q[0].shape
@@ -1660,12 +1724,16 @@ def _sdpa_fp_ms(torch, q, k, v, nk, nv, pos, layers, copies):
         sd.append((q[i].reshape(B, KVH * G, 1, hd).to(k.dtype), kd, vd))
     mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
     kw = dict(enable_gqa=True) if G > 1 else {}
+
+    def lib(i):
+        return F.scaled_dot_product_attention(*sd[i % copies], attn_mask=mask, **kw)
+
     try:
-        return cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            *sd[i % copies], attn_mask=mask, **kw), 50)
+        ms = cuda_ms(torch, lib, 50)
+        return (ms, device_ms(torch, lib, 20)) if device else ms
     except (TypeError, RuntimeError) as e:  # a call this build refuses
         print(f"fp decode attention library call unavailable: {e}", file=sys.stderr)
-        return None
+        return (None, None) if device else None
 
 
 def _layer_weights(torch, tq, gen, L, D, H, QO):
@@ -1982,7 +2050,7 @@ def check_mega_kernels(torch, tq, tfl, tfs, tfs3, tfst, tatt, results):
         check(all(same), f"{label}: the linear outputs differ from K11's phases on the "
                          f"kernel's attention output ({same})")
         att9 = tatt.flash_decode_attention_dma(q, cache[0], cache[1], pt, nk, nv, scales[0],
-                                               scales[1], nks, nvs, layer=layer)
+                                               scales[1], nks, nvs, layer=layer, splits=1)
         q2, s2 = tq.quantize_activations(att9.reshape(B, D))
         comp = tfl.fused_layer_linear(x, q2, s2, *ws, rf, ra, layer, L)
         torch.cuda.synchronize()
@@ -2013,8 +2081,8 @@ def check_k28(torch, tatt, results):
     batch 8: slot 0 parked at position 0, slot 6 at pos S (skipped), the
     others at DECODE_POS; bit-equal to its plain version, the skipped slot
     untouched.  Repeated calls rotate through the layers and other rows.
-    The library call, for the fp forms, is one indexed write per array of
-    the rows already cast (none for INT8, whose quant no one call does)."""
+    The library call is one indexed write per array of the rows already
+    cast (fp) or quantized (INT8: values and scales, four arrays)."""
     gen = torch.Generator(device="cuda").manual_seed(28)
     L, B, KVH, S, hd, layer = 8, 8, 32, 2048, 128, 5
     pos = [0, 1, 127, 128, 511, 1000, S, 2047]
@@ -2052,19 +2120,21 @@ def check_k28(torch, tatt, results):
 
         ms = cuda_ms(torch, run, 50)
         plain_ms = cuda_ms(torch, lambda i: run(i, tatt.kv_cache_write_decode_plain), 10)
-        library_ms = None
-        if not int8:
+        if int8:  # the rows quantized ahead: K28's quant has no one library call
+            cast = [(*tatt.quantize_kv(k), *tatt.quantize_kv(v)) for k, v in rows]
+            cast = [(kq, vq, kss, vss) for kq, kss, vq, vss in cast]
+        else:
             cast = [(k.to(dtype), v.to(dtype)) for k, v in rows]
-            okt = torch.tensor(ok, device="cuda")
-            ix = (okt[:, None], torch.arange(KVH, device="cuda")[None, :],
-                  torch.tensor([pos[b] for b in ok], device="cuda")[:, None])
+        okt = torch.tensor(ok, device="cuda")
+        ix = (okt[:, None], torch.arange(KVH, device="cuda")[None, :],
+              torch.tensor([pos[b] for b in ok], device="cuda")[:, None])
 
-            def lib(i):
-                lay = (layer + i) % L
-                for c, r in zip(cache, cast[i % copies]):
-                    c[lay][ix] = r[okt]
+        def lib(i):
+            lay = (layer + i) % L
+            for c, r in zip(cache, cast[i % copies]):
+                c[lay][ix] = r[okt]
 
-            library_ms = cuda_ms(torch, lib, 50)
+        library_ms = cuda_ms(torch, lib, 50)
         el = cache[0].element_size()
         nbytes = 2 * B * KVH * hd * 4 + 4 * B + 2 * len(ok) * KVH * (hd * el + 4 * int8)
         b_ms, by = bound_ms(nbytes, 0, "f32")
@@ -4158,7 +4228,8 @@ def main(argv=None) -> int:
                                    "k6_dense_copy_ms", "device_ms", "library_device_ms",
                                    "simt_bound_ms", "int8_peak_share", "form", "cluster", "rows",
                                    "consumers", "cluster_ms", "l2_gb", "l2_gb_s",
-                                   "resident_clusters") if k in r}
+                                   "resident_clusters", "splits", "resident_blocks", "ring_tiles",
+                                   "smem_bytes") if k in r}
         print(json.dumps(dict(kernel=r["kernel"], name=r["name"], kernel_ms=r["ms"],
                               plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -23,7 +23,9 @@ in another order and take exp as exp2: f32 outputs within 1e-5 of the
 largest output.  K9 and K19 round q and p to
 bf16 at the same places as their plain versions; the f32 sums run in
 another order, which can flip a rare bf16 rounding of p: within one bf16
-step (2^-7) of the largest output plus f32 noise, as K6 in bf16.
+step (2^-7) of the largest output plus f32 noise, as K6 in bf16.  K9 and
+K13 hold to the same limits at every count of key-row splits, against their
+plain versions at that count.
 """
 
 import numpy as np
@@ -827,6 +829,93 @@ def test_k13_equals_k9_on_a_paged_copy(card, ps):
     paged = tatt.paged_flash_decode_attention_dma(q, *pool, pt, pos, nk, nv, nks, nvs, layer=1)
     k9 = tatt.flash_decode_attention_dma(q, dense[0], dense[1], pos, nk, nv, dense[2], dense[3],
                                          nks, nvs, layer=1, block_s=min(256, ps))
+    torch.cuda.synchronize()
+    assert torch.equal(paged, k9)
+
+
+# ------------------------------------------------- the split decode cell (K9, K13)
+# csrc/decode_split.cuh: spans of the key rows run in parallel, merged by the
+# last block of each (slot, kv head).  Each form against its plain version at
+# the same splits (DECODE_TOL, 1e-5 for an fp cache); K13 equals K9 on a paged
+# copy at every split; a second launch on the stream reuses the counters (left
+# zero) and gives the same bits.
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, None])
+@pytest.mark.parametrize("cdtype", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd", [(1, 128), (4, 128), (8, 64), (3, 36), (2, 120)])
+def test_k9_splits_close(card, G, hd, cdtype, splits):
+    S = 2048
+    pos = [0, 1500, S - 1]
+    if cdtype == torch.int8:
+        args, tol = _decode_case(3, 2, G, hd, S, pos, torch.bfloat16), DECODE_TOL
+    else:
+        args, tol = _fp_decode_case(3, 2, G, hd, S, pos, cdtype, torch.float32), 1e-5
+    form = _kernels.form("K9", cdtype)
+    before = _kernels.LAUNCHES[form]
+    got = tatt.flash_decode_attention_dma(*args, layer=1, splits=splits)
+    again = tatt.flash_decode_attention_dma(*args, layer=1, splits=splits)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[form] == before + 2
+    assert torch.equal(got, again)
+    assert all(int(t.abs().sum()) == 0 for t in tatt._TICKETS.values())
+    want = tatt.flash_decode_attention_dma_plain(*args, layer=1, splits=splits)
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+def test_k9_launches_after_a_smaller_residency_query(card):
+    """The split cell's occupancy query sets its kernel's shared memory for
+    a smaller ring than a later launch needs (key blocks of 128 rows, then
+    of 256): the launch still gets what it needs."""
+    _kernels.decode_split_residency(torch.int8, 1, 128, 128)
+    args = _decode_case(2, 2, 1, 128, 1024, [0, 1000], torch.bfloat16)
+    got = tatt.flash_decode_attention_dma(*args, layer=1, block_s=256)
+    _kernels.decode_split_residency(torch.int8, 1, 128, 64)
+    again = tatt.flash_decode_attention_dma(*args, layer=1, block_s=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("splits", [2, 3, None])
+@pytest.mark.parametrize("G,hd,ps", [(1, 128, 512), (4, 128, 64), (2, 12, 16)])
+def test_k13_splits_close(card, G, hd, ps, splits):
+    MP = 2048 // ps if ps > 16 else 40
+    pos = [0, ps, ps + 3, MP * ps - 1, 2 * ps - 1]
+    args = _paged_decode_case(card, 5, 3, G, hd, ps, MP, pos, torch.bfloat16)
+    got = tatt.paged_flash_decode_attention_dma(*args, layer=1, splits=splits)
+    torch.cuda.synchronize()
+    want = tatt.paged_flash_decode_attention_dma_plain(*args, layer=1, splits=splits)
+    err = (got - want).abs().max().item()
+    assert err <= DECODE_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, None])
+@pytest.mark.parametrize("ps", [512, 64])
+def test_k13_equals_k9_on_a_paged_copy_split(card, ps, splits):
+    """At every split K13 and K9 (at K13's block) take the same spans in the
+    same order: bit for bit on a paged copy."""
+    g = _gen(ps + 7)
+    L, B, KVH, G, hd = 2, 2, 3, 4, 128
+    MP = 2048 // ps
+    S, P = MP * ps, B * MP + 1
+    dense = _paged_pool(card, g, L, B, KVH, S, hd)
+    pt = torch.tensor(np.random.default_rng(ps).permutation(np.arange(1, P))
+                      .reshape(B, MP).astype(np.int32), device=card)
+    pool = [torch.zeros((L, P, KVH, ps) + a.shape[4:], dtype=a.dtype, device=card)
+            for a in dense]
+    for a, d in zip(pool, dense):
+        for b in range(B):
+            for j in range(MP):
+                a[:, pt[b, j]] = d[:, b, :, j * ps:(j + 1) * ps]
+    q = torch.randn(B, KVH, G, hd, generator=g, device=card)
+    fresh = _paged_pool(card, g, 1, B, KVH, 1, hd)
+    nk, nv, nks, nvs = (a[0, :, :, 0] for a in fresh)
+    pos = torch.tensor([700, S - 1], dtype=torch.int32, device=card)
+    paged = tatt.paged_flash_decode_attention_dma(q, *pool, pt, pos, nk, nv, nks, nvs, layer=1,
+                                                  splits=splits)
+    k9 = tatt.flash_decode_attention_dma(q, dense[0], dense[1], pos, nk, nv, dense[2], dense[3],
+                                         nks, nvs, layer=1, block_s=min(256, ps), splits=splits)
     torch.cuda.synchronize()
     assert torch.equal(paged, k9)
 

@@ -54,9 +54,9 @@ SOURCES = {
     # stream
     "kv_scatter": ("tl_kv_scatter_slots", [*[_P] * 9, _I, *[_I] * 8, _P]),
     # q, q dtype, cache dtype, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G,
-    # S, hd, [TS,] sqrt(hd), copy chunk, stream
+    # S, hd, [TS, splits,] sqrt(hd), copy chunk, [split workspace, tickets,] stream
     "flash_decode_dma": ("tl_flash_decode_dma",
-                         [_P, _I, _I, *[_P] * 10, *[_I] * 7, ctypes.c_float, _I, _P]),
+                         [_P, _I, _I, *[_P] * 10, *[_I] * 8, ctypes.c_float, _I, _P, _P, _P]),
     "flash_decode_fresh": ("tl_flash_decode_fresh",
                            [_P, _I, _I, *[_P] * 10, *[_I] * 6, ctypes.c_float, _I, _P]),
     # rk, rv, rks, rvs, pos, ck, cv, cks, cvs, cache dtype, L, B, KVH, S, hd, vec, stream
@@ -72,9 +72,9 @@ SOURCES = {
     # the above, then k, v, ks, vs, pos, cos, sin, att, attq_next, satt_next, kq, ks_new,
     # vq, vs_new, KVH, G, hd, S, layer_next, TS, 1/sqrt(hd), copy chunk, stream
     # q, q dtype, k, v, ks, vs, page_table, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, P,
-    # ps, MP, hd, [TS,] sqrt(hd), copy chunk, stream
+    # ps, MP, hd, [TS, splits,] sqrt(hd), copy chunk, [split workspace, tickets,] stream
     "paged_flash_decode_dma": ("tl_paged_flash_decode_dma",
-                               [_P, _I, *[_P] * 11, *[_I] * 9, ctypes.c_float, _I, _P]),
+                               [_P, _I, *[_P] * 11, *[_I] * 10, ctypes.c_float, _I, _P, _P, _P]),
     "paged_flash_decode_fresh": ("tl_paged_flash_decode_fresh",
                                  [_P, _I, *[_P] * 11, *[_I] * 8, ctypes.c_float, _I, _P]),
     # rk, rv, rks, rvs, pos, page_table, ck, cv, cks, cvs, L, B, KVH, P, ps, MP, hd, vec, stream
@@ -315,6 +315,23 @@ def k29_max_clusters(K: int, csize: int) -> int:
         raise RuntimeError(f"K29 cluster query failed: "
                            f"{_lib(KERNELS['K29']).tl_error_string(code).decode()} ({code})")
     return n.value
+
+
+def decode_split_residency(kv_dtype: torch.dtype, G: int, hd: int, ts: int) -> tuple:
+    """(blocks one SM keeps resident, ring tiles, shared memory bytes) of
+    K9's split cell (csrc/decode_split.cuh, K13's too for an int8 cache) at
+    these shapes: ``tl_flash_decode_dma_residency``, CUDA's occupancy
+    query."""
+    lib = _lib(KERNELS["K9"])
+    fn = lib.tl_flash_decode_dma_residency
+    fn.argtypes = [_I] * 4 + [_P]
+    fn.restype = _I
+    res = (ctypes.c_int * 3)()
+    code = fn(cache_code(kv_dtype), G, hd, ts, ctypes.byref(res))
+    if code != 0:
+        raise RuntimeError(f"K9 residency query failed: {lib.tl_error_string(code).decode()} "
+                           f"({code})")
+    return tuple(res)
 
 
 def stream(t: torch.Tensor) -> int:

@@ -391,6 +391,44 @@ def _dma_block(S: int, block_s: int | None, itemsize: int = 1) -> int:
     return ts
 
 
+DECODE_SMS = 132  # the H100's SMs
+DECODE_RESIDENT = 2 * DECODE_SMS  # split-cell blocks the card keeps at once (two an SM)
+SPLIT_MIN_ROWS = 512  # caches of at most this many rows are never split
+
+
+def decode_splits(B: int, KVH: int, ts: int, rows_max: int) -> int:
+    """How many key-row splits K9 and K13 (csrc/decode_split.cuh) run for B
+    slots of KVH kv heads over caches of ``rows_max`` rows (a dense cache's
+    S, a pool's MP * ps) in key blocks of ``ts`` rows.  One wherever the
+    (slot, kv head) blocks alone cover the card's SMs (B * KVH >= 132) or
+    the cache is short (rows_max <= 512); else as many as fill the blocks
+    the card keeps resident (two an SM, as the cell's ring is sized for),
+    each split at least two key blocks.  A function of the shapes alone, so
+    the plain versions, the tests and both kernels split alike, and nothing
+    reads the card."""
+    cells = B * KVH
+    if cells >= DECODE_SMS or rows_max <= SPLIT_MIN_ROWS:
+        return 1
+    blocks = -(-rows_max // ts)
+    return max(1, min(DECODE_RESIDENT // cells, blocks // 2))
+
+
+def split_spans(rows_max: int, ts: int, splits: int) -> list[tuple[int, int]]:
+    """The row range [r0, r1) of each split, in order: split i takes the key
+    blocks [i * blocks // splits, (i + 1) * blocks // splits) of ``ts`` rows
+    (csrc/decode_split.cuh), so spans differ by at most one block and none
+    is empty while splits <= blocks."""
+    blocks = -(-rows_max // ts)
+    return [(min(i * blocks // splits * ts, rows_max),
+             min((i + 1) * blocks // splits * ts, rows_max)) for i in range(splits)]
+
+
+def _check_splits(name: str, splits) -> int | None:
+    if splits is not None and (int(splits) != splits or splits < 1):
+        raise ValueError(f"{name}: splits must be a positive int, got {splits}")
+    return None if splits is None else int(splits)
+
+
 def check_cache(name, k_cache, v_cache, k_scale, v_scale, pos, fp_ok: bool = False):
     """Validate a decode step's cache [L, B, KVH, S, hd] -- INT8 with f32
     scales [L, B, KVH, S], or with ``fp_ok`` float32 / bfloat16 without --
@@ -458,31 +496,61 @@ def _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs):
 
 def flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale=None,
                                      v_scale=None, new_ks=None, new_vs=None, layer=0,
-                                     block_s=None):
+                                     block_s=None, splits=None):
     """Plain version of K9: the TPU kernel's online softmax over blocks of
     ``block_s`` rows with, for an INT8 cache, the same bf16 roundings (q for
     the score dot, the unnormalized p * vs for the PV dot) -- an fp cache's
-    kernel rounds nothing -- then the fresh-column merge with the unrounded
-    q."""
+    kernel rounds nothing -- run on each of ``splits`` spans of the rows
+    (None: ``decode_splits``) and merged in order, then the fresh-column
+    merge with the unrounded q.  At one split: the sequential block walk."""
     qs = _scaled_q(q)
     int8 = k_cache.dtype == torch.int8
-    ts = _dma_block(k_cache.shape[3], block_s, k_cache.element_size())
-    acc, m, l = decode_online_softmax(_bf16(qs) if int8 else qs, k_cache, v_cache, k_scale,
-                                      v_scale, pos, layer, ts)
+    S = k_cache.shape[3]
+    ts = _dma_block(S, block_s, k_cache.element_size())
+    if splits is None:
+        splits = decode_splits(q.shape[0], q.shape[1], ts, S)
+    acc, m, l = decode_split_softmax(_bf16(qs) if int8 else qs, k_cache, v_cache, k_scale,
+                                     v_scale, pos, layer, ts, splits)
     return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
 
 
-def decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: int, ts: int):
+def decode_split_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: int, ts: int,
+                         splits: int):
+    """The split cell's state (csrc/decode_split.cuh): ``decode_online_
+    softmax`` on each span of ``split_spans`` from a fresh state, the
+    partials merged in split order (m = max(m, m_i); l and acc rescaled by
+    exp(m - m_new) and exp(m_i - m_new)) from m = -1e30, l = 0.  One split
+    is ``decode_online_softmax`` itself."""
+    if splits == 1:
+        return decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer, ts)
+    B, KVH, G, hd = qb.shape
+    m = torch.full((B, KVH, G), _NEG_INF, dtype=torch.float32, device=qb.device)
+    l = torch.zeros((B, KVH, G), dtype=torch.float32, device=qb.device)
+    acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=qb.device)
+    for r0, r1 in split_spans(k_cache.shape[3], ts, splits):
+        acc_i, m_i, l_i = decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos,
+                                                layer, ts, span=(r0, r1))
+        m_new = torch.maximum(m, m_i)
+        ca, cb = torch.exp(m - m_new), torch.exp(m_i - m_new)
+        l = l * ca + l_i * cb
+        acc = acc * ca[..., None] + acc_i * cb[..., None]
+        m = m_new
+    return acc, m, l
+
+
+def decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: int, ts: int,
+                          span=None):
     """K9's online softmax over blocks of ``ts`` cache rows of ``layer``,
-    rows s < pos[b]: qb [B, KVH, G, hd] the queries as the score dot takes
-    them (bf16 values for an INT8 cache, f32 for an fp one, whose scales are
-    None and whose p is not rounded).  Returns (acc [B, KVH, G, hd]
-    unnormalized, m, l [B, KVH, G]), the state ``_fresh_tail_merge``
-    finishes.  Every block is visited; one past a slot's pos is fully
-    masked, which leaves the state unchanged exactly as the kernel's skipped
-    block does."""
+    rows s < pos[b] (of ``span`` = (r0, r1) only, r0 a multiple of ts, when
+    given): qb [B, KVH, G, hd] the queries as the score dot takes them (bf16
+    values for an INT8 cache, f32 for an fp one, whose scales are None and
+    whose p is not rounded).  Returns (acc [B, KVH, G, hd] unnormalized, m,
+    l [B, KVH, G]), the state ``_fresh_tail_merge`` finishes.  Every block
+    is visited; one past a slot's pos is fully masked, which leaves the
+    state unchanged exactly as the kernel's skipped block does."""
     B, KVH, G, hd = qb.shape
     S = k_cache.shape[3]
+    r0, r1 = span or (0, S)
     kc, vc = k_cache[layer], v_cache[layer]
     int8 = k_scale is not None
     if int8:
@@ -491,7 +559,7 @@ def decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: in
     m = torch.full((B, KVH, G), _NEG_INF, dtype=torch.float32, device=qb.device)
     l = torch.zeros((B, KVH, G), dtype=torch.float32, device=qb.device)
     acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32, device=qb.device)
-    for base in range(0, S, ts):
+    for base in range(r0, r1, ts):
         rows = slice(base, base + ts)
         s = torch.einsum("bkgd,bksd->bkgs", qb, kc[:, :, rows].float())
         if int8:
@@ -555,9 +623,10 @@ def launch_chunk(kernel, k_cache, v_cache, hd, *scales) -> int:
 
 
 def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
-                   new_vs, layer, *block):
-    """Launch K9 (``block`` = its key block rows) or K19, or an fp form of
-    either, on CUDA tensors."""
+                   new_vs, layer, *block, splits=None):
+    """Launch K9 (``block`` = its key block rows, with ``splits``: its
+    workspace and tickets follow) or K19, or an fp form of either, on CUDA
+    tensors."""
     B, KVH, G, hd = q.shape
     S = k_cache.shape[3]
     if G > 8 or hd > 128:
@@ -570,11 +639,14 @@ def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_sc
     p32 = pos.to(torch.int32).contiguous()  # no copy for the model's int32 positions
     out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
     sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
+    st = _kernels.stream(qc)
+    ws = () if splits is None else split_workspace(B, KVH, G, hd, splits, q.device, st)
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
                     _kernels.cache_code(k_cache.dtype), k_cache.data_ptr(), v_cache.data_ptr(),
                     _ptr(k_scale), _ptr(v_scale), p32.data_ptr(), nk.data_ptr(), nv.data_ptr(),
                     _ptr(nks), _ptr(nvs), out.data_ptr(), layer, B, KVH, G, S, hd, *block,
-                    sqrt_hd, ch, _kernels.stream(qc))
+                    *(() if splits is None else (splits,)), sqrt_hd, ch,
+                    *(_ptr(t) for t in ws), st)
     return out
 
 
@@ -582,10 +654,35 @@ def _decode_tensors(*arrays):
     return tuple(t for t in arrays if t is not None)
 
 
+_TICKETS: dict[tuple, torch.Tensor] = {}
+_PARTIALS: dict[tuple, torch.Tensor] = {}
+
+
+def split_workspace(B: int, KVH: int, G: int, hd: int, splits: int, device, stream: int):
+    """(ws, ticket) for a launch of the split cell on ``stream`` of
+    ``device``: the partials ws f32 [>= B * KVH * splits * (G * hd + 2 * G)]
+    (any contents) and the counters ticket int32 [>= B * KVH], zero, which
+    every launch leaves zero again.  One pair per (card, stream), grown as
+    needed: launches on one stream run in order, so none overlaps another's
+    use; (None, None) at one split."""
+    if splits == 1:
+        return None, None
+    key = (device, stream)
+    n = B * KVH * splits * (G * hd + 2 * G)
+    ws = _PARTIALS.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _PARTIALS[key] = torch.empty(n, dtype=torch.float32, device=device)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < B * KVH:
+        t = _TICKETS[key] = torch.zeros(max(B * KVH, 256), dtype=torch.int32, device=device)
+    return ws, t
+
+
 def flash_decode_attention_dma(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                pos: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
                                k_scale=None, v_scale=None, new_ks=None, new_vs=None, layer=None,
-                               block_s: int | None = None) -> torch.Tensor:
+                               block_s: int | None = None,
+                               splits: int | None = None) -> torch.Tensor:
     """Deferred-flush decode attention that reads only each slot's rows below
     pos (K9).  q [B, KVH, G, hd] raw queries (f32 or bf16); caches
     [L, B, KVH, S, hd], INT8 with f32 scales [L, B, KVH, S] or float32 /
@@ -594,18 +691,25 @@ def flash_decode_attention_dma(q: torch.Tensor, k_cache: torch.Tensor, v_cache: 
     ``layer`` a host int (a tensor is read back to the host).  Cache row s
     attends iff s < pos[b]; the fresh row is one more column.  ``block_s``
     is the online softmax's key block (default 128 rows for int8, 64 for
-    fp).  Returns f32 [B, KVH, G, hd].  K9 on CUDA tensors (``K9:f32`` /
-    ``K9:bf16`` for an fp cache), the plain version on CPU ones."""
+    fp); ``splits`` how many spans of the rows run in parallel, merged
+    after (None: ``decode_splits``; at more than one, within 2^-8 of max
+    |out| of the sequential walk).  Returns f32 [B, KVH, G, hd].  K9 on
+    CUDA tensors (``K9:f32`` / ``K9:bf16`` for an fp cache), the plain
+    version on CPU ones."""
     layer = _check_decode("flash_decode_attention_dma", q, k_cache, v_cache, pos, new_k, new_v,
                           k_scale, v_scale, new_ks, new_vs, layer)
+    splits = _check_splits("flash_decode_attention_dma", splits)
     args = (q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks, new_vs)
     kernel = _kernels.form("K9", k_cache.dtype)
     if _kernels.on_cpu(kernel, *_decode_tensors(*args)):
-        return flash_decode_attention_dma_plain(*args, layer=layer, block_s=block_s)
-    ts = _dma_block(k_cache.shape[3], block_s, k_cache.element_size())
+        return flash_decode_attention_dma_plain(*args, layer=layer, block_s=block_s,
+                                                splits=splits)
+    S = k_cache.shape[3]
+    ts = _dma_block(S, block_s, k_cache.element_size())
     if ts > 256:
         raise NotImplementedError(f"K9 takes key blocks of at most 256 rows, got {ts}")
-    return _launch_decode(kernel, *args, layer, ts)
+    n = decode_splits(q.shape[0], q.shape[1], ts, S) if splits is None else splits
+    return _launch_decode(kernel, *args, layer, ts, splits=n)
 
 
 def flash_decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
@@ -1074,21 +1178,32 @@ def _check_paged_decode(name, q, k_pool, v_pool, k_scale, v_scale, page_table, p
     return layer
 
 
-def _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer: int, ts: int):
-    """K9's online softmax (``decode_online_softmax``) over the slots' pages
-    of ``layer`` as dense rows, key blocks of ``ts`` rows; returns
-    (qs, acc, m, l)."""
+def _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer: int, ts: int,
+                  splits: int = 1):
+    """K9's online softmax (``decode_split_softmax``) over the slots' pages
+    of ``layer`` as dense rows, key blocks of ``ts`` rows, in ``splits``
+    spans; returns (qs, acc, m, l)."""
     qs = _scaled_q(q)
     views = [paged_view(a, page_table, layer) for a in (k_pool, v_pool, k_scale, v_scale)]
-    return (qs, *decode_online_softmax(_bf16(qs), *views, pos, 0, ts))
+    return (qs, *decode_split_softmax(_bf16(qs), *views, pos, 0, ts, splits))
+
+
+def _paged_splits(q, k_pool, page_table, splits) -> int:
+    """K13's splits: ``splits``, or the rule's for rows_max = MP * ps."""
+    if splits is not None:
+        return splits
+    return decode_splits(q.shape[0], q.shape[1], _paged_block(k_pool.shape[3]),
+                         page_table.shape[1] * k_pool.shape[3])
 
 
 def paged_flash_decode_attention_dma_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
-                                           new_k, new_v, new_ks, new_vs, layer=0):
+                                           new_k, new_v, new_ks, new_vs, layer=0, splits=None):
     """Plain version of K13: K9's plain version over the pages, key blocks
-    of min(256, ps) rows."""
+    of min(256, ps) rows, in ``splits`` spans of the MP * ps rows (None:
+    ``decode_splits``)."""
     qs, acc, m, l = _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer,
-                                  _paged_block(k_pool.shape[3]))
+                                  _paged_block(k_pool.shape[3]),
+                                  _paged_splits(q, k_pool, page_table, splits))
     return _fresh_tail_merge(acc, m, l, qs, new_k, new_v, new_ks, new_vs)
 
 
@@ -1110,8 +1225,9 @@ def paged_flash_decode_attention_fresh_plain(q, k_pool, v_pool, k_scale, v_scale
 
 
 def _launch_paged_decode(kernel, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k,
-                         new_v, new_ks, new_vs, layer, *block):
-    """Launch K13 (``block`` = its key block rows) or K20 on CUDA tensors."""
+                         new_v, new_ks, new_vs, layer, *block, splits=None):
+    """Launch K13 (``block`` = its key block rows, with ``splits``: its
+    workspace and tickets follow) or K20 on CUDA tensors."""
     B, KVH, G, hd = q.shape
     L, P, _, ps, _ = k_pool.shape
     MP = page_table.shape[1]
@@ -1125,29 +1241,37 @@ def _launch_paged_decode(kernel, q, k_pool, v_pool, k_scale, v_scale, page_table
     pt = page_table.contiguous()
     out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
     sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
+    st = _kernels.stream(qc)
+    ws = () if splits is None else split_workspace(B, KVH, G, hd, splits, q.device, st)
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_pool.data_ptr(),
                     v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), pt.data_ptr(),
                     p32.data_ptr(), nk.data_ptr(), nv.data_ptr(), nks.data_ptr(), nvs.data_ptr(),
-                    out.data_ptr(), layer, B, KVH, G, P, ps, MP, hd, *block, sqrt_hd, ch,
-                    _kernels.stream(qc))
+                    out.data_ptr(), layer, B, KVH, G, P, ps, MP, hd, *block,
+                    *(() if splits is None else (splits,)), sqrt_hd, ch,
+                    *(_ptr(t) for t in ws), st)
     return out
 
 
 def paged_flash_decode_attention_dma(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k,
-                                     new_v, new_ks, new_vs, layer=None) -> torch.Tensor:
+                                     new_v, new_ks, new_vs, layer=None,
+                                     splits: int | None = None) -> torch.Tensor:
     """Deferred-flush decode attention over a page pool that reads only the
     pages below each slot's pos (K13; the JAX function's argument order).
     q [B, KVH, G, hd] raw queries (f32 or bf16); pools and page_table as
     ``PagedKVCache``; pos [B]; the step's fresh rows new_k/new_v int8
     [B, KVH, hd] with scales [B, KVH]; ``layer`` a host int.  Cache row s
     attends iff s < pos[b]; the fresh row is one more column.  K9's
-    arithmetic over key blocks of min(256, ps) rows.  Returns f32
-    [B, KVH, G, hd].  K13 on CUDA tensors, the plain version on CPU ones."""
+    arithmetic over key blocks of min(256, ps) rows, in ``splits`` spans of
+    the MP * ps rows (None: ``decode_splits``, K9's rule; K13 equals K9 on a
+    paged copy at equal blocks and splits).  Returns f32 [B, KVH, G, hd].
+    K13 on CUDA tensors, the plain version on CPU ones."""
     args = (q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v, new_ks, new_vs)
     layer = _check_paged_decode("paged_flash_decode_attention_dma", *args, layer)
+    splits = _check_splits("paged_flash_decode_attention_dma", splits)
     if _kernels.on_cpu("K13", *args):
-        return paged_flash_decode_attention_dma_plain(*args, layer=layer)
-    return _launch_paged_decode("K13", *args, layer, _paged_block(k_pool.shape[3]))
+        return paged_flash_decode_attention_dma_plain(*args, layer=layer, splits=splits)
+    n = _paged_splits(q, k_pool, page_table, splits)
+    return _launch_paged_decode("K13", *args, layer, _paged_block(k_pool.shape[3]), splits=n)
 
 
 def paged_flash_decode_attention_fresh(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,

@@ -32,11 +32,11 @@ def fused_step_layer_plain(x, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
                            v_scale, pos, wo, w13, w2, wqkv, rms_ffn, rms_att, layer: int,
                            n_layers: int, qkv_out=None, att_out=None):
     """Plain version of K27 (its arguments and results are
-    :func:`fused_step_layer`'s): K9's plain version, K2's, then K11's
-    phases."""
+    :func:`fused_step_layer`'s): K9's plain version at one split (K27 runs
+    common.cuh's dec_attend_rows), K2's, then K11's phases."""
     B, D = x.shape
     att = flash_decode_attention_dma_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale,
-                                           v_scale, new_ks, new_vs, layer=layer)
+                                           v_scale, new_ks, new_vs, layer=layer, splits=1)
     attq, satt = quantize_activations_plain(att.reshape(B, D))
     if att_out is not None:
         att_out[0].copy_(attq)

@@ -52,7 +52,15 @@ admission of 8 prompts of 512 tokens and one decode step of all 8 slots at
 position 512 on each, traced as above, with each port kernel's device ms per
 launch (``ms_per_launch``).  The fp forms of K6, K7, K9 and K10 report under
 their kernels' ids (their CUDA kernels are the INT8 forms' templates).
-``--fp-only`` runs (d) alone.
+``--fp-only`` runs (d) alone.  ``--decode-only`` runs (g) alone: the
+decode steps that K9's and K13's split cell (csrc/decode_split.cuh) serves,
+on engines whose caches are left as allocated (a step's time does not
+depend on the values it reads): one slot at position 2000 (where the split
+rule splits) with the two-launch decode (K11 + K9, ``fused=True``), mega2
+(one K9 launch) and on the paged layout (two-launch, K13); all 8 slots at
+position 512 on the paged layout (K13, one split) and on the dense f32 and
+Q8_0 paths (K9's fp forms, one split); each timed three times, then
+traced, with K9's or K13's device ms per step.
 """
 
 from __future__ import annotations
@@ -146,13 +154,19 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fp-only", action="store_true",
                     help="run section (d) alone: the dense f32 and Q8_0 paths")
-    fp_only = ap.parse_args(argv).fp_only
+    ap.add_argument("--decode-only", action="store_true",
+                    help="run section (g) alone: the decode steps of K9's and K13's split cell")
+    args = ap.parse_args(argv)
+    fp_only = args.fp_only
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = LLAMA2_7B
+    if args.decode_only:
+        decode_steps(cfg, smi)
+        return
     rng = np.random.default_rng(0)
     prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
                for _ in range(8)]
@@ -360,6 +374,80 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
     print(json.dumps(dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           layers=cfg.n_layers, card=smi)))
+
+
+def decode_steps(cfg, smi: str) -> None:
+    """Section (g): one decode step per call of each engine below, timed
+    REPS times after a warm call, then traced; K9's and K13's device ms and
+    launches per step beside the step's device and host ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_llama_torch.models.llama import (
+        fuse_projections,
+        quantize_params,
+        random_params,
+        random_quant_params,
+    )
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import Engine
+
+    toks = np.random.default_rng(0).integers(3, cfg.vocab_size, 8)
+
+    def measure(name, eng, pos, **extra):
+        b = eng.max_batch
+
+        def step():
+            eng.decode(toks[:b], np.full(b, pos))
+
+        step()
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        step()
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+        walls = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        line = summarize(name, prof, statistics.median(walls) / 1e3, traced_wall, smi)
+        dev = line["device_ms"]
+        line.update(batch=b, pos=pos, attn=eng.decode_attn, fused=eng.decode_fused,
+                    wall_ms_reps=walls, launches=launches,
+                    attention_ms={k: dev.get(k, 0.0) for k in ("K9", "K13")}, **extra)
+        print(json.dumps(line), flush=True)
+
+    params = random_quant_params(cfg, seed=0, fuse=True)
+    one = Engine(params, cfg, max_batch=1, kv_dtype="int8", seq_len=2048)
+    auto = one.decode_fused
+    for mode in (True, auto):  # the two-launch decode, then mega2
+        one.decode_fused = mode
+        measure(f"decode_b1_pos2000_fused_{mode}", one, 2000)
+    del one
+    paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
+    paged.prefill([[1] * 16] * 8, list(range(8)), reserve_tokens=[2048] * 8)
+    measure("decode_b8_pos512_paged", paged, 512, page_size=512)
+    del paged
+    paged1 = Engine(params, cfg, max_batch=1, kv_layout="paged", page_size=512, seq_len=2048)
+    paged1.prefill([[1] * 16], [0], reserve_tokens=[2048])
+    measure("decode_b1_pos2000_paged", paged1, 2000, page_size=512)
+    del paged1, params
+    torch.cuda.empty_cache()
+    dense = fuse_projections(random_params(cfg, dtype=torch.float32, seed=0))
+    for weights, kv in (("dense_f32", "float32"), ("q8_0", "bfloat16")):
+        if weights == "q8_0":
+            dense = quantize_params(dense)  # the f32 weights are freed here
+            torch.cuda.empty_cache()
+        engine = Engine(dense, cfg, max_batch=8, kv_dtype=kv, seq_len=2048)
+        measure(f"decode_b8_pos512_{weights}", engine, 512, weights=weights, kv_dtype=kv)
+        del engine
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
