@@ -44,9 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
    device ms beside), K12's
    residual exact and its int8 outputs, scales and attention output within
    those limits, K13 and K20 within K6_TOL (K13 also bit-equal to K9 at
-   block_s 256 and the same splits on a paged copy of its cache), K17 exact outside page 0 (one
-   slot's start past its table), K16 within K6_TOL and bit-equal to K6 on a
-   dense copy of its keys, K22 within K6_TOL, K25 within K25_TOL, the fp
+   block_s 256 and the same splits on a paged copy of its cache), K17
+   exact outside page 0 (one slot's start past its table), K16 within
+   K6_TOL and bit-equal to K6 on a dense copy of its keys, K22 within
+   K6_TOL (K20 and K22, whole pages as the rounding block, under their
+   rule's count of page runs and at one, as K13, with their cell's
+   residency and the trace's device ms beside), K25 within K25_TOL, the fp
    forms of K6, K9 and K19 within FP_TOL with f32 queries (K6_TOL for K6's
    bf16 outputs beside them), K7's and K10's exact; the decode attention
    kernels (K9, K19, K12, K13, K20, K22, INT8 and fp) and K16 on caches
@@ -749,6 +752,22 @@ def split_variants(tatt, B: int, KVH: int, ts: int, rows_max: int) -> list[int]:
     return [n, 1] if n > 1 else [1]
 
 
+def page_variants(tatt, q, k_pool, page_table) -> list[int]:
+    """The splits K20 and K22 are held and timed at: the rule's (runs of
+    whole pages, ``page_splits``), and one where the rule splits."""
+    n = tatt.page_splits(q, k_pool, page_table, None)
+    return [n, 1] if n > 1 else [1]
+
+
+def page_residency(_kernels, tatt, kernel: str, G: int, hd: int, ps: int) -> dict:
+    """The page-block cell's blocks per SM, ring tiles (of K13's block rows,
+    ``_paged_block``) and shared memory bytes at a launch's shapes (CUDA's
+    occupancy query)."""
+    ts = tatt._paged_block(ps)
+    blocks, tiles, nbytes = _kernels.page_split_residency(kernel, G, hd, ts, ps)
+    return dict(resident_blocks=blocks, ring_tiles=tiles, ring_rows=ts, smem_bytes=nbytes)
+
+
 def split_residency(_kernels, kv_dtype, G: int, hd: int, ts: int) -> dict:
     """The split cell's blocks per SM, ring tiles and shared memory bytes
     at a launch's shapes (CUDA's occupancy query)."""
@@ -1088,8 +1107,11 @@ def check_paged_attention(torch, tatt, PagePool, results):
     blocks and spans in the same order); the difference at K9's default
     block of 128 rows is recorded.  K13 runs under the split rule's count
     and, where that is more than one, at one split, each against its plain
-    version and K9 at the same splits.  Repeated calls rotate through other
-    layers and queries."""
+    version and K9 at the same splits; K20 (whole pages as the rounding
+    block) under its own rule (``page_variants``), each against its plain
+    version at the same splits, with the trace's device ms and the cell's
+    occupancy beside.  Repeated calls rotate through other layers and
+    queries."""
     from tpu_llama_torch.ops import _kernels
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1134,10 +1156,12 @@ def check_paged_attention(torch, tatt, PagePool, results):
         b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "bf16")
         ts = tatt._paged_block(ps)
         variants = [("K13", "dma", n) for n in split_variants(tatt, B, KVH, ts, MP * ps)]
-        for kernel, name, n in variants + ([] if B == 32 else [("K20", "fresh", None)]):
+        if B != 32:
+            variants += [("K20", "fresh", n) for n in page_variants(tatt, q[0], arrs[0], pt)]
+        for kernel, name, n in variants:
             fn = getattr(tatt, f"paged_flash_decode_attention_{name}")
             plain = getattr(tatt, f"paged_flash_decode_attention_{name}_plain")
-            kw = {} if n is None else dict(splits=n)
+            kw = dict(splits=n)
 
             def run(i, f=fn):
                 j = i % copies
@@ -1150,10 +1174,12 @@ def check_paged_attention(torch, tatt, PagePool, results):
             err = (got - want).abs().max().item()
             peak = want.abs().max().item()
             label = f"{kernel} paged_{name} B={B} KVH={KVH} G={G} ps={ps} pos=" \
-                    f"{pos[0] if B == 1 else 'mix'}" + ("" if n is None else f" splits={n}")
+                    f"{pos[0] if B == 1 else 'mix'} splits={n}"
             check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
-            extra = {}
-            if kernel == "K13":  # against K9 on the paged copy of layer 17, same splits
+            if kernel == "K20":
+                extra = dict(splits=n, **page_residency(_kernels, tatt, "K20", G, hd, ps),
+                             device_ms=device_ms(torch, run), library_device_ms=library_dev)
+            else:  # K13 against K9 on the paged copy of layer 17, same splits
                 k9 = [tatt.flash_decode_attention_dma(q[0], dense[0], dense[1], p32, nk[0], nv[0],
                                                       dense[2], dense[3], nks[0], nvs[0],
                                                       layer=0, block_s=bs, splits=n)
@@ -1309,9 +1335,14 @@ def check_k22(torch, tatt, PagePool, results):
     ps 512 in ``scattered_pool``'s pages, layer 17, batch 8 at DECODE_POS
     (MHA and a GQA group of 4) and batch 1 at pos 511 and 2047; every pool
     row that no slot attends (past each pos: K22 attends rows <= pos)
-    poisoned.  Within K6_TOL of its plain version.  The library call is
-    SDPA on the gathered, dequantized rows with the mask s <= pos."""
+    poisoned.  Under its split rule (``page_variants``) and, where that is
+    more than one, at one split, each within K6_TOL of its plain version at
+    the same splits, with the trace's device ms and the cell's occupancy
+    beside.  The library call is SDPA on the gathered, dequantized rows
+    with the mask s <= pos (event and device ms)."""
     import torch.nn.functional as F
+
+    from tpu_llama_torch.ops import _kernels
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     L, hd, ps, layer = 32, 128, PAGED_PS, 17
@@ -1341,21 +1372,6 @@ def check_k22(torch, tatt, PagePool, results):
         layers = [(layer + i) % L for i in range(copies)]
         q = [torch.randn(B, KVH, G, hd, generator=gen, device="cuda").to(torch.bfloat16)
              for _ in range(copies)]
-
-        def run(i, f=tatt.paged_flash_decode_attention):
-            j = i % copies
-            return f(q[j], *arrs, pt, p32, layer=layers[j])
-
-        got = run(0)
-        torch.cuda.synchronize()
-        want = run(0, tatt.paged_flash_decode_attention_plain)
-        err = (got - want).abs().max().item()
-        peak = want.abs().max().item()
-        label = f"K22 paged_flash_decode B={B} KVH={KVH} G={G} ps={ps} pos=" \
-                f"{pos[0] if B == 1 else 'mix'}"
-        check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
-        ms = cuda_ms(torch, run, 50)
-        plain_ms = cuda_ms(torch, lambda i: run(i, tatt.paged_flash_decode_attention_plain), 3)
         deq = []
         for j in range(copies):
             d = [tatt.paged_view(a, pt, layers[j])[0] for a in arrs]
@@ -1364,17 +1380,44 @@ def check_k22(torch, tatt, PagePool, results):
                         (d[1].float() * d[3][..., None]).to(torch.bfloat16)))
         mask = (torch.arange(S, device="cuda")[None, :] <= p32[:, None])[:, None, None, :]
         kw = dict(enable_gqa=True) if G > 1 else {}
+
+        def lib(i):
+            return F.scaled_dot_product_attention(*deq[i % copies], attn_mask=mask, **kw)
+
         try:
-            library_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-                *deq[i % copies], attn_mask=mask, **kw), 50)
+            library_ms, library_dev = cuda_ms(torch, lib, 50), device_ms(torch, lib, 20)
         except (TypeError, RuntimeError) as e:  # a GQA call this build refuses
             print(f"K22 library call unavailable: {e}", file=sys.stderr)
-            library_ms = None
+            library_ms = library_dev = None
         del deq
+        torch.cuda.empty_cache()
         nbytes = rows * (2 * hd + 8) + B * KVH * G * hd * (2 + 4) + 4 * B * (MP + 1)
         b_ms, by = bound_ms(nbytes, 4 * hd * G * rows, "bf16")
-        results.append(dict(kernel="K22", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=by, library_ms=library_ms))
+        res = page_residency(_kernels, tatt, "K22", G, hd, ps)
+        for n in page_variants(tatt, q[0], arrs[0], pt):
+
+            def run(i, f=tatt.paged_flash_decode_attention):
+                j = i % copies
+                return f(q[j], *arrs, pt, p32, layer=layers[j], splits=n)
+
+            got = run(0)
+            torch.cuda.synchronize()
+            want = run(0, tatt.paged_flash_decode_attention_plain)
+            err = (got - want).abs().max().item()
+            peak = want.abs().max().item()
+            label = f"K22 paged_flash_decode B={B} KVH={KVH} G={G} ps={ps} pos=" \
+                    f"{pos[0] if B == 1 else 'mix'} splits={n}"
+            check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
+            ms = cuda_ms(torch, run, 50)
+            plain_ms = cuda_ms(torch, lambda i: run(i, tatt.paged_flash_decode_attention_plain),
+                               3)
+            extra = dict(splits=n, **res, device_ms=device_ms(torch, run),
+                         library_device_ms=library_dev)
+            print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
+                  flush=True)
+            results.append(dict(kernel="K22", name=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                library_ms=library_ms, **extra))
         del arrs
         torch.cuda.empty_cache()
 
@@ -1388,12 +1431,15 @@ def device_ms(torch, fn, n: int = 20) -> float:
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):  # a trace that caught no kernel (seen in development runs) is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            break
     return total / 1e3 / n
 
 

@@ -25,7 +25,8 @@ bf16 at the same places as their plain versions; the f32 sums run in
 another order, which can flip a rare bf16 rounding of p: within one bf16
 step (2^-7) of the largest output plus f32 noise, as K6 in bf16.  K9 and
 K13 hold to the same limits at every count of key-row splits, against their
-plain versions at that count.
+plain versions at that count; K20 and K22 (whole pages as the rounding
+block, runs of pages in parallel) at every count of runs.
 """
 
 import numpy as np
@@ -918,6 +919,74 @@ def test_k13_equals_k9_on_a_paged_copy_split(card, ps, splits):
                                          nks, nvs, layer=1, block_s=min(256, ps), splits=splits)
     torch.cuda.synchronize()
     assert torch.equal(paged, k9)
+
+
+# ------------------------------------------------- the page-block split cell (K20, K22)
+# csrc/decode_split_page.cuh: runs of whole pages in parallel, a page the
+# softmax's rounding block, the partials merged by the last block of each
+# (slot, kv head).  Each against its plain version at the same splits (the
+# rule's and one; DECODE_TOL) on pools poisoned outside every slot's live
+# rows, at pages of one ring tile (32 rows) and of several (512), f32 and
+# bf16 queries; a second launch reuses the counters (left zero) and gives
+# the same bits.
+
+
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd,ps", [(1, 128, 512), (4, 128, 512), (4, 128, 32), (8, 64, 32),
+                                     (2, 12, 512)])
+@pytest.mark.parametrize("kernel", ["K20", "K22"])
+def test_page_split_close(card, kernel, G, hd, ps, qdtype, splits):
+    MP = 2048 // ps
+    pos = [0, ps, ps + 3, MP * ps - 1, 2 * ps - 1]
+    if kernel == "K20":
+        args = _paged_decode_case(card, 5, 3, G, hd, ps, MP, pos, qdtype)
+        fn = tatt.paged_flash_decode_attention_fresh
+    else:  # rows past pos poisoned (the case poisons rows at and past its pos); slot 0 at -1
+        args = list(_paged_decode_case(card, 5, 3, G, hd, ps, MP, [p + 1 for p in pos], qdtype))
+        p = args[6] - 1
+        p[0] = -1
+        args = (*args[:6], p)
+        fn = tatt.paged_flash_decode_attention
+    n = tatt.page_splits(args[0], args[1], args[5], splits)
+    assert n == (1 if splits == 1 else min(4, MP) if ps == 512 else 17)
+    before = _kernels.LAUNCHES[kernel]
+    got = fn(*args, layer=1, splits=splits)
+    again = fn(*args, layer=1, splits=splits)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[kernel] == before + 2
+    assert torch.equal(got, again)
+    assert all(int(t.abs().sum()) == 0 for t in tatt._TICKETS.values())
+    plain = tatt.paged_flash_decode_attention_fresh_plain if kernel == "K20" else \
+        tatt.paged_flash_decode_attention_plain
+    want = plain(*args, layer=1, splits=splits)
+    err = (got - want).abs().max().item()
+    assert err <= DECODE_TOL * want.abs().max().item(), err
+    if kernel == "K22":
+        assert not got[0].any()  # pos -1: nothing attended, zeros
+
+
+@pytest.mark.parametrize("kernel", ["K20", "K22"])
+def test_page_cell_shared_memory(card, kernel):
+    """The shared memory the wrapper reckons (``page_cell_bytes``) is what
+    the kernel asks for; at the 7B pools' pages of 512 rows an SM keeps two
+    blocks at every G; a page too large for one block is refused."""
+    for G, hd, ps in ((1, 128, 512), (4, 128, 512), (8, 128, 512), (2, 12, 16), (8, 64, 2048)):
+        ts = tatt._paged_block(ps)
+        blocks, tiles, nbytes = _kernels.page_split_residency(kernel, G, hd, ts, ps)
+        assert nbytes == tatt.page_cell_bytes(tiles, ts, ps, hd, G)
+        assert tiles >= 2 and (ps != 512 or blocks >= 2), (G, hd, ps, blocks, tiles)
+    g = _gen(5)
+    pool = _paged_pool(card, g, 1, 2, 1, 8192, 128)
+    q = torch.randn(1, 1, 8, 128, device=card)
+    pt = torch.ones(1, 1, dtype=torch.int32, device=card)
+    pos = torch.tensor([9], dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        if kernel == "K22":
+            tatt.paged_flash_decode_attention(q, *pool, pt, pos)
+        else:
+            fresh = [a[0, :1, :, 0] for a in pool]
+            tatt.paged_flash_decode_attention_fresh(q, *pool, pt, pos, *fresh)
 
 
 @pytest.mark.parametrize("fuse,fused,attn", [(False, False, "flash"),

@@ -297,7 +297,7 @@ def test_paged_dma_equals_k9_on_a_paged_copy():
     assert torch.equal(paged, k9)
 
 
-def test_k22_is_not_ported():
+def test_k22_equals_k13_with_the_step_row_as_fresh_column():
     """K22 (write-then-attend) on a pool whose row at pos holds the step's
     row equals K13 (deferred flush) with that row as its fresh column,
     within TOL: the same keys, the fresh column merged unrounded by K13 and

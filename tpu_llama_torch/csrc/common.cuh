@@ -387,16 +387,17 @@ struct DecSmem {
 // dense cache's rows are contiguous, so block j starts at row j * TS (K9,
 // K12); K13 (paged_flash_decode_dma.cu) passes a functor that looks the
 // block's page up in the page table.  A block never straddles two pages:
-// TS divides the page size.
+// TS divides the page size (K20 and K22 take TS = ps: block j is page j).
 struct DecDenseRows {
     int TS;
     __device__ __forceinline__ long long operator()(int j) const { return (long long)j * TS; }
 };
 
-// K13's and K22's row functor (paged_flash_decode_dma.cu,
-// paged_flash_decode.cu): the start row of key block j of (layer, slot b,
-// kv head h) in the pool [L, P, KVH, ps, hd] (rows of hd elements; the
-// scales [L, P, KVH, ps] share the row index).
+// The paged kernels' row functor (K13 paged_flash_decode_dma.cu, K20
+// paged_flash_decode_fresh.cu, K22 paged_flash_decode.cu): the start row
+// of key block j of (layer, slot b, kv head h) in the pool
+// [L, P, KVH, ps, hd] (rows of hd elements; the scales [L, P, KVH, ps]
+// share the row index).
 struct PagedRows {
     const int* pt;  // page_table[b, :]
     long long layer_page0;  // layer * P
@@ -409,14 +410,14 @@ struct PagedRows {
     }
 };
 
-// One decode cell (K9 flash_decode_dma.cu, K12 fused_step2.cu, K13
-// paged_flash_decode_dma.cu, K22 paged_flash_decode.cu): the G query rows
-// of one (slot, kv head) attend over its cache rows s < p (k and v at
-// kc / vc + rows_of(j) rows of hd elements for key block j, for an INT8
-// cache scales ks / vs at the same row offset) with an online softmax over
-// blocks of TS rows, then (kFresh, the deferred-flush form of K9, K12 and
-// K13) over the fresh row (nk, nks, nv, nvs) as one more column; writes the
-// G x hd outputs to out.  Without kFresh (K22's write-then-attend form: the
+// One decode cell (K12 fused_step2.cu and the cells of K26 and K27, K21's
+// blocked form in flash_decode.cu; K9 and K13 run decode_split.cuh, which
+// equals it at one split): the G query rows of one (slot, kv head) attend
+// over its cache rows s < p (k and v at kc / vc + rows_of(j) rows of hd
+// elements for key block j, for an INT8 cache scales ks / vs at the same
+// row offset) with an online softmax over blocks of TS rows, then (kFresh,
+// the deferred-flush form of K12) over the fresh row (nk, nks, nv, nvs) as
+// one more column; writes the G x hd outputs to out.  Without kFresh (K21's write-then-attend form: the
 // caller passes p = pos + 1, and the fresh arguments go unread) the output
 // is acc / max(l, 1e-30) after the last block.  The caller has filled sm.qf
 // and sm.qb; this function's barriers publish them.  K and V tiles stream

@@ -49,8 +49,9 @@
 //   bf16(p * vs) (an fp cache keeps p in f32); each PV element adds its rows
 //   in order from zero (dec_pv_tile), acc = acc * corr + part; int8 values
 //   become f32 exactly (a byte permute into 2^23 + u, minus 2^23 + 128).
-//   So at one split the cell equals dec_attend_rows bit for bit; K12, K22,
-//   K26 and K27 keep that cell.  At more than one split each p is rounded
+//   So at one split the cell equals dec_attend_rows bit for bit; K12, K21's
+//   blocked form, K26 and K27 keep that cell.  K20 and K22 run this file's
+//   pieces with a whole page as the rounding block (decode_split_page.cuh).  At more than one split each p is rounded
 //   against its split's own running max: one bf16(p * vs) moves by at most
 //   one bf16 step, and since an output is a convex combination of V rows
 //   the port parts from the JAX package's sequential blocks
@@ -235,9 +236,10 @@ __device__ __forceinline__ void split_wait(int pending) {
     }
 }
 
-// The scores of one key block, stored to sc ([G, TS]: the score times ks,
-// or -1e30 for a row at or past p), and each warp's max of them per query
-// row to wmax.  dec_qk_tile's arithmetic: its lane sub sums the chunks c =
+// The scores of one key block, stored to sc ([G, TS] of row stride ld: the
+// score times ks, or -1e30 for a row at or past p), and each warp's max of
+// them per query row to wmax (with keep_max, the max of that and what wmax
+// held: a page of several tiles, decode_split_page.cuh).  dec_qk_tile's arithmetic: its lane sub sums the chunks c =
 // sub, sub + 8, ... of a row in order with fmaf from zero, then the eight
 // partials add as the xor butterfly over lanes 1, 2, 4 adds them.  Here
 // kQkLanes lanes share a row, each holding kQkParts consecutive partials:
@@ -249,8 +251,8 @@ constexpr int kQkParts = 8 / kQkLanes;
 
 template <typename CT, bool kInt8>
 __device__ __forceinline__ void split_scores(const float* qs, const CT* kt, const float* kst,
-                                             float* sc, float* wmax, int TS, int G, int P,
-                                             int swz, int base, int p) {
+                                             float* sc, int ld, bool keep_max, float* wmax,
+                                             int TS, int G, int P, int swz, int base, int p) {
     constexpr int V = SplitChunk<CT>::n;
     const int l = threadIdx.x & (kQkLanes - 1), nch = P / V;
     float mx[kDecMaxG];
@@ -299,7 +301,7 @@ __device__ __forceinline__ void split_scores(const float* qs, const CT* kt, cons
 #pragma unroll
             for (int o = 1; o < kQkLanes; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
             const float s = valid ? (kInt8 ? d * kst[r] : d) : kNegInf;
-            if (l == 0 && r < TS) sc[g * TS + r] = s;
+            if (l == 0 && r < TS) sc[g * ld + r] = s;
             mx[g] = fmaxf(mx[g], s);
         }
     }
@@ -310,7 +312,10 @@ __device__ __forceinline__ void split_scores(const float* qs, const CT* kt, cons
         float m = mx[g];
 #pragma unroll
         for (int o = kQkLanes; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        if (lane == 0) wmax[warp * kDecMaxG + g] = m;
+        if (lane == 0) {
+            float* w = wmax + warp * kDecMaxG + g;
+            *w = keep_max ? fmaxf(*w, m) : m;
+        }
     }
 }
 
@@ -409,6 +414,67 @@ __device__ __forceinline__ void split_pv_any(int ne, const float* pv, int TS, co
         split_pv<8>(pv, TS, vt, rows, G, hd, P, swz, c_s, acc);
 }
 
+// The end of a split's walk (its state in m_s, l_s and the thread's acc,
+// published): at one split m_fin and l_fin are that state; at more than
+// one, the split's partial goes to ws, the block takes the ticket, and the
+// last block of the (slot, kv head) to finish merges the partials in split
+// order into acc, m_fin and l_fin and sets the counter back to zero.  False
+// in every other block, which then returns.
+__device__ __forceinline__ bool split_finish(const float* m_s, const float* l_s, int* last, int G,
+                                             int hd, int splits, float* ws, int* ticket,
+                                             float (&acc)[kDecMaxE], float (&m_fin)[kDecMaxE],
+                                             float (&l_fin)[kDecMaxE]) {
+    const int tid = threadIdx.x;
+    if (splits > 1) {
+        float* mine = ws + static_cast<long long>(blockIdx.x) * (G * hd + 2 * G);
+#pragma unroll
+        for (int j = 0; j < kDecMaxE; ++j) {
+            const int e = tid + kDecThreads * j;
+            if (e < G * hd) mine[e] = acc[j];
+        }
+        if (tid < G) {
+            mine[G * hd + tid] = m_s[tid];
+            mine[G * hd + G + tid] = l_s[tid];
+        }
+        __threadfence();  // the partial is visible before the ticket is taken
+        __syncthreads();
+        if (tid == 0) last[0] = atomicAdd(ticket, 1) == splits - 1;
+        __syncthreads();
+        if (!last[0]) return false;
+        __threadfence();
+        // merge the partials in split order
+#pragma unroll
+        for (int j = 0; j < kDecMaxE; ++j) {
+            const int e = tid + kDecThreads * j;
+            if (e >= G * hd) continue;
+            const int g = e / hd;
+            float m = kNegInf, l = 0.f, a = 0.f;
+            for (int i = 0; i < splits; ++i) {
+                const float* pt = ws + static_cast<long long>(i) * (G * hd + 2 * G);
+                const float mi = __ldcg(pt + G * hd + g), li = __ldcg(pt + G * hd + G + g);
+                const float ai = __ldcg(pt + e);
+                const float mn = fmaxf(m, mi);
+                const float ca = expf(m - mn), cb = expf(mi - mn);
+                l = l * ca + li * cb;
+                a = a * ca + ai * cb;
+                m = mn;
+            }
+            acc[j] = a;
+            m_fin[j] = m;
+            l_fin[j] = l;
+        }
+        if (tid == 0) *ticket = 0;  // the counter is zero again for the next launch
+    } else {
+#pragma unroll
+        for (int j = 0; j < kDecMaxE; ++j) {
+            const int e = tid + kDecThreads * j;
+            m_fin[j] = e < G * hd ? m_s[e / hd] : 0.f;
+            l_fin[j] = e < G * hd ? l_s[e / hd] : 0.f;
+        }
+    }
+    return true;
+}
+
 // One block of the split cell: split blockIdx.x of the (slot, kv head)
 // whose G query rows are q [G, hd] (raw; qs = f32(q) / sqrt_hd), over its
 // cache rows s < p (k and v at kc / vc + rows_of(j) rows of hd elements
@@ -480,8 +546,8 @@ __device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restr
         split_wait(nt - 2);
         __syncthreads();
         issue(t + nt - 1);
-        split_scores<CT, kInt8>(kInt8 ? sm.qb : sm.qf, sm.at(ks_), sm.kst(sl), sm.sc, sm.wmax,
-                                TS, G, P, swz, base, p);
+        split_scores<CT, kInt8>(kInt8 ? sm.qb : sm.qf, sm.at(ks_), sm.kst(sl), sm.sc, TS, false,
+                                sm.wmax, TS, G, P, swz, base, p);
         __syncthreads();
         // the online softmax over the block (dec_attend_rows' arithmetic):
         // m_new = max(m_old, the block's max), every thread on its rows'
@@ -526,53 +592,8 @@ __device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restr
     __syncthreads();     // m, l (and q when no block ran)
 
     float m_fin[kDecMaxE], l_fin[kDecMaxE];
-    if (splits > 1) {
-        float* mine = ws + static_cast<long long>(blockIdx.x) * (G * hd + 2 * G);
-#pragma unroll
-        for (int j = 0; j < kDecMaxE; ++j) {
-            const int e = tid + kDecThreads * j;
-            if (e < G * hd) mine[e] = acc[j];
-        }
-        if (tid < G) {
-            mine[G * hd + tid] = sm.m_s[tid];
-            mine[G * hd + G + tid] = sm.l_s[tid];
-        }
-        __threadfence();  // the partial is visible before the ticket is taken
-        __syncthreads();
-        if (tid == 0) sm.last[0] = atomicAdd(ticket, 1) == splits - 1;
-        __syncthreads();
-        if (!sm.last[0]) return;
-        __threadfence();
-        // merge the partials in split order
-#pragma unroll
-        for (int j = 0; j < kDecMaxE; ++j) {
-            const int e = tid + kDecThreads * j;
-            if (e >= G * hd) continue;
-            const int g = e / hd;
-            float m = kNegInf, l = 0.f, a = 0.f;
-            for (int i = 0; i < splits; ++i) {
-                const float* pt = ws + static_cast<long long>(i) * (G * hd + 2 * G);
-                const float mi = __ldcg(pt + G * hd + g), li = __ldcg(pt + G * hd + G + g);
-                const float ai = __ldcg(pt + e);
-                const float mn = fmaxf(m, mi);
-                const float ca = expf(m - mn), cb = expf(mi - mn);
-                l = l * ca + li * cb;
-                a = a * ca + ai * cb;
-                m = mn;
-            }
-            acc[j] = a;
-            m_fin[j] = m;
-            l_fin[j] = l;
-        }
-        if (tid == 0) *ticket = 0;  // the counter is zero again for the next launch
-    } else {
-#pragma unroll
-        for (int j = 0; j < kDecMaxE; ++j) {
-            const int e = tid + kDecThreads * j;
-            m_fin[j] = e < G * hd ? sm.m_s[e / hd] : 0.f;
-            l_fin[j] = e < G * hd ? sm.l_s[e / hd] : 0.f;
-        }
-    }
+    if (!split_finish(sm.m_s, sm.l_s, sm.last, G, hd, splits, ws, ticket, acc, m_fin, l_fin))
+        return;
 
     // the fresh column (_fresh_tail_merge, attention.py:307-332)
     dec_fresh_scores(sm.qf, P, nk, nks, G, hd, sm.n_s);

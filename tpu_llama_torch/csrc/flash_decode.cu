@@ -13,8 +13,7 @@
 //   fresh refs, when block_s gives TS < S: blocks past pos // TS are
 //   skipped, p = exp(s - m_block) stays UNNORMALIZED when it is rounded as
 //   bf16(p * vs), and out = acc / max(l, 1e-30).  This is common.cuh's
-//   dec_attend_rows with DecDenseRows and kFresh = false, the cell K22 runs
-//   over pages.
+//   dec_attend_rows with DecDenseRows and kFresh = false.
 // The two round at other points and are not bit-equal.  Contract: q
 // [B, KVH, G, hd] raw, qs = f32(q) / sqrt(f32(hd)) (a true division,
 // :655); scores dot(bf16(qs), k) times ks for an INT8 cache, dot(qs, f32(k))

@@ -72,20 +72,21 @@ SOURCES = {
     # the above, then k, v, ks, vs, pos, cos, sin, att, attq_next, satt_next, kq, ks_new,
     # vq, vs_new, KVH, G, hd, S, layer_next, TS, 1/sqrt(hd), copy chunk, stream
     # q, q dtype, k, v, ks, vs, page_table, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, P,
-    # ps, MP, hd, [TS, splits,] sqrt(hd), copy chunk, [split workspace, tickets,] stream
+    # ps, MP, hd, TS (K20: ring tile rows), splits, sqrt(hd), copy chunk, split workspace,
+    # tickets, stream
     "paged_flash_decode_dma": ("tl_paged_flash_decode_dma",
                                [_P, _I, *[_P] * 11, *[_I] * 10, ctypes.c_float, _I, _P, _P, _P]),
     "paged_flash_decode_fresh": ("tl_paged_flash_decode_fresh",
-                                 [_P, _I, *[_P] * 11, *[_I] * 8, ctypes.c_float, _I, _P]),
+                                 [_P, _I, *[_P] * 11, *[_I] * 10, ctypes.c_float, _I, _P, _P, _P]),
     # rk, rv, rks, rvs, pos, page_table, ck, cv, cks, cvs, L, B, KVH, P, ps, MP, hd, vec, stream
     "kv_pool_flush_rows": ("tl_kv_pool_flush_rows", [*[_P] * 10, *[_I] * 8, _P]),
     # sk, sv, sks, svs, slots, page_table, ck, cv, cks, cvs, L, n, KVH, T, hd, P, ps, MP, vec,
     # stream
     "kv_pool_scatter": ("tl_kv_pool_scatter", [*[_P] * 10, *[_I] * 9, _P]),
-    # q, q dtype, k, v, ks, vs, page_table, pos, out, layer, B, KVH, G, P, ps, MP, hd, TS,
-    # sqrt(hd), copy chunk, stream
+    # q, q dtype, k, v, ks, vs, page_table, pos, out, layer, B, KVH, G, P, ps, MP, hd,
+    # ring tile rows, splits, sqrt(hd), copy chunk, split workspace, tickets, stream
     "paged_flash_decode": ("tl_paged_flash_decode",
-                           [_P, _I, *[_P] * 7, *[_I] * 9, ctypes.c_float, _I, _P]),
+                           [_P, _I, *[_P] * 7, *[_I] * 10, ctypes.c_float, _I, _P, _P, _P]),
     # rk, rv, rks, rvs, start, page_table, ck, cv, cks, cvs, B, KVH, Tc, hd, P, ps, MP, layer,
     # vec, stream
     "kv_pool_write_chunk": ("tl_kv_pool_write_chunk", [*[_P] * 10, *[_I] * 9, _P]),
@@ -331,6 +332,23 @@ def decode_split_residency(kv_dtype: torch.dtype, G: int, hd: int, ts: int) -> t
     if code != 0:
         raise RuntimeError(f"K9 residency query failed: {lib.tl_error_string(code).decode()} "
                            f"({code})")
+    return tuple(res)
+
+
+def page_split_residency(kernel: str, G: int, hd: int, ts: int, ps: int) -> tuple:
+    """(blocks one SM keeps resident, ring tiles, shared memory bytes) of
+    the page-block split cell of K20 or K22 (csrc/decode_split_page.cuh)
+    with ring tiles of ``ts`` rows over pages of ``ps``: CUDA's occupancy
+    query."""
+    lib = _lib(KERNELS[kernel])
+    fn = getattr(lib, f"tl_{KERNELS[kernel]}_residency")
+    fn.argtypes = [_I] * 4 + [_P]
+    fn.restype = _I
+    res = (ctypes.c_int * 3)()
+    code = fn(G, hd, ts, ps, ctypes.byref(res))
+    if code != 0:
+        raise RuntimeError(f"{kernel} residency query failed: "
+                           f"{lib.tl_error_string(code).decode()} ({code})")
     return tuple(res)
 
 

@@ -1129,7 +1129,8 @@ def kv_pool_flush_rows(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv
 
 def _paged_block(ps: int) -> int:
     """K13's key block: min(256, ps), halved until it divides ps
-    (attention.py:487-489)."""
+    (attention.py:487-489); also the rows of K20's and K22's ring tiles,
+    whose rounding block is the whole page (csrc/decode_split_page.cuh)."""
     ts = min(256, ps)
     while ps % ts:
         ts //= 2
@@ -1196,6 +1197,30 @@ def _paged_splits(q, k_pool, page_table, splits) -> int:
                          page_table.shape[1] * k_pool.shape[3])
 
 
+def page_splits(q, k_pool, page_table, splits) -> int:
+    """K20's and K22's splits, runs of whole pages: ``splits``, or K13's
+    count (``_paged_splits``) capped at the page count MP.  A function of
+    the shapes alone, as ``decode_splits``."""
+    if splits is not None:
+        return splits
+    return min(_paged_splits(q, k_pool, page_table, None), page_table.shape[1])
+
+
+_SMEM_MAX = 232448  # dynamic shared memory one block may take on the H100
+
+
+def page_cell_bytes(tiles: int, ts: int, ps: int, hd: int, G: int) -> int:
+    """Shared memory of one block of the page-block cell with a ring of
+    ``tiles`` tiles of ``ts`` rows (csrc/decode_split_page.cuh
+    PageSmem::bytes): the ring, the queries in f32 and bf16, the page's
+    scores and exps, its scale rows in as many slots as the ring reaches
+    ahead, the warp maxima and the state."""
+    pitch = -(-hd // 16) * 16
+    npt = ps // ts
+    slots = (npt + tiles - 1 + 2 * npt - 1) // (2 * npt)
+    return tiles * ts * pitch + 4 * (2 * G * pitch + 2 * G * ps + 2 * slots * ps + 10 * 8 + 4)
+
+
 def paged_flash_decode_attention_dma_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
                                            new_k, new_v, new_ks, new_vs, layer=0, splits=None):
     """Plain version of K13: K9's plain version over the pages, key blocks
@@ -1208,12 +1233,15 @@ def paged_flash_decode_attention_dma_plain(q, k_pool, v_pool, k_scale, v_scale, 
 
 
 def paged_flash_decode_attention_fresh_plain(q, k_pool, v_pool, k_scale, v_scale, page_table,
-                                             pos, new_k, new_v, new_ks, new_vs, layer=0):
+                                             pos, new_k, new_v, new_ks, new_vs, layer=0,
+                                             splits=None):
     """Plain version of K20: the online softmax with whole pages as key
-    blocks, then the fresh column merged in the TPU kernel's order
-    (attention.py:104-120): e_new scaled by nvs before the product with nv."""
+    blocks (JAX's sequential page walk at one split) in ``splits`` runs of
+    pages (None: ``page_splits``), then the fresh column merged in the TPU
+    kernel's order (attention.py:104-120): e_new scaled by nvs before the
+    product with nv."""
     qs, acc, m, l = _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, layer,
-                                  k_pool.shape[3])
+                                  k_pool.shape[3], page_splits(q, k_pool, page_table, splits))
     s_new = (qs * new_k.float()[:, :, None, :]).sum(-1) * new_ks[:, :, None]
     m_fin = torch.maximum(m, s_new)
     corr = torch.exp(m - m_fin)
@@ -1224,31 +1252,34 @@ def paged_flash_decode_attention_fresh_plain(q, k_pool, v_pool, k_scale, v_scale
             / torch.clamp_min(l_fin, 1e-30)[..., None])
 
 
-def _launch_paged_decode(kernel, q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k,
-                         new_v, new_ks, new_vs, layer, *block, splits=None):
-    """Launch K13 (``block`` = its key block rows, with ``splits``: its
-    workspace and tickets follow) or K20 on CUDA tensors."""
+def _launch_paged_decode(kernel, args, layer: int, ts: int, splits: int):
+    """Launch K13 or K20 (``args`` = q, the pools, page_table, pos and the
+    step's new_k, new_v, new_ks, new_vs) or K22 (without the fresh rows) on
+    CUDA tensors: key blocks (K13) or ring tiles (K20, K22) of ``ts`` rows,
+    in ``splits`` spans, the split workspace and tickets after."""
+    q, k_pool, v_pool, k_scale, v_scale, page_table, pos = args[:7]
     B, KVH, G, hd = q.shape
     L, P, _, ps, _ = k_pool.shape
     MP = page_table.shape[1]
     if G > 8 or hd > 128:
         raise NotImplementedError(f"{kernel} takes up to 8 query heads per kv head and "
                                   f"head_dim <= 128, got G={G}, hd={hd}")
+    if kernel != "K13" and page_cell_bytes(2, ts, ps, hd, G) > _SMEM_MAX:
+        raise NotImplementedError(f"{kernel} keeps a page's {G} x {ps} scores and exps in "
+                                  f"shared memory: too many at G={G}, ps={ps}, hd={hd}")
     ch = launch_chunk(kernel, k_pool, v_pool, hd, k_scale, v_scale)
     qc = q.contiguous()
-    nk, nv, nks, nvs = (t.contiguous() for t in (new_k, new_v, new_ks, new_vs))
+    fresh = [t.contiguous() for t in args[7:]]
     p32 = pos.to(torch.int32).contiguous()
     pt = page_table.contiguous()
     out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
     sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
     st = _kernels.stream(qc)
-    ws = () if splits is None else split_workspace(B, KVH, G, hd, splits, q.device, st)
+    ws = split_workspace(B, KVH, G, hd, splits, q.device, st)
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_pool.data_ptr(),
                     v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), pt.data_ptr(),
-                    p32.data_ptr(), nk.data_ptr(), nv.data_ptr(), nks.data_ptr(), nvs.data_ptr(),
-                    out.data_ptr(), layer, B, KVH, G, P, ps, MP, hd, *block,
-                    *(() if splits is None else (splits,)), sqrt_hd, ch,
-                    *(_ptr(t) for t in ws), st)
+                    p32.data_ptr(), *(t.data_ptr() for t in fresh), out.data_ptr(), layer, B,
+                    KVH, G, P, ps, MP, hd, ts, splits, sqrt_hd, ch, *(_ptr(t) for t in ws), st)
     return out
 
 
@@ -1270,75 +1301,64 @@ def paged_flash_decode_attention_dma(q, k_pool, v_pool, k_scale, v_scale, page_t
     splits = _check_splits("paged_flash_decode_attention_dma", splits)
     if _kernels.on_cpu("K13", *args):
         return paged_flash_decode_attention_dma_plain(*args, layer=layer, splits=splits)
-    n = _paged_splits(q, k_pool, page_table, splits)
-    return _launch_paged_decode("K13", *args, layer, _paged_block(k_pool.shape[3]), splits=n)
+    return _launch_paged_decode("K13", args, layer, _paged_block(k_pool.shape[3]),
+                                _paged_splits(q, k_pool, page_table, splits))
 
 
 def paged_flash_decode_attention_fresh(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
-                                       new_k, new_v, new_ks, new_vs, layer=None) -> torch.Tensor:
+                                       new_k, new_v, new_ks, new_vs, layer=None,
+                                       splits: int | None = None) -> torch.Tensor:
     """The contract of :func:`paged_flash_decode_attention_dma` (K20), with
     the TPU kernel's whole-page key blocks: an online softmax over the
-    slot's pages below pos, the fresh column merged after the last one.
-    Returns f32 [B, KVH, G, hd].  K20 on CUDA tensors (a page's G x ps
-    scores in shared memory, so G x ps is bounded), the plain version on CPU
+    slot's pages below pos, in ``splits`` runs of whole pages merged after
+    (None: ``page_splits``; at more than one, within 2^-8 of max |out| of
+    the sequential page walk), the fresh column merged last.  Returns f32
+    [B, KVH, G, hd].  K20 on CUDA tensors (a page's G x ps scores and exps
+    in shared memory, so G x ps is bounded), the plain version on CPU
     ones."""
     args = (q, k_pool, v_pool, k_scale, v_scale, page_table, pos, new_k, new_v, new_ks, new_vs)
     layer = _check_paged_decode("paged_flash_decode_attention_fresh", *args, layer)
+    splits = _check_splits("paged_flash_decode_attention_fresh", splits)
     if _kernels.on_cpu("K20", *args):
-        return paged_flash_decode_attention_fresh_plain(*args, layer=layer)
-    ps = k_pool.shape[3]
-    if ps > 128 and ps % 128:
-        raise NotImplementedError(f"K20 takes pages of at most 128 rows or a multiple of 128, "
-                                  f"got {ps}")
-    return _launch_paged_decode("K20", *args, layer)
+        return paged_flash_decode_attention_fresh_plain(*args, layer=layer, splits=splits)
+    return _launch_paged_decode("K20", args, layer, _paged_block(k_pool.shape[3]),
+                                page_splits(q, k_pool, page_table, splits))
 
 
 def paged_flash_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
-                                       layer=0):
-    """Plain version of K22: K9's online softmax (``decode_online_softmax``)
-    over the slots' pages, key blocks of min(256, ps) rows, rows t <= pos
-    (pos clamped to [-1, MP * ps - 1], as the kernel), then acc / max(l,
-    1e-30)."""
+                                       layer=0, splits=None):
+    """Plain version of K22: the online softmax with whole pages as key
+    blocks (``decode_online_softmax`` at ts = ps: JAX's sequential page walk
+    at one split) in ``splits`` runs of pages (None: ``page_splits``), rows
+    t <= pos (pos clamped to [-1, MP * ps - 1], as the kernel), then acc /
+    max(l, 1e-30)."""
     MP, ps = page_table.shape[1], k_pool.shape[3]
     bound = pos.long().clamp(-1, MP * ps - 1) + 1  # rows t < pos + 1
     _, acc, _, l = _paged_online(q, k_pool, v_pool, k_scale, v_scale, page_table, bound, layer,
-                                 _paged_block(ps))
+                                 ps, page_splits(q, k_pool, page_table, splits))
     return acc / torch.clamp_min(l, 1e-30)[..., None]
 
 
 def paged_flash_decode_attention(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
-                                 layer=None) -> torch.Tensor:
+                                 layer=None, splits: int | None = None) -> torch.Tensor:
     """Write-then-attend decode attention over a page pool (K22; the JAX
     function's argument order): each slot's query attends its rows
     t <= pos[b] through the page table, the step's row already written.
     q [B, KVH, G, hd] raw queries (f32 or bf16); pools and page_table as
-    ``PagedKVCache``; pos [B]; ``layer`` a host int.  K13's arithmetic (K9's
-    dec_attend cell: bf16 q in the scores, bf16(p * vs)) over key blocks of
-    min(256, ps) rows, where JAX's blocks are whole pages: the rounding
-    points are the same for ps <= 256.  Returns f32 [B, KVH, G, hd].  No
-    path of the port calls it, as none of the JAX package does.  K22 on
-    CUDA tensors, the plain version on CPU ones."""
+    ``PagedKVCache``; pos [B]; ``layer`` a host int.  The TPU kernel's
+    arithmetic with whole pages as key blocks, in ``splits`` runs of pages
+    merged after (None: ``page_splits``; at more than one, within 2^-8 of
+    max |out| of the sequential page walk).  Returns f32 [B, KVH, G, hd].
+    No path of the port calls it, as none of the JAX package does.  K22 on
+    CUDA tensors (a page's G x ps scores and exps in shared memory), the
+    plain version on CPU ones."""
     args = (q, k_pool, v_pool, k_scale, v_scale, page_table, pos)
     layer = _check_paged_q("paged_flash_decode_attention", *args, layer)
+    splits = _check_splits("paged_flash_decode_attention", splits)
     if _kernels.on_cpu("K22", *args):
-        return paged_flash_decode_attention_plain(*args, layer=layer)
-    B, KVH, G, hd = q.shape
-    L, P, _, ps, _ = k_pool.shape
-    MP = page_table.shape[1]
-    if G > 8 or hd > 128:
-        raise NotImplementedError(f"K22 takes up to 8 query heads per kv head and head_dim <= "
-                                  f"128, got G={G}, hd={hd}")
-    ch = launch_chunk("K22", k_pool, v_pool, hd, k_scale, v_scale)
-    qc = q.contiguous()
-    p32 = pos.to(torch.int32).contiguous()
-    pt = page_table.contiguous()
-    out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
-    sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
-    _kernels.launch("K22", qc.data_ptr(), _kernels.dtype_code(qc.dtype), k_pool.data_ptr(),
-                    v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), pt.data_ptr(),
-                    p32.data_ptr(), out.data_ptr(), layer, B, KVH, G, P, ps, MP, hd,
-                    _paged_block(ps), sqrt_hd, ch, _kernels.stream(qc))
-    return out
+        return paged_flash_decode_attention_plain(*args, layer=layer, splits=splits)
+    return _launch_paged_decode("K22", args, layer, _paged_block(k_pool.shape[3]),
+                                page_splits(q, k_pool, page_table, splits))
 
 
 # ---------------------------------------------------------------------------
