@@ -58,7 +58,10 @@ Phases (any failure exits non-zero and prints no result line):
    launches and, layer by layer, within K12's limits of its plain version
    (each layer's plain version fed what the kernel's layer before left);
    K21 within K6_TOL (INT8) or FP_TOL (fp, f32 queries) on caches poisoned
-   past each slot's pos, K23 and K24 exact;
+   past each slot's pos (K19 and K21's single-pass form, the normalized
+   cluster cell, under their rule's count of splits and at one, each with
+   its blocks per SM and resident clusters and the trace's device ms beside
+   SDPA's), K23 and K24 exact;
    K27's attention
    output within K12's limits of its plain version (one flipped int8 allowed,
    ``_att_reading``), its linear outputs
@@ -775,12 +778,32 @@ def split_residency(_kernels, kv_dtype, G: int, hd: int, ts: int) -> dict:
     return dict(resident_blocks=blocks, ring_tiles=tiles, smem_bytes=nbytes)
 
 
+def norm_variants(tatt, B: int, KVH: int, ts: int, S: int) -> list[int]:
+    """The splits K19 and K21's single-pass form are held and timed at: the
+    rule's (``norm_splits``, one thread-block cluster), and one where the
+    rule splits."""
+    n = tatt.norm_splits(B, KVH, ts, S)
+    return [n, 1] if n > 1 else [1]
+
+
+def norm_residency(_kernels, kernel: str, kv_dtype, G: int, hd: int, S: int, ts: int,
+                   splits: int) -> dict:
+    """The normalized cluster cell's blocks per SM, ring tiles, shared
+    memory bytes and resident clusters of ``splits`` blocks at a launch's
+    shapes (CUDA's occupancy queries)."""
+    blocks, tiles, nbytes, clusters = _kernels.norm_split_residency(kernel, kv_dtype, G, hd, S,
+                                                                    ts, splits)
+    return dict(resident_blocks=blocks, ring_tiles=tiles, smem_bytes=nbytes,
+                resident_clusters=clusters)
+
+
 def check_decode_attention(torch, tatt, results):
     """K9 and K19 on the same inputs: a 32-layer 2048-row cache, layer 17,
     at batch 8 (one slot at each of DECODE_POS; MHA and a GQA group of 4)
     and at batch 1, the rows at and past each pos poisoned (``_poison``);
-    K9 under the split rule's count and, where that is more than one, at
-    one split, each against its plain version at the same splits.
+    K9 and K19 under their split rules' counts (``decode_splits``,
+    ``norm_splits``) and, where that is more than one, at one split, each
+    against its plain version at the same splits.
     Repeated calls rotate through other layers of the cache and other
     queries, so they find the rows cold in L2."""
     from tpu_llama_torch.ops import _kernels
@@ -818,10 +841,10 @@ def check_decode_attention(torch, tatt, results):
         b_ms, by = bound_ms(nbytes, ops, "bf16")
         res = split_residency(_kernels, torch.int8, G, hd, 128)
         for kernel, name, n in [("K9", "dma", n) for n in split_variants(tatt, B, KVH, 128, S)] \
-                + [("K19", "fresh", None)]:
+                + [("K19", "fresh", n) for n in norm_variants(tatt, B, KVH, 128, S)]:
             fn = getattr(tatt, f"flash_decode_attention_{name}")
             plain = getattr(tatt, f"flash_decode_attention_{name}_plain")
-            kw = {} if n is None else dict(splits=n)
+            kw = dict(splits=n)
 
             def run(i, f=fn):
                 j = i % copies
@@ -834,12 +857,14 @@ def check_decode_attention(torch, tatt, results):
             err = (got - want).abs().max().item()
             peak = want.abs().max().item()
             label = f"{kernel} {name} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'}" \
-                + ("" if n is None else f" splits={n}")
+                f" splits={n}"
             check(err <= K6_TOL * peak, f"{label}: err {err} > {K6_TOL} * {peak}")
             ms = cuda_ms(torch, run, 50)
             plain_ms = cuda_ms(torch, lambda i: run(i, plain), 5)
-            extra = {} if n is None else dict(splits=n, **res, device_ms=device_ms(torch, run),
-                                              library_device_ms=library_dev)
+            cell = res if kernel == "K9" else norm_residency(_kernels, "K19", torch.int8, G, hd,
+                                                             S, 128, n)
+            extra = dict(splits=n, **cell, device_ms=device_ms(torch, run),
+                         library_device_ms=library_dev)
             print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
                   flush=True)
             results.append(dict(kernel=kernel, name=label, max_abs_err=err, ms=ms,
@@ -1682,7 +1707,8 @@ def check_fp_forms(torch, tatt, results):
             # K9 under the split rule's count and at one split
             res = split_residency(_kernels, dt, G, hd, 64)
             k9 = [("K9", "dma", n) for n in split_variants(tatt, B, KVH, 64, S)]
-            for (kernel, name, n), qdt in itertools.product(k9 + [("K19", "fresh", None)],
+            k19 = [("K19", "fresh", n) for n in norm_variants(tatt, B, KVH, 64, S)]
+            for (kernel, name, n), qdt in itertools.product(k9 + k19,
                                                             (torch.float32, torch.bfloat16)):
                 kid, prefix = _fp_label(kernel, dt)
                 fn = getattr(tatt, f"flash_decode_attention_{name}")
@@ -1692,7 +1718,7 @@ def check_fp_forms(torch, tatt, results):
                 nbytes = (rows * 2 * hd * es + B * KVH * G * hd * (qb + 4)
                           + B * KVH * 2 * hd * es + 4 * B)
                 b_ms, by = bound_ms(nbytes, 4 * hd * G * (rows + B * KVH), "f32")
-                kw = {} if n is None else dict(splits=n)
+                kw = dict(splits=n)
 
                 def run(i, f=fn):
                     j = i % copies
@@ -1704,12 +1730,14 @@ def check_fp_forms(torch, tatt, results):
                 err = (got - want).abs().max().item()
                 peak = want.abs().max().item()
                 label = (f"{prefix} B={B} KVH={KVH} G={G} pos={pos[0] if B == 1 else 'mix'} "
-                         f"q={_sfx(qdt)}" + ("" if n is None else f" splits={n}"))
+                         f"q={_sfx(qdt)} splits={n}")
                 check(err <= FP_TOL * peak, f"{label}: err {err} > {FP_TOL} * {peak}")
                 ms = cuda_ms(torch, run, 50)
                 plain_ms = cuda_ms(torch, lambda i: run(i, plain), 3, warmup=1)
-                extra = {} if n is None else dict(splits=n, **res, device_ms=device_ms(torch, run),
-                                                  library_device_ms=library_dev)
+                cell = res if kernel == "K9" else norm_residency(_kernels, "K19", dt, G, hd, S,
+                                                                 64, n)
+                extra = dict(splits=n, **cell, device_ms=device_ms(torch, run),
+                             library_device_ms=library_dev)
                 print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
                       flush=True)
                 results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
@@ -2278,7 +2306,7 @@ TP_SIZES = (1, 2, 4, 8)
 def _sdpa_k21_ms(torch, q, k, v, ks, vs, pos, layers, copies):
     """K21's library yardstick: scaled_dot_product_attention on the layer's
     dequantized (INT8) or upcast (fp) cache in bf16 with the mask s <= pos,
-    as K22's row has it."""
+    as K22's row has it: (event ms, device ms from a trace)."""
     import torch.nn.functional as F
 
     B, KVH, G, hd = q[0].shape
@@ -2293,12 +2321,15 @@ def _sdpa_k21_ms(torch, q, k, v, ks, vs, pos, layers, copies):
         del kd, vd
     mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
     kw = dict(enable_gqa=True) if G > 1 else {}
+
+    def lib(i):
+        return F.scaled_dot_product_attention(*deq[i % copies], attn_mask=mask, **kw)
+
     try:
-        return cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            *deq[i % copies], attn_mask=mask, **kw), 50)
+        return cuda_ms(torch, lib, 50), device_ms(torch, lib, 20)
     except (TypeError, RuntimeError) as e:
         print(f"K21 library call unavailable: {e}", file=sys.stderr)
-        return None
+        return None, None
 
 
 def check_tp_kernels(torch, tatt, tq, tfl, results):
@@ -2311,10 +2342,15 @@ def check_tp_kernels(torch, tatt, tq, tfl, results):
     plus each step, the other slots at 0).  K21 in both forms (one key block,
     the TP decode's; blocks of 128 rows) on INT8 (bf16 queries, within
     K6_TOL), f32 and bf16 caches (f32 queries, within FP_TOL), every row
-    past each slot's pos poisoned; K23 and K24 bit-equal (K11's arithmetic).
+    past each slot's pos poisoned, the single-pass form under the rule's
+    count of splits (``norm_splits``) and at one where the rule splits,
+    with its cell's residency and the trace's device ms beside SDPA's; K23
+    and K24 bit-equal (K11's arithmetic).
     Timed calls rotate through layers (and K21 through query sets) so the
     data comes cold from device memory; the library call of K21 is SDPA on
     the dequantized layer."""
+    from tpu_llama_torch.ops import _kernels
+
     gen = torch.Generator(device="cuda").manual_seed(21)
     S, hd, D, H, QO = 2048, 128, 4096, 11008, 12288
     for tp, B, (dt, name) in itertools.product(
@@ -2353,31 +2389,39 @@ def check_tp_kernels(torch, tatt, tq, tfl, results):
         qdt = torch.bfloat16 if int8 else torch.float32
         q = [torch.randn(B, KVH, 1, hd, generator=gen, device="cuda").to(qdt)
              for _ in range(copies)]
-        library_ms = _sdpa_k21_ms(torch, q, k, v, ks, vs, pt, layers, copies)
+        library_ms, library_dev = _sdpa_k21_ms(torch, q, k, v, ks, vs, pt, layers, copies)
         nbytes = rows * row_bytes + B * KVH * hd * (q[0].element_size() + 4) + 4 * B
         b_ms, by = bound_ms(nbytes, 4 * hd * rows, "bf16" if int8 else "f32")
         kid = "K21" if int8 else f"K21:{name}"
         tol = K6_TOL if int8 else FP_TOL
-        for block_s, form in ((None, "single-pass"), (128, "blocked")):
-            def run(i, f=tatt.flash_decode_attention, bs=block_s):
+        ts = tatt._norm_block(S, es)
+        forms = [(None, n, "single-pass") for n in norm_variants(tatt, B, KVH, ts, S)]
+        for block_s, n, form in forms + [(128, None, "blocked")]:
+            def run(i, f=tatt.flash_decode_attention, bs=block_s, kw=dict(splits=n)):
                 j = i % copies
-                return f(q[j], k, v, pt, ks, vs, block_s=bs, layer=layers[j])
+                return f(q[j], k, v, pt, ks, vs, block_s=bs, layer=layers[j], **kw)
 
             got = run(0)
             torch.cuda.synchronize()
             want = run(0, tatt.flash_decode_attention_plain)
             err = (got - want).abs().max().item()
             peak = want.abs().max().item()
-            label = f"{kid} {form} tp={tp} B={B} KVH={KVH} {name}"
+            label = f"{kid} {form} tp={tp} B={B} KVH={KVH} {name}" + \
+                ("" if n is None else f" splits={n}")
             check(err <= tol * peak, f"{label}: err {err} > {tol} * {peak}")
             ms = cuda_ms(torch, run, 30)
             plain_ms = cuda_ms(torch, lambda i: run(i, tatt.flash_decode_attention_plain), 3,
                                warmup=1)
+            extra = {} if n is None else dict(
+                splits=n, **norm_residency(_kernels, "K21", dt, 1, hd, S, ts, n),
+                device_ms=device_ms(torch, run), library_device_ms=library_dev)
+            print(f"  {label}: {ms:.4f} ms (SDPA {library_ms}, bound {b_ms:.4f}) {extra}",
+                  flush=True)
             # the kernels line carries the TP decode's form (single-pass INT8) at
             # every shape and the others at tp = 1; every reading prints in phase 3
             results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                                library_ms=library_ms,
+                                library_ms=library_ms, **extra,
                                 in_line=tp == 1 or (int8 and block_s is None)))
         if B == 8 and tp in (1, 2):  # 4i's unfused TP decode: its slots and positions
             del k, v, ks, vs  # over a fresh cache, rows past each step's positions

@@ -1472,3 +1472,102 @@ def test_k23_k24_exact(card, B):
                                                                          before[1] + 1)
         assert torch.equal(got[0], tfl.fused_ffn_stacked_plain(x, w13, w2, rms, layer))
         assert torch.equal(got[1], tfl.fused_rms_qkv_stacked_plain(x, wqkv, rms, layer))
+
+
+# ------------------------------ the normalized cluster cell (K19, K21 single-pass)
+# csrc/decode_split_norm.cuh: spans of the key rows run as the blocks of one
+# thread-block cluster, which agree on the softmax's max and denominator
+# before any p is rounded.  Each form against its plain version at the same
+# splits (DECODE_TOL, 1e-5 for an fp cache), on caches poisoned at and past
+# every row the slot does not attend; a second launch gives the same bits.
+
+
+def _norm_case(cdtype, G, hd, S, pos, fresh):
+    """K19's arguments (``fresh``: rows s < pos attend) or K21's (q, k, v,
+    pos, ks, vs: rows s <= pos), every other row poisoned (INT8: 127 with
+    scale 1e4; fp: 1e4)."""
+    B, KVH = len(pos), 2
+    if cdtype == torch.int8:
+        args = list(_decode_case(B, KVH, G, hd, S, pos, torch.bfloat16))
+        k, v, ks, vs = args[1], args[2], args[6], args[7]
+    else:
+        args = list(_fp_decode_case(B, KVH, G, hd, S, [S] * B, cdtype, torch.float32))
+        args[3] = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        k, v, ks, vs = args[1], args[2], None, None
+    for b, p in enumerate(pos):
+        first = max(p if fresh else p + 1, 0)
+        for a, val in ((k, 127 if ks is not None else 1e4), (v, 127 if ks is not None else 1e4),
+                       (ks, 1e4), (vs, 1e4)):
+            if a is not None:
+                a[:, b, :, first:] = val
+    if fresh:
+        return args
+    return [args[0], k, v, args[3], ks, vs]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, None])
+@pytest.mark.parametrize("cdtype", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd", [(1, 128), (4, 128), (8, 64), (3, 36)])
+def test_k19_splits_close(card, G, hd, cdtype, splits):
+    S = 2048
+    args = _norm_case(cdtype, G, hd, S, [0, 1, 700, S - 1], fresh=True)
+    form = _kernels.form("K19", cdtype)
+    before = _kernels.LAUNCHES[form]
+    got = tatt.flash_decode_attention_fresh(*args, layer=1, splits=splits)
+    again = tatt.flash_decode_attention_fresh(*args, layer=1, splits=splits)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[form] == before + 2
+    assert torch.equal(got, again)
+    want = tatt.flash_decode_attention_fresh_plain(*args, layer=1, splits=splits)
+    err = (got - want).abs().max().item()
+    tol = DECODE_TOL if cdtype == torch.int8 else 1e-5
+    assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, None])
+@pytest.mark.parametrize("cdtype", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd", [(1, 128), (4, 64), (2, 36)])
+def test_k21_splits_close(card, G, hd, cdtype, splits):
+    """The single-pass form at a negative pos (zeros), 0, mid-cache and the
+    last row."""
+    S = 1024
+    args = _norm_case(cdtype, G, hd, S, [-1, 0, 600, S - 1], fresh=False)
+    form = _kernels.form("K21", cdtype)
+    before = _kernels.LAUNCHES[form]
+    got = tatt.flash_decode_attention(*args, layer=1, splits=splits)
+    again = tatt.flash_decode_attention(*args, layer=1, splits=splits)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[form] == before + 2
+    assert torch.equal(got, again)
+    assert int(torch.count_nonzero(got[0])) == 0
+    want = tatt.flash_decode_attention_plain(*args, layer=1, splits=splits)
+    err = (got - want).abs().max().item()
+    tol = DECODE_TOL if cdtype == torch.int8 else 1e-5
+    assert err <= tol * want.abs().max().item(), err
+
+
+def test_norm_cell_refuses_spans_too_long(card):
+    """Every score of a split's span stays in shared memory: eight query rows
+    over 8192 rows in one split do not fit and are refused; eight splits of
+    1024 rows fit and hold to the plain version."""
+    S = 8192
+    args = _norm_case(torch.int8, 8, 128, S, [S - 1, 4000], fresh=True)
+    with pytest.raises(RuntimeError, match="K19"):
+        tatt.flash_decode_attention_fresh(*args, layer=1, splits=1)
+    got = tatt.flash_decode_attention_fresh(*args, layer=1, splits=8)
+    torch.cuda.synchronize()
+    want = tatt.flash_decode_attention_fresh_plain(*args, layer=1, splits=8)
+    assert (got - want).abs().max().item() <= DECODE_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("kernel", ["K19", "K21"])
+def test_norm_cell_residency(card, kernel):
+    """At the 7B table's shapes the cell keeps two blocks an SM, three for
+    clusters of more than two blocks, so that every cluster the split rule
+    launches there (B * KVH of them, 256 blocks in all) is resident at once."""
+    for B, KVH, G, splits in ((8, 32, 1, 1), (8, 8, 4, 4), (1, 32, 1, 8), (8, 4, 1, 8)):
+        assert tatt.norm_splits(B, KVH, 128, 2048) == splits
+        blocks, tiles, nbytes, clusters = _kernels.norm_split_residency(
+            kernel, torch.int8, G, 128, 2048, 128, splits)
+        assert blocks >= (3 if splits > 2 else 2) and 2 <= tiles <= 6, (blocks, tiles, nbytes)
+        assert clusters >= B * KVH, (clusters, B * KVH)

@@ -54,11 +54,12 @@ SOURCES = {
     # stream
     "kv_scatter": ("tl_kv_scatter_slots", [*[_P] * 9, _I, *[_I] * 8, _P]),
     # q, q dtype, cache dtype, k, v, ks, vs, pos, nk, nv, nks, nvs, out, layer, B, KVH, G,
-    # S, hd, [TS, splits,] sqrt(hd), copy chunk, [split workspace, tickets,] stream
+    # S, hd, TS (K9: key block, K19: ring tile rows), splits, sqrt(hd), copy chunk, [split
+    # workspace, tickets (K9),] stream
     "flash_decode_dma": ("tl_flash_decode_dma",
                          [_P, _I, _I, *[_P] * 10, *[_I] * 8, ctypes.c_float, _I, _P, _P, _P]),
     "flash_decode_fresh": ("tl_flash_decode_fresh",
-                           [_P, _I, _I, *[_P] * 10, *[_I] * 6, ctypes.c_float, _I, _P]),
+                           [_P, _I, _I, *[_P] * 10, *[_I] * 8, ctypes.c_float, _I, _P]),
     # rk, rv, rks, rvs, pos, ck, cv, cks, cvs, cache dtype, L, B, KVH, S, hd, vec, stream
     "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, *[_I] * 6, _P]),
     # x, x dtype, q, s, out, out dtype, M, N, Np, K, g, stream
@@ -114,9 +115,10 @@ SOURCES = {
     "kv_write_decode": ("tl_kv_write_decode", [*[_P] * 7, *[_I] * 6, _P]),
     # x, sx, w, sw, residual, out, out dtype, M, N, K, rows per block, cluster blocks, stream
     "w8a8_rows_resident": ("tl_w8a8_rows_resident", [*[_P] * 6, *[_I] * 6, _P]),
-    # q, q dtype, cache dtype, k, v, ks, vs, pos, out, layer, B, KVH, G, S, hd, TS, sqrt(hd),
-    # copy chunk, stream
-    "flash_decode": ("tl_flash_decode", [_P, _I, _I, *[_P] * 6, *[_I] * 7, ctypes.c_float, _I,
+    # q, q dtype, cache dtype, k, v, ks, vs, pos, out, layer, B, KVH, G, S, hd, TS (ring tile
+    # rows, or the blocked form's key block), splits (0: the blocked form), sqrt(hd), copy
+    # chunk, stream
+    "flash_decode": ("tl_flash_decode", [_P, _I, _I, *[_P] * 6, *[_I] * 8, ctypes.c_float, _I,
                                          _P]),
     # x, w13, w13 scales, w2, w2 scales, rms, rms dtype, out, xq, sx, h2, xq3, sx3, barrier,
     # B, D, H, stream
@@ -332,6 +334,25 @@ def decode_split_residency(kv_dtype: torch.dtype, G: int, hd: int, ts: int) -> t
     if code != 0:
         raise RuntimeError(f"K9 residency query failed: {lib.tl_error_string(code).decode()} "
                            f"({code})")
+    return tuple(res)
+
+
+def norm_split_residency(kernel: str, kv_dtype: torch.dtype, G: int, hd: int, S: int, ts: int,
+                         splits: int) -> tuple:
+    """(blocks one SM keeps resident, ring tiles, shared memory bytes,
+    clusters of ``splits`` blocks the card keeps resident at once) of the
+    normalized split cell of K19 or K21's single-pass form
+    (csrc/decode_split_norm.cuh) at these shapes: CUDA's occupancy
+    queries."""
+    lib = _lib(KERNELS[kernel])
+    fn = getattr(lib, f"tl_{KERNELS[kernel]}_residency")
+    fn.argtypes = [_I] * 6 + [_P]
+    fn.restype = _I
+    res = (ctypes.c_int * 4)()
+    code = fn(cache_code(kv_dtype), G, hd, S, ts, splits, ctypes.byref(res))
+    if code != 0:
+        raise RuntimeError(f"{kernel} residency query failed: "
+                           f"{lib.tl_error_string(code).decode()} ({code})")
     return tuple(res)
 
 

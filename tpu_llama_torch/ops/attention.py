@@ -429,6 +429,65 @@ def _check_splits(name: str, splits) -> int | None:
     return None if splits is None else int(splits)
 
 
+NORM_SPLITS_MAX = 8  # the portable thread-block cluster size (csrc/decode_split_norm.cuh)
+
+
+def _norm_block(S: int, itemsize: int) -> int:
+    """The ring tile rows of K19's and K21's single-pass cell
+    (csrc/decode_split_norm.cuh): K9's default key block (128 rows for
+    int8, 64 for f32 and bf16), or S when shorter.  It need not divide S
+    (the last tile is partial), and it moves no rounding point: it only
+    sets the splits' spans."""
+    return min(max(64, 128 // itemsize), S)
+
+
+def norm_splits(B: int, KVH: int, ts: int, S: int) -> int:
+    """How many key-row splits K19 and K21's single-pass form run: the
+    split rule of K9 (``decode_splits``) capped at one thread-block
+    cluster's NORM_SPLITS_MAX blocks, since the splits of a (slot, kv head)
+    agree on the softmax's max and denominator through their cluster's
+    shared memory.  A function of the shapes alone, as ``decode_splits``."""
+    return min(decode_splits(B, KVH, ts, S), NORM_SPLITS_MAX)
+
+
+def _check_norm_splits(name: str, splits) -> int | None:
+    """``_check_splits``, and at most NORM_SPLITS_MAX (one cluster)."""
+    splits = _check_splits(name, splits)
+    if splits is not None and splits > NORM_SPLITS_MAX:
+        raise ValueError(f"{name}: splits must be at most {NORM_SPLITS_MAX} (the blocks of one "
+                         f"thread-block cluster), got {splits}")
+    return splits
+
+
+def _norm_plan(k_cache, B: int, KVH: int, splits) -> tuple[int, int]:
+    """(ring tile rows, splits) of the single-pass cell over this cache for
+    B slots of KVH kv heads (``splits`` None: ``norm_splits``)."""
+    S = k_cache.shape[3]
+    ts = _norm_block(S, k_cache.element_size())
+    return ts, norm_splits(B, KVH, ts, S) if splits is None else splits
+
+
+def _span_sum(x, spans):
+    """The sum over the last axis, taken span by span and the spans' sums
+    added in order (one span: the whole sum)."""
+    out = None
+    for r0, r1 in spans:
+        part = x[..., r0:r1].sum(-1)
+        out = part if out is None else out + part
+    return out
+
+
+def _span_pv(pr, vc, spans):
+    """sum_s pr[.., s] * f32(v[s, :]) (f32, [B, KVH, G, hd]) taken span by
+    span, the spans' partials added in order: the merge of the single-pass
+    cell's splits."""
+    out = None
+    for r0, r1 in spans:
+        part = torch.einsum("bkgs,bksd->bkgd", pr[..., r0:r1], vc[:, :, r0:r1].float())
+        out = part if out is None else out + part
+    return out
+
+
 def check_cache(name, k_cache, v_cache, k_scale, v_scale, pos, fp_ok: bool = False):
     """Validate a decode step's cache [L, B, KVH, S, hd] -- INT8 with f32
     scales [L, B, KVH, S], or with ``fp_ok`` float32 / bfloat16 without --
@@ -577,14 +636,20 @@ def decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos, layer: in
 
 
 def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k_scale=None,
-                                       v_scale=None, new_ks=None, new_vs=None, layer=0):
+                                       v_scale=None, new_ks=None, new_vs=None, layer=0,
+                                       splits=None):
     """Plain version of K19: one pass over all S rows masked to s < pos, the
     softmax normalized before (INT8 cache) p * vs is rounded to bf16
     (attention.py:150-185); an fp cache's kernel rounds nothing and has no
-    scales."""
+    scales.  As the kernel's ``splits`` spans of the rows
+    (csrc/decode_split_norm.cuh; None: ``norm_splits``) take it: m over
+    every score and the fresh one; l the spans' sums of exp(s - m) added in
+    span order, exp(s_new - m) last; the PV partials of the spans added in
+    order.  At one split the single-pass sums themselves."""
     S = k_cache.shape[3]
     kc, vc = k_cache[layer], v_cache[layer]
     int8 = k_scale is not None
+    spans = split_spans(S, *_norm_plan(k_cache, q.shape[0], q.shape[1], splits))
     qs = _scaled_q(q)
     s = torch.einsum("bkgd,bksd->bkgs", _bf16(qs) if int8 else qs, kc.float())
     s_new = (qs * new_k.float()[:, :, None, :]).sum(-1)
@@ -596,14 +661,13 @@ def flash_decode_attention_fresh_plain(q, k_cache, v_cache, pos, new_k, new_v, k
     m = torch.maximum(s.amax(-1), s_new)
     e = torch.exp(s - m[..., None])
     e_new = torch.exp(s_new - m)
-    l = e.sum(-1) + e_new
+    l = _span_sum(e, spans) + e_new
     pr = e / l[..., None]
     p_new = e_new / l
     if int8:
         pr = _bf16(pr * v_scale[layer][:, :, None, :])
         p_new = p_new * new_vs[:, :, None]
-    return (torch.einsum("bkgs,bksd->bkgd", pr, vc.float())
-            + p_new[..., None] * new_v.float()[:, :, None, :])
+    return _span_pv(pr, vc, spans) + p_new[..., None] * new_v.float()[:, :, None, :]
 
 
 def launch_chunk(kernel, k_cache, v_cache, hd, *scales) -> int:
@@ -623,10 +687,10 @@ def launch_chunk(kernel, k_cache, v_cache, hd, *scales) -> int:
 
 
 def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks,
-                   new_vs, layer, *block, splits=None):
-    """Launch K9 (``block`` = its key block rows, with ``splits``: its
-    workspace and tickets follow) or K19, or an fp form of either, on CUDA
-    tensors."""
+                   new_vs, layer, ts: int, splits: int, workspace: bool):
+    """Launch K9 (``ts`` its key block rows; with ``workspace`` its split
+    partials and tickets follow) or K19 (``ts`` its ring tile rows), or an
+    fp form of either, on CUDA tensors."""
     B, KVH, G, hd = q.shape
     S = k_cache.shape[3]
     if G > 8 or hd > 128:
@@ -640,13 +704,12 @@ def _launch_decode(kernel, q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_sc
     out = torch.empty((B, KVH, G, hd), dtype=torch.float32, device=q.device)
     sqrt_hd = float(sqrt_f32(hd))  # jnp.sqrt(f32(hd))
     st = _kernels.stream(qc)
-    ws = () if splits is None else split_workspace(B, KVH, G, hd, splits, q.device, st)
+    ws = split_workspace(B, KVH, G, hd, splits, q.device, st) if workspace else ()
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
                     _kernels.cache_code(k_cache.dtype), k_cache.data_ptr(), v_cache.data_ptr(),
                     _ptr(k_scale), _ptr(v_scale), p32.data_ptr(), nk.data_ptr(), nv.data_ptr(),
-                    _ptr(nks), _ptr(nvs), out.data_ptr(), layer, B, KVH, G, S, hd, *block,
-                    *(() if splits is None else (splits,)), sqrt_hd, ch,
-                    *(_ptr(t) for t in ws), st)
+                    _ptr(nks), _ptr(nvs), out.data_ptr(), layer, B, KVH, G, S, hd, ts, splits,
+                    sqrt_hd, ch, *(_ptr(t) for t in ws), st)
     return out
 
 
@@ -709,27 +772,32 @@ def flash_decode_attention_dma(q: torch.Tensor, k_cache: torch.Tensor, v_cache: 
     if ts > 256:
         raise NotImplementedError(f"K9 takes key blocks of at most 256 rows, got {ts}")
     n = decode_splits(q.shape[0], q.shape[1], ts, S) if splits is None else splits
-    return _launch_decode(kernel, *args, layer, ts, splits=n)
+    return _launch_decode(kernel, *args, layer, ts, n, workspace=True)
 
 
 def flash_decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, pos: torch.Tensor,
                                  new_k: torch.Tensor, new_v: torch.Tensor, k_scale=None,
-                                 v_scale=None, new_ks=None, new_vs=None,
-                                 layer=None) -> torch.Tensor:
+                                 v_scale=None, new_ks=None, new_vs=None, layer=None,
+                                 splits: int | None = None) -> torch.Tensor:
     """Deferred-flush decode attention, single pass (K19): the contract of
     :func:`flash_decode_attention_dma` with, for an INT8 cache, the softmax
-    normalized before the bf16 rounding of p.  Returns f32 [B, KVH, G, hd].
-    K19 on CUDA tensors (every score of a slot's head group in shared
-    memory, so G x S is bounded; ``K19:f32`` / ``K19:bf16`` for an fp
-    cache), the plain version on CPU ones."""
+    normalized before the bf16 rounding of p.  ``splits`` (1 to 8; None:
+    ``norm_splits``) spans of each slot's rows run in one thread-block
+    cluster, which agrees on the softmax's max and denominator before any
+    p is rounded: only the f32 order of the sums moves with it.  Returns
+    f32 [B, KVH, G, hd].  K19 on CUDA tensors (every score of a split's
+    span in shared memory, so G x span is bounded; ``K19:f32`` /
+    ``K19:bf16`` for an fp cache), the plain version on CPU ones."""
     layer = _check_decode("flash_decode_attention_fresh", q, k_cache, v_cache, pos, new_k,
                           new_v, k_scale, v_scale, new_ks, new_vs, layer)
+    splits = _check_norm_splits("flash_decode_attention_fresh", splits)
     args = (q, k_cache, v_cache, pos, new_k, new_v, k_scale, v_scale, new_ks, new_vs)
     kernel = _kernels.form("K19", k_cache.dtype)
     if _kernels.on_cpu(kernel, *_decode_tensors(*args)):
-        return flash_decode_attention_fresh_plain(*args, layer=layer)
-    return _launch_decode(kernel, *args, layer)
+        return flash_decode_attention_fresh_plain(*args, layer=layer, splits=splits)
+    ts, n = _norm_plan(k_cache, q.shape[0], q.shape[1], splits)
+    return _launch_decode(kernel, *args, layer, ts, n, workspace=False)
 
 
 # ---------------------------------------------------------------------------
@@ -762,14 +830,16 @@ def _check_k21(q, k_cache, v_cache, pos, k_scale, v_scale, layer) -> int:
 
 
 def flash_decode_attention_plain(q, k_cache, v_cache, pos, k_scale=None, v_scale=None,
-                                 block_s=None, layer=0):
+                                 block_s=None, layer=0, splits=None):
     """Plain version of K21.  One key block (the default): the single-pass
     softmax over rows s <= pos, normalized before, for an INT8 cache, p * vs
-    is rounded to bf16 (attention.py:569-603).  Smaller blocks: K9's
-    online softmax (unnormalized p rounded per block) over rows s <= pos,
-    then acc / max(l, 1e-30) (:38-124 without the fresh refs).  The scores
-    take bf16(qs) for an INT8 cache and f32 qs for an fp one, which rounds
-    nothing.  A negative pos attends nothing (zeros)."""
+    is rounded to bf16 (attention.py:569-603), with l and the PV dot taken
+    as the kernel's ``splits`` spans of the rows take them (None:
+    ``norm_splits``; see :func:`flash_decode_attention_fresh_plain`).
+    Smaller blocks: K9's online softmax (unnormalized p rounded per block)
+    over rows s <= pos, then acc / max(l, 1e-30) (:38-124 without the fresh
+    refs).  The scores take bf16(qs) for an INT8 cache and f32 qs for an fp
+    one, which rounds nothing.  A negative pos attends nothing (zeros)."""
     qs = _scaled_q(q)
     int8 = k_cache.dtype == torch.int8
     qb = _bf16(qs) if int8 else qs
@@ -779,6 +849,7 @@ def flash_decode_attention_plain(q, k_cache, v_cache, pos, k_scale=None, v_scale
         acc, _, l = decode_online_softmax(qb, k_cache, v_cache, k_scale, v_scale, pos.long() + 1,
                                           layer, ts)
         return acc / torch.clamp_min(l, 1e-30)[..., None]
+    spans = split_spans(S, *_norm_plan(k_cache, q.shape[0], q.shape[1], splits))
     kc, vc = k_cache[layer], v_cache[layer]
     s = torch.einsum("bkgd,bksd->bkgs", qb, kc.float())
     if int8:
@@ -786,40 +857,48 @@ def flash_decode_attention_plain(q, k_cache, v_cache, pos, k_scale=None, v_scale
     valid = torch.arange(S, device=q.device)[None, None, None, :] <= pos.long()[:, None, None, None]
     s = torch.where(valid, s, _NEG_INF)
     e = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    pr = e / torch.clamp_min(e.sum(-1, keepdim=True), 1e-30)
+    pr = e / torch.clamp_min(_span_sum(e, spans)[..., None], 1e-30)
     if int8:
         pr = _bf16(pr * v_scale[layer][:, :, None, :])
-    return torch.einsum("bkgs,bksd->bkgd", pr, vc.float())
+    return _span_pv(pr, vc, spans)
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            pos: torch.Tensor, k_scale=None, v_scale=None,
-                           block_s: int | None = None, layer=None) -> torch.Tensor:
+                           block_s: int | None = None, layer=None,
+                           splits: int | None = None) -> torch.Tensor:
     """Write-then-attend decode attention (K21): q [B, KVH, G, hd] raw
     queries (f32 or bf16) over the cache [L, B, KVH, S, hd] (or one layer
     [B, KVH, S, hd]), INT8 with f32 scales [L, B, KVH, S] or float32 /
     bfloat16 without; pos [B]; ``layer`` a host int (a tensor is read back).
     Cache row s attends iff s <= pos[b]: the step's row must already be
     written.  ``block_s`` None (the default) reads each slot's rows in one
-    block, the single-pass form; a smaller block runs the blocked online
-    softmax, which rounds at other points (see :func:`flash_decode_attention_
-    plain`).  Returns f32 [B, KVH, G, hd].  K21 on CUDA tensors
-    (``K21:f32`` / ``K21:bf16`` for an fp cache), the plain version on CPU
-    ones."""
+    block, the single-pass form, whose ``splits`` (1 to 8; None:
+    ``norm_splits``) spans of the rows run in one thread-block cluster; a
+    smaller block runs the blocked online softmax, which rounds at other
+    points (see :func:`flash_decode_attention_plain`) and takes no splits.
+    Returns f32 [B, KVH, G, hd].  K21 on CUDA tensors (``K21:f32`` /
+    ``K21:bf16`` for an fp cache), the plain version on CPU ones."""
     if k_cache.dim() == 4:  # one layer (attention.py:642-646)
         k_cache, v_cache = k_cache[None], v_cache[None]
         if k_scale is not None:
             k_scale, v_scale = k_scale[None], v_scale[None]
         layer = 0
     layer = _check_k21(q, k_cache, v_cache, pos, k_scale, v_scale, layer)
+    splits = _check_norm_splits("flash_decode_attention", splits)
+    S = k_cache.shape[3]
+    blocked = _k21_block(S, block_s) < S
+    if blocked and splits not in (None, 1):
+        raise ValueError(f"flash_decode_attention: splits are the single-pass form's; the "
+                         f"blocked form (block_s {block_s} < S {S}) takes none, got {splits}")
     kernel = _kernels.form("K21", k_cache.dtype)
     if _kernels.on_cpu(kernel, *_decode_tensors(q, k_cache, v_cache, pos, k_scale, v_scale)):
         return flash_decode_attention_plain(q, k_cache, v_cache, pos, k_scale, v_scale, block_s,
-                                            layer)
+                                            layer, splits)
     B, KVH, G, hd = q.shape
-    S = k_cache.shape[3]
-    ts = _k21_block(S, block_s)
-    if G > 8 or hd > 128 or (ts < S and ts > 256):
+    # splits 0 launches the blocked form (csrc/flash_decode.cu)
+    ts, n = (_k21_block(S, block_s), 0) if blocked else _norm_plan(k_cache, B, KVH, splits)
+    if G > 8 or hd > 128 or (blocked and ts > 256):
         raise NotImplementedError(f"K21 takes up to 8 query heads per kv head, head_dim <= 128 "
                                   f"and key blocks of S or of at most 256 rows, got G={G}, "
                                   f"hd={hd}, block {ts}")
@@ -830,7 +909,7 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     _kernels.launch(kernel, qc.data_ptr(), _kernels.dtype_code(qc.dtype),
                     _kernels.cache_code(k_cache.dtype), k_cache.data_ptr(), v_cache.data_ptr(),
                     _ptr(k_scale), _ptr(v_scale), p32.data_ptr(), out.data_ptr(), layer, B, KVH,
-                    G, S, hd, ts, float(sqrt_f32(hd)), ch, _kernels.stream(qc))
+                    G, S, hd, ts, n, float(sqrt_f32(hd)), ch, _kernels.stream(qc))
     return out
 
 
