@@ -1232,6 +1232,112 @@ def test_pool_direct_engine_card_matches_compact(card, monkeypatch):
 # ------------------------------------------- the opt-in decodes, K28 and K29
 
 
+# K12 and K26 at Llama-2 7B widths on a 4-layer stack (layer 1 has trailing
+# cells, layer 3 is the last): the shapes of PERF.md's K12 row and batch 32,
+# each slot's cache rows at and past its pos poisoned (127, scale 1e4), so a
+# cell that read one stale row would miss by orders of magnitude.
+K12_7B_POS = {8: [0, 1, 127, 128, 511, 1000, 1900, 2047],
+              32: [0, 1, 127, 128, 511, 1000, 1900, 2047] * 4}
+K12_7B = [(8, None, 1), (1, [511], 1), (1, [2047], 1), (8, None, 3), (32, None, 1)]
+
+
+@pytest.fixture(scope="module")
+def k12_7b(card):
+    from tpu_llama_torch.config import LLAMA2_7B
+
+    cfg = LLAMA2_7B
+    L, D, H, KVH, hd = 4, cfg.dim, cfg.hidden_dim, cfg.n_kv_heads, cfg.head_dim
+    QO = D + 2 * KVH * hd
+    g = _gen(712)
+
+    def qt(n_in, n_out):
+        return tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (L, n_out, n_in), generator=g, device="cuda",
+                            dtype=torch.int8),
+            s=torch.rand(L, n_out, generator=g, device="cuda") * 2e-4 + 1e-4)
+
+    w = (qt(D, D), qt(D, 2 * H), qt(H, D), qt(D, QO))
+    rms = [(1 + 0.1 * torch.randn(L, D, generator=g, device="cuda")).to(torch.bfloat16)
+           for _ in range(2)]
+    return dict(w=w, rms=rms, L=L, D=D, KVH=KVH, hd=hd, S=cfg.seq_len, NH=cfg.n_heads, g=g)
+
+
+def _k12_7b_case(c, B, pos):
+    """Rows, a poisoned cache and rope rows for batch B of ``k12_7b``."""
+    g, L, D, KVH, hd, S = c["g"], c["L"], c["D"], c["KVH"], c["hd"], c["S"]
+    pos = pos or K12_7B_POS[B]
+    kc, vc = (torch.randint(-127, 128, (L, B, KVH, S, hd), generator=g, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(L, B, KVH, S, generator=g, device="cuda") * 0.03 + 0.01
+              for _ in range(2))
+    for b, p in enumerate(pos):
+        for a, val in ((kc, 127), (vc, 127), (ks, 1e4), (vs, 1e4)):
+            a[:, b, :, p:] = val
+    ang = torch.rand(B, hd // 2, generator=g, device="cuda") * 6.3
+    x = torch.randn(B, D, generator=g, device="cuda")
+    attq = torch.randint(-127, 128, (B, D), generator=g, device="cuda", dtype=torch.int8)
+    satt = torch.rand(B, generator=g, device="cuda") * 0.02 + 0.005
+    return (x, attq, satt, kc, vc, ks, vs, torch.tensor(pos, dtype=torch.int32, device="cuda"),
+            ang.cos(), ang.sin())
+
+
+@pytest.mark.parametrize("B,pos,layer", K12_7B)
+@pytest.mark.parametrize("at", ["rule", "one"])
+def test_k12_7b_splits_close(k12_7b, B, pos, layer, at):
+    """K12 at 7B widths, its trailing cells at the split rule and at one
+    split, against the plain version at the same splits on poisoned caches:
+    x_next and the fresh K/V rows bit-equal; the attention output, whose f32
+    dots and sums run in the cell's order on the card and in PyTorch's in
+    the plain version (at one split too, so it is not bit-equal there: an
+    H100 flipped one of 32768 entries at batch 8), within one int8 step on
+    at most 1e-3 of entries, its scales within K6_TOL relative and its
+    dequantized values within K6_TOL of the largest; one K12 launch per
+    call."""
+    c = k12_7b
+    args = (*_k12_7b_case(c, B, pos), *c["w"], *c["rms"], layer, c["L"], c["NH"])
+    n = tfs.fused_splits(B, c["KVH"], 128, c["S"]) if at == "rule" else 1
+    before = _kernels.LAUNCHES["K12"]
+    got = tfs.fused_step2_layer(*args, splits=n)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K12"] == before + 1
+    want = tfs.fused_step2_layer_plain(*args, splits=n)
+    assert torch.equal(got[0], want[0])
+    if layer + 1 == c["L"]:
+        return
+    for i in (3, 4, 5, 6):
+        assert torch.equal(got[i], want[i])
+    d = (got[1].int() - want[1].int()).abs()
+    assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+    torch.testing.assert_close(got[2], want[2], rtol=K6_TOL, atol=0)
+    att, att_p = (o[1].float() * o[2][:, None] for o in (got, want))
+    assert (att - att_p).abs().max().item() <= K6_TOL * att_p.abs().max().item()
+
+
+@pytest.mark.parametrize("B,pos", [(8, None), (1, [2047])])
+@pytest.mark.parametrize("l0", [0, 2])
+def test_k26_7b_equals_two_chained_k12(k12_7b, B, pos, l0):
+    """At 7B widths and the split rule, one K26 launch per pair of layers
+    equals K12 for l0 and then for l0 + 1 on its outputs, bit for bit (the
+    last pair (2, 3) stops after its second phase C); one K26 launch."""
+    from tpu_llama_torch.ops import fused_step3 as tfs3
+
+    c = k12_7b
+    x, attq, satt, *rest = _k12_7b_case(c, B, pos)
+    rest = (*rest, *c["w"], *c["rms"])
+    L, NH = c["L"], c["NH"]
+    one = tfs.fused_step2_layer(x, attq, satt, *rest, l0, L, NH)
+    two = tfs.fused_step2_layer(*one[:3], *rest, l0 + 1, L, NH)
+    before = _kernels.LAUNCHES["K26"]
+    xo, attq_o, satt_o, r1, r2 = tfs3.fused_step3_pair(x, attq, satt, *rest, l0, L, NH)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K26"] == before + 1
+    assert torch.equal(xo, two[0])
+    assert all(torch.equal(a, b) for a, b in zip(r1, one[3:]))
+    if l0 + 2 < L:
+        assert torch.equal(attq_o, two[1]) and torch.equal(satt_o, two[2])
+        assert all(torch.equal(a, b) for a, b in zip(r2, two[3:]))
+
+
 @pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
                                           (8, 4, 1, 64, 256), (3, 1, 2, 12, 96)])
 def test_k26_equals_two_chained_k12(card, B, KVH, G, hd, H):

@@ -202,9 +202,9 @@ def test_k12_plain_matches_jax(case, layer):
           want[1].astype(np.float32) * want[2][:, None])
 
 
-def _composed(c, layer):
+def _composed(c, layer, splits=None):
     """The port's two-launch layer: K11, then layer + 1's RoPE, quantize_kv,
-    K9 and K2 (the contract of tests/test_fused_step2.py:74-99)."""
+    K9 (at ``splits``) and K2 (the contract of tests/test_fused_step2.py:74-99)."""
     x, attq, satt, rf, ra, cos, sin = _t(c, "x", "attq", "satt", "rf", "ra", "cos", "sin")
     x_next, qkv = tfl.fused_layer_linear(x, attq, satt, *_port_weights(c), rf, ra, layer,
                                          c["L"])
@@ -213,7 +213,8 @@ def _composed(c, layer):
                       seq_len=c["S"])
     q, (kq, ks), (vq, vs) = tl._split_qkv(qkv, cos, sin, cfg)
     att = tatt.flash_decode_attention_dma(q, *_t(c, "kc", "vc", "pos"), kq, vq,
-                                          *_t(c, "ks", "vs"), ks, vs, layer=layer + 1)
+                                          *_t(c, "ks", "vs"), ks, vs, layer=layer + 1,
+                                          splits=splits)
     attq_n, satt_n = quantize_activations(att.reshape(c["B"], c["D"]))
     return [t.numpy() for t in (x_next, attq_n, satt_n, kq, ks, vq, vs)]
 
@@ -234,6 +235,71 @@ def test_k12_matches_two_launch_composition(case, layer):
         np.testing.assert_allclose(got[i], ref[i], rtol=2e-2, atol=1e-6)
     np.testing.assert_allclose(got[1].astype(np.float32) * got[2][:, None],
                                ref[1].astype(np.float32) * ref[2][:, None], rtol=2e-2, atol=2e-2)
+
+
+# K12's trailing cells split over the key rows (csrc/fused_step2.cuh, the
+# split cell of K9): a cache of 512 rows in key blocks of 128, so 2 and 4
+# splits each take whole blocks, and slots that end in the first, a middle
+# and the last block.
+SPLIT_CASE = dict(seed=23, L=3, B=3, KVH=2, G=1, hd=128, H=384, S=512, pos=[0, 300, 511])
+SPLIT_TOL = 2.0 ** -8  # of max |out|: one bf16 step of a p rounded at a split's own max (K9)
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_k12_plain_splits_match_jax(splits, layer):
+    """At more than one split: x_next and the fresh K/V rows are the
+    one-split plain version's exactly (the split touches only the cells),
+    and within the JAX limits above; the attention output within 2^-8 of
+    its max of JAX's, as K9's split cell."""
+    c = _case(**SPLIT_CASE)
+    want = _jax_k12(c, layer)
+    one = _port_k12(c, layer, splits=1)
+    got = _port_k12(c, layer, splits=splits)
+    for i in (0, 3, 4, 5, 6):
+        np.testing.assert_array_equal(got[i], one[i])
+    _near(got[0], want[0])
+    for i in (3, 5):
+        _flips(got[i], want[i])
+    att, att_j = (o[1].astype(np.float32) * o[2][:, None] for o in (got, want))
+    _near(att, att_j, rel=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_k12_split_matches_two_launch_composition(splits):
+    """K12's plain version against the port's two-launch composition (K11,
+    RoPE + quantize_kv, K9, K2) with K9 at the same splits, at the JAX
+    tests' composition limits."""
+    c = _case(**SPLIT_CASE)
+    ref = _composed(c, 0, splits=splits)
+    got = _port_k12(c, 0, splits=splits)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-2, atol=1e-2)
+    for i in (3, 5):
+        np.testing.assert_allclose(got[i], ref[i], atol=3)
+    for i in (4, 6):
+        np.testing.assert_allclose(got[i], ref[i], rtol=2e-2, atol=1e-6)
+    np.testing.assert_allclose(got[1].astype(np.float32) * got[2][:, None],
+                               ref[1].astype(np.float32) * ref[2][:, None], rtol=2e-2, atol=2e-2)
+
+
+# (B, KVH, ts, S) -> splits: the 7B shapes of PERF.md's K12 row (batch 8, 1;
+# batch 32), a GQA group of 4, short caches
+FUSED_SPLITS = [((8, 32, 128, 2048), 8), ((1, 32, 128, 2048), 16), ((32, 32, 128, 2048), 2),
+                ((8, 8, 128, 2048), 16), ((8, 32, 128, 512), 1), ((3, 2, 64, 64), 1),
+                ((2, 2, 128, 1024), 8)]
+
+
+@pytest.mark.parametrize("shape,want", FUSED_SPLITS)
+def test_fused_splits_rule(shape, want):
+    assert tfs.fused_splits(*shape) == want
+
+
+def test_k12_splits_validated():
+    seed, G, KVH, pos = K12_CASES["mha"]
+    c = _case(seed, L=2, B=3, KVH=KVH, G=G, hd=128, H=256, S=64, pos=pos)
+    for bad in (0, -1, 1.5):
+        with pytest.raises(ValueError, match="splits"):
+            _port_k12(c, 0, splits=bad)
 
 
 def test_k12_last_layer_reads_no_cache_and_leaves_outputs():

@@ -132,6 +132,29 @@ def test_k26_equals_two_chained_k12(case, l0):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("l0", [0, 2])
+def test_k26_splits_equal_two_chained_k12(splits, l0):
+    """At more than one split of the trailing cells (a 512-row cache in
+    128-row key blocks): one K26 pair is two chained K12 plain calls at the
+    same splits, exactly."""
+    c = _case(33, L=4, B=3, KVH=2, G=1, hd=128, H=256, S=512, pos=[0, 300, 511])
+    nh = c["KVH"] * c["G"]
+    args = _t(c, "x", "attq", "satt", "kc", "vc", "ks", "vs", "pos", "cos", "sin")
+    rest = (*_port_weights(c), *_t(c, "rf", "ra"))
+    x1, attq1, satt1, *rows1 = tfs.fused_step2_layer(*args, *rest, l0, c["L"], nh,
+                                                     splits=splits)
+    ref = tfs.fused_step2_layer(x1, attq1, satt1, *args[3:], *rest, l0 + 1, c["L"], nh,
+                                splits=splits)
+    x, attq, satt, got1, got2 = tfs3.fused_step3_pair(*args, *rest, l0, c["L"], nh,
+                                                      splits=splits)
+    assert torch.equal(x, ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(got1, rows1))
+    if l0 + 2 < c["L"]:
+        assert torch.equal(attq, ref[1]) and torch.equal(satt, ref[2])
+        assert all(torch.equal(a, b) for a, b in zip(got2, ref[3:]))
+
+
 def test_k26_last_pair_reads_no_layer_past_l0_plus_1():
     """The last pair (tests/test_fused_step3.py:103): poisoning every layer
     of the cache but l0 + 1 changes nothing."""

@@ -77,7 +77,8 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
     from tpu_llama_torch.ops import _kernels
 
     real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc/fused_step2.cu")]
-    assert real == ["common.cuh", "fused_decode.cuh"]
+    assert real == ["common.cuh", "decode_split.cuh", "fused_decode.cuh", "fused_step2.cuh",
+                    "hopper.cuh"]
     # K6's INT8 form and K16 share the bf16 tensor-core cell; K6's fp forms run the
     # split-TF32 cell, which takes the bf16 cell's helpers
     for src, want in (("flash_prefill.cu", ["common.cuh", "prefill_mma.cuh",

@@ -410,13 +410,13 @@ struct PagedRows {
     }
 };
 
-// One decode cell (K12 fused_step2.cu and the cells of K26 and K27, K21's
+// One decode cell (the cells of K27 fused_step.cu, K21's
 // blocked form in flash_decode.cu; K9 and K13 run decode_split.cuh, which
 // equals it at one split): the G query rows of one (slot, kv head) attend
 // over its cache rows s < p (k and v at kc / vc + rows_of(j) rows of hd
 // elements for key block j, for an INT8 cache scales ks / vs at the same
 // row offset) with an online softmax over blocks of TS rows, then (kFresh,
-// the deferred-flush form of K12) over the fresh row (nk, nks, nv, nvs) as
+// the deferred-flush form) over the fresh row (nk, nks, nv, nvs) as
 // one more column; writes the G x hd outputs to out.  Without kFresh (K21's write-then-attend form: the
 // caller passes p = pos + 1, and the fresh arguments go unread) the output
 // is acc / max(l, 1e-30) after the last block.  The caller has filled sm.qf
@@ -539,7 +539,7 @@ __device__ void dec_attend_rows(const DecSmem<CT>& sm, const CT* __restrict__ kc
     }
 }
 
-// dec_attend_rows over a dense cache's contiguous rows (K9, K12).
+// dec_attend_rows over a dense cache's contiguous rows (K27).
 template <typename CT, int CH>
 __device__ __forceinline__ void dec_attend(const DecSmem<CT>& sm, const CT* __restrict__ kc,
                                            const CT* __restrict__ vc,

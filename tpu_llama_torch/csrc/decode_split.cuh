@@ -49,8 +49,9 @@
 //   bf16(p * vs) (an fp cache keeps p in f32); each PV element adds its rows
 //   in order from zero (dec_pv_tile), acc = acc * corr + part; int8 values
 //   become f32 exactly (a byte permute into 2^23 + u, minus 2^23 + 128).
-//   So at one split the cell equals dec_attend_rows bit for bit; K12, K21's
-//   blocked form, K26 and K27 keep that cell.  K20 and K22 run this file's
+//   So at one split the cell equals dec_attend_rows bit for bit; K21's
+//   blocked form and K27 keep that cell, and K12 and K26 (fused_step2.cuh)
+//   run this one through split_cell.  K20 and K22 run this file's
 //   pieces with a whole page as the rounding block (decode_split_page.cuh).  At more than one split each p is rounded
 //   against its split's own running max: one bf16(p * vs) moves by at most
 //   one bf16 step, and since an output is a convex combination of V rows
@@ -414,19 +415,23 @@ __device__ __forceinline__ void split_pv_any(int ne, const float* pv, int TS, co
         split_pv<8>(pv, TS, vt, rows, G, hd, P, swz, c_s, acc);
 }
 
-// The end of a split's walk (its state in m_s, l_s and the thread's acc,
-// published): at one split m_fin and l_fin are that state; at more than
-// one, the split's partial goes to ws, the block takes the ticket, and the
-// last block of the (slot, kv head) to finish merges the partials in split
-// order into acc, m_fin and l_fin and sets the counter back to zero.  False
-// in every other block, which then returns.
+// The end of split `split`'s walk (its state in m_s, l_s and the thread's
+// acc, published), of `splits` that take part (the first `splits` of the
+// launch's: a caller may leave out trailing splits whose spans start past
+// the slot's rows, whose partials are empty and would merge as exact
+// no-ops): at one split m_fin and l_fin are that state; at more than one,
+// the split's partial goes to ws, the block takes the ticket, and the last
+// block of the (slot, kv head) to finish merges the partials in split order
+// into acc, m_fin and l_fin and sets the counter back to zero.  False in
+// every other block, which then returns.
 __device__ __forceinline__ bool split_finish(const float* m_s, const float* l_s, int* last, int G,
-                                             int hd, int splits, float* ws, int* ticket,
-                                             float (&acc)[kDecMaxE], float (&m_fin)[kDecMaxE],
+                                             int hd, int split, int splits, float* ws,
+                                             int* ticket, float (&acc)[kDecMaxE],
+                                             float (&m_fin)[kDecMaxE],
                                              float (&l_fin)[kDecMaxE]) {
     const int tid = threadIdx.x;
     if (splits > 1) {
-        float* mine = ws + static_cast<long long>(blockIdx.x) * (G * hd + 2 * G);
+        float* mine = ws + static_cast<long long>(split) * (G * hd + 2 * G);
 #pragma unroll
         for (int j = 0; j < kDecMaxE; ++j) {
             const int e = tid + kDecThreads * j;
@@ -475,20 +480,25 @@ __device__ __forceinline__ bool split_finish(const float* m_s, const float* l_s,
     return true;
 }
 
-// One block of the split cell: split blockIdx.x of the (slot, kv head)
-// whose G query rows are q [G, hd] (raw; qs = f32(q) / sqrt_hd), over its
-// cache rows s < p (k and v at kc / vc + rows_of(j) rows of hd elements
-// for key block j, an INT8 cache's scales ks / vs at the same row offset),
-// then the fresh row (nk, nks, nv, nvs; the scales 1 for an fp cache) as
-// one more column, out [G, hd].  With splits > 1, ws is the (slot, kv
-// head)'s [splits][G * hd + 2 * G] partials and ticket its counter.
-template <typename QT, typename CT, int CH, class Rows>
-__device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restrict__ q,
-                                  const CT* __restrict__ kc, const CT* __restrict__ vc,
-                                  const float* __restrict__ ks, const float* __restrict__ vs,
-                                  int p, int rows_max, int TS, int G, int hd, int splits,
-                                  const CT* nk, float nks, const CT* nv, float nvs, float* out,
-                                  float* ws, int* ticket, float sqrt_hd, Rows rows_of) {
+// One block of the split cell: split `split` of the (slot, kv head) whose G
+// query rows fill_q(qf, qb) writes into shared memory ([G, P] each, pad
+// columns zero: qf the f32 rows the fresh column's score takes, qb the rows
+// an INT8 cache's scores take), over its cache rows s < p (k and v at kc /
+// vc + rows_of(j) rows of hd elements for key block j, an INT8 cache's
+// scales ks / vs at the same row offset), then the fresh row (nk, nks, nv,
+// nvs; the scales 1 for an fp cache) as one more column, out [G, hd].  With
+// splits > 1, ws is the (slot, kv head)'s [splits][G * hd + 2 * G] partials
+// and ticket its counter; `live` of the splits (a prefix) take part in the
+// merge (split_finish).  True in the block that wrote out (at one split,
+// every block).  The block's last shared-memory reads may still run when
+// it returns: a caller that reuses the memory syncs first.
+template <typename CT, int CH, class FillQ, class Rows>
+__device__ bool split_cell(unsigned char* smem, int nt, int split, FillQ fill_q,
+                           const CT* __restrict__ kc, const CT* __restrict__ vc,
+                           const float* __restrict__ ks, const float* __restrict__ vs, int p,
+                           int rows_max, int TS, int G, int hd, int splits, int live,
+                           const CT* nk, float nks, const CT* nv, float nvs, float* out,
+                           float* ws, int* ticket, Rows rows_of) {
     constexpr bool kInt8 = sizeof(CT) == 1;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int P = dec_pitch<CT>(hd);
@@ -496,8 +506,8 @@ __device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restr
     const int ns = split_scale_slots(nt);
     const SplitSmem<CT> sm(smem, nt, TS, P, G);
     const int blocks = (rows_max + TS - 1) / TS;
-    const int j0 = static_cast<int>(static_cast<long long>(blockIdx.x) * blocks / splits);
-    const int j1 = min(static_cast<int>(static_cast<long long>(blockIdx.x + 1) * blocks / splits),
+    const int j0 = static_cast<int>(static_cast<long long>(split) * blocks / splits);
+    const int j1 = min(static_cast<int>(static_cast<long long>(split + 1) * blocks / splits),
                        (p + TS - 1) / TS);
 
     // tile t of the walk is key block j0 + t / 2's K tile (with both scale
@@ -527,7 +537,7 @@ __device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restr
     // barrier publishes them)
     if (P != hd) split_zero_pad(reinterpret_cast<CT*>(sm.ring), nt * TS, hd, P, swz);
     for (int t = 0; t < nt - 1; ++t) issue(t);
-    dec_load_q(q, sm.qf, sm.qb, G, hd, P, sqrt_hd);
+    fill_q(sm.qf, sm.qb);
     if (tid < G) {
         sm.m_s[tid] = kNegInf;
         sm.l_s[tid] = 0.f;
@@ -592,8 +602,9 @@ __device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restr
     __syncthreads();     // m, l (and q when no block ran)
 
     float m_fin[kDecMaxE], l_fin[kDecMaxE];
-    if (!split_finish(sm.m_s, sm.l_s, sm.last, G, hd, splits, ws, ticket, acc, m_fin, l_fin))
-        return;
+    if (!split_finish(sm.m_s, sm.l_s, sm.last, G, hd, split, live, ws, ticket, acc, m_fin,
+                      l_fin))
+        return false;
 
     // the fresh column (_fresh_tail_merge, attention.py:307-332)
     dec_fresh_scores(sm.qf, P, nk, nks, G, hd, sm.n_s);
@@ -612,4 +623,21 @@ __device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restr
             out[e] = (acc[j] * corr + e_new * nvf) / fmaxf(lf, 1e-30f);
         }
     }
+    return true;
+}
+
+// split_cell for split blockIdx.x with the raw query rows q [G, hd]: qf =
+// f32(q) / sqrt_hd, qb = bf16(qf) (K9, K13).
+template <typename QT, typename CT, int CH, class Rows>
+__device__ void split_decode_cell(unsigned char* smem, int nt, const QT* __restrict__ q,
+                                  const CT* __restrict__ kc, const CT* __restrict__ vc,
+                                  const float* __restrict__ ks, const float* __restrict__ vs,
+                                  int p, int rows_max, int TS, int G, int hd, int splits,
+                                  const CT* nk, float nks, const CT* nv, float nvs, float* out,
+                                  float* ws, int* ticket, float sqrt_hd, Rows rows_of) {
+    const int P = dec_pitch<CT>(hd);
+    split_cell<CT, CH>(
+        smem, nt, static_cast<int>(blockIdx.x),
+        [&](float* qf, float* qb) { dec_load_q(q, qf, qb, G, hd, P, sqrt_hd); }, kc, vc, ks, vs,
+        p, rows_max, TS, G, hd, splits, splits, nk, nks, nv, nvs, out, ws, ticket, rows_of);
 }

@@ -272,7 +272,8 @@ __device__ void split_page_cell(unsigned char* smem, int nt, const QT* __restric
     __syncthreads();     // m, l (and q when no page ran)
 
     float m_fin[kDecMaxE], l_fin[kDecMaxE];
-    if (!split_finish(sm.m_s, sm.l_s, sm.last, G, hd, splits, ws, ticket, acc, m_fin, l_fin))
+    if (!split_finish(sm.m_s, sm.l_s, sm.last, G, hd, static_cast<int>(blockIdx.x), splits, ws,
+                      ticket, acc, m_fin, l_fin))
         return;
     if constexpr (!kFresh) {  // K22: write-then-attend, no fresh column
 #pragma unroll

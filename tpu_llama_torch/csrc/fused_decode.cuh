@@ -1,6 +1,8 @@
-// Shared code of the fused decode kernels: K11 fused_layer.cu, K12
-// fused_step2.cu and K27 fused_step.cu, one persistent cooperative launch
-// per decode layer, and K26 fused_step3.cu, one per pair of layers.
+// Shared code of the fused decode kernels: K11 fused_layer.cu and K27
+// fused_step.cu (linear_phases, one persistent cooperative launch per decode
+// layer), K23 fused_ffn.cu and K24 fused_rms_qkv.cu (gemm_tile), and the
+// barrier, row steps and cooperative launch that K12 fused_step2.cu and K26
+// fused_step3.cu (fused_step2.cuh) share with them.
 //
 // The TPU kernels (tpu_llama/ops/fused_layer.py:77, fused_step2.py:113) are
 // one sequential grid whose phases carry x2, h2 and the int8 rows in VMEM
@@ -38,12 +40,36 @@
 // turn into the non-coherent read-only path.
 #pragma once
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace fd {
 
+// Development stamps (compiled only with -DFD_STAMPS, which no committed
+// build passes; tpu_llama_torch/k12_phases.py builds it): FD_STAMP(i)
+// records %globaltimer (ns) at event i of the block into fd_stamps[block][i].
+constexpr int kStampEvents = 24;
+constexpr int kStampBlocks = 2048;
+#ifdef FD_STAMPS
+__device__ unsigned long long fd_stamps[kStampBlocks * kStampEvents];
+#define FD_STAMP(i)                                                                          \
+    do {                                                                                     \
+        __syncthreads();                                                                     \
+        if (threadIdx.x == 0 && blockIdx.x < fd::kStampBlocks) {                             \
+            unsigned long long t_;                                                           \
+            asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                           \
+            fd::fd_stamps[blockIdx.x * fd::kStampEvents + (i)] = t_;                         \
+        }                                                                                    \
+    } while (0)
+#else
+#define FD_STAMP(i) \
+    do {            \
+    } while (0)
+#endif
+
 constexpr int kThreads = 128;
-static_assert(kThreads == kDecThreads, "K12's trailing cells run in the same blocks");
+static_assert(kThreads == kDecThreads, "K12's and K27's attention cells run in the same blocks");
 constexpr int kBN = 32;      // weight rows (output columns) per tile
 constexpr int kBK = 256;     // bytes of K per stage
 constexpr int kStages = 4;
@@ -370,14 +396,79 @@ inline int prepare(Linear& a) {
     return 0;
 }
 
+// Let kern take at least smem bytes of dynamic shared memory on the current
+// device: the attribute is raised, never lowered (a launch at another size
+// may follow any other, and a cooperative launch above the attribute is
+// refused as too large).
+template <class Args>
+cudaError_t raise_smem_attr(void (*kern)(Args), int smem) {
+    struct Set {
+        const void* fn;
+        int dev, smem;
+    };
+    constexpr int kSlots = 64;
+    static Set known[kSlots];
+    static int used = 0;
+    static std::mutex lock;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const void* f = reinterpret_cast<const void*>(kern);
+    std::lock_guard<std::mutex> hold(lock);
+    int i = 0;
+    while (i < used && (known[i].fn != f || known[i].dev != dev)) ++i;
+    if (i < used && known[i].smem >= smem) return cudaSuccess;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (i < used)
+        known[i].smem = smem;
+    else if (used < kSlots)
+        known[used++] = {f, dev, smem};
+    return cudaSuccess;
+}
+
 // Blocks of kern that fit on one SM at once with smem bytes of dynamic
 // shared memory, into *per_sm.
 template <class Args>
 cudaError_t resident_blocks(void (*kern)(Args), int smem, int* per_sm) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err = raise_smem_attr(kern, smem);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, smem);
+}
+
+// The blocks of kern that one SM keeps resident at `smem` bytes of dynamic
+// shared memory, and the card's SMs: the attribute, the occupancy query and
+// the SM count once per (kernel, shared memory size, device), not at every
+// launch (they cost the host more than the launch; 32 launches a step).
+template <class Args>
+cudaError_t launch_shape(void (*kern)(Args), int smem, int* per_sm, int* sms) {
+    struct Shape {
+        const void* fn;
+        int smem, dev, per_sm, sms;
+    };
+    constexpr int kSlots = 64;
+    static Shape known[kSlots];
+    static int used = 0;
+    static std::mutex lock;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const void* f = reinterpret_cast<const void*>(kern);
+    {
+        std::lock_guard<std::mutex> hold(lock);
+        for (int i = 0; i < used; ++i)
+            if (known[i].fn == f && known[i].smem == smem && known[i].dev == dev) {
+                *per_sm = known[i].per_sm;
+                *sms = known[i].sms;
+                return cudaSuccess;
+            }
+    }
+    if ((err = resident_blocks(kern, smem, per_sm)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return err;
+    std::lock_guard<std::mutex> hold(lock);
+    if (used < kSlots) known[used++] = {f, smem, dev, *per_sm, *sms};
+    return cudaSuccess;
 }
 
 // Launches kern(args) cooperatively with as many blocks as fit on the card
@@ -387,11 +478,8 @@ cudaError_t resident_blocks(void (*kern)(Args), int smem, int* per_sm) {
 template <class Args>
 int coop_launch(void (*kern)(Args), const Args& args, int smem, cudaStream_t st,
                 int per_sm_want = 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = resident_blocks(kern, smem, &per_sm);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, per_sm = 0;
+    cudaError_t err = launch_shape(kern, smem, &per_sm, &sms);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm_want > 0) {
         if (per_sm < per_sm_want) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -403,132 +491,6 @@ int coop_launch(void (*kern)(Args), const Args& args, int smem, cudaStream_t st,
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(per_sm * sms),
                                       dim3(kThreads), params, smem, st);
     return static_cast<int>(err);
-}
-
-// ---------------------------------------------------------------------------
-// K12's layer (fused_step2.cu): layer l's linear work and layer l + 1's
-// attention, one cell per (slot, kv head) after a barrier:
-//   q heads: RoPE, times 1/sqrt(hd) (a reciprocal, fused_step2.py:152),
-//            rounded to bf16 (:256-257) -- the cells' queries for the cache
-//            rows AND the fresh column (s_raw, :290-296);
-//   k head:  RoPE, then the per-head INT8 quant of quantize_kv -> kq, ks;
-//   v head:  the per-head INT8 quant -> vq, vs;
-//   then common.cuh's dec_attend (K9's cell): cache rows s < pos[b] in
-//   blocks of TS, the fresh row as one more column.
-// A last barrier, then one block per row quantizes the attention output
-// (quantize_activations, :736) -> attq_next, satt_next.  The last layer
-// stops after phase C: no qkv, no cells, the attention outputs untouched
-// (:556-561).  K26 (fused_step3.cu) runs this body twice in one launch.
-// ---------------------------------------------------------------------------
-
-struct Step2 {
-    Linear lin;          // lin.qkv is scratch [B, QO]: layer l + 1's raw q/k/v
-    const int8_t* kc;    // [L, B, KVH, S, hd] int8 cache
-    const int8_t* vc;
-    const float* kcs;    // [L, B, KVH, S] scales
-    const float* vcs;
-    const int* pos;      // [B]
-    const float* cosr;   // [B, hd/2] at each slot's position
-    const float* sinr;
-    float* att;          // [B, D] scratch: the cells' outputs
-    int8_t* attq_next;   // [B, D]
-    float* satt_next;    // [B]
-    int8_t* kq;          // [B, KVH, hd] the fresh rows of layer l + 1
-    float* ks;           // [B, KVH]
-    int8_t* vq;
-    float* vs;
-    int KVH, G, hd, S, layer, TS;  // layer: l + 1
-    float isqrt;         // f32(1 / sqrt(f32(hd)))
-};
-
-template <int BM, int CH>
-__device__ void step2_layer(const Step2& a, unsigned char* smem) {
-    __shared__ float red[kThreads / 32];
-    const Linear& lin = a.lin;
-    linear_phases<BM, true>(lin, reinterpret_cast<int8_t*>(smem));
-    if (lin.last) return;
-    grid_sync(lin.bar);  // layer l + 1's qkv is complete
-
-    const int B = lin.B, D = lin.D, QO = lin.QO, KVH = a.KVH, G = a.G, hd = a.hd;
-    const int P = dec_pitch<int8_t>(hd), hp = hd / 2, tid = threadIdx.x;
-    const DecSmem<int8_t> sm(smem, a.TS, P, G);
-    for (int cell = blockIdx.x; cell < B * KVH; cell += gridDim.x) {
-        const int b = cell / KVH, h = cell % KVH;
-        const long long bh = (long long)b * KVH + h;
-        const float* row = lin.qkv + (long long)b * QO;
-        const float* cs = a.cosr + (long long)b * hp;
-        const float* sn = a.sinr + (long long)b * hp;
-        // the G query rows of kv head h: roped, scaled, rounded to bf16
-        for (int e = tid; e < G * P; e += kThreads) {
-            const int g = e / P, d = e % P;
-            float v = 0.f;
-            if (d < hd) {
-                const float* xh = row + (long long)(h * G + g) * hd;
-                float r0, r1;
-                rope_pair(__ldcg(xh + (d & ~1)), __ldcg(xh + (d | 1)), cs[d >> 1], sn[d >> 1],
-                          r0, r1);
-                v = round_bf16(__fmul_rn(d & 1 ? r1 : r0, a.isqrt));
-            }
-            sm.qf[e] = v;
-            sm.qb[e] = v;
-        }
-        // the fresh K (roped) and V rows of head h, one element per thread
-        float rk = 0.f, rv = 0.f;
-        if (tid < hd) {
-            const float* kh = row + D + (long long)h * hd;
-            float r0, r1;
-            rope_pair(__ldcg(kh + (tid & ~1)), __ldcg(kh + (tid | 1)), cs[tid >> 1],
-                      sn[tid >> 1], r0, r1);
-            rk = tid & 1 ? r1 : r0;
-            rv = __ldcg(row + D + KVH * hd + (long long)h * hd + tid);
-        }
-        const float ksc = quant_scale(block_max<kThreads>(fabsf(rk), red));
-        const float vsc = quant_scale(block_max<kThreads>(fabsf(rv), red));
-        int8_t* kqr = a.kq + bh * hd;
-        int8_t* vqr = a.vq + bh * hd;
-        if (tid < hd) {
-            kqr[tid] = quant_i8(rk, quant_inv(ksc));
-            vqr[tid] = quant_i8(rv, quant_inv(vsc));
-        }
-        if (tid == 0) {
-            a.ks[bh] = ksc;
-            a.vs[bh] = vsc;
-        }
-        __syncthreads();  // the fresh rows are written for the whole block
-        const int p = min(max(a.pos[b], 0), a.S);
-        const long long row0 = (((long long)a.layer * B + b) * KVH + h) * a.S;
-        dec_attend<int8_t, CH>(sm, a.kc + row0 * hd, a.vc + row0 * hd, a.kcs + row0,
-                               a.vcs + row0, p, a.TS, G, hd, kqr, ksc, vqr, vsc,
-                               a.att + bh * G * hd);
-        __syncthreads();  // shared memory is free for the next cell
-    }
-    grid_sync(lin.bar);  // every cell's output is in att
-    if (blockIdx.x < B)
-        quant_row(a.att + (long long)blockIdx.x * D, D, a.attq_next + (long long)blockIdx.x * D,
-                  a.satt_next + blockIdx.x);
-}
-
-template <int BM, int CH>
-__global__ void __launch_bounds__(kThreads) fused_step2_kernel(const Step2 a) {
-    extern __shared__ __align__(16) unsigned char fd_smem[];
-    step2_layer<BM, CH>(a, fd_smem);
-}
-
-// The dynamic shared memory of K12's launch (and K26's): the larger of a
-// GEMM tile ring and one decode cell.
-template <int BM>
-int step2_smem(const Step2& a) {
-    const int cell = DecSmem<int8_t>::bytes(a.TS, dec_pitch<int8_t>(a.hd), a.G);
-    return gemm_smem<BM>() > cell ? gemm_smem<BM>() : cell;
-}
-
-// Fills a Step2 from tl_fused_step2_layer's arguments and checks them.
-inline int make_step2(Step2& a) {
-    if (a.G < 1 || a.G > kDecMaxG || a.hd < 2 || a.hd % 2 || a.hd > kDecMaxHd || a.TS < 1 ||
-        a.TS > 256 || a.KVH < 1 || a.lin.D != a.KVH * a.G * a.hd ||
-        a.lin.QO != a.lin.D + 2 * a.KVH * a.hd)
-        return static_cast<int>(cudaErrorInvalidValue);
-    return prepare(a.lin);
 }
 
 }  // namespace fd

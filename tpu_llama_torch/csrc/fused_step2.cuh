@@ -1,0 +1,1032 @@
+// K12's layer body (fused_step2.cu), which K26 (fused_step3.cu) runs twice
+// per launch: layer l's linear work, then layer l + 1's attention, in one
+// persistent cooperative launch.
+//
+// What it replaces: fused_decode.cuh's linear_phases (K11's, which K11 and
+// K27 keep) and its trailing dec_attend cells.  On the H100 that body ran
+// at 3.5-5.7x its bytes bound: each phase grid-strode 32-row weight tiles
+// over the whole K, so phases A (wo) and C (w2), 128 tiles each, kept one
+// block an SM busy and the rest idle; a block had three 8 KB stages in
+// flight behind a block-wide barrier each; every tile re-read the
+// activations from L2 as a 16-row A operand padded with zeros at batch 8;
+// eight grid barriers a layer stopped the weight stream, four of them
+// around a step that one block per row ran while the grid waited; and each
+// trailing cell walked its slot's cache alone.
+//
+// Design (bound: bytes -- 202.4 MB of 7B weights a layer plus the cache
+// rows each slot attends):
+// - Every block streams an equal share of every phase.  A phase's weights
+//   are units of 16 rows (output columns; w13: 8 gate rows and the up rows
+//   of the same 8 columns) by 1 KB of K, and block b takes the contiguous
+//   units [b T / NB, (b + 1) T / NB) in row-group-major order -- so wo and
+//   w2, whose 256 row groups are fewer than the blocks, are split along K
+//   like the rest.  A block's share of a group is exact int32 (its four
+//   warps each take a quarter of every unit's K and add up in shared
+//   memory at the share's end); a share that is not the whole group is
+//   added into an int32 buffer (red.add: integer sums in any order are the
+//   same sum), and the block that brings the group's chunk count to its
+//   total -- an atomic ticket it sets back to zero, with the buffer --
+//   applies the epilogue.  So every output sees the same int32 whatever the
+//   split, and the f32 epilogue is the old one's, step for step: the plain
+//   versions do not change.
+// - The bytes come through a ring of kStagesU shared-memory stages filled
+//   by 1D bulk copies (cp.async.bulk, one per row: 1 KB runs) on mbarriers:
+//   a unit's 16 weight rows and its batch rows' 1 KB of activations.  The
+//   weight rows of the next units are copied as soon as a stage is free,
+//   also across a phase boundary (the weights need no activation); the
+//   activation rows once the phase's activations are ready.  On the H100
+//   such a ring streams at ~3 TB/s at these shapes, where loads into
+//   registers (128-byte runs a row) reached ~1.5.  Lane (g, t4) takes 16
+//   bytes of weight rows g and g + 8 and of batch row g at the same k: any
+//   permutation of K in both operands leaves an int32 dot unchanged, so one
+//   16-byte read is the fragments of two mma.m16n8k32 with the batch rows as
+//   the mma's N (8 a tile: no padded rows at batch 8).
+// - No grid barrier.  Each boundary is dataflow on counters in a workspace
+//   that the launch leaves zero: a group's epilogue bumps its phase's
+//   count; blocks b < B wait for the whole phase, compute row b's rmsnorm +
+//   quant (K3's) with the row held in registers, and bump a row count;
+//   every block waits for that count before the phase's activation rows
+//   are copied.  Phase C's activations, h2 quantized, need only each row's
+//   max |h2| (an order-free atomic max in phase B's epilogue): every block
+//   quantizes a slice of h2 (K2's formula) once phase B is done.  The last
+//   block out of the launch sets the counters back to zero.
+// - The trailing cells run decode_split.cuh's split cell (K9's) over
+//   (slot, kv head, split) items taken grid-stride, the last splits first
+//   (only the longest slots reach them); splits by ops/fused_step2.py
+//   fused_splits (a function of the shapes alone).  A split whose span
+//   starts past its slot's rows is skipped and left out of the merge (its
+//   partial would merge as an exact no-op), so short slots pay nothing for
+//   the splits a long one needs.  Partials merge in split order in the
+//   launch (the cell's self-resetting tickets), and each block prefetches
+//   its first item's first key rows into L2 while phase D finishes.  At one
+//   split the cell runs the sequential block walk of common.cuh's
+//   dec_attend (the old cells); at more, each p rounds against its split's
+//   running max (K9's accepted departure).  At either count the plain
+//   version's dots and sums run in PyTorch's order, so an f32 ulp can move
+//   a rare attention output across an int8 step: the output is held to it
+//   within one step, not bit for bit.
+//
+// Numerics are the old body's: every f32 product and sum of the epilogues
+// and the SiLU an explicit round-to-nearest intrinsic, h2 rounded to bf16
+// (fused_step2.py:217-224), the rmsnorm's f64 sum of squares (K3), the
+// quant formula of common.cuh.
+//
+// Memory order: data one block writes and another reads later in the launch
+// is read through L2 (ld.global.cg) or by a bulk copy issued after a proxy
+// fence, after a __threadfence() and a counter on the writer's side and an
+// acquire load of the counter on the reader's.
+#pragma once
+
+#include "decode_split.cuh"
+#include "fused_decode.cuh"
+#include "hopper.cuh"
+
+namespace f2 {
+
+using fd::kThreads;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;  // blocks an SM the launch bounds keep registers for at batch <= 8
+constexpr int kRowsU = 16;               // weight rows a unit: one mma M tile
+constexpr int kChunkU = 1024;            // bytes of K a unit: one bulk copy per row
+constexpr int kPitchU = kChunkU + 64;    // a stage's row pitch: conflict-free fragment loads
+constexpr int kStagesU = 2;              // the ring's stages
+constexpr int kWarpK = kChunkU / kWarps;  // each warp's bytes of a unit's K
+constexpr int kPieces = kWarpK / 64;      // ... in 64-byte pieces (16 bytes a lane)
+// a stage: the unit's 16 weight rows, then its 8 NT activation rows
+__host__ __device__ constexpr int stage_bytes(int nt) { return (kRowsU + 8 * nt) * kPitchU; }
+constexpr int kFlowWords = 64;     // one layer's counters (Flow) in the workspace
+constexpr int kExitWord = 2 * kFlowWords;
+constexpr int kTicketBase = 2 * kFlowWords + 32;  // words before the group tickets
+
+// One layer's counters: zero when a launch starts.
+struct Flow {
+    unsigned done[4];   // row groups whose epilogue is applied, phases A-D
+    unsigned rows[3];   // rows quantized: after A, after C, the final quant
+    unsigned cells;     // (slot, kv head) outputs written
+    unsigned xq3;       // blocks that quantized their slice of h2
+    unsigned pad[7];
+    unsigned amax3[fd::kMaxRows];  // max |h2| of each row, as float bits
+};
+static_assert(sizeof(Flow) <= kFlowWords * 4, "Flow fits its words");
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// Block-wide: wait until *c >= target.  A count that never arrives is a
+// fault of the launch; it traps after ~10 s rather than hang the card.
+__device__ __forceinline__ void wait_geq(const unsigned* c, unsigned target) {
+    if (threadIdx.x == 0) {
+        unsigned long long spins = 0;
+        while (ld_acquire(c) < target) {
+            __nanosleep(64);
+            if (++spins > (1ull << 27)) __trap();
+        }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+// Block-wide: publish the block's writes, then add one to *c.
+__device__ __forceinline__ void count_up(unsigned* c) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(c, 1u);
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// this block's shared memory, completing on bar (complete_tx).
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes,
+                                         uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Expect `bytes` more on bar's current phase without arriving.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// Global memory written by other blocks (generic proxy), acquired through a
+// counter, read after this by the bulk copies (async proxy).
+__device__ __forceinline__ void fence_proxy_async_global() {
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// mbar_wait with a bound: a stage that never lands traps (~seconds) rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, unsigned parity) {
+    unsigned done = 0;
+    for (unsigned long long n = 0; !done; ++n) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_addr(bar)), "r"(parity)
+            : "memory");
+        if (n > (1ull << 26)) __trap();
+    }
+}
+
+enum Kind : int { kWo = 0, kW13 = 1, kW2 = 2, kQkv = 3 };
+
+// One linear phase of the layer.
+struct Phase {
+    int kind;
+    const int8_t* w;   // [rows, K] K-contiguous (w13: the H gate rows, then the H up rows)
+    const float* ws;   // column scales
+    const int8_t* x;   // [B, K] int8 activations (attq, xq, xq3, xq)
+    int N;             // output columns (w13: H)
+    int K;
+    int groups, nch;   // row groups of kRowsU weight rows (w13: 8 columns), chunks of kChunkU
+    unsigned* tickets; // [groups] chunks added so far, zero between uses
+    int* acc;          // [B, Nacc] int32 partials (Nacc: N, w13 2H), zero between uses
+    int nacc;
+};
+
+// Weight row r (0..15) of group gi: rows gi * 16 + r, or for w13 the gate
+// (r < 8) and the up (r >= 8) row of column gi * 8 + r % 8; null past the
+// edge.
+__device__ __forceinline__ const int8_t* phase_row(const Phase& ph, int gi, int r) {
+    if (ph.kind == kW13) {
+        const int j = gi * 8 + (r & 7);
+        return j < ph.N ? ph.w + ((long long)(r >> 3) * ph.N + j) * ph.K : nullptr;
+    }
+    const int n = gi * kRowsU + r;
+    return n < ph.N ? ph.w + (long long)n * ph.K : nullptr;
+}
+
+// The block's contiguous range of units [u0, u1) of a phase.
+__device__ __forceinline__ void block_range(const Phase& ph, int& u0, int& u1) {
+    const long long T = static_cast<long long>(ph.groups) * ph.nch;
+    u0 = static_cast<int>(T * blockIdx.x / gridDim.x);
+    u1 = static_cast<int>(T * (blockIdx.x + 1) / gridDim.x);
+}
+
+// Everything the phases of one layer read and write (see fd::Linear).
+struct Layer {
+    fd::Linear lin;      // lin.xq3: h2 quantized [B, H], in the workspace
+    unsigned* ws;        // the launch's workspace (int32 words, zero between launches)
+    Flow* flow;          // this layer's counters
+    const Flow* wait_a;  // phase A's activations come from this flow's final quant (K26's
+                         // second layer), or null: they are the launch's inputs
+    Phase ph[4];
+};
+
+// The ring's stage barriers (static shared memory: the cells, which reuse
+// the stages' memory, leave them alone); ring_init at the launch's start.
+__device__ __forceinline__ uint64_t* ring_barriers() {
+    __shared__ __align__(8) uint64_t full[kStagesU];
+    return full;
+}
+
+__device__ __forceinline__ void ring_init() {
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kStagesU; ++s) mbar_init(ring_barriers() + s, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+}
+
+// Rows of up to kThreads * kRowRegs values are held in registers by the
+// row steps: every load of a row is in flight at once (the old steps, one
+// L2 round trip per value a thread, took 11-19 us a row on the H100).
+constexpr int kRowRegs = 32;
+
+// K3's rmsnorm + row quant of one row x [n] (scratch) with weight w [n]
+// (f32, or bf16 when wbf16): q int8 [n], *s -- fd::rms_quant_row's
+// arithmetic in its order (each thread's squares in f64 in ascending i).
+__device__ __noinline__ void rms_quant_row(const float* x, const void* w, int wbf16, int n,
+                                           int8_t* q, float* s) {
+    if (n > kThreads * kRowRegs) {
+        fd::rms_quant_row(x, w, wbf16, n, q, s);
+        return;
+    }
+    __shared__ double dred[kWarps];
+    __shared__ float fred[kWarps];
+    float v[kRowRegs], wv[kRowRegs];
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) {
+        const int i = threadIdx.x + kThreads * j;
+        v[j] = i < n ? __ldcg(x + i) : 0.f;
+        wv[j] = i < n ? fd::load_w(w, i, wbf16) : 0.f;
+    }
+    double ss = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) {
+        const double d = v[j];
+        if (threadIdx.x + kThreads * j < n) ss += d * d;
+    }
+    FD_STAMP(20);
+    const float r = rms_factor(block_sum<kThreads>(ss, dred), n);
+    FD_STAMP(21);
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) {
+        v[j] = __fmul_rn(__fmul_rn(v[j], r), wv[j]);
+        amax = fmaxf(amax, fabsf(v[j]));
+    }
+    const float sc = quant_scale(block_max<kThreads>(amax, fred));
+    const float inv = quant_inv(sc);
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) {
+        const int i = threadIdx.x + kThreads * j;
+        if (i < n) q[i] = quant_i8(v[j], inv);
+    }
+    if (threadIdx.x == 0) *s = sc;
+    FD_STAMP(22);
+}
+
+// K2's row quant of one row x [n] (scratch): q int8 [n], *s.
+__device__ __noinline__ void quant_row(const float* x, int n, int8_t* q, float* s) {
+    if (n > kThreads * kRowRegs) {
+        fd::quant_row(x, n, q, s);
+        return;
+    }
+    __shared__ float fred[kWarps];
+    float v[kRowRegs];
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) {
+        const int i = threadIdx.x + kThreads * j;
+        v[j] = i < n ? __ldcg(x + i) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) amax = fmaxf(amax, fabsf(v[j]));
+    const float sc = quant_scale(block_max<kThreads>(amax, fred));
+    const float inv = quant_inv(sc);
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j) {
+        const int i = threadIdx.x + kThreads * j;
+        if (i < n) q[i] = quant_i8(v[j], inv);
+    }
+    if (threadIdx.x == 0) *s = sc;
+}
+
+// The rmsnorm + quant of row b of x_next into xq, sx.
+__device__ __forceinline__ void rms_row(const fd::Linear& a, const void* w, int b) {
+    rms_quant_row(a.x_next + (long long)b * a.D, w, a.rms_bf16, a.D, a.xq + (long long)b * a.D,
+                  a.sx + b);
+}
+
+// A layer's descriptors and this block's unit ranges, copied once into
+// shared memory (read through a pointer to the kernel's parameters or off
+// the stack, the loop's fields would be global or local memory loads).
+struct LayerShared {
+    Phase ph[4];
+    fd::Linear lin;
+    Flow* flow;
+    const Flow* wait_a;
+    int np;           // phases: 4, 3 on the last layer
+    int u0[4], u1[4];
+    int start[5];     // phase p's units are positions [start[p], start[p + 1])
+};
+
+// Thread 0 fills S from the layer (then the block syncs).
+__device__ __forceinline__ void fill_shared(LayerShared& S, const Layer& L) {
+    S.lin = L.lin;
+    S.flow = L.flow;
+    S.wait_a = L.wait_a;
+    S.np = L.lin.last ? 3 : 4;
+    S.start[0] = 0;
+    for (int p = 0; p < 4; ++p) {
+        S.ph[p] = L.ph[p];
+        block_range(L.ph[p], S.u0[p], S.u1[p]);
+        S.start[p + 1] = S.start[p] + (p < S.np ? S.u1[p] - S.u0[p] : 0);
+    }
+}
+
+// A layer's phases for one block: its unit ranges of the phases in order
+// (A, B, C and, but on the last layer, D), streamed through a ring of
+// kStagesU stages.  Position i of the sequence is phase p(i)'s unit; the
+// ring's use count q0 before the layer (K26's second layer continues the
+// first's) sets each stage's barrier parity.  A unit's weight rows are
+// copied as soon as its stage is free, also across a phase boundary (the
+// weights need no activation); its activation rows once the phase's
+// activations are ready (`ready`: the last phase whose are).
+template <int NT>
+struct LayerRun {
+    const LayerShared& S;  // the layer's descriptors, in shared memory
+    unsigned char* stage;  // [kStagesU][stage_bytes(NT)]
+    uint64_t* full;        // [kStagesU]
+    int (*red)[32][4 * NT];  // [kWarps][32][4 NT]: the warps' sums at a group's end
+    int q0;
+    int ready;
+    int lane, g, t4, warp;
+
+    __device__ __forceinline__ int phase_of(int i) const {
+        int p = 0;
+        while (i >= S.start[p + 1]) ++p;
+        return p;
+    }
+
+    // Position i's weight rows (warp 0): lanes 0-15 copy a row each, after
+    // lane 0 added their bytes to the stage barrier's count without
+    // arriving (issue_x arrives).  With vec false (rows not 16-byte
+    // multiples or not aligned) the warp copies the bytes itself, zeros past
+    // K.
+    __device__ __forceinline__ void issue_w(int i) const {
+        const int p = phase_of(i);
+        const Phase& P = S.ph[p];
+        const int u = S.u0[p] + (i - S.start[p]);
+        const int gi = u / P.nch, c = u % P.nch;
+        const int s = (q0 + i) % kStagesU;
+        unsigned char* st = stage + s * stage_bytes(NT);
+        uint64_t* bar = full + s;
+        const int k0 = c * kChunkU, bytes = min(kChunkU, P.K - k0);
+        if (S.lin.vec) {
+            unsigned total = 0;
+            for (int r = 0; r < kRowsU; ++r) total += phase_row(P, gi, r) != nullptr ? bytes : 0;
+            if (lane == 0) mbar_expect(bar, total);
+            __syncwarp();
+            if (lane < kRowsU) {
+                const int8_t* row = phase_row(P, gi, lane);
+                if (row != nullptr) bulk_g2s(st + lane * kPitchU, row + k0, bytes, bar);
+            }
+        } else {
+            for (int e = lane; e < kRowsU * kChunkU; e += 32) {
+                const int r = e / kChunkU, k = e % kChunkU;
+                const int8_t* row = phase_row(P, gi, r);
+                st[r * kPitchU + k] = row != nullptr && k < bytes ? row[k0 + k] : int8_t(0);
+            }
+            __syncwarp();
+        }
+    }
+
+    // Position i's activation rows (warp 0, the phase's activations ready):
+    // rows b < B of the unit's chunk, then lane 0 arrives with their bytes.
+    __device__ __forceinline__ void issue_x(int i) const {
+        const int p = phase_of(i);
+        const Phase& P = S.ph[p];
+        const int u = S.u0[p] + (i - S.start[p]);
+        const int c = u % P.nch;
+        const int s = (q0 + i) % kStagesU;
+        unsigned char* st = stage + s * stage_bytes(NT) + kRowsU * kPitchU;
+        uint64_t* bar = full + s;
+        const int k0 = c * kChunkU, bytes = min(kChunkU, P.K - k0);
+        if (S.lin.vec) {
+            if (lane == 0) mbar_expect_tx(bar, static_cast<unsigned>(S.lin.B * bytes));
+            __syncwarp();
+            if (lane < S.lin.B)
+                bulk_g2s(st + lane * kPitchU, P.x + (long long)lane * P.K + k0, bytes, bar);
+        } else {
+            for (int e = lane; e < S.lin.B * kChunkU; e += 32) {
+                const int r = e / kChunkU, k = e % kChunkU;
+                st[r * kPitchU + k] = k < bytes ? __ldcg(P.x + (long long)r * P.K + k0 + k)
+                                                : int8_t(0);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar);
+        }
+    }
+
+    // Position i into its stage (warp 0; nothing past the end): the
+    // weights, and the activations when its phase's are ready.
+    __device__ __forceinline__ void issue(int i) const {
+        if (i >= S.start[S.np]) return;
+        issue_w(i);
+        if (phase_of(i) <= ready) issue_x(i);
+    }
+
+    // Where value e of batch tile t lands: batch row b, column index n in
+    // the phase's partial buffer (-1 where it is no output).
+    __device__ __forceinline__ void place(const Phase& P, int t, int e, int gi, int& b,
+                                          int& n) const {
+        b = t * 8 + 2 * t4 + (e & 1);
+        if (P.kind == kW13) {
+            const int j = gi * 8 + g;
+            n = j < P.N ? (e >> 1) * P.N + j : -1;
+        } else {
+            const int r = gi * kRowsU + g + 8 * (e >> 1);
+            n = r < P.N ? r : -1;
+        }
+        if (b >= S.lin.B) n = -1;
+    }
+
+    // The epilogue of group gi from its whole int32 sums (warp 0).
+    __device__ __forceinline__ void epilogue(const Phase& P, int gi,
+                                             const int (&acc)[NT][4]) const {
+        const fd::Linear& a = S.lin;
+        if (P.kind == kW13) {
+            float mx[NT][2];  // max |h| of the thread's two batch rows of each tile
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+                mx[t][0] = mx[t][1] = 0.f;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    int b, n;
+                    place(P, t, e, gi, b, n);
+                    if (n < 0) continue;
+                    const int j = n, H = P.N;
+                    const float s = __ldcg(a.sx + b);
+                    const float gv =
+                        __fmul_rn(__fmul_rn(static_cast<float>(acc[t][e]), s), P.ws[j]);
+                    const float uv =
+                        __fmul_rn(__fmul_rn(static_cast<float>(acc[t][e + 2]), s), P.ws[H + j]);
+                    const float hv = round_bf16(
+                        __fmul_rn(__fmul_rn(gv, __frcp_rn(__fadd_rn(1.f, expf(-gv)))), uv));
+                    a.h2[(long long)b * H + j] = hv;
+                    mx[t][e] = fabsf(hv);
+                }
+            }
+            // the lanes of one t4 hold the same batch rows: reduce over g
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    float m = mx[t][i];
+#pragma unroll
+                    for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+                    const int b = t * 8 + 2 * t4 + i;
+                    if (g == 0 && b < a.B) atomicMax(S.flow->amax3 + b, __float_as_uint(m));
+                }
+            return;
+        }
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                int b, n;
+                place(P, t, e, gi, b, n);
+                if (n < 0) continue;
+                const float v = static_cast<float>(acc[t][e]);
+                if (P.kind == kWo) {
+                    const long long o = (long long)b * a.D + n;
+                    a.x_next[o] = __fadd_rn(__ldcg(a.x + o),
+                                            __fmul_rn(__fmul_rn(v, __ldcg(a.satt + b)), P.ws[n]));
+                } else if (P.kind == kW2) {
+                    const long long o = (long long)b * a.D + n;
+                    const float s3 = quant_scale(__uint_as_float(__ldcg(S.flow->amax3 + b)));
+                    a.x_next[o] = __fadd_rn(__ldcg(a.x_next + o),
+                                            __fmul_rn(__fmul_rn(v, s3), P.ws[n]));
+                } else {
+                    a.qkv[(long long)b * a.QO + n] =
+                        __fmul_rn(__fmul_rn(v, __ldcg(a.sx + b)), P.ws[n]);
+                }
+            }
+    }
+
+    // The end of the block's share of group gi (chunks [c0, c1)), warp 0 on
+    // the block's sums: the epilogue if the share is the whole group, else
+    // the share into the partials and, by the block that completes the
+    // group, the epilogue of their sum.
+    __device__ __forceinline__ void finish(const Phase& P, int gi, int c0, int c1,
+                                           int (&acc)[NT][4]) const {
+        if (c0 != 0 || c1 != P.nch) {
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    int b, n;
+                    place(P, t, e, gi, b, n);
+                    if (n >= 0 && acc[t][e] != 0)
+                        atomicAdd(P.acc + (long long)b * P.nacc + n, acc[t][e]);
+                }
+            __threadfence();
+            __syncwarp();
+            unsigned old = 0;
+            if (lane == 0) old = atomicAdd(P.tickets + gi, static_cast<unsigned>(c1 - c0));
+            old = __shfl_sync(0xffffffffu, old, 0);
+            if (old + static_cast<unsigned>(c1 - c0) != static_cast<unsigned>(P.nch)) return;
+            __threadfence();
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    int b, n;
+                    place(P, t, e, gi, b, n);
+                    if (n < 0) continue;
+                    int* ptr = P.acc + (long long)b * P.nacc + n;
+                    acc[t][e] = __ldcg(ptr);
+                    *ptr = 0;  // zero again for the next use
+                }
+            if (lane == 0) P.tickets[gi] = 0;
+        }
+        epilogue(P, gi, acc);
+        __threadfence();
+        __syncwarp();
+        if (lane == 0) atomicAdd(S.flow->done + P.kind, 1u);
+    }
+
+    // Phase p's activations are ready: the activation rows of its units
+    // already in the ring (warp 0), and every later issue carries them.
+    __device__ __forceinline__ void make_ready(int p, int issued) {
+        ready = p;
+        if (warp == 0) {
+            fence_proxy_async_global();
+            for (int i = S.start[p]; i < issued && i < S.start[p + 1]; ++i) issue_x(i);
+        }
+    }
+
+    // Phase p's units: for each, wait for its stage, multiply the warp's
+    // part of its K (kWarpK bytes of the 16 weight rows and of the batch
+    // rows, both from the stage) on the tensor cores; at the end of a
+    // group's share the warps' sums meet in shared memory and warp 0
+    // finishes the group; after every unit the block syncs and warp 0 refills
+    // the stage kStagesU positions ahead.  `issued` is the first position
+    // not yet issued.
+    __device__ __forceinline__ void phase(int p, int& issued) const {
+        const Phase& P = S.ph[p];
+        // the phase's fields in registers (the loop and its refills read them
+        // every unit)
+        const int kind = P.kind, K = P.K, N = P.N, nch = P.nch;
+        const int8_t* W = P.w;
+        const int8_t* X = P.x;
+        const int u0p = S.u0[p], u1p = S.u1[p], st0 = S.start[p], st1 = S.start[p + 1];
+        const int B = S.lin.B, vec = S.lin.vec;
+        // weight row r (0..15) of group gi, as phase_row
+        auto wrow = [&](int gi, int r) -> const int8_t* {
+            if (kind == kW13) {
+                const int j = gi * 8 + (r & 7);
+                return j < N ? W + ((long long)(r >> 3) * N + j) * K : nullptr;
+            }
+            const int n = gi * kRowsU + r;
+            return n < N ? W + (long long)n * K : nullptr;
+        };
+        // position i of this phase into its stage (warp 0), as issue
+        auto refill = [&](int i) {
+            if (i >= st1 || !vec) {
+                issue(i);
+                return;
+            }
+            const int u = u0p + (i - st0), gi = u / nch, c = u % nch;
+            const int s = (q0 + i) % kStagesU;
+            unsigned char* st = stage + s * stage_bytes(NT);
+            uint64_t* bar = full + s;
+            const int k0 = c * kChunkU, bytes = min(kChunkU, K - k0);
+            const int rows = kind == kW13 ? 2 * min(8, N - gi * 8) : min(kRowsU, N - gi * kRowsU);
+            if (lane == 0) mbar_expect_tx(bar, static_cast<unsigned>((rows + B) * bytes));
+            __syncwarp();
+            if (lane < kRowsU) {
+                const int8_t* row = wrow(gi, lane);
+                if (row != nullptr) bulk_g2s(st + lane * kPitchU, row + k0, bytes, bar);
+            } else if (lane - kRowsU < B) {
+                const int b = lane - kRowsU;
+                bulk_g2s(st + (kRowsU + b) * kPitchU, X + (long long)b * K + k0, bytes, bar);
+            }
+            if (B > 16 && lane < B - 16)
+                bulk_g2s(st + (kRowsU + 16 + lane) * kPitchU, X + (long long)(16 + lane) * K + k0,
+                         bytes, bar);
+        };
+        int acc[NT][4];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[t][e] = 0;
+        int gi = u0p / nch, c = u0p % nch, c0 = c;
+#pragma unroll 1
+        for (int u = u0p; u < u1p; ++u) {
+            const int i = st0 + (u - u0p), q = q0 + i, s = q % kStagesU;
+            const int kw = c * kChunkU + warp * kWarpK;  // the warp's first byte of K
+            const bool ok0 = wrow(gi, g) != nullptr;
+            const bool ok1 = wrow(gi, g + 8) != nullptr;
+            mbar_wait_bounded(full + s, (q / kStagesU) & 1);
+            const unsigned char* st = stage + s * stage_bytes(NT) + warp * kWarpK + t4 * 16;
+            const unsigned char* sx = st + kRowsU * kPitchU;
+#pragma unroll
+            for (int h = 0; h < kPieces; ++h) {
+                const bool in = kw + h * 64 + t4 * 16 < K;
+                const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+                const uint4 r0 =
+                    ok0 && in ? *reinterpret_cast<const uint4*>(st + g * kPitchU + h * 64) : zero;
+                const uint4 r1 = ok1 && in
+                                     ? *reinterpret_cast<const uint4*>(st + (g + 8) * kPitchU + h * 64)
+                                     : zero;
+                const unsigned a0[4] = {r0.x, r1.x, r0.y, r1.y};
+                const unsigned a1[4] = {r0.z, r1.z, r0.w, r1.w};
+#pragma unroll
+                for (int t = 0; t < NT; ++t) {
+                    const int b = t * 8 + g;
+                    const uint4 xv = b < B && in
+                                         ? *reinterpret_cast<const uint4*>(sx + b * kPitchU + h * 64)
+                                         : zero;
+                    const unsigned b0[2] = {xv.x, xv.y};
+                    const unsigned b1[2] = {xv.z, xv.w};
+                    fd::mma_s8(acc[t], a0, b0);
+                    fd::mma_s8(acc[t], a1, b1);
+                }
+            }
+            const bool end = c == nch - 1 || u + 1 == u1p;
+            if (end) {
+#pragma unroll
+                for (int t = 0; t < NT; ++t)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) red[warp][lane][t * 4 + e] = acc[t][e];
+                __syncthreads();
+                if (warp == 0) {
+                    int tot[NT][4];
+#pragma unroll
+                    for (int t = 0; t < NT; ++t)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            int v = 0;
+#pragma unroll
+                            for (int w = 0; w < kWarps; ++w) v += red[w][lane][t * 4 + e];
+                            tot[t][e] = v;
+                        }
+                    finish(P, gi, c0, c + 1, tot);
+                }
+#pragma unroll
+                for (int t = 0; t < NT; ++t)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[t][e] = 0;
+            }
+            __syncthreads();  // every warp is done with stage s (and the partials)
+            if (warp == 0) refill(i + kStagesU);
+            if (i + kStagesU + 1 > issued) issued = i + kStagesU + 1;
+            if (c == nch - 1) {
+                c = c0 = 0;
+                ++gi;
+            } else {
+                ++c;
+            }
+        }
+    }
+};
+
+// Row slice [n * blk / NB, n * (blk + 1) / NB) of h2 [B, H] quantized
+// with each row's scale (K2's quant of h2, the max known) into xq3.
+__device__ __forceinline__ void quant_h2_slice(const fd::Linear& a, const Flow* fl) {
+    const long long n = static_cast<long long>(a.B) * a.H;
+    const long long e0 = n * blockIdx.x / gridDim.x, e1 = n * (blockIdx.x + 1) / gridDim.x;
+    for (long long e = e0 + threadIdx.x; e < e1; e += kThreads) {
+        const int b = static_cast<int>(e / a.H);
+        const float inv = quant_inv(quant_scale(__uint_as_float(__ldcg(fl->amax3 + b))));
+        a.xq3[e] = quant_i8(__ldcg(a.h2 + e), inv);
+    }
+}
+
+// Layer l's phases A-D (A-C on the last layer) with their boundaries;
+// *q is the ring's use count, carried from layer to layer of a launch.
+template <int NT>
+__device__ __noinline__ void layer_phases(const LayerShared& S, unsigned char* smem, int* q) {
+    __shared__ int red[kWarps][32][4 * NT];
+    FD_STAMP(19);
+    const fd::Linear& a = S.lin;
+    const unsigned B = static_cast<unsigned>(a.B);
+    Flow* fl = S.flow;
+    LayerRun<NT> run{S, smem, ring_barriers(), red, *q, S.wait_a != nullptr ? -1 : 0,
+                     static_cast<int>(threadIdx.x & 31), static_cast<int>((threadIdx.x & 31) >> 2),
+                     static_cast<int>(threadIdx.x & 3), static_cast<int>(threadIdx.x >> 5)};
+    fence_proxy_async();  // the cells' shared-memory writes before the ring's copies
+    __syncthreads();
+    int issued = kStagesU;
+    if (run.warp == 0)
+        for (int i = 0; i < kStagesU; ++i) run.issue(i);
+    // A: x_next = x + (f32(attq . wo) * satt) * wo_s
+    if (S.wait_a != nullptr) {
+        wait_geq(S.wait_a->rows + 2, B);
+        run.make_ready(0, issued);
+    }
+    FD_STAMP(0);
+    run.phase(kWo, issued);
+    FD_STAMP(1);
+    if (blockIdx.x < B) {
+        wait_geq(fl->done + kWo, S.ph[kWo].groups);
+        FD_STAMP(14);
+        rms_row(a, a.rms_ffn, blockIdx.x);
+        FD_STAMP(15);
+        count_up(fl->rows + 0);
+    }
+    FD_STAMP(2);
+    // B: h2 = bf16(silu(gate) * up), max |h2| per row
+    wait_geq(fl->rows + 0, B);
+    run.make_ready(1, issued);
+    FD_STAMP(3);
+    run.phase(kW13, issued);
+    FD_STAMP(4);
+    // C: x_next += (f32(xq3 . w2) * s3) * w2_s: every block quantizes a slice
+    // of h2 once phase B is done
+    wait_geq(fl->done + kW13, S.ph[kW13].groups);
+    quant_h2_slice(a, fl);
+    count_up(&fl->xq3);
+    wait_geq(&fl->xq3, gridDim.x);
+    run.make_ready(2, issued);
+    FD_STAMP(5);
+    run.phase(kW2, issued);
+    FD_STAMP(6);
+    if (!a.last) {
+        if (blockIdx.x < B) {
+            wait_geq(fl->done + kW2, S.ph[kW2].groups);
+            FD_STAMP(16);
+            rms_row(a, a.rms_att, blockIdx.x);
+            FD_STAMP(17);
+            count_up(fl->rows + 1);
+        }
+        FD_STAMP(7);
+        // D: qkv = (f32(xq . wqkv) * sx) * qkv_s, layer l + 1
+        wait_geq(fl->rows + 1, B);
+        run.make_ready(3, issued);
+        FD_STAMP(8);
+        run.phase(kQkv, issued);
+        FD_STAMP(9);
+    }
+    *q = run.q0 + S.start[S.np];
+}
+
+// The whole layer: a K12 launch's work, or one half of K26's.
+struct Step2 {
+    Layer lay;           // lay.lin.qkv is scratch [B, QO]: layer l + 1's raw q/k/v
+    const int8_t* kc;    // [L, B, KVH, S, hd] int8 cache
+    const int8_t* vc;
+    const float* kcs;    // [L, B, KVH, S] scales
+    const float* vcs;
+    const int* pos;      // [B]
+    const float* cosr;   // [B, hd/2] at each slot's position
+    const float* sinr;
+    float* att;          // [B, D] scratch: the cells' outputs
+    int8_t* attq_next;   // [B, D]
+    float* satt_next;    // [B]
+    int8_t* kq;          // [B, KVH, hd] the fresh rows of layer l + 1
+    float* ks;           // [B, KVH]
+    int8_t* vq;
+    float* vs;
+    float* cws;          // the cells' split partials [B * KVH * splits * (G * hd + 2 G)]
+    int* cticket;        // [B * KVH] their tickets, zero between launches
+    int KVH, G, hd, S, layer, TS, splits, nt;  // layer: l + 1; nt: the cells' ring tiles
+    float isqrt;         // f32(1 / sqrt(f32(hd)))
+};
+
+// The trailing attention of layer l + 1: items (slot b, kv head h, split)
+// grid-stride, each building its q rows and the fresh K / V rows from qkv
+// (every split of a cell writes the same fresh rows), then the split cell;
+// then blocks b < B quantize row b of the attention output.
+template <int CH>
+__device__ __noinline__ void layer_cells(const Step2& a, unsigned char* smem) {
+    __shared__ float red[kThreads / 32];
+    const fd::Linear& lin = a.lay.lin;
+    Flow* fl = a.lay.flow;
+    const int B = lin.B, D = lin.D, QO = lin.QO, KVH = a.KVH, G = a.G, hd = a.hd;
+    const int P = dec_pitch<int8_t>(hd), hp = hd / 2, tid = threadIdx.x;
+    const int items = B * KVH * a.splits;
+    const int blocks = (a.S + a.TS - 1) / a.TS;
+    // item k: split splits - 1 - k / (B KVH) of cell k % (B KVH) -- the last
+    // splits first, which only the longest slots reach, and the slots
+    // fastest, so that the live items of a few long slots spread evenly over
+    // the blocks, which take items grid-stride and skip, with no memory
+    // round trip, a split whose span starts past its slot's rows (`live`
+    // splits of a cell take part)
+    auto cell_of = [&](int item, int& b, int& h, int& sp, int& p, long long& row0, int& live) {
+        const int cells = B * KVH, cell = item % cells;
+        sp = a.splits - 1 - item / cells;
+        b = cell % B;
+        h = cell / B;
+        p = min(max(a.pos[b], 0), a.S);
+        row0 = (((long long)a.layer * B + b) * KVH + h) * a.S;
+        const int nb = (p + a.TS - 1) / a.TS;
+        live = 1;
+        while (live < a.splits &&
+               static_cast<int>(static_cast<long long>(live) * blocks / a.splits) < nb)
+            ++live;
+    };
+    // the first live item's first key rows into L2 while phase D finishes
+    int item = blockIdx.x;
+    {
+        int b, h, sp, p, live;
+        long long row0;
+        for (; item < items; item += gridDim.x) {
+            cell_of(item, b, h, sp, p, row0, live);
+            if (sp < live) break;
+        }
+        if (item < items) {
+            const int j0 = static_cast<int>(static_cast<long long>(sp) * blocks / a.splits);
+            const int r0 = j0 * a.TS, rows = min(a.TS, p - r0);
+            for (int r = tid; r < rows; r += kThreads) {
+                prefetch_l2(a.kc + (row0 + r0 + r) * hd);
+                prefetch_l2(a.vc + (row0 + r0 + r) * hd);
+            }
+            if (tid == 0 && rows > 0) {
+                prefetch_l2(a.kcs + row0 + r0);
+                prefetch_l2(a.vcs + row0 + r0);
+            }
+        }
+    }
+    wait_geq(fl->done + kQkv, a.lay.ph[kQkv].groups);  // layer l + 1's qkv is complete
+    FD_STAMP(10);
+    for (; item < items; item += gridDim.x) {
+        int b, h, sp, p, live;
+        long long row0;
+        cell_of(item, b, h, sp, p, row0, live);
+        if (sp >= live) continue;
+        const long long bh = (long long)b * KVH + h;
+        const float* row = lin.qkv + (long long)b * QO;
+        const float* cs = a.cosr + (long long)b * hp;
+        const float* sn = a.sinr + (long long)b * hp;
+        // the fresh K (roped) and V rows of head h, one element per thread
+        float rk = 0.f, rv = 0.f;
+        if (tid < hd) {
+            const float* kh = row + D + (long long)h * hd;
+            float r0, r1;
+            rope_pair(__ldcg(kh + (tid & ~1)), __ldcg(kh + (tid | 1)), cs[tid >> 1],
+                      sn[tid >> 1], r0, r1);
+            rk = tid & 1 ? r1 : r0;
+            rv = __ldcg(row + D + KVH * hd + (long long)h * hd + tid);
+        }
+        const float ksc = quant_scale(block_max<kThreads>(fabsf(rk), red));
+        const float vsc = quant_scale(block_max<kThreads>(fabsf(rv), red));
+        int8_t* kqr = a.kq + bh * hd;
+        int8_t* vqr = a.vq + bh * hd;
+        if (tid < hd) {
+            kqr[tid] = quant_i8(rk, quant_inv(ksc));
+            vqr[tid] = quant_i8(rv, quant_inv(vsc));
+        }
+        if (tid == 0) {
+            a.ks[bh] = ksc;
+            a.vs[bh] = vsc;
+        }
+        __syncthreads();  // the fresh rows are written for the whole block
+        // the G query rows of kv head h: roped, scaled, rounded to bf16 --
+        // the rows of the cache's scores AND of the fresh column's
+        auto fill_q = [&](float* qf, float* qb) {
+            for (int e = tid; e < G * P; e += kThreads) {
+                const int gq = e / P, d = e % P;
+                float v = 0.f;
+                if (d < hd) {
+                    const float* xh = row + (long long)(h * G + gq) * hd;
+                    float r0, r1;
+                    rope_pair(__ldcg(xh + (d & ~1)), __ldcg(xh + (d | 1)), cs[d >> 1],
+                              sn[d >> 1], r0, r1);
+                    v = round_bf16(__fmul_rn(d & 1 ? r1 : r0, a.isqrt));
+                }
+                qf[e] = v;
+                qb[e] = v;
+            }
+        };
+        const bool wrote = split_cell<int8_t, CH>(
+            smem, a.nt, sp, fill_q, a.kc + row0 * hd, a.vc + row0 * hd, a.kcs + row0,
+            a.vcs + row0, p, a.S, a.TS, G, hd, a.splits, live, kqr, ksc, vqr, vsc,
+            a.att + bh * G * hd,
+            a.splits > 1 ? a.cws + bh * a.splits * (G * hd + 2 * G) : nullptr,
+            a.splits > 1 ? a.cticket + bh : nullptr, DecDenseRows{a.TS});
+        if (wrote) {
+            count_up(&fl->cells);
+        } else {
+            __syncthreads();  // shared memory is free for the next item
+        }
+    }
+    FD_STAMP(11);
+    if (blockIdx.x < B) {
+        wait_geq(&fl->cells, static_cast<unsigned>(B * KVH));
+        FD_STAMP(18);
+        quant_row(a.att + (long long)blockIdx.x * D, D, a.attq_next + (long long)blockIdx.x * D,
+                  a.satt_next + blockIdx.x);
+        count_up(fl->rows + 2);
+    }
+    FD_STAMP(12);
+}
+
+template <int NT, int CH>
+__device__ __forceinline__ void step2_layer(const Step2& a, unsigned char* smem, int* q) {
+    __shared__ LayerShared S;
+    __syncthreads();  // S is free (K26: the first layer's use of it is over)
+    if (threadIdx.x == 0) fill_shared(S, a.lay);
+    __syncthreads();
+    layer_phases<NT>(S, smem, q);
+    if (!a.lay.lin.last) layer_cells<CH>(a, smem);
+}
+
+// The launch's end: the last block out sets every layer's counters and the
+// exit count back to zero for the next launch (no block waits any more).
+__device__ __forceinline__ void launch_exit(unsigned* ws) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(ws + kExitWord, 1u) == gridDim.x - 1) {
+            for (int i = 0; i < 2 * kFlowWords; ++i) ws[i] = 0u;
+            ws[kExitWord] = 0u;
+            __threadfence();
+        }
+    }
+    FD_STAMP(13);
+}
+
+// Shared memory of a K12 or K26 block: the cells' split cell (the linear
+// phases use none).  Its ring takes the most tiles (2 to kSplitTiles) that
+// keep four blocks an SM, else three, else two, else one.
+inline int cell_tiles(int TS, int P, int G) {
+    const int caps[4] = {56320, 75776, kSmemTwo, kSmemMax};  // 228 KB / n - 1 KB a block
+    for (int cap : caps)
+        for (int n = kSplitTiles; n >= 2; --n)
+            if (SplitSmem<int8_t>::bytes(n, TS, P, G) <= cap) return n;
+    return 0;
+}
+
+inline int step2_smem(const Step2& a) {
+    const int cell = SplitSmem<int8_t>::bytes(a.nt, a.TS, dec_pitch<int8_t>(a.hd), a.G);
+    const int lin = kStagesU * stage_bytes(a.lay.lin.B <= 8 ? 1 : 4);
+    return cell > lin ? cell : lin;
+}
+
+// The workspace (kept in step with ops/fused_step2.py
+// step2_workspace_words): two layers' Flows and the exit count, the tickets
+// of every phase's row groups, the int32 partials [32, D], [32, 2H], [32, D],
+// [32, QO] (room for kMaxRows rows whatever the launch's B, so the layout
+// does not move between launches), then h2 quantized, [B, H] int8.  All but
+// the last are zero between launches.
+inline int phase_groups(int kind, int D, int H, int QO) {
+    return kind == kW13 ? (H + 7) / 8 : ((kind == kQkv ? QO : D) + kRowsU - 1) / kRowsU;
+}
+
+// Fills a layer's Phases and its xq3 from its Linear and the workspace ws.
+inline void make_phases(Layer& L, unsigned* ws) {
+    fd::Linear& a = L.lin;
+    const int8_t* w[4] = {a.wo, a.w13, a.w2, a.wqkv};
+    const float* s[4] = {a.wos, a.w13s, a.w2s, a.wqkvs};
+    const int N[4] = {a.D, a.H, a.D, a.QO}, K[4] = {a.D, a.D, a.H, a.D};
+    const int nacc[4] = {a.D, 2 * a.H, a.D, a.QO};
+    unsigned* t = ws + kTicketBase;
+    int tickets = 0;
+    for (int k = 0; k < 4; ++k) tickets += phase_groups(k, a.D, a.H, a.QO);
+    int* acc = reinterpret_cast<int*>(ws + kTicketBase + (tickets + 3) / 4 * 4);
+    a.xq3 = reinterpret_cast<int8_t*>(acc + (long long)fd::kMaxRows * (2 * a.D + 2 * a.H + a.QO));
+    const int8_t* x[4] = {a.attq, a.xq, a.xq3, a.xq};
+    for (int k = 0; k < 4; ++k) {
+        Phase& p = L.ph[k];
+        p.kind = k;
+        p.w = w[k];
+        p.ws = s[k];
+        p.x = x[k];
+        p.N = N[k];
+        p.K = K[k];
+        p.groups = phase_groups(k, a.D, a.H, a.QO);
+        p.nch = (K[k] + kChunkU - 1) / kChunkU;
+        p.tickets = t;
+        p.acc = acc;
+        p.nacc = nacc[k];
+        t += p.groups;
+        acc += (long long)fd::kMaxRows * nacc[k];
+    }
+}
+
+// Checks a Step2's shapes, fills lay.lin.vec, its phases and the cells'
+// ring (nt); 0 or a cudaError_t.
+inline int make_step2(Step2& a, unsigned* ws, Flow* flow, const Flow* wait_a) {
+    if (a.G < 1 || a.G > kDecMaxG || a.hd < 2 || a.hd % 2 || a.hd > kDecMaxHd || a.TS < 1 ||
+        a.TS > 256 || a.KVH < 1 || a.lay.lin.D != a.KVH * a.G * a.hd || a.splits < 1 ||
+        a.lay.lin.QO != a.lay.lin.D + 2 * a.KVH * a.hd || ws == nullptr ||
+        (a.splits > 1 && (a.cws == nullptr || a.cticket == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (int err = fd::prepare(a.lay.lin)) return err;
+    a.nt = cell_tiles(a.TS, dec_pitch<int8_t>(a.hd), a.G);
+    if (a.nt == 0) return static_cast<int>(cudaErrorInvalidValue);
+    a.lay.ws = ws;
+    a.lay.flow = flow;
+    a.lay.wait_a = wait_a;
+    make_phases(a.lay, ws);
+    return 0;
+}
+
+}  // namespace f2

@@ -70,8 +70,6 @@ SOURCES = {
     # xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
     "fused_layer": ("tl_fused_layer_linear",
                     [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I, _P]),
-    # the above, then k, v, ks, vs, pos, cos, sin, att, attq_next, satt_next, kq, ks_new,
-    # vq, vs_new, KVH, G, hd, S, layer_next, TS, 1/sqrt(hd), copy chunk, stream
     # q, q dtype, k, v, ks, vs, page_table, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, P,
     # ps, MP, hd, TS (K20: ring tile rows), splits, sqrt(hd), copy chunk, split workspace,
     # tickets, stream
@@ -95,16 +93,19 @@ SOURCES = {
     # Tc, NH, KVH, P, ps, MP, past pages, hd, sqrt(hd), stream
     "paged_flash_prefill": ("tl_paged_flash_prefill",
                             [_P, _I, *[_P] * 11, *[_I] * 11, ctypes.c_float, _P]),
+    # x, attq, satt, 4 x (weights, scales), rms_ffn, rms_att, rms dtype, x_next, qkv, xq,
+    # sx, h2, workspace, B, D, H, QO, last, k, v, ks, vs, pos, cos, sin, att, attq_next,
+    # satt_next, kq, ks_new, vq, vs_new, split partials, split tickets, KVH, G, hd, S,
+    # layer_next, TS, splits, 1/sqrt(hd), copy chunk, stream
     "fused_step2": ("tl_fused_step2_layer",
-                    [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
-                     *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]),
+                    [*[_P] * 13, _I, *[_P] * 6, *[_I] * 5, *[_P] * 16, *[_I] * 7,
+                     ctypes.c_float, _I, _P]),
     # fused_step2's arguments for layer l0 (without the stream), then layer l0 + 1's wo,
     # wo_s, w13, w13_s, w2, w2_s, layer l0 + 2's wqkv, wqkv_s, rms_ffn2, rms_att2, x_out,
     # attq_out, satt_out, kq2, ks2, vq2, vs2, last2, layer2, K12's blocks per SM, stream
     "fused_step3": ("tl_fused_step3_pair",
-                    [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I,
-                     *[_P] * 14, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-                     *[_P] * 17, _I, _I, _I, _P]),
+                    [*[_P] * 13, _I, *[_P] * 6, *[_I] * 5, *[_P] * 16, *[_I] * 7,
+                     ctypes.c_float, _I, *[_P] * 17, _I, _I, _I, _P]),
     # q, nk, nv, nks, nvs, k, v, ks, vs, pos, att, attq, satt, KVH, G, hd, S, layer, TS,
     # sqrt(hd), copy chunk, then x, 4 x (weights, scales), rms_ffn, rms_att, rms dtype,
     # x_next, qkv, xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
@@ -262,15 +263,30 @@ def build(names=None) -> dict[str, str]:
 def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SOURCES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.tl_error_string.argtypes = [ctypes.c_int]
-        lib.tl_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = open_lib(name, _lib_path(name))
     return _libs[name]
+
+
+def open_lib(name: str, path: Path) -> ctypes.CDLL:
+    """Load the library at ``path`` built from source ``name`` with its entry
+    point's argument types (a development build of it too)."""
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = SOURCES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.tl_error_string.argtypes = [ctypes.c_int]
+    lib.tl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load(names) -> None:
+    """Build and load the named sources only (a script that needs a few
+    kernels need not build them all)."""
+    build(names)
+    for n in names:
+        if n not in _libs:
+            _libs[n] = open_lib(n, _lib_path(n))
 
 
 def launch(kernel: str, *args) -> None:
@@ -291,7 +307,7 @@ _K12_RESIDENCY: dict[tuple, int] = {}
 def k12_residency(B: int, G: int, hd: int, ts: int, ch: int) -> int:
     """The blocks of K12 that one SM keeps resident for a launch of these
     shapes (``tl_fused_step2_residency``): K26 runs on K12's grid."""
-    key = (B <= 16, G, hd, ts, ch)
+    key = (B <= 8, G, hd, ts, ch)
     if key not in _K12_RESIDENCY:
         fn = _lib(KERNELS["K12"]).tl_fused_step2_residency
         fn.argtypes = [_I] * 5 + [_P]

@@ -60,7 +60,14 @@ rule splits) with the two-launch decode (K11 + K9, ``fused=True``), mega2
 (one K9 launch) and on the paged layout (two-launch, K13); all 8 slots at
 position 512 on the paged layout (K13, one split) and on the dense f32 and
 Q8_0 paths (K9's fp forms, one split); each timed three times, then
-traced, with K9's or K13's device ms per step.
+traced, with K9's or K13's device ms per step.  ``--mega-steps`` runs (h)
+alone: the mega2 (K12) and mega3 (K26) decode steps of an 8-slot engine at
+position 512 and a one-slot engine at position 2000, timed and traced as
+(g), with K12's or K26's device ms per step, then K12 and K26 alone at
+PERF.md's table shapes (events and trace); it calls only the engine's and
+the wrappers' public signatures, so ``PYTHONPATH=<other checkout> python3
+tpu_llama_torch/profile_serving.py --mega-steps`` times another checkout's
+package with this script.
 """
 
 from __future__ import annotations
@@ -156,6 +163,8 @@ def main(argv=None) -> None:
                     help="run section (d) alone: the dense f32 and Q8_0 paths")
     ap.add_argument("--decode-only", action="store_true",
                     help="run section (g) alone: the decode steps of K9's and K13's split cell")
+    ap.add_argument("--mega-steps", action="store_true",
+                    help="run section (h) alone: the mega2 and mega3 decode steps (K12, K26)")
     args = ap.parse_args(argv)
     fp_only = args.fp_only
     if not torch.cuda.is_available():
@@ -166,6 +175,9 @@ def main(argv=None) -> None:
     cfg = LLAMA2_7B
     if args.decode_only:
         decode_steps(cfg, smi)
+        return
+    if args.mega_steps:
+        mega_steps(cfg, smi)
         return
     rng = np.random.default_rng(0)
     prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
@@ -376,52 +388,144 @@ def main(argv=None) -> None:
                           layers=cfg.n_layers, card=smi)))
 
 
-def decode_steps(cfg, smi: str) -> None:
-    """Section (g): one decode step per call of each engine below, timed
-    REPS times after a warm call, then traced; K9's and K13's device ms and
-    launches per step beside the step's device and host ms."""
+def measure_step(name: str, eng, pos: int, smi: str, **extra) -> None:
+    """One decode step per call of ``eng`` (all its slots at ``pos``, the
+    cache as allocated: a step's time does not depend on the values it
+    reads), timed REPS times after a warm call, then traced: prints the
+    step's host and device ms, its launches and the device ms of the decode
+    attention (K9, K13) and of the fused layer kernels (K12, K26)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_llama_torch.ops import _kernels
+
+    toks = np.random.default_rng(0).integers(3, eng.config.vocab_size, eng.max_batch)
+    b = eng.max_batch
+
+    def step():
+        eng.decode(toks[:b], np.full(b, pos))
+
+    step()
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    step()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    walls = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    line = summarize(name, prof, statistics.median(walls) / 1e3, traced_wall, smi)
+    dev = line["device_ms"]
+    line.update(batch=b, pos=pos, attn=eng.decode_attn, fused=eng.decode_fused,
+                wall_ms_reps=walls, launches=launches,
+                attention_ms={k: dev.get(k, 0.0) for k in ("K9", "K13")},
+                fused_ms={k: dev.get(k, 0.0) for k in ("K12", "K26")}, **extra)
+    print(json.dumps(line), flush=True)
+
+
+def mega_steps(cfg, smi: str) -> None:
+    """Section (h): the mega2 (K12) and mega3 (K26) decode steps of an
+    8-slot engine at position 512 and a one-slot engine at position 2000,
+    each measured as ``measure_step`` does.  Uses only the engine's public
+    calls, so the same script can time another checkout's package (its
+    directory first on PYTHONPATH)."""
+    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.runtime import Engine
+
+    params = random_quant_params(cfg, seed=0, fuse=True)
+    for b, pos in ((8, 512), (1, 2000)):
+        eng = Engine(params, cfg, max_batch=b, kv_dtype="int8", seq_len=2048)
+        for mode in ("mega2", "mega3"):
+            eng.decode_fused = mode
+            measure_step(f"decode_b{b}_pos{pos}_fused_{mode}", eng, pos, smi)
+        del eng
+        torch.cuda.empty_cache()
+    fused_kernels(cfg, params.layers, smi)
+
+
+K12_SHAPES = ((8, [0, 1, 127, 128, 511, 1000, 1900, 2047], 17), (1, [511], 17), (1, [2047], 17),
+              (8, [0, 1, 127, 128, 511, 1000, 1900, 2047], 31))
+
+
+def fused_kernels(cfg, layers, smi: str) -> None:
+    """K12 and K26 alone at PERF.md's table shapes (K12 on layer 17, or the
+    last layer; K26 on the pair (16, 17), or the last pair), through the
+    public wrappers with their default splits, on the engine's weights and a
+    random cache: CUDA events over back-to-back calls that rotate through
+    the layers (the weights come cold from device memory) and the trace's
+    device ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_llama_torch.ops.fused_step2 import fused_step2_layer
+    from tpu_llama_torch.ops.fused_step3 import fused_step3_pair
+
+    L, D, KVH, hd, S = cfg.n_layers, cfg.dim, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ws = (layers.wo, layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att)
+
+    def timed(fn, n):
+        fn(0)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(n):
+            fn(i)
+        b.record()
+        torch.cuda.synchronize()
+        ev = a.elapsed_time(b) / n
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        dev = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+        return ev, dev
+
+    for B, pos, layer in K12_SHAPES:
+        cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(L, B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+                  for _ in range(2)]
+        ang = torch.rand(B, hd // 2, generator=gen, device="cuda") * 6.3
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        attq = torch.randint(-127, 128, (B, D), generator=gen, device="cuda", dtype=torch.int8)
+        satt = torch.rand(B, generator=gen, device="cuda") * 0.02 + 0.005
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        rest = (*cache, *scales, pt, ang.cos(), ang.sin(), *ws)
+        last = layer == L - 1
+        k12_layers = [layer] if last else [(layer + i) % (L - 1) for i in range(8)]
+        pairs = [L - 2] if last else [2 * ((8 + i) % (L // 2 - 1)) for i in range(8)]
+        k12 = timed(lambda i: fused_step2_layer(x, attq, satt, *rest, k12_layers[i % len(k12_layers)],
+                                                L, cfg.n_heads), 20)
+        k26 = timed(lambda i: fused_step3_pair(x, attq, satt, *rest, pairs[i % len(pairs)], L,
+                                               cfg.n_heads), 10)
+        print(json.dumps(dict(phase="fused_kernels", batch=B, pos=pos[0] if B == 1 else "mix",
+                              layer=layer, k12_events_ms=k12[0], k12_device_ms=k12[1],
+                              k26_events_ms=k26[0], k26_device_ms=k26[1], card=smi)), flush=True)
+        del cache, scales, rest
+        torch.cuda.empty_cache()
+
+
+def decode_steps(cfg, smi: str) -> None:
+    """Section (g): one decode step per call of each engine below, timed
+    REPS times after a warm call, then traced (``measure_step``)."""
     from tpu_llama_torch.models.llama import (
         fuse_projections,
         quantize_params,
         random_params,
         random_quant_params,
     )
-    from tpu_llama_torch.ops import _kernels
     from tpu_llama_torch.runtime import Engine
 
-    toks = np.random.default_rng(0).integers(3, cfg.vocab_size, 8)
-
     def measure(name, eng, pos, **extra):
-        b = eng.max_batch
-
-        def step():
-            eng.decode(toks[:b], np.full(b, pos))
-
-        step()
-        torch.cuda.synchronize()
-        _kernels.reset_counts()
-        step()
-        torch.cuda.synchronize()
-        launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
-        walls = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            traced_wall = time.perf_counter() - t0
-        line = summarize(name, prof, statistics.median(walls) / 1e3, traced_wall, smi)
-        dev = line["device_ms"]
-        line.update(batch=b, pos=pos, attn=eng.decode_attn, fused=eng.decode_fused,
-                    wall_ms_reps=walls, launches=launches,
-                    attention_ms={k: dev.get(k, 0.0) for k in ("K9", "K13")}, **extra)
-        print(json.dumps(line), flush=True)
+        measure_step(name, eng, pos, smi, **extra)
 
     params = random_quant_params(cfg, seed=0, fuse=True)
     one = Engine(params, cfg, max_batch=1, kv_dtype="int8", seq_len=2048)
