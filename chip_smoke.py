@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
    from M 16 up to the admission's 4096, also with its residual epilogue, and
    at M 1000 and 2048 on the fused layer's products, each row with its share
    of the int8 peak; K2 row
-   quant, K3 rmsnorm+quant, K4 silu*up+quant, K5 rope+split+KV quant, K6
+   quant and K3 rmsnorm+quant (at the admission's 4096 rows, a chunk's 2048
+   and a decode step's 8), K4 silu*up+quant, K5 rope+split+KV quant, K6
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
    attention, K10 row flush, K18 chunk write; K8 stacked-weight product,
    K11 fused decode layer, K12 mega2 layer with the next layer's attention;
@@ -499,23 +500,36 @@ def _quant_result(kernel, label, reading, ms, plain_ms, nbytes, ops):
 
 
 def check_k3(torch, tq, results):
-    """K3 on the 8 x 512 admission's rows: bf16 x [4096, 4096], bf16 w."""
+    """K3 as the main path runs it: the 8 x 512 admission's rows, bf16 x
+    [4096, 4096] with bf16 w; a 256-row chunk of 8 slots, bf16 [2048,
+    4096]; a decode step's 8 rows, bf16 [8, 4096], and as mega2's prologue
+    runs them, f32 x [8, 4096] (the f32 embedding rows) with bf16 w.  w is
+    random around 1 (the served weights' norms are not all ones).  Trace
+    device ms beside the events, as K2's."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    m, n = 4096, 4096
-    copies = n_copies(2 * m * n)
-    xs = [(torch.randn(m, n, generator=gen, device="cuda") * 2).to(torch.bfloat16)
-          for _ in range(copies)]
+    n = 4096
     w = (1 + 0.2 * torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16)
-    label = f"K3 rmsnorm_quantize bf16 [{m}, {n}]"
-    got = tq.rmsnorm_quantize(xs[0], w)
-    torch.cuda.synchronize()
-    reading = _quant_reading(torch, label, [(got, tq.rmsnorm_quantize_plain(xs[0], w))])
-    ms = cuda_ms(torch, lambda i: tq.rmsnorm_quantize(xs[i % copies], w), 50)
-    plain_ms = cuda_ms(torch, lambda i: tq.rmsnorm_quantize_plain(xs[i % copies], w), 10)
-    # ~6 f32 operations per element: square-add, two products, abs-max, scale, round
-    results.append(_quant_result("K3", label, reading, ms, plain_ms,
-                                 2 * m * n + 2 * n + m * n + 4 * m, 6 * m * n))
-    del xs
+    for m, dt in ((4096, "bf16"), (2048, "bf16"), (8, "bf16"), (8, "f32")):
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        eb = torch.empty(0, dtype=dtype).element_size()
+        copies = n_copies(eb * m * n)
+        xs = [(torch.randn(m, n, generator=gen, device="cuda") * 2).to(dtype)
+              for _ in range(copies)]
+        label = f"K3 rmsnorm_quantize {dt} [{m}, {n}], bf16 w"
+        got = tq.rmsnorm_quantize(xs[0], w)
+        torch.cuda.synchronize()
+        reading = _quant_reading(torch, label, [(got, tq.rmsnorm_quantize_plain(xs[0], w))])
+
+        def run(i, xs=xs, copies=copies):
+            return tq.rmsnorm_quantize(xs[i % copies], w)
+
+        ms = cuda_ms(torch, run, 50)
+        plain_ms = cuda_ms(torch, lambda i: tq.rmsnorm_quantize_plain(xs[i % copies], w), 10)
+        # ~6 f32 operations per element: square-add, two products, abs-max, scale, round
+        results.append(dict(_quant_result("K3", label, reading, ms, plain_ms,
+                                          eb * m * n + 2 * n + m * n + 4 * m, 6 * m * n),
+                            device_ms=device_ms(torch, run)))
+        del xs
 
 
 def check_k4(torch, tq, results):
@@ -585,24 +599,37 @@ def check_k5(torch, tq, results):
 
 
 def check_k2(torch, tq, results):
+    """K2 on the admission's wo input bf16 [4096, 4096] and the unfused
+    w2 input [4096, 11008], a 256-row chunk of 8 slots [2048, 4096], a
+    decode step's 8 rows bf16 [8, 4096], and as mega2 runs it (its two
+    launches a step on the f32 attention rows) f32 [8, 4096]; bit-equal.
+    Each row's trace device ms beside its events (which, on a slow host,
+    read the wrapper's launch path at these shapes)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    m = 4096
-    for n in (4096, 11008):
-        copies = n_copies(2 * m * n)
-        xs = [torch.randn(m, n, generator=gen, device="cuda").mul_(2).to(torch.bfloat16)
+    for m, n, dt in ((4096, 4096, "bf16"), (4096, 11008, "bf16"), (2048, 4096, "bf16"),
+                     (8, 4096, "bf16"), (8, 4096, "f32")):
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        eb = torch.empty(0, dtype=dtype).element_size()
+        copies = n_copies(eb * m * n)
+        xs = [torch.randn(m, n, generator=gen, device="cuda").mul_(2).to(dtype)
               for _ in range(copies)]
+        label = f"K2 quantize_rows {dt} [{m}, {n}]"
         q, s = tq.quantize_activations(xs[0])
         torch.cuda.synchronize()
         qp, sp = tq.quantize_activations_plain(xs[0])
         err = max((q.int() - qp.int()).abs().max().item(), (s - sp).abs().max().item())
-        check(torch.equal(q, qp) and torch.equal(s, sp), f"K2 [{m}, {n}]: max err {err}")
-        ms = cuda_ms(torch, lambda i: tq.quantize_activations(xs[i % copies]), 50)
+        check(torch.equal(q, qp) and torch.equal(s, sp), f"{label}: max err {err}")
+
+        def run(i, xs=xs, copies=copies):
+            return tq.quantize_activations(xs[i % copies])
+
+        ms = cuda_ms(torch, run, 50)
         plain_ms = cuda_ms(torch, lambda i: tq.quantize_activations_plain(xs[i % copies]),
                            10)
-        b_ms, by = bound_ms(2 * m * n + m * n + 4 * m, 4 * m * n, "f32")
-        results.append(dict(kernel="K2", name=f"K2 quantize_rows bf16 [{m}, {n}]",
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=by, library_ms=None))
+        b_ms, by = bound_ms(eb * m * n + m * n + 4 * m, 4 * m * n, "f32")
+        results.append(dict(kernel="K2", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=by, library_ms=None,
+                            device_ms=device_ms(torch, run)))
         del xs
 
 

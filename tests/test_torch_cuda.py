@@ -55,17 +55,49 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-@pytest.mark.parametrize("m,n", [(1, 7), (5, 4096), (33, 11008), (3, 100), (64, 4096)])
+# K2's and K3's edges (csrc/row_quant.cuh): one warp a row up to 4096 rows
+# at N 4096, rows split over the warps of a block (11008, 12000), a few rows
+# (whole blocks a row), bf16 rows that load as vectors while the int8 rows
+# are not 16-byte aligned (4104), rows that load element by element (7,
+# 100, and x at an odd storage offset: offset 1).  Row 0 is zero; the last
+# row holds its absmax twice (with both signs); K2's row 1 (m > 2) has
+# scale 1 and values on .5 ties, which round half to even.
+RQ_CASES = [(1, 7, 0), (5, 4096, 0), (33, 11008, 0), (3, 100, 0), (64, 4096, 0),
+            (1, 4096, 0), (8, 4096, 0), (32, 4096, 0), (1000, 4096, 0), (2048, 4096, 0),
+            (4096, 4096, 0), (1, 11008, 0), (5, 12000, 0), (3, 4104, 0), (4096, 4104, 0),
+            (1, 100, 0), (5, 4096, 1), (3, 100, 1), (33, 11008, 1)]
+
+
+def _rq_rows(m, n, dtype, offset, seed, ties=False):
+    g = _gen(seed)
+    base = torch.randn(m * n + offset, generator=g, device="cuda") * 3
+    if m > 1:
+        row = base[offset + (m - 1) * n:offset + m * n]
+        peak = row.abs().max() + 1
+        row[n // 3], row[-1] = -peak, peak
+    base[offset:offset + n] = 0
+    if ties and m > 2:
+        vals = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5, 3.5, -3.5],
+                            device="cuda")
+        base[offset + n:offset + n + min(n, 10)] = vals[:min(n, 10)]
+        base[offset + n + min(n, 10):offset + 2 * n] = 0.25
+    x = base.to(dtype)[offset:].view(m, n)
+    assert offset == 0 or x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("m,n,offset", RQ_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_exact(card, m, n, dtype):
-    x = (torch.randn(m, n, generator=_gen(m * n), device=card) * 3).to(dtype)
-    x[0] = 0
+def test_k2_exact(card, m, n, offset, dtype):
+    x = _rq_rows(m, n, dtype, offset, m * n, ties=True)
     before = _kernels.LAUNCHES["K2"]
     q, s = tq.quantize_activations(x)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["K2"] == before + 1
     qp, sp = tq.quantize_activations_plain(x)
     assert torch.equal(q, qp) and torch.equal(s, sp)
+    if m > 2 and n >= 10:
+        assert s[1] == 1 and q[1, :10].tolist() == [127, 0, 2, 2, 0, -2, 126, -126, 4, -4][:n]
 
 
 # K1's tile edges: the decode tile up to 16 rows; above, the wgmma tile's
@@ -126,19 +158,37 @@ def _quant_close(q, qp, s, sp):
     torch.testing.assert_close(s, sp, rtol=2.0 ** -21, atol=0)
 
 
-@pytest.mark.parametrize("m,n", [(1, 7), (5, 4096), (33, 11008), (3, 100), (64, 12000)])
+@pytest.mark.parametrize("m,n,offset", RQ_CASES + [(64, 12000, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_close(card, m, n, dtype):
-    g = _gen(m * n + 3)
-    x = (torch.randn(m, n, generator=g, device=card) * 3).to(dtype)
-    x[0] = 0
-    w = (1 + 0.2 * torch.randn(n, generator=g, device=card)).to(dtype)
+def test_k3_close(card, m, n, offset, dtype):
+    x = _rq_rows(m, n, dtype, offset, m * n + 3)
+    w = (1 + 0.2 * torch.randn(n, generator=_gen(m * n + 4), device=card)).to(dtype)
     before = _kernels.LAUNCHES["K3"]
     q, s = tq.rmsnorm_quantize(x, w)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["K3"] == before + 1
     qp, sp = tq.rmsnorm_quantize_plain(x, w)
     _quant_close(q, qp, s, sp)
+    assert s[0] == 0 and not q[0].any()
+
+
+# w in another dtype than x: mega2's prologue runs f32 x (the embedding rows)
+# with the served bf16 norm weights, whose reads take their own vector width
+@pytest.mark.parametrize("m,n,offset", RQ_CASES + [(64, 12000, 0)])
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32)])
+def test_k3_close_mixed_dtypes(card, m, n, offset, dtype, w_dtype):
+    x = _rq_rows(m, n, dtype, offset, m * n + 5)
+    w = 1 + 0.2 * torch.randn(n, generator=_gen(m * n + 6), device=card)
+    w = w.to(w_dtype)
+    assert not torch.all(w == 1)
+    before = _kernels.LAUNCHES["K3"]
+    q, s = tq.rmsnorm_quantize(x, w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K3"] == before + 1
+    qp, sp = tq.rmsnorm_quantize_plain(x, w)
+    _quant_close(q, qp, s, sp)
+    assert s[0] == 0 and not q[0].any()
 
 
 @pytest.mark.parametrize("m,h", [(1, 7), (5, 11008), (33, 256), (3, 100), (8, 12000)])

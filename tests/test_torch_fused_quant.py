@@ -88,7 +88,7 @@ def _rmsnorm_quant_numpy(x, w):
     return q, s.astype(np.float32)
 
 
-@pytest.mark.parametrize("m,n", [(8, 256), (40, 256), (8, 384), (40, 384)])
+@pytest.mark.parametrize("m,n", [(8, 256), (40, 256), (8, 384), (40, 384), (8, 4096)])
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
 def test_k3_plain_matches_pallas(m, n, dt):
     rng = np.random.default_rng(m * n)

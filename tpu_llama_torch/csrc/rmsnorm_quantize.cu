@@ -27,87 +27,63 @@
 //
 // Bound on the H100: bytes.  At the 7B prefill shape, bf16 [4096, 4096],
 // the pass must read 33.6 MB and write 16.8 MB of int8 + 16 KB of scales:
-// 15 us at 3.35 TB/s, at ~5 operations per byte.  Design: one block per row
-// reads x from device memory once, with 16-byte loads, and keeps the row as
-// f32 in shared memory (the first kCapFloats values; a longer row re-reads
-// its tail, from L2); a block reduction of the f64 sum of squares; a second
-// pass over shared memory for the absmax of xf; a third that recomputes xf
-// and writes the int8 row.  w (8 KB at 7B) stays in L1/L2 across rows.
-#include "common.cuh"
+// 15 us at 3.35 TB/s, at ~5 operations per byte.  Design: row_quant.cuh's
+// stream -- each row read once into the registers of a team of warps, the
+// f64 sum of squares and then the absmax of xf shuffle reductions over
+// those registers, the int8 written from them (bf16 rows in 16-byte
+// stores), one row a team (ops/quant.py rq_plan).  xf is formed from the
+// registers in the absmax pass and again in the quant pass (two rounded
+// products an element): holding it as f32 doubles a bf16 row's registers,
+// and measured slower (PERF.md section 6).  w (8 KB at 7B) is
+// copied once per block into shared memory.
+#include "row_quant.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCapFloats = 11264;  // 44 KB: under the 48 KB a block gets without opting in
-
-template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, typename W, int TW>
+__global__ void __launch_bounds__(kRqThreads, kRqBlocksPerSm)
 rmsnorm_quantize_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                        int8_t* __restrict__ q, float* __restrict__ s, long long N,
-                        int cap, int vec) {
-    constexpr int V = Vec<T>::n;
-    extern __shared__ float xs[];  // [cap]: the row as f32
-    __shared__ double dred[kThreads / 32];
-    __shared__ float fred[kThreads / 32];
-    const long long row = blockIdx.x;
-    const T* xr = x + row * N;
-    int8_t* qr = q + row * N;
-    const long long nvec = vec ? N / V : 0;
-
-    double ss = 0.0;
-    for (long long c = threadIdx.x; c < nvec; c += kThreads) {
-        float f[V];
-        load_vec(xr + c * V, f);
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-            if (c * V + k < cap) xs[c * V + k] = f[k];
-            ss += static_cast<double>(f[k]) * static_cast<double>(f[k]);
-        }
-    }
-    for (long long i = nvec * V + threadIdx.x; i < N; i += kThreads) {
-        const float f = to_f32(xr[i]);
-        if (i < cap) xs[i] = f;
-        ss += static_cast<double>(f) * static_cast<double>(f);
-    }
-    ss = block_sum<kThreads>(ss, dred);  // its barrier also publishes xs
-
-    const float r = rms_factor(ss, N);
-    auto xf = [&](long long i) {
-        const float xi = i < cap ? xs[i] : to_f32(xr[i]);
-        return __fmul_rn(__fmul_rn(xi, r), to_f32(w[i]));
-    };
-
-    float amax = 0.f;
-    for (long long i = threadIdx.x; i < N; i += kThreads) amax = fmaxf(amax, fabsf(xf(i)));
-    amax = block_max<kThreads>(amax, fred);
-    const float sc = quant_scale(amax);
-    const float inv = quant_inv(sc);
-    for (long long i = threadIdx.x; i < N; i += kThreads) qr[i] = quant_i8(xf(i), inv);
-    if (threadIdx.x == 0) s[row] = sc;
+                        int8_t* __restrict__ q, float* __restrict__ s, long long M, long long N,
+                        int vec, int q16) {
+    row_quant<T, W, true, TW>(x, w, q, s, M, N, vec, q16);
 }
 
 template <typename T, typename W>
-int launch(const void* x, const void* w, int8_t* q, float* s, long long M, long long N,
-           int vec, cudaStream_t st) {
-    const int cap = static_cast<int>(N < kCapFloats ? N : kCapFloats);
-    rmsnorm_quantize_kernel<T, W><<<dim3(M), kThreads, cap * sizeof(float), st>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w), q, s, N, cap, vec);
-    return static_cast<int>(cudaGetLastError());
+int launch(const void* x, const void* w, int8_t* q, float* s, long long M, long long N, int vec,
+           int q16, int tw, int grid, cudaStream_t st) {
+    const size_t smem = static_cast<size_t>(N) * sizeof(W);
+    return rq_dispatch(tw, [&](auto twc) {
+        auto* kern = rmsnorm_quantize_kernel<T, W, decltype(twc)::value>;
+        if (smem > 48 * 1024) {  // rows of more than 12288 f32 or 24576 bf16 weights
+            const cudaError_t e = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+            if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        kern<<<grid, kRqThreads, smem, st>>>(static_cast<const T*>(x), static_cast<const W*>(w),
+                                             q, s, M, N, vec, q16);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 }  // namespace
 
-// vec != 0 promises 16-byte aligned rows of x: the wrapper sets it when
-// N * sizeof(T) % 16 == 0 and x is 16-byte aligned.
+// vec != 0 promises 16-byte aligned rows of x (N * sizeof(T) % 16 == 0 and
+// x 16-byte aligned); q16 != 0 asks for 16-byte int8 stores (bf16 x, vec
+// and N % 16 == 0); tw and grid come from ops/quant.py rq_plan.
 extern "C" int tl_rmsnorm_quantize(const void* x, int x_dtype, const void* w, int w_dtype,
                                    int8_t* q, float* s, long long M, long long N, int vec,
-                                   void* stream) {
+                                   int q16, int tw, int grid, void* stream) {
     if (M <= 0 || N <= 0) return 0;
+    if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     using bf = __nv_bfloat16;
-    if (x_dtype == TL_F32 && w_dtype == TL_F32) return launch<float, float>(x, w, q, s, M, N, vec, st);
-    if (x_dtype == TL_F32 && w_dtype == TL_BF16) return launch<float, bf>(x, w, q, s, M, N, vec, st);
-    if (x_dtype == TL_BF16 && w_dtype == TL_F32) return launch<bf, float>(x, w, q, s, M, N, vec, st);
-    if (x_dtype == TL_BF16 && w_dtype == TL_BF16) return launch<bf, bf>(x, w, q, s, M, N, vec, st);
+    if (x_dtype == TL_F32 && w_dtype == TL_F32)
+        return launch<float, float>(x, w, q, s, M, N, vec, q16, tw, grid, st);
+    if (x_dtype == TL_F32 && w_dtype == TL_BF16)
+        return launch<float, bf>(x, w, q, s, M, N, vec, q16, tw, grid, st);
+    if (x_dtype == TL_BF16 && w_dtype == TL_F32)
+        return launch<bf, float>(x, w, q, s, M, N, vec, q16, tw, grid, st);
+    if (x_dtype == TL_BF16 && w_dtype == TL_BF16)
+        return launch<bf, bf>(x, w, q, s, M, N, vec, q16, tw, grid, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

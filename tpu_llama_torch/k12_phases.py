@@ -23,7 +23,6 @@ Prints one JSON line per shape, then one for the carveout test.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
@@ -37,28 +36,11 @@ SHAPES = ((8, DECODE_POS, 17), (1, [511], 17), (1, [2047], 17), (8, DECODE_POS, 
 
 
 def _stamped_lib():
-    """Build fused_step2.cu with -DFD_STAMPS (once; named by a hash of its
-    sources), print ptxas's report of it, and load it with K12's argument
-    types."""
+    """Build fused_step2.cu with -DFD_STAMPS (once; ``build_extra``) and load
+    it with K12's argument types."""
     from tpu_llama_torch.ops import _kernels as K
 
-    src = K._CSRC / "fused_step2.cu"
-    flags = ["-DFD_STAMPS"]
-    h = hashlib.sha256(" ".join(flags).encode())
-    for p in (src, *K._headers(src)):
-        h.update(p.read_bytes())
-    out = K._BUILD / f"fused_step2-stamps-{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        K._BUILD.mkdir(parents=True, exist_ok=True)
-        res = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, *flags, "-o", str(out), str(src)],
-                             capture_output=True, text=True, timeout=900)
-        if res.returncode:
-            raise RuntimeError(f"stamped build failed:\n{res.stdout}{res.stderr}")
-        for ln in (res.stdout + res.stderr).splitlines():
-            if any(k in ln for k in ("Function properties", "Compiling entry", "registers",
-                                     "spill")):
-                print(f"  {' '.join(flags)}: {ln.strip()[:200]}", flush=True)
-    lib = K.open_lib("fused_step2", out)
+    lib = K.open_lib("fused_step2", K.build_extra(K._CSRC / "fused_step2.cu", ["-DFD_STAMPS"]))
     lib.tl_fused_step2_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.tl_fused_step2_stamps.restype = ctypes.c_int
     return lib

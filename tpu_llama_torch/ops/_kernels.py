@@ -40,9 +40,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source name -> (C entry point, its argument types)
 SOURCES = {
-    "quantize_rows": ("tl_quantize_rows", [_P, _I, _P, _P, _L, _L, _I, _P]),
+    # x, x dtype, q, s, M, N, vec, q16, warps a row, grid, stream
+    "quantize_rows": ("tl_quantize_rows", [_P, _I, _P, _P, _L, _L, *[_I] * 4, _P]),
     "w8a8_matmul": ("tl_w8a8_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "rmsnorm_quantize": ("tl_rmsnorm_quantize", [_P, _I, _P, _I, _P, _P, _L, _L, _I, _P]),
+    # x, x dtype, w, w dtype, q, s, M, N, vec, q16, warps a row, grid, stream
+    "rmsnorm_quantize": ("tl_rmsnorm_quantize", [_P, _I, _P, _I, _P, _P, _L, _L, *[_I] * 4, _P]),
     "silu_mul_quantize": ("tl_silu_mul_quantize", [_P, _P, _I, _L, _P, _P, _L, _L, _I, _P]),
     "rope_split_quantize": ("tl_rope_split_quantize",
                             [_P, _I, *[_P] * 7, _L, _I, _I, _I, *[_L] * 7, _P]),
@@ -260,6 +262,32 @@ def build(names=None) -> dict[str, str]:
     return {n: _log_path(n).read_text() for n in names}
 
 
+def build_extra(src: Path, flags=()) -> Path:
+    """Compile ``src`` (a source outside SOURCES, or one of them with extra
+    ``flags``: a probe or an instrumented build) with NVCC_FLAGS plus
+    ``flags`` into the build directory, once: the library is named by a
+    hash of the flags and the sources.  Prints ptxas's register and spill
+    lines of a new build; raises with the compiler's output if it fails."""
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
+    for p in (src, *_headers(src)):
+        h.update(p.read_bytes())
+    out = _BUILD / f"{src.stem}-x{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"build of {src.name} {' '.join(flags)} failed:\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+        for ln in (res.stdout + res.stderr).splitlines():
+            if any(k in ln for k in ("Compiling entry", "registers", "spill")):
+                print(f"  {src.name} {' '.join(flags)}: {ln.strip()[:200]}", flush=True)
+    return out
+
+
 def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build()
@@ -319,6 +347,21 @@ def k12_residency(B: int, G: int, hd: int, ts: int, ch: int) -> int:
                                f"{_lib('fused_step2').tl_error_string(code).decode()} ({code})")
         _K12_RESIDENCY[key] = n.value
     return _K12_RESIDENCY[key]
+
+
+def row_quant_layout(kernel: str) -> tuple:
+    """(warps a block, 16-byte vectors a lane holds) that K2's or K3's
+    library was built with (``tl_row_quant_layout``, csrc/row_quant.cuh)."""
+    lib = _lib(KERNELS[kernel])
+    fn = lib.tl_row_quant_layout
+    fn.argtypes = [_P]
+    fn.restype = _I
+    res = (ctypes.c_int * 2)()
+    code = fn(ctypes.byref(res))
+    if code != 0:
+        raise RuntimeError(f"{kernel} layout query failed: {lib.tl_error_string(code).decode()} "
+                           f"({code})")
+    return tuple(res)
 
 
 def k29_max_clusters(K: int, csize: int) -> int:

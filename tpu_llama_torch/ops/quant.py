@@ -23,6 +23,7 @@ the JAX package's padding (in-dim to ``kernel_alignment(g)``, out-dim to
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -220,6 +221,79 @@ def _vec16(n_elems: int, t: torch.Tensor) -> bool:
     return (n_elems * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
 
 
+# K2's and K3's launch (csrc/row_quant.cuh): blocks of RQ_WARPS warps, a team
+# of 1, 2, 4 or 8 of them a row, RQ_VECS 16-byte vectors of the row in each
+# lane's registers; the grid holds at most RQ_GRID_PER_SM blocks an SM (three
+# are resident at once, the launch bounds; the block scheduler refills an SM
+# as its teams finish).  K3 holds w in shared memory: at most RQ_W_SMEM
+# bytes (the 227 KB a block may take).  RQ_WARPS and RQ_VECS are
+# row_quant.cuh's kRqWarps and kRqVecs, checked against each built library
+# before its first launch (_rq_layout_checked).
+RQ_WARPS = 8
+RQ_VECS = 8
+RQ_GRID_PER_SM = 8
+RQ_W_SMEM = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class RowQuantPlan:
+    """How K2 and K3 cover M rows: ``warps`` warps a row (a team), ``grid``
+    blocks of RQ_WARPS / warps teams, each team walking at most
+    ``rows_per_team`` rows by stride."""
+
+    warps: int
+    grid: int
+    rows_per_team: int
+
+
+def rq_plan(m: int, n: int, elem_bytes: int, sms: int) -> RowQuantPlan:
+    """K2's and K3's launch rule for x [m, n] of ``elem_bytes`` bytes an
+    element on a card of ``sms`` SMs.  A team is the fewest warps whose
+    registers hold the row (RQ_VECS vectors a lane: two warps a 7B bf16 row),
+    doubled while the grid would have fewer than RQ_WARPS warps an SM (small
+    m: a decode step's 8 rows spread over whole blocks, so no lane walks a
+    long row alone).  One row a team up to RQ_GRID_PER_SM blocks an SM
+    (every row of a 7B admission, chunk or wave); past that the teams walk
+    rows by stride."""
+    if m <= 0 or n <= 0:
+        raise ValueError(f"rq_plan: want m, n > 0, got {m}, {n}")
+    nvec = -(-n * elem_bytes // 16)
+    warps = 1
+    while warps < RQ_WARPS and (nvec > 32 * warps * RQ_VECS or m * warps < sms * RQ_WARPS):
+        warps *= 2
+    teams = RQ_WARPS // warps
+    grid = min(-(-m // teams), sms * RQ_GRID_PER_SM)
+    return RowQuantPlan(warps, grid, -(-m // (grid * teams)))
+
+
+@functools.lru_cache(maxsize=None)
+def _rq_layout_checked(kernel: str) -> None:
+    """Raises unless ``kernel``'s library (K2 or K3) has the block layout
+    that rq_plan assumes: row_quant.cuh's kRqWarps and kRqVecs."""
+    got = _kernels.row_quant_layout(kernel)
+    if got != (RQ_WARPS, RQ_VECS):
+        raise RuntimeError(f"{kernel} was built with (warps, vectors) {got}; rq_plan "
+                           f"assumes {(RQ_WARPS, RQ_VECS)}")
+
+
+@functools.lru_cache(maxsize=256)
+def _rq_plan_on(kernel: str, m: int, n: int, elem_bytes: int, device: int) -> tuple:
+    """(warps, grid) of rq_plan for ``kernel`` on card ``device``."""
+    _rq_layout_checked(kernel)
+    plan = rq_plan(m, n, elem_bytes, torch.cuda.get_device_properties(device).multi_processor_count)
+    return plan.warps, plan.grid
+
+
+def _rq_launch_args(kernel: str, x2: torch.Tensor) -> tuple:
+    """(vec, q16, warps, grid) of K2's or K3's launch on x2 [M, N]: q16,
+    16-byte int8 stores, for bf16 rows whose int8 rows are 16-byte aligned
+    (row_quant.cuh)."""
+    m, n = x2.shape
+    vec = _vec16(n, x2)
+    return (int(vec), int(vec and n % 16 == 0 and x2.element_size() == 2),
+            *_rq_plan_on(kernel, m, n, x2.element_size(), x2.device.index))
+
+
 def quantize_activations_plain(x: torch.Tensor):
     """Per-token (last-axis) dynamic symmetric INT8 (quant.py:255): returns
     (q int8 [..., IN], s f32 [...]) with x ~= q * s[..., None]."""
@@ -240,7 +314,7 @@ def quantize_activations(x: torch.Tensor):
     s = torch.empty((m,), dtype=torch.float32, device=x.device)
     if m and n:
         _kernels.launch("K2", x2.data_ptr(), code, q.data_ptr(), s.data_ptr(), m, n,
-                        int(_vec16(n, x2)), _kernels.stream(x2))
+                        *_rq_launch_args("K2", x2), _kernels.stream(x2))
     elif m:
         s.zero_()
     return q.reshape(*lead, n), s.reshape(lead)
@@ -293,6 +367,9 @@ def rmsnorm_quantize(x: torch.Tensor, w: torch.Tensor):
     _check_float("rmsnorm_quantize", w)
     if _kernels.on_cpu("K3", x, w):
         return rmsnorm_quantize_plain(x, w)
+    if x.shape[1] * w.element_size() > RQ_W_SMEM:
+        raise ValueError(f"K3 holds w in shared memory: at most {RQ_W_SMEM} bytes, got "
+                         f"{x.shape[1]} x {w.element_size()}")
     xc, wc = x.contiguous(), w.contiguous()
     m, n = xc.shape
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
@@ -300,7 +377,7 @@ def rmsnorm_quantize(x: torch.Tensor, w: torch.Tensor):
     if m and n:
         _kernels.launch("K3", xc.data_ptr(), _kernels.dtype_code(xc.dtype), wc.data_ptr(),
                         _kernels.dtype_code(wc.dtype), q.data_ptr(), s.data_ptr(), m, n,
-                        int(_vec16(n, xc)), _kernels.stream(xc))
+                        *_rq_launch_args("K3", xc), _kernels.stream(xc))
     elif m:
         s.zero_()
     return q, s

@@ -67,7 +67,10 @@ position 512 and a one-slot engine at position 2000, timed and traced as
 PERF.md's table shapes (events and trace); it calls only the engine's and
 the wrappers' public signatures, so ``PYTHONPATH=<other checkout> python3
 tpu_llama_torch/profile_serving.py --mega-steps`` times another checkout's
-package with this script.
+package with this script.  ``--admissions`` runs (i) alone: the 8 x 512,
+chunked 8 x 2048 and pool-direct 32 x 1024 W8A8 admissions and the mega2
+step of 8 slots at position 512, each timed REPS times and traced, with the
+row quants' (K3, K2) device ms; it too calls only public signatures.
 """
 
 from __future__ import annotations
@@ -123,6 +126,11 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _prompts(rng, cfg, n: int, length: int) -> list:
+    """``n`` prompts of ``length`` tokens: BOS, then random ids."""
+    return [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, length - 1)] for _ in range(n)]
+
+
 def summarize(name: str, prof, wall_s: float, traced_wall_s: float, smi: str) -> dict:
     """``wall_s`` is an untraced run's host time, ``traced_wall_s`` the
     traced run's (the tracer adds host time per launch, so the idle share
@@ -165,6 +173,9 @@ def main(argv=None) -> None:
                     help="run section (g) alone: the decode steps of K9's and K13's split cell")
     ap.add_argument("--mega-steps", action="store_true",
                     help="run section (h) alone: the mega2 and mega3 decode steps (K12, K26)")
+    ap.add_argument("--admissions", action="store_true",
+                    help="run section (i) alone: the W8A8 admissions' row quants (K3, K2) and "
+                         "the mega2 b8 step")
     args = ap.parse_args(argv)
     fp_only = args.fp_only
     if not torch.cuda.is_available():
@@ -179,9 +190,11 @@ def main(argv=None) -> None:
     if args.mega_steps:
         mega_steps(cfg, smi)
         return
+    if args.admissions:
+        admissions(cfg, smi)
+        return
     rng = np.random.default_rng(0)
-    prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
-               for _ in range(8)]
+    prompts = _prompts(rng, cfg, 8, 512)
     toks = rng.integers(3, cfg.vocab_size, 8)
 
     def prefiller(eng):
@@ -268,8 +281,7 @@ def main(argv=None) -> None:
         # (c) the long-prompt path: chunked admission and a sampled decode chunk
         from tpu_llama_torch.ops.sampling import keys_numpy
 
-        long_prompts = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 2047)]
-                        for _ in range(8)]
+        long_prompts = _prompts(rng, cfg, 8, 2048)
         run("prefill_8x2048_chunked", lambda: engine.prefill(long_prompts, list(range(8))),
             layouts="fused", chunk=256)
         temps = np.array([0.0, 0.8] * 4, np.float32)
@@ -345,7 +357,7 @@ def main(argv=None) -> None:
         # 32-slot engine with 97 pages of 512 rows
         direct = Engine(params, cfg, max_batch=32, kv_layout="paged", page_size=512, seq_len=2048,
                         num_pages=97)
-        docs = [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, 1023)] for _ in range(32)]
+        docs = _prompts(rng, cfg, 32, 1024)
         for name, group in (("prefill_8x2048_pool_direct", long_prompts),
                             ("prefill_32x1024_pool_direct", docs)):
             n = len(group)
@@ -388,46 +400,55 @@ def main(argv=None) -> None:
                           layers=cfg.n_layers, card=smi)))
 
 
-def measure_step(name: str, eng, pos: int, smi: str, **extra) -> None:
-    """One decode step per call of ``eng`` (all its slots at ``pos``, the
-    cache as allocated: a step's time does not depend on the values it
-    reads), timed REPS times after a warm call, then traced: prints the
-    step's host and device ms, its launches and the device ms of the decode
-    attention (K9, K13) and of the fused layer kernels (K12, K26)."""
+def measure(name: str, fn, smi: str, kernels=(), **extra) -> None:
+    """One call of ``fn`` warm, counted, timed REPS times, then traced:
+    prints its host wall ms (the median and each), device busy ms, every
+    port kernel's launches, and the device ms of each of ``kernels`` (ids of
+    the trace's groups) in all and per launch."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_llama_torch.ops import _kernels
 
+    fn()
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    walls = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    line = summarize(name, prof, statistics.median(walls) / 1e3, traced_wall, smi)
+    dev = line["device_ms"]
+    line.update(wall_ms_reps=walls, launches=launches,
+                kernel_ms={k: dev.get(k, 0.0) for k in kernels},
+                kernel_ms_per_launch={k: dev.get(k, 0.0) / launches[k] for k in kernels
+                                      if launches.get(k)}, **extra)
+    print(json.dumps(line), flush=True)
+
+
+def measure_step(name: str, eng, pos: int, smi: str, **extra) -> None:
+    """One decode step per call of ``eng`` (all its slots at ``pos``, the
+    cache as allocated: a step's time does not depend on the values it
+    reads), as ``measure`` takes it, with the device ms of the decode
+    attention (K9, K13), the fused layer kernels (K12, K26) and the row
+    quants (K3, K2)."""
     toks = np.random.default_rng(0).integers(3, eng.config.vocab_size, eng.max_batch)
     b = eng.max_batch
 
     def step():
         eng.decode(toks[:b], np.full(b, pos))
 
-    step()
-    torch.cuda.synchronize()
-    _kernels.reset_counts()
-    step()
-    torch.cuda.synchronize()
-    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
-    walls = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    line = summarize(name, prof, statistics.median(walls) / 1e3, traced_wall, smi)
-    dev = line["device_ms"]
-    line.update(batch=b, pos=pos, attn=eng.decode_attn, fused=eng.decode_fused,
-                wall_ms_reps=walls, launches=launches,
-                attention_ms={k: dev.get(k, 0.0) for k in ("K9", "K13")},
-                fused_ms={k: dev.get(k, 0.0) for k in ("K12", "K26")}, **extra)
-    print(json.dumps(line), flush=True)
+    measure(name, step, smi, ("K9", "K13", "K12", "K26", "K3", "K2"), batch=b, pos=pos,
+            attn=eng.decode_attn, fused=eng.decode_fused, **extra)
 
 
 def mega_steps(cfg, smi: str) -> None:
@@ -448,6 +469,40 @@ def mega_steps(cfg, smi: str) -> None:
         del eng
         torch.cuda.empty_cache()
     fused_kernels(cfg, params.layers, smi)
+
+
+def admissions(cfg, smi: str) -> None:
+    """Section (i): the W8A8 admissions whose every layer runs two K3 and
+    one K2 a pass -- 8 x 512 (the fused prefill body), 8 x 2048 (chunked,
+    8 chunks of 256) and the pool-direct 32 x 1024 (two waves of 16 slots)
+    -- each as ``measure`` takes it, then the mega2 decode step of
+    8 slots at position 512 (``measure_step``: K3 once and K2 twice a
+    step).  Uses only the engine's public calls, so the same script can time
+    another checkout's package (its directory first on PYTHONPATH)."""
+    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.runtime import Engine
+
+    params = random_quant_params(cfg, seed=0, fuse=True)
+    rng = np.random.default_rng(0)
+    prompts = _prompts(rng, cfg, 8, 512)
+    long_prompts = _prompts(rng, cfg, 8, 2048)
+    docs = _prompts(rng, cfg, 32, 1024)
+    engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+    quants = ("K3", "K2")
+    measure("prefill_8x512", lambda: engine.prefill(prompts, list(range(8))), smi, quants,
+            layouts="fused")
+    measure("prefill_8x2048_chunked", lambda: engine.prefill(long_prompts, list(range(8))), smi,
+            quants, layouts="fused", chunk=256)
+    engine.decode_fused = "mega2"
+    measure_step("decode_b8_pos512_fused_mega2", engine, 512, smi)
+    del engine
+    torch.cuda.empty_cache()
+    direct = Engine(params, cfg, max_batch=32, kv_layout="paged", page_size=512, seq_len=2048,
+                    num_pages=97)
+    measure("prefill_32x1024_pool_direct", lambda: direct.prefill(docs, list(range(32))), smi,
+            quants, layouts="fused", page_size=512, chunk=256)
+    del direct, params
+    torch.cuda.empty_cache()
 
 
 K12_SHAPES = ((8, [0, 1, 127, 128, 511, 1000, 1900, 2047], 17), (1, [511], 17), (1, [2047], 17),
