@@ -66,12 +66,14 @@ Phases (any failure exits non-zero and prints no result line):
    cluster cell, under their rule's count of splits and at one, each with
    its blocks per SM and resident clusters and the trace's device ms beside
    SDPA's), K23 and K24 exact;
-   K27's attention
-   output within K12's limits of its plain version (one flipped int8 allowed,
-   ``_att_reading``), its linear outputs
-   bit-equal to K11's phases on that output, and all of it bit-equal to
-   K9, K2 and K11 launched in turn; K28 (a slot at pos S, one parked at 0)
-   and K29 (also bit-equal to K1, at every cluster size) exact; kernel,
+   K11 also by the trace's device ms; K27 (its cells under the split rule's
+   count and at one, with the trace's device ms beside) with its attention
+   output within K12's limits of its plain version at the same splits (one
+   flipped int8 allowed, ``_att_reading``; SPLIT_ATT_FLIPS past one split),
+   its linear outputs bit-equal to K11's phases on that output, and all of
+   it bit-equal to K9 at the same splits, K2 and K11 launched in turn; K28
+   (a slot at pos S, one parked at 0) and K29 (also bit-equal to K1, at
+   every cluster size) exact; kernel,
    plain-version and
    PyTorch-library times
    (CUDA events) beside the bound (the larger of bytes / 3.35 TB/s and
@@ -129,7 +131,8 @@ Phases (any failure exits non-zero and prints no result line):
    launch) and its reference, the two-launch decode (``fused=True``), each
    serving phase 4's 10 requests (with top-2 logprobs): mega3's greedy
    streams equal phase 4's mega2 streams token for token, mega's equal the
-   two-launch decode's (K27 is K9, K2 and K11 bit for bit); exact launch
+   two-launch decode's run with K9 at K27's splits (K27 is K9 at the same
+   splits, K2 and K11 bit for bit); exact launch
    counts, no plain version; 4h. ``admission_k29``: one 8 x 512 admission with
    ``TPU_LLAMA_ROWS_RESIDENT=1`` (K29 for every product of 4096 rows), then
    the same with the switch restored (K1): logits and cache bit-equal;
@@ -1864,7 +1867,8 @@ def _layer_weights(torch, tq, gen, L, D, H, QO):
 def check_fused(torch, tq, tfl, tfs, results):
     """K8, K11 and K12 at 7B width against their plain versions on a
     32-layer stack: K8 on layer 0's wqkv at batch 8 and 32; K11 at batch 8
-    and 32 (phase 4f's decode) on layers 17 and 31 (the last: no phase D);
+    and 32 (phase 4f's decode) on layers 17 and 31 (the last: no phase D),
+    timed by events and by the trace's device ms;
     K12 on layer 17 at batch 8
     (one slot at each of DECODE_POS) and at batch 1 (pos 511, 2047), and on
     the last layer, its trailing cells at their split rule (``fused_splits``)
@@ -1927,7 +1931,7 @@ def check_fused(torch, tq, tfl, tfs, results):
                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=by, library_ms=library_ms))
 
-    # K11 at batch 8 (its 16-row instantiation) and 32 (the 32-row one,
+    # K11 at batch 8 (its one-tile instantiation) and 32 (the four-tile one,
     # phase 4f's decode), layer 17 and the last layer
     for B in (8, 32):
         x, attq, satt = rows(B)
@@ -1942,15 +1946,20 @@ def check_fused(torch, tq, tfl, tfs, results):
             label = f"K11 fused_layer_linear B={B} layer {layer}" + (" (last)" if last else "")
             check(all(torch.equal(a, b) for a, b in pairs), f"{label}: max err {err}")
             layers = [layer] if last else [(layer + i) % (L - 1) for i in range(8)]
-            ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear(
-                *args, layers[i % len(layers)], L), 20)
+            def run(i, layers=layers):
+                return tfl.fused_layer_linear(*args, layers[i % len(layers)], L)
+
+            ms = cuda_ms(torch, run, 20)
+            dev_ms = device_ms(torch, run, 16)
             plain_ms = cuda_ms(torch, lambda i: tfl.fused_layer_linear_plain(
                 *args, layers[i % len(layers)], L), 3, warmup=1)
             nbytes = (B * D * (4 + 1 + 4) + 4 * B + wbytes["wo"] + wbytes["w13"] + wbytes["w2"]
                       + 2 * D * 2 + (0 if last else wbytes["wqkv"] + 2 * D + 4 * B * QO))
             b_ms, by = bound_ms(nbytes, B * (int8_ops - (2 * D * QO if last else 0)), "int8")
+            print(f"  {label}: {ms:.4f} ms, device {dev_ms:.4f} (bound {b_ms:.4f})", flush=True)
             results.append(dict(kernel="K11", name=label, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None))
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+                                device_ms=dev_ms))
 
     # K12: layer 17 at batch 8 and 1, then the last layer at batch 8; the
     # trailing cells at their split rule (fused_splits) and at one split
@@ -2069,12 +2078,15 @@ def check_mega_kernels(torch, tq, tfl, tfs, tfs3, tfst, tatt, results):
     bit-equal, the fresh K/V rows within
     QUANT_FLIPS / QUANT_SCALE_RTOL, the seam's and the last attention
     output at K12's limits with room for one flipped entry
-    (``_att_reading``).  K27 on layer 17 and the
-    last layer: its quantized attention
-    output (``att_out``) at K12's limits of the plain version's, its linear
-    outputs bit-equal to K11's phases (``linear_phases_plain``) run on that
-    output, and every output bit-equal to K9, K2 and K11 launched in turn.
-    Timed calls rotate through the layers, so the weights come cold."""
+    (``_att_reading``).  K27 on layer 17 and the last layer, its cells at
+    their split rule (``fused_splits``) and at one split: its quantized
+    attention output (``att_out``) at K12's limits of the plain version's
+    at the same splits (SPLIT_ATT_FLIPS past one split, QUANT_FLIPS at
+    one), its linear outputs bit-equal to K11's phases
+    (``linear_phases_plain``) run on that output, and every output bit-equal
+    to K9 at the same splits, K2 and K11 launched in turn; timed at the rule
+    by events and by the trace's device ms.  Timed calls rotate through the
+    layers, so the weights come cold."""
     from tpu_llama_torch.config import LLAMA2_7B
 
     cfg = LLAMA2_7B
@@ -2172,50 +2184,64 @@ def check_mega_kernels(torch, tq, tfl, tfs, tfs3, tfst, tatt, results):
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
                                 **extra))
 
-        # K27 on layer l0 + 1 (17, or the last layer) of the same cache
+        # K27 on layer l0 + 1 (17, or the last layer) of the same cache, its
+        # cells at their split rule (fused_splits) and at one split; timed at
+        # the rule
         layer = l0 + 1
         lastl = layer == L - 1
-        label = (f"K27 fused_step_layer B={B} pos={pos[0] if B == 1 else 'mix'} layer {layer}"
-                 + (" (last)" if lastl else ""))
         q = torch.randn(B, KVH, 1, hd, generator=gen, device="cuda")
         nk, nv = (torch.randint(-127, 128, (B, KVH, hd), generator=gen, device="cuda",
                                 dtype=torch.int8) for _ in range(2))
         nks, nvs = (torch.rand(B, KVH, generator=gen, device="cuda") * 0.03 + 0.01
                     for _ in range(2))
         args = (x, q, nk, nv, nks, nvs, *cache, *scales, pt, *ws, rf, ra)
-        att_k = (torch.empty(B, D, dtype=torch.int8, device="cuda"),
-                 torch.empty(B, device="cuda"))
-        got = tfst.fused_step_layer(*args, layer, L, att_out=att_k)
-        torch.cuda.synchronize()
-        att_p = (torch.empty_like(att_k[0]), torch.empty_like(att_k[1]))
-        tfst.fused_step_layer_plain(*args, layer, L, att_out=att_p)
-        err, a_flips, a_rel = _att_reading(torch, label, att_k, att_p)
-        views = tfl.layer_views(*ws, rf, ra, layer, L)
-        lin = tfl.linear_phases_plain(x, att_k[0], att_k[1], *views, last=lastl)
-        same = [torch.equal(got[0], lin[0])] + ([] if lastl else [torch.equal(got[1], lin[1])])
-        check(all(same), f"{label}: the linear outputs differ from K11's phases on the "
-                         f"kernel's attention output ({same})")
-        att9 = tatt.flash_decode_attention_dma(q, cache[0], cache[1], pt, nk, nv, scales[0],
-                                               scales[1], nks, nvs, layer=layer, splits=1)
-        q2, s2 = tq.quantize_activations(att9.reshape(B, D))
-        comp = tfl.fused_layer_linear(x, q2, s2, *ws, rf, ra, layer, L)
-        torch.cuda.synchronize()
-        same = [torch.equal(att_k[0], q2), torch.equal(att_k[1], s2),
-                torch.equal(got[0], comp[0])] + ([] if lastl else [torch.equal(got[1], comp[1])])
-        check(all(same), f"{label}: differs from K9, K2 and K11 launched in turn ({same})")
-        layers = [layer] if lastl else [(layer + i) % (L - 1) for i in range(8)]
-        ms = cuda_ms(torch, lambda i: tfst.fused_step_layer(
-            *args, layers[i % len(layers)], L), 20)
-        plain_ms = cuda_ms(torch, lambda i: tfst.fused_step_layer_plain(
-            *args, layers[i % len(layers)], L), 3, warmup=1)
-        nbytes = (B * D * (4 + 4) + 4 * B * D + B * KVH * (2 * hd + 8) + 4 * B
-                  + KVH * sum(pos) * (2 * hd + 8) + wbytes["wo"] + wbytes["w13"]
-                  + wbytes["w2"] + 2 * D * 2 + (0 if lastl else wbytes["wqkv"] + 4 * B * QO))
-        ops = B * (int8_ops - (2 * D * QO if lastl else 0))
-        b_ms, by = bound_ms(nbytes, ops, "int8")
-        results.append(dict(kernel="K27", name=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=by, library_ms=None,
-                            att_int8_flip_share=a_flips, att_scale_max_rel_err=a_rel))
+        for n in [rule] if rule == 1 else [rule, 1]:
+            label = (f"K27 fused_step_layer B={B} pos={pos[0] if B == 1 else 'mix'} layer "
+                     f"{layer}" + (" (last)" if lastl else "") + f" splits={n}")
+            att_k = (torch.empty(B, D, dtype=torch.int8, device="cuda"),
+                     torch.empty(B, device="cuda"))
+            got = tfst.fused_step_layer(*args, layer, L, att_out=att_k, splits=n)
+            torch.cuda.synchronize()
+            att_p = (torch.empty_like(att_k[0]), torch.empty_like(att_k[1]))
+            tfst.fused_step_layer_plain(*args, layer, L, att_out=att_p, splits=n)
+            err, a_flips, a_rel = _att_reading(torch, label, att_k, att_p, split=n > 1)
+            views = tfl.layer_views(*ws, rf, ra, layer, L)
+            lin = tfl.linear_phases_plain(x, att_k[0], att_k[1], *views, last=lastl)
+            same = [torch.equal(got[0], lin[0])] + ([] if lastl else [torch.equal(got[1], lin[1])])
+            check(all(same), f"{label}: the linear outputs differ from K11's phases on the "
+                             f"kernel's attention output ({same})")
+            att9 = tatt.flash_decode_attention_dma(q, cache[0], cache[1], pt, nk, nv, scales[0],
+                                                   scales[1], nks, nvs, layer=layer, splits=n)
+            q2, s2 = tq.quantize_activations(att9.reshape(B, D))
+            comp = tfl.fused_layer_linear(x, q2, s2, *ws, rf, ra, layer, L)
+            torch.cuda.synchronize()
+            same = [torch.equal(att_k[0], q2), torch.equal(att_k[1], s2),
+                    torch.equal(got[0], comp[0])]
+            same += [] if lastl else [torch.equal(got[1], comp[1])]
+            check(all(same), f"{label}: differs from K9 (same splits), K2 and K11 launched in "
+                             f"turn ({same})")
+            if n != rule:
+                print(f"  {label}: held (attention int8 flips {a_flips})", flush=True)
+                continue
+            layers = [layer] if lastl else [(layer + i) % (L - 1) for i in range(8)]
+
+            def run(i, n=n):
+                return tfst.fused_step_layer(*args, layers[i % len(layers)], L, splits=n)
+
+            ms = cuda_ms(torch, run, 20)
+            dev_ms = device_ms(torch, run, 8)
+            plain_ms = cuda_ms(torch, lambda i: tfst.fused_step_layer_plain(
+                *args, layers[i % len(layers)], L, splits=n), 3, warmup=1)
+            nbytes = (B * D * (4 + 4) + 4 * B * D + B * KVH * (2 * hd + 8) + 4 * B
+                      + KVH * sum(pos) * (2 * hd + 8) + wbytes["wo"] + wbytes["w13"]
+                      + wbytes["w2"] + 2 * D * 2 + (0 if lastl else wbytes["wqkv"] + 4 * B * QO))
+            ops = B * (int8_ops - (2 * D * QO if lastl else 0))
+            b_ms, by = bound_ms(nbytes, ops, "int8")
+            print(f"  {label}: {ms:.4f} ms, device {dev_ms:.4f} (bound {b_ms:.4f})", flush=True)
+            results.append(dict(kernel="K27", name=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+                                device_ms=dev_ms, splits=n, att_int8_flip_share=a_flips,
+                                att_scale_max_rel_err=a_rel))
         del cache, scales, rest, args, got, want1, want2, one, two, chained
         torch.cuda.empty_cache()
     del wo, w13, w2, wqkv, ws
@@ -3347,7 +3373,10 @@ def serve_7b_mega(torch, smi_line, params, mega2_streams):
     phase 4's 10 requests (with top-2 logprobs) through ``ContinuousBatcher``
     for mode "mega3" (K26), "mega" (K27) and, as mega's reference, the
     two-launch decode (``True``: K9, K2 and K11, which K27 equals bit for
-    bit): every request finishes with in-vocab tokens, every kernel launches
+    bit with K9 at K27's splits -- ``fused_splits``, 8 at batch 8 over 2048
+    rows, where the served two-launch decode's K9 takes ``decode_splits``'
+    one -- so the reference run's K9 is called at those splits): every
+    request finishes with in-vocab tokens, every kernel launches
     exactly as the path requires and no plain version runs; mega3's greedy
     streams equal phase 4's mega2 streams token for token, mega's equal the
     two-launch decode's.  mega is not held to mega2: K12 rounds q and h2 to
@@ -3358,7 +3387,9 @@ def serve_7b_mega(torch, smi_line, params, mega2_streams):
     step, tok/s and launches a step; returns the launches of each mode's
     run."""
     from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
     from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.ops import fused_step as tfst
     from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
     from tpu_llama_torch.runtime.metrics import summarize
 
@@ -3366,6 +3397,12 @@ def serve_7b_mega(torch, smi_line, params, mega2_streams):
     L = cfg.n_layers
     greedy = [i for i, r in enumerate(make_requests(Request, cfg.vocab_size))
               if r.temperature == 0.0]
+    k9 = tl.flash_decode_attention_dma
+
+    def k9_at_k27_splits(q, k_cache, *rest, **kw):
+        _, B, KVH, S, _ = k_cache.shape
+        return k9(q, k_cache, *rest, splits=tfst.step_splits(B, KVH, S, None), **kw)
+
     runs, out = {}, {}
     for mode in ("mega3", "mega", True):
         engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048, fused=mode)
@@ -3377,7 +3414,12 @@ def serve_7b_mega(torch, smi_line, params, mega2_streams):
         t0 = time.time()
         for r in reqs:
             batcher.submit(r)
-        batcher.run()
+        if mode is True:
+            tl.flash_decode_attention_dma = k9_at_k27_splits
+        try:
+            batcher.run()
+        finally:
+            tl.flash_decode_attention_dma = k9
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)

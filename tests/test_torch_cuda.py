@@ -458,19 +458,29 @@ def test_k8_exact(card, B):
     assert _kernels.LAUNCHES["K8"] == before + c["L"]
 
 
-@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
-                                          (8, 4, 1, 64, 256), (20, 1, 2, 32, 96)])
+# K11's shapes: small ones (D 64 and 512, H 96 and 336, G 1-4; B 20 takes
+# the four-tile form above 8 rows) and Llama-2 7B widths at batch 1, 8 and 32
+K11_CASES = [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336), (8, 4, 1, 64, 256), (20, 1, 2, 32, 96),
+             (1, 32, 1, 128, 11008), (8, 32, 1, 128, 11008), (32, 32, 1, 128, 11008)]
+
+
+@pytest.mark.parametrize("B,KVH,G,hd,H", K11_CASES)
 def test_k11_exact(card, B, KVH, G, hd, H):
     """Bit-equal: the kernel repeats the plain version's f32 steps (CUDA's
-    expf is PyTorch's exp on the card); the last layer leaves qkv alone."""
+    expf is PyTorch's exp on the card; h2 stays f32); the last layer leaves
+    qkv alone.  Every layer of the stack (a middle one and the last), each
+    launched twice on the stream's workspace, which the first launch must
+    leave zero: the second launch equals the first."""
     c = _fused_case(B, KVH, G, hd, H)
     for layer in range(c["L"]):
         args = (c["x"], c["attq"], c["satt"], *c["w"], *c["rms"], layer, c["L"])
-        buf = torch.full((B, c["w"][3].out_features), 7.0, device=card)
+        bufs = [torch.full((B, c["w"][3].out_features), 7.0, device=card) for _ in range(2)]
         before = _kernels.LAUNCHES["K11"]
-        x, qkv = tfl.fused_layer_linear(*args, qkv_out=buf)
+        x, qkv = tfl.fused_layer_linear(*args, qkv_out=bufs[0])
+        x2, qkv2 = tfl.fused_layer_linear(*args, qkv_out=bufs[1])
         torch.cuda.synchronize()
-        assert _kernels.LAUNCHES["K11"] == before + 1 and qkv is buf
+        assert _kernels.LAUNCHES["K11"] == before + 2 and qkv is bufs[0] and qkv2 is bufs[1]
+        assert torch.equal(x2, x) and torch.equal(qkv2, qkv)
         xp, qkvp = tfl.fused_layer_linear_plain(*args)
         assert torch.equal(x, xp)
         if layer + 1 < c["L"]:
@@ -1417,47 +1427,82 @@ def test_k26_equals_two_chained_k12(card, B, KVH, G, hd, H):
             assert all(torch.equal(a, b) for a, b in zip(r2, two[3:]))
 
 
-@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
-                                          (8, 4, 1, 64, 256), (3, 1, 2, 12, 96)])
-def test_k27_equals_k9_k2_k11(card, B, KVH, G, hd, H):
-    """K27 equals K9, K2 and K11 launched in turn, bit for bit (its cell is
-    K9's, its quant K2's, its phases K11's); its quantized attention output
-    is within K12's limits of the plain version's, and its linear outputs
-    equal K11's plain phases on that output."""
+def _k27_check(card, c, x, cache, pos, B, D, KVH, G, hd, layer, L, splits, g, tol):
+    """One K27 launch at ``splits`` against K9 (same splits), K2 and K11
+    launched in turn (bit for bit), against its plain version at the same
+    splits (the attention output within one int8 step on at most 1e-3 of
+    entries, its dequantized values within ``tol`` of the largest) and its
+    linear outputs against K11's plain phases on the kernel's attention."""
     from tpu_llama_torch.ops import fused_step as tfst
 
+    q = torch.randn(B, KVH, G, hd, generator=g, device=card)
+    nk, nv = (torch.randint(-127, 128, (B, KVH, hd), generator=g, device=card,
+                            dtype=torch.int8) for _ in range(2))
+    nks, nvs = (torch.rand(B, KVH, generator=g, device=card) * 0.02 + 0.005 for _ in range(2))
+    args = (x, q, nk, nv, nks, nvs, *cache, pos, *c["w"], *c["rms"])
+    att = (torch.empty(B, D, dtype=torch.int8, device=card), torch.empty(B, device=card))
+    before = _kernels.LAUNCHES["K27"]
+    x1, qkv = tfst.fused_step_layer(*args, layer, L, att_out=att, splits=splits)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K27"] == before + 1
+    a9 = tatt.flash_decode_attention_dma(q, cache[0], cache[1], pos, nk, nv, cache[2], cache[3],
+                                         nks, nvs, layer=layer,
+                                         splits=tfst.step_splits(B, KVH, cache[0].shape[3],
+                                                                 splits))
+    q2, s2 = tq.quantize_activations(a9.reshape(B, D))
+    x2, qkv2 = tfl.fused_layer_linear(x, q2, s2, *c["w"], *c["rms"], layer, L)
+    assert torch.equal(att[0], q2) and torch.equal(att[1], s2) and torch.equal(x1, x2)
+    if layer + 1 < L:
+        assert torch.equal(qkv, qkv2)
+    att_p = (torch.empty_like(att[0]), torch.empty_like(att[1]))
+    tfst.fused_step_layer_plain(*args, layer, L, att_out=att_p, splits=splits)
+    d = (att[0].int() - att_p[0].int()).abs()
+    assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+    deq, deq_p = att[0].float() * att[1][:, None], att_p[0].float() * att_p[1][:, None]
+    assert (deq - deq_p).abs().max().item() <= tol * deq_p.abs().max().item()
+    views = tfl.layer_views(*c["w"], *c["rms"], layer, L)
+    xl, qkvl = tfl.linear_phases_plain(x, att[0], att[1], *views, last=layer + 1 == L)
+    assert torch.equal(x1, xl) and (qkvl is None or torch.equal(qkv, qkvl))
+
+
+@pytest.mark.parametrize("B,KVH,G,hd,H", [(1, 2, 1, 128, 384), (3, 2, 4, 64, 336),
+                                          (8, 4, 1, 64, 256), (3, 1, 2, 12, 96)])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_k27_equals_k9_k2_k11(card, B, KVH, G, hd, H, splits):
+    """K27 equals K9 (at the same splits), K2 and K11 launched in turn, bit
+    for bit (its cell is K9's split cell, its quant K2's, its phases K11's);
+    its quantized attention output is within K12's limits of the plain
+    version's, and its linear outputs equal K11's plain phases on that
+    output.  At the split rule (1 on these 300-row caches), one split and
+    three; every slot's cache rows at and past its pos poisoned (127, scale
+    1e4), so a cell that read one stale row would miss by orders of
+    magnitude."""
     c = _fused_case(B, KVH, G, hd, H)
     g = _gen(B + hd)
     D, L = KVH * G * hd, c["L"]
+    cache = [t.clone() for t in c["cache"]]
+    for b, p in enumerate(c["pos"].tolist()):
+        for a, val in zip(cache, (127, 127, 1e4, 1e4)):
+            a[:, b, :, p:] = val
     for layer in range(L):
-        q = torch.randn(B, KVH, G, hd, generator=g, device=card)
-        nk, nv = (torch.randint(-127, 128, (B, KVH, hd), generator=g, device=card,
-                                dtype=torch.int8) for _ in range(2))
-        nks, nvs = (torch.rand(B, KVH, generator=g, device=card) * 0.02 + 0.005
-                    for _ in range(2))
-        args = (c["x"], q, nk, nv, nks, nvs, *c["cache"], c["pos"], *c["w"], *c["rms"])
-        att = (torch.empty(B, D, dtype=torch.int8, device=card), torch.empty(B, device=card))
-        before = _kernels.LAUNCHES["K27"]
-        x, qkv = tfst.fused_step_layer(*args, layer, L, att_out=att)
-        torch.cuda.synchronize()
-        assert _kernels.LAUNCHES["K27"] == before + 1
-        a9 = tatt.flash_decode_attention_dma(q, c["cache"][0], c["cache"][1], c["pos"], nk, nv,
-                                             c["cache"][2], c["cache"][3], nks, nvs, layer=layer)
-        q2, s2 = tq.quantize_activations(a9.reshape(B, D))
-        x2, qkv2 = tfl.fused_layer_linear(c["x"], q2, s2, *c["w"], *c["rms"], layer, L)
-        assert torch.equal(att[0], q2) and torch.equal(att[1], s2) and torch.equal(x, x2)
-        if layer + 1 < L:
-            assert torch.equal(qkv, qkv2)
-        att_p = (torch.empty_like(att[0]), torch.empty_like(att[1]))
-        tfst.fused_step_layer_plain(*args, layer, L, att_out=att_p)
-        d = (att[0].int() - att_p[0].int()).abs()
-        assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
-        deq, deq_p = att[0].float() * att[1][:, None], att_p[0].float() * att_p[1][:, None]
-        assert (deq - deq_p).abs().max().item() <= DECODE_TOL * deq_p.abs().max().item()
-        views = tfl.layer_views(*c["w"], *c["rms"], layer, L)
-        xl, qkvl = tfl.linear_phases_plain(c["x"], att[0], att[1], *views,
-                                           last=layer + 1 == L)
-        assert torch.equal(x, xl) and (qkvl is None or torch.equal(qkv, qkvl))
+        _k27_check(card, c, c["x"], cache, c["pos"], B, D, KVH, G, hd, layer, L, splits, g,
+                   DECODE_TOL)
+
+
+@pytest.mark.parametrize("B,pos,layer", [(8, None, 1), (1, [2047], 1), (32, None, 1),
+                                         (8, None, 3)])
+@pytest.mark.parametrize("at", ["rule", "one"])
+def test_k27_7b_equals_k9_k2_k11(k12_7b, B, pos, layer, at):
+    """K27 at 7B widths (batch 8 and 32 with slots at 0..2047, batch 1 at
+    pos 2047; layer 1 and the last, 3) on caches poisoned at and past every
+    pos, its cells at the split rule (``fused_splits``: 8, 16 and 2 splits)
+    and at one split: bit-equal to K9 at the same splits, K2 and K11
+    launched in turn; within K12's 7B limits (K6_TOL) of its plain version."""
+    c = k12_7b
+    x, _, _, kc, vc, ks, vs, pt, _, _ = _k12_7b_case(c, B, pos)
+    n = None if at == "rule" else 1
+    _k27_check(torch.device("cuda"), c, x, (kc, vc, ks, vs), pt, B, c["D"], c["KVH"], 1,
+               c["hd"], layer, c["L"], n, c["g"], K6_TOL)
 
 
 @pytest.mark.parametrize("hd", [128, 64, 12])

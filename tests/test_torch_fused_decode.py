@@ -302,6 +302,61 @@ def test_k12_splits_validated():
             _port_k12(c, 0, splits=bad)
 
 
+def _header_ints(*names):
+    """The int constants ``constexpr int name = expr;`` of the given csrc
+    headers, each expression evaluated over the ones read before it."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(tfs.__file__).resolve().parents[1] / "csrc"
+    vals = {}
+    for name in names:
+        for key, expr in re.findall(r"constexpr int (\w+) = ([^;/]+);", (csrc / name).read_text()):
+            try:
+                vals[key] = int(eval(expr, {}, dict(vals)))
+            except NameError:  # a constant of another header's namespace, or a macro
+                pass
+    return vals
+
+
+# (B, D, H, QO): K11 at 7B widths (batch 1, 8, 32), the card tests' shapes
+# that are no multiples of 16, and one row
+K11_WS_SHAPES = [(1, 4096, 11008, 12288), (8, 4096, 11008, 12288), (32, 4096, 11008, 12288),
+                 (20, 64, 96, 128), (3, 24, 96, 48), (1, 8, 8, 24)]
+
+
+@pytest.mark.parametrize("B,D,H,QO", K11_WS_SHAPES)
+def test_step2_workspace_covers_k11_phases(B, D, H, QO):
+    """K11 runs the streaming body's phases A-D (csrc/fused_step2.cuh) on
+    the workspace of ``step2_workspace_words`` words, as K12: its layout,
+    read from the headers' constants (make_phases), ends inside it -- the
+    layer's counters (Flow) and the exit count below the tickets, one ticket
+    per row group of each phase (16 weight rows; w13 8 columns), the int32
+    partials for kMaxRows rows, then h2 quantized for B rows."""
+    k = _header_ints("fused_decode.cuh", "fused_step2.cuh")
+    rows_u, max_rows = k["kRowsU"], k["kMaxRows"]
+    assert max_rows == tfl.MAX_ROWS and B <= max_rows
+    flow_words = 4 + 3 + 1 + 1 + 7 + max_rows  # fused_step2.cuh struct Flow
+    assert flow_words <= k["kFlowWords"] and 2 * k["kFlowWords"] <= k["kExitWord"]
+    assert k["kExitWord"] < k["kTicketBase"]
+    tickets = 2 * -(-D // rows_u) + -(-H // 8) + -(-QO // rows_u)
+    acc = k["kTicketBase"] + -(-tickets // 4) * 4
+    xq3 = acc + max_rows * (2 * D + 2 * H + QO)
+    assert xq3 + -(-B * H // 4) <= tfs.step2_workspace_words(B, D, H, QO)
+
+
+def test_step2_workspace_one_per_width():
+    """One workspace per (card, stream, widths): a launch leaves its
+    quantized h2 in it, at an offset that another width's layout uses for
+    tickets or partials, which every launch must find zero."""
+    ws = tfs.step2_workspace("cpu", 0, 64, 96, 128)
+    assert tfs.step2_workspace("cpu", 0, 64, 96, 128) is ws
+    assert ws.numel() == tfs.step2_workspace_words(tfl.MAX_ROWS, 64, 96, 128)
+    assert bool((ws == 0).all())
+    other = tfs.step2_workspace("cpu", 0, 24, 96, 48)
+    assert other is not ws and tfs.step2_workspace("cpu", 1, 64, 96, 128) is not ws
+
+
 def test_k12_last_layer_reads_no_cache_and_leaves_outputs():
     """The last launch computes x_next only: a poisoned cache changes
     nothing, and given output rows come back untouched."""

@@ -33,6 +33,7 @@ import torch
 
 import jax.numpy as jnp
 from tpu_llama.models import llama as jl
+from tpu_llama.ops import attention as jatt
 from tpu_llama.ops import fused_step as jfst
 from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.models import llama as tl
@@ -40,10 +41,11 @@ from tpu_llama_torch.ops import _kernels
 from tpu_llama_torch.ops import attention as tatt
 from tpu_llama_torch.ops import fused_layer as tfl
 from tpu_llama_torch.ops import fused_step as tfst
-from tpu_llama_torch.ops.quant import quantize_activations
+from tpu_llama_torch.ops.quant import quantize_activations, quantize_activations_plain
 
-from test_torch_fused_decode import (JAX_TINY, LOGITS_TOL, _case, _dequant, _first_rows,
-                                     _jax_weights, _near, _pad, _port_weights, _t)
+from test_torch_fused_decode import (JAX_TINY, LOGITS_TOL, SPLIT_CASE, SPLIT_TOL, _case,
+                                     _dequant, _first_rows, _jax_weights, _near, _pad,
+                                     _port_weights, _t)
 from test_torch_model import TINY128, build_fused_pair
 
 torch.set_num_threads(1)
@@ -126,6 +128,70 @@ def test_k27_equals_two_launch_composition(case, layer):
         np.testing.assert_array_equal(qkv, qkv_ref.numpy())
 
 
+def _k27_att(c, layer, splits, fn=tfst.fused_step_layer):
+    """K27's (x_next, qkv, attq, satt) at ``splits``."""
+    att = (torch.empty(c["B"], c["D"], dtype=torch.int8), torch.empty(c["B"]))
+    x, qkv = _port_k27(c, layer, fn=fn, att_out=att, splits=splits)
+    return x, qkv, att[0].numpy(), att[1].numpy()
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_k27_plain_splits_match_jax(splits, layer):
+    """K27's cells at more than one split (K12's SPLIT_CASE: 512 rows in
+    key blocks of 128, slots ending in the first, a middle and the last
+    block).  Rows are independent in the linear phases, so in every row
+    whose attention int8 and scale equal the one-split plain version's,
+    x_next and qkv equal it bit for bit and JAX's within the limits above;
+    the attention int8 moves by at most one step (p rounds against each
+    split's own max: within half a step of the one-split output before the
+    quant); the dequantized attention output within 2^-8 of its max of
+    JAX's (its K9 in interpret mode, quantized by K2's plain version), as
+    K9's split cell."""
+    c = _k27_case(**SPLIT_CASE)
+    B, D = c["B"], c["D"]
+    one = _k27_att(c, layer, 1, tfst.fused_step_layer_plain)
+    got = _k27_att(c, layer, splits)
+    want = _jax_k27(c, layer)
+    same = [b for b in range(B)
+            if np.array_equal(got[2][b], one[2][b]) and got[3][b] == one[3][b]]
+    assert 0 in same  # slot 0 (pos 0) attends to its fresh row alone
+    for i in (0, 1):
+        np.testing.assert_array_equal(got[i][same], one[i][same])
+        _near(got[i][same], want[i][same])
+    assert np.abs(got[2].astype(np.int32) - one[2].astype(np.int32)).max() <= 1
+    att_j = jatt.flash_decode_attention_dma(
+        *(jnp.asarray(c[k]) for k in ("q", "kc", "vc", "pos", "nk", "nv", "ks", "vs", "nks",
+                                      "nvs")), layer=jnp.int32(layer))
+    aq, asc = quantize_activations_plain(torch.tensor(np.asarray(att_j)).reshape(B, D))
+    _near(got[2].astype(np.float32) * got[3][:, None], (aq.float() * asc[:, None]).numpy(),
+          rel=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_k27_split_matches_composition(splits, layer):
+    """K27's plain version at ``splits`` is K9's plain version at the same
+    splits, then K2's, then K11's phases (``linear_phases_plain``), bit for
+    bit -- the contract the card holds K27 to (K9, K2 and K11 launched in
+    turn); layer 2 is the last (qkv untouched)."""
+    c = _k27_case(**SPLIT_CASE)
+    B, D, L = c["B"], c["D"], c["L"]
+    att = tatt.flash_decode_attention_dma_plain(
+        *_t(c, "q", "kc", "vc", "pos", "nk", "nv", "ks", "vs", "nks", "nvs"), layer=layer,
+        splits=splits)
+    attq, satt = quantize_activations_plain(att.reshape(B, D))
+    views = tfl.layer_views(*_port_weights(c), *_t(c, "rf", "ra"), layer, L)
+    x_ref, qkv_ref = tfl.linear_phases_plain(torch.tensor(c["x"]), attq, satt, *views,
+                                             last=layer + 1 == L)
+    x, qkv, aq, asc = _k27_att(c, layer, splits)
+    np.testing.assert_array_equal(aq, attq.numpy())
+    np.testing.assert_array_equal(asc, satt.numpy())
+    np.testing.assert_array_equal(x, x_ref.numpy())
+    if qkv_ref is not None:
+        np.testing.assert_array_equal(qkv, qkv_ref.numpy())
+
+
 def test_k27_last_layer_leaves_qkv_and_counts_plain():
     seed, G, KVH, pos, S, L = K27_CASES["gqa2"]
     c = _k27_case(seed, L=L, B=len(pos), KVH=KVH, G=G, hd=128, H=256, S=S, pos=pos)
@@ -154,6 +220,9 @@ def test_k27_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):  # att_out of the wrong shape
         tfst.fused_step_layer(*args, *rest, 0, L, att_out=(torch.empty(1, 1, dtype=torch.int8),
                                                            torch.empty(1)))
+    for bad in (0, -1, 1.5):  # splits must be a positive int
+        with pytest.raises(ValueError):
+            tfst.fused_step_layer(*args, *rest, 0, L, splits=bad)
 
 
 # ------------------------------------------------------------ model level

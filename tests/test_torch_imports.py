@@ -76,9 +76,11 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
     theirs."""
     from tpu_llama_torch.ops import _kernels
 
-    real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc/fused_step2.cu")]
-    assert real == ["common.cuh", "decode_split.cuh", "fused_decode.cuh", "fused_step2.cuh",
-                    "hopper.cuh"]
+    # K11, K12, K26 and K27 run fused_step2.cuh's streaming body
+    for src in ("fused_step2.cu", "fused_step3.cu", "fused_layer.cu", "fused_step.cu"):
+        real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc" / src)]
+        assert real == ["common.cuh", "decode_split.cuh", "fused_decode.cuh", "fused_step2.cuh",
+                        "hopper.cuh"], (src, real)
     # K6's INT8 form and K16 share the bf16 tensor-core cell; K6's fp forms run the
     # split-TF32 cell, which takes the bf16 cell's helpers
     for src, want in (("flash_prefill.cu", ["common.cuh", "prefill_mma.cuh",

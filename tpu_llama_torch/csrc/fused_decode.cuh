@@ -1,38 +1,39 @@
-// Shared code of the fused decode kernels: K11 fused_layer.cu and K27
-// fused_step.cu (linear_phases, one persistent cooperative launch per decode
-// layer), K23 fused_ffn.cu and K24 fused_rms_qkv.cu (gemm_tile), and the
-// barrier, row steps and cooperative launch that K12 fused_step2.cu and K26
-// fused_step3.cu (fused_step2.cuh) share with them.
+// Shared code of the fused decode kernels: K23 fused_ffn.cu and K24
+// fused_rms_qkv.cu (gemm_tile, grid_sync and the row steps, one persistent
+// cooperative launch each), and the decode layer's arguments (Linear), the
+// row steps' fallbacks and the cooperative launch that fused_step2.cuh's
+// streaming body -- K11 fused_layer.cu, K12 fused_step2.cu, K26
+// fused_step3.cu, K27 fused_step.cu -- takes from here.
 //
-// The TPU kernels (tpu_llama/ops/fused_layer.py:77, fused_step2.py:113) are
-// one sequential grid whose phases carry x2, h2 and the int8 rows in VMEM
-// from step to step, with each boundary (rmsnorm, row quant) at the last
-// step of a phase.  CUDA blocks run in parallel and carry nothing, so here
-// every block of a cooperative launch (as many as fit on the card at once)
-// walks the output tiles of a phase, the phases are separated by a grid
-// barrier, and the carried state lives in global scratch that stays in L2
-// (< 1 MB at batch 8).  A boundary is done by one block per row, between
-// two barriers:
+// The TPU kernels (tpu_llama/ops/fused_layer.py:77, :376, :488) are one
+// sequential grid whose phases carry the int8 rows in VMEM from step to
+// step, with each boundary (rmsnorm, row quant) at the last step of a
+// phase.  CUDA blocks run in parallel and carry nothing, so here every
+// block of a cooperative launch (as many as fit on the card at once) walks
+// the output tiles of a phase, the phases are separated by a grid barrier,
+// and the carried state lives in global scratch that stays in L2.  A
+// boundary is done by one block per row, between two barriers.  A decode
+// layer's phases (fused_step2.cuh runs them):
 //
 //   A  x2 = x + (f32(attq . wo) * satt) * wo_s              -> x_next
-//   |  rmsnorm(x2, rms_ffn) -> int8 xq, sx                     (block b: row b)
-//   B  g, u = w13 gate / up columns j and H + j, in one tile;
+//   |  rmsnorm(x2, rms_ffn) -> int8 xq, sx
+//   B  g, u = w13 gate / up columns j and H + j;
 //      h2 = (g * (1 / (1 + exp(-g)))) * u                    -> h2 (K12: bf16-rounded)
-//   |  row quant of h2 -> int8 xq3, sx3
+//   |  row quant of h2 -> int8 xq3
 //   C  x_next = x2 + (f32(xq3 . w2) * sx3) * w2_s             (last layer: done)
 //   |  rmsnorm(x_next, rms_att[l + 1]) -> int8 xq, sx
 //   D  qkv = (f32(xq . wqkv[l + 1]) * sx) * qkv_s
 //
 // Bound on the H100: bytes.  At M = B <= 32 rows every phase is a product
 // that streams its weights once (202.4 MB per 7B layer: 60.4 us at 3.35
-// TB/s) and does ~3.2 G int8 operations.  Design: a tile is 32 weight rows
-// (output columns) over the whole K, K1's decode mainloop -- mma.sync
-// m16n8k32 s8 on K-contiguous operands, a four-stage cp.async ring of
-// 256-byte k-tiles -- with the activation rows read from L2 through
-// cp.async.cg.  Numerics: every f32 product and sum of the epilogues and
-// the SiLU is an explicit round-to-nearest intrinsic, so the plain versions
-// (ops/fused_layer.py, ops/fused_step2.py) repeat them bit for bit; the
-// rmsnorm is K3's (f64 sum of squares), the row quant K2's.
+// TB/s).  gemm_tile (K23, K24): a tile is 32 weight rows (output columns)
+// over the whole K, K1's decode mainloop -- mma.sync m16n8k32 s8 on
+// K-contiguous operands, a four-stage cp.async ring of 256-byte k-tiles --
+// with the activation rows read from L2 through cp.async.cg.  Numerics:
+// every f32 product and sum of the epilogues and the SiLU is an explicit
+// round-to-nearest intrinsic, so the plain versions (ops/fused_layer.py,
+// ops/fused_step2.py) repeat them bit for bit; the rmsnorm is K3's (f64 sum
+// of squares), the row quant K2's.
 //
 // Memory order: scratch that one block writes and another reads after a
 // barrier is read with ld.global.cg / cp.async.cg (L2, never a stale L1
@@ -269,119 +270,9 @@ struct Linear {
     int8_t* xq;            // [B, D] scratch: xq2, then xq4
     float* sx;             // [B]
     float* h2;             // [B, H]
-    int8_t* xq3;           // [B, H]
-    float* sx3;            // [B]
-    unsigned int* bar;     // [2] grid barrier, zero between launches
+    int8_t* xq3;           // [B, H] h2 quantized (in the launch's workspace)
     int B, D, H, QO, last, vec;
 };
-
-template <int BM, bool kBf16H2>
-__device__ void linear_phases(const Linear& a, int8_t* smem) {
-    const int B = a.B, D = a.D, H = a.H, QO = a.QO, b = blockIdx.x;
-
-    // A: x2 = x + (f32(attq . wo) * satt) * wo_s
-    for (int t = blockIdx.x; t * kBN < D; t += gridDim.x) {
-        const int n0 = t * kBN;
-        gemm_tile<BM>(
-            a.attq, B, D, a.vec,
-            [&](int r) -> const int8_t* {
-                return n0 + r < D ? a.wo + (long long)(n0 + r) * D : nullptr;
-            },
-            [&](int row, int c, int acc0, int acc1) {
-                const int acc[2] = {acc0, acc1};
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int n = n0 + c + e;
-                    if (n >= D) continue;
-                    const long long o = (long long)row * D + n;
-                    const float v = __fmul_rn(
-                        __fmul_rn(static_cast<float>(acc[e]), __ldcg(a.satt + row)), a.wos[n]);
-                    a.x_next[o] = __fadd_rn(__ldcg(a.x + o), v);
-                }
-            },
-            smem);
-    }
-    grid_sync(a.bar);
-    if (b < B) rms_quant_row(a.x_next + (long long)b * D, a.rms_ffn, a.rms_bf16, D,
-                             a.xq + (long long)b * D, a.sx + b);
-    grid_sync(a.bar);
-
-    // B: gate column j and up column H + j in one tile (weight rows
-    // interleaved gate, up, gate, up, ...), so one thread holds both
-    for (int t = blockIdx.x; t * (kBN / 2) < H; t += gridDim.x) {
-        const int j0 = t * (kBN / 2);
-        gemm_tile<BM>(
-            a.xq, B, D, a.vec,
-            [&](int r) -> const int8_t* {
-                const int j = j0 + (r >> 1);
-                return j < H ? a.w13 + ((long long)(r & 1) * H + j) * D : nullptr;
-            },
-            [&](int row, int c, int ga, int ua) {
-                const int j = j0 + (c >> 1);
-                if (j >= H) return;
-                const float s = __ldcg(a.sx + row);
-                const float gv = __fmul_rn(__fmul_rn(static_cast<float>(ga), s), a.w13s[j]);
-                const float uv = __fmul_rn(__fmul_rn(static_cast<float>(ua), s), a.w13s[H + j]);
-                float h = __fmul_rn(__fmul_rn(gv, __frcp_rn(__fadd_rn(1.f, expf(-gv)))), uv);
-                if (kBf16H2) h = round_bf16(h);
-                a.h2[(long long)row * H + j] = h;
-            },
-            smem);
-    }
-    grid_sync(a.bar);
-    if (b < B) quant_row(a.h2 + (long long)b * H, H, a.xq3 + (long long)b * H, a.sx3 + b);
-    grid_sync(a.bar);
-
-    // C: x_next = x2 + (f32(xq3 . w2) * sx3) * w2_s
-    for (int t = blockIdx.x; t * kBN < D; t += gridDim.x) {
-        const int n0 = t * kBN;
-        gemm_tile<BM>(
-            a.xq3, B, H, a.vec,
-            [&](int r) -> const int8_t* {
-                return n0 + r < D ? a.w2 + (long long)(n0 + r) * H : nullptr;
-            },
-            [&](int row, int c, int acc0, int acc1) {
-                const int acc[2] = {acc0, acc1};
-                const float s = __ldcg(a.sx3 + row);
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int n = n0 + c + e;
-                    if (n >= D) continue;
-                    const long long o = (long long)row * D + n;
-                    const float v = __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), s), a.w2s[n]);
-                    a.x_next[o] = __fadd_rn(__ldcg(a.x_next + o), v);
-                }
-            },
-            smem);
-    }
-    if (a.last) return;  // the last layer has no next qkv
-    grid_sync(a.bar);
-    if (b < B) rms_quant_row(a.x_next + (long long)b * D, a.rms_att, a.rms_bf16, D,
-                             a.xq + (long long)b * D, a.sx + b);
-    grid_sync(a.bar);
-
-    // D: qkv = (f32(xq . wqkv) * sx) * qkv_s, layer l + 1
-    for (int t = blockIdx.x; t * kBN < QO; t += gridDim.x) {
-        const int n0 = t * kBN;
-        gemm_tile<BM>(
-            a.xq, B, D, a.vec,
-            [&](int r) -> const int8_t* {
-                return n0 + r < QO ? a.wqkv + (long long)(n0 + r) * D : nullptr;
-            },
-            [&](int row, int c, int acc0, int acc1) {
-                const int acc[2] = {acc0, acc1};
-                const float s = __ldcg(a.sx + row);
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int n = n0 + c + e;
-                    if (n < QO)
-                        a.qkv[(long long)row * QO + n] =
-                            __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), s), a.wqkvs[n]);
-                }
-            },
-            smem);
-    }
-}
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -473,7 +364,7 @@ cudaError_t launch_shape(void (*kern)(Args), int smem, int* per_sm, int* sms) {
 
 // Launches kern(args) cooperatively with as many blocks as fit on the card
 // at once -- or, with per_sm_want > 0, with exactly per_sm_want blocks per
-// SM (K26 runs on K12's grid), refused if fewer fit.  A refused launch
+// SM (K26 runs on K12's grid, K11 on two), refused if fewer fit.  A refused launch
 // (cudaErrorCooperativeLaunchTooLarge) is returned, never retried.
 template <class Args>
 int coop_launch(void (*kern)(Args), const Args& args, int smem, cudaStream_t st,

@@ -90,8 +90,8 @@ extern "C" int tl_fused_step2_layer(
     if (B <= 0) return 0;
     f2::Step2 a{};
     a.lay.lin = fd::Linear{x,  attq, satt, wo, wos, w13, w13s, w2, w2s, wqkv, wqkvs, rms_ffn,
-                           rms_att, rms_dtype, x_next, qkv, xq, sx, h2, nullptr, nullptr,
-                           nullptr, B, D, H, QO, last != 0, 0};
+                           rms_att, rms_dtype, x_next, qkv, xq, sx, h2, nullptr,
+                           B, D, H, QO, last != 0, 0};
     a.kc = kc;
     a.vc = vc;
     a.kcs = kcs;

@@ -1,17 +1,20 @@
-// K12's layer body (fused_step2.cu), which K26 (fused_step3.cu) runs twice
-// per launch: layer l's linear work, then layer l + 1's attention, in one
-// persistent cooperative launch.
+// The streaming decode-layer body: K12's (fused_step2.cu), which K26
+// (fused_step3.cu) runs twice per launch, and K11's (fused_layer.cu) and
+// K27's (fused_step.cu) linear phases.  K12: layer l's linear work, then
+// layer l + 1's attention, in one persistent cooperative launch; K27 the two
+// halves in the other order (layer l's attention, then its linear work);
+// K11 the linear work alone.
 //
-// What it replaces: fused_decode.cuh's linear_phases (K11's, which K11 and
-// K27 keep) and its trailing dec_attend cells.  On the H100 that body ran
-// at 3.5-5.7x its bytes bound: each phase grid-strode 32-row weight tiles
-// over the whole K, so phases A (wo) and C (w2), 128 tiles each, kept one
-// block an SM busy and the rest idle; a block had three 8 KB stages in
-// flight behind a block-wide barrier each; every tile re-read the
-// activations from L2 as a 16-row A operand padded with zeros at batch 8;
-// eight grid barriers a layer stopped the weight stream, four of them
-// around a step that one block per row ran while the grid waited; and each
-// trailing cell walked its slot's cache alone.
+// What it replaces: fused_decode.cuh's linear_phases, which K11, K27 and
+// the first K12 ran, and the dec_attend cells of K12 and K27 (gone).  On
+// the H100 that body ran at 3.5-5.7x its bytes bound: each phase
+// grid-strode 32-row weight tiles over the whole K, so phases A (wo) and C
+// (w2), 128 tiles each, kept one block an SM busy and the rest idle; a
+// block had three 8 KB stages in flight behind a block-wide barrier each;
+// every tile re-read the activations from L2 as a 16-row A operand padded
+// with zeros at batch 8; eight grid barriers a layer stopped the weight
+// stream, four of them around a step that one block per row ran while the
+// grid waited; and each cell walked its slot's cache alone.
 //
 // Design (bound: bytes -- 202.4 MB of 7B weights a layer plus the cache
 // rows each slot attends):
@@ -40,7 +43,9 @@
 //   bytes of weight rows g and g + 8 and of batch row g at the same k: any
 //   permutation of K in both operands leaves an int32 dot unchanged, so one
 //   16-byte read is the fragments of two mma.m16n8k32 with the batch rows as
-//   the mma's N (8 a tile: no padded rows at batch 8).
+//   the mma's N (8 a tile: no padded rows at batch 8).  Above 8 rows a
+//   stage holds 16 weight rows and 32 activation rows, and the weights
+//   stream at about half their rate at 8 rows (open work).
 // - No grid barrier.  Each boundary is dataflow on counters in a workspace
 //   that the launch leaves zero: a group's epilogue bumps its phase's
 //   count; blocks b < B wait for the whole phase, compute row b's rmsnorm +
@@ -50,26 +55,27 @@
 //   max |h2| (an order-free atomic max in phase B's epilogue): every block
 //   quantizes a slice of h2 (K2's formula) once phase B is done.  The last
 //   block out of the launch sets the counters back to zero.
-// - The trailing cells run decode_split.cuh's split cell (K9's) over
-//   (slot, kv head, split) items taken grid-stride, the last splits first
-//   (only the longest slots reach them); splits by ops/fused_step2.py
-//   fused_splits (a function of the shapes alone).  A split whose span
-//   starts past its slot's rows is skipped and left out of the merge (its
-//   partial would merge as an exact no-op), so short slots pay nothing for
-//   the splits a long one needs.  Partials merge in split order in the
-//   launch (the cell's self-resetting tickets), and each block prefetches
-//   its first item's first key rows into L2 while phase D finishes.  At one
-//   split the cell runs the sequential block walk of common.cuh's
-//   dec_attend (the old cells); at more, each p rounds against its split's
-//   running max (K9's accepted departure).  At either count the plain
-//   version's dots and sums run in PyTorch's order, so an f32 ulp can move
-//   a rare attention output across an int8 step: the output is held to it
-//   within one step, not bit for bit.
+// - The cells (K12's trailing, K27's leading) run decode_split.cuh's split
+//   cell (K9's) over (slot, kv head, split) items taken grid-stride, the
+//   last splits first (only the longest slots reach them); splits by
+//   ops/fused_step2.py fused_splits (a function of the shapes alone).  A
+//   split whose span starts past its slot's rows is skipped and left out of
+//   the merge (its partial would merge as an exact no-op), so short slots
+//   pay nothing for the splits a long one needs.  Partials merge in split
+//   order in the launch (the cell's self-resetting tickets).  K12's blocks
+//   prefetch their first item's first key rows into L2 while phase D
+//   finishes.  At one split the cell runs the sequential block walk of
+//   common.cuh's dec_attend (the old cells); at more, each p rounds against
+//   its split's running max (K9's accepted departure).  At either count the
+//   plain version's dots and sums run in PyTorch's order, so an f32 ulp can
+//   move a rare attention output across an int8 step: the output is held to
+//   it within one step, not bit for bit.
 //
 // Numerics are the old body's: every f32 product and sum of the epilogues
 // and the SiLU an explicit round-to-nearest intrinsic, h2 rounded to bf16
-// (fused_step2.py:217-224), the rmsnorm's f64 sum of squares (K3), the
-// quant formula of common.cuh.
+// (K12 and K26: fused_step2.py:217-224) or kept in f32 (K11 and K27:
+// fused_layer.py:118-126) -- the body's kBf16H2 --, the rmsnorm's f64 sum of
+// squares (K3), the quant formula of common.cuh.
 //
 // Memory order: data one block writes and another reads later in the launch
 // is read through L2 (ld.global.cg) or by a bulk copy issued after a proxy
@@ -356,8 +362,9 @@ __device__ __forceinline__ void fill_shared(LayerShared& S, const Layer& L) {
 // first's) sets each stage's barrier parity.  A unit's weight rows are
 // copied as soon as its stage is free, also across a phase boundary (the
 // weights need no activation); its activation rows once the phase's
-// activations are ready (`ready`: the last phase whose are).
-template <int NT>
+// activations are ready (`ready`: the last phase whose are).  kBf16H2:
+// phase B rounds h2 to bf16 (K12, K26), else keeps it in f32 (K11, K27).
+template <int NT, bool kBf16H2>
 struct LayerRun {
     const LayerShared& S;  // the layer's descriptors, in shared memory
     unsigned char* stage;  // [kStagesU][stage_bytes(NT)]
@@ -476,8 +483,8 @@ struct LayerRun {
                         __fmul_rn(__fmul_rn(static_cast<float>(acc[t][e]), s), P.ws[j]);
                     const float uv =
                         __fmul_rn(__fmul_rn(static_cast<float>(acc[t][e + 2]), s), P.ws[H + j]);
-                    const float hv = round_bf16(
-                        __fmul_rn(__fmul_rn(gv, __frcp_rn(__fadd_rn(1.f, expf(-gv)))), uv));
+                    float hv = __fmul_rn(__fmul_rn(gv, __frcp_rn(__fadd_rn(1.f, expf(-gv)))), uv);
+                    if (kBf16H2) hv = round_bf16(hv);
                     a.h2[(long long)b * H + j] = hv;
                     mx[t][e] = fabsf(hv);
                 }
@@ -711,14 +718,14 @@ __device__ __forceinline__ void quant_h2_slice(const fd::Linear& a, const Flow* 
 
 // Layer l's phases A-D (A-C on the last layer) with their boundaries;
 // *q is the ring's use count, carried from layer to layer of a launch.
-template <int NT>
+template <int NT, bool kBf16H2>
 __device__ __noinline__ void layer_phases(const LayerShared& S, unsigned char* smem, int* q) {
     __shared__ int red[kWarps][32][4 * NT];
     FD_STAMP(19);
     const fd::Linear& a = S.lin;
     const unsigned B = static_cast<unsigned>(a.B);
     Flow* fl = S.flow;
-    LayerRun<NT> run{S, smem, ring_barriers(), red, *q, S.wait_a != nullptr ? -1 : 0,
+    LayerRun<NT, kBf16H2> run{S, smem, ring_barriers(), red, *q, S.wait_a != nullptr ? -1 : 0,
                      static_cast<int>(threadIdx.x & 31), static_cast<int>((threadIdx.x & 31) >> 2),
                      static_cast<int>(threadIdx.x & 3), static_cast<int>(threadIdx.x >> 5)};
     fence_proxy_async();  // the cells' shared-memory writes before the ring's copies
@@ -742,7 +749,7 @@ __device__ __noinline__ void layer_phases(const LayerShared& S, unsigned char* s
         count_up(fl->rows + 0);
     }
     FD_STAMP(2);
-    // B: h2 = bf16(silu(gate) * up), max |h2| per row
+    // B: h2 = silu(gate) * up (K12: rounded to bf16), max |h2| per row
     wait_geq(fl->rows + 0, B);
     run.make_ready(1, issued);
     FD_STAMP(3);
@@ -800,10 +807,53 @@ struct Step2 {
     float isqrt;         // f32(1 / sqrt(f32(hd)))
 };
 
+// Item k of a launch's cells: split sp = splits - 1 - k / (B KVH) of cell
+// c = k % (B KVH), slot (c + sp) % B (or c % B) and kv head c / B -- the
+// last splits first, which only the longest slots reach, and the slots
+// fastest, so that the live items of a few long slots spread evenly over
+// the blocks, which take items grid-stride and skip, with no memory round
+// trip, a split whose span starts past its slot's rows (`live` splits of a
+// cell take part).  The slot turns with the split where the grid is a
+// multiple of B (batch 8 on four blocks an SM): without the turn, block j's
+// items would all be slot j % B there, and a few blocks would walk every
+// long slot's splits.  p: the slot's rows; row0: the cache row of s = 0 of
+// (layer, b, h).
+__device__ __forceinline__ void cell_of(const Step2& a, int item, int& b, int& h, int& sp,
+                                        int& p, long long& row0, int& live) {
+    const int B = a.lay.lin.B, cells = B * a.KVH, cell = item % cells;
+    const int blocks = (a.S + a.TS - 1) / a.TS;
+    sp = a.splits - 1 - item / cells;
+    b = gridDim.x % B == 0 ? (cell + sp) % B : cell % B;
+    h = cell / B;
+    p = min(max(a.pos[b], 0), a.S);
+    row0 = (((long long)a.layer * B + b) * a.KVH + h) * a.S;
+    const int nb = (p + a.TS - 1) / a.TS;
+    live = 1;
+    while (live < a.splits &&
+           static_cast<int>(static_cast<long long>(live) * blocks / a.splits) < nb)
+        ++live;
+}
+
+// The end of the cells: blocks b < B wait for every (slot, kv head)
+// output, quantize row b of the attention output (K2's quant) into
+// attq_next, satt_next and count it on the flow's rows[2].
+__device__ __forceinline__ void quant_att_rows(const Step2& a) {
+    const fd::Linear& lin = a.lay.lin;
+    Flow* fl = a.lay.flow;
+    if (blockIdx.x < lin.B) {
+        wait_geq(&fl->cells, static_cast<unsigned>(lin.B * a.KVH));
+        FD_STAMP(18);
+        quant_row(a.att + (long long)blockIdx.x * lin.D, lin.D,
+                  a.attq_next + (long long)blockIdx.x * lin.D, a.satt_next + blockIdx.x);
+        count_up(fl->rows + 2);
+    }
+    FD_STAMP(12);
+}
+
 // The trailing attention of layer l + 1: items (slot b, kv head h, split)
-// grid-stride, each building its q rows and the fresh K / V rows from qkv
-// (every split of a cell writes the same fresh rows), then the split cell;
-// then blocks b < B quantize row b of the attention output.
+// grid-stride (cell_of), each building its q rows and the fresh K / V rows
+// from qkv (every split of a cell writes the same fresh rows), then the
+// split cell; then blocks b < B quantize row b of the attention output.
 template <int CH>
 __device__ __noinline__ void layer_cells(const Step2& a, unsigned char* smem) {
     __shared__ float red[kThreads / 32];
@@ -813,32 +863,13 @@ __device__ __noinline__ void layer_cells(const Step2& a, unsigned char* smem) {
     const int P = dec_pitch<int8_t>(hd), hp = hd / 2, tid = threadIdx.x;
     const int items = B * KVH * a.splits;
     const int blocks = (a.S + a.TS - 1) / a.TS;
-    // item k: split splits - 1 - k / (B KVH) of cell k % (B KVH) -- the last
-    // splits first, which only the longest slots reach, and the slots
-    // fastest, so that the live items of a few long slots spread evenly over
-    // the blocks, which take items grid-stride and skip, with no memory
-    // round trip, a split whose span starts past its slot's rows (`live`
-    // splits of a cell take part)
-    auto cell_of = [&](int item, int& b, int& h, int& sp, int& p, long long& row0, int& live) {
-        const int cells = B * KVH, cell = item % cells;
-        sp = a.splits - 1 - item / cells;
-        b = cell % B;
-        h = cell / B;
-        p = min(max(a.pos[b], 0), a.S);
-        row0 = (((long long)a.layer * B + b) * KVH + h) * a.S;
-        const int nb = (p + a.TS - 1) / a.TS;
-        live = 1;
-        while (live < a.splits &&
-               static_cast<int>(static_cast<long long>(live) * blocks / a.splits) < nb)
-            ++live;
-    };
     // the first live item's first key rows into L2 while phase D finishes
     int item = blockIdx.x;
     {
         int b, h, sp, p, live;
         long long row0;
         for (; item < items; item += gridDim.x) {
-            cell_of(item, b, h, sp, p, row0, live);
+            cell_of(a, item, b, h, sp, p, row0, live);
             if (sp < live) break;
         }
         if (item < items) {
@@ -859,7 +890,7 @@ __device__ __noinline__ void layer_cells(const Step2& a, unsigned char* smem) {
     for (; item < items; item += gridDim.x) {
         int b, h, sp, p, live;
         long long row0;
-        cell_of(item, b, h, sp, p, row0, live);
+        cell_of(a, item, b, h, sp, p, row0, live);
         if (sp >= live) continue;
         const long long bh = (long long)b * KVH + h;
         const float* row = lin.qkv + (long long)b * QO;
@@ -918,14 +949,7 @@ __device__ __noinline__ void layer_cells(const Step2& a, unsigned char* smem) {
         }
     }
     FD_STAMP(11);
-    if (blockIdx.x < B) {
-        wait_geq(&fl->cells, static_cast<unsigned>(B * KVH));
-        FD_STAMP(18);
-        quant_row(a.att + (long long)blockIdx.x * D, D, a.attq_next + (long long)blockIdx.x * D,
-                  a.satt_next + blockIdx.x);
-        count_up(fl->rows + 2);
-    }
-    FD_STAMP(12);
+    quant_att_rows(a);
 }
 
 template <int NT, int CH>
@@ -934,7 +958,7 @@ __device__ __forceinline__ void step2_layer(const Step2& a, unsigned char* smem,
     __syncthreads();  // S is free (K26: the first layer's use of it is over)
     if (threadIdx.x == 0) fill_shared(S, a.lay);
     __syncthreads();
-    layer_phases<NT>(S, smem, q);
+    layer_phases<NT, true>(S, smem, q);
     if (!a.lay.lin.last) layer_cells<CH>(a, smem);
 }
 

@@ -91,8 +91,8 @@ extern "C" int tl_fused_step3_pair(
     Step3 a{};
     f2::Step2& s1 = a.first;
     s1.lay.lin = fd::Linear{x,   attq, satt, wo, wos, w13, w13s, w2, w2s, wqkv, wqkvs, rms_ffn,
-                            rms_att, rms_dtype, x_seam, qkv, xq, sx, h2, nullptr, nullptr,
-                            nullptr, B, D, H, QO, 0, 0};
+                            rms_att, rms_dtype, x_seam, qkv, xq, sx, h2, nullptr,
+                            B, D, H, QO, 0, 0};
     s1.kc = kc;
     s1.vc = vc;
     s1.kcs = kcs;
@@ -121,7 +121,7 @@ extern "C" int tl_fused_step3_pair(
     s2 = s1;
     s2.lay.lin = fd::Linear{x_seam, attq_seam, satt_seam, wo2, wos2, w132, w13s2, w22, w2s2,
                             wqkv2, wqkvs2, rms_ffn2, rms_att2, rms_dtype, x_out, qkv, xq, sx, h2,
-                            nullptr, nullptr, nullptr, B, D, H, QO, last2 != 0, 0};
+                            nullptr, B, D, H, QO, last2 != 0, 0};
     s2.attq_next = attq_out;
     s2.satt_next = satt_out;
     s2.kq = kq2;

@@ -1,8 +1,8 @@
-"""Where K12's time goes, phase by phase, on the card.
+"""Where the time of K12 (and of K11 or K27) goes, phase by phase, on the card.
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 -m tpu_llama_torch.k12_phases [--reps 10]
+    python3 -m tpu_llama_torch.k12_phases [--reps 10] [--kernel k12|k11|k27]
 
 Builds ``csrc/fused_step2.cu`` a second time with ``-DFD_STAMPS`` (every
 block records ``%globaltimer`` at each of its FD_STAMP events,
@@ -18,6 +18,18 @@ with CUDA events, the stamped and the committed library in turns (the
 stamps' cost), and the committed K12 alone against K12 launched after
 K9's split cell (the shared-memory carveout question of PERF.md section 7).
 Prints one JSON line per shape, then one for the carveout test.
+
+``--kernel k11`` stamps K11 (``csrc/fused_layer.cu``, the same streaming
+body's phases without cells) through ``fused_layer_linear`` at batch 8 on
+layer 17 and the last layer, batch 32 on layer 17 and batch 1 on layer 17;
+``--kernel k27`` stamps K27 (``csrc/fused_step.cu``: the cells, then the
+phases) through ``fused_step_layer`` at K12's four shapes.  Both print the
+same lines as K12's, without the carveout test.  Events (fused_step2.cuh):
+19 the layer's start, 0 / 1 phase A, 14 / 15 the first row step (blocks b <
+B), 2 / 3 phase B ready, 4 phase B done, 5 phase C ready, 6 phase C done,
+16 / 17 the second row step, 7 / 8 phase D ready, 9 phase D done, 10 / 11
+the cells, 18 / 12 the attention quant, 13 the exit; 20 / 21 / 22 inside
+the row steps (the row's loads, its sum of squares, its quant).
 """
 
 from __future__ import annotations
@@ -35,15 +47,123 @@ DECODE_POS = [0, 1, 127, 128, 511, 1000, 1900, 2047]
 SHAPES = ((8, DECODE_POS, 17), (1, [511], 17), (1, [2047], 17), (8, DECODE_POS, 31))
 
 
-def _stamped_lib():
-    """Build fused_step2.cu with -DFD_STAMPS (once; ``build_extra``) and load
-    it with K12's argument types."""
+def _stamped_lib(name="fused_step2"):
+    """Build csrc/<name>.cu with -DFD_STAMPS (once; ``build_extra``) and load
+    it with its kernel's argument types; its stamps' reader is
+    ``lib.stamps``."""
     from tpu_llama_torch.ops import _kernels as K
 
-    lib = K.open_lib("fused_step2", K.build_extra(K._CSRC / "fused_step2.cu", ["-DFD_STAMPS"]))
-    lib.tl_fused_step2_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.tl_fused_step2_stamps.restype = ctypes.c_int
+    lib = K.open_lib(name, K.build_extra(K._CSRC / f"{name}.cu", ["-DFD_STAMPS"]))
+    lib.stamps = getattr(lib, f"tl_{name}_stamps")
+    lib.stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.stamps.restype = ctypes.c_int
     return lib
+
+
+EV_N, BLK_N = 24, 2048  # fused_decode.cuh kStampEvents, kStampBlocks
+
+
+def stamp_medians(lib, call, reps: int, start: int = 0):
+    """Over ``reps`` calls of ``call(r)`` (each one launch of ``lib``'s
+    stamped kernel), the median of the time from the first block's start
+    (event ``start``, which every block stamps first) to the last block and
+    to the first block reaching each event, in us, by event; and the blocks
+    of the launch."""
+    buf = (ctypes.c_ulonglong * (EV_N * BLK_N))()
+    last, first = {}, {}
+    nb = 0
+    for r in range(reps):
+        # a block's stamp of an event it did not reach this launch is an
+        # older launch's: each launch is read from its own first start on
+        call(r)
+        torch.cuda.synchronize()
+        code = lib.stamps(buf, EV_N * BLK_N)
+        if code:
+            raise RuntimeError(f"stamps read failed ({code})")
+        st = np.frombuffer(buf, dtype=np.uint64).reshape(BLK_N, EV_N).astype(np.int64)
+        # this launch's blocks started within a few us of each other; rows
+        # of blocks past its grid hold an older launch's stamps
+        starts = st[:, start]
+        run = st[starts >= starts.max() - 1_000_000]
+        nb = len(run)
+        t0 = run[:, start].min()
+        for e in range(EV_N):
+            col = run[:, e]
+            col = col[col >= t0]
+            if col.size == 0:
+                continue
+            last.setdefault(e, []).append((col.max() - t0) / 1e3)
+            first.setdefault(e, []).append((col.min() - t0) / 1e3)
+    return ({e: statistics.median(v) for e, v in sorted(last.items())},
+            {e: statistics.median(v) for e, v in sorted(first.items())}, nb)
+
+
+def events_ms(fn, iters):
+    """CUDA-event ms per call of ``fn(i)`` over ``iters`` back-to-back calls."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn(0)
+    torch.cuda.synchronize()
+    a.record()
+    for i in range(iters):
+        fn(i)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def stamp_kernel(kernel: str, reps: int, smi: str, ws, rf, ra, gen, cfg) -> None:
+    """``--kernel k11`` or ``k27``: one JSON line per shape, as K12's, for
+    K11 (fused_layer.cu) or K27 (fused_step.cu)."""
+    from tpu_llama_torch.ops import _kernels as K
+    from tpu_llama_torch.ops import fused_layer as tfl
+    from tpu_llama_torch.ops import fused_step as tfst
+
+    name = {"k11": "fused_layer", "k27": "fused_step"}[kernel]
+    K.load([name])
+    committed = K._libs[name]
+    stamped = _stamped_lib(name)
+    L, D, KVH, hd, S = cfg.n_layers, cfg.dim, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
+    shapes = (((8, None, 17), (8, None, L - 1), (32, None, 17), (1, None, 17)) if kernel == "k11"
+              else SHAPES)
+    for B, pos, layer in shapes:
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        layers = [layer] if layer == L - 1 else [(layer + i) % (L - 1) for i in range(8)]
+        if kernel == "k11":
+            attq = torch.randint(-127, 128, (B, D), generator=gen, device="cuda",
+                                 dtype=torch.int8)
+            satt = torch.rand(B, generator=gen, device="cuda") * 0.02 + 0.005
+
+            def call(i):
+                tfl.fused_layer_linear(x, attq, satt, *ws, rf, ra, layers[i % len(layers)], L)
+        else:
+            cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
+                                   dtype=torch.int8) for _ in range(2)]
+            scales = [torch.rand(L, B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+                      for _ in range(2)]
+            q = torch.randn(B, KVH, 1, hd, generator=gen, device="cuda")
+            nk = torch.randint(-127, 128, (B, KVH, hd), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            nks = torch.rand(B, KVH, generator=gen, device="cuda") * 0.02 + 0.01
+            pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+            def call(i):
+                tfst.fused_step_layer(x, q, nk, nk, nks, nks, *cache, *scales, pt, *ws, rf, ra,
+                                      layers[i % len(layers)], L)
+        K._libs[name] = stamped
+        call(0)
+        torch.cuda.synchronize()
+        last, first, nb = stamp_medians(stamped, call, reps, 10 if kernel == "k27" else 0)
+        turns = []
+        for lib in (stamped, committed, stamped, committed):
+            K._libs[name] = lib
+            turns.append(events_ms(call, 20))
+        K._libs[name] = committed
+        shape = (f"B={B} layer {layer}" if pos is None else
+                 f"B={B} pos={pos[0] if B == 1 else 'mix'} layer {layer}")
+        print(json.dumps(dict(kernel=kernel.upper(), shape=shape, blocks=nb,
+            last_us=last, first_us=first, events_ms_committed=turns[1::2],
+            events_ms_stamped=turns[0::2], card=smi)), flush=True)
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:
@@ -57,18 +177,13 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kernel", choices=("k12", "k11", "k27"), default="k12")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k12_phases needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    K.load(["fused_step2", "flash_decode_dma"])
-    committed = K._libs["fused_step2"]
-    stamped = _stamped_lib()
-    ev_n, blk_n = 24, 2048  # fused_decode.cuh kStampEvents, kStampBlocks
-    buf = (ctypes.c_ulonglong * (ev_n * blk_n))()
-
     cfg = LLAMA2_7B
     L, D, H, KVH, hd, S = (cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.n_kv_heads, cfg.head_dim,
                            cfg.seq_len)
@@ -84,17 +199,12 @@ def main(argv=None) -> None:
     ws = (qt(D, D), qt(D, 2 * H), qt(H, D), qt(D, QO))
     rf, ra = [(1 + 0.1 * torch.randn(L, D, generator=gen, device="cuda")).to(torch.bfloat16)
               for _ in range(2)]
-
-    def events_ms(fn, iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        fn(0)
-        torch.cuda.synchronize()
-        a.record()
-        for i in range(iters):
-            fn(i)
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
+    if args.kernel != "k12":
+        stamp_kernel(args.kernel, args.reps, smi, ws, rf, ra, gen, cfg)
+        return
+    K.load(["fused_step2", "flash_decode_dma"])
+    committed = K._libs["fused_step2"]
+    stamped = _stamped_lib()
 
     for B, pos, layer in SHAPES:
         cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
@@ -116,28 +226,7 @@ def main(argv=None) -> None:
         K._libs["fused_step2"] = stamped
         k12(0)
         torch.cuda.synchronize()
-        last, first = {}, {}
-        nb = 0
-        for r in range(args.reps):
-            # a block's stamp of an event it did not reach this launch is an
-            # older launch's: each launch is read from its own first start on
-            k12(r)
-            torch.cuda.synchronize()
-            code = stamped.tl_fused_step2_stamps(buf, ev_n * blk_n)
-            if code:
-                raise RuntimeError(f"stamps read failed ({code})")
-            st = np.frombuffer(buf, dtype=np.uint64).reshape(blk_n, ev_n).astype(np.int64)
-            starts = st[:, 0]
-            nb = int((starts > 0).sum()) if r == 0 else nb
-            run = st[:nb]
-            t0 = run[:, 0].min()
-            for e in range(ev_n):
-                col = run[:, e]
-                col = col[col >= t0]
-                if col.size == 0:
-                    continue
-                last.setdefault(e, []).append((col.max() - t0) / 1e3)
-                first.setdefault(e, []).append((col.min() - t0) / 1e3)
+        last, first, nb = stamp_medians(stamped, k12, args.reps)
         ms_stamped = events_ms(k12, 20)
         K._libs["fused_step2"] = committed
         ms_committed = events_ms(k12, 20)
@@ -146,8 +235,7 @@ def main(argv=None) -> None:
         K._libs["fused_step2"] = committed
         ms_committed2 = events_ms(k12, 20)
         line = dict(shape=f"B={B} pos={pos[0] if B == 1 else 'mix'} layer {layer}", blocks=nb,
-                    last_us={e: statistics.median(v) for e, v in sorted(last.items())},
-                    first_us={e: statistics.median(v) for e, v in sorted(first.items())},
+                    last_us=last, first_us=first,
                     events_ms_committed=[ms_committed, ms_committed2],
                     events_ms_stamped=[ms_stamped, ms_stamped2], card=smi)
         print(json.dumps(line), flush=True)

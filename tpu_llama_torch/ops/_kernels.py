@@ -69,9 +69,8 @@ SOURCES = {
     # rk, rv, rks, rvs, ck, cv, cks, cvs, B, KVH, Tc, S, hd, start, layer, vec, stream
     "kv_write_chunk": ("tl_kv_write_chunk", [*[_P] * 8, *[_I] * 8, _P]),
     # x, attq, satt, 4 x (weights, scales), rms_ffn, rms_att, rms dtype, x_next, qkv,
-    # xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
-    "fused_layer": ("tl_fused_layer_linear",
-                    [*[_P] * 13, _I, *[_P] * 8, _I, _I, _I, _I, _I, _P]),
+    # xq, sx, h2, workspace, B, D, H, QO, last, stream
+    "fused_layer": ("tl_fused_layer_linear", [*[_P] * 13, _I, *[_P] * 6, *[_I] * 5, _P]),
     # q, q dtype, k, v, ks, vs, page_table, pos, nk, nv, nks, nvs, out, layer, B, KVH, G, P,
     # ps, MP, hd, TS (K20: ring tile rows), splits, sqrt(hd), copy chunk, split workspace,
     # tickets, stream
@@ -108,11 +107,12 @@ SOURCES = {
     "fused_step3": ("tl_fused_step3_pair",
                     [*[_P] * 13, _I, *[_P] * 6, *[_I] * 5, *[_P] * 16, *[_I] * 7,
                      ctypes.c_float, _I, *[_P] * 17, _I, _I, _I, _P]),
-    # q, nk, nv, nks, nvs, k, v, ks, vs, pos, att, attq, satt, KVH, G, hd, S, layer, TS,
-    # sqrt(hd), copy chunk, then x, 4 x (weights, scales), rms_ffn, rms_att, rms dtype,
-    # x_next, qkv, xq, sx, h2, xq3, sx3, barrier, B, D, H, QO, last, stream
+    # q, nk, nv, nks, nvs, k, v, ks, vs, pos, att, attq, satt, split partials, split
+    # tickets, KVH, G, hd, S, layer, TS, splits, sqrt(hd), copy chunk, then x, 4 x (weights,
+    # scales), rms_ffn, rms_att, rms dtype, x_next, qkv, xq, sx, h2, workspace, B, D, H, QO,
+    # last, stream
     "fused_step": ("tl_fused_step_layer",
-                   [*[_P] * 13, *[_I] * 6, ctypes.c_float, _I, *[_P] * 11, _I, *[_P] * 8,
+                   [*[_P] * 15, *[_I] * 7, ctypes.c_float, _I, *[_P] * 11, _I, *[_P] * 6,
                     *[_I] * 5, _P]),
     # k, v, pos, ck, cv, cks, cvs, cache dtype, layer, B, KVH, S, hd, stream
     "kv_write_decode": ("tl_kv_write_decode", [*[_P] * 7, *[_I] * 6, _P]),

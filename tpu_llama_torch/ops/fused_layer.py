@@ -33,7 +33,7 @@ from tpu_llama_torch.ops.quant import (
     rmsnorm_quantize_plain,
 )
 
-MAX_ROWS = 32  # batch rows K11 and K12 take (csrc/fused_decode.cuh kMaxRows)
+MAX_ROWS = 32  # batch rows K11, K12, K26 and K27 take (csrc/fused_decode.cuh kMaxRows)
 
 
 def w8a8_matmul_stacked_plain(xq, sx, w: ChannelQuantTensor, layer: int) -> torch.Tensor:
@@ -121,40 +121,42 @@ def layer_views(wo, w13, w2, wqkv, rms_ffn, rms_att, layer: int, n_layers: int):
             rms_ffn[layer], rms_att[nxt])
 
 
-def launch_args(x, attq, satt, views, x_next, qkv, B, D, H, QO, last):
-    """The leading arguments of tl_fused_layer_linear / tl_fused_step2_layer
-    (see _kernels.SOURCES), with their scratch allocated in one tensor."""
+def launch_args(x, attq, satt, views, x_next, qkv, B, D, H, QO, last, stream: int):
+    """tl_fused_layer_linear's arguments but the stream (see
+    _kernels.SOURCES), which tl_fused_step_layer takes too without attq and
+    satt, and the tensors they point into that must outlive the launch's
+    queueing.  The scratch (xq, sx, h2) and the workspace are the streaming
+    body's, kept per (card, stream, widths) by ops/fused_step2.py and shared
+    with K12, K26 and K27: each launch leaves the workspace zero but for its
+    quantized h2, and launches on one stream run in order."""
+    # imported here: ops/fused_step2.py imports this module
+    from tpu_llama_torch.ops.fused_step2 import step2_scratch, step2_workspace
+
     wo, w13, w2, wqkv, rf, ra = views
     if not all(t.is_contiguous() for w in (wo, w13, w2, wqkv) for t in (w.q, w.s)):
         raise ValueError("the fused decode reads the weights where they lie: each layer's "
                          "q and s must be contiguous")
     dev = x.device
-    # xq [B, D] i8 | xq3 [B, H] i8 | sx [B] | sx3 [B] | h2 [B, H] f32, 16-byte aligned
-    sizes = [B * D, B * H, 4 * B, 4 * B, 4 * B * H]
-    offs, total = [], 0
-    for n in sizes:
-        offs.append(total)
-        total += -(-n // 16) * 16
-    ws = torch.empty(total, dtype=torch.uint8, device=dev)
-    base = ws.data_ptr()
-    xq, xq3, sx, sx3, h2 = (base + o for o in offs)
+    sc = step2_scratch(dev, stream, B, D, H, QO)
+    ws = step2_workspace(dev, stream, D, H, QO)
     if rf.dtype != ra.dtype:
         ra = ra.to(rf.dtype)
     args = [x.data_ptr(), attq.data_ptr(), satt.data_ptr()]
     for w in (wo, w13, w2, wqkv):
         args += [w.q.data_ptr(), w.s.data_ptr()]
     args += [rf.data_ptr(), ra.data_ptr(), _kernels.dtype_code(rf.dtype), x_next.data_ptr(),
-             qkv.data_ptr(), xq, sx, h2, xq3, sx3, barrier(dev).data_ptr(), B, D, H, QO,
-             int(last)]
-    return args, (ws, ra)  # keep the scratch alive until the launch is queued
+             qkv.data_ptr(), sc["xq"].data_ptr(), sc["sx"].data_ptr(), sc["h2"].data_ptr(),
+             ws.data_ptr(), B, D, H, QO, int(last)]
+    return args, ra
 
 
 _BARRIERS: dict[torch.device, torch.Tensor] = {}
 
 
 def barrier(device: torch.device) -> torch.Tensor:
-    """The grid barrier of the cooperative launches on ``device``: two zeroed
-    uint32 words, made once; every barrier leaves the count at zero."""
+    """The grid barrier of K23's and K24's cooperative launches on
+    ``device``: two zeroed uint32 words, made once; every barrier leaves the
+    count at zero."""
     if device not in _BARRIERS:
         _BARRIERS[device] = torch.zeros(2, dtype=torch.int32, device=device)
     return _BARRIERS[device]
@@ -187,7 +189,8 @@ def fused_layer_linear(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
     output and layer ``layer + 1``'s qkv projection of it.  At the last
     layer qkv_next is not computed: the buffer (``qkv_out``, or a new
     uninitialized one) comes back untouched.  B <= 32 on the card.  K11 on
-    CUDA tensors (one cooperative launch), the plain version on CPU ones."""
+    CUDA tensors (one cooperative launch on csrc/fused_step2.cuh's streaming
+    body, h2 in f32), the plain version on CPU ones."""
     layer = int(layer)
     B, D, H, QO = check_layer(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, layer,
                               n_layers)
@@ -207,10 +210,11 @@ def fused_layer_linear(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
                                                           device=x.device)
     if not qkv.is_contiguous():
         raise ValueError("qkv_out must be contiguous")
+    st = _kernels.stream(x)
     args, keep = launch_args(x, attq, satt, views, x_next, qkv, B, D, H, QO,
-                             layer + 1 >= n_layers)
+                             layer + 1 >= n_layers, st)
     if B:
-        _kernels.launch("K11", *args, _kernels.stream(x))
+        _kernels.launch("K11", *args, st)
     del keep
     return x_next, qkv
 

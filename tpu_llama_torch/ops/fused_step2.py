@@ -43,21 +43,22 @@ from tpu_llama_torch.ops.fused_layer import (
 from tpu_llama_torch.ops.quant import (ChannelQuantTensor, quantize_activations_plain, rope_f32,
                                        sqrt_f32)
 
-# (slot, kv head, split) items K12's and K26's trailing cells aim at: 16 for
+# (slot, kv head, split) items K12's, K26's and K27's cells aim at: 16 for
 # each of the card's SMs, four for each of the grid's blocks (four an SM),
 # which take them grid-stride and skip the splits past a slot's rows
 FUSED_CELL_ITEMS = 16 * DECODE_SMS
 
 
 def fused_splits(B: int, KVH: int, ts: int, S: int) -> int:
-    """How many key-row splits K12's and K26's trailing cells run for B
-    slots of KVH kv heads over a cache of S rows in key blocks of ``ts``
-    rows: one where the cache is short (S <= 512, as ``decode_splits``),
-    else as many as bring the (slot, kv head, split) items to about
-    FUSED_CELL_ITEMS, each split at least one key block.  Unlike K9's rule
-    it still splits where the (slot, kv head) cells alone cover the SMs
-    (B * KVH >= 132): the persistent grid holds three to four blocks an SM,
-    and a batch's longest slot would otherwise set the cells' time.  A
+    """How many key-row splits K12's and K26's trailing cells (and K27's
+    leading ones) run for B slots of KVH kv heads over a cache of S rows in
+    key blocks of ``ts`` rows: one where the cache is short (S <= 512, as
+    ``decode_splits``), else as many as bring the (slot, kv head, split)
+    items to about FUSED_CELL_ITEMS, each split at least one key block.
+    Unlike K9's rule it still splits where the (slot, kv head) cells alone
+    cover the SMs (B * KVH >= 132): the persistent grid holds three to four
+    blocks an SM, and a batch's longest slot would otherwise set the cells'
+    time.  A
     function of the shapes alone, so the plain versions, the tests and both
     kernels split alike, and nothing reads the card.  Llama-2 7B (KVH 32,
     S 2048, ts 128): 8 at batch 8, 16 at batch 1, 2 at batch 32."""
@@ -192,12 +193,12 @@ def fused_step2_layer(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
 
 
 def step2_workspace_words(B: int, D: int, H: int, QO: int) -> int:
-    """Int32 words of a K12 or K26 launch's workspace (csrc/fused_step2.cuh
-    make_phases): two layers' counters and the exit count, the row groups'
-    tickets (16-column groups of wo, w2 and wqkv, 8-column ones of w13), the
-    int32 partials [32, D], [32, 2H], [32, D], [32, QO] (room for MAX_ROWS
-    rows whatever B, so the layout stays put between launches), then h2
-    quantized [B, H] int8 (for MAX_ROWS rows)."""
+    """Int32 words of a K11, K12, K26 or K27 launch's workspace
+    (csrc/fused_step2.cuh make_phases): two layers' counters and the exit
+    count, the row groups' tickets (16-column groups of wo, w2 and wqkv,
+    8-column ones of w13), the int32 partials [32, D], [32, 2H], [32, D],
+    [32, QO] (room for MAX_ROWS rows whatever B, so the layout stays put
+    between launches), then h2 quantized [B, H] int8 (for MAX_ROWS rows)."""
     tickets = 2 * -(-D // 16) + -(-H // 8) + -(-QO // 16)
     return (160 + -(-tickets // 4) * 4 + MAX_ROWS * (2 * D + 2 * H + QO)
             + -(-MAX_ROWS * H // 4))
@@ -207,23 +208,27 @@ _WORKSPACES: dict[tuple, torch.Tensor] = {}
 _SCRATCH: dict[tuple, dict] = {}
 
 
-def step2_workspace(device, stream: int, words: int) -> torch.Tensor:
-    """The workspace of K12 and K26 launches on ``stream`` of ``device``:
-    int32 words made zero, which every launch leaves zero again but for its
-    quantized h2 (written before it is read); one per (card, stream), grown
-    as needed (launches on one stream run in order)."""
-    key = (device, stream)
+def step2_workspace(device, stream: int, D: int, H: int, QO: int) -> torch.Tensor:
+    """The workspace of K11, K12, K26 and K27 launches of widths D, H, QO on
+    ``stream`` of ``device``: ``step2_workspace_words`` int32 words made
+    zero, which every launch leaves zero again but for its quantized h2
+    (written before it is read); one per (card, stream, widths), since the
+    layout follows the widths -- h2 quantized at one width's offset would
+    lie in another width's tickets or partials, which a launch reads as
+    zero.  Launches on one stream run in order."""
+    key = (device, stream, D, H, QO)
     ws = _WORKSPACES.get(key)
-    if ws is None or ws.numel() < words:
+    if ws is None:
+        words = step2_workspace_words(MAX_ROWS, D, H, QO)
         ws = _WORKSPACES[key] = torch.zeros(words, dtype=torch.int32, device=device)
     return ws
 
 
 def step2_scratch(device, stream: int, B: int, D: int, H: int, QO: int) -> dict:
-    """Scratch that K12 and K26 launches on ``stream`` of ``device`` write and
-    read inside a launch and return nothing of (qkv, att, xq, sx, h2 and
-    K26's seam x, attq, satt): kept between launches, one set per (card,
-    stream, shapes)."""
+    """Scratch that K11, K12, K26 and K27 launches on ``stream`` of
+    ``device`` write and read inside a launch and return nothing of (qkv,
+    att, xq, sx, h2 and K26's seam x, attq, satt): kept between launches,
+    one set per (card, stream, shapes)."""
     key = (device, stream, B, D, H, QO)
     sc = _SCRATCH.get(key)
     if sc is None:
@@ -268,7 +273,7 @@ def step2_args(x, attq, satt, k_cache, v_cache, k_scale, v_scale, pos, cos, sin,
     nxt = min(layer + 1, n_layers - 1)
     rsz = rms_ffn.element_size()
     sc = step2_scratch(dev, stream, B, D, H, QO)
-    ws = step2_workspace(dev, stream, step2_workspace_words(B, D, H, QO))
+    ws = step2_workspace(dev, stream, D, H, QO)
     cws, ctk = split_workspace(B, KVH, G, hd, splits, dev, stream)
     args = [x.data_ptr(), attq.data_ptr(), satt.data_ptr(), *_stacked_ptrs(wo, layer),
             *_stacked_ptrs(w13, layer), *_stacked_ptrs(w2, layer), *_stacked_ptrs(wqkv, nxt),

@@ -71,6 +71,14 @@ package with this script.  ``--admissions`` runs (i) alone: the 8 x 512,
 chunked 8 x 2048 and pool-direct 32 x 1024 W8A8 admissions and the mega2
 step of 8 slots at position 512, each timed REPS times and traced, with the
 row quants' (K3, K2) device ms; it too calls only public signatures.
+``--layer-steps`` runs (j) alone: K11 and K27 alone at PERF.md's table
+shapes (K11 at batch 8 and 32 on layer 17 and the last layer; K27 at K12's
+shapes, its cells at their default splits), events and trace, then the
+decode steps that launch them 32 times each -- the paged two-launch step
+(K13 + K11, ``fused="auto"``) and the mega step (K27) of 8 slots at
+position 512 -- and the mega2 step (K12) beside them, each as ``measure_step``
+takes it; public signatures only, so it also times another checkout's
+package.
 """
 
 from __future__ import annotations
@@ -176,6 +184,9 @@ def main(argv=None) -> None:
     ap.add_argument("--admissions", action="store_true",
                     help="run section (i) alone: the W8A8 admissions' row quants (K3, K2) and "
                          "the mega2 b8 step")
+    ap.add_argument("--layer-steps", action="store_true",
+                    help="run section (j) alone: K11 and K27 alone, the paged two-launch, mega "
+                         "and mega2 b8 steps")
     args = ap.parse_args(argv)
     fp_only = args.fp_only
     if not torch.cuda.is_available():
@@ -192,6 +203,9 @@ def main(argv=None) -> None:
         return
     if args.admissions:
         admissions(cfg, smi)
+        return
+    if args.layer_steps:
+        layer_steps(cfg, smi)
         return
     rng = np.random.default_rng(0)
     prompts = _prompts(rng, cfg, 8, 512)
@@ -447,8 +461,8 @@ def measure_step(name: str, eng, pos: int, smi: str, **extra) -> None:
     def step():
         eng.decode(toks[:b], np.full(b, pos))
 
-    measure(name, step, smi, ("K9", "K13", "K12", "K26", "K3", "K2"), batch=b, pos=pos,
-            attn=eng.decode_attn, fused=eng.decode_fused, **extra)
+    measure(name, step, smi, ("K9", "K13", "K11", "K12", "K26", "K27", "K3", "K2"), batch=b,
+            pos=pos, attn=eng.decode_attn, fused=eng.decode_fused, **extra)
 
 
 def mega_steps(cfg, smi: str) -> None:
@@ -509,6 +523,29 @@ K12_SHAPES = ((8, [0, 1, 127, 128, 511, 1000, 1900, 2047], 17), (1, [511], 17), 
               (8, [0, 1, 127, 128, 511, 1000, 1900, 2047], 31))
 
 
+def timed(fn, n):
+    """(CUDA-event ms, the trace's device ms) per call of ``fn(i)`` over
+    ``n`` back-to-back calls, after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(n):
+        fn(i)
+    b.record()
+    torch.cuda.synchronize()
+    ev = a.elapsed_time(b) / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    dev = sum(e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return ev, dev
+
+
 def fused_kernels(cfg, layers, smi: str) -> None:
     """K12 and K26 alone at PERF.md's table shapes (K12 on layer 17, or the
     last layer; K26 on the pair (16, 17), or the last pair), through the
@@ -516,32 +553,12 @@ def fused_kernels(cfg, layers, smi: str) -> None:
     random cache: CUDA events over back-to-back calls that rotate through
     the layers (the weights come cold from device memory) and the trace's
     device ms per call."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tpu_llama_torch.ops.fused_step2 import fused_step2_layer
     from tpu_llama_torch.ops.fused_step3 import fused_step3_pair
 
     L, D, KVH, hd, S = cfg.n_layers, cfg.dim, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
     gen = torch.Generator(device="cuda").manual_seed(12)
     ws = (layers.wo, layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att)
-
-    def timed(fn, n):
-        fn(0)
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for i in range(n):
-            fn(i)
-        b.record()
-        torch.cuda.synchronize()
-        ev = a.elapsed_time(b) / n
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(n):
-                fn(i)
-            torch.cuda.synchronize()
-        dev = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
-        return ev, dev
 
     for B, pos, layer in K12_SHAPES:
         cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
@@ -566,6 +583,78 @@ def fused_kernels(cfg, layers, smi: str) -> None:
                               k26_events_ms=k26[0], k26_device_ms=k26[1], card=smi)), flush=True)
         del cache, scales, rest
         torch.cuda.empty_cache()
+
+
+def layer_kernels(cfg, layers, smi: str) -> None:
+    """K11 alone at batch 8 and 32 on layer 17 and the last layer, and K27
+    alone at K12's table shapes (its cells at their default splits), through
+    the public wrappers on the engine's weights and a random cache, timed as
+    ``fused_kernels`` times K12."""
+    from tpu_llama_torch.ops.fused_layer import fused_layer_linear
+    from tpu_llama_torch.ops.fused_step import fused_step_layer
+
+    L, D, KVH, hd, S = cfg.n_layers, cfg.dim, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ws = (layers.wo, layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att)
+
+    def rotation(layer):
+        return [layer] if layer == L - 1 else [(layer + i) % (L - 1) for i in range(8)]
+
+    for B in (8, 32):
+        for layer in (17, L - 1):
+            x = torch.randn(B, D, generator=gen, device="cuda")
+            attq = torch.randint(-127, 128, (B, D), generator=gen, device="cuda",
+                                 dtype=torch.int8)
+            satt = torch.rand(B, generator=gen, device="cuda") * 0.02 + 0.005
+            ls = rotation(layer)
+            ev, dev = timed(lambda i: fused_layer_linear(x, attq, satt, *ws, ls[i % len(ls)], L),
+                            20)
+            print(json.dumps(dict(phase="layer_kernels", kernel="K11", batch=B, layer=layer,
+                                  events_ms=ev, device_ms=dev, card=smi)), flush=True)
+    for B, pos, layer in K12_SHAPES:
+        cache = [torch.randint(-127, 128, (L, B, KVH, S, hd), generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(L, B, KVH, S, generator=gen, device="cuda") * 0.03 + 0.01
+                  for _ in range(2)]
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        q = torch.randn(B, KVH, 1, hd, generator=gen, device="cuda")
+        nk = torch.randint(-127, 128, (B, KVH, hd), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        nks = torch.rand(B, KVH, generator=gen, device="cuda") * 0.02 + 0.01
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        ls = rotation(layer)
+        ev, dev = timed(lambda i: fused_step_layer(x, q, nk, nk, nks, nks, *cache, *scales, pt,
+                                                   *ws, ls[i % len(ls)], L), 20)
+        print(json.dumps(dict(phase="layer_kernels", kernel="K27", batch=B,
+                              pos=pos[0] if B == 1 else "mix", layer=layer, events_ms=ev,
+                              device_ms=dev, card=smi)), flush=True)
+        del cache, scales
+        torch.cuda.empty_cache()
+
+
+def layer_steps(cfg, smi: str) -> None:
+    """Section (j): ``layer_kernels``, then the paged two-launch decode step
+    (K13 + K11 per layer, ``fused="auto"`` on a paged cache), the mega step
+    (K27 per layer) and the mega2 step (K12 per layer) of 8 slots at
+    position 512, each as ``measure_step`` takes it.  Uses only public
+    signatures, so the same script can time another checkout's package (its
+    directory first on PYTHONPATH)."""
+    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.runtime import Engine
+
+    params = random_quant_params(cfg, seed=0, fuse=True)
+    layer_kernels(cfg, params.layers, smi)
+    paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
+    paged.prefill([[1] * 16] * 8, list(range(8)), reserve_tokens=[2048] * 8)
+    measure_step("decode_b8_pos512_paged", paged, 512, smi, page_size=512)
+    del paged
+    torch.cuda.empty_cache()
+    eng = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+    for mode in ("mega", "mega2"):
+        eng.decode_fused = mode
+        measure_step(f"decode_b8_pos512_fused_{mode}", eng, 512, smi)
+    del eng, params
+    torch.cuda.empty_cache()
 
 
 def decode_steps(cfg, smi: str) -> None:
