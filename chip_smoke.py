@@ -65,7 +65,7 @@ Phases (any failure exits non-zero and prints no result line):
    past each slot's pos (K19 and K21's single-pass form, the normalized
    cluster cell, under their rule's count of splits and at one, each with
    its blocks per SM and resident clusters and the trace's device ms beside
-   SDPA's), K23 and K24 exact;
+   SDPA's), K23 and K24 exact (the trace's device ms beside);
    K11 also by the trace's device ms; K27 (its cells under the split rule's
    count and at one, with the trace's device ms beside) with its attention
    output within K12's limits of its plain version at the same splits (one
@@ -2443,7 +2443,8 @@ def check_tp_kernels(torch, tatt, tq, tfl, results):
     past each slot's pos poisoned, the single-pass form under the rule's
     count of splits (``norm_splits``) and at one where the rule splits,
     with its cell's residency and the trace's device ms beside SDPA's; K23
-    and K24 bit-equal (K11's arithmetic).
+    and K24 (the streaming body's phases B-C and D, fused_step2.cuh) bit-equal
+    (K11's arithmetic), each shape's trace device ms beside its events.
     Timed calls rotate through layers (and K21 through query sets) so the
     data comes cold from device memory; the library call of K21 is SDPA on
     the dequantized layer."""
@@ -2564,11 +2565,14 @@ def check_tp_kernels(torch, tatt, tq, tfl, results):
                                                           f"QOl={QOl}")
                 check(torch.equal(got, want), f"{label}: max err {err}")
                 ms = cuda_ms(torch, lambda i: fn(*args, i % Lw), 20)
+                dev = device_ms(torch, lambda i: fn(*args, i % Lw))
                 plain_ms = cuda_ms(torch, lambda i: plain(*args, i % Lw), 3, warmup=1)
                 b_ms, by = bound_ms(B * D * 4 + wb + 2 * D + B * out_w * 4, B * ops, "int8")
+                print(f"  {label}: {ms:.4f} ms, device {dev:.4f} ms (bound {b_ms:.4f})",
+                      flush=True)
                 results.append(dict(kernel=kid, name=label, max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                                    library_ms=None, in_line=tp == 1 or B == 8))
+                                    device_ms=dev, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=by, library_ms=None, in_line=tp == 1 or B == 8))
         del w13, w2, wqkv
         torch.cuda.empty_cache()
 

@@ -1675,6 +1675,95 @@ def test_k23_k24_exact(card, B):
         assert torch.equal(got[1], tfl.fused_rms_qkv_stacked_plain(x, wqkv, rms, layer))
 
 
+# K23 and K24 at Llama-2 7B's local widths under tensor parallelism (D 4096,
+# Hl = 11008 / tp, QOl = 12288 / tp): a two-layer stack per tp, shared by
+# the cases of that tp.
+@pytest.fixture(scope="module", params=[1, 2, 4, 8], ids=lambda tp: f"tp{tp}")
+def tp_span_7b(card, request):
+    tp = request.param
+    g = _gen(2300 + tp)
+    L, D, H, QO = 2, 4096, 11008 // tp, 12288 // tp
+
+    def w(n_in, n_out):
+        return tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (L, n_out, n_in), generator=g, device=card,
+                            dtype=torch.int8),
+            s=torch.rand(L, n_out, generator=g, device=card) * 2e-4 + 1e-4)
+
+    rms = 1 + 0.1 * torch.randn(L, D, generator=g, device=card)
+    return dict(tp=tp, L=L, D=D, w13=w(D, 2 * H), w2=w(H, D), wqkv=w(D, QO), rms=rms, g=g)
+
+
+@pytest.mark.parametrize("rdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 32, 37])
+def test_k23_k24_7b_exact(tp_span_7b, B, rdtype):
+    """K23 and K24 on the streaming body at 7B local widths, tp 1 / 2 / 4 /
+    8, with f32 and bf16 rms weights, on layers 0 and L - 1: bit-equal to
+    their plain versions, one launch each per call (37 rows: two row groups
+    in the one launch), and a second call on the stream's workspace, which
+    the first must leave zero, gives the same bits."""
+    c = tp_span_7b
+    x = torch.randn(B, c["D"], generator=c["g"], device="cuda") * 2
+    rms = c["rms"].to(rdtype)
+    for layer in (0, c["L"] - 1):
+        for kid, fn, plain, args in (
+                ("K23", tfl.fused_ffn_stacked, tfl.fused_ffn_stacked_plain,
+                 (x, c["w13"], c["w2"], rms, layer)),
+                ("K24", tfl.fused_rms_qkv_stacked, tfl.fused_rms_qkv_stacked_plain,
+                 (x, c["wqkv"], rms, layer))):
+            before = _kernels.LAUNCHES[kid]
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert _kernels.LAUNCHES[kid] == before + 1
+            want = plain(*args)
+            assert torch.equal(got, want), (kid, B, layer, (got - want).abs().max().item())
+            assert torch.equal(fn(*args), got), (kid, "second launch")
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_k11_k23_k24_k12_in_turn_on_one_stream(k12_7b, tp):
+    """K11, then K23 and K24 at tp's local widths (tp 1: K11's own D and H),
+    then K12, launched in turn on one stream, twice over: each bit-equal to
+    its plain version (K12: x_next and the fresh K/V rows; its attention
+    output within one int8 step on at most 1e-3 of entries, as
+    test_k12_7b_splits_close), so none of them finds another's workspace
+    words or scratch where it keeps its own."""
+    c = k12_7b
+    L, D = c["L"], c["D"]
+    g = _gen(2400 + tp)
+    if tp == 1:
+        w13, w2, wqkv = c["w"][1], c["w"][2], c["w"][3]
+    else:
+        H, QO = c["w"][2].in_features // tp, c["w"][3].out_features // tp
+
+        def w(n_in, n_out):
+            return tq.ChannelQuantTensor(
+                q=torch.randint(-127, 128, (L, n_out, n_in), generator=g, device="cuda",
+                                dtype=torch.int8),
+                s=torch.rand(L, n_out, generator=g, device="cuda") * 2e-4 + 1e-4)
+
+        w13, w2, wqkv = w(D, 2 * H), w(H, D), w(D, QO)
+    args12 = (*_k12_7b_case(c, 8, None), *c["w"], *c["rms"], 1, L, c["NH"])
+    x, attq, satt = args12[:3]
+    rf, ra = c["rms"]
+    for _ in range(2):
+        x11, qkv11 = tfl.fused_layer_linear(x, attq, satt, *c["w"], rf, ra, 1, L)
+        f23 = tfl.fused_ffn_stacked(x, w13, w2, rf, 1)
+        f24 = tfl.fused_rms_qkv_stacked(x, wqkv, ra, 2)
+        got = tfs.fused_step2_layer(*args12)
+        torch.cuda.synchronize()
+        want11 = tfl.fused_layer_linear_plain(x, attq, satt, *c["w"], rf, ra, 1, L)
+        assert torch.equal(x11, want11[0]) and torch.equal(qkv11, want11[1])
+        assert torch.equal(f23, tfl.fused_ffn_stacked_plain(x, w13, w2, rf, 1))
+        assert torch.equal(f24, tfl.fused_rms_qkv_stacked_plain(x, wqkv, ra, 2))
+        want = tfs.fused_step2_layer_plain(*args12)
+        assert torch.equal(got[0], want[0])
+        for i in (3, 4, 5, 6):
+            assert torch.equal(got[i], want[i])
+        d = (got[1].int() - want[1].int()).abs()
+        assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+
+
 # ------------------------------ the normalized cluster cell (K19, K21 single-pass)
 # csrc/decode_split_norm.cuh: spans of the key rows run as the blocks of one
 # thread-block cluster, which agree on the softmax's max and denominator

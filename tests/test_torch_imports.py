@@ -76,8 +76,9 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
     theirs."""
     from tpu_llama_torch.ops import _kernels
 
-    # K11, K12, K26 and K27 run fused_step2.cuh's streaming body
-    for src in ("fused_step2.cu", "fused_step3.cu", "fused_layer.cu", "fused_step.cu"):
+    # K11, K12, K26, K27, K23 and K24 run fused_step2.cuh's streaming body
+    for src in ("fused_step2.cu", "fused_step3.cu", "fused_layer.cu", "fused_step.cu",
+                "fused_ffn.cu", "fused_rms_qkv.cu"):
         real = [p.name for p in _kernels._headers(ROOT / "tpu_llama_torch/csrc" / src)]
         assert real == ["common.cuh", "decode_split.cuh", "fused_decode.cuh", "fused_step2.cuh",
                         "hopper.cuh"], (src, real)

@@ -1,18 +1,18 @@
-// Shared code of the fused decode kernels: K23 fused_ffn.cu and K24
-// fused_rms_qkv.cu (gemm_tile, grid_sync and the row steps, one persistent
-// cooperative launch each), and the decode layer's arguments (Linear), the
-// row steps' fallbacks and the cooperative launch that fused_step2.cuh's
-// streaming body -- K11 fused_layer.cu, K12 fused_step2.cu, K26
-// fused_step3.cu, K27 fused_step.cu -- takes from here.
+// Shared code of the fused decode kernels on fused_step2.cuh's streaming
+// body -- K11 fused_layer.cu, K12 fused_step2.cu, K26 fused_step3.cu, K27
+// fused_step.cu and the tensor-parallel spans K23 fused_ffn.cu and K24
+// fused_rms_qkv.cu: the decode layer's arguments (Linear), the row steps'
+// fallbacks for rows longer than the body holds in registers, the
+// development stamps, and the cooperative launch (its grid from CUDA's
+// residency query, refused and never shrunk).
 //
 // The TPU kernels (tpu_llama/ops/fused_layer.py:77, :376, :488) are one
 // sequential grid whose phases carry the int8 rows in VMEM from step to
 // step, with each boundary (rmsnorm, row quant) at the last step of a
 // phase.  CUDA blocks run in parallel and carry nothing, so here every
-// block of a cooperative launch (as many as fit on the card at once) walks
-// the output tiles of a phase, the phases are separated by a grid barrier,
-// and the carried state lives in global scratch that stays in L2.  A
-// boundary is done by one block per row, between two barriers.  A decode
+// block of a cooperative launch (as many as fit on the card at once) takes
+// a share of every phase, each boundary is a counter that blocks wait on,
+// and the carried state lives in global scratch that stays in L2.  A decode
 // layer's phases (fused_step2.cuh runs them):
 //
 //   A  x2 = x + (f32(attq . wo) * satt) * wo_s              -> x_next
@@ -26,19 +26,15 @@
 //
 // Bound on the H100: bytes.  At M = B <= 32 rows every phase is a product
 // that streams its weights once (202.4 MB per 7B layer: 60.4 us at 3.35
-// TB/s).  gemm_tile (K23, K24): a tile is 32 weight rows (output columns)
-// over the whole K, K1's decode mainloop -- mma.sync m16n8k32 s8 on
-// K-contiguous operands, a four-stage cp.async ring of 256-byte k-tiles --
-// with the activation rows read from L2 through cp.async.cg.  Numerics:
-// every f32 product and sum of the epilogues and the SiLU is an explicit
-// round-to-nearest intrinsic, so the plain versions (ops/fused_layer.py,
-// ops/fused_step2.py) repeat them bit for bit; the rmsnorm is K3's (f64 sum
-// of squares), the row quant K2's.
+// TB/s).  Numerics: every f32 product and sum of the epilogues and the SiLU
+// is an explicit round-to-nearest intrinsic, so the plain versions
+// (ops/fused_layer.py, ops/fused_step2.py) repeat them bit for bit; the
+// rmsnorm is K3's (f64 sum of squares), the row quant K2's.
 //
-// Memory order: scratch that one block writes and another reads after a
-// barrier is read with ld.global.cg / cp.async.cg (L2, never a stale L1
-// line), and never through a const __restrict__ pointer, which nvcc may
-// turn into the non-coherent read-only path.
+// Memory order: scratch that one block writes and another reads later in
+// the launch is read with ld.global.cg (L2, never a stale L1 line), and
+// never through a const __restrict__ pointer, which nvcc may turn into the
+// non-coherent read-only path.
 #pragma once
 
 #include <mutex>
@@ -71,144 +67,7 @@ __device__ unsigned long long fd_stamps[kStampBlocks * kStampEvents];
 
 constexpr int kThreads = 128;
 static_assert(kThreads == kDecThreads, "K12's and K27's attention cells run in the same blocks");
-constexpr int kBN = 32;      // weight rows (output columns) per tile
-constexpr int kBK = 256;     // bytes of K per stage
-constexpr int kStages = 4;
-constexpr int kLds = kBK + 16;  // padded row stride: conflict-free fragments
-constexpr int kMaxRows = 32;    // batch rows a launch takes
-
-template <int BM>
-constexpr int gemm_smem() {
-    return kStages * (BM + kBN) * kLds;
-}
-
-// A barrier across the whole grid.  Valid only under a cooperative launch,
-// which makes every block resident at once.  bar[0] counts arrivals and is
-// back at 0 after every barrier; bar[1] is the generation.
-__device__ __forceinline__ void grid_sync(unsigned int* bar) {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        volatile unsigned int* gen = bar + 1;
-        const unsigned int g = *gen;
-        __threadfence();
-        if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-            atomicExch(bar, 0u);
-            __threadfence();
-            atomicAdd(bar + 1, 1u);
-        } else {
-            while (*gen == g) __nanosleep(32);
-        }
-        __threadfence();
-    }
-    __syncthreads();
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One output tile: the exact int32 products of the M <= BM activation rows
-// A [M, K] (row stride K, in scratch) with the kBN weight rows wrow(r)
-// (K-contiguous; nullptr past the edge).  Calls epi(row, c, acc_c, acc_c1)
-// for every row < M and every even local column c (the pair c, c + 1).
-// Four warps, each on 8 weight rows; vec promises K % 16 == 0 and 16-byte
-// aligned rows.
-template <int BM, class WRow, class Epi>
-__device__ void gemm_tile(const int8_t* A, int M, int K, int vec, WRow wrow, Epi epi,
-                          int8_t* smem) {
-    constexpr int MT = BM / 16;
-    int8_t* As = smem;                          // [kStages][BM][kLds]
-    int8_t* Bs = smem + kStages * BM * kLds;    // [kStages][kBN][kLds]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t4 = lane & 3;
-    const int nk = (K + kBK - 1) / kBK;
-
-    auto load_tile = [&](int stage, int kt) {
-        const int k0 = kt * kBK;
-        int8_t* as = As + stage * BM * kLds;
-        int8_t* bs = Bs + stage * kBN * kLds;
-        if (vec) {
-            constexpr int CH = kBK / 16;
-            for (int c = tid; c < BM * CH; c += kThreads) {
-                const int r = c / CH, kc = (c % CH) * 16;
-                const bool ok = r < M && k0 + kc < K;
-                cp_async16(as + r * kLds + kc, ok ? A + (long long)r * K + k0 + kc : A, ok ? 16 : 0);
-            }
-            for (int c = tid; c < kBN * CH; c += kThreads) {
-                const int r = c / CH, kc = (c % CH) * 16;
-                const int8_t* row = wrow(r);
-                const bool ok = row != nullptr && k0 + kc < K;
-                cp_async16(bs + r * kLds + kc, ok ? row + k0 + kc : A, ok ? 16 : 0);
-            }
-        } else {
-            for (int c = tid; c < BM * kBK; c += kThreads) {
-                const int r = c / kBK, kk = c % kBK;
-                const bool ok = r < M && k0 + kk < K;
-                as[r * kLds + kk] = ok ? __ldcg(A + (long long)r * K + k0 + kk) : int8_t(0);
-            }
-            for (int c = tid; c < kBN * kBK; c += kThreads) {
-                const int r = c / kBK, kk = c % kBK;
-                const int8_t* row = wrow(r);
-                bs[r * kLds + kk] = row != nullptr && k0 + kk < K ? row[k0 + kk] : int8_t(0);
-            }
-        }
-    };
-
-    int acc[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0;
-
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk) load_tile(s, s);
-        cp_async_commit();
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<kStages - 2>();  // k-tile kt has landed
-        __syncthreads();               // ...for every thread; stage kt-1 is free
-        const int nxt = kt + kStages - 1;
-        if (nxt < nk) load_tile(nxt % kStages, nxt);
-        cp_async_commit();
-
-        const int8_t* as = As + (kt % kStages) * BM * kLds + g * kLds + t4 * 4;
-        const int8_t* bs = Bs + (kt % kStages) * kBN * kLds + (warp * 8 + g) * kLds + t4 * 4;
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 32) {
-            // fragments of mma.m16n8k32 .s8, as in w8a8_matmul.cu
-            unsigned af[MT][4], bf[2];
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-                const int8_t* p = as + i * 16 * kLds + kk;
-                af[i][0] = *reinterpret_cast<const unsigned*>(p);
-                af[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * kLds);
-                af[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
-                af[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * kLds + 16);
-            }
-            bf[0] = *reinterpret_cast<const unsigned*>(bs + kk);
-            bf[1] = *reinterpret_cast<const unsigned*>(bs + kk + 16);
-#pragma unroll
-            for (int i = 0; i < MT; ++i) mma_s8(acc[i], af[i], bf);
-        }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the stages: the next tile may load
-
-    // accumulator c[h * 2 + e] sits at row g + 8h, column 2 * t4 + e of the warp's 8
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = i * 16 + g + 8 * h;
-            if (row < M) epi(row, warp * 8 + 2 * t4, acc[i][2 * h], acc[i][2 * h + 1]);
-        }
-}
+constexpr int kMaxRows = 32;    // batch rows a launch (K23, K24: a row group) takes
 
 __device__ __forceinline__ float load_w(const void* w, int i, int bf16) {
     return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i])
@@ -216,7 +75,9 @@ __device__ __forceinline__ float load_w(const void* w, int i, int bf16) {
 }
 
 // K3's rmsnorm + row quant of one row x [n] (scratch) with weight w [n]
-// (f32, or bf16 when wbf16): q int8 [n], *s.  Every thread of the block calls.
+// (f32, or bf16 when wbf16): q int8 [n], *s.  Every thread of the block
+// calls.  The streaming body's row steps (fused_step2.cuh) fall back to it
+// for rows longer than they hold in registers; quant_row likewise.
 __device__ void rms_quant_row(const float* x, const void* w, int wbf16, int n, int8_t* q,
                               float* s) {
     __shared__ double dred[kThreads / 32];
@@ -251,7 +112,8 @@ __device__ void quant_row(const float* x, int n, int8_t* q, float* s) {
 // [2H, D] (gate rows, then up rows), w2 [D, H], wqkv [QO, D] of layer
 // l + 1, all K-major, with their f32 column scales.
 struct Linear {
-    const float* x;        // [B, D] residual entering the layer (K26's second layer: scratch)
+    const float* x;        // [B, D] residual entering the layer (K26's second layer: scratch;
+                           // K23, K24: the launch's x, which their row step enters from)
     const int8_t* attq;    // [B, D] quantized attention output (K26, K27: scratch)
     const float* satt;     // [B]
     const int8_t* wo;
@@ -263,14 +125,15 @@ struct Linear {
     const int8_t* wqkv;
     const float* wqkvs;
     const void* rms_ffn;   // [D] of layer l
-    const void* rms_att;   // [D] of layer l + 1
+    const void* rms_att;   // [D] of layer l + 1 (K24: of layer l)
     int rms_bf16;
-    float* x_next;         // [B, D]: x2 after phase A, the layer's output after C
-    float* qkv;            // [B, QO]: phase D
+    float* x_next;         // [B, D]: x2 after phase A, the layer's output after C (K23: the
+                           // w2 partial)
+    float* qkv;            // [B, QO]: phase D (K24's output)
     int8_t* xq;            // [B, D] scratch: xq2, then xq4
     float* sx;             // [B]
     float* h2;             // [B, H]
-    int8_t* xq3;           // [B, H] h2 quantized (in the launch's workspace)
+    int8_t* xq3;           // [B, H] h2 quantized (K23: scratch; else in the workspace)
     int B, D, H, QO, last, vec;
 };
 

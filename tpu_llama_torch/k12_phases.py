@@ -1,8 +1,8 @@
-"""Where the time of K12 (and of K11 or K27) goes, phase by phase, on the card.
+"""Where the time of K12 (and of K11, K27, K23 or K24) goes, phase by phase, on the card.
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 -m tpu_llama_torch.k12_phases [--reps 10] [--kernel k12|k11|k27]
+    python3 -m tpu_llama_torch.k12_phases [--reps 10] [--kernel k12|k11|k27|k23|k24]
 
 Builds ``csrc/fused_step2.cu`` a second time with ``-DFD_STAMPS`` (every
 block records ``%globaltimer`` at each of its FD_STAMP events,
@@ -30,6 +30,18 @@ B), 2 / 3 phase B ready, 4 phase B done, 5 phase C ready, 6 phase C done,
 16 / 17 the second row step, 7 / 8 phase D ready, 9 phase D done, 10 / 11
 the cells, 18 / 12 the attention quant, 13 the exit; 20 / 21 / 22 inside
 the row steps (the row's loads, its sum of squares, its quant).
+
+``--kernel k23`` / ``k24`` stamps the tensor-parallel spans
+(``csrc/fused_ffn.cu`` / ``fused_rms_qkv.cu``) through
+``fused_ffn_stacked`` / ``fused_rms_qkv_stacked`` at Llama-2 7B's local
+widths (D 4096, Hl = 11008 / tp, QOl = 12288 / tp) for tp 1 / 2 / 4 / 8 at
+batch 8, and tp 1 at batch 32, 37 (two row groups) and 1.  For each shape
+it prints the stamps' medians (from event 19, which every block stamps
+first -- in the last row group where there are two; 14 / 15 the row step,
+2 / 3 phase B ready or 7 / 8 phase D ready, 4 / 6 / 9 the phases done, 13
+the exit; 20 / 21 / 22 inside the row step), whether the committed build's
+output equals the plain version bit for bit, and its CUDA-event and trace
+device ms per call.
 """
 
 from __future__ import annotations
@@ -166,6 +178,56 @@ def stamp_kernel(kernel: str, reps: int, smi: str, ws, rf, ra, gen, cfg) -> None
         torch.cuda.empty_cache()
 
 
+SPAN_SHAPES = ((1, 8), (2, 8), (4, 8), (8, 8), (1, 32), (1, 37), (1, 1))  # (tp, batch)
+
+
+def stamp_span(kernel: str, reps: int, smi: str, gen) -> None:
+    """``--kernel k23`` or ``k24``: one JSON line per shape of SPAN_SHAPES."""
+    from tpu_llama_torch.ops import _kernels as K
+    from tpu_llama_torch.ops import fused_layer as tfl
+    from tpu_llama_torch.ops.quant import ChannelQuantTensor
+    from tpu_llama_torch.profile_serving import timed
+
+    name = {"k23": "fused_ffn", "k24": "fused_rms_qkv"}[kernel]
+    K.load([name])
+    committed = K._libs[name]
+    stamped = _stamped_lib(name)
+    Lw, D = 4, 4096
+    for tp, B in SPAN_SHAPES:
+        N = (11008 if kernel == "k23" else 12288) // tp
+
+        def qt(n_in, n_out):
+            return ChannelQuantTensor(
+                q=torch.randint(-127, 128, (Lw, n_out, n_in), generator=gen, device="cuda",
+                                dtype=torch.int8),
+                s=torch.rand(Lw, n_out, generator=gen, device="cuda") * 2e-4 + 1e-4)
+
+        rms = (1 + 0.1 * torch.randn(Lw, D, generator=gen, device="cuda")).to(torch.bfloat16)
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        if kernel == "k23":
+            w = (qt(D, 2 * N), qt(N, D))
+            fn, plain = tfl.fused_ffn_stacked, tfl.fused_ffn_stacked_plain
+        else:
+            w = (qt(D, N),)
+            fn, plain = tfl.fused_rms_qkv_stacked, tfl.fused_rms_qkv_stacked_plain
+
+        def call(i):
+            return fn(x, *w, rms, i % Lw)
+
+        exact = bool(torch.equal(call(1), plain(x, *w, rms, 1)))
+        K._libs[name] = stamped
+        call(0)
+        torch.cuda.synchronize()
+        last, first, nb = stamp_medians(stamped, call, reps, 19)
+        K._libs[name] = committed
+        ev, dev = timed(call, 20)
+        print(json.dumps(dict(kernel=kernel.upper(), tp=tp, batch=B, D=D, N=N, blocks=nb,
+                              bit_equal=exact, last_us=last, first_us=first, events_ms=ev,
+                              device_ms=dev, card=smi)), flush=True)
+        del w, x
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -177,7 +239,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--kernel", choices=("k12", "k11", "k27"), default="k12")
+    ap.add_argument("--kernel", choices=("k12", "k11", "k27", "k23", "k24"), default="k12")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k12_phases needs a CUDA card")
@@ -189,6 +251,9 @@ def main(argv=None) -> None:
                            cfg.seq_len)
     QO = D + 2 * KVH * hd
     gen = torch.Generator(device="cuda").manual_seed(12)
+    if args.kernel in ("k23", "k24"):
+        stamp_span(args.kernel, args.reps, smi, gen)
+        return
 
     def qt(n_in, n_out):
         return ChannelQuantTensor(

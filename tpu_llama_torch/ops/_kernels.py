@@ -123,10 +123,10 @@ SOURCES = {
     # chunk, stream
     "flash_decode": ("tl_flash_decode", [_P, _I, _I, *[_P] * 6, *[_I] * 8, ctypes.c_float, _I,
                                          _P]),
-    # x, w13, w13 scales, w2, w2 scales, rms, rms dtype, out, xq, sx, h2, xq3, sx3, barrier,
+    # x, w13, w13 scales, w2, w2 scales, rms, rms dtype, out, xq, sx, h2, xq3, workspace,
     # B, D, H, stream
-    "fused_ffn": ("tl_fused_ffn", [*[_P] * 6, _I, *[_P] * 7, *[_I] * 3, _P]),
-    # x, wqkv, wqkv scales, rms, rms dtype, out, xq, sx, barrier, B, D, QO, stream
+    "fused_ffn": ("tl_fused_ffn", [*[_P] * 6, _I, *[_P] * 6, *[_I] * 3, _P]),
+    # x, wqkv, wqkv scales, rms, rms dtype, out, xq, sx, workspace, B, D, QO, stream
     "fused_rms_qkv": ("tl_fused_rms_qkv", [*[_P] * 4, _I, *[_P] * 4, *[_I] * 3, _P]),
 }
 

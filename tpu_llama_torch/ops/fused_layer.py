@@ -33,7 +33,8 @@ from tpu_llama_torch.ops.quant import (
     rmsnorm_quantize_plain,
 )
 
-MAX_ROWS = 32  # batch rows K11, K12, K26 and K27 take (csrc/fused_decode.cuh kMaxRows)
+MAX_ROWS = 32  # batch rows K11, K12, K26 and K27 take, and a row group of K23 and K24
+# (csrc/fused_decode.cuh kMaxRows)
 
 
 def w8a8_matmul_stacked_plain(xq, sx, w: ChannelQuantTensor, layer: int) -> torch.Tensor:
@@ -150,18 +151,6 @@ def launch_args(x, attq, satt, views, x_next, qkv, B, D, H, QO, last, stream: in
     return args, ra
 
 
-_BARRIERS: dict[torch.device, torch.Tensor] = {}
-
-
-def barrier(device: torch.device) -> torch.Tensor:
-    """The grid barrier of K23's and K24's cooperative launches on
-    ``device``: two zeroed uint32 words, made once; every barrier leaves the
-    count at zero."""
-    if device not in _BARRIERS:
-        _BARRIERS[device] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _BARRIERS[device]
-
-
 def fused_layer_linear_plain(x, attq, satt, wo, w13, w2, wqkv, rms_ffn, rms_att, layer: int,
                              n_layers: int, qkv_out=None):
     """Plain version of K11 (its arguments and results are
@@ -224,9 +213,89 @@ def fused_layer_linear(x: torch.Tensor, attq: torch.Tensor, satt: torch.Tensor,
 # all-reduce after wo and after w2, so K11's whole-layer fusion cannot run
 # under tensor parallelism; its collective-free spans can, each one launch
 # on the local shard: K23 (rms, quant, w13, SiLU x up, quant, the w2
-# partial) and K24 (rms, quant, the local qkv).  Any row count: unlike K11,
-# they loop over blocks of rows, as JAX's TP path has no fallback.
+# partial) and K24 (rms, quant, the local qkv).  Both run K11's streaming
+# body (csrc/fused_step2.cuh) over phases B-C and D, entered from x.  Any
+# row count in one launch: groups of MAX_ROWS rows one after another, each
+# with counters, tickets and partials of its own, as JAX's TP path has no
+# fallback.
 # ---------------------------------------------------------------------------
+
+# The streaming body's geometry for the spans (csrc/fused_step2.cuh kRowsU,
+# kSpanChunk, kSpanPitch, kFlowWords): a unit is 16 weight rows (w13: the
+# gate and up rows of 8 columns) by 2 KB of K, a stage row 2112 bytes apart;
+# a row group's counters take 64 int32 words.
+ROWS_U, SPAN_CHUNK, SPAN_PITCH, FLOW_WORDS = 16, 2048, 2112, 64
+
+
+def span_act_width(K: int) -> int:
+    """Bytes a row of a span's int8 activations of width K takes
+    (csrc/fused_step2.cuh span_act_width): chunk-major, each SPAN_CHUNK of
+    K in a run of SPAN_PITCH bytes, so that one bulk copy brings a unit's
+    activation rows into a stage."""
+    return -(-K // SPAN_CHUNK) * SPAN_PITCH
+
+
+def span_phases(kernel: str, D: int, N: int):
+    """The phases of a K23 (N = Hl) or K24 (N = QOl) launch, in order: a
+    tuple of (weight, row groups, SPAN_CHUNK chunks of K, int32 partial
+    columns) per phase (csrc/fused_step2.cuh phase_groups, lay_phases)."""
+    if kernel == "K23":
+        return (("w13", -(-N // 8), -(-D // SPAN_CHUNK), 2 * N),
+                ("w2", -(-D // ROWS_U), -(-N // SPAN_CHUNK), D))
+    if kernel == "K24":
+        return (("wqkv", -(-N // ROWS_U), -(-D // SPAN_CHUNK), N),)
+    raise ValueError(f"no span kernel {kernel!r}")
+
+
+def span_layout(kernel: str, B: int, D: int, N: int) -> dict:
+    """The int32 workspace of a K23 or K24 launch of B rows (csrc/
+    fused_step2.cuh make_span, span_group): ``groups`` row groups of up to
+    MAX_ROWS rows, one Flow of FLOW_WORDS words each from word 0, the exit
+    count at ``exit``, then from ``tickets`` on each row group's ``stride``
+    words -- the tickets of its phases (padded to 4) and their partials
+    [MAX_ROWS, columns] -- and ``words`` in all.  All zero between
+    launches."""
+    groups = max(1, -(-B // MAX_ROWS))
+    phases = span_phases(kernel, D, N)
+    tickets = sum(g for _, g, _, _ in phases)
+    stride = -(-tickets // 4) * 4 + MAX_ROWS * sum(c for _, _, _, c in phases)
+    base = groups * FLOW_WORDS + 32
+    return dict(groups=groups, exit=groups * FLOW_WORDS, tickets=base, stride=stride,
+                words=base + groups * stride)
+
+
+_SPAN_WS: dict[tuple, torch.Tensor] = {}
+_SPAN_SCRATCH: dict[tuple, tuple] = {}
+
+
+def span_workspace(device, stream: int, kernel: str, B: int, D: int, N: int) -> torch.Tensor:
+    """The workspace of K23 or K24 launches of B rows and widths D, N on
+    ``stream`` of ``device``: ``span_layout`` words made zero, which every
+    launch leaves zero; one per (card, stream, kernel, widths, row groups),
+    apart from K11's and K12's (``ops.fused_step2.step2_workspace``, which
+    also holds their quantized h2).  Launches on one stream run in order."""
+    lay = span_layout(kernel, B, D, N)
+    key = (device, stream, kernel, D, N, lay["groups"])
+    ws = _SPAN_WS.get(key)
+    if ws is None:
+        ws = _SPAN_WS[key] = torch.zeros(lay["words"], dtype=torch.int32, device=device)
+    return ws
+
+
+def span_scratch(device, stream: int, kernel: str, B: int, D: int, N: int) -> tuple:
+    """Scratch a K23 launch writes and reads inside the launch (xq int8,
+    sx f32 [B], h2 f32 [B, Hl], xq3 int8; the int8 rows ``span_act_width``
+    bytes each) or a K24 launch (xq, sx): kept between launches, one set per
+    (card, stream, kernel, shapes)."""
+    key = (device, stream, kernel, B, D, N)
+    sc = _SPAN_SCRATCH.get(key)
+    if sc is None:
+        i8, f32 = dict(dtype=torch.int8, device=device), dict(dtype=torch.float32, device=device)
+        sc = (torch.empty((B, span_act_width(D)), **i8), torch.empty((B,), **f32))
+        if kernel == "K23":
+            sc += (torch.empty((B, N), **f32), torch.empty((B, span_act_width(N)), **i8))
+        sc = _SPAN_SCRATCH[key] = sc
+    return sc
 
 
 def _check_tp_span(name, x, ws, rms, layer):
@@ -265,7 +334,8 @@ def fused_ffn_stacked(x: torch.Tensor, w13: ChannelQuantTensor, w2: ChannelQuant
     stacked local w13 ([gate_i | up_i], q [L, 2 Hl, D]) and w2 (q [L, D,
     Hl]), rms_ffn [L, D], ``layer`` a host int.  Returns the w2 PARTIAL
     f32 [B, D]: the caller all-reduces it and adds the residual.  K23 on
-    CUDA tensors, the plain version on CPU ones."""
+    CUDA tensors (one cooperative launch on csrc/fused_step2.cuh's streaming
+    body, phases B and C, any B), the plain version on CPU ones."""
     layer = int(layer)
     B, D, L = _check_tp_span("fused_ffn_stacked", x, (w13, w2), rms_ffn, layer)
     H = w2.in_features
@@ -279,19 +349,17 @@ def fused_ffn_stacked(x: torch.Tensor, w13: ChannelQuantTensor, w2: ChannelQuant
         raise ValueError("K23 reads the weights where they lie: each layer's q and s must be "
                          "contiguous")
     x = x.contiguous()
-    rf = rms_ffn[layer]
+    rf = rms_ffn[layer].contiguous()
     dev = x.device
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
-    xq = torch.empty((B, D), dtype=torch.int8, device=dev)
-    xq3 = torch.empty((B, H), dtype=torch.int8, device=dev)
-    h2 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    sx = torch.empty((2, B), dtype=torch.float32, device=dev)
     if B:
+        st = _kernels.stream(x)
+        xq, sx, h2, xq3 = span_scratch(dev, st, "K23", B, D, H)
+        ws = span_workspace(dev, st, "K23", B, D, H)
         _kernels.launch("K23", x.data_ptr(), w13l.q.data_ptr(), w13l.s.data_ptr(),
                         w2l.q.data_ptr(), w2l.s.data_ptr(), rf.data_ptr(),
                         _kernels.dtype_code(rf.dtype), out.data_ptr(), xq.data_ptr(),
-                        sx[0].data_ptr(), h2.data_ptr(), xq3.data_ptr(), sx[1].data_ptr(),
-                        barrier(dev).data_ptr(), B, D, H, _kernels.stream(x))
+                        sx.data_ptr(), h2.data_ptr(), xq3.data_ptr(), ws.data_ptr(), B, D, H, st)
     return out
 
 
@@ -306,7 +374,8 @@ def fused_rms_qkv_stacked(x: torch.Tensor, wqkv: ChannelQuantTensor, rms_att: to
     """rms -> quant -> qkv in one launch on the local shard: x f32 [B, D],
     the stacked local wqkv ([q_i | k_i | v_i], q [L, QOl, D]), rms_att
     [L, D], ``layer`` a host int.  Returns f32 [B, QOl].  K24 on CUDA
-    tensors, the plain version on CPU ones."""
+    tensors (one cooperative launch on the streaming body, phase D, any B),
+    the plain version on CPU ones."""
     layer = int(layer)
     B, D, L = _check_tp_span("fused_rms_qkv_stacked", x, (wqkv,), rms_att, layer)
     QO = wqkv.out_features
@@ -320,13 +389,14 @@ def fused_rms_qkv_stacked(x: torch.Tensor, wqkv: ChannelQuantTensor, rms_att: to
         raise ValueError("K24 reads the weights where they lie: each layer's q and s must be "
                          "contiguous")
     x = x.contiguous()
-    ra = rms_att[layer]
+    ra = rms_att[layer].contiguous()
     dev = x.device
     out = torch.empty((B, QO), dtype=torch.float32, device=dev)
-    xq = torch.empty((B, D), dtype=torch.int8, device=dev)
-    sx = torch.empty((B,), dtype=torch.float32, device=dev)
     if B:
+        st = _kernels.stream(x)
+        xq, sx = span_scratch(dev, st, "K24", B, D, QO)
+        ws = span_workspace(dev, st, "K24", B, D, QO)
         _kernels.launch("K24", x.data_ptr(), wl.q.data_ptr(), wl.s.data_ptr(), ra.data_ptr(),
                         _kernels.dtype_code(ra.dtype), out.data_ptr(), xq.data_ptr(),
-                        sx.data_ptr(), barrier(dev).data_ptr(), B, D, QO, _kernels.stream(x))
+                        sx.data_ptr(), ws.data_ptr(), B, D, QO, st)
     return out

@@ -71,13 +71,21 @@ package with this script.  ``--admissions`` runs (i) alone: the 8 x 512,
 chunked 8 x 2048 and pool-direct 32 x 1024 W8A8 admissions and the mega2
 step of 8 slots at position 512, each timed REPS times and traced, with the
 row quants' (K3, K2) device ms; it too calls only public signatures.
-``--layer-steps`` runs (j) alone: K11 and K27 alone at PERF.md's table
-shapes (K11 at batch 8 and 32 on layer 17 and the last layer; K27 at K12's
-shapes, its cells at their default splits), events and trace, then the
-decode steps that launch them 32 times each -- the paged two-launch step
+``--layer-steps`` runs (j) alone: the streaming body's layer kernels
+alone at PERF.md's table shapes -- K11 at batch 8 and 32 on layer 17 and
+the last layer, K27 at K12's shapes (its cells at their default splits),
+then K12 and K26 as (h) takes them -- events and trace, then the decode
+steps that launch K11 and K27 32 times each -- the paged two-launch step
 (K13 + K11, ``fused="auto"``) and the mega step (K27) of 8 slots at
-position 512 -- and the mega2 step (K12) beside them, each as ``measure_step``
-takes it; public signatures only, so it also times another checkout's
+position 512 -- and the mega2 step (K12) beside them, each as
+``measure_step`` takes it; public signatures only, so it also times another
+checkout's package.  ``--tp-spans`` runs (k) alone: K23 and K24 alone at PERF.md's
+table shapes (7B's local widths at tp 1 / 2 / 4 / 8, batch 8, and tp 1 at
+batch 32), events and trace, then the fused tensor-parallel decode step at
+tp = 1 (``Engine(mesh=single_device_mesh(), tp_fused=True)``: phase 4i's
+kernels, its collectives the identity) of 8 slots at position 512, as
+``measure`` takes it, with the device ms of K23, K24 and the decode's other
+kernels; public signatures only, so it also times another checkout's
 package.
 """
 
@@ -185,8 +193,11 @@ def main(argv=None) -> None:
                     help="run section (i) alone: the W8A8 admissions' row quants (K3, K2) and "
                          "the mega2 b8 step")
     ap.add_argument("--layer-steps", action="store_true",
-                    help="run section (j) alone: K11 and K27 alone, the paged two-launch, mega "
-                         "and mega2 b8 steps")
+                    help="run section (j) alone: K11, K27, K12 and K26 alone, the paged "
+                         "two-launch, mega and mega2 b8 steps")
+    ap.add_argument("--tp-spans", action="store_true",
+                    help="run section (k) alone: K23 and K24 alone and the fused TP decode step "
+                         "at tp = 1")
     args = ap.parse_args(argv)
     fp_only = args.fp_only
     if not torch.cuda.is_available():
@@ -206,6 +217,9 @@ def main(argv=None) -> None:
         return
     if args.layer_steps:
         layer_steps(cfg, smi)
+        return
+    if args.tp_spans:
+        tp_spans(cfg, smi)
         return
     rng = np.random.default_rng(0)
     prompts = _prompts(rng, cfg, 8, 512)
@@ -633,7 +647,8 @@ def layer_kernels(cfg, layers, smi: str) -> None:
 
 
 def layer_steps(cfg, smi: str) -> None:
-    """Section (j): ``layer_kernels``, then the paged two-launch decode step
+    """Section (j): ``layer_kernels`` and ``fused_kernels``, then the paged
+    two-launch decode step
     (K13 + K11 per layer, ``fused="auto"`` on a paged cache), the mega step
     (K27 per layer) and the mega2 step (K12 per layer) of 8 slots at
     position 512, each as ``measure_step`` takes it.  Uses only public
@@ -644,6 +659,7 @@ def layer_steps(cfg, smi: str) -> None:
 
     params = random_quant_params(cfg, seed=0, fuse=True)
     layer_kernels(cfg, params.layers, smi)
+    fused_kernels(cfg, params.layers, smi)
     paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
     paged.prefill([[1] * 16] * 8, list(range(8)), reserve_tokens=[2048] * 8)
     measure_step("decode_b8_pos512_paged", paged, 512, smi, page_size=512)
@@ -653,6 +669,67 @@ def layer_steps(cfg, smi: str) -> None:
     for mode in ("mega", "mega2"):
         eng.decode_fused = mode
         measure_step(f"decode_b8_pos512_fused_{mode}", eng, 512, smi)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+TP_SPAN_SHAPES = ((1, 8), (2, 8), (4, 8), (8, 8), (1, 32))  # (tp, batch)
+
+
+def span_kernels(cfg, smi: str) -> None:
+    """K23 and K24 alone at TP_SPAN_SHAPES: 7B's local widths (D, Hl =
+    H / tp, QOl = (D + 2 KVD) / tp) on four layers of random local weights,
+    calls rotating through them (the weights come cold from device memory),
+    timed as ``fused_kernels`` times K12."""
+    from tpu_llama_torch.ops.fused_layer import fused_ffn_stacked, fused_rms_qkv_stacked
+    from tpu_llama_torch.ops.quant import ChannelQuantTensor
+
+    Lw, D = 4, cfg.dim
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def qt(n_in, n_out):
+        return ChannelQuantTensor(
+            q=torch.randint(-127, 128, (Lw, n_out, n_in), generator=gen, device="cuda",
+                            dtype=torch.int8),
+            s=torch.rand(Lw, n_out, generator=gen, device="cuda") * 2e-4 + 1e-4)
+
+    for tp, B in TP_SPAN_SHAPES:
+        Hl, QOl = cfg.hidden_dim // tp, (D + 2 * cfg.n_kv_heads * cfg.head_dim) // tp
+        w13, w2, wqkv = qt(D, 2 * Hl), qt(Hl, D), qt(D, QOl)
+        rms = (1 + 0.1 * torch.randn(Lw, D, generator=gen, device="cuda")).to(torch.bfloat16)
+        x = torch.randn(B, D, generator=gen, device="cuda")
+        k23 = timed(lambda i: fused_ffn_stacked(x, w13, w2, rms, i % Lw), 20)
+        k24 = timed(lambda i: fused_rms_qkv_stacked(x, wqkv, rms, i % Lw), 20)
+        print(json.dumps(dict(phase="span_kernels", tp=tp, batch=B, Hl=Hl, QOl=QOl,
+                              k23_events_ms=k23[0], k23_device_ms=k23[1],
+                              k24_events_ms=k24[0], k24_device_ms=k24[1], card=smi)), flush=True)
+        del w13, w2, wqkv
+        torch.cuda.empty_cache()
+
+
+def tp_spans(cfg, smi: str) -> None:
+    """Section (k): ``span_kernels``, then the fused TP decode step at tp =
+    1 on a single-device mesh (the kernels phase 4i's tp = 1 rank runs: K8,
+    K9, K2, K23, K24, K10, the classifier's K1; collectives the identity):
+    8 slots admitted at 512 tokens, one step per call at position 512,
+    as ``measure`` takes it."""
+    from tpu_llama_torch.models.llama import random_quant_params, tp_interleave
+    from tpu_llama_torch.parallel.mesh import single_device_mesh
+    from tpu_llama_torch.parallel.sharding import shard_params
+    from tpu_llama_torch.runtime import Engine
+
+    span_kernels(cfg, smi)
+    mesh = single_device_mesh("cuda")
+    params = shard_params(tp_interleave(random_quant_params(cfg, seed=0, fuse=True), cfg, 1),
+                          mesh)
+    eng = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048, mesh=mesh,
+                 tp_fused=True)
+    rng = np.random.default_rng(0)
+    eng.prefill(_prompts(rng, cfg, 8, 512), list(range(8)))
+    toks = torch.tensor(rng.integers(3, cfg.vocab_size, 8), device="cuda")
+    pos = torch.full((8,), 512, device="cuda")
+    measure("decode_b8_pos512_tp1_fused", lambda: eng.decode_device(toks, pos), smi,
+            ("K23", "K24", "K1+K8", "K9", "K2", "K10"), batch=8, pos=512, tp=1)
     del eng, params
     torch.cuda.empty_cache()
 
