@@ -831,6 +831,83 @@ def test_k14_exact(card, ps, hd):
         assert torch.equal(a, b)
 
 
+# K10 and K14 (csrc/kv_flush.cuh: every load issued before any returns, one
+# thread a 16-byte unit, or an element where a row is not a multiple of 16
+# bytes) over batch 1 / 8 / 32, 2 and 32 layers, head dims 128, 64 and 12;
+# pos at -1, 0, S - 1 and S (K14: negative, in range, past the table) in
+# turn on every slot; bit-equal to the plain versions (K14 outside the trash
+# page, which several slots may write at once).
+FLUSH_SHAPES = [(1, 2, 128), (8, 32, 128), (32, 2, 64), (8, 2, 12), (32, 32, 128), (1, 32, 64)]
+
+
+@pytest.mark.parametrize("B,L,hd", FLUSH_SHAPES)
+@pytest.mark.parametrize("cdtype", [torch.int8, torch.float32, torch.bfloat16])
+def test_k10_flush_shapes_exact(card, B, L, hd, cdtype):
+    g = _gen(B + L + hd)
+    KVH, S = 4, 64
+    int8 = cdtype == torch.int8
+    if int8:
+        ri = lambda *s: torch.randint(-127, 128, s, generator=g, device=card, dtype=torch.int8)
+        rows = [ri(L, B, KVH, hd), ri(L, B, KVH, hd)]
+        cache = [ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd)]
+        rows += [torch.rand(L, B, KVH, generator=g, device=card) for _ in range(2)]
+        cache += [torch.rand(L, B, KVH, S, generator=g, device=card) for _ in range(2)]
+    else:
+        rows = [torch.randn(L, B, KVH, hd, generator=g, device=card).to(cdtype)
+                for _ in range(2)] + [None, None]
+        cache = [torch.randn(L, B, KVH, S, hd, generator=g, device=card).to(cdtype)
+                 for _ in range(2)] + [None, None]
+    ref = [None if c is None else c.clone() for c in cache]
+    base = [-1, 0, S - 1, S] + torch.randint(0, S, (B,), generator=g, device=card).tolist()
+    kernel = _kernels.form("K10", cdtype)
+    for turn in range(4):
+        pos = torch.tensor([base[(b + turn) % len(base)] for b in range(B)], dtype=torch.int32,
+                           device=card)
+        before = _kernels.LAUNCHES[kernel]
+        tatt.kv_cache_flush_rows(rows[0], rows[1], pos, cache[0], cache[1], rows[2], rows[3],
+                                 cache[2], cache[3])
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES[kernel] == before + 1
+        tatt.kv_cache_flush_rows_plain(rows[0], rows[1], pos, ref[0], ref[1], rows[2], rows[3],
+                                       ref[2], ref[3])
+        for a, b in zip(cache, ref):
+            assert a is None or torch.equal(a, b), turn
+        rows = [None if r is None else r.roll(1, dims=1) for r in rows]
+
+
+@pytest.mark.parametrize("B,L,hd", FLUSH_SHAPES)
+@pytest.mark.parametrize("ps", [16, 1])
+def test_k14_flush_shapes_exact(card, B, L, hd, ps):
+    """ps 16 with 4 pages a slot takes the table row beside the rows (a
+    lane an entry); ps 1 with 64 pages a slot, past a warp's lanes, reads
+    the page entry once pos is in hand."""
+    g = _gen(B + L + hd + ps)
+    KVH, MP = 4, 64 // ps
+    P = B * MP + 3
+    pool = _paged_pool(card, g, L, P, KVH, ps, hd)
+    ref = [a.clone() for a in pool]
+    rows = [r[:, :, :, 0] for r in _paged_pool(card, g, L, B, KVH, 1, hd)]  # [L, B, KVH(, hd)]
+    table = _scattered_table(B, MP, P, B + hd)
+    if B > 1:
+        table[1] = 0  # a parked slot: its rows land on the trash page
+    if B > 2:
+        table[2, 0], table[2, 1] = P, -2  # page ids outside [0, P): skipped
+    pt = torch.tensor(table, device=card)
+    base = [-1, 0, 1, MP * ps + 3, 2 * ps + 1, MP * ps - 1] + torch.randint(
+        0, MP * ps, (B,), generator=g, device=card).tolist()
+    for turn in range(4):
+        pos = torch.tensor([base[(b + turn) % len(base)] for b in range(B)], dtype=torch.int32,
+                           device=card)
+        before = _kernels.LAUNCHES["K14"]
+        tatt.kv_pool_flush_rows(*rows, pos, pt, *pool)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["K14"] == before + 1
+        tatt.kv_pool_flush_rows_plain(*rows, pos, pt, *ref)
+        for a, b in zip(pool, ref):
+            assert torch.equal(a[:, 1:], b[:, 1:]), turn
+        rows = [r.roll(1, dims=1) for r in rows]
+
+
 def _paged_decode_case(card, B, KVH, G, hd, ps, MP, pos, qdtype, L=3):
     g = _gen(B * KVH + G + hd + ps)
     P = B * MP + 2

@@ -16,69 +16,63 @@
 // pool: a negative pos, and a page id outside [0, P), are SKIPPED (never
 // written).
 //
-// Bound on the H100: bytes, and at the decode shape launch latency -- at
-// Llama-2 7B, 32 layers x 8 slots x 32 heads x (2 * 128 + 8) B = 2.2 MB
-// read and as much written, 1.3 us at 3.35 TB/s.  Design: K10's
-// (kv_flush_rows.cu) with the row address looked up in the page table:
-// values and scales in one launch (the TPU needed two), one block per
-// (slot, layer) copies its KVH rows of K and V with 16-byte vectors when a
-// row's bytes allow, plus the scales; pos and the table are read on the
-// device, so the step needs no host sync.  Row offsets in 64-bit
-// arithmetic (one pool array at 7B is past 2^31 bytes).
-#include "common.cuh"
+// Bound on the H100: at Llama-2 7B, 32 layers x 8 slots x 32 heads x
+// (2 * 128 + 8) B = 2.2 MB read and as much written, 1.3 us at 3.35 TB/s;
+// the time is the drain of the scattered row stores (kv_flush.cuh).
+// Design: K10's (kv_flush.cuh) with the destination looked up in the page
+// table: values and scales in one launch (the TPU needed two), pos and the
+// table read on the device (no host sync), and pos, the slot's table row
+// (up to 32 pages; a longer table's entry is read once pos is in hand),
+// the rows and the scales all loaded at once, so one memory trip lies
+// between the launch and the stores (three before: pos, the page entry,
+// the rows).  Row offsets in 64-bit arithmetic (one pool array at 7B is
+// past 2^31 bytes).
+#include "kv_flush.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-kv_pool_flush_rows_kernel(const int8_t* __restrict__ rk, const int8_t* __restrict__ rv,
-                          const float* __restrict__ rks, const float* __restrict__ rvs,
-                          const int* __restrict__ pos, const int* __restrict__ page_table,
-                          int8_t* __restrict__ ck, int8_t* __restrict__ cv,
-                          float* __restrict__ cks, float* __restrict__ cvs, int B, int KVH,
-                          int P, int ps, int MP, int hd, int vec) {
-    const int b = blockIdx.x, l = blockIdx.y;
-    const int p = pos[b];
-    if (p < 0) return;  // undefined in the JAX package: never written
-    const int col = p / ps;
-    const int page = col < MP ? page_table[(long long)b * MP + col] : 0;  // past the table: trash
-    if (page < 0 || page >= P) return;  // a bad table entry: never written
-    const long long src0 = ((long long)l * B + b) * KVH;            // row (l, b, head 0)
-    const long long dst0 = ((long long)l * P + page) * KVH * ps + p % ps;  // (l, page, head 0, row)
-    const int per_row = vec ? hd / 16 : hd;  // copy units per row
-    for (int e = threadIdx.x; e < KVH * per_row; e += kThreads) {
-        const int hh = e / per_row, u = e % per_row;
-        const long long src = src0 + hh;
-        const long long dst = dst0 + (long long)hh * ps;
-        if (vec) {
-            reinterpret_cast<uint4*>(ck + dst * hd)[u] = reinterpret_cast<const uint4*>(rk + src * hd)[u];
-            reinterpret_cast<uint4*>(cv + dst * hd)[u] = reinterpret_cast<const uint4*>(rv + src * hd)[u];
-        } else {
-            ck[dst * hd + u] = rk[src * hd + u];
-            cv[dst * hd + u] = rv[src * hd + u];
-        }
-    }
-    for (int hh = threadIdx.x; hh < KVH; hh += kThreads) {
-        const long long dst = dst0 + (long long)hh * ps;
-        cks[dst] = rks[src0 + hh];
-        cvs[dst] = rvs[src0 + hh];
-    }
+template <typename U>
+__global__ void __launch_bounds__(kvf::kThreads) kv_pool_flush_rows_kernel(const kvf::Flush a) {
+    kvf::flush_rows<U, true>(a);
 }
 
 }  // namespace
 
-// vec != 0 promises rows of a multiple of 16 bytes and 16-byte aligned row
-// and pool pointers.
-extern "C" int tl_kv_pool_flush_rows(const void* rk, const void* rv, const float* rks,
-                                     const float* rvs, const int* pos, const int* page_table,
-                                     void* ck, void* cv, float* cks, float* cvs, int L, int B,
-                                     int KVH, int P, int ps, int MP, int hd, int vec,
-                                     void* stream) {
+// args: rk, rv, rks, rvs, pos, page_table, ck, cv, cks, cvs (pointers),
+// then L, B, KVH, P, ps, MP, hd, vec.  vec != 0 promises rows of a multiple
+// of 16 bytes and 16-byte aligned row and pool pointers.  One packed array,
+// so that a caller holding a launch's arguments passes them in one pointer.
+extern "C" int tl_kv_pool_flush_rows(const long long* args, void* stream) {
+    const int L = static_cast<int>(args[10]), B = static_cast<int>(args[11]);
+    const int P = static_cast<int>(args[13]), ps = static_cast<int>(args[14]);
+    const int MP = static_cast<int>(args[15]), hd = static_cast<int>(args[16]);
     if (L <= 0 || B <= 0) return 0;
     if (ps < 1 || MP < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-    kv_pool_flush_rows_kernel<<<dim3(B, L), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(rk), static_cast<const int8_t*>(rv), rks, rvs, pos, page_table,
-        static_cast<int8_t*>(ck), static_cast<int8_t*>(cv), cks, cvs, B, KVH, P, ps, MP, hd, vec);
+    auto ptr = [&](int i) { return reinterpret_cast<void*>(args[i]); };
+    kvf::Flush a{};
+    a.rk = ptr(0);
+    a.rv = ptr(1);
+    a.rks = static_cast<const float*>(ptr(2));
+    a.rvs = static_cast<const float*>(ptr(3));
+    a.pos = static_cast<const int*>(ptr(4));
+    a.table = static_cast<const int*>(ptr(5));
+    a.ck = ptr(6);
+    a.cv = ptr(7);
+    a.cks = static_cast<float*>(ptr(8));
+    a.cvs = static_cast<float*>(ptr(9));
+    a.B = B;
+    a.KVH = static_cast<int>(args[12]);
+    a.S = ps;
+    a.P = P;
+    a.MP = MP;
+    const int vec = static_cast<int>(args[17]);
+    const dim3 grid = kvf::flush_grid(a, L, hd, 1, vec);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec)
+        kv_pool_flush_rows_kernel<uint4><<<grid, kvf::kThreads, 0, st>>>(a);
+    else
+        kv_pool_flush_rows_kernel<int8_t><<<grid, kvf::kThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
+
+KV_STAMPS_READER(tl_kv_pool_flush_rows_stamps)

@@ -2,7 +2,7 @@
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 -m tpu_llama_torch.k12_phases [--reps 10] [--kernel k12|k11|k27|k23|k24]
+    python3 -m tpu_llama_torch.k12_phases [--reps 10] [--kernel k12|k11|k27|k23|k24|k10|k14]
 
 Builds ``csrc/fused_step2.cu`` a second time with ``-DFD_STAMPS`` (every
 block records ``%globaltimer`` at each of its FD_STAMP events,
@@ -42,6 +42,14 @@ first -- in the last row group where there are two; 14 / 15 the row step,
 the exit; 20 / 21 / 22 inside the row step), whether the committed build's
 output equals the plain version bit for bit, and its CUDA-event and trace
 device ms per call.
+
+``--kernel k10`` / ``k14`` stamps the KV row flush (``csrc/kv_flush.cuh``,
+built with ``-DKV_STAMPS``) through ``kv_cache_flush_rows`` /
+``kv_pool_flush_rows`` at ``profile_serving.flush_cases``' shapes (K10
+INT8, f32 and bf16 on the 7B cache; K14 at batch 8 and 32).  Events: 0
+the block's start, 1 pos (and the page) in hand, 2 the rows in registers,
+3 the stores done (after a fence).  Then the committed build's CUDA-event
+and trace device ms per call.
 """
 
 from __future__ import annotations
@@ -73,15 +81,16 @@ def _stamped_lib(name="fused_step2"):
 
 
 EV_N, BLK_N = 24, 2048  # fused_decode.cuh kStampEvents, kStampBlocks
+FLUSH_EV_N = 4  # kv_flush.cuh kStampEvents (its kStampBlocks is BLK_N)
 
 
-def stamp_medians(lib, call, reps: int, start: int = 0):
+def stamp_medians(lib, call, reps: int, start: int = 0, ev_n: int = EV_N):
     """Over ``reps`` calls of ``call(r)`` (each one launch of ``lib``'s
     stamped kernel), the median of the time from the first block's start
     (event ``start``, which every block stamps first) to the last block and
     to the first block reaching each event, in us, by event; and the blocks
-    of the launch."""
-    buf = (ctypes.c_ulonglong * (EV_N * BLK_N))()
+    of the launch.  ``ev_n``: the events a block has room for."""
+    buf = (ctypes.c_ulonglong * (ev_n * BLK_N))()
     last, first = {}, {}
     nb = 0
     for r in range(reps):
@@ -89,17 +98,17 @@ def stamp_medians(lib, call, reps: int, start: int = 0):
         # older launch's: each launch is read from its own first start on
         call(r)
         torch.cuda.synchronize()
-        code = lib.stamps(buf, EV_N * BLK_N)
+        code = lib.stamps(buf, ev_n * BLK_N)
         if code:
             raise RuntimeError(f"stamps read failed ({code})")
-        st = np.frombuffer(buf, dtype=np.uint64).reshape(BLK_N, EV_N).astype(np.int64)
+        st = np.frombuffer(buf, dtype=np.uint64).reshape(BLK_N, ev_n).astype(np.int64)
         # this launch's blocks started within a few us of each other; rows
         # of blocks past its grid hold an older launch's stamps
         starts = st[:, start]
         run = st[starts >= starts.max() - 1_000_000]
         nb = len(run)
         t0 = run[:, start].min()
-        for e in range(EV_N):
+        for e in range(ev_n):
             col = run[:, e]
             col = col[col >= t0]
             if col.size == 0:
@@ -228,6 +237,38 @@ def stamp_span(kernel: str, reps: int, smi: str, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def stamp_flush(kernel: str, reps: int, smi: str, cfg) -> None:
+    """``--kernel k10`` or ``k14``: one JSON line per shape of the kernel in
+    ``profile_serving.flush_cases``."""
+    from tpu_llama_torch.ops import _kernels as K
+    from tpu_llama_torch.ops import attention as tatt
+    from tpu_llama_torch.profile_serving import flush_cases, timed
+
+    name = {"k10": "kv_flush_rows", "k14": "kv_pool_flush_rows"}[kernel]
+    K.load([name])
+    committed = K._libs[name]
+    stamped = K.open_lib(name, K.build_extra(K._CSRC / f"{name}.cu", ["-DKV_STAMPS"]))
+    stamped.stamps = getattr(stamped, f"tl_{name}_stamps")
+    stamped.stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    stamped.stamps.restype = ctypes.c_int
+
+    def use(lib):
+        K._libs[name] = lib
+        tatt._FLUSH_PLANS.clear()  # a plan keeps the entry point it was made with
+
+    for case in flush_cases(cfg, (kernel.upper(),)):
+        use(stamped)
+        case["call"](0)
+        torch.cuda.synchronize()
+        last, first, nb = stamp_medians(stamped, case["call"], reps, 0, FLUSH_EV_N)
+        use(committed)
+        ev, dev = timed(case["call"], 50)
+        print(json.dumps(dict(kernel=case["kernel"], shape=case["label"], blocks=nb,
+                              last_us=last, first_us=first, events_ms=ev, device_ms=dev,
+                              card=smi)), flush=True)
+        del case
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -239,7 +280,8 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--kernel", choices=("k12", "k11", "k27", "k23", "k24"), default="k12")
+    ap.add_argument("--kernel", choices=("k12", "k11", "k27", "k23", "k24", "k10", "k14"),
+                    default="k12")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k12_phases needs a CUDA card")
@@ -253,6 +295,9 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(12)
     if args.kernel in ("k23", "k24"):
         stamp_span(args.kernel, args.reps, smi, gen)
+        return
+    if args.kernel in ("k10", "k14"):
+        stamp_flush(args.kernel, args.reps, smi, cfg)
         return
 
     def qt(n_in, n_out):

@@ -713,13 +713,18 @@ def prefill_attention(attn: str):
     return flash_prefill_attention if attn == "flash" else attention_prefill
 
 
-def _cache_rows(cache, k, v) -> dict:
+def _cache_rows(cache, k, v, out=None) -> dict:
     """A step's (or a block's) K/V as the cache stores them, by array name:
     quantized with their scales for an INT8 cache, cast to the cache's
-    dtype for an fp one (llama.py:1301-1313)."""
+    dtype for an fp one (llama.py:1301-1313).  ``out``: one layer's views
+    of the step's flush buffers (``_flush_buffers``), by array name, which
+    the quant or the cast writes into and which are returned."""
     if isinstance(cache, (QuantKVCache, PagedKVCache)):
-        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        kq, ks = quantize_kv(k, out=out and (out["k"], out["ks"]))
+        vq, vs = quantize_kv(v, out=out and (out["v"], out["vs"]))
         return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    if out:
+        return {"k": out["k"].copy_(k), "v": out["v"].copy_(v)}
     return {"k": k.to(cache.k.dtype), "v": v.to(cache.v.dtype)}
 
 
@@ -803,11 +808,30 @@ def _attend_fresh(attend, q, cache, pos32, fresh: dict, layer: int):
                   fresh.get("ks"), fresh.get("vs"), layer=layer)
 
 
-def _flush(cache, rows: list, pos32) -> None:
+def _flush_buffers(cache, B: int) -> tuple:
+    """The step's flush buffers of a deferred-flush decode: (by array name
+    [L, B, KVH(, hd)] buffers, and for each layer its views of them by array
+    name), into which each layer's ``_cache_rows`` writes its rows, so that
+    the flush reads them where they lie.  An INT8 (dense or paged) or bf16
+    cache makes its rows by a quant or a cast anyway; an f32 cache's rows
+    need no cast, and ``_flush`` stacks them: (None, [None] * L)."""
+    L, KVH, hd = cache.k.shape[0], cache.k.shape[2], cache.k.shape[4]
+    dt, dev = cache.k.dtype, cache.k.device
+    if dt == torch.float32:
+        return None, [None] * L
+    bufs = {n: torch.empty((L, B, KVH, hd), dtype=dt, device=dev) for n in ("k", "v")}
+    if dt == torch.int8:
+        bufs.update({n: torch.empty((L, B, KVH), dtype=torch.float32, device=dev)
+                     for n in ("ks", "vs")})
+    return bufs, [dict(zip(bufs, t)) for t in zip(*(b.unbind(0) for b in bufs.values()))]
+
+
+def _flush(cache, rows: list, pos32, bufs=None) -> None:
     """One flush of every layer's fresh rows (each layer's ``_cache_rows``)
-    at pos: one [L, ...] stack per array, then K10 (K14 on a paged
-    cache)."""
-    st = {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+    at pos: from the step's buffers ``bufs`` where the rows were written
+    (``_flush_buffers``), else (an f32 cache) from one [L, ...] stack per
+    array; then K10 (K14 on a paged cache)."""
+    st = bufs if bufs is not None else {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
     if isinstance(cache, PagedKVCache):
         kv_pool_flush_rows(st["k"], st["v"], st["ks"], st["vs"], pos32, cache.page_table,
                            cache.k, cache.v, cache.ks, cache.vs)
@@ -836,6 +860,7 @@ def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConf
         attend = _decode_attend(attn, cache)
         pos32 = pos.to(torch.int32)  # once per step, read on the device by the kernels
         rows = []  # each layer's fresh rows, for the flush (the JAX scan's ys)
+        bufs, views = _flush_buffers(cache, B)
     for i in range(L):
         lp = layers.layer(i)
         h = rmsnorm(x, lp.rms_att)
@@ -844,7 +869,7 @@ def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConf
         k = apply_rope(k.reshape(B, KVH, hd), cos, sin)
         v = v.reshape(B, KVH, hd)
         if flash:
-            rows.append(_cache_rows(cache, k, v))
+            rows.append(_cache_rows(cache, k, v, views[i]))
             att = _attend_fresh(attend, q.reshape(B, KVH, G, hd), cache, pos32, rows[-1], i)
             att = att.reshape(B, config.dim).to(x.dtype)
         else:
@@ -855,7 +880,7 @@ def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConf
         gate, up = _project_gate_up(h, lp, config, precision)
         x = matmul_any(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
     if flash:
-        _flush(cache, rows, pos32)
+        _flush(cache, rows, pos32, bufs)
     return x
 
 
@@ -992,9 +1017,10 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
     x = x0.float()
     qkv = _decode_prologue(layers, x, config)
     rows = []
+    bufs, views = _flush_buffers(cache, B)
     for i in range(L):
         q, k, v = _split_rope(qkv, cos, sin, config)
-        rows.append(_cache_rows(cache, k, v))
+        rows.append(_cache_rows(cache, k, v, views[i]))
         if mega:
             r = rows[-1]
             x, qkv = fused_step_layer(x, q, r["k"], r["v"], r["ks"], r["vs"], cache.k, cache.v,
@@ -1005,7 +1031,7 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
         attq, satt = quantize_activations(att.reshape(B, D))
         x, qkv = fused_layer_linear(x, attq, satt, layers.wo, layers.w1, layers.w2, layers.wq,
                                     layers.rms_ffn, layers.rms_att, i, L)
-    _flush(cache, rows, pos32)
+    _flush(cache, rows, pos32, bufs)
     return x
 
 

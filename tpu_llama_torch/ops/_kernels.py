@@ -62,8 +62,9 @@ SOURCES = {
                          [_P, _I, _I, *[_P] * 10, *[_I] * 8, ctypes.c_float, _I, _P, _P, _P]),
     "flash_decode_fresh": ("tl_flash_decode_fresh",
                            [_P, _I, _I, *[_P] * 10, *[_I] * 8, ctypes.c_float, _I, _P]),
-    # rk, rv, rks, rvs, pos, ck, cv, cks, cvs, cache dtype, L, B, KVH, S, hd, vec, stream
-    "kv_flush_rows": ("tl_kv_flush_rows", [*[_P] * 9, _I, *[_I] * 6, _P]),
+    # int64 [16]: rk, rv, rks, rvs, pos, ck, cv, cks, cvs, cache dtype, L, B, KVH, S, hd, vec;
+    # stream
+    "kv_flush_rows": ("tl_kv_flush_rows", [_P, _P]),
     # x, x dtype, q, s, out, out dtype, M, N, Np, K, g, stream
     "q8_matmul": ("tl_q8_matmul", [_P, _I, _P, _P, _P, _I, *[_I] * 5, _P]),
     # rk, rv, rks, rvs, ck, cv, cks, cvs, B, KVH, Tc, S, hd, start, layer, vec, stream
@@ -78,8 +79,9 @@ SOURCES = {
                                [_P, _I, *[_P] * 11, *[_I] * 10, ctypes.c_float, _I, _P, _P, _P]),
     "paged_flash_decode_fresh": ("tl_paged_flash_decode_fresh",
                                  [_P, _I, *[_P] * 11, *[_I] * 10, ctypes.c_float, _I, _P, _P, _P]),
-    # rk, rv, rks, rvs, pos, page_table, ck, cv, cks, cvs, L, B, KVH, P, ps, MP, hd, vec, stream
-    "kv_pool_flush_rows": ("tl_kv_pool_flush_rows", [*[_P] * 10, *[_I] * 8, _P]),
+    # int64 [18]: rk, rv, rks, rvs, pos, page_table, ck, cv, cks, cvs, L, B, KVH, P, ps, MP, hd,
+    # vec; stream
+    "kv_pool_flush_rows": ("tl_kv_pool_flush_rows", [_P, _P]),
     # sk, sv, sks, svs, slots, page_table, ck, cv, cks, cvs, L, n, KVH, T, hd, P, ps, MP, vec,
     # stream
     "kv_pool_scatter": ("tl_kv_pool_scatter", [*[_P] * 10, *[_I] * 9, _P]),
@@ -317,16 +319,28 @@ def load(names) -> None:
             _libs[n] = open_lib(n, _lib_path(n))
 
 
+def entry(kernel: str):
+    """The C entry point of ``kernel`` (an id of KERNELS), its library built
+    and loaded at first use: for a wrapper that keeps it beside a launch's
+    arguments."""
+    return getattr(_lib(KERNELS[kernel]), SOURCES[KERNELS[kernel]][0])
+
+
+def call(kernel: str, fn, *args) -> None:
+    """Launch ``kernel`` through its entry point ``fn`` (``entry``); raise
+    if the launch was refused, count it otherwise."""
+    code = fn(*args)
+    if code != 0:
+        msg = _lib(KERNELS[kernel]).tl_error_string(code).decode()
+        raise RuntimeError(f"{kernel} ({SOURCES[KERNELS[kernel]][0]}) launch failed: {msg} "
+                           f"({code})")
+    LAUNCHES[kernel] += 1
+
+
 def launch(kernel: str, *args) -> None:
     """Launch ``kernel`` (an id of KERNELS) on the current stream; raise if
     the launch was refused, count it otherwise."""
-    lib = _lib(KERNELS[kernel])
-    fn_name = SOURCES[KERNELS[kernel]][0]
-    code = getattr(lib, fn_name)(*args)
-    if code != 0:
-        msg = lib.tl_error_string(code).decode()
-        raise RuntimeError(f"{kernel} ({fn_name}) launch failed: {msg} ({code})")
-    LAUNCHES[kernel] += 1
+    call(kernel, entry(kernel), *args)
 
 
 _K12_RESIDENCY: dict[tuple, int] = {}
@@ -434,6 +448,17 @@ def page_split_residency(kernel: str, G: int, hd: int, ts: int, ps: int) -> tupl
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the current stream's pointer without a Stream object (a CUDA build of torch has it)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def device_stream(index: int) -> int:
+    """The current stream of card ``index``, as ``stream`` gives it."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:

@@ -28,6 +28,7 @@ forms count their launches under their own ids (``K6:f32``, ``K6:bf16``,
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -39,10 +40,11 @@ from tpu_llama_torch.ops.quant import _absmax_quant, sqrt_f32
 _NEG_INF = -1e30
 
 
-def quantize_kv(x: torch.Tensor):
+def quantize_kv(x: torch.Tensor, out=None):
     """Per-(..., row) symmetric INT8 over the last (hd) axis:
-    x [..., hd] -> (int8 [..., hd], f32 scales [...])."""
-    return _absmax_quant(x.float(), dim=-1)
+    x [..., hd] -> (int8 [..., hd], f32 scales [...]), written into
+    ``out`` = (q, s) where given."""
+    return _absmax_quant(x.float(), dim=-1, out=out)
 
 
 CACHE_DTYPES = (torch.int8, torch.float32, torch.bfloat16)
@@ -957,26 +959,67 @@ def kv_cache_flush_rows(rows_k, rows_v, pos, ck, cv, rows_ks=None, rows_vs=None,
     [L, B, KVH, S].  A slot whose pos lies outside [0, S) is skipped.
     Returns the (updated) cache arrays: (ck, cv, cks, cvs), or (ck, cv) for
     an fp cache.  K10 on CUDA tensors (``K10:f32`` / ``K10:bf16`` for an fp
-    cache), the plain version on CPU ones."""
-    _check_flush(rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs)
-    int8 = ck.dtype == torch.int8
+    cache), the plain version on CPU ones; a launch's checks are made once
+    per ``_flush_key``."""
     arrays = (rows_k, rows_v, pos, ck, cv, rows_ks, rows_vs, cks, cvs)
-    kernel = _kernels.form("K10", ck.dtype)
-    if _kernels.on_cpu(kernel, *_decode_tensors(*arrays)):
-        return kv_cache_flush_rows_plain(*arrays)
-    if not all(t.is_contiguous() for t in _decode_tensors(ck, cv, cks, cvs)):
-        raise ValueError("K10 writes the cache in place: it must be contiguous")
-    L, B, KVH, hd = rows_k.shape
-    S = ck.shape[3]
-    rk, rv = rows_k.contiguous(), rows_v.contiguous()
-    rks, rvs = (rows_ks.contiguous(), rows_vs.contiguous()) if int8 else (None, None)
-    p32 = pos.to(torch.int32).contiguous()
-    vec = _vec16(hd, rk, rv, ck, cv)
-    _kernels.launch(kernel, rk.data_ptr(), rv.data_ptr(), _ptr(rks), _ptr(rvs), p32.data_ptr(),
-                    ck.data_ptr(), cv.data_ptr(), _ptr(cks), _ptr(cvs),
-                    _kernels.cache_code(ck.dtype), L, B, KVH, S, hd, int(vec),
-                    _kernels.stream(ck))
-    return (ck, cv, cks, cvs) if int8 else (ck, cv)
+    key = _flush_key(arrays)
+    plan = _FLUSH_PLANS.get(key)
+    if plan is None:
+        _check_flush(*arrays)
+        kernel = _kernels.form("K10", ck.dtype)
+        if _kernels.on_cpu(kernel, *_decode_tensors(*arrays)):
+            return kv_cache_flush_rows_plain(*arrays)
+        if not all(t.is_contiguous() for t in _decode_tensors(ck, cv, cks, cvs)):
+            raise ValueError("K10 writes the cache in place: it must be contiguous")
+        if not _flush_ready(pos, rows_k, rows_v, rows_ks, rows_vs):
+            rk, rv, rks, rvs = _contiguous(rows_k, rows_v, rows_ks, rows_vs)
+            return kv_cache_flush_rows(rk, rv, pos.to(torch.int32).contiguous(), ck, cv, rks,
+                                       rvs, cks, cvs)
+        L, B, KVH, hd = rows_k.shape
+        ptrs = (_ptr(t) or 0 for t in (rows_k, rows_v, rows_ks, rows_vs, pos, ck, cv, cks, cvs))
+        plan = _flush_plan(key, kernel, ck.get_device(), [
+            *ptrs, _kernels.cache_code(ck.dtype), L, B, KVH, ck.shape[3], hd,
+            int(_vec16(hd, rows_k, rows_v, ck, cv))])
+    kernel, fn, args, dev = plan
+    _kernels.call(kernel, fn, args, _kernels.device_stream(dev))
+    return (ck, cv) if cks is None else (ck, cv, cks, cvs)
+
+
+# K10's and K14's launches by ``_flush_key``: a decode step flushes rows of
+# one geometry into one cache every step (mega2's flush buffers and pos come
+# back from the allocator at the same addresses), so a key's checks, its
+# tests of what needs converting and its packed C arguments are made once.
+# A key holds every tensor's data pointer, shape, dtype and contiguity: a
+# changed one is a new key, checked anew.  Only card launches are kept.
+_FLUSH_PLANS: dict[tuple, tuple] = {}
+_FLUSH_PLANS_MAX = 64
+
+
+def _flush_key(arrays) -> tuple:
+    """The fingerprint of a flush's tensors (None for an absent one)."""
+    return tuple([None if t is None else (t.data_ptr(), t.shape, t.dtype, t.is_contiguous())
+                  for t in arrays])
+
+
+def _flush_ready(pos, *inputs) -> bool:
+    """Whether pos is int32 and it and the other inputs are contiguous, as
+    the kernel reads them."""
+    return (pos.dtype == torch.int32 and pos.is_contiguous()
+            and all(t is None or t.is_contiguous() for t in inputs))
+
+
+def _contiguous(*ts):
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
+def _flush_plan(key: tuple, kernel: str, device: int, args: list) -> tuple:
+    """Keep a checked launch of ``kernel`` on card ``device`` under ``key``:
+    (kernel id, C entry point, packed int64 arguments, card index)."""
+    if len(_FLUSH_PLANS) >= _FLUSH_PLANS_MAX:
+        _FLUSH_PLANS.clear()
+    plan = (kernel, _kernels.entry(kernel), (ctypes.c_longlong * len(args))(*args), device)
+    _FLUSH_PLANS[key] = plan
+    return plan
 
 
 def _check_write_decode(k, v, pos, layer, ck, cv, cks, cvs) -> int:
@@ -1172,6 +1215,19 @@ def kv_pool_flush_rows_plain(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, 
     return ck, cv, cks, cvs
 
 
+def _check_pool_flush(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv, cks, cvs):
+    L, P, KVH, ps, hd, B, MP = _check_pool("kv_pool_flush_rows", ck, cv, cks, cvs, page_table)
+    if (rows_k.shape != (L, B, KVH, hd) or rows_v.shape != rows_k.shape
+            or rows_ks.shape != (L, B, KVH) or rows_vs.shape != rows_ks.shape
+            or pos.shape != (B,)):
+        raise ValueError(f"kv_pool_flush_rows: rows {tuple(rows_k.shape)}, scales "
+                         f"{tuple(rows_ks.shape)}, pos {tuple(pos.shape)}, pool {tuple(ck.shape)}")
+    if any(t.dtype != torch.int8 for t in (rows_k, rows_v)) or any(
+            t.dtype != torch.float32 for t in (rows_ks, rows_vs)):
+        raise TypeError("kv_pool_flush_rows takes int8 rows and float32 scales")
+    return L, P, KVH, ps, hd, B, MP
+
+
 def kv_pool_flush_rows(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv, cks, cvs):
     """Write every layer's fresh INT8 row IN PLACE at each slot's position:
     ``ck[l, page, :, pos[b] % ps] = rows_k[l, b]`` with ``page =
@@ -1182,27 +1238,25 @@ def kv_pool_flush_rows(rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv
     (attention.py:1324-1330), so does a parked slot (its table row is 0); a
     negative pos, or a page id outside [0, P), is skipped (the JAX package
     leaves both undefined).  Returns the (updated) pools.  K14 on CUDA
-    tensors, the plain version on CPU ones."""
-    L, P, KVH, ps, hd, B, MP = _check_pool("kv_pool_flush_rows", ck, cv, cks, cvs, page_table)
-    if (rows_k.shape != (L, B, KVH, hd) or rows_v.shape != rows_k.shape
-            or rows_ks.shape != (L, B, KVH) or rows_vs.shape != rows_ks.shape
-            or pos.shape != (B,)):
-        raise ValueError(f"kv_pool_flush_rows: rows {tuple(rows_k.shape)}, scales "
-                         f"{tuple(rows_ks.shape)}, pos {tuple(pos.shape)}, pool {tuple(ck.shape)}")
-    if any(t.dtype != torch.int8 for t in (rows_k, rows_v)) or any(
-            t.dtype != torch.float32 for t in (rows_ks, rows_vs)):
-        raise TypeError("kv_pool_flush_rows takes int8 rows and float32 scales")
+    tensors, the plain version on CPU ones; a launch's checks are made once
+    per ``_flush_key``."""
     arrays = (rows_k, rows_v, rows_ks, rows_vs, pos, page_table, ck, cv, cks, cvs)
-    if _kernels.on_cpu("K14", *arrays):
-        return kv_pool_flush_rows_plain(*arrays)
-    _pool_in_place("K14", ck, cv, cks, cvs)
-    rk, rv, rks, rvs = (t.contiguous() for t in (rows_k, rows_v, rows_ks, rows_vs))
-    p32 = pos.to(torch.int32).contiguous()
-    pt = page_table.contiguous()
-    vec = _vec16(hd, rk, rv, ck, cv)
-    _kernels.launch("K14", rk.data_ptr(), rv.data_ptr(), rks.data_ptr(), rvs.data_ptr(),
-                    p32.data_ptr(), pt.data_ptr(), ck.data_ptr(), cv.data_ptr(), cks.data_ptr(),
-                    cvs.data_ptr(), L, B, KVH, P, ps, MP, hd, int(vec), _kernels.stream(ck))
+    key = _flush_key(arrays)
+    plan = _FLUSH_PLANS.get(key)
+    if plan is None:
+        L, P, KVH, ps, hd, B, MP = _check_pool_flush(*arrays)
+        if _kernels.on_cpu("K14", *arrays):
+            return kv_pool_flush_rows_plain(*arrays)
+        _pool_in_place("K14", ck, cv, cks, cvs)
+        if not _flush_ready(pos, rows_k, rows_v, rows_ks, rows_vs, page_table):
+            return kv_pool_flush_rows(*_contiguous(rows_k, rows_v, rows_ks, rows_vs),
+                                      pos.to(torch.int32).contiguous(), page_table.contiguous(),
+                                      ck, cv, cks, cvs)
+        plan = _flush_plan(key, "K14", ck.get_device(), [
+            *(t.data_ptr() for t in arrays), L, B, KVH, P, ps, MP, hd,
+            int(_vec16(hd, rows_k, rows_v, ck, cv))])
+    kernel, fn, args, dev = plan
+    _kernels.call(kernel, fn, args, _kernels.device_stream(dev))
     return ck, cv, cks, cvs
 
 

@@ -191,17 +191,19 @@ def sqrt_f32(a) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(a, dtype=torch.float32).double()).float()
 
 
-def _absmax_quant(xf: torch.Tensor, dim: int, jitted: bool = True):
+def _absmax_quant(xf: torch.Tensor, dim: int, jitted: bool = True, out=None):
     """Symmetric absmax INT8 over ``dim`` of an f32 tensor -> (q, s).
     ``jitted`` picks the scale as the JAX package computes it inside jit
-    (``absmax * f32(1/127)``) rather than eagerly (``absmax / 127``)."""
+    (``absmax * f32(1/127)``) rather than eagerly (``absmax / 127``).
+    ``out`` (with ``jitted``): (q, s) tensors to write the result into (the
+    same operations, the last of each writing there)."""
     absmax = xf.abs().amax(dim=dim)
-    s = absmax * _RECIP_127 if jitted else absmax / 127.0
+    s = torch.mul(absmax, _RECIP_127, out=out and out[1]) if jitted else absmax / 127.0
     pos = s > 0
     inv = torch.where(pos, torch.ones_like(s) / torch.where(pos, s, torch.ones_like(s)),
                       torch.zeros_like(s))
-    q = torch.round(xf * inv.unsqueeze(dim)).clamp_(-127, 127).to(torch.int8)
-    return q, s
+    q = torch.round(xf * inv.unsqueeze(dim)).clamp_(-127, 127)
+    return (out[0].copy_(q) if out else q.to(torch.int8)), s
 
 
 def quantize_channel(w: torch.Tensor) -> ChannelQuantTensor:

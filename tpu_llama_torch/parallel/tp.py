@@ -36,6 +36,7 @@ from tpu_llama_torch.models.llama import (
     _decode_attend,
     _decode_prologue,
     _flush,
+    _flush_buffers,
     _last_rows,
     _split_rope,
     _write_decode,
@@ -333,15 +334,16 @@ def tp_forward_decode_fused(params: LlamaParams, cache, tokens: torch.Tensor,
     attend = _decode_attend("flash_dma" if attn == "flash_dma" or dma_ok else "flash", cache)
     qkv = _decode_prologue(layers, x, local)
     fresh = []
+    bufs, views = _flush_buffers(cache, B)
     for i in range(L):
         q, k, v = _split_rope(qkv, cos, sin, local)
-        fresh.append(_cache_rows(cache, k, v))
+        fresh.append(_cache_rows(cache, k, v, views[i]))
         att = _attend_fresh(attend, q, cache, pos32, fresh[-1], i)
         attq, satt = quantize_activations(att.reshape(B, local.dim).float())
         x = x + all_reduce(w8a8_matmul_stacked(attq, satt, layers.wo, i), mesh)
         x = x + all_reduce(fused_ffn_stacked(x, layers.w1, layers.w2, layers.rms_ffn, i), mesh)
         qkv = fused_rms_qkv_stacked(x, layers.wq, layers.rms_att, min(i + 1, L - 1))
-    _flush(cache, fresh, pos32)
+    _flush(cache, fresh, pos32, bufs)
     logits = matmul_any(rmsnorm(x, params.rms_final), params.wcls, precision="default").float()
     return _gather_logits(logits, mesh), cache
 

@@ -86,7 +86,13 @@ tp = 1 (``Engine(mesh=single_device_mesh(), tp_fused=True)``: phase 4i's
 kernels, its collectives the identity) of 8 slots at position 512, as
 ``measure`` takes it, with the device ms of K23, K24 and the decode's other
 kernels; public signatures only, so it also times another checkout's
-package.
+package.  ``--flush`` runs (l) alone: the flush kernels alone at
+chip_smoke.py's shapes (``flush_cases``: K10 INT8, f32 and bf16 on the 7B
+cache, K14 at batch 8 and 32 on pools of 512-row pages, K28 INT8), each
+with its events and trace device ms, its plain version's, one library
+call's and its bytes bound, then the paged two-launch step (K14) and the
+mega2 step (K10) of 8 slots at position 512, as ``measure_step`` takes
+them; public signatures only, so it also times another checkout's package.
 """
 
 from __future__ import annotations
@@ -198,6 +204,9 @@ def main(argv=None) -> None:
     ap.add_argument("--tp-spans", action="store_true",
                     help="run section (k) alone: K23 and K24 alone and the fused TP decode step "
                          "at tp = 1")
+    ap.add_argument("--flush", action="store_true",
+                    help="run section (l) alone: K10, K14 and K28 alone, the paged two-launch "
+                         "and mega2 b8 steps")
     args = ap.parse_args(argv)
     fp_only = args.fp_only
     if not torch.cuda.is_available():
@@ -220,6 +229,9 @@ def main(argv=None) -> None:
         return
     if args.tp_spans:
         tp_spans(cfg, smi)
+        return
+    if args.flush:
+        flush_steps(cfg, smi)
         return
     rng = np.random.default_rng(0)
     prompts = _prompts(rng, cfg, 8, 512)
@@ -467,15 +479,16 @@ def measure_step(name: str, eng, pos: int, smi: str, **extra) -> None:
     """One decode step per call of ``eng`` (all its slots at ``pos``, the
     cache as allocated: a step's time does not depend on the values it
     reads), as ``measure`` takes it, with the device ms of the decode
-    attention (K9, K13), the fused layer kernels (K12, K26) and the row
-    quants (K3, K2)."""
+    attention (K9, K13), the fused layer kernels (K11, K12, K26, K27), the
+    row quants (K3, K2) and the flush (K10, K14)."""
     toks = np.random.default_rng(0).integers(3, eng.config.vocab_size, eng.max_batch)
     b = eng.max_batch
 
     def step():
         eng.decode(toks[:b], np.full(b, pos))
 
-    measure(name, step, smi, ("K9", "K13", "K11", "K12", "K26", "K27", "K3", "K2"), batch=b,
+    measure(name, step, smi, ("K9", "K13", "K11", "K12", "K26", "K27", "K3", "K2", "K10", "K14"),
+            batch=b,
             pos=pos, attn=eng.decode_attn, fused=eng.decode_fused, **extra)
 
 
@@ -730,6 +743,166 @@ def tp_spans(cfg, smi: str) -> None:
     pos = torch.full((8,), 512, device="cuda")
     measure("decode_b8_pos512_tp1_fused", lambda: eng.decode_device(toks, pos), smi,
             ("K23", "K24", "K1+K8", "K9", "K2", "K10"), batch=8, pos=512, tp=1)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+HBM_BYTES_S = 3.35e12  # the H100 SXM's device memory rate (PERF.md's bounds)
+FLUSH_POS = [0, 1, 127, 128, 511, 1000, 2048, 2047]  # chip_smoke.py's K10 set: slot 6 at pos S
+FLUSH_POS32 = ([0, 1, 127, 128, 511, 1000, 1900, 2047]
+               + [int(p) for p in np.random.default_rng(32).integers(0, 2048, 24)])
+
+
+def flush_cases(cfg, kernels=("K10", "K14", "K28")):
+    """The flush kernels at chip_smoke.py's shapes, one case at a time: a
+    dict of its label, kernel id, ``call(i)`` of the wrapper, ``plain(i)``
+    (its plain version), ``lib(i)`` (one indexed write per array) and the
+    bytes its bound counts (every input read once, every output written
+    once).  K10 INT8, f32 and bf16 on a [32, 8, 32, 2048, 128] cache at
+    FLUSH_POS; K14 at batch 8 on a 33-page pool and batch 32 on a 129-page
+    one, pages of 512 rows in no order, slot 6 past its table and slot 1
+    parked; K28 INT8 on a [8, 8, 32, 2048, 128] cache, the layer turning.
+    Calls rotate over 8 copies of the rows, which stay in the L2 as a
+    step's do (its own kernels just wrote them).
+    ``kernels``: the ids whose cases are made (K10 for all three forms)."""
+    from tpu_llama_torch.ops import attention as tatt
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    L, KVH, S, hd, B, copies = cfg.n_layers, cfg.n_kv_heads, cfg.seq_len, cfg.head_dim, 8, 8
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def rf(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    def cached(kernel, fn, args, copies_of, **case):
+        def call(i, fn=fn):
+            fn(*args(copies_of[i % copies]))
+        return dict(kernel=kernel, call=call, **case)
+
+    pt = torch.tensor(FLUSH_POS, dtype=torch.int32, device="cuda")
+    ok = torch.tensor([b for b, p in enumerate(FLUSH_POS) if 0 <= p < S], device="cuda")
+    ix = (torch.arange(L, device="cuda")[:, None, None], ok[None, :, None],
+          torch.arange(KVH, device="cuda")[None, None, :], pt[ok].long()[None, :, None])
+    for dt in (torch.int8, torch.float32, torch.bfloat16) if "K10" in kernels else ():
+        int8 = dt == torch.int8
+        if int8:
+            cache = [ri(L, B, KVH, S, hd), ri(L, B, KVH, S, hd), rf(L, B, KVH, S),
+                     rf(L, B, KVH, S)]
+            rows = [(ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
+                    for _ in range(copies)]
+        else:
+            cache = [torch.randn(L, B, KVH, S, hd, generator=gen, device="cuda").to(dt)
+                     for _ in range(2)]
+            rows = [tuple(torch.randn(L, B, KVH, hd, generator=gen, device="cuda").to(dt)
+                          for _ in range(2)) for _ in range(copies)]
+
+        def args10(r, cache=cache):
+            return (r[0], r[1], pt, cache[0], cache[1], *r[2:], *cache[2:])
+
+        def lib10(i, rows=rows, cache=cache):
+            for c, r in zip(cache, rows[i % copies]):
+                c[ix] = r[:, ok]
+
+        kernel = "K10" if int8 else f"K10:{'f32' if dt == torch.float32 else 'bf16'}"
+        case = cached(kernel, tatt.kv_cache_flush_rows, args10, rows, lib=lib10,
+                      label=f"{kernel} L={L} B={B} KVH={KVH} S={S} hd={hd}",
+                      nbytes=2 * L * len(ok) * KVH * (2 * hd * cache[0].element_size()
+                                                       + 8 * int8) + 4 * B)
+        case["plain"] = lambda i, c=case["call"]: c(i, tatt.kv_cache_flush_rows_plain)
+        yield case
+        del cache, rows, case
+        torch.cuda.empty_cache()
+    ps, MP = 512, S // 512
+    for B, seed in ((8, 0), (32, 5)) if "K14" in kernels else ():
+        P = B * MP + 1
+        pool = [ri(L, P, KVH, ps, hd), ri(L, P, KVH, ps, hd), rf(L, P, KVH, ps),
+                rf(L, P, KVH, ps)]
+        rng = np.random.default_rng(seed)
+        table = torch.tensor(rng.permutation(np.arange(1, P)).reshape(B, MP).astype(np.int32),
+                             device="cuda")
+        table[1] = 0  # a parked slot
+        pos = list(FLUSH_POS32[:B])
+        pos[6] = MP * ps  # past the slot's table: the trash page
+        p32 = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        rows = [(ri(L, B, KVH, hd), ri(L, B, KVH, hd), rf(L, B, KVH), rf(L, B, KVH))
+                for _ in range(copies)]
+        okp, page, row = tatt._flush_targets(p32, table, P, ps)
+        ixp = (torch.arange(L, device="cuda")[:, None, None], page[None, :, None],
+               torch.arange(KVH, device="cuda")[None, None, :], row[None, :, None])
+
+        def args14(r, p32=p32, table=table, pool=pool):
+            return (*r, p32, table, *pool)
+
+        def lib14(i, rows=rows, pool=pool, okp=okp, ixp=ixp):
+            for a, r in zip(pool, rows[i % copies]):
+                a[ixp] = r[:, okp]
+
+        case = cached("K14", tatt.kv_pool_flush_rows, args14, rows, lib=lib14,
+                      label=f"K14 L={L} B={B} KVH={KVH} ps={ps} P={P}",
+                      nbytes=2 * L * B * KVH * (2 * hd + 8) + 4 * B * (MP + 1))
+        case["plain"] = lambda i, c=case["call"]: c(i, tatt.kv_pool_flush_rows_plain)
+        yield case
+        del pool, rows, case
+        torch.cuda.empty_cache()
+    if "K28" not in kernels:
+        return
+    L8, B, layer = 8, 8, 5
+    cache = [ri(L8, B, KVH, S, hd), ri(L8, B, KVH, S, hd), rf(L8, B, KVH, S), rf(L8, B, KVH, S)]
+    rows = [(torch.randn(B, KVH, hd, generator=gen, device="cuda") * 3,
+             torch.randn(B, KVH, hd, generator=gen, device="cuda") * 3) for _ in range(copies)]
+    quant = [(kq, vq, ks, vs) for (kq, ks), (vq, vs) in
+             ((tatt.quantize_kv(k), tatt.quantize_kv(v)) for k, v in rows)]
+    ix28 = (ok[:, None], torch.arange(KVH, device="cuda")[None, :], pt[ok].long()[:, None])
+
+    def call28(i, fn=tatt.kv_cache_write_decode):
+        fn(*rows[i % copies], pt, (layer + i) % L8, *cache)
+
+    def lib28(i):
+        for c, r in zip(cache, quant[i % copies]):
+            c[(layer + i) % L8][ix28] = r[ok]
+
+    yield dict(kernel="K28", call=call28,
+               plain=lambda i: call28(i, tatt.kv_cache_write_decode_plain), lib=lib28,
+               label=f"K28 int8 L={L8} B={B} KVH={KVH} S={S} hd={hd}",
+               nbytes=2 * B * KVH * hd * 4 + 4 * B + 2 * len(ok) * KVH * (hd + 4))
+    del cache, rows, quant
+    torch.cuda.empty_cache()
+
+
+def flush_steps(cfg, smi: str) -> None:
+    """Section (l): every ``flush_cases`` case alone -- CUDA events over
+    back-to-back calls and the trace's device ms (``timed``) of the
+    wrapper, its plain version and the library call, beside the bytes
+    bound -- then the paged two-launch decode step (K14, and K13 + K11 per
+    layer) and the mega2 step (K10) of 8 slots at position 512, each as
+    ``measure_step`` takes it.  Uses only public signatures, so the same
+    script can time another checkout's package (its directory first on
+    PYTHONPATH)."""
+    from tpu_llama_torch.models.llama import random_quant_params
+    from tpu_llama_torch.runtime import Engine
+
+    for case in flush_cases(cfg):
+        ev, dev = timed(case["call"], 50)
+        plain = timed(case["plain"], 10)
+        lib = timed(case["lib"], 20)
+        print(json.dumps(dict(phase="flush_kernels", kernel=case["kernel"], shape=case["label"],
+                              events_ms=ev, device_ms=dev, plain_ms=plain[0],
+                              plain_device_ms=plain[1], library_ms=lib[0],
+                              library_device_ms=lib[1],
+                              bound_ms=case["nbytes"] / HBM_BYTES_S * 1e3, card=smi)),
+              flush=True)
+        del case
+    params = random_quant_params(cfg, seed=0, fuse=True)
+    paged = Engine(params, cfg, max_batch=8, kv_layout="paged", page_size=512, seq_len=2048)
+    paged.prefill([[1] * 16] * 8, list(range(8)), reserve_tokens=[2048] * 8)
+    measure_step("decode_b8_pos512_paged", paged, 512, smi, page_size=512)
+    del paged
+    torch.cuda.empty_cache()
+    eng = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+    eng.decode_fused = "mega2"
+    measure_step("decode_b8_pos512_fused_mega2", eng, 512, smi)
     del eng, params
     torch.cuda.empty_cache()
 
