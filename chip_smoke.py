@@ -89,6 +89,17 @@ Phases (any failure exits non-zero and prints no result line):
    group and layer: K3 twice, K4, K5 and K6 once; per decode step what
    ``decode_launches`` lists for the resolved mode), no plain version may
    run;
+4j. ``serve_7b_http`` (right after phase 4, on its weights, its engine
+   released), the text server: ``LlamaServer(port=0, warmup=True,
+   warmup_max_bucket=512)`` over ``Engine(max_batch=8, kv_dtype="int8",
+   seq_len=2048)`` with a 32000-entry byte tokenizer (``byte_tokenizer``):
+   warmup's buckets [16 .. 512] and seconds, /healthz, one greedy /generate
+   equal to a direct ``ContinuousBatcher`` run of its prompt on the same
+   engine, 8 concurrent greedy requests with top-2 logprobs equal to their
+   direct run but at near ties (PARITY_NEAR_TIE), a streamed request's
+   pieces equal to the text, a device-sampled request, /metrics counting
+   every request, phase 4's launch formula (``check_serve_launches``) and
+   no plain version; tok/s and TTFT beside phase 4's;
 4b. ``serve_7b_long``, the long-prompt path on phase 4's weights:
    ``ContinuousBatcher(max_chunk=16, prefix_cache_size=8)``; wave A, 8
    device-sampled requests of 1100-1950 prompt tokens, is one admission of
@@ -165,7 +176,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``start0`` waves against the one-shot call on each side); then the same shape written as a llama2.c checkpoint and read back
    (``parity_checkpoint``): dense f32
    weights over f32 and bf16 caches and Q8_0 weights over a bf16 cache,
-   card against CPU at ``precision="highest"``;
+   card against CPU at ``precision="highest"``; that file then drives the
+   text surface (``checkpoint_text_surface``): ``python3 -m
+   tpu_llama_torch.cli ... --quant w8a8 --kv-dtype int8 -t 0 -n 24`` as a
+   subprocess exits 0 with the text of an in-process greedy run on the
+   engine that ``EngineConfig.build_engine`` builds for the same files;
 6. a JSON line of the kernels (launches counted on the path that runs
    each: phase 4, phase 4b for K18, phase 4e for K13, K14 and K15, phase 4f
    for K16 and K17, phases 4c and 4d for K25 and the fp forms, phase 4g for
@@ -2624,22 +2639,7 @@ def serve_7b(torch, smi_line, params, params_s):
     check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
           "served tokens missing or out of vocabulary")
     attn, fused = engine.decode_attn, engine.decode_fused
-    steps = batcher.timers["decode_steps"]
-    L = cfg.n_layers
-    groups = launches["K7"]  # one K7 scatter per admission group
-    # per admission group and layer the fused body runs K3 twice, K4, K5 and
-    # K6 once, and K1 four times (qkv, wo, w13, w2), K2 only for wo; the
-    # classifier adds one K2 + K1 per group; each decode step what its
-    # resolved mode launches
-    want = dict(K3=2 * L * groups, K4=L * groups, K5=L * groups, K6=L * groups, K7=groups,
-                K1=(4 * L + 1) * groups, K2=(L + 1) * groups)
-    for k, n in decode_launches(fused, attn, L).items():
-        want[k] = want.get(k, 0) + n * steps
-    got = {k: n for k, n in launches.items() if n > 0}
-    check(groups > 0 and got == want,
-          f"{groups} admission groups, {steps} decode steps (fused={fused!r}, {attn}): want "
-          f"exactly {want}, got {got}")
-    check(all(v == 0 for v in plain.values()), f"plain versions ran: {plain}")
+    groups = check_serve_launches(launches, plain, engine, batcher, "serve_7b")
     rep = summarize(reqs)
     line = dict(phase="serve_7b", layouts="fused", decode_attn=attn, decode_fused=fused,
                 admission_groups=groups,
@@ -2657,7 +2657,199 @@ def serve_7b(torch, smi_line, params, params_s):
     print(json.dumps(line), flush=True)
     del engine, batcher
     torch.cuda.empty_cache()
-    return launches, [r.out_tokens for r in reqs]
+    return launches, [r.out_tokens for r in reqs], line
+
+
+def check_serve_launches(launches, plain, engine, batcher, label: str) -> int:
+    """Hold a serving run's launches to the W8A8 fused path's formula and
+    its plain-version calls to none; returns its admission groups.  Per
+    admission group and layer the fused body runs K3 twice, K4, K5 and K6
+    once, and K1 four times (qkv, wo, w13, w2), K2 only for wo; the
+    classifier adds one K2 + K1 per group; each decode step what its
+    resolved mode launches (``decode_launches``)."""
+    attn, fused = engine.decode_attn, engine.decode_fused
+    steps = batcher.timers["decode_steps"]
+    L = engine.config.n_layers
+    groups = launches["K7"]  # one K7 scatter per admission group
+    want = dict(K3=2 * L * groups, K4=L * groups, K5=L * groups, K6=L * groups, K7=groups,
+                K1=(4 * L + 1) * groups, K2=(L + 1) * groups)
+    for k, n in decode_launches(fused, attn, L).items():
+        want[k] = want.get(k, 0) + n * steps
+    got = {k: n for k, n in launches.items() if n > 0}
+    check(groups > 0 and got == want,
+          f"{label}: {groups} admission groups, {steps} decode steps (fused={fused!r}, {attn}): "
+          f"want exactly {want}, got {got}")
+    check(all(v == 0 for v in plain.values()), f"{label}: plain versions ran: {plain}")
+    return groups
+
+
+def byte_tokenizer(vocab: int):
+    """A ``vocab``-entry byte tokenizer (``make_byte_tokenizer``: 3
+    specials, 256 bytes, then pads that no text merges into), as
+    tests/conftest.py builds its tiny one."""
+    from tpu_llama_torch.io.tokenizer import make_byte_tokenizer
+
+    return make_byte_tokenizer([(f"<pad{i}>", -1e5) for i in range(vocab - 259)])
+
+
+def http_prompts(n: int, seed: int = 0) -> list:
+    """``n`` English-like prompts of 15-500 characters (one byte token each
+    under ``byte_tokenizer``), spanning the 16..512 buckets."""
+    words = ("once upon a time there was a little model that served text on a card and every "
+             "request it answered came back token for token the same").split()
+    rng = np.random.default_rng(seed)
+    lens = [400, 15, 200, 120, 60, 30, 250, 90, 480, 40][:n]
+    out = []
+    for m in lens:
+        text = ""
+        while len(text) < m:
+            text += (" " if text else "") + str(rng.choice(words))
+        out.append(text[:m].capitalize())
+    return out
+
+
+def _http(port: int, path: str, payload=None, stream: bool = False, timeout: float = 300):
+    """One request to the local server: JSON back, or a stream's events."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if stream:
+            return [json.loads(line) for line in r]
+        return json.loads(r.read())
+
+
+def serve_7b_http(torch, smi_line, params, serve_line):
+    """Phase 4j: the text server on phase 4's weights (phase 4's engine
+    released): ``Engine(max_batch=8, kv_dtype="int8", seq_len=2048)`` under
+    ``LlamaServer(port=0, warmup=True, warmup_max_bucket=512)`` with a
+    32000-entry byte tokenizer.  Holds: warmup's buckets [16 .. 512];
+    /healthz ok; one greedy /generate equal to a direct
+    ``ContinuousBatcher`` run of its encoded prompt on the same engine
+    (after ``reset``), token for token; 8 concurrent greedy requests with
+    top-2 logprobs each equal to its stream in a direct run of the 8, or
+    parting only where the direct run's top-2 gap is within
+    PARITY_NEAR_TIE of that step's max |logit| (HTTP arrivals form other
+    admission groups); a streamed request's pieces equal to the first
+    request's text; a device-sampled request's tokens in the vocabulary;
+    /metrics counting every request; the launches of every admission group
+    and decode step exactly ``check_serve_launches``' formula, and no plain
+    version.  Returns the run's launches."""
+    import threading
+
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime import scheduler as sched
+    from tpu_llama_torch.runtime.metrics import summarize
+    from tpu_llama_torch.runtime.server import LlamaServer
+
+    cfg = LLAMA2_7B
+    tok = byte_tokenizer(cfg.vocab_size)
+    prompts = http_prompts(10)
+    engine = Engine(params, cfg, max_batch=8, kv_dtype="int8", seq_len=2048)
+    t0 = time.time()
+    srv = LlamaServer(engine, tok, port=0, warmup=True, warmup_max_bucket=512).start()
+    warmup_s = time.time() - t0
+    check(srv.warmup_buckets == [16, 32, 64, 128, 256, 512],
+          f"warmup buckets {srv.warmup_buckets}")
+    try:
+        health = _http(srv.port, "/healthz")
+        check(health.get("ok") is True, f"/healthz: {health}")
+        _kernels.reset_counts()  # counts from here on belong to the served requests
+        t0 = time.time()
+        first = _http(srv.port, "/generate", dict(prompt=prompts[0], steps=len(prompts[0]) + 49,
+                                                  temperature=0.0))
+        conc = [dict(prompt=p, steps=len(p) + 33, temperature=0.0, logprobs=2)
+                for p in prompts[1:9]]
+        answers = [None] * len(conc)
+
+        def call(i):
+            answers[i] = _http(srv.port, "/generate", conc[i])
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(conc))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads) and all(answers),
+              "a concurrent request did not answer")
+        events = _http(srv.port, "/generate", dict(prompt=prompts[0], temperature=0.0,
+                                                   steps=len(prompts[0]) + 49, stream=True),
+                       stream=True)
+        sampled = _http(srv.port, "/generate", dict(prompt=prompts[9], steps=len(prompts[9]) + 33,
+                                                    temperature=0.8, seed=7,
+                                                    device_sampling=True))
+        serve_s = time.time() - t0
+        launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        metrics = _http(srv.port, "/metrics")
+    finally:
+        srv.stop()
+    n_req = 1 + len(conc) + 1 + 1
+    groups = check_serve_launches(launches, plain, engine, srv.batcher, "serve_7b_http")
+    check(metrics["n_requests"] == n_req == len(srv.batcher.finished),
+          f"/metrics counts {metrics['n_requests']} requests, want {n_req}")
+    pieces = "".join(e["piece"] for e in events if "piece" in e)
+    check(events[-1].get("done") is True and pieces == first["text"],
+          f"streamed pieces {pieces!r} != the text {first['text']!r}")
+    check(len(sampled["tokens"]) > 0 and all(0 <= t < cfg.vocab_size for t in sampled["tokens"]),
+          f"device-sampled tokens missing or out of vocabulary: {sampled['tokens']}")
+    # the direct runs on the same engine, the server stopped
+    engine.reset()
+    direct = Request(prompt_tokens=tok.encode(prompts[0]), steps=len(prompts[0]) + 49,
+                     temperature=0.0)
+    b = ContinuousBatcher(engine)
+    b.submit(direct)
+    b.run()
+    check(first["tokens"] == direct.out_tokens and len(direct.out_tokens) > 0,
+          f"/generate {first['tokens']} != the direct run {direct.out_tokens}")
+    engine.reset()
+    reqs = [Request(prompt_tokens=tok.encode(c["prompt"]), steps=c["steps"], temperature=0.0,
+                    logprobs=2) for c in conc]
+    peaks = {}
+    record = sched._record_logprobs
+
+    def record_peak(logits, token, req):  # each step's max |logit| beside its logprobs
+        record(logits, token, req)
+        peaks.setdefault(id(req), []).append(float(np.abs(np.asarray(logits)).max()))
+
+    sched._record_logprobs = record_peak
+    try:
+        b = ContinuousBatcher(engine)
+        for r in reqs:
+            b.submit(r)
+        b.run()
+    finally:
+        sched._record_logprobs = record
+    parted = _streams_parted([a["tokens"] for a in answers], [r.out_tokens for r in reqs],
+                             [r.out_top_logprobs for r in reqs])
+    # a direct stream that ended (BOS) where the served one went on has no
+    # logprobs at that step: its gap is unknown, and the check fails
+    partings = [dict(request=i, step=p[0], gap=p[1],
+                     gap_share=(p[1] / peaks[id(reqs[i])][p[0]]
+                                if p[0] < len(peaks[id(reqs[i])]) else math.inf))
+                for i, p in enumerate(parted) if p is not None]
+    check(all(p["gap_share"] <= PARITY_NEAR_TIE for p in partings),
+          f"concurrent greedy streams part from their direct runs beyond a near tie "
+          f"(PARITY_NEAR_TIE {PARITY_NEAR_TIE}): {partings}")
+    rep = summarize(srv.batcher.finished)
+    line = dict(phase="serve_7b_http", warmup_s=warmup_s, warmup_buckets=srv.warmup_buckets,
+                decode_attn=engine.decode_attn, decode_fused=engine.decode_fused,
+                n_requests=rep.n_requests, tokens=rep.total_tokens, serve_s=serve_s,
+                tok_per_s=rep.tokens_per_sec, ttft_p50_ms=rep.ttft_p50_s * 1e3,
+                ttft_p95_ms=rep.ttft_p95_s * 1e3, first_ttft_ms=first["ttft_s"] * 1e3,
+                serve_7b_tok_per_s=serve_line["tok_per_s"],
+                serve_7b_ttft_p50_ms=serve_line["ttft_p50_ms"],
+                serve_7b_ttft_p95_ms=serve_line["ttft_p95_ms"], admission_groups=groups,
+                decode_steps=srv.batcher.timers["decode_steps"], partings=partings,
+                streams_equal=sum(p is None for p in parted), launches=launches,
+                plain_calls=plain, card=smi_line)
+    print(json.dumps(line), flush=True)
+    del engine, b
+    torch.cuda.empty_cache()
+    return launches
 
 
 def long_requests(Request, vocab: int):
@@ -4193,7 +4385,6 @@ def parity_checkpoint(torch):
     q8 = tl.quantize_params(dense[CARD])
     weights = {"dense": dense, "q8_0": {CARD: q8, "cpu": _to(q8, "cpu")}}
     del raw
-    path.unlink()
     ckpt_s = time.time() - t0
     seq = [1] + [int(t) for t in np.random.default_rng(6).integers(3, cfg.vocab_size, 15)]
     launches = {}
@@ -4232,6 +4423,74 @@ def parity_checkpoint(torch):
     del weights, dense, q8
     torch.cuda.empty_cache()
     return launches
+
+
+def checkpoint_text_surface(torch, smi_line):
+    """Phase 5 on ``parity_checkpoint``'s file (the 2-layer 7B-width
+    llama2.c checkpoint, kept for this), with a 32000-entry byte
+    tokenizer's ``tokenizer.bin`` saved beside it: ``python3 -m
+    tpu_llama_torch.cli <ckpt> --tokenizer <tok> --quant w8a8 --kv-dtype
+    int8 -t 0 -n 24 -i <prompt>`` as a subprocess on the card exits 0, and
+    its stdout before the tok/s line equals the prompt echo and the text of
+    an in-process greedy run of the same request on the engine that
+    ``EngineConfig.build_engine`` builds from a JSON naming the same files
+    (the CLI's settings: fused W8A8, INT8 cache, one slot, mega2), which
+    serves it through ``ContinuousBatcher``.  Removes both files."""
+    import os
+    from pathlib import Path
+
+    from tpu_llama_torch.io.tokenizer import BOS
+    from tpu_llama_torch.ops import _kernels
+    from tpu_llama_torch.runtime import ContinuousBatcher, Request
+    from tpu_llama_torch.utils import EngineConfig
+
+    root = Path(__file__).resolve().parent
+    d = root / "build" / "parity"
+    ckpt, tok_path, cfg_path = d / "model.bin", d / "tokenizer.bin", d / "engine.json"
+    prompt, steps = "Once upon a time", 24  # 16 prompt tokens after BOS: 7 generated
+    try:
+        tok = byte_tokenizer(32000)
+        tok.save(tok_path)
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "tpu_llama_torch.cli", str(ckpt), "--tokenizer",
+             str(tok_path), "--quant", "w8a8", "--kv-dtype", "int8", "-t", "0", "-n",
+             str(steps), "-i", prompt], cwd=root, capture_output=True, timeout=600,
+            env=dict(os.environ, PYTHONIOENCODING="utf-8"))
+        cli_s = time.time() - t0
+        out = res.stdout.decode("utf-8", errors="replace")
+        check(res.returncode == 0, f"the CLI exited {res.returncode}: "
+                                   f"{res.stderr.decode(errors='replace')[-2000:]}")
+        check("\n\nachieved tok/s: " in out, f"the CLI printed no tok/s line: {out[-500:]!r}")
+        cli_text = out.split("\n\nachieved tok/s")[0]
+        t0 = time.time()
+        EngineConfig(checkpoint=str(ckpt), tokenizer=str(tok_path), quant="w8a8",
+                     kv_dtype="int8", max_batch=1, precision="highest").save(cfg_path)
+        engine, tok2 = EngineConfig.load(cfg_path).build_engine()
+        build_s = time.time() - t0
+        check(engine.device.type == "cuda" and engine.decode_fused == "mega2",
+              f"EngineConfig built {engine.device} / {engine.decode_fused!r}")
+        ptoks = tok2.encode(prompt)
+        req = Request(prompt_tokens=ptoks, steps=steps, temperature=0.0)
+        _kernels.reset_counts()
+        b = ContinuousBatcher(engine)
+        b.submit(req)
+        b.run()
+        plain = {k: n for k, n in _kernels.PLAIN_CALLS.items() if n}
+        text = tok2.decode(ptoks, prev_token=BOS) + tok2.decode(req.out_tokens,
+                                                                prev_token=ptoks[-1])
+        print(json.dumps(dict(phase="checkpoint_text_surface", cli_s=cli_s, build_engine_s=build_s,
+                              cli_rc=res.returncode, prompt_tokens=len(ptoks),
+                              tokens=req.out_tokens, texts_equal=cli_text == text,
+                              card_plain_calls=plain, card=smi_line)), flush=True)
+        check(req.done and len(req.out_tokens) > 0, "the EngineConfig engine served no tokens")
+        check(not plain, f"plain versions ran on the card: {plain}")
+        check(cli_text == text, f"the CLI's text {cli_text!r} != the in-process run's {text!r}")
+        del engine, b
+    finally:
+        for f in (ckpt, tok_path, cfg_path):
+            f.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
 
 
 def parity_long_paths(torch):
@@ -4450,7 +4709,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     params = random_quant_params(LLAMA2_7B, seed=0, norm_dtype=torch.bfloat16, fuse=True)
     torch.cuda.synchronize()
-    launches, mega2_streams = serve_7b(torch, smi, params, time.time() - t0)
+    launches, mega2_streams, serve_line = serve_7b(torch, smi, params, time.time() - t0)
     # a kernel on no path: its launches summed over every phase-4 path's own
     # counts (each reset just before that path runs), and held to 0
     on_no_path = {k: launches.get(k, 0) for k in NO_PATH}
@@ -4460,6 +4719,10 @@ def main(argv=None) -> int:
             on_no_path[k] += got.get(k, 0)
 
     print(f"phase 4: {time.time() - t0:.1f} s", flush=True)
+    # 4j. the text server on the same weights, phase 4's engine released
+    t0 = time.time()
+    no_path(serve_7b_http(torch, smi, params, serve_line))
+    print(f"phase 4j: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     got = serve_7b_long(torch, smi, params)
     launches["K18"] = got["K18"]
@@ -4549,6 +4812,7 @@ def main(argv=None) -> int:
     # the checkpoint-loaded model; K19's fp forms count their launches here
     # (4c and 4d decode with K9's)
     ckpt = parity_checkpoint(torch)
+    checkpoint_text_surface(torch, smi)
     for kernel, run in (("K19:f32", ("dense", "float32", "flash")),
                         ("K19:bf16", ("dense", "bfloat16", "flash"))):
         launches[kernel] = ckpt[run].get(kernel, 0)

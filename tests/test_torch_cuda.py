@@ -1938,3 +1938,84 @@ def test_norm_cell_residency(card, kernel):
             kernel, torch.int8, G, 128, 2048, 128, splits)
         assert blocks >= (3 if splits > 2 else 2) and 2 <= tiles <= 6, (blocks, tiles, nbytes)
         assert clusters >= B * KVH, (clusters, B * KVH)
+
+
+# -------------------------------------------- the text server and all-position logits
+# A 2-layer model at Llama-2 7B's widths in the served layouts (fused W8A8,
+# dense INT8 cache).  The server's greedy answer must be the direct
+# batcher's token for token on the same engine (one request: the same
+# admission and the same steps).  prefill_with_all_logits on the card must
+# lie within the smoke's LOGITS_TOL (5e-2 of max |logit|, chip_smoke.py) of
+# its CPU plain path at every position, both sides on K6's function
+# (prefill "flash"): a moved int8 of K3-K5 moves logits by up to ~3%.
+LOGITS_TOL = 5e-2
+
+
+def _7b_2layer(card, seed, norm_dtype):
+    import dataclasses
+
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models import llama as tl
+
+    cfg = dataclasses.replace(LLAMA2_7B, n_layers=2)
+    return cfg, tl.random_quant_params(cfg, seed=seed, norm_dtype=norm_dtype, fuse=True,
+                                       device=card)
+
+
+def test_server_greedy_equals_direct_batcher_7b_width(card):
+    import json
+    import urllib.request
+
+    from tpu_llama_torch.io.tokenizer import make_byte_tokenizer
+    from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
+    from tpu_llama_torch.runtime.server import LlamaServer
+
+    cfg, params = _7b_2layer(card, 3, torch.bfloat16)
+    tok = make_byte_tokenizer([(f"<pad{i}>", -1e5) for i in range(cfg.vocab_size - 259)])
+    engine = Engine(params, cfg, max_batch=4, kv_dtype="int8", seq_len=256)
+    assert engine.decode_fused == "mega2"
+    srv = LlamaServer(engine, tok, port=0, warmup=True, warmup_max_bucket=64).start()
+    try:
+        assert srv.warmup_buckets == [16, 32, 64]
+        prompt = "Once upon a time, there was a little card that served text."
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/generate",
+            data=json.dumps(dict(prompt=prompt, steps=96, temperature=0.0)).encode(),
+            headers={"Content-Type": "application/json"})
+        _kernels.reset_counts()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())
+        launched = {k for k, n in _kernels.LAUNCHES.items() if n > 0}
+        assert {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K12"} == launched
+        assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
+    finally:
+        srv.stop()
+    engine.reset()
+    direct = Request(prompt_tokens=tok.encode(prompt), steps=96, temperature=0.0)
+    b = ContinuousBatcher(engine)
+    b.submit(direct)
+    b.run()
+    assert got["tokens"] == direct.out_tokens and len(got["tokens"]) > 0
+    assert got["text"] == tok.decode(direct.out_tokens, prev_token=direct.prompt_tokens[-1])
+
+
+def test_prefill_with_all_logits_card_matches_cpu(card):
+    from tpu_llama_torch import convert
+    from tpu_llama_torch.runtime import Engine
+
+    cfg, gpu = _7b_2layer(card, 4, torch.float32)
+    cpu = convert.params_from_numpy(convert.params_to_numpy(gpu), device="cpu")
+    prompt = [1] + [int(t) for t in np.random.default_rng(4).integers(3, cfg.vocab_size, 99)]
+    out = {}
+    for params, dev in ((gpu, card), (cpu, "cpu")):
+        eng = Engine(params, cfg, max_batch=2, kv_dtype="int8", seq_len=256,
+                     prefill_attn="flash", device=dev)
+        _kernels.reset_counts()
+        out[dev] = eng.prefill_with_all_logits(prompt, 1)
+        if dev == card:  # the fused prefill body, and K2 + K1 for the classifier at M = T
+            assert {k for k, n in _kernels.LAUNCHES.items() if n > 0} == {
+                "K1", "K2", "K3", "K4", "K5", "K6", "K7"}
+            assert all(v == 0 for v in _kernels.PLAIN_CALLS.values())
+    g, c = out[card], out["cpu"]
+    assert g.shape == c.shape == (100, cfg.vocab_size) and np.isfinite(g).all()
+    assert np.abs(g - c).max() <= LOGITS_TOL * np.abs(c).max()

@@ -30,6 +30,11 @@ def test_port_imports_neither_jax_nor_reference():
     assert "tpu_llama_torch.runtime.paged" in mods and "tpu_llama_torch.runtime.native_pool" in mods
     assert {f"tpu_llama_torch.parallel.{m}" for m in ("mesh", "sharding", "tp", "overlap",
                                                      "launch")} <= set(mods)
+    # the text surface and the server
+    assert {f"tpu_llama_torch.{m}" for m in (
+        "cli", "native", "io.tokenizer", "io.fast_bpe", "compat.oracle", "compat.native_oracle",
+        "compat.generate", "eval", "eval.ppl", "runtime.health", "runtime.server", "utils",
+        "utils.engine_config", "utils.profiling")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

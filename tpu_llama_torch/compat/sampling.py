@@ -3,6 +3,8 @@
 A copy of ``tpu_llama.compat.sampling``.  These run on fp32 probability
 arrays with float64 arithmetic (JS numbers are IEEE float64):
 
+* ``scale_softmax_f32`` — temperature and softmax with f32 stores
+  (llama2.ts:481-485);
 * ``argmax`` — ties resolve to the LOWEST index (llama2.ts:364-366).
 * ``sample`` — multinomial CDF walk with ``randValue < cumProb``; falls
   through to token 0 (llama2.ts:368-376).
@@ -16,6 +18,16 @@ from __future__ import annotations
 import numpy as np
 
 from tpu_llama_torch.compat.rng import Xorshift64Star
+
+
+def scale_softmax_f32(logits: np.ndarray, temperature: float) -> np.ndarray:
+    """The reference's logit pipeline (llama2.ts:481-485): the division by
+    the temperature and the softmax's exps and quotients stored as f32,
+    their arithmetic and the sum in f64."""
+    scaled = (logits.astype(np.float64) / temperature).astype(np.float32)
+    m = np.max(scaled)
+    e = np.exp(scaled.astype(np.float64) - np.float64(m)).astype(np.float32)
+    return (e.astype(np.float64) / float(np.sum(e.astype(np.float64)))).astype(np.float32)
 
 
 def argmax(arr: np.ndarray) -> int:

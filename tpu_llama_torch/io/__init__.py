@@ -1,5 +1,5 @@
-"""Checkpoint I/O (``checkpoint``) and tokenizer constants (``tokenizer``;
-the tokenizer itself comes with the HTTP slice)."""
+"""Checkpoint I/O (``checkpoint``) and the tokenizer (``tokenizer``, with
+the native encoder in ``fast_bpe``)."""
 
 from tpu_llama_torch.io.checkpoint import (  # noqa: F401
     RawWeights,
@@ -7,3 +7,4 @@ from tpu_llama_torch.io.checkpoint import (  # noqa: F401
     make_random_weights,
     write_checkpoint,
 )
+from tpu_llama_torch.io.tokenizer import Tokenizer  # noqa: F401

@@ -38,7 +38,11 @@ over dense, Q8_0 or W8A8 weights:
   TF32 on the card for "default" and "high", full f32 for "highest";
 * device sampling: ``decode_sample``, ``sample_logits`` and the multi-step
   ``decode_sample_chunk[_async]`` sample on the logits' device with JAX's
-  threefry keys (``ops/sampling.py``), so only token ids leave the card.
+  threefry keys (``ops/sampling.py``), so only token ids leave the card;
+* ``prefill_with_all_logits`` returns one prompt's logits at every
+  position (compat generation, perplexity); ``warmup`` runs every prompt
+  bucket and the decode steps once (and on the card builds every kernel
+  library) before a server takes traffic.
 
 JAX's donated functional cache becomes one cache object updated in place,
 every write on the current stream, so work queued after a decode chunk
@@ -105,7 +109,7 @@ from tpu_llama_torch.models.llama import (
     make_kv_cache,
 )
 from tpu_llama_torch.ops.attention import kv_cache_scatter_slots, kv_pool_scatter_pages
-from tpu_llama_torch.ops.sampling import fold_in, sample_nosort
+from tpu_llama_torch.ops.sampling import fold_in, keys_numpy, sample_nosort
 from tpu_llama_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from tpu_llama_torch.parallel.tp import (
     _local_config,
@@ -184,9 +188,12 @@ def _make_page_pool(num_pages: int, page_size: int, slots: int, max_pages_per_sl
 
 def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, lengths: torch.Tensor,
                         slots: Sequence[int], config: ModelConfig, precision: str = "default",
-                        attn: str = "auto"):
+                        attn: str = "auto", logits_mode: str = "last"):
     """Compact prefill + scatter into the slot cache (engine.py:96).  Returns
-    (next-token logits [Bp, V], cache) with the cache updated in place.  The
+    (logits, cache) with the cache updated in place: the next-token logits
+    [Bp, V] for ``logits_mode="last"``, every position's [Bp, T, V] for
+    "all", which (as in JAX) takes ``forward_prefill``'s start-position
+    path, not the fresh one, and never the chunked one.  The
     scatter is K7 (its fp form on an fp cache) for every bucket: the TPU's
     ``T % 128`` gate and the indexed copy JAX's engine takes below it
     (engine.py:204-214) were a Mosaic alignment rule that the CUDA kernel
@@ -196,13 +203,14 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
     it."""
     Bp, T = tokens.shape
     small = make_kv_cache(config, Bp, kv_dtype=cache.k.dtype, seq_len=T, device=tokens.device)
-    if T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
+    fresh = logits_mode == "last"
+    if fresh and T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
         last, small = forward_prefill_chunked(params, small, tokens, lengths, config,
                                               chunk=_CHUNK, precision=precision, attn=attn)
     else:
         last, small = forward_prefill(
-            params, small, tokens, start_pos=torch.zeros_like(lengths), lengths=lengths,
-            config=config, logits_mode="last", assume_fresh=True, precision=precision,
+            params, small, tokens, start_pos=torch.zeros(Bp, dtype=torch.long), lengths=lengths,
+            config=config, logits_mode=logits_mode, assume_fresh=fresh, precision=precision,
             attn=attn)
     if isinstance(cache, PagedKVCache):
         kv_pool_scatter_pages(small.k, small.v, small.ks, small.vs, slots, cache.page_table,
@@ -425,6 +433,29 @@ class Engine:
         last = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return last if return_device else last.cpu().numpy()
 
+    def prefill_with_all_logits(self, prompt: Sequence[int], slot: int) -> np.ndarray:
+        """Prefill one prompt into ``slot`` and return the logits at EVERY
+        prompt position [len(prompt), V] (engine.py:563-578), for
+        teacher-forced compat generation and perplexity.  A paged engine
+        releases the slot's pages and reserves the prompt's anew.  The
+        prompt pads to a power-of-two bucket capped at seq_len."""
+        if self.tp_fused:
+            raise NotImplementedError("all-position logits on the TP engine")
+        n = len(prompt)
+        if not 1 <= n <= self.seq_len:
+            raise ValueError(f"prompt of {n} tokens: want 1 to {self.seq_len}")
+        if self.pool is not None:
+            self.pool.release(slot)
+            if self.pool.reserve(slot, n) is None:
+                raise RuntimeError("page pool exhausted")
+            self._sync_page_table()
+        toks = np.zeros((1, min(_bucket(n), self.seq_len)), np.int64)
+        toks[0, :n] = prompt
+        logits, self.cache = _prefill_into_slots(
+            self.params, self.cache, self._ints(toks), self._ints([n]), [int(slot)], self.config,
+            self.precision, self.prefill_attn, logits_mode="all")
+        return logits[0, :n].cpu().numpy()
+
     def prefill_continue(self, suffixes: Sequence[Sequence[int]], slots: Sequence[int],
                          starts: Sequence[int], return_device: bool = False):
         """Prefill prompt suffixes into slots whose caches already hold the
@@ -550,6 +581,43 @@ class Engine:
         """``decode_sample_chunk_async``, read back: [max_batch, steps]."""
         return self.decode_sample_chunk_async(tokens, pos, temps, topps, base_keys, steps,
                                               topks).cpu().numpy()
+
+    def warmup(self, max_bucket: int | None = None, sample: bool = True,
+               chunk: int = 1) -> list[int]:
+        """Run every prompt bucket's admission (16, 32, ... below
+        ``max_bucket``, then ``max_bucket``; default and cap seq_len), a
+        decode step, ``decode_sample`` and every power-of-two
+        ``decode_sample_chunk`` up to ``chunk``, then ``reset`` (engine.py:
+        739-769).  On the card every kernel library is built first (one
+        ``nvcc`` per source, in parallel), so no request's time to first
+        token carries a build.  Returns the bucket sizes."""
+        if self.device.type == "cuda":
+            from tpu_llama_torch.ops import _kernels
+
+            _kernels.build()
+        max_bucket = min(max_bucket or self.seq_len, self.seq_len)
+        buckets, b = [], 16
+        while b < max_bucket:
+            buckets.append(b)
+            b *= 2
+        buckets.append(max_bucket)
+        for T in buckets:
+            self.prefill([[1] * T], [0], reserve_tokens=[T])
+        B = self.max_batch
+        zeros = np.zeros(B, np.int64)
+        self.decode(zeros, zeros)
+        if sample:
+            keys = keys_numpy([0] * B)
+            temps, topps = np.zeros(B, np.float32), np.ones(B, np.float32)
+            self.decode_sample(zeros, zeros, temps, topps, keys)
+            k = 2
+            while k <= chunk:  # every power-of-two chunk the scheduler takes
+                self.decode_sample_chunk(zeros, zeros, temps, topps, keys, k)
+                k *= 2
+        self.reset()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return buckets
 
     def reset(self) -> None:
         """Zero the cache; a paged engine also gets a fresh pool (every page

@@ -14,48 +14,20 @@ then takes the Python pool.  Host bookkeeping only: no device code.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parents[2]
-_SRC = _ROOT / "native" / "pagepool.cpp"
-_BUILD = _ROOT / "build" / "native"
-_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+from tpu_llama_torch import native
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _lib = None  # None: not tried yet; False: no compiler or no source
 
 
-def _build_lib() -> Path | None:
-    """The built library, compiled now if it is missing; None when there is
-    no source or no compiler, or the compile fails."""
-    if not _SRC.exists() or shutil.which("g++") is None:
-        return None
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD / f"pagepool-{h}.so"
-    if lib.exists():
-        return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run(["g++", *_CXX_FLAGS, str(_SRC), "-o", str(tmp)], check=True,
-                       capture_output=True)
-    except (OSError, subprocess.CalledProcessError):
-        tmp.unlink(missing_ok=True)
-        return None
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
-    return lib
-
-
 def _load():
     global _lib
     if _lib is None:
-        path = _build_lib()
+        path = native.build("pagepool.cpp", "pagepool", ("g++",),
+                            ("-O3", "-shared", "-fPIC", "-std=c++17"), suffix=".so")
         if path is None:
             _lib = False
             return None

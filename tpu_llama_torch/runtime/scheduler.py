@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from tpu_llama_torch.compat.rng import Xorshift64Star
-from tpu_llama_torch.compat.sampling import argmax, sample, sample_topp
+from tpu_llama_torch.compat.sampling import argmax, sample, sample_topp, scale_softmax_f32
 from tpu_llama_torch.io.tokenizer import BOS
 from tpu_llama_torch.ops.sampling import fold_in, keys_numpy
 from tpu_llama_torch.runtime.engine import Engine
@@ -92,18 +92,10 @@ class _Active:
     budget: int  # remaining forward steps
 
 
-def _scale_softmax_f32(logits: np.ndarray, temperature: float) -> np.ndarray:
-    # Reference logit pipeline: f32-stored division + softmax (llama2.ts:481-485).
-    scaled = (logits.astype(np.float64) / temperature).astype(np.float32)
-    m = np.max(scaled)
-    e = np.exp(scaled.astype(np.float64) - np.float64(m)).astype(np.float32)
-    return (e.astype(np.float64) / float(np.sum(e.astype(np.float64)))).astype(np.float32)
-
-
 def _select_token(logits: np.ndarray, req: Request, rng: Xorshift64Star) -> int:
     if req.temperature == 0.0:
         return argmax(logits)
-    probs = _scale_softmax_f32(logits, req.temperature)
+    probs = scale_softmax_f32(logits, req.temperature)
     if req.topp <= 0 or req.topp >= 1:
         return sample(probs, rng)
     return sample_topp(probs, req.topp, rng)
