@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
 3. each kernel (K1 W8A8 GEMM, its decode tile at M 8 and its wgmma kernel
    from M 16 up to the admission's 4096, also with its residual epilogue, and
    at M 1000 and 2048 on the fused layer's products, each row with its share
-   of the int8 peak; K2 row
+   of the int8 peak; K1's int32 form at tp = 2's wo and w2 K-slices, M 8 and
+   1024, two slices' sums through ``w8a8_epilogue`` against K1; K2 row
    quant and K3 rmsnorm+quant (at the admission's 4096 rows, a chunk's 2048
    and a decode step's 8), K4 silu*up+quant, K5 rope+split+KV quant, K6
    INT8 prefill attention, K7 slot scatter, K9 and K19 INT8 decode
@@ -154,7 +155,20 @@ Phases (any failure exits non-zero and prints no result line):
    serving 4 greedy requests (the fused TP decode: K8, K9, K2, K23, K24,
    K10), the unfused TP decode on K21 (INT8, f32 and bf16 caches), a timed
    and a traced decode step; held to the single-device engine (tp = 1) and to
-   tp = 1 (tp = 2), both ranks equal, exact launches per step;
+   tp = 1 (tp = 2), both ranks equal, exact launches per step; and a prefix
+   hit (the TP continuation prefill) whose stream equals a cold admission's;
+4k. ``serve_7b_mesh`` (after 4i, on phase 4's weights in the unfused
+   layouts, INT8 cache, B 8): the sharded engine (``Engine(mesh)``, JAX's
+   GSPMD program) on ranks driven from this process by
+   ``parallel.launch.MeshEngine``, at tp = 1 (one NCCL rank) and tp = 2
+   (two gloo ranks on the card): ``ContinuousBatcher`` here serves 4 greedy
+   requests in two waves, the last a prefix hit, and the streams, the
+   prefill's and first decode step's logits equal the single-device
+   engine's bit for bit, every rank's logits equal (digests); at tp = 2 the
+   row-sharded products run K1's int32 form, and ``LlamaServer`` over the
+   controller answers 2 requests with the single-device server's text; a timed
+   and a traced decode step per mesh, its launches held to
+   ``mesh_step_launches``;
 5. port parity: the same model cut to 2 layers serves one greedy request on
    the card (kernels) and on the CPU (plain versions) with the same explicit
    decode attention and fused decode, and the prefill attention "flash" on
@@ -180,12 +194,16 @@ Phases (any failure exits non-zero and prints no result line):
    text surface (``checkpoint_text_surface``): ``python3 -m
    tpu_llama_torch.cli ... --quant w8a8 --kv-dtype int8 -t 0 -n 24`` as a
    subprocess exits 0 with the text of an in-process greedy run on the
-   engine that ``EngineConfig.build_engine`` builds for the same files;
+   engine that ``EngineConfig.build_engine`` builds for the same files, and
+   the same files with a mesh of model 2 and unfused layouts build the
+   sharded engine on two gloo ranks (``mesh_route``), whose greedy stream
+   equals one device's;
 6. a JSON line of the kernels (launches counted on the path that runs
    each: phase 4, phase 4b for K18, phase 4e for K13, K14 and K15, phase 4f
    for K16 and K17, phases 4c and 4d for K25 and the fp forms, phase 4g for
    K26 and K27, phase 4h for K29, phase 4i for K21 (and its fp forms), K23
-   and K24, and phase 5 for a kernel that those do
+   and K24, phase 4k for K1's int32 form (the tp = 2 rank 0's count), and
+   phase 5 for a kernel that those do
    not run: K19, K11, K20, the fp forms of K19; K22 and K28, which no path
    calls, their counts summed over phases 4-4h, which must be 0), then the
    result line.
@@ -229,8 +247,11 @@ K6_TOL = 2.0 ** -7 + 1e-5  # of max |ref|: one bf16 rounding step + f32 noise
 # by up to ~3% of max |logit|.  Readings on an H100 with K6 in f32 (before
 # its tensor-core cell): sound runs at most 2.95e-2 (f32) and 2.35e-2
 # (bf16); a K6 whose causal bound admits one future key read 0.21 in both,
-# and its f32 tokens differed from step 0.
+# and its f32 tokens differed from step 0.  So a bf16 run decodes
+# PARITY_BF16_STEPS steps (their launches and finite logits checked): no
+# check reads later ones.
 PARITY_STEPS = 8
+PARITY_BF16_STEPS = 1
 LOGITS_TOL = 5e-2
 # Phase 5 runs the card fed the CPU's picks, so every step compares the
 # same inputs.  The picks must be equal where they held in every reading:
@@ -289,6 +310,7 @@ FP_TOL = 1e-5
 
 SRC = {
     "K1": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/matmul.py:483"),
+    "K1:i32": ("tpu_llama_torch/csrc/w8a8_matmul.cu", "tpu_llama/ops/matmul.py:483"),
     "K2": ("tpu_llama_torch/csrc/quantize_rows.cu", "tpu_llama/ops/quant.py:275"),
     "K3": ("tpu_llama_torch/csrc/rmsnorm_quantize.cu", "tpu_llama/ops/quant.py:340"),
     "K4": ("tpu_llama_torch/csrc/silu_mul_quantize.cu", "tpu_llama/ops/quant.py:396"),
@@ -487,6 +509,63 @@ def check_k1(torch, tq, tm, results):
                             library_ms=library_ms, int8_peak_share=int8_peak_share(m, k, n, ms),
                             form=tm.w8a8_plan(m, k, n).form))
         del ws, xq, got, want, res
+    torch.cuda.empty_cache()
+
+
+def check_k1_int32(torch, tq, tm, results):
+    """K1's int32 form at the K-slices a tp = 2 rank of the sharded engine
+    runs at 7B: wo (K 2048) and w2 (K 5504) into 4096 columns, at M 8 (the
+    decode tile) and M 1024 (the wgmma form: an admission's rows); exact
+    against its plain version.  Then two K-slices' sums (the two ranks'),
+    added and passed through ``w8a8_epilogue`` with a bf16 residual, against
+    K1 on the whole K with its residual epilogue: bit for bit.  The library
+    call is ``torch._int_mm`` (rows padded to 32 below 17)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for m, k, n in ((8, 2048, 4096), (8, 5504, 4096), (1024, 2048, 4096), (1024, 5504, 4096)):
+        copies = n_copies(n * k)
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        ws = [tq.ChannelQuantTensor(
+            q=torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8),
+            s=torch.full((n,), 2e-4, device="cuda")) for _ in range(copies)]
+        got = tm.w8a8_matmul_int32(xq, ws[0])
+        torch.cuda.synchronize()
+        want = tm.w8a8_matmul_int32_plain(xq, ws[0])
+        err = (got.double() - want.double()).abs().max().item()
+        label = f"K1:i32 w8a8_matmul_int32 M={m} K={k} N={n}"
+        check(torch.equal(got, want), f"{label}: max err {err}")
+        # the two ranks' slices of the whole K, their sums all-reduced, then
+        # the epilogue: K1 on the whole K
+        x2 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w2 = tq.ChannelQuantTensor(q=torch.randint(-127, 128, (n, k), generator=gen,
+                                                   device="cuda", dtype=torch.int8), s=ws[0].s)
+        sx = torch.rand(m, generator=gen, device="cuda") * 0.05
+        res = (torch.randn(m, n, generator=gen, device="cuda") * 4).to(torch.bfloat16)
+        whole = tq.ChannelQuantTensor(q=torch.cat([ws[0].q, w2.q], dim=1), s=ws[0].s)
+        acc = got + tm.w8a8_matmul_int32(x2, w2)
+        summed = tm.w8a8_epilogue(acc, sx, ws[0].s, torch.bfloat16, res)
+        k1 = tm.w8a8_matmul_prequant(torch.cat([xq, x2], dim=1), sx, whole,
+                                     out_dtype=torch.bfloat16, residual=res)
+        torch.cuda.synchronize()
+        check(torch.equal(summed, k1), f"{label}: two slices' sums through the epilogue differ "
+                                       f"from K1 on the whole K by "
+                                       f"{(summed.float() - k1.float()).abs().max().item()}")
+        ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_int32(xq, ws[i % copies]),
+                     20 if m > 8 else 50)
+        plain_ms = cuda_ms(torch, lambda i: tm.w8a8_matmul_int32_plain(xq, ws[i % copies]), 3,
+                           warmup=1)
+        xl = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - m)))
+        try:
+            library_ms = cuda_ms(torch, lambda i: torch._int_mm(xl, ws[i % copies].q.t()),
+                                 20 if m > 8 else 50)
+        except RuntimeError as e:  # an _int_mm shape this build refuses
+            print(f"K1:i32 library call unavailable: {e}", file=sys.stderr)
+            library_ms = None
+        b_ms, by = bound_ms(m * k + n * k + 4 * m * n, 2 * m * k * n, "int8")
+        results.append(dict(kernel="K1:i32", name=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                            library_ms=library_ms, int8_peak_share=int8_peak_share(m, k, n, ms),
+                            form=tm.w8a8_plan(m, k, n).form))
+        del ws, xq, x2, w2, whole, got, want, acc, summed, k1
     torch.cuda.empty_cache()
 
 
@@ -3595,9 +3674,10 @@ def serve_7b_mega(torch, smi_line, params, mega2_streams):
               if r.temperature == 0.0]
     k9 = tl.flash_decode_attention_dma
 
-    def k9_at_k27_splits(q, k_cache, *rest, **kw):
+    def k9_at_k27_splits(q, k_cache, *rest, splits=None, **kw):
+        # ``splits``: the count the engine pins (None on one device: K27's rule)
         _, B, KVH, S, _ = k_cache.shape
-        return k9(q, k_cache, *rest, splits=tfst.step_splits(B, KVH, S, None), **kw)
+        return k9(q, k_cache, *rest, splits=tfst.step_splits(B, KVH, S, splits), **kw)
 
     runs, out = {}, {}
     for mode in ("mega3", "mega", True):
@@ -3736,30 +3816,19 @@ TP_PARITY_PROMPTS = (16, 9)  # the 2-layer card-against-CPU parity's prompt leng
 TP_PARITY_STEPS = 4
 OVERLAP_TOL = 1e-5  # of max |logit|: the ring collective matmul against the all-reduce
 # form, f32 weights and cache on one device (only the order of f32 sums may differ)
+# phase 4k: the sharded engine at 7B (tp = 1 on NCCL, tp = 2 as two gloo processes)
+MESH_PROMPT_LENS = TP_PROMPT_LENS[:3]  # wave 1 (BOS included); wave 2 extends the first
+MESH_PREFIX_EXTRA = 40  # the prefix hit's suffix tokens (4i's hit too)
+MESH_NEW = 16  # new tokens per request
+MESH_HTTP_REQUESTS = 2
+MESH_HTTP_TOKENS = 12
+MESH_TIMED_STEPS = 6
+MESH_TIMEOUT = 420  # seconds a call to the ranks may take
 
 
 def tp_prompts(vocab: int):
     rng = np.random.default_rng(41)
     return [[1] + [int(t) for t in rng.integers(3, vocab, n - 1)] for n in TP_PROMPT_LENS]
-
-
-def unfused_views(params, cfg):
-    """The same W8A8 weights in the unfused layouts: wq, wk, wv and w1, w3
-    as row blocks (views) of the fused wqkv and w13, the single-device
-    layouts whose prefill body (``_prefill_layer_at``: one K2 + K1 per
-    product, K6) is the TP prefill's arithmetic."""
-    from tpu_llama_torch.ops.quant import ChannelQuantTensor
-
-    lp = params.layers
-    D, KVD, H = cfg.dim, cfg.kv_dim, cfg.hidden_dim
-
-    def rows(w, a, b):
-        return ChannelQuantTensor(q=w.q[:, a:b], s=w.s[:, a:b])
-
-    layers = dataclasses.replace(
-        lp, wq=rows(lp.wq, 0, D), wk=rows(lp.wq, D, D + KVD), wv=rows(lp.wq, D + KVD, D + 2 * KVD),
-        w1=rows(lp.w1, 0, H), w3=rows(lp.w1, H, 2 * H))
-    return dataclasses.replace(params, layers=layers)
 
 
 class PrefillDecode:
@@ -3782,19 +3851,20 @@ class PrefillDecode:
 def tp_reference(torch, params):
     """The single-device references of phase 4i on phase 4's weights, the
     TP path's arithmetic at tp = 1: prefill on the unfused layouts
-    (``unfused_views``), decode on the two-launch fused decode (``fused=
+    (``unfuse_projections``), decode on the two-launch fused decode (``fused=
     True``: K3 + K8, per layer K9, K2, K11) from that cache; probed on
     TP_PROMPT_LENS (the greedy picks become the teacher tokens) and serving
     their greedy requests with top-2 logprobs (``PrefillDecode``); and the
     unfused decode with ``attn="flash"`` (K19: p normalized, as K21's) from
     the same prefill, fed the teacher tokens."""
     from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models.llama import unfuse_projections
     from tpu_llama_torch.parallel import launch
     from tpu_llama_torch.runtime import ContinuousBatcher, Engine, Request
 
     cfg = LLAMA2_7B
     prompts = tp_prompts(cfg.vocab_size)
-    unfused = unfused_views(params, cfg)
+    unfused = unfuse_projections(params, cfg)
 
     def engine(p, **kw):
         return Engine(p, cfg, max_batch=8, kv_dtype="int8", seq_len=2048, **kw)
@@ -3882,12 +3952,14 @@ def serve_7b_tp(torch, smi_line, ref):
     rng = np.random.default_rng(7)
     parity = (small, 1, [[1] + [int(t) for t in rng.integers(3, cfg.vocab_size, n - 1)]
                          for n in TP_PARITY_PROMPTS], TP_PARITY_STEPS)
+    prefix = prefix_pair(prompts[0])
     runs, pars, errs_7b = {}, {}, {}
     for tp, backend in ((1, "nccl"), (2, "gloo")):
         t0 = time.time()
         ranks = launch.run(launch.serve_card, MeshConfig(1, tp),
                            args=(cfg, 0, prompts, TP_PROBE_STEPS, ref["teacher"], requests,
-                                 TP_PROBE_STEPS, TP_FP_STEPS, TP_TIMED_STEPS, 8, 2048, parity),
+                                 TP_PROBE_STEPS, TP_FP_STEPS, TP_TIMED_STEPS, 8, 2048, parity,
+                                 prefix),
                            backend=backend, device="cuda", timeout=TP_TIMEOUT, threads=4)
         wall = time.time() - t0
         t0 = time.time()
@@ -3918,7 +3990,7 @@ def serve_7b_tp(torch, smi_line, ref):
             collective_share=r0["step_collective_host_ms"] / r0["step_traced_host_ms"],
             step_launches=r0["step_launches"], step_kernels=r0["step_kernels"],
             probe_logits_err=probe_errs, k21_logits_err=k21_errs, streams_parted=parted,
-            reference="single-device engine" if tp == 1 else "tp=1",
+            reference="single-device engine" if tp == 1 else "tp=1", prefix=r0["prefix"],
             serve_launches=r0["serve_launches"], unfused_launches=r0["unfused_launches"],
             parity_cpu_s=cpu_s, card=smi_line)), flush=True)
         reading = launch.parity_reading(r0["parity"], cpu)
@@ -3960,6 +4032,9 @@ def serve_7b_tp(torch, smi_line, ref):
                   f"{tp_step_launches(cfg.n_layers)}")
         check(r0["emitted"] == sum(len(s) for s in r0["streams"])
               and all(r["emitted"] == 0 for r in ranks[1:]), f"{label}: rank 0 alone emits")
+        check(r0["prefix"]["hits"] == 1 and r0["prefix"]["hot"] == r0["prefix"]["cold"]
+              and r0["prefix"]["hot"], f"{label}: the prefix hit's stream parts from a cold "
+                                       f"admission's: {r0['prefix']}")
         check(all(s and all(0 <= t < cfg.vocab_size for t in s) for s in r0["streams"]),
               f"{label}: a stream is empty or out of vocabulary")
         check(all(math.isfinite(e) for e in probe_errs + k21_errs)
@@ -3987,6 +4062,174 @@ def serve_7b_tp(torch, smi_line, ref):
     tp_kernels = {k: launches.get(k, 0) for k in ("K21", "K21:f32", "K21:bf16", "K23", "K24")}
     check(all(tp_kernels.values()), f"4i: a TP kernel did not launch: {tp_kernels}")
     return launches
+
+
+def mesh_step_launches(L: int, tp: int) -> dict:
+    """Kernel launches of one sharded decode step (``spmd_forward_decode``,
+    unfused W8A8 layouts, INT8 cache, flash_dma) on a rank: per layer K2
+    before each of the seven products and K1 for each, except that above
+    tp = 1 wo and w2 run K1's int32 form; K9 per layer; one K10 flush; the
+    classifier's K2 + K1."""
+    out = {"K1": (7 if tp == 1 else 5) * L + 1, "K2": 7 * L + 1, "K9": L, "K10": 1}
+    if tp > 1:
+        out["K1:i32"] = 2 * L
+    return out
+
+
+def prefix_pair(prompt: list, extra: int = MESH_PREFIX_EXTRA, new: int = MESH_NEW):
+    """Two greedy requests ((prompt without BOS, steps)): ``prompt`` and
+    ``prompt`` with ``extra`` more tokens, which a batcher that served the
+    first finds in its prefix cache."""
+    more = [int(t) for t in np.random.default_rng(len(prompt)).integers(3, 32000, extra)]
+    return (prompt[1:], len(prompt) + new), (prompt[1:] + more, len(prompt) + extra + new)
+
+
+def mesh_waves(vocab: int):
+    """Phase 4k's requests in two waves: MESH_PROMPT_LENS' greedy requests,
+    then one that extends the first's prompt (a prefix hit)."""
+    prompts = tp_prompts(vocab)[:len(MESH_PROMPT_LENS)]
+    first, hit = prefix_pair(prompts[0])
+    return prompts, [[first] + [(p[1:], len(p) + MESH_NEW) for p in prompts[1:]], [hit]]
+
+
+def _mesh_http(srv_engine, prompts) -> list:
+    """Greedy /generate of ``prompts`` from a ``LlamaServer`` on
+    ``srv_engine``: the responses."""
+    from tpu_llama_torch.runtime.server import LlamaServer
+
+    srv = LlamaServer(srv_engine, byte_tokenizer(32000), port=0).start()
+    try:
+        return [_http(srv.port, "/generate", {"prompt": t, "temperature": 0.0,
+                                              "steps": len(t) + 1 + MESH_HTTP_TOKENS})
+                for t in prompts]
+    finally:
+        srv.stop()
+
+
+def mesh_reference(torch, params):
+    """Phase 4k's single-device reference on phase 4's weights in the
+    unfused layouts (``unfuse_projections``): ``Engine(max_batch=8, INT8
+    cache)`` -- the K6 prefill body, the unfused decode (K9 and one K10 flush a
+    step) -- probed on the waves' prompts (the prefill and one decode
+    step), serving ``mesh_waves`` with a prefix cache, and answering phase
+    4k's HTTP prompts."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.models.llama import unfuse_projections
+    from tpu_llama_torch.parallel import launch
+    from tpu_llama_torch.runtime import Engine
+
+    cfg = LLAMA2_7B
+    prompts, waves = mesh_waves(cfg.vocab_size)
+    eng = Engine(unfuse_projections(params, cfg), cfg, max_batch=8, kv_dtype="int8",
+                 seq_len=2048)
+    check(eng.decode_attn == "flash_dma" and eng.decode_fused is False,
+          f"4k reference: decode {eng.decode_attn} / {eng.decode_fused!r}")
+    out = {"probe": launch.probe(eng, prompts, 1)}
+    eng.reset()
+    out["served"] = launch.serve_waves(eng, waves, prefix_cache_size=4)
+    eng.reset()
+    out["http"] = _mesh_http(eng, http_prompts(MESH_HTTP_REQUESTS, seed=4))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_7b_mesh(torch, smi_line, ref):
+    """Phase 4k: the sharded engine (``Engine(mesh)``, JAX's GSPMD single
+    program) at 7B full width and depth on phase 4's weights in the unfused
+    layouts, INT8 cache, B 8: a ``MeshEngine`` of one NCCL rank (tp = 1:
+    the single-device forward on the rank) and of two gloo ranks on the
+    card (tp = 2: column-sharded products, attention on each rank's 16 kv
+    heads at the whole batch's split counts, wo and w2 through K1's int32
+    form with an int32 all-reduce), each rank drawing the weights again
+    from the seed (``launch.build_card_spmd_engine``).  Per mesh,
+    ``ContinuousBatcher`` in this process serves ``mesh_waves`` through the
+    controller (the second wave a prefix hit: a snapshot and a continuation on
+    the ranks): the streams, the probe's prefill and first decode step
+    logits bit-equal to the single-device engine's (``mesh_reference``),
+    every rank's logits equal (digests), the main path's launches (rank 0's)
+    with no plain version and, at tp = 2, K1's int32 form; at tp = 2
+    ``LlamaServer`` over the controller answers MESH_HTTP_REQUESTS prompts with
+    the single-device server's responses; a timed and a traced decode step
+    at B 8, position 512.  Returns tp = 2's launches of the serving run."""
+    from tpu_llama_torch.config import LLAMA2_7B
+    from tpu_llama_torch.parallel import MeshConfig, launch
+
+    cfg = LLAMA2_7B
+    prompts, waves = mesh_waves(cfg.vocab_size)
+    texts = http_prompts(MESH_HTTP_REQUESTS, seed=4)
+    out = {}
+    for tp, backend in ((1, "nccl"), (2, "gloo")):
+        label = f"4k tp={tp} ({backend})"
+        t0 = time.time()
+        with launch.MeshEngine(launch.build_card_spmd_engine, (cfg, 0),
+                               dict(max_batch=8, kv_dtype="int8", seq_len=2048),
+                               mesh_config=MeshConfig(1, tp), backend=backend, device="cuda",
+                               timeout=MESH_TIMEOUT, threads=4) as eng:
+            build_s = time.time() - t0
+            check(eng.spmd and eng.decode_attn == "flash_dma" and eng.decode_fused is False,
+                  f"{label}: decode {eng.decode_attn} / {eng.decode_fused!r}")
+            t1 = time.time()
+            probe = eng.run(launch.probe_digest, prompts, 1)
+            probe_s = time.time() - t1
+            eng.reset()
+            eng.run(launch.kernel_counts, True)
+            t1 = time.time()
+            served = launch.serve_waves(eng, waves, prefix_cache_size=4)
+            serve_s = time.time() - t1
+            counts = eng.run(launch.kernel_counts)
+            http = []
+            t1 = time.time()
+            if tp == 2:
+                eng.reset()
+                http = _mesh_http(eng, texts)
+            http_s = time.time() - t1
+            eng.reset()
+            t1 = time.time()
+            timing = eng.run(launch.engine_step_reading, 0, MESH_TIMED_STEPS)
+            timing_s = time.time() - t1
+        wall = time.time() - t0
+        host = sorted(timing["step_host_ms"])[len(timing["step_host_ms"]) // 2]
+        equal = dict(prefill=bool(np.array_equal(probe["prefill"], ref["probe"]["prefill"])),
+                     decode=bool(np.array_equal(probe["decode"][0], ref["probe"]["decode"][0])),
+                     streams=served["streams"] == ref["served"]["streams"],
+                     http=[h["text"] for h in http] == [h["text"] for h in ref["http"]][:len(http)])
+        print(json.dumps(dict(
+            phase="serve_7b_mesh", tp=tp, backend=backend, B=8, wall_s=wall, build_s=build_s,
+            probe_s=probe_s, serve_s=serve_s, http_s=http_s, timing_s=timing_s,
+            admit_ms=timing["admit_ms"], trace_s=timing["trace_s"], prefix_hits=served["prefix_hits"], equal_to_single_device=equal,
+            rank_digests_equal=len(set(probe["digests"])) == 1, step_host_ms_median=host,
+            step_host_ms=timing["step_host_ms"], step_traced_host_ms=timing["step_traced_host_ms"],
+            step_device_ms=timing["step_device_ms"],
+            step_collective_host_ms=timing["step_collective_host_ms"],
+            step_launches=timing["step_launches"], step_kernels=timing["step_kernels"],
+            serve_launches=counts["launches"], http_requests=len(http), card=smi_line)),
+            flush=True)
+        check(len(probe["digests"]) == tp and len(set(probe["digests"])) == 1,
+              f"{label}: the ranks' logits differ: {probe['digests']}")
+        check(equal["prefill"] and equal["decode"],
+              f"{label}: the prefill's or the first decode step's logits part from the "
+              f"single-device engine's")
+        check(equal["streams"] and served["prefix_hits"] == ref["served"]["prefix_hits"] == 1,
+              f"{label}: streams {served['streams']} (hits {served['prefix_hits']}) != the "
+              f"single-device engine's {ref['served']['streams']} (hits "
+              f"{ref['served']['prefix_hits']})")
+        check(all(s and all(0 <= t < cfg.vocab_size for t in s) for s in served["streams"]),
+              f"{label}: a stream is empty or out of vocabulary")
+        check(not counts["plain"], f"{label}: plain versions ran: {counts['plain']}")
+        want = mesh_step_launches(cfg.n_layers, tp)
+        check(timing["step_launches"] == want,
+              f"{label}: a decode step launched {timing['step_launches']}, want {want}")
+        path = {"K1", "K2", "K6", "K7", "K9", "K10"} | ({"K1:i32"} if tp == 2 else set())
+        check(path <= set(counts["launches"]) and (tp == 2 or "K1:i32" not in counts["launches"]),
+              f"{label}: the serving run launched {counts['launches']}, want {sorted(path)}")
+        if tp == 2:
+            check(len(http) == MESH_HTTP_REQUESTS and equal["http"],
+                  f"{label}: HTTP answers {[h['text'] for h in http]} != the single-device "
+                  f"server's {[h['text'] for h in ref['http']]}")
+        out[tp] = counts["launches"]
+        torch.cuda.empty_cache()
+    return out[2]
 
 
 def _to(obj, device):
@@ -4023,8 +4266,9 @@ def _greedy_prompt(engine, seq, steps, teacher=None):
     return _greedy(engine, first, 0, len(seq), steps, teacher)
 
 
-def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None, seed=1):
-    """One greedy request of PARITY_STEPS steps on the card and on the CPU,
+def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None, seed=1,
+            steps=PARITY_STEPS):
+    """One greedy request of ``steps`` decode steps on the card and on the CPU,
     from the same weights (drawn from ``seed``; fused layouts with
     ``fuse``), both with decode
     attention ``attn`` and fused decode ``fused``, on a dense INT8 cache or,
@@ -4042,10 +4286,10 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None,
     if paged:
         kw.update(kv_layout="paged", page_size=page_size)
     t0 = time.time()
-    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, device="cpu", **kw), seq, PARITY_STEPS)
+    c_toks, c_log = _greedy_prompt(Engine(cpu, cfg, device="cpu", **kw), seq, steps)
     t1 = time.time()
     _kernels.reset_counts()  # the card, fed the CPU's picks: every step sees the same inputs
-    g_toks, g_log = _greedy_prompt(Engine(gpu, cfg, **kw), seq, PARITY_STEPS, teacher=c_toks)
+    g_toks, g_log = _greedy_prompt(Engine(gpu, cfg, **kw), seq, steps, teacher=c_toks)
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     t2 = time.time()
     path = FUSED_PREFILL_PATH if fuse else PREFILL_PATH
@@ -4054,7 +4298,7 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None,
     if attn == "xla":  # the plain PyTorch decode launches no kernel
         decode = {}
     else:
-        decode = {k: n * PARITY_STEPS
+        decode = {k: n * steps
                   for k, n in decode_launches(fused, attn, cfg.n_layers, paged).items()}
     got = {k: n for k, n in launches.items() if n > 0}
     check(set(got) == path | set(decode) and not any(plain.values())
@@ -4064,12 +4308,12 @@ def _parity(torch, cfg, act_dtype, seq, attn, fuse, fused=False, page_size=None,
           f"(per decode step "
           f"{decode_launches(fused, attn, cfg.n_layers, paged) if decode else {}}), "
           f"got {launches}; plain calls {plain}")
-    same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), PARITY_STEPS)
+    same = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), steps)
     errs = [float(np.abs(g - c).max()) for g, c in zip(g_log, c_log)]
     parts = [_parting(g, c, step=i) for i, (g, c) in enumerate(zip(g_log, c_log))
              if np.argmax(g) != np.argmax(c)]
     return dict(activations=str(act_dtype).removeprefix("torch."), fused_layouts=fuse,
-                fused_decode=fused, steps=PARITY_STEPS,
+                fused_decode=fused, steps=steps,
                 tokens_equal=same, card_tokens=g_toks, cpu_tokens=c_toks, partings=parts,
                 prefill_logit_max_err=errs[0], logit_max_err=max(errs),
                 logit_peak=float(np.abs(c_log[0]).max()),
@@ -4117,7 +4361,8 @@ def parity_2layer(torch):
                               ("flash_dma", True, True), ("flash_dma", True, "mega2"),
                               ("flash_dma", True, "mega3"), ("flash_dma", True, "mega")):
         f32 = _parity(torch, cfg, torch.float32, seq, attn, fuse, fused)
-        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn, fuse, fused)
+        bf16 = _parity(torch, cfg, torch.bfloat16, seq, attn, fuse, fused,
+                       steps=PARITY_BF16_STEPS)
         launches[attn, fused] = f32["card_launches"]
         attn = attn + (" fused layouts" if fuse else "") + (f", fused={fused!r}" if fused else "")
         print(json.dumps(dict(phase="parity_2layer", attn=attn, f32=f32, bf16=bf16,
@@ -4487,10 +4732,55 @@ def checkpoint_text_surface(torch, smi_line):
         check(not plain, f"plain versions ran on the card: {plain}")
         check(cli_text == text, f"the CLI's text {cli_text!r} != the in-process run's {text!r}")
         del engine, b
+        torch.cuda.empty_cache()
+        mesh_route(torch, smi_line, ckpt, tok_path, cfg_path, ptoks, steps)
     finally:
         for f in (ckpt, tok_path, cfg_path):
             f.unlink(missing_ok=True)
     torch.cuda.empty_cache()
+
+
+def mesh_route(torch, smi_line, ckpt, tok_path, cfg_path, ptoks, steps):
+    """Phase 5's mesh route on the same checkpoint: ``EngineConfig`` with
+    ``"mesh": {"data": 1, "model": 2}`` and unfused layouts (``fuse``
+    false: the sharded engine) builds a ``MeshEngine`` of two gloo ranks on
+    the card, each loading the memory-mapped file and quantizing and
+    cutting its shard on the card in turn (``rank_engine``); one greedy
+    request through ``ContinuousBatcher`` on it equals, token for token,
+    the single-device engine that the same file builds without a mesh.
+    Prints the build's seconds of each."""
+    from tpu_llama_torch.runtime import ContinuousBatcher, Request
+    from tpu_llama_torch.utils import EngineConfig
+
+    def serve(mesh_model):
+        cfg = EngineConfig(checkpoint=str(ckpt), tokenizer=str(tok_path), quant="w8a8",
+                           kv_dtype="int8", max_batch=1, fuse=False)
+        cfg.mesh_model = mesh_model
+        cfg.save(cfg_path)
+        t0 = time.time()
+        engine, _ = EngineConfig.load(cfg_path).build_engine()
+        build_s = time.time() - t0
+        req = Request(prompt_tokens=ptoks, steps=steps, temperature=0.0)
+        b = ContinuousBatcher(engine)
+        b.submit(req)
+        b.run()
+        kind = (type(engine).__name__, engine.spmd, engine.tp_fused, engine.decode_fused)
+        if mesh_model > 1:
+            engine.close()
+        return dict(tokens=req.out_tokens, build_s=build_s, kind=kind)
+
+    single = serve(1)
+    torch.cuda.empty_cache()
+    mesh = serve(2)
+    print(json.dumps(dict(phase="checkpoint_mesh_route", mesh={"data": 1, "model": 2},
+                          backend="gloo", build_s=mesh["build_s"],
+                          single_build_s=single["build_s"], tokens=mesh["tokens"],
+                          equal_to_single_device=mesh["tokens"] == single["tokens"],
+                          card=smi_line)), flush=True)
+    check(mesh["kind"] == ("MeshEngine", True, False, False),
+          f"the mesh config built {mesh['kind']}, want the sharded engine")
+    check(len(single["tokens"]) > 0 and mesh["tokens"] == single["tokens"],
+          f"the mesh route's stream {mesh['tokens']} != one device's {single['tokens']}")
 
 
 def parity_long_paths(torch):
@@ -4664,6 +4954,7 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     results = []
     check_k1(torch, tq, tm, results)
+    check_k1_int32(torch, tq, tm, results)
     check_k2(torch, tq, results)
     check_k3(torch, tq, results)
     check_k4(torch, tq, results)
@@ -4761,12 +5052,23 @@ def main(argv=None) -> int:
     # freed first); K21, K23 and K24 count there
     t0 = time.time()
     ref_tp = tp_reference(torch, params)
+    t_ref = time.time()
+    ref_mesh = mesh_reference(torch, params)  # phase 4k's, on these weights
+    mesh_ref_s = time.time() - t_ref
     del params
     torch.cuda.empty_cache()
     got = serve_7b_tp(torch, smi, ref_tp)
     launches.update({k: got[k] for k in ("K21", "K21:f32", "K21:bf16", "K23", "K24")})
     no_path(got)
-    print(f"phase 4i: {time.time() - t0:.1f} s", flush=True)
+    print(f"phase 4i: {time.time() - t0 - mesh_ref_s:.1f} s", flush=True)
+    # 4k. the sharded engine (JAX's GSPMD program) through the controller; K1's
+    # int32 form counts there
+    t0 = time.time()
+    got = serve_7b_mesh(torch, smi, ref_mesh)
+    launches["K1:i32"] = got["K1:i32"]
+    no_path(got)
+    print(f"phase 4k: {time.time() - t0 + mesh_ref_s:.1f} s (its single-device reference "
+          f"{mesh_ref_s:.1f} s)", flush=True)
 
     # 4c. the server's default model: dense f32 weights, fused as serve()
     # fuses them, the default f32 cache; 4d. those weights in Q8_0 (the f32

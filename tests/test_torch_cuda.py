@@ -4,8 +4,8 @@ Marked ``cuda``; they skip (inside the ``card`` fixture, never at import)
 where there is no CUDA device.  Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 
-Required agreement: K1 (with and without a residual), K2, K7, K10 and K18
-exact; the device sampler's random bits and tokens equal the CPU's.  K3, K4 and K5 repeat their plain versions' f32 steps with
+Required agreement: K1 (with and without a residual, and its int32 form),
+K2, K7, K10 and K18 exact; the device sampler's random bits and tokens equal the CPU's.  K3, K4 and K5 repeat their plain versions' f32 steps with
 round-to-nearest intrinsics; K3 sums its squares in f64 and K4 calls CUDA's
 expf as PyTorch's sigmoid does, so an exact sum on an f32 rounding boundary
 or another expf could move a scale by an ulp and an int8 by one step:
@@ -149,6 +149,51 @@ def test_k1_residual_exact(card, m, k, n, dtype):
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["K1"] == before + 1
     want = tm.w8a8_matmul_prequant_plain(xq, sx, w, out_dtype=dtype, residual=r)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 4096), (8, 5504, 4096), (1, 100, 50),
+                                   (5, 40, 33), (16, 4096, 4096), (17, 2048, 4096),
+                                   (300, 96, 136), (1024, 2048, 4096), (1024, 5504, 4096),
+                                   (63, 4112, 4000)])
+def test_k1_int32_exact(card, m, k, n):
+    """K1's int32 form (the decode tile up to 16 rows, the wgmma form above,
+    byte loads where K % 16 != 0) equals its plain version's exact sums."""
+    g = _gen(m + 7 * k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    w = tq.ChannelQuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=card, dtype=torch.int8),
+        s=torch.rand(n, generator=g, device=card) * 1e-3)
+    before = _kernels.LAUNCHES["K1:i32"]
+    got = tm.w8a8_matmul_int32(xq, w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["K1:i32"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tm.w8a8_matmul_int32_plain(xq, w))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (8, 11008, 4096), (1024, 4096, 4096),
+                                   (33, 11008, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_int32_slices_then_epilogue_equal_k1(card, m, k, n, dtype):
+    """The sharded engine's row-sharded product on the card: K1's int32
+    form on two halves of K, the sums added, ``w8a8_epilogue`` with the
+    residual -- K1 with its residual epilogue on the whole K, bit for bit
+    (the epilogue's PyTorch steps round as the kernel's)."""
+    g = _gen(m * 5 + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=card) * 0.1
+    w = tq.ChannelQuantTensor(
+        q=torch.randint(-127, 128, (n, k), generator=g, device=card, dtype=torch.int8),
+        s=torch.rand(n, generator=g, device=card) * 1e-3)
+    r = (torch.randn(m, n, generator=g, device=card) * 4).to(dtype)
+    h = k // 2
+    acc = sum(tm.w8a8_matmul_int32(xq[:, a:b].contiguous(),
+                                   tq.ChannelQuantTensor(q=w.q[:, a:b].contiguous(), s=w.s))
+              for a, b in ((0, h), (h, k)))
+    got = tm.w8a8_epilogue(acc, sx, w.s, dtype, r)
+    want = tm.w8a8_matmul_prequant(xq, sx, w, out_dtype=dtype, residual=r)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 

@@ -29,7 +29,11 @@ def test_port_imports_neither_jax_nor_reference():
     assert "tpu_llama_torch.io.checkpoint" in mods
     assert "tpu_llama_torch.runtime.paged" in mods and "tpu_llama_torch.runtime.native_pool" in mods
     assert {f"tpu_llama_torch.parallel.{m}" for m in ("mesh", "sharding", "tp", "overlap",
-                                                     "launch")} <= set(mods)
+                                                     "launch", "spmd")} <= set(mods)
+    # the sharded engine and its controller (parallel.launch.MeshEngine)
+    from tpu_llama_torch.parallel import launch, spmd
+
+    assert callable(spmd.spmd_forward_decode) and callable(launch.MeshEngine)
     # the text surface and the server
     assert {f"tpu_llama_torch.{m}" for m in (
         "cli", "native", "io.tokenizer", "io.fast_bpe", "compat.oracle", "compat.native_oracle",

@@ -423,8 +423,8 @@ def test_engine_config_build(kind, tmp_path, tiny_weights, tiny_tokenizer):
 
 
 def test_engine_config_refuses_what_it_cannot_build(tmp_path, tiny_weights, tiny_tokenizer):
-    with pytest.raises(NotImplementedError, match="one process per rank"):
-        EngineConfig(mesh_model=2, device="cpu").build_engine()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EngineConfig(mesh_model=2, kv_layout="paged", device="cpu").build_engine()
     with pytest.raises(ValueError, match="unknown quant"):
         EngineConfig(quant="int4", device="cpu").build_engine()
     if torch.cuda.is_available():

@@ -416,24 +416,31 @@ def test_tp_engine_streams_equal_jax(mesh12):
 
 def test_tp_engine_prefix_cache_turns_off():
     """The TP engine under a prefix cache (C256 W8A8, prefix_cache_size 4):
-    a prompt, then one that extends it.  snapshot_slot refuses (there is no
-    TP continuation prefill), the batcher turns its cache off as JAX's does,
-    and every request completes without a partial hit."""
+    a prompt, then one that extends it.  The cache no longer turns off:
+    snapshot_slot copies the local shard, the second request is a hit
+    continued through ``tp_forward_prefill`` at start_pos > 0, as JAX's
+    engine continues it, and both streams equal a cold engine's."""
     from tpu_llama_torch.runtime import ContinuousBatcher, Request
 
     mesh = single_device_mesh("cpu")
     params = launch.tp_params(mesh, C256, 31, fuse=True, quant="w8a8")
+
+    def serve(prefix_cache_size):
+        eng = Engine(params, C256, max_batch=2, kv_dtype="int8", mesh=mesh, tp_fused=True)
+        batcher = ContinuousBatcher(eng, prefix_cache_size=prefix_cache_size)
+        reqs = []
+        for prompt in ([5, 9, 13, 7], [5, 9, 13, 7, 11, 3]):
+            reqs.append(Request(prompt_tokens=prompt, steps=len(prompt) + 5, temperature=0.0))
+            batcher.submit(reqs[-1])
+            batcher.run()
+        assert all(r.done and len(r.out_tokens) == 5 for r in reqs)
+        return batcher, [r.out_tokens for r in reqs]
+
     eng = Engine(params, C256, max_batch=2, kv_dtype="int8", mesh=mesh, tp_fused=True)
-    with pytest.raises(NotImplementedError, match="prefix reuse"):
-        eng.snapshot_slot(0, 3)
-    batcher = ContinuousBatcher(eng, prefix_cache_size=4)
-    reqs = []
-    for prompt in ([5, 9, 13, 7], [5, 9, 13, 7, 11, 3]):
-        reqs.append(Request(prompt_tokens=prompt, steps=len(prompt) + 5, temperature=0.0))
-        batcher.submit(reqs[-1])
-        batcher.run()
-    assert all(r.done and len(r.out_tokens) == 5 for r in reqs)
-    assert batcher.prefix_cache_size == 0 and not batcher._prefix
+    assert eng.snapshot_slot(0, 3)["length"] == 3
+    hot, streams = serve(4)
+    assert hot.prefix_cache_size == 4 and hot.prefix_hits == 1
+    assert streams == serve(0)[1]
 
 
 def test_tp_engine_refusals():
@@ -444,11 +451,13 @@ def test_tp_engine_refusals():
         Engine(params, cfg, device="cpu", tp_fused=True)
     with pytest.raises(ValueError, match="paged"):
         Engine(params, cfg, mesh=mesh, tp_fused=True, kv_layout="paged")
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        Engine(params, cfg, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(params, cfg, mesh=mesh, kv_layout="paged")
+    dp2 = dataclasses.replace(mesh, config=MeshConfig(2, 1))
+    with pytest.raises(ValueError, match="dp=1-only"):
+        Engine(params, cfg, mesh=dp2, tp_fused=True)
     eng = Engine(params, cfg, max_batch=2, kv_dtype="int8", mesh=mesh, tp_fused=True)
     assert eng.cache.k.shape == (2, 2, 2, 32, 128) and eng.decode_fused == "tp"
     with pytest.raises(ValueError, match="W8A8"):
         eng.decode(np.array([1, 2]), np.array([0, 0]))
-    with pytest.raises(NotImplementedError, match="prefix reuse"):
-        eng.prefill_continue([[3, 4]], [0], [5])
+    assert eng.prefill_continue([[3, 4]], [0], [5]).shape == (1, cfg.vocab_size)

@@ -15,8 +15,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes, kept in step with _DTYPE_CODES in ops/_kernels.py
-enum TlDtype : int { TL_F32 = 0, TL_BF16 = 1, TL_I8 = 2 };
+// dtype codes, kept in step with _DTYPE_CODES and I32_CODE in ops/_kernels.py
+// (TL_I32: K1's int32 form's output)
+enum TlDtype : int { TL_F32 = 0, TL_BF16 = 1, TL_I8 = 2, TL_I32 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }

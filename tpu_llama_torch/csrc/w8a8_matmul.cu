@@ -15,6 +15,13 @@
 // round-to-nearest add, so nvcc cannot contract it into an FMA with the
 // rescale.
 //
+// The int32 form (out type int32, code TL_I32) stores the exact sums
+// themselves, with no epilogue: sx, sw and res go unread.  A rank of the
+// sharded engine runs it on its K-slice of a row-sharded product (wo, w2);
+// the slices' sums are all-reduced as int32, exactly, and the epilogue runs
+// once after (ops/matmul.py w8a8_epilogue), so the result equals K1 on the
+// whole K bit for bit.
+//
 // Two kernels, by M:
 // * M <= 16 (decode; K8 too at B <= 16), w8a8_kernel on a 16 x 32 tile.
 //   Bound on the H100: bytes -- every weight byte is read once per step
@@ -50,9 +57,15 @@
 //   and masks rows past M and columns past N.  TMA needs 16-byte global
 //   strides and bases: the wrapper zero-pads K to a multiple of 16 where
 //   it is not one (ops/matmul.py w8a8_plan), which changes no int32 sum.
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
+
+// the int32 form: the sums stored as they are
+template <typename T>
+constexpr bool kAcc = std::is_same<T, int32_t>::value;
 
 // ---------------------------------------------------------------------------
 // The decode kernel (M <= 16)
@@ -185,7 +198,7 @@ w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
         for (int h = 0; h < 2; ++h) {
             const int row = m0 + wm * WM + i * 16 + g + 8 * h;
             if (row >= M) continue;
-            const float a = sx[row];
+            const float a = kAcc<OutT> ? 0.f : sx[row];
 #pragma unroll
             for (int j = 0; j < NTL; ++j) {
 #pragma unroll
@@ -193,8 +206,13 @@ w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                     const int col = n0 + wn * WN + j * 8 + 2 * t4 + e;
                     if (col >= N) continue;
                     const long long o = (long long)row * N + col;
-                    const float v = (static_cast<float>(acc[i][j][h * 2 + e]) * a) * sw[col];
-                    store_as(out + o, res ? __fadd_rn(to_f32(res[o]), round_to<OutT>(v)) : v);
+                    if constexpr (kAcc<OutT>) {
+                        out[o] = acc[i][j][h * 2 + e];
+                    } else {
+                        const float v = (static_cast<float>(acc[i][j][h * 2 + e]) * a) * sw[col];
+                        store_as(out + o,
+                                 res ? __fadd_rn(to_f32(res[o]), round_to<OutT>(v)) : v);
+                    }
                 }
             }
         }
@@ -357,33 +375,44 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     const bool pairs = (N & 1) == 0;  // a column pair is 2-element aligned
     float a[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) a[h] = r0 + 8 * h < M ? sx[r0 + 8 * h] : 0.f;
+    for (int h = 0; h < 2; ++h) a[h] = !kAcc<OutT> && r0 + 8 * h < M ? sx[r0 + 8 * h] : 0.f;
 #pragma unroll
     for (int j = 0; j < WN / 8; ++j) {
         const int col = n0 + cn * WN + 8 * j + 2 * t4;
         if (col >= N) continue;
         const bool both = col + 1 < N;
-        const float s0 = sw[col], s1 = both ? sw[col + 1] : 0.f;
+        const float s0 = kAcc<OutT> ? 0.f : sw[col];
+        const float s1 = !kAcc<OutT> && both ? sw[col + 1] : 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int row = r0 + 8 * h;
             if (row >= M) continue;
             const long long o = (long long)row * N + col;
-            float v0 = (static_cast<float>(acc[4 * j + 2 * h]) * a[h]) * s0;
-            float v1 = (static_cast<float>(acc[4 * j + 2 * h + 1]) * a[h]) * s1;
-            if (pairs && both) {
-                if (res) {
-                    float q0, q1;
-                    load_pair(res + o, q0, q1);
-                    v0 = __fadd_rn(q0, round_to<OutT>(v0));
-                    v1 = __fadd_rn(q1, round_to<OutT>(v1));
+            if constexpr (kAcc<OutT>) {
+                const int c0 = acc[4 * j + 2 * h], c1 = acc[4 * j + 2 * h + 1];
+                if (pairs && both) {
+                    *reinterpret_cast<int2*>(out + o) = make_int2(c0, c1);
+                } else {
+                    out[o] = c0;
+                    if (both) out[o + 1] = c1;
                 }
-                store_pair(out + o, v0, v1);
             } else {
-                store_as(out + o, res ? __fadd_rn(to_f32(res[o]), round_to<OutT>(v0)) : v0);
-                if (both)
-                    store_as(out + o + 1,
-                             res ? __fadd_rn(to_f32(res[o + 1]), round_to<OutT>(v1)) : v1);
+                float v0 = (static_cast<float>(acc[4 * j + 2 * h]) * a[h]) * s0;
+                float v1 = (static_cast<float>(acc[4 * j + 2 * h + 1]) * a[h]) * s1;
+                if (pairs && both) {
+                    if (res) {
+                        float q0, q1;
+                        load_pair(res + o, q0, q1);
+                        v0 = __fadd_rn(q0, round_to<OutT>(v0));
+                        v1 = __fadd_rn(q1, round_to<OutT>(v1));
+                    }
+                    store_pair(out + o, v0, v1);
+                } else {
+                    store_as(out + o, res ? __fadd_rn(to_f32(res[o]), round_to<OutT>(v0)) : v0);
+                    if (both)
+                        store_as(out + o + 1,
+                                 res ? __fadd_rn(to_f32(res[o + 1]), round_to<OutT>(v1)) : v1);
+                }
             }
         }
     }
@@ -422,7 +451,8 @@ int dispatch(const int8_t* x, const float* sx, const int8_t* w, const float* sw,
 // vec != 0 promises K % 16 == 0 and 16-byte aligned x and w (the wrapper
 // checks, and pads K for M > 16, where the kernel requires it); otherwise
 // the decode tile loads byte by byte.  res is null, or a contiguous [M, N]
-// residual of the output type.
+// residual of the output type; out_dtype TL_I32 (the int32 form) takes no
+// residual and reads no scales.
 extern "C" int tl_w8a8_matmul(const int8_t* x, const float* sx, const int8_t* w,
                               const float* sw, const void* res, void* out, int out_dtype,
                               int M, int N, int K, int vec, void* stream) {
@@ -431,5 +461,7 @@ extern "C" int tl_w8a8_matmul(const int8_t* x, const float* sx, const int8_t* w,
     if (out_dtype == TL_F32) return dispatch<float>(x, sx, w, sw, res, out, M, N, K, vec, st);
     if (out_dtype == TL_BF16)
         return dispatch<__nv_bfloat16>(x, sx, w, sw, res, out, M, N, K, vec, st);
+    if (out_dtype == TL_I32 && !res)
+        return dispatch<int32_t>(x, sx, w, sw, res, out, M, N, K, vec, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

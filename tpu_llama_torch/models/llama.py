@@ -104,7 +104,10 @@ from tpu_llama_torch.config import ModelConfig
 from tpu_llama_torch.device import resolve_device, upload
 from tpu_llama_torch.io.checkpoint import RawWeights
 from tpu_llama_torch.ops.attention import (
+    _dma_block,
+    _norm_block,
     attention_prefill,
+    decode_splits,
     flash_decode_attention,
     flash_decode_attention_dma,
     flash_decode_attention_fresh,
@@ -115,12 +118,13 @@ from tpu_llama_torch.ops.attention import (
     kv_pool_write_chunk,
     paged_flash_decode_attention_dma,
     paged_flash_decode_attention_fresh,
+    norm_splits,
     paged_flash_prefill_attention,
     quantize_kv,
 )
 from tpu_llama_torch.ops.fused_layer import MAX_ROWS, fused_layer_linear, w8a8_matmul_stacked
 from tpu_llama_torch.ops.fused_step import fused_step_layer
-from tpu_llama_torch.ops.fused_step2 import fused_step2_layer
+from tpu_llama_torch.ops.fused_step2 import fused_splits, fused_step2_layer
 from tpu_llama_torch.ops.fused_step3 import fused_step3_pair
 from tpu_llama_torch.ops.matmul import q8_matmul, w8a8_matmul, w8a8_matmul_prequant
 from tpu_llama_torch.ops.quant import (
@@ -542,6 +546,29 @@ def fuse_projections(params: LlamaParams, tp: int = 1) -> LlamaParams:
                                (lp.w1.shape[-1], lp.w3.shape[-1]), tp)
 
 
+def unfuse_projections(params: LlamaParams, config: ModelConfig) -> LlamaParams:
+    """The same weights in the unfused layouts: ``fuse_projections``' (tp =
+    1) wqkv split back into wq, wk, wv and w13 into w1, w3, as views of
+    their output columns (dense [L, in, out], or W8A8 rows of q [L, out,
+    in] and of s).  The unfused prefill body and decode stack run on them,
+    and the sharded engine splits them over ``model``."""
+    lp = params.layers
+    D, KVD, H = config.dim, config.kv_dim, config.hidden_dim
+
+    def cols(w, a, b):
+        if isinstance(w, ChannelQuantTensor):
+            return ChannelQuantTensor(q=w.q[..., a:b, :], s=w.s[..., a:b])
+        if isinstance(w, QuantTensor):
+            raise ValueError("unfuse_projections takes dense or W8A8 weights")
+        return w[..., a:b]
+
+    if _out_features(lp.wq) != D + 2 * KVD or _out_features(lp.w1) != 2 * H:
+        raise ValueError("unfuse_projections takes fuse_projections' layouts")
+    return dataclasses.replace(params, layers=dataclasses.replace(
+        lp, wq=cols(lp.wq, 0, D), wk=cols(lp.wq, D, D + KVD), wv=cols(lp.wq, D + KVD, D + 2 * KVD),
+        w1=cols(lp.w1, 0, H), w3=cols(lp.w1, H, 2 * H)))
+
+
 def tp_interleave(params: LlamaParams, config: ModelConfig, tp: int) -> LlamaParams:
     """Fused tp = 1 layouts ([q|k|v], [w1|w3]; dense, or W8A8 as
     ``random_quant_params(fuse=True)`` draws them) in the shard-interleaved
@@ -797,15 +824,31 @@ def _decode_attend(attn: str, cache):
     return flash_decode_attention_dma if attn == "flash_dma" else flash_decode_attention_fresh
 
 
-def _attend_fresh(attend, q, cache, pos32, fresh: dict, layer: int):
+def _attend_fresh(attend, q, cache, pos32, fresh: dict, layer: int, splits=None):
     """One deferred-flush attention call (K9 or K19, INT8 or fp form; K13
     or K20 on a paged cache) of ``layer`` over the cache's rows < pos plus
-    the step's ``fresh`` rows (``_cache_rows``)."""
+    the step's ``fresh`` rows (``_cache_rows``); ``splits`` the key-row
+    splits of a dense cache's kernel (None: its own rule)."""
     if isinstance(cache, PagedKVCache):
         return attend(q, cache.k, cache.v, cache.ks, cache.vs, cache.page_table, pos32,
                       fresh["k"], fresh["v"], fresh["ks"], fresh["vs"], layer=layer)
     return attend(q, cache.k, cache.v, pos32, fresh["k"], fresh["v"], cache.ks, cache.vs,
-                  fresh.get("ks"), fresh.get("vs"), layer=layer)
+                  fresh.get("ks"), fresh.get("vs"), layer=layer, splits=splits)
+
+
+def split_counts(cache, B: int, KVH: int) -> dict:
+    """The key-row splits each dense-cache decode attention takes for B
+    slots of KVH kv heads over ``cache``'s rows, by its own rule read at
+    these counts: ``"flash_dma"`` K9 (``decode_splits``), ``"flash"`` K19
+    (``norm_splits``), ``"fused"`` the cells of K12, K26 and K27
+    (``fused_splits``).  The rules read B and KVH, so a rank that holds a
+    share of the slots or the heads passes the counts the single-device
+    engine takes for the whole batch: the split merge order, and with it
+    every rounding after, stays the single device's."""
+    S, item = cache.k.shape[3], cache.k.element_size()
+    return {"flash_dma": decode_splits(B, KVH, _dma_block(S, None, item), S),
+            "flash": norm_splits(B, KVH, _norm_block(S, item), S),
+            "fused": fused_splits(B, KVH, _dma_block(S, None), S)}
 
 
 def _flush_buffers(cache, B: int) -> tuple:
@@ -841,7 +884,8 @@ def _flush(cache, rows: list, pos32, bufs=None) -> None:
 
 
 def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConfig,
-                 attn: str = "xla", precision: str = "highest"):
+                 attn: str = "xla", precision: str = "highest", splits: dict | None = None,
+                 row_mm=None):
     """The unfused decode layer stack (llama.py:1206): x [B, D] in -> x out;
     writes every layer's new K/V row into ``cache`` in place -- per layer
     for ``attn="xla"``, in one K10 flush after the layer loop for the
@@ -850,9 +894,14 @@ def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConf
     run (llama.py:1308-1327).  On a paged cache (llama.py:1237-1276) every
     mode is deferred-flush: the pool is read-only during the layer loop,
     each layer attends through K13 (K20 for ``"flash"``), and one K14 flush
-    writes every layer's row after it."""
+    writes every layer's row after it.  ``splits`` (``split_counts``)
+    pins the attention's key-row splits; ``row_mm`` takes the place of
+    ``matmul_any`` for wo and w2 (the sharded engine's row-sharded
+    products, ``parallel.spmd``)."""
     B = x.shape[0]
     attn = _resolve_decode_attn(attn, cache)
+    row_mm = row_mm or matmul_any
+    sp = (splits or {}).get(attn)
     NH, KVH, G, hd = config.n_heads, config.n_kv_heads, config.group_size, config.head_dim
     L = layers.rms_att.shape[0]
     flash = attn != "xla" or isinstance(cache, PagedKVCache)
@@ -870,15 +919,16 @@ def decode_stack(layers: LayerParams, cache, x, pos, cos, sin, config: ModelConf
         v = v.reshape(B, KVH, hd)
         if flash:
             rows.append(_cache_rows(cache, k, v, views[i]))
-            att = _attend_fresh(attend, q.reshape(B, KVH, G, hd), cache, pos32, rows[-1], i)
+            att = _attend_fresh(attend, q.reshape(B, KVH, G, hd), cache, pos32, rows[-1], i,
+                                sp)
             att = att.reshape(B, config.dim).to(x.dtype)
         else:
             _write_decode(cache, i, k, v, pos, config)
             att = _attend_decode(cache, i, q, pos, config)
-        x = matmul_any(att, lp.wo, residual=x, precision=precision)
+        x = row_mm(att, lp.wo, residual=x, precision=precision)
         h = rmsnorm(x, lp.rms_ffn)
         gate, up = _project_gate_up(h, lp, config, precision)
-        x = matmul_any(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
+        x = row_mm(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
     if flash:
         _flush(cache, rows, pos32, bufs)
     return x
@@ -996,7 +1046,7 @@ def _split_rope(qkv, cos, sin, config: ModelConfig):
 
 
 def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: ModelConfig,
-                       attn: str, mega: bool = False):
+                       attn: str, mega: bool = False, splits: dict | None = None):
     """The two-launch fused decode layer stack (llama.py:978-1096): x0
     [B, D] in -> x f32 [B, D].  On a paged cache the attention is K13 (K20
     for ``"flash"``) and the flush K14 (llama.py:1009-1018, 1049-1054,
@@ -1009,8 +1059,10 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
     RoPE and quantize_kv, then one K27 launch -- the attention, its quant
     and K11's phases -- in place of the attention, K2 and K11; ``attn`` goes
     unread.  The residual stream stays f32 across layers, as JAX's scan
-    carry.  One K10 flush writes every layer's row after the loop."""
+    carry.  One K10 flush writes every layer's row after the loop.
+    ``splits`` (``split_counts``) pins the attention's key-row splits."""
     B, D = x0.shape
+    splits = splits or {}
     L = layers.rms_att.shape[0]
     attend = None if mega else _decode_attend(attn, cache)
     pos32 = pos.to(torch.int32)
@@ -1025,9 +1077,10 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
             r = rows[-1]
             x, qkv = fused_step_layer(x, q, r["k"], r["v"], r["ks"], r["vs"], cache.k, cache.v,
                                       cache.ks, cache.vs, pos32, layers.wo, layers.w1, layers.w2,
-                                      layers.wq, layers.rms_ffn, layers.rms_att, i, L)
+                                      layers.wq, layers.rms_ffn, layers.rms_att, i, L,
+                                      splits=splits.get("fused"))
             continue
-        att = _attend_fresh(attend, q, cache, pos32, rows[-1], i)
+        att = _attend_fresh(attend, q, cache, pos32, rows[-1], i, splits.get(attn))
         attq, satt = quantize_activations(att.reshape(B, D))
         x, qkv = fused_layer_linear(x, attq, satt, layers.wo, layers.w1, layers.w2, layers.wq,
                                     layers.rms_ffn, layers.rms_att, i, L)
@@ -1036,7 +1089,7 @@ def fused_decode_stack(layers: LayerParams, cache, x0, pos, cos, sin, config: Mo
 
 
 def _mega_prologue(layers: LayerParams, cache: QuantKVCache, x, pos32, cos, sin,
-                   config: ModelConfig):
+                   config: ModelConfig, splits: int | None = None):
     """mega2's and mega3's prologue (llama.py:743-769): layer 0's qkv (K3,
     K8), RoPE and quantize_kv, layer 0's attention (K9) and its quant (K2).
     Returns (attq, satt, rows): rows are the step's flush buffers (k, ks,
@@ -1046,7 +1099,7 @@ def _mega_prologue(layers: LayerParams, cache: QuantKVCache, x, pos32, cos, sin,
     KVH, hd = config.n_kv_heads, config.head_dim
     q, (kq, ks), (vq, vs) = _split_qkv(_decode_prologue(layers, x, config), cos, sin, config)
     att = flash_decode_attention_dma(q, cache.k, cache.v, pos32, kq, vq, cache.ks, cache.vs,
-                                     ks, vs, layer=0)
+                                     ks, vs, layer=0, splits=splits)
     attq, satt = quantize_activations(att.reshape(B, D))
     rows = (torch.empty((L, B, KVH, hd), dtype=torch.int8, device=x.device),
             torch.empty((L, B, KVH), dtype=torch.float32, device=x.device),
@@ -1058,45 +1111,51 @@ def _mega_prologue(layers: LayerParams, cache: QuantKVCache, x, pos32, cos, sin,
 
 
 def mega2_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
-                       config: ModelConfig):
+                       config: ModelConfig, splits: dict | None = None):
     """The mega2 layer stack (llama.py:712-805): x0 [B, D] in -> x f32
     [B, D].  Prologue: K3 and K8 (layer 0's qkv), RoPE and quantize_kv,
     K9 (layer 0's attention), K2; then one K12 launch per layer (layer l's
     linear work and layer l + 1's attention), each writing layer l + 1's
-    fresh rows straight into the step's flush buffers; one K10 flush."""
+    fresh rows straight into the step's flush buffers; one K10 flush.
+    ``splits`` (``split_counts``) pins K9's and K12's key-row splits."""
     L = layers.rms_att.shape[0]
     pos32 = pos.to(torch.int32)
     x = x0.float()
-    attq, satt, rows = _mega_prologue(layers, cache, x, pos32, cos, sin, config)
+    splits = splits or {}
+    attq, satt, rows = _mega_prologue(layers, cache, x, pos32, cos, sin, config,
+                                      splits.get("flash_dma"))
     for i in range(L):
         nxt = min(i + 1, L - 1)  # the last launch computes no rows: its buffers go unread
         x, attq, satt, *_ = fused_step2_layer(
             x, attq, satt, cache.k, cache.v, cache.ks, cache.vs, pos32, cos, sin, layers.wo,
             layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att, i, L,
-            config.n_heads, out=tuple(r[nxt] for r in rows))
+            config.n_heads, out=tuple(r[nxt] for r in rows), splits=splits.get("fused"))
     kv_cache_flush_rows(rows[0], rows[2], pos32, cache.k, cache.v, rows[1], rows[3], cache.ks,
                         cache.vs)
     return x
 
 
 def mega3_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, sin,
-                       config: ModelConfig):
+                       config: ModelConfig, splits: dict | None = None):
     """The mega3 layer stack (llama.py:826-905): x0 [B, D] in -> x f32
     [B, D].  mega2's prologue, then one K26 launch per pair of layers
     (l0, l0 + 1): their linear work and the attentions of layers l0 + 1 and
     l0 + 2, writing both layers' fresh rows straight into the step's flush
     buffers (the last pair's second set goes to ``rows[L - 1]``, unwritten,
-    as mega2's last launch); one K10 flush."""
+    as mega2's last launch); one K10 flush.  ``splits`` as mega2's."""
     L = layers.rms_att.shape[0]
     pos32 = pos.to(torch.int32)
     x = x0.float()
-    attq, satt, rows = _mega_prologue(layers, cache, x, pos32, cos, sin, config)
+    splits = splits or {}
+    attq, satt, rows = _mega_prologue(layers, cache, x, pos32, cos, sin, config,
+                                      splits.get("flash_dma"))
     for l0 in range(0, L, 2):
         x, attq, satt, *_ = fused_step3_pair(
             x, attq, satt, cache.k, cache.v, cache.ks, cache.vs, pos32, cos, sin, layers.wo,
             layers.w1, layers.w2, layers.wq, layers.rms_ffn, layers.rms_att, l0, L,
             config.n_heads, out=tuple(tuple(r[i] for r in rows)
-                                      for i in (l0 + 1, min(l0 + 2, L - 1))))
+                                      for i in (l0 + 1, min(l0 + 2, L - 1))),
+            splits=splits.get("fused"))
     kv_cache_flush_rows(rows[0], rows[2], pos32, cache.k, cache.v, rows[1], rows[3], cache.ks,
                         cache.vs)
     return x
@@ -1104,7 +1163,7 @@ def mega3_decode_stack(layers: LayerParams, cache: QuantKVCache, x0, pos, cos, s
 
 def forward_decode(params: LlamaParams, cache, tokens: torch.Tensor, pos: torch.Tensor,
                    config: ModelConfig, attn: str = "auto", fused="auto",
-                   precision: str = "highest"):
+                   precision: str = "highest", split_rows: int | None = None):
     """One decode step for a batch (llama.py:1101): tokens/pos [B].
     ``attn``: one of ``DECODE_ATTN`` (see ``_resolve_decode_attn``).
     ``fused`` (see ``_resolve_fused``): False runs the unfused
@@ -1115,23 +1174,28 @@ def forward_decode(params: LlamaParams, cache, tokens: torch.Tensor, pos: torch.
     device, the weights and the cache (never mega or mega3).  The fused
     paths carry the residual stream in f32 (llama.py:996) and run the
     classifier at "default" precision (llama.py:974).  ``precision``
-    reaches dense float32 products (see ``dense_matmul``).  Returns
-    (logits [B, V] f32, cache) -- the cache updated in place."""
+    reaches dense float32 products (see ``dense_matmul``).  ``split_rows``
+    (a dense cache): the batch the attention kernels' split rules read in
+    place of B (``split_counts``), for a data-parallel rank that decodes a
+    share of the slots as the whole batch decodes.  Returns (logits [B, V]
+    f32, cache) -- the cache updated in place."""
     attn = _resolve_decode_attn(attn, cache)
     fused = _resolve_fused(fused, attn, params, config, cache, tokens.shape[0])
     tokens, pos = tokens.long(), pos.long()
     x = params.tok_emb[tokens]
     cos, sin = params.rope_cos[pos], params.rope_sin[pos]
+    sp = (None if split_rows is None or isinstance(cache, PagedKVCache)
+          else split_counts(cache, split_rows, config.n_kv_heads))
     if fused == "mega2":
-        x = mega2_decode_stack(params.layers, cache, x, pos, cos, sin, config)
+        x = mega2_decode_stack(params.layers, cache, x, pos, cos, sin, config, sp)
     elif fused == "mega3":
-        x = mega3_decode_stack(params.layers, cache, x, pos, cos, sin, config)
+        x = mega3_decode_stack(params.layers, cache, x, pos, cos, sin, config, sp)
     elif fused:
         x = fused_decode_stack(params.layers, cache, x, pos, cos, sin, config, attn,
-                               mega=fused == "mega")
+                               mega=fused == "mega", splits=sp)
     else:
         x = decode_stack(params.layers, cache, x, pos, cos, sin, config, attn=attn,
-                         precision=precision)
+                         precision=precision, splits=sp)
     x = rmsnorm(x, params.rms_final)
     prec = "default" if fused else precision
     return matmul_any(x, params.wcls, precision=prec).float(), cache
@@ -1282,15 +1346,18 @@ def _attend_layer(q, cache, i: int, start, out_dtype, attn: str):
 
 
 def _prefill_layer_at(x, lp: LayerParams, cache, i: int, cos, sin, start, config: ModelConfig,
-                      precision: str = "highest", fits: bool = True, attn: str = "flash"):
+                      precision: str = "highest", fits: bool = True, attn: str = "flash",
+                      row_mm=None):
     """Layer ``i`` of the unfused prefill body at any start (``layer_step``,
     llama.py:1510-1518, :2153-2204): the projections through
     ``matmul_any``, RoPE at each row's own positions, the K/V quantized
     (INT8 cache) or cast to the cache's dtype (fp), written at start + t
     (``_write_rows``; ``fits`` as there), then ``_attend_layer`` over the
     layer's cache (K6, or ``attention_prefill`` for ``attn="xla"``).
-    cos/sin [B, T, hd/2] or [T, hd/2]."""
+    cos/sin [B, T, hd/2] or [T, hd/2].  ``row_mm`` takes the place of
+    ``matmul_any`` for wo and w2 (``decode_stack``'s)."""
     B, T = x.shape[:2]
+    row_mm = row_mm or matmul_any
     NH, KVH, hd = config.n_heads, config.n_kv_heads, config.head_dim
     h = rmsnorm(x, lp.rms_att)
     q, k, v = _project_qkv(h, lp, config, precision)
@@ -1298,10 +1365,10 @@ def _prefill_layer_at(x, lp: LayerParams, cache, i: int, cos, sin, start, config
     k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
     _write_rows(cache, i, _cache_rows(cache, k, v.reshape(B, T, KVH, hd)), start, config, fits)
     att = _attend_layer(q, cache, i, start, x.dtype, attn)
-    x = matmul_any(att, lp.wo, residual=x, precision=precision)
+    x = row_mm(att, lp.wo, residual=x, precision=precision)
     h = rmsnorm(x, lp.rms_ffn)
     gate, up = _project_gate_up(h, lp, config, precision)
-    return matmul_any(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
+    return row_mm(F.silu(gate) * up, lp.w2, residual=x, precision=precision)
 
 
 def _prefill_layer_fused_at(x, lp: LayerParams, cache: QuantKVCache, i: int, cos, sin, start,

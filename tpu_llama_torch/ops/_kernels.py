@@ -14,7 +14,8 @@ to ``PLAIN_CALLS[kernel]`` when it ran the plain PyTorch version for a CPU
 tensor.  They are process-wide counters, read by ``chip_smoke.py`` to show
 that a run went through the kernels.  The fp-cache forms of K6, K7, K9, K10,
 K19, K21 and K28 count under their own ids (``form``: ``"K6:f32"``, ``"K6:bf16"``),
-one templated kernel each with its INT8 form.
+one templated kernel each with its INT8 form; so does K1's int32 form
+(``"K1:i32"``).
 """
 
 from __future__ import annotations
@@ -144,6 +145,9 @@ KERNELS = {"K1": "w8a8_matmul", "K2": "quantize_rows", "K3": "rmsnorm_quantize",
            "K21": "flash_decode", "K22": "paged_flash_decode", "K23": "fused_ffn",
            "K24": "fused_rms_qkv", "K25": "q8_matmul", "K26": "fused_step3",
            "K27": "fused_step", "K28": "kv_write_decode", "K29": "w8a8_rows_resident"}
+# K1's int32 form (the exact sums, no epilogue: the sharded engine's
+# row-sharded products) counts under an id of its own
+KERNELS["K1:i32"] = "w8a8_matmul"
 FP_FORMS = ("K6", "K7", "K9", "K10", "K19", "K21", "K28")  # kernels with an fp-cache form
 _FORM_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNELS.update({f"{k}:{sfx}": KERNELS[k] for k in FP_FORMS for sfx in _FORM_SUFFIX.values()})
@@ -151,6 +155,7 @@ LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh TlDtype
+I32_CODE = 3  # TL_I32: K1's int32 form's output
 _CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -40,15 +40,50 @@ def _check(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor) -> None:
                          f"w.q {tuple(w.q.shape)}, w.s {tuple(w.s.shape)}")
 
 
+def w8a8_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                  out_dtype=torch.float32, residual=None) -> torch.Tensor:
+    """K1's epilogue on its sums ``acc`` [M, N] (int32, or their exact
+    float value): ``(f32(acc) * sx[row]) * sw[col]`` (matmul.py:383-385),
+    one cast to ``out_dtype``; with a residual, ``residual + that`` in
+    ``out_dtype`` (matmul.py:407-409).  Each step is one correctly rounded
+    operation, as in the kernel, so on the int32 form's sums (all-reduced
+    over K-slices by the sharded engine) it gives K1's output bit for
+    bit."""
+    out = (acc.float() * sx[:, None] * sw[None, :]).to(out_dtype)
+    return out if residual is None else residual.to(out_dtype) + out
+
+
+def w8a8_matmul_int32_plain(xq: torch.Tensor, w: ChannelQuantTensor) -> torch.Tensor:
+    """Plain version of K1's int32 form: the exact sums xq @ w.q^T as int32
+    [M, N], the accumulation of ``w8a8_matmul_prequant_plain`` before its
+    epilogue (exact in float64: 127^2 * IN < 2^53)."""
+    return (xq.double() @ w.q.double().T).to(torch.int32)
+
+
 def w8a8_matmul_prequant_plain(xq, sx, w: ChannelQuantTensor, out_dtype=torch.float32,
                                residual=None):
     """Plain version of K1.  The int32 accumulation is exact in float64
-    (127^2 * IN < 2^53 for every IN this engine sees), then the epilogue of
-    matmul.py:383-385: ``(f32(acc) * sx[row]) * sw[col]``, one cast; with a
-    residual, ``residual + that`` in ``out_dtype`` (matmul.py:407-409)."""
+    (127^2 * IN < 2^53 for every IN this engine sees), then
+    ``w8a8_epilogue``."""
     acc = (xq.double() @ w.q.double().T).float()
-    out = (acc * sx[:, None] * w.s[None, :]).to(out_dtype)
-    return out if residual is None else residual.to(out_dtype) + out
+    return w8a8_epilogue(acc, sx, w.s, out_dtype, residual)
+
+
+def w8a8_matmul_int32(xq: torch.Tensor, w: ChannelQuantTensor) -> torch.Tensor:
+    """K1's int32 form: xq int8 [M, IN] times w [OUT, IN] -> the exact
+    int32 sums [M, OUT], no epilogue (the scales go unread).  The sharded
+    engine runs it on a row-sharded product's K-slice, all-reduces the sums
+    and applies ``w8a8_epilogue`` once.  K1's kernel (both its forms, by M)
+    on CUDA tensors, counted as ``"K1:i32"``; the plain version on CPU
+    ones."""
+    if xq.dtype != torch.int8 or w.q.dtype != torch.int8:
+        raise TypeError("w8a8 operands must be int8")
+    if xq.dim() != 2 or w.q.dim() != 2 or w.q.shape[1] != xq.shape[1]:
+        raise ValueError(f"want xq [M, IN] and w.q [OUT, IN], got {tuple(xq.shape)}, "
+                         f"{tuple(w.q.shape)}")
+    if _kernels.on_cpu("K1:i32", xq, w.q):
+        return w8a8_matmul_int32_plain(xq, w)
+    return launch_w8a8("K1:i32", xq, None, w, torch.int32)
 
 
 def w8a8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: ChannelQuantTensor,
@@ -256,12 +291,14 @@ def w8a8_raster(m: int, n: int) -> list[tuple[int, int]]:
 
 def launch_w8a8(kernel: str, xq, sx, w: ChannelQuantTensor, out_dtype, residual=None):
     """Launch K1's CUDA kernel on checked CUDA operands, counted as
-    ``kernel`` (K1, or K8 for a layer view of stacked weights); above
+    ``kernel`` (K1, K8 for a layer view of stacked weights, K1:i32 for the
+    int32 form: ``out_dtype`` int32, ``sx`` None, scales unread); above
     W8A8_DECODE_ROWS rows K is zero-padded as ``w8a8_plan`` says and
     operands off 16-byte boundaries are copied, for TMA."""
-    code = _kernels.dtype_code(out_dtype)
-    xq, sx = xq.contiguous(), sx.contiguous()
-    wq, ws = w.q.contiguous(), w.s.contiguous()
+    acc = out_dtype == torch.int32
+    code = _kernels.I32_CODE if acc else _kernels.dtype_code(out_dtype)
+    xq, wq = xq.contiguous(), w.q.contiguous()
+    sx, ws = (None, None) if acc else (sx.contiguous(), w.s.contiguous())
     res = None if residual is None else residual.to(out_dtype).contiguous()
     m, k = xq.shape
     n = wq.shape[0]
@@ -277,9 +314,9 @@ def launch_w8a8(kernel: str, xq, sx, w: ChannelQuantTensor, out_dtype, residual=
         vec = k % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
-        _kernels.launch(kernel, xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                        None if res is None else res.data_ptr(), out.data_ptr(), code, m, n,
-                        plan.k, int(vec), _kernels.stream(xq))
+        _kernels.launch(kernel, xq.data_ptr(), None if acc else sx.data_ptr(), wq.data_ptr(),
+                        None if acc else ws.data_ptr(), None if res is None else res.data_ptr(),
+                        out.data_ptr(), code, m, n, plan.k, int(vec), _kernels.stream(xq))
     return out
 
 

@@ -1,6 +1,8 @@
 """Tensor parallelism over ``torch.distributed`` (port of tpu_llama/parallel):
 the (data, model) process mesh, the parameter and cache split rules, the
-explicit-TP decode and prefill, and the ring collective matmul."""
+explicit-TP decode and prefill, the sharded engine's forward (``spmd``: JAX's
+GSPMD program), the ring collective matmul, and the rank processes that run
+them (``launch``)."""
 
 from tpu_llama_torch.models.llama import tp_interleave  # noqa: F401
 from tpu_llama_torch.parallel.mesh import (  # noqa: F401
@@ -18,6 +20,11 @@ from tpu_llama_torch.parallel.sharding import (  # noqa: F401
     params_pspecs,
     shard_cache,
     shard_params,
+    shard_params_spmd,
+)
+from tpu_llama_torch.parallel.spmd import (  # noqa: F401
+    spmd_forward_decode,
+    spmd_forward_prefill,
 )
 from tpu_llama_torch.parallel.tp import (  # noqa: F401
     tp_forward_decode,

@@ -170,6 +170,16 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor
     return torch.cat(parts, dim=dim)
 
 
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
+    """The ``t`` of the rank at index ``src`` of ``axis`` (this rank's own
+    index on the other axis), on every rank of it: ``t`` is overwritten in
+    place on the others, and returned."""
+    group = mesh.group(axis)
+    if group is not None and mesh.size(axis) > 1:
+        dist.broadcast(t, src=dist.get_process_group_ranks(group)[src], group=group)
+    return t
+
+
 def ring_shift(t: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
     """JAX's ``ppermute`` with the ring permutation s -> s + 1: sends ``t``
     to the next rank of ``axis`` and returns what the previous one sent."""

@@ -267,13 +267,16 @@ def tp_forward_prefill(params: LlamaParams, cache, tokens: torch.Tensor,
 
 def tp_prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor,
                           lengths: torch.Tensor, slots, config: ModelConfig, mesh: Mesh,
-                          precision: str = "default", attn: str = "auto"):
+                          precision: str = "default", attn: str = "auto",
+                          logits_mode: str = "last"):
     """The explicit-TP admission (tp.py:350-423): fresh prompts [n, T]
     prefilled into a compact local cache of T rows, then landed in the local
     slot cache by K7 (``slots`` on the host), every bucket (the TPU's
     ``T % 128`` gate is a Mosaic rule).  dp = 1 only: the slots index the
-    whole batch.  Returns (last-token logits [n, V] on every rank,
-    cache)."""
+    whole batch.  Returns (last-token logits [n, V], or every position's
+    [n, T, V] for ``logits_mode="all"``, on every rank; cache)."""
+    if logits_mode not in ("all", "last"):
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
     if mesh.size(DATA_AXIS) != 1:
         raise ValueError("tp_prefill_into_slots is dp=1-only")
     attn = _resolve_attn(attn, cache)
@@ -285,7 +288,7 @@ def tp_prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor,
     logits, small = _tp_prefill_body(
         params, small, tokens, torch.zeros(n, dtype=torch.int32, device=tokens.device),
         lengths.long(), local=local, vocab_local=config.vocab_size // tp, mesh=mesh,
-        precision=precision, attn=attn, logits_mode="last")
+        precision=precision, attn=attn, logits_mode=logits_mode)
     kv_cache_scatter_slots(small.k, small.v, slots, cache.k, cache.v, small.ks, small.vs,
                            cache.ks, cache.vs)
     return _gather_logits(logits, mesh), cache

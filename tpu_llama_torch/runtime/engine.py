@@ -65,24 +65,40 @@ device.  The page table's host mirror reaches the card through
 ``device.upload`` after every change, so a wave's K16 and K17 read the
 table uploaded after its admission's reservations.
 
+``Engine(params, config, mesh=mesh)`` (engine.py:432-467, the mesh without
+``tp_fused``) is the sharded engine, JAX's GSPMD single program: ``params``
+are this rank's ``parallel.shard_params_spmd`` shard (dense, Q8_0 or
+unfused W8A8 above model = 1; any layout at model = 1), the cache its
+[L, max_batch / dp, KVH / tp, S, hd] shard: slot s lies on the ranks of
+data index s // (max_batch / dp).  Every method runs on the rank's shards
+(``parallel.spmd``): a decode step takes the whole slot batch and decodes
+the rank's rows; an admission, a continuation or an all-position prefill is
+computed by the ranks that hold its slots, and its logits are all-gathered
+over ``data`` to every rank; a prefix snapshot is broadcast from the slot's
+data rank to the others, so that it restores into any slot.
+
 ``Engine(params, config, mesh=mesh, tp_fused=True)`` (engine.py:432-467,
-518-531, 615-740) serves tensor-parallel: ``params`` are this rank's shard
-(``parallel.shard_params`` of ``fuse_projections(tp=...)`` W8A8 weights),
-the cache is this rank's kv-head shard, admissions run
-``tp_prefill_into_slots`` (one power-of-two bucket capped at seq_len, K6
-and K7 on the local cache), a decode step ``tp_forward_decode_fused``
-(K8, K9, K2, K23, K24 and K10, two all-reduces per layer); the sampled
-decode steps are the stepwise ones above, keys fold_in(base_key, pos).
-Paged KV and dp > 1 are refused, as in JAX; so is prefix reuse
-(``prefill_continue``, ``snapshot_slot``: a ``ContinuousBatcher`` with a
-prefix cache turns it off), which JAX runs through its GSPMD program.  JAX
-drives the mesh from one controller; the port runs SPMD: every rank builds
-the same Engine and the same ``ContinuousBatcher`` and feeds them the same
-requests.  Each rank's
-logits are all-gathered to [B, V], so greedy picks, host sampling and the
-device sampler give every rank the same tokens and the batchers stay in
-step; rank 0 alone emits (``parallel.launch``).  That is the port's
-counterpart of JAX's single controller.
+518-531, 615-740) serves tensor-parallel through the explicit-TP kernels:
+``params`` are this rank's shard (``parallel.shard_params`` of
+``fuse_projections(tp=...)`` W8A8 weights), the cache is this rank's
+kv-head shard, admissions run ``tp_prefill_into_slots`` (one power-of-two
+bucket capped at seq_len, K6 and K7 on the local cache), a decode step
+``tp_forward_decode_fused`` (K8, K9, K2, K23, K24 and K10, two all-reduces
+per layer); the sampled decode steps are the stepwise ones above, keys
+fold_in(base_key, pos); prefix reuse continues a suffix through
+``tp_forward_prefill`` at start_pos > 0 over the slots' rows of the local
+cache, and snapshots copy the local shard.  Paged KV and dp > 1 are
+refused, as in JAX; so is paged KV on the sharded engine (no JAX test holds
+it: ROADMAP queue 1 item 11).
+
+JAX drives the mesh from one controller; the port runs SPMD: every rank
+builds the same Engine and the same ``ContinuousBatcher`` and feeds them
+the same requests.  Each rank's logits are all-gathered to [B, V], so
+greedy picks, host sampling and the device sampler give every rank the same
+tokens and the batchers stay in step; rank 0 alone emits.
+``parallel.launch.MeshEngine`` drives such ranks from one process, with
+this class's methods: that is the port's counterpart of JAX's single
+controller.
 """
 
 from __future__ import annotations
@@ -110,10 +126,16 @@ from tpu_llama_torch.models.llama import (
 )
 from tpu_llama_torch.ops.attention import kv_cache_scatter_slots, kv_pool_scatter_pages
 from tpu_llama_torch.ops.sampling import fold_in, keys_numpy, sample_nosort
-from tpu_llama_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from tpu_llama_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, all_gather, broadcast
+from tpu_llama_torch.parallel.spmd import (
+    spmd_forward_decode,
+    spmd_prefill_chunked_rows,
+    spmd_prefill_rows,
+)
 from tpu_llama_torch.parallel.tp import (
     _local_config,
     tp_forward_decode_fused,
+    tp_forward_prefill,
     tp_prefill_into_slots,
 )
 from tpu_llama_torch.runtime.paged import PagePool
@@ -188,7 +210,7 @@ def _make_page_pool(num_pages: int, page_size: int, slots: int, max_pages_per_sl
 
 def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, lengths: torch.Tensor,
                         slots: Sequence[int], config: ModelConfig, precision: str = "default",
-                        attn: str = "auto", logits_mode: str = "last"):
+                        attn: str = "auto", logits_mode: str = "last", mesh=None):
     """Compact prefill + scatter into the slot cache (engine.py:96).  Returns
     (logits, cache) with the cache updated in place: the next-token logits
     [Bp, V] for ``logits_mode="last"``, every position's [Bp, T, V] for
@@ -200,18 +222,30 @@ def _prefill_into_slots(params: LlamaParams, cache, tokens: torch.Tensor, length
     does not have.  On a paged cache K15 lands the block in the slots' pages
     instead (engine.py:148-161); ``prefill_into_slots_waved`` takes the
     groups that skip the block.  ``slots`` stays on the host: the wrappers check it there and upload
-    it."""
+    it.  With a ``mesh`` (the sharded engine) the rows are this rank's, the
+    block holds its kv heads and the prefill is ``parallel.spmd``'s, its
+    logits gathered over ``model``."""
     Bp, T = tokens.shape
-    small = make_kv_cache(config, Bp, kv_dtype=cache.k.dtype, seq_len=T, device=tokens.device)
+    tp = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    small = make_kv_cache(_local_config(config, tp), Bp, kv_dtype=cache.k.dtype, seq_len=T,
+                          device=tokens.device)
     fresh = logits_mode == "last"
+    start = torch.zeros(Bp, dtype=torch.long)
     if fresh and T % _CHUNK == 0 and Bp * T > _CHUNKED_ROWS:
-        last, small = forward_prefill_chunked(params, small, tokens, lengths, config,
-                                              chunk=_CHUNK, precision=precision, attn=attn)
-    else:
+        if mesh is None:
+            last, small = forward_prefill_chunked(params, small, tokens, lengths, config,
+                                                  chunk=_CHUNK, precision=precision, attn=attn)
+        else:
+            last, small = spmd_prefill_chunked_rows(params, small, tokens, lengths, config, mesh,
+                                                    chunk=_CHUNK, precision=precision, attn=attn)
+    elif mesh is None:
         last, small = forward_prefill(
-            params, small, tokens, start_pos=torch.zeros(Bp, dtype=torch.long), lengths=lengths,
-            config=config, logits_mode=logits_mode, assume_fresh=fresh, precision=precision,
-            attn=attn)
+            params, small, tokens, start_pos=start, lengths=lengths, config=config,
+            logits_mode=logits_mode, assume_fresh=fresh, precision=precision, attn=attn)
+    else:
+        last, small = spmd_prefill_rows(params, small, tokens, start, lengths, config, mesh,
+                                        logits_mode, assume_fresh=fresh, precision=precision,
+                                        attn=attn)
     if isinstance(cache, PagedKVCache):
         kv_pool_scatter_pages(small.k, small.v, small.ks, small.vs, slots, cache.page_table,
                               cache.k, cache.v, cache.ks, cache.vs)
@@ -284,9 +318,10 @@ class Engine:
             raise ValueError(f"kv_layout {kv_layout!r}: want 'dense' or 'paged'")
         if precision not in PRECISIONS:
             raise ValueError(f"precision {precision!r}: want one of {PRECISIONS}")
-        if mesh is not None and not tp_fused:
-            raise NotImplementedError("a mesh without tp_fused is JAX's GSPMD-sharded single "
-                                      "program: ROADMAP queue 1 item 11")
+        self.spmd = mesh is not None and not tp_fused
+        if self.spmd and kv_layout == "paged":
+            raise NotImplementedError("a paged cache under a mesh (no JAX test holds it): "
+                                      "ROADMAP queue 1 item 11")
         if tp_fused:
             if mesh is None:
                 raise ValueError("tp_fused requires a mesh")
@@ -294,7 +329,7 @@ class Engine:
                 raise ValueError("tp_fused + paged KV not supported yet")
             if mesh.size(DATA_AXIS) != 1:
                 raise ValueError("tp_fused admits through tp_prefill_into_slots, dp=1-only")
-        self.device = mesh.device if tp_fused else resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if params.tok_emb.device.type != self.device.type:
             raise ValueError(f"params live on {params.tok_emb.device}, the engine on "
                              f"{self.device}")
@@ -311,6 +346,24 @@ class Engine:
                                        kv_dtype=kv_dtype, seq_len=self.seq_len,
                                        device=self.device)
             self.decode_attn, self.decode_fused = "flash", "tp"
+            self.prefill_attn = _resolve_prefill_attn(prefill_attn, self.cache)
+            return
+        if self.spmd:  # this rank's shard of the cache: its slots and kv heads
+            dp, tp = mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS)
+            if max_batch % dp:
+                raise ValueError(f"{max_batch} slots do not split over dp={dp}")
+            self.slots_per_rank = max_batch // dp
+            self.cache = make_kv_cache(_local_config(config, tp), self.slots_per_rank,
+                                       kv_dtype=kv_dtype, seq_len=self.seq_len,
+                                       device=self.device)
+            self.decode_attn = _resolve_decode_attn(attn, self.cache)
+            if tp > 1 and fused not in ("auto", False):
+                raise ValueError(f"fused decode {fused!r} above model = 1: the sharded engine "
+                                 "decodes through the unfused stack")
+            # the whole batch's choice, as the single device makes it: a
+            # rank's share of the slots would take mega2 where it does not
+            self.decode_fused = False if tp > 1 else _resolve_fused(
+                fused, self.decode_attn, params, config, self.cache, max_batch)
             self.prefill_attn = _resolve_prefill_attn(prefill_attn, self.cache)
             return
         if kv_layout == "paged":  # INT8 whatever kv_dtype says, as in JAX (engine.py:452-458)
@@ -363,6 +416,31 @@ class Engine:
     def _ints(self, a) -> torch.Tensor:
         return upload(a, self.device, torch.long)
 
+    # ---- the sharded engine's slots (data parallelism) ----
+    def _owners(self, slots: Sequence[int]) -> list[int]:
+        """The data index that holds each slot."""
+        return [int(s) // self.slots_per_rank for s in slots]
+
+    def _mine(self, slots: Sequence[int]) -> list[int]:
+        """Which of ``slots`` (by position) this rank's data index holds."""
+        d = self.mesh.data_index
+        return [i for i, o in enumerate(self._owners(slots)) if o == d]
+
+    def _merge(self, local, slots: Sequence[int], tail: tuple) -> torch.Tensor:
+        """Rows that each data index computed for the slots it holds (in
+        ``slots`` order; ``local`` None where it holds none) -> every slot's
+        row in ``slots`` order, on every rank: padded to the most rows any
+        data index holds and all-gathered over ``data``."""
+        if self.mesh.size(DATA_AXIS) == 1:
+            return local
+        owners = self._owners(slots)
+        m = max(owners.count(d) for d in set(owners))
+        buf = torch.zeros((m, *tail), dtype=torch.float32, device=self.device)
+        if local is not None:
+            buf[:local.shape[0]] = local
+        rows = all_gather(buf, self.mesh, DATA_AXIS, 0)
+        return rows[[o * m + owners[:i].count(o) for i, o in enumerate(owners)]]
+
     def _floats(self, a) -> torch.Tensor:
         return upload(a, self.device, torch.float32)
 
@@ -393,12 +471,7 @@ class Engine:
             raise ValueError("prompts must be non-empty (include BOS)")
         if int(lengths.max()) > self.seq_len:
             raise ValueError("prompt exceeds cache")
-        groups, start, n = [], 0, len(prompts)
-        while start < n:
-            g = 1 << ((n - start).bit_length() - 1)  # largest pow2 <= rest
-            groups.append((start, g, min(_bucket(int(lengths[start:start + g].max())),
-                                         self.seq_len)))
-            start += g
+        n = len(prompts)
         if self.pool is not None:
             reserve = list(reserve_tokens) if reserve_tokens is not None else lengths.tolist()
             for slot, p, r in zip(slots, prompts, reserve):
@@ -409,6 +482,14 @@ class Engine:
                         f"{self.pool.pages_needed(max(int(r), len(p)))} pages, "
                         f"{self.pool.free_pages} free): gate admissions with Engine.can_admit")
             self._sync_page_table()
+        if self.spmd:  # the slots of this rank's data index, grouped as above
+            mine = self._mine(slots)
+            local = None
+            if mine:
+                local = self._prefill_groups([prompts[i] for i in mine],
+                                             [int(slots[i]) % self.slots_per_rank for i in mine])
+            last = self._merge(local, slots, (self.config.vocab_size,))
+            return last if return_device else last.cpu().numpy()
         if self.tp_fused:  # one group, T capped at the cache length (engine.py:518-531)
             T = min(_bucket(int(lengths.max())), self.seq_len)
             toks = np.zeros((n, T), np.int64)
@@ -419,38 +500,68 @@ class Engine:
                 [int(s) for s in slots], self.config, self.mesh, self.precision,
                 self.prefill_attn)
             return last if return_device else last.cpu().numpy()
-        outs = []
-        for start, g, T in groups:
+        last = self._prefill_groups(prompts, slots)
+        return last if return_device else last.cpu().numpy()
+
+    def _prefill_groups(self, prompts, slots) -> torch.Tensor:
+        """``prefill``'s power-of-two groups, largest first, each bucketing
+        its own T (engine.py:533-561), through ``prefill_into_slots_waved``
+        (the sharded engine: ``_prefill_into_slots`` on the rank's shards,
+        ``slots`` local).  Returns the next-token logits [n, V]."""
+        lengths = np.array([len(p) for p in prompts], np.int64)
+        outs, start, n = [], 0, len(prompts)
+        while start < n:
+            g = 1 << ((n - start).bit_length() - 1)  # largest pow2 <= rest
+            T = min(_bucket(int(lengths[start:start + g].max())), self.seq_len)
             toks = np.zeros((g, T), np.int64)
             for i, p in enumerate(prompts[start:start + g]):
                 toks[i, :len(p)] = p
-            last, self.cache = prefill_into_slots_waved(
-                self.params, self.cache, self._ints(toks),
-                self._ints(lengths[start:start + g]),
-                [int(s) for s in slots[start:start + g]], self.config, self.precision,
-                self.prefill_attn)
+            args = (self.params, self.cache, self._ints(toks),
+                    self._ints(lengths[start:start + g]),
+                    [int(s) for s in slots[start:start + g]], self.config, self.precision,
+                    self.prefill_attn)
+            if self.spmd:
+                last, self.cache = _prefill_into_slots(*args, mesh=self.mesh)
+            else:
+                last, self.cache = prefill_into_slots_waved(*args)
             outs.append(last)
-        last = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
-        return last if return_device else last.cpu().numpy()
+            start += g
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     def prefill_with_all_logits(self, prompt: Sequence[int], slot: int) -> np.ndarray:
         """Prefill one prompt into ``slot`` and return the logits at EVERY
         prompt position [len(prompt), V] (engine.py:563-578), for
         teacher-forced compat generation and perplexity.  A paged engine
         releases the slot's pages and reserves the prompt's anew.  The
-        prompt pads to a power-of-two bucket capped at seq_len."""
-        if self.tp_fused:
-            raise NotImplementedError("all-position logits on the TP engine")
+        prompt pads to a power-of-two bucket capped at seq_len.  The sharded
+        engine prefills it on the ranks that hold ``slot`` and gathers the
+        logits to every rank; the TP engine through ``tp_prefill_into_slots``
+        with all-position logits."""
         n = len(prompt)
         if not 1 <= n <= self.seq_len:
             raise ValueError(f"prompt of {n} tokens: want 1 to {self.seq_len}")
+        T = min(_bucket(n), self.seq_len)
+        toks = np.zeros((1, T), np.int64)
+        toks[0, :n] = prompt
+        if self.tp_fused:
+            logits, self.cache = tp_prefill_into_slots(
+                self.params, self.cache, self._ints(toks), self._ints([n]), [int(slot)],
+                self.config, self.mesh, self.precision, self.prefill_attn, logits_mode="all")
+            return logits[0, :n].cpu().numpy()
+        if self.spmd:
+            local = None
+            if self._mine([slot]):
+                local, self.cache = _prefill_into_slots(
+                    self.params, self.cache, self._ints(toks), self._ints([n]),
+                    [int(slot) % self.slots_per_rank], self.config, self.precision,
+                    self.prefill_attn, logits_mode="all", mesh=self.mesh)
+            logits = self._merge(local, [slot], (T, self.config.vocab_size))
+            return logits[0, :n].cpu().numpy()
         if self.pool is not None:
             self.pool.release(slot)
             if self.pool.reserve(slot, n) is None:
                 raise RuntimeError("page pool exhausted")
             self._sync_page_table()
-        toks = np.zeros((1, min(_bucket(n), self.seq_len)), np.int64)
-        toks[0, :n] = prompt
         logits, self.cache = _prefill_into_slots(
             self.params, self.cache, self._ints(toks), self._ints([n]), [int(slot)], self.config,
             self.precision, self.prefill_attn, logits_mode="all")
@@ -468,10 +579,11 @@ class Engine:
         cache only the pages that can hold attended keys are gathered:
         ``mp_cap`` = ceil(bucket(max start + T) / ps) pages
         (``_prefill_continue_paged``, engine.py:591-604).  Suffixes pad to one
-        power-of-two bucket.  Returns next-token logits [n, V]."""
-        if self.tp_fused:
-            raise NotImplementedError("prefix reuse on the TP engine (a TP continuation "
-                                      "prefill): ROADMAP queue 1 item 11")
+        power-of-two bucket.  The sharded engine continues each suffix on the
+        ranks that hold its slot (``parallel.spmd``) and gathers the logits to
+        every rank; the TP engine runs ``tp_forward_prefill`` at start_pos =
+        starts over the slots' rows of its local cache.  Returns next-token
+        logits [n, V]."""
         if not suffixes or not len(suffixes) == len(slots) == len(starts):
             raise ValueError("need one slot and one start per suffix, and at least one suffix")
         lengths = np.array([len(s) for s in suffixes], np.int64)
@@ -492,15 +604,42 @@ class Engine:
                                              [int(s) for s in slots], self.config,
                                              self.precision, mp_cap, self.prefill_attn)
             return logits if return_device else logits.cpu().numpy()
+        if self.spmd:
+            mine = self._mine(slots)
+            local = None
+            if mine:
+                local = self._continue_slots(
+                    toks[mine], host_starts[mine], lengths[mine],
+                    [int(slots[i]) % self.slots_per_rank for i in mine])
+            logits = self._merge(local, slots, (self.config.vocab_size,))
+        else:
+            logits = self._continue_slots(toks, host_starts, lengths, slots)
+        return logits if return_device else logits.cpu().numpy()
+
+    def _continue_slots(self, toks, host_starts, lengths, slots) -> torch.Tensor:
+        """The dense continuation (``_prefill_continue_slots``, engine.py:
+        200-223): the slots' whole caches gathered, prefilled at start_pos =
+        starts, written back.  ``slots`` index the local cache."""
         idx = self._ints(slots)
         sub = type(self.cache)(**{n: getattr(self.cache, n).index_select(1, idx)
                                   for n in self.cache.arrays})
-        logits, sub = forward_prefill(self.params, sub, self._ints(toks), host_starts,
-                                      self._ints(lengths), self.config, logits_mode="last",
-                                      precision=self.precision, attn=self.prefill_attn)
+        if self.tp_fused:
+            logits, sub = tp_forward_prefill(self.params, sub, self._ints(toks), host_starts,
+                                             self._ints(lengths), self.config, self.mesh,
+                                             self.precision, logits_mode="last",
+                                             attn=self.prefill_attn)
+        elif self.spmd:
+            logits, sub = spmd_prefill_rows(self.params, sub, self._ints(toks), host_starts,
+                                            self._ints(lengths), self.config, self.mesh,
+                                            "last", precision=self.precision,
+                                            attn=self.prefill_attn)
+        else:
+            logits, sub = forward_prefill(self.params, sub, self._ints(toks), host_starts,
+                                          self._ints(lengths), self.config, logits_mode="last",
+                                          precision=self.precision, attn=self.prefill_attn)
         for n in self.cache.arrays:
             getattr(self.cache, n).index_copy_(1, idx, getattr(sub, n))
-        return logits if return_device else logits.cpu().numpy()
+        return logits
 
     def decode(self, tokens: np.ndarray, pos: np.ndarray, return_device: bool = False):
         """One decode step over ALL slots. tokens/pos: [max_batch].  Returns
@@ -516,6 +655,13 @@ class Engine:
         if self.tp_fused:
             logits, self.cache = tp_forward_decode_fused(self.params, self.cache, tokens, pos,
                                                          self.config, self.mesh)
+            return logits
+        if self.spmd:
+            logits, self.cache = spmd_forward_decode(self.params, self.cache, tokens, pos,
+                                                     self.config, self.mesh,
+                                                     attn=self.decode_attn,
+                                                     fused=self.decode_fused,
+                                                     precision=self.precision)
             return logits
         logits, self.cache = forward_decode(self.params, self.cache, tokens, pos,
                                             self.config, attn=self.decode_attn,
@@ -649,13 +795,12 @@ class Engine:
         refcount and only the partial boundary page is copied on the
         device, into a page of its own (the slot goes on appending into its
         copy).  Returns None when the pool cannot spare that page now (the
-        caller simply does not cache).  The TP engine raises
-        NotImplementedError: it has no continuation prefill to resume a
-        snapshot from, and ``ContinuousBatcher`` then turns its prefix
-        cache off, as JAX's does (scheduler.py:368-374)."""
-        if self.tp_fused:
-            raise NotImplementedError("prefix reuse on the TP engine (a TP continuation "
-                                      "prefill): ROADMAP queue 1 item 11")
+        caller simply does not cache).  The mesh engines snapshot their local
+        shard; the sharded engine at dp > 1 broadcasts it from the slot's data
+        index over ``data``, so that every rank holds it and it restores into
+        any slot."""
+        if self.spmd and self.mesh.size(DATA_AXIS) > 1:
+            return self._snapshot_spmd(slot, length)
         if self.pool is not None:
             pool = self.pool
             row = [int(p) for p in pool.table[slot, :pool.pages_needed(length)]]
@@ -708,5 +853,25 @@ class Engine:
                 self._copy_pool_pages([c[0] for c in copies], [c[1] for c in copies])
             self._sync_page_table()
             return
+        if self.spmd:
+            if not self._mine([slot]):
+                return
+            slot = int(slot) % self.slots_per_rank
         for n in self.cache.arrays:
             getattr(self.cache, n)[:, slot, :, :length].copy_(snap[n], non_blocking=True)
+
+    def _snapshot_spmd(self, slot: int, length: int) -> dict:
+        """A snapshot of ``slot``'s rows [0, length) on every rank of its
+        model index: the owner's local rows broadcast over ``data``, then
+        copied to the host as ``snapshot_slot``'s."""
+        owner = self._owners([slot])[0]
+        mine = owner == self.mesh.data_index
+        snap = {"length": int(length)}
+        for n in self.cache.arrays:
+            arr = getattr(self.cache, n)
+            rows = (arr[:, int(slot) % self.slots_per_rank, :, :length].contiguous() if mine
+                    else torch.empty((arr.shape[0], arr.shape[2], length, *arr.shape[4:]),
+                                     dtype=arr.dtype, device=arr.device))
+            rows = broadcast(rows, self.mesh, DATA_AXIS, owner)
+            snap[n] = rows.cpu() if rows.is_cuda else rows
+        return snap

@@ -346,11 +346,7 @@ class ContinuousBatcher:
     def _store_prefix(self, seq: tuple, slot: int, logits) -> None:
         if seq in self._prefix:
             return
-        try:
-            snap = self.engine.snapshot_slot(slot, len(seq))
-        except NotImplementedError:  # an engine without prefix reuse: the cache turns off
-            self.prefix_cache_size = 0
-            return
+        snap = self.engine.snapshot_slot(slot, len(seq))
         if snap is None:  # a paged pool that cannot spare the boundary page
             return
         self._prefix[seq] = {"snap": snap, "logits": logits.clone()}
